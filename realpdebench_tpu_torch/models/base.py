@@ -1,0 +1,36 @@
+"""The model contract.
+
+Counterpart of ``realpdebench_tpu/models/base.py``. A model maps
+``[B, T_in, H, W, C_in] → [B, T_out, H, W, C_out]``. In JAX a stateless
+module plus a variables pytree is wrapped in a ``ModelBundle``; here the
+``nn.Module`` owns its parameters and buffers, so the bundle's ``predict``
+and ``loss`` are methods of the module itself.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
+
+
+class Model(nn.Module):
+    """Base of every ported model: ``forward(x)`` is the prediction."""
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """Deterministic forward in eval mode, without autograd; the
+        module's train/eval mode is restored afterwards."""
+        was_training = self.training
+        self.train(False)
+        try:
+            with torch.inference_mode():
+                return self(x)
+        finally:
+            self.train(was_training)
+
+    def loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Elementwise MSE of the prediction against ``y``."""
+        return mse(self(x), y.float())

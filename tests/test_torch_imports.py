@@ -1,0 +1,55 @@
+"""The port stands alone: importing every module of realpdebench_tpu_torch
+loads neither JAX nor the JAX package, and running it on the CPU never
+builds or loads the CUDA kernels. Checked in a fresh interpreter, since this
+test process has both packages loaded."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    import realpdebench_tpu_torch as pkg
+    from realpdebench_tpu_torch.ops import kernels
+
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for n in names:
+        importlib.import_module(n)
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith("jax.") or m == "realpdebench_tpu"
+                 or m.startswith("realpdebench_tpu."))
+    assert not bad, bad
+
+    def refuse_build():
+        raise AssertionError("CUDA kernels built during a CPU run")
+    kernels.build = refuse_build
+
+    import torch
+    from realpdebench_tpu_torch.data.normalizer import IdentityNormalizer
+    from realpdebench_tpu_torch.eval.rollout import make_rollout_fn
+    from realpdebench_tpu_torch.models.registry import build_model
+    from realpdebench_tpu_torch.utils.misc import make_generator
+
+    m = build_model(shapes=((4, 8, 8, 3), (4, 8, 8, 3)), model_name="fno",
+                    modes1=2, modes2=2, modes3=2, n_layers=2, width=8,
+                    generator=make_generator(0))
+    pred, _, _ = make_rollout_fn(m, IdentityNormalizer(), 2)(
+        torch.zeros(1, 4, 8, 8, 3), torch.zeros(1, 8, 8, 8, 3))
+    assert pred.shape == (1, 8, 8, 8, 3) and bool(torch.isfinite(pred).all())
+    assert kernels.library.cache_info().currsize == 0
+    assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert len(names) >= 12, names
+    print("OK", len(names))
+""")
+
+
+def test_port_imports_no_jax_and_builds_nothing_on_cpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("OK")

@@ -1,0 +1,99 @@
+"""CUDA kernels against their plain twins, on the card (marker ``gpu``).
+
+These need an NVIDIA Hopper GPU and nvcc, and skip elsewhere. Run them on
+the GPU host with ``python -m pytest -m gpu tests/test_torch_kernels.py``.
+They cover small and uneven shapes (C below 16, 2*m2 well below 32, H not a
+multiple of K2's row block) that chip_smoke.py, which runs the full
+benchmark width, does not. Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
+sides accumulate in f32, in another order); in bf16 1e-2·max|ref| (both
+sides compute in f32 from the same bf16 inputs and round once to bf16, so
+they differ by at most one bf16 step, 2^-8 relative).
+"""
+
+import pytest
+import torch
+
+from realpdebench_tpu_torch.ops import fno_layer as tfl
+from realpdebench_tpu_torch.ops import kernels
+
+pytestmark = pytest.mark.gpu
+
+SHAPES = [  # (B, Tp, Hp, Wp, C, m1, m2, m3)
+    (2, 6, 10, 12, 8, 2, 3, 4),
+    (1, 9, 13, 22, 32, 3, 5, 6),
+]
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, dtype):
+    ref = ref.float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), err
+
+
+def _inputs(shape, dtype, dev):
+    B, Tp, Hp, Wp, C, m1, m2, m3 = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    return dict(x=rn(B * Tp, Hp * Wp // 2, 2 * C).to(dtype),
+                a=1 + 0.1 * rn(C), b=0.1 * rn(C), wp=0.2 * rn(C, C),
+                bp=0.1 * rn(C), wr=0.1 * rn(4, m1, m2, m3, C, C),
+                wi=0.1 * rn(4, m1, m2, m3, C, C))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("act", ["none", "exact", "tanh"])
+def test_kernels_match_twins(cuda, shape, dtype, act):
+    B, Tp, Hp, Wp, C, m1, m2, m3 = shape
+    d = _inputs(shape, dtype, cuda)
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    kernels.reset_launches()
+    y = tfl.k1(d["x"], d["a"], d["b"], Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    _close(y, tfl.k1_plain(d["x"], d["a"], d["b"], cst, Hp=Hp, Wp=Wp, act=act),
+           dtype)
+    for kind, inp in (("et", y), ("it", y[: B * 2 * m1])):
+        mr, mi = tfl._tmats_on(cuda, kind, Tp, m1)
+        _close(tfl.t_stage(inp, kind, Tp, m1), tfl.t_stage_plain(inp, mr, mi),
+               dtype)
+    g = y
+    s, st = tfl.k2(g, d["x"], d["a"], d["b"], d["wp"], d["bp"], Hp=Hp, Wp=Wp,
+                   m2=m2, m3=m3, act=act)
+    s_ref, st_ref = tfl.k2_plain(g, d["x"], d["a"], d["b"], d["wp"], d["bp"],
+                                 cst, Hp=Hp, Wp=Wp, act=act)
+    torch.cuda.synchronize()
+    _close(s, s_ref, dtype)
+    _close(st, st_ref, torch.float32)
+    assert kernels.LAUNCHES == {"k1": 1, "t_stage": 2, "k2": 1}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_layer_matches_reference_on_card(cuda, shape):
+    B, Tp, Hp, Wp, C, m1, m2, m3 = shape
+    d = _inputs(shape, torch.float32, cuda)
+    args = (d["x"], d["a"], d["b"], d["wr"], d["wi"], d["wp"], d["bp"])
+    s, st = tfl.fused_fno_layer(*args, dims=(B, Tp, Hp, Wp, C), act="exact")
+    s_ref, st_ref = tfl.reference_fused_fno_layer(*args, dims=(B, Tp, Hp, Wp, C),
+                                                  act="exact")
+    _close(s, s_ref, torch.float32)
+    _close(st, st_ref, torch.float32)
+
+
+def test_kernels_refuse_bad_input(cuda):
+    x = torch.zeros(12, 60, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfl.k1(x, torch.ones(8, device=cuda), torch.zeros(8, device=cuda),
+               Hp=10, Wp=12, m2=3, m3=4, act="none")
+    x = torch.zeros(12, 60, 16, device=cuda)
+    with pytest.raises(ValueError, match="2\\*m2 <= 32"):
+        tfl.k1(x, torch.ones(8, device=cuda), torch.zeros(8, device=cuda),
+               Hp=10, Wp=12, m2=17, m3=4, act="none")
