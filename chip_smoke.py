@@ -135,7 +135,8 @@ def phase_kernels(dev) -> dict:
     summaries (bf16 errors and times: the dtype of the main path)."""
     B = BATCH
     BT = B * TP
-    summary = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0) for k in SOURCES}
+    summary = {k: dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0)
+               for k in SOURCES}
     cst = fl._ct_on(dev, HP, WP, M2, M3)
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(1)
@@ -186,9 +187,10 @@ def phase_kernels(dev) -> dict:
                                    for k, v in times.items()}))
         if dtype == torch.bfloat16:
             for k in SOURCES:
-                errs = [r["max_abs_err"] for r in rows
+                mine = [r for r in rows
                         if r["name"].startswith(k) and "/stats/" not in r["name"]]
-                summary[k]["max_abs_err"] = max(errs)
+                for key in ("max_abs_err", "max_rel_err"):
+                    summary[k][key] = max(r[key] for r in mine)
             summary["k1"]["ms"], summary["k1"]["plain_ms"] = times["k1"]
             summary["k2"]["ms"], summary["k2"]["plain_ms"] = times["k2"]
             # one layer's T-stage: one 'et' and one 'it' launch

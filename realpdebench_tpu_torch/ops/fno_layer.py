@@ -41,9 +41,9 @@ from functools import lru_cache
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from realpdebench_tpu_torch.ops import kernels
+from realpdebench_tpu_torch.ops.activations import gelu
 from realpdebench_tpu_torch.ops.spectral import (
     _dft_factors,
     truncated_spectral_conv3d_dft,
@@ -53,13 +53,7 @@ from realpdebench_tpu_torch.ops.spectral import (
 def _act(u: torch.Tensor, act: str) -> torch.Tensor:
     """The activation folded at a layer's input: identity for the first
     layer, else the GELU variant (erf or tanh form)."""
-    if act == "none":
-        return u
-    if act == "exact":
-        return F.gelu(u)
-    if act == "tanh":
-        return F.gelu(u, approximate="tanh")
-    raise ValueError(f"unknown activation {act!r}")
+    return u if act == "none" else gelu(u, act)
 
 
 def _use_kernel(t: torch.Tensor) -> bool:

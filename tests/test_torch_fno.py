@@ -99,6 +99,14 @@ def test_eval_forward_matches_jax(monkeypatch, use_pallas):
     # the plain oracle path of the same module agrees too
     with torch.no_grad():
         _close(m(torch.from_numpy(x), reference=True).numpy(), ref)
+        # and the eval loss is the bundle's MSE
+        y = np.random.default_rng(3).normal(size=ref.shape).astype(np.float32)
+        jloss, _ = jbuild(shapes=(SI, SO), model_name="fno", **KW,
+                          use_pallas=False).loss(v, jnp.asarray(x),
+                                                 jnp.asarray(y), None,
+                                                 train=False)
+        _close(m.loss(torch.from_numpy(x), torch.from_numpy(y)).numpy(),
+               jloss)
 
 
 def test_time_interleaved_output_permutation():

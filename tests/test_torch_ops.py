@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from realpdebench_tpu.ops import spectral as jspec
+from realpdebench_tpu.utils import misc as jmisc
 from realpdebench_tpu_torch.ops import spectral as tspec
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_variant
+from realpdebench_tpu_torch.utils import misc as tmisc
 
 
 def _close(got, ref, rtol=2e-4):
@@ -38,6 +40,21 @@ def test_gelu_variant_follows_env(monkeypatch):
     torch.testing.assert_close(gelu(x), gelu(x, "tanh"), rtol=0, atol=0)
     monkeypatch.setenv("REALPDEBENCH_GELU", "bogus")   # warns, keeps default
     assert gelu_variant() == "exact"
+
+
+@pytest.mark.parametrize("raw", [None, "1", " On ", "false", "", "ture",
+                                 "MXU ", "vpu", "auto"])
+def test_env_switches_match_jax(monkeypatch, raw):
+    if raw is None:
+        monkeypatch.delenv("RPDB_TEST_SWITCH", raising=False)
+    else:
+        monkeypatch.setenv("RPDB_TEST_SWITCH", raw)
+    for default in (False, True):
+        assert (tmisc.env_flag("RPDB_TEST_SWITCH", default)
+                == jmisc.env_flag("RPDB_TEST_SWITCH", default))
+    choices = ("mxu", "vpu")
+    assert (tmisc.env_choice("RPDB_TEST_SWITCH", choices, "auto")
+            == jmisc.env_choice("RPDB_TEST_SWITCH", choices, "auto"))
 
 
 @pytest.mark.parametrize("dims", [
