@@ -1,6 +1,6 @@
-// Shared helpers of the fused FNO-layer kernels (fno_k1.cu, fno_tstage.cu,
-// fno_k2.cu). Every kernel reads its activations as T (float or bf16),
-// computes in f32 and writes T.
+// Shared helpers of the FNO kernels (fno_k1.cu, fno_tstage.cu, fno_k2.cu,
+// fno_k2a.cu, fno_k12b.cu, fno_tail.cu). Every kernel reads its activations
+// as T (float or bf16), computes in f32 and writes T.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,12 +39,49 @@ __device__ __forceinline__ float affine_act(float x, float a, float b,
   return u;
 }
 
+// GELU (or identity) of u; act is a kAct* code.
+__device__ __forceinline__ float act_fn(float u, int act) { return affine_act(u, 1.f, 0.f, act); }
+
+// d act(u) / du, analytically (realpdebench_tpu/ops/pallas/fno_layer.py::_act_grad).
+__device__ __forceinline__ float act_grad(float u, int act) {
+  if (act == kActExact) {
+    const float phi = 0.39894228040143268f * expf(-0.5f * u * u);
+    return 0.5f * (1.0f + erff(u * 0.70710678118654752f)) + u * phi;
+  }
+  if (act == kActTanh) {
+    const float t = tanhf(0.79788456080286536f * (u + 0.044715f * u * u * u));
+    const float dinner = 0.79788456080286536f * (1.0f + 3.0f * 0.044715f * u * u);
+    return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * dinner;
+  }
+  return 1.0f;
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Second pass of every cross-block reduction: out[i] = sum over p of
+// partial[p * n + i], added in the fixed order p = 0, 1, ... in f64. Blocks
+// run in no order, so each writes its own partial and this pass adds them:
+// no atomics, the same bits on every run. Static: each .cu file (compiled
+// without relocatable device code) launches its own copy.
+static __global__ void reduce_partials_kernel(const float* __restrict__ partial,
+                                              float* __restrict__ out, int nparts, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  double acc = 0.0;
+  for (int p = 0; p < nparts; ++p) acc += (double)partial[(size_t)p * n + i];
+  out[i] = (float)acc;
+}
+
+static inline cudaError_t reduce_partials(const float* partial, float* out, int nparts, int n,
+                                          cudaStream_t stream) {
+  reduce_partials_kernel<<<(n + 127) / 128, 128, 0, stream>>>(partial, out, nparts, n);
+  return cudaGetLastError();
 }
 
 }  // namespace fno

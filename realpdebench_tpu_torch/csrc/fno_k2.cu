@@ -21,7 +21,7 @@
 // of channel d at once, so each Wp[c, d] read from shared memory feeds kWQ
 // FMAs. Blocks run in no order, so the statistics take two passes: each
 // block writes its own (sum, sumsq) partial in a fixed order, and
-// k2_stats_kernel adds the partials in a fixed order in f64. The result is
+// fno::reduce_partials adds the partials in a fixed order in f64. The result is
 // deterministic; against a tree-ordered f32 sum it differs at f32 rounding
 // of the partials (relative ~1e-6 of sum |s|).
 // Bound: at rollout width one layer reads ~270 MB, writes ~250 MB and does
@@ -158,16 +158,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// stats[i] = sum over blocks of partial[p, i], i over (sum | sumsq) x C.
-__global__ void k2_stats_kernel(const float* __restrict__ partial, float* __restrict__ stats,
-                                int nparts, int C2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C2) return;
-  double acc = 0.0;
-  for (int p = 0; p < nparts; ++p) acc += (double)partial[(size_t)p * C2 + i];
-  stats[i] = (float)acc;
-}
-
 int num_hblocks(int Hp) { return (Hp + kHT - 1) / kHT; }
 
 template <typename T>
@@ -194,11 +184,8 @@ cudaError_t launch_k2(const void* g, const void* x, const void* a, const void* b
       Wp, C, m2x2, m3, act);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int C2 = 2 * C;
-  k2_stats_kernel<<<(C2 + 127) / 128, 128, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(stats), BT * num_hblocks(Hp),
-      C2);
-  return cudaGetLastError();
+  return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(stats),
+                              BT * num_hblocks(Hp), 2 * C, stream);
 }
 
 }  // namespace

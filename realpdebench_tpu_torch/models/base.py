@@ -18,7 +18,9 @@ def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 class Model(nn.Module):
-    """Base of every ported model: ``forward(x)`` is the prediction."""
+    """Base of every ported model: ``forward(x)`` is the prediction and
+    ``forward(x, y)`` the scalar MSE training loss against the target ``y``
+    (so a model can fuse its tail with the loss, as FNO3d does)."""
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Deterministic forward in eval mode, without autograd; the
@@ -32,5 +34,6 @@ class Model(nn.Module):
             self.train(was_training)
 
     def loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Elementwise MSE of the prediction against ``y``."""
-        return mse(self(x), y.float())
+        """Elementwise MSE of the prediction against ``y``, computed inside
+        the module (JAX ``models/registry.py:52-60``)."""
+        return self(x, y=y)

@@ -1,13 +1,19 @@
 """FNO3d — the 3-D Fourier Neural Operator, on the fused-layer kernels.
 
 Counterpart of ``realpdebench_tpu/models/fno.py`` (its fused path,
-``FNO3d._fused_forward``, in eval mode). The forward:
+``FNO3d._fused_forward``). The forward:
 
   grid features (t, y, x) appended → fc0 → zero end-pad of (T, H, W) by
   ``padding`` → ``n_layers`` fused layers (ops/fno_layer.py), each taking the
-  previous layer's BatchNorm (running statistics) and GELU folded in as
-  z = act(a*s + b) → the last BatchNorm folded into fc1 → crop → GELU → fc2
-  → the time-interleaved output permutation.
+  previous layer's BatchNorm and GELU folded in as z = act(a*s + b) → the
+  last BatchNorm folded into fc1 → crop → GELU → fc2 → the time-interleaved
+  output permutation.
+
+In train mode the BatchNorms normalise with the batch statistics of the
+padded grid (biased variance) and move their running statistics by
+0.1·(batch − running); in eval mode they use the running statistics. With
+a target ``y`` the forward returns the MSE instead of the prediction,
+through the fused tail + loss kernels (ops/fno_tail.py), in either mode.
 
 Parameters carry the names the JAX exporter writes
 (``realpdebench_tpu/interop/torch_export.py::export_fno``): ``fc0/fc1/fc2``
@@ -16,9 +22,6 @@ Parameters carry the names the JAX exporter writes
 (``nn.BatchNorm3d``), so ``load_state_dict(strict=True)`` takes an exported
 checkpoint as it is. The forward reads these tensors; it never calls the
 Conv3d or BatchNorm modules, whose math lives in the kernels.
-
-Only the eval forward is ported: training needs the backward kernels
-(ROADMAP.md queue B).
 """
 
 from __future__ import annotations
@@ -30,16 +33,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from realpdebench_tpu_torch.models.base import Model
+from realpdebench_tpu_torch.models.base import Model, mse
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_variant
 from realpdebench_tpu_torch.ops.fno_layer import (
     fused_fno_layer,
     reference_fused_fno_layer,
 )
+from realpdebench_tpu_torch.ops.fno_tail import fused_tail_loss
 from realpdebench_tpu_torch.ops.spectral import grid_features
 
 # flax lecun_normal: a normal truncated at 2 std, rescaled to keep variance
 _TRUNC_STD = 0.87962566103423978
+# flax BatchNorm's momentum 0.9: running ← 0.9·running + 0.1·batch
+_BN_MOMENTUM = 0.9
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -125,17 +131,15 @@ class FNO3d(Model):
         for bn in self.bns:
             bn.reset_parameters()
 
-    def forward(self, x: torch.Tensor, reference: bool = False) -> torch.Tensor:
-        """x [B, T_in, H, W, C_in] → [B, T_out, H, W, C_out] float32.
+    def forward(self, x: torch.Tensor, y: torch.Tensor | None = None,
+                reference: bool = False) -> torch.Tensor:
+        """x [B, T_in, H, W, C_in] → [B, T_out, H, W, C_out] float32, or,
+        given the target y [B, T_out, H, W, C_out], the scalar MSE.
 
         ``reference=True`` runs every layer through the plain oracle
-        ``reference_fused_fno_layer`` instead of the kernels' path: the
-        check that a kernel run is compared against."""
-        if self.training:
-            raise NotImplementedError(
-                "FNO3d is ported for inference only; training needs the "
-                "backward kernels (ROADMAP.md queue B). Call .eval() or "
-                ".predict().")
+        ``reference_fused_fno_layer`` and the tail in plain ops (autograd
+        through them is the backward): the check that a kernel run is
+        compared against."""
         B, T, H, W, _ = x.shape
         p, C, dt = self.padding, self.width, self.compute_dtype
         if W % 2 or (W + p) % 2:
@@ -143,6 +147,7 @@ class FNO3d(Model):
                              f"W={W}, padding={p}")
         Tp, Hp, Wp = T + p, H + p, W + p
         dims = (B, Tp, Hp, Wp, C)
+        n_pos = B * Tp * Hp * Wp
 
         grid = torch.cat(grid_features((T, H, W), device=x.device), dim=-1)
         xg = torch.cat([x.float(), grid.expand(B, T, H, W, 3)], dim=-1)
@@ -158,20 +163,38 @@ class FNO3d(Model):
             w_real, w_imag = self.spectral_convs[i].corner_weights()
             conv, bn = self.convs[i], self.bns[i]
             wp = conv.weight[:, :, 0, 0, 0].t().contiguous()
-            xf, _stats = layer(xf, a, b, w_real, w_imag, wp, conv.bias,
-                               dims=dims, act=act)
-            a = bn.weight / torch.sqrt(bn.running_var + bn.eps)
-            b = bn.bias - bn.running_mean * a
+            xf, stats = layer(xf, a, b, w_real, w_imag, wp, conv.bias,
+                              dims=dims, act=act)
+            if self.training:
+                mean = stats[0] / n_pos
+                var = stats[1] / n_pos - mean * mean       # biased, as flax
+                with torch.no_grad():
+                    for run, new in ((bn.running_mean, mean), (bn.running_var, var)):
+                        run.mul_(_BN_MOMENTUM).add_(new, alpha=1 - _BN_MOMENTUM)
+            else:
+                mean, var = bn.running_mean, bn.running_var
+            a = bn.weight / torch.sqrt(var + bn.eps)
+            b = bn.bias - mean * a
             act = gelu_variant()
 
         # the last BatchNorm folds into fc1: (s*a + b) @ K = s @ (a⊙K) + b@K
         w1 = self.fc1.weight * a[None, :]
         b1 = self.fc1.bias + self.fc1.weight @ b
+        t_out, c_out = self.shape_out[0], self.shape_out[-1]
+        if y is not None and not reference:
+            # [B,T,mult,H,W,c_out] -> [B,T,H,W,c_out,mult]: fc2's lane order
+            target = y.float().reshape(B, T, self.mult, H, W, c_out).permute(
+                0, 1, 3, 4, 5, 2).reshape(B, T, H, W, c_out * self.mult)
+            sse = fused_tail_loss(
+                xf, target.contiguous(), w1.t().contiguous(), b1,
+                self.fc2.weight.t().contiguous(), self.fc2.bias, dims=dims,
+                tail_dims=(T, H, W), act=gelu_variant())
+            return sse / target.numel()
         z = xf.view(B, Tp, Hp, Wp, C)[:, :T, :H, :W]
         h1 = gelu(F.linear(z.to(dt), w1.to(dt), b1.to(dt)))
         o = F.linear(h1, self.fc2.weight.to(dt), self.fc2.bias.to(dt)).float()
 
-        t_out, c_out = self.shape_out[0], self.shape_out[-1]
         # [B,T,H,W,c_out*mult] -> [B,T,H,W,c_out,mult] -> [B,T,mult,H,W,c_out]
         o = o.reshape(B, T, H, W, c_out, self.mult).permute(0, 1, 5, 2, 3, 4)
-        return o.reshape(B, t_out, H, W, c_out)
+        pred = o.reshape(B, t_out, H, W, c_out)
+        return pred if y is None else mse(pred, y.float())

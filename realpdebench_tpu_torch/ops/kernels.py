@@ -1,17 +1,19 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-``build()`` compiles every ``csrc/*.cu`` with nvcc for ``sm_90a`` (Hopper)
-into one shared library with a plain C interface, at first use, into
+``build()`` compiles every ``csrc/*.cu`` with nvcc for ``sm_90a`` (Hopper),
+one nvcc per source, all started together, and links the objects into one
+shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the repository root (git ignores it). The library's
 name carries a hash of the sources and flags, so an edited source is rebuilt
 and a stale library is never loaded. ``library()`` loads it with ctypes.
 
-One wrapper per kernel (``k1``, ``t_stage``, ``k2``): each checks its
-tensors, allocates the outputs, launches on PyTorch's current stream (the
-kernels allocate nothing and do not synchronise), raises if the launch
-returned an error, and adds one to its entry in ``LAUNCHES``. Nothing here
-runs at import: this module is imported on machines with no GPU and no nvcc,
-where only the plain twins in ``ops/fno_layer.py`` run.
+One wrapper per kernel (``k1``, ``t_stage``, ``k2``, ``k2a``, ``k2a_lite``,
+``k12b``, ``k3f``, ``k3b``): each checks its tensors, allocates the outputs
+and scratch, launches on PyTorch's current stream (the kernels allocate
+nothing and do not synchronise), raises if the launch returned an error,
+and adds one to its entry in ``LAUNCHES``. Nothing here runs at import: this
+module is imported on machines with no GPU and no nvcc, where only the plain
+twins in ``ops/fno_layer.py`` and ``ops/fno_tail.py`` run.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import lru_cache
 from pathlib import Path
@@ -31,11 +34,12 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset_launches(): the proof that a run
 # went through the kernels and not through the plain twins.
-LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0}
+LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
+            "k3f": 0, "k3b": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
@@ -69,25 +73,40 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile csrc/*.cu into the library unless it is built already.
-    Returns (path, seconds spent compiling; 0.0 when it was there). The
-    compiler's per-kernel register and shared-memory report goes to stderr."""
+    """Compile csrc/*.cu into the library unless it is built already: one
+    nvcc per source, all at once, then one link. Returns (path, seconds
+    spent; 0.0 when it was there). The compiler's per-kernel register and
+    shared-memory report goes to stderr."""
     out = library_path()
     if out.is_file():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    sys.stderr.write(res.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmpdir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            sys.stderr.write(stderr)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n"
+                              f"{stdout}\n{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
-    return out, seconds
+    return out, time.perf_counter() - t0
 
 
 @lru_cache(maxsize=1)
@@ -103,6 +122,16 @@ def library() -> ctypes.CDLL:
     lib.fno_k2.restype = I
     lib.fno_k2_num_partials.argtypes = [I, I]
     lib.fno_k2_num_partials.restype = I
+    lib.fno_k2a.argtypes = [P] * 16 + [I] * 8 + [P]
+    lib.fno_k2a.restype = I
+    lib.fno_k12b.argtypes = [P] * 16 + [I] * 8 + [P]
+    lib.fno_k12b.restype = I
+    lib.fno_k12b_num_partials.argtypes = [I]
+    lib.fno_k12b_num_partials.restype = I
+    lib.fno_k3f.argtypes = [P] * 8 + [I] * 12 + [P]
+    lib.fno_k3f.restype = I
+    lib.fno_k3b.argtypes = [P] * 10 + [I] * 12 + [P]
+    lib.fno_k3b.restype = I
     lib.fno_error_string.argtypes = [I]
     lib.fno_error_string.restype = ctypes.c_char_p
     return lib
@@ -125,6 +154,14 @@ def _io_dtype(t: torch.Tensor) -> int:
     if t.dtype not in _DTYPE_CODES:
         raise ValueError(f"CUDA kernels take float32 or bfloat16, not {t.dtype}")
     return _DTYPE_CODES[t.dtype]
+
+
+def _check_k1_shape(name: str, C: int, m2x2: int, m3: int) -> None:
+    """The shape bounds of K1 and K2A: one block per 16 channels, one thread
+    per (channel, W mode), the 2*m2 H modes in registers."""
+    if m2x2 > 32 or C % min(C, 16) or min(C, 16) * m3 > 1024:
+        raise ValueError(f"{name} takes 2*m2 <= 32, C a multiple of 16 (or < 16) "
+                         f"and min(C,16)*m3 <= 1024; got 2*m2={m2x2}, C={C}, m3={m3}")
 
 
 def _launch(name: str, fn, device, *args) -> None:
@@ -152,9 +189,7 @@ def k1(x, a, b, ewr, ewi, ehr, ehi, *, Hp: int, Wp: int, act: str):
                     ("ewi", ewi, (Wp, m3)), ("ehr", ehr, (Hp, m2x2)),
                     ("ehi", ehi, (Hp, m2x2))):
         _check(n, t, dev, f32, s)
-    if m2x2 > 32 or C % min(C, 16) or min(C, 16) * m3 > 1024:
-        raise ValueError(f"k1 takes 2*m2 <= 32, C a multiple of 16 (or < 16) "
-                         f"and min(C,16)*m3 <= 1024; got 2*m2={m2x2}, C={C}, m3={m3}")
+    _check_k1_shape("k1", C, m2x2, m3)
     y = torch.empty((BT, m2x2 * m3, 2 * C), dtype=x.dtype, device=dev)
     _launch("k1", library().fno_k1, dev, _p(x), _p(a), _p(b), _p(ewr), _p(ewi),
             _p(ehr), _p(ehi), _p(y), BT, Hp, Wp, C, m2x2, m3, ACT_CODES[act], dt)
@@ -206,3 +241,141 @@ def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str):
             _p(ihr), _p(ihi), _p(iwr), _p(iwi), _p(s), _p(partial), _p(stats),
             BT, Hp, Wp, C, m2x2, m3, ACT_CODES[act], dt)
     return s, stats
+
+
+def _vecs(dev, C, **vs):
+    for n, t in vs.items():
+        _check(n, t, dev, torch.float32, (C,))
+
+
+def k2a(s, ds, ds1, ds2, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int):
+    """(s, ds like x; ds1, ds2 [C] f32) → dg [BT, 2m2*m3, 2C] in ds's dtype;
+    the full-read mode of csrc/fno_k2a.cu."""
+    dt = _io_dtype(ds)
+    dev, f32 = ds.device, torch.float32
+    BT, C = ds.shape[0], ds.shape[-1] // 2
+    m2x2, m3 = ihr.shape[0], iwr.shape[0]
+    for n, t in (("s", s), ("ds", ds)):
+        _check(n, t, dev, ds.dtype, (BT, Hp * Wp // 2, 2 * C))
+    _vecs(dev, C, ds1=ds1, ds2=ds2)
+    for n, t, sh in (("ihr", ihr, (m2x2, Hp)), ("ihi", ihi, (m2x2, Hp)),
+                     ("iwr", iwr, (m3, Wp)), ("iwi", iwi, (m3, Wp))):
+        _check(n, t, dev, f32, sh)
+    _check_k1_shape("k2a", C, m2x2, m3)
+    two = (2.0 * ds2).contiguous()
+    dg = torch.empty((BT, m2x2 * m3, 2 * C), dtype=ds.dtype, device=dev)
+    null = ctypes.c_void_p(None)
+    _launch("k2a", library().fno_k2a, dev, _p(ds), _p(s), null, null, _p(ds1),
+            _p(two), null, null, null, null, null, _p(ihr),
+            _p(ihi), _p(iwr), _p(iwi), _p(dg), BT, Hp, Wp, C, m2x2, m3, 0, dt)
+    return dg
+
+
+def k2a_lite(ds, g, y, ds1, ds2, wp, bp, alpha, beta, D, A1, ihr, ihi, iwr,
+             iwi, *, Hp: int, Wp: int):
+    """(ds like x; g, y [BT, 2m2*m3, 2C]; ds1, ds2, bp [C], wp [C, C] f32;
+    the [Y, 2] lite statics) → dg; the lite mode of csrc/fno_k2a.cu. The
+    [C]- and [C, C]-sized folds of ds1, ds2 and bp are made here."""
+    dt = _io_dtype(ds)
+    dev, f32 = ds.device, torch.float32
+    BT, C = ds.shape[0], ds.shape[-1] // 2
+    m2x2, m3 = ihr.shape[0], iwr.shape[0]
+    Y = m2x2 * m3
+    _check("ds", ds, dev, ds.dtype, (BT, Hp * Wp // 2, 2 * C))
+    for n, t in (("g", g), ("y", y)):
+        _check(n, t, dev, ds.dtype, (BT, Y, 2 * C))
+    _vecs(dev, C, ds1=ds1, ds2=ds2, bp=bp)
+    for n, t, sh in (("wp", wp, (C, C)), ("alpha", alpha, (Y, 2)),
+                     ("beta", beta, (Y, 2)), ("D", D, (Y, 2)), ("A1", A1, (Y, 2)),
+                     ("ihr", ihr, (m2x2, Hp)), ("ihi", ihi, (m2x2, Hp)),
+                     ("iwr", iwr, (m3, Wp)), ("iwi", iwi, (m3, Wp))):
+        _check(n, t, dev, f32, sh)
+    _check_k1_shape("k2a_lite", C, m2x2, m3)
+    two = (2.0 * ds2).contiguous()
+    dsc = (ds1 + two * bp).contiguous()
+    wps = (wp * two[None, :]).contiguous()
+    dg = torch.empty((BT, Y, 2 * C), dtype=ds.dtype, device=dev)
+    _launch("k2a_lite", library().fno_k2a, dev, _p(ds), ctypes.c_void_p(None),
+            _p(g), _p(y), _p(dsc), _p(two), _p(wps), _p(alpha), _p(beta), _p(D),
+            _p(A1), _p(ihr), _p(ihi), _p(iwr), _p(iwi), _p(dg), BT, Hp, Wp, C,
+            m2x2, m3, 1, dt)
+    return dg
+
+
+def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, ehr, ehi, ewr, ewi, *, Hp: int,
+         Wp: int, act: str):
+    """(x, s, ds like x; dy [BT, 2m2*m3, 2C]) → (dx like x, dWp [C, C],
+    da, db, dbp [C] f32); see csrc/fno_k12b.cu."""
+    dt = _io_dtype(x)
+    dev, f32 = x.device, torch.float32
+    BT, C = x.shape[0], x.shape[-1] // 2
+    m2x2, m3 = ehr.shape[1], ewr.shape[1]
+    for n, t in (("x", x), ("s", s), ("ds", ds)):
+        _check(n, t, dev, x.dtype, (BT, Hp * Wp // 2, 2 * C))
+    _check("dy", dy, dev, x.dtype, (BT, m2x2 * m3, 2 * C))
+    _vecs(dev, C, a=a, b=b, ds1=ds1, ds2=ds2)
+    for n, t, sh in (("wp", wp, (C, C)), ("ehr", ehr, (Hp, m2x2)),
+                     ("ehi", ehi, (Hp, m2x2)), ("ewr", ewr, (Wp, m3)),
+                     ("ewi", ewi, (Wp, m3))):
+        _check(n, t, dev, f32, sh)
+    if C > 64 or 256 % C:
+        raise ValueError(f"k12b takes C <= 64 dividing 256; got C={C}")
+    lib = library()
+    n = C * C + 3 * C
+    dx = torch.empty_like(x)
+    partial = torch.empty((lib.fno_k12b_num_partials(BT), n), dtype=f32,
+                          device=dev)
+    out = torch.empty(n, dtype=f32, device=dev)
+    _launch("k12b", lib.fno_k12b, dev, _p(x), _p(a), _p(b), _p(wp), _p(s),
+            _p(ds), _p(ds1), _p(ds2), _p(dy), _p(ehr), _p(ehi), _p(ewr), _p(ewi),
+            _p(dx), _p(partial), _p(out), BT, Hp, Wp, C, m2x2, m3,
+            ACT_CODES[act], dt)
+    dwp = out[:C * C].view(C, C)
+    da, db, dbp = out[C * C:].view(3, C)
+    return dx, dwp, da, db, dbp
+
+
+def _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims):
+    dev, f32 = s.device, torch.float32
+    B, Tp, Hp, Wp, C = dims
+    T, H, W = tail_dims
+    H1, F = k2.shape
+    _check("s", s, dev, s.dtype, (B * Tp, Hp * Wp // 2, 2 * C))
+    for n, t, sh in (("target", target, (B, T, H, W, F)), ("k1", k1, (C, H1)),
+                     ("b1", b1, (H1,)), ("k2", k2, (H1, F)), ("b2", b2, (F,))):
+        _check(n, t, dev, f32, sh)
+    if H1 != 128 or F > 8 or C % 8 or C > 64:
+        raise ValueError(f"the tail kernels take fc1 width 128, F <= 8 and C "
+                         f"a multiple of 8 up to 64; got {H1}, {F}, {C}")
+    return (B, T, H, W, Tp, Hp, Wp, C, H1, F)
+
+
+def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str):
+    """SSE of the fused tail (0-d f32 tensor); see csrc/fno_tail.cu."""
+    dt = _io_dtype(s)
+    ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims)
+    B, T = ints[0], ints[1]
+    partial = torch.empty(B * T, dtype=torch.float32, device=s.device)
+    sse = torch.empty((), dtype=torch.float32, device=s.device)
+    _launch("k3f", library().fno_k3f, s.device, _p(s), _p(target), _p(k1),
+            _p(b1), _p(k2), _p(b2), _p(partial), _p(sse), *ints, ACT_CODES[act],
+            dt)
+    return sse
+
+
+def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str):
+    """With g = dL/dSSE (0-d f32 on the card): (ds like s, zero outside the
+    crop; dk1 [C, H1], db1 [H1], dk2 [H1, F], db2 [F] f32)."""
+    dt = _io_dtype(s)
+    ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims)
+    _check("g", g, s.device, torch.float32, ())
+    B, Tp, C, H1, F = ints[0], ints[4], ints[7], ints[8], ints[9]
+    n = C * H1 + H1 + H1 * F + F
+    ds = torch.empty_like(s)
+    partial = torch.empty((B * Tp, n), dtype=torch.float32, device=s.device)
+    out = torch.empty(n, dtype=torch.float32, device=s.device)
+    _launch("k3b", library().fno_k3b, s.device, _p(s), _p(target), _p(k1),
+            _p(b1), _p(k2), _p(b2), _p(g), _p(ds), _p(partial), _p(out), *ints,
+            ACT_CODES[act], dt)
+    dk1, db1, dk2, db2 = out.split([C * H1, H1, H1 * F, F])
+    return ds, dk1.view(C, H1), db1, dk2.view(H1, F), db2

@@ -164,8 +164,15 @@ def test_init_is_seeded_and_follows_jax_distributions():
 
 
 def test_training_mode_is_refused():
+    """Train mode runs the forward on batch statistics and moves the running
+    statistics; like eval mode, it refuses a grid the packed layout cannot
+    take (odd W), before computing anything."""
     m = FNO3d(**KW, shape_in=SI, shape_out=SO)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m(torch.zeros(1, *SI))
+    before = m.bns[0].running_mean.clone()
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, *SI)).astype(np.float32))
+    assert m(x).shape == (1, *SO)
+    assert not torch.equal(m.bns[0].running_mean, before)
+    with pytest.raises(ValueError, match="even W"):
+        m(torch.zeros(1, 4, 12, 11, 3))
     assert m.predict(torch.zeros(1, *SI)).shape == (1, *SO)
     assert m.training  # predict restores the mode it found

@@ -1,19 +1,23 @@
 """CUDA kernels against their plain twins, on the card (marker ``gpu``).
 
 These need an NVIDIA Hopper GPU and nvcc, and skip elsewhere. Run them on
-the GPU host with ``python -m pytest -m gpu tests/test_torch_kernels.py``.
-They cover small and uneven shapes (C below 16, 2*m2 well below 32, H not a
-multiple of K2's row block) that chip_smoke.py, which runs the full
+the GPU host with ``python -m pytest --noconftest -m gpu
+tests/test_torch_kernels.py``. They cover small and uneven shapes (C below
+16, 2*m2 well below 32, H not a multiple of K2's row block, a tail crop
+that is not the whole grid) that chip_smoke.py, which runs the full
 benchmark width, does not. Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
 sides accumulate in f32, in another order); in bf16 1e-2·max|ref| (both
 sides compute in f32 from the same bf16 inputs and round once to bf16, so
-they differ by at most one bf16 step, 2^-8 relative).
+they differ by at most one bf16 step, 2^-8 relative). The f32 accumulators
+(weight gradients, SSE) are held to 1e-4·max|ref| in both dtypes: both
+sides sum the same f32 terms.
 """
 
 import pytest
 import torch
 
 from realpdebench_tpu_torch.ops import fno_layer as tfl
+from realpdebench_tpu_torch.ops import fno_tail as tft
 from realpdebench_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.gpu
@@ -73,7 +77,8 @@ def test_kernels_match_twins(cuda, shape, dtype, act):
     torch.cuda.synchronize()
     _close(s, s_ref, dtype)
     _close(st, st_ref, torch.float32)
-    assert kernels.LAUNCHES == {"k1": 1, "t_stage": 2, "k2": 1}
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "k1": 1, "t_stage": 2, "k2": 1}
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -97,3 +102,73 @@ def test_kernels_refuse_bad_input(cuda):
     with pytest.raises(ValueError, match="2\\*m2 <= 32"):
         tfl.k1(x, torch.ones(8, device=cuda), torch.zeros(8, device=cuda),
                Hp=10, Wp=12, m2=17, m3=4, act="none")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("act", ["none", "exact", "tanh"])
+def test_backward_kernels_match_twins(cuda, shape, dtype, act):
+    B, Tp, Hp, Wp, C, m1, m2, m3 = shape
+    d = _inputs(shape, dtype, cuda)
+    geo = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    y = tfl.k1(d["x"], d["a"], d["b"], **geo, act=act)
+    gs = rn(*y.shape).to(dtype)
+    s, _ = tfl.k2(gs, d["x"], d["a"], d["b"], d["wp"], d["bp"], **geo, act=act)
+    ds, dy = rn(*s.shape).to(dtype), rn(*y.shape).to(dtype)
+    ds1, ds2 = rn(C), 0.1 * rn(C)
+    kernels.reset_launches()
+    for kind in ("et_adj", "it_adj"):
+        mr, mi = tfl._tmats_on(cuda, kind, Tp, m1)
+        inp = gs[: B * mr.shape[0]].contiguous()
+        _close(tfl.t_stage(inp, kind, Tp, m1), tfl.t_stage_plain(inp, mr, mi), dtype)
+    full = tfl.k2a(s, ds, ds1, ds2, **geo)
+    _close(full, tfl.k2a_plain(s, ds, ds1, ds2, cst, Hp=Hp, Wp=Wp), dtype)
+    lite = tfl.k2a_lite(ds, gs, y, ds1, ds2, d["wp"], d["bp"], **geo)
+    lite_ref = tfl.k2a_lite_plain(ds, gs, y, ds1, ds2, d["wp"], d["bp"],
+                                  tfl._lite_on(cuda, Hp, Wp, m2, m3), cst, Hp=Hp, Wp=Wp)
+    _close(lite, lite_ref, dtype)
+    _close(lite, full, dtype)
+    got = tfl.k12b(d["x"], d["a"], d["b"], d["wp"], s, ds, ds1, ds2, dy, **geo, act=act)
+    ref = tfl.k12b_plain(d["x"], d["a"], d["b"], d["wp"], s, ds, ds1, ds2, dy, cst,
+                         Hp=Hp, Wp=Wp, act=act)
+    _close(got[0], ref[0], dtype)
+    for u, v in zip(got[1:], ref[1:]):
+        _close(u, v, torch.float32)
+    T, H, W, F = Tp - 2, Hp - 3, Wp - 4, 6
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact" if act == "none" else act)
+    tail = (rn(B, T, H, W, F), 0.3 * rn(C, 128), 0.1 * rn(128), 0.1 * rn(128, F), 0.1 * rn(F))
+    _close(tft.k3f(s, *tail, **kw), tft.k3f_plain(s, *tail, **kw), torch.float32)
+    gl = torch.tensor(0.37, device=cuda)
+    got, ref = tft.k3b(s, *tail, gl, **kw), tft.k3b_plain(s, *tail, gl, **kw)
+    torch.cuda.synchronize()
+    _close(got[0], ref[0], dtype)
+    for u, v in zip(got[1:], ref[1:]):
+        _close(u, v, torch.float32)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "t_stage": 2, "k2a": 1, "k2a_lite": 1, "k12b": 1, "k3f": 1, "k3b": 1}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_layer_backward_matches_reference_on_card(cuda, shape):
+    """Autograd through the kernels (K2A-lite, T-stage adjoints, K12B)
+    against autograd through the plain f32 oracle, and twice in a row
+    bit for bit (no atomics in any reduction)."""
+    B, Tp, Hp, Wp, C, m1, m2, m3 = shape
+    d = _inputs(shape, torch.float32, cuda)
+    keys = ("x", "a", "b", "wr", "wi", "wp", "bp")
+    npos = B * Tp * Hp * Wp
+
+    def grads(layer):
+        args = [d[k].clone().requires_grad_() for k in keys]
+        s, st = layer(*args, dims=(B, Tp, Hp, Wp, C), act="exact")
+        var = st[1] / npos - (st[0] / npos) ** 2
+        return torch.autograd.grad((s * s).sum() * 1e-3 + var.sum(), args)
+
+    got = grads(tfl.fused_fno_layer)
+    for u, v in zip(got, grads(tfl.reference_fused_fno_layer)):
+        _close(u, v, torch.float32)
+    for u, v in zip(got, grads(tfl.fused_fno_layer)):
+        assert torch.equal(u, v)
