@@ -509,36 +509,17 @@ def _corner_bwd(x2, w_real, w_imag, dout2):
     return dx2, e(xr, dgr) + e(xi, dgi), e(xr, dgi) - e(xi, dgr)
 
 
-class _CornerGemm(torch.autograd.Function):
-    """out2 = x2 @ [[wr, wi], [-wi, wr]] per corner mode, in x2's dtype."""
-
-    @staticmethod
-    def forward(ctx, x2, w_real, w_imag):
-        ctx.save_for_backward(x2, w_real, w_imag)
-        return torch.einsum("bkxyzi,kxyzio->bkxyzo", x2,
-                            _pack_w2(w_real, w_imag).to(x2.dtype))
-
-    @staticmethod
-    def backward(ctx, dout2):
-        return _corner_bwd(*ctx.saved_tensors, dout2)
-
-
 def _mid_after_et(z, w_real, w_imag, B: int, Tp: int):
-    """From the forward T-DFT z [B*2m1, Y, 2C]: corner GEMM, then the
-    inverse T-DFT → [B*Tp, Y, 2C]."""
+    """From the forward T-DFT z [B*2m1, Y, 2C]: corner-block channel mixing
+    out2 = x2 @ [[wr, wi], [-wi, wr]] in the reference corner order, then
+    the inverse T-DFT → [B*Tp, Y, 2C]. The corner GEMM is a plain einsum in
+    z's dtype (f32 accumulation on the card), as JAX leaves it to XLA."""
     _, m1, m2, m3, _, Co = w_real.shape
     x2 = _corners(z.view(B, 2 * m1, 2 * m2, m3, z.shape[-1]), m1, m2)
-    g5 = _uncorner(_CornerGemm.apply(x2, w_real, w_imag))
+    out2 = torch.einsum("bkxyzi,kxyzio->bkxyzo", x2,
+                        _pack_w2(w_real, w_imag).to(x2.dtype))
+    g5 = _uncorner(out2)
     return t_stage(g5.reshape(B * 2 * m1, -1, 2 * Co), "it", Tp, m1)
-
-
-def mid_spectral(y, w_real, w_imag, B: int, Tp: int):
-    """Packed spectra [B*Tp, Y, 2C] → T-DFT (T-stage 'et') → corner-block
-    channel mixing in the reference corner order → inverse T (T-stage 'it')
-    → [B*Tp, Y, 2C]; differentiable. The corner GEMM is a plain einsum in
-    y's dtype (f32 accumulation on the card), as JAX leaves it to XLA."""
-    return _mid_after_et(t_stage(y, "et", Tp, w_real.shape[1]), w_real,
-                         w_imag, B, Tp)
 
 
 def _mid_bwd(dg, z, w_real, w_imag, B: int, Tp: int):
@@ -605,7 +586,7 @@ class _FusedLayer(torch.autograd.Function):
 
 
 def fused_fno_layer(x, a, b, w_real, w_imag, wp, bp, *, dims, act: str):
-    """One FNO layer on packed activations: K1 → mid_spectral → K2, and its
+    """One FNO layer on packed activations: K1 → mid-section → K2, and its
     backward through K2A-lite (or K2A), the mid-section adjoints and K12B.
 
     Args:

@@ -18,19 +18,26 @@ true gradient is 0 or too small for the tolerance to fix its sign:
   layer cancels: both frameworks return float noise. Their gradient is held
   to 1e-5 of the largest gradient of the same layer's pointwise weight;
 * in the trajectory, Adam divides each update by the gradient's own size,
-  so an entry whose first gradient lies within the gradient tolerance of 0
-  (|g| < 2e-4·max|g| of its tensor: the conv biases, the imaginary parts of
-  the DC mode's spectral weights, which the inverse rfft drops, and entries
-  that happen to be small) steps by up to lr in a direction the gradient's
-  noise decides. Those entries are held to Adam's bound instead: after n
-  updates each framework has moved them by at most n·lr (1% slack for
-  Adam's bias corrections);
-* the BatchNorm running statistics follow the parameters, those entries
-  included (the running mean takes in the conv bias, which the
-  normalisation cancels). They are held to the default tolerance after the
+  so an entry whose true gradient is 0 steps by up to lr in a direction the
+  gradient's float noise decides. Those entries are chosen by rule, not by
+  size: the conv biases, and the imaginary part of the DC mode's spectral
+  weight (``weights1[..., 0, 0, 0]``: the input's DC coefficient is real and
+  the inverse rfft drops the imaginary part of the output's). Besides
+  those, an entry whose first gradient happens to lie below the float
+  noise (|g| < 1e-5·max|g| of its tensor; of its mode, for a spectral
+  weight, whose gradient falls by orders of magnitude from low to high
+  modes) has no step direction either framework can fix. At most 1% of a
+  tensor may be such an entry (0.26% at most here, 2 of fc2's 768), and
+  the test says how many there were if that cap is broken. These entries
+  are held to Adam's bound instead: after n updates each framework has
+  moved them by at most n·lr (1% slack for Adam's bias corrections).
+  Every other entry is held to the default tolerance;
+* the BatchNorm running means take in the conv bias, which the
+  normalisation cancels. They are held to the default tolerance after the
   first update, when both frameworks ran the same forward on the same
   parameters, and after n updates to atol 2e-4·max|ref| + 2·n·lr, the most
-  by which those entries can differ.
+  by which the biases can differ. The running variances do not see the
+  bias and keep the default tolerance throughout.
 """
 
 import jax
@@ -74,6 +81,15 @@ def _close(got, ref, rtol=2e-4):
 
 def _is_conv_bias(name):
     return name.startswith("convs.") and name.endswith(".bias")
+
+
+def _zero_grad_mask(name, shape):
+    """Entries whose true gradient is 0, on the real view of the parameter
+    (complex → trailing [re, im] axis)."""
+    mask = np.full(shape, _is_conv_bias(name))
+    if name.startswith("spectral_convs.") and name.endswith(".weights1"):
+        mask[:, :, 0, 0, 0, 1] = True      # imag of the (0, 0, 0) mode
+    return mask
 
 
 @pytest.mark.parametrize("reference", [False, True], ids=["kernels", "reference"])
@@ -134,6 +150,12 @@ def test_train_step_trajectory_matches_jax(monkeypatch, sched, clip, grad_accum)
     stats = dict(mean_inputs=r.normal(size=3), mean_targets=r.normal(size=3),
                  std_inputs=r.uniform(0.5, 2.0, 3), std_targets=r.uniform(0.5, 2.0, 3))
     stats = {k: v.astype(np.float32) for k, v in stats.items()}
+    # a mean of its own for every sample: the BatchNorm after each layer
+    # cancels the batch mean of what the (0, 0, 0) mode adds, so with i.i.d.
+    # fields alone that mode's real weights would get only a near-zero
+    # gradient, in which float noise decides Adam's step
+    offsets = r.normal(size=(STEPS, 2 * B) + (1,) * (len(SI) - 1) + (SI[-1],))
+    xs += offsets.astype(np.float32)
 
     jb = jbuild(shapes=(SI, SO), **kw)
     v = randomized_variables(jb.module, jnp.asarray(xs[0, :1]), 21)
@@ -156,39 +178,43 @@ def test_train_step_trajectory_matches_jax(monkeypatch, sched, clip, grad_accum)
     opt = build_optimizer(cfg, model.parameters())
     step = make_train_step(model, tnorm.build_normalizer("gaussian", stats=stats),
                            opt, grad_accum=grad_accum)
-    losses, noise = [], {}
+    real = lambda a: np.stack([a.real, a.imag], -1) if np.iscomplexobj(a) else a
+    losses, tiny = [], {}
     for i in range(STEPS):
         losses.append(step(torch.from_numpy(xs[i]), torch.from_numpy(ys[i])).item())
-        if i == 0:   # entries whose step direction is the gradient's noise
+        if i == 0:
             first = fno_state_dict(vp, jfirst)
             for name, buf in model.named_buffers():
                 if "running" in name:
                     _close(buf.numpy(), first[name].numpy())
             for name, p in model.named_parameters():
-                g = torch.view_as_real(p.grad) if p.is_complex() else p.grad
-                noise[name] = (g.abs() < 2e-4 * g.abs().max()).numpy()
-                if _is_conv_bias(name):
-                    noise[name][:] = True
+                g = np.abs(real(p.grad.numpy()))
+                # a spectral weight's gradient falls by orders of magnitude
+                # from low to high modes: scale each mode by its own largest
+                scale = g.max(axis=(0, 1), keepdims=True) if p.is_complex() else g.max()
+                tiny[name] = g < 1e-5 * scale
     _close(losses, jlosses)
 
     want = fno_state_dict(np_tree(state.params),
                           np_tree(state.model_state["batch_stats"]))
-
     for name, t in model.state_dict().items():
         if name.endswith("num_batches_tracked"):
             continue
-        got, ref = t.numpy(), want[name].numpy()
-        if "running" in name:
+        got, ref = real(t.numpy()), real(want[name].numpy())
+        if name.endswith("running_mean"):
             np.testing.assert_allclose(
                 got, ref, rtol=2e-4,
                 atol=2e-4 * np.abs(ref).max() + 2 * STEPS * LR, err_msg=name)
             continue
-        if name in noise:
-            real = lambda a: np.stack([a.real, a.imag], -1) if np.iscomplexobj(a) else a
-            got, ref, p0 = real(got), real(ref), real(init[name].numpy())
+        if name in tiny:                    # a parameter
+            zero = _zero_grad_mask(name, got.shape)
+            n_tiny = int((tiny[name] & ~zero).sum())
+            assert n_tiny <= 1e-2 * got.size, \
+                f"{name}: {n_tiny} of {got.size} first gradients below the noise"
+            mask, p0 = zero | tiny[name], real(init[name].numpy())
             for moved in (got - p0, ref - p0):
-                assert np.abs(moved[noise[name]]).max(initial=0) <= 1.01 * STEPS * LR, name
-            got = np.where(noise[name], ref, got)
+                assert np.abs(moved[mask]).max(initial=0) <= 1.01 * STEPS * LR, name
+            got = np.where(mask, ref, got)
         _close(got, ref)
 
 
