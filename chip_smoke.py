@@ -35,8 +35,28 @@ JSON line each; any failure raises (non-zero exit, no result line):
                median steps/s, loss, peak memory.
   7. profile   torch.profiler over three more training steps: device time
                by kernel, the host's wall time, the device's idle share.
-Then the per-kernel summary line, and the last line
-{"ok": true, "device": {...}}.
+  8. ta        the temporal-attention kernels TA forward and backward
+               against their twin at the UNet's level-0 width of the
+               training step (B 12, S 64·128, T 20, h 4, d 32), in float32
+               and bfloat16; two calls bit-equal; CUDA-event medians, and
+               scaled_dot_product_attention with the bias as a float mask
+               as the library yardstick.
+  9. unet_rollout  the cylinder UNet3d (configs/cylinder/unet.yaml: dim_mults
+               1/2/4, bf16 compute, seeded random weights) rolled out 5
+               steps at eval batch 12 through make_rollout_fn with a
+               Gaussian normalizer; exact launch counts; compared with the
+               plain f32 rollout; frames/s and peak memory.
+ 10. unet_train    its training step at batch 12 (Adam at lr 1e-4, cosine
+               over 10000 updates, no clipping): one counted step, the loss
+               and every gradient against the plain f32 step (at batch 6:
+               the f32 step at 12 does not fit the card), two passes
+               bit-equal under cudnn.deterministic; 2 warm-up steps and 5
+               windows of 5 steps; then a profile of 3 steps.
+Every kernel's time stands beside its bound: the larger of the bytes it
+must move (inputs read once, outputs written once) over HBM's 3.35 TB/s and
+its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
+67 TFLOP/s FP32), from the published H100 SXM figures at 700 W. Then the
+per-kernel summary line, and the last line {"ok": true, "device": {...}}.
 
 The port imports neither JAX nor the JAX package; neither does this script.
 """
@@ -47,14 +67,17 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+from torch.nn.functional import scaled_dot_product_attention
 
-from realpdebench_tpu_torch.data.normalizer import IdentityNormalizer
+from realpdebench_tpu_torch.data.normalizer import IdentityNormalizer, build_normalizer
 from realpdebench_tpu_torch.eval.rollout import make_rollout_fn
 from realpdebench_tpu_torch.models.registry import build_model
 from realpdebench_tpu_torch.ops import fno_layer as fl
 from realpdebench_tpu_torch.ops import fno_tail as ft
 from realpdebench_tpu_torch.ops import kernels
+from realpdebench_tpu_torch.ops import temporal_attention as tta
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
 from realpdebench_tpu_torch.train import build_optimizer, make_train_step
 from realpdebench_tpu_torch.utils.misc import make_generator
@@ -96,7 +119,37 @@ TRAIN_ZERO_GRAD = 1e-2
 # per training step: 4 layers forward (K1, 2 T-stages, K2) and backward
 # (K2A-lite, 2 T-stage adjoints, K12B), one fused tail + loss
 TRAIN_LAUNCHES = {"k1": 4, "t_stage": 16, "k2": 4, "k2a": 0, "k2a_lite": 4,
-                  "k12b": 4, "k3f": 1, "k3b": 1}
+                  "k12b": 4, "k3f": 1, "k3b": 1, "ta_fwd": 0, "ta_bwd": 0}
+
+# temporal attention at the UNet's level 0 in the training step (B, S, T, h, d)
+TA_SHAPE = (12, 64 * 128, 20, 4, 32)
+# TA backward's d(pos_bias), an f32 sum over all B·S sites, against the
+# twin's, relative to the sum over sites of P·(|dP| + |Σ P·dP|), the size
+# of what each site adds (both sides accumulate in f32 in another order)
+TA_DPB_TOL = 1e-6
+
+# the cylinder UNet3d (configs/cylinder/unet.yaml): windows of 20x64x128x3
+# in and out, dim = H = 64, eval and train batch 12, 5 rollout steps
+UNET_SHAPE = (20, 64, 128, 3)
+UNET_MODEL = dict(model_name="unet", dim_mults=[1, 2, 4])
+UNET_BATCH, UNET_STEPS = 12, 5
+UNET_CMP_BATCH = 6      # the training step's comparison with the f32 plain step
+UNET_TRAIN_CFG = dict(lr=1e-4, scheduler="cosine", num_update=10000,
+                      clip_grad_norm=0.0)
+UNET_WINDOW_STEPS = 5
+# temporal attentions per forward at dim_mults (1, 2, 4): init, 3 down, mid, 3 up
+UNET_TA_PER_FORWARD = 8
+# bf16 kernels vs the f32 plain path (TF32 off), fixed before the first
+# run: the rollout over 5 steps as for FNO; one training step's loss within
+# 1e-2 relative and every gradient within 1e-1 relative L2, looser than
+# FNO's 5e-2 because some 30 convolutions each round to bf16 on the way
+UNET_ROLLOUT_REL_L2, UNET_ROLLOUT_MAX = 5e-2, 1e-1
+UNET_LOSS_REL, UNET_GRAD_REL_L2 = 1e-2, 1e-1
+
+# published H100 SXM peaks (dense, 700 W): HBM, and the operations of a
+# bf16 row on the tensor cores, of an f32 row on the FP32 pipes
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 _PALLAS = "realpdebench_tpu/ops/pallas/"
 SOURCES = {
@@ -108,6 +161,8 @@ SOURCES = {
     "k12b": ("fno_k12b.cu", "fno_layer.py:618"),
     "k3f": ("fno_tail.cu", "fno_tail.py:73"),
     "k3b": ("fno_tail.cu", "fno_tail.py:102"),
+    "ta_fwd": ("temporal_attention.cu", "temporal_attention.py:69"),
+    "ta_bwd": ("temporal_attention.cu", "temporal_attention.py:84"),
 }
 SOURCES = {k: ("realpdebench_tpu_torch/csrc/" + s, _PALLAS + r)
            for k, (s, r) in SOURCES.items()}
@@ -115,6 +170,51 @@ SOURCES = {k: ("realpdebench_tpu_torch/csrc/" + s, _PALLAS + r)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, dtype) -> dict:
+    """The least time the card could take to move ``n_bytes`` and do
+    ``ops`` operations in ``dtype``, and which of the two sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=n_bytes, ops=ops)
+
+
+def add_bounds(*bs: dict) -> dict:
+    n, ops = sum(b["bytes"] for b in bs), sum(b["ops"] for b in bs)
+    return dict(bound_ms=sum(b["bound_ms"] for b in bs),
+                bound_by="bytes" if all(b["bound_by"] == "bytes" for b in bs)
+                else "operations", bytes=n, ops=ops)
+
+
+def dft_ops(BT: int) -> int:
+    """The truncated (W, H) DFT of K1, its inverse in K2, and their adjoints
+    in K2A and K12B, per call: a real W contraction (Hp·Wp·m3 positions, 2
+    real multiply-adds each) and a complex H one (Hp·m3·2m2, 4 each), per
+    (image, channel)."""
+    return BT * C * (HP * WP * M3 * 4 + HP * M3 * 2 * M2 * 8)
+
+
+def tstage_work(inp, kind: str, dtype) -> tuple:
+    """(bound, library call) of the T-stage ``kind`` on ``inp``: a complex
+    [Tout, Tin] map along T over Y·C complex columns; the library call is
+    one complex64 matmul on the same values (no complex bf16 product
+    exists), prepared outside the timing."""
+    mr, mi = fl._tmats_on(inp.device, kind, TP, M1)
+    Tin, Tout = mr.shape
+    B, Y, C2 = inp.shape[0] // Tin, inp.shape[1], inp.shape[2]
+    work = bound(nbytes(inp) * (1 + Tout / Tin), 8 * B * Y * (C2 // 2) * Tin * Tout,
+                 dtype)
+    yv = inp.float().view(B, Tin, Y, 2, C2 // 2)
+    yc = torch.complex(yv[..., 0, :], yv[..., 1, :]).reshape(B, Tin, -1)
+    mc = torch.complex(mr, mi).t().contiguous()
+    return work, lambda: torch.matmul(mc, yc)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -144,14 +244,14 @@ def compare(name, got, ref, tol) -> dict:
     return row
 
 
-def compare_sums(name, got, ref, terms) -> dict:
+def compare_sums(name, got, ref, terms, tol=STATS_TOL) -> dict:
     """An f32 accumulator against its twin, relative to the sum of the
-    |terms| it adds (elementwise), within STATS_TOL."""
+    |terms| it adds (elementwise), within ``tol``."""
     diff = (got.float() - ref.float()).abs()
     rel = (diff / terms.clamp_min(1e-30)).max().item()
     row = dict(name=name, max_abs_err=diff.max().item(),
-               max_rel_to_terms=rel, limit_rel=STATS_TOL)
-    if not rel <= STATS_TOL:
+               max_rel_to_terms=rel, limit_rel=tol)
+    if not rel <= tol:
         raise AssertionError(f"{name}: accumulator disagrees with its twin: {row}")
     return row
 
@@ -234,10 +334,20 @@ def phase_kernels(dev) -> dict:
                     t_stage_it=(cuda_ms(lambda: fl.t_stage(ins["it"], "it", TP, M1)),
                                 cuda_ms(lambda: fl.t_stage_plain(ins["it"], *mats["it"]))),
                     k2=(cuda_ms(k2), cuda_ms(k2p)))
+                # the DFT tables (under 0.1 MB) are left out of the bytes
+                work = dict(k1=bound(nbytes(x, a, b, y), dft_ops(BT), dtype),
+                            k2=bound(nbytes(gsp, x, a, b, wp, bp, s, st),
+                                     dft_ops(BT) + BT * HP * WP * C * C * 2, dtype))
+                library = {}
+                for kind in ("et", "it"):
+                    work[f"t_stage_{kind}"], call = tstage_work(ins[kind], kind, dtype)
+                    library[f"t_stage_{kind}"] = cuda_ms(call)
+                    del call
         torch.cuda.synchronize()
         emit(dict(phase="kernel", dtype=str(dtype).replace("torch.", ""),
                   shapes=dict(BT=BT, Hp=HP, Wp=WP, C=C, modes=[M1, M2, M3]),
-                  checks=rows, ms={k: dict(kernel=v[0], plain=v[1])
+                  checks=rows, ms={k: dict(kernel=v[0], plain=v[1], **work[k],
+                                           library=library.get(k))
                                    for k, v in times.items()}))
         if dtype == torch.bfloat16:
             for k in summary:
@@ -245,12 +355,15 @@ def phase_kernels(dev) -> dict:
                         if r["name"].startswith(k + "/") and "/stats/" not in r["name"]]
                 for key in ("max_abs_err", "max_rel_err"):
                     summary[k][key] = max(r[key] for r in mine)
-            summary["k1"]["ms"], summary["k1"]["plain_ms"] = times["k1"]
-            summary["k2"]["ms"], summary["k2"]["plain_ms"] = times["k2"]
+            for k in ("k1", "k2"):
+                summary[k]["ms"], summary[k]["plain_ms"] = times[k]
+                summary[k].update(work[k], library_ms=None)
             # one layer's T-stage: one 'et' and one 'it' launch
-            summary["t_stage"]["ms"] = times["t_stage_et"][0] + times["t_stage_it"][0]
-            summary["t_stage"]["plain_ms"] = (times["t_stage_et"][1]
-                                              + times["t_stage_it"][1])
+            pair = ("t_stage_et", "t_stage_it")
+            summary["t_stage"].update(
+                ms=sum(times[k][0] for k in pair), plain_ms=sum(times[k][1] for k in pair),
+                library_ms=sum(library[k] for k in pair),
+                **add_bounds(*(work[k] for k in pair)))
     return summary
 
 
@@ -281,7 +394,7 @@ def phase_backward(dev) -> dict:
         npos = BT * HP * WP
         ds, dy = (rn(*s.shape) / npos).to(dtype), (rn(*y.shape) / npos).to(dtype)
         ds1, ds2 = rn(C) / npos, rn(C) / npos
-        rows, times = [], {}
+        rows, times, work, library = [], {}, {}, {}
         adj_in = {"it_adj": dy, "et_adj": dy[: B * 2 * M1].contiguous()}
         for kind, inp in adj_in.items():
             mats = fl._tmats_on(dev, kind, TP, M1)
@@ -289,6 +402,9 @@ def phase_backward(dev) -> dict:
             plain = lambda: fl.t_stage_plain(inp, *mats)
             rows.append(compare(f"t_stage/{kind}", run(), plain(), tol))
             times[f"t_stage_{kind}"] = (cuda_ms(run), cuda_ms(plain))
+            work[f"t_stage_{kind}"], call = tstage_work(inp, kind, dtype)
+            library[f"t_stage_{kind}"] = cuda_ms(call)
+            del call
         k2a = lambda: fl.k2a(s, ds, ds1, ds2, **geo)
         k2a_p = lambda: fl.k2a_plain(s, ds, ds1, ds2, cst, Hp=HP, Wp=WP)
         k2l = lambda: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo)
@@ -298,6 +414,11 @@ def phase_backward(dev) -> dict:
         rows.append(compare("k2a/dg", full, k2a_p(), tol))
         rows.append(compare("k2a_lite/dg", lite_dg, k2l_p(), tol))
         rows.append(compare("k2a_lite/vs_k2a", lite_dg, full, tol))
+        work["k2a"] = bound(nbytes(s, ds, ds1, ds2, full), dft_ops(BT), dtype)
+        # the lite fit's correction: a [2Y, C] x [C, C] product per image
+        work["k2a_lite"] = bound(nbytes(ds, gsp, y, ds1, ds2, wp, bp, lite_dg),
+                                 dft_ops(BT) + BT * 2 * (2 * M2 * M3) * C * C * 2,
+                                 dtype)
         del full, lite_dg
         times["k2a"] = (cuda_ms(k2a), cuda_ms(k2a_p))
         times["k2a_lite"] = (cuda_ms(k2l), cuda_ms(k2l_p))
@@ -307,6 +428,9 @@ def phase_backward(dev) -> dict:
         k12_p = lambda: fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=HP,
                                       Wp=WP, act="exact")
         got, ref = k12(), k12_p()
+        # the adjoint DFT, and two [positions, C] x [C, C] products (dz, dWp)
+        work["k12b"] = bound(nbytes(x, a, b, wp, s, ds, ds1, ds2, dy, *got),
+                             dft_ops(BT) + 2 * BT * HP * WP * C * C * 2, dtype)
         rows.append(compare("k12b/dx", got[0], ref[0], tol))
         v = lambda q: q.float().view(BT, HP, WP, C)
         x4 = v(x)
@@ -333,6 +457,12 @@ def phase_backward(dev) -> dict:
         rows.append(compare_sums("k3f/sse", sse, sse_ref, sse_ref))
         got, ref = k3b(), k3b_p()
         rows.append(compare("k3b/ds", got[0], ref[0], tol))
+        # the tail reads only the crop of s; fc1 and fc2 per position, three
+        # of each in the backward (recompute, data and weight gradients)
+        npos, crop = B * T * H * W, B * T * H * W * C * s.element_size()
+        fc = npos * (2 * C * tail[1].shape[1] + 2 * tail[3].shape[0] * F)
+        work["k3f"] = bound(crop + nbytes(*tail, sse), fc, dtype)
+        work["k3b"] = bound(crop + nbytes(*tail, gl, *got), 3 * fc, dtype)
         k1w, b1w, k2w, b2w = tail[1:]
         zt = s.float().view(B, TP, HP, WP, C)[:, :T, :H, :W].reshape(-1, C)
         u1 = zt @ k1w + b1w
@@ -350,7 +480,8 @@ def phase_backward(dev) -> dict:
         emit(dict(phase="backward", dtype=str(dtype).replace("torch.", ""),
                   shapes=dict(BT=BT, Hp=HP, Wp=WP, C=C, modes=[M1, M2, M3],
                               tail=[B, T, H, W, F]),
-                  checks=rows, ms={k: dict(kernel=v[0], plain=v[1])
+                  checks=rows, ms={k: dict(kernel=v[0], plain=v[1], **work[k],
+                                           library=library.get(k))
                                    for k, v in times.items()}))
         if dtype == torch.bfloat16:
             for k in ("k2a_lite", "k2a", "k12b", "k3f", "k3b"):
@@ -359,13 +490,15 @@ def phase_backward(dev) -> dict:
                     max_abs_err=max(r["max_abs_err"] for r in mine),
                     max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in mine),
-                    ms=times[k][0], plain_ms=times[k][1])
+                    ms=times[k][0], plain_ms=times[k][1], library_ms=None, **work[k])
             adj = [r for r in rows if r["name"].startswith("t_stage/")]
+            pair = ("t_stage_et_adj", "t_stage_it_adj")
             summary["t_stage_adjoint"] = dict(
                 max_abs_err=max(r["max_abs_err"] for r in adj),
                 max_rel_err=max(r["max_rel_err"] for r in adj),
-                ms=times["t_stage_et_adj"][0] + times["t_stage_it_adj"][0],
-                plain_ms=times["t_stage_et_adj"][1] + times["t_stage_it_adj"][1])
+                ms=sum(times[k][0] for k in pair), plain_ms=sum(times[k][1] for k in pair),
+                library_ms=sum(library[k] for k in pair),
+                bound_ms=add_bounds(*(work[k] for k in pair))["bound_ms"])
         del s, y, gsp, ds, dy, x
         torch.cuda.empty_cache()
     return summary
@@ -398,9 +531,9 @@ def phase_slice(dev) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    per_predict = {"k1": MODEL["n_layers"], "k2": MODEL["n_layers"],
-                   "t_stage": 2 * MODEL["n_layers"], "k2a": 0, "k2a_lite": 0,
-                   "k12b": 0, "k3f": 0, "k3b": 0}
+    per_predict = dict.fromkeys(kernels.LAUNCHES, 0)
+    per_predict.update(k1=MODEL["n_layers"], k2=MODEL["n_layers"],
+                       t_stage=2 * MODEL["n_layers"])
     for k, n in per_predict.items():
         if launches[k] != n * STEPS:
             raise AssertionError(f"{k} launched {launches[k]} times in a "
@@ -553,7 +686,317 @@ def phase_train(dev) -> dict:
     return launches
 
 
-def phase_profile(step, x, y) -> None:
+def _sdpa_call(q, k, v, do, pb, heads: int, chunks: int, backward: bool):
+    """scaled_dot_product_attention on [B·S, h, T, d] views of the tokens,
+    pos_bias as a float mask (q is pre-scaled: scale 1), over ``chunks``
+    equal parts of the sites; with ``backward`` also the gradients of q, k,
+    v and the mask. The library yardstick of TA: the port never calls it."""
+    B, S, T, Fd = q.shape
+    split = lambda z: z.view(B * S, T, heads, Fd // heads).transpose(1, 2).chunk(chunks)
+    mask = pb.detach().to(q.dtype, copy=True)
+    parts = list(zip(split(q), split(k), split(v), split(do)))
+    if backward:
+        mask.requires_grad_()
+        parts = [(*(z.detach().requires_grad_() for z in p[:3]), p[3]) for p in parts]
+
+    def call():
+        outs = []
+        for qc, kc, vc, dc in parts:
+            o = scaled_dot_product_attention(qc, kc, vc, attn_mask=mask, scale=1.0)
+            if backward:
+                torch.autograd.grad(o, (qc, kc, vc, mask), dc)
+            outs.append(o.detach())
+        return outs
+    return call
+
+
+def sdpa_yardstick(q, k, v, do, pb, heads: int, o_ref) -> dict:
+    """CUDA-event medians of SDPA forward and forward+backward on TA's
+    inputs: over the whole batch of sites, or, where SDPA refuses it, over
+    the fewest equal chunks it takes (``library_chunks``); and its output's
+    max|Δ|/max|ref| against the kernel's."""
+    refused = None
+    for chunks in (1, 2, 4, 8):
+        fwd, fwd_bwd = (_sdpa_call(q, k, v, do, pb, heads, chunks, b) for b in (False, True))
+        try:
+            outs = fwd()
+            fwd_bwd()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            refused = str(e).splitlines()[0][:200]
+            continue
+        o = torch.cat(outs).transpose(1, 2).reshape(o_ref.shape).float()
+        err = ((o - o_ref.float()).abs().max() / o_ref.float().abs().max()).item()
+        del outs, o
+        return dict(library_ms=cuda_ms(fwd, reps=10),
+                    library_fwd_bwd_ms=cuda_ms(fwd_bwd, reps=10),
+                    library_chunks=chunks, library_refused=refused,
+                    library_max_rel_err=err)
+    raise RuntimeError(f"scaled_dot_product_attention refused every chunking: {refused}")
+
+
+def _dpb_terms(q, k, v, pb, do, heads: int):
+    """Σ over sites of P·(|dP| + |Σ_j P·dP|): the size of what each site
+    adds to d(pos_bias), in f32."""
+    B, S, T, Fd = q.shape
+    spl = lambda z: z.float().view(B, S, T, heads, Fd // heads)
+    with torch.no_grad():
+        p = torch.softmax(torch.einsum("bsihd,bsjhd->bshij", spl(q), spl(k)) + pb,
+                          dim=-1)
+        dp = torch.einsum("bsihd,bsjhd->bshij", spl(do), spl(v))
+        return (p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())).sum((0, 1))
+
+
+def phase_ta(dev) -> dict:
+    """TA forward and backward against the twin at the UNet's level-0
+    width; returns per-kernel summaries (bf16 errors and times)."""
+    B, S, T, h, d = TA_SHAPE
+    plain = tta.temporal_attention_tokens_plain
+    nsites, summary = B * S, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(5)
+        rn = lambda: torch.randn(B, S, T, h * d, generator=g, device=dev)
+        # q pre-scaled by d**-0.5 as the model hands it over; the bias
+        # N(0, 1), as the bias table's init
+        q = (rn() * d ** -0.5).to(dtype)
+        k, v, do = rn().to(dtype), rn().to(dtype), rn().to(dtype)
+        pb = torch.randn(h, T, T, generator=g, device=dev)
+        tol = KERNEL_TOL[dtype]
+        fwd = lambda: kernels.ta_fwd(q, k, v, pb, h)
+        bwd = lambda: kernels.ta_bwd(q, k, v, pb, do, h)
+        o, got = fwd(), bwd()
+        rows = [compare("ta_fwd/o", o, plain(q, k, v, pb, h), tol)]
+        # autograd through the twin in f32 from the same inputs
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v, pb)]
+        ref = torch.autograd.grad(plain(*leaves, h), leaves, do.float())
+        for name, u, r in zip(("dq", "dk", "dv"), got, ref):
+            rows.append(compare(f"ta_bwd/{name}", u, r.to(dtype), tol))
+        rows.append(compare_sums("ta_bwd/dpb", got[3], ref[3],
+                                 _dpb_terms(q, k, v, pb, do, h), TA_DPB_TOL))
+        del leaves, ref
+        same = torch.equal(o, fwd()) and all(
+            torch.equal(a, b) for a, b in zip(got, bwd()))
+        if not same:
+            raise AssertionError(f"two identical TA calls differ ({dtype})")
+
+        def bwd_plain():
+            ls = [t.detach().requires_grad_() for t in (q, k, v, pb)]
+            return torch.autograd.grad(plain(*ls, h), ls, do)
+
+        times = dict(ta_fwd=(cuda_ms(fwd), cuda_ms(lambda: plain(q, k, v, pb, h))),
+                     ta_bwd=(cuda_ms(bwd), cuda_ms(bwd_plain, reps=10)))
+        # scores and the value mix, 2·T·T·d each per (site, head); the
+        # backward recomputes the scores and adds dP, dq, dk and dv
+        work = dict(ta_fwd=bound(nbytes(q, k, v, pb, o), nsites * h * T * T * d * 4, dtype),
+                    ta_bwd=bound(nbytes(q, k, v, pb, do, *got),
+                                 nsites * h * T * T * d * 10, dtype))
+        lib = sdpa_yardstick(q, k, v, do, pb, h, o)
+        torch.cuda.synchronize()
+        emit(dict(phase="ta", dtype=str(dtype).replace("torch.", ""),
+                  shapes=dict(B=B, S=S, T=T, h=h, d=d), checks=rows,
+                  bitwise_repeatable=same, library=lib,
+                  ms={n: dict(kernel=t[0], plain=t[1], **work[n]) for n, t in times.items()}))
+        if dtype == torch.bfloat16:
+            for n in times:
+                mine = [r for r in rows if r["name"].startswith(n + "/")]
+                summary[n] = dict(
+                    max_abs_err=max(r["max_abs_err"] for r in mine),
+                    max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
+                                    for r in mine),
+                    ms=times[n][0], plain_ms=times[n][1], **work[n])
+            # SDPA has no backward alone: the backward row's yardstick is its
+            # forward and backward together
+            summary["ta_fwd"]["library_ms"] = lib["library_ms"]
+            summary["ta_bwd"]["library_ms"] = lib["library_fwd_bwd_ms"]
+        del q, k, v, do, o, got
+        torch.cuda.empty_cache()
+    return summary
+
+
+def unet_normalizer():
+    """Gaussian normalizer with seeded per-channel statistics, the same for
+    inputs and targets (the cylinder's are the same fields u, v, p)."""
+    r = np.random.default_rng(0)
+    mean, std = r.normal(size=3), r.uniform(0.5, 2.0, size=3)
+    return build_normalizer("gaussian", stats=dict(
+        mean_inputs=mean, mean_targets=mean, std_inputs=std, std_targets=std))
+
+
+def _unet(dev, compute_dtype=None):
+    return build_model(shapes=(UNET_SHAPE, UNET_SHAPE), compute_dtype=compute_dtype,
+                       device=dev, generator=make_generator(0), **UNET_MODEL)
+
+
+def _expect(launches: dict, path: str, **want) -> None:
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"{path} launched {launches}, expected {full}")
+
+
+def phase_unet_rollout(dev, norm) -> dict:
+    model = _unet(dev, "bfloat16").eval()
+    g = torch.Generator(device=dev).manual_seed(6)
+    x_raw = torch.randn(UNET_BATCH, *UNET_SHAPE, generator=g, device=dev)
+    y_raw = torch.randn(UNET_BATCH, UNET_SHAPE[0] * UNET_STEPS, *UNET_SHAPE[1:],
+                        generator=g, device=dev)
+    rollout = make_rollout_fn(model, norm, UNET_STEPS)
+
+    # the main path, counted: nothing but this run between reset and read
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pred, _, _ = rollout(x_raw, y_raw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _expect(launches, f"a {UNET_STEPS}-step UNet rollout",
+            ta_fwd=UNET_TA_PER_FORWARD * UNET_STEPS)
+    want = (UNET_BATCH, UNET_STEPS * UNET_SHAPE[0], *UNET_SHAPE[1:])
+    if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"UNet rollout output {tuple(pred.shape)} (want {want}) "
+                             "or not finite")
+
+    ref_model = _unet(dev).eval()
+    ref_model.load_state_dict(model.state_dict(), strict=True)
+    ref, _, _ = make_rollout_fn(_PlainPath(ref_model), norm, UNET_STEPS)(x_raw, y_raw)
+    rel_l2 = ((pred - ref).norm() / ref.norm()).item()
+    max_rel = ((pred - ref).abs().max() / ref.abs().max()).item()
+    row = dict(rel_l2=rel_l2, limit_rel_l2=UNET_ROLLOUT_REL_L2,
+               max_abs_over_max_ref=max_rel, limit_max=UNET_ROLLOUT_MAX,
+               ref_abs_max=ref.abs().max().item(),
+               rel_l2_by_step=[((pred[:, i:i + UNET_SHAPE[0]] - ref[:, i:i + UNET_SHAPE[0]])
+                                .norm() / ref[:, i:i + UNET_SHAPE[0]].norm()).item()
+                               for i in range(0, want[1], UNET_SHAPE[0])])
+    if not (rel_l2 <= UNET_ROLLOUT_REL_L2 and max_rel <= UNET_ROLLOUT_MAX):
+        raise AssertionError(f"bf16 kernel UNet rollout vs f32 plain rollout: {row}")
+    del ref_model, ref, pred
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(x_raw, y_raw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    emit(dict(phase="unet_rollout", batch=UNET_BATCH, steps=UNET_STEPS, shape=list(want),
+              launches=launches, vs_plain_f32=row, first_rollout_s=first_s,
+              rollout_s=secs, frames_per_s=UNET_BATCH * want[1] / med,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    return launches
+
+
+def _steps_per_s(step, x, y, n: int) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loss = step(x, y)
+    loss = loss.item()      # synchronises
+    return n / (time.perf_counter() - t0), loss
+
+
+def _plain_grads(model, xn, yn) -> tuple:
+    """Loss and gradients of the f32 model through the plain path."""
+    model.zero_grad(set_to_none=True)
+    loss = model(xn, y=yn, reference=True)
+    loss.backward()
+    return loss.item(), _grads(model)
+
+
+def phase_unet_train(dev, norm) -> dict:
+    """The UNet's training step through make_train_step; returns the launch
+    counts of the counted step."""
+    model = _unet(dev, "bfloat16")
+    ref_model = _unet(dev)
+    ref_model.load_state_dict(model.state_dict(), strict=True)
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(UNET_BATCH, *UNET_SHAPE, generator=g, device=dev)
+    y = torch.randn(UNET_BATCH, *UNET_SHAPE, generator=g, device=dev)
+    opt = build_optimizer(UNET_TRAIN_CFG, model.parameters())
+    step = make_train_step(model, norm, opt, grad_accum=1)
+
+    # the main path, counted: nothing but this step between reset and read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = step(x, y).item()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _expect(launches, "one UNet training step", ta_fwd=UNET_TA_PER_FORWARD,
+            ta_bwd=UNET_TA_PER_FORWARD)
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not loss == loss or abs(loss) == float("inf"):
+        raise AssertionError(f"UNet training loss {loss} is not finite")
+
+    # the kernel path's loss and gradients against the plain f32 path's from
+    # the weights before the step, both at half the batch: the f32 plain
+    # step at batch 12 does not fit an 80 GB card
+    xn, yn = norm.preprocess(x, y)
+    n = UNET_CMP_BATCH
+    ref_loss, ref_grads = _plain_grads(ref_model, xn[:n], yn[:n])
+    half = _unet(dev, "bfloat16")
+    half.load_state_dict(ref_model.state_dict(), strict=True)
+    half_loss = half(xn[:n], y=yn[:n])
+    half_loss.backward()
+    loss, grads = half_loss.item(), _grads(half)
+    del half, half_loss
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    cmp = dict(batch=n, loss=loss, ref_loss=ref_loss, loss_rel=loss_rel,
+               limit_loss_rel=UNET_LOSS_REL, limit_grad_rel_l2=UNET_GRAD_REL_L2,
+               grad_rel_l2={n: _rel_l2(grads[n], gr) for n, gr in ref_grads.items()})
+    cmp["worst_grad_rel_l2"] = max(cmp["grad_rel_l2"].values())
+    bad = [] if loss_rel <= UNET_LOSS_REL else ["loss"]
+    bad += [n for n, r in cmp["grad_rel_l2"].items() if not r <= UNET_GRAD_REL_L2]
+    if bad:
+        raise AssertionError(f"bf16 kernel UNet step vs f32 plain step: {bad}: {cmp}")
+    del ref_model, ref_grads, grads
+    torch.cuda.empty_cache()
+
+    # determinism: the same forward-backward twice, bit for bit, with
+    # cuDNN held to deterministic algorithms (its default ones may use atomics)
+    torch.backends.cudnn.deterministic = True
+    rep = []
+    for _ in range(2):
+        opt.zero_grad()
+        rep_loss = model.loss(xn, yn)
+        rep_loss.backward()
+        rep.append((rep_loss.detach(), _grads(model)))
+    same = torch.equal(rep[0][0], rep[1][0]) and all(
+        torch.equal(rep[0][1][n], rep[1][1][n]) for n in rep[0][1])
+    if not same:
+        raise AssertionError("two identical UNet forward-backward passes differ")
+    del rep, rep_loss
+    step(x, y)
+    det_rate, _ = _steps_per_s(step, x, y, UNET_WINDOW_STEPS)
+    torch.backends.cudnn.deterministic = False
+
+    for _ in range(WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates, losses = zip(*(_steps_per_s(step, x, y, UNET_WINDOW_STEPS)
+                          for _ in range(WINDOWS)))
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"UNet training losses {losses} are not finite")
+    med = statistics.median(rates)
+    emit(dict(phase="unet_train", batch=UNET_BATCH, cfg=UNET_TRAIN_CFG,
+              launches=launches, vs_plain_f32=cmp, bitwise_repeatable=same,
+              first_step_s=first_s, window_steps_per_s=list(rates), steps_per_s=med,
+              frames_per_s=med * UNET_BATCH * UNET_SHAPE[0], losses=list(losses),
+              deterministic_cudnn_steps_per_s=det_rate,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              peak_mem_first_step_gb=first_peak,
+              peak_mem_with_plain_step_gb=ref_peak))
+    phase_profile(step, x, y, "unet_profile")
+    return launches
+
+
+def phase_profile(step, x, y, phase: str = "profile") -> None:
     """torch.profiler over 3 training steps: device time by kernel against
     the host's wall time."""
     from torch.autograd import DeviceType
@@ -572,9 +1015,9 @@ def phase_profile(step, x, y) -> None:
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in ka
                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    emit(dict(phase="profile", steps=3, wall_ms=wall * 1e3, device_ms=total,
+    emit(dict(phase=phase, steps=3, wall_ms=wall * 1e3, device_ms=total,
               idle_share=1 - total / (wall * 1e3),
-              kernels=[dict(name=k[:100], ms=ms, count=n) for k, ms, n in rows[:25]]))
+              kernels=[dict(name=k[:160], ms=ms, count=n) for k, ms, n in rows[:40]]))
 
 
 def main() -> None:
@@ -584,11 +1027,17 @@ def main() -> None:
     summary = phase_kernels(dev)
     summary.update(phase_backward(dev))
     adjoint = summary.pop("t_stage_adjoint")
-    summary["t_stage"].update(adjoint_ms=adjoint["ms"],
-                              adjoint_plain_ms=adjoint["plain_ms"])
+    summary["t_stage"].update({f"adjoint_{k}": adjoint[k]
+                               for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
     for key in ("max_abs_err", "max_rel_err"):
         summary["t_stage"][key] = max(summary["t_stage"][key], adjoint[key])
+    summary.update(phase_ta(dev))
     by_path = {"rollout": phase_slice(dev), "train": phase_train(dev)}
+    torch.cuda.empty_cache()
+    norm = unet_normalizer()
+    by_path["unet_rollout"] = phase_unet_rollout(dev, norm)
+    torch.cuda.empty_cache()
+    by_path["unet_train"] = phase_unet_train(dev, norm)
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=sum(p[k] for p in by_path.values()),

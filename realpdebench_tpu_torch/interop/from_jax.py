@@ -1,18 +1,21 @@
 """JAX parameters → the port's ``state_dict``.
 
-Counterpart of ``realpdebench_tpu/interop/torch_export.py`` (the FNO
-exporter, ``export_fno``): the same key names and conventions, producing
-torch tensors that ``FNO3d.load_state_dict(..., strict=True)`` takes.
-Inputs are the JAX ``params`` and ``batch_stats`` trees as nested dicts of
-numpy arrays, so this module needs no JAX.
+Counterpart of ``realpdebench_tpu/interop/torch_export.py`` (its
+``export_fno`` and ``export_unet``): the same key names and conventions,
+producing torch tensors that the port's ``load_state_dict(...,
+strict=True)`` takes. Inputs are the JAX ``params`` (and ``batch_stats``)
+trees as nested dicts of numpy arrays, so this module needs no JAX.
 
 Conventions: a flax Dense kernel [in, out] becomes a Linear weight
-[out, in]; the channels-minor corner weights (w_real, w_imag)
-[4, m1, m2, m3, C_in, C_out] become complex ``weights1..4``
-[C_in, C_out, m1, m2, m3]; the pointwise kernel [C_in, C_out] becomes a
-1x1x1 Conv3d weight [C_out, C_in, 1, 1, 1]; BatchNorm scale/bias and
-running mean/var map to weight/bias and running_mean/running_var, plus the
-``num_batches_tracked`` counter every torch BatchNorm carries.
+[out, in]; a flax Conv kernel [*K, in, out] a Conv weight [out, in, *K];
+a flax ConvTranspose kernel with ``transpose_kernel=True`` [*K, out, in]
+a ConvTranspose weight [in, out, *K] (the same axis permutation); the
+channels-minor corner weights (w_real, w_imag) [4, m1, m2, m3, C_in, C_out]
+become complex ``weights1..4`` [C_in, C_out, m1, m2, m3]; the pointwise
+kernel [C_in, C_out] becomes a 1x1x1 Conv3d weight [C_out, C_in, 1, 1, 1];
+BatchNorm and GroupNorm scale/bias map to weight/bias, BatchNorm running
+mean/var to running_mean/running_var, plus the ``num_batches_tracked``
+counter every torch BatchNorm carries.
 """
 
 from __future__ import annotations
@@ -49,4 +52,79 @@ def fno_state_dict(params: dict, batch_stats: dict) -> dict:
         sd[f"bns.{i}.running_var"] = _t(bs["var"])
         sd[f"bns.{i}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
         i += 1
+    return sd
+
+
+def _dense(sd, key, p) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _conv(sd, key, p) -> None:
+    """flax [*K, I, O] → torch [O, I, *K]; the same permutation takes a
+    ConvTranspose's [*K, O, I] to torch's [I, O, *K]."""
+    w = np.asarray(p["kernel"])
+    n = w.ndim
+    sd[f"{key}.weight"] = _t(w.transpose((n - 1, n - 2, *range(n - 2))))
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _resnet(sd, key, p) -> None:
+    for blk in ("block1", "block2"):
+        _conv(sd, f"{key}.{blk}.proj", p[blk]["proj"])
+        sd[f"{key}.{blk}.norm.weight"] = _t(p[blk]["norm"]["scale"])
+        sd[f"{key}.{blk}.norm.bias"] = _t(p[blk]["norm"]["bias"])
+    if "mlp" in p:
+        _dense(sd, f"{key}.mlp.1", p["mlp"])
+    if "res_conv" in p:
+        _conv(sd, f"{key}.res_conv", p["res_conv"])
+
+
+def _gamma(sd, key, norm) -> None:
+    sd[f"{key}.fn.norm.gamma"] = _t(np.asarray(norm["gamma"]).reshape(1, -1, 1, 1, 1))
+
+
+def _attention(sd, key, norm, attn, conv: bool) -> None:
+    """Residual(PreNorm(attention)): the token attentions sit one wrapper
+    deeper (``fn.fn.fn``) than the spatial linear one (``fn.fn``)."""
+    _gamma(sd, key, norm)
+    put, inner = (_conv, "fn.fn") if conv else (_dense, "fn.fn.fn")
+    put(sd, f"{key}.{inner}.to_qkv", attn["to_qkv"])
+    put(sd, f"{key}.{inner}.to_out", attn["to_out"])
+
+
+def unet_state_dict(params: dict) -> dict:
+    """JAX Unet3d ``params`` → Unet3d ``state_dict``."""
+    p, sd = params, {}
+    _conv(sd, "init_conv", p["init_conv"])
+    _attention(sd, "init_temporal_attn", p["init_attn_norm"],
+               p["init_temporal_attn"], conv=False)
+    sd["time_rel_pos_bias.relative_attention_bias.weight"] = _t(
+        p["time_rel_pos_bias"]["embedding"])
+    _dense(sd, "time_mlp.1", p["time_mlp_1"])
+    _dense(sd, "time_mlp.3", p["time_mlp_2"])
+    for path, resample in (("down", "downsample"), ("up", "upsample")):
+        i = 0
+        while f"{path}_{i}_block1" in p:
+            key, pre = f"{path}s.{i}", f"{path}_{i}_"
+            _resnet(sd, f"{key}.0", p[pre + "block1"])
+            _resnet(sd, f"{key}.1", p[pre + "block2"])
+            if pre + "spatial_attn" in p:
+                _attention(sd, f"{key}.2", p[pre + "spatial_norm"],
+                           p[pre + "spatial_attn"], conv=True)
+            _attention(sd, f"{key}.3", p[pre + "temporal_norm"],
+                       p[pre + "temporal_attn"], conv=False)
+            if pre + resample in p:
+                _conv(sd, f"{key}.4", p[pre + resample])
+            i += 1
+    _resnet(sd, "mid_block1", p["mid_block1"])
+    _attention(sd, "mid_spatial_attn", p["mid_spatial_norm"],
+               p["mid_spatial_attn"], conv=False)
+    _attention(sd, "mid_temporal_attn", p["mid_temporal_norm"],
+               p["mid_temporal_attn"], conv=False)
+    _resnet(sd, "mid_block2", p["mid_block2"])
+    _resnet(sd, "final_conv.0", p["final_block"])
+    _conv(sd, "final_conv.1", p["final_conv"])
     return sd

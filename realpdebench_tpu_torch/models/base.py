@@ -9,8 +9,20 @@ and ``loss`` are methods of the module itself.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+# flax lecun_normal: a normal truncated at 2 std, rescaled to keep variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> None:
+    """flax's default kernel init, in place: variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

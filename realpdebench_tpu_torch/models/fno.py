@@ -26,14 +26,13 @@ Conv3d or BatchNorm modules, whose math lives in the kernels.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from realpdebench_tpu_torch.models.base import Model, mse
+from realpdebench_tpu_torch.models.base import Model, lecun_normal_, mse
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_variant
 from realpdebench_tpu_torch.ops.fno_layer import (
     fused_fno_layer,
@@ -42,16 +41,8 @@ from realpdebench_tpu_torch.ops.fno_layer import (
 from realpdebench_tpu_torch.ops.fno_tail import fused_tail_loss
 from realpdebench_tpu_torch.ops.spectral import grid_features
 
-# flax lecun_normal: a normal truncated at 2 std, rescaled to keep variance
-_TRUNC_STD = 0.87962566103423978
 # flax BatchNorm's momentum 0.9: running ← 0.9·running + 0.1·batch
 _BN_MOMENTUM = 0.9
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
 
 
 class SpectralConv3d(nn.Module):
@@ -124,7 +115,7 @@ class FNO3d(Model):
         for the dense and pointwise layers, U[0,1)/(C_in*C_out) spectral
         weights, BatchNorm scale 1, bias 0, running mean 0 and var 1."""
         for lin in (self.fc0, self.fc1, self.fc2, *self.convs):
-            _lecun_normal_(lin.weight.data, lin.weight[0].numel(), generator)
+            lecun_normal_(lin.weight.data, lin.weight[0].numel(), generator)
             nn.init.zeros_(lin.bias)
         for sc in self.spectral_convs:
             sc.reset_parameters(generator)

@@ -8,12 +8,13 @@ name carries a hash of the sources and flags, so an edited source is rebuilt
 and a stale library is never loaded. ``library()`` loads it with ctypes.
 
 One wrapper per kernel (``k1``, ``t_stage``, ``k2``, ``k2a``, ``k2a_lite``,
-``k12b``, ``k3f``, ``k3b``): each checks its tensors, allocates the outputs
-and scratch, launches on PyTorch's current stream (the kernels allocate
-nothing and do not synchronise), raises if the launch returned an error,
-and adds one to its entry in ``LAUNCHES``. Nothing here runs at import: this
-module is imported on machines with no GPU and no nvcc, where only the plain
-twins in ``ops/fno_layer.py`` and ``ops/fno_tail.py`` run.
+``k12b``, ``k3f``, ``k3b``, ``ta_fwd``, ``ta_bwd``): each checks its
+tensors, allocates the outputs and scratch, launches on PyTorch's current
+stream (the kernels allocate nothing and do not synchronise), raises if the
+launch returned an error, and adds one to its entry in ``LAUNCHES``.
+Nothing here runs at import: this module is imported on machines with no
+GPU and no nvcc, where only the plain twins in ``ops/fno_layer.py``,
+``ops/fno_tail.py`` and ``ops/temporal_attention.py`` run.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches per kernel since the last reset_launches(): the proof that a run
 # went through the kernels and not through the plain twins.
 LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
-            "k3f": 0, "k3b": 0}
+            "k3f": 0, "k3b": 0, "ta_fwd": 0, "ta_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
@@ -132,6 +133,12 @@ def library() -> ctypes.CDLL:
     lib.fno_k3f.restype = I
     lib.fno_k3b.argtypes = [P] * 10 + [I] * 12 + [P]
     lib.fno_k3b.restype = I
+    lib.ta_fwd.argtypes = [P] * 5 + [I] * 5 + [P]
+    lib.ta_fwd.restype = I
+    lib.ta_bwd_num_partials.argtypes = [I] * 5
+    lib.ta_bwd_num_partials.restype = I
+    lib.ta_bwd.argtypes = [P] * 10 + [I] * 5 + [P]
+    lib.ta_bwd.restype = I
     lib.fno_error_string.argtypes = [I]
     lib.fno_error_string.restype = ctypes.c_char_p
     return lib
@@ -379,3 +386,57 @@ def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str):
             ACT_CODES[act], dt)
     dk1, db1, dk2, db2 = out.split([C * H1, H1, H1 * F, F])
     return ds, dk1.view(C, H1), db1, dk2.view(H1, F), db2
+
+
+# head widths the TA kernels are instantiated for (csrc/temporal_attention.cu)
+TA_HEAD_DIMS = (8, 16, 32, 64)
+TA_MAX_TASKS = 256   # heads * T: one thread per (head, row) of a site
+
+
+def _ta_checks(q, pos_bias, heads, **same):
+    """(dtype code, sites, T, d) of a TA call on q [B, S, T, h*d]."""
+    dt = _io_dtype(q)
+    dev = q.device
+    if q.dim() != 4:
+        raise ValueError(f"temporal attention takes [B, S, T, h*d], got {tuple(q.shape)}")
+    B, S, T, F = q.shape
+    d = F // heads
+    if F % heads or d not in TA_HEAD_DIMS or heads * T > TA_MAX_TASKS:
+        raise ValueError(f"the TA kernels take a head width in {TA_HEAD_DIMS} and "
+                         f"heads*T <= {TA_MAX_TASKS}; got F={F}, heads={heads}, T={T}")
+    _check("q", q, dev, q.dtype, q.shape)
+    for n, t in same.items():
+        _check(n, t, dev, q.dtype, q.shape)
+    _check("pos_bias", pos_bias, dev, torch.float32, (heads, T, T))
+    for n, t in (("q", q), *same.items()):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{n}: not 16-byte aligned")
+    return dt, B * S, T, d
+
+
+def ta_fwd(q, k, v, pos_bias, heads: int):
+    """o = softmax(q k^T + pos_bias) v per (site, head) over T; q, k, v, o
+    [B, S, T, h*d], pos_bias [h, T, T] f32; see csrc/temporal_attention.cu."""
+    dt, nsites, T, d = _ta_checks(q, pos_bias, heads, k=k, v=v)
+    o = torch.empty_like(q)
+    _launch("ta_fwd", library().ta_fwd, q.device, _p(q), _p(k), _p(v),
+            _p(pos_bias), _p(o), nsites, T, heads, d, dt)
+    return o
+
+
+def ta_bwd(q, k, v, pos_bias, do, heads: int):
+    """(dq, dk, dv like q; dpb [h, T, T] f32, summed over all sites) of
+    ta_fwd's output cotangent do; the weights are recomputed."""
+    dt, nsites, T, d = _ta_checks(q, pos_bias, heads, k=k, v=v, do=do)
+    lib = library()
+    n = lib.ta_bwd_num_partials(nsites, T, heads, d, dt)
+    if n <= 0:
+        raise ValueError(f"ta_bwd refuses T={T}, heads={heads}, d={d}: its tile "
+                         "does not fit shared memory")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    partial = torch.empty((n, heads, T, T), dtype=torch.float32, device=q.device)
+    dpb = torch.empty((heads, T, T), dtype=torch.float32, device=q.device)
+    _launch("ta_bwd", lib.ta_bwd, q.device, _p(q), _p(k), _p(v), _p(pos_bias),
+            _p(do), _p(dq), _p(dk), _p(dv), _p(partial), _p(dpb), nsites, T,
+            heads, d, dt)
+    return dq, dk, dv, dpb

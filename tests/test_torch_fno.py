@@ -130,15 +130,24 @@ def test_build_model_takes_jax_registry_kwargs():
     v = jb.init(jax.random.PRNGKey(0), np.zeros((1, *SI), np.float32))
     ref = export_fno(_np_tree(v["params"]),
                      {"batch_stats": _np_tree(v["batch_stats"])})
-    m = build_model(shapes=(SI, SO), generator=make_generator(0), **cfg)
+    m = build_model(shapes=(SI, SO), generator=make_generator(0), device="cpu",
+                    **cfg)
     assert isinstance(m, FNO3d) and m.compute_dtype == torch.bfloat16
     sd = m.state_dict()
     assert {k: tuple(t.shape) for k, t in sd.items()} == {
         k: np.shape(a) for k, a in ref.items()}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(shapes=(SI, SO), model_name="unet", dim_mults=[1, 2])
+        build_model(shapes=(SI, SO), model_name="deeponet", p=8, device="cpu")
     with pytest.raises(ValueError, match="not supported"):
-        build_model(shapes=(SI, SO), model_name="nope")
+        build_model(shapes=(SI, SO), model_name="nope", device="cpu")
+
+
+def test_build_model_defaults_to_the_card_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(model_name="fno", **KW)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(shapes=(SI, SO), **kw)
+    assert next(build_model(shapes=(SI, SO), device="cpu", **kw).parameters()).is_cpu
 
 
 def test_init_is_seeded_and_follows_jax_distributions():

@@ -35,13 +35,19 @@ _SCRIPT = textwrap.dedent("""
 
     m = build_model(shapes=((4, 8, 8, 3), (4, 8, 8, 3)), model_name="fno",
                     modes1=2, modes2=2, modes3=2, n_layers=2, width=8,
-                    generator=make_generator(0))
+                    device="cpu", generator=make_generator(0))
     pred, _, _ = make_rollout_fn(m, IdentityNormalizer(), 2)(
         torch.zeros(1, 4, 8, 8, 3), torch.zeros(1, 8, 8, 8, 3))
     assert pred.shape == (1, 8, 8, 8, 3) and bool(torch.isfinite(pred).all())
+    u = build_model(shapes=((2, 8, 8, 3), (2, 8, 8, 3)), model_name="unet",
+                    dim_mults=[1, 2], device="cpu", generator=make_generator(0))
+    pred, _, _ = make_rollout_fn(u, IdentityNormalizer(), 2)(
+        torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 4, 8, 8, 3))
+    assert pred.shape == (1, 4, 8, 8, 3) and bool(torch.isfinite(pred).all())
+    u.loss(torch.zeros(1, 2, 8, 8, 3), torch.ones(1, 2, 8, 8, 3)).backward()
     assert kernels.library.cache_info().currsize == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    assert len(names) >= 12, names
+    assert len(names) >= 14, names
     print("OK", len(names))
 """)
 

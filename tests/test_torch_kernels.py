@@ -5,7 +5,9 @@ the GPU host with ``python -m pytest --noconftest -m gpu
 tests/test_torch_kernels.py``. They cover small and uneven shapes (C below
 16, 2*m2 well below 32, H not a multiple of K2's row block, a tail crop
 that is not the whole grid) that chip_smoke.py, which runs the full
-benchmark width, does not. Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
+benchmark width, does not; for temporal attention, T, heads and head width
+below the UNet's (T 5 and 20, h 3 and 4, d 8 and 32) and site counts that
+fill no whole tile (S 300, 37). Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
 sides accumulate in f32, in another order); in bf16 1e-2·max|ref| (both
 sides compute in f32 from the same bf16 inputs and round once to bf16, so
 they differ by at most one bf16 step, 2^-8 relative). The f32 accumulators
@@ -19,6 +21,7 @@ import torch
 from realpdebench_tpu_torch.ops import fno_layer as tfl
 from realpdebench_tpu_torch.ops import fno_tail as tft
 from realpdebench_tpu_torch.ops import kernels
+from realpdebench_tpu_torch.ops import temporal_attention as tta
 
 pytestmark = pytest.mark.gpu
 
@@ -172,3 +175,63 @@ def test_fused_layer_backward_matches_reference_on_card(cuda, shape):
         _close(u, v, torch.float32)
     for u, v in zip(got, grads(tfl.fused_fno_layer)):
         assert torch.equal(u, v)
+
+
+TA_SHAPES = [  # (B, S, T, h, d)
+    (2, 300, 5, 3, 8),
+    (1, 37, 20, 4, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TA_SHAPES)
+def test_temporal_attention_kernels_match_twin(cuda, shape, dtype):
+    """ta_fwd and ta_bwd against the twin and autograd through it (in f32
+    from the same inputs); dpb is an f32 accumulator in both dtypes; the
+    backward repeats bit for bit."""
+    B, S, T, h, d = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    q, k, v, do = (rn(B, S, T, h * d).to(dtype) for _ in range(4))
+    pb = 0.3 * rn(h, T, T)
+    kernels.reset_launches()
+    _close(kernels.ta_fwd(q, k, v, pb, h),
+           tta.temporal_attention_tokens_plain(q, k, v, pb, h), dtype)
+    got = kernels.ta_bwd(q, k, v, pb, do, h)
+    leaves = [t.float().requires_grad_() for t in (q, k, v, pb)]
+    ref = torch.autograd.grad(tta.temporal_attention_tokens_plain(*leaves, h),
+                              leaves, do.float())
+    torch.cuda.synchronize()
+    for u, r in zip(got[:3], ref[:3]):
+        _close(u, r.to(dtype), dtype)
+    _close(got[3], ref[3], torch.float32)
+    for u, w in zip(got, kernels.ta_bwd(q, k, v, pb, do, h)):
+        assert torch.equal(u, w)
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"ta_fwd": 1, "ta_bwd": 2}
+
+
+def test_temporal_attention_autograd_runs_the_kernels(cuda):
+    B, S, T, h, d = TA_SHAPES[0]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    leaves = [torch.randn(B, S, T, h * d, generator=g, device=cuda).requires_grad_()
+              for _ in range(3)]
+    pb = (0.3 * torch.randn(h, T, T, generator=g, device=cuda)).requires_grad_()
+    kernels.reset_launches()
+    out = tta.temporal_attention_tokens(*leaves, pb, h)
+    got = torch.autograd.grad((out * out).sum(), [*leaves, pb])
+    assert kernels.LAUNCHES["ta_fwd"] == 1 and kernels.LAUNCHES["ta_bwd"] == 1
+    out = tta.temporal_attention_tokens_plain(*leaves, pb, h)
+    for u, r in zip(got, torch.autograd.grad((out * out).sum(), [*leaves, pb])):
+        _close(u, r, torch.float32)
+
+
+def test_temporal_attention_kernels_refuse_bad_input(cuda):
+    q = torch.zeros(1, 8, 5, 3 * 12, device=cuda)
+    pb = torch.zeros(3, 5, 5, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        kernels.ta_fwd(q, q, q, pb, 3)
+    q = torch.zeros(1, 8, 5, 24, device=cuda)
+    with pytest.raises(ValueError, match="pos_bias"):
+        kernels.ta_fwd(q, q, q, pb[:2], 3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernels.ta_fwd(q.half(), q.half(), q.half(), pb, 3)

@@ -62,7 +62,7 @@ def test_rollout_matches_jax(monkeypatch, norm, para_c):
     j_pred, j_xn, j_yn = jrollout(jb, jn, STEPS, para_c=para_c)(
         v, x, y, jax.random.PRNGKey(1))
 
-    model = build_model(shapes=(si, so), **KW)
+    model = build_model(shapes=(si, so), device="cpu", **KW)
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
     model.load_state_dict(fno_state_dict(np_tree(v["params"]),
                                          np_tree(v["batch_stats"])), strict=True)

@@ -173,7 +173,7 @@ def test_train_step_trajectory_matches_jax(monkeypatch, sched, clip, grad_accum)
         if i == 0:
             jfirst = np_tree(state.model_state["batch_stats"])
 
-    model = build_model(shapes=(SI, SO), **kw)
+    model = build_model(shapes=(SI, SO), device="cpu", **kw)
     model.load_state_dict(init, strict=True)
     opt = build_optimizer(cfg, model.parameters())
     step = make_train_step(model, tnorm.build_normalizer("gaussian", stats=stats),
@@ -219,7 +219,7 @@ def test_train_step_trajectory_matches_jax(monkeypatch, sched, clip, grad_accum)
 
 
 def test_train_step_refuses_an_indivisible_batch():
-    model = build_model(shapes=(SI, SO), model_name="fno", **KW)
+    model = build_model(shapes=(SI, SO), model_name="fno", device="cpu", **KW)
     opt = build_optimizer(dict(lr=1e-3, num_update=10), model.parameters())
     step = make_train_step(model, tnorm.IdentityNormalizer(), opt, grad_accum=2)
     x, y = torch.zeros(3, *SI), torch.zeros(3, *SO)
