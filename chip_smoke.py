@@ -52,6 +52,25 @@ JSON line each; any failure raises (non-zero exit, no result line):
                the f32 step at 12 does not fit the card), two passes
                bit-equal under cudnn.deterministic; 2 warm-up steps and 5
                windows of 5 steps; then a profile of 3 steps.
+ 11. gk_scores the Galerkin scores kernel against its twin at the cylinder
+               width (B 16, N 20·64·128 = 163840 tokens, h 4, d 64, in the
+               q/k/v Dense's [B, N, h·d] layout), in float32 and bfloat16;
+               two calls bit-equal; CUDA-event medians of the kernel, the
+               twin, and the step's forward and backward of the scores (the
+               kernel, then autograd through the plain recompute).
+ 12. gk_rollout    the cylinder Galerkin Transformer
+               (configs/cylinder/galerkin_transformer.yaml: width 256, 4
+               heads, 1 encoder layer, bf16 compute, seeded random weights)
+               rolled out 1 step at eval batch 16 through make_rollout_fn
+               with a Gaussian normalizer; exact launch counts; compared with
+               the plain f32 rollout; frames/s (median of 10) and peak memory.
+ 13. gk_train      its training step at batch 16 (Adam at lr 0.01, cosine over
+               5000 updates, no clipping; dropout from the model's seeded
+               generator): one counted step, the loss and every gradient
+               against the plain f32 step from the same weights and the same
+               dropout masks (both at batch 16: the f32 step fits the card),
+               two passes bit-equal; 2 warm-up steps and 5 windows of 3
+               steps; then a profile of 3 steps.
 Every kernel's time stands beside its bound: the larger of the bytes it
 must move (inputs read once, outputs written once) over HBM's 3.35 TB/s and
 its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
@@ -76,6 +95,7 @@ from realpdebench_tpu_torch.eval.rollout import make_rollout_fn
 from realpdebench_tpu_torch.models.registry import build_model
 from realpdebench_tpu_torch.ops import fno_layer as fl
 from realpdebench_tpu_torch.ops import fno_tail as ft
+from realpdebench_tpu_torch.ops import galerkin as tga
 from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops import temporal_attention as tta
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
@@ -119,7 +139,8 @@ TRAIN_ZERO_GRAD = 1e-2
 # per training step: 4 layers forward (K1, 2 T-stages, K2) and backward
 # (K2A-lite, 2 T-stage adjoints, K12B), one fused tail + loss
 TRAIN_LAUNCHES = {"k1": 4, "t_stage": 16, "k2": 4, "k2a": 0, "k2a_lite": 4,
-                  "k12b": 4, "k3f": 1, "k3b": 1, "ta_fwd": 0, "ta_bwd": 0}
+                  "k12b": 4, "k3f": 1, "k3b": 1, "ta_fwd": 0, "ta_bwd": 0,
+                  "gk_scores": 0}
 
 # temporal attention at the UNet's level 0 in the training step (B, S, T, h, d)
 TA_SHAPE = (12, 64 * 128, 20, 4, 32)
@@ -146,6 +167,33 @@ UNET_TA_PER_FORWARD = 8
 UNET_ROLLOUT_REL_L2, UNET_ROLLOUT_MAX = 5e-2, 1e-1
 UNET_LOSS_REL, UNET_GRAD_REL_L2 = 1e-2, 1e-1
 
+# the cylinder Galerkin Transformer (configs/cylinder/galerkin_transformer.yaml
+# with the JAX registry's key mapping): windows of 20x64x128x3 in and out,
+# N = 163840 tokens a sample, train and eval batch 16, 1 rollout step
+GK_SHAPE = (20, 64, 128, 3)
+GK_MODEL = dict(model_name="galerkin_transformer", n_hidden=256, num_encoder_layers=1,
+                n_head=4, dim_feedforward=256, attention_type="galerkin",
+                layer_norm=False, attn_norm=True, norm_eps=1e-7, fourier_modes_x=16,
+                fourier_modes_y=20, fourier_modes_t=4, num_regressor_layers=1,
+                freq_dim=128, encoder_dropout=0.05, xavier_init=0.01,
+                diagonal_weight=0.01, seed=0)
+GK_BATCH, GK_STEPS, GK_ROLLOUTS = 16, 1, 10
+GK_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
+GK_WINDOW_STEPS = 3
+GK_DROPOUT_SEED = 11
+# the scores kernel at the encoder's width: (B, N, h, d)
+GK_SCORES_SHAPE = (GK_BATCH, GK_SHAPE[0] * GK_SHAPE[1] * GK_SHAPE[2], GK_MODEL["n_head"],
+                   GK_MODEL["n_hidden"] // GK_MODEL["n_head"])
+# bf16 kernels vs the f32 plain path (TF32 off), fixed before the first run:
+# the 1-step rollout as for FNO; the step's loss within 1e-2 relative and
+# every gradient within 5e-2 relative L2. The regressor's conv bias (the
+# BatchNorm after it cancels it) and the imaginary part of the DC spectral
+# weight (the inverse rfft drops it) have a true gradient of 0: held as
+# TRAIN_ZERO_GRAD holds FNO's conv biases, to 1e-2 of the largest gradient
+# of the conv weight, and of the spectral weight.
+GK_ROLLOUT_REL_L2, GK_ROLLOUT_MAX = 5e-2, 1e-1
+GK_LOSS_REL, GK_GRAD_REL_L2 = 1e-2, 5e-2
+
 # published H100 SXM peaks (dense, 700 W): HBM, and the operations of a
 # bf16 row on the tensor cores, of an f32 row on the FP32 pipes
 HBM_BYTES_PER_S = 3.35e12
@@ -163,6 +211,7 @@ SOURCES = {
     "k3b": ("fno_tail.cu", "fno_tail.py:102"),
     "ta_fwd": ("temporal_attention.cu", "temporal_attention.py:69"),
     "ta_bwd": ("temporal_attention.cu", "temporal_attention.py:84"),
+    "gk_scores": ("galerkin_scores.cu", "galerkin.py:43"),
 }
 SOURCES = {k: ("realpdebench_tpu_torch/csrc/" + s, _PALLAS + r)
            for k, (s, r) in SOURCES.items()}
@@ -813,7 +862,7 @@ def phase_ta(dev) -> dict:
     return summary
 
 
-def unet_normalizer():
+def gaussian_normalizer():
     """Gaussian normalizer with seeded per-channel statistics, the same for
     inputs and targets (the cylinder's are the same fields u, v, p)."""
     r = np.random.default_rng(0)
@@ -996,6 +1045,212 @@ def phase_unet_train(dev, norm) -> dict:
     return launches
 
 
+def phase_gk_scores(dev) -> dict:
+    """The scores kernel against its twin at the cylinder width; returns its
+    summary (bf16 errors and times: the dtype of the main path)."""
+    B, N, h, d = GK_SCORES_SHAPE
+    eps = GK_MODEL["norm_eps"]
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(8)
+        rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+        k = rn(B, N, h * d)
+        v = (0.5 * k + rn(B, N, h * d)).to(dtype)     # correlated, as q/k/v are
+        k = k.to(dtype)
+        aff = [1 + 0.1 * rn(h, d), 0.1 * rn(h, d), 1 + 0.1 * rn(h, d), 0.1 * rn(h, d)]
+        run = lambda: kernels.gk_scores(k, v, *aff, heads=h, eps=eps)
+        plain = lambda: tga.galerkin_scores_plain(k, v, *aff, h, eps)
+        got = run()
+        row = compare("gk_scores", got, plain(), KERNEL_TOL[dtype])
+        same = torch.equal(got, run())
+        if not same:
+            raise AssertionError(f"two identical gk_scores calls differ ({dtype})")
+        # the training step's forward and backward of the scores: the kernel,
+        # then autograd through the plain recompute (the JAX custom_vjp's)
+        leaves = [t.detach().requires_grad_() for t in (k, v, *aff)]
+        ct = rn(B, h, d, d)
+        fwd_bwd = lambda: torch.autograd.grad(
+            tga.galerkin_scores(*leaves, h, eps), leaves, ct)
+        times = (cuda_ms(run), cuda_ms(plain, reps=5), cuda_ms(fwd_bwd, reps=5))
+        # the products: 2·d·d per (token, head); LayerNorm's few operations
+        # per element are left out
+        work = bound(nbytes(k, v, *aff, got), 2 * B * N * h * d * d, dtype)
+        emit(dict(phase="gk_scores", dtype=str(dtype).replace("torch.", ""),
+                  shapes=dict(B=B, N=N, h=h, d=d), checks=[row], bitwise_repeatable=same,
+                  ms=dict(kernel=times[0], plain=times[1], library=None,
+                          kernel_fwd_plain_bwd=times[2], **work)))
+        if dtype == torch.bfloat16:
+            summary = dict(max_abs_err=row["max_abs_err"], max_rel_err=row["max_rel_err"],
+                           ms=times[0], plain_ms=times[1], library_ms=None,
+                           fwd_plain_bwd_ms=times[2], **work)
+        del k, v, got, leaves
+        torch.cuda.empty_cache()
+    return {"gk_scores": summary}
+
+
+def _gk(dev, compute_dtype=None):
+    return build_model(shapes=(GK_SHAPE, GK_SHAPE), compute_dtype=compute_dtype,
+                       device=dev, generator=make_generator(0), **GK_MODEL)
+
+
+def phase_gk_rollout(dev, norm) -> dict:
+    model = _gk(dev, "bfloat16").eval()
+    g = torch.Generator(device=dev).manual_seed(9)
+    x_raw = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
+    y_raw = torch.randn(GK_BATCH, GK_SHAPE[0] * GK_STEPS, *GK_SHAPE[1:], generator=g,
+                        device=dev)
+    rollout = make_rollout_fn(model, norm, GK_STEPS)
+
+    # the main path, counted: nothing but this run between reset and read
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pred, _, _ = rollout(x_raw, y_raw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _expect(launches, f"a {GK_STEPS}-step GK rollout",
+            gk_scores=GK_MODEL["num_encoder_layers"] * GK_STEPS)
+    want = (GK_BATCH, GK_STEPS * GK_SHAPE[0], *GK_SHAPE[1:])
+    if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"GK rollout output {tuple(pred.shape)} (want {want}) "
+                             "or not finite")
+
+    ref_model = _gk(dev).eval()
+    ref_model.load_state_dict(model.state_dict(), strict=True)
+    ref, _, _ = make_rollout_fn(_PlainPath(ref_model), norm, GK_STEPS)(x_raw, y_raw)
+    rel_l2 = ((pred - ref).norm() / ref.norm()).item()
+    max_rel = ((pred - ref).abs().max() / ref.abs().max()).item()
+    row = dict(rel_l2=rel_l2, limit_rel_l2=GK_ROLLOUT_REL_L2, max_abs_over_max_ref=max_rel,
+               limit_max=GK_ROLLOUT_MAX, ref_abs_max=ref.abs().max().item())
+    if not (rel_l2 <= GK_ROLLOUT_REL_L2 and max_rel <= GK_ROLLOUT_MAX):
+        raise AssertionError(f"bf16 kernel GK rollout vs f32 plain rollout: {row}")
+    del ref_model, ref, pred
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(GK_ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(x_raw, y_raw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    emit(dict(phase="gk_rollout", batch=GK_BATCH, steps=GK_STEPS, shape=list(want),
+              launches=launches, vs_plain_f32=row, first_rollout_s=first_s,
+              rollout_s=secs, frames_per_s=GK_BATCH * want[1] / med,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    return launches
+
+
+def _gk_grad_checks(grads, ref_grads) -> tuple:
+    """(relative L2 of each gradient, the zero-gradient entries' worst share
+    of their scale); the true zeros are held apart."""
+    rel, zero = {}, {}
+    for name, gr in ref_grads.items():
+        got = grads[name]
+        if name.startswith("regressor.convs.") and name.endswith(".bias"):
+            scale = ref_grads[name[:-4] + "weight"].abs().max().item()
+            zero[name] = max(got.abs().max().item(), gr.abs().max().item()) / scale
+            continue
+        if name.startswith("regressor.spectral_conv.") and name.endswith(".weights1"):
+            dc = (slice(None), slice(None), 0, 0, 0)
+            scale = torch.view_as_real(gr).abs().max().item()
+            zero[name + "[DC].imag"] = max(got[dc].imag.abs().max().item(),
+                                           gr[dc].imag.abs().max().item()) / scale
+            got, gr = got.clone(), gr.clone()
+            got[dc] = got[dc].real.to(got.dtype)
+            gr[dc] = gr[dc].real.to(gr.dtype)
+        rel[name] = _rel_l2(got, gr)
+    return rel, zero
+
+
+def phase_gk_train(dev, norm) -> dict:
+    """The Galerkin Transformer's training step through make_train_step;
+    returns the launch counts of the counted step."""
+    model = _gk(dev, "bfloat16")
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
+    y = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
+    opt = build_optimizer(GK_TRAIN_CFG, model.parameters())
+    step = make_train_step(model, norm, opt, grad_accum=1)
+
+    # the main path, counted: nothing but this step between reset and read
+    model.reseed_dropout(GK_DROPOUT_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = step(x, y).item()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _expect(launches, "one GK training step", gk_scores=GK_MODEL["num_encoder_layers"])
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not loss == loss or abs(loss) == float("inf"):
+        raise AssertionError(f"GK training loss {loss} is not finite")
+
+    # the counted step against the plain f32 path from the weights before
+    # the step, with the same dropout masks
+    xn, yn = norm.preprocess(x, y)
+    grads = _grads(model)
+    ref_model = _gk(dev)
+    ref_model.load_state_dict(init, strict=True)
+    ref_model.reseed_dropout(GK_DROPOUT_SEED)
+    ref_loss, ref_grads = _plain_grads(ref_model, xn, yn)
+    del ref_model, init
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    rel, zero = _gk_grad_checks(grads, ref_grads)
+    cmp = dict(batch=GK_BATCH, loss=loss, ref_loss=ref_loss, loss_rel=loss_rel,
+               limit_loss_rel=GK_LOSS_REL, grad_rel_l2=rel,
+               limit_grad_rel_l2=GK_GRAD_REL_L2, zero_grads=zero,
+               limit_zero_grad=TRAIN_ZERO_GRAD, worst_grad_rel_l2=max(rel.values()))
+    bad = [] if loss_rel <= GK_LOSS_REL else ["loss"]
+    bad += [k for k, r in rel.items() if not r <= GK_GRAD_REL_L2]
+    bad += [k for k, r in zero.items() if not r <= TRAIN_ZERO_GRAD]
+    if bad:
+        raise AssertionError(f"bf16 kernel GK step vs f32 plain step: {bad}: {cmp}")
+    del ref_grads, grads
+    torch.cuda.empty_cache()
+
+    # determinism: the same forward-backward twice, bit for bit, the dropout
+    # stream restarted before each
+    rep = []
+    for _ in range(2):
+        opt.zero_grad()
+        model.reseed_dropout(GK_DROPOUT_SEED)
+        rep_loss = model.loss(xn, yn)
+        rep_loss.backward()
+        rep.append((rep_loss.detach(), _grads(model)))
+    same = torch.equal(rep[0][0], rep[1][0]) and all(
+        torch.equal(rep[0][1][k], rep[1][1][k]) for k in rep[0][1])
+    if not same:
+        raise AssertionError("two identical GK forward-backward passes differ")
+    del rep, rep_loss
+    torch.cuda.empty_cache()
+
+    for _ in range(WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates, losses = zip(*(_steps_per_s(step, x, y, GK_WINDOW_STEPS)
+                          for _ in range(WINDOWS)))
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"GK training losses {losses} are not finite")
+    med = statistics.median(rates)
+    emit(dict(phase="gk_train", batch=GK_BATCH, cfg=GK_TRAIN_CFG, launches=launches,
+              vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
+              window_steps_per_s=list(rates), steps_per_s=med,
+              frames_per_s=med * GK_BATCH * GK_SHAPE[0], losses=list(losses),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              peak_mem_first_step_gb=first_peak,
+              peak_mem_with_plain_step_gb=ref_peak))
+    phase_profile(step, x, y, "gk_profile")
+    return launches
+
+
 def phase_profile(step, x, y, phase: str = "profile") -> None:
     """torch.profiler over 3 training steps: device time by kernel against
     the host's wall time."""
@@ -1034,10 +1289,15 @@ def main() -> None:
     summary.update(phase_ta(dev))
     by_path = {"rollout": phase_slice(dev), "train": phase_train(dev)}
     torch.cuda.empty_cache()
-    norm = unet_normalizer()
+    norm = gaussian_normalizer()
     by_path["unet_rollout"] = phase_unet_rollout(dev, norm)
     torch.cuda.empty_cache()
     by_path["unet_train"] = phase_unet_train(dev, norm)
+    torch.cuda.empty_cache()
+    summary.update(phase_gk_scores(dev))
+    by_path["gk_rollout"] = phase_gk_rollout(dev, norm)
+    torch.cuda.empty_cache()
+    by_path["gk_train"] = phase_gk_train(dev, norm)
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=sum(p[k] for p in by_path.values()),

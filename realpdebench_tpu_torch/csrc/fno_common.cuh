@@ -1,6 +1,7 @@
-// Shared helpers of the FNO kernels (fno_k1.cu, fno_tstage.cu, fno_k2.cu,
-// fno_k2a.cu, fno_k12b.cu, fno_tail.cu). Every kernel reads its activations
-// as T (float or bf16), computes in f32 and writes T.
+// Shared helpers of the kernels (fno_k1.cu, fno_tstage.cu, fno_k2.cu,
+// fno_k2a.cu, fno_k12b.cu, fno_tail.cu, temporal_attention.cu,
+// galerkin_scores.cu). Every kernel reads its activations as T (float or
+// bf16) and computes in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,23 +65,24 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Second pass of every cross-block reduction: out[i] = sum over p of
-// partial[p * n + i], added in the fixed order p = 0, 1, ... in f64. Blocks
-// run in no order, so each writes its own partial and this pass adds them:
-// no atomics, the same bits on every run. Static: each .cu file (compiled
-// without relocatable device code) launches its own copy.
+// Second pass of every cross-block reduction: out[i] = scale * (sum over p
+// of partial[p * n + i]), added in the fixed order p = 0, 1, ... in f64.
+// Blocks run in no order, so each writes its own partial and this pass adds
+// them: no atomics, the same bits on every run. Static: each .cu file
+// (compiled without relocatable device code) launches its own copy.
 static __global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                              float* __restrict__ out, int nparts, int n) {
+                                              float* __restrict__ out, int nparts, int n,
+                                              double scale) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   double acc = 0.0;
   for (int p = 0; p < nparts; ++p) acc += (double)partial[(size_t)p * n + i];
-  out[i] = (float)acc;
+  out[i] = (float)(acc * scale);
 }
 
 static inline cudaError_t reduce_partials(const float* partial, float* out, int nparts, int n,
-                                          cudaStream_t stream) {
-  reduce_partials_kernel<<<(n + 127) / 128, 128, 0, stream>>>(partial, out, nparts, n);
+                                          cudaStream_t stream, double scale = 1.0) {
+  reduce_partials_kernel<<<(n + 127) / 128, 128, 0, stream>>>(partial, out, nparts, n, scale);
   return cudaGetLastError();
 }
 

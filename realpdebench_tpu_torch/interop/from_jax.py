@@ -1,7 +1,8 @@
 """JAX parameters → the port's ``state_dict``.
 
 Counterpart of ``realpdebench_tpu/interop/torch_export.py`` (its
-``export_fno`` and ``export_unet``): the same key names and conventions,
+``export_fno``, ``export_unet`` and ``export_galerkin``): the same key names
+and conventions,
 producing torch tensors that the port's ``load_state_dict(...,
 strict=True)`` takes. Inputs are the JAX ``params`` (and ``batch_stats``)
 trees as nested dicts of numpy arrays, so this module needs no JAX.
@@ -28,30 +29,76 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C"))   # a copy the port owns
 
 
+def _spectral_layer(sd, spectral, pointwise, bn, stats, *, spec_key, conv_key,
+                    bn_key) -> None:
+    """One spectral layer: the corner weights, the pointwise conv and the
+    BatchNorm with its running statistics."""
+    w = (np.asarray(spectral["w_real"]).astype(np.complex64)
+         + 1j * np.asarray(spectral["w_imag"]).astype(np.complex64))
+    w = w.transpose(0, 4, 5, 1, 2, 3)
+    for k in range(4):
+        sd[f"{spec_key}.weights{k + 1}"] = _t(w[k])
+    kern = np.asarray(pointwise["kernel"])
+    sd[f"{conv_key}.weight"] = _t(kern.T[:, :, None, None, None])
+    sd[f"{conv_key}.bias"] = _t(pointwise["bias"])
+    sd[f"{bn_key}.weight"] = _t(bn["scale"])
+    sd[f"{bn_key}.bias"] = _t(bn["bias"])
+    sd[f"{bn_key}.running_mean"] = _t(stats["mean"])
+    sd[f"{bn_key}.running_var"] = _t(stats["var"])
+    sd[f"{bn_key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
 def fno_state_dict(params: dict, batch_stats: dict) -> dict:
     """JAX FNO3d ``params`` and ``batch_stats`` → FNO3d ``state_dict``."""
     sd = {}
     for k in ("fc0", "fc1", "fc2"):
-        sd[f"{k}.weight"] = _t(np.asarray(params[k]["kernel"]).T)
-        sd[f"{k}.bias"] = _t(params[k]["bias"])
+        _dense(sd, k, params[k])
     i = 0
     while f"layer_{i}" in params:
-        lp, bs = params[f"layer_{i}"], batch_stats[f"layer_{i}"]["bn"]
-        spec = lp["spectral"]
-        w = (np.asarray(spec["w_real"]).astype(np.complex64)
-             + 1j * np.asarray(spec["w_imag"]).astype(np.complex64))
-        w = w.transpose(0, 4, 5, 1, 2, 3)
-        for k in range(4):
-            sd[f"spectral_convs.{i}.weights{k + 1}"] = _t(w[k])
-        kern = np.asarray(lp["pointwise"]["kernel"])
-        sd[f"convs.{i}.weight"] = _t(kern.T[:, :, None, None, None])
-        sd[f"convs.{i}.bias"] = _t(lp["pointwise"]["bias"])
-        sd[f"bns.{i}.weight"] = _t(lp["bn"]["scale"])
-        sd[f"bns.{i}.bias"] = _t(lp["bn"]["bias"])
-        sd[f"bns.{i}.running_mean"] = _t(bs["mean"])
-        sd[f"bns.{i}.running_var"] = _t(bs["var"])
-        sd[f"bns.{i}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        lp = params[f"layer_{i}"]
+        _spectral_layer(sd, lp["spectral"], lp["pointwise"], lp["bn"],
+                        batch_stats[f"layer_{i}"]["bn"],
+                        spec_key=f"spectral_convs.{i}", conv_key=f"convs.{i}",
+                        bn_key=f"bns.{i}")
         i += 1
+    return sd
+
+
+def galerkin_state_dict(params: dict, batch_stats: dict) -> dict:
+    """JAX GalerkinTransformer3d ``params`` and ``batch_stats`` →
+    GalerkinTransformer3d ``state_dict``."""
+    sd = {}
+    _dense(sd, "downscaler.id", params["downscaler"])
+    i = 0
+    while f"encoder_{i}" in params:
+        enc, pre = params[f"encoder_{i}"], f"encoder_layers.{i}"
+        for src, dst in (("q", 0), ("k", 1), ("v", 2)):
+            _dense(sd, f"{pre}.attn.linears.{dst}", enc["attn"][src])
+        for which in ("K", "V"):
+            nrm = enc["attn"][f"norm_{which}"]
+            for h, (scale, bias) in enumerate(zip(np.asarray(nrm["scale"]),
+                                                  np.asarray(nrm["bias"]))):
+                sd[f"{pre}.attn.norm_{which}.{h}.weight"] = _t(scale)
+                sd[f"{pre}.attn.norm_{which}.{h}.bias"] = _t(bias)
+        _dense(sd, f"{pre}.ff.lr1", enc["ff1"])
+        _dense(sd, f"{pre}.ff.lr2", enc["ff2"])
+        for ln in ("layer_norm1", "layer_norm2"):
+            if ln in enc:
+                sd[f"{pre}.{ln}.weight"] = _t(enc[ln]["scale"])
+                sd[f"{pre}.{ln}.bias"] = _t(enc[ln]["bias"])
+        i += 1
+    reg, stats = params["regressor"], batch_stats["regressor"]
+    _dense(sd, "regressor.fc", reg["fc"])
+    i = 0
+    while f"spectral_{i}" in reg:
+        _spectral_layer(sd, reg[f"spectral_{i}"], reg[f"pointwise_{i}"],
+                        reg[f"bn_{i}"], stats[f"bn_{i}"],
+                        spec_key=f"regressor.spectral_conv.{i}",
+                        conv_key=f"regressor.convs.{i}",
+                        bn_key=f"regressor.bns.{i}")
+        i += 1
+    _dense(sd, "regressor.regressor1", reg["regressor1"])
+    _dense(sd, "regressor.regressor2", reg["regressor2"])
     return sd
 
 

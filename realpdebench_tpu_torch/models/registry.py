@@ -13,8 +13,7 @@ import torch
 from realpdebench_tpu_torch.models.base import Model
 
 # families the JAX registry builds that the port has not reached yet
-_NOT_PORTED = ("deeponet", "transolver", "galerkin_transformer", "mwt", "cno",
-               "dpot", "wdno", "dmd")
+_NOT_PORTED = ("deeponet", "transolver", "mwt", "cno", "dpot", "wdno", "dmd")
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
@@ -39,8 +38,8 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
     Pass ``train_dataset`` (shapes probed from item 0) or explicit
     ``shapes=(shape_in, shape_out)``. The remaining kwargs are the config
     namespace of the JAX registry; its TPU-only switches (``remat``,
-    ``use_pallas``, ``pallas_interpret``) are accepted and have no effect:
-    on a CUDA device the model always runs the kernels.
+    ``use_pallas``, ``pallas_interpret``, ``seq_mesh``) are accepted and
+    have no effect: on a CUDA device the model always runs the kernels.
     """
     model_name = kwargs["model_name"]
     if shapes is None:
@@ -69,6 +68,35 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             in_time=shape_in[0], out_time=shape_out[0],
             compute_dtype=compute_dtype, device=_device(device),
             generator=generator)
+    if model_name == "galerkin_transformer":
+        from realpdebench_tpu_torch.models.galerkin_transformer import (
+            GalerkinTransformer3d,
+        )
+
+        # the JAX registry's defaults and key names; the dropout stream is
+        # seeded by dropout_seed, else by the run's seed
+        return GalerkinTransformer3d(
+            shape_in=shape_in, shape_out=shape_out,
+            n_hidden=kwargs.get("n_hidden", 96),
+            num_encoder_layers=kwargs.get("num_encoder_layers", 4),
+            n_head=kwargs.get("n_head", 4),
+            dim_feedforward=kwargs.get("dim_feedforward", 192),
+            attention_type=kwargs.get("attention_type", "galerkin"),
+            layer_norm=bool(kwargs.get("layer_norm", False)),
+            attn_norm=bool(kwargs.get("attn_norm", True)),
+            norm_eps=float(kwargs.get("norm_eps", 1e-5)),
+            modes1=kwargs.get("fourier_modes_x", 16),
+            modes2=kwargs.get("fourier_modes_y", 20),
+            modes3=kwargs.get("fourier_modes_t", 4),
+            spectral_layers=kwargs.get("num_regressor_layers", 1),
+            freq_dim=kwargs.get("freq_dim", 128),
+            dropout=float(kwargs.get("encoder_dropout", 0.05) or 0.0),
+            xavier_init=float(kwargs.get("xavier_init", 1e-2)),
+            diagonal_weight=float(kwargs.get("diagonal_weight", 1e-2)),
+            reference_eval_dropout=bool(kwargs.get("reference_eval_dropout", False)),
+            compute_dtype=compute_dtype, device=_device(device),
+            generator=generator,
+            dropout_seed=int(kwargs.get("dropout_seed", kwargs.get("seed", 0))))
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {model_name!r} is not ported to PyTorch yet; ROADMAP.md "

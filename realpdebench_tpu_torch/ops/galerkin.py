@@ -1,0 +1,92 @@
+"""The fused Galerkin scores: a Hopper kernel and its plain twin.
+
+Counterpart of ``realpdebench_tpu/ops/pallas/galerkin.py``. Galerkin
+attention is ``Q · (LN(K)ᵀ · LN(V)) / N`` with per-head affine LayerNorms on
+K and V; this module computes the scores ``LN(K)ᵀ · LN(V) / N`` per (batch,
+head), in the q/k/v Dense's own token layout:
+
+  k, v           [B, N, h·d]   (float32 or bfloat16)
+  scales, biases [h, d]        (per-head LayerNorm affine)
+  scores         [B, h, d, d]  float32
+
+The LayerNorm runs over the d features of each (token, head) in float32,
+with the population variance and ``eps`` inside the square root; the
+products accumulate in float32 and the sum is scaled by 1/N, as the Pallas
+kernel's ``o_ref = acc / n_total``.
+
+``galerkin_scores`` is one autograd function. On a CUDA tensor its forward
+is ``kernels.gk_scores`` (csrc/galerkin_scores.cu); its backward recomputes
+the normalised rows and differentiates the plain twin, as the JAX
+``custom_vjp`` backward does in plain jnp (``galerkin.py:153-164``): the JAX
+package has no backward kernel here. On a CPU tensor it is the twin,
+differentiated by autograd. There is no fallback from one to the other, and
+the JAX package's opt-in switch ``REALPDEBENCH_GALERKIN`` is not carried
+over: on the card the kernel always runs. Any N is taken: the Pallas
+kernel's N % tile == 0 is a TPU constraint the CUDA kernel does not have.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from realpdebench_tpu_torch.ops import kernels
+from realpdebench_tpu_torch.ops.fno_layer import _use_kernel
+
+
+def _ln(x, scale, bias, eps: float):
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def galerkin_scores_plain(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
+                          eps: float):
+    """Plain twin, the semantics of JAX ``_scores_ref`` and
+    ``galerkin_scores(..., force_ref=True)``, computed in float32 from
+    inputs of either dtype."""
+    B, N, F = k.shape
+    split = lambda z: z.float().reshape(B, N, heads, F // heads)
+    kn = _ln(split(k), k_scale.float(), k_bias.float(), eps)
+    vn = _ln(split(v), v_scale.float(), v_bias.float(), eps)
+    return torch.einsum("bnhd,bnhe->bhde", kn, vn) / N
+
+
+class _GalerkinScores(torch.autograd.Function):
+    """Scores kernel; backward = autograd through the plain recompute."""
+
+    @staticmethod
+    def forward(ctx, k, v, k_scale, k_bias, v_scale, v_bias, heads, eps):
+        ctx.heads, ctx.eps = heads, eps
+        ctx.save_for_backward(k, v, k_scale, k_bias, v_scale, v_bias)
+        return kernels.gk_scores(k, v, *(t.float().contiguous() for t in (
+            k_scale, k_bias, v_scale, v_bias)), heads=heads, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = galerkin_scores_plain(*leaves, ctx.heads, ctx.eps)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None)
+
+
+def galerkin_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
+                    eps: float = 1e-5):
+    """LN(k)ᵀ·LN(v)/N per (batch, head); differentiable in k, v and the
+    affine parameters.
+
+    Args:
+      k, v: [B, N, h·d], one dtype (float32 or bfloat16).
+      k_scale, k_bias, v_scale, v_bias: [h, d] per-head LayerNorm affine.
+      heads: the number of heads h.
+      eps: the LayerNorm's epsilon.
+    Returns: [B, h, d, d] float32.
+    """
+    if k.dim() != 3 or k.shape != v.shape or k.shape[-1] % heads:
+        raise ValueError(f"galerkin scores: k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} with {heads} heads")
+    if _use_kernel(k):
+        return _GalerkinScores.apply(k.contiguous(), v.contiguous(), k_scale,
+                                     k_bias, v_scale, v_bias, heads, eps)
+    return galerkin_scores_plain(k, v, k_scale, k_bias, v_scale, v_bias,
+                                 heads, eps)

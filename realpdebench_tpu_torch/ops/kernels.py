@@ -8,13 +8,14 @@ name carries a hash of the sources and flags, so an edited source is rebuilt
 and a stale library is never loaded. ``library()`` loads it with ctypes.
 
 One wrapper per kernel (``k1``, ``t_stage``, ``k2``, ``k2a``, ``k2a_lite``,
-``k12b``, ``k3f``, ``k3b``, ``ta_fwd``, ``ta_bwd``): each checks its
+``k12b``, ``k3f``, ``k3b``, ``ta_fwd``, ``ta_bwd``, ``gk_scores``): each checks its
 tensors, allocates the outputs and scratch, launches on PyTorch's current
 stream (the kernels allocate nothing and do not synchronise), raises if the
 launch returned an error, and adds one to its entry in ``LAUNCHES``.
 Nothing here runs at import: this module is imported on machines with no
 GPU and no nvcc, where only the plain twins in ``ops/fno_layer.py``,
-``ops/fno_tail.py`` and ``ops/temporal_attention.py`` run.
+``ops/fno_tail.py``, ``ops/temporal_attention.py`` and ``ops/galerkin.py``
+run.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launches per kernel since the last reset_launches(): the proof that a run
 # went through the kernels and not through the plain twins.
 LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
-            "k3f": 0, "k3b": 0, "ta_fwd": 0, "ta_bwd": 0}
+            "k3f": 0, "k3b": 0, "ta_fwd": 0, "ta_bwd": 0, "gk_scores": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
@@ -139,6 +140,10 @@ def library() -> ctypes.CDLL:
     lib.ta_bwd_num_partials.restype = I
     lib.ta_bwd.argtypes = [P] * 10 + [I] * 5 + [P]
     lib.ta_bwd.restype = I
+    lib.gk_scores_num_partials.argtypes = [I] * 4
+    lib.gk_scores_num_partials.restype = I
+    lib.gk_scores.argtypes = [P] * 8 + [I] * 4 + [ctypes.c_float, I, P]
+    lib.gk_scores.restype = I
     lib.fno_error_string.argtypes = [I]
     lib.fno_error_string.restype = ctypes.c_char_p
     return lib
@@ -440,3 +445,37 @@ def ta_bwd(q, k, v, pos_bias, do, heads: int):
             _p(do), _p(dq), _p(dk), _p(dv), _p(partial), _p(dpb), nsites, T,
             heads, d, dt)
     return dq, dk, dv, dpb
+
+
+# head widths the scores kernel is instantiated for (csrc/galerkin_scores.cu)
+GK_HEAD_DIMS = (16, 32, 64)
+
+
+def gk_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int, eps: float):
+    """LN(k)ᵀ·LN(v)/N per (batch, head), with per-head affine LayerNorms:
+    k, v [B, N, h·d] (float32 or bfloat16, the Dense's token layout), the
+    affine [h, d] f32 → [B, h, d, d] f32; see csrc/galerkin_scores.cu."""
+    dt = _io_dtype(k)
+    dev = k.device
+    if k.dim() != 3:
+        raise ValueError(f"gk_scores takes [B, N, h*d], got {tuple(k.shape)}")
+    B, N, F = k.shape
+    d = F // heads
+    if F % heads or d not in GK_HEAD_DIMS or N < 1:
+        raise ValueError(f"gk_scores takes a head width in {GK_HEAD_DIMS} and N >= 1; "
+                         f"got F={F}, heads={heads}, N={N}")
+    _check("k", k, dev, k.dtype, (B, N, F))
+    _check("v", v, dev, k.dtype, (B, N, F))
+    for n, t in (("k_scale", k_scale), ("k_bias", k_bias), ("v_scale", v_scale),
+                 ("v_bias", v_bias)):
+        _check(n, t, dev, torch.float32, (heads, d))
+    for n, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{n}: not 16-byte aligned")
+    lib = library()
+    partial = torch.empty((lib.gk_scores_num_partials(B, N, heads, d), B, heads, d, d),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((B, heads, d, d), dtype=torch.float32, device=dev)
+    _launch("gk_scores", lib.gk_scores, dev, _p(k), _p(v), _p(k_scale), _p(k_bias),
+            _p(v_scale), _p(v_bias), _p(partial), _p(out), B, N, heads, d, float(eps), dt)
+    return out

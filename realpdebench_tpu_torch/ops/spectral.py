@@ -1,10 +1,12 @@
-"""Spectral (Fourier-domain) ops of the FNO.
+"""Spectral (Fourier-domain) ops of the FNO and the Galerkin decoder.
 
 Counterpart of ``realpdebench_tpu/ops/spectral.py``: the truncated DFT
 factors that the fused kernels contract against, the grid-coordinate
-features, and the plain truncated spectral convolution that serves as the
-reference for the fused layer. Activations are channels-last
-``[B, T, H, W, C]``; corner weights are channels-minor
+features, and the truncated spectral convolution in its three forms: the
+complex DFT matmuls (``dft_c64``, the reference of the fused FNO layer), the
+low-precision DFT with the complex arithmetic unrolled into real matmuls
+(``dft``, the Galerkin decoder's), and rfftn/irfftn (``fft``). Activations
+are channels-last ``[B, T, H, W, C]``; corner weights are channels-minor
 ``[4, m1, m2, m3, C_in, C_out]`` in the reference corner order
 (+T+H, -T+H, +T-H, -T-H).
 """
@@ -96,3 +98,121 @@ def truncated_spectral_conv3d_dft(x, w_real, w_imag):
     ih = torch.einsum("btjic,jh->bthic", it, Ih)
     return (torch.einsum("bthic,iw->bthwc", ih.real, Iw_re)
             + torch.einsum("bthic,iw->bthwc", ih.imag, Iw_im))
+
+
+def truncated_spectral_conv3d_fft(x, w_real, w_imag):
+    """Mode-truncated spectral conv through rfftn/irfftn over (T, H, W), in
+    float32/complex64 whatever the input dtype. Returns [B, T, H, W, C_out]
+    float32."""
+    B, T, H, W, Cin = x.shape
+    _, m1, m2, m3, _, Cout = w_real.shape
+    x_ft = torch.fft.rfftn(x.float(), dim=(1, 2, 3))     # [B,T,H,W//2+1,Ci]
+    corners = torch.stack(
+        [x_ft[:, :m1, :m2, :m3], x_ft[:, -m1:, :m2, :m3],
+         x_ft[:, :m1, -m2:, :m3], x_ft[:, -m1:, -m2:, :m3]], dim=1)
+    wc = torch.complex(w_real.float(), w_imag.float())
+    out_c = torch.einsum("bkxyzi,kxyzio->bkxyzo", corners, wc)
+    out_ft = torch.zeros((B, T, H, W // 2 + 1, Cout), dtype=torch.complex64,
+                         device=x.device)
+    out_ft[:, :m1, :m2, :m3] = out_c[:, 0]
+    out_ft[:, -m1:, :m2, :m3] = out_c[:, 1]
+    out_ft[:, :m1, -m2:, :m3] = out_c[:, 2]
+    out_ft[:, -m1:, -m2:, :m3] = out_c[:, 3]
+    return torch.fft.irfftn(out_ft, s=(T, H, W), dim=(1, 2, 3))
+
+
+@lru_cache(maxsize=16)
+def _lowp_factors(T: int, H: int, W: int, m1: int, m2: int, m3: int,
+                  dtype: torch.dtype, device: torch.device) -> dict:
+    """The DFT factors of ``truncated_spectral_conv3d_dft_lowp`` as real
+    planes in ``dtype`` on ``device``, transposed to multiply from the left:
+      w   [2m3, W]   forward W, cos rows then -sin rows
+      hr, hi [2m2, H], tr, ti [2m1, T]   forward H and T
+      itr, iti [T, 2m1], ihr, ihi [H, 2m2]   inverse T and H
+      iw  [W, 2m3]   inverse W (irfft weights), real rows then imaginary
+    """
+    Ew, Eh, Et, It, Ih, Iw_re, Iw_im = _dft_factors(T, H, W, m1, m2, m3)
+    planes = dict(
+        w=np.concatenate([Ew.real, Ew.imag], axis=1).T,
+        hr=Eh.real.T, hi=Eh.imag.T, tr=Et.real.T, ti=Et.imag.T,
+        itr=It.real.T, iti=It.imag.T, ihr=Ih.real.T, ihi=Ih.imag.T,
+        iw=np.concatenate([Iw_re, Iw_im], axis=0).T)
+    with torch.inference_mode(False):   # cached: autograd may use it later
+        return {k: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+            device=device, dtype=dtype) for k, a in planes.items()}
+
+
+def truncated_spectral_conv3d_dft_lowp(x, w_real, w_imag,
+                                       compute_dtype=torch.bfloat16):
+    """The truncated spectral conv with the complex arithmetic unrolled into
+    real matmuls (complex bf16 does not exist), operands in
+    ``compute_dtype`` and float32 accumulation (JAX
+    ``truncated_spectral_conv3d_dft_lowp``, ``spectral.py:223-295``).
+
+    Each stage contracts a non-minor axis of [B, T, H, W, C] by multiplying
+    the DFT plane from the left, so every product is a batched matmul on
+    the activation as it lies in memory, without permute copies. The
+    stages' complex combinations add float32 products; the output is the
+    last product rounded once to ``compute_dtype`` (JAX returns that
+    product in float32 and its caller casts it to the compute dtype).
+    """
+    B, T, H, W, Cin = x.shape
+    _, m1, m2, m3, _, Cout = w_real.shape
+    dt = compute_dtype
+    f = _lowp_factors(T, H, W, m1, m2, m3, dt, x.device)
+    mm = lambda a, b: torch.matmul(a, b.to(dt)).float()
+
+    # W stage (real input): one product against [cos | -sin]
+    x2 = mm(f["w"], x)                                   # [B,T,H,2m3,Ci]
+    xr = x2[..., :m3, :].reshape(B, T, H, m3 * Cin)
+    xi = x2[..., m3:, :].reshape(B, T, H, m3 * Cin)
+    # H stage, then T stage
+    yr = (mm(f["hr"], xr) - mm(f["hi"], xi)).reshape(B, T, -1)
+    yi = (mm(f["hi"], xr) + mm(f["hr"], xi)).reshape(B, T, -1)
+    zr = (mm(f["tr"], yr) - mm(f["ti"], yi)).reshape(B, 2 * m1, 2 * m2, m3, Cin)
+    zi = (mm(f["ti"], yr) + mm(f["tr"], yi)).reshape(B, 2 * m1, 2 * m2, m3, Cin)
+
+    def corners(z):      # [4, m1, m2, m3, B, Ci]: modes lead, per-mode GEMM
+        c = torch.stack([z[:, :m1, :m2], z[:, m1:, :m2], z[:, :m1, m2:],
+                         z[:, m1:, m2:]], dim=1)
+        return c.permute(1, 2, 3, 4, 0, 5).to(dt)
+
+    cr, ci = corners(zr), corners(zi)
+    wr, wi = w_real.to(dt), w_imag.to(dt)
+    wmm = lambda a, w: torch.matmul(a, w).float()
+    outr = wmm(cr, wr) - wmm(ci, wi)                     # [4,m1,m2,m3,B,Co]
+    outi = wmm(cr, wi) + wmm(ci, wr)
+
+    def regrid(o):       # [B, 2m1, 2m2·m3·Co]
+        o = o.permute(4, 0, 1, 2, 3, 5)
+        top = torch.cat([o[:, 0], o[:, 2]], dim=2)       # +T rows
+        bot = torch.cat([o[:, 1], o[:, 3]], dim=2)       # -T rows
+        return torch.cat([top, bot], dim=1).reshape(B, 2 * m1, -1)
+
+    gr, gi = regrid(outr), regrid(outi)
+    # inverse T, then inverse H
+    tr = (mm(f["itr"], gr) - mm(f["iti"], gi)).reshape(B, T, 2 * m2, -1)
+    ti = (mm(f["iti"], gr) + mm(f["itr"], gi)).reshape(B, T, 2 * m2, -1)
+    hr = (mm(f["ihr"], tr) - mm(f["ihi"], ti)).reshape(B, T, H, m3, Cout)
+    hi = (mm(f["ihi"], tr) + mm(f["ihr"], ti)).reshape(B, T, H, m3, Cout)
+    # inverse W (real output): one product against [real | imaginary] rows
+    return torch.matmul(f["iw"], torch.cat([hr, hi], dim=3).to(dt))
+
+
+def truncated_spectral_conv3d(x, w_real, w_imag, impl: str = "dft",
+                              compute_dtype=torch.float32):
+    """Public entry (JAX ``truncated_spectral_conv3d``, ``spectral.py:201-220``;
+    its ``REALPDEBENCH_SPECTRAL`` switch is not carried over). ``impl``:
+      * 'dft'     — ``truncated_spectral_conv3d_dft_lowp`` in
+        ``compute_dtype``;
+      * 'fft'     — ``truncated_spectral_conv3d_fft``;
+      * 'dft_c64' — ``truncated_spectral_conv3d_dft``, the complex-matmul
+        form."""
+    if impl == "fft":
+        return truncated_spectral_conv3d_fft(x, w_real, w_imag)
+    if impl == "dft_c64":
+        return truncated_spectral_conv3d_dft(x, w_real, w_imag)
+    if impl == "dft":
+        return truncated_spectral_conv3d_dft_lowp(x, w_real, w_imag,
+                                                  compute_dtype=compute_dtype)
+    raise ValueError(f"unknown spectral conv form {impl!r}")

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of realpdebench_tpu_torch
-loads neither JAX nor the JAX package, and running it on the CPU never
-builds or loads the CUDA kernels. Checked in a fresh interpreter, since this
+loads neither JAX nor the JAX package, and running it on the CPU (the FNO,
+the UNet and the Galerkin Transformer) never builds or loads the CUDA
+kernels. Checked in a fresh interpreter, since this
 test process has both packages loaded."""
 
 import os
@@ -45,9 +46,18 @@ _SCRIPT = textwrap.dedent("""
         torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 4, 8, 8, 3))
     assert pred.shape == (1, 4, 8, 8, 3) and bool(torch.isfinite(pred).all())
     u.loss(torch.zeros(1, 2, 8, 8, 3), torch.ones(1, 2, 8, 8, 3)).backward()
+    gk = build_model(shapes=((2, 8, 8, 3), (2, 8, 8, 3)),
+                     model_name="galerkin_transformer", n_hidden=32,
+                     num_encoder_layers=1, n_head=2, dim_feedforward=16,
+                     fourier_modes_x=2, fourier_modes_y=2, fourier_modes_t=2,
+                     freq_dim=8, device="cpu", generator=make_generator(0))
+    pred, _, _ = make_rollout_fn(gk, IdentityNormalizer(), 1)(
+        torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3))
+    assert pred.shape == (1, 2, 8, 8, 3) and bool(torch.isfinite(pred).all())
+    gk.loss(torch.ones(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3)).backward()
     assert kernels.library.cache_info().currsize == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    assert len(names) >= 14, names
+    assert len(names) >= 16, names
     print("OK", len(names))
 """)
 

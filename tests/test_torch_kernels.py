@@ -7,12 +7,16 @@ tests/test_torch_kernels.py``. They cover small and uneven shapes (C below
 that is not the whole grid) that chip_smoke.py, which runs the full
 benchmark width, does not; for temporal attention, T, heads and head width
 below the UNet's (T 5 and 20, h 3 and 4, d 8 and 32) and site counts that
-fill no whole tile (S 300, 37). Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
+fill no whole tile (S 300, 37); for the Galerkin scores, N that fills no
+whole tile (300, 37), head widths 16, 32 and 64, odd B·h and a last group
+of heads narrower than the block (h 5). Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
 sides accumulate in f32, in another order); in bf16 1e-2·max|ref| (both
 sides compute in f32 from the same bf16 inputs and round once to bf16, so
 they differ by at most one bf16 step, 2^-8 relative). The f32 accumulators
 (weight gradients, SSE) are held to 1e-4·max|ref| in both dtypes: both
-sides sum the same f32 terms.
+sides sum the same f32 terms. The Galerkin scores are an f32 output that
+both sides compute in f32 from the same inputs: 1e-4·max|ref| in both
+dtypes.
 """
 
 import pytest
@@ -20,6 +24,7 @@ import torch
 
 from realpdebench_tpu_torch.ops import fno_layer as tfl
 from realpdebench_tpu_torch.ops import fno_tail as tft
+from realpdebench_tpu_torch.ops import galerkin as tga
 from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops import temporal_attention as tta
 
@@ -235,3 +240,67 @@ def test_temporal_attention_kernels_refuse_bad_input(cuda):
         kernels.ta_fwd(q, q, q, pb[:2], 3)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernels.ta_fwd(q.half(), q.half(), q.half(), pb, 3)
+
+
+GK_SHAPES = [  # (B, N, h, d)
+    (3, 300, 1, 16),
+    (1, 37, 3, 64),
+    (2, 300, 5, 32),
+    (1, 37, 4, 16),
+]
+
+
+def _gk_inputs(shape, dtype, dev, seed=4):
+    B, N, h, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    k = 1 + 2 * rn(B, N, h * d)
+    v = 0.5 * k + rn(B, N, h * d)          # correlated: scores well above noise
+    aff = [1 + 0.1 * rn(h, d), 0.1 * rn(h, d), 1 + 0.1 * rn(h, d), 0.1 * rn(h, d)]
+    return k.to(dtype), v.to(dtype), aff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GK_SHAPES)
+def test_galerkin_scores_kernel_matches_twin(cuda, shape, dtype):
+    """gk_scores against the twin, both in f32 from the same inputs; two
+    calls bit-equal."""
+    h = shape[2]
+    k, v, aff = _gk_inputs(shape, dtype, cuda)
+    kernels.reset_launches()
+    got = kernels.gk_scores(k, v, *aff, heads=h, eps=1e-7)
+    ref = tga.galerkin_scores_plain(k, v, *aff, h, 1e-7)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    _close(got, ref, torch.float32)
+    assert torch.equal(got, kernels.gk_scores(k, v, *aff, heads=h, eps=1e-7))
+    assert {n: c for n, c in kernels.LAUNCHES.items() if c} == {"gk_scores": 2}
+
+
+def test_galerkin_scores_autograd_runs_the_kernel(cuda):
+    shape = GK_SHAPES[2]
+    h = shape[2]
+    k, v, aff = _gk_inputs(shape, torch.float32, cuda, seed=5)
+    leaves = [t.clone().requires_grad_() for t in (k, v, *aff)]
+    ct = torch.randn(shape[0], h, shape[3], shape[3], device=cuda)
+    kernels.reset_launches()
+    out = tga.galerkin_scores(*leaves, h, 1e-7)
+    got = torch.autograd.grad((out * ct).sum(), leaves)
+    assert kernels.LAUNCHES["gk_scores"] == 1
+    ref = torch.autograd.grad((tga.galerkin_scores_plain(*leaves, h, 1e-7) * ct).sum(),
+                              leaves)
+    for u, r in zip(got, ref):
+        _close(u, r, torch.float32)
+
+
+def test_galerkin_scores_kernel_refuses_bad_input(cuda):
+    k = torch.zeros(1, 8, 3 * 8, device=cuda)
+    aff = [torch.ones(3, 8, device=cuda)] * 4
+    with pytest.raises(ValueError, match="head width"):
+        kernels.gk_scores(k, k, *aff, heads=3, eps=1e-5)
+    k = torch.zeros(1, 8, 32, device=cuda)
+    aff = [torch.ones(2, 16, device=cuda)] * 4
+    with pytest.raises(ValueError, match="v_bias"):
+        kernels.gk_scores(k, k, *aff[:3], aff[3][:1], heads=2, eps=1e-5)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernels.gk_scores(k.half(), k.half(), *aff, heads=2, eps=1e-5)
