@@ -184,6 +184,11 @@ GK_DROPOUT_SEED = 11
 # the scores kernel at the encoder's width: (B, N, h, d)
 GK_SCORES_SHAPE = (GK_BATCH, GK_SHAPE[0] * GK_SHAPE[1] * GK_SHAPE[2], GK_MODEL["n_head"],
                    GK_MODEL["n_hidden"] // GK_MODEL["n_head"])
+# the scores against their twin, as max|Δ| / max|ref| in both dtypes: the
+# output is f32 and both sides compute it in f32 from the same inputs, so
+# bf16 inputs earn no looser limit (KERNEL_TOL's bf16 entry is for kernels
+# that round their output to bf16)
+GK_SCORES_TOL = 1e-4
 # bf16 kernels vs the f32 plain path (TF32 off), fixed before the first run:
 # the 1-step rollout as for FNO; the step's loss within 1e-2 relative and
 # every gradient within 5e-2 relative L2. The regressor's conv bias (the
@@ -1061,7 +1066,7 @@ def phase_gk_scores(dev) -> dict:
         run = lambda: kernels.gk_scores(k, v, *aff, heads=h, eps=eps)
         plain = lambda: tga.galerkin_scores_plain(k, v, *aff, h, eps)
         got = run()
-        row = compare("gk_scores", got, plain(), KERNEL_TOL[dtype])
+        row = compare("gk_scores", got, plain(), GK_SCORES_TOL)
         same = torch.equal(got, run())
         if not same:
             raise AssertionError(f"two identical gk_scores calls differ ({dtype})")

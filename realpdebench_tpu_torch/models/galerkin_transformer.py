@@ -22,7 +22,8 @@ output keep the Dense's layout with no transpose copy.
 Dropout follows flax's ``nn.Dropout``: keep with probability 1 − p, scale
 the kept values by 1/(1 − p). Every mask comes from ``dropout_mask``,
 drawn from the model's own ``torch.Generator`` on the activations' device,
-seeded by ``dropout_seed`` (``reseed_dropout`` restarts the stream); the
+seeded by ``dropout_seed`` (``build_model`` passes the run's ``seed``;
+``reseed_dropout`` restarts the stream); the
 global RNG is never used. In train mode the score dropout (p 0.5), the
 residual dropouts and the feed-forward dropout (p ``dropout``) run; in eval
 mode none does, unless ``reference_eval_dropout`` keeps the score dropout
@@ -65,7 +66,7 @@ from realpdebench_tpu_torch.ops.galerkin import (
 )
 from realpdebench_tpu_torch.ops.spectral import (
     grid_features,
-    truncated_spectral_conv3d,
+    truncated_spectral_conv3d_dft_lowp,
 )
 
 SCORE_DROPOUT = 0.5   # the reference's F.dropout default on the scores
@@ -247,7 +248,7 @@ class SpectralRegressor(nn.Module):
         x = F.pad(x, (0, 0, 0, p, 0, p, 0, p))           # end-pad W, H, T
         for i in range(self.num_layers):
             w_real, w_imag = self.spectral_conv[i].corner_weights()
-            x1 = truncated_spectral_conv3d(x, w_real, w_imag, compute_dtype=dt)
+            x1 = truncated_spectral_conv3d_dft_lowp(x, w_real, w_imag, compute_dtype=dt)
             conv = self.convs[i]
             x2 = F.linear(x.to(dt), conv.weight[:, :, 0, 0, 0].to(dt), conv.bias.to(dt))
             x = _batch_norm(self.bns[i], x1.to(dt) + x2, self.training, dt)

@@ -73,8 +73,8 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             GalerkinTransformer3d,
         )
 
-        # the JAX registry's defaults and key names; the dropout stream is
-        # seeded by dropout_seed, else by the run's seed
+        # the JAX registry's defaults and key names; the run's seed seeds
+        # the dropout stream
         return GalerkinTransformer3d(
             shape_in=shape_in, shape_out=shape_out,
             n_hidden=kwargs.get("n_hidden", 96),
@@ -96,7 +96,7 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             reference_eval_dropout=bool(kwargs.get("reference_eval_dropout", False)),
             compute_dtype=compute_dtype, device=_device(device),
             generator=generator,
-            dropout_seed=int(kwargs.get("dropout_seed", kwargs.get("seed", 0))))
+            dropout_seed=int(kwargs.get("seed", 0)))
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {model_name!r} is not ported to PyTorch yet; ROADMAP.md "
