@@ -14,17 +14,27 @@ JSON line each; any failure raises (non-zero exit, no result line):
   3. kernel    the forward kernels K1, the T-stage (et, it) and K2 against
                their plain twins on the card at the full rollout width
                (B·Tp=208, Hp=70, Wp=134, C=64, modes 4/12/16), in float32
-               and bfloat16; CUDA-event medians of kernel and twin.
+               and bfloat16; CUDA-event medians of kernel and twin. Every
+               variant is held: the T-stage's registers variant (chosen at
+               these shapes) and, bit for bit against it, its generic one,
+               which is also chosen and checked at a [20, 18] map outside
+               the instantiated range; K2's mma variant (bfloat16) and its
+               fma one (float32, and bfloat16 when named). Two calls of the
+               T-stage and of K2 are bit-equal. The T-stage's times are
+               device times of queued launches (see queued_ms).
   4. backward  the backward and tail kernels, K2A-lite, K2A, K12B, the
                T-stage adjoints (et_adj, it_adj), K3F and K3B, against
                their twins at the training width (B·Tp=832: the f32 twins
                fit the card's memory), in float32 and bfloat16; K2A-lite
-               against K2A; CUDA-event medians.
+               against K2A; CUDA-event medians; K2's time at this width.
   5. slice     the cylinder FNO3d at the benchmark configuration (width 64,
                4 layers, bf16 compute, seeded random weights) rolled out 10
                steps at batch 8 through make_rollout_fn; the launch counters
-               prove the kernels ran; compared with the same rollout through
-               the plain f32 path on the card; rollout frames/s.
+               prove the kernels ran, every K2 launch the mma variant and
+               every T-stage launch the registers one; compared with the
+               same rollout through the plain f32 path on the card; rollout
+               frames/s; then torch.profiler over three more rollouts
+               (slice_profile).
   6. train     bench.py's training step (batch 32, Adam at lr 1e-4, cosine
                over 4000 updates, no clipping, Identity normalizer) through
                make_train_step: one counted step (exact launch counts),
@@ -287,6 +297,68 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fns, n: int = 24, reps: int = 7) -> float:
+    """Device time per call, for kernels short enough that a wrapper's host
+    time before the launch (some 0.05-0.1 ms of checks and allocations, which
+    cuda_ms's events include) shows: the card is put to sleep while the host
+    queues ``n`` calls, taken in turn from ``fns`` (the same call on different
+    inputs, together larger than the 50 MB L2, where the inputs are small), so
+    the events bracket kernels that run back to back. Median over ``reps``."""
+    for fn in fns:
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for i in range(n):
+            fns[i % len(fns)]()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
+
+
+def tstage_times(dev, gen, kind: str, B: int, dtype) -> tuple:
+    """((kernel, twin) ms, library ms, the single-launch CUDA-event ms of the
+    kernel, bound) of the T-stage ``kind`` at batch ``B``, as device times of
+    queued launches over four input sets."""
+    mr, mi = fl._tmats_on(dev, kind, TP, M1)
+    ys = [torch.randn(B * mr.shape[0], 2 * M2 * M3, 2 * C, generator=gen,
+                      device=dev).to(dtype) for _ in range(4)]
+    calls = [tstage_work(y, kind, dtype) for y in ys]
+    times = (queued_ms([lambda y=y: fl.t_stage(y, kind, TP, M1) for y in ys]),
+             queued_ms([lambda y=y: fl.t_stage_plain(y, mr, mi) for y in ys], n=8, reps=3))
+    library = queued_ms([c for _, c in calls])
+    single = cuda_ms(lambda: fl.t_stage(ys[0], kind, TP, M1))
+    return times, library, single, calls[0][0]
+
+
+def expect_variants(path: str, **want) -> dict:
+    """The per-variant launch counts since the last reset, checked against
+    ``want`` (kernel → {variant: count}; kernels not named: no launch)."""
+    got = {k: dict(v) for k, v in kernels.VARIANTS.items()}
+    full = {k: dict.fromkeys(v, 0) for k, v in kernels.VARIANTS.items()}
+    for k, v in want.items():
+        full[k].update(v)
+    if got != full:
+        raise AssertionError(f"{path} launched the variants {got}, expected {full}")
+    return got
+
+
+def run_as(kernel: str, variant: str, fn):
+    """``fn()``, which must launch ``kernel`` once, as ``variant``."""
+    before = dict(kernels.VARIANTS[kernel])
+    out = fn()
+    delta = {k: n - before[k] for k, n in kernels.VARIANTS[kernel].items()}
+    if delta != {**dict.fromkeys(delta, 0), variant: 1}:
+        raise AssertionError(f"{kernel}: expected one launch of the {variant} variant, "
+                             f"counted {delta}")
+    return out
+
+
 def compare(name, got, ref, tol) -> dict:
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
@@ -338,6 +410,25 @@ def phase_build() -> None:
               total_s=time.perf_counter() - t0))
 
 
+def check_tstage_generic(dev, gen, dtype, y, tol) -> list:
+    """The T-stage's generic variant: chosen for a [20, 18] map (the shorter
+    side above the instantiated register counts) and held against the twin;
+    named at the main path's 'et' shape and held bit for bit against the
+    registers variant."""
+    mr, mi = (torch.randn(20, 18, generator=gen, device=dev) / 20 for _ in range(2))
+    inp = y[: 2 * 20].contiguous()
+    if kernels.t_stage_variant(dtype, C, 20, 18) != "generic":
+        raise AssertionError("a [20, 18] T map did not choose the generic variant")
+    rows = [compare("t_stage/generic/20x18",
+                    run_as("t_stage", "generic", lambda: kernels.t_stage(inp, mr, mi)),
+                    fl.t_stage_plain(inp, mr, mi), tol)]
+    mats = fl._tmats_on(dev, "et", TP, M1)
+    named = run_as("t_stage", "generic", lambda: kernels.t_stage(y, *mats, variant="generic"))
+    if not torch.equal(named, kernels.t_stage(y, *mats)):
+        raise AssertionError("the T-stage's variants differ at the main path's shape")
+    return rows
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its twin at the rollout width; returns per-kernel
     summaries (bf16 errors and times: the dtype of the main path)."""
@@ -362,46 +453,53 @@ def phase_kernels(dev) -> dict:
             mats = {k: fl._tmats_on(dev, k, TP, M1) for k in ("et", "it")}
             ins = {"et": y, "it": y[: B * 2 * M1].contiguous()}
             for kind in ("et", "it"):
-                rows.append(compare(
-                    f"t_stage/{kind}/{act}", fl.t_stage(ins[kind], kind, TP, M1),
-                    fl.t_stage_plain(ins[kind], *mats[kind]), tol))
+                got = run_as("t_stage", "registers",
+                             lambda: fl.t_stage(ins[kind], kind, TP, M1))
+                rows.append(compare(f"t_stage/{kind}/{act}", got,
+                                    fl.t_stage_plain(ins[kind], *mats[kind]), tol))
+                if not torch.equal(got, fl.t_stage(ins[kind], kind, TP, M1)):
+                    raise AssertionError(f"two identical t_stage calls differ ({dtype})")
             gsp = fl.t_stage(fl.t_stage(y, "et", TP, M1), "it", TP, M1)
-            k2 = lambda: fl.k2(gsp, x, a, b, wp, bp, Hp=HP, Wp=WP, m2=M2, m3=M3,
-                               act=act)
+            k2 = lambda **kw: fl.k2(gsp, x, a, b, wp, bp, Hp=HP, Wp=WP, m2=M2, m3=M3,
+                                    act=act, **kw)
             k2p = lambda: fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP,
                                       act=act)
-            (s, st), (s_ref, st_ref) = k2(), k2p()
-            rows.append(compare(f"k2/s/{act}", s, s_ref, tol))
+            chosen = "mma" if dtype == torch.bfloat16 else "fma"
+            (s, st), (s_ref, st_ref) = run_as("k2", chosen, k2), k2p()
             sr = s_ref.float().view(-1, C)
             terms = torch.stack([sr.abs().sum(0), (sr * sr).sum(0)])
-            st_rel = ((st - st_ref).abs() / terms).max().item()
-            rows.append(dict(name=f"k2/stats/{act}", max_rel_err=st_rel,
-                             limit_rel=STATS_TOL,
-                             max_abs_err=(st - st_ref).abs().max().item()))
-            if not st_rel <= STATS_TOL:
-                raise AssertionError(f"k2 statistics disagree: {rows[-1]}")
+            held = [("k2", s, st)]
+            if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
+                held.append(("k2_fma", *run_as("k2", "fma", lambda: k2(variant="fma"))))
+            for name, sv, stv in held:
+                rows.append(compare(f"{name}/s/{act}", sv, s_ref, tol))
+                rows.append(compare_sums(f"{name}/stats/{act}", stv, st_ref, terms))
+            if not all(torch.equal(u, v) for u, v in zip((s, st), k2())):
+                raise AssertionError(f"two identical k2 calls differ ({dtype})")
             if act == "exact":   # layers 1.. of the path; layer 0 is 'none'
-                times = dict(
-                    k1=(cuda_ms(k1), cuda_ms(k1p)),
-                    t_stage_et=(cuda_ms(lambda: fl.t_stage(y, "et", TP, M1)),
-                                cuda_ms(lambda: fl.t_stage_plain(y, *mats["et"]))),
-                    t_stage_it=(cuda_ms(lambda: fl.t_stage(ins["it"], "it", TP, M1)),
-                                cuda_ms(lambda: fl.t_stage_plain(ins["it"], *mats["it"]))),
-                    k2=(cuda_ms(k2), cuda_ms(k2p)))
+                times = dict(k1=(cuda_ms(k1), cuda_ms(k1p)),
+                             k2=(queued_ms([k2], n=8, reps=5), cuda_ms(k2p)))
+                single = dict(k2=cuda_ms(k2))
+                if dtype == torch.bfloat16:
+                    times["k2_fma"] = (cuda_ms(lambda: k2(variant="fma")), times["k2"][1])
                 # the DFT tables (under 0.1 MB) are left out of the bytes
                 work = dict(k1=bound(nbytes(x, a, b, y), dft_ops(BT), dtype),
                             k2=bound(nbytes(gsp, x, a, b, wp, bp, s, st),
                                      dft_ops(BT) + BT * HP * WP * C * C * 2, dtype))
-                library = {}
-                for kind in ("et", "it"):
-                    work[f"t_stage_{kind}"], call = tstage_work(ins[kind], kind, dtype)
-                    library[f"t_stage_{kind}"] = cuda_ms(call)
-                    del call
+                work["k2_fma"] = work["k2"]
+                rows += check_tstage_generic(dev, g, dtype, y, tol)
+        del s, st, s_ref, st_ref, sr, y, gsp
+        library = {}
+        for kind in ("et", "it"):
+            key = f"t_stage_{kind}"
+            times[key], library[key], single[key], work[key] = tstage_times(
+                dev, g, kind, B, dtype)
         torch.cuda.synchronize()
         emit(dict(phase="kernel", dtype=str(dtype).replace("torch.", ""),
                   shapes=dict(BT=BT, Hp=HP, Wp=WP, C=C, modes=[M1, M2, M3]),
                   checks=rows, ms={k: dict(kernel=v[0], plain=v[1], **work[k],
-                                           library=library.get(k))
+                                           library=library.get(k),
+                                           single_launch=single.get(k))
                                    for k, v in times.items()}))
         if dtype == torch.bfloat16:
             for k in summary:
@@ -412,11 +510,14 @@ def phase_kernels(dev) -> dict:
             for k in ("k1", "k2"):
                 summary[k]["ms"], summary[k]["plain_ms"] = times[k]
                 summary[k].update(work[k], library_ms=None)
+            summary["k2"].update(fma_variant_ms=times["k2_fma"][0],
+                                 single_launch_ms=single["k2"])
             # one layer's T-stage: one 'et' and one 'it' launch
             pair = ("t_stage_et", "t_stage_it")
             summary["t_stage"].update(
                 ms=sum(times[k][0] for k in pair), plain_ms=sum(times[k][1] for k in pair),
                 library_ms=sum(library[k] for k in pair),
+                single_launch_ms=sum(single[k] for k in pair),
                 **add_bounds(*(work[k] for k in pair)))
     return summary
 
@@ -441,24 +542,33 @@ def phase_backward(dev) -> dict:
         wp, bp = rn(C, C) / C ** 0.5, 0.1 * rn(C)
         y = fl.k1(x, a, b, **geo, act="exact")
         gsp = rn(*y.shape).to(dtype)
-        s, _ = fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact")
-        del x
+        k2 = lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact")
+        s, st = k2()
+        rows, times, work, library, single = [], {}, {}, {}, {}
+        # K2 at the width the training step launches it (held against its
+        # twin at the rollout width in the kernel phase: the f32 twin's
+        # temporaries do not fit beside this phase's tensors)
+        times["k2"] = (queued_ms([k2], n=8, reps=5), None)
+        single["k2"] = cuda_ms(k2, reps=10)
+        work["k2"] = bound(nbytes(gsp, x, a, b, wp, bp, s, st),
+                           dft_ops(BT) + BT * HP * WP * C * C * 2, dtype)
+        del x, st
         # cotangents at the scale the step gives them: ds ~ 1/n_pos per
         # position, the statistics' cotangents ~ 1/n_pos too
         npos = BT * HP * WP
         ds, dy = (rn(*s.shape) / npos).to(dtype), (rn(*y.shape) / npos).to(dtype)
         ds1, ds2 = rn(C) / npos, rn(C) / npos
-        rows, times, work, library = [], {}, {}, {}
         adj_in = {"it_adj": dy, "et_adj": dy[: B * 2 * M1].contiguous()}
         for kind, inp in adj_in.items():
             mats = fl._tmats_on(dev, kind, TP, M1)
-            run = lambda: fl.t_stage(inp, kind, TP, M1)
-            plain = lambda: fl.t_stage_plain(inp, *mats)
-            rows.append(compare(f"t_stage/{kind}", run(), plain(), tol))
-            times[f"t_stage_{kind}"] = (cuda_ms(run), cuda_ms(plain))
-            work[f"t_stage_{kind}"], call = tstage_work(inp, kind, dtype)
-            library[f"t_stage_{kind}"] = cuda_ms(call)
-            del call
+            got = run_as("t_stage", "registers", lambda: fl.t_stage(inp, kind, TP, M1))
+            rows.append(compare(f"t_stage/{kind}", got, fl.t_stage_plain(inp, *mats), tol))
+            if not torch.equal(got, fl.t_stage(inp, kind, TP, M1)):
+                raise AssertionError(f"two identical t_stage calls differ ({kind}, {dtype})")
+            del got
+            key = f"t_stage_{kind}"
+            times[key], library[key], single[key], work[key] = tstage_times(
+                dev, g, kind, B, dtype)
         k2a = lambda: fl.k2a(s, ds, ds1, ds2, **geo)
         k2a_p = lambda: fl.k2a_plain(s, ds, ds1, ds2, cst, Hp=HP, Wp=WP)
         k2l = lambda: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo)
@@ -535,9 +645,12 @@ def phase_backward(dev) -> dict:
                   shapes=dict(BT=BT, Hp=HP, Wp=WP, C=C, modes=[M1, M2, M3],
                               tail=[B, T, H, W, F]),
                   checks=rows, ms={k: dict(kernel=v[0], plain=v[1], **work[k],
-                                           library=library.get(k))
+                                           library=library.get(k),
+                                           single_launch=single.get(k))
                                    for k, v in times.items()}))
         if dtype == torch.bfloat16:
+            summary["k2_train_width"] = dict(ms=times["k2"][0], single_launch_ms=single["k2"],
+                                             bound_ms=work["k2"]["bound_ms"])
             for k in ("k2a_lite", "k2a", "k12b", "k3f", "k3b"):
                 mine = [r for r in rows if r["name"].startswith(k + "/")]
                 summary[k] = dict(
@@ -552,6 +665,7 @@ def phase_backward(dev) -> dict:
                 max_rel_err=max(r["max_rel_err"] for r in adj),
                 ms=sum(times[k][0] for k in pair), plain_ms=sum(times[k][1] for k in pair),
                 library_ms=sum(library[k] for k in pair),
+                single_launch_ms=sum(single[k] for k in pair),
                 bound_ms=add_bounds(*(work[k] for k in pair))["bound_ms"])
         del s, y, gsp, ds, dy, x
         torch.cuda.empty_cache()
@@ -579,6 +693,8 @@ def phase_slice(dev) -> dict:
     rollout = make_rollout_fn(model, IdentityNormalizer(), STEPS)
 
     # the main path, counted: nothing but this run between reset and read
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     pred, _, _ = rollout(x_raw, y_raw)
@@ -592,6 +708,9 @@ def phase_slice(dev) -> dict:
         if launches[k] != n * STEPS:
             raise AssertionError(f"{k} launched {launches[k]} times in a "
                                  f"{STEPS}-step rollout, expected {n * STEPS}")
+    variants = expect_variants(
+        f"a {STEPS}-step rollout", k2={"mma": per_predict["k2"] * STEPS},
+        t_stage={"registers": per_predict["t_stage"] * STEPS})
 
     want = (BATCH, STEPS * SHAPE_OUT[0], *SHAPE_OUT[1:])
     if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
@@ -621,9 +740,10 @@ def phase_slice(dev) -> dict:
     med = statistics.median(secs)
     frames = BATCH * STEPS * SHAPE_OUT[0]
     emit(dict(phase="slice", batch=BATCH, steps=STEPS, shape=list(want),
-              launches=launches, vs_plain_f32=row, first_rollout_s=first_s,
-              rollout_s=secs, frames_per_s=frames / med,
+              launches=launches, variants=variants, vs_plain_f32=row,
+              first_rollout_s=first_s, rollout_s=secs, frames_per_s=frames / med,
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    phase_profile(rollout, x_raw, y_raw, "slice_profile")
     return launches
 
 
@@ -661,6 +781,8 @@ def phase_train(dev) -> dict:
     if launches != TRAIN_LAUNCHES:
         raise AssertionError(f"one training step launched {launches}, "
                              f"expected {TRAIN_LAUNCHES}")
+    variants = expect_variants("one training step", k2={"mma": TRAIN_LAUNCHES["k2"]},
+                               t_stage={"registers": TRAIN_LAUNCHES["t_stage"]})
     grads = _grads(model)
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"training loss {loss.item()} is not finite")
@@ -731,7 +853,7 @@ def phase_train(dev) -> dict:
     frames = TRAIN_BATCH * SHAPE_OUT[0]
     med = statistics.median(rates)
     emit(dict(phase="train", batch=TRAIN_BATCH, cfg=TRAIN_CFG, launches=launches,
-              vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
+              variants=variants, vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
               window_steps_per_s=rates, steps_per_s=med,
               frames_per_s=med * frames, losses=losses,
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -886,6 +1008,7 @@ def _expect(launches: dict, path: str, **want) -> None:
     full.update(want)
     if launches != full:
         raise AssertionError(f"{path} launched {launches}, expected {full}")
+    expect_variants(path)
 
 
 def phase_unet_rollout(dev, norm) -> dict:
@@ -1257,8 +1380,8 @@ def phase_gk_train(dev, norm) -> dict:
 
 
 def phase_profile(step, x, y, phase: str = "profile") -> None:
-    """torch.profiler over 3 training steps: device time by kernel against
-    the host's wall time."""
+    """torch.profiler over 3 calls of ``step(x, y)`` (training steps, or
+    rollouts): device time by kernel against the host's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1287,8 +1410,10 @@ def main() -> None:
     summary = phase_kernels(dev)
     summary.update(phase_backward(dev))
     adjoint = summary.pop("t_stage_adjoint")
-    summary["t_stage"].update({f"adjoint_{k}": adjoint[k]
-                               for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    summary["t_stage"].update({f"adjoint_{k}": adjoint[k] for k in (
+        "ms", "plain_ms", "library_ms", "single_launch_ms", "bound_ms")})
+    train_width = summary.pop("k2_train_width")
+    summary["k2"].update({f"train_width_{k}": v for k, v in train_width.items()})
     for key in ("max_abs_err", "max_rel_err"):
         summary["t_stage"][key] = max(summary["t_stage"][key], adjoint[key])
     summary.update(phase_ta(dev))

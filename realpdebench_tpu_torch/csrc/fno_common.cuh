@@ -66,23 +66,33 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // Second pass of every cross-block reduction: out[i] = scale * (sum over p
-// of partial[p * n + i]), added in the fixed order p = 0, 1, ... in f64.
-// Blocks run in no order, so each writes its own partial and this pass adds
-// them: no atomics, the same bits on every run. Static: each .cu file
-// (compiled without relocatable device code) launches its own copy.
+// of partial[p * n + i]) in f64, in a fixed order: thread (r, i) adds the
+// partials p = r, r + 32, r + 64, ... of column i (a warp reads 32
+// neighbouring columns of one partial: whole lines), then one thread adds
+// the 32 subsequence sums r = 0, 1, ... Blocks run in no order, so each
+// writes its own partial and this pass adds them: no atomics, the same bits
+// on every run. Static: each .cu file (compiled without relocatable device
+// code) launches its own copy.
 static __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                               float* __restrict__ out, int nparts, int n,
                                               double scale) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ double sub[32][33];
+  const int i = blockIdx.x * 32 + threadIdx.x;
   double acc = 0.0;
-  for (int p = 0; p < nparts; ++p) acc += (double)partial[(size_t)p * n + i];
-  out[i] = (float)(acc * scale);
+  if (i < n)
+    for (int p = threadIdx.y; p < nparts; p += 32) acc += (double)partial[(size_t)p * n + i];
+  sub[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y != 0 || i >= n) return;
+  double total = 0.0;
+  for (int r = 0; r < 32; ++r) total += sub[r][threadIdx.x];
+  out[i] = (float)(total * scale);
 }
 
 static inline cudaError_t reduce_partials(const float* partial, float* out, int nparts, int n,
                                           cudaStream_t stream, double scale = 1.0) {
-  reduce_partials_kernel<<<(n + 127) / 128, 128, 0, stream>>>(partial, out, nparts, n, scale);
+  reduce_partials_kernel<<<(n + 31) / 32, dim3(32, 32), 0, stream>>>(partial, out, nparts, n,
+                                                                     scale);
   return cudaGetLastError();
 }
 

@@ -13,23 +13,68 @@
 //   ihr, ihi [2m2, Hp]  (f32)   inverse H DFT (1/Hp included)
 //   iwr, iwi [m3, Wp]   (f32)   irfft rows with the Hermitian weights
 //   s  [BT, Hp, Wp, C]  (T)
-//   partial [BT * ceil(Hp/kHT), 2, C] (f32) scratch; stats [2, C] (f32)
+//   partial [fno_k2_num_partials, 2, C] (f32) scratch; stats [2, C] (f32)
 //
-// Design: one block per (bt, kHT rows of H). The block first inverts H for
-// its rows into shared memory (ih [kHT, m3, C] complex), then for each row
-// stages z[h] and lets thread (d, column group) produce kWQ output columns
-// of channel d at once, so each Wp[c, d] read from shared memory feeds kWQ
-// FMAs. Blocks run in no order, so the statistics take two passes: each
-// block writes its own (sum, sumsq) partial in a fixed order, and
-// fno::reduce_partials adds the partials in a fixed order in f64. The result is
-// deterministic; against a tree-ordered f32 sum it differs at f32 rounding
-// of the partials (relative ~1e-6 of sum |s|).
-// Bound: at rollout width one layer reads ~270 MB, writes ~250 MB and does
-// ~27 GFLOP, three fifths of it the pointwise [rows, C] x [C, C] product; on
-// CUDA cores with operands from shared memory the shared-memory load rate
-// bounds it. Tensor cores (wgmma for the pointwise and the inverse-W
-// contraction) are the next step.
+// What bounds it on an H100: bytes. At rollout width a launch moves 520 MB
+// (0.155 ms at 3.35 TB/s) and needs 27 GFLOP, which FP32 FMAs fed from shared
+// memory deliver at a fifth of the FP32 peak (the shared-memory load port
+// sets the pace), but which hide under the copies on the tensor cores. What
+// is left beside the copies is the instruction stream: the activation (one erf
+// per element of x), the statistics and the repacking around the MMAs.
+//
+// Two variants, chosen from dtype and shape before the launch
+// (ops/kernels.py::k2_variant):
+//
+//  * mma (bf16, C in {32, 64, 128}, m3 in {8, 16}, 2*m2 <= 32, Wp <= 256): per
+//    (bt, h) row the kernel computes one product of depth C + 2*m3,
+//      s[w, :] = [z_h | IWr^T | IWi^T] (Wp x (C+2m3)) . [Wp ; ihr_h ; ihi_h],
+//    with mma.sync m16n8k16 (bf16 in, f32 accumulators in registers), and the
+//    inverse H DFT before it, ih = [Er^T, -Ei^T ; Ei^T, Er^T] . [gr ; gi], as
+//    another. A block owns mma_rows(C) rows of H of one bt (5 at C 64), a
+//    warp the 16 columns w0..w0+15 of every row (Wp/16 warps).
+//      - Every operand carries 16 bits as a bf16 hi + lo pair (mma.cuh),
+//        three MMAs a product (hi.hi + lo.hi + hi.lo). One bf16 would not do:
+//        on Wp and the DFT tables it is the same 2^-9 error at every position
+//        and lands in the BatchNorm sums; z = act(a*x + b) is made from x on
+//        the bf16 grid, so its rounding is no random error either; and ih's
+//        rounding, shared by a row's Wp columns, leaves 1e-4 on the sum of
+//        squares at a few hundred rows. The DFT tables are packed on the
+//        host once per geometry (ops/fno_layer.py::_k2_mma_tables); Wp, a
+//        parameter, is split while it is staged; z and ih in registers.
+//      - Inverse H: a warp takes the 16-channel pieces (m, c0..c0+15) of
+//        g[bt] in turn, each through its own two-stage cp.async ring of
+//        [k][16] tiles (1.5 KB), read with ldmatrix.trans as the B operand;
+//        the block's constant A fragments stay in registers. No block-wide
+//        barrier stands between the pieces (a block-wide ring over g cost
+//        two barriers a stage and 40% of the block's time). The result lands
+//        in shared memory as bf16 hi and lo in the [k][n] layout the main
+//        product's B operand wants; one barrier ends the stage.
+//      - Main loop: each warp runs its own two-stage cp.async ring over its
+//        16 x C slab of x (contiguous 2 KB in global memory), so the next
+//        row's copy overlaps this row's products and no block-wide barrier
+//        stands in the loop. x arrives as A fragments through ldmatrix; the
+//        affine, the activation (the exact GELU through a branch-free erf,
+//        a third of erff's instructions) and the split to bf16 are
+//        elementwise on the fragment. The IW fragments stay in registers for
+//        the whole block. The statistics are taken from the f32
+//        accumulators; the s tile goes back through the warp's slab and
+//        leaves as 16-byte stores of whole lines.
+//    Shared memory at C 64, m3 16, 2*m2 24, Wp 134: 111 KB, two blocks (18
+//    warps) an SM; 96 registers a thread (18 warps on four register files).
+//  * fma (f32 tensors; any C dividing 256, any m3): one block per (bt, kHT
+//    rows of H); the block inverts H for its rows into shared memory, then
+//    for each row stages z[h] and lets thread (d, column group) produce kWQ
+//    output columns of channel d at once with exact f32 FMAs.
+//
+// Blocks run in no order, so the statistics take two passes in both
+// variants: each block writes its own (sum, sumsq) partial in a fixed
+// order, and fno::reduce_partials adds the partials in a fixed order in
+// f64: the same bits on every call.
+#include <cstdint>
+#include <initializer_list>
+
 #include "fno_common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -166,9 +211,7 @@ cudaError_t launch_k2(const void* g, const void* x, const void* a, const void* b
                       const void* iwr, const void* iwi, void* s, void* partial, void* stats,
                       int BT, int Hp, int Wp, int C, int m2x2, int m3, int act,
                       cudaStream_t stream) {
-  if (C < 1 || C > kThreads || kThreads % C != 0 || m2x2 < 1 || m3 < 1 || BT < 1 || Hp < 1 ||
-      Wp < 1)
-    return cudaErrorInvalidValue;
+  if (C > kThreads || kThreads % C != 0) return cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)C * C + 2 * (size_t)m3 * Wp + 2 * (size_t)kHT * m3 * C +
                        (size_t)Wp * C + 3 * (size_t)C + 2 * (size_t)kThreads);
@@ -188,17 +231,454 @@ cudaError_t launch_k2(const void* g, const void* x, const void* a, const void* b
                               BT * num_hblocks(Hp), 2 * C, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core variant
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPad = 8;       // bf16 elements of padding per shared-memory row: rows 16 bytes
+                              // apart modulo 128, so ldmatrix reads without bank conflicts
+constexpr int kMaxWarps = 16; // Wp <= 256
+constexpr int kMaxKH = 4;     // k-steps of the inverse-H product: 2 * (2*m2) <= 64
+constexpr int kGCols = 16;    // channels of g a warp stages at a time: one pair of 8-column tiles
+
+// Byte offsets of the block's shared memory (ops/kernels.py::k2_mma_smem_bytes
+// computes the same total).
+struct MmaLayout {
+  int wp_hi, wp_lo, ih, ring, vec, red, total;
+};
+
+// H rows per block: (re | im) x rows fill at most one 16-row MMA tile, and
+// ih for them, hi and lo, has to fit beside Wp and the rings.
+__host__ __device__ constexpr int mma_rows(int C) { return C <= 32 ? 8 : C <= 64 ? 5 : 4; }
+
+inline MmaLayout mma_layout(int C, int m3, int m2x2, int warps) {
+  MmaLayout L;
+  const int row = (C + kPad) * 2;                   // bytes of a [*, C] bf16 row
+  const int slabs = warps * 2 * 16 * row;           // per-warp two-stage x ring
+  const int gring = warps * 2 * (2 * m2x2) * kGCols * 2;   // per-warp two-stage ring over g
+  L.wp_hi = 0;
+  L.wp_lo = L.wp_hi + C * row;
+  L.ih = L.wp_lo + C * row;
+  L.ring = L.ih + 2 * mma_rows(C) * 2 * m3 * row;   // hi and lo
+  L.vec = L.ring + (slabs > gring ? slabs : gring);
+  L.red = L.vec + 3 * C * 4;
+  L.total = L.red + warps * 2 * C * 4;
+  return L;
+}
+
+// erf by Abramowitz & Stegun 7.1.26, one branch-free path of a reciprocal, an
+// exp2 and five FMAs, |error| <= 3e-7 in f32: a third of erff's instructions,
+// which set this kernel's pace once its products ran on the tensor cores.
+__device__ __forceinline__ float erf_fast(float x) {
+  const float t = fabsf(x);
+  const float r = __fdividef(1.f, fmaf(0.3275911f, t, 1.f));
+  float p = fmaf(1.061405429f, r, -1.453152027f);
+  p = fmaf(p, r, 1.421413741f);
+  p = fmaf(p, r, -0.284496736f);
+  p = fmaf(p, r, 0.254829592f);
+  return copysignf(fmaf(-p * r, exp2f(-1.4426950408889634f * t * t), 1.f), x);
+}
+
+// z = act(a*x + b) as fno::affine_act, the exact GELU through erf_fast (its
+// error is 1e-4 of a bf16 step of z).
+__device__ __forceinline__ float affine_act_fast(float x, float a, float b, int act) {
+  if (act != fno::kActExact) return fno::affine_act(x, a, b, act);
+  const float u = fmaf(a, x, b);
+  return 0.5f * u * (1.f + erf_fast(u * 0.70710678118654752f));
+}
+
+// C channels, KI = m3/8 k-steps of the inverse-W part, at most MAXW warps
+// with MINB blocks an SM.
+template <int C, int KI, int MAXW, int MINB>
+__global__ void __launch_bounds__(MAXW * 32, MINB)
+    k2_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                  const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ wp, const float* __restrict__ bp,
+                  const bf16* __restrict__ ah, const bf16* __restrict__ iw,
+                  bf16* __restrict__ s, float* __restrict__ partial, MmaLayout L, int Hp, int Wp,
+                  int m2x2, int act) {
+  constexpr int M3 = KI * 8;
+  constexpr int kRows = mma_rows(C);
+  constexpr int RS = C + kPad;       // row stride of the [*, C] tiles, elements
+  constexpr int NT = C / 8;          // 8-column tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* swp_hi = reinterpret_cast<bf16*>(smem_raw + L.wp_hi);   // [C][RS], [in][out]
+  bf16* swp_lo = reinterpret_cast<bf16*>(smem_raw + L.wp_lo);
+  bf16* sih = reinterpret_cast<bf16*>(smem_raw + L.ih);         // [kRows][2*M3][RS]
+  bf16* sring = reinterpret_cast<bf16*>(smem_raw + L.ring);
+  float* sa = reinterpret_cast<float*>(smem_raw + L.vec);       // [C] each
+  float* sb = sa + C;
+  float* sbp = sb + C;
+  float* sred = reinterpret_cast<float*>(smem_raw + L.red);     // [warps][2][C]
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int gq = lane >> 2, q = lane & 3;   // fragment row group and column pair
+  const int chunk = blockIdx.x, nchunks = gridDim.x, bt = blockIdx.y;
+  const int h0 = chunk * kRows;
+  const int nrows = min(kRows, Hp - h0);
+
+  // ---- constants: Wp split into hi + lo while staged; a, b, bp
+  for (int i = tid; i < C * C / 4; i += nthreads) {
+    const float4 v = reinterpret_cast<const float4*>(wp)[i];
+    const int c = (i * 4) / C, d = (i * 4) % C;
+    const float w[4] = {v.x, v.y, v.z, v.w};
+    __align__(8) bf16 hi[4], lo[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mma::split_bf16(w[u], hi[u], lo[u]);
+    *reinterpret_cast<uint2*>(swp_hi + c * RS + d) = *reinterpret_cast<const uint2*>(hi);
+    *reinterpret_cast<uint2*>(swp_lo + c * RS + d) = *reinterpret_cast<const uint2*>(lo);
+  }
+  for (int i = tid; i < C; i += nthreads) {
+    sa[i] = a[i];
+    sb[i] = b[i];
+    sbp[i] = bp[i];
+  }
+
+  // ---- inverse H: sih[hl][part*M3 + m][c] = sum_k AH[(part, hl)][k] * G[k][(m, c)],
+  // k = (p', j): G[(p', j)][(m, c)] = g[bt][j*M3 + m][p'*C + c]. A warp takes the
+  // 16-channel pieces (m, c0..c0+15) in turn, each through its own two-stage
+  // cp.async ring ([k][16] tiles): no block-wide barrier until all is done.
+  {
+    const int K = 2 * m2x2;
+    const int ksteps = (K + 15) / 16, Kpad = ksteps * 16;
+    const bf16* gb = g + (size_t)bt * m2x2 * M3 * 2 * C;
+    const bf16* ah_hi = ah + (size_t)chunk * 16 * Kpad;
+    const bf16* ah_lo = ah_hi + (size_t)nchunks * 16 * Kpad;
+    bf16* gbuf = sring + warp * 2 * K * kGCols;   // [2 stages][K][kGCols]
+    constexpr int kPieces = M3 * (C / kGCols);
+    auto fetch = [&](int p, int stage) {
+      const int m = p / (C / kGCols), c0 = (p - m * (C / kGCols)) * kGCols;
+      bf16* dst = gbuf + stage * K * kGCols;
+      for (int i = lane; i < 2 * K; i += 32) {
+        const int k = i >> 1, half = i & 1;
+        const int pp = k / m2x2, j = k - pp * m2x2;
+        mma::cp_async_16(dst + k * kGCols + half * 8,
+                         gb + ((size_t)(j * M3 + m) * 2 * C + pp * C + c0 + half * 8));
+      }
+      mma::cp_async_commit();
+    };
+    if (warp < kPieces) fetch(warp, 0);
+    // the block's constant A fragments, hi and lo, while the first piece flies
+    uint32_t ahh[kMaxKH][4], ahl[kMaxKH][4];
+#pragma unroll
+    for (int ks = 0; ks < kMaxKH; ++ks) {
+      if (ks >= ksteps) break;
+      const int ka = ks * 16 + 2 * q;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int off = (gq + (r & 1) * 8) * Kpad + ka + (r >> 1) * 8;
+        ahh[ks][r] = *reinterpret_cast<const uint32_t*>(ah_hi + off);
+        ahl[ks][r] = *reinterpret_cast<const uint32_t*>(ah_lo + off);
+      }
+    }
+    int stage = 0;
+    for (int p = warp; p < kPieces; p += nwarps, stage ^= 1) {
+      if (p + nwarps < kPieces) {
+        fetch(p + nwarps, stage ^ 1);
+        mma::cp_async_wait<1>();
+      } else {
+        mma::cp_async_wait<0>();
+      }
+      __syncwarp();   // piece p has landed for every lane
+      const bf16* gs = gbuf + stage * K * kGCols;
+      float acc[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kMaxKH; ++ks) {
+        if (ks >= ksteps) break;
+        uint32_t fb[4];
+        int k, n;
+        mma::b_frag_row(lane, ks * 16, 0, k, n);
+        if (k >= K) k = 0;   // AH is zero there; any finite row serves
+        mma::ldmatrix_x4_trans(fb, mma::smem_addr(gs + k * kGCols + n));
+        mma::mma_bf16(acc[0], ahh[ks], fb[0], fb[1]);
+        mma::mma_bf16(acc[1], ahh[ks], fb[2], fb[3]);
+        mma::mma_bf16(acc[0], ahl[ks], fb[0], fb[1]);
+        mma::mma_bf16(acc[1], ahl[ks], fb[2], fb[3]);
+      }
+      __syncwarp();   // the stage is free for the piece after next
+      const int m = p / (C / kGCols), c0 = (p - m * (C / kGCols)) * kGCols;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        if (gq >= kRows) break;   // the tile's unused rows
+        // accumulator rows: gq is (re, hl = gq), gq + 8 is (im, hl = gq)
+        bf16* o = sih + ((size_t)gq * 2 * M3 + m) * RS + c0 + t * 8 + 2 * q;
+        const uint32_t re = mma::pack_bf16(acc[t][0], acc[t][1]);
+        const uint32_t im = mma::pack_bf16(acc[t][2], acc[t][3]);
+        *reinterpret_cast<uint32_t*>(o) = re;
+        *reinterpret_cast<uint32_t*>(o + M3 * RS) = im;
+        const float2 rh = mma::unpack_bf16(re), ih_ = mma::unpack_bf16(im);
+        o += kRows * 2 * M3 * RS;   // the lo parts
+        *reinterpret_cast<uint32_t*>(o) = mma::pack_bf16(acc[t][0] - rh.x, acc[t][1] - rh.y);
+        *reinterpret_cast<uint32_t*>(o + M3 * RS) =
+            mma::pack_bf16(acc[t][2] - ih_.x, acc[t][3] - ih_.y);
+      }
+    }
+    __syncthreads();   // sih and the constants are complete; the g rings are free
+  }
+
+  // ---- main loop: warp = the 16 columns w0.. of every row of the block
+  const int w0 = warp * 16;
+  const int nvalid = min(16, Wp - w0);
+  bf16* slab = sring + warp * 2 * 16 * RS;   // [2 stages][16][RS]
+  // pad rows of both stages stay zero: no copy and no store touches them
+  for (int i = lane; i < 2 * 16 * (C / 8); i += 32) {
+    const int r = i / (C / 8), cc = i - r * (C / 8);
+    if ((r & 15) >= nvalid) *reinterpret_cast<uint4*>(slab + r * RS + cc * 8) = make_uint4(0, 0, 0, 0);
+  }
+  // inverse-W A fragments, hi and lo: rows w0.., k = (part, m), from the packed table
+  uint32_t iwh[KI][4], iwl[KI][4];
+  {
+    const bf16* t_hi = iw + (size_t)w0 * 2 * M3;
+    const bf16* t_lo = t_hi + (size_t)nwarps * 16 * 2 * M3;
+#pragma unroll
+    for (int ks = 0; ks < KI; ++ks) {
+      const int k = ks * 16 + 2 * q;
+      iwh[ks][0] = *reinterpret_cast<const uint32_t*>(t_hi + gq * 2 * M3 + k);
+      iwh[ks][1] = *reinterpret_cast<const uint32_t*>(t_hi + (gq + 8) * 2 * M3 + k);
+      iwh[ks][2] = *reinterpret_cast<const uint32_t*>(t_hi + gq * 2 * M3 + k + 8);
+      iwh[ks][3] = *reinterpret_cast<const uint32_t*>(t_hi + (gq + 8) * 2 * M3 + k + 8);
+      iwl[ks][0] = *reinterpret_cast<const uint32_t*>(t_lo + gq * 2 * M3 + k);
+      iwl[ks][1] = *reinterpret_cast<const uint32_t*>(t_lo + (gq + 8) * 2 * M3 + k);
+      iwl[ks][2] = *reinterpret_cast<const uint32_t*>(t_lo + gq * 2 * M3 + k + 8);
+      iwl[ks][3] = *reinterpret_cast<const uint32_t*>(t_lo + (gq + 8) * 2 * M3 + k + 8);
+    }
+  }
+  const size_t rowbase = ((size_t)bt * Hp + h0) * Wp * C + (size_t)w0 * C;
+  const int pieces = nvalid * (C / 8);   // 16-byte pieces of the warp's slab of one row
+  auto fetch_x = [&](int hl) {
+    const bf16* src = x + rowbase + (size_t)hl * Wp * C;
+    bf16* dst = slab + (hl & 1) * 16 * RS;
+    for (int i = lane; i < pieces; i += 32) {
+      const int r = i / (C / 8), cc = i - r * (C / 8);
+      mma::cp_async_16(dst + r * RS + cc * 8, src + i * 8);
+    }
+    mma::cp_async_commit();
+  };
+  const bool valid0 = gq < nvalid, valid1 = gq + 8 < nvalid;
+  float ssum[NT][2], ssq[NT][2];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) ssum[t][0] = ssum[t][1] = ssq[t][0] = ssq[t][1] = 0.f;
+  __syncwarp();
+  fetch_x(0);
+  for (int hl = 0; hl < nrows; ++hl) {
+    if (hl + 1 < nrows) {
+      fetch_x(hl + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncwarp();   // row hl has landed for every lane
+    bf16* xs = slab + (hl & 1) * 16 * RS;
+    float acc[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float2 bias = *reinterpret_cast<const float2*>(sbp + t * 8 + 2 * q);
+      acc[t][0] = acc[t][2] = bias.x;
+      acc[t][1] = acc[t][3] = bias.y;
+    }
+    // pointwise: z (16 x C) . Wp (C x C). z = act(a*x + b) is made on the A
+    // fragment of x (its k index is the channel) and split into hi + lo like
+    // the constants: x lies on the bf16 grid, so one rounding of z is no
+    // random error (at a ~ 1 it rounds most of a*x + b - x away) and shows in
+    // the statistics. zh.Wh + zl.Wh + zh.Wl; zl.Wl is below 2^-16.
+#pragma unroll
+    for (int ks = 0; ks < C / 16; ++ks) {
+      uint32_t zh[4], zl[4];
+      mma::ldmatrix_x4(zh, mma::smem_addr(xs + mma::a_frag_offset(lane, ks * 16, RS)));
+      const int c = ks * 16 + 2 * q;
+      const float2 a0 = *reinterpret_cast<const float2*>(sa + c);
+      const float2 a8 = *reinterpret_cast<const float2*>(sa + c + 8);
+      const float2 b0 = *reinterpret_cast<const float2*>(sb + c);
+      const float2 b8 = *reinterpret_cast<const float2*>(sb + c + 8);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 v = mma::unpack_bf16(zh[r]);
+        const float2 av = r < 2 ? a0 : a8, bv = r < 2 ? b0 : b8;
+        const float z0 = affine_act_fast(v.x, av.x, bv.x, act);
+        const float z1 = affine_act_fast(v.y, av.y, bv.y, act);
+        zh[r] = mma::pack_bf16(z0, z1);
+        const float2 h = mma::unpack_bf16(zh[r]);
+        zl[r] = mma::pack_bf16(z0 - h.x, z1 - h.y);
+      }
+#pragma unroll
+      for (int np = 0; np < C / 16; ++np) {
+        int k, n;
+        mma::b_frag_row(lane, ks * 16, np * 16, k, n);
+        uint32_t fh[4], fl[4];
+        mma::ldmatrix_x4_trans(fh, mma::smem_addr(swp_hi + k * RS + n));
+        mma::ldmatrix_x4_trans(fl, mma::smem_addr(swp_lo + k * RS + n));
+        mma::mma_bf16(acc[2 * np], zh, fh[0], fh[1]);
+        mma::mma_bf16(acc[2 * np + 1], zh, fh[2], fh[3]);
+        mma::mma_bf16(acc[2 * np], zl, fh[0], fh[1]);
+        mma::mma_bf16(acc[2 * np + 1], zl, fh[2], fh[3]);
+        mma::mma_bf16(acc[2 * np], zh, fl[0], fl[1]);
+        mma::mma_bf16(acc[2 * np + 1], zh, fl[2], fl[3]);
+      }
+    }
+    // inverse W: [IWr^T | IWi^T] (16 x 2*M3) . [ihr_h ; ihi_h] (2*M3 x C)
+    const bf16* ihh = sih + (size_t)hl * 2 * M3 * RS;
+#pragma unroll
+    for (int ks = 0; ks < KI; ++ks) {
+#pragma unroll
+      for (int np = 0; np < C / 16; ++np) {
+        int k, n;
+        mma::b_frag_row(lane, ks * 16, np * 16, k, n);
+        uint32_t fb[4];
+        mma::ldmatrix_x4_trans(fb, mma::smem_addr(ihh + k * RS + n));
+        mma::mma_bf16(acc[2 * np], iwh[ks], fb[0], fb[1]);
+        mma::mma_bf16(acc[2 * np + 1], iwh[ks], fb[2], fb[3]);
+        mma::mma_bf16(acc[2 * np], iwl[ks], fb[0], fb[1]);
+        mma::mma_bf16(acc[2 * np + 1], iwl[ks], fb[2], fb[3]);
+        mma::ldmatrix_x4_trans(fb, mma::smem_addr(ihh + kRows * 2 * M3 * RS + k * RS + n));
+        mma::mma_bf16(acc[2 * np], iwh[ks], fb[0], fb[1]);
+        mma::mma_bf16(acc[2 * np + 1], iwh[ks], fb[2], fb[3]);
+      }
+    }
+    // statistics from the f32 accumulators, valid columns of W only
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      if (valid0) {
+        ssum[t][0] += acc[t][0];
+        ssum[t][1] += acc[t][1];
+        ssq[t][0] = fmaf(acc[t][0], acc[t][0], ssq[t][0]);
+        ssq[t][1] = fmaf(acc[t][1], acc[t][1], ssq[t][1]);
+      }
+      if (valid1) {
+        ssum[t][0] += acc[t][2];
+        ssum[t][1] += acc[t][3];
+        ssq[t][0] = fmaf(acc[t][2], acc[t][2], ssq[t][0]);
+        ssq[t][1] = fmaf(acc[t][3], acc[t][3], ssq[t][1]);
+      }
+    }
+    // the s tile goes back through the slab (every lane has read its x)
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      bf16* o = xs + gq * RS + t * 8 + 2 * q;
+      if (valid0) *reinterpret_cast<uint32_t*>(o) = mma::pack_bf16(acc[t][0], acc[t][1]);
+      if (valid1) *reinterpret_cast<uint32_t*>(o + 8 * RS) = mma::pack_bf16(acc[t][2], acc[t][3]);
+    }
+    __syncwarp();
+    bf16* dst = s + rowbase + (size_t)hl * Wp * C;
+    for (int i = lane; i < pieces; i += 32) {
+      const int r = i / (C / 8), cc = i - r * (C / 8);
+      *reinterpret_cast<uint4*>(dst + i * 8) = *reinterpret_cast<const uint4*>(xs + r * RS + cc * 8);
+    }
+    __syncwarp();   // the slab is free for the copy of row hl + 2
+  }
+
+  // ---- the block's partial statistics: lanes of a column pair, then warps, in a fixed order
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float v = ssum[t][i], w = ssq[t][i];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+        w += __shfl_xor_sync(0xffffffffu, w, off);
+      }
+      if (gq == 0) {
+        sred[(warp * 2 + 0) * C + t * 8 + 2 * q + i] = v;
+        sred[(warp * 2 + 1) * C + t * 8 + 2 * q + i] = w;
+      }
+    }
+  }
+  __syncthreads();
+  float* pb = partial + ((size_t)bt * nchunks + chunk) * 2 * C;
+  for (int i = tid; i < 2 * C; i += nthreads) {
+    float v = 0.f;
+    for (int w = 0; w < nwarps; ++w) v += sred[w * 2 * C + i];
+    pb[i] = v;
+  }
+}
+
+int num_chunks(int Hp, int C) { return (Hp + mma_rows(C) - 1) / mma_rows(C); }
+
+template <int C, int KI, int MAXW, int MINB>
+cudaError_t launch_k2_mma_as(const void* g, const void* x, const void* a, const void* b,
+                             const void* wp, const void* bp, const void* ah, const void* iw,
+                             void* s, void* partial, void* stats, int BT, int Hp, int Wp,
+                             int m2x2, int act, cudaStream_t stream) {
+  const int warps = (Wp + 15) / 16;
+  const MmaLayout L = mma_layout(C, KI * 8, m2x2, warps);
+  auto kernel = k2_mma_kernel<C, KI, MAXW, MINB>;
+  cudaError_t err = fno::allow_smem(kernel, (size_t)L.total);
+  if (err != cudaSuccess) return err;
+  // as much of the SM's memory as shared memory as it takes to hold MINB blocks
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(num_chunks(Hp, C), BT);
+  kernel<<<grid, warps * 32, L.total, stream>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(wp),
+      static_cast<const float*>(bp), static_cast<const bf16*>(ah),
+      static_cast<const bf16*>(iw), static_cast<bf16*>(s), static_cast<float*>(partial), L, Hp,
+      Wp, m2x2, act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(stats),
+                              BT * num_chunks(Hp, C), 2 * C, stream);
+}
+
+cudaError_t launch_k2_mma(const void* g, const void* x, const void* a, const void* b,
+                          const void* wp, const void* bp, const void* ah, const void* iw,
+                          void* s, void* partial, void* stats, int BT, int Hp, int Wp, int C,
+                          int m2x2, int m3, int act, cudaStream_t stream) {
+  const int warps = (Wp + 15) / 16;
+  if (warps > kMaxWarps || 2 * m2x2 > 16 * kMaxKH || C % 4 || BT > 65535 || ah == nullptr ||
+      iw == nullptr)
+    return cudaErrorInvalidValue;
+  for (const void* p : {g, x, (const void*)s, ah, iw})
+    if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
+#define K2_MMA(CC, KK, MW, MB)                                                              \
+  if (C == CC && m3 == KK * 8 && warps <= MW)                                               \
+  return launch_k2_mma_as<CC, KK, MW, MB>(g, x, a, b, wp, bp, ah, iw, s, partial, stats, BT, \
+                                          Hp, Wp, m2x2, act, stream)
+  K2_MMA(64, 2, 9, 2);   // the cylinder configuration: two blocks an SM
+  K2_MMA(32, 1, 16, 1);
+  K2_MMA(32, 2, 16, 1);
+  K2_MMA(64, 1, 16, 1);
+  K2_MMA(64, 2, 16, 1);
+  K2_MMA(128, 1, 9, 1);   // 9 warps leave a thread the registers its 64 accumulators need
+  K2_MMA(128, 2, 9, 1);
+#undef K2_MMA
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Number of [2, C] partials the caller allocates as K2's scratch.
-extern "C" int fno_k2_num_partials(int BT, int Hp) { return BT * num_hblocks(Hp); }
+// variant: 0 fma, 1 mma (ops/kernels.py: K2_VARIANTS). The caller chooses; a
+// variant that does not take the dtype or shape returns an error.
 
+// Number of [2, C] partials the caller allocates as K2's scratch.
+extern "C" int fno_k2_num_partials(int BT, int Hp, int C, int variant) {
+  return BT * (variant == 1 ? num_chunks(Hp, C) : num_hblocks(Hp));
+}
+
+// Bytes of shared memory a block of the mma variant takes.
+extern "C" int fno_k2_mma_smem_bytes(int Wp, int C, int m2x2, int m3) {
+  return mma_layout(C, m3, m2x2, (Wp + 15) / 16).total;
+}
+
+// ah, iw: the packed bf16 hi/lo tables of the mma variant (null for fma).
 extern "C" int fno_k2(const void* g, const void* x, const void* a, const void* b,
                       const void* wp, const void* bp, const void* ihr, const void* ihi,
-                      const void* iwr, const void* iwi, void* s, void* partial, void* stats,
-                      int BT, int Hp, int Wp, int C, int m2x2, int m3, int act, int dtype,
-                      void* stream) {
+                      const void* iwr, const void* iwi, const void* ah, const void* iw, void* s,
+                      void* partial, void* stats, int BT, int Hp, int Wp, int C, int m2x2,
+                      int m3, int act, int variant, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C < 1 || m2x2 < 1 || m3 < 1 || BT < 1 || Hp < 1 || Wp < 1) return cudaErrorInvalidValue;
+  if (variant == 1) {
+    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
+    return launch_k2_mma(g, x, a, b, wp, bp, ah, iw, s, partial, stats, BT, Hp, Wp, C, m2x2,
+                         m3, act, st);
+  }
+  if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32)
     return launch_k2<float>(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, s, partial, stats, BT, Hp,
                             Wp, C, m2x2, m3, act, st);

@@ -9,7 +9,8 @@ tensor between layers is always the pre-BN ``s``. Forward:
   T-stage  forward DFT over T (Tp → 2·m1 modes)             (csrc/fno_tstage.cu)
   corner   4-corner complex channel mixing                  (torch.einsum)
   T-stage  inverse DFT over T (2·m1 → Tp)                   (csrc/fno_tstage.cu)
-  K2       inverse H and W DFTs + z @ Wp + bp, BN stats     (csrc/fno_k2.cu)
+  K2       inverse H and W DFTs + z @ Wp + bp, BN stats     (csrc/fno_k2.cu;
+           bf16: on the tensor cores, csrc/mma.cuh)
 
 Backward (``fused_fno_layer`` is one autograd function):
 
@@ -118,6 +119,38 @@ def tstage_mats(kind: str, Tp: int, m1: int):
 def _ct_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int) -> dict:
     return {k: torch.from_numpy(v).to(device)
             for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
+
+
+def _k2_mma_tables(Hp: int, Wp: int, m2: int, m3: int, rows: int):
+    """The DFT constants of K2's tensor-core variant in the layout its MMA
+    A operands want, each as a bfloat16 (hi, lo) pair on axis 0
+    (``kernels.split_bf16``), CPU tensors:
+
+      ah [2, ceil(Hp/R), 16, Kpad]  inverse H for a block of R = ``rows`` (the
+          kernel's rows per block at this width, kernels.K2_MMA_ROWS) rows
+          h = R·ch + r, k = (re | im, j) padded with zeros to a multiple
+          of 16: row r gives Re ih[h] = Σ_j gr·ihr − gi·ihi
+          ([ihr[:, h] | −ihi[:, h]]), row 8 + r gives Im ih[h]
+          ([ihi[:, h] | ihr[:, h]]); rows r ≥ R and rows of h ≥ Hp are zero.
+      iw [2, ceil(Wp/16)·16, 2·m3]  inverse W: row w is [iwr[:, w] | iwi[:, w]],
+          rows w ≥ Wp zero.
+    """
+    c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
+    m2x2 = 2 * m2
+    nch, kpad = -(-Hp // rows), -(-2 * m2x2 // 16) * 16
+    ah = torch.zeros(nch * rows, 2, kpad)
+    ah[:Hp, 0, :m2x2], ah[:Hp, 0, m2x2:2 * m2x2] = c["ihr"].t(), -c["ihi"].t()
+    ah[:Hp, 1, :m2x2], ah[:Hp, 1, m2x2:2 * m2x2] = c["ihi"].t(), c["ihr"].t()
+    ah = torch.nn.functional.pad(ah.view(nch, rows, 2, kpad).transpose(1, 2),
+                                 (0, 0, 0, 8 - rows)).reshape(nch, 16, kpad)
+    iw = torch.zeros(-(-Wp // 16) * 16, 2 * m3)
+    iw[:Wp, :m3], iw[:Wp, m3:] = c["iwr"].t(), c["iwi"].t()
+    return tuple(torch.stack(kernels.split_bf16(t)).contiguous() for t in (ah, iw))
+
+
+@lru_cache(maxsize=64)
+def _k2_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int, rows: int):
+    return tuple(t.to(device) for t in _k2_mma_tables(Hp, Wp, m2, m3, rows))
 
 
 @lru_cache(maxsize=64)
@@ -340,11 +373,19 @@ def k2_plain(g, x, a, b, wp, bp, cst, *, Hp: int, Wp: int, act: str):
     return s.reshape(x.shape).to(x.dtype), stats
 
 
-def k2(g, x, a, b, wp, bp, *, Hp: int, Wp: int, m2: int, m3: int, act: str):
+def k2(g, x, a, b, wp, bp, *, Hp: int, Wp: int, m2: int, m3: int, act: str,
+       variant=None):
+    """On the card, the variant ``kernels.k2_variant`` chooses from dtype and
+    shape (or the one named): the packed tables go with the mma variant."""
     cst = _ct_on(x.device, Hp, Wp, m2, m3)
     if _use_kernel(x):
+        C = x.shape[-1] // 2
+        name = variant or kernels.k2_variant(x.dtype, C, m3, Wp, 2 * m2)
+        tables = (_k2_mma_on(x.device, Hp, Wp, m2, m3, kernels.K2_MMA_ROWS[C])
+                  if name == "mma" and C in kernels.K2_MMA_ROWS else None)
         return kernels.k2(g, x, a, b, wp, bp, cst["ihr"], cst["ihi"],
-                          cst["iwr"], cst["iwi"], Hp=Hp, Wp=Wp, act=act)
+                          cst["iwr"], cst["iwi"], Hp=Hp, Wp=Wp, act=act,
+                          tables=tables, variant=variant)
     return k2_plain(g, x, a, b, wp, bp, cst, Hp=Hp, Wp=Wp, act=act)
 
 

@@ -12,6 +12,14 @@ One wrapper per kernel (``k1``, ``t_stage``, ``k2``, ``k2a``, ``k2a_lite``,
 tensors, allocates the outputs and scratch, launches on PyTorch's current
 stream (the kernels allocate nothing and do not synchronise), raises if the
 launch returned an error, and adds one to its entry in ``LAUNCHES``.
+
+The T-stage and K2 have two variants each, chosen from dtype and shape
+before the launch by the pure functions ``t_stage_variant`` and
+``k2_variant`` (``VARIANTS`` counts the launches of each): the T-stage's
+``registers`` (a thread produces every output of its column) or ``generic``;
+K2's ``mma`` (bf16, its three contractions on the tensor cores) or ``fma``
+(exact f32 arithmetic). A caller may name the variant; one that does not take
+the input raises. No variant gives way to another after a failure.
 Nothing here runs at import: this module is imported on machines with no
 GPU and no nvcc, where only the plain twins in ``ops/fno_layer.py``,
 ``ops/fno_tail.py``, ``ops/temporal_attention.py`` and ``ops/galerkin.py``
@@ -43,13 +51,83 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
             "k3f": 0, "k3b": 0, "ta_fwd": 0, "ta_bwd": 0, "gk_scores": 0}
 
+# Launches per variant of the kernels that have more than one; the keys'
+# order is the variant code of csrc/fno_tstage.cu and csrc/fno_k2.cu.
+VARIANTS = {"t_stage": {"generic": 0, "registers": 0}, "k2": {"fma": 0, "mma": 0}}
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
+
+# csrc/fno_tstage.cu: the register-resident side's largest instantiation,
+# and the channels a thread takes
+TSTAGE_MAX_REGISTERS, TSTAGE_VEC = 16, 4
+# csrc/fno_k2.cu, the mma variant: instantiated widths and W modes, H rows
+# a block by width (mma_rows), row padding in elements (kPad), warps
+# (kMaxWarps), and the shared memory a block may take on Hopper
+K2_MMA_WIDTHS, K2_MMA_M3 = (32, 64, 128), (8, 16)
+K2_MMA_ROWS = {32: 8, 64: 5, 128: 4}
+K2_MMA_PAD = 8
+K2_MMA_MAX_WARPS = {32: 16, 64: 16, 128: 9}
+K2_MMA_MAX_H_MODES = 32   # 2*m2: four k-steps of the inverse-H product (kMaxKH)
+MAX_SMEM_BYTES = 232448
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in VARIANTS.values():
+        for k in counts:
+            counts[k] = 0
+
+
+def t_stage_variant(dtype, C: int, Tin: int, Tout: int) -> str:
+    """'registers' where the shorter side of T fits the instantiated
+    register counts and the channels split into vectors, else 'generic'."""
+    del dtype   # both variants take float32 and bfloat16
+    if min(Tin, Tout) <= TSTAGE_MAX_REGISTERS and C % TSTAGE_VEC == 0:
+        return "registers"
+    return "generic"
+
+
+def k2_mma_smem_bytes(Wp: int, C: int, m2x2: int, m3: int) -> int:
+    """Shared memory of a block of K2's mma variant (csrc/fno_k2.cu::
+    mma_layout): Wp hi and lo, the block's inverse-H rows hi and lo, the
+    larger of the warps' x rings and their rings over g, a/b/bp, the warps'
+    statistics."""
+    warps = -(-Wp // 16)
+    row = (C + K2_MMA_PAD) * 2
+    slabs = warps * 2 * 16 * row
+    gring = warps * 2 * (2 * m2x2) * 16 * 2   # the warps' rings over g ([k][16] tiles)
+    return (2 * C * row + 2 * K2_MMA_ROWS[C] * 2 * m3 * row + max(slabs, gring)
+            + 3 * C * 4 + warps * 2 * C * 4)
+
+
+def k2_variant(dtype, C: int, m3: int, Wp: int = 16, m2x2: int = 2) -> str:
+    """'mma' for bfloat16 at an instantiated (C, m3) whose block fits (one
+    warp per 16 columns of W, its tiles in shared memory, at most 32 H
+    modes), else 'fma'."""
+    if (dtype == torch.bfloat16 and C in K2_MMA_WIDTHS and m3 in K2_MMA_M3
+            and m2x2 <= K2_MMA_MAX_H_MODES
+            and -(-Wp // 16) <= K2_MMA_MAX_WARPS[C]
+            and k2_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
+
+
+def split_bf16(t: torch.Tensor):
+    """(hi, lo) bfloat16 with hi + lo = t to 2^-17 relative: hi = rn(t),
+    lo = rn(t - hi). Host twin of csrc/mma.cuh::split_bf16."""
+    t = t.float()
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def _variant_code(kernel: str, name: str) -> int:
+    """The variant's code for the C entry point."""
+    names = list(VARIANTS[kernel])
+    if name not in names:
+        raise ValueError(f"{kernel}: no variant {name!r} (has {names})")
+    return names.index(name)
 
 
 def _nvcc() -> str:
@@ -118,12 +196,14 @@ def library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.fno_k1.argtypes = [P] * 8 + [I] * 8 + [P]
     lib.fno_k1.restype = I
-    lib.fno_tstage.argtypes = [P] * 4 + [I] * 6 + [P]
+    lib.fno_tstage.argtypes = [P] * 4 + [I] * 7 + [P]
     lib.fno_tstage.restype = I
-    lib.fno_k2.argtypes = [P] * 13 + [I] * 8 + [P]
+    lib.fno_k2.argtypes = [P] * 15 + [I] * 9 + [P]
     lib.fno_k2.restype = I
-    lib.fno_k2_num_partials.argtypes = [I, I]
+    lib.fno_k2_num_partials.argtypes = [I, I, I, I]
     lib.fno_k2_num_partials.restype = I
+    lib.fno_k2_mma_smem_bytes.argtypes = [I] * 4
+    lib.fno_k2_mma_smem_bytes.restype = I
     lib.fno_k2a.argtypes = [P] * 16 + [I] * 8 + [P]
     lib.fno_k2a.restype = I
     lib.fno_k12b.argtypes = [P] * 16 + [I] * 8 + [P]
@@ -147,6 +227,14 @@ def library() -> ctypes.CDLL:
     lib.fno_error_string.argtypes = [I]
     lib.fno_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@lru_cache(maxsize=64)
+def _k2_layouts_agree(Wp: int, C: int, m2x2: int, m3: int) -> bool:
+    """The shared-memory size of K2's mma variant as fno_k2.cu lays it out
+    against ``k2_mma_smem_bytes``, on which ``k2_variant`` decides."""
+    return library().fno_k2_mma_smem_bytes(Wp, C, m2x2, m3) == k2_mma_smem_bytes(
+        Wp, C, m2x2, m3)
 
 
 def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
@@ -208,9 +296,10 @@ def k1(x, a, b, ewr, ewi, ehr, ehi, *, Hp: int, Wp: int, act: str):
     return y
 
 
-def t_stage(y, mr, mi):
+def t_stage(y, mr, mi, *, variant: str | None = None):
     """y [B*Tin, Y, 2C] → [B*Tout, Y, 2C] with (MR + i MI) [Tin, Tout]; see
-    csrc/fno_tstage.cu."""
+    csrc/fno_tstage.cu. ``variant`` names one of VARIANTS['t_stage'];
+    by default ``t_stage_variant`` chooses."""
     dt = _io_dtype(y)
     dev = y.device
     Tin, Tout = mr.shape
@@ -222,15 +311,26 @@ def t_stage(y, mr, mi):
     _check("mr", mr, dev, torch.float32, (Tin, Tout))
     _check("mi", mi, dev, torch.float32, (Tin, Tout))
     B = BT // Tin
+    chosen = t_stage_variant(y.dtype, C2 // 2, Tin, Tout)
+    name = chosen if variant is None else variant
+    code = _variant_code("t_stage", name)
+    if name == "registers" and (chosen != name or y.data_ptr() % 16):
+        raise ValueError(f"t_stage: the registers variant takes min(Tin, Tout) <= "
+                         f"{TSTAGE_MAX_REGISTERS}, C a multiple of {TSTAGE_VEC} and "
+                         f"16-byte aligned data; got Tin={Tin}, Tout={Tout}, C={C2 // 2}")
     out = torch.empty((B * Tout, Y, C2), dtype=y.dtype, device=dev)
     _launch("t_stage", library().fno_tstage, dev, _p(y), _p(mr), _p(mi), _p(out),
-            B, Tin, Tout, Y, C2 // 2, dt)
+            B, Tin, Tout, Y, C2 // 2, code, dt)
+    VARIANTS["t_stage"][name] += 1
     return out
 
 
-def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str):
+def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str,
+       tables=None, variant: str | None = None):
     """(g [BT, 2m2*m3, 2C], x like s) → (s like x, stats [2, C] f32); see
-    csrc/fno_k2.cu."""
+    csrc/fno_k2.cu. ``variant`` names one of VARIANTS['k2']; by default
+    ``k2_variant`` chooses. The mma variant needs ``tables`` = (ah, iw), the
+    packed bf16 hi/lo DFT tables of ``ops/fno_layer._k2_mma_tables``."""
     dt = _io_dtype(x)
     dev, f32 = x.device, torch.float32
     BT, C = x.shape[0], x.shape[-1] // 2
@@ -242,16 +342,42 @@ def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str):
                     ("ihi", ihi, (m2x2, Hp)), ("iwr", iwr, (m3, Wp)),
                     ("iwi", iwi, (m3, Wp))):
         _check(n, t, dev, f32, s)
-    if C > 256 or 256 % C:
-        raise ValueError(f"k2 takes C dividing 256; got C={C}")
+    chosen = k2_variant(x.dtype, C, m3, Wp, m2x2)
+    name = chosen if variant is None else variant
+    code = _variant_code("k2", name)
     lib = library()
+    null = ctypes.c_void_p(None)
+    ah = iw = null
+    if name == "mma":
+        if chosen != "mma":
+            raise ValueError(
+                f"k2: the mma variant takes bfloat16, C in {K2_MMA_WIDTHS}, m3 in "
+                f"{K2_MMA_M3}, 2*m2 <= {K2_MMA_MAX_H_MODES}, at most {K2_MMA_MAX_WARPS} warps "
+                f"of 16 columns of W and a block within {MAX_SMEM_BYTES} bytes of shared "
+                f"memory; got {x.dtype}, C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}")
+        if tables is None:
+            raise ValueError("k2: the mma variant needs the packed tables")
+        nch = -(-Hp // K2_MMA_ROWS[C])
+        kpad = -(-2 * m2x2 // 16) * 16
+        _check("ah", tables[0], dev, torch.bfloat16, (2, nch, 16, kpad))
+        _check("iw", tables[1], dev, torch.bfloat16, (2, -(-Wp // 16) * 16, 2 * m3))
+        for n, t in (("g", g), ("x", x), ("wp", wp), ("ah", tables[0]), ("iw", tables[1])):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{n}: not 16-byte aligned")
+        if not _k2_layouts_agree(Wp, C, m2x2, m3):
+            raise RuntimeError("k2: the shared-memory layouts of kernels.py and "
+                               "fno_k2.cu differ")
+        ah, iw = _p(tables[0]), _p(tables[1])
+    elif C > 256 or 256 % C:
+        raise ValueError(f"k2 takes C dividing 256; got C={C}")
     s = torch.empty_like(x)
-    partial = torch.empty((lib.fno_k2_num_partials(BT, Hp), 2, C), dtype=f32,
+    partial = torch.empty((lib.fno_k2_num_partials(BT, Hp, C, code), 2, C), dtype=f32,
                           device=dev)
     stats = torch.empty((2, C), dtype=f32, device=dev)
     _launch("k2", lib.fno_k2, dev, _p(g), _p(x), _p(a), _p(b), _p(wp), _p(bp),
-            _p(ihr), _p(ihi), _p(iwr), _p(iwi), _p(s), _p(partial), _p(stats),
-            BT, Hp, Wp, C, m2x2, m3, ACT_CODES[act], dt)
+            _p(ihr), _p(ihi), _p(iwr), _p(iwi), ah, iw, _p(s), _p(partial), _p(stats),
+            BT, Hp, Wp, C, m2x2, m3, ACT_CODES[act], code, dt)
+    VARIANTS["k2"][name] += 1
     return s, stats
 
 

@@ -9,7 +9,9 @@ benchmark width, does not; for temporal attention, T, heads and head width
 below the UNet's (T 5 and 20, h 3 and 4, d 8 and 32) and site counts that
 fill no whole tile (S 300, 37); for the Galerkin scores, N that fills no
 whole tile (300, 37), head widths 16, 32 and 64, odd B·h and a last group
-of heads narrower than the block (h 5). Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
+of heads narrower than the block (h 5); for the variants of the T-stage and
+K2, shapes on both sides of each choice (``kernels.t_stage_variant``,
+``kernels.k2_variant``). Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
 sides accumulate in f32, in another order); in bf16 1e-2·max|ref| (both
 sides compute in f32 from the same bf16 inputs and round once to bf16, so
 they differ by at most one bf16 step, 2^-8 relative). The f32 accumulators
@@ -33,6 +35,7 @@ pytestmark = pytest.mark.gpu
 SHAPES = [  # (B, Tp, Hp, Wp, C, m1, m2, m3)
     (2, 6, 10, 12, 8, 2, 3, 4),
     (1, 9, 13, 22, 32, 3, 5, 6),
+    (1, 9, 13, 22, 32, 3, 5, 8),    # bf16: K2's tensor-core variant (C 32, m3 8)
 ]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -99,6 +102,113 @@ def test_fused_layer_matches_reference_on_card(cuda, shape):
                                                   act="exact")
     _close(s, s_ref, torch.float32)
     _close(st, st_ref, torch.float32)
+
+
+K2_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
+    (3, 13, 22, 32, 5, 8),     # mma in bf16: two warps, the second with 6 columns
+    (2, 17, 38, 64, 4, 16),    # mma: Wp no multiple of 16, a last block of one row
+    (2, 9, 20, 128, 3, 8),     # mma at C 128
+    (2, 10, 12, 8, 3, 4),      # fma in both dtypes: C and m3 below the MMA tiles
+    (2, 9, 20, 64, 3, 4),      # fma: 2*m3 no multiple of 16
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K2_SHAPES)
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k2_variants_match_twin(cuda, shape, dtype, act):
+    """K2 in the variant its dtype and shape choose, and in bf16 the fma
+    variant named on the same inputs, against the twin; two calls bit-equal;
+    the per-variant counters."""
+    BT, Hp, Wp, C, m2, m3 = shape
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    x = rn(BT, Hp * Wp // 2, 2 * C).to(dtype)
+    gs = rn(BT, 2 * m2 * m3, 2 * C).to(dtype)
+    a, b, wp, bp = 1 + 0.1 * rn(C), 0.1 * rn(C), rn(C, C) / C ** 0.5, 0.1 * rn(C)
+    kw = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    chosen = kernels.k2_variant(dtype, C, m3, Wp, 2 * m2)
+    assert chosen == ("mma" if dtype == torch.bfloat16 and C >= 32 and m3 >= 8 else "fma")
+    kernels.reset_launches()
+    s, st = tfl.k2(gs, x, a, b, wp, bp, **kw)
+    s_ref, st_ref = tfl.k2_plain(gs, x, a, b, wp, bp, tfl._ct_on(cuda, Hp, Wp, m2, m3),
+                                 Hp=Hp, Wp=Wp, act=act)
+    torch.cuda.synchronize()
+    _close(s, s_ref, dtype)
+    _close(st, st_ref, torch.float32)
+    for u, v in zip((s, st), tfl.k2(gs, x, a, b, wp, bp, **kw)):
+        assert torch.equal(u, v)
+    want = {"fma": 0, "mma": 0, chosen: 2}
+    if chosen == "mma":
+        s, st = tfl.k2(gs, x, a, b, wp, bp, **kw, variant="fma")
+        _close(s, s_ref, dtype)
+        _close(st, st_ref, torch.float32)
+        want["fma"] = 1
+    assert kernels.VARIANTS["k2"] == want and kernels.LAUNCHES["k2"] == sum(want.values())
+
+
+TSTAGE_SHAPES = [  # (B, Tin, Tout, Y, C)
+    (2, 26, 8, 24, 64),    # registers: outputs resident, R 8
+    (2, 8, 26, 24, 64),    # registers: inputs resident, R 8
+    (3, 5, 3, 7, 12),      # R 4, channels no multiple of a warp's span
+    (1, 12, 20, 9, 8),     # R 16, inputs resident
+    (1, 20, 12, 9, 8),     # R 16, outputs resident
+    (2, 6, 6, 5, 4),       # Tin == Tout
+    (1, 20, 18, 9, 8),     # generic: the shorter side above 16
+    (2, 9, 4, 7, 6),       # generic: channels no multiple of 4
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TSTAGE_SHAPES)
+def test_t_stage_variants_match_twin(cuda, shape, dtype):
+    """The T-stage in the variant its shape chooses against the twin, for
+    random (MR, MI); the generic variant named on the same input gives the
+    same bits; two calls bit-equal."""
+    B, Tin, Tout, Y, C = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    y = rn(B * Tin, Y, 2 * C).to(dtype)
+    mr, mi = rn(Tin, Tout) / Tin, rn(Tin, Tout) / Tin
+    chosen = kernels.t_stage_variant(dtype, C, Tin, Tout)
+    assert chosen == ("registers" if min(Tin, Tout) <= 16 and C % 4 == 0 else "generic")
+    kernels.reset_launches()
+    out = kernels.t_stage(y, mr, mi)
+    torch.cuda.synchronize()
+    _close(out, tfl.t_stage_plain(y, mr, mi), dtype)
+    assert torch.equal(out, kernels.t_stage(y, mr, mi))
+    assert torch.equal(out, kernels.t_stage(y, mr, mi, variant="generic"))
+    want = {"generic": 1, "registers": 0}
+    want[chosen] += 2
+    assert kernels.VARIANTS["t_stage"] == want and kernels.LAUNCHES["t_stage"] == 3
+
+
+def test_variants_refuse_what_they_do_not_take(cuda):
+    """A named variant that does not take the input raises; nothing falls
+    back to the other variant, and nothing is counted."""
+    y = torch.zeros(9, 7, 12, device=cuda)
+    m = torch.zeros(9, 4, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="registers variant"):
+        kernels.t_stage(y, m, m, variant="registers")          # C 6
+    with pytest.raises(ValueError, match="no variant"):
+        kernels.t_stage(y, m, m, variant="fast")
+    BT, Hp, Wp, C, m2, m3 = K2_SHAPES[0]
+    x = torch.zeros(BT, Hp * Wp // 2, 2 * C, device=cuda)
+    gs = torch.zeros(BT, 2 * m2 * m3, 2 * C, device=cuda)
+    v = torch.zeros(C, device=cuda)
+    wp = torch.zeros(C, C, device=cuda)
+    kw = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3, act="none")
+    with pytest.raises(ValueError, match="mma variant takes bfloat16"):
+        tfl.k2(gs, x, v, v, wp, v, **kw, variant="mma")          # float32
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    with pytest.raises(ValueError, match="packed tables"):
+        kernels.k2(gs.bfloat16(), x.bfloat16(), v, v, wp, v, cst["ihr"], cst["ihi"],
+                   cst["iwr"], cst["iwi"], Hp=Hp, Wp=Wp, act="none")
+    with pytest.raises(ValueError, match="no variant"):
+        tfl.k2(gs, x, v, v, wp, v, **kw, variant="wgmma")
+    assert not any(kernels.LAUNCHES.values())
+    assert not any(n for c in kernels.VARIANTS.values() for n in c.values())
 
 
 def test_kernels_refuse_bad_input(cuda):
