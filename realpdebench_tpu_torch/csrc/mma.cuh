@@ -22,7 +22,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // Four 8x8 b16 matrices; lane l passes the address of row l%8 of matrix l/8.
-// With a row-major [m][k] tile and the addresses of a_frag_addr this is an
+// With a row-major [m][k] tile and the addresses of a_frag_offset this is an
 // A fragment.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -32,7 +32,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 }
 
 // The same, each matrix transposed on the way: from a row-major [k][n] tile
-// and the addresses of b_frag_addr, the B fragments of two neighbouring
+// and the addresses of b_frag_row, the B fragments of two neighbouring
 // 8-column tiles: (r0, r1) for columns n0..n0+7, (r2, r3) for n0+8..n0+15.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
