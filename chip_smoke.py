@@ -18,20 +18,28 @@ JSON line each; any failure raises (non-zero exit, no result line):
                variant is held: the T-stage's registers variant (chosen at
                these shapes) and, bit for bit against it, its generic one,
                which is also chosen and checked at a [20, 18] map outside
-               the instantiated range; K2's mma variant (bfloat16) and its
-               fma one (float32, and bfloat16 when named). Two calls of the
-               T-stage and of K2 are bit-equal. The T-stage's times are
-               device times of queued launches (see queued_ms).
-  4. backward  the backward and tail kernels, K2A-lite, K2A, K12B, the
-               T-stage adjoints (et_adj, it_adj), K3F and K3B, against
-               their twins at the training width (B·Tp=832: the f32 twins
-               fit the card's memory), in float32 and bfloat16; K2A-lite
-               against K2A; CUDA-event medians; K2's time at this width.
+               the instantiated range; K1's and K2's mma variants
+               (bfloat16) and their fma ones (float32, and bfloat16 when
+               named). Two calls of K1, the T-stage and K2 are bit-equal.
+               K1's, the T-stage's and K2's times are device times of
+               queued launches (see queued_ms).
+  4. backward  the backward and tail kernels, K2A-lite, K2A, K12B (its mma
+               variant in bfloat16 and, named, its fma one), the T-stage
+               adjoints (et_adj, it_adj), K3F and K3B, against their twins
+               at the training width (B·Tp=832: the f32 twins fit the
+               card's memory), in float32 and bfloat16; K2A-lite against
+               K2A; two K12B calls bit-equal; K1's, K2's and K12B's times
+               at this width as device times of queued launches, the others
+               CUDA-event medians.
+  4b. geometry every FNO kernel against its twin at the other shipped
+               geometries (combustion: width 64, fsi: width 128, modes
+               4/16/16) at the cylinder's windows and padding, batch 2, in
+               both dtypes, and which of K2A-lite and K2A each takes.
   5. slice     the cylinder FNO3d at the benchmark configuration (width 64,
                4 layers, bf16 compute, seeded random weights) rolled out 10
                steps at batch 8 through make_rollout_fn; the launch counters
-               prove the kernels ran, every K2 launch the mma variant and
-               every T-stage launch the registers one; compared with the
+               prove the kernels ran, every K1 and K2 launch the mma variant
+               and every T-stage launch the registers one; compared with the
                same rollout through the plain f32 path on the card; rollout
                frames/s; then torch.profiler over three more rollouts
                (slice_profile).
@@ -45,6 +53,12 @@ JSON line each; any failure raises (non-zero exit, no result line):
                median steps/s, loss, peak memory.
   7. profile   torch.profiler over three more training steps: device time
                by kernel, the host's wall time, the device's idle share.
+  7b. fsi_train the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16,
+               batch 32, Gaussian normalizer) trained in float32 (the
+               config's dtype) and bfloat16: one counted step each (exact
+               launch and variant counts), the loss and every gradient
+               against the plain f32 step at batch 2, two passes bit-equal,
+               steps/s and peak memory.
   8. ta        the temporal-attention kernels TA forward and backward
                against their twin at the UNet's level-0 width of the
                training step (B 12, S 64·128, T 20, h 4, d 32), in float32
@@ -85,7 +99,8 @@ Every kernel's time stands beside its bound: the larger of the bytes it
 must move (inputs read once, outputs written once) over HBM's 3.35 TB/s and
 its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
 67 TFLOP/s FP32), from the published H100 SXM figures at 700 W. Then the
-per-kernel summary line, and the last line {"ok": true, "device": {...}}.
+per-kernel summary line (launches by path, and by variant for the kernels
+that have variants), and the last line {"ok": true, "device": {...}}.
 
 The port imports neither JAX nor the JAX package; neither does this script.
 """
@@ -151,6 +166,28 @@ TRAIN_ZERO_GRAD = 1e-2
 TRAIN_LAUNCHES = {"k1": 4, "t_stage": 16, "k2": 4, "k2a": 0, "k2a_lite": 4,
                   "k12b": 4, "k3f": 1, "k3b": 1, "ta_fwd": 0, "ta_bwd": 0,
                   "gk_scores": 0}
+# the variants a bf16 FNO step launches (a rollout: K1, K2 and the T-stage
+# as one forward each)
+TRAIN_VARIANTS = dict(k1={"mma": 4}, t_stage={"registers": 16}, k2={"mma": 4},
+                      k12b={"mma": 4})
+
+# the other shipped FNO geometries, at the cylinder's 20x64x128 windows and
+# padding 6 (the port has no fsi or combustion reader yet; the kernels'
+# limits depend on C and the modes): (name, width, modes)
+GEOMETRIES = (("combustion", 64, (4, 16, 16)), ("fsi", 128, (4, 16, 16)))
+GEO_BATCH = 2
+# the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16, 4 layers,
+# batch 32, lr 0.01 over 5000 updates, Gaussian normalizer; compute_dtype
+# null, which the port takes as float32), trained in float32 and bfloat16;
+# its loss and gradients against the plain f32 step at batch 2, where the
+# plain step's autograd temporaries fit the card
+FSI_MODEL = dict(model_name="fno", modes1=4, modes2=16, modes3=16, n_layers=4, width=128)
+FSI_BATCH, FSI_CMP_BATCH = 32, 2
+FSI_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
+FSI_WINDOWS, FSI_WINDOW_STEPS = 3, 2
+# per-variant launches of each path that launches variants, for the
+# summary line (the other paths launch none)
+VARIANTS_BY_PATH = {}
 
 # temporal attention at the UNet's level 0 in the training step (B, S, T, h, d)
 TA_SHAPE = (12, 64 * 128, 20, 4, 32)
@@ -445,11 +482,18 @@ def phase_kernels(dev) -> dict:
         wp, bp = rn(C, C) / C ** 0.5, 0.1 * rn(C)
         tol = KERNEL_TOL[dtype]
         rows, times = [], {}
+        chosen = "mma" if dtype == torch.bfloat16 else "fma"
         for act in ("none", "exact"):
-            k1 = lambda: fl.k1(x, a, b, Hp=HP, Wp=WP, m2=M2, m3=M3, act=act)
+            k1 = lambda **kw: fl.k1(x, a, b, Hp=HP, Wp=WP, m2=M2, m3=M3, act=act, **kw)
             k1p = lambda: fl.k1_plain(x, a, b, cst, Hp=HP, Wp=WP, act=act)
-            y = k1()
-            rows.append(compare(f"k1/{act}", y, k1p(), tol))
+            y, y_ref = run_as("k1", chosen, k1), k1p()
+            rows.append(compare(f"k1/{act}", y, y_ref, tol))
+            if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
+                rows.append(compare(f"k1_fma/{act}",
+                                    run_as("k1", "fma", lambda: k1(variant="fma")), y_ref, tol))
+            if not torch.equal(y, k1()):
+                raise AssertionError(f"two identical k1 calls differ ({dtype})")
+            del y_ref
             mats = {k: fl._tmats_on(dev, k, TP, M1) for k in ("et", "it")}
             ins = {"et": y, "it": y[: B * 2 * M1].contiguous()}
             for kind in ("et", "it"):
@@ -464,7 +508,6 @@ def phase_kernels(dev) -> dict:
                                     act=act, **kw)
             k2p = lambda: fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP,
                                       act=act)
-            chosen = "mma" if dtype == torch.bfloat16 else "fma"
             (s, st), (s_ref, st_ref) = run_as("k2", chosen, k2), k2p()
             sr = s_ref.float().view(-1, C)
             terms = torch.stack([sr.abs().sum(0), (sr * sr).sum(0)])
@@ -477,16 +520,19 @@ def phase_kernels(dev) -> dict:
             if not all(torch.equal(u, v) for u, v in zip((s, st), k2())):
                 raise AssertionError(f"two identical k2 calls differ ({dtype})")
             if act == "exact":   # layers 1.. of the path; layer 0 is 'none'
-                times = dict(k1=(cuda_ms(k1), cuda_ms(k1p)),
+                times = dict(k1=(queued_ms([k1], n=16, reps=5), cuda_ms(k1p)),
                              k2=(queued_ms([k2], n=8, reps=5), cuda_ms(k2p)))
-                single = dict(k2=cuda_ms(k2))
+                single = dict(k1=cuda_ms(k1), k2=cuda_ms(k2))
                 if dtype == torch.bfloat16:
                     times["k2_fma"] = (cuda_ms(lambda: k2(variant="fma")), times["k2"][1])
+                    times["k1_fma"] = (queued_ms([lambda: k1(variant="fma")], n=8, reps=5),
+                                       times["k1"][1])
                 # the DFT tables (under 0.1 MB) are left out of the bytes
                 work = dict(k1=bound(nbytes(x, a, b, y), dft_ops(BT), dtype),
                             k2=bound(nbytes(gsp, x, a, b, wp, bp, s, st),
                                      dft_ops(BT) + BT * HP * WP * C * C * 2, dtype))
                 work["k2_fma"] = work["k2"]
+                work["k1_fma"] = work["k1"]
                 rows += check_tstage_generic(dev, g, dtype, y, tol)
         del s, st, s_ref, st_ref, sr, y, gsp
         library = {}
@@ -512,6 +558,8 @@ def phase_kernels(dev) -> dict:
                 summary[k].update(work[k], library_ms=None)
             summary["k2"].update(fma_variant_ms=times["k2_fma"][0],
                                  single_launch_ms=single["k2"])
+            summary["k1"].update(fma_variant_ms=times["k1_fma"][0],
+                                 single_launch_ms=single["k1"])
             # one layer's T-stage: one 'et' and one 'it' launch
             pair = ("t_stage_et", "t_stage_it")
             summary["t_stage"].update(
@@ -520,6 +568,33 @@ def phase_kernels(dev) -> dict:
                 single_launch_ms=sum(single[k] for k in pair),
                 **add_bounds(*(work[k] for k in pair)))
     return summary
+
+
+def k12b_terms(x, a, b, s, ds, ds1, ds2, dx_ref) -> tuple:
+    """The sums of |terms| of K12B's four accumulators (dWp, da, db, dbp),
+    elementwise, from the twin's dx."""
+    C = x.shape[-1] // 2
+    v = lambda q: q.float().view(-1, C)
+    x2 = v(x)
+    z = gelu(x2 * a + b, "exact")
+    dse = v(ds) + ds1 + 2.0 * ds2 * v(s)
+    du = v(dx_ref) / a
+    return (z.abs().t() @ dse.abs(), (du * x2).abs().sum(0), du.abs().sum(0),
+            dse.abs().sum(0))
+
+
+def k3b_terms(s, tail, gl, dims, tail_dims) -> tuple:
+    """The sums of |terms| of K3B's four accumulators (dk1, db1, dk2, db2)."""
+    B, Tp, Hp, Wp, Cs = dims
+    T, H, W = tail_dims
+    target, k1w, b1w, k2w, b2w = tail
+    zt = s.float().view(B, Tp, Hp, Wp, Cs)[:, :T, :H, :W].reshape(-1, Cs)
+    u1 = zt @ k1w + b1w
+    h1 = gelu(u1, "exact")
+    do = 2 * gl * (h1 @ k2w + b2w - target.reshape(-1, k2w.shape[1]))
+    du1 = (do @ k2w.t()) * gelu_grad(u1, "exact")
+    return (zt.abs().t() @ du1.abs(), du1.abs().sum(0), h1.abs().t() @ do.abs(),
+            do.abs().sum(0))
 
 
 def phase_backward(dev) -> dict:
@@ -540,11 +615,19 @@ def phase_backward(dev) -> dict:
         x = rn(BT, HP * WP // 2, 2 * C).to(dtype)
         a, b = 1 + 0.1 * rn(C), 0.1 * rn(C)
         wp, bp = rn(C, C) / C ** 0.5, 0.1 * rn(C)
-        y = fl.k1(x, a, b, **geo, act="exact")
+        k1 = lambda **kw: fl.k1(x, a, b, **geo, act="exact", **kw)
+        y = k1()
         gsp = rn(*y.shape).to(dtype)
         k2 = lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact")
         s, st = k2()
         rows, times, work, library, single = [], {}, {}, {}, {}
+        # K1 at the width the training step launches it (held against its
+        # twin at the rollout width in the kernel phase)
+        times["k1"] = (queued_ms([k1], n=8, reps=5), None)
+        work["k1"] = bound(nbytes(x, a, b, y), dft_ops(BT), dtype)
+        if dtype == torch.bfloat16:
+            times["k1_fma"] = (queued_ms([lambda: k1(variant="fma")], n=4, reps=3), None)
+            work["k1_fma"] = work["k1"]
         # K2 at the width the training step launches it (held against its
         # twin at the rollout width in the kernel phase: the f32 twin's
         # temporaries do not fit beside this phase's tensors)
@@ -588,26 +671,31 @@ def phase_backward(dev) -> dict:
         times["k2a_lite"] = (cuda_ms(k2l), cuda_ms(k2l_p))
 
         x = rn(BT, HP * WP // 2, 2 * C).to(dtype)
-        k12 = lambda: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo, act="exact")
+        k12 = lambda **kw: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo, act="exact", **kw)
         k12_p = lambda: fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=HP,
                                       Wp=WP, act="exact")
-        got, ref = k12(), k12_p()
+        chosen = "mma" if dtype == torch.bfloat16 else "fma"
+        got, ref = run_as("k12b", chosen, k12), k12_p()
+        if not all(torch.equal(u, w) for u, w in zip(got, k12())):
+            raise AssertionError(f"two identical k12b calls differ ({dtype})")
+        held = [("k12b", got)]
+        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
+            held.append(("k12b_fma", run_as("k12b", "fma", lambda: k12(variant="fma"))))
         # the adjoint DFT, and two [positions, C] x [C, C] products (dz, dWp)
         work["k12b"] = bound(nbytes(x, a, b, wp, s, ds, ds1, ds2, dy, *got),
                              dft_ops(BT) + 2 * BT * HP * WP * C * C * 2, dtype)
-        rows.append(compare("k12b/dx", got[0], ref[0], tol))
-        v = lambda q: q.float().view(BT, HP, WP, C)
-        x4 = v(x)
-        z = gelu(x4 * a + b, "exact")
-        dse = v(ds) + ds1 + 2.0 * ds2 * v(s)
-        du = v(ref[0]) / a
-        terms = (torch.einsum("bhwc,bhwd->cd", z.abs(), dse.abs()),
-                 (du * x4).abs().sum((0, 1, 2)), du.abs().sum((0, 1, 2)),
-                 dse.abs().sum((0, 1, 2)))
-        for name, gv, rv, tv in zip(("dwp", "da", "db", "dbp"), got[1:], ref[1:], terms):
-            rows.append(compare_sums(f"k12b/{name}", gv, rv, tv))
-        del got, ref, x4, z, dse, du
-        times["k12b"] = (cuda_ms(k12, reps=10), cuda_ms(k12_p, reps=5))
+        work["k12b_fma"] = work["k12b"]
+        terms = k12b_terms(x, a, b, s, ds, ds1, ds2, ref[0])
+        for kname, gk in held:
+            rows.append(compare(f"{kname}/dx", gk[0], ref[0], tol))
+            for name, gv, rv, tv in zip(("dwp", "da", "db", "dbp"), gk[1:], ref[1:], terms):
+                rows.append(compare_sums(f"{kname}/{name}", gv, rv, tv))
+        del got, ref, terms, held
+        times["k12b"] = (queued_ms([k12], n=8, reps=5), cuda_ms(k12_p, reps=5))
+        single["k12b"] = cuda_ms(k12, reps=10)
+        if dtype == torch.bfloat16:
+            times["k12b_fma"] = (queued_ms([lambda: k12(variant="fma")], n=4, reps=3),
+                                 times["k12b"][1])
 
         kw = dict(dims=(B, TP, HP, WP, C), tail_dims=(T, H, W), act="exact")
         tail = (rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128),
@@ -627,17 +715,10 @@ def phase_backward(dev) -> dict:
         fc = npos * (2 * C * tail[1].shape[1] + 2 * tail[3].shape[0] * F)
         work["k3f"] = bound(crop + nbytes(*tail, sse), fc, dtype)
         work["k3b"] = bound(crop + nbytes(*tail, gl, *got), 3 * fc, dtype)
-        k1w, b1w, k2w, b2w = tail[1:]
-        zt = s.float().view(B, TP, HP, WP, C)[:, :T, :H, :W].reshape(-1, C)
-        u1 = zt @ k1w + b1w
-        h1 = gelu(u1, "exact")
-        do = 2 * gl * (h1 @ k2w + b2w - tail[0].reshape(-1, F))
-        du1 = (do @ k2w.t()) * gelu_grad(u1, "exact")
-        terms = (zt.abs().t() @ du1.abs(), du1.abs().sum(0), h1.abs().t() @ do.abs(),
-                 do.abs().sum(0))
+        terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
         for name, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), got[1:], ref[1:], terms):
             rows.append(compare_sums(f"k3b/{name}", gv, rv, tv))
-        del got, ref, zt, u1, h1, do, du1
+        del got, ref, terms
         times["k3f"] = (cuda_ms(k3f, reps=10), cuda_ms(k3f_p, reps=5))
         times["k3b"] = (cuda_ms(k3b, reps=10), cuda_ms(k3b_p, reps=5))
         torch.cuda.synchronize()
@@ -651,6 +732,8 @@ def phase_backward(dev) -> dict:
         if dtype == torch.bfloat16:
             summary["k2_train_width"] = dict(ms=times["k2"][0], single_launch_ms=single["k2"],
                                              bound_ms=work["k2"]["bound_ms"])
+            summary["k1_train_width"] = dict(ms=times["k1"][0], fma_variant_ms=times["k1_fma"][0],
+                                             bound_ms=work["k1"]["bound_ms"])
             for k in ("k2a_lite", "k2a", "k12b", "k3f", "k3b"):
                 mine = [r for r in rows if r["name"].startswith(k + "/")]
                 summary[k] = dict(
@@ -658,6 +741,8 @@ def phase_backward(dev) -> dict:
                     max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in mine),
                     ms=times[k][0], plain_ms=times[k][1], library_ms=None, **work[k])
+            summary["k12b"].update(fma_variant_ms=times["k12b_fma"][0],
+                                   single_launch_ms=single["k12b"])
             adj = [r for r in rows if r["name"].startswith("t_stage/")]
             pair = ("t_stage_et_adj", "t_stage_it_adj")
             summary["t_stage_adjoint"] = dict(
@@ -709,8 +794,10 @@ def phase_slice(dev) -> dict:
             raise AssertionError(f"{k} launched {launches[k]} times in a "
                                  f"{STEPS}-step rollout, expected {n * STEPS}")
     variants = expect_variants(
-        f"a {STEPS}-step rollout", k2={"mma": per_predict["k2"] * STEPS},
+        f"a {STEPS}-step rollout", k1={"mma": per_predict["k1"] * STEPS},
+        k2={"mma": per_predict["k2"] * STEPS},
         t_stage={"registers": per_predict["t_stage"] * STEPS})
+    VARIANTS_BY_PATH["rollout"] = variants
 
     want = (BATCH, STEPS * SHAPE_OUT[0], *SHAPE_OUT[1:])
     if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
@@ -756,6 +843,40 @@ def _grads(model):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
+def _fno_vs_plain(what, batch, loss, grads, ref_loss, ref_grads, model, ref_model) -> dict:
+    """An FNO step's loss, gradients and BatchNorm running statistics against
+    the plain f32 step's from the same weights (TRAIN_* limits); raises
+    naming what missed."""
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    cmp = dict(batch=batch, loss=loss.item(), ref_loss=ref_loss.item(),
+               loss_rel=loss_rel, limit_loss_rel=TRAIN_LOSS_REL, grad_rel_l2={},
+               limit_grad_rel_l2=TRAIN_GRAD_REL_L2, zero_grads={},
+               limit_zero_grad=TRAIN_ZERO_GRAD, stats_rel_l2={},
+               limit_stats_rel_l2=TRAIN_STATS_REL_L2)
+    bad = [] if loss_rel <= TRAIN_LOSS_REL else ["loss"]
+    for name, gr in ref_grads.items():
+        if name.startswith("convs.") and name.endswith(".bias"):
+            scale = ref_grads[name[:-4] + "weight"].abs().max().item()
+            worst = max(grads[name].abs().max().item(), gr.abs().max().item()) / scale
+            cmp["zero_grads"][name] = worst
+            bad += [] if worst <= TRAIN_ZERO_GRAD else [name]
+            continue
+        rel = _rel_l2(grads[name], gr)
+        cmp["grad_rel_l2"][name] = rel
+        bad += [] if rel <= TRAIN_GRAD_REL_L2 else [name]
+    ref_bufs = dict(ref_model.named_buffers())
+    for name, buf in model.named_buffers():
+        if "running" in name:
+            rel = _rel_l2(buf, ref_bufs[name])
+            cmp["stats_rel_l2"][name] = rel
+            bad += [] if rel <= TRAIN_STATS_REL_L2 else [name]
+    cmp["worst_grad_rel_l2"] = max(cmp["grad_rel_l2"].values())
+    cmp["worst_stats_rel_l2"] = max(cmp["stats_rel_l2"].values())
+    if bad:
+        raise AssertionError(f"{what}: {bad}: {cmp}")
+    return cmp
+
+
 def phase_train(dev) -> dict:
     """bench.py's training step through make_train_step; returns the launch
     counts of the counted step."""
@@ -781,8 +902,8 @@ def phase_train(dev) -> dict:
     if launches != TRAIN_LAUNCHES:
         raise AssertionError(f"one training step launched {launches}, "
                              f"expected {TRAIN_LAUNCHES}")
-    variants = expect_variants("one training step", k2={"mma": TRAIN_LAUNCHES["k2"]},
-                               t_stage={"registers": TRAIN_LAUNCHES["t_stage"]})
+    variants = expect_variants("one training step", **TRAIN_VARIANTS)
+    VARIANTS_BY_PATH["train"] = variants
     grads = _grads(model)
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"training loss {loss.item()} is not finite")
@@ -792,33 +913,8 @@ def phase_train(dev) -> dict:
     ref_loss = ref_model(x, y=y, reference=True)
     ref_loss.backward()
     ref_grads = _grads(ref_model)
-    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
-    cmp = dict(batch=TRAIN_BATCH, loss=loss.item(), ref_loss=ref_loss.item(),
-               loss_rel=loss_rel, limit_loss_rel=TRAIN_LOSS_REL, grad_rel_l2={},
-               limit_grad_rel_l2=TRAIN_GRAD_REL_L2, zero_grads={},
-               limit_zero_grad=TRAIN_ZERO_GRAD, stats_rel_l2={},
-               limit_stats_rel_l2=TRAIN_STATS_REL_L2)
-    bad = [] if loss_rel <= TRAIN_LOSS_REL else ["loss"]
-    for name, gr in ref_grads.items():
-        if name.startswith("convs.") and name.endswith(".bias"):
-            scale = ref_grads[name[:-4] + "weight"].abs().max().item()
-            worst = max(grads[name].abs().max().item(), gr.abs().max().item()) / scale
-            cmp["zero_grads"][name] = worst
-            bad += [] if worst <= TRAIN_ZERO_GRAD else [name]
-            continue
-        rel = _rel_l2(grads[name], gr)
-        cmp["grad_rel_l2"][name] = rel
-        bad += [] if rel <= TRAIN_GRAD_REL_L2 else [name]
-    ref_bufs = dict(ref_model.named_buffers())
-    for name, buf in model.named_buffers():
-        if "running" in name:
-            rel = _rel_l2(buf, ref_bufs[name])
-            cmp["stats_rel_l2"][name] = rel
-            bad += [] if rel <= TRAIN_STATS_REL_L2 else [name]
-    cmp["worst_grad_rel_l2"] = max(cmp["grad_rel_l2"].values())
-    cmp["worst_stats_rel_l2"] = max(cmp["stats_rel_l2"].values())
-    if bad:
-        raise AssertionError(f"bf16 kernel step vs f32 plain step: {bad}: {cmp}")
+    cmp = _fno_vs_plain("bf16 kernel step vs f32 plain step", TRAIN_BATCH, loss, grads,
+                        ref_loss, ref_grads, model, ref_model)
     ref_peak = torch.cuda.max_memory_allocated() / 1e9
     del ref_model, ref_loss, ref_grads
     torch.cuda.empty_cache()
@@ -1379,6 +1475,176 @@ def phase_gk_train(dev, norm) -> dict:
     return launches
 
 
+def phase_geometries(dev) -> None:
+    """Every FNO kernel against its twin at the other shipped geometries
+    (GEOMETRIES: combustion's width 64 and fsi's 128, modes 4/16/16), at
+    batch GEO_BATCH, in both dtypes, each in the variant its dtype chooses:
+    K1, the four T-stage maps, K2, K2A and (where the geometry has lite
+    statics) K2A-lite, K12B, K3F and K3B. Records which of K2A-lite and K2A
+    the geometry's backward takes."""
+    B = GEO_BATCH
+    BT = B * TP
+    T, H, W = SHAPE_IN[:3]
+    F = SHAPE_OUT[-1] * (SHAPE_OUT[0] // SHAPE_IN[0])
+    for name, Cg, (m1, m2, m3) in GEOMETRIES:
+        geo = dict(Hp=HP, Wp=WP, m2=m2, m3=m3)
+        cst = fl._ct_on(dev, HP, WP, m2, m3)
+        lite = fl._lite_on(dev, HP, WP, m2, m3)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(5)
+            rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
+            tol = KERNEL_TOL[dtype]
+            mm = "mma" if dtype == torch.bfloat16 else "fma"
+            x = rn(BT, HP * WP // 2, 2 * Cg).to(dtype)
+            a, b = 1 + 0.1 * rn(Cg), 0.1 * rn(Cg)
+            wp, bp = rn(Cg, Cg) / Cg ** 0.5, 0.1 * rn(Cg)
+            y = run_as("k1", mm, lambda: fl.k1(x, a, b, **geo, act="exact"))
+            rows = [compare("k1", y, fl.k1_plain(x, a, b, cst, Hp=HP, Wp=WP, act="exact"), tol)]
+            short = y[: B * 2 * m1].contiguous()
+            for kind, inp in (("et", y), ("it", short), ("it_adj", y), ("et_adj", short)):
+                got = run_as("t_stage", "registers", lambda: fl.t_stage(inp, kind, TP, m1))
+                rows.append(compare(f"t_stage/{kind}", got,
+                                    fl.t_stage_plain(inp, *fl._tmats_on(dev, kind, TP, m1)), tol))
+            gsp = rn(*y.shape).to(dtype)
+            s, st = run_as("k2", mm, lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact"))
+            s_ref, st_ref = fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP, act="exact")
+            sr = s_ref.float().view(-1, Cg)
+            rows += [compare("k2/s", s, s_ref, tol),
+                     compare_sums("k2/stats", st, st_ref,
+                                  torch.stack([sr.abs().sum(0), (sr * sr).sum(0)]))]
+            del s_ref, sr
+            npos = BT * HP * WP
+            ds, dy = (rn(*s.shape) / npos).to(dtype), (rn(*y.shape) / npos).to(dtype)
+            ds1, ds2 = rn(Cg) / npos, rn(Cg) / npos
+            full = fl.k2a(s, ds, ds1, ds2, **geo)
+            rows.append(compare("k2a/dg", full, fl.k2a_plain(s, ds, ds1, ds2, cst, Hp=HP, Wp=WP),
+                                tol))
+            if lite is not None:
+                lg = fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo)
+                rows += [compare("k2a_lite/dg", lg, fl.k2a_lite_plain(
+                             ds, gsp, y, ds1, ds2, wp, bp, lite, cst, Hp=HP, Wp=WP), tol),
+                         compare("k2a_lite/vs_k2a", lg, full, tol)]
+            got = run_as("k12b", mm, lambda: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo,
+                                                     act="exact"))
+            ref = fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=HP, Wp=WP, act="exact")
+            rows.append(compare("k12b/dx", got[0], ref[0], tol))
+            terms = k12b_terms(x, a, b, s, ds, ds1, ds2, ref[0])
+            for n, gv, rv, tv in zip(("dwp", "da", "db", "dbp"), got[1:], ref[1:], terms):
+                rows.append(compare_sums(f"k12b/{n}", gv, rv, tv))
+            kw = dict(dims=(B, TP, HP, WP, Cg), tail_dims=(T, H, W), act="exact")
+            tail = (rn(B, T, H, W, F), rn(Cg, 128) / Cg ** 0.5, 0.1 * rn(128),
+                    rn(128, F) / 128 ** 0.5, 0.1 * rn(F))
+            gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
+            sse_ref = ft.k3f_plain(s, *tail, **kw)
+            rows.append(compare_sums("k3f/sse", ft.k3f(s, *tail, **kw), sse_ref, sse_ref))
+            got, ref = ft.k3b(s, *tail, gl, **kw), ft.k3b_plain(s, *tail, gl, **kw)
+            rows.append(compare("k3b/ds", got[0], ref[0], tol))
+            terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
+            for n, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), got[1:], ref[1:], terms):
+                rows.append(compare_sums(f"k3b/{n}", gv, rv, tv))
+            torch.cuda.synchronize()
+            emit(dict(phase="geometry", name=name, dtype=str(dtype).replace("torch.", ""),
+                      shapes=dict(BT=BT, Hp=HP, Wp=WP, C=Cg, modes=[m1, m2, m3]),
+                      variant=mm, k2a_route="k2a_lite" if lite is not None else "k2a",
+                      worst_rel=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
+                                    for r in rows),
+                      checks=rows))
+            del x, y, s, st, st_ref, gsp, ds, dy, full, got, ref, terms
+            torch.cuda.empty_cache()
+
+
+def phase_fsi_train(dev, norm) -> dict:
+    """The fsi FNO's training step (FSI_MODEL at batch FSI_BATCH, Gaussian
+    normalizer) in float32, the config's dtype, and in bfloat16: one counted
+    step (exact launch and variant counts), the loss and every gradient at
+    FSI_CMP_BATCH against the plain f32 step from the same weights, two
+    forward-backward passes bit-equal, then FSI_WINDOWS windows of
+    FSI_WINDOW_STEPS steps: steps/s and peak memory. Returns the launches
+    of the two counted steps together."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(FSI_BATCH, *SHAPE_IN, generator=g, device=dev)
+    y = torch.randn(FSI_BATCH, *SHAPE_OUT, generator=g, device=dev)
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    total_variants = {k: dict.fromkeys(v, 0) for k, v in kernels.VARIANTS.items()}
+    for cdt in (None, "bfloat16"):
+        dtype = torch.bfloat16 if cdt else torch.float32
+        mm = "mma" if cdt else "fma"
+        model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=cdt, device=dev,
+                            generator=make_generator(1), **FSI_MODEL)
+        opt = build_optimizer(FSI_TRAIN_CFG, model.parameters())
+        step = make_train_step(model, norm, opt, grad_accum=1)
+        # the main path, counted: nothing but this step between reset and read
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if launches != TRAIN_LAUNCHES:
+            raise AssertionError(f"one fsi step ({dtype}) launched {launches}, "
+                                 f"expected {TRAIN_LAUNCHES}")
+        variants = expect_variants(f"one fsi step ({dtype})", k1={mm: 4},
+                                   t_stage={"registers": 16}, k2={mm: 4}, k12b={mm: 4})
+        first_peak = torch.cuda.max_memory_allocated() / 1e9
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError(f"fsi training loss {loss.item()} is not finite")
+        for k, n in launches.items():
+            total[k] += n
+        for k, counts in variants.items():
+            for v, n in counts.items():
+                total_variants[k][v] += n
+
+        # the comparison at FSI_CMP_BATCH, fresh weights from the same seed
+        cmp_model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=cdt, device=dev,
+                                generator=make_generator(1), **FSI_MODEL)
+        ref_model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), device=dev, **FSI_MODEL)
+        ref_model.load_state_dict(cmp_model.state_dict(), strict=True)
+        xn, yn = norm.preprocess(x[:FSI_CMP_BATCH], y[:FSI_CMP_BATCH])
+        closs = cmp_model.loss(xn, yn)
+        closs.backward()
+        ref_loss = ref_model(xn, y=yn, reference=True)
+        ref_loss.backward()
+        cmp = _fno_vs_plain(f"fsi {dtype} kernel step vs f32 plain step", FSI_CMP_BATCH,
+                            closs, _grads(cmp_model), ref_loss, _grads(ref_model),
+                            cmp_model, ref_model)
+        del ref_model, ref_loss
+        rep = []
+        for _ in range(2):
+            cmp_model.zero_grad()
+            rep.append(cmp_model.loss(xn, yn))
+            rep[-1].backward()
+            rep.append(_grads(cmp_model))
+        same = torch.equal(rep[0], rep[2]) and all(
+            torch.equal(rep[1][n], rep[3][n]) for n in rep[1])
+        if not same:
+            raise AssertionError(f"two identical fsi forward-backward passes differ ({dtype})")
+        del cmp_model, rep
+        torch.cuda.empty_cache()
+
+        step(x, y)   # warm-up
+        rates, losses = [], []
+        for _ in range(FSI_WINDOWS):
+            rate, last = _steps_per_s(step, x, y, FSI_WINDOW_STEPS)
+            rates.append(rate)
+            losses.append(last)
+        if not all(v == v and abs(v) < float("inf") for v in losses):
+            raise AssertionError(f"fsi training losses {losses} are not finite")
+        med = statistics.median(rates)
+        emit(dict(phase="fsi_train", dtype=str(dtype).replace("torch.", ""), batch=FSI_BATCH,
+                  model=FSI_MODEL, cfg=FSI_TRAIN_CFG, launches=launches, variants=variants,
+                  vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
+                  window_steps_per_s=rates, steps_per_s=med,
+                  frames_per_s=med * FSI_BATCH * SHAPE_OUT[0], losses=losses,
+                  peak_mem_first_step_gb=first_peak,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+        del model, opt, step, loss
+        torch.cuda.empty_cache()
+    VARIANTS_BY_PATH["fsi_train"] = total_variants
+    return total
+
+
 def phase_profile(step, x, y, phase: str = "profile") -> None:
     """torch.profiler over 3 calls of ``step(x, y)`` (training steps, or
     rollouts): device time by kernel against the host's wall time."""
@@ -1412,14 +1678,18 @@ def main() -> None:
     adjoint = summary.pop("t_stage_adjoint")
     summary["t_stage"].update({f"adjoint_{k}": adjoint[k] for k in (
         "ms", "plain_ms", "library_ms", "single_launch_ms", "bound_ms")})
-    train_width = summary.pop("k2_train_width")
-    summary["k2"].update({f"train_width_{k}": v for k, v in train_width.items()})
+    for k in ("k1", "k2"):
+        train_width = summary.pop(f"{k}_train_width")
+        summary[k].update({f"train_width_{n}": v for n, v in train_width.items()})
     for key in ("max_abs_err", "max_rel_err"):
         summary["t_stage"][key] = max(summary["t_stage"][key], adjoint[key])
+    phase_geometries(dev)
     summary.update(phase_ta(dev))
     by_path = {"rollout": phase_slice(dev), "train": phase_train(dev)}
     torch.cuda.empty_cache()
     norm = gaussian_normalizer()
+    by_path["fsi_train"] = phase_fsi_train(dev, norm)
+    torch.cuda.empty_cache()
     by_path["unet_rollout"] = phase_unet_rollout(dev, norm)
     torch.cuda.empty_cache()
     by_path["unet_train"] = phase_unet_train(dev, norm)
@@ -1431,7 +1701,9 @@ def main() -> None:
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=sum(p[k] for p in by_path.values()),
-             launches_by_path={n: p[k] for n, p in by_path.items()}, **summary[k])
+             launches_by_path={n: p[k] for n, p in by_path.items()},
+             variants_by_path={n: v[k] for n, v in VARIANTS_BY_PATH.items()}
+             if k in kernels.VARIANTS else None, **summary[k])
         for k in SOURCES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

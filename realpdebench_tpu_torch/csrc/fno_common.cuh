@@ -40,6 +40,28 @@ __device__ __forceinline__ float affine_act(float x, float a, float b,
   return u;
 }
 
+// erf by Abramowitz & Stegun 7.1.26, one branch-free path of a reciprocal, an
+// exp2 and five FMAs, |error| <= 3e-7 in f32: a third of erff's instructions,
+// which set the pace of the tensor-core variants (fno_k2.cu, fno_k1.cu,
+// fno_k12b.cu) once their products ran on the tensor cores.
+__device__ __forceinline__ float erf_fast(float x) {
+  const float t = fabsf(x);
+  const float r = __fdividef(1.f, fmaf(0.3275911f, t, 1.f));
+  float p = fmaf(1.061405429f, r, -1.453152027f);
+  p = fmaf(p, r, 1.421413741f);
+  p = fmaf(p, r, -0.284496736f);
+  p = fmaf(p, r, 0.254829592f);
+  return copysignf(fmaf(-p * r, exp2f(-1.4426950408889634f * t * t), 1.f), x);
+}
+
+// z = act(a*x + b) as fno::affine_act, the exact GELU through erf_fast (its
+// error is 1e-4 of a bf16 step of z).
+__device__ __forceinline__ float affine_act_fast(float x, float a, float b, int act) {
+  if (act != kActExact) return affine_act(x, a, b, act);
+  const float u = fmaf(a, x, b);
+  return 0.5f * u * (1.f + erf_fast(u * 0.70710678118654752f));
+}
+
 // GELU (or identity) of u; act is a kAct* code.
 __device__ __forceinline__ float act_fn(float u, int act) { return affine_act(u, 1.f, 0.f, act); }
 
@@ -55,6 +77,13 @@ __device__ __forceinline__ float act_grad(float u, int act) {
     return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * dinner;
   }
   return 1.0f;
+}
+
+// act_grad with the exact GELU's erf through erf_fast.
+__device__ __forceinline__ float act_grad_fast(float u, int act) {
+  if (act != kActExact) return act_grad(u, act);
+  const float phi = 0.39894228040143268f * exp2f(-0.72134752044448170f * u * u);
+  return 0.5f * (1.f + erf_fast(u * 0.70710678118654752f)) + u * phi;
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

@@ -61,7 +61,7 @@
 //        leaves as 16-byte stores of whole lines.
 //    Shared memory at C 64, m3 16, 2*m2 24, Wp 134: 111 KB, two blocks (18
 //    warps) an SM; 96 registers a thread (18 warps on four register files).
-//  * fma (f32 tensors; any C dividing 256, any m3): one block per (bt, kHT
+//  * fma (f32 tensors; C dividing 256 up to 128, any m3): one block per (bt, fma_rows
 //    rows of H); the block inverts H for its rows into shared memory, then
 //    for each row stages z[h] and lets thread (d, column group) produce kWQ
 //    output columns of channel d at once with exact f32 FMAs.
@@ -78,7 +78,9 @@
 
 namespace {
 
-constexpr int kHT = 5;         // H rows per block
+// H rows per block: their inverse-H rows sit in shared memory beside Wp and
+// a row of z, 2 at C 128 so that the block fits 227 KB
+__host__ __device__ constexpr int fma_rows(int C) { return C > 64 ? 2 : 5; }
 constexpr int kThreads = 256;  // threads per block; C must divide it
 constexpr int kWQ = 4;         // output columns per thread and pass
 
@@ -94,6 +96,7 @@ __global__ void __launch_bounds__(kThreads)
   float* swp = smem;                  // [C][C]
   float* siw_r = swp + C * C;         // [m3][Wp]
   float* siw_i = siw_r + m3 * Wp;
+  const int kHT = fma_rows(C);
   float* sih_r = siw_i + m3 * Wp;     // [kHT][m3][C]
   float* sih_i = sih_r + kHT * m3 * C;
   float* sz = sih_i + kHT * m3 * C;   // [Wp][C]
@@ -203,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int num_hblocks(int Hp) { return (Hp + kHT - 1) / kHT; }
+int num_hblocks(int Hp, int C) { return (Hp + fma_rows(C) - 1) / fma_rows(C); }
 
 template <typename T>
 cudaError_t launch_k2(const void* g, const void* x, const void* a, const void* b,
@@ -213,11 +216,11 @@ cudaError_t launch_k2(const void* g, const void* x, const void* a, const void* b
                       cudaStream_t stream) {
   if (C > kThreads || kThreads % C != 0) return cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) * ((size_t)C * C + 2 * (size_t)m3 * Wp + 2 * (size_t)kHT * m3 * C +
+      sizeof(float) * ((size_t)C * C + 2 * (size_t)m3 * Wp + 2 * (size_t)fma_rows(C) * m3 * C +
                        (size_t)Wp * C + 3 * (size_t)C + 2 * (size_t)kThreads);
   cudaError_t err = fno::allow_smem(k2_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BT, num_hblocks(Hp));
+  const dim3 grid(BT, num_hblocks(Hp, C));
   k2_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const float*>(wp),
@@ -228,7 +231,7 @@ cudaError_t launch_k2(const void* g, const void* x, const void* a, const void* b
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(stats),
-                              BT * num_hblocks(Hp), 2 * C, stream);
+                              BT * num_hblocks(Hp, C), 2 * C, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -251,7 +254,7 @@ struct MmaLayout {
 
 // H rows per block: (re | im) x rows fill at most one 16-row MMA tile, and
 // ih for them, hi and lo, has to fit beside Wp and the rings.
-__host__ __device__ constexpr int mma_rows(int C) { return C <= 32 ? 8 : C <= 64 ? 5 : 4; }
+__host__ __device__ constexpr int mma_rows(int C) { return C <= 32 ? 8 : C <= 64 ? 5 : 3; }
 
 inline MmaLayout mma_layout(int C, int m3, int m2x2, int warps) {
   MmaLayout L;
@@ -266,27 +269,6 @@ inline MmaLayout mma_layout(int C, int m3, int m2x2, int warps) {
   L.red = L.vec + 3 * C * 4;
   L.total = L.red + warps * 2 * C * 4;
   return L;
-}
-
-// erf by Abramowitz & Stegun 7.1.26, one branch-free path of a reciprocal, an
-// exp2 and five FMAs, |error| <= 3e-7 in f32: a third of erff's instructions,
-// which set this kernel's pace once its products ran on the tensor cores.
-__device__ __forceinline__ float erf_fast(float x) {
-  const float t = fabsf(x);
-  const float r = __fdividef(1.f, fmaf(0.3275911f, t, 1.f));
-  float p = fmaf(1.061405429f, r, -1.453152027f);
-  p = fmaf(p, r, 1.421413741f);
-  p = fmaf(p, r, -0.284496736f);
-  p = fmaf(p, r, 0.254829592f);
-  return copysignf(fmaf(-p * r, exp2f(-1.4426950408889634f * t * t), 1.f), x);
-}
-
-// z = act(a*x + b) as fno::affine_act, the exact GELU through erf_fast (its
-// error is 1e-4 of a bf16 step of z).
-__device__ __forceinline__ float affine_act_fast(float x, float a, float b, int act) {
-  if (act != fno::kActExact) return fno::affine_act(x, a, b, act);
-  const float u = fmaf(a, x, b);
-  return 0.5f * u * (1.f + erf_fast(u * 0.70710678118654752f));
 }
 
 // C channels, KI = m3/8 k-steps of the inverse-W part, at most MAXW warps
@@ -497,8 +479,8 @@ __global__ void __launch_bounds__(MAXW * 32, MINB)
       for (int r = 0; r < 4; ++r) {
         const float2 v = mma::unpack_bf16(zh[r]);
         const float2 av = r < 2 ? a0 : a8, bv = r < 2 ? b0 : b8;
-        const float z0 = affine_act_fast(v.x, av.x, bv.x, act);
-        const float z1 = affine_act_fast(v.y, av.y, bv.y, act);
+        const float z0 = fno::affine_act_fast(v.x, av.x, bv.x, act);
+        const float z1 = fno::affine_act_fast(v.y, av.y, bv.y, act);
         zh[r] = mma::pack_bf16(z0, z1);
         const float2 h = mma::unpack_bf16(zh[r]);
         zl[r] = mma::pack_bf16(z0 - h.x, z1 - h.y);
@@ -657,7 +639,7 @@ cudaError_t launch_k2_mma(const void* g, const void* x, const void* a, const voi
 
 // Number of [2, C] partials the caller allocates as K2's scratch.
 extern "C" int fno_k2_num_partials(int BT, int Hp, int C, int variant) {
-  return BT * (variant == 1 ? num_chunks(Hp, C) : num_hblocks(Hp));
+  return BT * (variant == 1 ? num_chunks(Hp, C) : num_hblocks(Hp, C));
 }
 
 // Bytes of shared memory a block of the mma variant takes.

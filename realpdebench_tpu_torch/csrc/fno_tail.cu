@@ -24,7 +24,8 @@
 // k1 value and a z value read from shared memory feed 8 and 4 FMAs; h1 and
 // then du share one [kP, H1] buffer. fc2 (F <= 8 outputs) is a short loop.
 // K3B keeps u1 in registers from the forward to du, and holds its dk1
-// share (32 entries a thread) in registers across the tiles. The fc1
+// share (32 entries a thread up to C 64, 64 up to C 128) in registers
+// across the tiles. The fc1
 // activation and the prediction never reach device memory. No atomics: each
 // block writes its partial sums, and fno::reduce_partials adds them in a
 // fixed order. Bound: fc1 and its two backward products are ~8.4 kFMA per
@@ -40,7 +41,7 @@ constexpr int kP = 64;       // positions per tile
 constexpr int kH1 = 128;     // fc1 width
 constexpr int kH1P = 132;    // padded row stride of the [kP, H1] buffer (bank spread)
 constexpr int kMaxF = 8;     // fc2 width bound
-constexpr int kMaxC = 64;    // channel bound (C % 8 == 0)
+constexpr int kMaxC = 128;   // channel bound (C % 8 == 0)
 
 struct TailDims {
   int T, H, W, Tp, Hp, Wp, C, F, act;
@@ -174,8 +175,11 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) partial[bT] = tot;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// CK: the dk1 rows a thread holds, cq + 8 ck for ck < CK (C <= 8 CK). Up
+// to C 64 two blocks share an SM (at most 128 registers a thread); left to
+// itself ptxas takes 177, one block an SM, and the kernel runs 1.4x longer.
+template <typename T, int CK>
+__global__ void __launch_bounds__(kThreads, CK <= 8 ? 2 : 1)
     k3b_kernel(const T* __restrict__ s, const float* __restrict__ target,
                const float* __restrict__ k1, const float* __restrict__ b1,
                const float* __restrict__ k2, const float* __restrict__ b2,
@@ -200,9 +204,9 @@ __global__ void __launch_bounds__(kThreads)
   load_weights(sm, k1, b1, k2, b2, C, F);
   const float g2 = 2.f * g[0];
   const int jq = tid % 32, pq = tid / 32;
-  float dk1[8][4];                                    // dk1[cq + 8 ck, jq + 32 jk]
+  float dk1[CK][4];                                   // dk1[cq + 8 ck, jq + 32 jk]
 #pragma unroll
-  for (int ck = 0; ck < 8; ++ck)
+  for (int ck = 0; ck < CK; ++ck)
 #pragma unroll
     for (int jk = 0; jk < 4; ++jk) dk1[ck][jk] = 0.f;
   float dk2[kMaxF * kH1 / kThreads];                  // dk2 entries tid + 256 k
@@ -300,7 +304,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jk = 0; jk < 4; ++jk) dv[jk] = sm.sh[p * kH1P + jq + 32 * jk];
 #pragma unroll
-      for (int ck = 0; ck < 8; ++ck) {
+      for (int ck = 0; ck < CK; ++ck) {
         if (cq + 8 * ck < C) {
           const float zv = sm.sz[p * C + cq + 8 * ck];
 #pragma unroll
@@ -317,7 +321,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int cq = tid / 32;
 #pragma unroll
-  for (int ck = 0; ck < 8; ++ck)
+  for (int ck = 0; ck < CK; ++ck)
     if (cq + 8 * ck < C)
 #pragma unroll
       for (int jk = 0; jk < 4; ++jk) pb[(cq + 8 * ck) * kH1 + jq + 32 * jk] = dk1[ck][jk];
@@ -355,19 +359,29 @@ cudaError_t launch_k3f(const void* s, const void* target, const void* k1, const 
                               B * d.T, 1, stream);
 }
 
-template <typename T>
-cudaError_t launch_k3b(const void* s, const void* target, const void* k1, const void* b1,
-                       const void* k2, const void* b2, const void* g, void* ds, void* partial,
-                       void* out, int B, const TailDims& d, cudaStream_t stream) {
+template <typename T, int CK>
+cudaError_t launch_k3b_as(const void* s, const void* target, const void* k1, const void* b1,
+                          const void* k2, const void* b2, const void* g, void* ds, void* partial,
+                          int B, const TailDims& d, cudaStream_t stream) {
   const size_t smem = smem_bytes(d.C);
-  cudaError_t err = fno::allow_smem(k3b_kernel<T>, smem);
+  cudaError_t err = fno::allow_smem(k3b_kernel<T, CK>, smem);
   if (err != cudaSuccess) return err;
-  k3b_kernel<T><<<B * d.Tp, kThreads, smem, stream>>>(
+  k3b_kernel<T, CK><<<B * d.Tp, kThreads, smem, stream>>>(
       static_cast<const T*>(s), static_cast<const float*>(target),
       static_cast<const float*>(k1), static_cast<const float*>(b1),
       static_cast<const float*>(k2), static_cast<const float*>(b2),
       static_cast<const float*>(g), static_cast<T*>(ds), static_cast<float*>(partial), d);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// dk1 in registers: 32 entries a thread up to C 64, 64 above.
+template <typename T>
+cudaError_t launch_k3b(const void* s, const void* target, const void* k1, const void* b1,
+                       const void* k2, const void* b2, const void* g, void* ds, void* partial,
+                       void* out, int B, const TailDims& d, cudaStream_t stream) {
+  cudaError_t err =
+      d.C <= 64 ? launch_k3b_as<T, 8>(s, target, k1, b1, k2, b2, g, ds, partial, B, d, stream)
+                : launch_k3b_as<T, 16>(s, target, k1, b1, k2, b2, g, ds, partial, B, d, stream);
   if (err != cudaSuccess) return err;
   return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(out),
                               B * d.Tp, d.C * kH1 + kH1 + kH1 * d.F + d.F, stream);

@@ -54,6 +54,15 @@ __device__ __forceinline__ void b_frag_row(int lane, int k0, int n0, int& k, int
   n = n0 + (lane >> 4) * 8;
 }
 
+// (k, m) of the row this lane names to ldmatrix_x4_trans for an A fragment
+// of the 16 x 16 block at (m0, k0) of a row-major [k][m] tile (the
+// transpose of the A operand is what is stored): matrix l/8 covers m0 +
+// 8*(l/8 % 2), k0 + 8*(l/16).
+__device__ __forceinline__ void at_frag_row(int lane, int k0, int m0, int& k, int& m) {
+  k = k0 + (lane >> 4) * 8 + (lane & 7);
+  m = m0 + ((lane >> 3) & 1) * 8;
+}
+
 // d += a (16x16 bf16) * b (16x8 bf16), f32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {

@@ -45,10 +45,17 @@ class _StatsNormalizer:
             if not k.startswith("mean"):
                 v = np.where(v == 0, 1.0, v).astype(np.float32)
             setattr(self, k, torch.from_numpy(v))
+        self._device_stats = {}
 
-    @staticmethod
-    def _on(v: torch.Tensor, like: torch.Tensor, c: int) -> torch.Tensor:
-        return v[..., :c].to(like.device)
+    def _on(self, key: str, like: torch.Tensor, c: int) -> torch.Tensor:
+        """The statistic ``key``'s first ``c`` channels on ``like``'s device.
+        Each statistic crosses to a device once and is cached there, so a
+        call makes no host-to-device copy (the JAX package holds them as
+        device constants of the jitted step)."""
+        v = self._device_stats.get((key, like.device))
+        if v is None:
+            v = self._device_stats[(key, like.device)] = getattr(self, key).to(like.device)
+        return v[..., :c]
 
 
 class GaussianNormalizer(_StatsNormalizer):
@@ -59,14 +66,14 @@ class GaussianNormalizer(_StatsNormalizer):
 
     def preprocess(self, x, y):
         c1, c2 = x.shape[-1], y.shape[-1]
-        x = (x - self._on(self.mean_inputs, x, c1)) / self._on(self.std_inputs, x, c1)
-        y = (y - self._on(self.mean_targets, y, c2)) / self._on(self.std_targets, y, c2)
+        x = (x - self._on("mean_inputs", x, c1)) / self._on("std_inputs", x, c1)
+        y = (y - self._on("mean_targets", y, c2)) / self._on("std_targets", y, c2)
         return x, y
 
     def postprocess(self, x, y):
         c1, c2 = x.shape[-1], y.shape[-1]
-        x = x * self._on(self.std_inputs, x, c1) + self._on(self.mean_inputs, x, c1)
-        y = y * self._on(self.std_targets, y, c2) + self._on(self.mean_targets, y, c2)
+        x = x * self._on("std_inputs", x, c1) + self._on("mean_inputs", x, c1)
+        y = y * self._on("std_targets", y, c2) + self._on("mean_targets", y, c2)
         return x, y
 
 
@@ -78,13 +85,13 @@ class RangeNormalizer(_StatsNormalizer):
 
     def preprocess(self, x, y):
         c1, c2 = x.shape[-1], y.shape[-1]
-        return (x / self._on(self.max_inputs, x, c1),
-                y / self._on(self.max_targets, y, c2))
+        return (x / self._on("max_inputs", x, c1),
+                y / self._on("max_targets", y, c2))
 
     def postprocess(self, x, y):
         c1, c2 = x.shape[-1], y.shape[-1]
-        return (x * self._on(self.max_inputs, x, c1),
-                y * self._on(self.max_targets, y, c2))
+        return (x * self._on("max_inputs", x, c1),
+                y * self._on("max_targets", y, c2))
 
 
 def build_normalizer(name: str, stats: dict | None = None,

@@ -5,7 +5,8 @@ is ``s = SpectralConv3d(z) + Conv1x1(z)`` with ``z = act(a*x + b)``, where
 (a, b, act) are the previous layer's folded BatchNorm and GELU; the stored
 tensor between layers is always the pre-BN ``s``. Forward:
 
-  K1       z, then the truncated forward DFT over W and H   (csrc/fno_k1.cu)
+  K1       z, then the truncated forward DFT over W and H   (csrc/fno_k1.cu;
+           bf16: on the tensor cores, csrc/mma.cuh)
   T-stage  forward DFT over T (Tp → 2·m1 modes)             (csrc/fno_tstage.cu)
   corner   4-corner complex channel mixing                  (torch.einsum)
   T-stage  inverse DFT over T (2·m1 → Tp)                   (csrc/fno_tstage.cu)
@@ -19,7 +20,8 @@ Backward (``fused_fno_layer`` is one autograd function):
   T-stage  adjoint of the inverse T (it_adj)                (csrc/fno_tstage.cu)
   corner   dx2, dwr, dwi                                    (torch.einsum)
   T-stage  adjoint of the forward T (et_adj)                (csrc/fno_tstage.cu)
-  K12B     dx through both consumers of z; dWp, da, db, dbp (csrc/fno_k12b.cu)
+  K12B     dx through both consumers of z; dWp, da, db, dbp (csrc/fno_k12b.cu;
+           bf16: on the tensor cores)
 
 Layouts (no TPU 8-row alignment; the packing is only a reshape):
   activations  [B·Tp, Hp·(Wp/2), 2C] = contiguous [B, Tp, Hp, Wp, C]
@@ -121,6 +123,29 @@ def _ct_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int) -> dict:
             for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
 
 
+def _h_table(re, im, rows: int):
+    """The A operand of a tensor-core H stage for blocks of ``rows`` rows of
+    H, from the rows' coefficients re, im [Hp, K]: [ceil(Hp/R), 16, Kpad]
+    f32, row r of a block gives the real part of row h = R·ch + r, row 8 + r
+    its imaginary part, K padded with zeros to a multiple of 16; rows r ≥ R
+    and rows of h ≥ Hp zero."""
+    Hp, K = re.shape
+    nch, kpad = -(-Hp // rows), -(-K // 16) * 16
+    ah = torch.zeros(nch * rows, 2, kpad)
+    ah[:Hp, 0, :K], ah[:Hp, 1, :K] = re, im
+    return torch.nn.functional.pad(ah.view(nch, rows, 2, kpad).transpose(1, 2),
+                                   (0, 0, 0, 8 - rows)).reshape(nch, 16, kpad)
+
+
+def _w_table(wr, wi):
+    """The A operand of a tensor-core W product, from wr, wi [Wp, m3]:
+    [ceil(Wp/16)·16, 2·m3] f32, row w = [wr[w] | wi[w]], rows ≥ Wp zero."""
+    Wp, m3 = wr.shape
+    w = torch.zeros(-(-Wp // 16) * 16, 2 * m3)
+    w[:Wp, :m3], w[:Wp, m3:] = wr, wi
+    return w
+
+
 def _k2_mma_tables(Hp: int, Wp: int, m2: int, m3: int, rows: int):
     """The DFT constants of K2's tensor-core variant in the layout its MMA
     A operands want, each as a bfloat16 (hi, lo) pair on axis 0
@@ -136,21 +161,70 @@ def _k2_mma_tables(Hp: int, Wp: int, m2: int, m3: int, rows: int):
           rows w ≥ Wp zero.
     """
     c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
-    m2x2 = 2 * m2
-    nch, kpad = -(-Hp // rows), -(-2 * m2x2 // 16) * 16
-    ah = torch.zeros(nch * rows, 2, kpad)
-    ah[:Hp, 0, :m2x2], ah[:Hp, 0, m2x2:2 * m2x2] = c["ihr"].t(), -c["ihi"].t()
-    ah[:Hp, 1, :m2x2], ah[:Hp, 1, m2x2:2 * m2x2] = c["ihi"].t(), c["ihr"].t()
-    ah = torch.nn.functional.pad(ah.view(nch, rows, 2, kpad).transpose(1, 2),
-                                 (0, 0, 0, 8 - rows)).reshape(nch, 16, kpad)
-    iw = torch.zeros(-(-Wp // 16) * 16, 2 * m3)
-    iw[:Wp, :m3], iw[:Wp, m3:] = c["iwr"].t(), c["iwi"].t()
+    ihr, ihi = c["ihr"].t(), c["ihi"].t()
+    ah = _h_table(torch.cat([ihr, -ihi], 1), torch.cat([ihi, ihr], 1), rows)
+    iw = _w_table(c["iwr"].t(), c["iwi"].t())
     return tuple(torch.stack(kernels.split_bf16(t)).contiguous() for t in (ah, iw))
+
+
+def _k12b_mma_tables(Hp: int, Wp: int, m2: int, m3: int, rows: int):
+    """The DFT constants of K12B's tensor-core variant, as bfloat16 (hi, lo)
+    pairs on axis 0, CPU tensors, in the layouts of ``_k2_mma_tables``:
+
+      ah [2, ceil(Hp/R), 16, Kpad]  the adjoint of K1's forward H DFT: row r
+          gives Re dX[h] = Σ_j dyR·ehr + dyI·ehi ([ehr[h] | ehi[h]]), row
+          8 + r gives Im dX[h] = Σ_j dyI·ehr − dyR·ehi ([−ehi[h] | ehr[h]]).
+      ew [2, ceil(Wp/16)·16, 2·m3]  the adjoint of K1's forward W DFT: row w
+          is [ewr[w] | ewi[w]].
+    """
+    c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
+    ehr, ehi = c["ehr"], c["ehi"]
+    ah = _h_table(torch.cat([ehr, ehi], 1), torch.cat([-ehi, ehr], 1), rows)
+    ew = _w_table(c["ewr"], c["ewi"])
+    return tuple(torch.stack(kernels.split_bf16(t)).contiguous() for t in (ah, ew))
 
 
 @lru_cache(maxsize=64)
 def _k2_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int, rows: int):
     return tuple(t.to(device) for t in _k2_mma_tables(Hp, Wp, m2, m3, rows))
+
+
+def _k1_mma_tables(Hp: int, Wp: int, m2: int, m3: int, dtype=torch.bfloat16):
+    """The DFT constants of K1's tensor-core variant in the layout of its
+    MMA A operands, bfloat16 (one rounding, as JAX's ``_dot`` rounds its
+    operands; ``dtype`` float32 keeps them unrounded), CPU tensors:
+
+      ew [2·m3, KW]  forward W, KW = Wp rounded up to 16: row m is
+          ewr[:, m], row m3 + m is ewi[:, m]; columns w ≥ Wp zero.
+      eh [ceil(Hp/8), R, 16]  forward H for a chunk of 8 rows h = 8·ch + r,
+          R = 2·(2m2) rounded up to 16: row j gives Re y_j from
+          k = (re | im, r) as [ehr[h, j] | −ehi[h, j]], row 2m2 + j gives
+          Im y_j as [ehi[h, j] | ehr[h, j]]; rows ≥ 2·(2m2) and rows of
+          h ≥ Hp zero.
+    """
+    c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
+    m2x2, rows = 2 * m2, kernels.K1_MMA_ROWS
+    ew = torch.zeros(2 * m3, -(-Wp // 16) * 16)
+    ew[:m3, :Wp], ew[m3:, :Wp] = c["ewr"].t(), c["ewi"].t()
+    nch = -(-Hp // rows)
+    ehr = torch.zeros(nch * rows, m2x2)
+    ehi = torch.zeros(nch * rows, m2x2)
+    ehr[:Hp], ehi[:Hp] = c["ehr"], c["ehi"]
+    ehr, ehi = (t.view(nch, rows, m2x2).transpose(1, 2) for t in (ehr, ehi))  # [nch, j, r]
+    eh = torch.zeros(nch, -(-2 * m2x2 // 16) * 16, 2 * rows)
+    eh[:, :m2x2, :rows], eh[:, :m2x2, rows:] = ehr, -ehi
+    eh[:, m2x2:2 * m2x2, :rows], eh[:, m2x2:2 * m2x2, rows:] = ehi, ehr
+    return ew.to(dtype).contiguous(), eh.to(dtype).contiguous()
+
+
+@lru_cache(maxsize=64)
+def _k1_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int):
+    return tuple(t.to(device) for t in _k1_mma_tables(Hp, Wp, m2, m3))
+
+
+@lru_cache(maxsize=64)
+def _k12b_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int, rows: int):
+    return tuple(t.to(device) for t in _k12b_mma_tables(Hp, Wp, m2, m3, rows))
 
 
 @lru_cache(maxsize=64)
@@ -294,11 +368,19 @@ def k1_plain(x, a, b, cst, *, Hp: int, Wp: int, act: str):
     return y.reshape(BT, -1, 2 * C).to(x.dtype)
 
 
-def k1(x, a, b, *, Hp: int, Wp: int, m2: int, m3: int, act: str):
+def k1(x, a, b, *, Hp: int, Wp: int, m2: int, m3: int, act: str,
+       variant=None):
+    """On the card, the variant ``kernels.k1_variant`` chooses from dtype,
+    shape and alignment (or the one named): the packed tables go with the
+    mma variant."""
     cst = _ct_on(x.device, Hp, Wp, m2, m3)
     if _use_kernel(x):
+        name = variant or kernels.k1_variant(x.dtype, x.shape[-1] // 2, 2 * m2, m3,
+                                             Wp, kernels.aligned(x))
+        tables = _k1_mma_on(x.device, Hp, Wp, m2, m3) if name == "mma" else None
         return kernels.k1(x, a, b, cst["ewr"], cst["ewi"], cst["ehr"],
-                          cst["ehi"], Hp=Hp, Wp=Wp, act=act)
+                          cst["ehi"], Hp=Hp, Wp=Wp, act=act, tables=tables,
+                          variant=variant)
     return k1_plain(x, a, b, cst, Hp=Hp, Wp=Wp, act=act)
 
 
@@ -380,7 +462,8 @@ def k2(g, x, a, b, wp, bp, *, Hp: int, Wp: int, m2: int, m3: int, act: str,
     cst = _ct_on(x.device, Hp, Wp, m2, m3)
     if _use_kernel(x):
         C = x.shape[-1] // 2
-        name = variant or kernels.k2_variant(x.dtype, C, m3, Wp, 2 * m2)
+        name = variant or kernels.k2_variant(x.dtype, C, m3, Wp, 2 * m2,
+                                             kernels.aligned(g, x, wp))
         tables = (_k2_mma_on(x.device, Hp, Wp, m2, m3, kernels.K2_MMA_ROWS[C])
                   if name == "mma" and C in kernels.K2_MMA_ROWS else None)
         return kernels.k2(g, x, a, b, wp, bp, cst["ihr"], cst["ihi"],
@@ -498,12 +581,20 @@ def k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, *, Hp: int, Wp: int,
 
 
 def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, *, Hp: int, Wp: int, m2: int,
-         m3: int, act: str):
+         m3: int, act: str, variant=None):
+    """On the card, the variant ``kernels.k12b_variant`` chooses from dtype,
+    shape and alignment (or the one named): the packed tables go with the
+    mma variant."""
     cst = _ct_on(x.device, Hp, Wp, m2, m3)
     if _use_kernel(x):
+        C = x.shape[-1] // 2
+        name = variant or kernels.k12b_variant(x.dtype, C, 2 * m2, m3, Wp,
+                                               kernels.aligned(x, s, ds, dy))
+        tables = (_k12b_mma_on(x.device, Hp, Wp, m2, m3, kernels.K12B_MMA_ROWS[C])
+                  if name == "mma" and C in kernels.K12B_MMA_ROWS else None)
         return kernels.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, cst["ehr"],
                             cst["ehi"], cst["ewr"], cst["ewi"], Hp=Hp, Wp=Wp,
-                            act=act)
+                            act=act, tables=tables, variant=variant)
     return k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=Hp, Wp=Wp,
                       act=act)
 

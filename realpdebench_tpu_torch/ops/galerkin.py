@@ -14,12 +14,17 @@ with the population variance and ``eps`` inside the square root; the
 products accumulate in float32 and the sum is scaled by 1/N, as the Pallas
 kernel's ``o_ref = acc / n_total``.
 
-``galerkin_scores`` is one autograd function. On a CUDA tensor its forward
-is ``kernels.gk_scores`` (csrc/galerkin_scores.cu); its backward recomputes
-the normalised rows and differentiates the plain twin, as the JAX
-``custom_vjp`` backward does in plain jnp (``galerkin.py:153-164``): the JAX
-package has no backward kernel here. On a CPU tensor it is the twin,
-differentiated by autograd. There is no fallback from one to the other, and
+``galerkin_scores`` is one autograd function. Its forward is
+``kernels.gk_scores`` (csrc/galerkin_scores.cu) on a CUDA tensor and the
+plain twin on a CPU tensor. Its backward, on either device, recomputes the
+scores in plain ops with the JAX ``custom_vjp`` backward's dtypes and
+differentiates them (``galerkin.py:153-164``; the JAX package has no
+backward kernel here): in bfloat16 the LayerNorm's mean and variance are
+taken in float32 and rounded to bfloat16, the centring, the rsqrt and the
+normalised rows stay in bfloat16, and the affine and the product run in
+float32, because the float32 scale promotes them (``_ln_as_jax``). In
+float32 the recompute is the twin itself. There is no fallback from one to
+the other, and
 the JAX package's opt-in switch ``REALPDEBENCH_GALERKIN`` is not carried
 over: on the card the kernel always runs. Any N is taken: the Pallas
 kernel's N % tile == 0 is a TPU constraint the CUDA kernel does not have.
@@ -51,13 +56,43 @@ def galerkin_scores_plain(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
     return torch.einsum("bnhd,bnhe->bhde", kn, vn) / N
 
 
+def _ln_as_jax(x, scale, bias, eps: float):
+    """JAX ``_ln`` (``ops/pallas/galerkin.py:30-33``) at its own rounding
+    points for an input x of any float dtype and f32 affine parameters:
+    mean and variance reduced in f32 and rounded to x's dtype, x − mean,
+    rsqrt(var + eps) (eps rounded to x's dtype) and their product in x's
+    dtype, then the f32 scale and bias."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True).to(x.dtype)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True).to(x.dtype)
+    eps = torch.tensor(eps, dtype=x.dtype).item()
+    return ((x - mean) * torch.rsqrt(var + eps)).float() * scale + bias
+
+
+def galerkin_scores_as_jax(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
+                           eps: float):
+    """The scores as the JAX backward recomputes them (``_scores_bwd``'s
+    ``fwd``): ``_ln_as_jax`` on k and v in their dtype, the product and 1/N
+    in f32. Autograd through it runs the backward in the same dtypes as
+    JAX's vjp. In f32 it is ``galerkin_scores_plain``."""
+    B, N, F = k.shape
+    split = lambda z: z.reshape(B, N, heads, F // heads)
+    kn = _ln_as_jax(split(k), k_scale.float(), k_bias.float(), eps)
+    vn = _ln_as_jax(split(v), v_scale.float(), v_bias.float(), eps)
+    return torch.einsum("bnhd,bnhe->bhde", kn, vn) / N
+
+
 class _GalerkinScores(torch.autograd.Function):
-    """Scores kernel; backward = autograd through the plain recompute."""
+    """Forward: the kernel (CUDA) or the twin (CPU); backward: autograd
+    through ``galerkin_scores_as_jax``, recomputed."""
 
     @staticmethod
     def forward(ctx, k, v, k_scale, k_bias, v_scale, v_bias, heads, eps):
         ctx.heads, ctx.eps = heads, eps
         ctx.save_for_backward(k, v, k_scale, k_bias, v_scale, v_bias)
+        if not _use_kernel(k):
+            return galerkin_scores_plain(k, v, k_scale, k_bias, v_scale, v_bias,
+                                         heads, eps)
         return kernels.gk_scores(k, v, *(t.float().contiguous() for t in (
             k_scale, k_bias, v_scale, v_bias)), heads=heads, eps=eps)
 
@@ -65,7 +100,7 @@ class _GalerkinScores(torch.autograd.Function):
     def backward(ctx, g):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = galerkin_scores_plain(*leaves, ctx.heads, ctx.eps)
+            out = galerkin_scores_as_jax(*leaves, ctx.heads, ctx.eps)
             grads = torch.autograd.grad(out, leaves, g)
         return (*grads, None, None)
 
@@ -85,8 +120,5 @@ def galerkin_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
     if k.dim() != 3 or k.shape != v.shape or k.shape[-1] % heads:
         raise ValueError(f"galerkin scores: k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} with {heads} heads")
-    if _use_kernel(k):
-        return _GalerkinScores.apply(k.contiguous(), v.contiguous(), k_scale,
-                                     k_bias, v_scale, v_bias, heads, eps)
-    return galerkin_scores_plain(k, v, k_scale, k_bias, v_scale, v_bias,
-                                 heads, eps)
+    return _GalerkinScores.apply(k.contiguous(), v.contiguous(), k_scale,
+                                 k_bias, v_scale, v_bias, heads, eps)

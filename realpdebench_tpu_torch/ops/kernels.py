@@ -3,9 +3,10 @@
 ``build()`` compiles every ``csrc/*.cu`` with nvcc for ``sm_90a`` (Hopper),
 one nvcc per source, all started together, and links the objects into one
 shared library with a plain C interface, at first use, into
-``build/kernels/`` at the repository root (git ignores it). The library's
-name carries a hash of the sources and flags, so an edited source is rebuilt
-and a stale library is never loaded. ``library()`` loads it with ctypes.
+``build_dir()``: ``build/kernels/`` at the repository root of a source
+checkout (git ignores it), a per-user cache directory for an installed
+copy. The library's name carries a hash of the sources and flags, so an
+edited source is rebuilt and a stale library is never loaded. ``library()`` loads it with ctypes.
 
 One wrapper per kernel (``k1``, ``t_stage``, ``k2``, ``k2a``, ``k2a_lite``,
 ``k12b``, ``k3f``, ``k3b``, ``ta_fwd``, ``ta_bwd``, ``gk_scores``): each checks its
@@ -13,12 +14,13 @@ tensors, allocates the outputs and scratch, launches on PyTorch's current
 stream (the kernels allocate nothing and do not synchronise), raises if the
 launch returned an error, and adds one to its entry in ``LAUNCHES``.
 
-The T-stage and K2 have two variants each, chosen from dtype and shape
-before the launch by the pure functions ``t_stage_variant`` and
-``k2_variant`` (``VARIANTS`` counts the launches of each): the T-stage's
-``registers`` (a thread produces every output of its column) or ``generic``;
-K2's ``mma`` (bf16, its three contractions on the tensor cores) or ``fma``
-(exact f32 arithmetic). A caller may name the variant; one that does not take
+K1, the T-stage, K2 and K12B have two variants each, chosen from dtype,
+shape and the 16-byte alignment of the data before the launch by the pure
+functions ``k1_variant``, ``t_stage_variant``, ``k2_variant`` and
+``k12b_variant`` (``VARIANTS`` counts the launches of each): the T-stage's
+``registers`` (a thread produces every output of its column) or
+``generic``; K1's, K2's and K12B's ``mma`` (bf16, their contractions on the
+tensor cores) or ``fma`` (exact f32 arithmetic). A caller may name the variant; one that does not take
 the input raises. No variant gives way to another after a failure.
 Nothing here runs at import: this module is imported on machines with no
 GPU and no nvcc, where only the plain twins in ``ops/fno_layer.py``,
@@ -42,7 +44,22 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+def build_dir(package: Path = CSRC.parent) -> Path:
+    """Where the library is built: ``build/kernels`` at the repository root
+    in a source checkout (the package beside a ``pyproject.toml``, a
+    directory git ignores); in an installed copy, a per-user cache
+    (``$XDG_CACHE_HOME``, else ``~/.cache``, then
+    ``realpdebench_tpu_torch/kernels``)."""
+    root = package.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / package.name / "kernels"
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,8 +69,9 @@ LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
             "k3f": 0, "k3b": 0, "ta_fwd": 0, "ta_bwd": 0, "gk_scores": 0}
 
 # Launches per variant of the kernels that have more than one; the keys'
-# order is the variant code of csrc/fno_tstage.cu and csrc/fno_k2.cu.
-VARIANTS = {"t_stage": {"generic": 0, "registers": 0}, "k2": {"fma": 0, "mma": 0}}
+# order is the variant code of the csrc/ entry point.
+VARIANTS = {"k1": {"fma": 0, "mma": 0}, "t_stage": {"generic": 0, "registers": 0},
+            "k2": {"fma": 0, "mma": 0}, "k12b": {"fma": 0, "mma": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
@@ -65,11 +83,14 @@ TSTAGE_MAX_REGISTERS, TSTAGE_VEC = 16, 4
 # a block by width (mma_rows), row padding in elements (kPad), warps
 # (kMaxWarps), and the shared memory a block may take on Hopper
 K2_MMA_WIDTHS, K2_MMA_M3 = (32, 64, 128), (8, 16)
-K2_MMA_ROWS = {32: 8, 64: 5, 128: 4}
+K2_MMA_ROWS = {32: 8, 64: 5, 128: 3}
 K2_MMA_PAD = 8
 K2_MMA_MAX_WARPS = {32: 16, 64: 16, 128: 9}
 K2_MMA_MAX_H_MODES = 32   # 2*m2: four k-steps of the inverse-H product (kMaxKH)
 MAX_SMEM_BYTES = 232448
+# csrc/fno_k1.cu, the mma variant: W modes, the channels a block takes, the
+# rows of H a chunk takes (one a warp), the widest W
+K1_MMA_M3, K1_MMA_SLICE, K1_MMA_ROWS, K1_MMA_MAX_WP = (8, 16), 16, 8, 256
 
 
 def reset_launches() -> None:
@@ -80,11 +101,19 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
-def t_stage_variant(dtype, C: int, Tin: int, Tout: int) -> str:
+def aligned(*tensors) -> bool:
+    """True when every tensor's data starts on a 16-byte boundary, as the
+    16-byte vector loads of the registers and mma variants need (a view at
+    an odd storage offset may not)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def t_stage_variant(dtype, C: int, Tin: int, Tout: int, aligned: bool = True) -> str:
     """'registers' where the shorter side of T fits the instantiated
-    register counts and the channels split into vectors, else 'generic'."""
+    register counts, the channels split into vectors and the input is
+    16-byte aligned, else 'generic'."""
     del dtype   # both variants take float32 and bfloat16
-    if min(Tin, Tout) <= TSTAGE_MAX_REGISTERS and C % TSTAGE_VEC == 0:
+    if min(Tin, Tout) <= TSTAGE_MAX_REGISTERS and C % TSTAGE_VEC == 0 and aligned:
         return "registers"
     return "generic"
 
@@ -102,14 +131,65 @@ def k2_mma_smem_bytes(Wp: int, C: int, m2x2: int, m3: int) -> int:
             + 3 * C * 4 + warps * 2 * C * 4)
 
 
-def k2_variant(dtype, C: int, m3: int, Wp: int = 16, m2x2: int = 2) -> str:
+def k2_variant(dtype, C: int, m3: int, Wp: int = 16, m2x2: int = 2,
+               aligned: bool = True) -> str:
     """'mma' for bfloat16 at an instantiated (C, m3) whose block fits (one
     warp per 16 columns of W, its tiles in shared memory, at most 32 H
-    modes), else 'fma'."""
-    if (dtype == torch.bfloat16 and C in K2_MMA_WIDTHS and m3 in K2_MMA_M3
+    modes) on 16-byte aligned g, x and wp, else 'fma'."""
+    if (dtype == torch.bfloat16 and aligned and C in K2_MMA_WIDTHS and m3 in K2_MMA_M3
             and m2x2 <= K2_MMA_MAX_H_MODES
             and -(-Wp // 16) <= K2_MMA_MAX_WARPS[C]
             and k2_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
+
+
+def k1_mma_smem_bytes(Wp: int, m3: int) -> int:
+    """Shared memory of a block of K1's mma variant (csrc/fno_k1.cu::
+    k1_mma_smem): the W factors, two X tiles, the warps' two-stage rings
+    over x, a and b."""
+    kw = -(-Wp // 16) * 16
+    return (2 * m3 * (kw + 8) * 2 + 2 * 16 * (m3 * K1_MMA_SLICE + 8) * 2
+            + K1_MMA_ROWS * 2 * kw * K1_MMA_SLICE * 2 + 2 * K1_MMA_SLICE * 4)
+
+
+def k1_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
+               aligned: bool = True) -> str:
+    """'mma' for bfloat16 with C a multiple of 16, an instantiated m3, at
+    most 32 H modes, Wp <= 256 and 16-byte aligned x, else 'fma'."""
+    if (dtype == torch.bfloat16 and aligned and C % K1_MMA_SLICE == 0
+            and m3 in K1_MMA_M3 and m2x2 <= 32 and Wp <= K1_MMA_MAX_WP
+            and k1_mma_smem_bytes(Wp, m3) <= MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
+
+
+# csrc/fno_k12b.cu, the mma variant: widths, W modes, H rows a dz block
+# takes by width (dz_rows), warps by width, the blocks of the dWp pass
+K12B_MMA_WIDTHS, K12B_MMA_M3 = (32, 64, 128), (8, 16)
+K12B_MMA_ROWS = {32: 8, 64: 5, 128: 4}
+K12B_MMA_MAX_WARPS = {32: 16, 64: 16, 128: 9}
+
+
+def k12b_mma_smem_bytes(Wp: int, C: int, m2x2: int, m3: int) -> int:
+    """Shared memory of a dz block of K12B's mma variant (csrc/fno_k12b.cu::
+    dz_layout): Wp^T hi and lo, dX of the block's rows hi and lo, the warps'
+    rings over dy, a/b/ds1/ds2, the warps' sums."""
+    warps = -(-Wp // 16)
+    row = (C + K2_MMA_PAD) * 2
+    return (2 * C * row + 2 * K12B_MMA_ROWS[C] * 2 * m3 * row
+            + warps * 2 * (2 * m2x2) * 16 * 2 + 4 * C * 4 + warps * 2 * C * 4)
+
+
+def k12b_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
+                 aligned: bool = True) -> str:
+    """'mma' for bfloat16 at an instantiated (C, m3) whose dz block fits
+    (one warp per 16 columns of W, at most 32 H modes) on 16-byte aligned x,
+    s, ds and dy, else 'fma'."""
+    if (dtype == torch.bfloat16 and aligned and C in K12B_MMA_WIDTHS
+            and m3 in K12B_MMA_M3 and m2x2 <= 32
+            and -(-Wp // 16) <= K12B_MMA_MAX_WARPS[C]
+            and k12b_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES):
         return "mma"
     return "fma"
 
@@ -189,43 +269,39 @@ def build() -> tuple[Path, float]:
     return out, time.perf_counter() - t0
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (argument types, result type) of each entry point of the library, in the
+# order of its C signature in csrc/ (the stream is the last pointer);
+# tests/test_torch_kernel_variants.py holds them against the sources
+SIGNATURES = {
+    "fno_k1": ([_P] * 10 + [_I] * 9 + [_P], _I),
+    "fno_k1_mma_smem_bytes": ([_I] * 2, _I),
+    "fno_tstage": ([_P] * 4 + [_I] * 7 + [_P], _I),
+    "fno_k2": ([_P] * 15 + [_I] * 9 + [_P], _I),
+    "fno_k2_num_partials": ([_I] * 4, _I),
+    "fno_k2_mma_smem_bytes": ([_I] * 4, _I),
+    "fno_k2a": ([_P] * 16 + [_I] * 8 + [_P], _I),
+    "fno_k12b": ([_P] * 18 + [_I] * 9 + [_P], _I),
+    "fno_k12b_partial_floats": ([_I] * 5, ctypes.c_longlong),
+    "fno_k12b_mma_smem_bytes": ([_I] * 4, _I),
+    "fno_k3f": ([_P] * 8 + [_I] * 12 + [_P], _I),
+    "fno_k3b": ([_P] * 10 + [_I] * 12 + [_P], _I),
+    "ta_fwd": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "ta_bwd_num_partials": ([_I] * 5, _I),
+    "ta_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "gk_scores_num_partials": ([_I] * 4, _I),
+    "gk_scores": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),
+    "fno_error_string": ([_I], ctypes.c_char_p),
+}
+
+
 @lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fno_k1.argtypes = [P] * 8 + [I] * 8 + [P]
-    lib.fno_k1.restype = I
-    lib.fno_tstage.argtypes = [P] * 4 + [I] * 7 + [P]
-    lib.fno_tstage.restype = I
-    lib.fno_k2.argtypes = [P] * 15 + [I] * 9 + [P]
-    lib.fno_k2.restype = I
-    lib.fno_k2_num_partials.argtypes = [I, I, I, I]
-    lib.fno_k2_num_partials.restype = I
-    lib.fno_k2_mma_smem_bytes.argtypes = [I] * 4
-    lib.fno_k2_mma_smem_bytes.restype = I
-    lib.fno_k2a.argtypes = [P] * 16 + [I] * 8 + [P]
-    lib.fno_k2a.restype = I
-    lib.fno_k12b.argtypes = [P] * 16 + [I] * 8 + [P]
-    lib.fno_k12b.restype = I
-    lib.fno_k12b_num_partials.argtypes = [I]
-    lib.fno_k12b_num_partials.restype = I
-    lib.fno_k3f.argtypes = [P] * 8 + [I] * 12 + [P]
-    lib.fno_k3f.restype = I
-    lib.fno_k3b.argtypes = [P] * 10 + [I] * 12 + [P]
-    lib.fno_k3b.restype = I
-    lib.ta_fwd.argtypes = [P] * 5 + [I] * 5 + [P]
-    lib.ta_fwd.restype = I
-    lib.ta_bwd_num_partials.argtypes = [I] * 5
-    lib.ta_bwd_num_partials.restype = I
-    lib.ta_bwd.argtypes = [P] * 10 + [I] * 5 + [P]
-    lib.ta_bwd.restype = I
-    lib.gk_scores_num_partials.argtypes = [I] * 4
-    lib.gk_scores_num_partials.restype = I
-    lib.gk_scores.argtypes = [P] * 8 + [I] * 4 + [ctypes.c_float, I, P]
-    lib.gk_scores.restype = I
-    lib.fno_error_string.argtypes = [I]
-    lib.fno_error_string.restype = ctypes.c_char_p
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -278,8 +354,12 @@ def _p(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def k1(x, a, b, ewr, ewi, ehr, ehi, *, Hp: int, Wp: int, act: str):
-    """x [BT, Hp*Wp/2, 2C] → y [BT, 2m2*m3, 2C]; see csrc/fno_k1.cu."""
+def k1(x, a, b, ewr, ewi, ehr, ehi, *, Hp: int, Wp: int, act: str,
+       tables=None, variant: str | None = None):
+    """x [BT, Hp*Wp/2, 2C] → y [BT, 2m2*m3, 2C]; see csrc/fno_k1.cu.
+    ``variant`` names one of VARIANTS['k1']; by default ``k1_variant``
+    chooses. The mma variant needs ``tables`` = (ew, eh), the packed bf16
+    DFT tables of ``ops/fno_layer._k1_mma_tables``."""
     dt = _io_dtype(x)
     dev, f32 = x.device, torch.float32
     BT, C = x.shape[0], x.shape[-1] // 2
@@ -289,10 +369,36 @@ def k1(x, a, b, ewr, ewi, ehr, ehi, *, Hp: int, Wp: int, act: str):
                     ("ewi", ewi, (Wp, m3)), ("ehr", ehr, (Hp, m2x2)),
                     ("ehi", ehi, (Hp, m2x2))):
         _check(n, t, dev, f32, s)
-    _check_k1_shape("k1", C, m2x2, m3)
+    chosen = k1_variant(x.dtype, C, m2x2, m3, Wp, aligned(x))
+    name = chosen if variant is None else variant
+    code = _variant_code("k1", name)
+    lib = library()
+    ew = eh = ctypes.c_void_p(None)
+    if name == "mma":
+        if chosen != "mma":
+            raise ValueError(
+                f"k1: the mma variant takes bfloat16, C a multiple of {K1_MMA_SLICE}, m3 in "
+                f"{K1_MMA_M3}, 2*m2 <= 32, Wp <= {K1_MMA_MAX_WP} and 16-byte aligned x; got "
+                f"{x.dtype}, C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={aligned(x)}")
+        if tables is None:
+            raise ValueError("k1: the mma variant needs the packed tables")
+        kw, nch = -(-Wp // 16) * 16, -(-Hp // K1_MMA_ROWS)
+        _check("ew", tables[0], dev, torch.bfloat16, (2 * m3, kw))
+        _check("eh", tables[1], dev, torch.bfloat16, (nch, -(-2 * m2x2 // 16) * 16, 16))
+        for n, t in (("ew", tables[0]), ("eh", tables[1])):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{n}: not 16-byte aligned")
+        if lib.fno_k1_mma_smem_bytes(Wp, m3) != k1_mma_smem_bytes(Wp, m3):
+            raise RuntimeError("k1: the shared-memory layouts of kernels.py and "
+                               "fno_k1.cu differ")
+        ew, eh = _p(tables[0]), _p(tables[1])
+    else:
+        _check_k1_shape("k1", C, m2x2, m3)
     y = torch.empty((BT, m2x2 * m3, 2 * C), dtype=x.dtype, device=dev)
-    _launch("k1", library().fno_k1, dev, _p(x), _p(a), _p(b), _p(ewr), _p(ewi),
-            _p(ehr), _p(ehi), _p(y), BT, Hp, Wp, C, m2x2, m3, ACT_CODES[act], dt)
+    _launch("k1", lib.fno_k1, dev, _p(x), _p(a), _p(b), _p(ewr), _p(ewi),
+            _p(ehr), _p(ehi), ew, eh, _p(y), BT, Hp, Wp, C, m2x2, m3,
+            ACT_CODES[act], code, dt)
+    VARIANTS["k1"][name] += 1
     return y
 
 
@@ -311,13 +417,14 @@ def t_stage(y, mr, mi, *, variant: str | None = None):
     _check("mr", mr, dev, torch.float32, (Tin, Tout))
     _check("mi", mi, dev, torch.float32, (Tin, Tout))
     B = BT // Tin
-    chosen = t_stage_variant(y.dtype, C2 // 2, Tin, Tout)
+    chosen = t_stage_variant(y.dtype, C2 // 2, Tin, Tout, aligned(y))
     name = chosen if variant is None else variant
     code = _variant_code("t_stage", name)
-    if name == "registers" and (chosen != name or y.data_ptr() % 16):
+    if name == "registers" and chosen != name:
         raise ValueError(f"t_stage: the registers variant takes min(Tin, Tout) <= "
                          f"{TSTAGE_MAX_REGISTERS}, C a multiple of {TSTAGE_VEC} and "
-                         f"16-byte aligned data; got Tin={Tin}, Tout={Tout}, C={C2 // 2}")
+                         f"16-byte aligned data; got Tin={Tin}, Tout={Tout}, C={C2 // 2}, "
+                         f"aligned={aligned(y)}")
     out = torch.empty((B * Tout, Y, C2), dtype=y.dtype, device=dev)
     _launch("t_stage", library().fno_tstage, dev, _p(y), _p(mr), _p(mi), _p(out),
             B, Tin, Tout, Y, C2 // 2, code, dt)
@@ -342,7 +449,7 @@ def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str,
                     ("ihi", ihi, (m2x2, Hp)), ("iwr", iwr, (m3, Wp)),
                     ("iwi", iwi, (m3, Wp))):
         _check(n, t, dev, f32, s)
-    chosen = k2_variant(x.dtype, C, m3, Wp, m2x2)
+    chosen = k2_variant(x.dtype, C, m3, Wp, m2x2, aligned(g, x, wp))
     name = chosen if variant is None else variant
     code = _variant_code("k2", name)
     lib = library()
@@ -353,23 +460,24 @@ def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str,
             raise ValueError(
                 f"k2: the mma variant takes bfloat16, C in {K2_MMA_WIDTHS}, m3 in "
                 f"{K2_MMA_M3}, 2*m2 <= {K2_MMA_MAX_H_MODES}, at most {K2_MMA_MAX_WARPS} warps "
-                f"of 16 columns of W and a block within {MAX_SMEM_BYTES} bytes of shared "
-                f"memory; got {x.dtype}, C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}")
+                f"of 16 columns of W, a block within {MAX_SMEM_BYTES} bytes of shared "
+                f"memory and 16-byte aligned g, x and wp; got {x.dtype}, C={C}, m3={m3}, "
+                f"2*m2={m2x2}, Wp={Wp}, aligned={aligned(g, x, wp)}")
         if tables is None:
             raise ValueError("k2: the mma variant needs the packed tables")
         nch = -(-Hp // K2_MMA_ROWS[C])
         kpad = -(-2 * m2x2 // 16) * 16
         _check("ah", tables[0], dev, torch.bfloat16, (2, nch, 16, kpad))
         _check("iw", tables[1], dev, torch.bfloat16, (2, -(-Wp // 16) * 16, 2 * m3))
-        for n, t in (("g", g), ("x", x), ("wp", wp), ("ah", tables[0]), ("iw", tables[1])):
+        for n, t in (("ah", tables[0]), ("iw", tables[1])):
             if t.data_ptr() % 16:
                 raise ValueError(f"{n}: not 16-byte aligned")
         if not _k2_layouts_agree(Wp, C, m2x2, m3):
             raise RuntimeError("k2: the shared-memory layouts of kernels.py and "
                                "fno_k2.cu differ")
         ah, iw = _p(tables[0]), _p(tables[1])
-    elif C > 256 or 256 % C:
-        raise ValueError(f"k2 takes C dividing 256; got C={C}")
+    elif C > 128 or 256 % C:
+        raise ValueError(f"k2 takes C dividing 256, up to 128; got C={C}")
     s = torch.empty_like(x)
     partial = torch.empty((lib.fno_k2_num_partials(BT, Hp, C, code), 2, C), dtype=f32,
                           device=dev)
@@ -441,9 +549,12 @@ def k2a_lite(ds, g, y, ds1, ds2, wp, bp, alpha, beta, D, A1, ihr, ihi, iwr,
 
 
 def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, ehr, ehi, ewr, ewi, *, Hp: int,
-         Wp: int, act: str):
+         Wp: int, act: str, tables=None, variant: str | None = None):
     """(x, s, ds like x; dy [BT, 2m2*m3, 2C]) → (dx like x, dWp [C, C],
-    da, db, dbp [C] f32); see csrc/fno_k12b.cu."""
+    da, db, dbp [C] f32); see csrc/fno_k12b.cu. ``variant`` names one of
+    VARIANTS['k12b']; by default ``k12b_variant`` chooses. The mma variant
+    needs ``tables`` = (ah, ew), the packed bf16 hi/lo DFT tables of
+    ``ops/fno_layer._k12b_mma_tables``."""
     dt = _io_dtype(x)
     dev, f32 = x.device, torch.float32
     BT, C = x.shape[0], x.shape[-1] // 2
@@ -456,20 +567,49 @@ def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, ehr, ehi, ewr, ewi, *, Hp: int,
                      ("ehi", ehi, (Hp, m2x2)), ("ewr", ewr, (Wp, m3)),
                      ("ewi", ewi, (Wp, m3))):
         _check(n, t, dev, f32, sh)
-    if C > 64 or 256 % C:
-        raise ValueError(f"k12b takes C <= 64 dividing 256; got C={C}")
+    chosen = k12b_variant(x.dtype, C, m2x2, m3, Wp, aligned(x, s, ds, dy))
+    name = chosen if variant is None else variant
+    code = _variant_code("k12b", name)
     lib = library()
+    ah = ew = ctypes.c_void_p(None)
+    if name == "mma":
+        if chosen != "mma":
+            raise ValueError(
+                f"k12b: the mma variant takes bfloat16, C in {K12B_MMA_WIDTHS}, m3 in "
+                f"{K12B_MMA_M3}, 2*m2 <= 32, at most {K12B_MMA_MAX_WARPS} warps of 16 "
+                f"columns of W, a block within {MAX_SMEM_BYTES} bytes of shared memory and "
+                f"16-byte aligned x, s, ds and dy; got {x.dtype}, C={C}, m3={m3}, "
+                f"2*m2={m2x2}, Wp={Wp}, aligned={aligned(x, s, ds, dy)}")
+        if tables is None:
+            raise ValueError("k12b: the mma variant needs the packed tables")
+        nch = -(-Hp // K12B_MMA_ROWS[C])
+        _check("ah", tables[0], dev, torch.bfloat16, (2, nch, 16, -(-2 * m2x2 // 16) * 16))
+        _check("ew", tables[1], dev, torch.bfloat16, (2, -(-Wp // 16) * 16, 2 * m3))
+        for n, t in (("ah", tables[0]), ("ew", tables[1])):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{n}: not 16-byte aligned")
+        if lib.fno_k12b_mma_smem_bytes(Wp, C, m2x2, m3) != k12b_mma_smem_bytes(
+                Wp, C, m2x2, m3):
+            raise RuntimeError("k12b: the shared-memory layouts of kernels.py and "
+                               "fno_k12b.cu differ")
+        ah, ew = _p(tables[0]), _p(tables[1])
+    elif C > 128 or 256 % C:
+        raise ValueError(f"k12b takes C <= 128 dividing 256; got C={C}")
     n = C * C + 3 * C
     dx = torch.empty_like(x)
-    partial = torch.empty((lib.fno_k12b_num_partials(BT), n), dtype=f32,
+    partial = torch.empty(lib.fno_k12b_partial_floats(BT, Hp, Wp, C, code), dtype=f32,
                           device=dev)
     out = torch.empty(n, dtype=f32, device=dev)
     _launch("k12b", lib.fno_k12b, dev, _p(x), _p(a), _p(b), _p(wp), _p(s),
             _p(ds), _p(ds1), _p(ds2), _p(dy), _p(ehr), _p(ehi), _p(ewr), _p(ewi),
-            _p(dx), _p(partial), _p(out), BT, Hp, Wp, C, m2x2, m3,
-            ACT_CODES[act], dt)
+            ah, ew, _p(dx), _p(partial), _p(out), BT, Hp, Wp, C, m2x2, m3,
+            ACT_CODES[act], code, dt)
+    VARIANTS["k12b"][name] += 1
     dwp = out[:C * C].view(C, C)
-    da, db, dbp = out[C * C:].view(3, C)
+    if name == "mma":   # (dWp, dbp, da, db)
+        dbp, da, db = out[C * C:].view(3, C)
+    else:               # (dWp, da, db, dbp)
+        da, db, dbp = out[C * C:].view(3, C)
     return dx, dwp, da, db, dbp
 
 
@@ -482,9 +622,9 @@ def _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims):
     for n, t, sh in (("target", target, (B, T, H, W, F)), ("k1", k1, (C, H1)),
                      ("b1", b1, (H1,)), ("k2", k2, (H1, F)), ("b2", b2, (F,))):
         _check(n, t, dev, f32, sh)
-    if H1 != 128 or F > 8 or C % 8 or C > 64:
+    if H1 != 128 or F > 8 or C % 8 or C > 128:
         raise ValueError(f"the tail kernels take fc1 width 128, F <= 8 and C "
-                         f"a multiple of 8 up to 64; got {H1}, {F}, {C}")
+                         f"a multiple of 8 up to 128; got {H1}, {F}, {C}")
     return (B, T, H, W, Tp, Hp, Wp, C, H1, F)
 
 

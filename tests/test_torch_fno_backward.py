@@ -274,3 +274,35 @@ def test_two_layers_with_folded_bn_match_jax():
     _close(tl.item(), float(jl))
     _close(ts2.detach().numpy(), js2)
     _close(tgx.numpy(), jgx)
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k12b_twin_matches_pallas_at_width_128(act):
+    """K12B's twin at the fsi config's width (C 128) against the Pallas
+    ``_k12b_kernel`` in interpret mode."""
+    C2, Hp2, Wp2, BT = 128, 7, 10, 2
+    r = np.random.default_rng(11)
+    f = lambda *s, scale=1.0, loc=0.0: (loc + scale * r.normal(size=s)).astype(np.float32)
+    d = dict(x=f(BT, Hp2 * Wp2 // 2, 2 * C2), a=f(C2, scale=0.1, loc=1.0),
+             b=f(C2, scale=0.1), wp=f(C2, C2, scale=0.1), s=f(BT, Hp2 * Wp2 // 2, 2 * C2),
+             ds=f(BT, Hp2 * Wp2 // 2, 2 * C2), ds1=f(C2), ds2=f(C2, scale=0.1),
+             dy=f(BT, 2 * M2 * M3, 2 * C2))
+    t = {k: _t(v) for k, v in d.items()}
+    geo = dict(Hp=Hp2, Wp=Wp2, m2=M2, m3=M3)
+    got = tfl.k12b(t["x"], t["a"], t["b"], t["wp"], t["s"], t["ds"], t["ds1"], t["ds2"],
+                   t["dy"], **geo, act=act)
+    cst = jfl._ct_consts(Hp2, Wp2, M2, M3)
+    eyeC, zC = np.eye(C2, dtype=np.float32), np.zeros((C2, C2), np.float32)
+    ones = np.ones((Hp2 * Wp2 // 2, 1), np.float32)
+    a2, b2 = jfl._pack_affine(jnp.asarray(d["a"])[None], jnp.asarray(d["b"])[None], C2)
+    *_, k12b = jfl._layer_calls(BT, Hp2, Wp2 // 2, 2 * C2, M2, M3, act, True, "float32")
+    dx, dwp2, dvec = k12b(
+        jnp.asarray(d["x"]), a2, b2, jfl._block_diag2(jnp.asarray(d["wp"])).T,
+        jnp.asarray(d["s"]), jnp.asarray(d["ds"]), _lanes(d["ds1"]), _lanes(d["ds2"]),
+        jnp.asarray(d["dy"]), cst["EhPT"], cst["E67T"], cst["E67twT"],
+        np.concatenate([eyeC, zC], axis=1), np.concatenate([zC, eyeC], axis=1), ones, ones)
+    dwp2, dvec = np.asarray(dwp2), np.asarray(dvec)
+    fold = lambda v: v[:C2] + v[C2:]
+    ref = (dx, dwp2[:C2, :C2] + dwp2[C2:, C2:], fold(dvec[1]), fold(dvec[2]), fold(dvec[0]))
+    for g, w in zip(got, ref):
+        _close(g.numpy(), w)

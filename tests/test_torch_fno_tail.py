@@ -143,3 +143,28 @@ def test_loss_is_the_mse_of_the_prediction():
     m = port_model(randomized_variables(jm, jnp.asarray(x.numpy()), 5)).eval()
     with torch.no_grad():
         _close(m.loss(x, y).item(), ((m.predict(x) - y) ** 2).mean().item())
+
+
+def test_module_loss_and_grads_match_jax_k3_at_width_128(monkeypatch):
+    """The same at the fsi config's width, 128 (the tail kernels' widest C):
+    the port's fused tail twins against JAX's module loss and gradients."""
+    monkeypatch.setenv("REALPDEBENCH_GELU", "exact")
+    kw = dict(KW, width=128, n_layers=1)
+    r = np.random.default_rng(6)
+    x = r.normal(size=(B, *SI)).astype(np.float32)
+    y = r.normal(size=(B, *SO)).astype(np.float32)
+    jm = JFNO3d(**kw, shape_in=SI, shape_out=SO, use_pallas=True, pallas_interpret=True)
+    v = randomized_variables(jm, jnp.asarray(x), 7)
+
+    def jloss(p):
+        return jm.apply({"params": p, "batch_stats": v["batch_stats"]},
+                        jnp.asarray(x), y=jnp.asarray(y), train=False)
+
+    jl, jg = jax.value_and_grad(jloss)(v["params"])
+    m = port_model(v, kw=kw).eval()
+    loss = m(torch.from_numpy(x), y=torch.from_numpy(y))
+    loss.backward()
+    _close(loss.item(), float(jl))
+    want = fno_state_dict(np_tree(jg), np_tree(v["batch_stats"]))
+    for name, p in m.named_parameters():
+        _close(p.grad.numpy(), want[name].numpy())

@@ -1,19 +1,23 @@
-"""The variants of the port's T-stage and K2 kernels, as far as the CPU shows.
+"""The variants of the port's K1, T-stage, K2 and K12B kernels, as far as
+the CPU shows.
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py,
-marker ``gpu``). Here: the host side of K2's tensor-core variant (the bf16
-hi + lo split of its constants, the packed tables' layout, and the variant's
-arithmetic replayed in plain PyTorch from those tables against the twin);
-the choice of variant as a pure function of dtype and shape, at the shipped
-FNO configs and at the odd shapes of the gpu tests; and the T-stage twin
-against the JAX ``t_stage`` (Pallas, interpret mode) at two more (Tp, m1),
-rtol 2e-4 with atol 2e-4·max|ref|, f32.
+marker ``gpu``). Here: the host side of the tensor-core variants (the bf16
+hi + lo split of the constants, the packed tables' layouts, and each
+variant's arithmetic replayed in plain PyTorch from those tables, with its
+rounding points, against the twin and, unrounded in f32, against the Pallas
+kernel in interpret mode, rtol 2e-4 with atol 2e-4·max|ref|); the choice of
+variant as a pure function of dtype, shape and alignment, at the shipped
+FNO configs, at the odd shapes of the gpu tests and at a view at an odd
+storage offset; and the T-stage twin against the JAX ``t_stage`` (Pallas,
+interpret mode) at two more (Tp, m1), f32.
 """
 
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import torch.nn.functional as F
 import pytest
 import torch
 import yaml
@@ -21,12 +25,13 @@ import yaml
 from realpdebench_tpu.ops.pallas import fno_layer as jfl
 from realpdebench_tpu_torch.ops import fno_layer as tfl
 from realpdebench_tpu_torch.ops import kernels
+from realpdebench_tpu_torch.ops.activations import gelu_grad
 
 CONFIGS = Path(jfl.__file__).resolve().parents[2] / "configs"
 GEOMETRIES = [  # (Hp, Wp, m2, m3, rows a block): the cylinder's, and two of the gpu tests'
     (70, 134, 12, 16, 5),
     (13, 22, 5, 8, 8),
-    (17, 38, 4, 16, 4),
+    (17, 38, 4, 16, 3),
 ]
 
 
@@ -156,16 +161,74 @@ def _fno_config(scenario):
 @pytest.mark.parametrize("scenario", sorted(p.parent.name for p in CONFIGS.glob("*/fno.yaml")))
 def test_shipped_configs_choose_the_redesigned_variants(scenario):
     """Every shipped FNO config (cylinder 4/12/16 at width 64, combustion
-    4/16/16, fsi at width 128, ...) runs K2 on the tensor cores and the
-    T-stage from registers under bf16 compute, and the exact-f32 K2 under
-    f32, at a 20-frame window padded to 26 and a grid up to 134 wide."""
+    4/16/16, fsi at width 128, ...) runs K1, K2 and K12B on the tensor cores
+    and the T-stage from registers under bf16 compute, and the exact-f32 K1,
+    K2 and K12B under f32, at a 20-frame window padded to 26 and a grid up
+    to 134 wide; K12B's fma variant takes every width in f32, fsi's 128
+    included."""
     C, m1, m2, m3 = _fno_config(scenario)
     for Wp in (70, 134):
         assert kernels.k2_variant(torch.bfloat16, C, m3, Wp, 2 * m2) == "mma"
         assert kernels.k2_variant(torch.float32, C, m3, Wp, 2 * m2) == "fma"
+        assert kernels.k1_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
+        assert kernels.k1_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
+        assert kernels.k12b_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
+        assert kernels.k12b_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
+        assert C <= 128 and 256 % C == 0      # K12B fma and the tail kernels
     for dtype in (torch.bfloat16, torch.float32):
         for tin, tout in ((26, 2 * m1), (2 * m1, 26)):
             assert kernels.t_stage_variant(dtype, C, tin, tout) == "registers"
+
+
+def test_a_view_at_an_odd_offset_chooses_the_unaligned_variants():
+    """A contiguous view that starts 2 bytes past a 16-byte boundary is not
+    aligned; every choice then falls to the variant with scalar loads."""
+    base = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
+    view = base[1:1 + 4 * 64].view(4, 64)
+    assert view.is_contiguous() and not kernels.aligned(view)
+    assert kernels.aligned(base) and not kernels.aligned(base, view)
+    ok = kernels.aligned(view)
+    assert kernels.k1_variant(torch.bfloat16, 64, 24, 16, 134, ok) == "fma"
+    assert kernels.k2_variant(torch.bfloat16, 64, 16, 134, 24, ok) == "fma"
+    assert kernels.k12b_variant(torch.bfloat16, 64, 24, 16, 134, ok) == "fma"
+    assert kernels.t_stage_variant(torch.bfloat16, 64, 26, 8, ok) == "generic"
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.bfloat16, 64, 24, 16, 134), "mma"),    # the cylinder
+    ((torch.bfloat16, 128, 32, 16, 134), "mma"),   # fsi
+    ((torch.bfloat16, 32, 10, 8, 22), "mma"),      # the gpu tests' small shapes
+    ((torch.bfloat16, 16, 6, 8, 12), "mma"),       # one 16-channel slice
+    ((torch.bfloat16, 8, 6, 4, 12), "fma"),        # C below a slice
+    ((torch.bfloat16, 40, 6, 8, 12), "fma"),       # C no multiple of 16
+    ((torch.bfloat16, 64, 24, 12, 134), "fma"),    # m3 not instantiated
+    ((torch.bfloat16, 64, 34, 16, 134), "fma"),    # more than 32 H modes
+    ((torch.bfloat16, 64, 24, 16, 258), "fma"),    # Wp past 256
+    ((torch.float32, 64, 24, 16, 134), "fma"),     # exact f32 arithmetic
+])
+def test_k1_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    assert kernels.k1_variant(*args) == want
+    if want == "mma":
+        assert kernels.k1_mma_smem_bytes(args[4], args[3]) <= kernels.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.bfloat16, 64, 24, 16, 134), "mma"),    # the cylinder: 9 warps
+    ((torch.bfloat16, 128, 32, 16, 134), "mma"),   # fsi: 9 warps, 187 KB
+    ((torch.bfloat16, 128, 32, 16, 146), "fma"),   # a 10th warp at C 128
+    ((torch.bfloat16, 64, 24, 16, 256), "mma"),    # 16 warps
+    ((torch.bfloat16, 64, 24, 16, 258), "fma"),    # a 17th warp
+    ((torch.bfloat16, 32, 10, 8, 22), "mma"),
+    ((torch.bfloat16, 16, 6, 8, 12), "fma"),       # C not instantiated
+    ((torch.bfloat16, 64, 24, 4, 134), "fma"),     # 2*m3 no multiple of 16
+    ((torch.bfloat16, 64, 34, 16, 134), "fma"),    # more than 32 H modes
+    ((torch.float32, 128, 32, 16, 134), "fma"),    # exact f32 arithmetic
+])
+def test_k12b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    assert kernels.k12b_variant(*args) == want
+    if want == "mma":
+        dtype, C, m2x2, m3, Wp = args
+        assert kernels.k12b_mma_smem_bytes(Wp, C, m2x2, m3) <= kernels.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("args, want", [
@@ -177,7 +240,7 @@ def test_shipped_configs_choose_the_redesigned_variants(scenario):
     ((torch.float32, 64, 16, 134, 24), "fma"),     # exact f32 arithmetic
     ((torch.bfloat16, 64, 16, 256, 24), "mma"),    # 16 warps
     ((torch.bfloat16, 64, 16, 258, 24), "fma"),    # a 17th warp
-    ((torch.bfloat16, 128, 16, 134, 32), "mma"),   # fsi's width: 9 warps, 223 KB
+    ((torch.bfloat16, 128, 16, 134, 32), "mma"),   # fsi's width: 9 warps, 206 KB
     ((torch.bfloat16, 128, 16, 146, 32), "fma"),   # a 10th warp at C 128
     ((torch.bfloat16, 64, 16, 134, 34), "fma"),    # more than 32 H modes
 ])
@@ -205,8 +268,9 @@ def test_variant_counters_start_at_zero_and_reset():
     kernels.VARIANTS["k2"]["mma"] += 3
     kernels.LAUNCHES["k2"] += 3
     kernels.reset_launches()
-    assert kernels.VARIANTS == {"t_stage": {"generic": 0, "registers": 0},
-                                "k2": {"fma": 0, "mma": 0}}
+    assert kernels.VARIANTS == {"k1": {"fma": 0, "mma": 0},
+                                "t_stage": {"generic": 0, "registers": 0},
+                                "k2": {"fma": 0, "mma": 0}, "k12b": {"fma": 0, "mma": 0}}
     assert not any(kernels.LAUNCHES.values())
 
 
@@ -223,3 +287,253 @@ def test_t_stage_twin_matches_pallas_t_stage_at_other_lengths(Tp, m1, kind):
     got = tfl.t_stage(torch.from_numpy(y), kind, Tp, m1).numpy()
     assert got.shape == ref.shape == (B * (2 * m1 if kind == "et" else Tp), Y, 2 * C)
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4 * float(np.abs(ref).max()))
+
+
+# --------------------------------------------------------------------------
+# K1 and K12B's tensor-core variants, replayed from their packed tables
+# --------------------------------------------------------------------------
+
+K1_GEOMETRIES = [  # (Hp, Wp, m2, m3): two of the gpu tests', the cylinder's, fsi's
+    (13, 22, 5, 8),
+    (17, 38, 4, 16),
+    (70, 134, 12, 16),
+    (70, 134, 16, 16),
+]
+
+
+def _replay_k1_mma(x, a, b, tables, *, Hp, Wp, m2, m3, act, rounding=True):
+    """K1's tensor-core variant in plain PyTorch from the packed tables: z
+    (rounded to bf16) through the W product with EW, X (rounded to bf16)
+    into [16, m3·16] tiles of 8 rows, the H fold with EH chunk by chunk,
+    accumulated in f64; y rounded to bf16. ``rounding=False``: the same
+    products on unrounded operands (the tables in f32)."""
+    BT, C = x.shape[0], x.shape[-1] // 2
+    rnd = (lambda t: t.to(torch.bfloat16).double()) if rounding else (lambda t: t)
+    ew, eh = (t.double() for t in tables)
+    z = rnd(tfl._act(x.double().view(BT, Hp, Wp, C) * a.double() + b.double(), act))
+    z = F.pad(z, (0, 0, 0, ew.shape[1] - Wp))              # rows past Wp meet zero columns
+    X = rnd(torch.einsum("rw,bhwc->bhrc", ew, z))          # rows r = (re | im, m)
+    nch = eh.shape[0]
+    X = F.pad(X, (0, 0, 0, 0, 0, nch * 8 - Hp))            # [BT, nch*8, 2*m3, C]
+    X = X.view(BT, nch, 8, 2, m3, C).transpose(2, 3).reshape(BT, nch, 16, m3, C)
+    Y = torch.einsum("nRk,bnkmc->bRmc", eh, X)[:, :4 * m2]  # rows (re | im, j)
+    y = Y.view(BT, 2, 2 * m2, m3, C).permute(0, 2, 3, 1, 4).reshape(BT, -1, 2 * C)
+    return y.to(torch.bfloat16) if rounding else y.float()
+
+
+def test_k1_tables_hold_the_dft_tables():
+    Hp, Wp, m2, m3 = 13, 22, 5, 8
+    c = tfl._ct_consts(Hp, Wp, m2, m3)
+    ew, eh = (t.numpy() for t in tfl._k1_mma_tables(Hp, Wp, m2, m3, torch.float32))
+    assert ew.shape == (2 * m3, 32) and eh.shape == (2, 32, 16)
+    np.testing.assert_array_equal(ew[:m3, :Wp], c["ewr"].T)
+    np.testing.assert_array_equal(ew[m3:, :Wp], c["ewi"].T)
+    assert not ew[:, Wp:].any()
+    for h in range(16):
+        ch, r = divmod(h, 8)
+        e = eh[ch]
+        want = (c["ehr"][h], c["ehi"][h]) if h < Hp else (np.zeros(2 * m2),) * 2
+        np.testing.assert_array_equal(e[:2 * m2, r], want[0])
+        np.testing.assert_array_equal(e[:2 * m2, 8 + r], -want[1])
+        np.testing.assert_array_equal(e[2 * m2:4 * m2, r], want[1])
+        np.testing.assert_array_equal(e[2 * m2:4 * m2, 8 + r], want[0])
+    assert not eh[:, 4 * m2:].any()
+    bf = tfl._k1_mma_tables(Hp, Wp, m2, m3)
+    assert all(t.dtype == torch.bfloat16 for t in bf)
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+@pytest.mark.parametrize("geo", K1_GEOMETRIES)
+def test_k1_mma_replay_matches_twin(geo, act):
+    """The replay, with the variant's bf16 roundings (z, the tables, X, y),
+    within 1e-2·max|ref| of the twin, the bound the kernel is held to on the
+    card; unrounded, within 2e-4 of it."""
+    Hp, Wp, m2, m3 = geo
+    BT, C = 2, 16
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.normal(size=(BT, Hp * Wp // 2, 2 * C)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    a = torch.from_numpy((1 + 0.1 * r.normal(size=C)).astype(np.float32))
+    b = torch.from_numpy((0.1 * r.normal(size=C)).astype(np.float32))
+    kw = dict(Hp=Hp, Wp=Wp, act=act)
+    ref = tfl.k1_plain(x.float(), a, b, tfl._ct_on(torch.device("cpu"), *geo), **kw)
+    got = _replay_k1_mma(x, a, b, tfl._k1_mma_tables(*geo), m2=m2, m3=m3, **kw)
+    assert got.shape == ref.shape
+    assert (got.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
+    exact = _replay_k1_mma(x, a, b, tfl._k1_mma_tables(*geo, torch.float32), m2=m2, m3=m3,
+                           rounding=False, **kw)
+    assert (exact - ref).abs().max() <= 2e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k1_mma_replay_matches_pallas_k1(act):
+    """Unrounded, the replay's factorisation against the Pallas ``_k1_kernel``
+    in interpret mode (f32, the dims of tests/test_pallas_fno_layer.py)."""
+    B, Tp, Hp, Wp, C, m2, m3 = 2, 6, 10, 12, 8, 3, 4
+    r = np.random.default_rng(8)
+    x = r.normal(size=(B * Tp, Hp * Wp // 2, 2 * C)).astype(np.float32)
+    a = (1 + 0.1 * r.normal(size=C)).astype(np.float32)
+    b = (0.1 * r.normal(size=C)).astype(np.float32)
+    cst = jfl._ct_consts(Hp, Wp, m2, m3)
+    a2, b2 = jfl._pack_affine(jnp.asarray(a)[None], jnp.asarray(b)[None], C)
+    k1, *_ = jfl._layer_calls(B * Tp, Hp, Wp // 2, 2 * C, m2, m3, act, True, "float32")
+    ref = np.asarray(k1(jnp.asarray(x), a2, b2, cst["E67X"], cst["EhP"],
+                        np.ones((Hp * Wp // 2, 1), np.float32)))
+    got = _replay_k1_mma(torch.from_numpy(x), torch.from_numpy(a), torch.from_numpy(b),
+                         tfl._k1_mma_tables(Hp, Wp, m2, m3, torch.float32), Hp=Hp, Wp=Wp,
+                         m2=m2, m3=m3, act=act, rounding=False)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4 * float(np.abs(ref).max()))
+
+
+def _split(t):
+    return (u.double() for u in kernels.split_bf16(t))
+
+
+def _replay_k12b_mma(x, a, b, wp, s, ds, ds1, ds2, dy, tables, *, Hp, Wp, m2, m3, rows,
+                     act):
+    """K12B's tensor-core variant in plain PyTorch from the packed tables:
+    the same products on the same operands (bf16 hi + lo tables; dX, ds_eff,
+    z and Wp split in two, the lo·lo terms dropped), accumulated in f64.
+    Returns (dx unrounded, dWp, da, db, dbp)."""
+    BT, C = x.shape[0], x.shape[-1] // 2
+    ah, ew = (t.double() for t in tables)
+    dy5 = dy.double().view(BT, 2 * m2, m3, 2, C)
+    G = torch.cat([dy5[:, :, :, 0], dy5[:, :, :, 1]], dim=1)       # [BT, (p', j), m3, C]
+    dX = torch.einsum("nrk,bkmc->bnrmc", ah.sum(0)[..., :4 * m2], G)
+    dX = dX.view(BT, -1, 2, 8, m3, C)[:, :, :, :rows].transpose(2, 3)
+    dX = dX.reshape(BT, -1, 2 * m3, C)[:, :Hp]                     # [BT, Hp, (part, m), C]
+    dXh, dXl = _split(dX)
+    dz = (torch.einsum("wk,bhkc->bhwc", ew.sum(0)[:Wp], dXh)
+          + torch.einsum("wk,bhkc->bhwc", ew[0, :Wp], dXl))
+    v = lambda t: t.float().view(BT, Hp, Wp, C)
+    dse = v(ds) + ds1 + 2.0 * ds2 * v(s)                           # f32, as the kernel
+    dh, dl = _split(dse)
+    th, tl = _split(wp.t())
+    dz = dz + dh @ th + dl @ th + dh @ tl
+    x4 = x.double().view(BT, Hp, Wp, C)
+    u = x4 * a.double() + b.double()
+    du = dz * (torch.ones_like(u) if act == "none" else gelu_grad(u, act))
+    z = tfl._act(v(x) * a + b, act)
+    zh, zl = _split(z)
+    e = lambda p, q: torch.einsum("bhwc,bhwd->cd", p, q)
+    dims = (0, 1, 2)
+    return (du * a.double(), e(zh, dh) + e(zl, dh) + e(zh, dl), (du * x4).sum(dims),
+            du.sum(dims), dse.double().sum(dims))
+
+
+def _k12b_inputs(Hp, Wp, m2, m3, BT, C, seed=9):
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0, loc=0.0: torch.from_numpy(
+        (loc + scale * r.normal(size=s)).astype(np.float32))
+    return dict(x=f(BT, Hp * Wp // 2, 2 * C), a=f(C, scale=0.1, loc=1.0), b=f(C, scale=0.1),
+                wp=f(C, C, scale=0.3), s=f(BT, Hp * Wp // 2, 2 * C),
+                ds=f(BT, Hp * Wp // 2, 2 * C), ds1=f(C), ds2=f(C, scale=0.1),
+                dy=f(BT, 2 * m2 * m3, 2 * C))
+
+
+def _k12b_f64_body(d, c, Hp, Wp, m2, m3, act):
+    """k12b_plain's arithmetic in f64, and the sums of |terms| of its four
+    accumulators."""
+    BT, C = d["x"].shape[0], d["x"].shape[-1] // 2
+    v = lambda t: t.view(BT, Hp, Wp, C)
+    x4 = v(d["x"])
+    u = x4 * d["a"] + d["b"]
+    dse = v(d["ds"]) + d["ds1"] + 2.0 * d["ds2"] * v(d["s"])
+    dy5 = d["dy"].view(BT, 2 * m2, m3, 2, C)
+    dyR, dyI = dy5[..., 0, :], dy5[..., 1, :]
+    e = lambda t, M: torch.einsum("bjmc,hj->bhmc", t, M)
+    dXr = e(dyR, c["ehr"]) + e(dyI, c["ehi"])
+    dXi = e(dyI, c["ehr"]) - e(dyR, c["ehi"])
+    dz = (torch.einsum("bhmc,wm->bhwc", dXr, c["ewr"])
+          + torch.einsum("bhmc,wm->bhwc", dXi, c["ewi"]) + dse @ d["wp"].t())
+    du = dz * (torch.ones_like(u) if act == "none" else gelu_grad(u, act))
+    z = tfl._act(u, act)
+    dims = (0, 1, 2)
+    terms = (torch.einsum("bhwc,bhwd->cd", z.abs(), dse.abs()), (du * x4).abs().sum(dims),
+             du.abs().sum(dims), dse.abs().sum(dims))
+    return (du * d["a"], torch.einsum("bhwc,bhwd->cd", z, dse), (du * x4).sum(dims),
+            du.sum(dims), dse.sum(dims)), terms
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+@pytest.mark.parametrize("geo", [(13, 22, 5, 8, 32), (17, 38, 4, 16, 64),
+                                 (9, 20, 3, 16, 128)])
+def test_k12b_mma_replay_matches_twin(geo, act):
+    """The replay within 1e-4·max|ref| of dx and within 1e-5 of the sum of
+    |terms| per entry of dWp, da, db and dbp, ten times inside the bounds the
+    kernel is held to on the card: every operand of every product carries 16
+    bits. The bf16 inputs lie on the bf16 grid on both sides."""
+    Hp, Wp, m2, m3, C = geo
+    d = {k: t.to(torch.bfloat16).float() if t.dim() > 1 and k != "wp" else t
+         for k, t in _k12b_inputs(Hp, Wp, m2, m3, 3, C).items()}
+    want, terms = _k12b_f64_body({k: t.double() for k, t in d.items()},
+                                 {k: torch.from_numpy(v).double() for k, v in
+                                  tfl._ct_consts(Hp, Wp, m2, m3).items()}, Hp, Wp, m2, m3, act)
+    got = _replay_k12b_mma(*(d[k] for k in ("x", "a", "b", "wp", "s", "ds", "ds1", "ds2",
+                                            "dy")),
+                           tfl._k12b_mma_tables(Hp, Wp, m2, m3, kernels.K12B_MMA_ROWS[C]),
+                           Hp=Hp, Wp=Wp, m2=m2, m3=m3, rows=kernels.K12B_MMA_ROWS[C], act=act)
+    dx = got[0].reshape(want[0].shape)
+    assert (dx - want[0]).abs().max() <= 1e-4 * want[0].abs().max()
+    for name, g, w, t in zip(("dwp", "da", "db", "dbp"), got[1:], want[1:], terms):
+        assert ((g - w).abs() / t.clamp_min(1e-30)).max() <= 1e-5, name
+    twin = tfl.k12b(*(d[k] for k in ("x", "a", "b", "wp", "s", "ds", "ds1", "ds2", "dy")),
+                    Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    assert (twin[0].double().view(dx.shape) - want[0]).abs().max() <= 1e-5 * want[0].abs().max()
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k12b_mma_replay_matches_pallas_k12b(act):
+    """The replay against the Pallas ``_k12b_kernel`` in interpret mode (f32,
+    the dims of tests/test_pallas_fno_layer.py), rtol 2e-4."""
+    B, Tp, Hp, Wp, C, m2, m3 = 2, 6, 10, 12, 8, 3, 4
+    d = _k12b_inputs(Hp, Wp, m2, m3, B * Tp, C, seed=10)
+    n = lambda k: np.asarray(d[k].numpy())
+    lanes = lambda v: jnp.asarray(np.concatenate([v, v])[None])
+    cst = jfl._ct_consts(Hp, Wp, m2, m3)
+    eyeC, zC = np.eye(C, dtype=np.float32), np.zeros((C, C), np.float32)
+    ones = np.ones((Hp * Wp // 2, 1), np.float32)
+    a2, b2 = jfl._pack_affine(jnp.asarray(n("a"))[None], jnp.asarray(n("b"))[None], C)
+    *_, k12b = jfl._layer_calls(B * Tp, Hp, Wp // 2, 2 * C, m2, m3, act, True, "float32")
+    dx, dwp2, dvec = k12b(
+        jnp.asarray(n("x")), a2, b2, jfl._block_diag2(jnp.asarray(n("wp"))).T,
+        jnp.asarray(n("s")), jnp.asarray(n("ds")), lanes(n("ds1")), lanes(n("ds2")),
+        jnp.asarray(n("dy")), cst["EhPT"], cst["E67T"], cst["E67twT"],
+        np.concatenate([eyeC, zC], axis=1), np.concatenate([zC, eyeC], axis=1), ones, ones)
+    dwp2, dvec = np.asarray(dwp2), np.asarray(dvec)
+    fold = lambda v: v[:C] + v[C:]
+    ref = (np.asarray(dx), dwp2[:C, :C] + dwp2[C:, C:], fold(dvec[1]), fold(dvec[2]),
+           fold(dvec[0]))
+    got = _replay_k12b_mma(*(d[k] for k in ("x", "a", "b", "wp", "s", "ds", "ds1", "ds2",
+                                            "dy")),
+                           tfl._k12b_mma_tables(Hp, Wp, m2, m3, 8), Hp=Hp, Wp=Wp, m2=m2,
+                           m3=m3, rows=8, act=act)
+    for name, g, r in zip(("dx", "dwp", "da", "db", "dbp"), got, ref):
+        g = g.float().numpy().reshape(r.shape)
+        np.testing.assert_allclose(g, r, rtol=2e-4, atol=2e-4 * float(np.abs(r).max()),
+                                   err_msg=name)
+
+
+def _c_signatures():
+    """{name: [ctypes type per parameter]} of every extern "C" function in
+    csrc/, read from the sources."""
+    import ctypes
+    import re
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    out = {}
+    for src in kernels.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" [\w ]+?\*?\s*(\w+)\(([^)]*)\)', text):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            out[m.group(1)] = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
+                               for p in params]
+    return out
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every binding's argument types against its C signature: ctypes passes
+    a wrong count or type without complaint where the C side reads garbage."""
+    c = _c_signatures()
+    assert set(c) == set(kernels.SIGNATURES)
+    for name, (argtypes, _) in kernels.SIGNATURES.items():
+        assert argtypes == c[name], name

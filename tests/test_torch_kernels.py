@@ -110,6 +110,8 @@ K2_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
     (2, 9, 20, 128, 3, 8),     # mma at C 128
     (2, 10, 12, 8, 3, 4),      # fma in both dtypes: C and m3 below the MMA tiles
     (2, 9, 20, 64, 3, 4),      # fma: 2*m3 no multiple of 16
+    (1, 7, 134, 128, 3, 16),   # f32 fma at C 128 and the grid's Wp: 2 rows a block;
+                               # bf16 mma at 9 warps
 ]
 
 
@@ -414,3 +416,194 @@ def test_galerkin_scores_kernel_refuses_bad_input(cuda):
         kernels.gk_scores(k, k, *aff[:3], aff[3][:1], heads=2, eps=1e-5)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernels.gk_scores(k.half(), k.half(), *aff, heads=2, eps=1e-5)
+
+
+K1_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
+    (3, 13, 22, 32, 5, 8),     # mma in bf16: two chunks of rows, the second short
+    (2, 17, 38, 64, 4, 16),    # mma at m3 16: Wp no multiple of 16
+    (2, 33, 20, 128, 16, 16),  # mma at C 128 and 2*m2 32 (fsi's widths)
+    (2, 10, 12, 8, 3, 4),      # fma in both dtypes: C below a 16-channel slice
+    (2, 9, 20, 64, 3, 12),     # fma: m3 not instantiated
+]
+
+
+def _sums_close(got, ref, terms, tol=1e-4):
+    err = ((got.float() - ref.float()).abs() / terms.clamp_min(1e-30)).max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K1_SHAPES)
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k1_variants_match_twin(cuda, shape, dtype, act):
+    """K1 in the variant its dtype and shape choose, and in bf16 the fma
+    variant named on the same inputs, against the twin; two calls bit-equal;
+    the per-variant counters."""
+    BT, Hp, Wp, C, m2, m3 = shape
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    x = rn(BT, Hp * Wp // 2, 2 * C).to(dtype)
+    a, b = 1 + 0.1 * rn(C), 0.1 * rn(C)
+    kw = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    chosen = kernels.k1_variant(dtype, C, 2 * m2, m3, Wp)
+    assert chosen == ("mma" if dtype == torch.bfloat16 and C % 16 == 0 and m3 in (8, 16)
+                      else "fma")
+    kernels.reset_launches()
+    y = tfl.k1(x, a, b, **kw)
+    ref = tfl.k1_plain(x, a, b, tfl._ct_on(cuda, Hp, Wp, m2, m3), Hp=Hp, Wp=Wp, act=act)
+    torch.cuda.synchronize()
+    _close(y, ref, dtype)
+    assert torch.equal(y, tfl.k1(x, a, b, **kw))
+    want = {"fma": 0, "mma": 0, chosen: 2}
+    if chosen == "mma":
+        _close(tfl.k1(x, a, b, **kw, variant="fma"), ref, dtype)
+        want["fma"] = 1
+    assert kernels.VARIANTS["k1"] == want and kernels.LAUNCHES["k1"] == sum(want.values())
+
+
+K12B_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
+    (3, 13, 22, 32, 5, 8),     # mma in bf16: two warps, the second with 6 columns
+    (2, 17, 38, 64, 4, 16),    # mma: a last block of two rows
+    (2, 33, 20, 128, 16, 16),  # mma at C 128 and 2*m2 32; fma at C 128 in f32
+    (2, 10, 12, 8, 3, 4),      # fma in both dtypes: C and m3 below the MMA tiles
+    (2, 9, 20, 64, 3, 4),      # fma: 2*m3 no multiple of 16
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K12B_SHAPES)
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k12b_variants_match_twin(cuda, shape, dtype, act):
+    """K12B in the variant its dtype and shape choose (and in bf16 the fma
+    variant named) against the twin: dx to TOL, dWp, da, db and dbp to 1e-4
+    of the sum of |terms|; two calls bit-equal; the per-variant counters."""
+    BT, Hp, Wp, C, m2, m3 = shape
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    npos = BT * Hp * Wp
+    x, s = (rn(BT, Hp * Wp // 2, 2 * C).to(dtype) for _ in range(2))
+    ds = (rn(BT, Hp * Wp // 2, 2 * C) / npos).to(dtype)
+    dy = (rn(BT, 2 * m2 * m3, 2 * C) / npos).to(dtype)
+    a, b, wp = 1 + 0.1 * rn(C), 0.1 * rn(C), rn(C, C) / C ** 0.5
+    ds1, ds2 = rn(C) / npos, rn(C) / npos
+    kw = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    chosen = kernels.k12b_variant(dtype, C, 2 * m2, m3, Wp)
+    assert chosen == ("mma" if dtype == torch.bfloat16 and C >= 32 and m3 >= 8 else "fma")
+    kernels.reset_launches()
+    got = tfl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **kw)
+    ref = tfl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, tfl._ct_on(cuda, Hp, Wp, m2, m3),
+                         Hp=Hp, Wp=Wp, act=act)
+    torch.cuda.synchronize()
+    v = lambda q: q.float().view(BT, Hp, Wp, C)
+    z = tfl._act(v(x) * a + b, act)
+    dse = v(ds) + ds1 + 2.0 * ds2 * v(s)
+    du = v(ref[0]) / a
+    terms = (torch.einsum("bhwc,bhwd->cd", z.abs(), dse.abs()),
+             (du * v(x)).abs().sum((0, 1, 2)), du.abs().sum((0, 1, 2)),
+             dse.abs().sum((0, 1, 2)))
+    runs = [got]
+    if chosen == "mma":
+        runs.append(tfl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **kw, variant="fma"))
+    for run in runs:
+        _close(run[0], ref[0], dtype)
+        for u, w, t in zip(run[1:], ref[1:], terms):
+            _sums_close(u, w, t)
+    assert all(torch.equal(u, w) for u, w in zip(got, tfl.k12b(x, a, b, wp, s, ds, ds1, ds2,
+                                                                dy, **kw)))
+    want = {"fma": 0, "mma": 0, chosen: 2}
+    want["fma"] += len(runs) - 1
+    assert kernels.VARIANTS["k12b"] == want and kernels.LAUNCHES["k12b"] == sum(want.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_kernels_at_width_128(cuda, dtype):
+    """K3F and K3B at the fsi config's width (C 128), an uneven crop."""
+    B, Tp, Hp, Wp, C, F = 2, 7, 15, 22, 128, 6
+    T, H, W = 5, 13, 18
+    g = torch.Generator(device=cuda).manual_seed(10)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    s = rn(B * Tp, Hp * Wp // 2, 2 * C).to(dtype)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    tail = (rn(B, T, H, W, F), 0.1 * rn(C, 128), 0.1 * rn(128), 0.1 * rn(128, F), 0.1 * rn(F))
+    gl = torch.tensor(0.37, device=cuda)
+    _close(tft.k3f(s, *tail, **kw), tft.k3f_plain(s, *tail, **kw), torch.float32)
+    got, ref = tft.k3b(s, *tail, gl, **kw), tft.k3b_plain(s, *tail, gl, **kw)
+    torch.cuda.synchronize()
+    _close(got[0], ref[0], dtype)
+    for u, w in zip(got[1:], ref[1:]):
+        _close(u, w, torch.float32)
+
+
+def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
+    """A contiguous bf16 view 2 bytes past a 16-byte boundary: by default K1,
+    K2 and K12B run fma and the T-stage generic, each against its twin; the
+    tensor-core or registers variant named on it raises, and nothing is
+    counted for the refusals."""
+    BT, Hp, Wp, C, m1, m2, m3, Tp = 2, 17, 38, 64, 2, 4, 16, 1
+    n = BT * Hp * Wp * C
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    view = lambda t: torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+    x = view(rn(BT, Hp * Wp // 2, 2 * C).bfloat16())
+    assert x.is_contiguous() and x.data_ptr() % 16
+    a, b, wp, bp = 1 + 0.1 * rn(C), 0.1 * rn(C), rn(C, C) / C ** 0.5, 0.1 * rn(C)
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    geo = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    kernels.reset_launches()
+    y = tfl.k1(x, a, b, **geo, act="exact")
+    _close(y, tfl.k1_plain(x, a, b, cst, Hp=Hp, Wp=Wp, act="exact"), torch.bfloat16)
+    gy = view(y)
+    s, st = tfl.k2(gy, x, a, b, wp, bp, **geo, act="exact")
+    _close(s, tfl.k2_plain(gy, x, a, b, wp, bp, cst, Hp=Hp, Wp=Wp, act="exact")[0],
+           torch.bfloat16)
+    mr, mi = rn(26, 8) / 26, rn(26, 8) / 26
+    yt = view(rn(2 * 26, 5, 2 * C).bfloat16())
+    _close(kernels.t_stage(yt, mr, mi), tfl.t_stage_plain(yt, mr, mi), torch.bfloat16)
+    ds = view((rn(BT, Hp * Wp // 2, 2 * C) / n).bfloat16())
+    dv = (rn(C) / n, rn(C) / n)
+    got = tfl.k12b(x, a, b, wp, s, ds, *dv, gy, **geo, act="exact")
+    ref = tfl.k12b_plain(x, a, b, wp, s, ds, *dv, gy, cst, Hp=Hp, Wp=Wp, act="exact")
+    _close(got[0], ref[0], torch.bfloat16)
+    assert {k: dict(v) for k, v in kernels.VARIANTS.items()} == {
+        "k1": {"fma": 1, "mma": 0}, "t_stage": {"generic": 1, "registers": 0},
+        "k2": {"fma": 1, "mma": 0}, "k12b": {"fma": 1, "mma": 0}}
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k1(x, a, b, **geo, act="exact", variant="mma")
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k2(gy, x, a, b, wp, bp, **geo, act="exact", variant="mma")
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k12b(x, a, b, wp, s, ds, *dv, gy, **geo, act="exact", variant="mma")
+    with pytest.raises(ValueError, match="registers variant"):
+        kernels.t_stage(yt, mr, mi, variant="registers")
+    assert sum(kernels.LAUNCHES.values()) == 4
+
+
+def test_k1_and_k12b_variants_refuse_what_they_do_not_take(cuda):
+    BT, Hp, Wp, C, m2, m3 = K1_SHAPES[4]
+    x = torch.zeros(BT, Hp * Wp // 2, 2 * C, device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros(C, device=cuda)
+    geo = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k1(x, v, v, **geo, act="none", variant="mma")              # m3 12
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k1(x.float(), v, v, **geo, act="none", variant="mma")      # float32
+    with pytest.raises(ValueError, match="no variant"):
+        tfl.k1(x, v, v, **geo, act="none", variant="wgmma")
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    dy = torch.zeros(BT, 2 * m2 * m3, 2 * C, device=cuda, dtype=torch.bfloat16)
+    wp = torch.zeros(C, C, device=cuda)
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k12b(x, v, v, wp, x, x, v, v, dy, **geo, act="none", variant="mma")
+    BT, Hp, Wp, C, m2, m3 = K12B_SHAPES[1]
+    x = torch.zeros(BT, Hp * Wp // 2, 2 * C, device=cuda, dtype=torch.bfloat16)
+    v, wp = torch.zeros(C, device=cuda), torch.zeros(C, C, device=cuda)
+    dy = torch.zeros(BT, 2 * m2 * m3, 2 * C, device=cuda, dtype=torch.bfloat16)
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    with pytest.raises(ValueError, match="packed tables"):
+        kernels.k12b(x, v, v, wp, x, x, v, v, dy, cst["ehr"], cst["ehi"], cst["ewr"],
+                     cst["ewi"], Hp=Hp, Wp=Wp, act="none", variant="mma")
+    with pytest.raises(ValueError, match="packed tables"):
+        kernels.k1(x, v, v, cst["ewr"], cst["ewi"], cst["ehr"], cst["ehi"], Hp=Hp, Wp=Wp,
+                   act="none")
+    assert not any(kernels.LAUNCHES.values())
