@@ -23,14 +23,15 @@ JSON line each; any failure raises (non-zero exit, no result line):
                named). Two calls of K1, the T-stage and K2 are bit-equal.
                K1's, the T-stage's and K2's times are device times of
                queued launches (see queued_ms).
-  4. backward  the backward and tail kernels, K2A-lite, K2A, K12B (its mma
-               variant in bfloat16 and, named, its fma one), the T-stage
-               adjoints (et_adj, it_adj), K3F and K3B, against their twins
-               at the training width (B·Tp=832: the f32 twins fit the
-               card's memory), in float32 and bfloat16; K2A-lite against
-               K2A; two K12B calls bit-equal; K1's, K2's and K12B's times
-               at this width as device times of queued launches, the others
-               CUDA-event medians.
+  4. backward  the backward and tail kernels, K2A-lite, K2A, K12B and K3B
+               (K2A-lite's, K12B's and K3B's mma variants in bfloat16 and,
+               named, their fma ones), the T-stage adjoints (et_adj,
+               it_adj) and K3F, against their twins at the training width
+               (B·Tp=832: the f32 twins fit the card's memory), in float32
+               and bfloat16; K2A-lite against K2A; two K2A-lite, K12B and
+               K3B calls bit-equal; K1's, K2's, K2A-lite's, K12B's and K3B's
+               times at this width as device times of queued launches, the
+               others CUDA-event medians.
   4b. geometry every FNO kernel against its twin at the other shipped
                geometries (combustion: width 64, fsi: width 128, modes
                4/16/16) at the cylinder's windows and padding, batch 2, in
@@ -169,7 +170,7 @@ TRAIN_LAUNCHES = {"k1": 4, "t_stage": 16, "k2": 4, "k2a": 0, "k2a_lite": 4,
 # the variants a bf16 FNO step launches (a rollout: K1, K2 and the T-stage
 # as one forward each)
 TRAIN_VARIANTS = dict(k1={"mma": 4}, t_stage={"registers": 16}, k2={"mma": 4},
-                      k12b={"mma": 4})
+                      k2a_lite={"mma": 4}, k12b={"mma": 4}, k3b={"mma": 1})
 
 # the other shipped FNO geometries, at the cylinder's 20x64x128 windows and
 # padding 6 (the port has no fsi or combustion reader yet; the kernels'
@@ -654,27 +655,41 @@ def phase_backward(dev) -> dict:
                 dev, g, kind, B, dtype)
         k2a = lambda: fl.k2a(s, ds, ds1, ds2, **geo)
         k2a_p = lambda: fl.k2a_plain(s, ds, ds1, ds2, cst, Hp=HP, Wp=WP)
-        k2l = lambda: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo)
+        k2l = lambda **kw: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo, **kw)
         k2l_p = lambda: fl.k2a_lite_plain(ds, gsp, y, ds1, ds2, wp, bp, lite, cst,
                                           Hp=HP, Wp=WP)
-        full, lite_dg = k2a(), k2l()
+        chosen = "mma" if dtype == torch.bfloat16 else "fma"
+        full, lite_dg = k2a(), run_as("k2a_lite", chosen, k2l)
+        lite_ref = k2l_p()
         rows.append(compare("k2a/dg", full, k2a_p(), tol))
-        rows.append(compare("k2a_lite/dg", lite_dg, k2l_p(), tol))
+        rows.append(compare("k2a_lite/dg", lite_dg, lite_ref, tol))
         rows.append(compare("k2a_lite/vs_k2a", lite_dg, full, tol))
+        if not torch.equal(lite_dg, k2l()):
+            raise AssertionError(f"two identical k2a_lite calls differ ({dtype})")
+        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
+            fma_dg = run_as("k2a_lite", "fma", lambda: k2l(variant="fma"))
+            rows.append(compare("k2a_lite_fma/dg", fma_dg, lite_ref, tol))
+            rows.append(compare("k2a_lite_fma/vs_k2a", fma_dg, full, tol))
+            del fma_dg
+        del lite_ref
         work["k2a"] = bound(nbytes(s, ds, ds1, ds2, full), dft_ops(BT), dtype)
         # the lite fit's correction: a [2Y, C] x [C, C] product per image
         work["k2a_lite"] = bound(nbytes(ds, gsp, y, ds1, ds2, wp, bp, lite_dg),
                                  dft_ops(BT) + BT * 2 * (2 * M2 * M3) * C * C * 2,
                                  dtype)
+        work["k2a_lite_fma"] = work["k2a_lite"]
         del full, lite_dg
         times["k2a"] = (cuda_ms(k2a), cuda_ms(k2a_p))
-        times["k2a_lite"] = (cuda_ms(k2l), cuda_ms(k2l_p))
+        times["k2a_lite"] = (queued_ms([k2l], n=8, reps=5), cuda_ms(k2l_p))
+        single["k2a_lite"] = cuda_ms(k2l, reps=10)
+        if dtype == torch.bfloat16:
+            times["k2a_lite_fma"] = (queued_ms([lambda: k2l(variant="fma")], n=4, reps=3),
+                                     times["k2a_lite"][1])
 
         x = rn(BT, HP * WP // 2, 2 * C).to(dtype)
         k12 = lambda **kw: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo, act="exact", **kw)
         k12_p = lambda: fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=HP,
                                       Wp=WP, act="exact")
-        chosen = "mma" if dtype == torch.bfloat16 else "fma"
         got, ref = run_as("k12b", chosen, k12), k12_p()
         if not all(torch.equal(u, w) for u, w in zip(got, k12())):
             raise AssertionError(f"two identical k12b calls differ ({dtype})")
@@ -703,24 +718,35 @@ def phase_backward(dev) -> dict:
         gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
         k3f = lambda: ft.k3f(s, *tail, **kw)
         k3f_p = lambda: ft.k3f_plain(s, *tail, **kw)
-        k3b = lambda: ft.k3b(s, *tail, gl, **kw)
+        k3b = lambda **kv: ft.k3b(s, *tail, gl, **kw, **kv)
         k3b_p = lambda: ft.k3b_plain(s, *tail, gl, **kw)
         sse, sse_ref = k3f(), k3f_p()
         rows.append(compare_sums("k3f/sse", sse, sse_ref, sse_ref))
-        got, ref = k3b(), k3b_p()
-        rows.append(compare("k3b/ds", got[0], ref[0], tol))
+        got, ref = run_as("k3b", chosen, k3b), k3b_p()
+        if not all(torch.equal(u, w) for u, w in zip(got, k3b())):
+            raise AssertionError(f"two identical k3b calls differ ({dtype})")
+        held = [("k3b", got)]
+        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
+            held.append(("k3b_fma", run_as("k3b", "fma", lambda: k3b(variant="fma"))))
         # the tail reads only the crop of s; fc1 and fc2 per position, three
         # of each in the backward (recompute, data and weight gradients)
         npos, crop = B * T * H * W, B * T * H * W * C * s.element_size()
         fc = npos * (2 * C * tail[1].shape[1] + 2 * tail[3].shape[0] * F)
         work["k3f"] = bound(crop + nbytes(*tail, sse), fc, dtype)
         work["k3b"] = bound(crop + nbytes(*tail, gl, *got), 3 * fc, dtype)
+        work["k3b_fma"] = work["k3b"]
         terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
-        for name, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), got[1:], ref[1:], terms):
-            rows.append(compare_sums(f"k3b/{name}", gv, rv, tv))
-        del got, ref, terms
+        for kname, gk in held:
+            rows.append(compare(f"{kname}/ds", gk[0], ref[0], tol))
+            for name, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), gk[1:], ref[1:], terms):
+                rows.append(compare_sums(f"{kname}/{name}", gv, rv, tv))
+        del got, ref, terms, held
         times["k3f"] = (cuda_ms(k3f, reps=10), cuda_ms(k3f_p, reps=5))
-        times["k3b"] = (cuda_ms(k3b, reps=10), cuda_ms(k3b_p, reps=5))
+        times["k3b"] = (queued_ms([k3b], n=8, reps=5), cuda_ms(k3b_p, reps=5))
+        single["k3b"] = cuda_ms(k3b, reps=10)
+        if dtype == torch.bfloat16:
+            times["k3b_fma"] = (queued_ms([lambda: k3b(variant="fma")], n=4, reps=3),
+                                times["k3b"][1])
         torch.cuda.synchronize()
         emit(dict(phase="backward", dtype=str(dtype).replace("torch.", ""),
                   shapes=dict(BT=BT, Hp=HP, Wp=WP, C=C, modes=[M1, M2, M3],
@@ -741,8 +767,9 @@ def phase_backward(dev) -> dict:
                     max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in mine),
                     ms=times[k][0], plain_ms=times[k][1], library_ms=None, **work[k])
-            summary["k12b"].update(fma_variant_ms=times["k12b_fma"][0],
-                                   single_launch_ms=single["k12b"])
+            for k in ("k2a_lite", "k12b", "k3b"):
+                summary[k].update(fma_variant_ms=times[f"{k}_fma"][0],
+                                  single_launch_ms=single[k])
             adj = [r for r in rows if r["name"].startswith("t_stage/")]
             pair = ("t_stage_et_adj", "t_stage_it_adj")
             summary["t_stage_adjoint"] = dict(
@@ -1478,7 +1505,8 @@ def phase_gk_train(dev, norm) -> dict:
 def phase_geometries(dev) -> None:
     """Every FNO kernel against its twin at the other shipped geometries
     (GEOMETRIES: combustion's width 64 and fsi's 128, modes 4/16/16), at
-    batch GEO_BATCH, in both dtypes, each in the variant its dtype chooses:
+    batch GEO_BATCH, in both dtypes, each in the variant its dtype chooses
+    (mma in bfloat16, fma in float32, asserted per call):
     K1, the four T-stage maps, K2, K2A and (where the geometry has lite
     statics) K2A-lite, K12B, K3F and K3B. Records which of K2A-lite and K2A
     the geometry's backward takes."""
@@ -1520,7 +1548,8 @@ def phase_geometries(dev) -> None:
             rows.append(compare("k2a/dg", full, fl.k2a_plain(s, ds, ds1, ds2, cst, Hp=HP, Wp=WP),
                                 tol))
             if lite is not None:
-                lg = fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo)
+                lg = run_as("k2a_lite", mm, lambda: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp,
+                                                                **geo))
                 rows += [compare("k2a_lite/dg", lg, fl.k2a_lite_plain(
                              ds, gsp, y, ds1, ds2, wp, bp, lite, cst, Hp=HP, Wp=WP), tol),
                          compare("k2a_lite/vs_k2a", lg, full, tol)]
@@ -1537,7 +1566,8 @@ def phase_geometries(dev) -> None:
             gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
             sse_ref = ft.k3f_plain(s, *tail, **kw)
             rows.append(compare_sums("k3f/sse", ft.k3f(s, *tail, **kw), sse_ref, sse_ref))
-            got, ref = ft.k3b(s, *tail, gl, **kw), ft.k3b_plain(s, *tail, gl, **kw)
+            got = run_as("k3b", mm, lambda: ft.k3b(s, *tail, gl, **kw))
+            ref = ft.k3b_plain(s, *tail, gl, **kw)
             rows.append(compare("k3b/ds", got[0], ref[0], tol))
             terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
             for n, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), got[1:], ref[1:], terms):
@@ -1586,7 +1616,8 @@ def phase_fsi_train(dev, norm) -> dict:
             raise AssertionError(f"one fsi step ({dtype}) launched {launches}, "
                                  f"expected {TRAIN_LAUNCHES}")
         variants = expect_variants(f"one fsi step ({dtype})", k1={mm: 4},
-                                   t_stage={"registers": 16}, k2={mm: 4}, k12b={mm: 4})
+                                   t_stage={"registers": 16}, k2={mm: 4}, k2a_lite={mm: 4},
+                                   k12b={mm: 4}, k3b={mm: 1})
         first_peak = torch.cuda.max_memory_allocated() / 1e9
         if not bool(torch.isfinite(loss)):
             raise AssertionError(f"fsi training loss {loss.item()} is not finite")

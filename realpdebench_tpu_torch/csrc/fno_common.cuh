@@ -1,5 +1,5 @@
 // Shared helpers of the kernels (fno_k1.cu, fno_tstage.cu, fno_k2.cu,
-// fno_k2a.cu, fno_k12b.cu, fno_tail.cu, temporal_attention.cu,
+// fno_k2a.cu, fno_k12b.cu, fno_tail.cu, fno_dft_mma.cuh, temporal_attention.cu,
 // galerkin_scores.cu). Every kernel reads its activations as T (float or
 // bf16) and computes in f32.
 #pragma once
@@ -44,14 +44,20 @@ __device__ __forceinline__ float affine_act(float x, float a, float b,
 // exp2 and five FMAs, |error| <= 3e-7 in f32: a third of erff's instructions,
 // which set the pace of the tensor-core variants (fno_k2.cu, fno_k1.cu,
 // fno_k12b.cu) once their products ran on the tensor cores.
-__device__ __forceinline__ float erf_fast(float x) {
+// erf_and_gauss also returns exp(-x^2), which the formula computes anyway.
+__device__ __forceinline__ float erf_and_gauss(float x, float& gauss) {
   const float t = fabsf(x);
   const float r = __fdividef(1.f, fmaf(0.3275911f, t, 1.f));
   float p = fmaf(1.061405429f, r, -1.453152027f);
   p = fmaf(p, r, 1.421413741f);
   p = fmaf(p, r, -0.284496736f);
   p = fmaf(p, r, 0.254829592f);
-  return copysignf(fmaf(-p * r, exp2f(-1.4426950408889634f * t * t), 1.f), x);
+  gauss = exp2f(-1.4426950408889634f * t * t);
+  return copysignf(fmaf(-p * r, gauss, 1.f), x);
+}
+__device__ __forceinline__ float erf_fast(float x) {
+  float gauss;
+  return erf_and_gauss(x, gauss);
 }
 
 // z = act(a*x + b) as fno::affine_act, the exact GELU through erf_fast (its
@@ -84,6 +90,20 @@ __device__ __forceinline__ float act_grad_fast(float u, int act) {
   if (act != kActExact) return act_grad(u, act);
   const float phi = 0.39894228040143268f * exp2f(-0.72134752044448170f * u * u);
   return 0.5f * (1.f + erf_fast(u * 0.70710678118654752f)) + u * phi;
+}
+
+// act(u) and act'(u) together; for the exact GELU one erf_and_gauss serves
+// both (its exp(-u^2/2) is the density in act'), as in act_grad_fast.
+__device__ __forceinline__ void act_and_grad_fast(float u, int act, float& h, float& dh) {
+  if (act != kActExact) {
+    h = act_fn(u, act);
+    dh = act_grad(u, act);
+    return;
+  }
+  float gauss;
+  const float e1 = 1.f + erf_and_gauss(u * 0.70710678118654752f, gauss);
+  h = 0.5f * u * e1;
+  dh = fmaf(u * 0.39894228040143268f, gauss, 0.5f * e1);
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

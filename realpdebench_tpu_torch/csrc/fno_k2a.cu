@@ -33,8 +33,31 @@
 // pass over a full activation (~1 GB bf16 at training width, 2 GB for the
 // full mode) and ~11 GFLOP per 208 rows of BT in f32 on CUDA cores, so the
 // FP32 pipe and its shared-memory operand loads bound it; the lite mode
-// trades the second full-size read for ~1.3 GFLOP per 208 rows.
+// trades the second full-size read for ~1.3 GFLOP per 208 rows. That FMA
+// kernel stays as the lite mode's `fma` variant (f32 tensors, other shapes)
+// and as the full mode.
+//
+// The lite mode's `mma` variant (bf16; C a multiple of 16 up to 128, m3 in
+// {8, 16}, 2*m2 <= 32, Wp <= 256, 16-byte aligned ds, g and y; chosen by
+// ops/kernels.py::k2a_lite_variant): A(ds) is K1's contraction on other
+// tables, so it runs K1's tensor-core body (fno_dft_mma.cuh) on
+// IW = [iwr; iwi] and a packed H table that carries the adjoint's sign
+// pattern (acc_r += sr*er + si*ei, acc_i += si*er - sr*ei; built by
+// ops/fno_layer.py::_k2a_mma_tables), with no affine. The correction is the
+// body's epilogue, before the one bf16 write of dg: the product y @ wps
+// ([2Y, C] x [C, 16] per block) on mma.sync, y's A fragments read straight
+// from global memory (bf16, exact) and the slice of wps rounded once to
+// bf16 in shared memory; the elementwise terms in f32. The grid runs the
+// C/16 slices of one bt as neighbouring blocks, so L2 serves the repeated
+// reads of y[bt] and g[bt]. Rounding: ds is bf16, the tables and X round
+// once, as in K1 and JAX's _dot; dg rounds once and feeds no f32 sum inside
+// the kernel. Bound: bytes, ds's 1.0 GB at training width (0.37 ms); the
+// products' 48.7 GFLOP take 0.05 ms on the tensor cores.
+#include <cstdint>
+#include <initializer_list>
+
 #include "fno_common.cuh"
+#include "fno_dft_mma.cuh"
 
 namespace {
 
@@ -191,17 +214,204 @@ cudaError_t dispatch(int lite, const void* ds, const void* s, const void* g, con
                               dg, BT, Hp, Wp, C, m2x2, m3, st);
 }
 
+// ---------------------------------------------------------------------------
+// K2A-lite's tensor-core variant
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using dftmma::kSlice;
+
+constexpr int kWpsStride = 24;   // row stride of the wps slice in shared memory (bank spread)
+
+// Bytes of shared memory (ops/kernels.py::k2a_lite_mma_smem_bytes): the DFT
+// body's, then the block's slice of wps [C][16] as bf16.
+inline int k2a_lite_mma_smem(int Wp, int m3, int C) {
+  return dftmma::body_smem(Wp, m3) + C * kWpsStride * 2;
+}
+
+// dg = A(ds) + 2 ds2 (alpha g + beta g[kh mirror]) + D (y @ wps) + dsc A1
+// from the body's accumulators A(ds) (see the K2A-lite note above; dsc =
+// ds1 + 2 ds2 bp, two = 2 ds2, wps = Wp with column c scaled by two[c]).
+template <int M3, int MTH>
+struct LiteCorrection {
+  static constexpr int NTH = 2 * M3 / 8;
+  const bf16* __restrict__ g;
+  const bf16* __restrict__ y;
+  const float* __restrict__ dsc;
+  const float* __restrict__ two;
+  const float* __restrict__ wps;
+  const float* __restrict__ alpha;
+  const float* __restrict__ beta;
+  const float* __restrict__ D;
+  const float* __restrict__ A1;
+  bf16* __restrict__ dg;
+  int C, m2x2, smem_off;
+
+  // the slice of wps, [C][16] rounded to bf16, after the body's shared memory
+  __device__ __forceinline__ void stage(unsigned char* p, int tid) const {
+    bf16* sw = reinterpret_cast<bf16*>(p);
+    const int c0 = blockIdx.x * kSlice;
+    for (int i = tid; i < C * kSlice; i += blockDim.x) {
+      const int cp = i >> 4, c = i & 15;
+      sw[cp * kWpsStride + c] = __float2bfloat16_rn(wps[(size_t)cp * C + c0 + c]);
+    }
+  }
+
+  __device__ __forceinline__ void operator()(const float (&acc)[MTH][NTH][4], int bt, int c0,
+                                             int warp, int lane) const {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const bf16* sw = reinterpret_cast<const bf16*>(smem_raw + smem_off);
+    const int gq = lane >> 2, q = lane & 3;
+    const size_t C2 = 2 * (size_t)C;
+    const size_t img = (size_t)bt * m2x2 * M3 * C2;
+    const int mbase = (warp * 2 * M3) >> 4;   // the warp's first W mode; it owns NTH / 2
+#pragma unroll
+    for (int mt = 0; mt < MTH; ++mt) {
+      // yw[t] = y @ wps on rows (re|im, j) of this tile, columns (m, c) of tile t
+      float yw[NTH][4];
+#pragma unroll
+      for (int t = 0; t < NTH; ++t) yw[t][0] = yw[t][1] = yw[t][2] = yw[t][3] = 0.f;
+      for (int ks = 0; ks < C / 16; ++ks) {
+        int k, n;
+        mma::b_frag_row(lane, ks * 16, 0, k, n);
+        uint32_t fb[4];
+        mma::ldmatrix_x4_trans(fb, mma::smem_addr(sw + k * kWpsStride + n));
+#pragma unroll
+        for (int mi = 0; mi < NTH / 2; ++mi) {
+          const int m = mbase + mi;
+          uint32_t fa[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int R = mt * 16 + gq + (r & 1) * 8;
+            fa[r] = 0u;
+            if (R < 2 * m2x2) {
+              const int part = R / m2x2, j = R - part * m2x2;
+              fa[r] = __ldg(reinterpret_cast<const unsigned int*>(
+                  y + img + (size_t)(j * M3 + m) * C2 + part * C + ks * 16 + 2 * q + (r >> 1) * 8));
+            }
+          }
+          mma::mma_bf16(yw[2 * mi], fa, fb[0], fb[1]);
+          mma::mma_bf16(yw[2 * mi + 1], fa, fb[2], fb[3]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < NTH; ++t) {
+        const int m = mbase + (t >> 1), cg = c0 + (t & 1) * 8 + 2 * q;
+        const float tw0 = two[cg], tw1 = two[cg + 1], dc0 = dsc[cg], dc1 = dsc[cg + 1];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int R = mt * 16 + gq + hf * 8;
+          if (R >= 2 * m2x2) continue;
+          const int part = R / m2x2, j = R - part * m2x2;
+          const int Yr = j * M3 + m, k = Yr * 2 + part;
+          const int jm = j == 0 ? 0 : m2x2 - j, Ym = jm * M3 + m;   // kh mirror of j
+          const size_t at = img + (size_t)Yr * C2 + part * C + cg;
+          const float2 gv = mma::unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(g + at)));
+          float2 gm = make_float2(0.f, 0.f);
+          if (Ym != Yr)
+            gm = mma::unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(
+                g + img + (size_t)Ym * C2 + part * C + cg)));
+          const float al = alpha[k], be = beta[k], dk = D[k], a1 = A1[k];
+          const float o0 = acc[mt][t][2 * hf] + tw0 * (al * gv.x + be * gm.x) +
+                           dk * yw[t][2 * hf] + dc0 * a1;
+          const float o1 = acc[mt][t][2 * hf + 1] + tw1 * (al * gv.y + be * gm.y) +
+                           dk * yw[t][2 * hf + 1] + dc1 * a1;
+          *reinterpret_cast<uint32_t*>(dg + at) = mma::pack_bf16(o0, o1);
+        }
+      }
+    }
+  }
+};
+
+template <int M3, int MTH>
+__global__ void __launch_bounds__(dftmma::kWarps * 32, 2)
+    k2a_lite_mma_kernel(const bf16* __restrict__ ds, const bf16* __restrict__ iw,
+                        const bf16* __restrict__ ih, LiteCorrection<M3, MTH> epi, int Hp, int Wp,
+                        int C, int m2x2) {
+  dftmma::wh_mma_body<M3, MTH, false>(ds, nullptr, nullptr, iw, ih, epi, Hp, Wp, C, m2x2,
+                                      fno::kActNone);
+}
+
+template <int M3, int MTH>
+cudaError_t launch_k2a_lite_mma_as(const void* ds, const void* g, const void* y, const void* dsc,
+                                   const void* two, const void* wps, const void* alpha,
+                                   const void* beta, const void* D, const void* A1,
+                                   const void* iw, const void* ih, void* dg, int BT, int Hp,
+                                   int Wp, int C, int m2x2, cudaStream_t stream) {
+  auto kernel = k2a_lite_mma_kernel<M3, MTH>;
+  const int smem = k2a_lite_mma_smem(Wp, M3, C);
+  cudaError_t err = fno::allow_smem(kernel, (size_t)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const LiteCorrection<M3, MTH> epi{
+      static_cast<const bf16*>(g),      static_cast<const bf16*>(y),
+      static_cast<const float*>(dsc),   static_cast<const float*>(two),
+      static_cast<const float*>(wps),   static_cast<const float*>(alpha),
+      static_cast<const float*>(beta),  static_cast<const float*>(D),
+      static_cast<const float*>(A1),    static_cast<bf16*>(dg),
+      C, m2x2, dftmma::body_smem(Wp, M3)};
+  // the C/16 slices of one bt are neighbouring blocks: y[bt] and g[bt] come
+  // from L2 after the first
+  kernel<<<dim3(C / kSlice, BT), dftmma::kWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(ds), static_cast<const bf16*>(iw), static_cast<const bf16*>(ih),
+      epi, Hp, Wp, C, m2x2);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_k2a_lite_mma(const void* ds, const void* g, const void* y, const void* dsc,
+                                const void* two, const void* wps, const void* alpha,
+                                const void* beta, const void* D, const void* A1, const void* iw,
+                                const void* ih, void* dg, int BT, int Hp, int Wp, int C,
+                                int m2x2, int m3, cudaStream_t stream) {
+  if (C % kSlice || C > 128 || m2x2 < 1 || m2x2 > 32 || Wp > 256 || BT > 65535 ||
+      iw == nullptr || ih == nullptr || k2a_lite_mma_smem(Wp, m3, C) > 232448)
+    return cudaErrorInvalidValue;
+  for (const void* p : {ds, g, y, iw, ih, (const void*)dg})
+    if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
+  const int mth = (2 * m2x2 + 15) / 16;
+#define K2AL_MMA(MM, MT)                                                                      \
+  if (m3 == MM && mth == MT)                                                                  \
+  return launch_k2a_lite_mma_as<MM, MT>(ds, g, y, dsc, two, wps, alpha, beta, D, A1, iw, ih,  \
+                                        dg, BT, Hp, Wp, C, m2x2, stream)
+  K2AL_MMA(16, 3);   // the cylinder: 2*m2 = 24
+  K2AL_MMA(16, 4);   // fsi, combustion: 2*m2 = 32
+  K2AL_MMA(16, 1);
+  K2AL_MMA(16, 2);
+  K2AL_MMA(8, 1);
+  K2AL_MMA(8, 2);
+  K2AL_MMA(8, 3);
+  K2AL_MMA(8, 4);
+#undef K2AL_MMA
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// Bytes of shared memory a block of K2A-lite's mma variant takes.
+extern "C" int fno_k2a_lite_mma_smem_bytes(int Wp, int m3, int C) {
+  return k2a_lite_mma_smem(Wp, m3, C);
+}
 
 // lite = 0: K2A (reads ds, s; g, y, wps and the statics may be null).
 // lite = 1: K2A-lite (reads ds, g, y; s may be null).
+// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["k2a_lite"]; lite and
+// bf16 only); iw, ih: the packed bf16 DFT tables of the mma variant (null
+// for fma).
 extern "C" int fno_k2a(const void* ds, const void* s, const void* g, const void* y,
                        const void* v1, const void* two, const void* wps, const void* alpha,
                        const void* beta, const void* D, const void* A1, const void* ihr,
-                       const void* ihi, const void* iwr, const void* iwi, void* dg, int BT,
-                       int Hp, int Wp, int C, int m2x2, int m3, int lite, int dtype,
-                       void* stream) {
+                       const void* ihi, const void* iwr, const void* iwi, const void* iw,
+                       const void* ih, void* dg, int BT, int Hp, int Wp, int C, int m2x2, int m3,
+                       int lite, int variant, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (!lite || dtype != fno::kBF16 || BT < 1 || Hp < 1 || Wp < 1) return cudaErrorInvalidValue;
+    return launch_k2a_lite_mma(ds, g, y, v1, two, wps, alpha, beta, D, A1, iw, ih, dg, BT, Hp,
+                               Wp, C, m2x2, m3, st);
+  }
+  if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32)
     return dispatch<float>(lite, ds, s, g, y, v1, two, wps, alpha, beta, D, A1, ihr, ihi, iwr,
                            iwi, dg, BT, Hp, Wp, C, m2x2, m3, st);

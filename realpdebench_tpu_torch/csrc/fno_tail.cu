@@ -31,8 +31,25 @@
 // fixed order. Bound: fc1 and its two backward products are ~8.4 kFMA per
 // position each (~90 GFLOP for K3F, ~260 for K3B at 32 x 20 x 64 x 128
 // positions), in f32 on CUDA cores from shared memory: FP32 issue bounds
-// it, not HBM (~0.7 GB read); tensor cores are the next step.
+// it, not HBM (~0.7 GB read). That kernel is K3B's `fma` variant (f32
+// tensors, other widths) and K3F.
+//
+// K3B's `mma` variant (bf16; C in {32, 64, 128}, 16-byte aligned s; chosen by
+// ops/kernels.py::k3b_variant) runs the five products on mma.sync with f32
+// accumulators (k3b_mma_kernel below has the design): every operand of the
+// f32 sums (dk1, db1, dk2, db2, held to 1e-4 of the sum of |terms|) that is
+// not bf16 already is a hi + lo pair; ds rounds once on its write, and its
+// product takes du and k1 rounded once. A persistent grid of one block an
+// SM walks 128-position tiles (640 x 64 at training width), so the card
+// fills however few images there are. Bound at training width (32 x 20 x
+// 64 x 128 positions, C 64): 1.73 GB of HBM (0.52 ms); 270 GFLOP of
+// products (0.27 ms at the bf16 peak), which the hi + lo pairs make ~700
+// GFLOP of MMAs issued.
+#include <cstdint>
+#include <initializer_list>
+
 #include "fno_common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -44,7 +61,7 @@ constexpr int kMaxF = 8;     // fc2 width bound
 constexpr int kMaxC = 128;   // channel bound (C % 8 == 0)
 
 struct TailDims {
-  int T, H, W, Tp, Hp, Wp, C, F, act;
+  int T, H, W, Tp, Hp, Wp, C, F, act, B;
 };
 
 // Stage the tile's z = crop(s) [kP][C] and target [kP][F]; rows past the
@@ -334,6 +351,404 @@ __global__ void __launch_bounds__(kThreads, CK <= 8 ? 2 : 1)
   if (tid < F) pb[C * kH1 + kH1 + kH1 * F + tid] = db2;
 }
 
+// ---------------------------------------------------------------------------
+// K3B's tensor-core variant (bf16; C in {32, 64, 128}, fc1 width 128, F <= 8)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTP = 128;           // positions a tile takes: up to 128 of one cropped row
+constexpr int kMmaThreads = 256;   // 8 warps, warp w owning positions 16w..16w+15 of a tile
+constexpr int kKS = kH1 + 8;       // row stride of the [.][128] tiles (bank spread)
+constexpr int kDoS = 24;           // row stride of the do tile [kTP][16]
+// tiles a partial row sums: a block writes its sums and restarts them every
+// kFlush of its tiles, so no f32 accumulator (an MMA's, which truncates)
+// takes more than kFlush * 8 products of 16 positions
+constexpr int kFlush = 32;
+
+// Shared memory of a block, in bytes (ops/kernels.py::k3b_mma_smem_bytes):
+// k1 hi, lo [C][kKS]; two z stages [kTP][C + 8]; h1 (then du) hi, lo
+// [kTP][kKS]; do hi, lo [kTP][kDoS] (bf16); k2^T hi, lo [8][kKS] (bf16);
+// k2 [kH1][8], b1, b2, the warps' db2 [8][8] (f32).
+inline int k3b_mma_smem(int C) {
+  return 2 * (2 * C * kKS + 2 * kTP * (C + 8) + 2 * kTP * kKS + 2 * kTP * kDoS + 2 * 8 * kKS) +
+         4 * (kH1 * 8 + kH1 + 8 + 64);
+}
+
+// One persistent block an SM walks the tiles t = blockIdx.x + i * gridDim.x
+// of the crop (image, cropped row h, 128 positions of it); per tile, each
+// warp on its 16 positions:
+//   u1 = z k1 + b1            mma, k1 hi + lo (z is bf16)
+//   h1, act'(u1)              one erf and one exp a position and unit
+//   o = h1 k2 + b2            mma, h1 and k2 hi + lo, from the u1 fragments
+//   do = 2 g (o - target)     f32; db2 in registers
+//   du = (do k2^T) act'(u1)   F FMAs a unit, f32
+//   ds = du k1^T              mma, du and k1 rounded once; written once as bf16
+// and, after the tile's h1, do and du are in shared memory, the block's
+// sums: dk2 += h1^T do (mma, every operand hi + lo) with warp w on hidden
+// units 16w..16w+15, and dk1 += z^T du with a row of ones under z^T that
+// gives db1 = sum du (mma, du hi + lo) on the same units. dk1, db1, dk2 and
+// db2 stay in registers across kFlush of the block's tiles, then go out as
+// one of the block's rows of partial sums, which fno::reduce_partials adds
+// in a fixed order: no atomics. The activation is a template argument: a
+// runtime switch inlined the tanh and erff forms beside the exact one at
+// every unit and cost 3.8 ms in spills and issue (tools/torch_k3b_probe.py).
+// z comes by 16-byte cp.async into a two-stage ring (the next tile's copy
+// overlaps this one). Zeros outside the crop are written after
+// the tiles, a share of the rows a block.
+template <int C, int ACT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    k3b_mma_kernel(const bf16* __restrict__ s, const float* __restrict__ target,
+                   const float* __restrict__ k1, const float* __restrict__ b1,
+                   const float* __restrict__ k2, const float* __restrict__ b2,
+                   const float* __restrict__ gsc, bf16* __restrict__ ds,
+                   float* __restrict__ partial, TailDims d) {
+  constexpr int ZS = C + 8;            // z row stride
+  constexpr int MC = C / 16;           // 16-row tiles of z^T; tile MC is the row of ones
+  constexpr int NG = 32;               // channels of ds a pass takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sk1 = reinterpret_cast<bf16*>(smem_raw);   // [2][C][kKS]: k1 hi, lo
+  bf16* sz = sk1 + 2 * C * kKS;                    // [2 stages][kTP][ZS]
+  bf16* sh = sz + 2 * kTP * ZS;                    // [2][kTP][kKS]: h1, then du, hi and lo
+  bf16* sdo = sh + 2 * kTP * kKS;                  // [2][kTP][kDoS]: do hi, lo (columns >= 8 zero)
+  bf16* sk2t = sdo + 2 * kTP * kDoS;               // [2][8][kKS]: k2^T hi, lo (rows >= F zero)
+  float* sk2f = reinterpret_cast<float*>(sk2t + 2 * 8 * kKS);   // [kH1][8]: k2 (columns >= F zero)
+  float* sb1 = sk2f + kH1 * 8;
+  float* sb2 = sb1 + kH1;                          // [8]
+  float* sred = sb2 + 8;                           // [8 warps][8]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  const int F = d.F, W = d.W, H = d.H, T = d.T;
+  for (int i = tid; i < C * kH1; i += kMmaThreads) {
+    const int c = i / kH1, j = i - c * kH1;
+    mma::split_bf16(k1[i], sk1[c * kKS + j], sk1[C * kKS + c * kKS + j]);
+  }
+  for (int i = tid; i < 8 * kH1; i += kMmaThreads) {
+    const int f = i / kH1, j = i - f * kH1;
+    const float v = f < F ? k2[j * F + f] : 0.f;
+    mma::split_bf16(v, sk2t[f * kKS + j], sk2t[8 * kKS + f * kKS + j]);
+    sk2f[j * 8 + f] = v;
+  }
+  for (int i = tid; i < kH1; i += kMmaThreads) sb1[i] = b1[i];
+  if (tid < 8) sb2[tid] = tid < F ? b2[tid] : 0.f;
+  for (int i = tid; i < 2 * kTP * (kDoS - 8) / 8; i += kMmaThreads) {
+    const int r = i / ((kDoS - 8) / 8), cc = i - r * ((kDoS - 8) / 8);
+    *reinterpret_cast<uint4*>(sdo + r * kDoS + 8 + cc * 8) = make_uint4(0, 0, 0, 0);
+  }
+  const float g2 = 2.f * gsc[0];
+  const int nwt = (W + kTP - 1) / kTP;
+  const int ntiles = d.B * T * H * nwt;
+  // rows of partial sums a block writes: one per kFlush tiles of the most a block takes
+  const int nrows = ((ntiles + gridDim.x - 1) / gridDim.x + kFlush - 1) / kFlush;
+  const int n = C * kH1 + kH1 + kH1 * F + F;
+
+  // tile -> (row bT of the target, cropped row h, first position w0, row bt of s)
+  auto decode = [&](int tile, int& bT, int& h, int& w0, int& bt) {
+    const int wt = tile % nwt, rest = tile / nwt;
+    h = rest % H;
+    bT = rest / H;
+    w0 = wt * kTP;
+    bt = (bT / T) * d.Tp + bT % T;
+  };
+  auto fetch = [&](int tile, int stage) {
+    int bT, h, w0, bt;
+    decode(tile, bT, h, w0, bt);
+    const int P = min(kTP, W - w0);
+    const bf16* src = s + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
+    bf16* dst = sz + stage * kTP * ZS;
+    for (int i = tid; i < kTP * (C / 8); i += kMmaThreads) {
+      const int p = i / (C / 8), cc = i - p * (C / 8);
+      if (p < P)
+        mma::cp_async_16(dst + p * ZS + cc * 8, src + (size_t)p * C + cc * 8);
+      else
+        *reinterpret_cast<uint4*>(dst + p * ZS + cc * 8) = make_uint4(0, 0, 0, 0);
+    }
+    mma::cp_async_commit();
+  };
+
+  float dk1[MC + 1][2][4];   // dk1[c][16 warp + 8 nt + 2q (+1)] for c = 16 mi + gq (+8); db1 in mi = MC
+  float dk2[4];              // dk2[16 warp + gq (+8)][2q (+1)]
+  float db2[2] = {0.f, 0.f};   // db2[2q (+1)], this lane's positions
+#pragma unroll
+  for (int mi = 0; mi <= MC; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) dk1[mi][nt][0] = dk1[mi][nt][1] = dk1[mi][nt][2] = dk1[mi][nt][3] = 0.f;
+  dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
+
+  // row r of this block's partial sums, in the layout of k3b_kernel's (dk1,
+  // db1, dk2, db2); the sums restart from zero
+  auto flush = [&](int r) {
+    float* pb = partial + ((size_t)blockIdx.x * nrows + r) * n;
+#pragma unroll
+    for (int mi = 0; mi < MC; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int c = mi * 16 + gq + hf * 8, j = 16 * warp + nt * 8 + 2 * q;
+          pb[c * kH1 + j] = dk1[mi][nt][2 * hf];
+          pb[c * kH1 + j + 1] = dk1[mi][nt][2 * hf + 1];
+        }
+    if (gq == 0)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int j = 16 * warp + nt * 8 + 2 * q;
+        pb[C * kH1 + j] = dk1[MC][nt][0];
+        pb[C * kH1 + j + 1] = dk1[MC][nt][1];
+      }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 16 * warp + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
+      if (f < F) pb[C * kH1 + kH1 + j * F + f] = dk2[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = db2[e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (gq == 0) sred[warp * 8 + 2 * q + e] = v;
+    }
+    __syncthreads();
+    if (tid < F) {
+      float v = 0.f;
+      for (int w = 0; w < kMmaThreads / 32; ++w) v += sred[w * 8 + tid];
+      pb[C * kH1 + kH1 + kH1 * F + tid] = v;
+    }
+    __syncthreads();   // sred is read before the next flush writes it
+#pragma unroll
+    for (int mi = 0; mi <= MC; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        dk1[mi][nt][0] = dk1[mi][nt][1] = dk1[mi][nt][2] = dk1[mi][nt][3] = 0.f;
+    dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
+    db2[0] = db2[1] = 0.f;
+  };
+
+  int tile = blockIdx.x, it = 0;
+  if (tile < ntiles) fetch(tile, 0);
+  const int p0 = warp * 16;
+  for (; tile < ntiles; ++it, tile += gridDim.x) {
+    const int stage = it & 1;
+    mma::cp_async_wait<0>();
+    __syncthreads();   // z of this tile has landed; the previous tile's readers are done
+    if (tile + gridDim.x < ntiles) fetch(tile + gridDim.x, stage ^ 1);
+    int bT, h, w0, bt;
+    decode(tile, bT, h, w0, bt);
+    const int P = min(kTP, W - w0);
+    const bf16* zt = sz + stage * kTP * ZS;
+
+    // u1 = z k1 + b1 on this warp's 16 positions, all 128 hidden units
+    float u[16][4];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const float2 bv = *reinterpret_cast<const float2*>(sb1 + nt * 8 + 2 * q);
+      u[nt][0] = u[nt][2] = bv.x;
+      u[nt][1] = u[nt][3] = bv.y;
+    }
+#pragma unroll
+    for (int ks = 0; ks < C / 16; ++ks) {
+      uint32_t fa[4];
+      mma::ldmatrix_x4(fa, mma::smem_addr(zt + p0 * ZS + mma::a_frag_offset(lane, ks * 16, ZS)));
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        int k, n;
+        mma::b_frag_row(lane, ks * 16, np * 16, k, n);
+#pragma unroll
+        for (int hl = 0; hl < 2; ++hl) {
+          uint32_t fb[4];
+          mma::ldmatrix_x4_trans(fb, mma::smem_addr(sk1 + hl * C * kKS + k * kKS + n));
+          mma::mma_bf16(u[2 * np], fa, fb[0], fb[1]);
+          mma::mma_bf16(u[2 * np + 1], fa, fb[2], fb[3]);
+        }
+      }
+    }
+
+    // h1 = act(u1) into shared memory (hi, lo) and through o = h1 k2; u
+    // keeps act'(u1)
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int nt = 2 * ks + (r >> 1), hf = r & 1;
+        float hv0, hv1;
+        fno::act_and_grad_fast(u[nt][2 * hf], ACT, hv0, u[nt][2 * hf]);
+        fno::act_and_grad_fast(u[nt][2 * hf + 1], ACT, hv1, u[nt][2 * hf + 1]);
+        mma::split_pack(hv0, hv1, ahi[r], alo[r]);
+        const int at = (p0 + gq + hf * 8) * kKS + nt * 8 + 2 * q;
+        *reinterpret_cast<uint32_t*>(sh + at) = ahi[r];
+        *reinterpret_cast<uint32_t*>(sh + kTP * kKS + at) = alo[r];
+      }
+      const int kb = gq * kKS + ks * 16 + 2 * q;
+      const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(sk2t + kb);
+      const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(sk2t + kb + 8);
+      const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(sk2t + 8 * kKS + kb);
+      const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(sk2t + 8 * kKS + kb + 8);
+      mma::mma_bf16(o, ahi, bh0, bh1);
+      mma::mma_bf16(o, alo, bh0, bh1);
+      mma::mma_bf16(o, ahi, bl0, bl1);
+    }
+
+    // do = 2 g (o + b2 - target), zero past the tile's positions and F
+    float dv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
+      dv[e] = 0.f;
+      if (p < P && f < F)
+        dv[e] = g2 * (o[e] + sb2[f] - target[(((size_t)bT * H + h) * W + w0 + p) * F + f]);
+    }
+    db2[0] += dv[0] + dv[2];
+    db2[1] += dv[1] + dv[3];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      uint32_t hi, lo;
+      mma::split_pack(dv[2 * hf], dv[2 * hf + 1], hi, lo);
+      const int at = (p0 + gq + hf * 8) * kDoS + 2 * q;
+      *reinterpret_cast<uint32_t*>(sdo + at) = hi;
+      *reinterpret_cast<uint32_t*>(sdo + kTP * kDoS + at) = lo;
+    }
+
+    // du = (do k2^T) act'(u1), in place of act'(u1)
+    float dor[2][8];   // do of this lane's rows gq, gq + 8
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dor[e >> 1][2 * qq + (e & 1)] = __shfl_sync(0xffffffffu, dv[e], gq * 4 + qq);
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float* kr = sk2f + (nt * 8 + 2 * q + jj) * 8;
+        const float4 ka = *reinterpret_cast<const float4*>(kr);
+        const float4 kb = *reinterpret_cast<const float4*>(kr + 4);
+        const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float dh = 0.f;
+#pragma unroll
+          for (int f = 0; f < kMaxF; ++f)
+            if (f < F) dh = fmaf(dor[rr][f], kv[f], dh);
+          u[nt][2 * rr + jj] *= dh;
+        }
+      }
+
+    // ds = du k1^T, this warp's positions, NG channels a pass
+    bf16* dsb = ds + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
+#pragma unroll
+    for (int cg = 0; cg < C / NG; ++cg) {
+      float acc[NG / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < NG / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        uint32_t fa[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int nt = 2 * ks + (r >> 1), hf = r & 1;
+          fa[r] = mma::pack_bf16(u[nt][2 * hf], u[nt][2 * hf + 1]);
+        }
+#pragma unroll
+        for (int np = 0; np < NG / 16; ++np) {
+          int n, k;
+          mma::bt_frag_row(lane, ks * 16, cg * NG + np * 16, n, k);
+          uint32_t fb[4];
+          mma::ldmatrix_x4(fb, mma::smem_addr(sk1 + n * kKS + k));
+          mma::mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
+          mma::mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NG / 8; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = p0 + gq + hf * 8;
+          if (p < P)
+            *reinterpret_cast<uint32_t*>(dsb + (size_t)p * C + cg * NG + nt * 8 + 2 * q) =
+                mma::pack_bf16(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+        }
+    }
+    __syncthreads();   // every warp's h1 and do are in shared memory
+
+    // dk2 += h1^T do on hidden units 16 warp .. + 15
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      int k, m;
+      mma::at_frag_row(lane, ks * 16, 16 * warp, k, m);
+      uint32_t ah[4], al[4], bh[4], bl[4];
+      mma::ldmatrix_x4_trans(ah, mma::smem_addr(sh + k * kKS + m));
+      mma::ldmatrix_x4_trans(al, mma::smem_addr(sh + kTP * kKS + k * kKS + m));
+      int kk, n;
+      mma::b_frag_row(lane, ks * 16, 0, kk, n);
+      mma::ldmatrix_x4_trans(bh, mma::smem_addr(sdo + kk * kDoS + n));
+      mma::ldmatrix_x4_trans(bl, mma::smem_addr(sdo + kTP * kDoS + kk * kDoS + n));
+      mma::mma_bf16(dk2, ah, bh[0], bh[1]);
+      mma::mma_bf16(dk2, al, bh[0], bh[1]);
+      mma::mma_bf16(dk2, ah, bl[0], bl[1]);
+    }
+    __syncthreads();   // h1 is read: du takes its place
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        uint32_t hi, lo;
+        mma::split_pack(u[nt][2 * hf], u[nt][2 * hf + 1], hi, lo);
+        const int at = (p0 + gq + hf * 8) * kKS + nt * 8 + 2 * q;
+        *reinterpret_cast<uint32_t*>(sh + at) = hi;
+        *reinterpret_cast<uint32_t*>(sh + kTP * kKS + at) = lo;
+      }
+    __syncthreads();   // every warp's du is in shared memory
+
+    // dk1 += z^T du and db1 += 1^T du on hidden units 16 warp .. + 15
+    const uint32_t one = gq == 0 ? 0x3F803F80u : 0u;   // row 0 of the ones tile: bf16 1.0, 1.0
+    const uint32_t ones[4] = {one, 0u, one, 0u};
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      int k, n;
+      mma::b_frag_row(lane, ks * 16, 16 * warp, k, n);
+      uint32_t bh[4], bl[4];
+      mma::ldmatrix_x4_trans(bh, mma::smem_addr(sh + k * kKS + n));
+      mma::ldmatrix_x4_trans(bl, mma::smem_addr(sh + kTP * kKS + k * kKS + n));
+#pragma unroll
+      for (int mi = 0; mi <= MC; ++mi) {
+        uint32_t fa[4];
+        if (mi < MC) {
+          int kz, mz;
+          mma::at_frag_row(lane, ks * 16, mi * 16, kz, mz);
+          mma::ldmatrix_x4_trans(fa, mma::smem_addr(zt + kz * ZS + mz));
+        } else {
+          fa[0] = ones[0];
+          fa[1] = ones[1];
+          fa[2] = ones[2];
+          fa[3] = ones[3];
+        }
+        mma::mma_bf16(dk1[mi][0], fa, bh[0], bh[1]);
+        mma::mma_bf16(dk1[mi][0], fa, bl[0], bl[1]);
+        mma::mma_bf16(dk1[mi][1], fa, bh[2], bh[3]);
+        mma::mma_bf16(dk1[mi][1], fa, bl[2], bl[3]);
+      }
+    }
+    if ((it + 1) % kFlush == 0) flush(it / kFlush);
+  }
+  // the last rows: the sums of a group under kFlush tiles, then zeros
+  for (int r = it / kFlush; r < nrows; ++r) flush(r);
+
+  // zeros outside the crop: rows of images t >= T and rows h >= H whole,
+  // positions w >= W of the cropped rows
+  const int rows = d.B * d.Tp * d.Hp;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int bt = r / d.Hp, h = r - bt * d.Hp;
+    const int w_from = (bt % d.Tp < T && h < H) ? W : 0;
+    uint4* dst = reinterpret_cast<uint4*>(ds + ((size_t)r * d.Wp + w_from) * C);
+    for (int i = tid; i < (d.Wp - w_from) * (C / 8); i += kMmaThreads)
+      dst[i] = make_uint4(0, 0, 0, 0);
+  }
+}
+
 cudaError_t check_dims(const TailDims& d, int B, int H1) {
   if (B < 1 || d.T < 1 || d.H < 1 || d.W < 1 || d.T > d.Tp || d.H > d.Hp || d.W > d.Wp ||
       d.C < 8 || d.C > kMaxC || d.C % 8 != 0 || d.F < 1 || d.F > kMaxF || H1 != kH1)
@@ -387,13 +802,87 @@ cudaError_t launch_k3b(const void* s, const void* target, const void* k1, const 
                               B * d.Tp, d.C * kH1 + kH1 + kH1 * d.F + d.F, stream);
 }
 
+// The mma variant's grid: one block an SM (its shared memory allows one),
+// never more blocks than tiles; 0 on error.
+int k3b_mma_blocks(const TailDims& d) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    return 0;
+  const long long tiles = (long long)d.B * d.T * d.H * ((d.W + kTP - 1) / kTP);
+  return (int)(tiles < sms ? tiles : sms);
+}
+
+// Rows of partial sums of the mma variant: kFlush tiles a row, as many rows a
+// block as the most tiles a block takes need (k3b_mma_kernel's nrows).
+int k3b_mma_rows(const TailDims& d, int nblocks) {
+  const long long tiles = (long long)d.B * d.T * d.H * ((d.W + kTP - 1) / kTP);
+  const long long per_block = (tiles + nblocks - 1) / nblocks;
+  return nblocks * (int)((per_block + kFlush - 1) / kFlush);
+}
+
+template <int C, int ACT>
+cudaError_t launch_k3b_mma_as(const void* s, const void* target, const void* k1, const void* b1,
+                              const void* k2, const void* b2, const void* g, void* ds,
+                              void* partial, int nblocks, const TailDims& d, cudaStream_t stream) {
+  auto kernel = k3b_mma_kernel<C, ACT>;
+  const int smem = k3b_mma_smem(C);
+  cudaError_t err = fno::allow_smem(kernel, (size_t)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<nblocks, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(s), static_cast<const float*>(target),
+      static_cast<const float*>(k1), static_cast<const float*>(b1),
+      static_cast<const float*>(k2), static_cast<const float*>(b2),
+      static_cast<const float*>(g), static_cast<bf16*>(ds), static_cast<float*>(partial), d);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_k3b_mma(const void* s, const void* target, const void* k1, const void* b1,
+                           const void* k2, const void* b2, const void* g, void* ds,
+                           void* partial, void* out, const TailDims& d, cudaStream_t stream) {
+  for (const void* p : {s, (const void*)ds})
+    if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
+  const int nblocks = k3b_mma_blocks(d);
+  if (nblocks < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define K3B_MMA(CC, AA)                                                                         \
+  if (d.C == CC && d.act == AA)                                                                 \
+  err = launch_k3b_mma_as<CC, AA>(s, target, k1, b1, k2, b2, g, ds, partial, nblocks, d, stream)
+  K3B_MMA(64, fno::kActExact);   // the cylinder and combustion
+  K3B_MMA(128, fno::kActExact);  // fsi
+  K3B_MMA(32, fno::kActExact);
+  K3B_MMA(32, fno::kActTanh);
+  K3B_MMA(64, fno::kActTanh);
+  K3B_MMA(128, fno::kActTanh);
+  K3B_MMA(32, fno::kActNone);
+  K3B_MMA(64, fno::kActNone);
+  K3B_MMA(128, fno::kActNone);
+#undef K3B_MMA
+  if (err != cudaSuccess) return err;
+  return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(out),
+                              k3b_mma_rows(d, nblocks), d.C * kH1 + kH1 + kH1 * d.F + d.F, stream);
+}
+
 }  // namespace
+
+// Bytes of shared memory a block of K3B's mma variant takes at width C.
+extern "C" int fno_k3b_mma_smem_bytes(int C) { return k3b_mma_smem(C); }
+
+// Rows of K3B's partial sums for variant 0 (fma: one an image) or 1 (mma:
+// k3b_mma_rows over the persistent grid of min(SMs, tiles) blocks); 0 on
+// error.
+extern "C" int fno_k3b_num_partials(int B, int T, int H, int W, int Tp, int variant) {
+  if (variant == 0) return B * Tp;
+  const TailDims d{T, H, W, Tp, 0, 0, 0, 0, 0, B};
+  const int nblocks = variant == 1 ? k3b_mma_blocks(d) : 0;
+  return nblocks < 1 ? 0 : k3b_mma_rows(d, nblocks);
+}
 
 extern "C" int fno_k3f(const void* s, const void* target, const void* k1, const void* b1,
                        const void* k2, const void* b2, void* partial, void* sse, int B, int T,
                        int H, int W, int Tp, int Hp, int Wp, int C, int H1, int F, int act,
                        int dtype, void* stream) {
-  const TailDims d{T, H, W, Tp, Hp, Wp, C, F, act};
+  const TailDims d{T, H, W, Tp, Hp, Wp, C, F, act, B};
   cudaError_t err = check_dims(d, B, H1);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -403,14 +892,21 @@ extern "C" int fno_k3f(const void* s, const void* target, const void* k1, const 
   return cudaErrorInvalidValue;
 }
 
+// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["k3b"]); partial holds
+// fno_k3b_num_partials(...) rows of C*H1 + H1 + H1*F + F floats.
 extern "C" int fno_k3b(const void* s, const void* target, const void* k1, const void* b1,
                        const void* k2, const void* b2, const void* g, void* ds, void* partial,
                        void* out, int B, int T, int H, int W, int Tp, int Hp, int Wp, int C,
-                       int H1, int F, int act, int dtype, void* stream) {
-  const TailDims d{T, H, W, Tp, Hp, Wp, C, F, act};
+                       int H1, int F, int act, int variant, int dtype, void* stream) {
+  const TailDims d{T, H, W, Tp, Hp, Wp, C, F, act, B};
   cudaError_t err = check_dims(d, B, H1);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
+    return launch_k3b_mma(s, target, k1, b1, k2, b2, g, ds, partial, out, d, st);
+  }
+  if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32)
     return launch_k3b<float>(s, target, k1, b1, k2, b2, g, ds, partial, out, B, d, st);
   if (dtype == fno::kBF16)

@@ -54,6 +54,15 @@ __device__ __forceinline__ void b_frag_row(int lane, int k0, int n0, int& k, int
   n = n0 + (lane >> 4) * 8;
 }
 
+// (n, k) of the row this lane names to ldmatrix_x4 (not transposed) for the
+// B fragments of the 16 x 16 block at (k0, n0) of a row-major [n][k] tile
+// (B stored as its transpose): (r0, r1) for columns n0..n0+7, (r2, r3) for
+// n0+8..n0+15, as ldmatrix_x4_trans gives them from a [k][n] tile.
+__device__ __forceinline__ void bt_frag_row(int lane, int k0, int n0, int& n, int& k) {
+  n = n0 + (lane >> 4) * 8 + (lane & 7);
+  k = k0 + ((lane >> 3) & 1) * 8;
+}
+
 // (k, m) of the row this lane names to ldmatrix_x4_trans for an A fragment
 // of the 16 x 16 block at (m0, k0) of a row-major [k][m] tile (the
 // transpose of the A operand is what is stored): matrix l/8 covers m0 +
@@ -104,6 +113,15 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t r) {
 __device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi, __nv_bfloat16& lo) {
   hi = __float2bfloat16_rn(v);
   lo = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+// The (hi, lo) split of a pair of floats, each part packed as one register
+// of two bf16 (v0 in the lower half): an MMA operand pair.
+__device__ __forceinline__ void split_pack(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
 }
 
 }  // namespace mma

@@ -15,7 +15,8 @@ tensor between layers is always the pre-BN ``s``. Forward:
 
 Backward (``fused_fno_layer`` is one autograd function):
 
-  K2A-lite dg = A(ds) + ds1·A1 + 2·ds2·A(s), A(s) from g, y (csrc/fno_k2a.cu)
+  K2A-lite dg = A(ds) + ds1·A1 + 2·ds2·A(s), A(s) from g, y (csrc/fno_k2a.cu;
+           bf16: K1's tensor-core body, csrc/fno_dft_mma.cuh)
            (K2A, the full-read form, for a geometry the lite fit rejects)
   T-stage  adjoint of the inverse T (it_adj)                (csrc/fno_tstage.cu)
   corner   dx2, dwr, dwi                                    (torch.einsum)
@@ -189,27 +190,27 @@ def _k2_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int, rows: i
     return tuple(t.to(device) for t in _k2_mma_tables(Hp, Wp, m2, m3, rows))
 
 
-def _k1_mma_tables(Hp: int, Wp: int, m2: int, m3: int, dtype=torch.bfloat16):
-    """The DFT constants of K1's tensor-core variant in the layout of its
-    MMA A operands, bfloat16 (one rounding, as JAX's ``_dot`` rounds its
-    operands; ``dtype`` float32 keeps them unrounded), CPU tensors:
+def _wh_mma_tables(wr, wi, hr, hi, dtype):
+    """The two tables of the tensor-core (W, H) DFT body (csrc/fno_dft_mma.cuh)
+    for the map X[h, m] = Σ_w (wr | wi)[w, m]·v[h, w], then
+    Y_j = Σ_h (hr + i·hi)[h, j]·(X_re + i·X_im)[h], from wr, wi [Wp, m3] and
+    hr, hi [Hp, 2m2], in ``dtype``, CPU tensors:
 
-      ew [2·m3, KW]  forward W, KW = Wp rounded up to 16: row m is
-          ewr[:, m], row m3 + m is ewi[:, m]; columns w ≥ Wp zero.
-      eh [ceil(Hp/8), R, 16]  forward H for a chunk of 8 rows h = 8·ch + r,
-          R = 2·(2m2) rounded up to 16: row j gives Re y_j from
-          k = (re | im, r) as [ehr[h, j] | −ehi[h, j]], row 2m2 + j gives
-          Im y_j as [ehi[h, j] | ehr[h, j]]; rows ≥ 2·(2m2) and rows of
+      ew [2·m3, KW]  KW = Wp rounded up to 16: row m is wr[:, m], row m3 + m
+          is wi[:, m]; columns w ≥ Wp zero.
+      eh [ceil(Hp/8), R, 16]  for a chunk of 8 rows h = 8·ch + r,
+          R = 2·(2m2) rounded up to 16: row j gives Re Y_j from
+          k = (re | im, r) as [hr[h, j] | −hi[h, j]], row 2m2 + j gives
+          Im Y_j as [hi[h, j] | hr[h, j]]; rows ≥ 2·(2m2) and rows of
           h ≥ Hp zero.
     """
-    c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
-    m2x2, rows = 2 * m2, kernels.K1_MMA_ROWS
+    (Wp, m3), (Hp, m2x2), rows = wr.shape, hr.shape, kernels.K1_MMA_ROWS
     ew = torch.zeros(2 * m3, -(-Wp // 16) * 16)
-    ew[:m3, :Wp], ew[m3:, :Wp] = c["ewr"].t(), c["ewi"].t()
+    ew[:m3, :Wp], ew[m3:, :Wp] = wr.t(), wi.t()
     nch = -(-Hp // rows)
     ehr = torch.zeros(nch * rows, m2x2)
     ehi = torch.zeros(nch * rows, m2x2)
-    ehr[:Hp], ehi[:Hp] = c["ehr"], c["ehi"]
+    ehr[:Hp], ehi[:Hp] = hr, hi
     ehr, ehi = (t.view(nch, rows, m2x2).transpose(1, 2) for t in (ehr, ehi))  # [nch, j, r]
     eh = torch.zeros(nch, -(-2 * m2x2 // 16) * 16, 2 * rows)
     eh[:, :m2x2, :rows], eh[:, :m2x2, rows:] = ehr, -ehi
@@ -217,9 +218,35 @@ def _k1_mma_tables(Hp: int, Wp: int, m2: int, m3: int, dtype=torch.bfloat16):
     return ew.to(dtype).contiguous(), eh.to(dtype).contiguous()
 
 
+def _k1_mma_tables(Hp: int, Wp: int, m2: int, m3: int, dtype=torch.bfloat16):
+    """The DFT constants of K1's tensor-core variant in the layout of its
+    MMA A operands (``_wh_mma_tables`` of the forward factors ewr, ewi, ehr,
+    ehi), bfloat16 (one rounding, as JAX's ``_dot`` rounds its operands;
+    ``dtype`` float32 keeps them unrounded)."""
+    c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
+    return _wh_mma_tables(c["ewr"], c["ewi"], c["ehr"], c["ehi"], dtype)
+
+
+def _k2a_mma_tables(Hp: int, Wp: int, m2: int, m3: int, dtype=torch.bfloat16):
+    """The DFT constants of K2A-lite's tensor-core variant: the adjoint A of
+    K2's inverse DFT in K1's layout (``_wh_mma_tables``), bfloat16 (or
+    ``dtype``). Its W product reads the inverse factors (row m of iw is
+    iwr[m], row m3 + m is iwi[m]); its H fold carries the adjoint's signs,
+    Re dg_j = Σ_h ihr[j, h]·dR + ihi[j, h]·dI and
+    Im dg_j = Σ_h ihr[j, h]·dI − ihi[j, h]·dR, which is K1's fold with
+    hr = ihrᵀ and hi = −ihiᵀ."""
+    c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
+    return _wh_mma_tables(c["iwr"].t(), c["iwi"].t(), c["ihr"].t(), -c["ihi"].t(), dtype)
+
+
 @lru_cache(maxsize=64)
 def _k1_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int):
     return tuple(t.to(device) for t in _k1_mma_tables(Hp, Wp, m2, m3))
+
+
+@lru_cache(maxsize=64)
+def _k2a_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int):
+    return tuple(t.to(device) for t in _k2a_mma_tables(Hp, Wp, m2, m3))
 
 
 @lru_cache(maxsize=64)
@@ -527,18 +554,24 @@ def k2a(s, ds, ds1, ds2, *, Hp: int, Wp: int, m2: int, m3: int):
 
 
 def k2a_lite(ds, g, y, ds1, ds2, wp, bp, *, Hp: int, Wp: int, m2: int,
-             m3: int):
-    """Raises ValueError for a geometry without lite statics."""
+             m3: int, variant=None):
+    """Raises ValueError for a geometry without lite statics. On the card,
+    the variant ``kernels.k2a_lite_variant`` chooses from dtype, shape and
+    alignment (or the one named): the packed tables go with the mma
+    variant."""
     cst = _ct_on(ds.device, Hp, Wp, m2, m3)
     lite = _lite_on(ds.device, Hp, Wp, m2, m3)
     if lite is None:
         raise ValueError(f"no K2A-lite statics for (Hp={Hp}, Wp={Wp}, "
                          f"m2={m2}, m3={m3}); use k2a")
     if _use_kernel(ds):
+        name = variant or kernels.k2a_lite_variant(ds.dtype, ds.shape[-1] // 2, 2 * m2, m3,
+                                                   Wp, kernels.aligned(ds, g, y))
+        tables = _k2a_mma_on(ds.device, Hp, Wp, m2, m3) if name == "mma" else None
         return kernels.k2a_lite(ds, g, y, ds1, ds2, wp, bp, lite["alpha"],
                                 lite["beta"], lite["D"], lite["A1"],
                                 cst["ihr"], cst["ihi"], cst["iwr"], cst["iwi"],
-                                Hp=Hp, Wp=Wp)
+                                Hp=Hp, Wp=Wp, tables=tables, variant=variant)
     return k2a_lite_plain(ds, g, y, ds1, ds2, wp, bp, lite, cst, Hp=Hp, Wp=Wp)
 
 

@@ -7,7 +7,7 @@ as one autograd function:
   K3F  crop, fc1 (the last BatchNorm folded in), GELU, fc2, SSE
        (csrc/fno_tail.cu)
   K3B  the same forward recomputed, then ds, dk1, db1, dk2, db2
-       (csrc/fno_tail.cu)
+       (csrc/fno_tail.cu; bf16: on the tensor cores)
 
 so the fc1 activation [positions, 128] and the prediction never exist in
 device memory. ``s`` is the last layer's pre-BN output in the layers' layout
@@ -66,10 +66,13 @@ def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str):
                      tail_dims=tail_dims, act=act)
 
 
-def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str):
+def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str,
+        variant=None):
+    """On the card, the variant ``kernels.k3b_variant`` chooses from dtype,
+    width and alignment (or the one named)."""
     if _use_kernel(s):
         return kernels.k3b(s, target, k1, b1, k2, b2, g, dims=dims,
-                           tail_dims=tail_dims, act=act)
+                           tail_dims=tail_dims, act=act, variant=variant)
     return k3b_plain(s, target, k1, b1, k2, b2, g, dims=dims,
                      tail_dims=tail_dims, act=act)
 

@@ -14,13 +14,14 @@ tensors, allocates the outputs and scratch, launches on PyTorch's current
 stream (the kernels allocate nothing and do not synchronise), raises if the
 launch returned an error, and adds one to its entry in ``LAUNCHES``.
 
-K1, the T-stage, K2 and K12B have two variants each, chosen from dtype,
-shape and the 16-byte alignment of the data before the launch by the pure
-functions ``k1_variant``, ``t_stage_variant``, ``k2_variant`` and
-``k12b_variant`` (``VARIANTS`` counts the launches of each): the T-stage's
-``registers`` (a thread produces every output of its column) or
-``generic``; K1's, K2's and K12B's ``mma`` (bf16, their contractions on the
-tensor cores) or ``fma`` (exact f32 arithmetic). A caller may name the variant; one that does not take
+K1, the T-stage, K2, K2A-lite, K12B and K3B have two variants each, chosen
+from dtype, shape and the 16-byte alignment of the data before the launch by
+the pure functions ``k1_variant``, ``t_stage_variant``, ``k2_variant``,
+``k2a_lite_variant``, ``k12b_variant`` and ``k3b_variant`` (``VARIANTS``
+counts the launches of each): the T-stage's ``registers`` (a thread
+produces every output of its column) or ``generic``; the others' ``mma``
+(bf16, their products on the tensor cores) or ``fma`` (exact f32
+arithmetic). A caller may name the variant; one that does not take
 the input raises. No variant gives way to another after a failure.
 Nothing here runs at import: this module is imported on machines with no
 GPU and no nvcc, where only the plain twins in ``ops/fno_layer.py``,
@@ -71,7 +72,8 @@ LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
 # Launches per variant of the kernels that have more than one; the keys'
 # order is the variant code of the csrc/ entry point.
 VARIANTS = {"k1": {"fma": 0, "mma": 0}, "t_stage": {"generic": 0, "registers": 0},
-            "k2": {"fma": 0, "mma": 0}, "k12b": {"fma": 0, "mma": 0}}
+            "k2": {"fma": 0, "mma": 0}, "k2a_lite": {"fma": 0, "mma": 0},
+            "k12b": {"fma": 0, "mma": 0}, "k3b": {"fma": 0, "mma": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
@@ -160,6 +162,53 @@ def k1_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
     if (dtype == torch.bfloat16 and aligned and C % K1_MMA_SLICE == 0
             and m3 in K1_MMA_M3 and m2x2 <= 32 and Wp <= K1_MMA_MAX_WP
             and k1_mma_smem_bytes(Wp, m3) <= MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
+
+
+# csrc/fno_k2a.cu, K2A-lite's mma variant: K1's body (fno_dft_mma.cuh) and
+# the slice of wps [C][K2A_LITE_WPS_STRIDE] in bf16; widths up to 128
+K2A_LITE_WPS_STRIDE, K2A_LITE_MMA_MAX_C = 24, 128
+
+
+def k2a_lite_mma_smem_bytes(Wp: int, m3: int, C: int) -> int:
+    """Shared memory of a block of K2A-lite's mma variant (csrc/fno_k2a.cu::
+    k2a_lite_mma_smem): K1's mma body, then the slice of wps in bf16."""
+    return k1_mma_smem_bytes(Wp, m3) + C * K2A_LITE_WPS_STRIDE * 2
+
+
+def k2a_lite_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
+                     aligned: bool = True) -> str:
+    """'mma' for bfloat16 with C a multiple of 16 up to 128, an instantiated
+    m3, at most 32 H modes, Wp <= 256 and 16-byte aligned ds, g and y, else
+    'fma'."""
+    if (dtype == torch.bfloat16 and aligned and C % K1_MMA_SLICE == 0
+            and C <= K2A_LITE_MMA_MAX_C and m3 in K1_MMA_M3 and m2x2 <= 32
+            and Wp <= K1_MMA_MAX_WP
+            and k2a_lite_mma_smem_bytes(Wp, m3, C) <= MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
+
+
+# csrc/fno_tail.cu, K3B's mma variant: widths, positions a tile takes, the
+# padded row strides of its [.][128] tiles and of its do tile
+K3B_MMA_WIDTHS, K3B_MMA_TILE, K3B_MMA_KS, K3B_MMA_DOS = (32, 64, 128), 128, 136, 24
+
+
+def k3b_mma_smem_bytes(C: int) -> int:
+    """Shared memory of a block of K3B's mma variant (csrc/fno_tail.cu::
+    k3b_mma_smem): k1 hi and lo, two z stages, h1/du hi and lo, do hi and
+    lo, k2ᵀ hi and lo (bf16); k2, b1, b2 and the warps' db2 (f32)."""
+    P, KS, DOS = K3B_MMA_TILE, K3B_MMA_KS, K3B_MMA_DOS
+    return (2 * (2 * C * KS + 2 * P * (C + 8) + 2 * P * KS + 2 * P * DOS + 2 * 8 * KS)
+            + 4 * (128 * 8 + 128 + 8 + 64))
+
+
+def k3b_variant(dtype, C: int, F: int = 3, aligned: bool = True) -> str:
+    """'mma' for bfloat16 at an instantiated width (32, 64, 128), F <= 8
+    and 16-byte aligned s, else 'fma'."""
+    if (dtype == torch.bfloat16 and aligned and C in K3B_MMA_WIDTHS and F <= 8
+            and k3b_mma_smem_bytes(C) <= MAX_SMEM_BYTES):
         return "mma"
     return "fma"
 
@@ -280,12 +329,15 @@ SIGNATURES = {
     "fno_k2": ([_P] * 15 + [_I] * 9 + [_P], _I),
     "fno_k2_num_partials": ([_I] * 4, _I),
     "fno_k2_mma_smem_bytes": ([_I] * 4, _I),
-    "fno_k2a": ([_P] * 16 + [_I] * 8 + [_P], _I),
+    "fno_k2a": ([_P] * 18 + [_I] * 9 + [_P], _I),
+    "fno_k2a_lite_mma_smem_bytes": ([_I] * 3, _I),
     "fno_k12b": ([_P] * 18 + [_I] * 9 + [_P], _I),
     "fno_k12b_partial_floats": ([_I] * 5, ctypes.c_longlong),
     "fno_k12b_mma_smem_bytes": ([_I] * 4, _I),
     "fno_k3f": ([_P] * 8 + [_I] * 12 + [_P], _I),
-    "fno_k3b": ([_P] * 10 + [_I] * 12 + [_P], _I),
+    "fno_k3b": ([_P] * 10 + [_I] * 13 + [_P], _I),
+    "fno_k3b_num_partials": ([_I] * 6, _I),
+    "fno_k3b_mma_smem_bytes": ([_I], _I),
     "ta_fwd": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "ta_bwd_num_partials": ([_I] * 5, _I),
     "ta_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
@@ -513,15 +565,19 @@ def k2a(s, ds, ds1, ds2, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int):
     null = ctypes.c_void_p(None)
     _launch("k2a", library().fno_k2a, dev, _p(ds), _p(s), null, null, _p(ds1),
             _p(two), null, null, null, null, null, _p(ihr),
-            _p(ihi), _p(iwr), _p(iwi), _p(dg), BT, Hp, Wp, C, m2x2, m3, 0, dt)
+            _p(ihi), _p(iwr), _p(iwi), null, null, _p(dg), BT, Hp, Wp, C, m2x2, m3,
+            0, 0, dt)
     return dg
 
 
 def k2a_lite(ds, g, y, ds1, ds2, wp, bp, alpha, beta, D, A1, ihr, ihi, iwr,
-             iwi, *, Hp: int, Wp: int):
+             iwi, *, Hp: int, Wp: int, tables=None, variant: str | None = None):
     """(ds like x; g, y [BT, 2m2*m3, 2C]; ds1, ds2, bp [C], wp [C, C] f32;
     the [Y, 2] lite statics) → dg; the lite mode of csrc/fno_k2a.cu. The
-    [C]- and [C, C]-sized folds of ds1, ds2 and bp are made here."""
+    [C]- and [C, C]-sized folds of ds1, ds2 and bp are made here.
+    ``variant`` names one of VARIANTS['k2a_lite']; by default
+    ``k2a_lite_variant`` chooses. The mma variant needs ``tables`` = (iw,
+    ih), the packed bf16 DFT tables of ``ops/fno_layer._k2a_mma_tables``."""
     dt = _io_dtype(ds)
     dev, f32 = ds.device, torch.float32
     BT, C = ds.shape[0], ds.shape[-1] // 2
@@ -536,15 +592,42 @@ def k2a_lite(ds, g, y, ds1, ds2, wp, bp, alpha, beta, D, A1, ihr, ihi, iwr,
                      ("ihr", ihr, (m2x2, Hp)), ("ihi", ihi, (m2x2, Hp)),
                      ("iwr", iwr, (m3, Wp)), ("iwi", iwi, (m3, Wp))):
         _check(n, t, dev, f32, sh)
-    _check_k1_shape("k2a_lite", C, m2x2, m3)
+    ok = aligned(ds, g, y)
+    chosen = k2a_lite_variant(ds.dtype, C, m2x2, m3, Wp, ok)
+    name = chosen if variant is None else variant
+    code = _variant_code("k2a_lite", name)
+    lib = library()
+    iw = ih = ctypes.c_void_p(None)
+    if name == "mma":
+        if chosen != "mma":
+            raise ValueError(
+                f"k2a_lite: the mma variant takes bfloat16, C a multiple of {K1_MMA_SLICE} up "
+                f"to {K2A_LITE_MMA_MAX_C}, m3 in {K1_MMA_M3}, 2*m2 <= 32, Wp <= "
+                f"{K1_MMA_MAX_WP} and 16-byte aligned ds, g and y; got {ds.dtype}, C={C}, "
+                f"m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={ok}")
+        if tables is None:
+            raise ValueError("k2a_lite: the mma variant needs the packed tables")
+        kw, nch = -(-Wp // 16) * 16, -(-Hp // K1_MMA_ROWS)
+        _check("iw", tables[0], dev, torch.bfloat16, (2 * m3, kw))
+        _check("ih", tables[1], dev, torch.bfloat16, (nch, -(-2 * m2x2 // 16) * 16, 16))
+        for n, t in (("iw", tables[0]), ("ih", tables[1])):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{n}: not 16-byte aligned")
+        if lib.fno_k2a_lite_mma_smem_bytes(Wp, m3, C) != k2a_lite_mma_smem_bytes(Wp, m3, C):
+            raise RuntimeError("k2a_lite: the shared-memory layouts of kernels.py and "
+                               "fno_k2a.cu differ")
+        iw, ih = _p(tables[0]), _p(tables[1])
+    else:
+        _check_k1_shape("k2a_lite", C, m2x2, m3)
     two = (2.0 * ds2).contiguous()
     dsc = (ds1 + two * bp).contiguous()
     wps = (wp * two[None, :]).contiguous()
     dg = torch.empty((BT, Y, 2 * C), dtype=ds.dtype, device=dev)
-    _launch("k2a_lite", library().fno_k2a, dev, _p(ds), ctypes.c_void_p(None),
+    _launch("k2a_lite", lib.fno_k2a, dev, _p(ds), ctypes.c_void_p(None),
             _p(g), _p(y), _p(dsc), _p(two), _p(wps), _p(alpha), _p(beta), _p(D),
-            _p(A1), _p(ihr), _p(ihi), _p(iwr), _p(iwi), _p(dg), BT, Hp, Wp, C,
-            m2x2, m3, 1, dt)
+            _p(A1), _p(ihr), _p(ihi), _p(iwr), _p(iwi), iw, ih, _p(dg), BT, Hp, Wp, C,
+            m2x2, m3, 1, code, dt)
+    VARIANTS["k2a_lite"][name] += 1
     return dg
 
 
@@ -641,20 +724,38 @@ def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str):
     return sse
 
 
-def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str):
+def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str,
+        variant: str | None = None):
     """With g = dL/dSSE (0-d f32 on the card): (ds like s, zero outside the
-    crop; dk1 [C, H1], db1 [H1], dk2 [H1, F], db2 [F] f32)."""
+    crop; dk1 [C, H1], db1 [H1], dk2 [H1, F], db2 [F] f32). ``variant`` names
+    one of VARIANTS['k3b']; by default ``k3b_variant`` chooses."""
     dt = _io_dtype(s)
     ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims)
     _check("g", g, s.device, torch.float32, ())
-    B, Tp, C, H1, F = ints[0], ints[4], ints[7], ints[8], ints[9]
+    B, T, H, W, Tp, C, H1, F = (ints[i] for i in (0, 1, 2, 3, 4, 7, 8, 9))
+    chosen = k3b_variant(s.dtype, C, F, aligned(s))
+    name = chosen if variant is None else variant
+    code = _variant_code("k3b", name)
+    if name == "mma" and chosen != "mma":
+        raise ValueError(f"k3b: the mma variant takes bfloat16, C in {K3B_MMA_WIDTHS}, "
+                         f"F <= 8 and 16-byte aligned s; got {s.dtype}, C={C}, F={F}, "
+                         f"aligned={aligned(s)}")
+    lib = library()
+    if name == "mma" and lib.fno_k3b_mma_smem_bytes(C) != k3b_mma_smem_bytes(C):
+        raise RuntimeError("k3b: the shared-memory layouts of kernels.py and fno_tail.cu "
+                           "differ")
     n = C * H1 + H1 + H1 * F + F
     ds = torch.empty_like(s)
-    partial = torch.empty((B * Tp, n), dtype=torch.float32, device=s.device)
+    with torch.cuda.device(s.device):   # the mma grid is one block an SM of this card
+        nparts = lib.fno_k3b_num_partials(B, T, H, W, Tp, code)
+    if nparts < 1:
+        raise RuntimeError(f"k3b: no partial count for the {name} variant")
+    partial = torch.empty((nparts, n), dtype=torch.float32, device=s.device)
     out = torch.empty(n, dtype=torch.float32, device=s.device)
-    _launch("k3b", library().fno_k3b, s.device, _p(s), _p(target), _p(k1),
+    _launch("k3b", lib.fno_k3b, s.device, _p(s), _p(target), _p(k1),
             _p(b1), _p(k2), _p(b2), _p(g), _p(ds), _p(partial), _p(out), *ints,
-            ACT_CODES[act], dt)
+            ACT_CODES[act], code, dt)
+    VARIANTS["k3b"][name] += 1
     dk1, db1, dk2, db2 = out.split([C * H1, H1, H1 * F, F])
     return ds, dk1.view(C, H1), db1, dk2.view(H1, F), db2
 

@@ -1,5 +1,5 @@
-"""The variants of the port's K1, T-stage, K2 and K12B kernels, as far as
-the CPU shows.
+"""The variants of the port's K1, T-stage, K2, K2A-lite, K12B and K3B
+kernels, as far as the CPU shows.
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py,
 marker ``gpu``). Here: the host side of the tensor-core variants (the bf16
@@ -10,11 +10,14 @@ kernel in interpret mode, rtol 2e-4 with atol 2e-4·max|ref|); the choice of
 variant as a pure function of dtype, shape and alignment, at the shipped
 FNO configs, at the odd shapes of the gpu tests and at a view at an odd
 storage offset; and the T-stage twin against the JAX ``t_stage`` (Pallas,
-interpret mode) at two more (Tp, m1), f32.
+interpret mode) at two more (Tp, m1), f32. K2A-lite's and K3B's replays
+reach the Pallas ``_k2a_lite_kernel`` through ``_layer_calls`` and
+``_k3b_kernel`` through the JAX fused tail's vjp.
 """
 
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch.nn.functional as F
@@ -23,7 +26,9 @@ import torch
 import yaml
 
 from realpdebench_tpu.ops.pallas import fno_layer as jfl
+from realpdebench_tpu.ops.pallas import fno_tail as jft
 from realpdebench_tpu_torch.ops import fno_layer as tfl
+from realpdebench_tpu_torch.ops import fno_tail as ft
 from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops.activations import gelu_grad
 
@@ -161,9 +166,9 @@ def _fno_config(scenario):
 @pytest.mark.parametrize("scenario", sorted(p.parent.name for p in CONFIGS.glob("*/fno.yaml")))
 def test_shipped_configs_choose_the_redesigned_variants(scenario):
     """Every shipped FNO config (cylinder 4/12/16 at width 64, combustion
-    4/16/16, fsi at width 128, ...) runs K1, K2 and K12B on the tensor cores
-    and the T-stage from registers under bf16 compute, and the exact-f32 K1,
-    K2 and K12B under f32, at a 20-frame window padded to 26 and a grid up
+    4/16/16, fsi at width 128, ...) runs K1, K2, K2A-lite, K12B and K3B on the
+    tensor cores and the T-stage from registers under bf16 compute, and the
+    exact-f32 kernels under f32, at a 20-frame window padded to 26 and a grid up
     to 134 wide; K12B's fma variant takes every width in f32, fsi's 128
     included."""
     C, m1, m2, m3 = _fno_config(scenario)
@@ -174,7 +179,12 @@ def test_shipped_configs_choose_the_redesigned_variants(scenario):
         assert kernels.k1_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
         assert kernels.k12b_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
         assert kernels.k12b_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
+        assert kernels.k2a_lite_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
+        assert kernels.k2a_lite_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
         assert C <= 128 and 256 % C == 0      # K12B fma and the tail kernels
+    F_ = 3 * 2   # the widest fc2 of the shipped windows (3 channels, 2 steps)
+    assert kernels.k3b_variant(torch.bfloat16, C, F_) == "mma"
+    assert kernels.k3b_variant(torch.float32, C, F_) == "fma"
     for dtype in (torch.bfloat16, torch.float32):
         for tin, tout in ((26, 2 * m1), (2 * m1, 26)):
             assert kernels.t_stage_variant(dtype, C, tin, tout) == "registers"
@@ -191,6 +201,8 @@ def test_a_view_at_an_odd_offset_chooses_the_unaligned_variants():
     assert kernels.k1_variant(torch.bfloat16, 64, 24, 16, 134, ok) == "fma"
     assert kernels.k2_variant(torch.bfloat16, 64, 16, 134, 24, ok) == "fma"
     assert kernels.k12b_variant(torch.bfloat16, 64, 24, 16, 134, ok) == "fma"
+    assert kernels.k2a_lite_variant(torch.bfloat16, 64, 24, 16, 134, ok) == "fma"
+    assert kernels.k3b_variant(torch.bfloat16, 64, 3, ok) == "fma"
     assert kernels.t_stage_variant(torch.bfloat16, 64, 26, 8, ok) == "generic"
 
 
@@ -270,7 +282,8 @@ def test_variant_counters_start_at_zero_and_reset():
     kernels.reset_launches()
     assert kernels.VARIANTS == {"k1": {"fma": 0, "mma": 0},
                                 "t_stage": {"generic": 0, "registers": 0},
-                                "k2": {"fma": 0, "mma": 0}, "k12b": {"fma": 0, "mma": 0}}
+                                "k2": {"fma": 0, "mma": 0}, "k2a_lite": {"fma": 0, "mma": 0},
+                                "k12b": {"fma": 0, "mma": 0}, "k3b": {"fma": 0, "mma": 0}}
     assert not any(kernels.LAUNCHES.values())
 
 
@@ -301,23 +314,31 @@ K1_GEOMETRIES = [  # (Hp, Wp, m2, m3): two of the gpu tests', the cylinder's, fs
 ]
 
 
-def _replay_k1_mma(x, a, b, tables, *, Hp, Wp, m2, m3, act, rounding=True):
-    """K1's tensor-core variant in plain PyTorch from the packed tables: z
-    (rounded to bf16) through the W product with EW, X (rounded to bf16)
-    into [16, m3·16] tiles of 8 rows, the H fold with EH chunk by chunk,
-    accumulated in f64; y rounded to bf16. ``rounding=False``: the same
-    products on unrounded operands (the tables in f32)."""
-    BT, C = x.shape[0], x.shape[-1] // 2
+def _replay_wh(v, tables, *, Hp, Wp, m2, m3, rounding=True):
+    """The tensor-core (W, H) DFT body (csrc/fno_dft_mma.cuh) in plain
+    PyTorch from its packed tables: v [BT, Hp, Wp, C] (rounded to bf16)
+    through the W product with EW, X (rounded to bf16) into [16, m3·16]
+    tiles of 8 rows, the H fold with EH chunk by chunk, accumulated in f64;
+    Y [BT, 2m2·m3, 2C] unrounded. ``rounding=False``: the same products on
+    unrounded operands (the tables in f32)."""
+    BT, C = v.shape[0], v.shape[-1]
     rnd = (lambda t: t.to(torch.bfloat16).double()) if rounding else (lambda t: t)
     ew, eh = (t.double() for t in tables)
-    z = rnd(tfl._act(x.double().view(BT, Hp, Wp, C) * a.double() + b.double(), act))
-    z = F.pad(z, (0, 0, 0, ew.shape[1] - Wp))              # rows past Wp meet zero columns
+    z = F.pad(rnd(v.double()), (0, 0, 0, ew.shape[1] - Wp))   # rows past Wp meet zero columns
     X = rnd(torch.einsum("rw,bhwc->bhrc", ew, z))          # rows r = (re | im, m)
     nch = eh.shape[0]
     X = F.pad(X, (0, 0, 0, 0, 0, nch * 8 - Hp))            # [BT, nch*8, 2*m3, C]
     X = X.view(BT, nch, 8, 2, m3, C).transpose(2, 3).reshape(BT, nch, 16, m3, C)
     Y = torch.einsum("nRk,bnkmc->bRmc", eh, X)[:, :4 * m2]  # rows (re | im, j)
-    y = Y.view(BT, 2, 2 * m2, m3, C).permute(0, 2, 3, 1, 4).reshape(BT, -1, 2 * C)
+    return Y.view(BT, 2, 2 * m2, m3, C).permute(0, 2, 3, 1, 4).reshape(BT, -1, 2 * C)
+
+
+def _replay_k1_mma(x, a, b, tables, *, Hp, Wp, m2, m3, act, rounding=True):
+    """K1's tensor-core variant in plain PyTorch: z = act(a·x + b) through
+    ``_replay_wh``; y rounded to bf16 (``rounding=False``: unrounded)."""
+    BT, C = x.shape[0], x.shape[-1] // 2
+    z = tfl._act(x.double().view(BT, Hp, Wp, C) * a.double() + b.double(), act)
+    y = _replay_wh(z, tables, Hp=Hp, Wp=Wp, m2=m2, m3=m3, rounding=rounding)
     return y.to(torch.bfloat16) if rounding else y.float()
 
 
@@ -509,6 +530,272 @@ def test_k12b_mma_replay_matches_pallas_k12b(act):
                            tfl._k12b_mma_tables(Hp, Wp, m2, m3, 8), Hp=Hp, Wp=Wp, m2=m2,
                            m3=m3, rows=8, act=act)
     for name, g, r in zip(("dx", "dwp", "da", "db", "dbp"), got, ref):
+        g = g.float().numpy().reshape(r.shape)
+        np.testing.assert_allclose(g, r, rtol=2e-4, atol=2e-4 * float(np.abs(r).max()),
+                                   err_msg=name)
+
+
+# --------------------------------------------------------------------------
+# K2A-lite's and K3B's tensor-core variants
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.bfloat16, 64, 24, 16, 134), "mma"),    # the cylinder
+    ((torch.bfloat16, 128, 32, 16, 134), "mma"),   # fsi
+    ((torch.bfloat16, 32, 10, 8, 22), "mma"),      # the gpu tests' small shapes
+    ((torch.bfloat16, 16, 6, 8, 12), "mma"),       # one 16-channel slice
+    ((torch.bfloat16, 8, 6, 4, 12), "fma"),        # C below a slice
+    ((torch.bfloat16, 40, 6, 8, 12), "fma"),       # C no multiple of 16
+    ((torch.bfloat16, 256, 24, 16, 134), "fma"),   # C past 128
+    ((torch.bfloat16, 64, 24, 12, 134), "fma"),    # m3 not instantiated
+    ((torch.bfloat16, 64, 34, 16, 134), "fma"),    # more than 32 H modes
+    ((torch.bfloat16, 64, 24, 16, 258), "fma"),    # Wp past 256
+    ((torch.float32, 64, 24, 16, 134), "fma"),     # exact f32 arithmetic
+])
+def test_k2a_lite_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    assert kernels.k2a_lite_variant(*args) == want
+    assert kernels.k2a_lite_variant(*args) == want   # no state
+    if want == "mma":
+        dtype, C, m2x2, m3, Wp = args
+        assert kernels.k2a_lite_mma_smem_bytes(Wp, m3, C) <= kernels.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.bfloat16, 64, 3), "mma"),      # the cylinder
+    ((torch.bfloat16, 128, 6), "mma"),     # fsi's width
+    ((torch.bfloat16, 32, 8), "mma"),
+    ((torch.bfloat16, 16, 3), "fma"),      # C not instantiated
+    ((torch.bfloat16, 96, 3), "fma"),
+    ((torch.bfloat16, 8, 6), "fma"),
+    ((torch.bfloat16, 64, 9), "fma"),      # F past 8
+    ((torch.float32, 64, 3), "fma"),       # exact f32 arithmetic
+])
+def test_k3b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    assert kernels.k3b_variant(*args) == want
+    assert kernels.k3b_variant(*args) == want        # no state
+    if want == "mma":
+        assert kernels.k3b_mma_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("geo", [(13, 22, 5, 8), (70, 134, 12, 16)])
+def test_k2a_lite_tables_hold_the_adjoint_dft_tables(geo):
+    """iw and ih, unrounded, against K2's inverse factors: iw's rows are
+    iwr and iwi; ih's rows carry the adjoint's signs, Re dg_j from
+    (ihr[j, h] | ihi[j, h]) and Im dg_j from (−ihi[j, h] | ihr[j, h]);
+    zeros in the padding; bf16 by default."""
+    Hp, Wp, m2, m3 = geo
+    c = tfl._ct_consts(*geo)
+    iw, ih = (t.numpy() for t in tfl._k2a_mma_tables(*geo, torch.float32))
+    nch, R = -(-Hp // 8), -(-4 * m2 // 16) * 16
+    assert iw.shape == (2 * m3, -(-Wp // 16) * 16) and ih.shape == (nch, R, 16)
+    np.testing.assert_array_equal(iw[:m3, :Wp], c["iwr"])
+    np.testing.assert_array_equal(iw[m3:, :Wp], c["iwi"])
+    assert not iw[:, Wp:].any()
+    for h in range(nch * 8):
+        e = ih[h // 8]
+        r = h % 8
+        want = (c["ihr"][:, h], c["ihi"][:, h]) if h < Hp else (np.zeros(2 * m2),) * 2
+        np.testing.assert_array_equal(e[:2 * m2, r], want[0])
+        np.testing.assert_array_equal(e[:2 * m2, 8 + r], want[1])
+        np.testing.assert_array_equal(e[2 * m2:4 * m2, r], -want[1])
+        np.testing.assert_array_equal(e[2 * m2:4 * m2, 8 + r], want[0])
+    assert not ih[:, 4 * m2:].any()
+    assert all(t.dtype == torch.bfloat16 for t in tfl._k2a_mma_tables(*geo))
+
+
+def _replay_k2a_lite_mma(ds, g, y, ds1, ds2, wp, bp, *, Hp, Wp, m2, m3, rounding=True):
+    """K2A-lite's tensor-core variant in plain PyTorch: A(ds) through
+    ``_replay_wh`` on the packed adjoint tables, then the epilogue: y @ wps
+    with wps = Wp·2ds2 rounded once to bf16 (y is bf16), the elementwise
+    terms, all in f64; dg rounded to bf16. ``rounding=False``: unrounded
+    operands (the tables in f32, wps in f32), dg unrounded."""
+    BT, C = ds.shape[0], ds.shape[-1] // 2
+    geo = (Hp, Wp, m2, m3)
+    tables = tfl._k2a_mma_tables(*geo, torch.bfloat16 if rounding else torch.float32)
+    A = _replay_wh(ds.double().view(BT, Hp, Wp, C), tables, Hp=Hp, Wp=Wp, m2=m2, m3=m3,
+                   rounding=rounding)
+    Y = A.shape[1]
+    lite = {k: torch.from_numpy(v).double()[..., None] for k, v in
+            tfl._lite_consts(*geo).items()}
+    two = 2.0 * ds2.double()
+    wps = (wp * (2.0 * ds2)[None, :]).float()
+    wps = (wps.to(torch.bfloat16) if rounding else wps).double()
+    g4 = g.double().view(BT, Y, 2, C)
+    mir = torch.from_numpy(tfl._kh_mirror(m2, m3))
+    dg = (A.view(BT, Y, 2, C) + two * (lite["alpha"] * g4 + lite["beta"] * g4[:, mir])
+          + lite["D"] * (y.double().view(BT, Y, 2, C) @ wps)
+          + (ds1.double() + two * bp.double()) * lite["A1"]).reshape(BT, Y, 2 * C)
+    return dg.to(torch.bfloat16) if rounding else dg.float()
+
+
+def _k2a_lite_inputs(Hp, Wp, m2, m3, BT, C, seed):
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0, loc=0.0: torch.from_numpy(
+        (loc + scale * r.normal(size=s)).astype(np.float32))
+    Y = 2 * m2 * m3
+    return dict(ds=f(BT, Hp * Wp // 2, 2 * C), g=f(BT, Y, 2 * C), y=f(BT, Y, 2 * C, scale=3.0),
+                ds1=f(C), ds2=f(C, scale=0.1), wp=f(C, C, scale=0.3), bp=f(C, scale=0.1))
+
+
+@pytest.mark.parametrize("geo", [(13, 22, 5, 8, 32), (17, 38, 4, 16, 64),
+                                 (70, 134, 12, 16, 16), (70, 134, 16, 16, 16)])
+def test_k2a_lite_mma_replay_matches_twin(geo):
+    """The replay, with the variant's bf16 roundings (the tables, X, wps,
+    dg), within 1e-2·max|ref| of the twin on bf16 inputs, the bound the
+    kernel is held to on the card; unrounded, within 2e-4 of it."""
+    Hp, Wp, m2, m3, C = geo
+    d = _k2a_lite_inputs(Hp, Wp, m2, m3, 2, C, seed=12)
+    for k in ("ds", "g", "y"):
+        d[k] = d[k].to(torch.bfloat16).float()
+    cpu = torch.device("cpu")
+    ref = tfl.k2a_lite_plain(d["ds"], d["g"], d["y"], d["ds1"], d["ds2"], d["wp"], d["bp"],
+                             tfl._lite_on(cpu, Hp, Wp, m2, m3),
+                             tfl._ct_on(cpu, Hp, Wp, m2, m3), Hp=Hp, Wp=Wp)
+    args = [d[k] for k in ("ds", "g", "y", "ds1", "ds2", "wp", "bp")]
+    got = _replay_k2a_lite_mma(*args, Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    assert got.shape == ref.shape
+    assert (got.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
+    exact = _replay_k2a_lite_mma(*args, Hp=Hp, Wp=Wp, m2=m2, m3=m3, rounding=False)
+    assert (exact - ref).abs().max() <= 2e-4 * ref.abs().max()
+
+
+def test_k2a_lite_mma_replay_matches_pallas_k2a_lite():
+    """Unrounded, the replay's factorisation against the Pallas
+    ``_k2a_lite_kernel`` in interpret mode (f32, the dims of
+    tests/test_pallas_fno_layer.py)."""
+    B, Tp, Hp, Wp, C, m2, m3 = 2, 6, 10, 12, 8, 3, 4
+    J, Y = Wp // 2, 2 * m2 * m3
+    d = _k2a_lite_inputs(Hp, Wp, m2, m3, B * Tp, C, seed=13)
+    n = lambda k: d[k].numpy()
+    lanes = lambda v: jnp.asarray(np.concatenate([v, v])[None])
+    cst = jfl._ct_consts(Hp, Wp, m2, m3)
+    eyeC, zC = np.eye(C, dtype=np.float32), np.zeros((C, C), np.float32)
+    sel = (np.concatenate([eyeC, zC], axis=0), np.concatenate([zC, eyeC], axis=0))
+    _, _, k2a_lite, _ = jfl._layer_calls(B * Tp, Hp, J, 2 * C, m2, m3, "none", True,
+                                         "float32", False, (1, 1, 1, 1), None, True, True)
+    alpha, beta, Dv, A1v = jfl._lite_consts(Hp, Wp, m2, m3)
+    lane = lambda v: np.ascontiguousarray(np.concatenate(
+        [np.broadcast_to(v[:, 0:1], (Y, C)), np.broadcast_to(v[:, 1:2], (Y, C))], axis=1),
+        np.float32)
+    two = 2.0 * lanes(n("ds2"))
+    dsc = jnp.concatenate([lanes(n("ds1")) + two * lanes(n("bp")), two], axis=0)
+    wp2s = jfl._block_diag2(jnp.asarray(n("wp"))) * two[0][None, :]
+    ref = np.asarray(k2a_lite(jnp.asarray(n("ds")), jnp.asarray(n("g")), jnp.asarray(n("y")),
+                              dsc, wp2s, cst["IhPT"], cst["IwET"], cst["IwOT"], *sel,
+                              lane(alpha), lane(beta), lane(A1v), lane(Dv)))
+    got = _replay_k2a_lite_mma(*(d[k] for k in ("ds", "g", "y", "ds1", "ds2", "wp", "bp")),
+                               Hp=Hp, Wp=Wp, m2=m2, m3=m3, rounding=False)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4 * float(np.abs(ref).max()))
+
+
+def _replay_k3b_mma(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act, rounding=True):
+    """K3B's tensor-core variant in plain PyTorch: the products on the
+    variant's operands (k1, k2, h1, du and do as bf16 hi + lo pairs, the lo·lo
+    terms dropped, z bf16; ds from du and k1 rounded once), accumulated in
+    f64, the ones row's db1 from du's pair; ds rounded to bf16.
+    ``rounding=False``: every operand unrounded. Returns (ds, dk1, db1,
+    dk2, db2)."""
+    B, Tp, Hp, Wp, C = dims
+    T, H, W = tail_dims
+    if rounding:
+        pair = lambda t: tuple(u.double() for u in kernels.split_bf16(t))
+        once = lambda t: t.float().to(torch.bfloat16).double()
+    else:
+        pair = lambda t: (t.double(), torch.zeros_like(t, dtype=torch.float64))
+        once = lambda t: t.double()
+    prod = lambda p, q: p[0] @ q[0] + p[1] @ q[0] + p[0] @ q[1]
+    z = s.double().view(B, Tp, Hp, Wp, C)[:, :T, :H, :W].reshape(-1, C)
+    k1p, k2p = pair(k1), pair(k2)
+    u1 = z @ k1p[0] + z @ k1p[1] + b1.double()
+    h1, dh = tfl._act(u1, act), tfl._act_grad(u1, act)
+    h1p = pair(h1)
+    do = 2.0 * g.double() * (prod(h1p, k2p) + b2.double()
+                             - target.double().reshape(-1, k2.shape[1]))
+    du = (do @ k2.double().t()) * dh
+    dsv = once(du) @ once(k1).t()
+    ds = torch.zeros((B, Tp, Hp, Wp, C), dtype=torch.float64)
+    ds[:, :T, :H, :W] = dsv.view(B, T, H, W, C)
+    dup, dop = pair(du), pair(do)
+    ds = ds.to(torch.bfloat16) if rounding else ds.float()
+    return (ds.view(s.shape), z.t() @ dup[0] + z.t() @ dup[1], (dup[0] + dup[1]).sum(0),
+            prod((h1p[0].t(), h1p[1].t()), dop), do.sum(0))
+
+
+K3B_SHAPES = [  # (B, Tp, Hp, Wp, C, T, H, W, F)
+    (1, 7, 15, 22, 128, 5, 13, 18, 6),     # fsi's width, an uneven crop
+    (2, 6, 13, 16, 32, 4, 10, 12, 6),
+    (1, 3, 9, 140, 64, 2, 7, 136, 3),      # two tiles a row, the second of 8 positions
+]
+
+
+def _k3b_inputs(shape, seed):
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy((scale * r.normal(size=s)).astype(np.float32))
+    s = f(B * Tp, Hp * Wp // 2, 2 * C)
+    tail = (f(B, T, H, W, F_), f(C, 128, scale=C ** -0.5), f(128, scale=0.1),
+            f(128, F_, scale=128 ** -0.5), f(F_, scale=0.1))
+    return s, tail, torch.tensor(1.0 / (B * T * H * W * F_))
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+@pytest.mark.parametrize("shape", K3B_SHAPES)
+def test_k3b_mma_replay_matches_twin(shape, act):
+    """The replay on bf16 s: ds within 1e-2·max|ref| of the twin, dk1, db1,
+    dk2 and db2 within 1e-5 of the sum of |terms| of the f64 sums, ten times
+    inside the bounds the kernel is held to on the card."""
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=14)
+    s = s.to(torch.bfloat16)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
+    ref = ft.k3b_plain(s, *tail, gl, **kw)
+    got = _replay_k3b_mma(s, *tail, gl, **kw)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == ref[0].shape
+    assert (got[0].float() - ref[0].float()).abs().max() <= 1e-2 * ref[0].float().abs().max()
+    want = _replay_k3b_mma(s, *(t.double() for t in tail), gl.double(), **kw, rounding=False)
+    z = s.double().view(B, Tp, Hp, Wp, C)[:, :T, :H, :W].reshape(-1, C)
+    u1 = z @ tail[1].double() + tail[2].double()
+    h1 = tfl._act(u1, act)
+    do = 2.0 * gl.double() * (h1 @ tail[3].double() + tail[4].double()
+                              - tail[0].double().reshape(-1, F_))
+    du = (do @ tail[3].double().t()) * tfl._act_grad(u1, act)
+    terms = (z.abs().t() @ du.abs(), du.abs().sum(0), h1.abs().t() @ do.abs(), do.abs().sum(0))
+    for name, gv, wv, tv in zip(("dk1", "db1", "dk2", "db2"), got[1:], want[1:], terms):
+        assert ((gv - wv).abs() / tv.clamp_min(1e-30)).max() <= 1e-5, name
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+def test_k3b_mma_replay_matches_pallas_k3b(act):
+    """Unrounded, the replay against the Pallas ``_k3b_kernel`` in interpret
+    mode (f32), reached through the JAX fused tail's vjp: s and ds share the
+    port's layout; the packed weights are block-diagonal pairs, whose
+    diagonal blocks' gradients add up to the port's."""
+    shape = (2, 5, 8, 12, 8, 3, 6, 10, 6)
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=15)
+    target, k1, b1, k2, b2 = (t.numpy() for t in tail)
+    J0, J, F2p = W // 2, Wp // 2, -(-2 * F_ // 8) * 8
+    y = target.reshape(B, T, H, J0, 2 * F_)                   # lanes (w parity, f)
+    y = np.pad(y, ((0, 0), (0, Tp - T), (0, Hp - H), (0, J - J0), (0, F2p - 2 * F_)))
+    y_lm = jnp.asarray(y.transpose(0, 1, 4, 2, 3).reshape(B * Tp, F2p, Hp * J))
+    z = np.zeros_like
+    k1bd = np.block([[k1, z(k1)], [z(k1), k1]])
+    k2p = np.zeros((256, F2p), np.float32)
+    k2p[:128, :F_], k2p[128:, F_:2 * F_] = k2, k2
+    b2p = np.zeros((1, F2p), np.float32)
+    b2p[0, :F_], b2p[0, F_:2 * F_] = b2, b2
+    loss = lambda *a: jft.fused_tail_loss(a[0], y_lm, *a[1:], dims=(B, Tp, Hp, J, C),
+                                          tail_dims=(T, H, J0), act=act, interpret=True)
+    prim = (jnp.asarray(s.numpy()), jnp.asarray(k1bd), jnp.asarray(np.tile(b1, 2)[None]),
+            jnp.asarray(k2p), jnp.asarray(b2p))
+    _, vjp = jax.vjp(loss, *prim)
+    ds, dk1, db1, dk2, db2 = (np.asarray(t) for t in vjp(jnp.float32(gl.item())))
+    ref = (ds, dk1[:C, :128] + dk1[C:, 128:], db1[0, :128] + db1[0, 128:],
+           dk2[:128, :F_] + dk2[128:, F_:2 * F_], db2[0, :F_] + db2[0, F_:2 * F_])
+    got = _replay_k3b_mma(s, *tail, gl, dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act,
+                          rounding=False)
+    for name, g, r in zip(("ds", "dk1", "db1", "dk2", "db2"), got, ref):
         g = g.float().numpy().reshape(r.shape)
         np.testing.assert_allclose(g, r, rtol=2e-4, atol=2e-4 * float(np.abs(r).max()),
                                    err_msg=name)

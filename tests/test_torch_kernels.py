@@ -10,11 +10,13 @@ below the UNet's (T 5 and 20, h 3 and 4, d 8 and 32) and site counts that
 fill no whole tile (S 300, 37); for the Galerkin scores, N that fills no
 whole tile (300, 37), head widths 16, 32 and 64, odd B·h and a last group
 of heads narrower than the block (h 5); for the variants of the T-stage and
-K2, shapes on both sides of each choice (``kernels.t_stage_variant``,
-``kernels.k2_variant``). Tolerances: in f32 |Δ| <= 1e-4·max|ref| (both
-sides accumulate in f32, in another order); in bf16 1e-2·max|ref| (both
-sides compute in f32 from the same bf16 inputs and round once to bf16, so
-they differ by at most one bf16 step, 2^-8 relative). The f32 accumulators
+K2, K1, K2A-lite, K12B and K3B, shapes on both sides of each choice
+(``kernels.t_stage_variant``, ``kernels.k2_variant`` and the others) and
+widths 32, 64 and 128 for the tensor-core variants. Tolerances: in f32
+|Δ| <= 1e-4·max|ref| (both sides accumulate in f32, in another order); in
+bf16 1e-2·max|ref| (both sides compute in f32 from the same bf16 inputs and
+round once to bf16, so they differ by at most one bf16 step, 2^-8
+relative). The f32 accumulators
 (weight gradients, SSE) are held to 1e-4·max|ref| in both dtypes: both
 sides sum the same f32 terms. The Galerkin scores are an f32 output that
 both sides compute in f32 from the same inputs: 1e-4·max|ref| in both
@@ -536,9 +538,9 @@ def test_tail_kernels_at_width_128(cuda, dtype):
 
 def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
     """A contiguous bf16 view 2 bytes past a 16-byte boundary: by default K1,
-    K2 and K12B run fma and the T-stage generic, each against its twin; the
-    tensor-core or registers variant named on it raises, and nothing is
-    counted for the refusals."""
+    K2, K2A-lite, K12B and K3B run fma and the T-stage generic, each against
+    its twin; the tensor-core or registers variant named on it raises, and
+    nothing is counted for the refusals."""
     BT, Hp, Wp, C, m1, m2, m3, Tp = 2, 17, 38, 64, 2, 4, 16, 1
     n = BT * Hp * Wp * C
     g = torch.Generator(device=cuda).manual_seed(11)
@@ -564,9 +566,19 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
     got = tfl.k12b(x, a, b, wp, s, ds, *dv, gy, **geo, act="exact")
     ref = tfl.k12b_plain(x, a, b, wp, s, ds, *dv, gy, cst, Hp=Hp, Wp=Wp, act="exact")
     _close(got[0], ref[0], torch.bfloat16)
+    lite = tfl.k2a_lite(ds, gy, y, *dv, wp, bp, **geo)
+    _close(lite, tfl.k2a_lite_plain(ds, gy, y, *dv, wp, bp, tfl._lite_on(cuda, *geo.values()),
+                                    cst, Hp=Hp, Wp=Wp), torch.bfloat16)
+    T, H, W, F = Tp, Hp - 2, Wp - 4, 3
+    kw = dict(dims=(BT, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    tail = (rn(BT, T, H, W, F), rn(C, 128) / 8, 0.1 * rn(128), rn(128, F) / 11, 0.1 * rn(F))
+    gl = torch.tensor(0.37, device=cuda)
+    _close(tft.k3b(ds, *tail, gl, **kw)[0], tft.k3b_plain(ds, *tail, gl, **kw)[0],
+           torch.bfloat16)
     assert {k: dict(v) for k, v in kernels.VARIANTS.items()} == {
         "k1": {"fma": 1, "mma": 0}, "t_stage": {"generic": 1, "registers": 0},
-        "k2": {"fma": 1, "mma": 0}, "k12b": {"fma": 1, "mma": 0}}
+        "k2": {"fma": 1, "mma": 0}, "k2a_lite": {"fma": 1, "mma": 0},
+        "k12b": {"fma": 1, "mma": 0}, "k3b": {"fma": 1, "mma": 0}}
     with pytest.raises(ValueError, match="mma variant"):
         tfl.k1(x, a, b, **geo, act="exact", variant="mma")
     with pytest.raises(ValueError, match="mma variant"):
@@ -575,7 +587,11 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
         tfl.k12b(x, a, b, wp, s, ds, *dv, gy, **geo, act="exact", variant="mma")
     with pytest.raises(ValueError, match="registers variant"):
         kernels.t_stage(yt, mr, mi, variant="registers")
-    assert sum(kernels.LAUNCHES.values()) == 4
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k2a_lite(ds, gy, y, *dv, wp, bp, **geo, variant="mma")
+    with pytest.raises(ValueError, match="mma variant"):
+        tft.k3b(ds, *tail, gl, **kw, variant="mma")
+    assert sum(kernels.LAUNCHES.values()) == 6
 
 
 def test_k1_and_k12b_variants_refuse_what_they_do_not_take(cuda):
@@ -606,4 +622,141 @@ def test_k1_and_k12b_variants_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="packed tables"):
         kernels.k1(x, v, v, cst["ewr"], cst["ewi"], cst["ehr"], cst["ehi"], Hp=Hp, Wp=Wp,
                    act="none")
+    assert not any(kernels.LAUNCHES.values())
+
+
+K2A_LITE_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
+    (3, 13, 22, 32, 5, 8),     # mma in bf16: two chunks of rows, the second short
+    (2, 17, 38, 64, 4, 16),    # mma at m3 16: Wp no multiple of 16
+    (2, 33, 38, 128, 16, 16),  # mma at C 128 and 2*m2 32 (fsi's widths)
+    (2, 10, 12, 8, 3, 4),      # fma in both dtypes: C below a 16-channel slice
+    (2, 9, 26, 64, 3, 12),     # fma: m3 not instantiated
+]   # each geometry passes the lite fit (fno_layer._lite_consts)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K2A_LITE_SHAPES)
+def test_k2a_lite_variants_match_twin(cuda, shape, dtype):
+    """K2A-lite in the variant its dtype and shape choose, and in bf16 the
+    fma variant named on the same inputs, against the twin and against K2A
+    on s = K2(g, x) (the identity the lite statics rest on); two calls
+    bit-equal; the per-variant counters."""
+    BT, Hp, Wp, C, m2, m3 = shape
+    g = torch.Generator(device=cuda).manual_seed(12)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    geo = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    x = rn(BT, Hp * Wp // 2, 2 * C).to(dtype)
+    a, b, wp, bp = 1 + 0.1 * rn(C), 0.1 * rn(C), rn(C, C) / C ** 0.5, 0.1 * rn(C)
+    y = tfl.k1(x, a, b, **geo, act="exact")
+    gs = rn(*y.shape).to(dtype)
+    s, _ = tfl.k2(gs, x, a, b, wp, bp, **geo, act="exact")
+    ds = rn(*s.shape).to(dtype)
+    ds1, ds2 = rn(C), 0.1 * rn(C)
+    chosen = kernels.k2a_lite_variant(dtype, C, 2 * m2, m3, Wp)
+    assert chosen == ("mma" if dtype == torch.bfloat16 and C % 16 == 0 and m3 in (8, 16)
+                      else "fma")
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    kernels.reset_launches()
+    got = tfl.k2a_lite(ds, gs, y, ds1, ds2, wp, bp, **geo)
+    ref = tfl.k2a_lite_plain(ds, gs, y, ds1, ds2, wp, bp, tfl._lite_on(cuda, Hp, Wp, m2, m3),
+                             cst, Hp=Hp, Wp=Wp)
+    torch.cuda.synchronize()
+    _close(got, ref, dtype)
+    _close(got, tfl.k2a_plain(s, ds, ds1, ds2, cst, Hp=Hp, Wp=Wp), dtype)
+    assert torch.equal(got, tfl.k2a_lite(ds, gs, y, ds1, ds2, wp, bp, **geo))
+    want = {"fma": 0, "mma": 0, chosen: 2}
+    if chosen == "mma":
+        _close(tfl.k2a_lite(ds, gs, y, ds1, ds2, wp, bp, **geo, variant="fma"), ref, dtype)
+        want["fma"] = 1
+    assert kernels.VARIANTS["k2a_lite"] == want
+    assert kernels.LAUNCHES["k2a_lite"] == sum(want.values())
+
+
+K3B_SHAPES = [  # (B, Tp, Hp, Wp, C, T, H, W, F)
+    (2, 7, 15, 22, 128, 5, 13, 18, 6),    # fsi's width, an uneven crop
+    (1, 6, 13, 16, 32, 4, 10, 12, 6),
+    (1, 3, 9, 140, 64, 2, 7, 136, 3),     # two tiles a row, the second of 8 positions
+    (2, 6, 10, 12, 16, 4, 7, 8, 6),       # fma in both dtypes: C 16 not instantiated
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3B_SHAPES)
+def test_k3b_variants_match_twin(cuda, shape, dtype):
+    """K3B in the variant its dtype and width choose, and in bf16 the fma
+    variant named on the same inputs, against the twin: ds to TOL and zero
+    outside the crop, dk1, db1, dk2 and db2 to 1e-4 of the sum of |terms|;
+    two calls bit-equal; the per-variant counters."""
+    B, Tp, Hp, Wp, C, T, H, W, F = shape
+    g = torch.Generator(device=cuda).manual_seed(13)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    s = rn(B * Tp, Hp * Wp // 2, 2 * C).to(dtype)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    tail = (rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128), rn(128, F) / 128 ** 0.5,
+            0.1 * rn(F))
+    gl = torch.tensor(1.0 / (B * T * H * W * F), device=cuda)
+    chosen = kernels.k3b_variant(dtype, C, F)
+    assert chosen == ("mma" if dtype == torch.bfloat16 and C in (32, 64, 128) else "fma")
+    kernels.reset_launches()
+    got = tft.k3b(s, *tail, gl, **kw)
+    ref = tft.k3b_plain(s, *tail, gl, **kw)
+    torch.cuda.synchronize()
+    z = s.float().view(B, Tp, Hp, Wp, C)[:, :T, :H, :W].reshape(-1, C)
+    u1 = z @ tail[1] + tail[2]
+    h1 = tfl._act(u1, "exact")
+    do = 2 * gl * (h1 @ tail[3] + tail[4] - tail[0].reshape(-1, F))
+    du = (do @ tail[3].t()) * tfl._act_grad(u1, "exact")
+    terms = (z.abs().t() @ du.abs(), du.abs().sum(0), h1.abs().t() @ do.abs(), do.abs().sum(0))
+    runs = [got]
+    if chosen == "mma":
+        runs.append(tft.k3b(s, *tail, gl, **kw, variant="fma"))
+    for run in runs:
+        _close(run[0], ref[0], dtype)
+        ds = run[0].view(B, Tp, Hp, Wp, C)
+        assert not ds[:, T:].any() and not ds[:, :, H:].any() and not ds[:, :, :, W:].any()
+        for u, w, t in zip(run[1:], ref[1:], terms):
+            _sums_close(u, w, t)
+    assert all(torch.equal(u, w) for u, w in zip(got, tft.k3b(s, *tail, gl, **kw)))
+    want = {"fma": 0, "mma": 0, chosen: 2}
+    want["fma"] += len(runs) - 1
+    assert kernels.VARIANTS["k3b"] == want and kernels.LAUNCHES["k3b"] == sum(want.values())
+
+
+def test_k2a_lite_and_k3b_variants_refuse_what_they_do_not_take(cuda):
+    """A named mma variant on f32 or at a width it is not built for raises;
+    the mma variant of K2A-lite without its tables raises; nothing is
+    counted."""
+    BT, Hp, Wp, C, m2, m3 = K2A_LITE_SHAPES[4]
+    geo = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    ds = torch.zeros(BT, Hp * Wp // 2, 2 * C, device=cuda, dtype=torch.bfloat16)
+    gy = torch.zeros(BT, 2 * m2 * m3, 2 * C, device=cuda, dtype=torch.bfloat16)
+    v, wp = torch.zeros(C, device=cuda), torch.zeros(C, C, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k2a_lite(ds, gy, gy, v, v, wp, v, **geo, variant="mma")           # m3 12
+    with pytest.raises(ValueError, match="mma variant"):
+        tfl.k2a_lite(ds.float(), gy.float(), gy.float(), v, v, wp, v, **geo, variant="mma")
+    with pytest.raises(ValueError, match="no variant"):
+        tfl.k2a_lite(ds, gy, gy, v, v, wp, v, **geo, variant="wgmma")
+    BT, Hp, Wp, C, m2, m3 = K2A_LITE_SHAPES[1]
+    ds = torch.zeros(BT, Hp * Wp // 2, 2 * C, device=cuda, dtype=torch.bfloat16)
+    gy = torch.zeros(BT, 2 * m2 * m3, 2 * C, device=cuda, dtype=torch.bfloat16)
+    v, wp = torch.zeros(C, device=cuda), torch.zeros(C, C, device=cuda)
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    lite = tfl._lite_on(cuda, Hp, Wp, m2, m3)
+    with pytest.raises(ValueError, match="packed tables"):
+        kernels.k2a_lite(ds, gy, gy, v, v, wp, v, lite["alpha"], lite["beta"], lite["D"],
+                         lite["A1"], cst["ihr"], cst["ihi"], cst["iwr"], cst["iwi"], Hp=Hp,
+                         Wp=Wp, variant="mma")
+    B, Tp, Hp, Wp, C, T, H, W, F = K3B_SHAPES[3]
+    s = torch.zeros(B * Tp, Hp * Wp // 2, 2 * C, device=cuda, dtype=torch.bfloat16)
+    tail = (torch.zeros(B, T, H, W, F, device=cuda), torch.zeros(C, 128, device=cuda),
+            torch.zeros(128, device=cuda), torch.zeros(128, F, device=cuda),
+            torch.zeros(F, device=cuda))
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    gl = torch.tensor(1.0, device=cuda)
+    with pytest.raises(ValueError, match="mma variant"):
+        tft.k3b(s, *tail, gl, **kw, variant="mma")                           # C 16
+    with pytest.raises(ValueError, match="no variant"):
+        tft.k3b(s, *tail, gl, **kw, variant="wgmma")
     assert not any(kernels.LAUNCHES.values())

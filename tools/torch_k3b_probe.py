@@ -1,0 +1,208 @@
+#!/usr/bin/env python3
+"""Where the time of K3B's tensor-core variant goes, and what a change to
+its loops would buy, without a profiler that reads hardware counters:
+patched scratch copies of ``csrc/fno_tail.cu`` are built with nvcc into
+``build/k3b_probe/`` (all at once) and launched through ctypes at the
+cylinder training width (B 32, Tp 26, Hp 70, Wp 134, C 64; the tail over
+32·20·64·128 positions, F 3; bf16).
+
+    PYTHONPATH=. python3 tools/torch_k3b_probe.py [VARIANT ...]
+
+From the repository root on a host with a Hopper card and nvcc. Variants
+(all by default), each a set of patches of the source as it is:
+
+  as_is      the source unchanged
+  roll       `#pragma unroll 1` on the k-step loops of fc1, dk2 and dk1
+             (the loops that index no register array by their counter)
+  ng64       ds in passes of 64 channels instead of 32
+  act_arg    the activation a runtime argument, as K3B's fma kernel takes
+             it, in place of the template argument
+  no_flush   one row of partial sums a block (kFlush past any tile count)
+  cut_act    GELU and GELU' replaced by a copy (time only)
+  cut_dk1    the dk1 and db1 MMAs replaced by a cheap dependency (time only)
+  cut_ds     no ds product and no ds store (time only)
+
+One JSON line a variant: ptxas's registers and spill bytes of
+``k3b_mma_kernel<64, exact GELU>``, the device time of queued launches (median of 5,
+8 launches each, taken twice: in the listed order and in reverse), and, for
+the variants that compute what the kernel computes, ds's max|Δ| / max|ref|
+and the worst of dk1, db1, dk2 and db2 against the plain twin relative to
+the sum of |terms|. The patches fail loudly when their anchors are gone.
+"""
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from realpdebench_tpu_torch.ops import fno_tail as ft
+from realpdebench_tpu_torch.ops import kernels
+from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
+
+OUT = kernels.BUILD_DIR.parent / "k3b_probe"
+B, TP, HP, WP, C, T, H, W, F = 32, 26, 70, 134, 64, 20, 64, 128, 3
+
+FC1 = ("#pragma unroll\n    for (int ks = 0; ks < C / 16; ++ks) {\n      uint32_t fa[4];\n"
+       "      mma::ldmatrix_x4(fa,")
+DK2 = ("    // dk2 += h1^T do on hidden units 16 warp .. + 15\n#pragma unroll\n"
+       "    for (int ks = 0; ks < 8; ++ks) {")
+DK1 = "    const uint32_t ones[4] = {one, 0u, one, 0u};\n#pragma unroll\n    for (int ks = 0; ks < 8; ++ks) {"
+NG = "  constexpr int NG = 32;"
+ACT = ("        fno::act_and_grad_fast(u[nt][2 * hf], ACT, hv0, u[nt][2 * hf]);\n"
+       "        fno::act_and_grad_fast(u[nt][2 * hf + 1], ACT, hv1, u[nt][2 * hf + 1]);\n")
+FLUSH = "constexpr int kFlush = 32;"
+DK1_MMA = ("        mma::mma_bf16(dk1[mi][0], fa, bh[0], bh[1]);\n"
+           "        mma::mma_bf16(dk1[mi][0], fa, bl[0], bl[1]);\n"
+           "        mma::mma_bf16(dk1[mi][1], fa, bh[2], bh[3]);\n"
+           "        mma::mma_bf16(dk1[mi][1], fa, bl[2], bl[3]);\n")
+DS = "    for (int cg = 0; cg < C / NG; ++cg) {"
+
+
+def sub(s: str, old: str, new: str) -> str:
+    if s.count(old) != 1:
+        raise SystemExit(f"torch_k3b_probe: the source has {s.count(old)} of the anchor {old!r}")
+    return s.replace(old, new)
+
+
+def roll(s: str) -> str:
+    for anchor in (FC1, DK2, DK1):
+        s = sub(s, anchor, anchor.replace("#pragma unroll\n", "#pragma unroll 1\n"))
+    return s
+
+
+VARIANTS = {
+    "as_is": (lambda s: s, True),
+    "roll": (roll, True),
+    "ng64": (lambda s: sub(s, NG, "  constexpr int NG = C < 64 ? C : 64;"), True),
+    "act_arg": (lambda s: sub(s, ACT, ACT.replace("ACT,", "d.act,")), True),
+    "no_flush": (lambda s: sub(s, FLUSH, "constexpr int kFlush = 1 << 30;"), True),
+    "cut_act": (lambda s: sub(s, ACT, "        hv0 = u[nt][2 * hf];\n        hv1 = u[nt][2 * hf + 1];\n"
+                                      "        u[nt][2 * hf] = u[nt][2 * hf + 1] = 1.f;\n"), False),
+    "cut_dk1": (lambda s: sub(s, DK1_MMA, "        dk1[mi][0][0] += __uint_as_float(fa[0] ^ bh[0] ^ bl[1]);\n"
+                                          "        dk1[mi][1][0] += __uint_as_float(fa[1] ^ bh[2] ^ bl[3]);\n"),
+                False),
+    "cut_ds": (lambda s: sub(s, DS, "    for (int cg = 0; cg < 0; ++cg) {"), False),
+}
+
+
+def build(names):
+    """One nvcc per variant, all at once; returns {name: (library, ptxas report)}."""
+    src = (kernels.CSRC / "fno_tail.cu").read_text()
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = kernels._nvcc()
+    jobs = {}
+    for name in names:
+        d = OUT / name
+        d.mkdir(exist_ok=True)
+        (d / "fno_tail.cu").write_text(VARIANTS[name][0](src))
+        so = d / "libk3b.so"
+        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-shared", "-o", str(so),
+               str(d / "fno_tail.cu")]
+        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True))
+    out = {}
+    for name, (so, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"torch_k3b_probe: nvcc failed for {name}:\n{err}")
+        lib = ctypes.CDLL(str(so))
+        for fn in ("fno_k3b", "fno_k3b_num_partials"):
+            f = getattr(lib, fn)
+            f.argtypes, f.restype = kernels.SIGNATURES[fn]
+        out[name] = (lib, err)
+    return out
+
+
+def registers(report: str) -> dict:
+    """Registers and spill bytes ptxas reported for k3b_mma_kernel<64, exact>."""
+    out, inside = {}, False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            if inside:
+                break
+            inside = "k3b_mma_kernelILi64ELi1E" in line
+        elif inside and "spill" in line:
+            out["spill"] = line.strip()
+        elif inside and "Used" in line and "registers" in line:
+            out["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def queued_ms(fn, n: int = 8, reps: int = 5) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
+
+
+def main() -> None:
+    names = sys.argv[1:] or list(VARIANTS)
+    libs = build(names)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    s = rn(B * TP, HP * WP // 2, 2 * C).bfloat16()
+    tail = (rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128), rn(128, F) / 128 ** 0.5,
+            0.1 * rn(F))
+    gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
+    kw = dict(dims=(B, TP, HP, WP, C), tail_dims=(T, H, W), act="exact")
+    ref = ft.k3b_plain(s, *tail, gl, **kw)
+    zt = s.float().view(B, TP, HP, WP, C)[:, :T, :H, :W].reshape(-1, C)
+    u1 = zt @ tail[1] + tail[2]
+    h1 = gelu(u1, "exact")
+    do = 2 * gl * (h1 @ tail[3] + tail[4] - tail[0].reshape(-1, F))
+    du = (do @ tail[3].t()) * gelu_grad(u1, "exact")
+    terms = (zt.abs().t() @ du.abs(), du.abs().sum(0), h1.abs().t() @ do.abs(), do.abs().sum(0))
+    del zt, u1, h1, do, du
+    n = C * 128 + 128 + 128 * F + F
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def runner(lib):
+        nparts = lib.fno_k3b_num_partials(B, T, H, W, TP, 1)
+        ds = torch.empty_like(s)
+        partial = torch.empty((nparts, n), dtype=torch.float32, device=dev)
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+
+        def fn():
+            err = lib.fno_k3b(p(s), p(tail[0]), p(tail[1]), p(tail[2]), p(tail[3]), p(tail[4]),
+                              p(gl), p(ds), p(partial), p(out), B, T, H, W, TP, HP, WP, C, 128,
+                              F, kernels.ACT_CODES["exact"], 1, 1, stream)
+            if err:
+                raise SystemExit(f"torch_k3b_probe: launch failed ({err})")
+            return ds, out
+        return fn
+
+    fns = {name: runner(lib) for name, (lib, _) in libs.items()}
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            times[name].append(queued_ms(fns[name]))
+    for name in names:
+        row = dict(variant=name, **registers(libs[name][1]), ms=times[name])
+        if VARIANTS[name][1]:
+            ds, out = fns[name]()
+            torch.cuda.synchronize()
+            row["ds_rel"] = ((ds.float() - ref[0].float()).abs().max()
+                             / ref[0].float().abs().max()).item()
+            parts = out.split([C * 128, 128, 128 * F, F])
+            row["sums_rel_to_terms"] = max(
+                ((got.view(r.shape) - r).abs() / t.clamp_min(1e-30)).max().item()
+                for got, r, t in zip(parts, ref[1:], terms))
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()
