@@ -23,15 +23,16 @@ JSON line each; any failure raises (non-zero exit, no result line):
                named). Two calls of K1, the T-stage and K2 are bit-equal.
                K1's, the T-stage's and K2's times are device times of
                queued launches (see queued_ms).
-  4. backward  the backward and tail kernels, K2A-lite, K2A, K12B and K3B
-               (K2A-lite's, K12B's and K3B's mma variants in bfloat16 and,
-               named, their fma ones), the T-stage adjoints (et_adj,
-               it_adj) and K3F, against their twins at the training width
-               (B·Tp=832: the f32 twins fit the card's memory), in float32
-               and bfloat16; K2A-lite against K2A; two K2A-lite, K12B and
-               K3B calls bit-equal; K1's, K2's, K2A-lite's, K12B's and K3B's
-               times at this width as device times of queued launches, the
-               others CUDA-event medians.
+  4. backward  the backward and tail kernels, K2A-lite, K2A, K12B, K3F and
+               K3B (K2A-lite's, K12B's, K3F's and K3B's mma variants in
+               bfloat16 and, named, their fma ones, each also against the
+               other), and the T-stage adjoints (et_adj, it_adj), against
+               their twins at the training width (B·Tp=832: the f32 twins
+               fit the card's memory), in float32 and bfloat16; K2A-lite
+               against K2A; two K2A-lite, K12B, K3F and K3B calls bit-equal;
+               K1's, K2's, K2A-lite's, K12B's, K3F's and K3B's times at this
+               width as device times of queued launches, the others
+               CUDA-event medians.
   4b. geometry every FNO kernel against its twin at the other shipped
                geometries (combustion: width 64, fsi: width 128, modes
                4/16/16) at the cylinder's windows and padding, batch 2, in
@@ -63,16 +64,23 @@ JSON line each; any failure raises (non-zero exit, no result line):
   8. ta        the temporal-attention kernels TA forward and backward
                against their twin at the UNet's level-0 width of the
                training step (B 12, S 64·128, T 20, h 4, d 32), in float32
-               and bfloat16; two calls bit-equal; CUDA-event medians, and
+               and bfloat16 (the backward's mma variant in bfloat16 and,
+               named, its fma one, each also against the other); two calls
+               bit-equal; the forward's CUDA-event median, the backward's
+               device time of queued launches, and
                scaled_dot_product_attention with the bias as a float mask
-               as the library yardstick.
+               as the library yardstick; then (ta_level) the backward's mma
+               variant at the site counts of every level the UNet step
+               launches it at (B 12 × 8192, 2048, 512 and the mid block's
+               512): against the twin, bit-equal, queued time and bound.
   9. unet_rollout  the cylinder UNet3d (configs/cylinder/unet.yaml: dim_mults
                1/2/4, bf16 compute, seeded random weights) rolled out 5
                steps at eval batch 12 through make_rollout_fn with a
                Gaussian normalizer; exact launch counts; compared with the
                plain f32 rollout; frames/s and peak memory.
  10. unet_train    its training step at batch 12 (Adam at lr 1e-4, cosine
-               over 10000 updates, no clipping): one counted step, the loss
+               over 10000 updates, no clipping): one counted step (exact
+               launch counts; every TA backward the mma variant), the loss
                and every gradient against the plain f32 step (at batch 6:
                the f32 step at 12 does not fit the card), two passes
                bit-equal under cudnn.deterministic; 2 warm-up steps and 5
@@ -170,7 +178,7 @@ TRAIN_LAUNCHES = {"k1": 4, "t_stage": 16, "k2": 4, "k2a": 0, "k2a_lite": 4,
 # the variants a bf16 FNO step launches (a rollout: K1, K2 and the T-stage
 # as one forward each)
 TRAIN_VARIANTS = dict(k1={"mma": 4}, t_stage={"registers": 16}, k2={"mma": 4},
-                      k2a_lite={"mma": 4}, k12b={"mma": 4}, k3b={"mma": 1})
+                      k2a_lite={"mma": 4}, k12b={"mma": 4}, k3f={"mma": 1}, k3b={"mma": 1})
 
 # the other shipped FNO geometries, at the cylinder's 20x64x128 windows and
 # padding 6 (the port has no fsi or combustion reader yet; the kernels'
@@ -192,6 +200,10 @@ VARIANTS_BY_PATH = {}
 
 # temporal attention at the UNet's level 0 in the training step (B, S, T, h, d)
 TA_SHAPE = (12, 64 * 128, 20, 4, 32)
+# the sites of the UNet step's 8 TA backward calls a sample (dim_mults 1/2/4 on
+# 64x128 frames): level 0 (init, down 0, up 0), level 1 (down 1, up 1),
+# level 2 (down 2, up 2) and the mid block
+TA_LEVELS = (("level0", 64 * 128), ("level1", 32 * 64), ("level2", 16 * 32), ("mid", 16 * 32))
 # TA backward's d(pos_bias), an f32 sum over all B·S sites, against the
 # twin's, relative to the sum over sites of P·(|dP| + |Σ P·dP|), the size
 # of what each site adds (both sides accumulate in f32 in another order)
@@ -716,12 +728,18 @@ def phase_backward(dev) -> dict:
         tail = (rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128),
                 rn(128, F) / 128 ** 0.5, 0.1 * rn(F))
         gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
-        k3f = lambda: ft.k3f(s, *tail, **kw)
+        k3f = lambda **kv: ft.k3f(s, *tail, **kw, **kv)
         k3f_p = lambda: ft.k3f_plain(s, *tail, **kw)
         k3b = lambda **kv: ft.k3b(s, *tail, gl, **kw, **kv)
         k3b_p = lambda: ft.k3b_plain(s, *tail, gl, **kw)
-        sse, sse_ref = k3f(), k3f_p()
+        sse, sse_ref = run_as("k3f", chosen, k3f), k3f_p()
         rows.append(compare_sums("k3f/sse", sse, sse_ref, sse_ref))
+        if not torch.equal(sse, k3f()):
+            raise AssertionError(f"two identical k3f calls differ ({dtype})")
+        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
+            sse_fma = run_as("k3f", "fma", lambda: k3f(variant="fma"))
+            rows += [compare_sums("k3f_fma/sse", sse_fma, sse_ref, sse_ref),
+                     compare_sums("k3f/vs_fma", sse, sse_fma, sse_ref)]
         got, ref = run_as("k3b", chosen, k3b), k3b_p()
         if not all(torch.equal(u, w) for u, w in zip(got, k3b())):
             raise AssertionError(f"two identical k3b calls differ ({dtype})")
@@ -734,17 +752,20 @@ def phase_backward(dev) -> dict:
         fc = npos * (2 * C * tail[1].shape[1] + 2 * tail[3].shape[0] * F)
         work["k3f"] = bound(crop + nbytes(*tail, sse), fc, dtype)
         work["k3b"] = bound(crop + nbytes(*tail, gl, *got), 3 * fc, dtype)
-        work["k3b_fma"] = work["k3b"]
+        work["k3f_fma"], work["k3b_fma"] = work["k3f"], work["k3b"]
         terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
         for kname, gk in held:
             rows.append(compare(f"{kname}/ds", gk[0], ref[0], tol))
             for name, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), gk[1:], ref[1:], terms):
                 rows.append(compare_sums(f"{kname}/{name}", gv, rv, tv))
         del got, ref, terms, held
-        times["k3f"] = (cuda_ms(k3f, reps=10), cuda_ms(k3f_p, reps=5))
+        times["k3f"] = (queued_ms([k3f], n=8, reps=5), cuda_ms(k3f_p, reps=5))
+        single["k3f"] = cuda_ms(k3f, reps=10)
         times["k3b"] = (queued_ms([k3b], n=8, reps=5), cuda_ms(k3b_p, reps=5))
         single["k3b"] = cuda_ms(k3b, reps=10)
         if dtype == torch.bfloat16:
+            times["k3f_fma"] = (queued_ms([lambda: k3f(variant="fma")], n=4, reps=3),
+                                times["k3f"][1])
             times["k3b_fma"] = (queued_ms([lambda: k3b(variant="fma")], n=4, reps=3),
                                 times["k3b"][1])
         torch.cuda.synchronize()
@@ -767,7 +788,7 @@ def phase_backward(dev) -> dict:
                     max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in mine),
                     ms=times[k][0], plain_ms=times[k][1], library_ms=None, **work[k])
-            for k in ("k2a_lite", "k12b", "k3b"):
+            for k in ("k2a_lite", "k12b", "k3f", "k3b"):
                 summary[k].update(fma_variant_ms=times[f"{k}_fma"][0],
                                   single_launch_ms=single[k])
             adj = [r for r in rows if r["name"].startswith("t_stage/")]
@@ -1046,57 +1067,91 @@ def _dpb_terms(q, k, v, pb, do, heads: int):
         return (p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())).sum((0, 1))
 
 
+def _ta_inputs(dev, B, S, T, h, d, dtype, seed):
+    """q pre-scaled by d**-0.5 as the model hands it over; k, v, do N(0, 1);
+    the bias N(0, 1), as the bias table's init."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda: torch.randn(B, S, T, h * d, generator=g, device=dev)
+    q = (rn() * d ** -0.5).to(dtype)
+    k, v, do = rn().to(dtype), rn().to(dtype), rn().to(dtype)
+    return q, k, v, torch.randn(h, T, T, generator=g, device=dev), do
+
+
+def check_ta_bwd(name, q, k, v, pb, do, h, tol, variant=None) -> tuple:
+    """TA backward (the variant named, or chosen) against autograd through
+    the twin in f32 from the same inputs: dq, dk, dv within ``tol`` of
+    max|ref|, dpb within TA_DPB_TOL of its sum of |terms|. Returns (rows,
+    outputs, the reference)."""
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v, pb)]
+    ref = torch.autograd.grad(tta.temporal_attention_tokens_plain(*leaves, h), leaves,
+                              do.float())
+    got = kernels.ta_bwd(q, k, v, pb, do, h, variant=variant)
+    rows = [compare(f"{name}/{n}", u, r.to(q.dtype), tol)
+            for n, u, r in zip(("dq", "dk", "dv"), got, ref)]
+    rows.append(compare_sums(f"{name}/dpb", got[3], ref[3], _dpb_terms(q, k, v, pb, do, h),
+                             TA_DPB_TOL))
+    return rows, got, ref
+
+
 def phase_ta(dev) -> dict:
     """TA forward and backward against the twin at the UNet's level-0
-    width; returns per-kernel summaries (bf16 errors and times)."""
+    width, the backward in both variants (bf16); the backward at every
+    level of the UNet step; returns per-kernel summaries (bf16 errors and
+    times)."""
     B, S, T, h, d = TA_SHAPE
     plain = tta.temporal_attention_tokens_plain
     nsites, summary = B * S, {}
     for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator(device=dev).manual_seed(5)
-        rn = lambda: torch.randn(B, S, T, h * d, generator=g, device=dev)
-        # q pre-scaled by d**-0.5 as the model hands it over; the bias
-        # N(0, 1), as the bias table's init
-        q = (rn() * d ** -0.5).to(dtype)
-        k, v, do = rn().to(dtype), rn().to(dtype), rn().to(dtype)
-        pb = torch.randn(h, T, T, generator=g, device=dev)
+        q, k, v, pb, do = _ta_inputs(dev, B, S, T, h, d, dtype, seed=5)
         tol = KERNEL_TOL[dtype]
+        chosen = "mma" if dtype == torch.bfloat16 else "fma"
         fwd = lambda: kernels.ta_fwd(q, k, v, pb, h)
-        bwd = lambda: kernels.ta_bwd(q, k, v, pb, do, h)
-        o, got = fwd(), bwd()
+        bwd = lambda **kv: kernels.ta_bwd(q, k, v, pb, do, h, **kv)
+        o = fwd()
         rows = [compare("ta_fwd/o", o, plain(q, k, v, pb, h), tol)]
-        # autograd through the twin in f32 from the same inputs
-        leaves = [t.detach().float().requires_grad_() for t in (q, k, v, pb)]
-        ref = torch.autograd.grad(plain(*leaves, h), leaves, do.float())
-        for name, u, r in zip(("dq", "dk", "dv"), got, ref):
-            rows.append(compare(f"ta_bwd/{name}", u, r.to(dtype), tol))
-        rows.append(compare_sums("ta_bwd/dpb", got[3], ref[3],
-                                 _dpb_terms(q, k, v, pb, do, h), TA_DPB_TOL))
-        del leaves, ref
+        bwd_rows, got, ref = run_as("ta_bwd", chosen,
+                                    lambda: check_ta_bwd("ta_bwd", q, k, v, pb, do, h, tol))
+        rows += bwd_rows
         same = torch.equal(o, fwd()) and all(
             torch.equal(a, b) for a, b in zip(got, bwd()))
         if not same:
             raise AssertionError(f"two identical TA calls differ ({dtype})")
+        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
+            fma_rows, fma, _ = run_as("ta_bwd", "fma", lambda: check_ta_bwd(
+                "ta_bwd_fma", q, k, v, pb, do, h, tol, variant="fma"))
+            rows += fma_rows
+            rows += [compare(f"ta_bwd/vs_fma/{n}", u, w, tol)
+                     for n, u, w in zip(("dq", "dk", "dv"), got, fma)]
+            rows.append(compare_sums("ta_bwd/vs_fma/dpb", got[3], fma[3],
+                                     _dpb_terms(q, k, v, pb, do, h), TA_DPB_TOL))
+            del fma
+        del ref
 
         def bwd_plain():
             ls = [t.detach().requires_grad_() for t in (q, k, v, pb)]
             return torch.autograd.grad(plain(*ls, h), ls, do)
 
         times = dict(ta_fwd=(cuda_ms(fwd), cuda_ms(lambda: plain(q, k, v, pb, h))),
-                     ta_bwd=(cuda_ms(bwd), cuda_ms(bwd_plain, reps=10)))
+                     ta_bwd=(queued_ms([bwd], n=8, reps=5), cuda_ms(bwd_plain, reps=10)))
+        single = cuda_ms(bwd)
         # scores and the value mix, 2·T·T·d each per (site, head); the
         # backward recomputes the scores and adds dP, dq, dk and dv
         work = dict(ta_fwd=bound(nbytes(q, k, v, pb, o), nsites * h * T * T * d * 4, dtype),
                     ta_bwd=bound(nbytes(q, k, v, pb, do, *got),
                                  nsites * h * T * T * d * 10, dtype))
+        if dtype == torch.bfloat16:
+            times["ta_bwd_fma"] = (queued_ms([lambda: bwd(variant="fma")], n=4, reps=3),
+                                   times["ta_bwd"][1])
+            work["ta_bwd_fma"] = work["ta_bwd"]
         lib = sdpa_yardstick(q, k, v, do, pb, h, o)
         torch.cuda.synchronize()
         emit(dict(phase="ta", dtype=str(dtype).replace("torch.", ""),
                   shapes=dict(B=B, S=S, T=T, h=h, d=d), checks=rows,
                   bitwise_repeatable=same, library=lib,
-                  ms={n: dict(kernel=t[0], plain=t[1], **work[n]) for n, t in times.items()}))
+                  ms={n: dict(kernel=t[0], plain=t[1], **work[n]) for n, t in times.items()},
+                  ta_bwd_single_launch_ms=single))
         if dtype == torch.bfloat16:
-            for n in times:
+            for n in ("ta_fwd", "ta_bwd"):
                 mine = [r for r in rows if r["name"].startswith(n + "/")]
                 summary[n] = dict(
                     max_abs_err=max(r["max_abs_err"] for r in mine),
@@ -1106,10 +1161,38 @@ def phase_ta(dev) -> dict:
             # SDPA has no backward alone: the backward row's yardstick is its
             # forward and backward together
             summary["ta_fwd"]["library_ms"] = lib["library_ms"]
-            summary["ta_bwd"]["library_ms"] = lib["library_fwd_bwd_ms"]
+            summary["ta_bwd"].update(library_ms=lib["library_fwd_bwd_ms"],
+                                     fma_variant_ms=times["ta_bwd_fma"][0],
+                                     single_launch_ms=single)
         del q, k, v, do, o, got
         torch.cuda.empty_cache()
+    summary["ta_bwd"]["levels"] = phase_ta_levels(dev)
     return summary
+
+
+def phase_ta_levels(dev) -> dict:
+    """TA backward's mma variant (bf16) at the site counts of every level
+    the UNet step launches it at (TA_LEVELS, batch 12): against the twin,
+    two calls bit-equal, the device time of queued launches beside the
+    bound; returns {level: (ms, bound_ms)}."""
+    B, _, T, h, d = TA_SHAPE
+    out = {}
+    for i, (level, S) in enumerate(TA_LEVELS):
+        q, k, v, pb, do = _ta_inputs(dev, B, S, T, h, d, torch.bfloat16, seed=20 + i)
+        tol = KERNEL_TOL[torch.bfloat16]
+        rows, got, _ = run_as("ta_bwd", "mma", lambda: check_ta_bwd(
+            f"ta_bwd/{level}", q, k, v, pb, do, h, tol))
+        if not all(torch.equal(a, b) for a, b in zip(got, kernels.ta_bwd(q, k, v, pb, do, h))):
+            raise AssertionError(f"two identical TA backward calls differ at {level}")
+        # the smallest level's inputs (126 MB) are larger than L2 already
+        ms = queued_ms([lambda: kernels.ta_bwd(q, k, v, pb, do, h)], n=8, reps=5)
+        work = bound(nbytes(q, k, v, pb, do, *got), B * S * h * T * T * d * 10, torch.bfloat16)
+        emit(dict(phase="ta_level", level=level, shapes=dict(B=B, S=S, T=T, h=h, d=d),
+                  checks=rows, ms=ms, bound_ms=work["bound_ms"]))
+        out[level] = dict(sites=B * S, ms=ms, bound_ms=work["bound_ms"])
+        del q, k, v, pb, do, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def gaussian_normalizer():
@@ -1126,12 +1209,14 @@ def _unet(dev, compute_dtype=None):
                        device=dev, generator=make_generator(0), **UNET_MODEL)
 
 
-def _expect(launches: dict, path: str, **want) -> None:
+def _expect(launches: dict, path: str, variants=None, **want) -> dict:
+    """Exact launch counts (kernels not named: none) and per-variant counts
+    (``variants``: kernel → {variant: count}; none named: none launched)."""
     full = dict.fromkeys(launches, 0)
     full.update(want)
     if launches != full:
         raise AssertionError(f"{path} launched {launches}, expected {full}")
-    expect_variants(path)
+    return expect_variants(path, **(variants or {}))
 
 
 def phase_unet_rollout(dev, norm) -> dict:
@@ -1226,8 +1311,9 @@ def phase_unet_train(dev, norm) -> dict:
     loss = step(x, y).item()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    _expect(launches, "one UNet training step", ta_fwd=UNET_TA_PER_FORWARD,
-            ta_bwd=UNET_TA_PER_FORWARD)
+    VARIANTS_BY_PATH["unet_train"] = _expect(
+        launches, "one UNet training step", variants=dict(ta_bwd={"mma": UNET_TA_PER_FORWARD}),
+        ta_fwd=UNET_TA_PER_FORWARD, ta_bwd=UNET_TA_PER_FORWARD)
     first_peak = torch.cuda.max_memory_allocated() / 1e9
     if not loss == loss or abs(loss) == float("inf"):
         raise AssertionError(f"UNet training loss {loss} is not finite")
@@ -1565,7 +1651,8 @@ def phase_geometries(dev) -> None:
                     rn(128, F) / 128 ** 0.5, 0.1 * rn(F))
             gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
             sse_ref = ft.k3f_plain(s, *tail, **kw)
-            rows.append(compare_sums("k3f/sse", ft.k3f(s, *tail, **kw), sse_ref, sse_ref))
+            rows.append(compare_sums("k3f/sse", run_as("k3f", mm, lambda: ft.k3f(s, *tail, **kw)),
+                                     sse_ref, sse_ref))
             got = run_as("k3b", mm, lambda: ft.k3b(s, *tail, gl, **kw))
             ref = ft.k3b_plain(s, *tail, gl, **kw)
             rows.append(compare("k3b/ds", got[0], ref[0], tol))
@@ -1617,7 +1704,7 @@ def phase_fsi_train(dev, norm) -> dict:
                                  f"expected {TRAIN_LAUNCHES}")
         variants = expect_variants(f"one fsi step ({dtype})", k1={mm: 4},
                                    t_stage={"registers": 16}, k2={mm: 4}, k2a_lite={mm: 4},
-                                   k12b={mm: 4}, k3b={mm: 1})
+                                   k12b={mm: 4}, k3f={mm: 1}, k3b={mm: 1})
         first_peak = torch.cuda.max_memory_allocated() / 1e9
         if not bool(torch.isfinite(loss)):
             raise AssertionError(f"fsi training loss {loss.item()} is not finite")

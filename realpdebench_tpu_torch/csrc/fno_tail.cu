@@ -13,40 +13,49 @@
 //
 //   s [B*Tp, Hp, Wp, C] (T)        target [B, T, H, W, F] (f32)
 //   k1 [C, H1], b1 [H1], k2 [H1, F], b2 [F] (f32), H1 = 128, F <= kMaxF
-//   K3F: partial [B*T] (f32) scratch, sse [1] (f32)
+//   K3F: partial [fno_k3f_num_partials] (f32) scratch, sse [1] (f32)
 //   K3B: g [1] (f32, device), ds like s (T),
-//        partial [B*Tp, C*H1 + H1 + H1*F + F] (f32) scratch,
+//        partial [fno_k3b_num_partials, C*H1 + H1 + H1*F + F] (f32) scratch,
 //        out [C*H1 + H1 + H1*F + F] (f32): dk1, db1, dk2, db2
 //
-// Design: one block per (b, t) image walks its H*W cropped positions in
-// tiles of kP. Per tile it stages z (and the target) in shared memory; each
-// thread holds a 4 x 8 (hidden unit x position) register tile of u1, so a
-// k1 value and a z value read from shared memory feed 8 and 4 FMAs; h1 and
-// then du share one [kP, H1] buffer. fc2 (F <= 8 outputs) is a short loop.
-// K3B keeps u1 in registers from the forward to du, and holds its dk1
-// share (32 entries a thread up to C 64, 64 up to C 128) in registers
-// across the tiles. The fc1
-// activation and the prediction never reach device memory. No atomics: each
-// block writes its partial sums, and fno::reduce_partials adds them in a
-// fixed order. Bound: fc1 and its two backward products are ~8.4 kFMA per
-// position each (~90 GFLOP for K3F, ~260 for K3B at 32 x 20 x 64 x 128
-// positions), in f32 on CUDA cores from shared memory: FP32 issue bounds
-// it, not HBM (~0.7 GB read). That kernel is K3B's `fma` variant (f32
-// tensors, other widths) and K3F.
+// Each kernel has two variants, chosen before the launch by
+// ops/kernels.py::k3f_variant and ::k3b_variant. The fc1 activation and the
+// prediction never reach device memory in either. No atomics: each block
+// writes its partial sums, and fno::reduce_partials adds them in a fixed
+// order, so two identical calls are bit-equal.
 //
-// K3B's `mma` variant (bf16; C in {32, 64, 128}, 16-byte aligned s; chosen by
-// ops/kernels.py::k3b_variant) runs the five products on mma.sync with f32
-// accumulators (k3b_mma_kernel below has the design): every operand of the
-// f32 sums (dk1, db1, dk2, db2, held to 1e-4 of the sum of |terms|) that is
-// not bf16 already is a hi + lo pair; ds rounds once on its write, and its
-// product takes du and k1 rounded once. A persistent grid of one block an
-// SM walks 128-position tiles (640 x 64 at training width), so the card
-// fills however few images there are. Bound at training width (32 x 20 x
-// 64 x 128 positions, C 64): 1.73 GB of HBM (0.52 ms); 270 GFLOP of
-// products (0.27 ms at the bf16 peak), which the hi + lo pairs make ~700
-// GFLOP of MMAs issued.
+// `fma` (f32 tensors, widths other than 32, 64, 128, misaligned s): one
+// block per (b, t) image walks its H*W cropped positions in tiles of kP. Per
+// tile it stages z (and the target) in shared memory; each thread holds a
+// 4 x 8 (hidden unit x position) register tile of u1, so a k1 value and a z
+// value read from shared memory feed 8 and 4 FMAs; h1 and then du share one
+// [kP, H1] buffer. fc2 (F <= 8 outputs) is a short loop. K3B keeps u1 in
+// registers from the forward to du, and holds its dk1 share (32 entries a
+// thread up to C 64, 64 up to C 128) in registers across the tiles. Exact
+// f32 FMAs on the CUDA cores from shared memory: FP32 issue bounds it (fc1
+// and its two backward products are 16 kFLOP a position each at C 64), not
+// HBM.
+//
+// `mma` (bf16 s; C in {32, 64, 128}, F <= 8, 16-byte aligned s): a
+// persistent grid walks 128-position tiles of the crop (40960 at training
+// width), z filled by 16-byte cp.async into a two-stage ring. Both kernels
+// run one forward (forward_warp below): fc1 on mma.sync with k1 as a bf16
+// hi + lo pair (z is bf16 already), the activation a template argument, fc2
+// from u1's fragments with h1 and k2 as hi + lo pairs. K3F adds (o -
+// target)^2 per thread in f64, one partial a block; it holds no more than
+// k1, two z stages and k2 (75 KB at C 64), two blocks an SM. K3B (one block
+// an SM, 255 registers) adds do, du, ds and the five products' sums: every
+// operand of the f32 sums (dk1, db1, dk2, db2, held to 1e-4 of the sum of
+// |terms|) that is not bf16 already is a hi + lo pair; ds rounds once on its
+// write, and its product takes du and k1 rounded once. Bound at training
+// width (32 x 20 x 64 x 128 positions, C 64): K3F 0.73 GB of HBM (0.22 ms)
+// and 90 GFLOP of products (0.09 ms at the bf16 peak; fc1's hi + lo make
+// ~0.17 TFLOP of MMAs issued); K3B 1.73 GB (0.52 ms) and 270 GFLOP (~700
+// issued).
+#include <algorithm>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include "fno_common.cuh"
 #include "mma.cuh"
@@ -352,7 +361,8 @@ __global__ void __launch_bounds__(kThreads, CK <= 8 ? 2 : 1)
 }
 
 // ---------------------------------------------------------------------------
-// K3B's tensor-core variant (bf16; C in {32, 64, 128}, fc1 width 128, F <= 8)
+// The tensor-core variants of K3F and K3B (bf16; C in {32, 64, 128}, fc1
+// width 128, F <= 8): one forward, shared
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -366,7 +376,7 @@ constexpr int kDoS = 24;           // row stride of the do tile [kTP][16]
 // takes more than kFlush * 8 products of 16 positions
 constexpr int kFlush = 32;
 
-// Shared memory of a block, in bytes (ops/kernels.py::k3b_mma_smem_bytes):
+// Shared memory of a K3B block, in bytes (ops/kernels.py::k3b_mma_smem_bytes):
 // k1 hi, lo [C][kKS]; two z stages [kTP][C + 8]; h1 (then du) hi, lo
 // [kTP][kKS]; do hi, lo [kTP][kDoS] (bf16); k2^T hi, lo [8][kKS] (bf16);
 // k2 [kH1][8], b1, b2, the warps' db2 [8][8] (f32).
@@ -375,13 +385,210 @@ inline int k3b_mma_smem(int C) {
          4 * (kH1 * 8 + kH1 + 8 + 64);
 }
 
-// One persistent block an SM walks the tiles t = blockIdx.x + i * gridDim.x
-// of the crop (image, cropped row h, 128 positions of it); per tile, each
-// warp on its 16 positions:
+// Shared memory of a K3F block, in bytes (ops/kernels.py::k3f_mma_smem_bytes):
+// k1 hi, lo [C][kKS]; two z stages [kTP][C + 8]; k2^T hi, lo [8][kKS]
+// (bf16); b1, b2 (f32); the warps' sums [8] (f64). None of K3B's h1, du
+// and do tiles: about 75 KB at C 64.
+inline int k3f_mma_smem(int C) {
+  return 2 * (2 * C * kKS + 2 * kTP * (C + 8) + 2 * 8 * kKS) + 4 * (kH1 + 8) + 8 * 8;
+}
+
+// The weights in a block's shared memory: k1 [C][kH1] as hi, lo [2][C][kKS];
+// k2^T as hi, lo [2][8][kKS] (rows >= F zero); b1 [kH1], b2 [8] (zero past
+// F); and, where sk2f is given (K3B), k2 [kH1][8] in f32.
+template <int C>
+__device__ void load_mma_weights(const float* __restrict__ k1, const float* __restrict__ b1,
+                                 const float* __restrict__ k2, const float* __restrict__ b2,
+                                 int F, bf16* sk1, bf16* sk2t, float* sk2f, float* sb1,
+                                 float* sb2) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < C * kH1; i += kMmaThreads) {
+    const int c = i / kH1, j = i - c * kH1;
+    mma::split_bf16(k1[i], sk1[c * kKS + j], sk1[C * kKS + c * kKS + j]);
+  }
+  for (int i = tid; i < 8 * kH1; i += kMmaThreads) {
+    const int f = i / kH1, j = i - f * kH1;
+    const float v = f < F ? k2[j * F + f] : 0.f;
+    mma::split_bf16(v, sk2t[f * kKS + j], sk2t[8 * kKS + f * kKS + j]);
+    if (sk2f) sk2f[j * 8 + f] = v;
+  }
+  for (int i = tid; i < kH1; i += kMmaThreads) sb1[i] = b1[i];
+  if (tid < 8) sb2[tid] = tid < F ? b2[tid] : 0.f;
+}
+
+// The crop as tiles of up to kTP positions of one cropped row, in the order
+// (image bT, row h, tile of the row), which a persistent grid walks.
+struct CropTiles {
+  int nwt, ntiles;
+  __device__ explicit CropTiles(const TailDims& d)
+      : nwt((d.W + kTP - 1) / kTP), ntiles(d.B * d.T * d.H * nwt) {}
+  // tile -> (row bT of the target, cropped row h, first position w0, row bt of s)
+  __device__ void decode(const TailDims& d, int tile, int& bT, int& h, int& w0, int& bt) const {
+    const int wt = tile % nwt, rest = tile / nwt;
+    h = rest % d.H;
+    bT = rest / d.H;
+    w0 = wt * kTP;
+    bt = (bT / d.T) * d.Tp + bT % d.T;
+  }
+  // z of `tile` into dst [kTP][C + 8] by 16-byte cp.async, one committed
+  // group; rows past the tile's positions zero
+  template <int C>
+  __device__ void fetch(const bf16* __restrict__ s, const TailDims& d, int tile,
+                        bf16* dst) const {
+    constexpr int ZS = C + 8;
+    int bT, h, w0, bt;
+    decode(d, tile, bT, h, w0, bt);
+    const int P = min(kTP, d.W - w0);
+    const bf16* src = s + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
+    for (int i = threadIdx.x; i < kTP * (C / 8); i += kMmaThreads) {
+      const int p = i / (C / 8), cc = i - p * (C / 8);
+      if (p < P)
+        mma::cp_async_16(dst + p * ZS + cc * 8, src + (size_t)p * C + cc * 8);
+      else
+        *reinterpret_cast<uint4*>(dst + p * ZS + cc * 8) = make_uint4(0, 0, 0, 0);
+    }
+    mma::cp_async_commit();
+  }
+};
+
+// The forward of one warp on its 16 positions p0.. of the tile zt:
 //   u1 = z k1 + b1            mma, k1 hi + lo (z is bf16)
-//   h1, act'(u1)              one erf and one exp a position and unit
-//   o = h1 k2 + b2            mma, h1 and k2 hi + lo, from the u1 fragments
-//   do = 2 g (o - target)     f32; db2 in registers
+//   h1 = act(u1)              one erf (and, for K3B, one exp) a position and unit
+//   o = h1 k2                 mma, h1 and k2 hi + lo, from the u1 fragments
+// o[e] is (o without b2)[p0 + gq + 8 (e >> 1)][2q + (e & 1)], lane = 4 gq + q.
+// With GRAD (K3B), h1's hi and lo go to sh [2][kTP][kKS] and u keeps
+// act'(u1) in u1's fragment layout; without (K3F), h1 stays in registers.
+template <int C, int ACT, bool GRAD>
+__device__ __forceinline__ void forward_warp(const bf16* zt, const bf16* sk1, const bf16* sk2t,
+                                             const float* sb1, int p0, int lane,
+                                             float (&u)[16][4], float (&o)[4], bf16* sh) {
+  constexpr int ZS = C + 8;
+  const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const float2 bv = *reinterpret_cast<const float2*>(sb1 + nt * 8 + 2 * q);
+    u[nt][0] = u[nt][2] = bv.x;
+    u[nt][1] = u[nt][3] = bv.y;
+  }
+#pragma unroll
+  for (int ks = 0; ks < C / 16; ++ks) {
+    uint32_t fa[4];
+    mma::ldmatrix_x4(fa, mma::smem_addr(zt + p0 * ZS + mma::a_frag_offset(lane, ks * 16, ZS)));
+#pragma unroll
+    for (int np = 0; np < 8; ++np) {
+      int k, n;
+      mma::b_frag_row(lane, ks * 16, np * 16, k, n);
+#pragma unroll
+      for (int hl = 0; hl < 2; ++hl) {
+        uint32_t fb[4];
+        mma::ldmatrix_x4_trans(fb, mma::smem_addr(sk1 + hl * C * kKS + k * kKS + n));
+        mma::mma_bf16(u[2 * np], fa, fb[0], fb[1]);
+        mma::mma_bf16(u[2 * np + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
+  o[0] = o[1] = o[2] = o[3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t ahi[4], alo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int nt = 2 * ks + (r >> 1), hf = r & 1;
+      float hv0, hv1;
+      if constexpr (GRAD) {
+        fno::act_and_grad_fast(u[nt][2 * hf], ACT, hv0, u[nt][2 * hf]);
+        fno::act_and_grad_fast(u[nt][2 * hf + 1], ACT, hv1, u[nt][2 * hf + 1]);
+      } else {
+        hv0 = fno::affine_act_fast(u[nt][2 * hf], 1.f, 0.f, ACT);
+        hv1 = fno::affine_act_fast(u[nt][2 * hf + 1], 1.f, 0.f, ACT);
+      }
+      mma::split_pack(hv0, hv1, ahi[r], alo[r]);
+      if constexpr (GRAD) {
+        const int at = (p0 + gq + hf * 8) * kKS + nt * 8 + 2 * q;
+        *reinterpret_cast<uint32_t*>(sh + at) = ahi[r];
+        *reinterpret_cast<uint32_t*>(sh + kTP * kKS + at) = alo[r];
+      }
+    }
+    const int kb = gq * kKS + ks * 16 + 2 * q;
+    const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(sk2t + kb);
+    const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(sk2t + kb + 8);
+    const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(sk2t + 8 * kKS + kb);
+    const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(sk2t + 8 * kKS + kb + 8);
+    mma::mma_bf16(o, ahi, bh0, bh1);
+    mma::mma_bf16(o, alo, bh0, bh1);
+    mma::mma_bf16(o, ahi, bl0, bl1);
+  }
+}
+
+// K3F's tensor-core variant. A persistent grid (as many blocks as fit the
+// SMs, never more than tiles) walks the crop's tiles t = blockIdx.x + i *
+// gridDim.x; z comes by 16-byte cp.async into a two-stage ring (the next
+// tile's copy overlaps this one); each warp runs forward_warp on its 16
+// positions and adds (o + b2 - target)^2 of its valid (position, f) into
+// a per-thread f64 sum. The block adds its threads' sums in a fixed order
+// (shuffles, then the warps in turn) into its partial; fno::reduce_partials
+// adds the partials in a fixed order: no atomics. It holds none of K3B's
+// sums and tiles: ~75 KB of shared memory and no more than 128 registers,
+// two blocks an SM at C <= 64.
+template <int C, int ACT>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    k3f_mma_kernel(const bf16* __restrict__ s, const float* __restrict__ target,
+                   const float* __restrict__ k1, const float* __restrict__ b1,
+                   const float* __restrict__ k2, const float* __restrict__ b2,
+                   float* __restrict__ partial, TailDims d) {
+  constexpr int ZS = C + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sk1 = reinterpret_cast<bf16*>(smem_raw);   // [2][C][kKS]: k1 hi, lo
+  bf16* sz = sk1 + 2 * C * kKS;                    // [2 stages][kTP][ZS]
+  bf16* sk2t = sz + 2 * kTP * ZS;                  // [2][8][kKS]: k2^T hi, lo
+  float* sb1 = reinterpret_cast<float*>(sk2t + 2 * 8 * kKS);
+  float* sb2 = sb1 + kH1;                          // [8]
+  double* sred = reinterpret_cast<double*>(sb2 + 8);   // [8 warps]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  load_mma_weights<C>(k1, b1, k2, b2, d.F, sk1, sk2t, nullptr, sb1, sb2);
+  const CropTiles ct(d);
+  const int p0 = warp * 16;
+  double sse = 0.0;
+  int tile = blockIdx.x, it = 0;
+  if (tile < ct.ntiles) ct.fetch<C>(s, d, tile, sz);
+  for (; tile < ct.ntiles; ++it, tile += gridDim.x) {
+    const int stage = it & 1;
+    mma::cp_async_wait<0>();
+    __syncthreads();   // z of this tile has landed; the previous tile's readers are done
+    if (tile + gridDim.x < ct.ntiles) ct.fetch<C>(s, d, tile + gridDim.x, sz + (stage ^ 1) * kTP * ZS);
+    int bT, h, w0, bt;
+    ct.decode(d, tile, bT, h, w0, bt);
+    const int P = min(kTP, d.W - w0);
+    float u[16][4], o[4];
+    forward_warp<C, ACT, false>(sz + stage * kTP * ZS, sk1, sk2t, sb1, p0, lane, u, o, nullptr);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
+      if (p < P && f < d.F) {
+        const float diff =
+            o[e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * d.F + f];
+        sse += (double)(diff * diff);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) sse += __shfl_xor_sync(0xffffffffu, sse, m);
+  if (lane == 0) sred[warp] = sse;
+  __syncthreads();
+  if (tid == 0) {
+    double tot = 0.0;
+    for (int w = 0; w < kMmaThreads / 32; ++w) tot += sred[w];
+    partial[blockIdx.x] = (float)tot;
+  }
+}
+
+// K3B's tensor-core variant. One persistent block an SM walks the crop's
+// tiles t = blockIdx.x + i * gridDim.x; per tile, each warp on its 16
+// positions runs forward_warp (h1 hi, lo into shared memory, u keeping
+// act'(u1)), then
+//   do = 2 g (o + b2 - target) f32; db2 in registers
 //   du = (do k2^T) act'(u1)   F FMAs a unit, f32
 //   ds = du k1^T              mma, du and k1 rounded once; written once as bf16
 // and, after the tile's h1, do and du are in shared memory, the block's
@@ -393,9 +600,8 @@ inline int k3b_mma_smem(int C) {
 // in a fixed order: no atomics. The activation is a template argument: a
 // runtime switch inlined the tanh and erff forms beside the exact one at
 // every unit and cost 3.8 ms in spills and issue (tools/torch_k3b_probe.py).
-// z comes by 16-byte cp.async into a two-stage ring (the next tile's copy
-// overlaps this one). Zeros outside the crop are written after
-// the tiles, a share of the rows a block.
+// Zeros outside the crop are written after the tiles, a share of the rows a
+// block.
 template <int C, int ACT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     k3b_mma_kernel(const bf16* __restrict__ s, const float* __restrict__ target,
@@ -420,52 +626,17 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, q = lane & 3;
   const int F = d.F, W = d.W, H = d.H, T = d.T;
-  for (int i = tid; i < C * kH1; i += kMmaThreads) {
-    const int c = i / kH1, j = i - c * kH1;
-    mma::split_bf16(k1[i], sk1[c * kKS + j], sk1[C * kKS + c * kKS + j]);
-  }
-  for (int i = tid; i < 8 * kH1; i += kMmaThreads) {
-    const int f = i / kH1, j = i - f * kH1;
-    const float v = f < F ? k2[j * F + f] : 0.f;
-    mma::split_bf16(v, sk2t[f * kKS + j], sk2t[8 * kKS + f * kKS + j]);
-    sk2f[j * 8 + f] = v;
-  }
-  for (int i = tid; i < kH1; i += kMmaThreads) sb1[i] = b1[i];
-  if (tid < 8) sb2[tid] = tid < F ? b2[tid] : 0.f;
+  load_mma_weights<C>(k1, b1, k2, b2, F, sk1, sk2t, sk2f, sb1, sb2);
   for (int i = tid; i < 2 * kTP * (kDoS - 8) / 8; i += kMmaThreads) {
     const int r = i / ((kDoS - 8) / 8), cc = i - r * ((kDoS - 8) / 8);
     *reinterpret_cast<uint4*>(sdo + r * kDoS + 8 + cc * 8) = make_uint4(0, 0, 0, 0);
   }
   const float g2 = 2.f * gsc[0];
-  const int nwt = (W + kTP - 1) / kTP;
-  const int ntiles = d.B * T * H * nwt;
+  const CropTiles ct(d);
+  const int ntiles = ct.ntiles;
   // rows of partial sums a block writes: one per kFlush tiles of the most a block takes
   const int nrows = ((ntiles + gridDim.x - 1) / gridDim.x + kFlush - 1) / kFlush;
   const int n = C * kH1 + kH1 + kH1 * F + F;
-
-  // tile -> (row bT of the target, cropped row h, first position w0, row bt of s)
-  auto decode = [&](int tile, int& bT, int& h, int& w0, int& bt) {
-    const int wt = tile % nwt, rest = tile / nwt;
-    h = rest % H;
-    bT = rest / H;
-    w0 = wt * kTP;
-    bt = (bT / T) * d.Tp + bT % T;
-  };
-  auto fetch = [&](int tile, int stage) {
-    int bT, h, w0, bt;
-    decode(tile, bT, h, w0, bt);
-    const int P = min(kTP, W - w0);
-    const bf16* src = s + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
-    bf16* dst = sz + stage * kTP * ZS;
-    for (int i = tid; i < kTP * (C / 8); i += kMmaThreads) {
-      const int p = i / (C / 8), cc = i - p * (C / 8);
-      if (p < P)
-        mma::cp_async_16(dst + p * ZS + cc * 8, src + (size_t)p * C + cc * 8);
-      else
-        *reinterpret_cast<uint4*>(dst + p * ZS + cc * 8) = make_uint4(0, 0, 0, 0);
-    }
-    mma::cp_async_commit();
-  };
 
   float dk1[MC + 1][2][4];   // dk1[c][16 warp + 8 nt + 2q (+1)] for c = 16 mi + gq (+8); db1 in mi = MC
   float dk2[4];              // dk2[16 warp + gq (+8)][2q (+1)]
@@ -527,70 +698,22 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   };
 
   int tile = blockIdx.x, it = 0;
-  if (tile < ntiles) fetch(tile, 0);
+  if (tile < ntiles) ct.fetch<C>(s, d, tile, sz);
   const int p0 = warp * 16;
   for (; tile < ntiles; ++it, tile += gridDim.x) {
     const int stage = it & 1;
     mma::cp_async_wait<0>();
     __syncthreads();   // z of this tile has landed; the previous tile's readers are done
-    if (tile + gridDim.x < ntiles) fetch(tile + gridDim.x, stage ^ 1);
+    if (tile + gridDim.x < ntiles) ct.fetch<C>(s, d, tile + gridDim.x, sz + (stage ^ 1) * kTP * ZS);
     int bT, h, w0, bt;
-    decode(tile, bT, h, w0, bt);
+    ct.decode(d, tile, bT, h, w0, bt);
     const int P = min(kTP, W - w0);
     const bf16* zt = sz + stage * kTP * ZS;
 
-    // u1 = z k1 + b1 on this warp's 16 positions, all 128 hidden units
-    float u[16][4];
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      const float2 bv = *reinterpret_cast<const float2*>(sb1 + nt * 8 + 2 * q);
-      u[nt][0] = u[nt][2] = bv.x;
-      u[nt][1] = u[nt][3] = bv.y;
-    }
-#pragma unroll
-    for (int ks = 0; ks < C / 16; ++ks) {
-      uint32_t fa[4];
-      mma::ldmatrix_x4(fa, mma::smem_addr(zt + p0 * ZS + mma::a_frag_offset(lane, ks * 16, ZS)));
-#pragma unroll
-      for (int np = 0; np < 8; ++np) {
-        int k, n;
-        mma::b_frag_row(lane, ks * 16, np * 16, k, n);
-#pragma unroll
-        for (int hl = 0; hl < 2; ++hl) {
-          uint32_t fb[4];
-          mma::ldmatrix_x4_trans(fb, mma::smem_addr(sk1 + hl * C * kKS + k * kKS + n));
-          mma::mma_bf16(u[2 * np], fa, fb[0], fb[1]);
-          mma::mma_bf16(u[2 * np + 1], fa, fb[2], fb[3]);
-        }
-      }
-    }
-
-    // h1 = act(u1) into shared memory (hi, lo) and through o = h1 k2; u
-    // keeps act'(u1)
-    float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      uint32_t ahi[4], alo[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int nt = 2 * ks + (r >> 1), hf = r & 1;
-        float hv0, hv1;
-        fno::act_and_grad_fast(u[nt][2 * hf], ACT, hv0, u[nt][2 * hf]);
-        fno::act_and_grad_fast(u[nt][2 * hf + 1], ACT, hv1, u[nt][2 * hf + 1]);
-        mma::split_pack(hv0, hv1, ahi[r], alo[r]);
-        const int at = (p0 + gq + hf * 8) * kKS + nt * 8 + 2 * q;
-        *reinterpret_cast<uint32_t*>(sh + at) = ahi[r];
-        *reinterpret_cast<uint32_t*>(sh + kTP * kKS + at) = alo[r];
-      }
-      const int kb = gq * kKS + ks * 16 + 2 * q;
-      const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(sk2t + kb);
-      const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(sk2t + kb + 8);
-      const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(sk2t + 8 * kKS + kb);
-      const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(sk2t + 8 * kKS + kb + 8);
-      mma::mma_bf16(o, ahi, bh0, bh1);
-      mma::mma_bf16(o, alo, bh0, bh1);
-      mma::mma_bf16(o, ahi, bl0, bl1);
-    }
+    // u1, h1 (into shared memory, hi and lo) and o on this warp's 16
+    // positions; u keeps act'(u1)
+    float u[16][4], o[4];
+    forward_warp<C, ACT, true>(zt, sk1, sk2t, sb1, p0, lane, u, o, sh);
 
     // do = 2 g (o + b2 - target), zero past the tile's positions and F
     float dv[4];
@@ -802,39 +925,71 @@ cudaError_t launch_k3b(const void* s, const void* target, const void* k1, const 
                               B * d.Tp, d.C * kH1 + kH1 + kH1 * d.F + d.F, stream);
 }
 
-// The mma variant's grid: one block an SM (its shared memory allows one),
-// never more blocks than tiles; 0 on error.
-int k3b_mma_blocks(const TailDims& d) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
-    return 0;
-  const long long tiles = (long long)d.B * d.T * d.H * ((d.W + kTP - 1) / kTP);
-  return (int)(tiles < sms ? tiles : sms);
+// Calls fn(C, ACT) (as std::integral_constant arguments) for an
+// instantiated (width, activation) of the tensor-core variants;
+// cudaErrorInvalidValue for any other.
+template <typename Fn>
+cudaError_t with_mma_instance(int C, int act, Fn&& fn) {
+  using std::integral_constant;
+#define MMA_INSTANCE(CC, AA) \
+  if (C == CC && act == AA) return fn(integral_constant<int, CC>(), integral_constant<int, AA>())
+  MMA_INSTANCE(64, fno::kActExact);   // the cylinder and combustion
+  MMA_INSTANCE(128, fno::kActExact);  // fsi
+  MMA_INSTANCE(32, fno::kActExact);
+  MMA_INSTANCE(32, fno::kActTanh);
+  MMA_INSTANCE(64, fno::kActTanh);
+  MMA_INSTANCE(128, fno::kActTanh);
+  MMA_INSTANCE(32, fno::kActNone);
+  MMA_INSTANCE(64, fno::kActNone);
+  MMA_INSTANCE(128, fno::kActNone);
+#undef MMA_INSTANCE
+  return cudaErrorInvalidValue;
 }
 
-// Rows of partial sums of the mma variant: kFlush tiles a row, as many rows a
-// block as the most tiles a block takes need (k3b_mma_kernel's nrows).
+long long crop_tiles(const TailDims& d) {
+  return (long long)d.B * d.T * d.H * ((d.W + kTP - 1) / kTP);
+}
+
+// A persistent grid: as many blocks of `kernel` as the card's SMs hold at
+// once with `smem` bytes each, never more than tiles; 0 on error.
+template <typename K>
+int persistent_blocks(K kernel, int smem, const TailDims& d) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (fno::allow_smem(kernel, (size_t)smem) != cudaSuccess || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem) !=
+          cudaSuccess)
+    return 0;
+  const long long n = std::min(crop_tiles(d), (long long)sms * per_sm);
+  return n < 1 ? 0 : (int)n;
+}
+
+// Rows of partial sums of K3B's mma variant: kFlush tiles a row, as many
+// rows a block as the most tiles a block takes need (k3b_mma_kernel's nrows).
 int k3b_mma_rows(const TailDims& d, int nblocks) {
-  const long long tiles = (long long)d.B * d.T * d.H * ((d.W + kTP - 1) / kTP);
-  const long long per_block = (tiles + nblocks - 1) / nblocks;
+  const long long per_block = (crop_tiles(d) + nblocks - 1) / nblocks;
   return nblocks * (int)((per_block + kFlush - 1) / kFlush);
 }
 
-template <int C, int ACT>
-cudaError_t launch_k3b_mma_as(const void* s, const void* target, const void* k1, const void* b1,
-                              const void* k2, const void* b2, const void* g, void* ds,
-                              void* partial, int nblocks, const TailDims& d, cudaStream_t stream) {
-  auto kernel = k3b_mma_kernel<C, ACT>;
-  const int smem = k3b_mma_smem(C);
-  cudaError_t err = fno::allow_smem(kernel, (size_t)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<nblocks, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(s), static_cast<const float*>(target),
-      static_cast<const float*>(k1), static_cast<const float*>(b1),
-      static_cast<const float*>(k2), static_cast<const float*>(b2),
-      static_cast<const float*>(g), static_cast<bf16*>(ds), static_cast<float*>(partial), d);
-  return cudaGetLastError();
+// Blocks of each tensor-core variant's grid at (C, act): K3B's shared
+// memory allows one an SM, K3F's two at C <= 64; 0 on error.
+int k3b_mma_blocks(const TailDims& d) {
+  int nblocks = 0;
+  with_mma_instance(d.C, d.act, [&](auto c, auto a) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
+    nblocks = persistent_blocks(k3b_mma_kernel<CC, AA>, k3b_mma_smem(CC), d);
+    return cudaSuccess;
+  });
+  return nblocks;
+}
+int k3f_mma_blocks(const TailDims& d) {
+  int nblocks = 0;
+  with_mma_instance(d.C, d.act, [&](auto c, auto a) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
+    nblocks = persistent_blocks(k3f_mma_kernel<CC, AA>, k3f_mma_smem(CC), d);
+    return cudaSuccess;
+  });
+  return nblocks;
 }
 
 cudaError_t launch_k3b_mma(const void* s, const void* target, const void* k1, const void* b1,
@@ -844,56 +999,85 @@ cudaError_t launch_k3b_mma(const void* s, const void* target, const void* k1, co
     if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
   const int nblocks = k3b_mma_blocks(d);
   if (nblocks < 1) return cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorInvalidValue;
-#define K3B_MMA(CC, AA)                                                                         \
-  if (d.C == CC && d.act == AA)                                                                 \
-  err = launch_k3b_mma_as<CC, AA>(s, target, k1, b1, k2, b2, g, ds, partial, nblocks, d, stream)
-  K3B_MMA(64, fno::kActExact);   // the cylinder and combustion
-  K3B_MMA(128, fno::kActExact);  // fsi
-  K3B_MMA(32, fno::kActExact);
-  K3B_MMA(32, fno::kActTanh);
-  K3B_MMA(64, fno::kActTanh);
-  K3B_MMA(128, fno::kActTanh);
-  K3B_MMA(32, fno::kActNone);
-  K3B_MMA(64, fno::kActNone);
-  K3B_MMA(128, fno::kActNone);
-#undef K3B_MMA
+  cudaError_t err = with_mma_instance(d.C, d.act, [&](auto c, auto a) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
+    k3b_mma_kernel<CC, AA><<<nblocks, kMmaThreads, k3b_mma_smem(CC), stream>>>(
+        static_cast<const bf16*>(s), static_cast<const float*>(target),
+        static_cast<const float*>(k1), static_cast<const float*>(b1),
+        static_cast<const float*>(k2), static_cast<const float*>(b2),
+        static_cast<const float*>(g), static_cast<bf16*>(ds), static_cast<float*>(partial), d);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
   return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(out),
                               k3b_mma_rows(d, nblocks), d.C * kH1 + kH1 + kH1 * d.F + d.F, stream);
 }
 
+cudaError_t launch_k3f_mma(const void* s, const void* target, const void* k1, const void* b1,
+                           const void* k2, const void* b2, void* partial, void* sse,
+                           const TailDims& d, cudaStream_t stream) {
+  if ((uintptr_t)s % 16) return cudaErrorMisalignedAddress;
+  const int nblocks = k3f_mma_blocks(d);
+  if (nblocks < 1) return cudaErrorInvalidValue;
+  cudaError_t err = with_mma_instance(d.C, d.act, [&](auto c, auto a) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
+    k3f_mma_kernel<CC, AA><<<nblocks, kMmaThreads, k3f_mma_smem(CC), stream>>>(
+        static_cast<const bf16*>(s), static_cast<const float*>(target),
+        static_cast<const float*>(k1), static_cast<const float*>(b1),
+        static_cast<const float*>(k2), static_cast<const float*>(b2),
+        static_cast<float*>(partial), d);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(sse),
+                              nblocks, 1, stream);
+}
+
 }  // namespace
 
-// Bytes of shared memory a block of K3B's mma variant takes at width C.
+// Bytes of shared memory a block of K3B's (K3F's) mma variant takes at width C.
 extern "C" int fno_k3b_mma_smem_bytes(int C) { return k3b_mma_smem(C); }
+extern "C" int fno_k3f_mma_smem_bytes(int C) { return k3f_mma_smem(C); }
 
 // Rows of K3B's partial sums for variant 0 (fma: one an image) or 1 (mma:
-// k3b_mma_rows over the persistent grid of min(SMs, tiles) blocks); 0 on
-// error.
-extern "C" int fno_k3b_num_partials(int B, int T, int H, int W, int Tp, int variant) {
+// k3b_mma_rows over its persistent grid); 0 on error.
+extern "C" int fno_k3b_num_partials(int B, int T, int H, int W, int Tp, int C, int act,
+                                    int variant) {
   if (variant == 0) return B * Tp;
-  const TailDims d{T, H, W, Tp, 0, 0, 0, 0, 0, B};
+  const TailDims d{T, H, W, Tp, 0, 0, C, 0, act, B};
   const int nblocks = variant == 1 ? k3b_mma_blocks(d) : 0;
   return nblocks < 1 ? 0 : k3b_mma_rows(d, nblocks);
 }
 
+// Partial sums of K3F for variant 0 (fma: one an image) or 1 (mma: one a
+// block of its persistent grid); 0 on error.
+extern "C" int fno_k3f_num_partials(int B, int T, int H, int W, int C, int act, int variant) {
+  if (variant == 0) return B * T;
+  const TailDims d{T, H, W, T, 0, 0, C, 0, act, B};
+  return variant == 1 ? k3f_mma_blocks(d) : 0;
+}
+
+// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["k3f"]); partial holds
+// fno_k3f_num_partials(...) floats.
 extern "C" int fno_k3f(const void* s, const void* target, const void* k1, const void* b1,
                        const void* k2, const void* b2, void* partial, void* sse, int B, int T,
                        int H, int W, int Tp, int Hp, int Wp, int C, int H1, int F, int act,
-                       int dtype, void* stream) {
+                       int variant, int dtype, void* stream) {
   const TailDims d{T, H, W, Tp, Hp, Wp, C, F, act, B};
   cudaError_t err = check_dims(d, B, H1);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
+    return launch_k3f_mma(s, target, k1, b1, k2, b2, partial, sse, d, st);
+  }
+  if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32) return launch_k3f<float>(s, target, k1, b1, k2, b2, partial, sse, B, d, st);
   if (dtype == fno::kBF16)
     return launch_k3f<__nv_bfloat16>(s, target, k1, b1, k2, b2, partial, sse, B, d, st);
   return cudaErrorInvalidValue;
 }
 
-// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["k3b"]); partial holds
-// fno_k3b_num_partials(...) rows of C*H1 + H1 + H1*F + F floats.
 extern "C" int fno_k3b(const void* s, const void* target, const void* k1, const void* b1,
                        const void* k2, const void* b2, const void* g, void* ds, void* partial,
                        void* out, int B, int T, int H, int W, int Tp, int Hp, int Wp, int C,

@@ -13,28 +13,41 @@
 // in-kernel transpose and run the T x T products on the VPU; that is a TPU
 // layout trick and is not carried over.
 //
-// Design: a block takes a tile of `ns` consecutive sites, whose q/k/v slabs
-// (T*h*D contiguous elements a site) it stages in shared memory with 16-byte
-// loads. A thread takes one (site, head, row i): q_i in registers, the
-// row's T scores in a padded shared-memory row (odd stride: the threads of
-// a warp, on consecutive rows, hit distinct banks), an exact softmax over
-// them, and an f32 accumulator of D for o_i, written once. Threads of one
-// (site, head) read the same k_j / v_j, so a warp's shared loads broadcast.
-// The backward keeps P and dS rows of the tile in shared memory: phase A
-// (thread = row i) writes P, dS and dq_i; phase B (thread = column j) sums
-// dk_j and dv_j over i; phase C adds the tile's dS over its sites into a
-// per-block f64 [h, T, T] accumulator. Blocks loop over tiles and each
-// writes its accumulator as a partial; fno::reduce_partials adds the
-// partials in a fixed order, so dpb repeats bit for bit. No atomics.
-// Bound: at the UNet's level 0 (B 12, S 8192, T 20, h 4, D 32, bf16) the
+// The forward, and the backward's `fma` variant (f32 tensors, bf16 at head
+// widths or T the other variant does not take): a block takes a tile of
+// `ns` consecutive sites, whose q/k/v slabs (T*h*D contiguous elements a
+// site) it stages in shared memory with 16-byte loads. A thread takes one
+// (site, head, row i): q_i in registers, the row's T scores in a padded
+// shared-memory row (odd stride: the threads of a warp, on consecutive
+// rows, hit distinct banks), an exact softmax over them, and an f32
+// accumulator of D for o_i, written once. Threads of one (site, head) read
+// the same k_j / v_j, so a warp's shared loads broadcast. The backward
+// keeps P and dS rows of the tile in shared memory: phase A (thread = row
+// i) writes P, dS and dq_i; phase B (thread = column j) sums dk_j and dv_j
+// over i; phase C adds the tile's dS over its sites into a per-block f64
+// [h, T, T] accumulator. Blocks loop over tiles and each writes its
+// accumulator as a partial; fno::reduce_partials adds the partials in a
+// fixed order, so dpb repeats bit for bit. No atomics. Exact f32 FMAs on
+// the CUDA cores from shared memory: FP32 issue bounds them.
+//
+// The backward's `mma` variant (bf16; d in {16, 32, 64}, T <= 32, at most
+// 8 heads, 16-byte aligned q, k, v and do; chosen by
+// ops/kernels.py::ta_bwd_variant; ta_bwd_mma_kernel below has the design):
+// one warp a (site, head) runs the five T x T x d products on mma.sync with
+// the softmax and dS in the accumulator fragments, a persistent grid
+// walking the sites through a cp.async ring.
+//
+// Bound at the UNet's level 0 (B 12, S 8192, T 20, h 4, D 32, bf16): the
 // forward moves 2.0 GB (q, k, v read, o written: 0.60 ms at 3.35 TB/s) for
-// 20 GFLOP, the backward 3.5 GB (1.05 ms) for 50 GFLOP: HBM bounds both on
-// paper, but the products run as f32 FMAs on CUDA cores (0.3 / 0.75 ms at
-// the 67 TFLOP/s FP32 peak), so FP32 issue is close behind. The tiny T x D
-// tiles on tensor cores (mma.sync) are the next step.
+// 20 GFLOP, the backward 3.5 GB (1.05 ms) for 50 GFLOP: HBM bounds both.
 #include "fno_common.cuh"
+#include "mma.cuh"
 
 #include <math.h>
+
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -331,6 +344,403 @@ __global__ void __launch_bounds__(kMaxThreads)
     partial[(size_t)blockIdx.x * nhT + e] = (float)sacc[e];
 }
 
+// ---------------------------------------------------------------------------
+// TA backward's tensor-core variant (bf16; d in {16, 32, 64}, T <= 32,
+// heads <= 8)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTaStages = 2;     // sites in flight a block: the ring's stages
+constexpr int kTaMaxHeads = 8;   // warps a block: one a head
+constexpr int kTaTS = 40;        // row stride of a warp's [32][32] P / dS tile (bank spread)
+// sites a warp's f32 sums of dS take before they go into the block's f64
+// accumulator (a CPU replay of the flush at the UNet's level-0 statistics
+// put the block partials within 4.4e-8 of the sum of |terms| at 16 sites)
+constexpr int kTaFlush = 16;
+
+// Shared memory of a block, in bytes from the base (host and device agree;
+// ops/kernels.py::ta_bwd_mma_smem_bytes).
+struct TaMmaLayout {
+  size_t ring, zero, tiles, acc, bias, total;
+  __host__ __device__ TaMmaLayout(int T, int h, int D) {
+    const size_t rs = (size_t)h * D + 8;               // a ring row's stride (bank spread)
+    const size_t tj = 8 * (size_t)((T + 7) / 8);       // columns padded to 8 NT
+    ring = 0;                                          // [kTaStages][q, k, v, do][T][rs] bf16
+    zero = ring + (size_t)kTaStages * 4 * T * rs * 2;  // [64] bf16 zeros: every row past T
+    tiles = zero + 128;                                // [h][32][kTaTS] bf16: dS, then P
+    acc = tiles + (size_t)h * 32 * kTaTS * 2;          // [h][T][T] f64: dpb of the block
+    bias = acc + (size_t)h * T * T * 8;                // [h][T][8 NT] f32: pb, -inf past T
+    total = bias + (size_t)h * T * tj * 4;
+  }
+};
+
+// One warp takes one (site, head), the block's warps the heads of one site,
+// the block its sites s = blockIdx.x + i * gridDim.x; the next site's q, k,
+// v and do come by 16-byte cp.async into a two-stage ring. A warp's rows i
+// and columns j are padded to 16 MT and 8 NT (NT = ceil(T / 8)); every
+// operand row past T is read from a row of zeros.
+//   S = q k^T, dP = do v^T     mma, bf16 operands as they are, f32 sums
+//   P = softmax(S + pb)        in the accumulator fragments: columns j >= T
+//                              masked to -inf, rows i >= T zero; row max,
+//                              sum and sum(P dP) by quad shuffles
+//   dS = P (dP - sum_j P dP)   f32; added into the lane's running dpb sums
+//   dq = dS k                  mma, dS rounded once to bf16, its A fragments
+//                              packed straight from the accumulators
+//   dk = dS^T q, dv = P^T do   mma, dS and then P staged as bf16 in the
+//                              warp's tile and read by ldmatrix.trans
+// dq, dk and dv round once to bf16 into the warp's columns of the ring
+// slots of k, q and v (each slot's last reader is the product that writes
+// it), and the block writes the site's three [T, h d] slabs out with 16-byte
+// stores (4-byte stores straight from the fragments, 8 rows apart, cost 0.5
+// ms of 2.4 at the UNet's level 0: tools/torch_ta_probe.py, cut_store). The
+// bias sits in shared memory with -inf past column T. A lane's dS entries sit
+// at the same (i, j) at every site: its f32 sums take kTaFlush sites, then
+// go into the block's f64 [h, T, T] accumulator (each (i, j) of a head
+// belongs to one lane: no atomics); the block writes it as its partial and
+// fno::reduce_partials adds the partials in a fixed order.
+template <int D, int NT>
+__global__ void __launch_bounds__(32 * kTaMaxHeads, 2)
+    ta_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const float* __restrict__ pb,
+                      const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ partial,
+                      int nsites, int T, int h) {
+  constexpr int MT = (NT + 1) / 2;      // 16-row tiles over i, and 16-wide k-steps over j
+  constexpr int NC = D / 8;             // 8-column tiles of d
+  constexpr int CW = NC < 4 ? NC : 4;   // of them a pass of dq, dk or dv takes
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TaMmaLayout L(T, h, D);
+  const int F = h * D, rs = F + 8, slab = T * rs;
+  const int nthreads = blockDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, q4 = lane & 3;
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
+  const bf16* zero = reinterpret_cast<const bf16*>(smem + L.zero);
+  bf16* tile = reinterpret_cast<bf16*>(smem + L.tiles) + warp * 32 * kTaTS;
+  double* acc = reinterpret_cast<double*>(smem + L.acc);
+  float* sbias = reinterpret_cast<float*>(smem + L.bias);   // [h][T][8 NT]
+  // the zero row; the tiles (their columns past 8 NT are never written);
+  // the accumulator; the bias, masked past column T
+  for (int i = threadIdx.x; i < (int)((L.acc - L.zero) / 16); i += nthreads)
+    reinterpret_cast<uint4*>(smem + L.zero)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < h * T * T; i += nthreads) acc[i] = 0.0;
+  for (int i = threadIdx.x; i < h * T * 8 * NT; i += nthreads) {
+    const int j = i % (8 * NT), hi = i / (8 * NT);
+    sbias[i] = j < T ? pb[hi * T + j] : -INFINITY;
+  }
+
+  auto fetch = [&](int site, int stage) {
+    bf16* dst = ring + stage * 4 * slab;
+    const int per_row = F / 8;
+    for (int i = threadIdx.x; i < 4 * T * per_row; i += nthreads) {
+      const int t = i / (T * per_row), rem = i - t * T * per_row;
+      const int r = rem / per_row, cc = rem - r * per_row;
+      const bf16* src = t == 0 ? q : t == 1 ? k : t == 2 ? v : dout;
+      mma::cp_async_16(dst + t * slab + r * rs + cc * 8, src + ((size_t)site * T + r) * F + cc * 8);
+    }
+    mma::cp_async_commit();
+  };
+  // row r of a [T][rs] operand at base, or the zero row past T
+  auto row = [&](const bf16* base, int r) { return r < T ? base + r * rs : zero; };
+  // rows < T of [16 MT][8 CW] accumulators, rounded to bf16, into the
+  // columns 8 c0.. of a ring slot [T][rs] of this head
+  auto store = [&](bf16* slot, int c0, const float (&o)[MT][CW][4]) {
+    __syncwarp();   // the warp's reads of the columns it overwrites are done
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 16 * mi + gq + 8 * hf;
+        if (r < T)
+#pragma unroll
+          for (int ct = 0; ct < CW; ++ct)
+            *reinterpret_cast<uint32_t*>(slot + r * rs + 8 * (c0 + ct) + 2 * q4) =
+                mma::pack_bf16(o[mi][ct][2 * hf], o[mi][ct][2 * hf + 1]);
+      }
+  };
+  // out = A^T b over rows of b (i), A^T's fragments read transposed from the
+  // warp's tile [i][j], into the slot: dk from (dS, q), dv from (P, do)
+  auto tile_product = [&](bf16* slot, const bf16* b) {
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += CW) {
+      float o[MT][CW][4] = {};
+#pragma unroll
+      for (int ki = 0; ki < MT; ++ki) {
+        uint32_t fa[MT][4];
+#pragma unroll
+        for (int mj = 0; mj < MT; ++mj) {
+          int kr, m;
+          mma::at_frag_row(lane, 16 * ki, 16 * mj, kr, m);
+          mma::ldmatrix_x4_trans(fa[mj], mma::smem_addr(tile + kr * kTaTS + m));
+        }
+#pragma unroll
+        for (int cp = 0; cp < CW / 2; ++cp) {
+          int kr, n;
+          mma::b_frag_row(lane, 16 * ki, 8 * c0 + 16 * cp, kr, n);
+          uint32_t fb[4];
+          mma::ldmatrix_x4_trans(fb, mma::smem_addr(row(b, kr) + n));
+#pragma unroll
+          for (int mj = 0; mj < MT; ++mj) {
+            mma::mma_bf16(o[mj][2 * cp], fa[mj], fb[0], fb[1]);
+            mma::mma_bf16(o[mj][2 * cp + 1], fa[mj], fb[2], fb[3]);
+          }
+        }
+      }
+      store(slot, c0, o);
+    }
+  };
+
+  float run[MT][NT][4] = {};   // dS of this warp's (i, j) entries since the last flush
+  auto flush = [&]() {
+    double* a = acc + warp * T * T;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 16 * mi + gq + 8 * (e >> 1), j = 8 * nj + 2 * q4 + (e & 1);
+          if (i < T && j < T) a[i * T + j] += (double)run[mi][nj][e];
+          run[mi][nj][e] = 0.f;
+        }
+  };
+
+  // the ring: site blockIdx.x + i gridDim.x in stage i % kTaStages, the
+  // next kTaStages - 1 sites in flight (a group each, empty past the end)
+  int site = blockIdx.x, it = 0;
+  for (int i = 0; i < kTaStages - 1; ++i) {
+    if (site + i * (int)gridDim.x < nsites) fetch(site + i * gridDim.x, i);
+    else mma::cp_async_commit();
+  }
+  for (; site < nsites; ++it, site += gridDim.x) {
+    const int stage = it % kTaStages;
+    mma::cp_async_wait<kTaStages - 2>();
+    __syncthreads();   // this site has landed; the readers of the stage refilled next are done
+    const int ahead = site + (kTaStages - 1) * gridDim.x;
+    if (ahead < nsites) fetch(ahead, (it + kTaStages - 1) % kTaStages);
+    else mma::cp_async_commit();
+    bf16* const Qs = ring + stage * 4 * slab + warp * D;
+    bf16 *const Ks = Qs + slab, *const Vs = Qs + 2 * slab, *const Os = Qs + 3 * slab;
+
+    // S = q k^T and dP = do v^T
+    float sp[MT][NT][4] = {}, dp[MT][NT][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t bk[(NT + 1) / 2][4], bv[(NT + 1) / 2][4];
+#pragma unroll
+      for (int np = 0; np < (NT + 1) / 2; ++np) {
+        int n, kk;
+        mma::bt_frag_row(lane, 16 * ks, 16 * np, n, kk);
+        mma::ldmatrix_x4(bk[np], mma::smem_addr(row(Ks, n) + kk));
+        mma::ldmatrix_x4(bv[np], mma::smem_addr(row(Vs, n) + kk));
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const int r = 16 * mi + (lane & 7) + ((lane >> 3) & 1) * 8, c = 16 * ks + (lane >> 4) * 8;
+        uint32_t fq[4], fo[4];
+        mma::ldmatrix_x4(fq, mma::smem_addr(row(Qs, r) + c));
+        mma::ldmatrix_x4(fo, mma::smem_addr(row(Os, r) + c));
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) {
+          const int np = nj >> 1, hb = 2 * (nj & 1);
+          mma::mma_bf16(sp[mi][nj], fq, bk[np][hb], bk[np][hb + 1]);
+          mma::mma_bf16(dp[mi][nj], fo, bv[np][hb], bv[np][hb + 1]);
+        }
+      }
+    }
+
+    // P and dS in the fragments, row by row (i = 16 mi + gq + 8 hf)
+    const float* bh = sbias + warp * T * 8 * NT;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * mi + gq + 8 * hf;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) {
+          const float2 b = i < T ? *reinterpret_cast<const float2*>(bh + i * 8 * NT + 8 * nj + 2 * q4)
+                                 : make_float2(0.f, 0.f);
+          sp[mi][nj][2 * hf] += b.x;
+          sp[mi][nj][2 * hf + 1] += b.y;
+          mx = fmaxf(mx, fmaxf(sp[mi][nj][2 * hf], sp[mi][nj][2 * hf + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        float sum = 0.f;
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sp[mi][nj][2 * hf + e];
+            x = exp2f((x - mx) * 1.4426950408889634f);
+            sum += x;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const float inv = i < T ? 1.f / sum : 0.f;
+        float dot = 0.f;
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sp[mi][nj][2 * hf + e];
+            x *= inv;
+            dot = fmaf(x, dp[mi][nj][2 * hf + e], dot);
+          }
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& g = dp[mi][nj][2 * hf + e];
+            g = sp[mi][nj][2 * hf + e] * (g - dot);
+            run[mi][nj][2 * hf + e] += g;
+          }
+      }
+
+    // P and dS as bf16 pairs, in the accumulators' layout; dS into the tile
+    uint32_t pp[MT][NT][2], pd[MT][NT][2];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          pp[mi][nj][hf] = mma::pack_bf16(sp[mi][nj][2 * hf], sp[mi][nj][2 * hf + 1]);
+          pd[mi][nj][hf] = mma::pack_bf16(dp[mi][nj][2 * hf], dp[mi][nj][2 * hf + 1]);
+          *reinterpret_cast<uint32_t*>(tile + (16 * mi + gq + 8 * hf) * kTaTS + 8 * nj + 2 * q4) =
+              pd[mi][nj][hf];
+        }
+    __syncwarp();
+
+    // dq = dS k: dS's A fragments from its accumulators (k-step kk takes
+    // the column tiles 2 kk and 2 kk + 1)
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += CW) {
+      float o[MT][CW][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < MT; ++kk) {
+#pragma unroll
+        for (int cp = 0; cp < CW / 2; ++cp) {
+          int kr, n;
+          mma::b_frag_row(lane, 16 * kk, 8 * c0 + 16 * cp, kr, n);
+          uint32_t fb[4];
+          mma::ldmatrix_x4_trans(fb, mma::smem_addr(row(Ks, kr) + n));
+          const int n2 = 2 * kk + 1 < NT ? 2 * kk + 1 : -1;   // past 8 NT: zeros
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            const uint32_t fa[4] = {pd[mi][2 * kk][0], pd[mi][2 * kk][1],
+                                    n2 < 0 ? 0u : pd[mi][n2 < 0 ? 0 : n2][0],
+                                    n2 < 0 ? 0u : pd[mi][n2 < 0 ? 0 : n2][1]};
+            mma::mma_bf16(o[mi][2 * cp], fa, fb[0], fb[1]);
+            mma::mma_bf16(o[mi][2 * cp + 1], fa, fb[2], fb[3]);
+          }
+        }
+      }
+      store(Ks, c0, o);   // dq into k's slot: k's last reader was this product
+    }
+    tile_product(Qs, Qs);         // dk = dS^T q, into q's slot
+    __syncwarp();                 // every lane's reads of dS are done
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<uint32_t*>(tile + (16 * mi + gq + 8 * hf) * kTaTS + 8 * nj + 2 * q4) =
+              pp[mi][nj][hf];
+    __syncwarp();
+    tile_product(Vs, Os);         // dv = P^T do, into v's slot (read last by dP)
+    if ((it + 1) % kTaFlush == 0) flush();
+    __syncthreads();   // every warp's dq, dk and dv are in the slots
+    const bf16* st = ring + stage * 4 * slab;
+    for (int i = threadIdx.x; i < 3 * T * (F / 8); i += nthreads) {
+      const int t = i / (T * (F / 8)), rem = i - t * T * (F / 8);
+      const int r = rem / (F / 8), cc = rem - r * (F / 8);
+      bf16* out = t == 0 ? dq : t == 1 ? dk : dv;
+      const bf16* src = st + (t == 0 ? slab : t == 1 ? 0 : 2 * slab) + r * rs + cc * 8;
+      *reinterpret_cast<uint4*>(out + ((size_t)site * T + r) * F + cc * 8) =
+          *reinterpret_cast<const uint4*>(src);
+    }
+  }
+  flush();
+  __syncthreads();
+  for (int e = threadIdx.x; e < h * T * T; e += nthreads)
+    partial[(size_t)blockIdx.x * h * T * T + e] = (float)acc[e];
+}
+
+// Calls fn(D, NT) (as std::integral_constant arguments) for the
+// instantiated head width D and 8-column tiles NT = ceil(T / 8) of the
+// tensor-core variant; cudaErrorInvalidValue for any other.
+template <typename Fn>
+cudaError_t with_ta_mma_instance(int d, int T, Fn&& fn) {
+  using std::integral_constant;
+  const int nt = (T + 7) / 8;
+#define TA_MMA_INSTANCE(DD, NN) \
+  if (d == DD && nt == NN) return fn(integral_constant<int, DD>(), integral_constant<int, NN>())
+  TA_MMA_INSTANCE(32, 3);   // the UNet: T 20, d 32
+  TA_MMA_INSTANCE(16, 1);
+  TA_MMA_INSTANCE(16, 2);
+  TA_MMA_INSTANCE(16, 3);
+  TA_MMA_INSTANCE(16, 4);
+  TA_MMA_INSTANCE(32, 1);
+  TA_MMA_INSTANCE(32, 2);
+  TA_MMA_INSTANCE(32, 4);
+  TA_MMA_INSTANCE(64, 1);
+  TA_MMA_INSTANCE(64, 2);
+  TA_MMA_INSTANCE(64, 3);
+  TA_MMA_INSTANCE(64, 4);
+#undef TA_MMA_INSTANCE
+  return cudaErrorInvalidValue;
+}
+
+bool ta_mma_shape(int nsites, int T, int h, int d) {
+  return nsites > 0 && T >= 1 && T <= 32 && h >= 1 && h <= kTaMaxHeads &&
+         (d == 16 || d == 32 || d == 64) && TaMmaLayout(T, h, d).total <= kMaxSmem;
+}
+
+// The tensor-core variant's persistent grid: as many blocks as the card's
+// SMs hold at once, never more than sites; 0 on error.
+int ta_mma_blocks(int nsites, int T, int h, int d) {
+  if (!ta_mma_shape(nsites, T, h, d)) return 0;
+  const size_t smem = TaMmaLayout(T, h, d).total;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  cudaError_t err = with_ta_mma_instance(d, T, [&](auto dd, auto nn) {
+    auto kern = ta_bwd_mma_kernel<decltype(dd)::value, decltype(nn)::value>;
+    cudaError_t e = fno::allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * h, smem);
+  });
+  if (err != cudaSuccess || sms * per_sm < 1) return 0;
+  return nsites < sms * per_sm ? nsites : sms * per_sm;
+}
+
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* pb,
+                           const void* dout, void* dq, void* dk, void* dv, void* partial,
+                           void* dpb, int nsites, int T, int h, int d, cudaStream_t stream) {
+  for (const void* p : {q, k, v, dout, (const void*)dq, (const void*)dk, (const void*)dv})
+    if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
+  const int grid = ta_mma_blocks(nsites, T, h, d);
+  if (grid < 1) return cudaErrorInvalidValue;
+  const size_t smem = TaMmaLayout(T, h, d).total;
+  cudaError_t err = with_ta_mma_instance(d, T, [&](auto dd, auto nn) {
+    ta_bwd_mma_kernel<decltype(dd)::value, decltype(nn)::value><<<grid, 32 * h, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(pb), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(partial), nsites, T,
+        h);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(dpb), grid,
+                              h * T * T, stream);
+}
+
 inline int round32(int n) { return (n + 31) / 32 * 32; }
 
 // The tile: as many sites as fit kMaxThreads tasks and the smem budget.
@@ -424,18 +834,31 @@ extern "C" int ta_fwd(const void* q, const void* k, const void* v, const void* p
 #undef TA_FWD
 }
 
-// Number of [h, T, T] partials ta_bwd writes (0 for a shape it refuses).
-extern "C" int ta_bwd_num_partials(int nsites, int T, int h, int d, int dtype) {
-  TaShape s;
-  return bwd_shape(nsites, T, h, d, dtype, &s) ? bwd_grid(s) : 0;
+// Bytes of shared memory a block of ta_bwd's mma variant takes.
+extern "C" int ta_bwd_mma_smem_bytes(int T, int h, int d) {
+  return (int)TaMmaLayout(T, h, d).total;
 }
 
+// Number of [h, T, T] partials ta_bwd writes for variant 0 (fma) or 1
+// (mma: one a block of its persistent grid); 0 for a shape it refuses.
+extern "C" int ta_bwd_num_partials(int nsites, int T, int h, int d, int variant, int dtype) {
+  if (variant == 1) return dtype == fno::kBF16 ? ta_mma_blocks(nsites, T, h, d) : 0;
+  TaShape s;
+  return variant == 0 && bwd_shape(nsites, T, h, d, dtype, &s) ? bwd_grid(s) : 0;
+}
+
+// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["ta_bwd"]); partial holds
+// ta_bwd_num_partials(...) [h, T, T] floats.
 extern "C" int ta_bwd(const void* q, const void* k, const void* v, const void* pb,
                       const void* dout, void* dq, void* dk, void* dv, void* partial, void* dpb,
-                      int nsites, int T, int h, int d, int dtype, void* stream) {
-  TaShape s;
-  if (!bwd_shape(nsites, T, h, d, dtype, &s)) return cudaErrorInvalidValue;
+                      int nsites, int T, int h, int d, int variant, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
+    return launch_bwd_mma(q, k, v, pb, dout, dq, dk, dv, partial, dpb, nsites, T, h, d, st);
+  }
+  TaShape s;
+  if (variant != 0 || !bwd_shape(nsites, T, h, d, dtype, &s)) return cudaErrorInvalidValue;
 #define TA_BWD(TT, DD) launch_bwd<TT, DD>(q, k, v, pb, dout, dq, dk, dv, partial, dpb, s, st)
   if (dtype == fno::kF32) {
     TA_DISPATCH_D(float, TA_BWD)

@@ -5,7 +5,7 @@ FNO3d's tail and loss, ``SSE = Σ (fc2(gelu(fc1(crop(s)))) − target)²``, run
 as one autograd function:
 
   K3F  crop, fc1 (the last BatchNorm folded in), GELU, fc2, SSE
-       (csrc/fno_tail.cu)
+       (csrc/fno_tail.cu; bf16: on the tensor cores)
   K3B  the same forward recomputed, then ds, dk1, db1, dk2, db2
        (csrc/fno_tail.cu; bf16: on the tensor cores)
 
@@ -58,10 +58,12 @@ def k3b_plain(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str):
             rows(h1).t() @ rows(do), rows(do).sum(0))
 
 
-def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str):
+def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str, variant=None):
+    """On the card, the variant ``kernels.k3f_variant`` chooses from dtype,
+    width and alignment (or the one named)."""
     if _use_kernel(s):
         return kernels.k3f(s, target, k1, b1, k2, b2, dims=dims,
-                           tail_dims=tail_dims, act=act)
+                           tail_dims=tail_dims, act=act, variant=variant)
     return k3f_plain(s, target, k1, b1, k2, b2, dims=dims,
                      tail_dims=tail_dims, act=act)
 

@@ -14,10 +14,11 @@ tensors, allocates the outputs and scratch, launches on PyTorch's current
 stream (the kernels allocate nothing and do not synchronise), raises if the
 launch returned an error, and adds one to its entry in ``LAUNCHES``.
 
-K1, the T-stage, K2, K2A-lite, K12B and K3B have two variants each, chosen
-from dtype, shape and the 16-byte alignment of the data before the launch by
-the pure functions ``k1_variant``, ``t_stage_variant``, ``k2_variant``,
-``k2a_lite_variant``, ``k12b_variant`` and ``k3b_variant`` (``VARIANTS``
+K1, the T-stage, K2, K2A-lite, K12B, K3F, K3B and the TA backward have two
+variants each, chosen from dtype, shape and the 16-byte alignment of the
+data before the launch by the pure functions ``k1_variant``,
+``t_stage_variant``, ``k2_variant``, ``k2a_lite_variant``, ``k12b_variant``,
+``k3f_variant``, ``k3b_variant`` and ``ta_bwd_variant`` (``VARIANTS``
 counts the launches of each): the T-stage's ``registers`` (a thread
 produces every output of its column) or ``generic``; the others' ``mma``
 (bf16, their products on the tensor cores) or ``fma`` (exact f32
@@ -73,7 +74,8 @@ LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
 # order is the variant code of the csrc/ entry point.
 VARIANTS = {"k1": {"fma": 0, "mma": 0}, "t_stage": {"generic": 0, "registers": 0},
             "k2": {"fma": 0, "mma": 0}, "k2a_lite": {"fma": 0, "mma": 0},
-            "k12b": {"fma": 0, "mma": 0}, "k3b": {"fma": 0, "mma": 0}}
+            "k12b": {"fma": 0, "mma": 0}, "k3f": {"fma": 0, "mma": 0},
+            "k3b": {"fma": 0, "mma": 0}, "ta_bwd": {"fma": 0, "mma": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
@@ -193,6 +195,24 @@ def k2a_lite_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
 # csrc/fno_tail.cu, K3B's mma variant: widths, positions a tile takes, the
 # padded row strides of its [.][128] tiles and of its do tile
 K3B_MMA_WIDTHS, K3B_MMA_TILE, K3B_MMA_KS, K3B_MMA_DOS = (32, 64, 128), 128, 136, 24
+
+
+def k3f_mma_smem_bytes(C: int) -> int:
+    """Shared memory of a block of K3F's mma variant (csrc/fno_tail.cu::
+    k3f_mma_smem): k1 hi and lo, two z stages, k2ᵀ hi and lo (bf16); b1, b2
+    (f32); the warps' sums (f64)."""
+    P, KS = K3B_MMA_TILE, K3B_MMA_KS
+    return 2 * (2 * C * KS + 2 * P * (C + 8) + 2 * 8 * KS) + 4 * (128 + 8) + 8 * 8
+
+
+def k3f_variant(dtype, C: int, F: int = 3, aligned: bool = True) -> str:
+    """'mma' for bfloat16 at an instantiated width (32, 64, 128), F <= 8
+    and 16-byte aligned s (K3B's conditions: the two share one forward),
+    else 'fma'."""
+    if (dtype == torch.bfloat16 and aligned and C in K3B_MMA_WIDTHS and F <= 8
+            and k3f_mma_smem_bytes(C) <= MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
 
 
 def k3b_mma_smem_bytes(C: int) -> int:
@@ -334,13 +354,16 @@ SIGNATURES = {
     "fno_k12b": ([_P] * 18 + [_I] * 9 + [_P], _I),
     "fno_k12b_partial_floats": ([_I] * 5, ctypes.c_longlong),
     "fno_k12b_mma_smem_bytes": ([_I] * 4, _I),
-    "fno_k3f": ([_P] * 8 + [_I] * 12 + [_P], _I),
+    "fno_k3f": ([_P] * 8 + [_I] * 13 + [_P], _I),
+    "fno_k3f_num_partials": ([_I] * 7, _I),
+    "fno_k3f_mma_smem_bytes": ([_I], _I),
     "fno_k3b": ([_P] * 10 + [_I] * 13 + [_P], _I),
-    "fno_k3b_num_partials": ([_I] * 6, _I),
+    "fno_k3b_num_partials": ([_I] * 8, _I),
     "fno_k3b_mma_smem_bytes": ([_I], _I),
     "ta_fwd": ([_P] * 5 + [_I] * 5 + [_P], _I),
-    "ta_bwd_num_partials": ([_I] * 5, _I),
-    "ta_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "ta_bwd_num_partials": ([_I] * 6, _I),
+    "ta_bwd_mma_smem_bytes": ([_I] * 3, _I),
+    "ta_bwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
     "gk_scores_num_partials": ([_I] * 4, _I),
     "gk_scores": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),
     "fno_error_string": ([_I], ctypes.c_char_p),
@@ -711,16 +734,47 @@ def _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims):
     return (B, T, H, W, Tp, Hp, Wp, C, H1, F)
 
 
-def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str):
-    """SSE of the fused tail (0-d f32 tensor); see csrc/fno_tail.cu."""
+def _tail_variant(kernel: str, s, C: int, F: int, variant: str | None):
+    """(name, code) of the variant of K3F or K3B that runs on s: the one
+    named, or the one ``k3f_variant`` / ``k3b_variant`` chooses; a named mma
+    variant that cannot take s raises, as do shared-memory layouts of this
+    module and fno_tail.cu that differ."""
+    choose, smem = ((k3f_variant, k3f_mma_smem_bytes) if kernel == "k3f"
+                    else (k3b_variant, k3b_mma_smem_bytes))
+    chosen = choose(s.dtype, C, F, aligned(s))
+    name = chosen if variant is None else variant
+    code = _variant_code(kernel, name)
+    if name == "mma":
+        if chosen != "mma":
+            raise ValueError(f"{kernel}: the mma variant takes bfloat16, C in {K3B_MMA_WIDTHS}, "
+                             f"F <= 8 and 16-byte aligned s; got {s.dtype}, C={C}, F={F}, "
+                             f"aligned={aligned(s)}")
+        if getattr(library(), f"fno_{kernel}_mma_smem_bytes")(C) != smem(C):
+            raise RuntimeError(f"{kernel}: the shared-memory layouts of kernels.py and "
+                               "fno_tail.cu differ")
+    return name, code
+
+
+def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str,
+        variant: str | None = None):
+    """SSE of the fused tail (0-d f32 tensor); see csrc/fno_tail.cu.
+    ``variant`` names one of VARIANTS['k3f']; by default ``k3f_variant``
+    chooses."""
     dt = _io_dtype(s)
     ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims)
-    B, T = ints[0], ints[1]
-    partial = torch.empty(B * T, dtype=torch.float32, device=s.device)
+    B, T, H, W, C, F = (ints[i] for i in (0, 1, 2, 3, 7, 9))
+    name, code = _tail_variant("k3f", s, C, F, variant)
+    lib = library()
+    with torch.cuda.device(s.device):   # the mma grid fills this card's SMs
+        nparts = lib.fno_k3f_num_partials(B, T, H, W, C, ACT_CODES[act], code)
+    if nparts < 1:
+        raise RuntimeError(f"k3f: no partial count for the {name} variant")
+    partial = torch.empty(nparts, dtype=torch.float32, device=s.device)
     sse = torch.empty((), dtype=torch.float32, device=s.device)
-    _launch("k3f", library().fno_k3f, s.device, _p(s), _p(target), _p(k1),
+    _launch("k3f", lib.fno_k3f, s.device, _p(s), _p(target), _p(k1),
             _p(b1), _p(k2), _p(b2), _p(partial), _p(sse), *ints, ACT_CODES[act],
-            dt)
+            code, dt)
+    VARIANTS["k3f"][name] += 1
     return sse
 
 
@@ -733,21 +787,12 @@ def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str,
     ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims)
     _check("g", g, s.device, torch.float32, ())
     B, T, H, W, Tp, C, H1, F = (ints[i] for i in (0, 1, 2, 3, 4, 7, 8, 9))
-    chosen = k3b_variant(s.dtype, C, F, aligned(s))
-    name = chosen if variant is None else variant
-    code = _variant_code("k3b", name)
-    if name == "mma" and chosen != "mma":
-        raise ValueError(f"k3b: the mma variant takes bfloat16, C in {K3B_MMA_WIDTHS}, "
-                         f"F <= 8 and 16-byte aligned s; got {s.dtype}, C={C}, F={F}, "
-                         f"aligned={aligned(s)}")
+    name, code = _tail_variant("k3b", s, C, F, variant)
     lib = library()
-    if name == "mma" and lib.fno_k3b_mma_smem_bytes(C) != k3b_mma_smem_bytes(C):
-        raise RuntimeError("k3b: the shared-memory layouts of kernels.py and fno_tail.cu "
-                           "differ")
     n = C * H1 + H1 + H1 * F + F
     ds = torch.empty_like(s)
     with torch.cuda.device(s.device):   # the mma grid is one block an SM of this card
-        nparts = lib.fno_k3b_num_partials(B, T, H, W, Tp, code)
+        nparts = lib.fno_k3b_num_partials(B, T, H, W, Tp, C, ACT_CODES[act], code)
     if nparts < 1:
         raise RuntimeError(f"k3b: no partial count for the {name} variant")
     partial = torch.empty((nparts, n), dtype=torch.float32, device=s.device)
@@ -763,6 +808,33 @@ def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str,
 # head widths the TA kernels are instantiated for (csrc/temporal_attention.cu)
 TA_HEAD_DIMS = (8, 16, 32, 64)
 TA_MAX_TASKS = 256   # heads * T: one thread per (head, row) of a site
+# TA backward's mma variant: head widths, the longest T (rows and columns of
+# a warp's tiles padded to 32), heads (a warp each), the ring's stages, the
+# row stride of a warp's P / dS tile
+TA_MMA_HEAD_DIMS, TA_MMA_MAX_T, TA_MMA_MAX_HEADS = (16, 32, 64), 32, 8
+TA_MMA_STAGES, TA_MMA_TILE_STRIDE = 2, 40
+
+
+def ta_bwd_mma_smem_bytes(T: int, heads: int, d: int) -> int:
+    """Shared memory of a block of TA backward's mma variant
+    (csrc/temporal_attention.cu::TaMmaLayout): the ring of q, k, v and do
+    rows (bf16, rows padded by 8), a zero row, the warps' P / dS tiles
+    (bf16), the block's dpb accumulator (f64), the bias with its columns
+    padded to 8·ceil(T/8) (f32)."""
+    rs = heads * d + 8
+    return (TA_MMA_STAGES * 4 * T * rs * 2 + 128 + heads * 32 * TA_MMA_TILE_STRIDE * 2
+            + heads * T * T * 8 + heads * T * 8 * -(-T // 8) * 4)
+
+
+def ta_bwd_variant(dtype, T: int, heads: int, d: int, aligned: bool = True) -> str:
+    """'mma' for bfloat16 with d in (16, 32, 64), T <= 32, heads * T <= 256,
+    at most 8 heads, a block within the shared memory and 16-byte aligned q,
+    k, v and do, else 'fma'."""
+    if (dtype == torch.bfloat16 and aligned and d in TA_MMA_HEAD_DIMS and T <= TA_MMA_MAX_T
+            and heads * T <= TA_MAX_TASKS and heads <= TA_MMA_MAX_HEADS
+            and ta_bwd_mma_smem_bytes(T, heads, d) <= MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
 
 
 def _ta_checks(q, pos_bias, heads, **same):
@@ -796,21 +868,48 @@ def ta_fwd(q, k, v, pos_bias, heads: int):
     return o
 
 
-def ta_bwd(q, k, v, pos_bias, do, heads: int):
+def _ta_bwd_variant(q, k, v, do, T: int, heads: int, d: int, variant: str | None):
+    """(name, code) of the variant of the TA backward that runs: the one
+    named, or the one ``ta_bwd_variant`` chooses; a named mma variant that
+    cannot take the input raises, as do shared-memory layouts of this module
+    and temporal_attention.cu that differ."""
+    ok = aligned(q, k, v, do)
+    chosen = ta_bwd_variant(q.dtype, T, heads, d, ok)
+    name = chosen if variant is None else variant
+    code = _variant_code("ta_bwd", name)
+    if name == "mma":
+        if chosen != "mma":
+            raise ValueError(
+                f"ta_bwd: the mma variant takes bfloat16, d in {TA_MMA_HEAD_DIMS}, T <= "
+                f"{TA_MMA_MAX_T}, heads*T <= {TA_MAX_TASKS}, at most {TA_MMA_MAX_HEADS} heads, "
+                f"a block within {MAX_SMEM_BYTES} bytes of shared memory and 16-byte aligned "
+                f"q, k, v and do; got {q.dtype}, d={d}, T={T}, heads={heads}, aligned={ok}")
+        if library().ta_bwd_mma_smem_bytes(T, heads, d) != ta_bwd_mma_smem_bytes(T, heads, d):
+            raise RuntimeError("ta_bwd: the shared-memory layouts of kernels.py and "
+                               "temporal_attention.cu differ")
+    return name, code
+
+
+def ta_bwd(q, k, v, pos_bias, do, heads: int, variant: str | None = None):
     """(dq, dk, dv like q; dpb [h, T, T] f32, summed over all sites) of
-    ta_fwd's output cotangent do; the weights are recomputed."""
+    ta_fwd's output cotangent do; the weights are recomputed. ``variant``
+    names one of VARIANTS['ta_bwd']; by default ``ta_bwd_variant``
+    chooses."""
     dt, nsites, T, d = _ta_checks(q, pos_bias, heads, k=k, v=v, do=do)
+    name, code = _ta_bwd_variant(q, k, v, do, T, heads, d, variant)
     lib = library()
-    n = lib.ta_bwd_num_partials(nsites, T, heads, d, dt)
+    with torch.cuda.device(q.device):   # the mma grid fills this card's SMs
+        n = lib.ta_bwd_num_partials(nsites, T, heads, d, code, dt)
     if n <= 0:
-        raise ValueError(f"ta_bwd refuses T={T}, heads={heads}, d={d}: its tile "
+        raise ValueError(f"ta_bwd ({name}) refuses T={T}, heads={heads}, d={d}: its tile "
                          "does not fit shared memory")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     partial = torch.empty((n, heads, T, T), dtype=torch.float32, device=q.device)
     dpb = torch.empty((heads, T, T), dtype=torch.float32, device=q.device)
     _launch("ta_bwd", lib.ta_bwd, q.device, _p(q), _p(k), _p(v), _p(pos_bias),
             _p(do), _p(dq), _p(dk), _p(dv), _p(partial), _p(dpb), nsites, T,
-            heads, d, dt)
+            heads, d, code, dt)
+    VARIANTS["ta_bwd"][name] += 1
     return dq, dk, dv, dpb
 
 

@@ -13,9 +13,11 @@ in the qkv Dense's native token layout:
 
 ``temporal_attention_tokens`` is one autograd function. On a CUDA tensor
 its forward is ``kernels.ta_fwd`` and its backward ``kernels.ta_bwd``
-(csrc/temporal_attention.cu), which recomputes the weights from q, k and
-pos_bias, as the JAX ``custom_vjp`` does (``temporal_attention.py:163-179``),
-and returns dq, dk, dv and d(pos_bias) summed over all sites. On a CPU
+(csrc/temporal_attention.cu; bf16: on the tensor cores, the variant
+``kernels.ta_bwd_variant`` chooses), which recomputes the weights from q, k
+and pos_bias, as the JAX ``custom_vjp`` does
+(``temporal_attention.py:163-179``), and returns dq, dk, dv and d(pos_bias)
+summed over all sites. On a CPU
 tensor it is the plain twin, differentiated by autograd. There is no
 fallback from one to the other. Any S is taken: the JAX kernel's
 ``S % 128 == 0`` is a TPU lane constraint the CUDA kernels do not have.

@@ -1,5 +1,5 @@
-"""The variants of the port's K1, T-stage, K2, K2A-lite, K12B and K3B
-kernels, as far as the CPU shows.
+"""The variants of the port's K1, T-stage, K2, K2A-lite, K12B, K3F, K3B and
+TA backward kernels, as far as the CPU shows.
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py,
 marker ``gpu``). Here: the host side of the tensor-core variants (the bf16
@@ -12,7 +12,10 @@ FNO configs, at the odd shapes of the gpu tests and at a view at an odd
 storage offset; and the T-stage twin against the JAX ``t_stage`` (Pallas,
 interpret mode) at two more (Tp, m1), f32. K2A-lite's and K3B's replays
 reach the Pallas ``_k2a_lite_kernel`` through ``_layer_calls`` and
-``_k3b_kernel`` through the JAX fused tail's vjp.
+``_k3b_kernel`` through the JAX fused tail's vjp. The replays of K3F's and
+the TA backward's tensor-core variants are in tests/test_torch_fno_tail.py
+and tests/test_torch_temporal_attention.py; here their choice, and the
+refusal of a named mma variant on input it cannot take.
 """
 
 from pathlib import Path
@@ -185,6 +188,8 @@ def test_shipped_configs_choose_the_redesigned_variants(scenario):
     F_ = 3 * 2   # the widest fc2 of the shipped windows (3 channels, 2 steps)
     assert kernels.k3b_variant(torch.bfloat16, C, F_) == "mma"
     assert kernels.k3b_variant(torch.float32, C, F_) == "fma"
+    assert kernels.k3f_variant(torch.bfloat16, C, F_) == "mma"
+    assert kernels.k3f_variant(torch.float32, C, F_) == "fma"
     for dtype in (torch.bfloat16, torch.float32):
         for tin, tout in ((26, 2 * m1), (2 * m1, 26)):
             assert kernels.t_stage_variant(dtype, C, tin, tout) == "registers"
@@ -203,6 +208,8 @@ def test_a_view_at_an_odd_offset_chooses_the_unaligned_variants():
     assert kernels.k12b_variant(torch.bfloat16, 64, 24, 16, 134, ok) == "fma"
     assert kernels.k2a_lite_variant(torch.bfloat16, 64, 24, 16, 134, ok) == "fma"
     assert kernels.k3b_variant(torch.bfloat16, 64, 3, ok) == "fma"
+    assert kernels.k3f_variant(torch.bfloat16, 64, 3, ok) == "fma"
+    assert kernels.ta_bwd_variant(torch.bfloat16, 20, 4, 32, ok) == "fma"
     assert kernels.t_stage_variant(torch.bfloat16, 64, 26, 8, ok) == "generic"
 
 
@@ -283,7 +290,8 @@ def test_variant_counters_start_at_zero_and_reset():
     assert kernels.VARIANTS == {"k1": {"fma": 0, "mma": 0},
                                 "t_stage": {"generic": 0, "registers": 0},
                                 "k2": {"fma": 0, "mma": 0}, "k2a_lite": {"fma": 0, "mma": 0},
-                                "k12b": {"fma": 0, "mma": 0}, "k3b": {"fma": 0, "mma": 0}}
+                                "k12b": {"fma": 0, "mma": 0}, "k3f": {"fma": 0, "mma": 0},
+                                "k3b": {"fma": 0, "mma": 0}, "ta_bwd": {"fma": 0, "mma": 0}}
     assert not any(kernels.LAUNCHES.values())
 
 
@@ -578,6 +586,100 @@ def test_k3b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
         assert kernels.k3b_mma_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("args, want", [
+    ((torch.bfloat16, 64, 3), "mma"),      # the cylinder
+    ((torch.bfloat16, 128, 6), "mma"),     # fsi's width
+    ((torch.bfloat16, 32, 8), "mma"),      # F at its bound
+    ((torch.bfloat16, 16, 3), "fma"),      # C not instantiated
+    ((torch.bfloat16, 96, 3), "fma"),
+    ((torch.bfloat16, 256, 3), "fma"),     # C past 128
+    ((torch.bfloat16, 64, 9), "fma"),      # F past 8
+    ((torch.float32, 64, 3), "fma"),       # exact f32 arithmetic
+    ((torch.float32, 128, 6), "fma"),
+])
+def test_k3f_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    """K3F takes K3B's conditions (the two share one forward) and K3F's
+    block fits the shared memory twice at C 64 (two blocks an SM)."""
+    assert kernels.k3f_variant(*args) == want
+    assert kernels.k3f_variant(*args) == want        # no state
+    assert kernels.k3f_variant(*args) == kernels.k3b_variant(*args)
+    assert kernels.k3f_variant(*args, aligned=False) == "fma"
+    if want == "mma":
+        assert kernels.k3f_mma_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
+    assert 2 * (kernels.k3f_mma_smem_bytes(64) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.bfloat16, 20, 4, 32), "mma"),      # the UNet: T 20, 4 heads of 32
+    ((torch.bfloat16, 32, 4, 32), "mma"),      # T at its bound
+    ((torch.bfloat16, 33, 4, 32), "fma"),      # T past 32
+    ((torch.bfloat16, 20, 4, 16), "mma"),
+    ((torch.bfloat16, 20, 4, 64), "mma"),
+    ((torch.bfloat16, 20, 4, 8), "fma"),       # d not instantiated
+    ((torch.bfloat16, 5, 3, 8), "fma"),
+    ((torch.bfloat16, 16, 8, 32), "mma"),      # 8 heads
+    ((torch.bfloat16, 32, 8, 32), "fma"),      # 8 heads, heads*T 256: past the shared memory
+    ((torch.bfloat16, 32, 8, 64), "fma"),
+    ((torch.bfloat16, 16, 16, 16), "fma"),     # more than 8 heads
+    ((torch.bfloat16, 9, 30, 16), "fma"),      # heads*T past 256
+    ((torch.float32, 20, 4, 32), "fma"),       # exact f32 arithmetic
+    ((torch.float32, 5, 3, 16), "fma"),
+])
+def test_ta_bwd_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    assert kernels.ta_bwd_variant(*args) == want
+    assert kernels.ta_bwd_variant(*args) == want     # no state
+    assert kernels.ta_bwd_variant(*args, aligned=False) == "fma"
+    dtype, T, heads, d = args
+    fits = kernels.ta_bwd_mma_smem_bytes(T, heads, d) <= kernels.MAX_SMEM_BYTES
+    assert fits or want == "fma"
+    if want == "mma":
+        assert heads * T <= kernels.TA_MAX_TASKS and fits
+
+
+def test_ta_bwd_mma_block_fits_three_times_an_sm_at_the_unet_shape():
+    """At T 20, 4 heads of 32 a block takes 73 KB: three blocks an SM."""
+    assert 3 * (kernels.ta_bwd_mma_smem_bytes(20, 4, 32) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("kernel, dtype, C, F_, offset", [
+    ("k3f", torch.float32, 64, 3, 0),       # f32
+    ("k3f", torch.bfloat16, 16, 3, 0),      # C not instantiated
+    ("k3f", torch.bfloat16, 64, 9, 0),      # F past 8
+    ("k3f", torch.bfloat16, 64, 3, 1),      # s 2 bytes past a 16-byte boundary
+    ("k3b", torch.bfloat16, 64, 3, 1),
+])
+def test_a_named_tail_mma_variant_refuses_what_it_does_not_take(kernel, dtype, C, F_, offset):
+    """The choice before the launch: a named mma variant that cannot take s
+    raises before anything is built or launched; the unnamed choice and a
+    named fma take it."""
+    base = torch.zeros(4 * C + 8, dtype=dtype)
+    s = base[offset:offset + 4 * C].view(4, C)
+    with pytest.raises(ValueError, match="mma variant"):
+        kernels._tail_variant(kernel, s, C, F_, "mma")
+    with pytest.raises(ValueError, match="no variant"):
+        kernels._tail_variant(kernel, s, C, F_, "wgmma")
+    assert kernels._tail_variant(kernel, s, C, F_, None) == ("fma", 0)
+    assert kernels._tail_variant(kernel, s, C, F_, "fma") == ("fma", 0)
+
+
+@pytest.mark.parametrize("dtype, T, heads, d, offset", [
+    (torch.float32, 20, 4, 32, 0),         # f32
+    (torch.bfloat16, 20, 4, 8, 0),         # d not instantiated
+    (torch.bfloat16, 33, 4, 32, 0),        # T past 32
+    (torch.bfloat16, 16, 16, 16, 0),       # more than 8 heads
+    (torch.bfloat16, 20, 4, 32, 1),        # do 2 bytes past a 16-byte boundary
+])
+def test_a_named_ta_bwd_mma_variant_refuses_what_it_does_not_take(dtype, T, heads, d, offset):
+    n = T * heads * d
+    q = torch.zeros(n, dtype=dtype)
+    do = torch.zeros(n + 8, dtype=dtype)[offset:offset + n]
+    with pytest.raises(ValueError, match="mma variant"):
+        kernels._ta_bwd_variant(q, q, q, do, T, heads, d, "mma")
+    with pytest.raises(ValueError, match="no variant"):
+        kernels._ta_bwd_variant(q, q, q, do, T, heads, d, "wgmma")
+    assert kernels._ta_bwd_variant(q, q, q, do, T, heads, d, None) == ("fma", 0)
+
+
 @pytest.mark.parametrize("geo", [(13, 22, 5, 8), (70, 134, 12, 16)])
 def test_k2a_lite_tables_hold_the_adjoint_dft_tables(geo):
     """iw and ih, unrounded, against K2's inverse factors: iw's rows are
@@ -689,30 +791,57 @@ def test_k2a_lite_mma_replay_matches_pallas_k2a_lite():
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4 * float(np.abs(ref).max()))
 
 
-def _replay_k3b_mma(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act, rounding=True):
-    """K3B's tensor-core variant in plain PyTorch: the products on the
-    variant's operands (k1, k2, h1, du and do as bf16 hi + lo pairs, the lo·lo
-    terms dropped, z bf16; ds from du and k1 rounded once), accumulated in
-    f64, the ones row's db1 from du's pair; ds rounded to bf16.
-    ``rounding=False``: every operand unrounded. Returns (ds, dk1, db1,
-    dk2, db2)."""
+def _pair(rounding):
+    """t → its (hi, lo) bf16 pair in f64, or (t, 0) unrounded."""
+    if rounding:
+        return lambda t: tuple(u.double() for u in kernels.split_bf16(t))
+    return lambda t: (t.double(), torch.zeros_like(t, dtype=torch.float64))
+
+
+def _prod(p, q):
+    """The hi + lo product of two pairs, the lo·lo term dropped."""
+    return p[0] @ q[0] + p[1] @ q[0] + p[0] @ q[1]
+
+
+def _replay_tail_forward(s, k1, b1, k2, b2, *, dims, tail_dims, act, rounding=True):
+    """The forward K3F's and K3B's tensor-core variants share, in plain
+    PyTorch: u1 = z·k1 + b1 with z bf16 and k1 a bf16 hi + lo pair, h1 =
+    act(u1), o = h1·k2 + b2 with h1 and k2 pairs (the lo·lo terms dropped),
+    in f64. ``rounding=False``: every operand unrounded. Returns (z, u1,
+    h1's pair, o), positions as rows."""
     B, Tp, Hp, Wp, C = dims
     T, H, W = tail_dims
-    if rounding:
-        pair = lambda t: tuple(u.double() for u in kernels.split_bf16(t))
-        once = lambda t: t.float().to(torch.bfloat16).double()
-    else:
-        pair = lambda t: (t.double(), torch.zeros_like(t, dtype=torch.float64))
-        once = lambda t: t.double()
-    prod = lambda p, q: p[0] @ q[0] + p[1] @ q[0] + p[0] @ q[1]
+    pair = _pair(rounding)
     z = s.double().view(B, Tp, Hp, Wp, C)[:, :T, :H, :W].reshape(-1, C)
-    k1p, k2p = pair(k1), pair(k2)
+    k1p = pair(k1)
     u1 = z @ k1p[0] + z @ k1p[1] + b1.double()
-    h1, dh = tfl._act(u1, act), tfl._act_grad(u1, act)
-    h1p = pair(h1)
-    do = 2.0 * g.double() * (prod(h1p, k2p) + b2.double()
-                             - target.double().reshape(-1, k2.shape[1]))
-    du = (do @ k2.double().t()) * dh
+    h1p = pair(tfl._act(u1, act))
+    return z, u1, h1p, _prod(h1p, pair(k2)) + b2.double()
+
+
+def _replay_k3f_mma(s, target, k1, b1, k2, b2, *, dims, tail_dims, act, rounding=True):
+    """K3F's tensor-core variant in plain PyTorch: the shared forward, then
+    Σ (o − target)² in f64 (the kernel's per-thread sums are f64)."""
+    o = _replay_tail_forward(s, k1, b1, k2, b2, dims=dims, tail_dims=tail_dims, act=act,
+                             rounding=rounding)[3]
+    return ((o - target.double().reshape(o.shape)) ** 2).sum()
+
+
+def _replay_k3b_mma(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act, rounding=True):
+    """K3B's tensor-core variant in plain PyTorch: the shared forward, then
+    the products on the variant's operands (du and do as bf16 hi + lo pairs
+    too; ds from du and k1 rounded once), accumulated in f64, the ones row's
+    db1 from du's pair; ds rounded to bf16. ``rounding=False``: every
+    operand unrounded. Returns (ds, dk1, db1, dk2, db2)."""
+    B, Tp, Hp, Wp, C = dims
+    T, H, W = tail_dims
+    pair, prod = _pair(rounding), _prod
+    once = ((lambda t: t.float().to(torch.bfloat16).double()) if rounding
+            else (lambda t: t.double()))
+    z, u1, h1p, o = _replay_tail_forward(s, k1, b1, k2, b2, dims=dims, tail_dims=tail_dims,
+                                         act=act, rounding=rounding)
+    do = 2.0 * g.double() * (o - target.double().reshape(-1, k2.shape[1]))
+    du = (do @ k2.double().t()) * tfl._act_grad(u1, act)
     dsv = once(du) @ once(k1).t()
     ds = torch.zeros((B, Tp, Hp, Wp, C), dtype=torch.float64)
     ds[:, :T, :H, :W] = dsv.view(B, T, H, W, C)
@@ -766,14 +895,31 @@ def test_k3b_mma_replay_matches_twin(shape, act):
 
 
 @pytest.mark.parametrize("act", ["exact", "tanh"])
-def test_k3b_mma_replay_matches_pallas_k3b(act):
-    """Unrounded, the replay against the Pallas ``_k3b_kernel`` in interpret
-    mode (f32), reached through the JAX fused tail's vjp: s and ds share the
-    port's layout; the packed weights are block-diagonal pairs, whose
-    diagonal blocks' gradients add up to the port's."""
-    shape = (2, 5, 8, 12, 8, 3, 6, 10, 6)
+@pytest.mark.parametrize("shape", K3B_SHAPES)
+def test_k3f_mma_replay_matches_twin(shape, act):
+    """The replay of K3F's variant on bf16 s: its SSE within 1e-5 of the
+    twin's (relative; the sum of |terms| is the SSE itself), ten times
+    inside STATS_TOL, the bound the kernel is held to on the card;
+    unrounded, within 2e-6 of it (the twin sums in f32)."""
     B, Tp, Hp, Wp, C, T, H, W, F_ = shape
-    s, tail, gl = _k3b_inputs(shape, seed=15)
+    s, tail, _ = _k3b_inputs(shape, seed=16)
+    s = s.to(torch.bfloat16)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
+    ref = ft.k3f_plain(s, *tail, **kw).double()
+    got = _replay_k3f_mma(s, *tail, **kw)
+    assert abs(got - ref) <= 1e-5 * ref
+    exact = _replay_k3f_mma(s, *tail, **kw, rounding=False)
+    assert abs(exact - ref) <= 2e-6 * ref
+
+
+def _jax_fused_tail(s, tail, shape, act):
+    """The JAX fused tail (Pallas ``_k3f_kernel`` forward, ``_k3b_kernel``
+    backward, interpret mode, f32) on the port's s and weights: its loss
+    function of (s, packed weights), those packed weights, and a map of the
+    packed weights' gradients back to the port's. The packed weights are
+    block-diagonal pairs (w parity), whose diagonal blocks' gradients add up
+    to the port's; the target is packed in its lane-major layout."""
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
     target, k1, b1, k2, b2 = (t.numpy() for t in tail)
     J0, J, F2p = W // 2, Wp // 2, -(-2 * F_ // 8) * 8
     y = target.reshape(B, T, H, J0, 2 * F_)                   # lanes (w parity, f)
@@ -789,10 +935,38 @@ def test_k3b_mma_replay_matches_pallas_k3b(act):
                                           tail_dims=(T, H, J0), act=act, interpret=True)
     prim = (jnp.asarray(s.numpy()), jnp.asarray(k1bd), jnp.asarray(np.tile(b1, 2)[None]),
             jnp.asarray(k2p), jnp.asarray(b2p))
+    unpack = lambda ds, dk1, db1, dk2, db2: (
+        ds, dk1[:C, :128] + dk1[C:, 128:], db1[0, :128] + db1[0, 128:],
+        dk2[:128, :F_] + dk2[128:, F_:2 * F_], db2[0, :F_] + db2[0, F_:2 * F_])
+    return loss, prim, unpack
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+def test_k3f_mma_replay_matches_pallas_k3f(act):
+    """Unrounded, the replay of K3F's variant against the Pallas
+    ``_k3f_kernel`` in interpret mode (f32): the JAX fused tail's loss."""
+    shape = (2, 5, 8, 12, 8, 3, 6, 10, 6)
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, _ = _k3b_inputs(shape, seed=17)
+    loss, prim, _ = _jax_fused_tail(s, tail, shape, act)
+    ref = float(loss(*prim))
+    got = _replay_k3f_mma(s, *tail, dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act,
+                          rounding=False).item()
+    np.testing.assert_allclose(got, ref, rtol=2e-4)
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+def test_k3b_mma_replay_matches_pallas_k3b(act):
+    """Unrounded, the replay against the Pallas ``_k3b_kernel`` in interpret
+    mode (f32), reached through the JAX fused tail's vjp: s and ds share the
+    port's layout; the packed weights are block-diagonal pairs, whose
+    diagonal blocks' gradients add up to the port's."""
+    shape = (2, 5, 8, 12, 8, 3, 6, 10, 6)
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=15)
+    loss, prim, unpack = _jax_fused_tail(s, tail, shape, act)
     _, vjp = jax.vjp(loss, *prim)
-    ds, dk1, db1, dk2, db2 = (np.asarray(t) for t in vjp(jnp.float32(gl.item())))
-    ref = (ds, dk1[:C, :128] + dk1[C:, 128:], db1[0, :128] + db1[0, 128:],
-           dk2[:128, :F_] + dk2[128:, F_:2 * F_], db2[0, :F_] + db2[0, F_:2 * F_])
+    ref = unpack(*(np.asarray(t) for t in vjp(jnp.float32(gl.item()))))
     got = _replay_k3b_mma(s, *tail, gl, dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act,
                           rounding=False)
     for name, g, r in zip(("ds", "dk1", "db1", "dk2", "db2"), got, ref):

@@ -10,9 +10,11 @@ below the UNet's (T 5 and 20, h 3 and 4, d 8 and 32) and site counts that
 fill no whole tile (S 300, 37); for the Galerkin scores, N that fills no
 whole tile (300, 37), head widths 16, 32 and 64, odd B·h and a last group
 of heads narrower than the block (h 5); for the variants of the T-stage and
-K2, K1, K2A-lite, K12B and K3B, shapes on both sides of each choice
-(``kernels.t_stage_variant``, ``kernels.k2_variant`` and the others) and
-widths 32, 64 and 128 for the tensor-core variants. Tolerances: in f32
+K2, K1, K2A-lite, K12B, K3F, K3B and the TA backward, shapes on both sides
+of each choice (``kernels.t_stage_variant``, ``kernels.k2_variant`` and the
+others), widths 32, 64 and 128 for the tensor-core variants of the FNO
+kernels, head widths 16, 32 and 64, T from 5 to 32 and the UNet step's four
+site counts for the TA backward's. Tolerances: in f32
 |Δ| <= 1e-4·max|ref| (both sides accumulate in f32, in another order); in
 bf16 1e-2·max|ref| (both sides compute in f32 from the same bf16 inputs and
 round once to bf16, so they differ by at most one bf16 step, 2^-8
@@ -538,9 +540,9 @@ def test_tail_kernels_at_width_128(cuda, dtype):
 
 def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
     """A contiguous bf16 view 2 bytes past a 16-byte boundary: by default K1,
-    K2, K2A-lite, K12B and K3B run fma and the T-stage generic, each against
-    its twin; the tensor-core or registers variant named on it raises, and
-    nothing is counted for the refusals."""
+    K2, K2A-lite, K12B, K3F and K3B run fma and the T-stage generic, each
+    against its twin; the tensor-core or registers variant named on it
+    raises, and nothing is counted for the refusals."""
     BT, Hp, Wp, C, m1, m2, m3, Tp = 2, 17, 38, 64, 2, 4, 16, 1
     n = BT * Hp * Wp * C
     g = torch.Generator(device=cuda).manual_seed(11)
@@ -575,10 +577,12 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
     gl = torch.tensor(0.37, device=cuda)
     _close(tft.k3b(ds, *tail, gl, **kw)[0], tft.k3b_plain(ds, *tail, gl, **kw)[0],
            torch.bfloat16)
+    _close(tft.k3f(ds, *tail, **kw), tft.k3f_plain(ds, *tail, **kw), torch.float32)
     assert {k: dict(v) for k, v in kernels.VARIANTS.items()} == {
         "k1": {"fma": 1, "mma": 0}, "t_stage": {"generic": 1, "registers": 0},
         "k2": {"fma": 1, "mma": 0}, "k2a_lite": {"fma": 1, "mma": 0},
-        "k12b": {"fma": 1, "mma": 0}, "k3b": {"fma": 1, "mma": 0}}
+        "k12b": {"fma": 1, "mma": 0}, "k3f": {"fma": 1, "mma": 0},
+        "k3b": {"fma": 1, "mma": 0}, "ta_bwd": {"fma": 0, "mma": 0}}
     with pytest.raises(ValueError, match="mma variant"):
         tfl.k1(x, a, b, **geo, act="exact", variant="mma")
     with pytest.raises(ValueError, match="mma variant"):
@@ -591,7 +595,9 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
         tfl.k2a_lite(ds, gy, y, *dv, wp, bp, **geo, variant="mma")
     with pytest.raises(ValueError, match="mma variant"):
         tft.k3b(ds, *tail, gl, **kw, variant="mma")
-    assert sum(kernels.LAUNCHES.values()) == 6
+    with pytest.raises(ValueError, match="mma variant"):
+        tft.k3f(ds, *tail, **kw, variant="mma")
+    assert sum(kernels.LAUNCHES.values()) == 7
 
 
 def test_k1_and_k12b_variants_refuse_what_they_do_not_take(cuda):
@@ -759,4 +765,153 @@ def test_k2a_lite_and_k3b_variants_refuse_what_they_do_not_take(cuda):
         tft.k3b(s, *tail, gl, **kw, variant="mma")                           # C 16
     with pytest.raises(ValueError, match="no variant"):
         tft.k3b(s, *tail, gl, **kw, variant="wgmma")
+    assert not any(kernels.LAUNCHES.values())
+
+
+K3F_SHAPES = [  # (B, Tp, Hp, Wp, C, T, H, W, F)
+    (2, 7, 15, 22, 128, 5, 13, 18, 6),    # fsi's width, an uneven crop
+    (1, 6, 13, 16, 32, 4, 10, 12, 6),
+    (1, 3, 9, 140, 64, 2, 7, 136, 3),     # two tiles a row, the second of 8 positions
+    (2, 6, 10, 12, 16, 4, 7, 8, 6),       # fma in both dtypes: C 16 not instantiated
+]
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3F_SHAPES)
+def test_k3f_variants_match_twin(cuda, shape, dtype, act):
+    """K3F in the variant its dtype and width choose, and in bf16 the fma
+    variant named on the same inputs, against the twin and against each
+    other: the SSE (an f32 sum in both dtypes) to 1e-4 of max|ref|; two
+    calls bit-equal; the per-variant counters."""
+    B, Tp, Hp, Wp, C, T, H, W, F = shape
+    g = torch.Generator(device=cuda).manual_seed(14)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    s = rn(B * Tp, Hp * Wp // 2, 2 * C).to(dtype)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
+    tail = (rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128), rn(128, F) / 128 ** 0.5,
+            0.1 * rn(F))
+    chosen = kernels.k3f_variant(dtype, C, F)
+    assert chosen == ("mma" if dtype == torch.bfloat16 and C in (32, 64, 128) else "fma")
+    kernels.reset_launches()
+    got = tft.k3f(s, *tail, **kw)
+    ref = tft.k3f_plain(s, *tail, **kw)
+    _close(got, ref, torch.float32)
+    assert torch.equal(got, tft.k3f(s, *tail, **kw))
+    want = {"fma": 0, "mma": 0, chosen: 2}
+    if chosen == "mma":
+        fma = tft.k3f(s, *tail, **kw, variant="fma")
+        _close(fma, ref, torch.float32)
+        _close(got, fma, torch.float32)
+        want["fma"] = 1
+    assert kernels.VARIANTS["k3f"] == want and kernels.LAUNCHES["k3f"] == sum(want.values())
+
+
+TA_BWD_SHAPES = [  # (B, S, T, h, d)
+    (2, 300, 20, 4, 16),     # T 20 at each head width
+    (1, 37, 20, 4, 32),
+    (1, 50, 20, 2, 64),
+    (2, 64, 32, 4, 32),      # T at the mma variant's bound
+    (1, 100, 5, 3, 16),      # one column tile
+    (1, 40, 9, 8, 16),       # 8 heads
+    (2, 30, 20, 4, 8),       # fma in both dtypes: d 8 not instantiated
+    (1, 20, 40, 2, 16),      # fma in both dtypes: T past 32
+]
+
+
+def _ta_bwd_check(q, k, v, pb, do, h, dtype, variant=None):
+    """ta_bwd against autograd through the twin in f32: dq, dk, dv to TOL,
+    dpb to 1e-6 of its sum over sites of P·(|dP| + |Σ P·dP|) (the f32 sum's
+    bound, TA_DPB_TOL in chip_smoke.py)."""
+    got = kernels.ta_bwd(q, k, v, pb, do, h, variant=variant)
+    leaves = [t.float().requires_grad_() for t in (q, k, v, pb)]
+    ref = torch.autograd.grad(tta.temporal_attention_tokens_plain(*leaves, h), leaves, do.float())
+    torch.cuda.synchronize()
+    for u, r in zip(got[:3], ref[:3]):
+        _close(u, r.to(dtype), dtype)
+    B, S, T, F = q.shape
+    spl = lambda z: z.float().view(B, S, T, h, F // h)
+    with torch.no_grad():
+        p = torch.softmax(torch.einsum("bsihd,bsjhd->bshij", spl(q), spl(k)) + pb, dim=-1)
+        dp = torch.einsum("bsihd,bsjhd->bshij", spl(do), spl(v))
+        terms = (p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())).sum((0, 1))
+    assert ((got[3] - ref[3]).abs() / terms.clamp_min(1e-30)).max() <= 1e-6
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TA_BWD_SHAPES)
+def test_ta_bwd_variants_match_twin(cuda, shape, dtype):
+    """The TA backward in the variant its dtype and shape choose, and in
+    bf16 the fma variant named on the same inputs, against the twin and
+    against each other; two calls bit-equal; the per-variant counters."""
+    B, S, T, h, d = shape
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    q = (rn(B, S, T, h * d) * d ** -0.5).to(dtype)
+    k, v, do = (rn(B, S, T, h * d).to(dtype) for _ in range(3))
+    pb = rn(h, T, T)
+    chosen = kernels.ta_bwd_variant(dtype, T, h, d)
+    assert chosen == ("mma" if dtype == torch.bfloat16 and d in (16, 32, 64) and T <= 32
+                      else "fma")
+    kernels.reset_launches()
+    got = _ta_bwd_check(q, k, v, pb, do, h, dtype)
+    assert all(torch.equal(u, w) for u, w in zip(got, kernels.ta_bwd(q, k, v, pb, do, h)))
+    want = {"fma": 0, "mma": 0, chosen: 2}
+    if chosen == "mma":
+        fma = _ta_bwd_check(q, k, v, pb, do, h, dtype, variant="fma")
+        for u, w in zip(got[:3], fma[:3]):
+            _close(u, w, dtype)
+        want["fma"] = 1
+    assert kernels.VARIANTS["ta_bwd"] == want and kernels.LAUNCHES["ta_bwd"] == sum(want.values())
+
+
+@pytest.mark.parametrize("level, S", [("level0", 64 * 128), ("level1", 32 * 64),
+                                      ("level2", 16 * 32), ("mid", 16 * 32)])
+def test_ta_bwd_mma_at_the_unet_step_site_counts(cuda, level, S):
+    """The TA backward's mma variant at the site counts the UNet step
+    launches it at (batch 12; T 20, 4 heads of 32): against the twin, two
+    calls bit-equal."""
+    B, T, h, d = 12, 20, 4, 32
+    g = torch.Generator(device=cuda).manual_seed(7 + S + len(level))
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    q = (rn(B, S, T, h * d) * d ** -0.5).bfloat16()
+    k, v, do = (rn(B, S, T, h * d).bfloat16() for _ in range(3))
+    pb = rn(h, T, T)
+    kernels.reset_launches()
+    got = _ta_bwd_check(q, k, v, pb, do, h, torch.bfloat16)
+    assert all(torch.equal(u, w) for u, w in zip(got, kernels.ta_bwd(q, k, v, pb, do, h)))
+    assert kernels.VARIANTS["ta_bwd"] == {"fma": 0, "mma": 2}
+
+
+def test_k3f_and_ta_bwd_variants_refuse_what_they_do_not_take(cuda):
+    """A named mma variant on f32, at a width, head width or T it is not
+    built for raises; an unknown name raises; TA's kernels both refuse a
+    misaligned view; nothing is counted."""
+    B, Tp, Hp, Wp, C, T, H, W, F = K3F_SHAPES[3]
+    s = torch.zeros(B * Tp, Hp * Wp // 2, 2 * C, device=cuda, dtype=torch.bfloat16)
+    tail = (torch.zeros(B, T, H, W, F, device=cuda), torch.zeros(C, 128, device=cuda),
+            torch.zeros(128, device=cuda), torch.zeros(128, F, device=cuda),
+            torch.zeros(F, device=cuda))
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="mma variant"):
+        tft.k3f(s, *tail, **kw, variant="mma")                            # C 16
+    with pytest.raises(ValueError, match="no variant"):
+        tft.k3f(s, *tail, **kw, variant="wgmma")
+    for (B, S, T, h, d), dtype in (((1, 8, 20, 4, 32), torch.float32),
+                                   ((1, 8, 20, 4, 8), torch.bfloat16),
+                                   ((1, 8, 33, 4, 16), torch.bfloat16)):
+        q = torch.zeros(B, S, T, h * d, device=cuda, dtype=dtype)
+        pb = torch.zeros(h, T, T, device=cuda)
+        with pytest.raises(ValueError, match="mma variant"):
+            kernels.ta_bwd(q, q, q, pb, q, h, variant="mma")
+    q = torch.zeros(1, 8, 20, 128, device=cuda, dtype=torch.bfloat16)
+    pb = torch.zeros(4, 20, 20, device=cuda)
+    with pytest.raises(ValueError, match="no variant"):
+        kernels.ta_bwd(q, q, q, pb, q, 4, variant="wgmma")
+    view = torch.cat([q.new_zeros(1), q.reshape(-1)])[1:].view(q.shape)
+    for variant in (None, "fma", "mma"):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kernels.ta_bwd(q, q, q, pb, view, 4, variant=variant)
     assert not any(kernels.LAUNCHES.values())

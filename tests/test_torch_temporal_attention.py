@@ -7,6 +7,13 @@ and its pure-jnp oracle ``reference_temporal_attention_tokens``: the output
 and all four gradients (q, k, v, pos_bias) at S = 256, and at S = 300 (not
 a multiple of the TPU kernel's 128 sites) against the oracle. Inputs from a
 seeded numpy generator; f32; tolerance rtol 2e-4 with atol 2e-4·max|ref|.
+
+The TA backward's tensor-core variant runs only on the card
+(tests/test_torch_kernels.py); here its arithmetic is replayed in plain
+PyTorch (the padded and masked T, the bf16 rounding points, the dpb flush)
+against autograd through the twin at the UNet's level-0 statistics, within
+the bounds the kernel is held to on the card, and, unrounded, against the
+Pallas backward in interpret mode.
 """
 
 import jax
@@ -14,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as tnf
 
 from realpdebench_tpu.ops.pallas.temporal_attention import (
     reference_temporal_attention_tokens,
@@ -23,6 +31,10 @@ from realpdebench_tpu_torch.ops.temporal_attention import (
     temporal_attention_tokens,
     temporal_attention_tokens_plain,
 )
+
+# csrc/temporal_attention.cu: sites a warp's f32 sums of dS take before the
+# block's f64 accumulator
+TA_MMA_FLUSH = 16
 
 B, T, H_, D = 2, 5, 3, 8
 F = H_ * D
@@ -88,3 +100,111 @@ def test_output_keeps_the_input_dtype_and_refuses_mismatched_shapes():
         temporal_attention_tokens(q, k[:, :3], v, pb, H_)
     with pytest.raises(ValueError, match="heads"):
         temporal_attention_tokens(q, k, v, pb, 5)
+
+
+def _replay_ta_bwd_mma(q, k, v, pb, do, heads, *, rounding=True, nblocks=7):
+    """TA backward's tensor-core variant in plain PyTorch. Per (site, head):
+    the rows padded to 16·MT and the columns to 8·NT (NT = ceil(T/8), MT =
+    ceil(NT/2)) with zeros; S = q·kᵀ and dP = do·vᵀ from the inputs as they
+    are; the columns j ≥ T masked to −inf before the softmax, the rows i ≥ T
+    zero; dS = P∘(dP − Σⱼ P·dP); dq = dS·k and dk = dSᵀ·q with dS rounded
+    once to bf16, dv = Pᵀ·do with P rounded once; each output rounded once
+    to bf16; the products in f64. dpb: the sites of a persistent grid of
+    ``nblocks`` blocks (site s in block s mod nblocks, in order), a block's
+    dS in f32 summed in f32 over TA_MMA_FLUSH sites at a time, each sum
+    added into the block's f64 accumulator, the blocks' partials rounded to
+    f32 and added in f64. ``rounding=False``: nothing rounded. Returns (dq,
+    dk, dv, dpb)."""
+    B, S, T, Fd = q.shape
+    h, d = heads, Fd // heads
+    NT = -(-T // 8)
+    Ti, Tj = 16 * (-(-NT // 2)), 8 * NT
+    heads_first = lambda z: z.double().reshape(B * S, T, h, d).permute(0, 2, 1, 3)
+    rows = lambda z, n: tnf.pad(z, (0, 0, 0, n - T))
+    Q, K, V, O = (heads_first(t) for t in (q, k, v, do))
+    bias = torch.zeros(h, Ti, Tj, dtype=torch.float64)
+    bias[:, :T, :T] = pb.double()
+    sc = rows(Q, Ti) @ rows(K, Tj).transpose(-1, -2) + bias
+    sc[..., T:] = -torch.inf
+    p = torch.softmax(sc, -1)
+    p[..., T:, :] = 0.0
+    dp = rows(O, Ti) @ rows(V, Tj).transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    once = ((lambda t: t.float().bfloat16().double()) if rounding else (lambda t: t))
+    dq = (once(ds) @ rows(K, Tj))[:, :, :T]
+    dk = (once(ds).transpose(-1, -2) @ rows(Q, Ti))[:, :, :T]
+    dv = (once(p).transpose(-1, -2) @ rows(O, Ti))[:, :, :T]
+    back = lambda z: once(z.permute(0, 2, 1, 3).reshape(B, S, T, Fd))
+    dsv = ds[:, :, :T, :T]
+    if not rounding:
+        return back(dq), back(dk), back(dv), dsv.sum(0)
+    ds32 = dsv.float()
+    total = torch.zeros(h, T, T, dtype=torch.float64)
+    for b in range(nblocks):
+        mine = ds32[b::nblocks]
+        acc = torch.zeros(h, T, T, dtype=torch.float64)
+        for g0 in range(0, mine.shape[0], TA_MMA_FLUSH):
+            run = torch.zeros(h, T, T)
+            for site in mine[g0:g0 + TA_MMA_FLUSH]:
+                run = run + site
+            acc += run.double()
+        total += acc.float().double()
+    return back(dq), back(dk), back(dv), total.float()
+
+
+def _unet_stats_inputs(B_, S, T_, h, d, seed):
+    """The UNet's level-0 statistics, as chip_smoke.py's ta phase draws
+    them: q ~ N(0, 1)·d^-0.5 (the model pre-scales it), k, v, do and the
+    bias N(0, 1); q, k, v and do rounded to bf16."""
+    r = np.random.default_rng(seed)
+    n = lambda *sh: torch.from_numpy(r.normal(size=sh).astype(np.float32))
+    bf = lambda t: t.bfloat16().float()
+    q = bf(n(B_, S, T_, h * d) * d ** -0.5)
+    k, v, do = (bf(n(B_, S, T_, h * d)) for _ in range(3))
+    return q, k, v, n(h, T_, T_), do
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 150, 20, 4, 32),   # the UNet's T, heads and head width: NT 3, MT 2
+    (2, 64, 5, 3, 16),     # NT 1, MT 1
+    (1, 60, 32, 2, 64),    # T at its bound: NT 4
+    (1, 40, 9, 8, 16),     # 8 heads, a second row tile of one row
+])
+def test_ta_bwd_mma_replay_matches_twin(shape):
+    """The replay against autograd through the twin in f32 from the same
+    bf16 inputs: dq, dk and dv within 1e-2·max|ref| and dpb within 1e-6 of
+    the sum over sites of P·(|dP| + |Σ P·dP|), the bounds the kernel is
+    held to on the card (KERNEL_TOL's bf16 entry, TA_DPB_TOL); the f32 flush
+    of dpb within 1e-7 of that sum from the unrounded f64 sum, ten times
+    inside TA_DPB_TOL; unrounded, dq, dk, dv and dpb within 2e-4 of the
+    twin."""
+    B_, S, T_, h, d = shape
+    q, k, v, pb, do = _unet_stats_inputs(*shape, seed=sum(shape))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, pb)]
+    ref = torch.autograd.grad(temporal_attention_tokens_plain(*leaves, h), leaves, do)
+    got = _replay_ta_bwd_mma(q, k, v, pb, do, h)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.shape == r.shape, name
+        assert (g.float() - r).abs().max() <= 1e-2 * r.abs().max(), name
+    spl = lambda z: z.double().view(B_, S, T_, h, d)
+    pr = torch.softmax(torch.einsum("bsihd,bsjhd->bshij", spl(q), spl(k)) + pb.double(), -1)
+    dp = torch.einsum("bsihd,bsjhd->bshij", spl(do), spl(v))
+    terms = (pr * (dp.abs() + (pr * dp).sum(-1, keepdim=True).abs())).sum((0, 1))
+    assert ((got[3].double() - ref[3].double()).abs() / terms).max() <= 1e-6
+    exact = _replay_ta_bwd_mma(q, k, v, pb, do, h, rounding=False)
+    assert ((got[3].double() - exact[3]).abs() / terms).max() <= 1e-7
+    for name, g, r in zip(("dq", "dk", "dv", "dpb"), exact, ref):
+        _close(g.numpy(), r.numpy())
+
+
+def test_ta_bwd_mma_replay_matches_pallas_backward():
+    """Unrounded, the replay against the JAX Pallas backward in interpret
+    mode (f32) at a head width and T the variant takes (d 16, T 20)."""
+    shape = (1, 128, 20, 4, 16)
+    q, k, v, pb, do = (t.numpy() for t in _unet_stats_inputs(*shape, seed=9))
+    _, ref = _jax_vjp(lambda *a: jax_ta(*a, shape[3], interpret=True), q, k, v, pb, do)
+    got = _replay_ta_bwd_mma(*(torch.from_numpy(a) for a in (q, k, v, pb, do)), shape[3],
+                             rounding=False)
+    for name, g, r in zip(("dq", "dk", "dv", "dpb"), got, ref):
+        assert g.shape == r.shape, name
+        _close(g.numpy(), r)

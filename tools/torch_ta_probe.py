@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Where the time of TA backward's tensor-core variant goes, and what a
+change would buy, without a profiler that reads hardware counters: patched
+scratch copies of ``csrc/temporal_attention.cu`` are built with nvcc into
+``build/ta_probe/`` (all at once) and launched through ctypes at the UNet's
+level 0 in the training step (B 12, S 8192, T 20, h 4, d 32; bf16).
+
+    PYTHONPATH=. python3 tools/torch_ta_probe.py [VARIANT ...]
+
+From the repository root on a host with a Hopper card and nvcc. Variants
+(all by default), each a set of patches of the source as it is:
+
+  as_is       the source unchanged
+  stages3     a ring of three sites a block (two in flight) instead of two
+  stages4     four
+  flush64     dpb's f32 sums flushed every 64 sites instead of 16
+  cut_store   dq, dk and dv computed into shared memory but not written
+              out (time only)
+  cut_tiles   dk and dv not computed (time only)
+  fetch_only  the ring's copies and barriers, no compute (time only)
+
+One JSON line a variant: ptxas's registers and spill bytes of
+``ta_bwd_mma_kernel<32, 3>``, the shared memory of a block, the device time
+of queued launches (median of 5, 8 launches each, taken twice: in the listed
+order and in reverse), and, for the variants that compute what the kernel
+computes, the worst of dq, dk and dv as max|Δ| / max|ref| against autograd
+through the plain twin and dpb against it relative to the sum of |terms|.
+The patches fail loudly when their anchors are gone.
+"""
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from realpdebench_tpu_torch.ops import kernels
+from realpdebench_tpu_torch.ops import temporal_attention as tta
+
+OUT = kernels.BUILD_DIR.parent / "ta_probe"
+B, S, T, HEADS, D = 12, 8192, 20, 4, 32
+
+STAGES = "constexpr int kTaStages = 2;"
+FLUSH = "constexpr int kTaFlush = 16;"
+STORE = "    for (int i = threadIdx.x; i < 3 * T * (F / 8); i += nthreads) {"
+TILES = "    tile_product(Qs, Qs);         // dk = dS^T q, into q's slot"
+TILES_V = "    tile_product(Vs, Os);         // dv = P^T do, into v's slot (read last by dP)"
+COMPUTE = "    bf16* const Qs = ring + stage * 4 * slab + warp * D;"
+
+
+def sub(s: str, old: str, new: str) -> str:
+    if s.count(old) != 1:
+        raise SystemExit(f"torch_ta_probe: the source has {s.count(old)} of the anchor {old!r}")
+    return s.replace(old, new)
+
+
+VARIANTS = {
+    "as_is": (lambda s: s, True),
+    "stages3": (lambda s: sub(s, STAGES, "constexpr int kTaStages = 3;"), True),
+    "stages4": (lambda s: sub(s, STAGES, "constexpr int kTaStages = 4;"), True),
+    "flush64": (lambda s: sub(s, FLUSH, "constexpr int kTaFlush = 64;"), True),
+    "cut_store": (lambda s: sub(s, STORE, STORE.replace("3 * T", "0 * T")), False),
+    "cut_tiles": (lambda s: sub(sub(s, TILES, ""), TILES_V, ""), False),
+    "fetch_only": (lambda s: sub(s, COMPUTE, "    continue;\n" + COMPUTE), False),
+}
+
+
+def build(names):
+    """One nvcc per variant, all at once; returns {name: (library, ptxas report)}."""
+    src = (kernels.CSRC / "temporal_attention.cu").read_text()
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = kernels._nvcc()
+    jobs = {}
+    for name in names:
+        d = OUT / name
+        d.mkdir(exist_ok=True)
+        (d / "temporal_attention.cu").write_text(VARIANTS[name][0](src))
+        so = d / "libta.so"
+        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-shared", "-o", str(so),
+               str(d / "temporal_attention.cu")]
+        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True))
+    out = {}
+    for name, (so, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"torch_ta_probe: nvcc failed for {name}:\n{err}")
+        lib = ctypes.CDLL(str(so))
+        for fn in ("ta_bwd", "ta_bwd_num_partials", "ta_bwd_mma_smem_bytes"):
+            f = getattr(lib, fn)
+            f.argtypes, f.restype = kernels.SIGNATURES[fn]
+        out[name] = (lib, err)
+    return out
+
+
+def registers(report: str) -> dict:
+    """Registers and spill bytes ptxas reported for ta_bwd_mma_kernel<32, 3>."""
+    out, inside = {}, False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            if inside:
+                break
+            inside = "ta_bwd_mma_kernelILi32ELi3E" in line
+        elif inside and "spill" in line:
+            out["spill"] = line.strip()
+        elif inside and "Used" in line and "registers" in line:
+            out["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def queued_ms(fn, n: int = 8, reps: int = 5) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
+
+
+def main() -> None:
+    names = sys.argv[1:] or list(VARIANTS)
+    libs = build(names)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rn = lambda: torch.randn(B, S, T, HEADS * D, generator=g, device=dev)
+    q = (rn() * D ** -0.5).bfloat16()
+    k, v, do = rn().bfloat16(), rn().bfloat16(), rn().bfloat16()
+    pb = torch.randn(HEADS, T, T, generator=g, device=dev)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v, pb)]
+    ref = torch.autograd.grad(tta.temporal_attention_tokens_plain(*leaves, HEADS), leaves,
+                              do.float())
+    spl = lambda z: z.float().view(B, S, T, HEADS, D)
+    with torch.no_grad():
+        p = torch.softmax(torch.einsum("bsihd,bsjhd->bshij", spl(q), spl(k)) + pb, dim=-1)
+        dp = torch.einsum("bsihd,bsjhd->bshij", spl(do), spl(v))
+        terms = (p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())).sum((0, 1))
+    del leaves, p, dp
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def runner(lib):
+        nparts = lib.ta_bwd_num_partials(B * S, T, HEADS, D, 1, 1)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        partial = torch.empty((nparts, HEADS, T, T), dtype=torch.float32, device=dev)
+        dpb = torch.empty((HEADS, T, T), dtype=torch.float32, device=dev)
+
+        def fn():
+            err = lib.ta_bwd(ptr(q), ptr(k), ptr(v), ptr(pb), ptr(do), ptr(dq), ptr(dk),
+                             ptr(dv), ptr(partial), ptr(dpb), B * S, T, HEADS, D, 1, 1, stream)
+            if err:
+                raise SystemExit(f"torch_ta_probe: launch failed ({err})")
+            return dq, dk, dv, dpb
+        return fn, nparts
+
+    fns = {name: runner(lib) for name, (lib, _) in libs.items()}
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            times[name].append(queued_ms(fns[name][0]))
+    for name in names:
+        lib, report = libs[name]
+        row = dict(variant=name, **registers(report),
+                   smem_bytes=lib.ta_bwd_mma_smem_bytes(T, HEADS, D), blocks=fns[name][1],
+                   ms=times[name])
+        if VARIANTS[name][1]:
+            got = fns[name][0]()
+            torch.cuda.synchronize()
+            row["dqkv_rel"] = max(((u.float() - r).abs().max() / r.abs().max()).item()
+                                  for u, r in zip(got[:3], ref[:3]))
+            row["dpb_rel_to_terms"] = ((got[3] - ref[3]).abs()
+                                       / terms.clamp_min(1e-30)).max().item()
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()
