@@ -64,39 +64,45 @@ JSON line each; any failure raises (non-zero exit, no result line):
   8. ta        the temporal-attention kernels TA forward and backward
                against their twin at the UNet's level-0 width of the
                training step (B 12, S 64·128, T 20, h 4, d 32), in float32
-               and bfloat16 (the backward's mma variant in bfloat16 and,
+               and bfloat16 (each kernel's mma variant in bfloat16 and,
                named, its fma one, each also against the other); two calls
-               bit-equal; the forward's CUDA-event median, the backward's
-               device time of queued launches, and
+               of each bit-equal; device times of queued launches, and
                scaled_dot_product_attention with the bias as a float mask
-               as the library yardstick; then (ta_level) the backward's mma
-               variant at the site counts of every level the UNet step
-               launches it at (B 12 × 8192, 2048, 512 and the mid block's
-               512): against the twin, bit-equal, queued time and bound.
+               as the library yardstick; then (ta_level) the forward's and
+               the backward's mma variants at the site counts of every
+               level the UNet step launches them at (B 12 × 8192, 2048, 512
+               and the mid block's 512): against the twin, bit-equal,
+               queued time and bound.
   9. unet_rollout  the cylinder UNet3d (configs/cylinder/unet.yaml: dim_mults
                1/2/4, bf16 compute, seeded random weights) rolled out 5
                steps at eval batch 12 through make_rollout_fn with a
-               Gaussian normalizer; exact launch counts; compared with the
-               plain f32 rollout; frames/s and peak memory.
+               Gaussian normalizer; exact launch counts (every TA forward
+               the mma variant); compared with the plain f32 rollout;
+               frames/s and peak memory.
  10. unet_train    its training step at batch 12 (Adam at lr 1e-4, cosine
                over 10000 updates, no clipping): one counted step (exact
-               launch counts; every TA backward the mma variant), the loss
+               launch counts; every TA forward and backward the mma
+               variant), the loss
                and every gradient against the plain f32 step (at batch 6:
                the f32 step at 12 does not fit the card), two passes
                bit-equal under cudnn.deterministic; 2 warm-up steps and 5
                windows of 5 steps; then a profile of 3 steps.
  11. gk_scores the Galerkin scores kernel against its twin at the cylinder
                width (B 16, N 20·64·128 = 163840 tokens, h 4, d 64, in the
-               q/k/v Dense's [B, N, h·d] layout), in float32 and bfloat16;
-               two calls bit-equal; CUDA-event medians of the kernel, the
-               twin, and the step's forward and backward of the scores (the
-               kernel, then autograd through the plain recompute).
+               q/k/v Dense's [B, N, h·d] layout), in float32 and bfloat16,
+               the variant each dtype chooses (mma) and, named, the other,
+               each also against the other; two calls of each bit-equal;
+               device times of queued launches of both, CUDA-event medians
+               of the twin and of the step's forward and backward of the
+               scores (the kernel, then autograd through the plain
+               recompute).
  12. gk_rollout    the cylinder Galerkin Transformer
                (configs/cylinder/galerkin_transformer.yaml: width 256, 4
                heads, 1 encoder layer, bf16 compute, seeded random weights)
                rolled out 1 step at eval batch 16 through make_rollout_fn
-               with a Gaussian normalizer; exact launch counts; compared with
-               the plain f32 rollout; frames/s (median of 10) and peak memory.
+               with a Gaussian normalizer; exact launch counts (the scores
+               in their mma variant); compared with the plain f32 rollout;
+               frames/s (median of 10) and peak memory.
  13. gk_train      its training step at batch 16 (Adam at lr 0.01, cosine over
                5000 updates, no clipping; dropout from the model's seeded
                generator): one counted step, the loss and every gradient
@@ -1095,9 +1101,8 @@ def check_ta_bwd(name, q, k, v, pb, do, h, tol, variant=None) -> tuple:
 
 def phase_ta(dev) -> dict:
     """TA forward and backward against the twin at the UNet's level-0
-    width, the backward in both variants (bf16); the backward at every
-    level of the UNet step; returns per-kernel summaries (bf16 errors and
-    times)."""
+    width, each in both variants (bf16); both at every level of the UNet
+    step; returns per-kernel summaries (bf16 errors and times)."""
     B, S, T, h, d = TA_SHAPE
     plain = tta.temporal_attention_tokens_plain
     nsites, summary = B * S, {}
@@ -1105,10 +1110,11 @@ def phase_ta(dev) -> dict:
         q, k, v, pb, do = _ta_inputs(dev, B, S, T, h, d, dtype, seed=5)
         tol = KERNEL_TOL[dtype]
         chosen = "mma" if dtype == torch.bfloat16 else "fma"
-        fwd = lambda: kernels.ta_fwd(q, k, v, pb, h)
+        fwd = lambda **kv: kernels.ta_fwd(q, k, v, pb, h, **kv)
         bwd = lambda **kv: kernels.ta_bwd(q, k, v, pb, do, h, **kv)
-        o = fwd()
-        rows = [compare("ta_fwd/o", o, plain(q, k, v, pb, h), tol)]
+        o = run_as("ta_fwd", chosen, fwd)
+        o_ref = plain(q, k, v, pb, h)
+        rows = [compare("ta_fwd/o", o, o_ref, tol)]
         bwd_rows, got, ref = run_as("ta_bwd", chosen,
                                     lambda: check_ta_bwd("ta_bwd", q, k, v, pb, do, h, tol))
         rows += bwd_rows
@@ -1116,7 +1122,13 @@ def phase_ta(dev) -> dict:
             torch.equal(a, b) for a, b in zip(got, bwd()))
         if not same:
             raise AssertionError(f"two identical TA calls differ ({dtype})")
-        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
+        if dtype == torch.bfloat16:   # the fma variants, named, on the same inputs
+            o_fma = run_as("ta_fwd", "fma", lambda: fwd(variant="fma"))
+            rows += [compare("ta_fwd_fma/o", o_fma, o_ref, tol),
+                     compare("ta_fwd/vs_fma/o", o, o_fma, tol)]
+            if not torch.equal(o_fma, fwd(variant="fma")):
+                raise AssertionError("two identical TA forward calls (fma) differ")
+            del o_fma
             fma_rows, fma, _ = run_as("ta_bwd", "fma", lambda: check_ta_bwd(
                 "ta_bwd_fma", q, k, v, pb, do, h, tol, variant="fma"))
             rows += fma_rows
@@ -1131,25 +1143,29 @@ def phase_ta(dev) -> dict:
             ls = [t.detach().requires_grad_() for t in (q, k, v, pb)]
             return torch.autograd.grad(plain(*ls, h), ls, do)
 
-        times = dict(ta_fwd=(cuda_ms(fwd), cuda_ms(lambda: plain(q, k, v, pb, h))),
+        del o_ref
+        times = dict(ta_fwd=(queued_ms([fwd], n=8, reps=5), cuda_ms(lambda: plain(q, k, v, pb, h))),
                      ta_bwd=(queued_ms([bwd], n=8, reps=5), cuda_ms(bwd_plain, reps=10)))
         single = cuda_ms(bwd)
+        fwd_single = cuda_ms(fwd)
         # scores and the value mix, 2·T·T·d each per (site, head); the
         # backward recomputes the scores and adds dP, dq, dk and dv
         work = dict(ta_fwd=bound(nbytes(q, k, v, pb, o), nsites * h * T * T * d * 4, dtype),
                     ta_bwd=bound(nbytes(q, k, v, pb, do, *got),
                                  nsites * h * T * T * d * 10, dtype))
         if dtype == torch.bfloat16:
+            times["ta_fwd_fma"] = (queued_ms([lambda: fwd(variant="fma")], n=8, reps=5),
+                                   times["ta_fwd"][1])
             times["ta_bwd_fma"] = (queued_ms([lambda: bwd(variant="fma")], n=4, reps=3),
                                    times["ta_bwd"][1])
-            work["ta_bwd_fma"] = work["ta_bwd"]
+            work["ta_fwd_fma"], work["ta_bwd_fma"] = work["ta_fwd"], work["ta_bwd"]
         lib = sdpa_yardstick(q, k, v, do, pb, h, o)
         torch.cuda.synchronize()
         emit(dict(phase="ta", dtype=str(dtype).replace("torch.", ""),
                   shapes=dict(B=B, S=S, T=T, h=h, d=d), checks=rows,
                   bitwise_repeatable=same, library=lib,
                   ms={n: dict(kernel=t[0], plain=t[1], **work[n]) for n, t in times.items()},
-                  ta_bwd_single_launch_ms=single))
+                  ta_fwd_single_launch_ms=fwd_single, ta_bwd_single_launch_ms=single))
         if dtype == torch.bfloat16:
             for n in ("ta_fwd", "ta_bwd"):
                 mine = [r for r in rows if r["name"].startswith(n + "/")]
@@ -1158,41 +1174,53 @@ def phase_ta(dev) -> dict:
                     max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in mine),
                     ms=times[n][0], plain_ms=times[n][1], **work[n])
+                summary[n]["fma_variant_ms"] = times[f"{n}_fma"][0]
             # SDPA has no backward alone: the backward row's yardstick is its
             # forward and backward together
-            summary["ta_fwd"]["library_ms"] = lib["library_ms"]
+            summary["ta_fwd"].update(library_ms=lib["library_ms"], single_launch_ms=fwd_single)
             summary["ta_bwd"].update(library_ms=lib["library_fwd_bwd_ms"],
-                                     fma_variant_ms=times["ta_bwd_fma"][0],
                                      single_launch_ms=single)
         del q, k, v, do, o, got
         torch.cuda.empty_cache()
-    summary["ta_bwd"]["levels"] = phase_ta_levels(dev)
+    summary["ta_fwd"]["levels"], summary["ta_bwd"]["levels"] = phase_ta_levels(dev)
     return summary
 
 
-def phase_ta_levels(dev) -> dict:
-    """TA backward's mma variant (bf16) at the site counts of every level
-    the UNet step launches it at (TA_LEVELS, batch 12): against the twin,
-    two calls bit-equal, the device time of queued launches beside the
-    bound; returns {level: (ms, bound_ms)}."""
+def phase_ta_levels(dev) -> tuple:
+    """TA forward's and backward's mma variants (bf16) at the site counts
+    of every level the UNet step launches them at (TA_LEVELS, batch 12):
+    against the twin, two calls bit-equal, the device time of queued
+    launches beside the bound; returns ({level: (ms, bound_ms)} of the
+    forward, the same of the backward)."""
     B, _, T, h, d = TA_SHAPE
-    out = {}
+    fwd_out, out = {}, {}
     for i, (level, S) in enumerate(TA_LEVELS):
         q, k, v, pb, do = _ta_inputs(dev, B, S, T, h, d, torch.bfloat16, seed=20 + i)
         tol = KERNEL_TOL[torch.bfloat16]
-        rows, got, _ = run_as("ta_bwd", "mma", lambda: check_ta_bwd(
+        fwd = lambda: kernels.ta_fwd(q, k, v, pb, h)
+        o = run_as("ta_fwd", "mma", fwd)
+        rows = [compare(f"ta_fwd/{level}/o", o, tta.temporal_attention_tokens_plain(
+            q, k, v, pb, h), tol)]
+        if not torch.equal(o, fwd()):
+            raise AssertionError(f"two identical TA forward calls differ at {level}")
+        bwd_rows, got, _ = run_as("ta_bwd", "mma", lambda: check_ta_bwd(
             f"ta_bwd/{level}", q, k, v, pb, do, h, tol))
+        rows += bwd_rows
         if not all(torch.equal(a, b) for a, b in zip(got, kernels.ta_bwd(q, k, v, pb, do, h))):
             raise AssertionError(f"two identical TA backward calls differ at {level}")
         # the smallest level's inputs (126 MB) are larger than L2 already
+        fwd_ms = queued_ms([fwd], n=8, reps=5)
         ms = queued_ms([lambda: kernels.ta_bwd(q, k, v, pb, do, h)], n=8, reps=5)
+        fwd_work = bound(nbytes(q, k, v, pb, o), B * S * h * T * T * d * 4, torch.bfloat16)
         work = bound(nbytes(q, k, v, pb, do, *got), B * S * h * T * T * d * 10, torch.bfloat16)
         emit(dict(phase="ta_level", level=level, shapes=dict(B=B, S=S, T=T, h=h, d=d),
-                  checks=rows, ms=ms, bound_ms=work["bound_ms"]))
+                  checks=rows, fwd_ms=fwd_ms, fwd_bound_ms=fwd_work["bound_ms"], ms=ms,
+                  bound_ms=work["bound_ms"]))
+        fwd_out[level] = dict(sites=B * S, ms=fwd_ms, bound_ms=fwd_work["bound_ms"])
         out[level] = dict(sites=B * S, ms=ms, bound_ms=work["bound_ms"])
-        del q, k, v, pb, do, got
+        del q, k, v, pb, do, o, got
         torch.cuda.empty_cache()
-    return out
+    return fwd_out, out
 
 
 def gaussian_normalizer():
@@ -1235,8 +1263,10 @@ def phase_unet_rollout(dev, norm) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    _expect(launches, f"a {UNET_STEPS}-step UNet rollout",
-            ta_fwd=UNET_TA_PER_FORWARD * UNET_STEPS)
+    VARIANTS_BY_PATH["unet_rollout"] = _expect(
+        launches, f"a {UNET_STEPS}-step UNet rollout",
+        variants=dict(ta_fwd={"mma": UNET_TA_PER_FORWARD * UNET_STEPS}),
+        ta_fwd=UNET_TA_PER_FORWARD * UNET_STEPS)
     want = (UNET_BATCH, UNET_STEPS * UNET_SHAPE[0], *UNET_SHAPE[1:])
     if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
         raise AssertionError(f"UNet rollout output {tuple(pred.shape)} (want {want}) "
@@ -1312,7 +1342,8 @@ def phase_unet_train(dev, norm) -> dict:
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     VARIANTS_BY_PATH["unet_train"] = _expect(
-        launches, "one UNet training step", variants=dict(ta_bwd={"mma": UNET_TA_PER_FORWARD}),
+        launches, "one UNet training step",
+        variants=dict(ta_fwd={"mma": UNET_TA_PER_FORWARD}, ta_bwd={"mma": UNET_TA_PER_FORWARD}),
         ta_fwd=UNET_TA_PER_FORWARD, ta_bwd=UNET_TA_PER_FORWARD)
     first_peak = torch.cuda.max_memory_allocated() / 1e9
     if not loss == loss or abs(loss) == float("inf"):
@@ -1395,31 +1426,44 @@ def phase_gk_scores(dev) -> dict:
         v = (0.5 * k + rn(B, N, h * d)).to(dtype)     # correlated, as q/k/v are
         k = k.to(dtype)
         aff = [1 + 0.1 * rn(h, d), 0.1 * rn(h, d), 1 + 0.1 * rn(h, d), 0.1 * rn(h, d)]
-        run = lambda: kernels.gk_scores(k, v, *aff, heads=h, eps=eps)
+        run = lambda **kv: kernels.gk_scores(k, v, *aff, heads=h, eps=eps, **kv)
         plain = lambda: tga.galerkin_scores_plain(k, v, *aff, h, eps)
-        got = run()
-        row = compare("gk_scores", got, plain(), GK_SCORES_TOL)
-        same = torch.equal(got, run())
+        chosen = kernels.gk_scores_variant(dtype, d)
+        other = "fma" if chosen == "mma" else "mma"
+        ref = plain()
+        got = run_as("gk_scores", chosen, run)
+        alt = run_as("gk_scores", other, lambda: run(variant=other))
+        rows = [compare("gk_scores", got, ref, GK_SCORES_TOL),
+                compare(f"gk_scores_{other}", alt, ref, GK_SCORES_TOL),
+                compare(f"gk_scores/vs_{other}", got, alt, GK_SCORES_TOL)]
+        same = torch.equal(got, run()) and torch.equal(alt, run(variant=other))
         if not same:
             raise AssertionError(f"two identical gk_scores calls differ ({dtype})")
+        del ref, alt
         # the training step's forward and backward of the scores: the kernel,
         # then autograd through the plain recompute (the JAX custom_vjp's)
         leaves = [t.detach().requires_grad_() for t in (k, v, *aff)]
         ct = rn(B, h, d, d)
         fwd_bwd = lambda: torch.autograd.grad(
             tga.galerkin_scores(*leaves, h, eps), leaves, ct)
-        times = (cuda_ms(run), cuda_ms(plain, reps=5), cuda_ms(fwd_bwd, reps=5))
+        times = (queued_ms([run], n=8, reps=5), cuda_ms(plain, reps=5),
+                 cuda_ms(fwd_bwd, reps=5), queued_ms([lambda: run(variant=other)], n=8, reps=5),
+                 cuda_ms(run))
         # the products: 2·d·d per (token, head); LayerNorm's few operations
         # per element are left out
         work = bound(nbytes(k, v, *aff, got), 2 * B * N * h * d * d, dtype)
         emit(dict(phase="gk_scores", dtype=str(dtype).replace("torch.", ""),
-                  shapes=dict(B=B, N=N, h=h, d=d), checks=[row], bitwise_repeatable=same,
+                  shapes=dict(B=B, N=N, h=h, d=d), variant=chosen, checks=rows,
+                  bitwise_repeatable=same,
                   ms=dict(kernel=times[0], plain=times[1], library=None,
-                          kernel_fwd_plain_bwd=times[2], **work)))
+                          kernel_fwd_plain_bwd=times[2], **{f"{other}_variant": times[3]},
+                          single_launch=times[4], **work)))
         if dtype == torch.bfloat16:
-            summary = dict(max_abs_err=row["max_abs_err"], max_rel_err=row["max_rel_err"],
+            summary = dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                           max_rel_err=max(r["max_rel_err"] for r in rows),
                            ms=times[0], plain_ms=times[1], library_ms=None,
-                           fwd_plain_bwd_ms=times[2], **work)
+                           fwd_plain_bwd_ms=times[2], **{f"{other}_variant_ms": times[3]},
+                           single_launch_ms=times[4], **work)
         del k, v, got, leaves
         torch.cuda.empty_cache()
     return {"gk_scores": summary}
@@ -1446,8 +1490,10 @@ def phase_gk_rollout(dev, norm) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    _expect(launches, f"a {GK_STEPS}-step GK rollout",
-            gk_scores=GK_MODEL["num_encoder_layers"] * GK_STEPS)
+    n_scores = GK_MODEL["num_encoder_layers"] * GK_STEPS
+    VARIANTS_BY_PATH["gk_rollout"] = _expect(
+        launches, f"a {GK_STEPS}-step GK rollout", variants=dict(gk_scores={"mma": n_scores}),
+        gk_scores=n_scores)
     want = (GK_BATCH, GK_STEPS * GK_SHAPE[0], *GK_SHAPE[1:])
     if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
         raise AssertionError(f"GK rollout output {tuple(pred.shape)} (want {want}) "
@@ -1523,7 +1569,10 @@ def phase_gk_train(dev, norm) -> dict:
     loss = step(x, y).item()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    _expect(launches, "one GK training step", gk_scores=GK_MODEL["num_encoder_layers"])
+    n_scores = GK_MODEL["num_encoder_layers"]
+    VARIANTS_BY_PATH["gk_train"] = _expect(
+        launches, "one GK training step", variants=dict(gk_scores={"mma": n_scores}),
+        gk_scores=n_scores)
     first_peak = torch.cuda.max_memory_allocated() / 1e9
     if not loss == loss or abs(loss) == float("inf"):
         raise AssertionError(f"GK training loss {loss} is not finite")

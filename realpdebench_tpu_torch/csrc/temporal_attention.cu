@@ -13,8 +13,8 @@
 // in-kernel transpose and run the T x T products on the VPU; that is a TPU
 // layout trick and is not carried over.
 //
-// The forward, and the backward's `fma` variant (f32 tensors, bf16 at head
-// widths or T the other variant does not take): a block takes a tile of
+// The `fma` variants of the forward and the backward (f32 tensors, bf16 at
+// head widths or T the other variant does not take): a block takes a tile of
 // `ns` consecutive sites, whose q/k/v slabs (T*h*D contiguous elements a
 // site) it stages in shared memory with 16-byte loads. A thread takes one
 // (site, head, row i): q_i in registers, the row's T scores in a padded
@@ -30,12 +30,13 @@
 // fixed order, so dpb repeats bit for bit. No atomics. Exact f32 FMAs on
 // the CUDA cores from shared memory: FP32 issue bounds them.
 //
-// The backward's `mma` variant (bf16; d in {16, 32, 64}, T <= 32, at most
-// 8 heads, 16-byte aligned q, k, v and do; chosen by
-// ops/kernels.py::ta_bwd_variant; ta_bwd_mma_kernel below has the design):
-// one warp a (site, head) runs the five T x T x d products on mma.sync with
-// the softmax and dS in the accumulator fragments, a persistent grid
-// walking the sites through a cp.async ring.
+// The `mma` variants (bf16; d in {16, 32, 64}, T <= 32, at most 8 heads,
+// 16-byte aligned q, k, v (and do); chosen by ops/kernels.py::ta_fwd_variant
+// and ::ta_bwd_variant; ta_bwd_mma_kernel and ta_fwd_mma_kernel below have
+// the designs): one warp a (site, head) runs the T x T x d products on
+// mma.sync (two in the forward, five in the backward) with the softmax in
+// the accumulator fragments (one device function, ta_warp_softmax, for
+// both), a persistent grid walking the sites through a cp.async ring.
 //
 // Bound at the UNet's level 0 (B 12, S 8192, T 20, h 4, D 32, bf16): the
 // forward moves 2.0 GB (q, k, v read, o written: 0.60 ms at 3.35 TB/s) for
@@ -375,6 +376,152 @@ struct TaMmaLayout {
   }
 };
 
+// Shared memory of a block of the forward's tensor-core variant (host and
+// device agree; ops/kernels.py::ta_fwd_mma_smem_bytes).
+struct TaFwdMmaLayout {
+  size_t ring, zero, bias, total;
+  __host__ __device__ TaFwdMmaLayout(int T, int h, int D) {
+    const size_t rs = (size_t)h * D + 8;               // a ring row's stride (bank spread)
+    const size_t tj = 8 * (size_t)((T + 7) / 8);       // columns padded to 8 NT
+    ring = 0;                                          // [kTaStages][q, k, v][T][rs] bf16
+    zero = ring + (size_t)kTaStages * 3 * T * rs * 2;  // [64] bf16 zeros: every row past T
+    bias = zero + 128;                                 // [h][T][8 NT] f32: pb, -inf past T
+    total = bias + (size_t)h * T * tj * 4;
+  }
+};
+
+// Row r of a [T][rs] operand at base, or the zero row past T.
+__device__ __forceinline__ const bf16* ta_row(const bf16* base, int r, int T, int rs,
+                                              const bf16* zero) {
+  return r < T ? base + r * rs : zero;
+}
+
+// One warp's (site, head) of the tensor-core variants: S = q k^T over rows
+// i padded to 16 MT and columns j to 8 NT (MT = ceil(NT / 2)), every operand
+// row past T read from the zero row, bf16 operands as they are, f32 sums;
+// then, in the accumulator fragments, S + pb (bh: this head's [T][8 NT]
+// bias, -inf past column T) and P = softmax(S + pb) over j in place (row max
+// subtracted, row max and sum by quad shuffles, rows i >= T zero). With DP
+// (the backward), also dP = do v^T, its products interleaved with those of
+// S, and in the same pass over the rows dS = P (dP - sum_j P dP) in dp,
+// added into run (dp and run are not touched without DP). The forward and
+// the backward both call it.
+template <int D, int NT, bool DP>
+__device__ __forceinline__ void ta_warp_softmax(const bf16* Qs, const bf16* Ks, const bf16* Os,
+                                                const bf16* Vs, const bf16* zero,
+                                                const float* bh, int T, int rs, int lane,
+                                                float (&sp)[(NT + 1) / 2][NT][4],
+                                                float (&dp)[(NT + 1) / 2][NT][4],
+                                                float (&run)[(NT + 1) / 2][NT][4]) {
+  constexpr int MT = (NT + 1) / 2;
+  const int gq = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sp[mi][nj][e] = 0.f;
+        if (DP) dp[mi][nj][e] = 0.f;
+      }
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t bk[(NT + 1) / 2][4], bv[(NT + 1) / 2][4];
+#pragma unroll
+    for (int np = 0; np < (NT + 1) / 2; ++np) {
+      int n, kk;
+      mma::bt_frag_row(lane, 16 * ks, 16 * np, n, kk);
+      mma::ldmatrix_x4(bk[np], mma::smem_addr(ta_row(Ks, n, T, rs, zero) + kk));
+      if (DP) mma::ldmatrix_x4(bv[np], mma::smem_addr(ta_row(Vs, n, T, rs, zero) + kk));
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int r = 16 * mi + (lane & 7) + ((lane >> 3) & 1) * 8, c = 16 * ks + (lane >> 4) * 8;
+      uint32_t fq[4], fo[4];
+      mma::ldmatrix_x4(fq, mma::smem_addr(ta_row(Qs, r, T, rs, zero) + c));
+      if (DP) mma::ldmatrix_x4(fo, mma::smem_addr(ta_row(Os, r, T, rs, zero) + c));
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const int np = nj >> 1, hb = 2 * (nj & 1);
+        mma::mma_bf16(sp[mi][nj], fq, bk[np][hb], bk[np][hb + 1]);
+        if (DP) mma::mma_bf16(dp[mi][nj], fo, bv[np][hb], bv[np][hb + 1]);
+      }
+    }
+  }
+
+  // P in the fragments, row by row (i = 16 mi + gq + 8 hf)
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = 16 * mi + gq + 8 * hf;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const float2 b = i < T ? *reinterpret_cast<const float2*>(bh + i * 8 * NT + 8 * nj + 2 * q4)
+                               : make_float2(0.f, 0.f);
+        sp[mi][nj][2 * hf] += b.x;
+        sp[mi][nj][2 * hf + 1] += b.y;
+        mx = fmaxf(mx, fmaxf(sp[mi][nj][2 * hf], sp[mi][nj][2 * hf + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sp[mi][nj][2 * hf + e];
+          x = exp2f((x - mx) * 1.4426950408889634f);
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = i < T ? 1.f / sum : 0.f;
+      float dot = 0.f;
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sp[mi][nj][2 * hf + e];
+          x *= inv;
+          if (DP) dot = fmaf(x, dp[mi][nj][2 * hf + e], dot);
+        }
+      if (DP) {
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& g = dp[mi][nj][2 * hf + e];
+            g = sp[mi][nj][2 * hf + e] * (g - dot);
+            run[mi][nj][2 * hf + e] += g;
+          }
+      }
+    }
+}
+
+// Rows < T of [16 MT][8 CW] accumulators, rounded to bf16, into the columns
+// 8 c0.. of a ring slot [T][rs] of this warp's head.
+template <int MT, int CW>
+__device__ __forceinline__ void ta_store_rows(bf16* slot, int c0, const float (&o)[MT][CW][4],
+                                              int T, int rs, int lane) {
+  const int gq = lane >> 2, q4 = lane & 3;
+  __syncwarp();   // the warp's reads of the columns it overwrites are done
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = 16 * mi + gq + 8 * hf;
+      if (r < T)
+#pragma unroll
+        for (int ct = 0; ct < CW; ++ct)
+          *reinterpret_cast<uint32_t*>(slot + r * rs + 8 * (c0 + ct) + 2 * q4) =
+              mma::pack_bf16(o[mi][ct][2 * hf], o[mi][ct][2 * hf + 1]);
+    }
+}
+
 // One warp takes one (site, head), the block's warps the heads of one site,
 // the block its sites s = blockIdx.x + i * gridDim.x; the next site's q, k,
 // v and do come by 16-byte cp.async into a two-stage ring. A warp's rows i
@@ -440,23 +587,9 @@ __global__ void __launch_bounds__(32 * kTaMaxHeads, 2)
     }
     mma::cp_async_commit();
   };
-  // row r of a [T][rs] operand at base, or the zero row past T
-  auto row = [&](const bf16* base, int r) { return r < T ? base + r * rs : zero; };
-  // rows < T of [16 MT][8 CW] accumulators, rounded to bf16, into the
-  // columns 8 c0.. of a ring slot [T][rs] of this head
+  auto row = [&](const bf16* base, int r) { return ta_row(base, r, T, rs, zero); };
   auto store = [&](bf16* slot, int c0, const float (&o)[MT][CW][4]) {
-    __syncwarp();   // the warp's reads of the columns it overwrites are done
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = 16 * mi + gq + 8 * hf;
-        if (r < T)
-#pragma unroll
-          for (int ct = 0; ct < CW; ++ct)
-            *reinterpret_cast<uint32_t*>(slot + r * rs + 8 * (c0 + ct) + 2 * q4) =
-                mma::pack_bf16(o[mi][ct][2 * hf], o[mi][ct][2 * hf + 1]);
-      }
+    ta_store_rows<MT, CW>(slot, c0, o, T, rs, lane);
   };
   // out = A^T b over rows of b (i), A^T's fragments read transposed from the
   // warp's tile [i][j], into the slot: dk from (dS, q), dv from (P, do)
@@ -522,83 +655,11 @@ __global__ void __launch_bounds__(32 * kTaMaxHeads, 2)
     bf16* const Qs = ring + stage * 4 * slab + warp * D;
     bf16 *const Ks = Qs + slab, *const Vs = Qs + 2 * slab, *const Os = Qs + 3 * slab;
 
-    // S = q k^T and dP = do v^T
-    float sp[MT][NT][4] = {}, dp[MT][NT][4] = {};
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t bk[(NT + 1) / 2][4], bv[(NT + 1) / 2][4];
-#pragma unroll
-      for (int np = 0; np < (NT + 1) / 2; ++np) {
-        int n, kk;
-        mma::bt_frag_row(lane, 16 * ks, 16 * np, n, kk);
-        mma::ldmatrix_x4(bk[np], mma::smem_addr(row(Ks, n) + kk));
-        mma::ldmatrix_x4(bv[np], mma::smem_addr(row(Vs, n) + kk));
-      }
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        const int r = 16 * mi + (lane & 7) + ((lane >> 3) & 1) * 8, c = 16 * ks + (lane >> 4) * 8;
-        uint32_t fq[4], fo[4];
-        mma::ldmatrix_x4(fq, mma::smem_addr(row(Qs, r) + c));
-        mma::ldmatrix_x4(fo, mma::smem_addr(row(Os, r) + c));
-#pragma unroll
-        for (int nj = 0; nj < NT; ++nj) {
-          const int np = nj >> 1, hb = 2 * (nj & 1);
-          mma::mma_bf16(sp[mi][nj], fq, bk[np][hb], bk[np][hb + 1]);
-          mma::mma_bf16(dp[mi][nj], fo, bv[np][hb], bv[np][hb + 1]);
-        }
-      }
-    }
-
-    // P and dS in the fragments, row by row (i = 16 mi + gq + 8 hf)
-    const float* bh = sbias + warp * T * 8 * NT;
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int i = 16 * mi + gq + 8 * hf;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int nj = 0; nj < NT; ++nj) {
-          const float2 b = i < T ? *reinterpret_cast<const float2*>(bh + i * 8 * NT + 8 * nj + 2 * q4)
-                                 : make_float2(0.f, 0.f);
-          sp[mi][nj][2 * hf] += b.x;
-          sp[mi][nj][2 * hf + 1] += b.y;
-          mx = fmaxf(mx, fmaxf(sp[mi][nj][2 * hf], sp[mi][nj][2 * hf + 1]));
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        float sum = 0.f;
-#pragma unroll
-        for (int nj = 0; nj < NT; ++nj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = sp[mi][nj][2 * hf + e];
-            x = exp2f((x - mx) * 1.4426950408889634f);
-            sum += x;
-          }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        const float inv = i < T ? 1.f / sum : 0.f;
-        float dot = 0.f;
-#pragma unroll
-        for (int nj = 0; nj < NT; ++nj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = sp[mi][nj][2 * hf + e];
-            x *= inv;
-            dot = fmaf(x, dp[mi][nj][2 * hf + e], dot);
-          }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-#pragma unroll
-        for (int nj = 0; nj < NT; ++nj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& g = dp[mi][nj][2 * hf + e];
-            g = sp[mi][nj][2 * hf + e] * (g - dot);
-            run[mi][nj][2 * hf + e] += g;
-          }
-      }
+    // S = q k^T, dP = do v^T, P = softmax(S + pb) and dS = P (dP - sum_j P dP),
+    // dS into the lane's running dpb sums
+    float sp[MT][NT][4], dp[MT][NT][4];
+    ta_warp_softmax<D, NT, true>(Qs, Ks, Os, Vs, zero, sbias + warp * T * 8 * NT, T, rs, lane,
+                                 sp, dp, run);
 
     // P and dS as bf16 pairs, in the accumulators' layout; dS into the tile
     uint32_t pp[MT][NT][2], pd[MT][NT][2];
@@ -671,6 +732,132 @@ __global__ void __launch_bounds__(32 * kTaMaxHeads, 2)
     partial[(size_t)blockIdx.x * h * T * T + e] = (float)acc[e];
 }
 
+// TA forward's tensor-core variant (bf16; d in {16, 32, 64}, T <= 32,
+// heads <= 8): the backward's design with one product after the softmax.
+// One warp takes one (site, head), the block's warps the heads of one site,
+// the block its sites s = blockIdx.x + i * gridDim.x; the next site's q, k
+// and v come by 16-byte cp.async into a two-stage ring.
+//   S = q k^T, P = softmax(S + pb)   ta_warp_softmax, as in the backward
+//   o = P v                          mma, P's A fragments packed straight
+//                                    from its accumulators as a bf16 hi + lo
+//                                    pair (two MMAs), v by ldmatrix.trans
+//                                    from the ring, f32 sums
+// P is not rounded once: a CPU replay put o 3.7e-3-5.6e-3 of max|ref| from
+// the twin that way (T 7/20/32, d 16/32/64), over the 5e-3 line at five of
+// nine shapes, the UNet's among them, and 1.8e-3-2.8e-3 with hi + lo, which
+// is the rounding of o itself (tests/test_torch_temporal_attention.py).
+// o rounds once to bf16 into the warp's columns of q's ring slot (q's last
+// reader is S), and the block writes the site's [T, h d] slab with 16-byte
+// stores. No accumulator and no fourth slab: 40 KB of shared memory a block
+// at the UNet's shape (T 20, 4 heads of 32), four blocks (16 warps) an SM.
+template <int D, int NT>
+__global__ void __launch_bounds__(32 * kTaMaxHeads, 2)
+    ta_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const float* __restrict__ pb,
+                      bf16* __restrict__ o, int nsites, int T, int h) {
+  constexpr int MT = (NT + 1) / 2;      // 16-row tiles over i, and 16-wide k-steps over j
+  constexpr int NC = D / 8;             // 8-column tiles of d
+  constexpr int CW = NC < 4 ? NC : 4;   // of them a pass of o takes
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TaFwdMmaLayout L(T, h, D);
+  const int F = h * D, rs = F + 8, slab = T * rs;
+  const int nthreads = blockDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
+  const bf16* zero = reinterpret_cast<const bf16*>(smem + L.zero);
+  float* sbias = reinterpret_cast<float*>(smem + L.bias);   // [h][T][8 NT]
+  // the zero row; the bias, masked past column T
+  for (int i = threadIdx.x; i < (int)((L.bias - L.zero) / 16); i += nthreads)
+    reinterpret_cast<uint4*>(smem + L.zero)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < h * T * 8 * NT; i += nthreads) {
+    const int j = i % (8 * NT), hi = i / (8 * NT);
+    sbias[i] = j < T ? pb[hi * T + j] : -INFINITY;
+  }
+
+  auto fetch = [&](int site, int stage) {
+    bf16* dst = ring + stage * 3 * slab;
+    const int per_row = F / 8;
+    for (int i = threadIdx.x; i < 3 * T * per_row; i += nthreads) {
+      const int t = i / (T * per_row), rem = i - t * T * per_row;
+      const int r = rem / per_row, cc = rem - r * per_row;
+      const bf16* src = t == 0 ? q : t == 1 ? k : v;
+      mma::cp_async_16(dst + t * slab + r * rs + cc * 8, src + ((size_t)site * T + r) * F + cc * 8);
+    }
+    mma::cp_async_commit();
+  };
+
+  // the ring: site blockIdx.x + i gridDim.x in stage i % kTaStages, the
+  // next kTaStages - 1 sites in flight (a group each, empty past the end)
+  int site = blockIdx.x, it = 0;
+  for (int i = 0; i < kTaStages - 1; ++i) {
+    if (site + i * (int)gridDim.x < nsites) fetch(site + i * gridDim.x, i);
+    else mma::cp_async_commit();
+  }
+  for (; site < nsites; ++it, site += gridDim.x) {
+    const int stage = it % kTaStages;
+    mma::cp_async_wait<kTaStages - 2>();
+    __syncthreads();   // this site has landed; the readers of the stage refilled next are done
+    const int ahead = site + (kTaStages - 1) * gridDim.x;
+    if (ahead < nsites) fetch(ahead, (it + kTaStages - 1) % kTaStages);
+    else mma::cp_async_commit();
+    bf16* const Qs = ring + stage * 3 * slab + warp * D;
+    const bf16 *const Ks = Qs + slab, *const Vs = Qs + 2 * slab;
+
+    float sp[MT][NT][4];
+    ta_warp_softmax<D, NT, false>(Qs, Ks, nullptr, nullptr, zero, sbias + warp * T * 8 * NT, T,
+                                  rs, lane, sp, sp, sp);
+    // P as bf16 hi + lo pairs, in the accumulators' layout
+    uint32_t ph[MT][NT][2], pl[MT][NT][2];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          mma::split_pack(sp[mi][nj][2 * hf], sp[mi][nj][2 * hf + 1], ph[mi][nj][hf],
+                          pl[mi][nj][hf]);
+
+    // o = P v: P's A fragments from its accumulators (k-step kk takes the
+    // column tiles 2 kk and 2 kk + 1; past 8 NT zeros)
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += CW) {
+      float acc[MT][CW][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < MT; ++kk) {
+        const int n2 = 2 * kk + 1 < NT ? 2 * kk + 1 : -1;
+#pragma unroll
+        for (int cp = 0; cp < CW / 2; ++cp) {
+          int kr, n;
+          mma::b_frag_row(lane, 16 * kk, 8 * c0 + 16 * cp, kr, n);
+          uint32_t fb[4];
+          mma::ldmatrix_x4_trans(fb, mma::smem_addr(ta_row(Vs, kr, T, rs, zero) + n));
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            const uint32_t ah[4] = {ph[mi][2 * kk][0], ph[mi][2 * kk][1],
+                                    n2 < 0 ? 0u : ph[mi][n2 < 0 ? 0 : n2][0],
+                                    n2 < 0 ? 0u : ph[mi][n2 < 0 ? 0 : n2][1]};
+            const uint32_t al[4] = {pl[mi][2 * kk][0], pl[mi][2 * kk][1],
+                                    n2 < 0 ? 0u : pl[mi][n2 < 0 ? 0 : n2][0],
+                                    n2 < 0 ? 0u : pl[mi][n2 < 0 ? 0 : n2][1]};
+            mma::mma_bf16(acc[mi][2 * cp], ah, fb[0], fb[1]);
+            mma::mma_bf16(acc[mi][2 * cp], al, fb[0], fb[1]);
+            mma::mma_bf16(acc[mi][2 * cp + 1], ah, fb[2], fb[3]);
+            mma::mma_bf16(acc[mi][2 * cp + 1], al, fb[2], fb[3]);
+          }
+        }
+      }
+      ta_store_rows<MT, CW>(Qs, c0, acc, T, rs, lane);   // into q's slot: S read it last
+    }
+    __syncthreads();   // every warp's o is in the slot
+    const bf16* st = ring + stage * 3 * slab;
+    for (int i = threadIdx.x; i < T * (F / 8); i += nthreads) {
+      const int r = i / (F / 8), cc = i - r * (F / 8);
+      *reinterpret_cast<uint4*>(o + ((size_t)site * T + r) * F + cc * 8) =
+          *reinterpret_cast<const uint4*>(st + r * rs + cc * 8);
+    }
+  }
+}
+
 // Calls fn(D, NT) (as std::integral_constant arguments) for the
 // instantiated head width D and 8-column tiles NT = ceil(T / 8) of the
 // tensor-core variant; cudaErrorInvalidValue for any other.
@@ -696,25 +883,39 @@ cudaError_t with_ta_mma_instance(int d, int T, Fn&& fn) {
   return cudaErrorInvalidValue;
 }
 
-bool ta_mma_shape(int nsites, int T, int h, int d) {
-  return nsites > 0 && T >= 1 && T <= 32 && h >= 1 && h <= kTaMaxHeads &&
-         (d == 16 || d == 32 || d == 64) && TaMmaLayout(T, h, d).total <= kMaxSmem;
+// Shared memory of a block of the forward's (FWD) or the backward's
+// tensor-core variant.
+template <bool FWD>
+size_t ta_mma_smem(int T, int h, int d) {
+  return FWD ? TaFwdMmaLayout(T, h, d).total : TaMmaLayout(T, h, d).total;
 }
 
-// The tensor-core variant's persistent grid: as many blocks as the card's
-// SMs hold at once, never more than sites; 0 on error.
+template <bool FWD>
+bool ta_mma_shape(int nsites, int T, int h, int d) {
+  return nsites > 0 && T >= 1 && T <= 32 && h >= 1 && h <= kTaMaxHeads &&
+         (d == 16 || d == 32 || d == 64) && ta_mma_smem<FWD>(T, h, d) <= kMaxSmem;
+}
+
+// The persistent grid of the forward's (FWD) or the backward's tensor-core
+// variant: as many blocks as the card's SMs hold at once, never more than
+// sites; 0 on error.
+template <bool FWD>
 int ta_mma_blocks(int nsites, int T, int h, int d) {
-  if (!ta_mma_shape(nsites, T, h, d)) return 0;
-  const size_t smem = TaMmaLayout(T, h, d).total;
+  if (!ta_mma_shape<FWD>(nsites, T, h, d)) return 0;
+  const size_t smem = ta_mma_smem<FWD>(T, h, d);
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
   cudaError_t err = with_ta_mma_instance(d, T, [&](auto dd, auto nn) {
-    auto kern = ta_bwd_mma_kernel<decltype(dd)::value, decltype(nn)::value>;
-    cudaError_t e = fno::allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * h, smem);
+    constexpr int DD = decltype(dd)::value, NN = decltype(nn)::value;
+    auto occupancy = [&](auto kern) {
+      cudaError_t e = fno::allow_smem(kern, smem);
+      if (e != cudaSuccess) return e;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * h, smem);
+    };
+    if constexpr (FWD) return occupancy(ta_fwd_mma_kernel<DD, NN>);
+    else return occupancy(ta_bwd_mma_kernel<DD, NN>);
   });
   if (err != cudaSuccess || sms * per_sm < 1) return 0;
   return nsites < sms * per_sm ? nsites : sms * per_sm;
@@ -725,7 +926,7 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const vo
                            void* dpb, int nsites, int T, int h, int d, cudaStream_t stream) {
   for (const void* p : {q, k, v, dout, (const void*)dq, (const void*)dk, (const void*)dv})
     if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
-  const int grid = ta_mma_blocks(nsites, T, h, d);
+  const int grid = ta_mma_blocks<false>(nsites, T, h, d);
   if (grid < 1) return cudaErrorInvalidValue;
   const size_t smem = TaMmaLayout(T, h, d).total;
   cudaError_t err = with_ta_mma_instance(d, T, [&](auto dd, auto nn) {
@@ -739,6 +940,21 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const vo
   if (err != cudaSuccess) return err;
   return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(dpb), grid,
                               h * T * T, stream);
+}
+
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const void* pb, void* o,
+                           int nsites, int T, int h, int d, cudaStream_t stream) {
+  for (const void* p : {q, k, v, (const void*)o})
+    if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
+  const int grid = ta_mma_blocks<true>(nsites, T, h, d);
+  if (grid < 1) return cudaErrorInvalidValue;
+  const size_t smem = TaFwdMmaLayout(T, h, d).total;
+  return with_ta_mma_instance(d, T, [&](auto dd, auto nn) {
+    ta_fwd_mma_kernel<decltype(dd)::value, decltype(nn)::value><<<grid, 32 * h, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(pb), static_cast<bf16*>(o), nsites, T, h);
+    return cudaGetLastError();
+  });
 }
 
 inline int round32(int n) { return (n + 31) / 32 * 32; }
@@ -821,11 +1037,21 @@ bool bwd_shape(int nsites, int T, int h, int d, int dtype, TaShape* s) {
       return cudaErrorInvalidValue; \
   }
 
+// Bytes of shared memory a block of ta_fwd's mma variant takes.
+extern "C" int ta_fwd_mma_smem_bytes(int T, int h, int d) {
+  return (int)TaFwdMmaLayout(T, h, d).total;
+}
+
+// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["ta_fwd"]).
 extern "C" int ta_fwd(const void* q, const void* k, const void* v, const void* pb, void* o,
-                      int nsites, int T, int h, int d, int dtype, void* stream) {
-  TaShape s;
-  if (!fwd_shape(nsites, T, h, d, dtype, &s)) return cudaErrorInvalidValue;
+                      int nsites, int T, int h, int d, int variant, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
+    return launch_fwd_mma(q, k, v, pb, o, nsites, T, h, d, st);
+  }
+  TaShape s;
+  if (variant != 0 || !fwd_shape(nsites, T, h, d, dtype, &s)) return cudaErrorInvalidValue;
 #define TA_FWD(TT, DD) launch_fwd<TT, DD>(q, k, v, pb, o, s, st)
   if (dtype == fno::kF32) {
     TA_DISPATCH_D(float, TA_FWD)
@@ -842,7 +1068,7 @@ extern "C" int ta_bwd_mma_smem_bytes(int T, int h, int d) {
 // Number of [h, T, T] partials ta_bwd writes for variant 0 (fma) or 1
 // (mma: one a block of its persistent grid); 0 for a shape it refuses.
 extern "C" int ta_bwd_num_partials(int nsites, int T, int h, int d, int variant, int dtype) {
-  if (variant == 1) return dtype == fno::kBF16 ? ta_mma_blocks(nsites, T, h, d) : 0;
+  if (variant == 1) return dtype == fno::kBF16 ? ta_mma_blocks<false>(nsites, T, h, d) : 0;
   TaShape s;
   return variant == 0 && bwd_shape(nsites, T, h, d, dtype, &s) ? bwd_grid(s) : 0;
 }

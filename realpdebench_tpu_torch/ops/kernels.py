@@ -14,12 +14,13 @@ tensors, allocates the outputs and scratch, launches on PyTorch's current
 stream (the kernels allocate nothing and do not synchronise), raises if the
 launch returned an error, and adds one to its entry in ``LAUNCHES``.
 
-K1, the T-stage, K2, K2A-lite, K12B, K3F, K3B and the TA backward have two
-variants each, chosen from dtype, shape and the 16-byte alignment of the
-data before the launch by the pure functions ``k1_variant``,
-``t_stage_variant``, ``k2_variant``, ``k2a_lite_variant``, ``k12b_variant``,
-``k3f_variant``, ``k3b_variant`` and ``ta_bwd_variant`` (``VARIANTS``
-counts the launches of each): the T-stage's ``registers`` (a thread
+K1, the T-stage, K2, K2A-lite, K12B, K3F, K3B, the TA forward and backward
+and the Galerkin scores have two variants each, chosen from dtype, shape
+and the 16-byte alignment of the data before the launch by the pure
+functions ``k1_variant``, ``t_stage_variant``, ``k2_variant``,
+``k2a_lite_variant``, ``k12b_variant``, ``k3f_variant``, ``k3b_variant``,
+``ta_fwd_variant``, ``ta_bwd_variant`` and ``gk_scores_variant``
+(``VARIANTS`` counts the launches of each): the T-stage's ``registers`` (a thread
 produces every output of its column) or ``generic``; the others' ``mma``
 (bf16, their products on the tensor cores) or ``fma`` (exact f32
 arithmetic). A caller may name the variant; one that does not take
@@ -75,7 +76,8 @@ LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
 VARIANTS = {"k1": {"fma": 0, "mma": 0}, "t_stage": {"generic": 0, "registers": 0},
             "k2": {"fma": 0, "mma": 0}, "k2a_lite": {"fma": 0, "mma": 0},
             "k12b": {"fma": 0, "mma": 0}, "k3f": {"fma": 0, "mma": 0},
-            "k3b": {"fma": 0, "mma": 0}, "ta_bwd": {"fma": 0, "mma": 0}}
+            "k3b": {"fma": 0, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
+            "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
@@ -360,12 +362,14 @@ SIGNATURES = {
     "fno_k3b": ([_P] * 10 + [_I] * 13 + [_P], _I),
     "fno_k3b_num_partials": ([_I] * 8, _I),
     "fno_k3b_mma_smem_bytes": ([_I], _I),
-    "ta_fwd": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "ta_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "ta_fwd_mma_smem_bytes": ([_I] * 3, _I),
     "ta_bwd_num_partials": ([_I] * 6, _I),
     "ta_bwd_mma_smem_bytes": ([_I] * 3, _I),
     "ta_bwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
-    "gk_scores_num_partials": ([_I] * 4, _I),
-    "gk_scores": ([_P] * 8 + [_I] * 4 + [_F, _I, _P], _I),
+    "gk_scores_num_partials": ([_I] * 6, _I),
+    "gk_scores_mma_smem_bytes": ([_I] * 2, _I),
+    "gk_scores": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "fno_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -815,6 +819,26 @@ TA_MMA_HEAD_DIMS, TA_MMA_MAX_T, TA_MMA_MAX_HEADS = (16, 32, 64), 32, 8
 TA_MMA_STAGES, TA_MMA_TILE_STRIDE = 2, 40
 
 
+def ta_fwd_mma_smem_bytes(T: int, heads: int, d: int) -> int:
+    """Shared memory of a block of TA forward's mma variant
+    (csrc/temporal_attention.cu::TaFwdMmaLayout): the ring of q, k and v
+    rows (bf16, rows padded by 8), a zero row, the bias with its columns
+    padded to 8·ceil(T/8) (f32)."""
+    rs = heads * d + 8
+    return TA_MMA_STAGES * 3 * T * rs * 2 + 128 + heads * T * 8 * -(-T // 8) * 4
+
+
+def ta_fwd_variant(dtype, T: int, heads: int, d: int, aligned: bool = True) -> str:
+    """'mma' for bfloat16 with d in (16, 32, 64), T <= 32, heads * T <= 256,
+    at most 8 heads, a block within the shared memory and 16-byte aligned q,
+    k and v, else 'fma'."""
+    if (dtype == torch.bfloat16 and aligned and d in TA_MMA_HEAD_DIMS and T <= TA_MMA_MAX_T
+            and heads * T <= TA_MAX_TASKS and heads <= TA_MMA_MAX_HEADS
+            and ta_fwd_mma_smem_bytes(T, heads, d) <= MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
+
+
 def ta_bwd_mma_smem_bytes(T: int, heads: int, d: int) -> int:
     """Shared memory of a block of TA backward's mma variant
     (csrc/temporal_attention.cu::TaMmaLayout): the ring of q, k, v and do
@@ -858,36 +882,54 @@ def _ta_checks(q, pos_bias, heads, **same):
     return dt, B * S, T, d
 
 
-def ta_fwd(q, k, v, pos_bias, heads: int):
-    """o = softmax(q k^T + pos_bias) v per (site, head) over T; q, k, v, o
-    [B, S, T, h*d], pos_bias [h, T, T] f32; see csrc/temporal_attention.cu."""
-    dt, nsites, T, d = _ta_checks(q, pos_bias, heads, k=k, v=v)
-    o = torch.empty_like(q)
-    _launch("ta_fwd", library().ta_fwd, q.device, _p(q), _p(k), _p(v),
-            _p(pos_bias), _p(o), nsites, T, heads, d, dt)
-    return o
+def _ta_variant(kernel: str, tensors, T: int, heads: int, d: int, variant: str | None):
+    """(name, code) of the variant of the TA forward or backward
+    (``kernel``) that runs on ``tensors`` (q, k, v and, for the backward,
+    do): the one named, or the one ``ta_fwd_variant`` / ``ta_bwd_variant``
+    chooses; a named mma variant that cannot take the input raises, as do
+    shared-memory layouts of this module and temporal_attention.cu that
+    differ."""
+    choose, smem = ((ta_fwd_variant, ta_fwd_mma_smem_bytes) if kernel == "ta_fwd"
+                    else (ta_bwd_variant, ta_bwd_mma_smem_bytes))
+    q = tensors[0]
+    ok = aligned(*tensors)
+    chosen = choose(q.dtype, T, heads, d, ok)
+    name = chosen if variant is None else variant
+    code = _variant_code(kernel, name)
+    if name == "mma":
+        if chosen != "mma":
+            what = "q, k and v" if kernel == "ta_fwd" else "q, k, v and do"
+            raise ValueError(
+                f"{kernel}: the mma variant takes bfloat16, d in {TA_MMA_HEAD_DIMS}, T <= "
+                f"{TA_MMA_MAX_T}, heads*T <= {TA_MAX_TASKS}, at most {TA_MMA_MAX_HEADS} heads, "
+                f"a block within {MAX_SMEM_BYTES} bytes of shared memory and 16-byte aligned "
+                f"{what}; got {q.dtype}, d={d}, T={T}, heads={heads}, aligned={ok}")
+        if getattr(library(), f"{kernel}_mma_smem_bytes")(T, heads, d) != smem(T, heads, d):
+            raise RuntimeError(f"{kernel}: the shared-memory layouts of kernels.py and "
+                               "temporal_attention.cu differ")
+    return name, code
+
+
+def _ta_fwd_variant(q, k, v, T: int, heads: int, d: int, variant: str | None):
+    return _ta_variant("ta_fwd", (q, k, v), T, heads, d, variant)
 
 
 def _ta_bwd_variant(q, k, v, do, T: int, heads: int, d: int, variant: str | None):
-    """(name, code) of the variant of the TA backward that runs: the one
-    named, or the one ``ta_bwd_variant`` chooses; a named mma variant that
-    cannot take the input raises, as do shared-memory layouts of this module
-    and temporal_attention.cu that differ."""
-    ok = aligned(q, k, v, do)
-    chosen = ta_bwd_variant(q.dtype, T, heads, d, ok)
-    name = chosen if variant is None else variant
-    code = _variant_code("ta_bwd", name)
-    if name == "mma":
-        if chosen != "mma":
-            raise ValueError(
-                f"ta_bwd: the mma variant takes bfloat16, d in {TA_MMA_HEAD_DIMS}, T <= "
-                f"{TA_MMA_MAX_T}, heads*T <= {TA_MAX_TASKS}, at most {TA_MMA_MAX_HEADS} heads, "
-                f"a block within {MAX_SMEM_BYTES} bytes of shared memory and 16-byte aligned "
-                f"q, k, v and do; got {q.dtype}, d={d}, T={T}, heads={heads}, aligned={ok}")
-        if library().ta_bwd_mma_smem_bytes(T, heads, d) != ta_bwd_mma_smem_bytes(T, heads, d):
-            raise RuntimeError("ta_bwd: the shared-memory layouts of kernels.py and "
-                               "temporal_attention.cu differ")
-    return name, code
+    return _ta_variant("ta_bwd", (q, k, v, do), T, heads, d, variant)
+
+
+def ta_fwd(q, k, v, pos_bias, heads: int, variant: str | None = None):
+    """o = softmax(q k^T + pos_bias) v per (site, head) over T; q, k, v, o
+    [B, S, T, h*d], pos_bias [h, T, T] f32; see csrc/temporal_attention.cu.
+    ``variant`` names one of VARIANTS['ta_fwd']; by default
+    ``ta_fwd_variant`` chooses."""
+    dt, nsites, T, d = _ta_checks(q, pos_bias, heads, k=k, v=v)
+    name, code = _ta_fwd_variant(q, k, v, T, heads, d, variant)
+    o = torch.empty_like(q)
+    _launch("ta_fwd", library().ta_fwd, q.device, _p(q), _p(k), _p(v), _p(pos_bias), _p(o),
+            nsites, T, heads, d, code, dt)
+    VARIANTS["ta_fwd"][name] += 1
+    return o
 
 
 def ta_bwd(q, k, v, pos_bias, do, heads: int, variant: str | None = None):
@@ -913,14 +955,60 @@ def ta_bwd(q, k, v, pos_bias, do, heads: int, variant: str | None = None):
     return dq, dk, dv, dpb
 
 
-# head widths the scores kernel is instantiated for (csrc/galerkin_scores.cu)
+# head widths the scores kernel's variants are instantiated for
+# (csrc/galerkin_scores.cu); the mma variant's tokens a tile, ring stages
+# and padding of a staged row
 GK_HEAD_DIMS = (16, 32, 64)
+GK_MMA_TILE, GK_MMA_STAGES, GK_MMA_ROW_PAD = 32, 2, 8
 
 
-def gk_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int, eps: float):
+def gk_scores_mma_smem_bytes(d: int, dtype) -> int:
+    """Shared memory of a block of the scores' mma variant
+    (csrc/galerkin_scores.cu::GkMmaLayout): the ring of k and v token rows
+    in the input dtype, the affine parameters (f32), two buffers of the
+    normalised rows of k and v as bf16 hi and lo (rows padded by 8)."""
+    es = 4 if dtype == torch.float32 else 2
+    return (GK_MMA_STAGES * 2 * GK_MMA_TILE * d * es + 4 * d * 4
+            + 2 * 4 * GK_MMA_TILE * (d + GK_MMA_ROW_PAD) * 2)
+
+
+def gk_scores_variant(dtype, d: int, aligned: bool = True) -> str:
+    """'mma' for float32 or bfloat16 with d in (16, 32, 64) and 16-byte
+    aligned k and v, else 'fma' (the wrapper takes no other input: the fma
+    variant runs only when named)."""
+    if dtype in _DTYPE_CODES and aligned and d in GK_HEAD_DIMS:
+        return "mma"
+    return "fma"
+
+
+def _gk_scores_variant(k, v, d: int, variant: str | None):
+    """(name, code) of the variant of the scores that runs on k and v: the
+    one named, or the one ``gk_scores_variant`` chooses; a named mma variant
+    that cannot take them raises, as do shared-memory layouts of this module
+    and galerkin_scores.cu that differ."""
+    ok = aligned(k, v)
+    chosen = gk_scores_variant(k.dtype, d, ok)
+    name = chosen if variant is None else variant
+    code = _variant_code("gk_scores", name)
+    if name == "mma":
+        if chosen != "mma":
+            raise ValueError(
+                f"gk_scores: the mma variant takes float32 or bfloat16, d in {GK_HEAD_DIMS} "
+                f"and 16-byte aligned k and v; got {k.dtype}, d={d}, aligned={ok}")
+        if library().gk_scores_mma_smem_bytes(d, _DTYPE_CODES[k.dtype]) != \
+                gk_scores_mma_smem_bytes(d, k.dtype):
+            raise RuntimeError("gk_scores: the shared-memory layouts of kernels.py and "
+                               "galerkin_scores.cu differ")
+    return name, code
+
+
+def gk_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int, eps: float,
+              variant: str | None = None):
     """LN(k)ᵀ·LN(v)/N per (batch, head), with per-head affine LayerNorms:
     k, v [B, N, h·d] (float32 or bfloat16, the Dense's token layout), the
-    affine [h, d] f32 → [B, h, d, d] f32; see csrc/galerkin_scores.cu."""
+    affine [h, d] f32 → [B, h, d, d] f32; see csrc/galerkin_scores.cu.
+    ``variant`` names one of VARIANTS['gk_scores']; by default
+    ``gk_scores_variant`` chooses."""
     dt = _io_dtype(k)
     dev = k.device
     if k.dim() != 3:
@@ -938,10 +1026,15 @@ def gk_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int, eps: float):
     for n, t in (("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{n}: not 16-byte aligned")
+    name, code = _gk_scores_variant(k, v, d, variant)
     lib = library()
-    partial = torch.empty((lib.gk_scores_num_partials(B, N, heads, d), B, heads, d, d),
-                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):   # the mma grid fills this card's SMs
+        n = lib.gk_scores_num_partials(B, N, heads, d, code, dt)
+    if n < 1:
+        raise RuntimeError(f"gk_scores: no partial count for the {name} variant")
+    partial = torch.empty((n, B, heads, d, d), dtype=torch.float32, device=dev)
     out = torch.empty((B, heads, d, d), dtype=torch.float32, device=dev)
     _launch("gk_scores", lib.gk_scores, dev, _p(k), _p(v), _p(k_scale), _p(k_bias),
-            _p(v_scale), _p(v_bias), _p(partial), _p(out), B, N, heads, d, float(eps), dt)
+            _p(v_scale), _p(v_bias), _p(partial), _p(out), B, N, heads, d, float(eps), code, dt)
+    VARIANTS["gk_scores"][name] += 1
     return out

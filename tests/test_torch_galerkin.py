@@ -5,7 +5,12 @@
    Pallas kernel ``_scores_pallas`` in interpret mode; the gradients of the
    twin and of the autograd function (its kernel replaced by the twin, so
    that its backward runs on the CPU) against ``jax.grad`` through the
-   ``custom_vjp``.
+   ``custom_vjp``. The kernel's tensor-core variant runs only on the card
+   (tests/test_torch_kernels.py); here its arithmetic (the f32 LayerNorm,
+   the bf16 hi + lo split of the normalised rows, the three products per
+   16-token step, the f32 accumulators flushed every 32 tiles, the
+   per-chunk partials) is replayed against the twin, within the card's
+   bound, and against the Pallas kernel in interpret mode.
 2. The decoder's spectral convolution: ``truncated_spectral_conv3d_dft_lowp``
    and the dispatcher's three forms, outputs and gradients, against JAX's.
 3. Units: GalerkinAttention, GKTEncoderLayer (LayerNorms off and on) and
@@ -41,6 +46,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as tnf
 
 from realpdebench_tpu.config import Config
 from realpdebench_tpu.data import normalizer as jnorm
@@ -228,6 +234,96 @@ def test_scores_twin_matches_pallas_interpret_per_head():
     for hh in range(2):
         want = jpg._scores_pallas(jnp.asarray(k[0, hh]), jnp.asarray(v[0, hh]),
                                   *(jnp.asarray(a[hh]) for a in aff), 1e-7, tile=64,
+                                  interpret=True)
+        _close(got[0, hh], want, msg=f"head {hh}")
+
+
+# csrc/galerkin_scores.cu, the mma variant: tokens a tile, tiles an MMA
+# accumulator takes before the f32 sums
+GK_MMA_TILE, GK_MMA_FLUSH = 32, 32
+
+
+def _replay_gk_scores_mma(k, v, k_scale, k_bias, v_scale, v_bias, heads, eps, nparts, *,
+                          rounding=True):
+    """The scores' tensor-core variant in plain PyTorch: the LayerNorm of
+    each (token, head) in f32 (mean, centred rows, population variance, eps
+    inside the square root, the f32 affine); N cut into ``nparts`` chunks of
+    whole 32-token tiles (the last tile of a chunk padded with zero rows);
+    per 16-token k-step the three products hi·hi + hi·lo + lo·hi of the
+    rows' bf16 hi + lo pairs, in f64, added into an f32 accumulator, which
+    goes into the f32 sums every 32 tiles and at the chunk's end; the
+    chunks' sums added in f64 and scaled by 1/N. ``rounding=False``: the
+    products of the f32 rows, in f64, no f32 sums."""
+    B, N, F = k.shape
+    d = F // heads
+
+    def ln(x, scale, bias):
+        x = x.float().reshape(B, N, heads, d)
+        c = x - x.mean(-1, keepdim=True)
+        inv = 1.0 / torch.sqrt((c * c).mean(-1, keepdim=True) + eps)
+        return (c * inv) * scale.float() + bias.float()
+
+    kn, vn = ln(k, k_scale, k_bias), ln(v, v_scale, v_bias)
+    tiles = -(-N // GK_MMA_TILE)
+    chunk = -(-tiles // nparts) * GK_MMA_TILE
+    parts = []
+    for n0 in range(0, N, chunk):
+        kc, vc = kn[:, n0:n0 + chunk], vn[:, n0:n0 + chunk]
+        pad = -kc.shape[1] % GK_MMA_TILE
+        kc, vc = (tnf.pad(t, (0, 0, 0, 0, 0, pad)) for t in (kc, vc))
+        steps = kc.shape[1] // 16
+        kc, vc = (t.reshape(B, steps, 16, heads, d) for t in (kc, vc))
+        if not rounding:
+            parts.append(torch.einsum("bsthi,bsthj->bhij", kc.double(), vc.double()))
+            continue
+        (kh, kl), (vh, vl) = (tuple(u.double() for u in kernels.split_bf16(t)) for t in (kc, vc))
+        prod = lambda a, b: torch.einsum("bsthi,bsthj->bshij", a, b)
+        step_sums = prod(kh, vh) + prod(kh, vl) + prod(kl, vh)
+        acc = torch.zeros(B, heads, d, d)
+        total = torch.zeros(B, heads, d, d)
+        for s in range(steps):
+            acc = (acc.double() + step_sums[:, s]).float()
+            tile = s // 2
+            if s % 2 == 1 and ((tile + 1) % GK_MMA_FLUSH == 0 or s == steps - 1):
+                total, acc = total + acc, torch.zeros_like(acc)
+        parts.append(total.double())
+    return (torch.stack(parts).sum(0) / N).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, nparts", [
+    ((2, 300, 3, 16), 3),     # N no multiple of the tile, three chunks
+    ((1, 1037, 2, 32), 1),    # one chunk of 33 tiles: a flush, then the last tile
+    ((1, 2500, 2, 64), 2),    # two chunks of 40 and 39 tiles, flushed at 32
+])
+def test_gk_scores_mma_replay_matches_twin(shape, nparts, dtype):
+    """The replay against the twin from the same inputs: within 1e-4 of
+    max|ref| (GK_SCORES_TOL, the card's bound, in both dtypes: the rows are
+    f32 and hi + lo carries them to 2^-17); unrounded, within 2e-4 of the
+    twin."""
+    B_, h, n, d = shape[0], shape[2], shape[1], shape[3]
+    k, v, aff = _score_inputs(5, B_, h, n, d)
+    kt, vt = _tokens(k).to(dtype), _tokens(v).to(dtype)
+    aff = [torch.from_numpy(a) for a in aff]
+    ref = tga.galerkin_scores_plain(kt, vt, *aff, h, 1e-7)
+    got = _replay_gk_scores_mma(kt, vt, *aff, h, 1e-7, nparts)
+    assert got.shape == ref.shape == (B_, h, d, d)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    exact = _replay_gk_scores_mma(kt, vt, *aff, h, 1e-7, nparts, rounding=False)
+    _close(_np(exact), _np(ref))
+
+
+def test_gk_scores_mma_replay_matches_pallas_scores():
+    """The replay, rounded as the kernel rounds, against the JAX Pallas
+    scores kernel in interpret mode (f32), head by head, N no multiple of
+    the tile (the Pallas kernel's tile of 37 divides it)."""
+    h, n, d = 2, 37 * 9, 32
+    k, v, aff = _score_inputs(6, 1, h, n, d)
+    got = _np(_replay_gk_scores_mma(_tokens(k), _tokens(v), *map(torch.from_numpy, aff), h,
+                                    1e-7, 2))
+    for hh in range(h):
+        want = jpg._scores_pallas(jnp.asarray(k[0, hh]), jnp.asarray(v[0, hh]),
+                                  *(jnp.asarray(a[hh]) for a in aff), 1e-7, tile=37,
                                   interpret=True)
         _close(got[0, hh], want, msg=f"head {hh}")
 

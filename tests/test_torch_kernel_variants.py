@@ -1,5 +1,6 @@
-"""The variants of the port's K1, T-stage, K2, K2A-lite, K12B, K3F, K3B and
-TA backward kernels, as far as the CPU shows.
+"""The variants of the port's K1, T-stage, K2, K2A-lite, K12B, K3F, K3B,
+TA forward and backward and Galerkin scores kernels, as far as the CPU
+shows.
 
 The kernels themselves run only on the card (tests/test_torch_kernels.py,
 marker ``gpu``). Here: the host side of the tensor-core variants (the bf16
@@ -12,10 +13,11 @@ FNO configs, at the odd shapes of the gpu tests and at a view at an odd
 storage offset; and the T-stage twin against the JAX ``t_stage`` (Pallas,
 interpret mode) at two more (Tp, m1), f32. K2A-lite's and K3B's replays
 reach the Pallas ``_k2a_lite_kernel`` through ``_layer_calls`` and
-``_k3b_kernel`` through the JAX fused tail's vjp. The replays of K3F's and
-the TA backward's tensor-core variants are in tests/test_torch_fno_tail.py
-and tests/test_torch_temporal_attention.py; here their choice, and the
-refusal of a named mma variant on input it cannot take.
+``_k3b_kernel`` through the JAX fused tail's vjp. The replays of the TA
+forward's and backward's and the Galerkin scores' tensor-core variants are
+in tests/test_torch_temporal_attention.py and tests/test_torch_galerkin.py;
+here their choice, the refusal of a named mma variant on input it cannot
+take, and the shared-memory layouts' constants against the sources.
 """
 
 from pathlib import Path
@@ -291,7 +293,9 @@ def test_variant_counters_start_at_zero_and_reset():
                                 "t_stage": {"generic": 0, "registers": 0},
                                 "k2": {"fma": 0, "mma": 0}, "k2a_lite": {"fma": 0, "mma": 0},
                                 "k12b": {"fma": 0, "mma": 0}, "k3f": {"fma": 0, "mma": 0},
-                                "k3b": {"fma": 0, "mma": 0}, "ta_bwd": {"fma": 0, "mma": 0}}
+                                "k3b": {"fma": 0, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
+                                "ta_bwd": {"fma": 0, "mma": 0},
+                                "gk_scores": {"fma": 0, "mma": 0}}
     assert not any(kernels.LAUNCHES.values())
 
 
@@ -678,6 +682,133 @@ def test_a_named_ta_bwd_mma_variant_refuses_what_it_does_not_take(dtype, T, head
     with pytest.raises(ValueError, match="no variant"):
         kernels._ta_bwd_variant(q, q, q, do, T, heads, d, "wgmma")
     assert kernels._ta_bwd_variant(q, q, q, do, T, heads, d, None) == ("fma", 0)
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.bfloat16, 20, 4, 32), "mma"),      # the UNet: T 20, 4 heads of 32
+    ((torch.bfloat16, 32, 4, 32), "mma"),      # T at its bound
+    ((torch.bfloat16, 33, 4, 32), "fma"),      # T past 32
+    ((torch.bfloat16, 7, 4, 16), "mma"),
+    ((torch.bfloat16, 20, 4, 64), "mma"),
+    ((torch.bfloat16, 20, 4, 8), "fma"),       # d not instantiated
+    ((torch.bfloat16, 16, 8, 64), "mma"),      # 8 heads of 64
+    ((torch.bfloat16, 32, 8, 32), "mma"),      # heads*T 256: the backward's block does not fit
+    ((torch.bfloat16, 32, 8, 64), "fma"),      # past the shared memory
+    ((torch.bfloat16, 16, 16, 16), "fma"),     # more than 8 heads
+    ((torch.bfloat16, 9, 30, 16), "fma"),      # heads*T past 256
+    ((torch.float32, 20, 4, 32), "fma"),       # exact f32 arithmetic
+    ((torch.float32, 5, 3, 16), "fma"),
+])
+def test_ta_fwd_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    """The backward's conditions, with the forward's smaller block (no
+    accumulator, no fourth slab: it takes 8 heads at T 32 where the backward
+    does not)."""
+    assert kernels.ta_fwd_variant(*args) == want
+    assert kernels.ta_fwd_variant(*args) == want     # no state
+    assert kernels.ta_fwd_variant(*args, aligned=False) == "fma"
+    dtype, T, heads, d = args
+    fits = kernels.ta_fwd_mma_smem_bytes(T, heads, d) <= kernels.MAX_SMEM_BYTES
+    assert fits or want == "fma"
+    assert kernels.ta_fwd_mma_smem_bytes(T, heads, d) < kernels.ta_bwd_mma_smem_bytes(T, heads, d)
+    if kernels.ta_bwd_variant(*args) == "mma":
+        assert want == "mma"
+
+
+def test_ta_fwd_mma_block_fits_four_times_an_sm_at_the_unet_shape():
+    """At T 20, 4 heads of 32 a block takes 40448 bytes (the ring of q, k
+    and v over two sites, a zero row, the bias): four blocks, 16 warps, an
+    SM (five by shared memory; 128 registers a thread make it four)."""
+    assert kernels.ta_fwd_mma_smem_bytes(20, 4, 32) == 2 * 3 * 20 * 136 * 2 + 128 + 4 * 20 * 24 * 4
+    assert 5 * (kernels.ta_fwd_mma_smem_bytes(20, 4, 32) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.bfloat16, 64), "mma"),      # the cylinder GK: 4 heads of 64
+    ((torch.bfloat16, 32), "mma"),
+    ((torch.bfloat16, 16), "mma"),
+    ((torch.float32, 64), "mma"),       # f32 inputs: the same normalised f32 rows
+    ((torch.float32, 16), "mma"),
+    ((torch.bfloat16, 8), "fma"),       # d not instantiated
+    ((torch.float16, 64), "fma"),
+])
+def test_gk_scores_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    assert kernels.gk_scores_variant(*args) == want
+    assert kernels.gk_scores_variant(*args) == want     # no state
+    assert kernels.gk_scores_variant(*args, aligned=False) == "fma"
+    if want == "mma":
+        assert kernels.gk_scores_mma_smem_bytes(args[1], args[0]) <= kernels.MAX_SMEM_BYTES
+
+
+def test_gk_scores_mma_block_sizes_at_the_cylinder_width():
+    """d 64: the two-stage ring of 32-token tiles of k and v, the affine,
+    two buffers of the hi and lo rows of k and v (padded by 8): 54272 bytes
+    in bf16, four blocks (4 warps each, 128 registers) an SM; 70656 in
+    f32, three."""
+    assert kernels.gk_scores_mma_smem_bytes(64, torch.bfloat16) == (
+        2 * 2 * 32 * 64 * 2 + 4 * 64 * 4 + 2 * 4 * 32 * 72 * 2) == 54272
+    assert kernels.gk_scores_mma_smem_bytes(64, torch.float32) == 70656
+    assert 4 * (54272 + 1024) <= 228 * 1024 and 3 * (70656 + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("dtype, T, heads, d, offset", [
+    (torch.float32, 20, 4, 32, 0),         # f32
+    (torch.bfloat16, 20, 4, 8, 0),         # d not instantiated
+    (torch.bfloat16, 33, 4, 32, 0),        # T past 32
+    (torch.bfloat16, 16, 16, 16, 0),       # more than 8 heads
+    (torch.bfloat16, 20, 4, 32, 1),        # v 2 bytes past a 16-byte boundary
+])
+def test_a_named_ta_fwd_mma_variant_refuses_what_it_does_not_take(dtype, T, heads, d, offset):
+    n = T * heads * d
+    q = torch.zeros(n, dtype=dtype)
+    v = torch.zeros(n + 8, dtype=dtype)[offset:offset + n]
+    with pytest.raises(ValueError, match="mma variant"):
+        kernels._ta_fwd_variant(q, q, v, T, heads, d, "mma")
+    with pytest.raises(ValueError, match="no variant"):
+        kernels._ta_fwd_variant(q, q, v, T, heads, d, "wgmma")
+    assert kernels._ta_fwd_variant(q, q, v, T, heads, d, None) == ("fma", 0)
+    assert kernels._ta_fwd_variant(q, q, v, T, heads, d, "fma") == ("fma", 0)
+
+
+@pytest.mark.parametrize("dtype, d, offset", [
+    (torch.bfloat16, 8, 0),         # d not instantiated
+    (torch.float16, 64, 0),         # neither f32 nor bf16
+    (torch.bfloat16, 64, 1),        # v 2 bytes past a 16-byte boundary
+    (torch.float32, 32, 1),         # v 4 bytes past
+])
+def test_a_named_gk_scores_mma_variant_refuses_what_it_does_not_take(dtype, d, offset):
+    n = 4 * d
+    k = torch.zeros(n, dtype=dtype)
+    v = torch.zeros(n + 8, dtype=dtype)[offset:offset + n]
+    with pytest.raises(ValueError, match="mma variant"):
+        kernels._gk_scores_variant(k, v, d, "mma")
+    with pytest.raises(ValueError, match="no variant"):
+        kernels._gk_scores_variant(k, v, d, "wgmma")
+    assert kernels._gk_scores_variant(k, v, d, None) == ("fma", 0)
+    assert kernels._gk_scores_variant(k, v, d, "fma") == ("fma", 0)
+
+
+def _constexprs(name):
+    """{name: value} of the integer constexprs of csrc/<name>."""
+    import re
+    text = (kernels.CSRC / name).read_text()
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"constexpr int (\w+) = (\d+);", text)}
+
+
+@pytest.mark.parametrize("source, pairs", [
+    ("temporal_attention.cu", {"kTaStages": "TA_MMA_STAGES", "kTaMaxHeads": "TA_MMA_MAX_HEADS",
+                               "kTaTS": "TA_MMA_TILE_STRIDE"}),
+    ("galerkin_scores.cu", {"kGkTile": "GK_MMA_TILE", "kGkStages": "GK_MMA_STAGES",
+                            "kGkRowPad": "GK_MMA_ROW_PAD"}),
+])
+def test_shared_memory_layout_constants_match_the_sources(source, pairs):
+    """The constants kernels.py's ta_fwd_mma_smem_bytes,
+    ta_bwd_mma_smem_bytes and gk_scores_mma_smem_bytes lay their blocks out
+    with, against the sources' (the wrappers also hold the sizes against the
+    library's own ``*_mma_smem_bytes`` before a launch)."""
+    got = _constexprs(source)
+    for c, py in pairs.items():
+        assert got[c] == getattr(kernels, py), (c, py)
 
 
 @pytest.mark.parametrize("geo", [(13, 22, 5, 8), (70, 134, 12, 16)])

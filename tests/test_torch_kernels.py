@@ -10,11 +10,13 @@ below the UNet's (T 5 and 20, h 3 and 4, d 8 and 32) and site counts that
 fill no whole tile (S 300, 37); for the Galerkin scores, N that fills no
 whole tile (300, 37), head widths 16, 32 and 64, odd B·h and a last group
 of heads narrower than the block (h 5); for the variants of the T-stage and
-K2, K1, K2A-lite, K12B, K3F, K3B and the TA backward, shapes on both sides
-of each choice (``kernels.t_stage_variant``, ``kernels.k2_variant`` and the
-others), widths 32, 64 and 128 for the tensor-core variants of the FNO
-kernels, head widths 16, 32 and 64, T from 5 to 32 and the UNet step's four
-site counts for the TA backward's. Tolerances: in f32
+K2, K1, K2A-lite, K12B, K3F, K3B, the TA forward and backward and the
+Galerkin scores, shapes on both sides of each choice
+(``kernels.t_stage_variant``, ``kernels.k2_variant`` and the others),
+widths 32, 64 and 128 for the tensor-core variants of the FNO kernels, head
+widths 16, 32 and 64, T from 5 to 32 and the UNet step's four site counts
+for the TA kernels', and for the scores' chunks long enough to flush their
+accumulators. Tolerances: in f32
 |Δ| <= 1e-4·max|ref| (both sides accumulate in f32, in another order); in
 bf16 1e-2·max|ref| (both sides compute in f32 from the same bf16 inputs and
 round once to bf16, so they differ by at most one bf16 step, 2^-8
@@ -582,7 +584,8 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
         "k1": {"fma": 1, "mma": 0}, "t_stage": {"generic": 1, "registers": 0},
         "k2": {"fma": 1, "mma": 0}, "k2a_lite": {"fma": 1, "mma": 0},
         "k12b": {"fma": 1, "mma": 0}, "k3f": {"fma": 1, "mma": 0},
-        "k3b": {"fma": 1, "mma": 0}, "ta_bwd": {"fma": 0, "mma": 0}}
+        "k3b": {"fma": 1, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
+        "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
     with pytest.raises(ValueError, match="mma variant"):
         tfl.k1(x, a, b, **geo, act="exact", variant="mma")
     with pytest.raises(ValueError, match="mma variant"):
@@ -915,3 +918,140 @@ def test_k3f_and_ta_bwd_variants_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError, match="16-byte aligned"):
             kernels.ta_bwd(q, q, q, pb, view, 4, variant=variant)
     assert not any(kernels.LAUNCHES.values())
+
+
+TA_FWD_SHAPES = [  # (B, S, T, h, d)
+    (2, 300, 20, 4, 16),     # T 20 at each head width
+    (1, 37, 20, 4, 32),
+    (1, 50, 20, 2, 64),
+    (2, 64, 32, 4, 32),      # T at the mma variant's bound
+    (1, 100, 5, 3, 16),      # one column tile
+    (1, 40, 9, 8, 16),       # 8 heads
+    (1, 33, 16, 2, 64),      # two whole column tiles
+    (1, 30, 7, 4, 64),
+    (1, 20, 32, 8, 32),      # 8 heads at T 32: the forward's block fits, the backward's not
+    (2, 30, 20, 4, 8),       # fma in both dtypes: d 8 not instantiated
+    (1, 20, 40, 2, 16),      # fma in both dtypes: T past 32
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TA_FWD_SHAPES)
+def test_ta_fwd_variants_match_twin(cuda, shape, dtype):
+    """The TA forward in the variant its dtype and shape choose, and in bf16
+    the fma variant named on the same inputs, against the twin and against
+    each other; two calls of each bit-equal; the per-variant counters."""
+    B, S, T, h, d = shape
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    q = (rn(B, S, T, h * d) * d ** -0.5).to(dtype)
+    k, v = (rn(B, S, T, h * d).to(dtype) for _ in range(2))
+    pb = rn(h, T, T)
+    chosen = kernels.ta_fwd_variant(dtype, T, h, d)
+    assert chosen == ("mma" if dtype == torch.bfloat16 and d in (16, 32, 64) and T <= 32
+                      else "fma")
+    kernels.reset_launches()
+    ref = tta.temporal_attention_tokens_plain(q, k, v, pb, h)
+    got = kernels.ta_fwd(q, k, v, pb, h)
+    _close(got, ref, dtype)
+    assert torch.equal(got, kernels.ta_fwd(q, k, v, pb, h))
+    want = {"fma": 0, "mma": 0, chosen: 2}
+    if chosen == "mma":
+        fma = kernels.ta_fwd(q, k, v, pb, h, variant="fma")
+        _close(fma, ref, dtype)
+        _close(got, fma, dtype)
+        assert torch.equal(fma, kernels.ta_fwd(q, k, v, pb, h, variant="fma"))
+        want["fma"] = 2
+    assert kernels.VARIANTS["ta_fwd"] == want and kernels.LAUNCHES["ta_fwd"] == sum(want.values())
+
+
+@pytest.mark.parametrize("level, S", [("level0", 64 * 128), ("level1", 32 * 64),
+                                      ("level2", 16 * 32), ("mid", 16 * 32)])
+def test_ta_fwd_mma_at_the_unet_step_site_counts(cuda, level, S):
+    """The TA forward's mma variant at the site counts the UNet launches it
+    at (batch 12; T 20, 4 heads of 32): against the twin, two calls
+    bit-equal."""
+    B, T, h, d = 12, 20, 4, 32
+    g = torch.Generator(device=cuda).manual_seed(9 + S + len(level))
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    q = (rn(B, S, T, h * d) * d ** -0.5).bfloat16()
+    k, v = (rn(B, S, T, h * d).bfloat16() for _ in range(2))
+    pb = rn(h, T, T)
+    kernels.reset_launches()
+    got = kernels.ta_fwd(q, k, v, pb, h)
+    _close(got, tta.temporal_attention_tokens_plain(q, k, v, pb, h), torch.bfloat16)
+    assert torch.equal(got, kernels.ta_fwd(q, k, v, pb, h))
+    assert kernels.VARIANTS["ta_fwd"] == {"fma": 0, "mma": 2}
+
+
+GK_MMA_SHAPES = GK_SHAPES + [
+    (16, 20000, 4, 64),    # chunks of more than 32 tiles: the accumulators flush
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GK_MMA_SHAPES)
+def test_gk_scores_variants_match_twin(cuda, shape, dtype):
+    """The scores in the variant each dtype chooses (mma) and the fma
+    variant named on the same inputs, against the twin (both in f32 from
+    the same inputs) and against each other; two calls of each bit-equal;
+    the per-variant counters."""
+    B, N, h, d = shape
+    k, v, aff = _gk_inputs(shape, dtype, cuda, seed=12)
+    assert kernels.gk_scores_variant(dtype, d) == "mma"
+    kernels.reset_launches()
+    ref = tga.galerkin_scores_plain(k, v, *aff, h, 1e-7)
+    got = kernels.gk_scores(k, v, *aff, heads=h, eps=1e-7)
+    fma = kernels.gk_scores(k, v, *aff, heads=h, eps=1e-7, variant="fma")
+    _close(got, ref, torch.float32)
+    _close(fma, ref, torch.float32)
+    _close(got, fma, torch.float32)
+    assert torch.equal(got, kernels.gk_scores(k, v, *aff, heads=h, eps=1e-7))
+    assert kernels.VARIANTS["gk_scores"] == {"fma": 1, "mma": 2}
+    assert kernels.LAUNCHES["gk_scores"] == 3
+
+
+def test_ta_fwd_and_gk_scores_variants_refuse_what_they_do_not_take(cuda):
+    """A named mma variant of the TA forward on f32, at a head width or T it
+    is not built for raises; an unknown name raises; both TA and the scores
+    refuse a misaligned view in every variant; nothing is counted."""
+    kernels.reset_launches()
+    for (B, S, T, h, d), dtype in (((1, 8, 20, 4, 32), torch.float32),
+                                   ((1, 8, 20, 4, 8), torch.bfloat16),
+                                   ((1, 8, 33, 4, 16), torch.bfloat16)):
+        q = torch.zeros(B, S, T, h * d, device=cuda, dtype=dtype)
+        pb = torch.zeros(h, T, T, device=cuda)
+        with pytest.raises(ValueError, match="mma variant"):
+            kernels.ta_fwd(q, q, q, pb, h, variant="mma")
+    q = torch.zeros(1, 8, 20, 128, device=cuda, dtype=torch.bfloat16)
+    pb = torch.zeros(4, 20, 20, device=cuda)
+    with pytest.raises(ValueError, match="no variant"):
+        kernels.ta_fwd(q, q, q, pb, 4, variant="wgmma")
+    view = torch.cat([q.new_zeros(1), q.reshape(-1)])[1:].view(q.shape)
+    for variant in (None, "fma", "mma"):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kernels.ta_fwd(q, q, view, pb, 4, variant=variant)
+    k = torch.zeros(1, 40, 128, device=cuda, dtype=torch.bfloat16)
+    aff = [torch.ones(2, 64, device=cuda)] * 4
+    with pytest.raises(ValueError, match="no variant"):
+        kernels.gk_scores(k, k, *aff, heads=2, eps=1e-5, variant="wgmma")
+    view = torch.cat([k.new_zeros(1), k.reshape(-1)])[1:].view(k.shape)
+    for variant in (None, "fma", "mma"):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kernels.gk_scores(k, view, *aff, heads=2, eps=1e-5, variant=variant)
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_mma_shared_memory_layouts_agree_with_the_library(cuda):
+    """kernels.py's block sizes of the TA and scores tensor-core variants,
+    on which the variant functions decide, against the sources' own."""
+    lib = kernels.library()
+    for T in (5, 9, 16, 20, 32):
+        for h in (1, 3, 4, 8):
+            for d in (16, 32, 64):
+                assert lib.ta_fwd_mma_smem_bytes(T, h, d) == kernels.ta_fwd_mma_smem_bytes(T, h, d)
+                assert lib.ta_bwd_mma_smem_bytes(T, h, d) == kernels.ta_bwd_mma_smem_bytes(T, h, d)
+    for d in (16, 32, 64):
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            assert lib.gk_scores_mma_smem_bytes(d, code) == kernels.gk_scores_mma_smem_bytes(
+                d, dtype)

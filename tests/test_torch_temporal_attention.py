@@ -8,12 +8,13 @@ and all four gradients (q, k, v, pos_bias) at S = 256, and at S = 300 (not
 a multiple of the TPU kernel's 128 sites) against the oracle. Inputs from a
 seeded numpy generator; f32; tolerance rtol 2e-4 with atol 2e-4·max|ref|.
 
-The TA backward's tensor-core variant runs only on the card
-(tests/test_torch_kernels.py); here its arithmetic is replayed in plain
-PyTorch (the padded and masked T, the bf16 rounding points, the dpb flush)
-against autograd through the twin at the UNet's level-0 statistics, within
-the bounds the kernel is held to on the card, and, unrounded, against the
-Pallas backward in interpret mode.
+The tensor-core variants of TA forward and backward run only on the card
+(tests/test_torch_kernels.py); here their arithmetic is replayed in plain
+PyTorch (the padded and masked T, the bf16 rounding points: the forward's
+P as a bf16 hi + lo pair and o rounded once; the backward's dpb flush)
+against the twin (the backward: autograd through it) at the UNet's
+level-0 statistics, within the bounds the kernels are held to on the card,
+and, unrounded, against the Pallas kernels in interpret mode.
 """
 
 import jax
@@ -150,6 +151,79 @@ def _replay_ta_bwd_mma(q, k, v, pb, do, heads, *, rounding=True, nblocks=7):
             acc += run.double()
         total += acc.float().double()
     return back(dq), back(dk), back(dv), total.float()
+
+
+def _replay_ta_fwd_mma(q, k, v, pb, heads, *, rounding=True):
+    """TA forward's tensor-core variant in plain PyTorch. Per (site, head):
+    the rows padded to 16·MT and the columns to 8·NT with zeros; S = q·kᵀ
+    from the inputs as they are; the columns j ≥ T masked to −inf before the
+    softmax, the rows i ≥ T zero; P, an f32 value, split into a bf16 hi + lo
+    pair (both MMAs: P·v = hi·v + lo·v); o rounded once to q's dtype; the
+    products in f64. ``rounding=False``: nothing rounded."""
+    B, S, T, Fd = q.shape
+    h, d = heads, Fd // heads
+    NT = -(-T // 8)
+    Ti, Tj = 16 * (-(-NT // 2)), 8 * NT
+    heads_first = lambda z: z.double().reshape(B * S, T, h, d).permute(0, 2, 1, 3)
+    rows = lambda z, n: tnf.pad(z, (0, 0, 0, n - T))
+    Q, K, V = (heads_first(t) for t in (q, k, v))
+    bias = torch.zeros(h, Ti, Tj, dtype=torch.float64)
+    bias[:, :T, :T] = pb.double()
+    sc = rows(Q, Ti) @ rows(K, Tj).transpose(-1, -2) + bias
+    sc[..., T:] = -torch.inf
+    p = torch.softmax(sc, -1)
+    p[..., T:, :] = 0.0
+    if rounding:
+        hi = p.float().bfloat16()
+        lo = (p.float() - hi.float()).bfloat16()
+        p = hi.double() + lo.double()
+    o = (p @ rows(V, Tj))[:, :, :T].permute(0, 2, 1, 3).reshape(B, S, T, Fd)
+    return o.to(q.dtype) if rounding else o
+
+
+def _bf16_step(x):
+    """The spacing of bfloat16 at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("T_", [7, 20, 32])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_ta_fwd_mma_replay_matches_twin(T_, d):
+    """The replay against the twin from the same bf16 inputs at the UNet's
+    level-0 statistics: within 1e-2·max|ref| (KERNEL_TOL's bf16 entry, the
+    card's bound), and everywhere within one bf16 step of the twin's o plus
+    1e-4·max|ref| (hi + lo carries P to 2^-17): only the one rounding of o
+    is left (hi + lo: 1.8e-3-2.8e-3 of max|ref| at these nine
+    shapes; P rounded once put o 3.7e-3-5.6e-3 from the twin, over the 5e-3
+    line this choice was made on at five of them, the UNet's T 20, d 32
+    among them); unrounded, within 2e-4 of the twin in f32."""
+    h = 4 if d < 64 else 2
+    shape = (2, 96, T_, h, d)
+    q, k, v, pb, _ = (t.bfloat16() if t.dim() == 4 else t
+                      for t in _unet_stats_inputs(*shape, seed=T_ + d))
+    ref = temporal_attention_tokens_plain(q, k, v, pb, h)
+    got = _replay_ta_fwd_mma(q, k, v, pb, h)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    assert err.max() <= 1e-2 * ref.float().abs().max()
+    step = torch.maximum(_bf16_step(got.float()), _bf16_step(ref.float()))
+    assert bool((err <= step + 1e-4 * ref.float().abs().max()).all())
+    exact = _replay_ta_fwd_mma(q, k, v, pb, h, rounding=False)
+    _close(exact.numpy(), temporal_attention_tokens_plain(
+        q.float(), k.float(), v.float(), pb, h).numpy())
+
+
+@pytest.mark.parametrize("T_", [7, 20])
+def test_ta_fwd_mma_replay_matches_pallas_forward(T_):
+    """Unrounded, the replay against the JAX Pallas forward in interpret
+    mode (f32) at head widths and T the variant takes."""
+    shape = (1, 128, T_, 4, 16)
+    q, k, v, pb, _ = (t.numpy() for t in _unet_stats_inputs(*shape, seed=T_))
+    ref = np.asarray(jax_ta(*map(jnp.asarray, (q, k, v, pb)), shape[3], interpret=True))
+    got = _replay_ta_fwd_mma(*(torch.from_numpy(a) for a in (q, k, v, pb)), shape[3],
+                             rounding=False)
+    _close(got.numpy(), ref)
 
 
 def _unet_stats_inputs(B_, S, T_, h, d, seed):

@@ -1,31 +1,42 @@
 #!/usr/bin/env python3
-"""Where the time of TA backward's tensor-core variant goes, and what a
+"""Where the time of the TA kernels' tensor-core variants goes, and what a
 change would buy, without a profiler that reads hardware counters: patched
 scratch copies of ``csrc/temporal_attention.cu`` are built with nvcc into
 ``build/ta_probe/`` (all at once) and launched through ctypes at the UNet's
 level 0 in the training step (B 12, S 8192, T 20, h 4, d 32; bf16).
 
-    PYTHONPATH=. python3 tools/torch_ta_probe.py [VARIANT ...]
+    PYTHONPATH=. python3 tools/torch_ta_probe.py [--parent ROOT] [VARIANT ...]
 
 From the repository root on a host with a Hopper card and nvcc. Variants
-(all by default), each a set of patches of the source as it is:
+(all by default but ``parent``), each a set of patches of the source as it
+is; those named ``fwd_*`` launch the forward, the others the backward:
 
-  as_is       the source unchanged
-  stages3     a ring of three sites a block (two in flight) instead of two
-  stages4     four
-  flush64     dpb's f32 sums flushed every 64 sites instead of 16
-  cut_store   dq, dk and dv computed into shared memory but not written
-              out (time only)
-  cut_tiles   dk and dv not computed (time only)
-  fetch_only  the ring's copies and barriers, no compute (time only)
+  as_is         the source unchanged
+  parent        the backward of ROOT's source, unchanged (``--parent``: a
+                checkout of another commit, for example a ``git archive``
+                under ``build/``), against which as_is is timed
+  stages3       a ring of three sites a block (two in flight) instead of two
+  stages4       four
+  flush64       dpb's f32 sums flushed every 64 sites instead of 16
+  cut_store     dq, dk and dv computed into shared memory but not written
+                out (time only)
+  cut_tiles     dk and dv not computed (time only)
+  fetch_only    the ring's copies and barriers, no compute (time only)
+  fwd_as_is     the forward, unchanged
+  fwd_p_once    P rounded once to bf16, one MMA of P v instead of hi + lo
+  fwd_stages3   the forward's ring of three sites
+  fwd_cut_store o computed into shared memory but not written out (time only)
+  fwd_fetch_only the forward's copies and barriers, no compute (time only)
 
 One JSON line a variant: ptxas's registers and spill bytes of
-``ta_bwd_mma_kernel<32, 3>``, the shared memory of a block, the device time
-of queued launches (median of 5, 8 launches each, taken twice: in the listed
-order and in reverse), and, for the variants that compute what the kernel
-computes, the worst of dq, dk and dv as max|Δ| / max|ref| against autograd
-through the plain twin and dpb against it relative to the sum of |terms|.
-The patches fail loudly when their anchors are gone.
+``ta_bwd_mma_kernel<32, 3>`` (``ta_fwd_mma_kernel<32, 3>`` for the forward),
+the shared memory of a block, the device time of queued launches (median of
+5, 8 launches each, taken twice: in the listed order and in reverse), and,
+for the variants that compute what the kernel computes, the worst of dq, dk
+and dv as max|Δ| / max|ref| against autograd through the plain twin and dpb
+against it relative to the sum of |terms| (the forward: o as max|Δ| /
+max|ref| against the twin). The patches fail loudly when their anchors are
+gone.
 """
 
 import ctypes
@@ -33,6 +44,7 @@ import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -48,6 +60,10 @@ STORE = "    for (int i = threadIdx.x; i < 3 * T * (F / 8); i += nthreads) {"
 TILES = "    tile_product(Qs, Qs);         // dk = dS^T q, into q's slot"
 TILES_V = "    tile_product(Vs, Os);         // dv = P^T do, into v's slot (read last by dP)"
 COMPUTE = "    bf16* const Qs = ring + stage * 4 * slab + warp * D;"
+FWD_STORE = "    for (int i = threadIdx.x; i < T * (F / 8); i += nthreads) {"
+FWD_COMPUTE = "    bf16* const Qs = ring + stage * 3 * slab + warp * D;"
+FWD_LO = ("            mma::mma_bf16(acc[mi][2 * cp], al, fb[0], fb[1]);\n",
+          "            mma::mma_bf16(acc[mi][2 * cp + 1], al, fb[2], fb[3]);\n")
 
 
 def sub(s: str, old: str, new: str) -> str:
@@ -56,18 +72,27 @@ def sub(s: str, old: str, new: str) -> str:
     return s.replace(old, new)
 
 
+# name: (patch, computes what the kernel computes, launches the forward)
 VARIANTS = {
-    "as_is": (lambda s: s, True),
-    "stages3": (lambda s: sub(s, STAGES, "constexpr int kTaStages = 3;"), True),
-    "stages4": (lambda s: sub(s, STAGES, "constexpr int kTaStages = 4;"), True),
-    "flush64": (lambda s: sub(s, FLUSH, "constexpr int kTaFlush = 64;"), True),
-    "cut_store": (lambda s: sub(s, STORE, STORE.replace("3 * T", "0 * T")), False),
-    "cut_tiles": (lambda s: sub(sub(s, TILES, ""), TILES_V, ""), False),
-    "fetch_only": (lambda s: sub(s, COMPUTE, "    continue;\n" + COMPUTE), False),
+    "as_is": (lambda s: s, True, False),
+    "parent": (None, True, False),
+    "stages3": (lambda s: sub(s, STAGES, "constexpr int kTaStages = 3;"), True, False),
+    "stages4": (lambda s: sub(s, STAGES, "constexpr int kTaStages = 4;"), True, False),
+    "flush64": (lambda s: sub(s, FLUSH, "constexpr int kTaFlush = 64;"), True, False),
+    "cut_store": (lambda s: sub(s, STORE, STORE.replace("3 * T", "0 * T")), False, False),
+    "cut_tiles": (lambda s: sub(sub(s, TILES, ""), TILES_V, ""), False, False),
+    "fetch_only": (lambda s: sub(s, COMPUTE, "    continue;\n" + COMPUTE), False, False),
+    "fwd_as_is": (lambda s: s, True, True),
+    "fwd_p_once": (lambda s: sub(sub(s, FWD_LO[0], ""), FWD_LO[1], ""), True, True),
+    "fwd_stages3": (lambda s: sub(s, STAGES, "constexpr int kTaStages = 3;"), True, True),
+    "fwd_cut_store": (lambda s: sub(s, FWD_STORE, FWD_STORE.replace("T * (F", "0 * (F")),
+                      False, True),
+    "fwd_fetch_only": (lambda s: sub(s, FWD_COMPUTE, "    continue;\n" + FWD_COMPUTE), False,
+                       True),
 }
 
 
-def build(names):
+def build(names, parent):
     """One nvcc per variant, all at once; returns {name: (library, ptxas report)}."""
     src = (kernels.CSRC / "temporal_attention.cu").read_text()
     OUT.mkdir(parents=True, exist_ok=True)
@@ -76,9 +101,12 @@ def build(names):
     for name in names:
         d = OUT / name
         d.mkdir(exist_ok=True)
-        (d / "temporal_attention.cu").write_text(VARIANTS[name][0](src))
+        patch = VARIANTS[name][0]
+        csrc = kernels.CSRC if patch else Path(parent) / "realpdebench_tpu_torch" / "csrc"
+        text = patch(src) if patch else (csrc / "temporal_attention.cu").read_text()
+        (d / "temporal_attention.cu").write_text(text)
         so = d / "libta.so"
-        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-shared", "-o", str(so),
+        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", str(csrc), "-shared", "-o", str(so),
                str(d / "temporal_attention.cu")]
         jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                            text=True))
@@ -88,21 +116,23 @@ def build(names):
         if proc.returncode:
             raise SystemExit(f"torch_ta_probe: nvcc failed for {name}:\n{err}")
         lib = ctypes.CDLL(str(so))
-        for fn in ("ta_bwd", "ta_bwd_num_partials", "ta_bwd_mma_smem_bytes"):
+        fns = (("ta_fwd", "ta_fwd_mma_smem_bytes") if VARIANTS[name][2]
+               else ("ta_bwd", "ta_bwd_num_partials", "ta_bwd_mma_smem_bytes"))
+        for fn in fns:
             f = getattr(lib, fn)
             f.argtypes, f.restype = kernels.SIGNATURES[fn]
         out[name] = (lib, err)
     return out
 
 
-def registers(report: str) -> dict:
-    """Registers and spill bytes ptxas reported for ta_bwd_mma_kernel<32, 3>."""
+def registers(report: str, kernel: str) -> dict:
+    """Registers and spill bytes ptxas reported for ``kernel``<32, 3>."""
     out, inside = {}, False
     for line in report.splitlines():
         if "Compiling entry function" in line:
             if inside:
                 break
-            inside = "ta_bwd_mma_kernelILi32ELi3E" in line
+            inside = f"{kernel}ILi32ELi3E" in line
         elif inside and "spill" in line:
             out["spill"] = line.strip()
         elif inside and "Used" in line and "registers" in line:
@@ -127,14 +157,21 @@ def queued_ms(fn, n: int = 8, reps: int = 5) -> float:
 
 
 def main() -> None:
-    names = sys.argv[1:] or list(VARIANTS)
-    libs = build(names)
+    args = sys.argv[1:]
+    parent = None
+    if args[:1] == ["--parent"]:
+        parent, args = args[1], args[2:]
+    names = args or [n for n in VARIANTS if n != "parent"]
+    if "parent" in names and parent is None:
+        raise SystemExit("torch_ta_probe: the parent variant needs --parent ROOT")
+    libs = build(names, parent)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(5)
     rn = lambda: torch.randn(B, S, T, HEADS * D, generator=g, device=dev)
     q = (rn() * D ** -0.5).bfloat16()
     k, v, do = rn().bfloat16(), rn().bfloat16(), rn().bfloat16()
     pb = torch.randn(HEADS, T, T, generator=g, device=dev)
+    o_ref = tta.temporal_attention_tokens_plain(q, k, v, pb, HEADS).float()
     leaves = [t.detach().float().requires_grad_() for t in (q, k, v, pb)]
     ref = torch.autograd.grad(tta.temporal_attention_tokens_plain(*leaves, HEADS), leaves,
                               do.float())
@@ -147,7 +184,17 @@ def main() -> None:
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
-    def runner(lib):
+    def runner(lib, fwd):
+        if fwd:
+            o = torch.empty_like(q)
+
+            def fn():
+                err = lib.ta_fwd(ptr(q), ptr(k), ptr(v), ptr(pb), ptr(o), B * S, T, HEADS, D, 1,
+                                 1, stream)
+                if err:
+                    raise SystemExit(f"torch_ta_probe: launch failed ({err})")
+                return o
+            return fn, None
         nparts = lib.ta_bwd_num_partials(B * S, T, HEADS, D, 1, 1)
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         partial = torch.empty((nparts, HEADS, T, T), dtype=torch.float32, device=dev)
@@ -161,23 +208,28 @@ def main() -> None:
             return dq, dk, dv, dpb
         return fn, nparts
 
-    fns = {name: runner(lib) for name, (lib, _) in libs.items()}
+    fns = {name: runner(lib, VARIANTS[name][2]) for name, (lib, _) in libs.items()}
     times = {name: [] for name in names}
     for order in (names, names[::-1]):
         for name in order:
             times[name].append(queued_ms(fns[name][0]))
     for name in names:
         lib, report = libs[name]
-        row = dict(variant=name, **registers(report),
-                   smem_bytes=lib.ta_bwd_mma_smem_bytes(T, HEADS, D), blocks=fns[name][1],
-                   ms=times[name])
+        fwd = VARIANTS[name][2]
+        kernel = "ta_fwd_mma_kernel" if fwd else "ta_bwd_mma_kernel"
+        smem = (lib.ta_fwd_mma_smem_bytes if fwd else lib.ta_bwd_mma_smem_bytes)(T, HEADS, D)
+        row = dict(variant=name, **registers(report, kernel), smem_bytes=smem,
+                   blocks=fns[name][1], ms=times[name])
         if VARIANTS[name][1]:
             got = fns[name][0]()
             torch.cuda.synchronize()
-            row["dqkv_rel"] = max(((u.float() - r).abs().max() / r.abs().max()).item()
-                                  for u, r in zip(got[:3], ref[:3]))
-            row["dpb_rel_to_terms"] = ((got[3] - ref[3]).abs()
-                                       / terms.clamp_min(1e-30)).max().item()
+            if fwd:
+                row["o_rel"] = ((got.float() - o_ref).abs().max() / o_ref.abs().max()).item()
+            else:
+                row["dqkv_rel"] = max(((u.float() - r).abs().max() / r.abs().max()).item()
+                                      for u, r in zip(got[:3], ref[:3]))
+                row["dpb_rel_to_terms"] = ((got[3] - ref[3]).abs()
+                                           / terms.clamp_min(1e-30)).max().item()
         print(json.dumps(row), flush=True)
 
 
