@@ -110,6 +110,38 @@ JSON line each; any failure raises (non-zero exit, no result line):
                dropout masks (both at batch 16: the f32 step fits the card),
                two passes bit-equal; 2 warm-up steps and 5 windows of 3
                steps; then a profile of 3 steps.
+ 14. loop      python -m realpdebench_tpu_torch train, in this process
+               (train.__main__.main, which the CLI's train subcommand
+               runs), on a synthetic cylinder tree (data/synthetic: 16 real
+               trajectories at 64x128, 4 numerical at 128x256, 600 frames;
+               an HDF5 tree where h5py imports, else the same arrays in
+               memory through data.fluid.with_arrays): configs/cylinder/
+               fno.yaml in bf16 on numerical data, 100 steps at batch 32
+               with validation every 2 steps (125 real windows at test
+               batch 64) and a checkpoint at each, the split keys and the
+               other cuts as overrides listed under "reduced" beside the
+               shipped values. Exact launch counts (100 steps and 100
+               validation forwards, every kernel in its mma variant, the
+               T-stage registers); loop and StepTimer steps/s beside the
+               bare step's; the device's idle share over the traced
+               iterations 10-19 and where the host's gaps fall (waiting
+               for a batch, validation, checkpoint); the checkpoint
+               reloaded in a fresh model predicts bit for bit; the 13
+               metrics on the card within 1e-4 of the CPU's on the same
+               arrays; then a resume to 102 steps (starts at 100, the
+               optimizer's count goes on to 102) and a 2-step finetune on
+               real data from the checkpoint, each with exact counts.
+ 15. eval      python -m realpdebench_tpu_torch eval (eval.__main__.main)
+               on that checkpoint, bf16, test batch 64, 10 autoregressive
+               steps over the 90 real test windows, probe diagnostic on:
+               the 13 metrics, normalized MSE, probe error, frames/s
+               including reading, exact launch counts (K1, T-stage, K2);
+               held against the same checkpoint rolled out through the
+               plain f32 path on the card: predictions within 5e-2
+               relative L2, each metric within 5e-2 relative (1e-3
+               absolute where the f32 value is below 1e-2).
+`python3 chip_smoke.py --only-loop` runs env, build and phases 14-15 alone
+and prints neither the summary nor the result line.
 Every kernel's time stands beside its bound: the larger of the bytes it
 must move (inputs read once, outputs written once) over HBM's 3.35 TB/s and
 its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
@@ -203,6 +235,8 @@ FSI_WINDOWS, FSI_WINDOW_STEPS = 3, 2
 # per-variant launches of each path that launches variants, for the
 # summary line (the other paths launch none)
 VARIANTS_BY_PATH = {}
+# the bare training step's steps/s (phase_train), beside the loop's
+BARE_STEPS_PER_S = {}
 
 # temporal attention at the UNet's level 0 in the training step (B, S, T, h, d)
 TA_SHAPE = (12, 64 * 128, 20, 4, 32)
@@ -1002,6 +1036,7 @@ def phase_train(dev) -> dict:
         raise AssertionError(f"training losses {losses} are not finite")
     frames = TRAIN_BATCH * SHAPE_OUT[0]
     med = statistics.median(rates)
+    BARE_STEPS_PER_S["train"] = med
     emit(dict(phase="train", batch=TRAIN_BATCH, cfg=TRAIN_CFG, launches=launches,
               variants=variants, vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
               window_steps_per_s=rates, steps_per_s=med,
@@ -1836,10 +1871,442 @@ def phase_profile(step, x, y, phase: str = "profile") -> None:
               kernels=[dict(name=k[:160], ms=ms, count=n) for k, ms, n in rows[:40]]))
 
 
+# the loop and eval phases: the cylinder FNO3d (configs/cylinder/fno.yaml)
+# through the entry points on a synthetic tree at the cylinder's resolution
+# (real 64x128 u, v; numerical 128x256 u, v, p, as sub_s_numerical is 2).
+# The tree's size and the keys its splits need are cut from the published
+# dataset's; each override below stands beside the shipped value.
+LOOP_TREE = dict(scenario="cylinder", n_frame=600, seed=0,
+                 sizes={"real": (16, 64, 128), "numerical": (4, 128, 256)})
+LOOP_STEPS = 100
+LOOP_OVERRIDES = {  # key: (value here, shipped value)
+    "n_sim_frame": (600, 3990),
+    "n_sim_in_distribution": (1, 10),
+    "n_sim_out_distribution": (1, 10),
+    "generate_ids_if_missing": (True, None),
+    "num_update": (LOOP_STEPS, 4000),
+    "max_to_keep": (2, None),
+    "N_plot_probe": (0, 12),
+}
+LOOP_PROFILE = (10, 19)          # the loop's own iterations traced (utils/profiling)
+LOOP_METRICS_REL = 1e-4          # the sweep on the card vs on the CPU, per metric
+EVAL_METRIC_REL, EVAL_METRIC_ABS, EVAL_SMALL = 5e-2, 1e-3, 1e-2
+EVAL_PLAIN_CHUNK = 16            # the plain f32 rollout, 16 windows at a time
+# the forward of one FNO predict (4 layers); a training step's is TRAIN_LAUNCHES
+PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
+
+
+class LoopRun:
+    """The tree, the argv and the first run's results, shared by phase_loop
+    and phase_eval; ``close`` removes the tree."""
+
+    def __init__(self):
+        import importlib.util
+        import tempfile
+
+        from realpdebench_tpu_torch.data.fluid import Cylinder, with_arrays
+        from realpdebench_tpu_torch.data.synthetic import fluid_arrays, make_fluid_tree
+
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+        self.root = f"{self.work}/data"
+        t0 = time.perf_counter()
+        self.h5py = importlib.util.find_spec("h5py") is not None
+        if self.h5py:
+            make_fluid_tree(self.root, **LOOP_TREE)
+            self.dataset_class = None
+        else:
+            # no h5py on this host: the same arrays in memory, read by the
+            # cylinder dataset with its window reader replaced
+            self.dataset_class = with_arrays(Cylinder, fluid_arrays(**LOOP_TREE))
+        self.tree_s = time.perf_counter() - t0
+        self.base = ["--config", "cylinder/fno.yaml", "--dataset_root", self.root,
+                     "--results_path", f"{self.work}/results",
+                     "--compute_dtype", "bfloat16"]
+        for k, (v, _) in LOOP_OVERRIDES.items():
+            self.base += [f"--{k}", json.dumps(v)]
+
+    def reduced(self) -> dict:
+        r = {k: dict(here=v, shipped=s) for k, (v, s) in LOOP_OVERRIDES.items()}
+        n_real, h, w = LOOP_TREE["sizes"]["real"]
+        n_num, hn, wn = LOOP_TREE["sizes"]["numerical"]
+        r["tree"] = dict(here=f"{n_real} real trajectories at {h}x{w} and {n_num} "
+                              f"numerical at {hn}x{wn}, {LOOP_TREE['n_frame']} frames "
+                              "each, synthetic (data/synthetic)",
+                         shipped="the published cylinder trees")
+        return r
+
+    def data_source(self) -> str:
+        return ("HDF5 tree (h5py)" if self.h5py else
+                "in-memory arrays (data.fluid.with_arrays): this host has no h5py")
+
+    def cfg(self, parser, extra=()):
+        from realpdebench_tpu_torch.config import parse_config
+
+        return parse_config(parser, [*self.base, *extra])
+
+    def close(self) -> None:
+        import shutil
+
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def _expected(n_steps: int, n_predicts: int) -> dict:
+    want = {k: n_steps * v for k, v in TRAIN_LAUNCHES.items()}
+    for k, v in PREDICT_LAUNCHES.items():
+        want[k] += n_predicts * v
+    return want
+
+
+def _check_launches(what: str, n_steps: int, n_predicts: int) -> tuple:
+    """The counts since the last reset against n_steps training steps and
+    n_predicts forwards, every FNO kernel in its mma (T-stage: registers)
+    variant."""
+    launches = dict(kernels.LAUNCHES)
+    want = _expected(n_steps, n_predicts)
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, expected {want} "
+                             f"({n_steps} steps, {n_predicts} forwards)")
+    variants = expect_variants(what, **{
+        k: {"registers" if k == "t_stage" else "mma": n}
+        for k, n in want.items() if n})
+    return launches, variants
+
+
+def _interval_union(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(intervals, spans) -> float:
+    """Length of the union of ``intervals`` that lies inside ``spans``."""
+    spans = _interval_union(spans)
+    total, j = 0.0, 0
+    for a, b in intervals:
+        for s, e in spans:
+            lo, hi = max(a, s), min(b, e)
+            if hi > lo:
+                total += hi - lo
+    return total
+
+
+def loop_trace_summary(path: str) -> dict:
+    """The device's idle share over the traced loop iterations, and which
+    of the main thread's spans (waiting for a batch, validation, checkpoint,
+    the step's own host time) the idle time falls in, from the Chrome trace
+    torch.profiler wrote."""
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    ann = [e for e in ev if e.get("cat") == "user_annotation"]
+    steps = [e for e in ann if e["name"] == "train_step"]
+    if not dev or not steps:
+        raise AssertionError(f"the loop trace holds {len(dev)} device events and "
+                             f"{len(steps)} steps")
+    t0 = min(e["ts"] for e in steps)
+    t1 = max(max(e["ts"] + e["dur"] for e in ann), max(b for _, b in dev))
+    busy = _interval_union([(max(a, t0), min(b, t1)) for a, b in dev if b > t0 and a < t1])
+    idle, cur = [], t0
+    for a, b in busy:
+        if a > cur:
+            idle.append((cur, a))
+        cur = max(cur, b)
+    if t1 > cur:
+        idle.append((cur, t1))
+    window = t1 - t0
+    idle_total = sum(b - a for a, b in idle)
+    main_tid = steps[0]["tid"]
+    spans = {}
+    for e in ann:
+        spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"], e["tid"]))
+    by_span = {name: _overlap(idle, [(a, b) for a, b, t in sp if t == main_tid]) / 1e3
+               for name, sp in spans.items() if any(t == main_tid for *_, t in sp)}
+    host_ms = {name: sum(b - a for a, b, _ in sp) / 1e3 for name, sp in spans.items()}
+    largest = sorted(idle, key=lambda g: g[0] - g[1])[:5]
+
+    def where(g):
+        best = max(((n, _overlap([g], [(a, b) for a, b, t in sp if t == main_tid]))
+                    for n, sp in spans.items()), key=lambda p: p[1], default=(None, 0))
+        return best[0] if best[1] > 0 else "none"
+
+    copies = [e for e in ev if e.get("cat") == "gpu_memcpy"]
+    return dict(
+        steps=len(steps), window_ms=window / 1e3,
+        device_busy_ms=(window - idle_total) / 1e3, idle_share=idle_total / window,
+        idle_ms_in_host_span=by_span,
+        idle_ms_outside_spans=(idle_total / 1e3 - sum(by_span.values())),
+        host_span_ms=host_ms,
+        largest_gaps=[dict(ms=(b - a) / 1e3, during=where((a, b))) for a, b in largest],
+        memcpy_ms=sum(e["dur"] for e in copies) / 1e3,
+        memcpy_by_kind={k: sum(e["dur"] for e in copies if e["name"].startswith(k)) / 1e3
+                        for k in ("Memcpy HtoD", "Memcpy DtoH", "Memcpy DtoD")})
+
+
+def phase_loop(dev, run: LoopRun, bare_steps_per_s=None) -> dict:
+    """python -m realpdebench_tpu_torch train, in this process: 100 steps of
+    the cylinder FNO3d on numerical data with validation every 2 and a
+    checkpoint at each; then a resume to 102 and a 2-step finetune on real
+    data from its checkpoint. Returns the launch counts of the three runs."""
+    import math
+
+    from realpdebench_tpu_torch.config import make_arg_parser
+    from realpdebench_tpu_torch.data.loader import DataLoader
+    from realpdebench_tpu_torch.eval.metrics import METRIC_NAMES, eval_metrics
+    from realpdebench_tpu_torch.train import make_eval_step
+    from realpdebench_tpu_torch.train.__main__ import main as train_main
+    from realpdebench_tpu_torch.train.checkpoint import CheckpointManager
+    from realpdebench_tpu_torch.train.loop import (
+        build_datasets,
+        load_reference_or_orbax_checkpoint,
+        model_kwargs,
+        validation_arrays,
+    )
+
+    cfg = run.cfg(make_arg_parser())
+    train_ds, val_ds, norm_ds = build_datasets(cfg, "numerical",
+                                               dataset_class=run.dataset_class)
+    batch, test_batch = int(cfg.train_batch_size), int(cfg.test_batch_size)
+    val_batches = math.ceil(len(val_ds) / test_batch)
+    val_every = max(1, LOOP_STEPS // 50)
+    prof_dir = f"{run.work}/profile"
+
+    # the main path, counted: nothing but the training run between reset and read
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    exp1, model, opt, hist = train_main(
+        [*run.base, "--train_data_type", "numerical", "--profile_dir", prof_dir],
+        dataset_class=run.dataset_class)
+    wall = time.perf_counter() - t0
+    n_val = LOOP_STEPS // val_every
+    launches, variants = _check_launches("the training loop", LOOP_STEPS, n_val * val_batches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = hist["train_loss"]
+    if len(losses) != LOOP_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"the loop's {len(losses)} train losses: {losses}")
+    if len(hist["val"]["rmse"]) != n_val:
+        raise AssertionError(f"{len(hist['val']['rmse'])} validations, expected {n_val}")
+    ckpt_dir = f"{exp1}/ckpt"
+    steps_kept = CheckpointManager(ckpt_dir).all_steps()
+    if steps_kept != [LOOP_STEPS - val_every, LOOP_STEPS]:
+        raise AssertionError(f"checkpoints kept: {steps_kept}")
+    trace = loop_trace_summary(f"{prof_dir}/trace.json")
+    if trace["steps"] != LOOP_PROFILE[1] - LOOP_PROFILE[0] + 1:
+        raise AssertionError(f"the trace holds {trace['steps']} steps")
+
+    # reload: the checkpoint in a fresh model predicts bit for bit as the
+    # trained model on one validation batch
+    from realpdebench_tpu_torch.data.normalizer import build_normalizer
+
+    normalizer = build_normalizer("gaussian", norm_ds)
+    fresh = build_model(train_dataset=train_ds, device=dev, generator=make_generator(1),
+                        **model_kwargs(cfg))
+    load_reference_or_orbax_checkpoint(ckpt_dir, fresh)
+    items = [val_ds[i] for i in range(test_batch)]
+    xb = torch.from_numpy(np.stack([it[0] for it in items])).to(dev)
+    yb = torch.from_numpy(np.stack([it[1] for it in items])).to(dev)
+    xn, _ = normalizer.preprocess(xb, yb)
+    if not torch.equal(model.predict(xn), fresh.predict(xn)):
+        raise AssertionError("the reloaded checkpoint predicts otherwise than the "
+                             "trained model")
+    del fresh
+
+    # the 13 metrics of the sweep on the card against the CPU's on copies of
+    # the same arrays; beside them, the loop's own last validation
+    c = 2
+    _, preds, targets = validation_arrays(
+        make_eval_step(model, normalizer, c),
+        DataLoader(val_ds, batch_size=test_batch, num_workers=12, pad_last=True,
+                   pin_memory=dev.type == "cuda"), dev)
+    card = eval_metrics(preds, targets, c)
+    host = eval_metrics(preds.cpu(), targets.cpu(), c)
+    metric_cmp, bad = {}, []
+    for name, a, b in zip(METRIC_NAMES, card, host):
+        diff = abs(float(a) - float(b))
+        rel = 0.0 if math.isnan(a) and math.isnan(b) else diff / abs(float(b)) if b else diff
+        metric_cmp[name] = dict(card=float(a), cpu=float(b), rel=rel,
+                                loop_last_validation=hist["val"][name][-1])
+        bad += [] if rel <= LOOP_METRICS_REL else [name]
+    if bad:
+        raise AssertionError(f"metrics on the card vs the CPU: {bad}: {metric_cmp}")
+    del preds, targets
+
+    # resume to LOOP_STEPS + 2 from the run's checkpoint directory
+    kernels.reset_launches()
+    _, _, opt2, hist2 = train_main(
+        [*run.base, "--train_data_type", "numerical", "--num_update", str(LOOP_STEPS + 2),
+         "--resume", ckpt_dir], dataset_class=run.dataset_class)
+    n_val2 = sum(1 for i in (LOOP_STEPS + 1, LOOP_STEPS + 2)
+                 if i % max(1, (LOOP_STEPS + 2) // 50) == 0)
+    resume_launches, _ = _check_launches("the resumed loop", 2, n_val2 * val_batches)
+    resume = dict(start_iteration=hist2["perf"]["start_iteration"],
+                  steps=len(hist2["train_loss"]), optimizer_count=opt2.count,
+                  optimizer_count_saved=opt.count, losses=hist2["train_loss"])
+    if (resume["start_iteration"], resume["steps"], opt.count, opt2.count) != (
+            LOOP_STEPS, 2, LOOP_STEPS, LOOP_STEPS + 2):
+        raise AssertionError(f"resume: {resume}")
+
+    # finetune on real data from the first run's checkpoint, 2 steps
+    kernels.reset_launches()
+    _, _, opt3, hist3 = train_main(
+        [*run.base, "--train_data_type", "real", "--is_finetune", "--checkpoint_path",
+         ckpt_dir, "--num_update", "2"], dataset_class=run.dataset_class)
+    ft_launches, _ = _check_launches("the finetune", 2, 2 * val_batches)
+    if opt3.count != 2 or not all(math.isfinite(v) for v in hist3["train_loss"]):
+        raise AssertionError(f"finetune: {opt3.count} updates, losses {hist3['train_loss']}")
+
+    perf = hist["perf"]
+    emit(dict(phase="loop", data=run.data_source(), tree_s=run.tree_s,
+              reduced=run.reduced(), batch=batch, val_windows=len(val_ds),
+              train_windows=len(train_ds), val_batches=val_batches,
+              validations=n_val, wall_s=wall,
+              loop_steps_per_s=perf["loop_steps_per_sec"],
+              step_timer_steps_per_s=perf["steps_per_sec"],
+              step_timer_ms_p50=perf["step_ms_p50"], step_timer_ms_p95=perf["step_ms_p95"],
+              bare_step_steps_per_s=bare_steps_per_s,
+              validation_s=perf["validation_s"], checkpoint_s=perf["checkpoint_s"],
+              batch_assembly_s=perf["batch_assembly_s"],
+              trace=trace, launches=launches, variants=variants, peak_mem_gb=peak,
+              first_losses=losses[:10], last_losses=losses[-10:],
+              metrics_card_vs_cpu=metric_cmp, limit_metrics_rel=LOOP_METRICS_REL,
+              reload_bit_equal=True, resume=resume,
+              finetune=dict(steps=len(hist3["train_loss"]), losses=hist3["train_loss"],
+                            val_rmse=hist3["val"]["rmse"])))
+    VARIANTS_BY_PATH["loop"] = variants
+    total = {k: launches[k] + resume_launches[k] + ft_launches[k] for k in launches}
+    run.ckpt_dir = ckpt_dir
+    return total
+
+
+def _rollout_arrays(predictor, normalizer, test_ds, batch, chunk, dev, c, n_steps):
+    """The whole test split rolled out (physical units, on the card)."""
+    from realpdebench_tpu_torch.data.loader import DataLoader, to_device
+    from realpdebench_tpu_torch.eval.rollout import finalize_rollout
+
+    rollout = make_rollout_fn(predictor, normalizer, n_steps)
+    preds, targets = [], []
+    batches = to_device(DataLoader(test_ds, batch_size=batch, num_workers=12,
+                                   pad_last=True, pin_memory=dev.type == "cuda"), dev)
+    try:
+        for x, y, mask in batches:
+            n = int(mask.sum())
+            for i in range(0, n, chunk):
+                j = min(i + chunk, n)
+                pn, xn, yn = rollout(x[i:j], y[i:j])
+                _, p, t = finalize_rollout(normalizer, pn, xn, yn, c)
+                preds.append(p)
+                targets.append(t)
+    finally:
+        batches.close()
+    return torch.cat(preds), torch.cat(targets)
+
+
+def phase_eval(dev, run: LoopRun) -> dict:
+    """python -m realpdebench_tpu_torch eval, in this process, on the loop's
+    checkpoint in bf16 at test batch 64 and 10 autoregressive steps; the
+    metrics against the same checkpoint through the plain f32 path."""
+    import math
+
+    from realpdebench_tpu_torch.config import make_arg_parser
+    from realpdebench_tpu_torch.data.normalizer import build_normalizer
+    from realpdebench_tpu_torch.eval.__main__ import build_eval_datasets
+    from realpdebench_tpu_torch.eval.__main__ import main as eval_main
+    from realpdebench_tpu_torch.eval.metrics import METRIC_NAMES, eval_metrics
+    from realpdebench_tpu_torch.train.loop import (
+        load_reference_or_orbax_checkpoint,
+        model_kwargs,
+    )
+
+    argv = [*run.base, "--checkpoint_path", run.ckpt_dir]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, results = eval_main(argv, dataset_class=run.dataset_class)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    parser = make_arg_parser()
+    parser.add_argument("--checkpoint_path")
+    cfg = run.cfg(parser, ["--checkpoint_path", run.ckpt_dir])
+    test_ds, train_ds, norm_ds = build_eval_datasets(cfg, run.dataset_class)
+    batch, n_steps = int(cfg.test_batch_size), int(cfg.N_autoregressive)
+    if n_steps != STEPS:
+        raise AssertionError(f"N_autoregressive {n_steps}, expected {STEPS}")
+    n_predicts = math.ceil(len(test_ds) / batch) * n_steps
+    launches, variants = _check_launches("the evaluation", 0, n_predicts)
+    frames = len(test_ds) * n_steps * SHAPE_OUT[0]
+    if not all(math.isfinite(results[k]) for k in (*METRIC_NAMES, "normalized_mse",
+                                                    "probe_error")):
+        raise AssertionError(f"eval results not finite: {results}")
+
+    # the same checkpoint through the plain f32 path, and the bf16 kernels
+    # once more for the predictions themselves
+    c = 2
+    normalizer = build_normalizer("gaussian", norm_ds)
+    kw = model_kwargs(cfg)
+    kw.pop("compute_dtype")
+    plain = build_model(train_dataset=train_ds, device=dev, **kw).eval()
+    load_reference_or_orbax_checkpoint(run.ckpt_dir, plain)
+    ref, targets = _rollout_arrays(_PlainPath(plain), normalizer, test_ds, batch,
+                                   EVAL_PLAIN_CHUNK, dev, c, n_steps)
+    del plain
+    bf16 = build_model(train_dataset=train_ds, device=dev, **model_kwargs(cfg))
+    load_reference_or_orbax_checkpoint(run.ckpt_dir, bf16)
+    pred, _ = _rollout_arrays(bf16, normalizer, test_ds, batch, batch, dev, c, n_steps)
+    del bf16
+    rel_l2 = ((pred[..., :c] - ref[..., :c]).norm() / ref[..., :c].norm()).item()
+    # chunked as run_eval chunks the sweep
+    ref_metrics = dict(zip(METRIC_NAMES, (float(v) for v in eval_metrics(
+        ref, targets, c, batch if n_steps > 4 else None))))
+    cmp, bad = {}, [] if rel_l2 <= ROLLOUT_REL_L2 else ["predictions"]
+    for name in METRIC_NAMES:
+        got, want = results[name], ref_metrics[name]
+        small = abs(want) < EVAL_SMALL
+        err = abs(got - want) if small else abs(got - want) / abs(want)
+        cmp[name] = dict(bf16=got, f32_plain=want, err=err,
+                         limit=EVAL_METRIC_ABS if small else EVAL_METRIC_REL,
+                         kind="abs" if small else "rel")
+        bad += [] if err <= cmp[name]["limit"] else [name]
+    if bad:
+        raise AssertionError(f"bf16 eval vs plain f32 eval: {bad}: rel_l2 {rel_l2}, {cmp}")
+    emit(dict(phase="eval", data=run.data_source(), batch=batch, n_autoregressive=n_steps,
+              test_windows=len(test_ds), results=results, eval_s=secs,
+              frames_per_s=frames / secs, launches=launches, variants=variants,
+              peak_mem_gb=peak, vs_plain_f32=dict(pred_rel_l2=rel_l2,
+                                                  limit_rel_l2=ROLLOUT_REL_L2,
+                                                  metrics=cmp)))
+    VARIANTS_BY_PATH["eval"] = variants
+    return launches
+
+
+def loop_and_eval(dev) -> dict:
+    """The loop and eval phases on one synthetic tree; their launch counts."""
+    run = LoopRun()
+    try:
+        out = {"loop": phase_loop(dev, run, BARE_STEPS_PER_S.get("train"))}
+        torch.cuda.empty_cache()
+        out["eval"] = phase_eval(dev, run)
+    finally:
+        run.close()
+    return out
+
+
 def main() -> None:
     name = phase_env()
     dev = torch.device("cuda", 0)
     phase_build()
+    if sys.argv[1:] == ["--only-loop"]:
+        # iterating on the entry points: the loop and eval phases alone,
+        # without the summary and result lines
+        loop_and_eval(dev)
+        return
     summary = phase_kernels(dev)
     summary.update(phase_backward(dev))
     adjoint = summary.pop("t_stage_adjoint")
@@ -1865,6 +2332,8 @@ def main() -> None:
     by_path["gk_rollout"] = phase_gk_rollout(dev, norm)
     torch.cuda.empty_cache()
     by_path["gk_train"] = phase_gk_train(dev, norm)
+    torch.cuda.empty_cache()
+    by_path.update(loop_and_eval(dev))
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=sum(p[k] for p in by_path.values()),

@@ -19,15 +19,15 @@ _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
 
 
-def _device(device) -> torch.device:
-    """``device``, or the card when it is None; never a silent CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+def resolve_device(device, what: str = "build_model builds") -> torch.device:
+    """``device``, or the card when it is None; never a silent CPU. A CUDA
+    device where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "build_model builds on the CUDA device by default and none is "
-            "available; pass device='cpu' to build on the CPU")
-    return torch.device("cuda")
+            f"{what} on the CUDA device by default and none is available; "
+            "pass device='cpu' to run on the CPU")
+    return dev
 
 
 def build_model(train_dataset=None, shapes=None, *, device=None,
@@ -56,7 +56,7 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             modes1=kwargs["modes1"], modes2=kwargs["modes2"],
             modes3=kwargs["modes3"], n_layers=kwargs["n_layers"],
             width=kwargs["width"], shape_in=shape_in, shape_out=shape_out,
-            compute_dtype=compute_dtype, device=_device(device),
+            compute_dtype=compute_dtype, device=resolve_device(device),
             generator=generator)
     if model_name == "unet":
         from realpdebench_tpu_torch.models.unet import Unet3d
@@ -66,7 +66,7 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             dim=shape_in[1], out_channels=shape_out[-1],
             dim_mults=tuple(kwargs["dim_mults"]), channels=shape_in[-1],
             in_time=shape_in[0], out_time=shape_out[0],
-            compute_dtype=compute_dtype, device=_device(device),
+            compute_dtype=compute_dtype, device=resolve_device(device),
             generator=generator)
     if model_name == "galerkin_transformer":
         from realpdebench_tpu_torch.models.galerkin_transformer import (
@@ -94,7 +94,7 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             xavier_init=float(kwargs.get("xavier_init", 1e-2)),
             diagonal_weight=float(kwargs.get("diagonal_weight", 1e-2)),
             reference_eval_dropout=bool(kwargs.get("reference_eval_dropout", False)),
-            compute_dtype=compute_dtype, device=_device(device),
+            compute_dtype=compute_dtype, device=resolve_device(device),
             generator=generator,
             dropout_seed=int(kwargs.get("seed", 0)))
     if model_name in _NOT_PORTED:

@@ -115,3 +115,22 @@ def make_train_step(model, normalizer, optimizer: Optimizer,
         return sum(losses) / k
 
     return step
+
+
+def make_eval_step(model, normalizer, c: int | None = None):
+    """Build ``step(x, y) -> (normalized_mse, pred_phys, target_phys)``: the
+    normalized MSE on the first ``c`` channels (all when None) and the
+    physical-unit prediction and target, in eval mode without autograd
+    (JAX ``train_step.py:197-219``)."""
+
+    def step(x: torch.Tensor, y: torch.Tensor):
+        with torch.no_grad():
+            xn, yn = normalizer.preprocess(x, y)
+            pred = model.predict(xn)
+            cc = c if c is not None else y.shape[-1]
+            nmse = torch.mean((pred[..., :cc] - yn[..., :cc]) ** 2)
+            _, pred_phys = normalizer.postprocess(xn, pred)
+            _, target_phys = normalizer.postprocess(xn, yn)
+        return nmse, pred_phys, target_phys
+
+    return step

@@ -1,15 +1,19 @@
-"""Environment switches and seeding.
+"""Environment switches, seeding, logging and small host-side helpers.
 
-Counterpart of ``realpdebench_tpu/utils/misc.py``: only what the rollout
-slice reads. Randomness in the port comes from explicit ``torch.Generator``s
-(the JAX package threads PRNG keys the same way).
+Counterpart of ``realpdebench_tpu/utils/misc.py``. Parameters and dropout
+draw from explicit ``torch.Generator``s (the JAX package threads PRNG keys
+the same way); ``set_seed`` pins the host-side generators the data pipeline
+uses (noise, masks, shuffles), as there.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import random as _py_random
+import zlib
 
+import numpy as np
 import torch
 
 
@@ -50,3 +54,50 @@ def make_generator(seed: int) -> torch.Generator:
     g = torch.Generator(device="cpu")
     g.manual_seed(int(seed))
     return g
+
+
+def set_seed(seed: int) -> None:
+    """Pin Python's, numpy's and torch's global generators."""
+    np.random.seed(seed)
+    _py_random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def derive_seed(seed: int, *parts) -> int:
+    """Mix string/int tags into a base seed with a process-stable digest
+    (crc32; Python's ``hash`` of a string is salted per interpreter)."""
+    tag = "\x1f".join(str(p) for p in parts).encode()
+    return (seed + zlib.crc32(tag)) % 2**31
+
+
+def setup_logging(exp_path: str, is_use_tb: bool = False, is_train: bool = True):
+    """File and console logging, and a TensorBoard writer when asked for and
+    ``torch.utils.tensorboard`` imports (otherwise a warning, no writer)."""
+    log_filename = os.path.join(
+        exp_path, "training.log" if is_train else "eval.log"
+    )
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s - %(levelname)s - %(message)s",
+        handlers=[logging.FileHandler(log_filename), logging.StreamHandler()],
+        force=True,
+    )
+    logging.info(f"Logging initialized at {log_filename}")
+
+    writer = None
+    if is_use_tb:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            writer = SummaryWriter(log_dir=exp_path)
+            logging.info(f"Tensorboard writer initialized at {writer.log_dir}")
+        except Exception as e:  # tensorboard optional
+            logging.warning(f"TensorBoard unavailable ({e}); continuing without")
+    return writer
+
+
+def cycle(iterable):
+    """Infinite generator over a re-iterable."""
+    while True:
+        for x in iterable:
+            yield x
