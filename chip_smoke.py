@@ -55,6 +55,12 @@ JSON line each; any failure raises (non-zero exit, no result line):
                median steps/s, loss, peak memory.
   7. profile   torch.profiler over three more training steps: device time
                by kernel, the host's wall time, the device's idle share.
+  7a. train_f32 phases 6-7 for the same step as the shipped config runs
+               it, in float32 (compute_dtype null): every kernel in its fma
+               variant (the T-stage registers), the loss, every gradient
+               and the running statistics against the plain f32 step within
+               F32_LIMITS (1e-5 relative; 1e-4 relative L2); then its
+               profile (train_f32_profile).
   7b. fsi_train the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16,
                batch 32, Gaussian normalizer) trained in float32 (the
                config's dtype) and bfloat16: one counted step each (exact
@@ -139,8 +145,37 @@ JSON line each; any failure raises (non-zero exit, no result line):
                held against the same checkpoint rolled out through the
                plain f32 path on the card: predictions within 5e-2
                relative L2, each metric within 5e-2 relative (1e-3
-               absolute where the f32 value is below 1e-2).
-`python3 chip_smoke.py --only-loop` runs env, build and phases 14-15 alone
+               absolute where the f32 value is below 1e-2; r2 compared
+               as its residual share 1 - r2, here and against the CPU).
+ 16. unet_loop, unet_eval  phases 14 and 15 for configs/cylinder/unet.yaml
+               (dim 64, dim_mults 1/2/4, batch 12 and test batch 12 as
+               shipped, N_autoregressive 5) in bf16 on the same tree: 12
+               steps (validation and a checkpoint every step, as
+               num_update // 50 is 0 below 100 steps; iterations 10-12
+               traced), a resume to 14, no finetune; exact TA forward and
+               backward counts, all mma; reload bit-equal; the card's
+               metrics within 1e-4 of the CPU's; loop steps/s beside the
+               bare step's (phase 10), idle share, peak memory. Eval over
+               the test split's unseen trajectories (test_mode unseen: 26
+               windows, 3 batches), against the plain f32 path as in 15.
+ 17. gk_loop, gk_eval  the same for configs/cylinder/galerkin_transformer.yaml
+               (width 256, 4 heads, batch 16, N_autoregressive 1, dropout
+               from the run's seeded generator): exact scores counts, mma;
+               eval over 28 unseen windows (2 batches).
+ 18. arrow     whether this host imports datasets and pyarrow; where it
+               does, the tree written as an Arrow V2 tree through the
+               converter's writer (tools/convert_hdf5_to_hf.write_dataset_v2
+               from the arrays in memory, or convert_dataset_v2 from the
+               HDF5 files), 8 windows of each split and type held bit for
+               bit against the HDF5 class's (mask_prob 0, noise 0), the
+               seconds a window in both backends, and the bf16 FNO
+               loop for 4 steps with --use_hf_dataset true (exact counts).
+               Where it does not, one line says so.
+Each loop phase lists its cuts under "reduced" beside the shipped values:
+the tree, n_sim_frame, the split sizes, generated id files, num_update,
+max_to_keep, compute_dtype, the eval's test_mode, and N_plot and
+N_plot_probe, which are 0 where matplotlib is missing.
+`python3 chip_smoke.py --only-loop` runs env, build and phases 14-18 alone
 and prints neither the summary nor the result line.
 Every kernel's time stands beside its bound: the larger of the bytes it
 must move (inputs read once, outputs written once) over HBM's 3.35 TB/s and
@@ -208,15 +243,17 @@ TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
 TRAIN_STATS_REL_L2 = 2e-2
 TRAIN_ZERO_GRAD = 1e-2
+# the shipped cylinder FNO step in float32 (compute_dtype null): the fma
+# variants against the plain f32 step from the same weights, both in f32
+# (fixed before the first run, from the fsi f32 step's measured 6e-8 loss,
+# 6e-6 gradient and 1e-7 statistics distances, PERF.md): the loss within 1e-5
+# relative, each gradient and statistics vector within 1e-4 relative L2
+F32_LIMITS = (1e-5, 1e-4, 1e-4)
 # per training step: 4 layers forward (K1, 2 T-stages, K2) and backward
 # (K2A-lite, 2 T-stage adjoints, K12B), one fused tail + loss
 TRAIN_LAUNCHES = {"k1": 4, "t_stage": 16, "k2": 4, "k2a": 0, "k2a_lite": 4,
                   "k12b": 4, "k3f": 1, "k3b": 1, "ta_fwd": 0, "ta_bwd": 0,
                   "gk_scores": 0}
-# the variants a bf16 FNO step launches (a rollout: K1, K2 and the T-stage
-# as one forward each)
-TRAIN_VARIANTS = dict(k1={"mma": 4}, t_stage={"registers": 16}, k2={"mma": 4},
-                      k2a_lite={"mma": 4}, k12b={"mma": 4}, k3f={"mma": 1}, k3b={"mma": 1})
 
 # the other shipped FNO geometries, at the cylinder's 20x64x128 windows and
 # padding 6 (the port has no fsi or combustion reader yet; the kernels'
@@ -235,7 +272,8 @@ FSI_WINDOWS, FSI_WINDOW_STEPS = 3, 2
 # per-variant launches of each path that launches variants, for the
 # summary line (the other paths launch none)
 VARIANTS_BY_PATH = {}
-# the bare training step's steps/s (phase_train), beside the loop's
+# the bare training steps' steps/s by phase (train, unet_train, gk_train),
+# beside the loops'
 BARE_STEPS_PER_S = {}
 
 # temporal attention at the UNet's level 0 in the training step (B, S, T, h, d)
@@ -931,17 +969,20 @@ def _grads(model):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def _fno_vs_plain(what, batch, loss, grads, ref_loss, ref_grads, model, ref_model) -> dict:
+def _fno_vs_plain(what, batch, loss, grads, ref_loss, ref_grads, model, ref_model,
+                  limits=(TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2, TRAIN_STATS_REL_L2)) -> dict:
     """An FNO step's loss, gradients and BatchNorm running statistics against
-    the plain f32 step's from the same weights (TRAIN_* limits); raises
+    the plain f32 step's from the same weights, within ``limits`` (loss,
+    gradients, statistics; the bf16 TRAIN_* limits by default); raises
     naming what missed."""
+    loss_lim, grad_lim, stats_lim = limits
     loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
     cmp = dict(batch=batch, loss=loss.item(), ref_loss=ref_loss.item(),
-               loss_rel=loss_rel, limit_loss_rel=TRAIN_LOSS_REL, grad_rel_l2={},
-               limit_grad_rel_l2=TRAIN_GRAD_REL_L2, zero_grads={},
+               loss_rel=loss_rel, limit_loss_rel=loss_lim, grad_rel_l2={},
+               limit_grad_rel_l2=grad_lim, zero_grads={},
                limit_zero_grad=TRAIN_ZERO_GRAD, stats_rel_l2={},
-               limit_stats_rel_l2=TRAIN_STATS_REL_L2)
-    bad = [] if loss_rel <= TRAIN_LOSS_REL else ["loss"]
+               limit_stats_rel_l2=stats_lim)
+    bad = [] if loss_rel <= loss_lim else ["loss"]
     for name, gr in ref_grads.items():
         if name.startswith("convs.") and name.endswith(".bias"):
             scale = ref_grads[name[:-4] + "weight"].abs().max().item()
@@ -951,13 +992,13 @@ def _fno_vs_plain(what, batch, loss, grads, ref_loss, ref_grads, model, ref_mode
             continue
         rel = _rel_l2(grads[name], gr)
         cmp["grad_rel_l2"][name] = rel
-        bad += [] if rel <= TRAIN_GRAD_REL_L2 else [name]
+        bad += [] if rel <= grad_lim else [name]
     ref_bufs = dict(ref_model.named_buffers())
     for name, buf in model.named_buffers():
         if "running" in name:
             rel = _rel_l2(buf, ref_bufs[name])
             cmp["stats_rel_l2"][name] = rel
-            bad += [] if rel <= TRAIN_STATS_REL_L2 else [name]
+            bad += [] if rel <= stats_lim else [name]
     cmp["worst_grad_rel_l2"] = max(cmp["grad_rel_l2"].values())
     cmp["worst_stats_rel_l2"] = max(cmp["stats_rel_l2"].values())
     if bad:
@@ -965,11 +1006,15 @@ def _fno_vs_plain(what, batch, loss, grads, ref_loss, ref_grads, model, ref_mode
     return cmp
 
 
-def phase_train(dev) -> dict:
-    """bench.py's training step through make_train_step; returns the launch
+def phase_train(dev, compute_dtype="bfloat16") -> dict:
+    """bench.py's training step through make_train_step, in bf16 (phase
+    train, the kernels' mma variants) or, with ``compute_dtype`` None, in
+    float32 as the shipped config runs it (phase train_f32, the fma
+    variants, within F32_LIMITS of the plain step); returns the launch
     counts of the counted step."""
-    T, H, W = SHAPE_IN[:3]
-    model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype="bfloat16",
+    path = "train" if compute_dtype else "train_f32"
+    mm = "mma" if compute_dtype else "fma"
+    model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=compute_dtype,
                         device=dev, generator=make_generator(0), **MODEL)
     ref_model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), device=dev, **MODEL)
     ref_model.load_state_dict(model.state_dict(), strict=True)
@@ -988,10 +1033,12 @@ def phase_train(dev) -> dict:
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     if launches != TRAIN_LAUNCHES:
-        raise AssertionError(f"one training step launched {launches}, "
+        raise AssertionError(f"one {path} step launched {launches}, "
                              f"expected {TRAIN_LAUNCHES}")
-    variants = expect_variants("one training step", **TRAIN_VARIANTS)
-    VARIANTS_BY_PATH["train"] = variants
+    variants = expect_variants(f"one {path} step", **{
+        k: {"registers" if k == "t_stage" else mm: n}
+        for k, n in TRAIN_LAUNCHES.items() if n})
+    VARIANTS_BY_PATH[path] = variants
     grads = _grads(model)
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"training loss {loss.item()} is not finite")
@@ -1001,8 +1048,10 @@ def phase_train(dev) -> dict:
     ref_loss = ref_model(x, y=y, reference=True)
     ref_loss.backward()
     ref_grads = _grads(ref_model)
-    cmp = _fno_vs_plain("bf16 kernel step vs f32 plain step", TRAIN_BATCH, loss, grads,
-                        ref_loss, ref_grads, model, ref_model)
+    limits = (TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2, TRAIN_STATS_REL_L2) if compute_dtype \
+        else F32_LIMITS
+    cmp = _fno_vs_plain(f"{path}: kernel step vs f32 plain step", TRAIN_BATCH, loss,
+                        grads, ref_loss, ref_grads, model, ref_model, limits)
     ref_peak = torch.cuda.max_memory_allocated() / 1e9
     del ref_model, ref_loss, ref_grads
     torch.cuda.empty_cache()
@@ -1036,14 +1085,14 @@ def phase_train(dev) -> dict:
         raise AssertionError(f"training losses {losses} are not finite")
     frames = TRAIN_BATCH * SHAPE_OUT[0]
     med = statistics.median(rates)
-    BARE_STEPS_PER_S["train"] = med
-    emit(dict(phase="train", batch=TRAIN_BATCH, cfg=TRAIN_CFG, launches=launches,
+    BARE_STEPS_PER_S[path] = med
+    emit(dict(phase=path, batch=TRAIN_BATCH, cfg=TRAIN_CFG, launches=launches,
               variants=variants, vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
               window_steps_per_s=rates, steps_per_s=med,
               frames_per_s=med * frames, losses=losses,
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
               peak_mem_with_plain_step_gb=ref_peak))
-    phase_profile(step, x, y)
+    phase_profile(step, x, y, "profile" if compute_dtype else "train_f32_profile")
     return launches
 
 
@@ -1436,6 +1485,7 @@ def phase_unet_train(dev, norm) -> dict:
     if not all(v == v and abs(v) < float("inf") for v in losses):
         raise AssertionError(f"UNet training losses {losses} are not finite")
     med = statistics.median(rates)
+    BARE_STEPS_PER_S["unet_train"] = med
     emit(dict(phase="unet_train", batch=UNET_BATCH, cfg=UNET_TRAIN_CFG,
               launches=launches, vs_plain_f32=cmp, bitwise_repeatable=same,
               first_step_s=first_s, window_steps_per_s=list(rates), steps_per_s=med,
@@ -1661,6 +1711,7 @@ def phase_gk_train(dev, norm) -> dict:
     if not all(v == v and abs(v) < float("inf") for v in losses):
         raise AssertionError(f"GK training losses {losses} are not finite")
     med = statistics.median(rates)
+    BARE_STEPS_PER_S["gk_train"] = med
     emit(dict(phase="gk_train", batch=GK_BATCH, cfg=GK_TRAIN_CFG, launches=launches,
               vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
               window_steps_per_s=list(rates), steps_per_s=med,
@@ -1871,11 +1922,11 @@ def phase_profile(step, x, y, phase: str = "profile") -> None:
               kernels=[dict(name=k[:160], ms=ms, count=n) for k, ms, n in rows[:40]]))
 
 
-# the loop and eval phases: the cylinder FNO3d (configs/cylinder/fno.yaml)
-# through the entry points on a synthetic tree at the cylinder's resolution
-# (real 64x128 u, v; numerical 128x256 u, v, p, as sub_s_numerical is 2).
-# The tree's size and the keys its splits need are cut from the published
-# dataset's; each override below stands beside the shipped value.
+# the loop and eval phases: the shipped cylinder configs through the entry
+# points on a synthetic tree at the cylinder's resolution (real 64x128 u, v;
+# numerical 128x256 u, v, p, as sub_s_numerical is 2). The tree's size and
+# the keys its splits need are cut from the published dataset's; each
+# override below stands beside the shipped value.
 LOOP_TREE = dict(scenario="cylinder", n_frame=600, seed=0,
                  sizes={"real": (16, 64, 128), "numerical": (4, 128, 256)})
 LOOP_STEPS = 100
@@ -1891,14 +1942,51 @@ LOOP_OVERRIDES = {  # key: (value here, shipped value)
 LOOP_PROFILE = (10, 19)          # the loop's own iterations traced (utils/profiling)
 LOOP_METRICS_REL = 1e-4          # the sweep on the card vs on the CPU, per metric
 EVAL_METRIC_REL, EVAL_METRIC_ABS, EVAL_SMALL = 5e-2, 1e-3, 1e-2
+
+
+def _compared(name: str, value: float) -> float:
+    """A metric as the loops and evals compare it: r2 by its residual share
+    1 - r2 (the squared error over the targets' spread), whose scale is its
+    own; r2 itself lies near 0 by chance, where a relative or 1e-3 absolute
+    limit on it asks far more than the same limit on the rmse."""
+    return 1.0 - value if name == "r2" else value
+
 EVAL_PLAIN_CHUNK = 16            # the plain f32 rollout, 16 windows at a time
 # the forward of one FNO predict (4 layers); a training step's is TRAIN_LAUNCHES
 PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
+# the UNet's and the GK's loops and evaluations: their shipped configs in
+# bf16 on the same tree, at the shipped widths and batches. Validation (the
+# 125 real val windows) and a checkpoint come every num_update // 50 steps,
+# which below 100 steps is every step: 12 steps are what a phase of about a
+# minute buys at the UNet's ~2.5 s a validation, and trace iterations
+# 10-12. Eval reads the test split's unseen trajectories (test_mode): 26
+# windows at the UNet's 5 steps, a few batches. The plots need matplotlib:
+# where it is missing, N_plot and N_plot_probe are 0.
+MODEL_LOOP_STEPS = 12
+MODEL_TEST_MODE = "unseen"
+# the bf16 FNO loop again, on the Arrow tree the converter writes from the
+# same arrays (--use_hf_dataset true): a few steps, exact counts
+ARROW_STEPS = 4
+ARROW_WINDOWS = 8       # windows of each split and type held bit for bit, and timed
+# each loop path: its config, its steps, the kernel launches of one training
+# step and of one forward, its eval phase and its bare step's phase
+LOOPS = {
+    "loop": dict(config="cylinder/fno.yaml", steps=LOOP_STEPS, step=TRAIN_LAUNCHES,
+                 predict=PREDICT_LAUNCHES, eval="eval", bare="train"),
+    "unet_loop": dict(config="cylinder/unet.yaml", steps=MODEL_LOOP_STEPS,
+                      step=dict(ta_fwd=UNET_TA_PER_FORWARD, ta_bwd=UNET_TA_PER_FORWARD),
+                      predict=dict(ta_fwd=UNET_TA_PER_FORWARD), eval="unet_eval",
+                      bare="unet_train"),
+    "gk_loop": dict(config="cylinder/galerkin_transformer.yaml", steps=MODEL_LOOP_STEPS,
+                    step=dict(gk_scores=GK_MODEL["num_encoder_layers"]),
+                    predict=dict(gk_scores=GK_MODEL["num_encoder_layers"]),
+                    eval="gk_eval", bare="gk_train"),
+}
 
 
 class LoopRun:
-    """The tree, the argv and the first run's results, shared by phase_loop
-    and phase_eval; ``close`` removes the tree."""
+    """The tree, each loop's argv and the loops' checkpoints, shared by
+    phase_loop, phase_eval and phase_arrow; ``close`` removes the tree."""
 
     def __init__(self):
         import importlib.util
@@ -1909,40 +1997,62 @@ class LoopRun:
 
         self.work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
         self.root = f"{self.work}/data"
+        self.ckpt_dirs = {}
         t0 = time.perf_counter()
         self.h5py = importlib.util.find_spec("h5py") is not None
+        self.plots = importlib.util.find_spec("matplotlib") is not None
         if self.h5py:
             make_fluid_tree(self.root, **LOOP_TREE)
-            self.dataset_class = None
+            self.arrays = self.dataset_class = None
         else:
             # no h5py on this host: the same arrays in memory, read by the
             # cylinder dataset with its window reader replaced
-            self.dataset_class = with_arrays(Cylinder, fluid_arrays(**LOOP_TREE))
+            self.arrays = fluid_arrays(**LOOP_TREE)
+            self.dataset_class = with_arrays(Cylinder, self.arrays)
         self.tree_s = time.perf_counter() - t0
-        self.base = ["--config", "cylinder/fno.yaml", "--dataset_root", self.root,
-                     "--results_path", f"{self.work}/results",
-                     "--compute_dtype", "bfloat16"]
-        for k, (v, _) in LOOP_OVERRIDES.items():
-            self.base += [f"--{k}", json.dumps(v)]
 
-    def reduced(self) -> dict:
-        r = {k: dict(here=v, shipped=s) for k, (v, s) in LOOP_OVERRIDES.items()}
+    def overrides(self, path: str, evaluating: bool = False) -> dict:
+        """key: (value here, shipped value) of the loop ``path``."""
+        if path == "loop":
+            return dict(LOOP_OVERRIDES)
+        from realpdebench_tpu_torch.config import load_config
+
+        shipped = load_config(LOOPS[path]["config"])
+        out = {k: LOOP_OVERRIDES[k] for k in (
+            "n_sim_frame", "n_sim_in_distribution", "n_sim_out_distribution",
+            "generate_ids_if_missing", "max_to_keep")}
+        out["num_update"] = (MODEL_LOOP_STEPS, shipped.num_update)
+        for k in ("N_plot", "N_plot_probe"):
+            if shipped.get(k) and not self.plots:
+                out[k] = (0, shipped.get(k))
+        if evaluating:
+            out["test_mode"] = (MODEL_TEST_MODE, "all")
+        return out
+
+    def argv(self, path: str, evaluating: bool = False) -> list:
+        argv = ["--config", LOOPS[path]["config"], "--dataset_root", self.root,
+                "--results_path", f"{self.work}/results", "--compute_dtype", "bfloat16"]
+        for k, (v, _) in self.overrides(path, evaluating).items():
+            argv += [f"--{k}", v if isinstance(v, str) else json.dumps(v)]
+        return argv
+
+    def reduced(self, path: str, evaluating: bool = False) -> dict:
+        r = {k: dict(here=v, shipped=s)
+             for k, (v, s) in self.overrides(path, evaluating).items()}
+        r["compute_dtype"] = dict(here="bfloat16", shipped=None)
         n_real, h, w = LOOP_TREE["sizes"]["real"]
         n_num, hn, wn = LOOP_TREE["sizes"]["numerical"]
         r["tree"] = dict(here=f"{n_real} real trajectories at {h}x{w} and {n_num} "
                               f"numerical at {hn}x{wn}, {LOOP_TREE['n_frame']} frames "
                               "each, synthetic (data/synthetic)",
                          shipped="the published cylinder trees")
+        if not self.plots and ("N_plot" in r or "N_plot_probe" in r):
+            r["plots"] = "this host has no matplotlib: N_plot and N_plot_probe are 0"
         return r
 
     def data_source(self) -> str:
         return ("HDF5 tree (h5py)" if self.h5py else
                 "in-memory arrays (data.fluid.with_arrays): this host has no h5py")
-
-    def cfg(self, parser, extra=()):
-        from realpdebench_tpu_torch.config import parse_config
-
-        return parse_config(parser, [*self.base, *extra])
 
     def close(self) -> None:
         import shutil
@@ -1950,19 +2060,39 @@ class LoopRun:
         shutil.rmtree(self.work, ignore_errors=True)
 
 
-def _expected(n_steps: int, n_predicts: int) -> dict:
-    want = {k: n_steps * v for k, v in TRAIN_LAUNCHES.items()}
-    for k, v in PREDICT_LAUNCHES.items():
+def _parse(argv, evaluating: bool = False):
+    from realpdebench_tpu_torch.config import make_arg_parser, parse_config
+
+    parser = make_arg_parser()
+    if evaluating:
+        parser.add_argument("--checkpoint_path")
+        parser.add_argument("--test_mode", default="all")
+    return parse_config(parser, argv)
+
+
+def _free() -> None:
+    """Release what the previous phase left on the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _expected(loop: dict, n_steps: int, n_predicts: int) -> dict:
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for k, v in loop["step"].items():
+        want[k] += n_steps * v
+    for k, v in loop["predict"].items():
         want[k] += n_predicts * v
     return want
 
 
-def _check_launches(what: str, n_steps: int, n_predicts: int) -> tuple:
+def _check_launches(what: str, loop: dict, n_steps: int, n_predicts: int) -> tuple:
     """The counts since the last reset against n_steps training steps and
-    n_predicts forwards, every FNO kernel in its mma (T-stage: registers)
-    variant."""
+    n_predicts forwards of ``loop``'s model, every kernel in its mma
+    (T-stage: registers) variant."""
     launches = dict(kernels.LAUNCHES)
-    want = _expected(n_steps, n_predicts)
+    want = _expected(loop, n_steps, n_predicts)
     if launches != want:
         raise AssertionError(f"{what} launched {launches}, expected {want} "
                              f"({n_steps} steps, {n_predicts} forwards)")
@@ -1970,8 +2100,6 @@ def _check_launches(what: str, n_steps: int, n_predicts: int) -> tuple:
         k: {"registers" if k == "t_stage" else "mma": n}
         for k, n in want.items() if n})
     return launches, variants
-
-
 def _interval_union(iv):
     out = []
     for a, b in sorted(iv):
@@ -2047,15 +2175,16 @@ def loop_trace_summary(path: str) -> dict:
                         for k in ("Memcpy HtoD", "Memcpy DtoH", "Memcpy DtoD")})
 
 
-def phase_loop(dev, run: LoopRun, bare_steps_per_s=None) -> dict:
-    """python -m realpdebench_tpu_torch train, in this process: 100 steps of
-    the cylinder FNO3d on numerical data with validation every 2 and a
-    checkpoint at each; then a resume to 102 and a 2-step finetune on real
-    data from its checkpoint. Returns the launch counts of the three runs."""
+def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
+    """python -m realpdebench_tpu_torch train, in this process, for the loop
+    ``path``: its steps on numerical data with validation every
+    num_update // 50 steps and a checkpoint at each; then a resume 2 steps
+    further and, for the FNO, a 2-step finetune on real data from its
+    checkpoint. Returns the launch counts of these runs."""
     import math
 
-    from realpdebench_tpu_torch.config import make_arg_parser
     from realpdebench_tpu_torch.data.loader import DataLoader
+    from realpdebench_tpu_torch.data.normalizer import build_normalizer
     from realpdebench_tpu_torch.eval.metrics import METRIC_NAMES, eval_metrics
     from realpdebench_tpu_torch.train import make_eval_step
     from realpdebench_tpu_torch.train.__main__ import main as train_main
@@ -2067,44 +2196,44 @@ def phase_loop(dev, run: LoopRun, bare_steps_per_s=None) -> dict:
         validation_arrays,
     )
 
-    cfg = run.cfg(make_arg_parser())
+    loop, base = LOOPS[path], run.argv(path)
+    steps = loop["steps"]
+    cfg = _parse(base)
     train_ds, val_ds, norm_ds = build_datasets(cfg, "numerical",
                                                dataset_class=run.dataset_class)
     batch, test_batch = int(cfg.train_batch_size), int(cfg.test_batch_size)
     val_batches = math.ceil(len(val_ds) / test_batch)
-    val_every = max(1, LOOP_STEPS // 50)
-    prof_dir = f"{run.work}/profile"
+    val_every = max(1, steps // 50)
+    prof_dir = f"{run.work}/profile_{path}"
 
     # the main path, counted: nothing but the training run between reset and read
-    torch.cuda.empty_cache()
+    _free()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     exp1, model, opt, hist = train_main(
-        [*run.base, "--train_data_type", "numerical", "--profile_dir", prof_dir],
+        [*base, "--train_data_type", "numerical", "--profile_dir", prof_dir],
         dataset_class=run.dataset_class)
     wall = time.perf_counter() - t0
-    n_val = LOOP_STEPS // val_every
-    launches, variants = _check_launches("the training loop", LOOP_STEPS, n_val * val_batches)
+    n_val = steps // val_every
+    launches, variants = _check_launches(f"the {path}", loop, steps, n_val * val_batches)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = hist["train_loss"]
-    if len(losses) != LOOP_STEPS or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"the loop's {len(losses)} train losses: {losses}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"the {path}'s {len(losses)} train losses: {losses}")
     if len(hist["val"]["rmse"]) != n_val:
         raise AssertionError(f"{len(hist['val']['rmse'])} validations, expected {n_val}")
     ckpt_dir = f"{exp1}/ckpt"
     steps_kept = CheckpointManager(ckpt_dir).all_steps()
-    if steps_kept != [LOOP_STEPS - val_every, LOOP_STEPS]:
+    if steps_kept != [steps - val_every, steps]:
         raise AssertionError(f"checkpoints kept: {steps_kept}")
     trace = loop_trace_summary(f"{prof_dir}/trace.json")
-    if trace["steps"] != LOOP_PROFILE[1] - LOOP_PROFILE[0] + 1:
+    if trace["steps"] != min(LOOP_PROFILE[1], steps) - LOOP_PROFILE[0] + 1:
         raise AssertionError(f"the trace holds {trace['steps']} steps")
 
     # reload: the checkpoint in a fresh model predicts bit for bit as the
     # trained model on one validation batch
-    from realpdebench_tpu_torch.data.normalizer import build_normalizer
-
-    normalizer = build_normalizer("gaussian", norm_ds)
+    normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds)
     fresh = build_model(train_dataset=train_ds, device=dev, generator=make_generator(1),
                         **model_kwargs(cfg))
     load_reference_or_orbax_checkpoint(ckpt_dir, fresh)
@@ -2115,10 +2244,11 @@ def phase_loop(dev, run: LoopRun, bare_steps_per_s=None) -> dict:
     if not torch.equal(model.predict(xn), fresh.predict(xn)):
         raise AssertionError("the reloaded checkpoint predicts otherwise than the "
                              "trained model")
-    del fresh
+    del fresh, xb, yb, xn
 
     # the 13 metrics of the sweep on the card against the CPU's on copies of
-    # the same arrays; beside them, the loop's own last validation
+    # the same arrays (u and v: the real data's p is not measured); beside
+    # them, the loop's own last validation
     c = 2
     _, preds, targets = validation_arrays(
         make_eval_step(model, normalizer, c),
@@ -2128,59 +2258,68 @@ def phase_loop(dev, run: LoopRun, bare_steps_per_s=None) -> dict:
     host = eval_metrics(preds.cpu(), targets.cpu(), c)
     metric_cmp, bad = {}, []
     for name, a, b in zip(METRIC_NAMES, card, host):
-        diff = abs(float(a) - float(b))
-        rel = 0.0 if math.isnan(a) and math.isnan(b) else diff / abs(float(b)) if b else diff
+        ca, cb = _compared(name, float(a)), _compared(name, float(b))
+        diff = abs(ca - cb)
+        rel = 0.0 if math.isnan(ca) and math.isnan(cb) else diff / abs(cb) if cb else diff
         metric_cmp[name] = dict(card=float(a), cpu=float(b), rel=rel,
                                 loop_last_validation=hist["val"][name][-1])
         bad += [] if rel <= LOOP_METRICS_REL else [name]
     if bad:
         raise AssertionError(f"metrics on the card vs the CPU: {bad}: {metric_cmp}")
-    del preds, targets
+    del preds, targets, model
+    _free()
 
-    # resume to LOOP_STEPS + 2 from the run's checkpoint directory
+    # resume 2 steps further from the run's checkpoint directory
     kernels.reset_launches()
     _, _, opt2, hist2 = train_main(
-        [*run.base, "--train_data_type", "numerical", "--num_update", str(LOOP_STEPS + 2),
+        [*base, "--train_data_type", "numerical", "--num_update", str(steps + 2),
          "--resume", ckpt_dir], dataset_class=run.dataset_class)
-    n_val2 = sum(1 for i in (LOOP_STEPS + 1, LOOP_STEPS + 2)
-                 if i % max(1, (LOOP_STEPS + 2) // 50) == 0)
-    resume_launches, _ = _check_launches("the resumed loop", 2, n_val2 * val_batches)
+    n_val2 = sum(1 for i in (steps + 1, steps + 2) if i % max(1, (steps + 2) // 50) == 0)
+    resume_launches, _ = _check_launches(f"the resumed {path}", loop, 2,
+                                         n_val2 * val_batches)
     resume = dict(start_iteration=hist2["perf"]["start_iteration"],
                   steps=len(hist2["train_loss"]), optimizer_count=opt2.count,
                   optimizer_count_saved=opt.count, losses=hist2["train_loss"])
     if (resume["start_iteration"], resume["steps"], opt.count, opt2.count) != (
-            LOOP_STEPS, 2, LOOP_STEPS, LOOP_STEPS + 2):
+            steps, 2, steps, steps + 2):
         raise AssertionError(f"resume: {resume}")
+    del opt2
+    total = {k: launches[k] + resume_launches[k] for k in launches}
 
-    # finetune on real data from the first run's checkpoint, 2 steps
-    kernels.reset_launches()
-    _, _, opt3, hist3 = train_main(
-        [*run.base, "--train_data_type", "real", "--is_finetune", "--checkpoint_path",
-         ckpt_dir, "--num_update", "2"], dataset_class=run.dataset_class)
-    ft_launches, _ = _check_launches("the finetune", 2, 2 * val_batches)
-    if opt3.count != 2 or not all(math.isfinite(v) for v in hist3["train_loss"]):
-        raise AssertionError(f"finetune: {opt3.count} updates, losses {hist3['train_loss']}")
+    finetune = None
+    if path == "loop":
+        # finetune on real data from the first run's checkpoint, 2 steps
+        _free()
+        kernels.reset_launches()
+        _, _, opt3, hist3 = train_main(
+            [*base, "--train_data_type", "real", "--is_finetune", "--checkpoint_path",
+             ckpt_dir, "--num_update", "2"], dataset_class=run.dataset_class)
+        ft_launches, _ = _check_launches("the finetune", loop, 2, 2 * val_batches)
+        if opt3.count != 2 or not all(math.isfinite(v) for v in hist3["train_loss"]):
+            raise AssertionError(f"finetune: {opt3.count} updates, losses "
+                                 f"{hist3['train_loss']}")
+        finetune = dict(steps=len(hist3["train_loss"]), losses=hist3["train_loss"],
+                        val_rmse=hist3["val"]["rmse"])
+        total = {k: total[k] + ft_launches[k] for k in total}
 
     perf = hist["perf"]
-    emit(dict(phase="loop", data=run.data_source(), tree_s=run.tree_s,
-              reduced=run.reduced(), batch=batch, val_windows=len(val_ds),
+    emit(dict(phase=path, config=loop["config"], data=run.data_source(),
+              tree_s=run.tree_s, reduced=run.reduced(path), batch=batch,
+              test_batch=test_batch, val_windows=len(val_ds),
               train_windows=len(train_ds), val_batches=val_batches,
               validations=n_val, wall_s=wall,
               loop_steps_per_s=perf["loop_steps_per_sec"],
               step_timer_steps_per_s=perf["steps_per_sec"],
               step_timer_ms_p50=perf["step_ms_p50"], step_timer_ms_p95=perf["step_ms_p95"],
-              bare_step_steps_per_s=bare_steps_per_s,
+              bare_step_steps_per_s=BARE_STEPS_PER_S.get(loop["bare"]),
               validation_s=perf["validation_s"], checkpoint_s=perf["checkpoint_s"],
               batch_assembly_s=perf["batch_assembly_s"],
               trace=trace, launches=launches, variants=variants, peak_mem_gb=peak,
               first_losses=losses[:10], last_losses=losses[-10:],
               metrics_card_vs_cpu=metric_cmp, limit_metrics_rel=LOOP_METRICS_REL,
-              reload_bit_equal=True, resume=resume,
-              finetune=dict(steps=len(hist3["train_loss"]), losses=hist3["train_loss"],
-                            val_rmse=hist3["val"]["rmse"])))
-    VARIANTS_BY_PATH["loop"] = variants
-    total = {k: launches[k] + resume_launches[k] + ft_launches[k] for k in launches}
-    run.ckpt_dir = ckpt_dir
+              reload_bit_equal=True, resume=resume, finetune=finetune))
+    VARIANTS_BY_PATH[path] = variants
+    run.ckpt_dirs[path] = ckpt_dir
     return total
 
 
@@ -2207,13 +2346,14 @@ def _rollout_arrays(predictor, normalizer, test_ds, batch, chunk, dev, c, n_step
     return torch.cat(preds), torch.cat(targets)
 
 
-def phase_eval(dev, run: LoopRun) -> dict:
-    """python -m realpdebench_tpu_torch eval, in this process, on the loop's
-    checkpoint in bf16 at test batch 64 and 10 autoregressive steps; the
-    metrics against the same checkpoint through the plain f32 path."""
+def phase_eval(dev, run: LoopRun, path: str = "loop") -> dict:
+    """python -m realpdebench_tpu_torch eval, in this process, on the loop
+    ``path``'s checkpoint in bf16 at the config's test batch and
+    autoregressive steps; the metrics against the same checkpoint through
+    the plain f32 path."""
     import math
 
-    from realpdebench_tpu_torch.config import make_arg_parser
+    from realpdebench_tpu_torch.config import load_config
     from realpdebench_tpu_torch.data.normalizer import build_normalizer
     from realpdebench_tpu_torch.eval.__main__ import build_eval_datasets
     from realpdebench_tpu_torch.eval.__main__ import main as eval_main
@@ -2223,8 +2363,10 @@ def phase_eval(dev, run: LoopRun) -> dict:
         model_kwargs,
     )
 
-    argv = [*run.base, "--checkpoint_path", run.ckpt_dir]
-    torch.cuda.empty_cache()
+    loop, name = LOOPS[path], LOOPS[path]["eval"]
+    ckpt_dir = run.ckpt_dirs[path]
+    argv = [*run.argv(path, evaluating=True), "--checkpoint_path", ckpt_dir]
+    _free()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2232,33 +2374,32 @@ def phase_eval(dev, run: LoopRun) -> dict:
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
 
-    parser = make_arg_parser()
-    parser.add_argument("--checkpoint_path")
-    cfg = run.cfg(parser, ["--checkpoint_path", run.ckpt_dir])
+    cfg = _parse(argv, evaluating=True)
     test_ds, train_ds, norm_ds = build_eval_datasets(cfg, run.dataset_class)
     batch, n_steps = int(cfg.test_batch_size), int(cfg.N_autoregressive)
-    if n_steps != STEPS:
-        raise AssertionError(f"N_autoregressive {n_steps}, expected {STEPS}")
+    if n_steps != load_config(loop["config"]).N_autoregressive:
+        raise AssertionError(f"N_autoregressive {n_steps} is not the shipped one")
     n_predicts = math.ceil(len(test_ds) / batch) * n_steps
-    launches, variants = _check_launches("the evaluation", 0, n_predicts)
+    launches, variants = _check_launches(f"the {name}", loop, 0, n_predicts)
     frames = len(test_ds) * n_steps * SHAPE_OUT[0]
-    if not all(math.isfinite(results[k]) for k in (*METRIC_NAMES, "normalized_mse",
-                                                    "probe_error")):
-        raise AssertionError(f"eval results not finite: {results}")
+    keys = [*METRIC_NAMES, "normalized_mse"]
+    keys += ["probe_error"] if cfg.get("probe_diagnostic") else []
+    if set(results) != set(keys) or not all(math.isfinite(results[k]) for k in keys):
+        raise AssertionError(f"eval results not finite, or not {keys}: {results}")
 
     # the same checkpoint through the plain f32 path, and the bf16 kernels
     # once more for the predictions themselves
     c = 2
-    normalizer = build_normalizer("gaussian", norm_ds)
+    normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds)
     kw = model_kwargs(cfg)
     kw.pop("compute_dtype")
     plain = build_model(train_dataset=train_ds, device=dev, **kw).eval()
-    load_reference_or_orbax_checkpoint(run.ckpt_dir, plain)
+    load_reference_or_orbax_checkpoint(ckpt_dir, plain)
     ref, targets = _rollout_arrays(_PlainPath(plain), normalizer, test_ds, batch,
                                    EVAL_PLAIN_CHUNK, dev, c, n_steps)
     del plain
     bf16 = build_model(train_dataset=train_ds, device=dev, **model_kwargs(cfg))
-    load_reference_or_orbax_checkpoint(run.ckpt_dir, bf16)
+    load_reference_or_orbax_checkpoint(ckpt_dir, bf16)
     pred, _ = _rollout_arrays(bf16, normalizer, test_ds, batch, batch, dev, c, n_steps)
     del bf16
     rel_l2 = ((pred[..., :c] - ref[..., :c]).norm() / ref[..., :c].norm()).item()
@@ -2266,35 +2407,142 @@ def phase_eval(dev, run: LoopRun) -> dict:
     ref_metrics = dict(zip(METRIC_NAMES, (float(v) for v in eval_metrics(
         ref, targets, c, batch if n_steps > 4 else None))))
     cmp, bad = {}, [] if rel_l2 <= ROLLOUT_REL_L2 else ["predictions"]
-    for name in METRIC_NAMES:
-        got, want = results[name], ref_metrics[name]
+    for m in METRIC_NAMES:
+        got, want = _compared(m, results[m]), _compared(m, ref_metrics[m])
         small = abs(want) < EVAL_SMALL
         err = abs(got - want) if small else abs(got - want) / abs(want)
-        cmp[name] = dict(bf16=got, f32_plain=want, err=err,
-                         limit=EVAL_METRIC_ABS if small else EVAL_METRIC_REL,
-                         kind="abs" if small else "rel")
-        bad += [] if err <= cmp[name]["limit"] else [name]
+        cmp[m] = dict(bf16=results[m], f32_plain=ref_metrics[m], err=err,
+                      limit=EVAL_METRIC_ABS if small else EVAL_METRIC_REL,
+                      kind="abs" if small else "rel")
+        bad += [] if err <= cmp[m]["limit"] else [m]
     if bad:
         raise AssertionError(f"bf16 eval vs plain f32 eval: {bad}: rel_l2 {rel_l2}, {cmp}")
-    emit(dict(phase="eval", data=run.data_source(), batch=batch, n_autoregressive=n_steps,
-              test_windows=len(test_ds), results=results, eval_s=secs,
-              frames_per_s=frames / secs, launches=launches, variants=variants,
-              peak_mem_gb=peak, vs_plain_f32=dict(pred_rel_l2=rel_l2,
-                                                  limit_rel_l2=ROLLOUT_REL_L2,
-                                                  metrics=cmp)))
-    VARIANTS_BY_PATH["eval"] = variants
+    del pred, ref, targets
+    emit(dict(phase=name, config=loop["config"], data=run.data_source(),
+              reduced=run.reduced(path, evaluating=True), batch=batch,
+              n_autoregressive=n_steps, test_windows=len(test_ds), results=results,
+              eval_s=secs, frames_per_s=frames / secs, launches=launches,
+              variants=variants, peak_mem_gb=peak,
+              vs_plain_f32=dict(pred_rel_l2=rel_l2, limit_rel_l2=ROLLOUT_REL_L2,
+                                metrics=cmp)))
+    VARIANTS_BY_PATH[name] = variants
+    return launches
+
+
+def phase_arrow(dev, run: LoopRun):
+    """The Arrow (Hugging Face V2) backend, where this host imports datasets
+    and pyarrow: the loop's tree written through the converter's writer,
+    ARROW_WINDOWS windows of each split and type against the HDF5 class's
+    (in memory where h5py is missing; mask_prob 0, noise 0) bit for bit,
+    the seconds a window of both backends, and the bf16 FNO loop for ARROW_STEPS steps with
+    --use_hf_dataset true (exact counts). Returns its launches, or None
+    where the host lacks the packages."""
+    import importlib.util
+    import math
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("datasets", "pyarrow")}
+    if not all(have.values()):
+        emit(dict(phase="arrow", host_imports=have,
+                  skipped="this host does not import datasets and pyarrow: the Arrow "
+                          "backend is held by the CPU tests alone"))
+        return None
+    import datasets
+    import pyarrow
+
+    from realpdebench_tpu_torch.data.fluid import Cylinder
+    from realpdebench_tpu_torch.data.hf_datasets import CylinderHFDataset
+    from realpdebench_tpu_torch.tools import convert_hdf5_to_hf as conv
+    from realpdebench_tpu_torch.train.__main__ import main as train_main
+
+    keys = {k: LOOP_OVERRIDES[k][0] for k in (
+        "n_sim_frame", "n_sim_in_distribution", "n_sim_out_distribution",
+        "generate_ids_if_missing")}
+    h5_cls = run.dataset_class or Cylinder
+    for dtype in ("real", "numerical"):     # the id files the index files come from
+        h5_cls("cylinder", run.root, dtype, "train", **keys)
+    # the tree as Arrow: from the HDF5 files where there are files, else
+    # from the same arrays through the converter's writer
+    t0 = time.perf_counter()
+    if run.arrays is None:
+        conv.convert_dataset_v2(run.root, "cylinder")
+    else:
+        for dtype, sims in run.arrays.items():
+            conv.write_dataset_v2(f"{run.root}/cylinder", dtype, (
+                conv.fluid_row(n, ch["u"], ch["v"], ch.get("p"))
+                for n, ch in sorted(sims.items())))
+    write_s = time.perf_counter() - t0
+
+    windows = []
+    for mode in ("train", "val", "test"):
+        for dtype in ("real", "numerical"):
+            ds = [cls("cylinder", run.root, dtype, mode, mask_prob=0.0, noise_scale=0.0,
+                      **keys) for cls in (h5_cls, CylinderHFDataset)]
+            if len(ds[0]) != len(ds[1]):
+                raise AssertionError(f"{mode}/{dtype}: {len(ds[0])} HDF5 windows, "
+                                     f"{len(ds[1])} Arrow windows")
+            if not len(ds[0]):      # numerical data has a train split alone
+                windows.append(dict(split=mode, type=dtype, windows=0))
+                continue
+            picks = np.linspace(0, len(ds[0]) - 1, ARROW_WINDOWS).astype(int).tolist()
+            items, secs = [], []
+            for d in ds:
+                t0 = time.perf_counter()
+                items.append([d[i] for i in picks])
+                secs.append((time.perf_counter() - t0) / len(picks))
+            for i, ref, got in zip(picks, *items):
+                if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                           for a, b in zip(ref, got)):
+                    raise AssertionError(f"{mode}/{dtype} window {i}: the Arrow item "
+                                         "differs from the HDF5 class's")
+            windows.append(dict(split=mode, type=dtype, windows=len(ds[0]), checked=picks,
+                                shape=list(items[0][0][0].shape[1:]), bit_equal=True,
+                                hdf5_class_s_per_window=secs[0],
+                                arrow_s_per_window=secs[1]))
+
+    # the bf16 FNO loop on the Arrow tree
+    loop = LOOPS["loop"]
+    base = [*run.argv("loop"), "--use_hf_dataset", "true", "--train_data_type", "numerical",
+            "--num_update", str(ARROW_STEPS), "--results_path", f"{run.work}/arrow"]
+    val_batches = math.ceil(len(CylinderHFDataset("cylinder", run.root, "real", "val",
+                                                  **keys)) / int(_parse(base).test_batch_size))
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, _, _, hist = train_main(base)
+    wall = time.perf_counter() - t0
+    n_val = ARROW_STEPS // max(1, ARROW_STEPS // 50)
+    launches, variants = _check_launches("the Arrow-backed loop", loop, ARROW_STEPS,
+                                         n_val * val_batches)
+    if len(hist["train_loss"]) != ARROW_STEPS or not all(
+            math.isfinite(v) for v in hist["train_loss"]):
+        raise AssertionError(f"the Arrow-backed loop's losses: {hist['train_loss']}")
+    emit(dict(phase="arrow", host_imports=have, datasets=datasets.__version__,
+              pyarrow=pyarrow.__version__, data=run.data_source(), write_s=write_s,
+              windows=windows, steps=ARROW_STEPS, validations=n_val, wall_s=wall,
+              loop_steps_per_s=hist["perf"]["loop_steps_per_sec"],
+              batch_assembly_s=hist["perf"]["batch_assembly_s"],
+              losses=hist["train_loss"], launches=launches, variants=variants,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    VARIANTS_BY_PATH["arrow"] = variants
     return launches
 
 
 def loop_and_eval(dev) -> dict:
-    """The loop and eval phases on one synthetic tree; their launch counts."""
+    """The loop and eval phases of each loop path, then the Arrow backend,
+    on one synthetic tree; their launch counts by path."""
     run = LoopRun()
+    out = {}
     try:
-        out = {"loop": phase_loop(dev, run, BARE_STEPS_PER_S.get("train"))}
-        torch.cuda.empty_cache()
-        out["eval"] = phase_eval(dev, run)
+        for path, loop in LOOPS.items():
+            out[path] = phase_loop(dev, run, path)
+            out[loop["eval"]] = phase_eval(dev, run, path)
+        arrow = phase_arrow(dev, run)
+        if arrow is not None:
+            out["arrow"] = arrow
     finally:
         run.close()
+    _free()
     return out
 
 
@@ -2303,8 +2551,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     if sys.argv[1:] == ["--only-loop"]:
-        # iterating on the entry points: the loop and eval phases alone,
-        # without the summary and result lines
+        # iterating on the entry points: the loop, eval and Arrow phases
+        # alone, without the summary and result lines
         loop_and_eval(dev)
         return
     summary = phase_kernels(dev)
@@ -2320,6 +2568,8 @@ def main() -> None:
     phase_geometries(dev)
     summary.update(phase_ta(dev))
     by_path = {"rollout": phase_slice(dev), "train": phase_train(dev)}
+    torch.cuda.empty_cache()
+    by_path["train_f32"] = phase_train(dev, compute_dtype=None)
     torch.cuda.empty_cache()
     norm = gaussian_normalizer()
     by_path["fsi_train"] = phase_fsi_train(dev, norm)

@@ -84,6 +84,15 @@ def load_config(path: str, **overrides) -> Config:
     return Config(**data)
 
 
+def _flag(text: str) -> bool:
+    import yaml
+
+    value = yaml.safe_load(text)
+    if not isinstance(value, bool):
+        raise argparse.ArgumentTypeError(f"expected true or false, got {text!r}")
+    return value
+
+
 def make_arg_parser(description="RealPDEBench (PyTorch)") -> argparse.ArgumentParser:
     """The JAX package's shared CLI flags, plus ``--device``."""
     # no abbreviations: a key the parser does not know is a config override
@@ -91,11 +100,13 @@ def make_arg_parser(description="RealPDEBench (PyTorch)") -> argparse.ArgumentPa
     parser.add_argument("--config", type=str, default="configs/cylinder/fno.yaml")
     parser.add_argument("--train_data_type", type=str, default="numerical",
                         help="numerical | real")
-    parser.add_argument("--is_finetune", action="store_true",
-                        help="enable finetuning mode")
-    parser.add_argument("--use_hf_dataset", action="store_true",
-                        help="Use the HuggingFace Arrow-backed dataset source")
-    parser.add_argument("--hf_auto_download", action="store_true")
+    # the JAX package's switches; here a bare ``--flag`` is true, as there,
+    # and ``--flag true|false`` is taken too
+    flag = dict(nargs="?", const=True, default=False, type=_flag)
+    parser.add_argument("--is_finetune", help="enable finetuning mode", **flag)
+    parser.add_argument("--use_hf_dataset",
+                        help="Use the HuggingFace Arrow-backed dataset source", **flag)
+    parser.add_argument("--hf_auto_download", **flag)
     parser.add_argument("--hf_repo_id", type=str,
                         default="AI4Science-WestlakeU/RealPDEBench")
     parser.add_argument("--hf_endpoint", type=str, default=None)

@@ -4,9 +4,8 @@ Counterpart of ``realpdebench_tpu/eval/__main__.py`` (reference
 `realpdebench/eval.py:57-367`): load a checkpoint, roll it out
 autoregressively over the real test split, and run the 13-metric sweep
 (chunked per eval batch when N_autoregressive > 4) on the device, plus the
-probe diagnostic. The result plots and probe plots need matplotlib and are
-not ported (ROADMAP.md queue A): ``N_plot`` > 0, or ``N_plot_probe`` > 0
-with ``probe_diagnostic``, raises.
+probe diagnostic; the first batch's result plots (``N_plot``) and probe
+plots (``N_plot_probe``) need matplotlib, imported where they are drawn.
 """
 
 import datetime
@@ -24,12 +23,14 @@ from realpdebench_tpu_torch.eval.metrics import (
     eval_metrics,
     infer_unmeasured_channels,
 )
+from realpdebench_tpu_torch.eval.plots import plot_result
 from realpdebench_tpu_torch.eval.probes import probe_diagnostic
 from realpdebench_tpu_torch.eval.rollout import finalize_rollout, make_rollout_fn
 from realpdebench_tpu_torch.models.registry import build_model, resolve_device
 from realpdebench_tpu_torch.train.loop import (
     _dataset_class,
     check_single_device,
+    hf_kwargs,
     load_reference_or_orbax_checkpoint,
     model_kwargs,
     param_count,
@@ -41,9 +42,11 @@ def build_eval_datasets(cfg, dataset_class=None):
     """(test, train, normalizer) datasets per reference eval.py:91-260: the
     real test split at the autoregressive horizon, the train split (shape
     probe) and the numerical train split (normalizer statistics)."""
-    cls = dataset_class or _dataset_class(cfg.dataset_name,
-                                          bool(cfg.get("use_hf_dataset", False)))
+    use_hf = bool(cfg.get("use_hf_dataset", False))
+    cls = dataset_class or _dataset_class(cfg.dataset_name, use_hf)
     common = dict(dataset_name=cfg.dataset_name, dataset_root=cfg.dataset_root)
+    if use_hf:
+        common.update(hf_kwargs(cfg))
     gen = {}
     for k in ("in_step", "out_step", "interval", "trunk_length", "n_sim_frame",
               "sub_s_real", "sub_s_numerical", "train_ratio",
@@ -66,11 +69,6 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
     device, and an error where there is none); returns the metrics."""
     device = resolve_device(device, "run_eval evaluates")
     check_single_device(cfg)
-    if int(cfg.get("N_plot", 0) or 0) > 0 or (
-            cfg.get("probe_diagnostic") and int(cfg.get("N_plot_probe", 0) or 0) > 0):
-        raise NotImplementedError(
-            "result and probe plots need matplotlib and are not ported "
-            "(ROADMAP.md queue A); pass --N_plot 0 --N_plot_probe 0")
 
     test_ds, train_ds, norm_ds = build_eval_datasets(cfg, dataset_class)
     loader = DataLoader(test_ds, batch_size=int(cfg.test_batch_size),
@@ -95,7 +93,7 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
     pred_list, target_list, probe_errors, nmses = [], [], [], []
     batches = to_device(loader, device)
     try:
-        for batch in batches:
+        for batch_idx, batch in enumerate(batches):
             x, y = batch[0], batch[1]
             n_real = int(batch[2].sum()) if len(batch) > 2 else x.shape[0]
             pred_norm, xn, yn = rollout(x, y)
@@ -104,10 +102,16 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
             )
             nmses.append(nmse)
             pred, target = pred_phys[:n_real], target_phys[:n_real]
+            if batch_idx == 0 and int(cfg.get("N_plot", 0)) > 0:
+                plot_result(pred, target, exp_path, int(cfg.N_plot), unmeasured_c)
             if cfg.get("probe_diagnostic"):
+                kwargs = {}
+                if batch_idx == 0:
+                    kwargs = dict(N_plot=int(cfg.get("N_plot_probe", 0)),
+                                  exp_path=exp_path)
                 probe_errors.extend(
                     probe_diagnostic(pred, target, test_ds.d, test_ds.center_x,
-                                     test_ds.center_y, test_ds.sub_s_real)
+                                     test_ds.center_y, test_ds.sub_s_real, **kwargs)
                 )
             pred_list.append(pred)
             target_list.append(target)

@@ -4,12 +4,14 @@ Counterpart of ``realpdebench_tpu/eval/probes.py`` (reference
 `realpdebench/utils/metrics.py:133-230`, ``probe_diagnostic``): time-averaged
 profiles at 9 y-probes × 4 x-stations downstream of the body (1D..4D, or
 1D..3D at half-steps when the domain is short), normalized to the target's
-min/max per station, mean-abs-error per station. Numpy on the host, once
-per eval batch. The probe plots need matplotlib, which the port's GPU host
-lacks: they are not ported (ROADMAP.md queue A) and asking for them raises.
+min/max per station, mean-abs-error per station, optional plots. Numpy on
+the host, once per eval batch; matplotlib is imported only where the
+probe plots are drawn.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -78,6 +80,8 @@ def probe_diagnostic(
         probe_pred_list[i] = probe_pred_list[i] / nrm * 1.5
         probe_target_list[i] = probe_target_list[i] / nrm * 1.5
 
+    # N_plot 0 draws nothing and imports nothing (the JAX package imports
+    # matplotlib and makes the empty directory even then)
     if exp_path is not None and N_plot:
         _plot_probes(
             probe_pred_list, probe_target_list, probe_y, station_labels,
@@ -91,6 +95,37 @@ def _host(a) -> np.ndarray:
 
 
 def _plot_probes(pred_list, target_list, probe_y, labels, n_plot, exp_path):
-    raise NotImplementedError(
-        "probe plots need matplotlib and are not ported (ROADMAP.md queue A); "
-        "set N_plot_probe 0")
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    out_dir = os.path.join(exp_path, "probe_diagnostic")
+    os.makedirs(out_dir, exist_ok=True)
+    for comp, comp_name in ((0, "u"), (1, "v")):
+        for idx in range(n_plot):
+            fig, axes = plt.subplots(
+                1, len(pred_list), figsize=(3 * len(pred_list), 6)
+            )
+            if len(pred_list) == 1:
+                axes = [axes]
+            y_axis = (
+                np.linspace(-1, 1, len(probe_y)) if comp == 0 else probe_y
+            )
+            for i, ax in enumerate(axes):
+                if target_list[i].shape[-1] <= comp:
+                    continue
+                ax.plot(target_list[i][idx, :, comp], y_axis, marker="o",
+                        label="Target", color="blue")
+                ax.plot(pred_list[i][idx, :, comp], y_axis, marker="x",
+                        label="Pred", color="orange")
+                ax.set_ylabel("$y/D$")
+                ax.set_xlabel("$u/U_0$")
+                ax.set_title(f"${labels[i]}$")
+                ax.legend()
+            plt.suptitle("Probe Based Diagnostic")
+            plt.tight_layout()
+            plt.savefig(
+                os.path.join(out_dir, f"probe_diagnostic_{comp_name}_{idx}.pdf")
+            )
+            plt.close()

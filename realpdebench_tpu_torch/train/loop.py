@@ -55,8 +55,9 @@ def build_datasets(cfg, train_data_type: str, use_hf: bool = False,
                    dataset_class=None):
     """Dataset triplet (train / val / normalizer) per reference
     train.py:81-267. Val is always the real val split; the normalizer
-    always streams the numerical train split. ``dataset_class`` replaces
-    the scenario's class (``data.fluid.with_arrays``)."""
+    always streams the numerical train split. ``use_hf`` reads the Arrow
+    tree (``data/hf_datasets``); ``dataset_class`` replaces the scenario's
+    class (``data.fluid.with_arrays``)."""
     name = cfg.dataset_name
     common = dict(dataset_name=name, dataset_root=cfg.dataset_root)
     extra_train = dict(
@@ -72,6 +73,8 @@ def build_datasets(cfg, train_data_type: str, use_hf: bool = False,
         if cfg.get(k) is not None:
             gen[k] = cfg.get(k)
 
+    if use_hf:
+        common.update(hf_kwargs(cfg))
     cls = dataset_class or _dataset_class(name, use_hf)
     train_ds = cls(mode="train", dataset_type=train_data_type,
                    **common, **extra_train, **gen)
@@ -80,12 +83,23 @@ def build_datasets(cfg, train_data_type: str, use_hf: bool = False,
     return train_ds, val_ds, norm_ds
 
 
+def hf_kwargs(cfg) -> dict:
+    """The Arrow datasets' download options, from the config."""
+    return dict(
+        hf_auto_download=bool(cfg.get("hf_auto_download", False)),
+        hf_repo_id=cfg.get("hf_repo_id", "AI4Science-WestlakeU/RealPDEBench"),
+        hf_endpoint=cfg.get("hf_endpoint"),
+        hf_revision=cfg.get("hf_revision"),
+    )
+
+
 def _dataset_class(name: str, use_hf: bool):
     if use_hf:
-        raise NotImplementedError(
-            "the HuggingFace Arrow datasets (data/hf_datasets) are not ported: "
-            "they need the network and pyarrow (ROADMAP.md queue A); use the "
-            "HDF5 tree")
+        from realpdebench_tpu_torch.data.hf_datasets import HF_DATASETS
+
+        if name not in HF_DATASETS:
+            raise ValueError(f"Dataset {name} not supported (hf)")
+        return HF_DATASETS[name]
     from realpdebench_tpu_torch.data.combustion import CombustionDataset
     from realpdebench_tpu_torch.data.fluid import FLUID_DATASETS
 

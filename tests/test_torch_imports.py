@@ -1,8 +1,10 @@
 """The port stands alone: importing every module of realpdebench_tpu_torch
-loads neither JAX nor the JAX package, and running it on the CPU (the FNO,
-the UNet and the Galerkin Transformer) never builds or loads the CUDA
-kernels. Checked in a fresh interpreter, since this
-test process has both packages loaded."""
+(the Arrow data layer, the converter and the plots among them) loads
+neither JAX nor the JAX package, nor the data layer's optional packages
+(datasets, pyarrow, huggingface_hub, h5py, matplotlib), and running it on
+the CPU (the FNO, the UNet and the Galerkin Transformer) never builds or
+loads the CUDA kernels. Checked in a fresh interpreter, since this test
+process has both packages loaded."""
 
 import os
 import subprocess
@@ -23,6 +25,13 @@ _SCRIPT = textwrap.dedent("""
                  if m == "jax" or m.startswith("jax.") or m == "realpdebench_tpu"
                  or m.startswith("realpdebench_tpu."))
     assert not bad, bad
+    # the data layer's optional packages load only where they are used
+    lazy = sorted(m for m in ("datasets", "pyarrow", "huggingface_hub", "h5py",
+                              "matplotlib") if m in sys.modules)
+    assert not lazy, lazy
+    for n in ("data.hf_datasets", "data.hf_download", "tools.convert_hdf5_to_hf",
+              "eval.plots", "eval.probes"):
+        assert pkg.__name__ + "." + n in names, n
 
     def refuse_build():
         raise AssertionError("CUDA kernels built during a CPU run")
@@ -57,7 +66,7 @@ _SCRIPT = textwrap.dedent("""
     gk.loss(torch.ones(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3)).backward()
     assert kernels.library.cache_info().currsize == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    assert len(names) >= 16, names
+    assert len(names) >= 21, names
     print("OK", len(names))
 """)
 

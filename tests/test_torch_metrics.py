@@ -8,6 +8,9 @@ at odd and even t/h/w, c of 1, 2 and 3, and chunked; the radial bins and
 band edges equal; inputs as numpy arrays or torch tensors.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -90,9 +93,19 @@ def test_probe_diagnostic_matches_jax(geometry):
         np.testing.assert_allclose(got, ref, rtol=1e-5)
 
 
-def test_probe_plots_are_not_ported(tmp_path):
+def test_probe_plots_are_not_ported(tmp_path, monkeypatch):
+    """The probe plots: N_plot 0
+    draws nothing and needs no matplotlib; N_plot 1 draws the JAX
+    package's two files (``tests/test_torch_plots.py`` holds what is drawn);
+    without matplotlib, asking for a plot raises its ImportError."""
     pred, target = _pair((1, 4, 8, 8), seed=0)
-    assert tp.probe_diagnostic(pred, target, 18, 4, 4, 1, N_plot=0,
-                               exp_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="matplotlib"):
+    errors = tp.probe_diagnostic(pred, target, 18, 4, 4, 1, N_plot=0,
+                                 exp_path=str(tmp_path))
+    assert errors and not os.listdir(tmp_path)
+    assert tp.probe_diagnostic(pred, target, 18, 4, 4, 1, N_plot=1,
+                               exp_path=str(tmp_path)) == errors
+    assert sorted(os.listdir(tmp_path / "probe_diagnostic")) == [
+        "probe_diagnostic_u_0.pdf", "probe_diagnostic_v_0.pdf"]
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError):
         tp.probe_diagnostic(pred, target, 18, 4, 4, 1, N_plot=1, exp_path=str(tmp_path))
