@@ -19,24 +19,33 @@ JSON line each; any failure raises (non-zero exit, no result line):
                these shapes) and, bit for bit against it, its generic one,
                which is also chosen and checked at a [20, 18] map outside
                the instantiated range; K1's and K2's mma variants
-               (bfloat16) and their fma ones (float32, and bfloat16 when
-               named). Two calls of K1, the T-stage and K2 are bit-equal.
+               (bfloat16), K1's fma one (float32, and bfloat16 when named),
+               K2's tf32 one (float32: 3xTF32 on the tensor cores) and,
+               named, its fma one in both dtypes, each also against the
+               variant chosen. Two calls of K1, the T-stage and K2 are
+               bit-equal.
                K1's, the T-stage's and K2's times are device times of
                queued launches (see queued_ms).
   4. backward  the backward and tail kernels, K2A-lite, K2A, K12B, K3F and
                K3B (K2A-lite's, K12B's, K3F's and K3B's mma variants in
                bfloat16 and, named, their fma ones, each also against the
-               other), and the T-stage adjoints (et_adj, it_adj), against
+               other; K12B's tf32 variant in float32 and, named, its fma
+               one, each also against the other; K2's tf32 and fma ones in
+               float32 at this width too), and the T-stage adjoints
+               (et_adj, it_adj), against
                their twins at the training width (B·Tp=832: the f32 twins
                fit the card's memory), in float32 and bfloat16; K2A-lite
                against K2A; two K2A-lite, K12B, K3F and K3B calls bit-equal;
                K1's, K2's, K2A-lite's, K12B's, K3F's and K3B's times at this
-               width as device times of queued launches, the others
-               CUDA-event medians.
+               width as device times of queued launches (K2's and K12B's
+               fma variants beside their chosen ones in both dtypes), the
+               others CUDA-event medians.
   4b. geometry every FNO kernel against its twin at the other shipped
                geometries (combustion: width 64, fsi: width 128, modes
                4/16/16) at the cylinder's windows and padding, batch 2, in
-               both dtypes, and which of K2A-lite and K2A each takes.
+               both dtypes (K2 and K12B mma in bfloat16, tf32 in float32,
+               asserted: every shipped geometry takes it), and which of
+               K2A-lite and K2A each takes.
   5. slice     the cylinder FNO3d at the benchmark configuration (width 64,
                4 layers, bf16 compute, seeded random weights) rolled out 10
                steps at batch 8 through make_rollout_fn; the launch counters
@@ -45,6 +54,11 @@ JSON line each; any failure raises (non-zero exit, no result line):
                same rollout through the plain f32 path on the card; rollout
                frames/s; then torch.profiler over three more rollouts
                (slice_profile).
+  5a. slice_f32 the same rollout in float32 as the shipped config runs it
+               (compute_dtype null): exact launch and variant counts (K1
+               fma, K2 tf32, the T-stage registers), within KERNEL_TOL's
+               f32 bound (1e-4, relative L2 and max|Δ|/max|ref|) of the
+               plain f32 rollout; frames/s.
   6. train     bench.py's training step (batch 32, Adam at lr 1e-4, cosine
                over 4000 updates, no clipping, Identity normalizer) through
                make_train_step: one counted step (exact launch counts),
@@ -56,14 +70,16 @@ JSON line each; any failure raises (non-zero exit, no result line):
   7. profile   torch.profiler over three more training steps: device time
                by kernel, the host's wall time, the device's idle share.
   7a. train_f32 phases 6-7 for the same step as the shipped config runs
-               it, in float32 (compute_dtype null): every kernel in its fma
-               variant (the T-stage registers), the loss, every gradient
+               it, in float32 (compute_dtype null): K2 and K12B in their
+               tf32 variants, the other kernels in their fma ones (the
+               T-stage registers), the loss, every gradient
                and the running statistics against the plain f32 step within
                F32_LIMITS (1e-5 relative; 1e-4 relative L2); then its
                profile (train_f32_profile).
   7b. fsi_train the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16,
                batch 32, Gaussian normalizer) trained in float32 (the
-               config's dtype) and bfloat16: one counted step each (exact
+               config's dtype; K2 and K12B tf32 at width 128 too) and
+               bfloat16: one counted step each (exact
                launch and variant counts), the loss and every gradient
                against the plain f32 step at batch 2, two passes bit-equal,
                steps/s and peak memory.
@@ -182,7 +198,8 @@ must move (inputs read once, outputs written once) over HBM's 3.35 TB/s and
 its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
 67 TFLOP/s FP32), from the published H100 SXM figures at 700 W. Then the
 per-kernel summary line (launches by path, and by variant for the kernels
-that have variants), and the last line {"ok": true, "device": {...}}.
+that have variants; K2's and K12B's f32 route under "tf32" and
+"train_width_tf32"), and the last line {"ok": true, "device": {...}}.
 
 The port imports neither JAX nor the JAX package; neither does this script.
 """
@@ -338,9 +355,11 @@ GK_ROLLOUT_REL_L2, GK_ROLLOUT_MAX = 5e-2, 1e-1
 GK_LOSS_REL, GK_GRAD_REL_L2 = 1e-2, 5e-2
 
 # published H100 SXM peaks (dense, 700 W): HBM, and the operations of a
-# bf16 row on the tensor cores, of an f32 row on the FP32 pipes
+# bf16 row on the tensor cores, of an f32 row on the FP32 pipes, and of the
+# tf32 variants' f32 rows on the tensor cores ("tf32"): their products
+# counted once, as a bf16 row's are, not three times for the 3xTF32 passes
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 _PALLAS = "realpdebench_tpu/ops/pallas/"
 SOURCES = {
@@ -368,11 +387,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, ops: float, dtype) -> dict:
+def bound(n_bytes: float, ops: float, dtype, variant: str = "") -> dict:
     """The least time the card could take to move ``n_bytes`` and do
-    ``ops`` operations in ``dtype``, and which of the two sets it."""
+    ``ops`` operations in ``dtype`` (on the tensor cores' tf32 peak for the
+    ``tf32`` variant), and which of the two sets it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["tf32" if variant == "tf32" else dtype] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=n_bytes, ops=ops)
@@ -574,6 +594,7 @@ def phase_kernels(dev) -> dict:
         tol = KERNEL_TOL[dtype]
         rows, times = [], {}
         chosen = "mma" if dtype == torch.bfloat16 else "fma"
+        k2_chosen = "mma" if dtype == torch.bfloat16 else "tf32"
         for act in ("none", "exact"):
             k1 = lambda **kw: fl.k1(x, a, b, Hp=HP, Wp=WP, m2=M2, m3=M3, act=act, **kw)
             k1p = lambda: fl.k1_plain(x, a, b, cst, Hp=HP, Wp=WP, act=act)
@@ -599,32 +620,45 @@ def phase_kernels(dev) -> dict:
                                     act=act, **kw)
             k2p = lambda: fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP,
                                       act=act)
-            (s, st), (s_ref, st_ref) = run_as("k2", chosen, k2), k2p()
+            (s, st), (s_ref, st_ref) = run_as("k2", k2_chosen, k2), k2p()
             sr = s_ref.float().view(-1, C)
             terms = torch.stack([sr.abs().sum(0), (sr * sr).sum(0)])
-            held = [("k2", s, st)]
-            if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
-                held.append(("k2_fma", *run_as("k2", "fma", lambda: k2(variant="fma"))))
-            for name, sv, stv in held:
+            # the fma variant, named, on the same inputs: against the twin and
+            # against the variant chosen (mma in bf16, tf32 in f32)
+            fma_s, fma_st = run_as("k2", "fma", lambda: k2(variant="fma"))
+            for name, sv, stv in (("k2", s, st), ("k2_fma", fma_s, fma_st)):
                 rows.append(compare(f"{name}/s/{act}", sv, s_ref, tol))
                 rows.append(compare_sums(f"{name}/stats/{act}", stv, st_ref, terms))
+            rows.append(compare(f"k2_fma/vs_{k2_chosen}/s/{act}", fma_s, s, tol))
+            rows.append(compare_sums(f"k2_fma/vs_{k2_chosen}/stats/{act}", fma_st, st, terms))
+            del fma_s, fma_st
             if not all(torch.equal(u, v) for u, v in zip((s, st), k2())):
                 raise AssertionError(f"two identical k2 calls differ ({dtype})")
             if act == "exact":   # layers 1.. of the path; layer 0 is 'none'
                 times = dict(k1=(queued_ms([k1], n=16, reps=5), cuda_ms(k1p)),
                              k2=(queued_ms([k2], n=8, reps=5), cuda_ms(k2p)))
                 single = dict(k1=cuda_ms(k1), k2=cuda_ms(k2))
+                times["k2_fma"] = (queued_ms([lambda: k2(variant="fma")], n=4, reps=3),
+                                   times["k2"][1])
                 if dtype == torch.bfloat16:
-                    times["k2_fma"] = (cuda_ms(lambda: k2(variant="fma")), times["k2"][1])
                     times["k1_fma"] = (queued_ms([lambda: k1(variant="fma")], n=8, reps=5),
                                        times["k1"][1])
                 # the DFT tables (under 0.1 MB) are left out of the bytes
+                k2_work = (nbytes(gsp, x, a, b, wp, bp, s, st),
+                           dft_ops(BT) + BT * HP * WP * C * C * 2, dtype)
                 work = dict(k1=bound(nbytes(x, a, b, y), dft_ops(BT), dtype),
-                            k2=bound(nbytes(gsp, x, a, b, wp, bp, s, st),
-                                     dft_ops(BT) + BT * HP * WP * C * C * 2, dtype))
-                work["k2_fma"] = work["k2"]
+                            k2=bound(*k2_work, k2_chosen), k2_fma=bound(*k2_work))
                 work["k1_fma"] = work["k1"]
                 rows += check_tstage_generic(dev, g, dtype, y, tol)
+                if dtype == torch.float32:   # K2's f32 route, for the summary line
+                    mine = [r for r in rows if r["name"].startswith("k2/s/")]
+                    summary["k2"]["tf32"] = dict(
+                        max_abs_err=max(r["max_abs_err"] for r in mine),
+                        max_rel_err=max(r["max_rel_err"] for r in mine),
+                        ms=times["k2"][0], plain_ms=times["k2"][1],
+                        fma_variant_ms=times["k2_fma"][0], single_launch_ms=single["k2"],
+                        bound_ms=work["k2"]["bound_ms"], bound_by=work["k2"]["bound_by"],
+                        fma_bound_ms=work["k2_fma"]["bound_ms"])
         del s, st, s_ref, st_ref, sr, y, gsp
         library = {}
         for kind in ("et", "it"):
@@ -690,7 +724,8 @@ def k3b_terms(s, tail, gl, dims, tail_dims) -> tuple:
 
 def phase_backward(dev) -> dict:
     """The backward and tail kernels against their twins at the training
-    width; returns per-kernel summaries (bf16 errors and times)."""
+    width, and K2 there in f32; returns per-kernel summaries (bf16 errors
+    and times; K2's and K12B's f32 route under "tf32")."""
     B = TRAIN_BATCH
     BT = B * TP
     T, H, W = SHAPE_IN[:3]
@@ -709,9 +744,28 @@ def phase_backward(dev) -> dict:
         k1 = lambda **kw: fl.k1(x, a, b, **geo, act="exact", **kw)
         y = k1()
         gsp = rn(*y.shape).to(dtype)
-        k2 = lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact")
-        s, st = k2()
+        k2 = lambda **kw: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact", **kw)
+        tc = "mma" if dtype == torch.bfloat16 else "tf32"   # K2's and K12B's choice
+        s, st = run_as("k2", tc, k2)
         rows, times, work, library, single = [], {}, {}, {}, {}
+        if dtype == torch.float32:
+            # the tf32 variant and the fma one against the twin at this width
+            # too (the twin's f32 temporaries fit beside x, y and s), and
+            # against each other; two calls bit-equal
+            s_ref, st_ref = fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP, act="exact")
+            sr = s_ref.view(-1, C)
+            terms = torch.stack([sr.abs().sum(0), (sr * sr).sum(0)])
+            del sr
+            fma_s, fma_st = run_as("k2", "fma", lambda: k2(variant="fma"))
+            for name, sv, stv in (("k2", s, st), ("k2_fma", fma_s, fma_st)):
+                rows.append(compare(f"{name}/s", sv, s_ref, tol))
+                rows.append(compare_sums(f"{name}/stats", stv, st_ref, terms))
+            rows.append(compare("k2_fma/vs_tf32/s", fma_s, s, tol))
+            rows.append(compare_sums("k2_fma/vs_tf32/stats", fma_st, st, terms))
+            if not all(torch.equal(u, v) for u, v in zip((s, st), k2())):
+                raise AssertionError("two identical k2 calls differ (float32, BT 832)")
+            del s_ref, st_ref, fma_s, fma_st, terms
+            torch.cuda.empty_cache()
         # K1 at the width the training step launches it (held against its
         # twin at the rollout width in the kernel phase)
         times["k1"] = (queued_ms([k1], n=8, reps=5), None)
@@ -724,8 +778,10 @@ def phase_backward(dev) -> dict:
         # temporaries do not fit beside this phase's tensors)
         times["k2"] = (queued_ms([k2], n=8, reps=5), None)
         single["k2"] = cuda_ms(k2, reps=10)
-        work["k2"] = bound(nbytes(gsp, x, a, b, wp, bp, s, st),
-                           dft_ops(BT) + BT * HP * WP * C * C * 2, dtype)
+        k2_work = (nbytes(gsp, x, a, b, wp, bp, s, st),
+                   dft_ops(BT) + BT * HP * WP * C * C * 2, dtype)
+        work["k2"], work["k2_fma"] = bound(*k2_work, tc), bound(*k2_work)
+        times["k2_fma"] = (queued_ms([lambda: k2(variant="fma")], n=4, reps=3), None)
         del x, st
         # cotangents at the scale the step gives them: ds ~ 1/n_pos per
         # position, the statistics' cotangents ~ 1/n_pos too
@@ -780,27 +836,29 @@ def phase_backward(dev) -> dict:
         k12 = lambda **kw: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo, act="exact", **kw)
         k12_p = lambda: fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=HP,
                                       Wp=WP, act="exact")
-        got, ref = run_as("k12b", chosen, k12), k12_p()
+        got, ref = run_as("k12b", tc, k12), k12_p()
         if not all(torch.equal(u, w) for u, w in zip(got, k12())):
             raise AssertionError(f"two identical k12b calls differ ({dtype})")
-        held = [("k12b", got)]
-        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
-            held.append(("k12b_fma", run_as("k12b", "fma", lambda: k12(variant="fma"))))
+        # the fma variant, named, on the same inputs: against the twin and
+        # against the variant chosen (mma in bf16, tf32 in f32)
+        held = [("k12b", got), ("k12b_fma", run_as("k12b", "fma", lambda: k12(variant="fma")))]
         # the adjoint DFT, and two [positions, C] x [C, C] products (dz, dWp)
-        work["k12b"] = bound(nbytes(x, a, b, wp, s, ds, ds1, ds2, dy, *got),
-                             dft_ops(BT) + 2 * BT * HP * WP * C * C * 2, dtype)
-        work["k12b_fma"] = work["k12b"]
+        k12b_work = (nbytes(x, a, b, wp, s, ds, ds1, ds2, dy, *got),
+                     dft_ops(BT) + 2 * BT * HP * WP * C * C * 2, dtype)
+        work["k12b"], work["k12b_fma"] = bound(*k12b_work, tc), bound(*k12b_work)
         terms = k12b_terms(x, a, b, s, ds, ds1, ds2, ref[0])
         for kname, gk in held:
             rows.append(compare(f"{kname}/dx", gk[0], ref[0], tol))
             for name, gv, rv, tv in zip(("dwp", "da", "db", "dbp"), gk[1:], ref[1:], terms):
                 rows.append(compare_sums(f"{kname}/{name}", gv, rv, tv))
+        rows.append(compare(f"k12b_fma/vs_{tc}/dx", held[1][1][0], got[0], tol))
+        for name, gv, rv, tv in zip(("dwp", "da", "db", "dbp"), held[1][1][1:], got[1:], terms):
+            rows.append(compare_sums(f"k12b_fma/vs_{tc}/{name}", gv, rv, tv))
         del got, ref, terms, held
         times["k12b"] = (queued_ms([k12], n=8, reps=5), cuda_ms(k12_p, reps=5))
         single["k12b"] = cuda_ms(k12, reps=10)
-        if dtype == torch.bfloat16:
-            times["k12b_fma"] = (queued_ms([lambda: k12(variant="fma")], n=4, reps=3),
-                                 times["k12b"][1])
+        times["k12b_fma"] = (queued_ms([lambda: k12(variant="fma")], n=4, reps=3),
+                             times["k12b"][1])
 
         kw = dict(dims=(B, TP, HP, WP, C), tail_dims=(T, H, W), act="exact")
         tail = (rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128),
@@ -854,9 +912,22 @@ def phase_backward(dev) -> dict:
                                            library=library.get(k),
                                            single_launch=single.get(k))
                                    for k, v in times.items()}))
+        if dtype == torch.float32:   # K2's and K12B's f32 route, for the summary line
+            tf32 = {}
+            for k in ("k2", "k12b"):
+                mine = [r for r in rows if r["name"].startswith(k + "/")]
+                tf32[k] = dict(
+                    max_abs_err=max(r["max_abs_err"] for r in mine),
+                    max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
+                                    for r in mine),
+                    ms=times[k][0], plain_ms=times[k][1], fma_variant_ms=times[k + "_fma"][0],
+                    single_launch_ms=single[k], bound_ms=work[k]["bound_ms"],
+                    bound_by=work[k]["bound_by"], fma_bound_ms=work[k + "_fma"]["bound_ms"])
         if dtype == torch.bfloat16:
             summary["k2_train_width"] = dict(ms=times["k2"][0], single_launch_ms=single["k2"],
-                                             bound_ms=work["k2"]["bound_ms"])
+                                             bound_ms=work["k2"]["bound_ms"],
+                                             fma_variant_ms=times["k2_fma"][0],
+                                             tf32=tf32["k2"])
             summary["k1_train_width"] = dict(ms=times["k1"][0], fma_variant_ms=times["k1_fma"][0],
                                              bound_ms=work["k1"]["bound_ms"])
             for k in ("k2a_lite", "k2a", "k12b", "k3f", "k3b"):
@@ -869,6 +940,7 @@ def phase_backward(dev) -> dict:
             for k in ("k2a_lite", "k12b", "k3f", "k3b"):
                 summary[k].update(fma_variant_ms=times[f"{k}_fma"][0],
                                   single_launch_ms=single[k])
+            summary["k12b"]["tf32"] = tf32["k12b"]
             adj = [r for r in rows if r["name"].startswith("t_stage/")]
             pair = ("t_stage_et_adj", "t_stage_it_adj")
             summary["t_stage_adjoint"] = dict(
@@ -894,8 +966,15 @@ class _PlainPath:
             return self.model(x, reference=True)
 
 
-def phase_slice(dev) -> dict:
-    model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype="bfloat16",
+def phase_slice(dev, compute_dtype="bfloat16") -> dict:
+    """bench.py's rollout through make_rollout_fn in bf16 (phase slice, the
+    kernels' mma variants, within ROLLOUT_* of the plain f32 rollout, then
+    its profile) or, with ``compute_dtype`` None, in float32 as the shipped
+    config runs it (phase slice_f32: K1 fma, K2 tf32, within KERNEL_TOL's
+    f32 bound); returns the launch counts of the counted rollout."""
+    f32 = compute_dtype is None
+    path = "rollout_f32" if f32 else "rollout"
+    model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=compute_dtype,
                         device=dev, generator=make_generator(0), **MODEL).eval()
     g = torch.Generator(device=dev).manual_seed(2)
     x_raw = torch.randn(BATCH, *SHAPE_IN, generator=g, device=dev)
@@ -920,10 +999,10 @@ def phase_slice(dev) -> dict:
             raise AssertionError(f"{k} launched {launches[k]} times in a "
                                  f"{STEPS}-step rollout, expected {n * STEPS}")
     variants = expect_variants(
-        f"a {STEPS}-step rollout", k1={"mma": per_predict["k1"] * STEPS},
-        k2={"mma": per_predict["k2"] * STEPS},
+        f"a {STEPS}-step rollout", k1={"fma" if f32 else "mma": per_predict["k1"] * STEPS},
+        k2={"tf32" if f32 else "mma": per_predict["k2"] * STEPS},
         t_stage={"registers": per_predict["t_stage"] * STEPS})
-    VARIANTS_BY_PATH["rollout"] = variants
+    VARIANTS_BY_PATH[path] = variants
 
     want = (BATCH, STEPS * SHAPE_OUT[0], *SHAPE_OUT[1:])
     if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
@@ -937,11 +1016,13 @@ def phase_slice(dev) -> dict:
                                 STEPS)(x_raw, y_raw)
     rel_l2 = ((pred - ref).norm() / ref.norm()).item()
     max_rel = ((pred - ref).abs().max() / ref.abs().max()).item()
-    row = dict(rel_l2=rel_l2, limit_rel_l2=ROLLOUT_REL_L2,
-               max_abs_over_max_ref=max_rel, limit_max=ROLLOUT_MAX,
+    lim_l2, lim_max = ((KERNEL_TOL[torch.float32],) * 2 if f32
+                       else (ROLLOUT_REL_L2, ROLLOUT_MAX))
+    row = dict(rel_l2=rel_l2, limit_rel_l2=lim_l2,
+               max_abs_over_max_ref=max_rel, limit_max=lim_max,
                ref_abs_max=ref.abs().max().item())
-    if not (rel_l2 <= ROLLOUT_REL_L2 and max_rel <= ROLLOUT_MAX):
-        raise AssertionError(f"bf16 kernel rollout vs f32 plain rollout: {row}")
+    if not (rel_l2 <= lim_l2 and max_rel <= lim_max):
+        raise AssertionError(f"{path}: kernel rollout vs f32 plain rollout: {row}")
 
     secs = []
     for _ in range(5):
@@ -952,11 +1033,12 @@ def phase_slice(dev) -> dict:
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
     frames = BATCH * STEPS * SHAPE_OUT[0]
-    emit(dict(phase="slice", batch=BATCH, steps=STEPS, shape=list(want),
-              launches=launches, variants=variants, vs_plain_f32=row,
+    emit(dict(phase="slice_f32" if f32 else "slice", batch=BATCH, steps=STEPS,
+              shape=list(want), launches=launches, variants=variants, vs_plain_f32=row,
               first_rollout_s=first_s, rollout_s=secs, frames_per_s=frames / med,
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
-    phase_profile(rollout, x_raw, y_raw, "slice_profile")
+    if not f32:
+        phase_profile(rollout, x_raw, y_raw, "slice_profile")
     return launches
 
 
@@ -1009,11 +1091,12 @@ def _fno_vs_plain(what, batch, loss, grads, ref_loss, ref_grads, model, ref_mode
 def phase_train(dev, compute_dtype="bfloat16") -> dict:
     """bench.py's training step through make_train_step, in bf16 (phase
     train, the kernels' mma variants) or, with ``compute_dtype`` None, in
-    float32 as the shipped config runs it (phase train_f32, the fma
-    variants, within F32_LIMITS of the plain step); returns the launch
-    counts of the counted step."""
+    float32 as the shipped config runs it (phase train_f32: K2 and K12B
+    tf32, the others fma, within F32_LIMITS of the plain step); returns
+    the launch counts of the counted step."""
     path = "train" if compute_dtype else "train_f32"
     mm = "mma" if compute_dtype else "fma"
+    tc = "mma" if compute_dtype else "tf32"   # K2's and K12B's
     model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=compute_dtype,
                         device=dev, generator=make_generator(0), **MODEL)
     ref_model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), device=dev, **MODEL)
@@ -1036,7 +1119,7 @@ def phase_train(dev, compute_dtype="bfloat16") -> dict:
         raise AssertionError(f"one {path} step launched {launches}, "
                              f"expected {TRAIN_LAUNCHES}")
     variants = expect_variants(f"one {path} step", **{
-        k: {"registers" if k == "t_stage" else mm: n}
+        k: {"registers" if k == "t_stage" else tc if k in ("k2", "k12b") else mm: n}
         for k, n in TRAIN_LAUNCHES.items() if n})
     VARIANTS_BY_PATH[path] = variants
     grads = _grads(model)
@@ -1727,7 +1810,8 @@ def phase_geometries(dev) -> None:
     """Every FNO kernel against its twin at the other shipped geometries
     (GEOMETRIES: combustion's width 64 and fsi's 128, modes 4/16/16), at
     batch GEO_BATCH, in both dtypes, each in the variant its dtype chooses
-    (mma in bfloat16, fma in float32, asserted per call):
+    (mma in bfloat16, fma in float32; K2 and K12B mma in bfloat16, tf32 in
+    float32: every shipped geometry's block fits; asserted per call):
     K1, the four T-stage maps, K2, K2A and (where the geometry has lite
     statics) K2A-lite, K12B, K3F and K3B. Records which of K2A-lite and K2A
     the geometry's backward takes."""
@@ -1744,6 +1828,7 @@ def phase_geometries(dev) -> None:
             rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
             tol = KERNEL_TOL[dtype]
             mm = "mma" if dtype == torch.bfloat16 else "fma"
+            k2v = k12v = "mma" if dtype == torch.bfloat16 else "tf32"   # asserted per call
             x = rn(BT, HP * WP // 2, 2 * Cg).to(dtype)
             a, b = 1 + 0.1 * rn(Cg), 0.1 * rn(Cg)
             wp, bp = rn(Cg, Cg) / Cg ** 0.5, 0.1 * rn(Cg)
@@ -1755,7 +1840,7 @@ def phase_geometries(dev) -> None:
                 rows.append(compare(f"t_stage/{kind}", got,
                                     fl.t_stage_plain(inp, *fl._tmats_on(dev, kind, TP, m1)), tol))
             gsp = rn(*y.shape).to(dtype)
-            s, st = run_as("k2", mm, lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact"))
+            s, st = run_as("k2", k2v, lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact"))
             s_ref, st_ref = fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP, act="exact")
             sr = s_ref.float().view(-1, Cg)
             rows += [compare("k2/s", s, s_ref, tol),
@@ -1774,8 +1859,8 @@ def phase_geometries(dev) -> None:
                 rows += [compare("k2a_lite/dg", lg, fl.k2a_lite_plain(
                              ds, gsp, y, ds1, ds2, wp, bp, lite, cst, Hp=HP, Wp=WP), tol),
                          compare("k2a_lite/vs_k2a", lg, full, tol)]
-            got = run_as("k12b", mm, lambda: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo,
-                                                     act="exact"))
+            got = run_as("k12b", k12v, lambda: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo,
+                                                       act="exact"))
             ref = fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=HP, Wp=WP, act="exact")
             rows.append(compare("k12b/dx", got[0], ref[0], tol))
             terms = k12b_terms(x, a, b, s, ds, ds1, ds2, ref[0])
@@ -1797,7 +1882,8 @@ def phase_geometries(dev) -> None:
             torch.cuda.synchronize()
             emit(dict(phase="geometry", name=name, dtype=str(dtype).replace("torch.", ""),
                       shapes=dict(BT=BT, Hp=HP, Wp=WP, C=Cg, modes=[m1, m2, m3]),
-                      variant=mm, k2a_route="k2a_lite" if lite is not None else "k2a",
+                      variant=mm, k2_variant=k2v, k12b_variant=k12v,
+                      k2a_route="k2a_lite" if lite is not None else "k2a",
                       worst_rel=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in rows),
                       checks=rows))
@@ -1837,9 +1923,11 @@ def phase_fsi_train(dev, norm) -> dict:
         if launches != TRAIN_LAUNCHES:
             raise AssertionError(f"one fsi step ({dtype}) launched {launches}, "
                                  f"expected {TRAIN_LAUNCHES}")
+        # K2 and K12B: tf32 in f32 at C 128 too (their blocks fit, one an SM)
+        tc = "mma" if cdt else "tf32"
         variants = expect_variants(f"one fsi step ({dtype})", k1={mm: 4},
-                                   t_stage={"registers": 16}, k2={mm: 4}, k2a_lite={mm: 4},
-                                   k12b={mm: 4}, k3f={mm: 1}, k3b={mm: 1})
+                                   t_stage={"registers": 16}, k2={tc: 4}, k2a_lite={mm: 4},
+                                   k12b={tc: 4}, k3f={mm: 1}, k3b={mm: 1})
         first_peak = torch.cuda.max_memory_allocated() / 1e9
         if not bool(torch.isfinite(loss)):
             raise AssertionError(f"fsi training loss {loss.item()} is not finite")
@@ -2567,7 +2655,11 @@ def main() -> None:
         summary["t_stage"][key] = max(summary["t_stage"][key], adjoint[key])
     phase_geometries(dev)
     summary.update(phase_ta(dev))
-    by_path = {"rollout": phase_slice(dev), "train": phase_train(dev)}
+    by_path = {"rollout": phase_slice(dev)}
+    torch.cuda.empty_cache()
+    by_path["rollout_f32"] = phase_slice(dev, compute_dtype=None)
+    torch.cuda.empty_cache()
+    by_path["train"] = phase_train(dev)
     torch.cuda.empty_cache()
     by_path["train_f32"] = phase_train(dev, compute_dtype=None)
     torch.cuda.empty_cache()

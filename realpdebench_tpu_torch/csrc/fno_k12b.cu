@@ -16,7 +16,7 @@
 //   dx [BT, Hp, Wp, C] (T)
 //   partial [fno_k12b_partial_floats] (f32) scratch
 //   out [C*C + 3C] (f32): dWp (row c, column d), then da, db, dbp (fma);
-//       dWp, dbp, da, db (mma)
+//       dWp, dbp, da, db (mma, tf32)
 //
 // What bounds it on an H100: bytes. At training width (BT 832, Hp 70, Wp 134,
 // C 64) a launch moves 4.08 GB (1.22 ms at 3.35 TB/s) and needs 171 GFLOP
@@ -24,7 +24,7 @@
 // 0.17 ms on the tensor cores, 2.6 ms at the FP32 peak. The first version,
 // on FP32 FMAs with both operands from shared memory, ran at 6% of the bound.
 //
-// Two variants, chosen from dtype, shape and alignment before the launch
+// Three variants, chosen from dtype, shape and alignment before the launch
 // (ops/kernels.py::k12b_variant):
 //
 //  * mma (bf16; C in {32, 64, 128}, m3 in {8, 16}, 2*m2 <= 32, Wp <= 256 at C
@@ -55,6 +55,46 @@
 //        warps and a full row of channels per warp, dWp wants channels
 //        spread over warps and positions along K, and both sets of tiles,
 //        hi and lo, do not fit one block's shared memory at C 128.
+//  * tf32 (f32 tensors; the mma variant's widths, W modes, H modes, warps and
+//    alignment): the mma variant's two kernels with every product as 3xTF32
+//    (mma.cuh: each f32 operand a tf32 hi + lo pair, hi.hi + hi.lo + lo.hi
+//    on mma.sync m16n8k8, f32 accumulators; 22 bits a product where a bf16
+//    pair of the same operands carries 16). Every f32 operand is stored
+//    once in shared memory and split in registers on the fragment. The
+//    exact GELU and its derivative take fno::erf_fast (A&S 7.1.26, |error|
+//    <= 3e-7, the size of 3xTF32's own error), as in the mma variant; the
+//    fma variant keeps erff.
+//      - The dz pass keeps the mma variant's block plan. wp is staged as it
+//        is, [c][d], the [n][k] layout of the pointwise product's B operand
+//        (fragments by ldmatrix), as a tf32 hi + lo pair split once a
+//        block, after the H stage, in the memory the dy rings leave, with
+//        the 8 channels d of each k-step in the order 0 2 4 6 1 3 5 7: A
+//        and B take the same order of k, so a lane's ds_eff pair of
+//        channels (a0, a2) is one 8-byte load of ds and of s from global
+//        memory. dX is made by fno_tf32.cuh's h_stage as [hl][c][k] in
+//        f32 and split on the fragment; the DFT tables are f32 from the
+//        host (ops/fno_layer.py::_k12b_tf32_tables). At C 64 the block
+//        takes 85 KB: two blocks (18 warps) an SM, 96 registers a thread;
+//        da and db are fno_tf32.cuh's ColumnSums. ptxas (-Xptxas -v,
+//        sm_90a): 28 bytes of spill stores at <64, 2, 9, 2>, none at the
+//        other instantiations (114-168 registers).
+//      - The dWp pass: tiles of 32 positions of x, s and ds by cp.async (two
+//        stages, rows of C + 8 floats); ds_eff made once a tile by the block
+//        into tf32 hi and lo tiles (and dbp); warp v owns 16 rows of dWp.
+//        Neither operand can come by ldmatrix (both are [k][n] tiles), so
+//        both come by 8-byte shared loads: the rows of the warp's A
+//        fragment are taken in the order c = 16v + 2g (row g), 16v + 2g + 1
+//        (row g + 8), and each pair of 8-column B tiles in the order
+//        d = 16u + 2g (tile 2u), 16u + 2g + 1 (tile 2u + 1); the rows of C +
+//        8 floats put a half-warp's 8-byte loads on 32 banks, and the sums
+//        leave as 16-byte stores in the natural order. x, s and ds are read
+//        a second time here (1.8 ms of the bytes at the training width).
+//        ptxas: 128 registers at <64>, 200 at <128>, no spills.
+//      - What bounds it: the dz pass's latency at 18 warps an SM and 96
+//        registers a thread (tools/torch_tf32_probe.py: one block an SM is
+//        slower, an L2 prefetch of the next row slower still, its loads of
+//        ds and s a sixth of its time), and the dWp pass's second read of
+//        x, s and ds.
 //  * fma (f32 tensors, other shapes; C dividing 256, up to 128): K2's shape,
 //    run on the adjoint factors, with the accumulators added. A block takes
 //    one bt image and 1/kSplit of its rows; for each row h it forms dX[h] =
@@ -63,13 +103,14 @@
 //    columns of dz for channel d, finishes dx there and sums da, db, dbp for
 //    d in registers; a second sweep of the staged columns adds z^T ds_eff
 //    into the thread's C*C/256 dWp entries (registers). Exact f32.
-// No atomics in either: each block writes its partial, and
+// No atomics in any: each block writes its partial, and
 // fno::reduce_partials adds the partials in a fixed order, so a step is
 // deterministic.
 #include <cstdint>
 #include <initializer_list>
 
 #include "fno_common.cuh"
+#include "fno_tf32.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -816,14 +857,446 @@ cudaError_t launch_k12b_mma(const void* x, const void* a, const void* b, const v
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The tf32 variant: the dz pass and the dWp pass on 3xTF32
+// ---------------------------------------------------------------------------
+
+using fno_tf32::kTPad;
+constexpr int kTilePosT = 32;    // positions a tf32 dWp block stages at a time
+constexpr int kDwpPartsT = 396;  // blocks of the tf32 dWp pass: three an SM at C 64 (132 SMs)
+
+// Byte offsets of a tf32 dz block's shared memory (ops/kernels.py::
+// k12b_tf32_smem_bytes computes the same total). The ring region holds the
+// warps' dy rings during the H stage, then wp hi and lo.
+struct DzTf32Layout {
+  int dx, ring, vec, red, total;
+};
+
+inline DzTf32Layout dz_tf32_layout(int C, int m3, int m2x2, int warps) {
+  DzTf32Layout L;
+  const int wt = 2 * C * (C + kTPad) * 4;             // wp [C][C + kTPad] hi, lo; k permuted
+  const int ring = warps * fno_tf32::h_ring_floats(m2x2) * 4;
+  L.dx = 0;                                           // [rows][C][2*m3 + kTPad]
+  L.ring = L.dx + dz_rows(C) * C * (2 * m3 + kTPad) * 4;
+  L.vec = L.ring + (wt > ring ? wt : ring);
+  L.red = L.vec + 4 * C * 4;
+  L.total = L.red + warps * 2 * C * 4;
+  return L;
+}
+
+// x, s and ds two stages each, ds_eff hi and lo, a/b/ds1/ds2, the position
+// groups' dbp shares (four groups)
+inline int dwp_tf32_smem(int C) {
+  return (3 * 2 + 2) * kTilePosT * (C + 8) * 4 + 4 * C * 4 + 4 * C * 4;
+}
+int dwp_tf32_tiles(long long npos) { return (int)((npos + kTilePosT - 1) / kTilePosT); }
+int dwp_tf32_parts(long long npos) {
+  const int tiles = dwp_tf32_tiles(npos);
+  return tiles < kDwpPartsT ? tiles : kDwpPartsT;
+}
+
+// The position of channel e (0..7) of a k-step in the permuted order
+// 0 2 4 6 1 3 5 7: physical k q holds channel 2q, k q + 4 channel 2q + 1.
+__device__ __forceinline__ int k_perm(int e) { return (e >> 1) + (e & 1) * 4; }
+
+// The dz pass. Per (bt, row h), warp = the 16 columns w0.. of W:
+//   dz = [EWr | EWi] (16 x 2*m3) . dX_h (2*m3 x C) + ds_eff (16 x C) . Wp^T (C x C)
+// then du = dz * act'(a*x + b), dx = du * a and the per-channel sums da, db.
+// ah: f32 [nchunks][16][Kpad] (the mma variant's adjoint-H rows, Kpad a
+// multiple of 8); ew: f32 [16 * warps][2*m3], row w = [ewr[w] | ewi[w]].
+template <int C, int KI, int MAXW, int MINB>
+__global__ void __launch_bounds__(MAXW * 32, MINB)
+    k12b_dz_tf32_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                        const float* __restrict__ b, const float* __restrict__ wp,
+                        const float* __restrict__ s, const float* __restrict__ ds,
+                        const float* __restrict__ ds1, const float* __restrict__ ds2,
+                        const float* __restrict__ dy, const float* __restrict__ ah,
+                        const float* __restrict__ ew, float* __restrict__ dx,
+                        float* __restrict__ partial, DzTf32Layout L, int Hp, int Wp, int m2x2,
+                        int act) {
+  constexpr int M3 = KI * 8;
+  constexpr int K3 = 2 * M3;
+  constexpr int kRows = dz_rows(C);
+  constexpr int WS = C + kTPad;
+  constexpr int IS = K3 + kTPad;
+  constexpr int NT = C / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sdx = reinterpret_cast<float*>(smem_raw + L.dx);    // [kRows][C][IS]
+  float* sring = reinterpret_cast<float*>(smem_raw + L.ring);
+  float* swh = sring;           // after the H stage: [C][WS], [c][k_perm d] = hi(wp[c][d])
+  float* swl = swh + C * WS;    // the lo parts
+  float* sa = reinterpret_cast<float*>(smem_raw + L.vec);    // [C] each: a, b, ds1, 2*ds2
+  float* sb = sa + C;
+  float* s1 = sb + C;
+  float* s2 = s1 + C;
+  float* sred = reinterpret_cast<float*>(smem_raw + L.red);  // [warps][2][C]
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int chunk = blockIdx.x, bt = blockIdx.y;
+  const int h0 = chunk * kRows;
+  const int nrows = min(kRows, Hp - h0);
+
+  // ---- constants: a, b, ds1, 2*ds2
+  for (int i = tid; i < C; i += nthreads) {
+    sa[i] = a[i];
+    sb[i] = b[i];
+    s1[i] = ds1[i];
+    s2[i] = 2.f * ds2[i];
+  }
+
+  // ---- adjoint H into sdx[hl][c][part*M3 + m]
+  fno_tf32::h_stage<C, M3, kRows>(dy, ah, sdx, sring + warp * fno_tf32::h_ring_floats(m2x2), bt,
+                                  chunk, m2x2, warp, nwarps, lane);
+  __syncthreads();   // sdx and the constants are complete; the dy rings are free
+
+  // ---- wp as a tf32 pair, each k-step's channels permuted
+  for (int i = tid; i < C * C; i += nthreads) {
+    const int c = i / C, d = i - c * C;
+    uint32_t hi, lo;
+    mma::split_tf32(wp[i], hi, lo);
+    swh[c * WS + (d & ~7) + k_perm(d & 7)] = __uint_as_float(hi);
+    swl[c * WS + (d & ~7) + k_perm(d & 7)] = __uint_as_float(lo);
+  }
+  __syncthreads();
+
+  // ---- main loop: warp = the 16 columns w0.. of every row of the block
+  const int w0 = warp * 16;
+  const bool valid0 = w0 + gq < Wp, valid1 = w0 + gq + 8 < Wp;
+  // forward-W A fragments in f32 (split for each row): rows w0.., k = (part, m)
+  float ewf[K3 / 8][4];
+#pragma unroll
+  for (int ks = 0; ks < K3 / 8; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      ewf[ks][r] = ew[(size_t)(w0 + gq + (r & 1) * 8) * K3 + ks * 8 + q + (r >> 1) * 4];
+  fno_tf32::ColumnSums<NT> sums;   // da, db
+  for (int hl = 0; hl < nrows; ++hl) {
+    const size_t rowbase = ((size_t)bt * Hp + h0 + hl) * Wp * C + (size_t)w0 * C;
+    float acc[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    // spectral branch: EW (16 x K3) . dX_h (K3 x C)
+    const float* dxh = sdx + (size_t)hl * C * IS;
+#pragma unroll
+    for (int ks = 0; ks < K3 / 8; ++ks) {
+      uint32_t fh[4], fl[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) mma::split_tf32(ewf[ks][r], fh[r], fl[r]);
+      fno_tf32::bt_product<C, IS>(acc, fh, fl, dxh, ks * 8, lane);
+    }
+    // pointwise branch: ds_eff (16 x C) . Wp^T (C x C), ds_eff = ds + ds1 +
+    // 2*ds2*s made on the A fragment in the permuted k order: a lane's a0
+    // and a2 are channels d, d + 1 of row gq (a1, a3 of row gq + 8), one
+    // 8-byte load of ds and of s each; zero past Wp
+#pragma unroll
+    for (int ks = 0; ks < C / 8; ++ks) {
+      const int d = ks * 8 + 2 * q;
+      const float2 c1 = *reinterpret_cast<const float2*>(s1 + d);
+      const float2 c2 = *reinterpret_cast<const float2*>(s2 + d);
+      uint32_t eh[4], el[4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float e0 = 0.f, e1 = 0.f;
+        if (hf ? valid1 : valid0) {
+          const size_t at = rowbase + (size_t)(gq + hf * 8) * C + d;
+          const float2 dv = *reinterpret_cast<const float2*>(ds + at);
+          const float2 sv = *reinterpret_cast<const float2*>(s + at);
+          e0 = fmaf(c2.x, sv.x, dv.x + c1.x);
+          e1 = fmaf(c2.y, sv.y, dv.y + c1.y);
+        }
+        mma::split_tf32(e0, eh[hf], el[hf]);
+        mma::split_tf32(e1, eh[2 + hf], el[2 + hf]);
+      }
+      fno_tf32::bt_product_pair<C, WS>(acc, eh, el, swh, swl, ks * 8, lane);
+    }
+    // du = dz * act'(a*x + b), dx = du * a; the row's da (du * x) and db (du)
+    float v[4 * NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int c = t * 8 + 2 * q;
+      const float2 av = *reinterpret_cast<const float2*>(sa + c);
+      const float2 bv = *reinterpret_cast<const float2*>(sb + c);
+      v[4 * t + 0] = v[4 * t + 1] = v[4 * t + 2] = v[4 * t + 3] = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (!(hf ? valid1 : valid0)) continue;
+        const size_t at = rowbase + (size_t)(gq + hf * 8) * C + c;
+        const float2 xv = *reinterpret_cast<const float2*>(x + at);
+        const float du0 = acc[t][2 * hf] * fno::act_grad_fast(fmaf(av.x, xv.x, bv.x), act);
+        const float du1 = acc[t][2 * hf + 1] * fno::act_grad_fast(fmaf(av.y, xv.y, bv.y), act);
+        *reinterpret_cast<float2*>(dx + at) = make_float2(du0 * av.x, du1 * av.y);
+        v[4 * t + 0] = fmaf(du0, xv.x, v[4 * t + 0]);
+        v[4 * t + 1] = fmaf(du1, xv.y, v[4 * t + 1]);
+        v[4 * t + 2] += du0;
+        v[4 * t + 3] += du1;
+      }
+    }
+    sums.add(v, lane);
+  }
+
+  // ---- the block's partial sums: the warps' in a fixed order
+  sums.store(sred, warp, lane);
+  __syncthreads();
+  float* pb = partial + ((size_t)bt * gridDim.x + chunk) * 2 * C;
+  for (int i = tid; i < 2 * C; i += nthreads) {
+    float v = 0.f;
+    for (int w = 0; w < nwarps; ++w) v += sred[w * 2 * C + i];
+    pb[i] = v;
+  }
+}
+
+// The dWp pass: dWp = z^T ds_eff over every position, and dbp = sum ds_eff.
+// A block takes a fixed range of positions in tiles of kTilePosT, staged by
+// cp.async (two stages). Per tile the block first makes ds_eff, split into
+// tf32 hi and lo tiles (once for all warps; zero past the range), and adds
+// it into each thread's dbp share; then warp v, which owns rows c = 16v..
+// of dWp and every column d, makes z^T's A fragments from 8-byte loads of
+// the x tile (the affine and the activation on the fragment: each z made
+// once) and takes ds_eff's B fragments from 8-byte loads of the hi and lo
+// tiles: three MMAs a product.
+template <int C>
+__global__ void __launch_bounds__(C / 16 * 32)
+    k12b_dwp_tf32_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                         const float* __restrict__ b, const float* __restrict__ s,
+                         const float* __restrict__ ds, const float* __restrict__ ds1,
+                         const float* __restrict__ ds2, float* __restrict__ partial,
+                         long long npos, int tiles_per_block, int act) {
+  constexpr int S = C + 8;    // row stride: a half-warp's 8-byte loads at rows q, columns 2g
+  constexpr int NT = C / 8;
+  constexpr int P = kTilePosT;
+  constexpr int kThr = C / 16 * 32;
+  constexpr int kPairs = C / 2;               // channel pairs of a position
+  constexpr int kGroups = kThr / kPairs;      // position groups of the ds_eff pass (4)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sx = reinterpret_cast<float*>(smem_raw);   // [2][P][S] each: x, s, ds
+  float* ss = sx + 2 * P * S;
+  float* sd = ss + 2 * P * S;
+  float* eh = sd + 2 * P * S;                       // [P][S]: ds_eff hi, then lo
+  float* el = eh + P * S;
+  float* sa = el + P * S;                           // [C] each: a, b, ds1, 2*ds2
+  float* sb = sa + C;
+  float* s1 = sb + C;
+  float* s2 = s1 + C;
+  float* sred = s2 + C;                             // [kGroups][C]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q = lane & 3;
+  const long long p0 = (long long)blockIdx.x * tiles_per_block * P;
+  const long long p1 = min(npos, p0 + (long long)tiles_per_block * P);
+  const int ntiles = p1 > p0 ? (int)((p1 - p0 + P - 1) / P) : 0;
+
+  // zero the staged tiles once: positions past the range are never copied,
+  // and what the MMAs read there must be finite (ds_eff is zero there)
+  for (int i = tid; i < 3 * 2 * P * S / 4; i += kThr)
+    reinterpret_cast<float4*>(sx)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < C; i += kThr) {
+    sa[i] = a[i];
+    sb[i] = b[i];
+    s1[i] = ds1[i];
+    s2[i] = 2.f * ds2[i];
+  }
+  __syncthreads();
+  auto fetch = [&](int t, int stage) {
+    const long long base = p0 + (long long)t * P;
+    const int n = (int)min((long long)P, p1 - base);
+    for (int i = tid; i < 3 * n * (C / 4); i += kThr) {
+      const int which = i / (n * (C / 4)), rem = i - which * n * (C / 4);
+      const int p = rem / (C / 4), cc = rem - p * (C / 4);
+      const float* src = which == 0 ? x : which == 1 ? s : ds;
+      float* dst = (which == 0 ? sx : which == 1 ? ss : sd) + stage * P * S;
+      mma::cp_async_16(dst + p * S + cc * 4, src + (size_t)(base + p) * C + cc * 4);
+    }
+    mma::cp_async_commit();
+  };
+
+  // this warp's rows of dWp: A row g is c = cw + 2g, row g + 8 is c = cw + 2g + 1
+  const int cw = warp * 16, cr = cw + 2 * gq;
+  const float2 av = make_float2(sa[cr], sa[cr + 1]), bv = make_float2(sb[cr], sb[cr + 1]);
+  // the ds_eff pass: thread (pair, group) takes channels 2*pair, 2*pair + 1 of
+  // positions group, group + kGroups, ...
+  const int pair = tid % kPairs, group = tid / kPairs, dc = 2 * pair;
+  const float2 c1 = make_float2(s1[dc], s1[dc + 1]), c2 = make_float2(s2[dc], s2[dc + 1]);
+  float bs0 = 0.f, bs1 = 0.f;
+  // the MMAs add into acc for one tile, then acc is added into tot by FADD:
+  // one chain of ~7000 tensor-core accumulations a block (their adds do not
+  // round to nearest) put 1e-4 of the terms on dWp at the training width
+  float acc[NT][4], tot[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) tot[t][0] = tot[t][1] = tot[t][2] = tot[t][3] = 0.f;
+
+  if (ntiles > 0) fetch(0, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int stage = t & 1;
+#pragma unroll
+    for (int u = 0; u < NT; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+    if (t + 1 < ntiles) {
+      fetch(t + 1, stage ^ 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();   // tile t has landed for every thread
+    const int nvalid = (int)min((long long)P, p1 - (p0 + (long long)t * P));
+    const float* xs = sx + stage * P * S;
+    const float* sv = ss + stage * P * S;
+    const float* dv = sd + stage * P * S;
+    for (int p = group; p < P; p += kGroups) {
+      float e0 = 0.f, e1 = 0.f;
+      if (p < nvalid) {
+        const float2 d = *reinterpret_cast<const float2*>(dv + p * S + dc);
+        const float2 f = *reinterpret_cast<const float2*>(sv + p * S + dc);
+        e0 = fmaf(c2.x, f.x, d.x + c1.x);
+        e1 = fmaf(c2.y, f.y, d.y + c1.y);
+        bs0 += e0;
+        bs1 += e1;
+      }
+      uint32_t h0, l0, h1, l1;
+      mma::split_tf32(e0, h0, l0);
+      mma::split_tf32(e1, h1, l1);
+      *reinterpret_cast<float2*>(eh + p * S + dc) = make_float2(__uint_as_float(h0),
+                                                                __uint_as_float(h1));
+      *reinterpret_cast<float2*>(el + p * S + dc) = make_float2(__uint_as_float(l0),
+                                                                __uint_as_float(l1));
+    }
+    __syncthreads();   // the ds_eff tiles are complete
+#pragma unroll
+    for (int ks = 0; ks < P / 8; ++ks) {
+      if (ks * 8 >= nvalid) break;
+      // A: z^T at rows (c, c + 1) = (a0, a1), positions ks*8 + q; (a2, a3) at + 4
+      const float2 xa = *reinterpret_cast<const float2*>(xs + (ks * 8 + q) * S + cr);
+      const float2 xb = *reinterpret_cast<const float2*>(xs + (ks * 8 + q + 4) * S + cr);
+      uint32_t zh[4], zl[4];
+      mma::split_tf32(fno::affine_act_fast(xa.x, av.x, bv.x, act), zh[0], zl[0]);
+      mma::split_tf32(fno::affine_act_fast(xa.y, av.y, bv.y, act), zh[1], zl[1]);
+      mma::split_tf32(fno::affine_act_fast(xb.x, av.x, bv.x, act), zh[2], zl[2]);
+      mma::split_tf32(fno::affine_act_fast(xb.y, av.y, bv.y, act), zh[3], zl[3]);
+#pragma unroll
+      for (int u = 0; u < C / 16; ++u) {
+        // B: column g of tile 2u is d = 16u + 2g, of tile 2u + 1 d = 16u + 2g + 1
+        const int off = (ks * 8 + q) * S + 16 * u + 2 * gq;
+        const float2 h0 = *reinterpret_cast<const float2*>(eh + off);
+        const float2 h1 = *reinterpret_cast<const float2*>(eh + off + 4 * S);
+        const float2 l0 = *reinterpret_cast<const float2*>(el + off);
+        const float2 l1 = *reinterpret_cast<const float2*>(el + off + 4 * S);
+        mma::mma_tf32x3(acc[2 * u], zh, zl, __float_as_uint(h0.x), __float_as_uint(h1.x),
+                        __float_as_uint(l0.x), __float_as_uint(l1.x));
+        mma::mma_tf32x3(acc[2 * u + 1], zh, zl, __float_as_uint(h0.y), __float_as_uint(h1.y),
+                        __float_as_uint(l0.y), __float_as_uint(l1.y));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tot[u][i] += acc[u][i];
+    __syncthreads();   // the stage and the ds_eff tiles are free
+  }
+
+  // sum (row g, column 2q) of tile 2u is dWp[c][16u + 4q], column
+  // 2q + 1 is d + 2; tile 2u + 1 adds one to d; rows g + 8 are c + 1
+  float* pb = partial + (size_t)blockIdx.x * (C * C + C);
+#pragma unroll
+  for (int u = 0; u < C / 16; ++u) {
+    const int d = 16 * u + 4 * q;
+    *reinterpret_cast<float4*>(pb + (size_t)cr * C + d) =
+        make_float4(tot[2 * u][0], tot[2 * u + 1][0], tot[2 * u][1], tot[2 * u + 1][1]);
+    *reinterpret_cast<float4*>(pb + (size_t)(cr + 1) * C + d) =
+        make_float4(tot[2 * u][2], tot[2 * u + 1][2], tot[2 * u][3], tot[2 * u + 1][3]);
+  }
+  // dbp: the position groups' shares, added in a fixed order
+  sred[group * C + dc] = bs0;
+  sred[group * C + dc + 1] = bs1;
+  __syncthreads();
+  for (int i = tid; i < C; i += kThr) {
+    float v = 0.f;
+    for (int g = 0; g < kGroups; ++g) v += sred[g * C + i];
+    pb[C * C + i] = v;
+  }
+}
+
+template <int C, int KI, int MAXW, int MINB>
+cudaError_t launch_k12b_tf32_as(const void* x, const void* a, const void* b, const void* wp,
+                                const void* s, const void* ds, const void* ds1, const void* ds2,
+                                const void* dy, const void* ah, const void* ew, void* dx,
+                                void* partial, void* out, int BT, int Hp, int Wp, int m2x2,
+                                int act, cudaStream_t stream) {
+  const int warps = (Wp + 15) / 16;
+  // the dWp pass, into out[0 : C*C + C] = (dWp, dbp)
+  const long long npos = (long long)BT * Hp * Wp;
+  const int parts = dwp_tf32_parts(npos);
+  const int per = (dwp_tf32_tiles(npos) + parts - 1) / parts;
+  auto kb = k12b_dwp_tf32_kernel<C>;
+  cudaError_t err = fno::allow_smem(kb, (size_t)dwp_tf32_smem(C));
+  if (err != cudaSuccess) return err;
+  kb<<<parts, C / 16 * 32, dwp_tf32_smem(C), stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(s), static_cast<const float*>(ds),
+      static_cast<const float*>(ds1), static_cast<const float*>(ds2),
+      static_cast<float*>(partial), npos, per, act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(out), parts,
+                             C * C + C, stream);
+  if (err != cudaSuccess) return err;
+  // the dz pass, into out[C*C + C : C*C + 3C] = (da, db)
+  const DzTf32Layout L = dz_tf32_layout(C, KI * 8, m2x2, warps);
+  auto ka = k12b_dz_tf32_kernel<C, KI, MAXW, MINB>;
+  err = fno::allow_smem(ka, (size_t)L.total);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ka, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  ka<<<dim3(dz_chunks(Hp, C), BT), warps * 32, L.total, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(wp), static_cast<const float*>(s),
+      static_cast<const float*>(ds), static_cast<const float*>(ds1),
+      static_cast<const float*>(ds2), static_cast<const float*>(dy),
+      static_cast<const float*>(ah), static_cast<const float*>(ew), static_cast<float*>(dx),
+      static_cast<float*>(partial), L, Hp, Wp, m2x2, act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return fno::reduce_partials(static_cast<const float*>(partial),
+                              static_cast<float*>(out) + C * C + C, BT * dz_chunks(Hp, C), 2 * C,
+                              stream);
+}
+
+cudaError_t launch_k12b_tf32(const void* x, const void* a, const void* b, const void* wp,
+                             const void* s, const void* ds, const void* ds1, const void* ds2,
+                             const void* dy, const void* ah, const void* ew, void* dx,
+                             void* partial, void* out, int BT, int Hp, int Wp, int C, int m2x2,
+                             int m3, int act, cudaStream_t stream) {
+  const int warps = (Wp + 15) / 16;
+  if (2 * m2x2 > 8 * fno_tf32::kMaxKH || BT > 65535 || ah == nullptr || ew == nullptr)
+    return cudaErrorInvalidValue;
+  for (const void* p : {x, s, ds, dy, ah, ew, (const void*)dx})
+    if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
+#define K12B_TF32(CC, KK, MW, MB)                                                             \
+  if (C == CC && m3 == KK * 8 && warps <= MW)                                                 \
+  return launch_k12b_tf32_as<CC, KK, MW, MB>(x, a, b, wp, s, ds, ds1, ds2, dy, ah, ew, dx,    \
+                                             partial, out, BT, Hp, Wp, m2x2, act, stream)
+  K12B_TF32(64, 2, 9, 2);   // the cylinder and combustion: two blocks (18 warps) an SM
+  K12B_TF32(128, 2, 9, 1);  // fsi
+  K12B_TF32(32, 2, 16, 1);
+  K12B_TF32(32, 1, 16, 1);
+  K12B_TF32(64, 1, 16, 1);
+  K12B_TF32(64, 2, 16, 1);
+  K12B_TF32(128, 1, 9, 1);
+#undef K12B_TF32
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["k12b"]). Floats of scratch
-// the caller allocates for the partials, and the shared memory of a dz block.
+// variant: 0 fma, 1 mma, 2 tf32 (ops/kernels.py: VARIANTS["k12b"]). Floats of
+// scratch the caller allocates for the partials, and the shared memory of a
+// dz block.
 extern "C" long long fno_k12b_partial_floats(int BT, int Hp, int Wp, int C, int variant) {
   if (variant == 0) return (long long)BT * kSplit * (C * C + 3 * C);
+  const long long npos = (long long)BT * Hp * Wp;
   const long long dz = (long long)BT * dz_chunks(Hp, C) * 2 * C;
-  const long long dwp = (long long)dwp_parts((long long)BT * Hp * Wp) * (C * C + C);
+  const long long dwp =
+      (long long)(variant == 2 ? dwp_tf32_parts(npos) : dwp_parts(npos)) * (C * C + C);
   return dz > dwp ? dz : dwp;
 }
 
@@ -831,8 +1304,13 @@ extern "C" int fno_k12b_mma_smem_bytes(int Wp, int C, int m2x2, int m3) {
   return dz_layout(C, m3, m2x2, (Wp + 15) / 16).total;
 }
 
-// ah, ew: the packed bf16 hi/lo tables of the mma variant (null for fma).
-// out: fma (dWp, da, db, dbp); mma (dWp, dbp, da, db).
+extern "C" int fno_k12b_tf32_smem_bytes(int Wp, int C, int m2x2, int m3) {
+  return dz_tf32_layout(C, m3, m2x2, (Wp + 15) / 16).total;
+}
+
+// ah, ew: the packed bf16 hi/lo tables of the mma variant, or the f32 tables
+// of the tf32 variant (null for fma).
+// out: fma (dWp, da, db, dbp); mma and tf32 (dWp, dbp, da, db).
 extern "C" int fno_k12b(const void* x, const void* a, const void* b, const void* wp,
                         const void* s, const void* ds, const void* ds1, const void* ds2,
                         const void* dy, const void* ehr, const void* ehi, const void* ewr,
@@ -845,6 +1323,11 @@ extern "C" int fno_k12b(const void* x, const void* a, const void* b, const void*
     if (dtype != fno::kBF16) return cudaErrorInvalidValue;
     return launch_k12b_mma(x, a, b, wp, s, ds, ds1, ds2, dy, ah, ew, dx, partial, out, BT, Hp,
                            Wp, C, m2x2, m3, act, st);
+  }
+  if (variant == 2) {
+    if (dtype != fno::kF32) return cudaErrorInvalidValue;
+    return launch_k12b_tf32(x, a, b, wp, s, ds, ds1, ds2, dy, ah, ew, dx, partial, out, BT, Hp,
+                            Wp, C, m2x2, m3, act, st);
   }
   if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32)

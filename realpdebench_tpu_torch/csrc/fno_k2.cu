@@ -22,7 +22,7 @@
 // is left beside the copies is the instruction stream: the activation (one erf
 // per element of x), the statistics and the repacking around the MMAs.
 //
-// Two variants, chosen from dtype and shape before the launch
+// Three variants, chosen from dtype and shape before the launch
 // (ops/kernels.py::k2_variant):
 //
 //  * mma (bf16, C in {32, 64, 128}, m3 in {8, 16}, 2*m2 <= 32, Wp <= 256): per
@@ -61,19 +61,57 @@
 //        leaves as 16-byte stores of whole lines.
 //    Shared memory at C 64, m3 16, 2*m2 24, Wp 134: 111 KB, two blocks (18
 //    warps) an SM; 96 registers a thread (18 warps on four register files).
-//  * fma (f32 tensors; C dividing 256 up to 128, any m3): one block per (bt, fma_rows
+//  * tf32 (f32 tensors; the mma variant's widths, W modes, H modes and warps,
+//    16-byte aligned g, x, wp): the mma variant's block plan (mma_rows(C)
+//    rows of H of one bt, one warp per 16 columns of W, a per-warp cp.async
+//    ring over x, statistics from the f32 accumulators, partials through
+//    fno::reduce_partials) with every product as 3xTF32 (mma.cuh:
+//    hi.hi + hi.lo + lo.hi on mma.sync m16n8k8, the f32 analogue of the
+//    bf16 pair; the sum carries 22 bits where the bf16 pair of the same f32
+//    operands carries 16). ih is stored once, f32, as [hl][c][k] and split
+//    in registers on the fragment (re-split by every warp: one f32 copy is
+//    what fits); Wp^T ([d][c]) is staged as a tf32 hi + lo pair once a
+//    block, after the H stage, in the memory the g rings leave; both are
+//    [n][k] layouts whose tf32 B fragments ldmatrix gives (fno_tf32.cuh).
+//    The DFT tables are f32 from the host (ops/fno_layer.py::
+//    _k2_tf32_tables). The H stage is fno_tf32.cuh's h_stage, over
+//    8-channel pieces of g. The exact GELU's erf is fno::erf_fast (A&S
+//    7.1.26, |error| <= 3e-7, the size of 3xTF32's own error), as in the
+//    mma variant; the fma variant keeps erff.
+//      - The x ring in f32 would double: two-stage per-warp slabs of a whole
+//        row take 145 KB a block at C 64, one block an SM. The ring is of
+//        16-channel stages instead (a row is C/16 of them, consumed in
+//        order, the next one in flight): 2.5 KB a warp; the block takes
+//        107 KB at C 64, two blocks (18 warps) an SM. What it costs: a
+//        cp.async wait and two warp barriers per 16 channels rather than
+//        per row, and the s tile leaves from the accumulators as 8-byte
+//        stores (four lanes fill a 32-byte sector) instead of through the
+//        slab.
+//      - What bounds it: latency at 18 warps an SM and 96 registers a
+//        thread (tools/torch_tf32_probe.py: one block an SM with 167
+//        registers is slower; cutting the activation, the B splits or the
+//        MMAs each save a fifth). Per row and warp the pointwise and
+//        inverse-W products are 288 tf32 MMAs beside the activation and
+//        the splits of the z and ih fragments. The statistics are
+//        fno_tf32.cuh's ColumnSums: four running sums a lane, not 32.
+//        ptxas (-Xptxas -v, sm_90a): 96 registers and 84 bytes of spill
+//        stores at <64, 2, 9, 2>; 168 and 16 at fsi's <128, 2, 9, 1>; the
+//        other instantiations 116-168 registers, no spills.
+//  * fma (f32 tensors at other shapes, misaligned views, and bf16 when named;
+//    C dividing 256 up to 128, any m3): one block per (bt, fma_rows
 //    rows of H); the block inverts H for its rows into shared memory, then
 //    for each row stages z[h] and lets thread (d, column group) produce kWQ
 //    output columns of channel d at once with exact f32 FMAs.
 //
-// Blocks run in no order, so the statistics take two passes in both
-// variants: each block writes its own (sum, sumsq) partial in a fixed
+// Blocks run in no order, so the statistics take two passes in every
+// variant: each block writes its own (sum, sumsq) partial in a fixed
 // order, and fno::reduce_partials adds the partials in a fixed order in
 // f64: the same bits on every call.
 #include <cstdint>
 #include <initializer_list>
 
 #include "fno_common.cuh"
+#include "fno_tf32.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -632,14 +670,266 @@ cudaError_t launch_k2_mma(const void* g, const void* x, const void* a, const voi
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The tf32 variant
+// ---------------------------------------------------------------------------
+
+using fno_tf32::kTPad;
+constexpr int kXC = 16;   // channels of x a ring stage holds
+
+// Byte offsets of a tf32 block's shared memory (ops/kernels.py::
+// k2_tf32_smem_bytes computes the same total). The ring region holds the
+// warps' g rings during the H stage, then Wp^T hi and lo and the x rings.
+struct Tf32Layout {
+  int ih, ring, vec, red, total;
+};
+
+inline Tf32Layout tf32_layout(int C, int m3, int m2x2, int warps) {
+  Tf32Layout L;
+  const int main = 2 * C * (C + kTPad) * 4 + warps * 2 * 16 * (kXC + kTPad) * 4;
+  const int gring = warps * fno_tf32::h_ring_floats(m2x2) * 4;
+  L.ih = 0;                                               // [rows][C][2*m3 + kTPad]
+  L.ring = L.ih + mma_rows(C) * C * (2 * m3 + kTPad) * 4;
+  L.vec = L.ring + (main > gring ? main : gring);
+  L.red = L.vec + 3 * C * 4;
+  L.total = L.red + warps * 2 * C * 4;
+  return L;
+}
+
+// C channels, KI = m3/8, at most MAXW warps with MINB blocks an SM.
+//   s[w, :] = bp + z_h[w, :] . Wp + [IWr^T | IWi^T][w, :] . ih_h
+// ah: f32 [nchunks][16][Kpad] (the mma variant's inverse-H rows, Kpad a
+// multiple of 8); iw: f32 [16 * warps][2*m3], row w = [iwr[:, w] | iwi[:, w]].
+template <int C, int KI, int MAXW, int MINB>
+__global__ void __launch_bounds__(MAXW * 32, MINB)
+    k2_tf32_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                   const float* __restrict__ a, const float* __restrict__ b,
+                   const float* __restrict__ wp, const float* __restrict__ bp,
+                   const float* __restrict__ ah, const float* __restrict__ iw,
+                   float* __restrict__ s, float* __restrict__ partial, Tf32Layout L, int Hp,
+                   int Wp, int m2x2, int act) {
+  constexpr int M3 = KI * 8;
+  constexpr int K3 = 2 * M3;          // depth of the inverse-W product: (re | im, m)
+  constexpr int kRows = mma_rows(C);
+  constexpr int WS = C + kTPad;       // row stride of Wp^T
+  constexpr int IS = K3 + kTPad;      // row stride of ih's [c][k] rows
+  constexpr int XS = kXC + kTPad;     // row stride of an x stage
+  constexpr int NT = C / 8;
+  constexpr int kStages = C / kXC;    // ring stages a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sih = reinterpret_cast<float*>(smem_raw + L.ih);    // [kRows][C][IS]
+  float* sring = reinterpret_cast<float*>(smem_raw + L.ring);
+  float* swh = sring;            // after the H stage: [C][WS], swh[d][c] = hi(wp[c][d])
+  float* swl = swh + C * WS;     // the lo parts
+  float* sxr = swl + C * WS;     // the warps' x rings
+  float* sa = reinterpret_cast<float*>(smem_raw + L.vec);    // [C] each
+  float* sb = sa + C;
+  float* sbp = sb + C;
+  float* sred = reinterpret_cast<float*>(smem_raw + L.red);  // [warps][2][C]
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int chunk = blockIdx.x, bt = blockIdx.y;
+  const int h0 = chunk * kRows;
+  const int nrows = min(kRows, Hp - h0);
+
+  // ---- constants: a, b, bp
+  for (int i = tid; i < C; i += nthreads) {
+    sa[i] = a[i];
+    sb[i] = b[i];
+    sbp[i] = bp[i];
+  }
+
+  // ---- inverse H into sih[hl][c][part*M3 + m]
+  fno_tf32::h_stage<C, M3, kRows>(g, ah, sih, sring + warp * fno_tf32::h_ring_floats(m2x2), bt,
+                                  chunk, m2x2, warp, nwarps, lane);
+  __syncthreads();   // sih and the constants are complete; the g rings are free
+
+  // ---- Wp^T as a tf32 pair, transposed and split while staged
+  for (int i = tid; i < C * C / 4; i += nthreads) {
+    const float4 v = reinterpret_cast<const float4*>(wp)[i];
+    const int c = (i * 4) / C, d = (i * 4) % C;
+    const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t hi, lo;
+      mma::split_tf32(w[u], hi, lo);
+      swh[(d + u) * WS + c] = __uint_as_float(hi);
+      swl[(d + u) * WS + c] = __uint_as_float(lo);
+    }
+  }
+  __syncthreads();
+
+  // ---- main loop (tf32): warp = the 16 columns w0.. of every row of the block
+  const int w0 = warp * 16;
+  const int nvalid = min(16, Wp - w0);
+  float* slab = sxr + warp * 2 * 16 * XS;   // [2 stages][16][XS]
+  // pad rows of both stages stay zero: no copy touches them
+  for (int i = lane; i < 2 * 16 * (kXC / 4); i += 32) {
+    const int r = i / (kXC / 4), cc = i - r * (kXC / 4);
+    if ((r & 15) >= nvalid)
+      *reinterpret_cast<float4*>(slab + r * XS + cc * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // inverse-W A fragments in f32 (split for each row): rows w0.., k = (part, m)
+  float iwf[K3 / 8][4];
+#pragma unroll
+  for (int ks = 0; ks < K3 / 8; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      iwf[ks][r] = iw[(size_t)(w0 + gq + (r & 1) * 8) * K3 + ks * 8 + q + (r >> 1) * 4];
+  const size_t rowbase = ((size_t)bt * Hp + h0) * Wp * C + (size_t)w0 * C;
+  const int nstages = nrows * kStages;
+  auto fetch_x = [&](int i) {   // stage i: row i / kStages, channels (i % kStages) * kXC..
+    const int hl = i / kStages, j = i - hl * kStages;
+    const float* src = x + rowbase + (size_t)hl * Wp * C + j * kXC;
+    float* dst = slab + (i & 1) * 16 * XS;
+    for (int e = lane; e < nvalid * (kXC / 4); e += 32) {
+      const int r = e / (kXC / 4), cc = e - r * (kXC / 4);
+      mma::cp_async_16(dst + r * XS + cc * 4, src + (size_t)r * C + cc * 4);
+    }
+    mma::cp_async_commit();
+  };
+  const bool valid0 = gq < nvalid, valid1 = gq + 8 < nvalid;
+  fno_tf32::ColumnSums<NT> stats;   // sum and sum of squares
+  __syncwarp();
+  fetch_x(0);
+  for (int hl = 0; hl < nrows; ++hl) {
+    float acc[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float2 bias = *reinterpret_cast<const float2*>(sbp + t * 8 + 2 * q);
+      acc[t][0] = acc[t][2] = bias.x;
+      acc[t][1] = acc[t][3] = bias.y;
+    }
+    // pointwise: z (16 x C) . Wp (C x C), z = act(a*x + b) made on the A
+    // fragment of x (its k index is the channel) and split there
+#pragma unroll
+    for (int j = 0; j < kStages; ++j) {
+      const int i = hl * kStages + j;
+      if (i + 1 < nstages) {
+        fetch_x(i + 1);
+        mma::cp_async_wait<1>();
+      } else {
+        mma::cp_async_wait<0>();
+      }
+      __syncwarp();   // stage i has landed for every lane
+      const float* xs = slab + (i & 1) * 16 * XS;
+#pragma unroll
+      for (int ks = 0; ks < kXC / 8; ++ks) {
+        uint32_t xr[4], zh[4], zl[4];
+        mma::ldmatrix_x4(xr, mma::smem_addr(xs + mma::tf32_a_offset(lane, ks * 8, XS)));
+        const int c = j * kXC + ks * 8 + q;   // the channel of a0, a1; c + 4 that of a2, a3
+        const float a0 = sa[c], a4 = sa[c + 4], b0 = sb[c], b4 = sb[c + 4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          mma::split_tf32(fno::affine_act_fast(__uint_as_float(xr[r]), r < 2 ? a0 : a4,
+                                               r < 2 ? b0 : b4, act),
+                          zh[r], zl[r]);
+        fno_tf32::bt_product_pair<C, WS>(acc, zh, zl, swh, swl, j * kXC + ks * 8, lane);
+      }
+      __syncwarp();   // the stage is free for the copy of stage i + 2
+    }
+    // inverse W: [IWr^T | IWi^T] (16 x K3) . ih_h (K3 x C)
+    const float* ihh = sih + (size_t)hl * C * IS;
+#pragma unroll
+    for (int ks = 0; ks < K3 / 8; ++ks) {
+      uint32_t fh[4], fl[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) mma::split_tf32(iwf[ks][r], fh[r], fl[r]);
+      fno_tf32::bt_product<C, IS>(acc, fh, fl, ihh, ks * 8, lane);
+    }
+    // the store of s and the statistics from the f32 accumulators, valid
+    // columns of W only: four lanes' 8-byte stores fill a 32-byte sector
+    float* dst = s + rowbase + (size_t)hl * Wp * C;
+    float v[4 * NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float u0 = valid0 ? acc[t][0] : 0.f, u1 = valid0 ? acc[t][1] : 0.f;
+      const float u2 = valid1 ? acc[t][2] : 0.f, u3 = valid1 ? acc[t][3] : 0.f;
+      if (valid0)
+        *reinterpret_cast<float2*>(dst + (size_t)gq * C + t * 8 + 2 * q) = make_float2(u0, u1);
+      if (valid1)
+        *reinterpret_cast<float2*>(dst + (size_t)(gq + 8) * C + t * 8 + 2 * q) =
+            make_float2(u2, u3);
+      v[4 * t + 0] = u0 + u2;
+      v[4 * t + 1] = u1 + u3;
+      v[4 * t + 2] = fmaf(u0, u0, u2 * u2);
+      v[4 * t + 3] = fmaf(u1, u1, u3 * u3);
+    }
+    stats.add(v, lane);
+  }
+
+  // ---- the block's partial statistics: the warps' in a fixed order
+  stats.store(sred, warp, lane);
+  __syncthreads();
+  float* pb = partial + ((size_t)bt * gridDim.x + chunk) * 2 * C;
+  for (int i = tid; i < 2 * C; i += nthreads) {
+    float v = 0.f;
+    for (int w = 0; w < nwarps; ++w) v += sred[w * 2 * C + i];
+    pb[i] = v;
+  }
+}
+
+template <int C, int KI, int MAXW, int MINB>
+cudaError_t launch_k2_tf32_as(const void* g, const void* x, const void* a, const void* b,
+                              const void* wp, const void* bp, const void* ah, const void* iw,
+                              void* s, void* partial, void* stats, int BT, int Hp, int Wp,
+                              int m2x2, int act, cudaStream_t stream) {
+  const int warps = (Wp + 15) / 16;
+  const Tf32Layout L = tf32_layout(C, KI * 8, m2x2, warps);
+  auto kernel = k2_tf32_kernel<C, KI, MAXW, MINB>;
+  cudaError_t err = fno::allow_smem(kernel, (size_t)L.total);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(num_chunks(Hp, C), BT);
+  kernel<<<grid, warps * 32, L.total, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(wp),
+      static_cast<const float*>(bp), static_cast<const float*>(ah),
+      static_cast<const float*>(iw), static_cast<float*>(s), static_cast<float*>(partial), L,
+      Hp, Wp, m2x2, act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(stats),
+                              BT * num_chunks(Hp, C), 2 * C, stream);
+}
+
+cudaError_t launch_k2_tf32(const void* g, const void* x, const void* a, const void* b,
+                           const void* wp, const void* bp, const void* ah, const void* iw,
+                           void* s, void* partial, void* stats, int BT, int Hp, int Wp, int C,
+                           int m2x2, int m3, int act, cudaStream_t stream) {
+  const int warps = (Wp + 15) / 16;
+  if (warps > kMaxWarps || 2 * m2x2 > 8 * fno_tf32::kMaxKH || BT > 65535 || ah == nullptr ||
+      iw == nullptr)
+    return cudaErrorInvalidValue;
+  for (const void* p : {g, x, wp, (const void*)s, ah, iw})
+    if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
+#define K2_TF32(CC, KK, MW, MB)                                                              \
+  if (C == CC && m3 == KK * 8 && warps <= MW)                                                \
+  return launch_k2_tf32_as<CC, KK, MW, MB>(g, x, a, b, wp, bp, ah, iw, s, partial, stats, BT, \
+                                           Hp, Wp, m2x2, act, stream)
+  K2_TF32(64, 2, 9, 2);   // the cylinder configuration: two blocks an SM
+  K2_TF32(32, 1, 16, 1);
+  K2_TF32(32, 2, 16, 1);
+  K2_TF32(64, 1, 16, 1);
+  K2_TF32(64, 2, 16, 1);
+  K2_TF32(128, 1, 9, 1);
+  K2_TF32(128, 2, 9, 1);   // fsi
+#undef K2_TF32
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// variant: 0 fma, 1 mma (ops/kernels.py: K2_VARIANTS). The caller chooses; a
-// variant that does not take the dtype or shape returns an error.
+// variant: 0 fma, 1 mma, 2 tf32 (ops/kernels.py: VARIANTS["k2"]). The caller
+// chooses; a variant that does not take the dtype or shape returns an error.
 
 // Number of [2, C] partials the caller allocates as K2's scratch.
 extern "C" int fno_k2_num_partials(int BT, int Hp, int C, int variant) {
-  return BT * (variant == 1 ? num_chunks(Hp, C) : num_hblocks(Hp, C));
+  return BT * (variant == 0 ? num_hblocks(Hp, C) : num_chunks(Hp, C));
 }
 
 // Bytes of shared memory a block of the mma variant takes.
@@ -647,7 +937,13 @@ extern "C" int fno_k2_mma_smem_bytes(int Wp, int C, int m2x2, int m3) {
   return mma_layout(C, m3, m2x2, (Wp + 15) / 16).total;
 }
 
-// ah, iw: the packed bf16 hi/lo tables of the mma variant (null for fma).
+// Bytes of shared memory a block of the tf32 variant takes.
+extern "C" int fno_k2_tf32_smem_bytes(int Wp, int C, int m2x2, int m3) {
+  return tf32_layout(C, m3, m2x2, (Wp + 15) / 16).total;
+}
+
+// ah, iw: the packed bf16 hi/lo tables of the mma variant, or the f32 tables
+// of the tf32 variant (null for fma).
 extern "C" int fno_k2(const void* g, const void* x, const void* a, const void* b,
                       const void* wp, const void* bp, const void* ihr, const void* ihi,
                       const void* iwr, const void* iwi, const void* ah, const void* iw, void* s,
@@ -659,6 +955,11 @@ extern "C" int fno_k2(const void* g, const void* x, const void* a, const void* b
     if (dtype != fno::kBF16) return cudaErrorInvalidValue;
     return launch_k2_mma(g, x, a, b, wp, bp, ah, iw, s, partial, stats, BT, Hp, Wp, C, m2x2,
                          m3, act, st);
+  }
+  if (variant == 2) {
+    if (dtype != fno::kF32) return cudaErrorInvalidValue;
+    return launch_k2_tf32(g, x, a, b, wp, bp, ah, iw, s, partial, stats, BT, Hp, Wp, C, m2x2,
+                          m3, act, st);
   }
   if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32)

@@ -1,7 +1,9 @@
 // Tensor-core building blocks shared by the kernels: warp-level bf16 MMA
 // (mma.sync m16n8k16, f32 accumulate) with its ldmatrix operand loads, the
 // cp.async copies a shared-memory ring is made of, and the hi + lo split
-// that carries an f32 constant through two bf16 products.
+// that carries an f32 constant through two bf16 products; the tf32 MMA
+// (m16n8k8) and the tf32 hi + lo split that carries an f32 operand through
+// three of them (3xTF32).
 //
 // Fragment layout of mma.sync.m16n8k16 (row.col), lane = 4*g + q:
 //   A (16 x 16, 4 regs)  a0 (row g,   k 2q, 2q+1)   a1 (row g+8, k 2q, 2q+1)
@@ -122,6 +124,84 @@ __device__ __forceinline__ void split_pack(float v0, float v1, uint32_t& hi, uin
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+// ---------------------------------------------------------------------------
+// tf32 (3xTF32: f32 operands through the tensor cores)
+//
+// Fragment layout of mma.sync.m16n8k8 (row.col, .tf32), lane = 4*g + q, one
+// element a register:
+//   A (16 x 8, 4 regs)   a0 (row g, k q)   a1 (row g+8, k q)
+//                        a2 (row g, k q+4) a3 (row g+8, k q+4)
+//   B (8 x 8, 2 regs)    b0 (k q, col g)   b1 (k q+4, col g)
+//   C (16 x 8, 4 f32)    as the bf16 MMA's.
+// ldmatrix moves b16 elements: on an f32 tile read as b16 pairs (offsets in
+// f32 elements, rows 16 bytes = 4 floats) ldmatrix_x4 does give the A
+// fragment of a row-major [16][8] tile (tf32_a_offset) and the B fragments
+// of an [n][k] tile (tf32_bt_row); ldmatrix_x4_trans gives no tf32
+// fragment, so a [k][n] tile is read with 32-bit (or, with the k order
+// permuted alike in A and B, 64-bit) shared loads instead.
+// ---------------------------------------------------------------------------
+
+// d += a (16x8 tf32) * b (8x8 tf32), f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to tf32 (10 mantissa bits; to nearest, ties away from zero), as
+// the bits of an f32 whose low 13 mantissa bits are zero.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo with both parts tf32: hi = rna(v), lo = rna(v - hi). The sum
+// carries 22 mantissa bits (relative error <= 2^-22), so hi.hi + hi.lo +
+// lo.hi, three tf32 MMAs, is an f32 product to ~2^-21 of the sum of
+// |terms|. The host-side twin is ops/kernels.py::split_tf32.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// The split of each register of a fragment (f32 bits in, tf32 pairs out).
+template <int N>
+__device__ __forceinline__ void split_frag(const uint32_t (&v)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(v[i]), hi[i], lo[i]);
+}
+
+// d += (ah + al)(bh + bl) without al.bl: three tf32 MMAs, the small terms
+// first.
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// f32 element offset, in a row-major [16][stride] f32 tile (stride a
+// multiple of 4) starting at column k0, of the row this lane names to
+// ldmatrix_x4 for the tf32 A fragment of columns k0..k0+7.
+__device__ __forceinline__ int tf32_a_offset(int lane, int k0, int stride) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * stride + k0 + (lane >> 4) * 4;
+}
+
+// (n, k) of the row this lane names to ldmatrix_x4 for the tf32 B fragments
+// of the 8 x 16 block at (k0, n0) of a row-major [n][k] f32 tile (B stored
+// as its transpose): (r0, r1) = (b0, b1) for columns n0..n0+7, (r2, r3) for
+// n0+8..n0+15.
+__device__ __forceinline__ void tf32_bt_row(int lane, int k0, int n0, int& n, int& k) {
+  n = n0 + (lane >> 4) * 8 + (lane & 7);
+  k = k0 + ((lane >> 3) & 1) * 4;
 }
 
 }  // namespace mma

@@ -11,7 +11,8 @@ tensor between layers is always the pre-BN ``s``. Forward:
   corner   4-corner complex channel mixing                  (torch.einsum)
   T-stage  inverse DFT over T (2·m1 → Tp)                   (csrc/fno_tstage.cu)
   K2       inverse H and W DFTs + z @ Wp + bp, BN stats     (csrc/fno_k2.cu;
-           bf16: on the tensor cores, csrc/mma.cuh)
+           bf16: on the tensor cores, csrc/mma.cuh; f32: on the
+           tensor cores as 3xTF32, csrc/fno_tf32.cuh)
 
 Backward (``fused_fno_layer`` is one autograd function):
 
@@ -22,7 +23,7 @@ Backward (``fused_fno_layer`` is one autograd function):
   corner   dx2, dwr, dwi                                    (torch.einsum)
   T-stage  adjoint of the forward T (et_adj)                (csrc/fno_tstage.cu)
   K12B     dx through both consumers of z; dWp, da, db, dbp (csrc/fno_k12b.cu;
-           bf16: on the tensor cores)
+           bf16: on the tensor cores; f32: as 3xTF32)
 
 Layouts (no TPU 8-row alignment; the packing is only a reshape):
   activations  [B·Tp, Hp·(Wp/2), 2C] = contiguous [B, Tp, Hp, Wp, C]
@@ -124,14 +125,15 @@ def _ct_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int) -> dict:
             for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
 
 
-def _h_table(re, im, rows: int):
+def _h_table(re, im, rows: int, kmult: int = 16):
     """The A operand of a tensor-core H stage for blocks of ``rows`` rows of
     H, from the rows' coefficients re, im [Hp, K]: [ceil(Hp/R), 16, Kpad]
     f32, row r of a block gives the real part of row h = R·ch + r, row 8 + r
-    its imaginary part, K padded with zeros to a multiple of 16; rows r ≥ R
-    and rows of h ≥ Hp zero."""
+    its imaginary part, K padded with zeros to a multiple of ``kmult`` (16,
+    the bf16 MMA's depth; 8, the tf32 MMA's); rows r ≥ R and rows of h ≥ Hp
+    zero."""
     Hp, K = re.shape
-    nch, kpad = -(-Hp // rows), -(-K // 16) * 16
+    nch, kpad = -(-Hp // rows), -(-K // kmult) * kmult
     ah = torch.zeros(nch * rows, 2, kpad)
     ah[:Hp, 0, :K], ah[:Hp, 1, :K] = re, im
     return torch.nn.functional.pad(ah.view(nch, rows, 2, kpad).transpose(1, 2),
@@ -166,6 +168,41 @@ def _k2_mma_tables(Hp: int, Wp: int, m2: int, m3: int, rows: int):
     ah = _h_table(torch.cat([ihr, -ihi], 1), torch.cat([ihi, ihr], 1), rows)
     iw = _w_table(c["iwr"].t(), c["iwi"].t())
     return tuple(torch.stack(kernels.split_bf16(t)).contiguous() for t in (ah, iw))
+
+
+def _k2_tf32_tables(Hp: int, Wp: int, m2: int, m3: int, rows: int):
+    """The DFT constants of K2's tf32 variant, f32 CPU tensors in the layouts
+    of ``_k2_mma_tables`` (unsplit: the kernel splits each fragment into its
+    tf32 pair in registers), ah's k padded to a multiple of 8:
+
+      ah [ceil(Hp/R), 16, Kpad]   inverse H for blocks of R = ``rows`` rows.
+      iw [ceil(Wp/16)·16, 2·m3]   inverse W: row w is [iwr[:, w] | iwi[:, w]].
+    """
+    c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
+    ihr, ihi = c["ihr"].t(), c["ihi"].t()
+    return (_h_table(torch.cat([ihr, -ihi], 1), torch.cat([ihi, ihr], 1), rows, 8).contiguous(),
+            _w_table(c["iwr"].t(), c["iwi"].t()).contiguous())
+
+
+def _k12b_tf32_tables(Hp: int, Wp: int, m2: int, m3: int, rows: int):
+    """The DFT constants of K12B's tf32 variant, f32 CPU tensors in the
+    layouts of ``_k12b_mma_tables`` (unsplit), ah's k padded to a multiple
+    of 8: ah the adjoint of K1's forward H DFT, ew that of its forward W
+    DFT (row w is [ewr[w] | ewi[w]])."""
+    c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
+    ehr, ehi = c["ehr"], c["ehi"]
+    return (_h_table(torch.cat([ehr, ehi], 1), torch.cat([-ehi, ehr], 1), rows, 8).contiguous(),
+            _w_table(c["ewr"], c["ewi"]).contiguous())
+
+
+@lru_cache(maxsize=64)
+def _k2_tf32_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int, rows: int):
+    return tuple(t.to(device) for t in _k2_tf32_tables(Hp, Wp, m2, m3, rows))
+
+
+@lru_cache(maxsize=64)
+def _k12b_tf32_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int, rows: int):
+    return tuple(t.to(device) for t in _k12b_tf32_tables(Hp, Wp, m2, m3, rows))
 
 
 def _k12b_mma_tables(Hp: int, Wp: int, m2: int, m3: int, rows: int):
@@ -482,17 +519,22 @@ def k2_plain(g, x, a, b, wp, bp, cst, *, Hp: int, Wp: int, act: str):
     return s.reshape(x.shape).to(x.dtype), stats
 
 
+_K2_TABLES = {"mma": _k2_mma_on, "tf32": _k2_tf32_on}
+_K12B_TABLES = {"mma": _k12b_mma_on, "tf32": _k12b_tf32_on}
+
+
 def k2(g, x, a, b, wp, bp, *, Hp: int, Wp: int, m2: int, m3: int, act: str,
        variant=None):
     """On the card, the variant ``kernels.k2_variant`` chooses from dtype and
-    shape (or the one named): the packed tables go with the mma variant."""
+    shape (or the one named): the packed tables go with the mma and tf32
+    variants."""
     cst = _ct_on(x.device, Hp, Wp, m2, m3)
     if _use_kernel(x):
         C = x.shape[-1] // 2
         name = variant or kernels.k2_variant(x.dtype, C, m3, Wp, 2 * m2,
                                              kernels.aligned(g, x, wp))
-        tables = (_k2_mma_on(x.device, Hp, Wp, m2, m3, kernels.K2_MMA_ROWS[C])
-                  if name == "mma" and C in kernels.K2_MMA_ROWS else None)
+        tables = (_K2_TABLES[name](x.device, Hp, Wp, m2, m3, kernels.K2_MMA_ROWS[C])
+                  if name in _K2_TABLES and C in kernels.K2_MMA_ROWS else None)
         return kernels.k2(g, x, a, b, wp, bp, cst["ihr"], cst["ihi"],
                           cst["iwr"], cst["iwi"], Hp=Hp, Wp=Wp, act=act,
                           tables=tables, variant=variant)
@@ -617,14 +659,14 @@ def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, *, Hp: int, Wp: int, m2: int,
          m3: int, act: str, variant=None):
     """On the card, the variant ``kernels.k12b_variant`` chooses from dtype,
     shape and alignment (or the one named): the packed tables go with the
-    mma variant."""
+    mma and tf32 variants."""
     cst = _ct_on(x.device, Hp, Wp, m2, m3)
     if _use_kernel(x):
         C = x.shape[-1] // 2
         name = variant or kernels.k12b_variant(x.dtype, C, 2 * m2, m3, Wp,
                                                kernels.aligned(x, s, ds, dy))
-        tables = (_k12b_mma_on(x.device, Hp, Wp, m2, m3, kernels.K12B_MMA_ROWS[C])
-                  if name == "mma" and C in kernels.K12B_MMA_ROWS else None)
+        tables = (_K12B_TABLES[name](x.device, Hp, Wp, m2, m3, kernels.K12B_MMA_ROWS[C])
+                  if name in _K12B_TABLES and C in kernels.K12B_MMA_ROWS else None)
         return kernels.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, cst["ehr"],
                             cst["ehi"], cst["ewr"], cst["ewi"], Hp=Hp, Wp=Wp,
                             act=act, tables=tables, variant=variant)

@@ -23,8 +23,10 @@ functions ``k1_variant``, ``t_stage_variant``, ``k2_variant``,
 (``VARIANTS`` counts the launches of each): the T-stage's ``registers`` (a thread
 produces every output of its column) or ``generic``; the others' ``mma``
 (bf16, their products on the tensor cores) or ``fma`` (exact f32
-arithmetic). A caller may name the variant; one that does not take
-the input raises. No variant gives way to another after a failure.
+arithmetic); K2 and K12B also ``tf32`` (f32 tensors, every product on the
+tensor cores as 3xTF32). A caller may name the variant; one that does not
+take the input raises before anything is built. No variant gives way to
+another after a failure.
 Nothing here runs at import: this module is imported on machines with no
 GPU and no nvcc, where only the plain twins in ``ops/fno_layer.py``,
 ``ops/fno_tail.py``, ``ops/temporal_attention.py`` and ``ops/galerkin.py``
@@ -74,8 +76,8 @@ LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
 # Launches per variant of the kernels that have more than one; the keys'
 # order is the variant code of the csrc/ entry point.
 VARIANTS = {"k1": {"fma": 0, "mma": 0}, "t_stage": {"generic": 0, "registers": 0},
-            "k2": {"fma": 0, "mma": 0}, "k2a_lite": {"fma": 0, "mma": 0},
-            "k12b": {"fma": 0, "mma": 0}, "k3f": {"fma": 0, "mma": 0},
+            "k2": {"fma": 0, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 0, "mma": 0},
+            "k12b": {"fma": 0, "mma": 0, "tf32": 0}, "k3f": {"fma": 0, "mma": 0},
             "k3b": {"fma": 0, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
             "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
 
@@ -94,6 +96,11 @@ K2_MMA_PAD = 8
 K2_MMA_MAX_WARPS = {32: 16, 64: 16, 128: 9}
 K2_MMA_MAX_H_MODES = 32   # 2*m2: four k-steps of the inverse-H product (kMaxKH)
 MAX_SMEM_BYTES = 232448
+# csrc/fno_tf32.cuh, K2's and K12B's tf32 variants: f32 padding of a row read by
+# ldmatrix (kTPad), the channels of a g / dy piece (kGC); csrc/fno_k2.cu: the
+# channels of an x ring stage (kXC); csrc/fno_k12b.cu: the positions of a dWp
+# tile (kTilePosT)
+TF32_PAD, TF32_GC, K2_TF32_XC, K12B_TF32_TILE = 4, 8, 16, 32
 # csrc/fno_k1.cu, the mma variant: W modes, the channels a block takes, the
 # rows of H a chunk takes (one a warp), the widest W
 K1_MMA_M3, K1_MMA_SLICE, K1_MMA_ROWS, K1_MMA_MAX_WP = (8, 16), 16, 8, 256
@@ -137,16 +144,30 @@ def k2_mma_smem_bytes(Wp: int, C: int, m2x2: int, m3: int) -> int:
             + 3 * C * 4 + warps * 2 * C * 4)
 
 
+def k2_tf32_smem_bytes(Wp: int, C: int, m2x2: int, m3: int) -> int:
+    """Shared memory of a block of K2's tf32 variant (csrc/fno_k2.cu::
+    tf32_layout), all f32: the block's inverse-H rows as [c][k]; the larger
+    of the warps' rings over g (the H stage) and Wpᵀ's tf32 hi and lo with
+    the warps' x rings (two 16-channel stages; the main loop); a/b/bp; the
+    warps' statistics."""
+    warps = -(-Wp // 16)
+    main = 2 * C * (C + TF32_PAD) * 4 + warps * 2 * 16 * (K2_TF32_XC + TF32_PAD) * 4
+    gring = warps * 2 * (2 * m2x2) * TF32_GC * 4
+    return (K2_MMA_ROWS[C] * C * (2 * m3 + TF32_PAD) * 4 + max(main, gring)
+            + 3 * C * 4 + warps * 2 * C * 4)
+
+
 def k2_variant(dtype, C: int, m3: int, Wp: int = 16, m2x2: int = 2,
                aligned: bool = True) -> str:
-    """'mma' for bfloat16 at an instantiated (C, m3) whose block fits (one
-    warp per 16 columns of W, its tiles in shared memory, at most 32 H
-    modes) on 16-byte aligned g, x and wp, else 'fma'."""
-    if (dtype == torch.bfloat16 and aligned and C in K2_MMA_WIDTHS and m3 in K2_MMA_M3
-            and m2x2 <= K2_MMA_MAX_H_MODES
-            and -(-Wp // 16) <= K2_MMA_MAX_WARPS[C]
-            and k2_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES):
-        return "mma"
+    """At an instantiated (C, m3) whose block fits (one warp per 16 columns
+    of W, its tiles in shared memory, at most 32 H modes) on 16-byte aligned
+    g, x and wp: 'mma' for bfloat16, 'tf32' for float32; else 'fma'."""
+    if (aligned and C in K2_MMA_WIDTHS and m3 in K2_MMA_M3
+            and m2x2 <= K2_MMA_MAX_H_MODES and -(-Wp // 16) <= K2_MMA_MAX_WARPS[C]):
+        if dtype == torch.bfloat16 and k2_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES:
+            return "mma"
+        if dtype == torch.float32 and k2_tf32_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES:
+            return "tf32"
     return "fma"
 
 
@@ -252,16 +273,36 @@ def k12b_mma_smem_bytes(Wp: int, C: int, m2x2: int, m3: int) -> int:
             + warps * 2 * (2 * m2x2) * 16 * 2 + 4 * C * 4 + warps * 2 * C * 4)
 
 
+def k12b_tf32_smem_bytes(Wp: int, C: int, m2x2: int, m3: int) -> int:
+    """Shared memory of a dz block of K12B's tf32 variant (csrc/fno_k12b.cu::
+    dz_tf32_layout), all f32: dX of the block's rows as [c][k]; the larger
+    of the warps' rings over dy (the H stage) and wp's tf32 hi and lo (the
+    main loop); a/b/ds1/ds2; the warps' sums."""
+    warps = -(-Wp // 16)
+    return (K12B_MMA_ROWS[C] * C * (2 * m3 + TF32_PAD) * 4
+            + max(warps * 2 * (2 * m2x2) * TF32_GC * 4, 2 * C * (C + TF32_PAD) * 4)
+            + 4 * C * 4 + warps * 2 * C * 4)
+
+
+def k12b_tf32_dwp_smem_bytes(C: int) -> int:
+    """Shared memory of a dWp block of K12B's tf32 variant (csrc/fno_k12b.cu::
+    dwp_tf32_smem): x, s and ds two stages each and ds_eff hi and lo, tiles
+    of 32 positions in rows of C + 8 floats; a/b/ds1/ds2; four dbp shares."""
+    return 8 * K12B_TF32_TILE * (C + 8) * 4 + 8 * C * 4
+
+
 def k12b_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
                  aligned: bool = True) -> str:
-    """'mma' for bfloat16 at an instantiated (C, m3) whose dz block fits
-    (one warp per 16 columns of W, at most 32 H modes) on 16-byte aligned x,
-    s, ds and dy, else 'fma'."""
-    if (dtype == torch.bfloat16 and aligned and C in K12B_MMA_WIDTHS
-            and m3 in K12B_MMA_M3 and m2x2 <= 32
-            and -(-Wp // 16) <= K12B_MMA_MAX_WARPS[C]
-            and k12b_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES):
-        return "mma"
+    """At an instantiated (C, m3) whose dz block fits (one warp per 16
+    columns of W, at most 32 H modes) on 16-byte aligned x, s, ds and dy:
+    'mma' for bfloat16, 'tf32' for float32; else 'fma'."""
+    if (aligned and C in K12B_MMA_WIDTHS and m3 in K12B_MMA_M3 and m2x2 <= 32
+            and -(-Wp // 16) <= K12B_MMA_MAX_WARPS[C]):
+        if dtype == torch.bfloat16 and k12b_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES:
+            return "mma"
+        if (dtype == torch.float32 and k12b_tf32_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES
+                and k12b_tf32_dwp_smem_bytes(C) <= MAX_SMEM_BYTES):
+            return "tf32"
     return "fma"
 
 
@@ -271,6 +312,23 @@ def split_bf16(t: torch.Tensor):
     t = t.float()
     hi = t.to(torch.bfloat16)
     return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def to_tf32(t: torch.Tensor) -> torch.Tensor:
+    """t (float32) rounded to tf32, to nearest with ties away from zero, as
+    float32 whose low 13 mantissa bits are zero: cvt.rna.tf32.f32 (the half
+    unit of the last kept bit added to the magnitude's bits, the rest cut)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor):
+    """(hi, lo) float32 tensors of tf32 values with hi + lo = t to 2^-22
+    relative: hi = rna(t), lo = rna(t - hi). Host twin of
+    csrc/mma.cuh::split_tf32."""
+    t = t.float()
+    hi = to_tf32(t)
+    return hi, to_tf32(t - hi)
 
 
 def _variant_code(kernel: str, name: str) -> int:
@@ -351,11 +409,13 @@ SIGNATURES = {
     "fno_k2": ([_P] * 15 + [_I] * 9 + [_P], _I),
     "fno_k2_num_partials": ([_I] * 4, _I),
     "fno_k2_mma_smem_bytes": ([_I] * 4, _I),
+    "fno_k2_tf32_smem_bytes": ([_I] * 4, _I),
     "fno_k2a": ([_P] * 18 + [_I] * 9 + [_P], _I),
     "fno_k2a_lite_mma_smem_bytes": ([_I] * 3, _I),
     "fno_k12b": ([_P] * 18 + [_I] * 9 + [_P], _I),
     "fno_k12b_partial_floats": ([_I] * 5, ctypes.c_longlong),
     "fno_k12b_mma_smem_bytes": ([_I] * 4, _I),
+    "fno_k12b_tf32_smem_bytes": ([_I] * 4, _I),
     "fno_k3f": ([_P] * 8 + [_I] * 13 + [_P], _I),
     "fno_k3f_num_partials": ([_I] * 7, _I),
     "fno_k3f_mma_smem_bytes": ([_I], _I),
@@ -385,11 +445,13 @@ def library() -> ctypes.CDLL:
 
 
 @lru_cache(maxsize=64)
-def _k2_layouts_agree(Wp: int, C: int, m2x2: int, m3: int) -> bool:
-    """The shared-memory size of K2's mma variant as fno_k2.cu lays it out
-    against ``k2_mma_smem_bytes``, on which ``k2_variant`` decides."""
-    return library().fno_k2_mma_smem_bytes(Wp, C, m2x2, m3) == k2_mma_smem_bytes(
-        Wp, C, m2x2, m3)
+def _layouts_agree(kernel: str, variant: str, Wp: int, C: int, m2x2: int, m3: int) -> bool:
+    """The shared-memory size of a block of K2's or K12B's tensor-core
+    variant as its source lays it out (``fno_<kernel>_<variant>_smem_bytes``)
+    against this module's, on which ``k2_variant`` and ``k12b_variant``
+    decide."""
+    mine = globals()[f"{kernel}_{variant}_smem_bytes"](Wp, C, m2x2, m3)
+    return getattr(library(), f"fno_{kernel}_{variant}_smem_bytes")(Wp, C, m2x2, m3) == mine
 
 
 def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
@@ -511,12 +573,54 @@ def t_stage(y, mr, mi, *, variant: str | None = None):
     return out
 
 
+_TC_DTYPES = {"mma": torch.bfloat16, "tf32": torch.float32}
+
+
+def _tc_variant(kernel: str, chosen: str, variant: str | None, dtype, takes: str,
+                got: str) -> tuple:
+    """(name, code) of the variant of K2 or K12B that runs: the one named, or
+    ``chosen``. A named tensor-core variant (mma, tf32) that the input does
+    not take raises here, before anything is built or launched."""
+    name = chosen if variant is None else variant
+    code = _variant_code(kernel, name)
+    if name in _TC_DTYPES and chosen != name:
+        kind = "bfloat16" if name == "mma" else "float32"
+        raise ValueError(f"{kernel}: the {name} variant takes {kind}, {takes}; got {dtype}, "
+                         f"{got}")
+    return name, code
+
+
+def _k2_variant(g, x, wp, C: int, m3: int, Wp: int, m2x2: int, variant: str | None) -> tuple:
+    """(name, code) of the K2 variant that runs on (g, x, wp); see
+    ``_tc_variant``."""
+    ok = aligned(g, x, wp)
+    return _tc_variant(
+        "k2", k2_variant(x.dtype, C, m3, Wp, m2x2, ok), variant, x.dtype,
+        f"C in {K2_MMA_WIDTHS}, m3 in {K2_MMA_M3}, 2*m2 <= {K2_MMA_MAX_H_MODES}, at most "
+        f"{K2_MMA_MAX_WARPS} warps of 16 columns of W, a block within {MAX_SMEM_BYTES} bytes "
+        "of shared memory and 16-byte aligned g, x and wp",
+        f"C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={ok}")
+
+
+def _check_tables(kernel: str, name: str, tables, dev, shapes: dict) -> tuple:
+    """The DFT tables a tensor-core variant reads: present, on dev, of the
+    variant's dtype, shapes and 16-byte alignment; their pointers."""
+    if tables is None:
+        raise ValueError(f"{kernel}: the {name} variant needs the packed tables")
+    for (n, shape), t in zip(shapes.items(), tables):
+        _check(n, t, dev, _TC_DTYPES[name], shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{n}: not 16-byte aligned")
+    return tuple(_p(t) for t in tables)
+
+
 def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str,
        tables=None, variant: str | None = None):
     """(g [BT, 2m2*m3, 2C], x like s) → (s like x, stats [2, C] f32); see
     csrc/fno_k2.cu. ``variant`` names one of VARIANTS['k2']; by default
     ``k2_variant`` chooses. The mma variant needs ``tables`` = (ah, iw), the
-    packed bf16 hi/lo DFT tables of ``ops/fno_layer._k2_mma_tables``."""
+    packed bf16 hi/lo DFT tables of ``ops/fno_layer._k2_mma_tables``; the
+    tf32 variant the f32 tables of ``ops/fno_layer._k2_tf32_tables``."""
     dt = _io_dtype(x)
     dev, f32 = x.device, torch.float32
     BT, C = x.shape[0], x.shape[-1] // 2
@@ -528,35 +632,21 @@ def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str,
                     ("ihi", ihi, (m2x2, Hp)), ("iwr", iwr, (m3, Wp)),
                     ("iwi", iwi, (m3, Wp))):
         _check(n, t, dev, f32, s)
-    chosen = k2_variant(x.dtype, C, m3, Wp, m2x2, aligned(g, x, wp))
-    name = chosen if variant is None else variant
-    code = _variant_code("k2", name)
-    lib = library()
-    null = ctypes.c_void_p(None)
-    ah = iw = null
-    if name == "mma":
-        if chosen != "mma":
-            raise ValueError(
-                f"k2: the mma variant takes bfloat16, C in {K2_MMA_WIDTHS}, m3 in "
-                f"{K2_MMA_M3}, 2*m2 <= {K2_MMA_MAX_H_MODES}, at most {K2_MMA_MAX_WARPS} warps "
-                f"of 16 columns of W, a block within {MAX_SMEM_BYTES} bytes of shared "
-                f"memory and 16-byte aligned g, x and wp; got {x.dtype}, C={C}, m3={m3}, "
-                f"2*m2={m2x2}, Wp={Wp}, aligned={aligned(g, x, wp)}")
-        if tables is None:
-            raise ValueError("k2: the mma variant needs the packed tables")
-        nch = -(-Hp // K2_MMA_ROWS[C])
-        kpad = -(-2 * m2x2 // 16) * 16
-        _check("ah", tables[0], dev, torch.bfloat16, (2, nch, 16, kpad))
-        _check("iw", tables[1], dev, torch.bfloat16, (2, -(-Wp // 16) * 16, 2 * m3))
-        for n, t in (("ah", tables[0]), ("iw", tables[1])):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{n}: not 16-byte aligned")
-        if not _k2_layouts_agree(Wp, C, m2x2, m3):
+    name, code = _k2_variant(g, x, wp, C, m3, Wp, m2x2, variant)
+    ah = iw = ctypes.c_void_p(None)
+    if name in _TC_DTYPES:
+        nch, wpad = -(-Hp // K2_MMA_ROWS[C]), -(-Wp // 16) * 16
+        kmult = 16 if name == "mma" else 8
+        kpad = -(-2 * m2x2 // kmult) * kmult
+        pair = (2,) if name == "mma" else ()
+        ah, iw = _check_tables("k2", name, tables, dev, {
+            "ah": (*pair, nch, 16, kpad), "iw": (*pair, wpad, 2 * m3)})
+        if not _layouts_agree("k2", name, Wp, C, m2x2, m3):
             raise RuntimeError("k2: the shared-memory layouts of kernels.py and "
                                "fno_k2.cu differ")
-        ah, iw = _p(tables[0]), _p(tables[1])
     elif C > 128 or 256 % C:
         raise ValueError(f"k2 takes C dividing 256, up to 128; got C={C}")
+    lib = library()
     s = torch.empty_like(x)
     partial = torch.empty((lib.fno_k2_num_partials(BT, Hp, C, code), 2, C), dtype=f32,
                           device=dev)
@@ -658,13 +748,27 @@ def k2a_lite(ds, g, y, ds1, ds2, wp, bp, alpha, beta, D, A1, ihr, ihi, iwr,
     return dg
 
 
+def _k12b_variant(x, s, ds, dy, C: int, m2x2: int, m3: int, Wp: int,
+                  variant: str | None) -> tuple:
+    """(name, code) of the K12B variant that runs on (x, s, ds, dy); see
+    ``_tc_variant``."""
+    ok = aligned(x, s, ds, dy)
+    return _tc_variant(
+        "k12b", k12b_variant(x.dtype, C, m2x2, m3, Wp, ok), variant, x.dtype,
+        f"C in {K12B_MMA_WIDTHS}, m3 in {K12B_MMA_M3}, 2*m2 <= 32, at most "
+        f"{K12B_MMA_MAX_WARPS} warps of 16 columns of W, a block within {MAX_SMEM_BYTES} "
+        "bytes of shared memory and 16-byte aligned x, s, ds and dy",
+        f"C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={ok}")
+
+
 def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, ehr, ehi, ewr, ewi, *, Hp: int,
          Wp: int, act: str, tables=None, variant: str | None = None):
     """(x, s, ds like x; dy [BT, 2m2*m3, 2C]) → (dx like x, dWp [C, C],
     da, db, dbp [C] f32); see csrc/fno_k12b.cu. ``variant`` names one of
     VARIANTS['k12b']; by default ``k12b_variant`` chooses. The mma variant
     needs ``tables`` = (ah, ew), the packed bf16 hi/lo DFT tables of
-    ``ops/fno_layer._k12b_mma_tables``."""
+    ``ops/fno_layer._k12b_mma_tables``; the tf32 variant the f32 tables of
+    ``ops/fno_layer._k12b_tf32_tables``."""
     dt = _io_dtype(x)
     dev, f32 = x.device, torch.float32
     BT, C = x.shape[0], x.shape[-1] // 2
@@ -677,34 +781,20 @@ def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, ehr, ehi, ewr, ewi, *, Hp: int,
                      ("ehi", ehi, (Hp, m2x2)), ("ewr", ewr, (Wp, m3)),
                      ("ewi", ewi, (Wp, m3))):
         _check(n, t, dev, f32, sh)
-    chosen = k12b_variant(x.dtype, C, m2x2, m3, Wp, aligned(x, s, ds, dy))
-    name = chosen if variant is None else variant
-    code = _variant_code("k12b", name)
-    lib = library()
+    name, code = _k12b_variant(x, s, ds, dy, C, m2x2, m3, Wp, variant)
     ah = ew = ctypes.c_void_p(None)
-    if name == "mma":
-        if chosen != "mma":
-            raise ValueError(
-                f"k12b: the mma variant takes bfloat16, C in {K12B_MMA_WIDTHS}, m3 in "
-                f"{K12B_MMA_M3}, 2*m2 <= 32, at most {K12B_MMA_MAX_WARPS} warps of 16 "
-                f"columns of W, a block within {MAX_SMEM_BYTES} bytes of shared memory and "
-                f"16-byte aligned x, s, ds and dy; got {x.dtype}, C={C}, m3={m3}, "
-                f"2*m2={m2x2}, Wp={Wp}, aligned={aligned(x, s, ds, dy)}")
-        if tables is None:
-            raise ValueError("k12b: the mma variant needs the packed tables")
-        nch = -(-Hp // K12B_MMA_ROWS[C])
-        _check("ah", tables[0], dev, torch.bfloat16, (2, nch, 16, -(-2 * m2x2 // 16) * 16))
-        _check("ew", tables[1], dev, torch.bfloat16, (2, -(-Wp // 16) * 16, 2 * m3))
-        for n, t in (("ah", tables[0]), ("ew", tables[1])):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{n}: not 16-byte aligned")
-        if lib.fno_k12b_mma_smem_bytes(Wp, C, m2x2, m3) != k12b_mma_smem_bytes(
-                Wp, C, m2x2, m3):
+    if name in _TC_DTYPES:
+        nch, wpad = -(-Hp // K12B_MMA_ROWS[C]), -(-Wp // 16) * 16
+        kmult = 16 if name == "mma" else 8
+        pair = (2,) if name == "mma" else ()
+        ah, ew = _check_tables("k12b", name, tables, dev, {
+            "ah": (*pair, nch, 16, -(-2 * m2x2 // kmult) * kmult), "ew": (*pair, wpad, 2 * m3)})
+        if not _layouts_agree("k12b", name, Wp, C, m2x2, m3):
             raise RuntimeError("k12b: the shared-memory layouts of kernels.py and "
                                "fno_k12b.cu differ")
-        ah, ew = _p(tables[0]), _p(tables[1])
     elif C > 128 or 256 % C:
         raise ValueError(f"k12b takes C <= 128 dividing 256; got C={C}")
+    lib = library()
     n = C * C + 3 * C
     dx = torch.empty_like(x)
     partial = torch.empty(lib.fno_k12b_partial_floats(BT, Hp, Wp, C, code), dtype=f32,
@@ -716,7 +806,7 @@ def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, ehr, ehi, ewr, ewi, *, Hp: int,
             ACT_CODES[act], code, dt)
     VARIANTS["k12b"][name] += 1
     dwp = out[:C * C].view(C, C)
-    if name == "mma":   # (dWp, dbp, da, db)
+    if name != "fma":   # mma, tf32: (dWp, dbp, da, db)
         dbp, da, db = out[C * C:].view(3, C)
     else:               # (dWp, da, db, dbp)
         da, db, dbp = out[C * C:].view(3, C)

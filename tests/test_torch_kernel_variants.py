@@ -172,18 +172,19 @@ def _fno_config(scenario):
 def test_shipped_configs_choose_the_redesigned_variants(scenario):
     """Every shipped FNO config (cylinder 4/12/16 at width 64, combustion
     4/16/16, fsi at width 128, ...) runs K1, K2, K2A-lite, K12B and K3B on the
-    tensor cores and the T-stage from registers under bf16 compute, and the
-    exact-f32 kernels under f32, at a 20-frame window padded to 26 and a grid up
-    to 134 wide; K12B's fma variant takes every width in f32, fsi's 128
-    included."""
+    tensor cores and the T-stage from registers under bf16 compute; under f32
+    K2 and K12B on the tensor cores as 3xTF32 (their tf32 blocks fit at every
+    shipped width, fsi's 128 included) and the other kernels in exact f32, at
+    a 20-frame window padded to 26 and a grid up to 134 wide; K12B's fma
+    variant takes every width, fsi's 128 included."""
     C, m1, m2, m3 = _fno_config(scenario)
     for Wp in (70, 134):
         assert kernels.k2_variant(torch.bfloat16, C, m3, Wp, 2 * m2) == "mma"
-        assert kernels.k2_variant(torch.float32, C, m3, Wp, 2 * m2) == "fma"
+        assert kernels.k2_variant(torch.float32, C, m3, Wp, 2 * m2) == "tf32"
         assert kernels.k1_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
         assert kernels.k1_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
         assert kernels.k12b_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
-        assert kernels.k12b_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
+        assert kernels.k12b_variant(torch.float32, C, 2 * m2, m3, Wp) == "tf32"
         assert kernels.k2a_lite_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
         assert kernels.k2a_lite_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
         assert C <= 128 and 256 % C == 0      # K12B fma and the tail kernels
@@ -243,13 +244,15 @@ def test_k1_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     ((torch.bfloat16, 16, 6, 8, 12), "fma"),       # C not instantiated
     ((torch.bfloat16, 64, 24, 4, 134), "fma"),     # 2*m3 no multiple of 16
     ((torch.bfloat16, 64, 34, 16, 134), "fma"),    # more than 32 H modes
-    ((torch.float32, 128, 32, 16, 134), "fma"),    # exact f32 arithmetic
+    ((torch.float32, 128, 32, 16, 134), "tf32"),   # f32 on the tensor cores: fsi's dz block fits
 ])
 def test_k12b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert kernels.k12b_variant(*args) == want
+    dtype, C, m2x2, m3, Wp = args
     if want == "mma":
-        dtype, C, m2x2, m3, Wp = args
         assert kernels.k12b_mma_smem_bytes(Wp, C, m2x2, m3) <= kernels.MAX_SMEM_BYTES
+    if want == "tf32":
+        assert kernels.k12b_tf32_smem_bytes(Wp, C, m2x2, m3) <= kernels.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("args, want", [
@@ -258,7 +261,7 @@ def test_k12b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     ((torch.bfloat16, 8, 4, 12, 6), "fma"),        # C below the MMA tile
     ((torch.bfloat16, 32, 6, 22, 10), "fma"),      # 2*m3 no multiple of 16
     ((torch.bfloat16, 64, 4, 20, 6), "fma"),
-    ((torch.float32, 64, 16, 134, 24), "fma"),     # exact f32 arithmetic
+    ((torch.float32, 64, 16, 134, 24), "tf32"),    # f32 on the tensor cores, the cylinder
     ((torch.bfloat16, 64, 16, 256, 24), "mma"),    # 16 warps
     ((torch.bfloat16, 64, 16, 258, 24), "fma"),    # a 17th warp
     ((torch.bfloat16, 128, 16, 134, 32), "mma"),   # fsi's width: 9 warps, 206 KB
@@ -271,6 +274,8 @@ def test_k2_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     dtype, C, m3, Wp, m2x2 = args
     if want == "mma":
         assert kernels.k2_mma_smem_bytes(Wp, C, m2x2, m3) <= kernels.MAX_SMEM_BYTES
+    if want == "tf32":
+        assert kernels.k2_tf32_smem_bytes(Wp, C, m2x2, m3) <= kernels.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("args, want", [
@@ -291,8 +296,10 @@ def test_variant_counters_start_at_zero_and_reset():
     kernels.reset_launches()
     assert kernels.VARIANTS == {"k1": {"fma": 0, "mma": 0},
                                 "t_stage": {"generic": 0, "registers": 0},
-                                "k2": {"fma": 0, "mma": 0}, "k2a_lite": {"fma": 0, "mma": 0},
-                                "k12b": {"fma": 0, "mma": 0}, "k3f": {"fma": 0, "mma": 0},
+                                "k2": {"fma": 0, "mma": 0, "tf32": 0},
+                                "k2a_lite": {"fma": 0, "mma": 0},
+                                "k12b": {"fma": 0, "mma": 0, "tf32": 0},
+                                "k3f": {"fma": 0, "mma": 0},
                                 "k3b": {"fma": 0, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
                                 "ta_bwd": {"fma": 0, "mma": 0},
                                 "gk_scores": {"fma": 0, "mma": 0}}
@@ -800,12 +807,16 @@ def _constexprs(name):
                                "kTaTS": "TA_MMA_TILE_STRIDE"}),
     ("galerkin_scores.cu", {"kGkTile": "GK_MMA_TILE", "kGkStages": "GK_MMA_STAGES",
                             "kGkRowPad": "GK_MMA_ROW_PAD"}),
+    ("fno_tf32.cuh", {"kTPad": "TF32_PAD", "kGC": "TF32_GC"}),
+    ("fno_k2.cu", {"kXC": "K2_TF32_XC", "kPad": "K2_MMA_PAD"}),
+    ("fno_k12b.cu", {"kTilePosT": "K12B_TF32_TILE"}),
 ])
 def test_shared_memory_layout_constants_match_the_sources(source, pairs):
     """The constants kernels.py's ta_fwd_mma_smem_bytes,
-    ta_bwd_mma_smem_bytes and gk_scores_mma_smem_bytes lay their blocks out
+    ta_bwd_mma_smem_bytes, gk_scores_mma_smem_bytes, k2_tf32_smem_bytes,
+    k12b_tf32_smem_bytes and k12b_tf32_dwp_smem_bytes lay their blocks out
     with, against the sources' (the wrappers also hold the sizes against the
-    library's own ``*_mma_smem_bytes`` before a launch)."""
+    library's own ``*_smem_bytes`` before a launch)."""
     got = _constexprs(source)
     for c, py in pairs.items():
         assert got[c] == getattr(kernels, py), (c, py)

@@ -11,7 +11,8 @@ fill no whole tile (S 300, 37); for the Galerkin scores, N that fills no
 whole tile (300, 37), head widths 16, 32 and 64, odd B·h and a last group
 of heads narrower than the block (h 5); for the variants of the T-stage and
 K2, K1, K2A-lite, K12B, K3F, K3B, the TA forward and backward and the
-Galerkin scores, shapes on both sides of each choice
+Galerkin scores (K2's and K12B's f32 tf32 variants beside their bf16 mma
+ones), shapes on both sides of each choice
 (``kernels.t_stage_variant``, ``kernels.k2_variant`` and the others),
 widths 32, 64 and 128 for the tensor-core variants of the FNO kernels, head
 widths 16, 32 and 64, T from 5 to 32 and the UNet step's four site counts
@@ -116,18 +117,26 @@ K2_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
     (2, 9, 20, 128, 3, 8),     # mma at C 128
     (2, 10, 12, 8, 3, 4),      # fma in both dtypes: C and m3 below the MMA tiles
     (2, 9, 20, 64, 3, 4),      # fma: 2*m3 no multiple of 16
-    (1, 7, 134, 128, 3, 16),   # f32 fma at C 128 and the grid's Wp: 2 rows a block;
-                               # bf16 mma at 9 warps
+    (1, 7, 134, 128, 3, 16),   # C 128 and the grid's Wp: mma and tf32 at 9 warps;
+                               # fma, named, 2 rows a block
 ]
+
+
+def _want_variant(dtype, tensor_cores: bool) -> str:
+    """The variant K2 and K12B choose: on the tensor cores (mma in bf16, tf32
+    in f32) where the shape takes them, else fma."""
+    if not tensor_cores:
+        return "fma"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", K2_SHAPES)
 @pytest.mark.parametrize("act", ["none", "exact"])
 def test_k2_variants_match_twin(cuda, shape, dtype, act):
-    """K2 in the variant its dtype and shape choose, and in bf16 the fma
-    variant named on the same inputs, against the twin; two calls bit-equal;
-    the per-variant counters."""
+    """K2 in the variant its dtype and shape choose, and where that is mma or
+    tf32 the fma variant named on the same inputs, against the twin; two
+    calls bit-equal; the per-variant counters."""
     BT, Hp, Wp, C, m2, m3 = shape
     g = torch.Generator(device=cuda).manual_seed(6)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -136,7 +145,7 @@ def test_k2_variants_match_twin(cuda, shape, dtype, act):
     a, b, wp, bp = 1 + 0.1 * rn(C), 0.1 * rn(C), rn(C, C) / C ** 0.5, 0.1 * rn(C)
     kw = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
     chosen = kernels.k2_variant(dtype, C, m3, Wp, 2 * m2)
-    assert chosen == ("mma" if dtype == torch.bfloat16 and C >= 32 and m3 >= 8 else "fma")
+    assert chosen == _want_variant(dtype, C >= 32 and m3 >= 8)
     kernels.reset_launches()
     s, st = tfl.k2(gs, x, a, b, wp, bp, **kw)
     s_ref, st_ref = tfl.k2_plain(gs, x, a, b, wp, bp, tfl._ct_on(cuda, Hp, Wp, m2, m3),
@@ -146,8 +155,8 @@ def test_k2_variants_match_twin(cuda, shape, dtype, act):
     _close(st, st_ref, torch.float32)
     for u, v in zip((s, st), tfl.k2(gs, x, a, b, wp, bp, **kw)):
         assert torch.equal(u, v)
-    want = {"fma": 0, "mma": 0, chosen: 2}
-    if chosen == "mma":
+    want = {"fma": 0, "mma": 0, "tf32": 0, chosen: 2}
+    if chosen != "fma":
         s, st = tfl.k2(gs, x, a, b, wp, bp, **kw, variant="fma")
         _close(s, s_ref, dtype)
         _close(st, st_ref, torch.float32)
@@ -215,6 +224,11 @@ def test_variants_refuse_what_they_do_not_take(cuda):
                    cst["iwr"], cst["iwi"], Hp=Hp, Wp=Wp, act="none")
     with pytest.raises(ValueError, match="no variant"):
         tfl.k2(gs, x, v, v, wp, v, **kw, variant="wgmma")
+    with pytest.raises(ValueError, match="tf32 variant takes float32"):
+        tfl.k2(gs.bfloat16(), x.bfloat16(), v, v, wp, v, **kw, variant="tf32")   # bfloat16
+    with pytest.raises(ValueError, match="packed tables"):
+        kernels.k2(gs, x, v, v, wp, v, cst["ihr"], cst["ihi"], cst["iwr"], cst["iwi"], Hp=Hp,
+                   Wp=Wp, act="none")
     assert not any(kernels.LAUNCHES.values())
     assert not any(n for c in kernels.VARIANTS.values() for n in c.values())
 
@@ -480,9 +494,10 @@ K12B_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
 @pytest.mark.parametrize("shape", K12B_SHAPES)
 @pytest.mark.parametrize("act", ["none", "exact"])
 def test_k12b_variants_match_twin(cuda, shape, dtype, act):
-    """K12B in the variant its dtype and shape choose (and in bf16 the fma
-    variant named) against the twin: dx to TOL, dWp, da, db and dbp to 1e-4
-    of the sum of |terms|; two calls bit-equal; the per-variant counters."""
+    """K12B in the variant its dtype and shape choose (and where that is mma
+    or tf32 the fma variant named) against the twin: dx to TOL, dWp, da, db
+    and dbp to 1e-4 of the sum of |terms|; two calls bit-equal; the
+    per-variant counters."""
     BT, Hp, Wp, C, m2, m3 = shape
     g = torch.Generator(device=cuda).manual_seed(9)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -494,7 +509,7 @@ def test_k12b_variants_match_twin(cuda, shape, dtype, act):
     ds1, ds2 = rn(C) / npos, rn(C) / npos
     kw = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
     chosen = kernels.k12b_variant(dtype, C, 2 * m2, m3, Wp)
-    assert chosen == ("mma" if dtype == torch.bfloat16 and C >= 32 and m3 >= 8 else "fma")
+    assert chosen == _want_variant(dtype, C >= 32 and m3 >= 8)
     kernels.reset_launches()
     got = tfl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **kw)
     ref = tfl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, tfl._ct_on(cuda, Hp, Wp, m2, m3),
@@ -508,7 +523,7 @@ def test_k12b_variants_match_twin(cuda, shape, dtype, act):
              (du * v(x)).abs().sum((0, 1, 2)), du.abs().sum((0, 1, 2)),
              dse.abs().sum((0, 1, 2)))
     runs = [got]
-    if chosen == "mma":
+    if chosen != "fma":
         runs.append(tfl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **kw, variant="fma"))
     for run in runs:
         _close(run[0], ref[0], dtype)
@@ -516,7 +531,7 @@ def test_k12b_variants_match_twin(cuda, shape, dtype, act):
             _sums_close(u, w, t)
     assert all(torch.equal(u, w) for u, w in zip(got, tfl.k12b(x, a, b, wp, s, ds, ds1, ds2,
                                                                 dy, **kw)))
-    want = {"fma": 0, "mma": 0, chosen: 2}
+    want = {"fma": 0, "mma": 0, "tf32": 0, chosen: 2}
     want["fma"] += len(runs) - 1
     assert kernels.VARIANTS["k12b"] == want and kernels.LAUNCHES["k12b"] == sum(want.values())
 
@@ -582,8 +597,8 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
     _close(tft.k3f(ds, *tail, **kw), tft.k3f_plain(ds, *tail, **kw), torch.float32)
     assert {k: dict(v) for k, v in kernels.VARIANTS.items()} == {
         "k1": {"fma": 1, "mma": 0}, "t_stage": {"generic": 1, "registers": 0},
-        "k2": {"fma": 1, "mma": 0}, "k2a_lite": {"fma": 1, "mma": 0},
-        "k12b": {"fma": 1, "mma": 0}, "k3f": {"fma": 1, "mma": 0},
+        "k2": {"fma": 1, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 1, "mma": 0},
+        "k12b": {"fma": 1, "mma": 0, "tf32": 0}, "k3f": {"fma": 1, "mma": 0},
         "k3b": {"fma": 1, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
         "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
     with pytest.raises(ValueError, match="mma variant"):
@@ -1043,9 +1058,18 @@ def test_ta_fwd_and_gk_scores_variants_refuse_what_they_do_not_take(cuda):
 
 
 def test_mma_shared_memory_layouts_agree_with_the_library(cuda):
-    """kernels.py's block sizes of the TA and scores tensor-core variants,
-    on which the variant functions decide, against the sources' own."""
+    """kernels.py's block sizes of the TA, scores, K2 and K12B tensor-core
+    variants (K2's and K12B's mma and tf32), on which the variant functions
+    decide, against the sources' own."""
     lib = kernels.library()
+    for Wp in (22, 70, 134, 256):
+        for C in (32, 64, 128):
+            for m2x2 in (6, 24, 32):
+                for m3 in (8, 16):
+                    for k, v in (("k2", "mma"), ("k2", "tf32"), ("k12b", "mma"),
+                                 ("k12b", "tf32")):
+                        assert getattr(lib, f"fno_{k}_{v}_smem_bytes")(Wp, C, m2x2, m3) == \
+                            getattr(kernels, f"{k}_{v}_smem_bytes")(Wp, C, m2x2, m3), (k, v)
     for T in (5, 9, 16, 20, 32):
         for h in (1, 3, 4, 8):
             for d in (16, 32, 64):
@@ -1055,3 +1079,23 @@ def test_mma_shared_memory_layouts_agree_with_the_library(cuda):
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
             assert lib.gk_scores_mma_smem_bytes(d, code) == kernels.gk_scores_mma_smem_bytes(
                 d, dtype)
+
+
+def test_k2_and_k12b_tf32_variants_refuse_what_they_do_not_take(cuda):
+    """A named tf32 variant on bfloat16, on a width or W mode count it is not
+    instantiated for, or on a misaligned view raises before any launch."""
+    BT, Hp, Wp, C, m2, m3 = K12B_SHAPES[1]
+    kernels.reset_launches()
+    for dtype, Cx, m3x, offset in ((torch.bfloat16, C, m3, 0), (torch.float32, 16, m3, 0),
+                                   (torch.float32, C, 12, 0), (torch.float32, C, m3, 1)):
+        n = BT * Hp * Wp * Cx
+        x = torch.zeros(n + 8, device=cuda, dtype=dtype)[offset:offset + n].view(
+            BT, Hp * Wp // 2, 2 * Cx)
+        dy = torch.zeros(BT, 2 * m2 * m3x, 2 * Cx, device=cuda, dtype=dtype)
+        v, wp = torch.zeros(Cx, device=cuda), torch.zeros(Cx, Cx, device=cuda)
+        geo = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3x)
+        with pytest.raises(ValueError, match="tf32 variant"):
+            tfl.k12b(x, v, v, wp, x, x, v, v, dy, **geo, act="none", variant="tf32")
+        with pytest.raises(ValueError, match="tf32 variant"):
+            tfl.k2(dy, x, v, v, wp, v, **geo, act="none", variant="tf32")
+    assert not any(kernels.LAUNCHES.values())

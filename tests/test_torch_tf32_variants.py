@@ -1,0 +1,460 @@
+"""The tf32 variants of the port's K2 and K12B, as far as the CPU shows.
+
+The kernels run only on the card (tests/test_torch_kernels.py, marker
+``gpu``). Here: the host side of the variants that carry f32 tensors
+through the tensor cores as 3xTF32 (each f32 operand a tf32 hi + lo pair,
+hi·hi + hi·lo + lo·hi, the lo·lo term dropped): the tf32 split, the f32
+DFT tables, each kernel's arithmetic replayed in plain PyTorch with its
+splits, its rounding points (the f32 values it keeps in shared memory) and
+its erf (Abramowitz & Stegun 7.1.26, |error| <= 3e-7), summed in f64, against the twin's arithmetic in f64 (1e-5·max|ref| for s
+and dx, 1e-6 of the sum of |terms| for the statistics and for dWp, da, db
+and dbp) and against the Pallas kernels in interpret mode (rtol 2e-4, atol
+2e-4·max|ref|); the choice of variant at the shipped geometries and at the
+shapes it refuses; a named tf32 variant refused before anything is built.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from realpdebench_tpu.ops.pallas import fno_layer as jfl
+from realpdebench_tpu_torch.ops import fno_layer as tfl
+from realpdebench_tpu_torch.ops import kernels
+from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
+
+GEOMETRIES = [  # (Hp, Wp, m2, m3, C): the cylinder's, and the gpu tests' at C 32, 64, 128
+    (70, 134, 12, 16, 64),
+    (13, 22, 5, 8, 32),
+    (17, 38, 4, 16, 64),
+    (9, 20, 3, 16, 128),
+]
+
+
+def _table(name):
+    if name == "random":
+        r = np.random.default_rng(0)
+        return torch.from_numpy((r.normal(size=(64, 64)) * 10.0 ** r.integers(
+            -6, 3, size=(64, 64))).astype(np.float32))
+    return torch.from_numpy(tfl._ct_consts(70, 134, 12, 16)[name])
+
+
+@pytest.mark.parametrize("name", ["ihr", "ihi", "iwr", "iwi", "ehr", "random"])
+def test_split_tf32_carries_twenty_two_bits(name):
+    """Both parts are tf32 values (the low 13 mantissa bits zero), hi + lo
+    is the f32 value to 2^-22 relative; hi alone is off by more than 2^-12
+    relative somewhere: the reason for the pair."""
+    t = _table(name)
+    hi, lo = kernels.split_tf32(t)
+    assert hi.dtype == lo.dtype == torch.float32 and hi.shape == lo.shape == t.shape
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    err = (hi.double() + lo.double() - t.double()).abs()
+    assert bool((err <= 2.0 ** -22 * t.double().abs()).all())
+    rel = (hi.double() - t.double()).abs() / t.double().abs().clamp_min(1e-30)
+    assert rel.max() > 2.0 ** -12
+
+
+def test_to_tf32_rounds_to_nearest_ties_away():
+    """cvt.rna.tf32.f32 on chosen bit patterns: below, at and above the
+    halfway point of the 13 dropped bits, both signs, and a carry into the
+    exponent."""
+    bits = torch.tensor([0x3F800FFF, 0x3F801000, 0x3F801001, 0x3FFFF000, 0x3F802000],
+                        dtype=torch.int32)
+    want = torch.tensor([0x3F800000, 0x3F802000, 0x3F802000, 0x40000000, 0x3F802000],
+                        dtype=torch.int32)
+    for sign in (1.0, -1.0):
+        got = kernels.to_tf32(bits.view(torch.float32) * sign)
+        assert torch.equal(got, want.view(torch.float32) * sign)
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k12b"])
+@pytest.mark.parametrize("geo", GEOMETRIES[:3])
+def test_tf32_tables_hold_the_dft_tables(kernel, geo):
+    """ah and iw (K2: the inverse factors) or ah and ew (K12B: the adjoints
+    of K1's forward factors) in f32, every entry in its place, the sign of
+    the imaginary block, k padded to a multiple of 8 with zeros."""
+    Hp, Wp, m2, m3, C = geo
+    rows = kernels.K2_MMA_ROWS[C] if kernel == "k2" else kernels.K12B_MMA_ROWS[C]
+    c = tfl._ct_consts(Hp, Wp, m2, m3)
+    build = tfl._k2_tf32_tables if kernel == "k2" else tfl._k12b_tf32_tables
+    ah, w = (t.numpy() for t in build(Hp, Wp, m2, m3, rows))
+    nch, kpad = -(-Hp // rows), -(-4 * m2 // 8) * 8
+    assert ah.dtype == w.dtype == np.float32
+    assert ah.shape == (nch, 16, kpad) and w.shape == (-(-Wp // 16) * 16, 2 * m3)
+    assert not ah[:, rows:8].any() and not ah[:, 8 + rows:].any()
+    if kernel == "k2":   # Re ih = [ihr | -ihi], Im ih = [ihi | ihr]; w = [iwr^T | iwi^T]
+        blocks = lambda h: ((c["ihr"][:, h], -c["ihi"][:, h]), (c["ihi"][:, h], c["ihr"][:, h]))
+        wr, wi = c["iwr"].T, c["iwi"].T
+    else:                # Re dX = [ehr | ehi], Im dX = [-ehi | ehr]; w = [ewr | ewi]
+        blocks = lambda h: ((c["ehr"][h], c["ehi"][h]), (-c["ehi"][h], c["ehr"][h]))
+        wr, wi = c["ewr"], c["ewi"]
+    for h in range(nch * rows):
+        re, im = ah[h // rows, h % rows], ah[h // rows, 8 + h % rows]
+        if h >= Hp:
+            assert not re.any() and not im.any()
+            continue
+        (r0, r1), (i0, i1) = blocks(h)
+        np.testing.assert_array_equal(re[:4 * m2], np.concatenate([r0, r1]))
+        np.testing.assert_array_equal(im[:4 * m2], np.concatenate([i0, i1]))
+        assert not re[4 * m2:].any() and not im[4 * m2:].any()
+    np.testing.assert_array_equal(w[:Wp, :m3], wr)
+    np.testing.assert_array_equal(w[:Wp, m3:], wi)
+    assert not w[Wp:].any()
+
+
+# --------------------------------------------------------------------------
+# the replays
+# --------------------------------------------------------------------------
+
+
+def _erf_fast(v):
+    """fno_common.cuh::erf_and_gauss in f32, the erf of the tf32 variants'
+    exact GELU: Abramowitz & Stegun 7.1.26, |error| <= 3e-7."""
+    t = v.abs()
+    r = 1.0 / (0.3275911 * t + 1.0)
+    p = (((1.061405429 * r - 1.453152027) * r + 1.421413741) * r - 0.284496736) * r + 0.254829592
+    return torch.copysign(1.0 - p * r * torch.exp(-t * t), v)
+
+
+def _act_fast(u, act):
+    """fno::affine_act_fast on u = a·x + b (f32)."""
+    return u if act == "none" else 0.5 * u * (1.0 + _erf_fast(u * math.sqrt(0.5)))
+
+
+def _act_grad_fast(u, act):
+    """fno::act_grad_fast (f32)."""
+    if act == "none":
+        return torch.ones_like(u)
+    phi = torch.exp(-0.5 * u * u) / math.sqrt(2.0 * math.pi)
+    return 0.5 * (1.0 + _erf_fast(u * math.sqrt(0.5))) + u * phi
+
+
+def test_the_kernels_erf_is_within_5e_7_of_erf():
+    """The replays' erf, GELU and GELU′ against the exact ones in f64 over
+    the range the activations see: erf within 5e-7 (A&S's 1.5e-7, and the
+    f32 rounding of 1 − p·r·e near 0, where it cancels), GELU within
+    3e-7·|u| and GELU′ within 3e-7 + 6e-8·|u|."""
+    u = torch.linspace(-12.0, 12.0, 200001, dtype=torch.float64)
+    u32 = u.float()
+    assert (_erf_fast(u32 * math.sqrt(0.5)).double() - torch.erf(u * math.sqrt(0.5))).abs().max() \
+        <= 5e-7
+    assert ((_act_fast(u32, "exact").double() - gelu(u, "exact")).abs()
+            <= 3e-7 * u.abs() + 1e-12).all()
+    assert ((_act_grad_fast(u32, "exact").double() - gelu_grad(u, "exact")).abs()
+            <= 3e-7 + 6e-8 * u.abs()).all()
+
+
+def _pair(t):
+    """t → its tf32 (hi, lo) pair in f64."""
+    return tuple(u.double() for u in kernels.split_tf32(t))
+
+
+def _x3(eq, p, q):
+    """The 3xTF32 product of two pairs by ``eq``: hi·hi + hi·lo + lo·hi."""
+    return (torch.einsum(eq, p[0], q[0]) + torch.einsum(eq, p[0], q[1])
+            + torch.einsum(eq, p[1], q[0]))
+
+
+def _h_replay(inp, ah, BT, m2, m3, C, rows, Hp):
+    """The H stage (fno_tf32.cuh::h_stage): [BT, Hp, 2m3, C] in f32, as the
+    kernel keeps it in shared memory, from in [BT, 2m2*m3, 2C] and the table
+    [nch, 16, Kpad]."""
+    i5 = inp.float().view(BT, 2 * m2, m3, 2, C)
+    G = torch.cat([i5[:, :, :, 0], i5[:, :, :, 1]], dim=1)     # [BT, (p', j), m3, C]
+    out = _x3("nrk,bkmc->bnrmc", _pair(ah[..., :4 * m2]), _pair(G))
+    out = out.view(BT, -1, 2, 8, m3, C)[:, :, :, :rows].transpose(2, 3)
+    return out.reshape(BT, -1, 2 * m3, C)[:, :Hp].float()
+
+
+def _replay_k2_tf32(g, x, a, b, wp, bp, *, Hp, Wp, m2, m3, act, rows=None):
+    """K2's tf32 variant in plain PyTorch: ih from the H stage (f32), then
+    s = bp + z·Wp + IW·ih with z = act(a·x + b) in f32 (the kernel's erf),
+    every product on tf32 pairs, summed in f64. Returns (s, stats) in f64."""
+    BT, C = x.shape[0], x.shape[-1] // 2
+    rows = rows or kernels.K2_MMA_ROWS[C]   # H rows a block (8 below the widths taken)
+    ah, iw = tfl._k2_tf32_tables(Hp, Wp, m2, m3, rows)
+    ih = _h_replay(g, ah, BT, m2, m3, C, rows, Hp)
+    spec = _x3("wk,bhkc->bhwc", _pair(iw[:Wp]), _pair(ih))
+    z = _act_fast(x.float().view(BT, Hp, Wp, C) * a + b, act)
+    s = spec + _x3("bhwc,cd->bhwd", _pair(z), _pair(wp)) + bp.double()
+    return s, torch.stack([s.sum((0, 1, 2)), (s * s).sum((0, 1, 2))])
+
+
+def _twin_s64(g, x, a, b, wp, bp, geo, act):
+    """k2_plain's arithmetic in f64: the unrounded s [BT, Hp, Wp, C]."""
+    Hp, Wp, m2, m3 = geo
+    c = {k: torch.from_numpy(v).double() for k, v in tfl._ct_consts(*geo).items()}
+    BT, C = x.shape[0], x.shape[-1] // 2
+    g5 = g.double().view(BT, 2 * m2, m3, 2, C)
+    gR, gI = g5[..., 0, :], g5[..., 1, :]
+    e = lambda v, M: torch.einsum("bjmc,jh->bhmc", v, M)
+    ihR, ihI = e(gR, c["ihr"]) - e(gI, c["ihi"]), e(gR, c["ihi"]) + e(gI, c["ihr"])
+    spec = (torch.einsum("bhmc,mw->bhwc", ihR, c["iwr"])
+            + torch.einsum("bhmc,mw->bhwc", ihI, c["iwi"]))
+    z = tfl._act(x.double().view(BT, Hp, Wp, C) * a.double() + b.double(), act)
+    return spec + z @ wp.double() + bp.double()
+
+
+def _k2_inputs(Hp, Wp, m2, m3, BT, C, seed):
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0, loc=0.0: torch.from_numpy(
+        (loc + scale * r.normal(size=s)).astype(np.float32))
+    return (f(BT, 2 * m2 * m3, 2 * C, scale=20.0), f(BT, Hp * Wp // 2, 2 * C),
+            f(C, scale=0.1, loc=1.0), f(C, scale=0.1), f(C, C, scale=C ** -0.5),
+            f(C, scale=0.1))
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+@pytest.mark.parametrize("geo", GEOMETRIES)
+def test_k2_tf32_replay_matches_twin(geo, act):
+    """The replay against the twin's arithmetic in f64: s within 1e-5 of
+    max|ref|, the statistics within 1e-6 of the sum of |terms| per channel
+    (ten times inside KERNEL_TOL and STATS_TOL, the bounds the kernel is
+    held to on the card): every operand carries 22 bits."""
+    Hp, Wp, m2, m3, C = geo
+    BT = 2 if Hp > 20 else 4
+    g, x, a, b, wp, bp = _k2_inputs(Hp, Wp, m2, m3, BT, C, seed=21)
+    s, st = _replay_k2_tf32(g, x, a, b, wp, bp, Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    s64 = _twin_s64(g, x, a, b, wp, bp, (Hp, Wp, m2, m3), act)
+    assert (s - s64).abs().max() <= 1e-5 * s64.abs().max()
+    terms = torch.stack([s64.abs().sum((0, 1, 2)), (s64 * s64).sum((0, 1, 2))])
+    ref = torch.stack([s64.sum((0, 1, 2)), (s64 * s64).sum((0, 1, 2))])
+    assert ((st - ref).abs() / terms).max() <= 1e-6
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k2_tf32_replay_matches_pallas_k2(act):
+    """The replay against the Pallas ``_k2_kernel`` in interpret mode (f32,
+    the dims of tests/test_pallas_fno_layer.py): s, and the statistics with
+    the two lane parities folded, rtol 2e-4."""
+    B, Tp, Hp, Wp, C, m2, m3 = 2, 6, 10, 12, 8, 3, 4
+    g, x, a, b, wp, bp = _k2_inputs(Hp, Wp, m2, m3, B * Tp, C, seed=22)
+    n = lambda t: jnp.asarray(t.numpy())
+    cst = jfl._ct_consts(Hp, Wp, m2, m3)
+    eyeC, zC = np.eye(C, dtype=np.float32), np.zeros((C, C), np.float32)
+    ones = np.ones((Hp * Wp // 2, 1), np.float32)
+    a2, b2 = jfl._pack_affine(n(a)[None], n(b)[None], C)
+    _, k2, *_ = jfl._layer_calls(B * Tp, Hp, Wp // 2, 2 * C, m2, m3, act, True, "float32")
+    s_ref, st_ref = k2(n(g), n(x), a2, b2, jfl._block_diag2(n(wp)),
+                       jnp.concatenate([n(bp)[None], n(bp)[None]], axis=1), cst["IhP"],
+                       cst["IwE2"], cst["IwO2"], np.concatenate([eyeC, zC], axis=1),
+                       np.concatenate([zC, eyeC], axis=1), ones, ones)
+    st_ref = np.asarray(st_ref)
+    # the Pallas kernel's packed lanes pair two W positions: its s is the
+    # port's [BT, Hp, Wp, C] viewed as [BT, Hp·Wp/2, 2C]
+    s, st = _replay_k2_tf32(g, x, a, b, wp, bp, Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act, rows=8)
+    _assert_close_to_pallas("_k2_kernel / s", s.float().numpy().reshape(np.shape(s_ref)),
+                            np.asarray(s_ref))
+    _assert_close_to_pallas("_k2_kernel / stats", st.float().numpy(),
+                            st_ref[:, :C] + st_ref[:, C:])
+
+
+def _assert_close_to_pallas(name, got, ref):
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4 * float(np.abs(ref).max()),
+                               err_msg=name)
+
+
+def _replay_k12b_tf32(x, a, b, wp, s, ds, ds1, ds2, dy, *, Hp, Wp, m2, m3, act,
+                      rows=None):
+    """K12B's tf32 variant in plain PyTorch: dX from the H stage (f32); dz =
+    EW·dX + ds_eff·Wpᵀ with ds_eff = ds + ds1 + 2·ds2·s in f32; dWp =
+    zᵀ·ds_eff with z = act(a·x + b) and act′(a·x + b) in f32 (the kernel's
+    erf); every product on tf32 pairs, summed in f64. Returns (dx unrounded, dWp, da, db, dbp) in f64."""
+    BT, C = x.shape[0], x.shape[-1] // 2
+    rows = rows or kernels.K12B_MMA_ROWS[C]   # H rows a block (8 below the widths taken)
+    ah, ew = tfl._k12b_tf32_tables(Hp, Wp, m2, m3, rows)
+    dX = _h_replay(dy, ah, BT, m2, m3, C, rows, Hp)
+    dz = _x3("wk,bhkc->bhwc", _pair(ew[:Wp]), _pair(dX))
+    v = lambda t: t.float().view(BT, Hp, Wp, C)
+    dse = v(ds) + ds1 + 2.0 * ds2 * v(s)
+    dz = dz + _x3("bhwd,cd->bhwc", _pair(dse), _pair(wp))
+    u = v(x) * a + b
+    du = dz * _act_grad_fast(u, act).double()
+    z = _act_fast(u, act)
+    x4 = x.double().view(BT, Hp, Wp, C)
+    dims = (0, 1, 2)
+    return (du * a.double(), _x3("bhwc,bhwd->cd", _pair(z), _pair(dse)), (du * x4).sum(dims),
+            du.sum(dims), dse.double().sum(dims))
+
+
+def _k12b_inputs(Hp, Wp, m2, m3, BT, C, seed):
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0, loc=0.0: torch.from_numpy(
+        (loc + scale * r.normal(size=s)).astype(np.float32))
+    return dict(x=f(BT, Hp * Wp // 2, 2 * C), a=f(C, scale=0.1, loc=1.0), b=f(C, scale=0.1),
+                wp=f(C, C, scale=0.3), s=f(BT, Hp * Wp // 2, 2 * C),
+                ds=f(BT, Hp * Wp // 2, 2 * C), ds1=f(C), ds2=f(C, scale=0.1),
+                dy=f(BT, 2 * m2 * m3, 2 * C))
+
+
+def _k12b_f64(d, Hp, Wp, m2, m3, act):
+    """k12b_plain's arithmetic in f64, and the sums of |terms| of its four
+    accumulators."""
+    d = {k: t.double() for k, t in d.items()}
+    c = {k: torch.from_numpy(v).double() for k, v in tfl._ct_consts(Hp, Wp, m2, m3).items()}
+    BT, C = d["x"].shape[0], d["x"].shape[-1] // 2
+    v = lambda t: t.view(BT, Hp, Wp, C)
+    x4 = v(d["x"])
+    u = x4 * d["a"] + d["b"]
+    dse = v(d["ds"]) + d["ds1"] + 2.0 * d["ds2"] * v(d["s"])
+    dy5 = d["dy"].view(BT, 2 * m2, m3, 2, C)
+    dyR, dyI = dy5[..., 0, :], dy5[..., 1, :]
+    e = lambda t, M: torch.einsum("bjmc,hj->bhmc", t, M)
+    dXr = e(dyR, c["ehr"]) + e(dyI, c["ehi"])
+    dXi = e(dyI, c["ehr"]) - e(dyR, c["ehi"])
+    dz = (torch.einsum("bhmc,wm->bhwc", dXr, c["ewr"])
+          + torch.einsum("bhmc,wm->bhwc", dXi, c["ewi"]) + dse @ d["wp"].t())
+    du = dz * (torch.ones_like(u) if act == "none" else gelu_grad(u, act))
+    z = tfl._act(u, act)
+    dims = (0, 1, 2)
+    terms = (torch.einsum("bhwc,bhwd->cd", z.abs(), dse.abs()), (du * x4).abs().sum(dims),
+             du.abs().sum(dims), dse.abs().sum(dims))
+    return (du * d["a"], torch.einsum("bhwc,bhwd->cd", z, dse), (du * x4).sum(dims),
+            du.sum(dims), dse.sum(dims)), terms
+
+
+_K12B_ARGS = ("x", "a", "b", "wp", "s", "ds", "ds1", "ds2", "dy")
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+@pytest.mark.parametrize("geo", GEOMETRIES)
+def test_k12b_tf32_replay_matches_twin(geo, act):
+    """The replay against the twin's arithmetic in f64: dx within 1e-5 of
+    max|ref|, dWp, da, db and dbp within 1e-6 of the sum of |terms| per
+    entry (ten times inside the bounds the kernel is held to on the card)."""
+    Hp, Wp, m2, m3, C = geo
+    d = _k12b_inputs(Hp, Wp, m2, m3, 2 if Hp > 20 else 3, C, seed=23)
+    want, terms = _k12b_f64(d, Hp, Wp, m2, m3, act)
+    got = _replay_k12b_tf32(*(d[k] for k in _K12B_ARGS), Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    dx = got[0].reshape(want[0].shape)
+    assert (dx - want[0]).abs().max() <= 1e-5 * want[0].abs().max()
+    for name, gv, wv, tv in zip(("dwp", "da", "db", "dbp"), got[1:], want[1:], terms):
+        assert ((gv - wv).abs() / tv.clamp_min(1e-30)).max() <= 1e-6, name
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k12b_tf32_replay_matches_pallas_k12b(act):
+    """The replay against the Pallas ``_k12b_kernel`` in interpret mode (f32,
+    the dims of tests/test_pallas_fno_layer.py), rtol 2e-4."""
+    B, Tp, Hp, Wp, C, m2, m3 = 2, 6, 10, 12, 8, 3, 4
+    d = _k12b_inputs(Hp, Wp, m2, m3, B * Tp, C, seed=24)
+    n = lambda k: np.asarray(d[k].numpy())
+    lanes = lambda v: jnp.asarray(np.concatenate([v, v])[None])
+    cst = jfl._ct_consts(Hp, Wp, m2, m3)
+    eyeC, zC = np.eye(C, dtype=np.float32), np.zeros((C, C), np.float32)
+    ones = np.ones((Hp * Wp // 2, 1), np.float32)
+    a2, b2 = jfl._pack_affine(jnp.asarray(n("a"))[None], jnp.asarray(n("b"))[None], C)
+    *_, k12b = jfl._layer_calls(B * Tp, Hp, Wp // 2, 2 * C, m2, m3, act, True, "float32")
+    dx, dwp2, dvec = k12b(
+        jnp.asarray(n("x")), a2, b2, jfl._block_diag2(jnp.asarray(n("wp"))).T,
+        jnp.asarray(n("s")), jnp.asarray(n("ds")), lanes(n("ds1")), lanes(n("ds2")),
+        jnp.asarray(n("dy")), cst["EhPT"], cst["E67T"], cst["E67twT"],
+        np.concatenate([eyeC, zC], axis=1), np.concatenate([zC, eyeC], axis=1), ones, ones)
+    dwp2, dvec = np.asarray(dwp2), np.asarray(dvec)
+    fold = lambda v: v[:C] + v[C:]
+    ref = (np.asarray(dx), dwp2[:C, :C] + dwp2[C:, C:], fold(dvec[1]), fold(dvec[2]),
+           fold(dvec[0]))
+    got = _replay_k12b_tf32(*(d[k] for k in _K12B_ARGS), Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act,
+                            rows=8)
+    for name, g, r in zip(("dx", "dwp", "da", "db", "dbp"), got, ref):
+        _assert_close_to_pallas(f"_k12b_kernel / {name}", g.float().numpy().reshape(r.shape), r)
+
+
+# --------------------------------------------------------------------------
+# the choice
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.float32, 64, 16, 134, 24), "tf32"),    # the cylinder: 9 warps, 107 KB
+    ((torch.float32, 64, 16, 134, 32), "tf32"),    # combustion's modes 4/16/16
+    ((torch.float32, 128, 16, 134, 32), "tf32"),   # fsi: 9 warps, 219 KB
+    ((torch.float32, 32, 8, 22, 10), "tf32"),      # the gpu tests' small shapes
+    ((torch.float32, 64, 16, 256, 24), "tf32"),    # 16 warps
+    ((torch.float32, 64, 16, 258, 24), "fma"),     # a 17th warp
+    ((torch.float32, 128, 16, 146, 32), "fma"),    # a 10th warp at C 128
+    ((torch.float32, 64, 12, 134, 24), "fma"),     # m3 not instantiated
+    ((torch.float32, 16, 8, 22, 10), "fma"),       # C not instantiated
+    ((torch.float32, 64, 16, 134, 34), "fma"),     # more than 32 H modes
+    ((torch.bfloat16, 64, 16, 134, 24), "mma"),    # bf16 keeps its variant
+])
+def test_k2_tf32_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    assert kernels.k2_variant(*args) == want
+    assert kernels.k2_variant(*args, aligned=False) == "fma"
+    dtype, C, m3, Wp, m2x2 = args
+    if want == "tf32":
+        assert kernels.k2_tf32_smem_bytes(Wp, C, m2x2, m3) <= kernels.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("args, want", [
+    ((torch.float32, 64, 24, 16, 134), "tf32"),    # the cylinder: 9 warps, 85 KB
+    ((torch.float32, 64, 32, 16, 134), "tf32"),    # combustion's modes 4/16/16
+    ((torch.float32, 128, 32, 16, 134), "tf32"),   # fsi: 9 warps, 215 KB
+    ((torch.float32, 32, 10, 8, 22), "tf32"),
+    ((torch.float32, 64, 24, 16, 256), "tf32"),    # 16 warps
+    ((torch.float32, 64, 24, 16, 258), "fma"),     # a 17th warp
+    ((torch.float32, 128, 32, 16, 146), "fma"),    # a 10th warp at C 128
+    ((torch.float32, 64, 24, 4, 134), "fma"),      # m3 not instantiated
+    ((torch.float32, 8, 6, 4, 12), "fma"),         # C not instantiated
+    ((torch.float32, 64, 34, 16, 134), "fma"),     # more than 32 H modes
+    ((torch.bfloat16, 64, 24, 16, 134), "mma"),    # bf16 keeps its variant
+])
+def test_k12b_tf32_variant_is_a_pure_function_of_dtype_and_shape(args, want):
+    assert kernels.k12b_variant(*args) == want
+    assert kernels.k12b_variant(*args, aligned=False) == "fma"
+    dtype, C, m2x2, m3, Wp = args
+    if want == "tf32":
+        assert kernels.k12b_tf32_smem_bytes(Wp, C, m2x2, m3) <= kernels.MAX_SMEM_BYTES
+        assert kernels.k12b_tf32_dwp_smem_bytes(C) <= kernels.MAX_SMEM_BYTES
+
+
+def test_tf32_blocks_fit_twice_an_sm_at_the_cylinder_width():
+    """At C 64, m3 16, 2·m2 24, Wp 134: K2's tf32 block takes 109312 bytes
+    (ih; then Wpᵀ's tf32 pair and the x ring of 16-channel stages where the
+    g rings were; whole-row f32 slabs alone would take 145 KB), K12B's dz
+    block 86528 and its dWp block 75776: two, two and three blocks an SM
+    (228 KB, 1 KB reserved a block). fsi's width 128 fits one block an SM."""
+    assert kernels.k2_tf32_smem_bytes(134, 64, 24, 16) == 109312
+    assert kernels.k12b_tf32_smem_bytes(134, 64, 24, 16) == 86528
+    assert kernels.k12b_tf32_dwp_smem_bytes(64) == 75776
+    for size, blocks in ((109312, 2), (86528, 2), (75776, 3)):
+        assert blocks * (size + 1024) <= 228 * 1024
+    for size in (kernels.k2_tf32_smem_bytes(134, 128, 32, 16),
+                 kernels.k12b_tf32_smem_bytes(134, 128, 32, 16),
+                 kernels.k12b_tf32_dwp_smem_bytes(128)):
+        assert size <= kernels.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("kernel, dtype, C, m3, offset", [
+    ("k2", torch.bfloat16, 64, 16, 0),     # bf16
+    ("k2", torch.float32, 16, 16, 0),      # C not instantiated
+    ("k2", torch.float32, 64, 12, 0),      # m3 not instantiated
+    ("k2", torch.float32, 64, 16, 1),      # x 4 bytes past a 16-byte boundary
+    ("k12b", torch.bfloat16, 64, 16, 0),
+    ("k12b", torch.float32, 8, 8, 0),
+    ("k12b", torch.float32, 64, 4, 0),
+    ("k12b", torch.float32, 64, 16, 1),
+])
+def test_a_named_tf32_variant_refuses_what_it_does_not_take(kernel, dtype, C, m3, offset):
+    """The choice before the launch: a named tf32 variant that cannot take
+    the input raises before anything is built or launched (the tensors lie
+    on the CPU here); the unnamed choice and a named fma take it."""
+    BT, Hp, Wp, m2 = 2, 17, 38, 4
+    n = BT * Hp * Wp * C
+    x = torch.zeros(n + 8, dtype=dtype)[offset:offset + n].view(BT, Hp * Wp // 2, 2 * C)
+    dy = torch.zeros(BT, 2 * m2 * m3, 2 * C, dtype=dtype)
+    wp = torch.zeros(C, C)
+    if kernel == "k2":
+        pick = lambda v: kernels._k2_variant(dy, x, wp, C, m3, Wp, 2 * m2, v)
+    else:
+        pick = lambda v: kernels._k12b_variant(x, x, x, dy, C, 2 * m2, m3, Wp, v)
+    with pytest.raises(ValueError, match="tf32 variant takes float32"):
+        pick("tf32")
+    with pytest.raises(ValueError, match="no variant"):
+        pick("wgmma")
+    chosen = "mma" if dtype == torch.bfloat16 else "fma"
+    assert pick(None) == (chosen, list(kernels.VARIANTS[kernel]).index(chosen))
+    assert pick("fma") == ("fma", 0)

@@ -32,14 +32,14 @@ gone.
 
 import ctypes
 import json
-import statistics
-import subprocess
 import sys
 
 import torch
 
+import torch_probe_common as common
 from realpdebench_tpu_torch.ops import galerkin as tga
 from realpdebench_tpu_torch.ops import kernels
+from torch_probe_common import queued_ms, sub
 
 OUT = kernels.BUILD_DIR.parent / "gk_probe"
 B, N, HEADS, D, EPS = 16, 163840, 4, 64, 1e-7
@@ -48,12 +48,6 @@ STAGES = "constexpr int kGkStages = 2;"
 LN = "    for (int pass = 0; pass < 2 * kGkTile / RPP; ++pass) {"
 PRODUCTS = "    for (int ks16 = 0; ks16 < kGkTile / 16; ++ks16) {"
 ORDER = "    if (t + 1 < ntiles) normalise_tile(t + 1);\n    products(t);\n"
-
-
-def sub(s: str, old: str, new: str) -> str:
-    if s.count(old) != 1:
-        raise SystemExit(f"torch_gk_probe: the source has {s.count(old)} of the anchor {old!r}")
-    return s.replace(old, new)
 
 
 cut_ln = lambda s: sub(s, LN, LN.replace("pass < 2 * kGkTile / RPP", "pass < 0"))
@@ -74,64 +68,16 @@ VARIANTS = {
 
 
 def build(names):
-    """One nvcc per variant, all at once; returns {name: (library, ptxas report)}."""
+    """The patched copies of each variant, built all at once."""
     src = (kernels.CSRC / "galerkin_scores.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    nvcc = kernels._nvcc()
-    jobs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(exist_ok=True)
-        (d / "galerkin_scores.cu").write_text(VARIANTS[name][0](src))
-        so = d / "libgk.so"
-        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-shared", "-o", str(so),
-               str(d / "galerkin_scores.cu")]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                           text=True))
-    out = {}
-    for name, (so, proc) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"torch_gk_probe: nvcc failed for {name}:\n{err}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("gk_scores", "gk_scores_num_partials", "gk_scores_mma_smem_bytes"):
-            f = getattr(lib, fn)
-            f.argtypes, f.restype = kernels.SIGNATURES[fn]
-        out[name] = (lib, err)
-    return out
+    return common.build(OUT, {name: {"galerkin_scores.cu": VARIANTS[name][0](src)}
+                              for name in names})
 
 
 def registers(report: str, dtype) -> dict:
     """Registers and spill bytes ptxas reported for gk_scores_mma_kernel<T, 64>."""
-    tag = "gk_scores_mma_kernelI13__nv_bfloat16Li64E" if dtype == torch.bfloat16 \
-        else "gk_scores_mma_kernelIfLi64E"
-    out, inside = {}, False
-    for line in report.splitlines():
-        if "Compiling entry function" in line:
-            if inside:
-                break
-            inside = tag in line
-        elif inside and "spill" in line:
-            out["spill"] = line.strip()
-        elif inside and "Used" in line and "registers" in line:
-            out["registers"] = int(line.split("Used")[1].split()[0])
-    return out
-
-
-def queued_ms(fn, n: int = 8, reps: int = 5) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(n):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / n)
-    return statistics.median(times)
+    return common.registers(report, "gk_scores_mma_kernelI13__nv_bfloat16Li64E"
+                            if dtype == torch.bfloat16 else "gk_scores_mma_kernelIfLi64E")
 
 
 def main() -> None:
@@ -169,7 +115,7 @@ def main() -> None:
     times = {name: [] for name in names}
     for order in (names, names[::-1]):
         for name in order:
-            times[name].append(queued_ms(fns[name][0]))
+            times[name].append(queued_ms([fns[name][0]], n=8, reps=5))
     for name in names:
         lib, report = libs[name]
         dtype = VARIANTS[name][2]

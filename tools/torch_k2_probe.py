@@ -26,23 +26,17 @@ import json
 import re
 import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
 from realpdebench_tpu_torch.ops import fno_layer as fl
 from realpdebench_tpu_torch.ops import kernels
+from torch_probe_common import build, sub
 
 OUT = kernels.BUILD_DIR.parent / "k2_probe"
 BT, HP, WP, C, M2, M3 = 208, 70, 134, 64, 12, 16
 MAIN = "  // ---- main loop: warp = the 16 columns w0.. of every row of the block\n"
 STATS = "  // ---- the block's partial statistics: lanes of a column pair, then warps, in a fixed order\n"
-
-
-def sub(s: str, old: str, new: str) -> str:
-    if s.count(old) != 1:
-        raise SystemExit(f"torch_k2_probe: the source has {s.count(old)} of the anchor {old!r}")
-    return s.replace(old, new)
 
 
 def with_clocks(s: str) -> str:
@@ -92,15 +86,7 @@ def main() -> None:
     variants = {"clocks": with_clocks(base), "as_is": base}
     for parts in (("mma",), ("ldmatrix",), ("mma", "ldmatrix"), ("stats",), ("store",)):
         variants["no_" + "_".join(parts)] = cut(base, *parts)
-    procs = {}
-    for name, src in variants.items():
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "fno_k2.cu").write_text(src)
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS[:-2], "-I", str(kernels.CSRC), "-shared",
-               "-o", str(d / "lib.so"), str(d / "fno_k2.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                       text=True)
+    libs = build(OUT, {name: {"fno_k2.cu": src} for name, src in variants.items()})
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -134,13 +120,7 @@ def main() -> None:
         return sorted(times[3:])[reps // 2]
 
     ablation = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"torch_k2_probe: nvcc failed for {name}:\n{err[-3000:]}")
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.fno_k2.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        lib.fno_k2.restype = ctypes.c_int
+    for name, (lib, _) in libs.items():
         if name == "clocks":
             for act, label in ((0, "none"), (1, "exact")):
                 ms(lib, act, reps=3)

@@ -37,15 +37,15 @@ relative error). The patches fail loudly when their anchors are gone.
 
 import ctypes
 import json
-import statistics
-import subprocess
 import sys
 
 import torch
 
+import torch_probe_common as common
 from realpdebench_tpu_torch.ops import fno_tail as ft
 from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
+from torch_probe_common import queued_ms, sub
 
 OUT = kernels.BUILD_DIR.parent / "k3b_probe"
 B, TP, HP, WP, C, T, H, W, F = 32, 26, 70, 134, 64, 20, 64, 128, 3
@@ -69,12 +69,6 @@ K3F_ACT = ("        hv0 = fno::affine_act_fast(u[nt][2 * hf], 1.f, 0.f, ACT);\n"
 FC1_MMA = ("        mma::mma_bf16(u[2 * np], fa, fb[0], fb[1]);\n"
            "        mma::mma_bf16(u[2 * np + 1], fa, fb[2], fb[3]);\n")
 K3F_COMPUTE = "    forward_warp<C, ACT, false>("
-
-
-def sub(s: str, old: str, new: str) -> str:
-    if s.count(old) != 1:
-        raise SystemExit(f"torch_k3b_probe: the source has {s.count(old)} of the anchor {old!r}")
-    return s.replace(old, new)
 
 
 def roll(s: str) -> str:
@@ -105,62 +99,14 @@ VARIANTS = {
 
 
 def build(names):
-    """One nvcc per variant, all at once; returns {name: (library, ptxas report)}."""
+    """The patched copies of each variant, built all at once."""
     src = (kernels.CSRC / "fno_tail.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    nvcc = kernels._nvcc()
-    jobs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(exist_ok=True)
-        (d / "fno_tail.cu").write_text(VARIANTS[name][0](src))
-        so = d / "libk3b.so"
-        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-shared", "-o", str(so),
-               str(d / "fno_tail.cu")]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                           text=True))
-    out = {}
-    for name, (so, proc) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"torch_k3b_probe: nvcc failed for {name}:\n{err}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("fno_k3b", "fno_k3b_num_partials", "fno_k3f", "fno_k3f_num_partials"):
-            f = getattr(lib, fn)
-            f.argtypes, f.restype = kernels.SIGNATURES[fn]
-        out[name] = (lib, err)
-    return out
+    return common.build(OUT, {name: {"fno_tail.cu": VARIANTS[name][0](src)} for name in names})
 
 
 def registers(report: str, kernel: str) -> dict:
     """Registers and spill bytes ptxas reported for `kernel`<64, exact>."""
-    out, inside = {}, False
-    for line in report.splitlines():
-        if "Compiling entry function" in line:
-            if inside:
-                break
-            inside = f"{kernel}ILi64ELi1E" in line
-        elif inside and "spill" in line:
-            out["spill"] = line.strip()
-        elif inside and "Used" in line and "registers" in line:
-            out["registers"] = int(line.split("Used")[1].split()[0])
-    return out
-
-
-def queued_ms(fn, n: int = 8, reps: int = 5) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(n):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / n)
-    return statistics.median(times)
+    return common.registers(report, f"{kernel}ILi64ELi1E")
 
 
 def main() -> None:
@@ -222,7 +168,7 @@ def main() -> None:
     times = {name: [] for name in names}
     for order in (names, names[::-1]):
         for name in order:
-            times[name].append(queued_ms(fns[name]))
+            times[name].append(queued_ms([fns[name]], n=8, reps=5))
     for name in names:
         k3f = name.startswith("k3f")
         row = dict(variant=name, **registers(libs[name][1], "k3f_mma_kernel" if k3f

@@ -41,15 +41,15 @@ gone.
 
 import ctypes
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+import torch_probe_common as common
 from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops import temporal_attention as tta
+from torch_probe_common import queued_ms, sub
 
 OUT = kernels.BUILD_DIR.parent / "ta_probe"
 B, S, T, HEADS, D = 12, 8192, 20, 4, 32
@@ -64,12 +64,6 @@ FWD_STORE = "    for (int i = threadIdx.x; i < T * (F / 8); i += nthreads) {"
 FWD_COMPUTE = "    bf16* const Qs = ring + stage * 3 * slab + warp * D;"
 FWD_LO = ("            mma::mma_bf16(acc[mi][2 * cp], al, fb[0], fb[1]);\n",
           "            mma::mma_bf16(acc[mi][2 * cp + 1], al, fb[2], fb[3]);\n")
-
-
-def sub(s: str, old: str, new: str) -> str:
-    if s.count(old) != 1:
-        raise SystemExit(f"torch_ta_probe: the source has {s.count(old)} of the anchor {old!r}")
-    return s.replace(old, new)
 
 
 # name: (patch, computes what the kernel computes, launches the forward)
@@ -93,67 +87,24 @@ VARIANTS = {
 
 
 def build(names, parent):
-    """One nvcc per variant, all at once; returns {name: (library, ptxas report)}."""
+    """The patched copies of each variant (the parent's source as it is),
+    built all at once."""
     src = (kernels.CSRC / "temporal_attention.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    nvcc = kernels._nvcc()
-    jobs = {}
+    files, includes = {}, {}
     for name in names:
-        d = OUT / name
-        d.mkdir(exist_ok=True)
         patch = VARIANTS[name][0]
-        csrc = kernels.CSRC if patch else Path(parent) / "realpdebench_tpu_torch" / "csrc"
-        text = patch(src) if patch else (csrc / "temporal_attention.cu").read_text()
-        (d / "temporal_attention.cu").write_text(text)
-        so = d / "libta.so"
-        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", str(csrc), "-shared", "-o", str(so),
-               str(d / "temporal_attention.cu")]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                           text=True))
-    out = {}
-    for name, (so, proc) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"torch_ta_probe: nvcc failed for {name}:\n{err}")
-        lib = ctypes.CDLL(str(so))
-        fns = (("ta_fwd", "ta_fwd_mma_smem_bytes") if VARIANTS[name][2]
-               else ("ta_bwd", "ta_bwd_num_partials", "ta_bwd_mma_smem_bytes"))
-        for fn in fns:
-            f = getattr(lib, fn)
-            f.argtypes, f.restype = kernels.SIGNATURES[fn]
-        out[name] = (lib, err)
-    return out
+        if patch:
+            files[name] = {"temporal_attention.cu": patch(src)}
+        else:
+            includes[name] = Path(parent) / "realpdebench_tpu_torch" / "csrc"
+            files[name] = {"temporal_attention.cu":
+                           (includes[name] / "temporal_attention.cu").read_text()}
+    return common.build(OUT, files, includes)
 
 
 def registers(report: str, kernel: str) -> dict:
     """Registers and spill bytes ptxas reported for ``kernel``<32, 3>."""
-    out, inside = {}, False
-    for line in report.splitlines():
-        if "Compiling entry function" in line:
-            if inside:
-                break
-            inside = f"{kernel}ILi32ELi3E" in line
-        elif inside and "spill" in line:
-            out["spill"] = line.strip()
-        elif inside and "Used" in line and "registers" in line:
-            out["registers"] = int(line.split("Used")[1].split()[0])
-    return out
-
-
-def queued_ms(fn, n: int = 8, reps: int = 5) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(n):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / n)
-    return statistics.median(times)
+    return common.registers(report, f"{kernel}ILi32ELi3E")
 
 
 def main() -> None:
@@ -212,7 +163,7 @@ def main() -> None:
     times = {name: [] for name in names}
     for order in (names, names[::-1]):
         for name in order:
-            times[name].append(queued_ms(fns[name][0]))
+            times[name].append(queued_ms([fns[name][0]], n=8, reps=5))
     for name in names:
         lib, report = libs[name]
         fwd = VARIANTS[name][2]
