@@ -19,33 +19,32 @@ JSON line each; any failure raises (non-zero exit, no result line):
                these shapes) and, bit for bit against it, its generic one,
                which is also chosen and checked at a [20, 18] map outside
                the instantiated range; K1's and K2's mma variants
-               (bfloat16), K1's fma one (float32, and bfloat16 when named),
-               K2's tf32 one (float32: 3xTF32 on the tensor cores) and,
-               named, its fma one in both dtypes, each also against the
-               variant chosen. Two calls of K1, the T-stage and K2 are
-               bit-equal.
+               (bfloat16) and tf32 ones (float32: 3xTF32 on the tensor
+               cores) and, named, their fma ones in both dtypes, each also
+               against the variant chosen. Two calls of K1, the T-stage and
+               K2 are bit-equal.
                K1's, the T-stage's and K2's times are device times of
                queued launches (see queued_ms).
   4. backward  the backward and tail kernels, K2A-lite, K2A, K12B, K3F and
                K3B (K2A-lite's, K12B's, K3F's and K3B's mma variants in
                bfloat16 and, named, their fma ones, each also against the
-               other; K12B's tf32 variant in float32 and, named, its fma
-               one, each also against the other; K2's tf32 and fma ones in
-               float32 at this width too), and the T-stage adjoints
-               (et_adj, it_adj), against
+               other; K2A-lite's and K12B's tf32 variants in float32 and,
+               named, their fma ones, each also against the other; K1's and
+               K2's tf32 and fma ones in float32 at this width too), and the
+               T-stage adjoints (et_adj, it_adj), against
                their twins at the training width (B·Tp=832: the f32 twins
                fit the card's memory), in float32 and bfloat16; K2A-lite
-               against K2A; two K2A-lite, K12B, K3F and K3B calls bit-equal;
-               K1's, K2's, K2A-lite's, K12B's, K3F's and K3B's times at this
-               width as device times of queued launches (K2's and K12B's
-               fma variants beside their chosen ones in both dtypes), the
-               others CUDA-event medians.
+               against K2A; two K1 (f32), K2A-lite, K12B, K3F and K3B calls
+               bit-equal; K1's, K2's, K2A-lite's, K12B's, K3F's and K3B's
+               times at this width as device times of queued launches (K1's,
+               K2's, K2A-lite's and K12B's fma variants beside their chosen
+               ones in both dtypes), the others CUDA-event medians.
   4b. geometry every FNO kernel against its twin at the other shipped
                geometries (combustion: width 64, fsi: width 128, modes
                4/16/16) at the cylinder's windows and padding, batch 2, in
-               both dtypes (K2 and K12B mma in bfloat16, tf32 in float32,
-               asserted: every shipped geometry takes it), and which of
-               K2A-lite and K2A each takes.
+               both dtypes (K1, K2, K2A-lite and K12B mma in bfloat16, tf32
+               in float32, asserted: every shipped geometry takes it), and
+               which of K2A-lite and K2A each takes.
   5. slice     the cylinder FNO3d at the benchmark configuration (width 64,
                4 layers, bf16 compute, seeded random weights) rolled out 10
                steps at batch 8 through make_rollout_fn; the launch counters
@@ -56,7 +55,7 @@ JSON line each; any failure raises (non-zero exit, no result line):
                (slice_profile).
   5a. slice_f32 the same rollout in float32 as the shipped config runs it
                (compute_dtype null): exact launch and variant counts (K1
-               fma, K2 tf32, the T-stage registers), within KERNEL_TOL's
+               and K2 tf32, the T-stage registers), within KERNEL_TOL's
                f32 bound (1e-4, relative L2 and max|Δ|/max|ref|) of the
                plain f32 rollout; frames/s.
   6. train     bench.py's training step (batch 32, Adam at lr 1e-4, cosine
@@ -70,15 +69,16 @@ JSON line each; any failure raises (non-zero exit, no result line):
   7. profile   torch.profiler over three more training steps: device time
                by kernel, the host's wall time, the device's idle share.
   7a. train_f32 phases 6-7 for the same step as the shipped config runs
-               it, in float32 (compute_dtype null): K2 and K12B in their
-               tf32 variants, the other kernels in their fma ones (the
-               T-stage registers), the loss, every gradient
+               it, in float32 (compute_dtype null): K1, K2, K2A-lite and
+               K12B in their tf32 variants, K3F and K3B in their fma ones
+               (the T-stage registers), the loss, every gradient
                and the running statistics against the plain f32 step within
                F32_LIMITS (1e-5 relative; 1e-4 relative L2); then its
                profile (train_f32_profile).
   7b. fsi_train the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16,
                batch 32, Gaussian normalizer) trained in float32 (the
-               config's dtype; K2 and K12B tf32 at width 128 too) and
+               config's dtype; K1, K2, K2A-lite and K12B tf32 at width 128
+               too) and
                bfloat16: one counted step each (exact
                launch and variant counts), the loss and every gradient
                against the plain f32 step at batch 2, two passes bit-equal,
@@ -196,9 +196,10 @@ and prints neither the summary nor the result line.
 Every kernel's time stands beside its bound: the larger of the bytes it
 must move (inputs read once, outputs written once) over HBM's 3.35 TB/s and
 its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
-67 TFLOP/s FP32), from the published H100 SXM figures at 700 W. Then the
-per-kernel summary line (launches by path, and by variant for the kernels
-that have variants; K2's and K12B's f32 route under "tf32" and
+495 TFLOP/s TF32 tensor cores for the tf32 variants, 67 TFLOP/s FP32), from
+the published H100 SXM figures at 700 W. Then the per-kernel summary line
+(launches by path, and by variant for the kernels that have variants; the
+f32 route of K1, K2, K2A-lite and K12B under "tf32", K1's and K2's also under
 "train_width_tf32"), and the last line {"ok": true, "device": {...}}.
 
 The port imports neither JAX nor the JAX package; neither does this script.
@@ -260,7 +261,7 @@ TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
 TRAIN_STATS_REL_L2 = 2e-2
 TRAIN_ZERO_GRAD = 1e-2
-# the shipped cylinder FNO step in float32 (compute_dtype null): the fma
+# the shipped cylinder FNO step in float32 (compute_dtype null): the f32
 # variants against the plain f32 step from the same weights, both in f32
 # (fixed before the first run, from the fsi f32 step's measured 6e-8 loss,
 # 6e-6 gradient and 1e-7 statistics distances, PERF.md): the loss within 1e-5
@@ -530,6 +531,17 @@ def compare_sums(name, got, ref, terms, tol=STATS_TOL) -> dict:
     return row
 
 
+def tf32_entry(k: str, rows: list, times: dict, work: dict, single: dict) -> dict:
+    """Kernel ``k``'s f32 route for the summary line: the tf32 variant's
+    worst errors over ``rows`` (its checks against the twin), its queued and
+    twin ms, the named fma variant's ms, and both bounds."""
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms")) for r in rows),
+                ms=times[k][0], plain_ms=times[k][1], fma_variant_ms=times[f"{k}_fma"][0],
+                single_launch_ms=single.get(k), bound_ms=work[k]["bound_ms"],
+                bound_by=work[k]["bound_by"], fma_bound_ms=work[f"{k}_fma"]["bound_ms"])
+
+
 def phase_env() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -593,16 +605,18 @@ def phase_kernels(dev) -> dict:
         wp, bp = rn(C, C) / C ** 0.5, 0.1 * rn(C)
         tol = KERNEL_TOL[dtype]
         rows, times = [], {}
-        chosen = "mma" if dtype == torch.bfloat16 else "fma"
-        k2_chosen = "mma" if dtype == torch.bfloat16 else "tf32"
+        tc = "mma" if dtype == torch.bfloat16 else "tf32"   # K1's and K2's choice
         for act in ("none", "exact"):
             k1 = lambda **kw: fl.k1(x, a, b, Hp=HP, Wp=WP, m2=M2, m3=M3, act=act, **kw)
             k1p = lambda: fl.k1_plain(x, a, b, cst, Hp=HP, Wp=WP, act=act)
-            y, y_ref = run_as("k1", chosen, k1), k1p()
+            y, y_ref = run_as("k1", tc, k1), k1p()
             rows.append(compare(f"k1/{act}", y, y_ref, tol))
-            if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
-                rows.append(compare(f"k1_fma/{act}",
-                                    run_as("k1", "fma", lambda: k1(variant="fma")), y_ref, tol))
+            # the fma variant, named, on the same inputs: against the twin and
+            # against the variant chosen
+            y_fma = run_as("k1", "fma", lambda: k1(variant="fma"))
+            rows += [compare(f"k1_fma/{act}", y_fma, y_ref, tol),
+                     compare(f"k1_fma/vs_{tc}/{act}", y_fma, y, tol)]
+            del y_fma
             if not torch.equal(y, k1()):
                 raise AssertionError(f"two identical k1 calls differ ({dtype})")
             del y_ref
@@ -620,7 +634,7 @@ def phase_kernels(dev) -> dict:
                                     act=act, **kw)
             k2p = lambda: fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP,
                                       act=act)
-            (s, st), (s_ref, st_ref) = run_as("k2", k2_chosen, k2), k2p()
+            (s, st), (s_ref, st_ref) = run_as("k2", tc, k2), k2p()
             sr = s_ref.float().view(-1, C)
             terms = torch.stack([sr.abs().sum(0), (sr * sr).sum(0)])
             # the fma variant, named, on the same inputs: against the twin and
@@ -629,8 +643,8 @@ def phase_kernels(dev) -> dict:
             for name, sv, stv in (("k2", s, st), ("k2_fma", fma_s, fma_st)):
                 rows.append(compare(f"{name}/s/{act}", sv, s_ref, tol))
                 rows.append(compare_sums(f"{name}/stats/{act}", stv, st_ref, terms))
-            rows.append(compare(f"k2_fma/vs_{k2_chosen}/s/{act}", fma_s, s, tol))
-            rows.append(compare_sums(f"k2_fma/vs_{k2_chosen}/stats/{act}", fma_st, st, terms))
+            rows.append(compare(f"k2_fma/vs_{tc}/s/{act}", fma_s, s, tol))
+            rows.append(compare_sums(f"k2_fma/vs_{tc}/stats/{act}", fma_st, st, terms))
             del fma_s, fma_st
             if not all(torch.equal(u, v) for u, v in zip((s, st), k2())):
                 raise AssertionError(f"two identical k2 calls differ ({dtype})")
@@ -640,25 +654,19 @@ def phase_kernels(dev) -> dict:
                 single = dict(k1=cuda_ms(k1), k2=cuda_ms(k2))
                 times["k2_fma"] = (queued_ms([lambda: k2(variant="fma")], n=4, reps=3),
                                    times["k2"][1])
-                if dtype == torch.bfloat16:
-                    times["k1_fma"] = (queued_ms([lambda: k1(variant="fma")], n=8, reps=5),
-                                       times["k1"][1])
+                times["k1_fma"] = (queued_ms([lambda: k1(variant="fma")], n=8, reps=5),
+                                   times["k1"][1])
                 # the DFT tables (under 0.1 MB) are left out of the bytes
+                k1_work = (nbytes(x, a, b, y), dft_ops(BT), dtype)
                 k2_work = (nbytes(gsp, x, a, b, wp, bp, s, st),
                            dft_ops(BT) + BT * HP * WP * C * C * 2, dtype)
-                work = dict(k1=bound(nbytes(x, a, b, y), dft_ops(BT), dtype),
-                            k2=bound(*k2_work, k2_chosen), k2_fma=bound(*k2_work))
-                work["k1_fma"] = work["k1"]
+                work = dict(k1=bound(*k1_work, tc), k1_fma=bound(*k1_work),
+                            k2=bound(*k2_work, tc), k2_fma=bound(*k2_work))
                 rows += check_tstage_generic(dev, g, dtype, y, tol)
-                if dtype == torch.float32:   # K2's f32 route, for the summary line
-                    mine = [r for r in rows if r["name"].startswith("k2/s/")]
-                    summary["k2"]["tf32"] = dict(
-                        max_abs_err=max(r["max_abs_err"] for r in mine),
-                        max_rel_err=max(r["max_rel_err"] for r in mine),
-                        ms=times["k2"][0], plain_ms=times["k2"][1],
-                        fma_variant_ms=times["k2_fma"][0], single_launch_ms=single["k2"],
-                        bound_ms=work["k2"]["bound_ms"], bound_by=work["k2"]["bound_by"],
-                        fma_bound_ms=work["k2_fma"]["bound_ms"])
+                if dtype == torch.float32:   # K1's and K2's f32 route, for the summary line
+                    for k in ("k1", "k2"):
+                        summary[k]["tf32"] = tf32_entry(k, [r for r in rows if r["name"].startswith(
+                            f"{k}/") and "/stats/" not in r["name"]], times, work, single)
         del s, st, s_ref, st_ref, sr, y, gsp
         library = {}
         for kind in ("et", "it"):
@@ -741,13 +749,26 @@ def phase_backward(dev) -> dict:
         x = rn(BT, HP * WP // 2, 2 * C).to(dtype)
         a, b = 1 + 0.1 * rn(C), 0.1 * rn(C)
         wp, bp = rn(C, C) / C ** 0.5, 0.1 * rn(C)
+        tc = "mma" if dtype == torch.bfloat16 else "tf32"   # K1's, K2's, K2A-lite's, K12B's
         k1 = lambda **kw: fl.k1(x, a, b, **geo, act="exact", **kw)
-        y = k1()
+        y = run_as("k1", tc, k1)
+        rows, times, work, library, single = [], {}, {}, {}, {}
+        # K1 at the width the training step launches it: in f32 its tf32 and
+        # named fma variants against the twin (f32 temporaries of 2 GB) and
+        # against each other; two calls bit-equal
+        y_fma = run_as("k1", "fma", lambda: k1(variant="fma"))
+        if dtype == torch.float32:
+            y_ref = fl.k1_plain(x, a, b, cst, Hp=HP, Wp=WP, act="exact")
+            rows += [compare("k1/y", y, y_ref, tol), compare("k1_fma/y", y_fma, y_ref, tol)]
+            del y_ref
+            if not torch.equal(y, k1()):
+                raise AssertionError("two identical k1 calls differ (float32, BT 832)")
+        rows.append(compare(f"k1_fma/vs_{tc}/y", y_fma, y, tol))
+        del y_fma
+        torch.cuda.empty_cache()
         gsp = rn(*y.shape).to(dtype)
         k2 = lambda **kw: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact", **kw)
-        tc = "mma" if dtype == torch.bfloat16 else "tf32"   # K2's and K12B's choice
         s, st = run_as("k2", tc, k2)
-        rows, times, work, library, single = [], {}, {}, {}, {}
         if dtype == torch.float32:
             # the tf32 variant and the fma one against the twin at this width
             # too (the twin's f32 temporaries fit beside x, y and s), and
@@ -766,13 +787,13 @@ def phase_backward(dev) -> dict:
                 raise AssertionError("two identical k2 calls differ (float32, BT 832)")
             del s_ref, st_ref, fma_s, fma_st, terms
             torch.cuda.empty_cache()
-        # K1 at the width the training step launches it (held against its
-        # twin at the rollout width in the kernel phase)
+        # K1's times at this width (bf16: held against its twin at the
+        # rollout width in the kernel phase)
         times["k1"] = (queued_ms([k1], n=8, reps=5), None)
-        work["k1"] = bound(nbytes(x, a, b, y), dft_ops(BT), dtype)
-        if dtype == torch.bfloat16:
-            times["k1_fma"] = (queued_ms([lambda: k1(variant="fma")], n=4, reps=3), None)
-            work["k1_fma"] = work["k1"]
+        single["k1"] = cuda_ms(k1, reps=10)
+        work["k1"] = bound(nbytes(x, a, b, y), dft_ops(BT), dtype, tc)
+        times["k1_fma"] = (queued_ms([lambda: k1(variant="fma")], n=4, reps=3), None)
+        work["k1_fma"] = bound(nbytes(x, a, b, y), dft_ops(BT), dtype)
         # K2 at the width the training step launches it (held against its
         # twin at the rollout width in the kernel phase: the f32 twin's
         # temporaries do not fit beside this phase's tensors)
@@ -804,33 +825,32 @@ def phase_backward(dev) -> dict:
         k2l = lambda **kw: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo, **kw)
         k2l_p = lambda: fl.k2a_lite_plain(ds, gsp, y, ds1, ds2, wp, bp, lite, cst,
                                           Hp=HP, Wp=WP)
-        chosen = "mma" if dtype == torch.bfloat16 else "fma"
-        full, lite_dg = k2a(), run_as("k2a_lite", chosen, k2l)
+        chosen = "mma" if dtype == torch.bfloat16 else "fma"   # K3F's and K3B's
+        full, lite_dg = k2a(), run_as("k2a_lite", tc, k2l)
         lite_ref = k2l_p()
         rows.append(compare("k2a/dg", full, k2a_p(), tol))
         rows.append(compare("k2a_lite/dg", lite_dg, lite_ref, tol))
         rows.append(compare("k2a_lite/vs_k2a", lite_dg, full, tol))
         if not torch.equal(lite_dg, k2l()):
             raise AssertionError(f"two identical k2a_lite calls differ ({dtype})")
-        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
-            fma_dg = run_as("k2a_lite", "fma", lambda: k2l(variant="fma"))
-            rows.append(compare("k2a_lite_fma/dg", fma_dg, lite_ref, tol))
-            rows.append(compare("k2a_lite_fma/vs_k2a", fma_dg, full, tol))
-            del fma_dg
-        del lite_ref
+        # the fma variant, named, on the same inputs: against the twin, K2A
+        # and the variant chosen
+        fma_dg = run_as("k2a_lite", "fma", lambda: k2l(variant="fma"))
+        rows += [compare("k2a_lite_fma/dg", fma_dg, lite_ref, tol),
+                 compare("k2a_lite_fma/vs_k2a", fma_dg, full, tol),
+                 compare(f"k2a_lite_fma/vs_{tc}/dg", fma_dg, lite_dg, tol)]
+        del fma_dg, lite_ref
         work["k2a"] = bound(nbytes(s, ds, ds1, ds2, full), dft_ops(BT), dtype)
         # the lite fit's correction: a [2Y, C] x [C, C] product per image
-        work["k2a_lite"] = bound(nbytes(ds, gsp, y, ds1, ds2, wp, bp, lite_dg),
-                                 dft_ops(BT) + BT * 2 * (2 * M2 * M3) * C * C * 2,
-                                 dtype)
-        work["k2a_lite_fma"] = work["k2a_lite"]
+        k2l_work = (nbytes(ds, gsp, y, ds1, ds2, wp, bp, lite_dg),
+                    dft_ops(BT) + BT * 2 * (2 * M2 * M3) * C * C * 2, dtype)
+        work["k2a_lite"], work["k2a_lite_fma"] = bound(*k2l_work, tc), bound(*k2l_work)
         del full, lite_dg
         times["k2a"] = (cuda_ms(k2a), cuda_ms(k2a_p))
         times["k2a_lite"] = (queued_ms([k2l], n=8, reps=5), cuda_ms(k2l_p))
         single["k2a_lite"] = cuda_ms(k2l, reps=10)
-        if dtype == torch.bfloat16:
-            times["k2a_lite_fma"] = (queued_ms([lambda: k2l(variant="fma")], n=4, reps=3),
-                                     times["k2a_lite"][1])
+        times["k2a_lite_fma"] = (queued_ms([lambda: k2l(variant="fma")], n=4, reps=3),
+                                 times["k2a_lite"][1])
 
         x = rn(BT, HP * WP // 2, 2 * C).to(dtype)
         k12 = lambda **kw: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo, act="exact", **kw)
@@ -912,24 +932,17 @@ def phase_backward(dev) -> dict:
                                            library=library.get(k),
                                            single_launch=single.get(k))
                                    for k, v in times.items()}))
-        if dtype == torch.float32:   # K2's and K12B's f32 route, for the summary line
-            tf32 = {}
-            for k in ("k2", "k12b"):
-                mine = [r for r in rows if r["name"].startswith(k + "/")]
-                tf32[k] = dict(
-                    max_abs_err=max(r["max_abs_err"] for r in mine),
-                    max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
-                                    for r in mine),
-                    ms=times[k][0], plain_ms=times[k][1], fma_variant_ms=times[k + "_fma"][0],
-                    single_launch_ms=single[k], bound_ms=work[k]["bound_ms"],
-                    bound_by=work[k]["bound_by"], fma_bound_ms=work[k + "_fma"]["bound_ms"])
+        if dtype == torch.float32:   # the f32 route of the tf32 kernels, for the summary line
+            tf32 = {k: tf32_entry(k, [r for r in rows if r["name"].startswith(k + "/")], times,
+                                  work, single) for k in ("k1", "k2", "k2a_lite", "k12b")}
         if dtype == torch.bfloat16:
             summary["k2_train_width"] = dict(ms=times["k2"][0], single_launch_ms=single["k2"],
                                              bound_ms=work["k2"]["bound_ms"],
                                              fma_variant_ms=times["k2_fma"][0],
                                              tf32=tf32["k2"])
             summary["k1_train_width"] = dict(ms=times["k1"][0], fma_variant_ms=times["k1_fma"][0],
-                                             bound_ms=work["k1"]["bound_ms"])
+                                             single_launch_ms=single["k1"],
+                                             bound_ms=work["k1"]["bound_ms"], tf32=tf32["k1"])
             for k in ("k2a_lite", "k2a", "k12b", "k3f", "k3b"):
                 mine = [r for r in rows if r["name"].startswith(k + "/")]
                 summary[k] = dict(
@@ -941,6 +954,7 @@ def phase_backward(dev) -> dict:
                 summary[k].update(fma_variant_ms=times[f"{k}_fma"][0],
                                   single_launch_ms=single[k])
             summary["k12b"]["tf32"] = tf32["k12b"]
+            summary["k2a_lite"]["tf32"] = tf32["k2a_lite"]
             adj = [r for r in rows if r["name"].startswith("t_stage/")]
             pair = ("t_stage_et_adj", "t_stage_it_adj")
             summary["t_stage_adjoint"] = dict(
@@ -970,7 +984,7 @@ def phase_slice(dev, compute_dtype="bfloat16") -> dict:
     """bench.py's rollout through make_rollout_fn in bf16 (phase slice, the
     kernels' mma variants, within ROLLOUT_* of the plain f32 rollout, then
     its profile) or, with ``compute_dtype`` None, in float32 as the shipped
-    config runs it (phase slice_f32: K1 fma, K2 tf32, within KERNEL_TOL's
+    config runs it (phase slice_f32: K1 and K2 tf32, within KERNEL_TOL's
     f32 bound); returns the launch counts of the counted rollout."""
     f32 = compute_dtype is None
     path = "rollout_f32" if f32 else "rollout"
@@ -999,7 +1013,7 @@ def phase_slice(dev, compute_dtype="bfloat16") -> dict:
             raise AssertionError(f"{k} launched {launches[k]} times in a "
                                  f"{STEPS}-step rollout, expected {n * STEPS}")
     variants = expect_variants(
-        f"a {STEPS}-step rollout", k1={"fma" if f32 else "mma": per_predict["k1"] * STEPS},
+        f"a {STEPS}-step rollout", k1={"tf32" if f32 else "mma": per_predict["k1"] * STEPS},
         k2={"tf32" if f32 else "mma": per_predict["k2"] * STEPS},
         t_stage={"registers": per_predict["t_stage"] * STEPS})
     VARIANTS_BY_PATH[path] = variants
@@ -1091,12 +1105,12 @@ def _fno_vs_plain(what, batch, loss, grads, ref_loss, ref_grads, model, ref_mode
 def phase_train(dev, compute_dtype="bfloat16") -> dict:
     """bench.py's training step through make_train_step, in bf16 (phase
     train, the kernels' mma variants) or, with ``compute_dtype`` None, in
-    float32 as the shipped config runs it (phase train_f32: K2 and K12B
-    tf32, the others fma, within F32_LIMITS of the plain step); returns
-    the launch counts of the counted step."""
+    float32 as the shipped config runs it (phase train_f32: K1, K2,
+    K2A-lite and K12B tf32, K3F and K3B fma, within F32_LIMITS of the plain
+    step); returns the launch counts of the counted step."""
     path = "train" if compute_dtype else "train_f32"
-    mm = "mma" if compute_dtype else "fma"
-    tc = "mma" if compute_dtype else "tf32"   # K2's and K12B's
+    mm = "mma" if compute_dtype else "fma"    # K3F's and K3B's
+    tc = "mma" if compute_dtype else "tf32"   # K1's, K2's, K2A-lite's and K12B's
     model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=compute_dtype,
                         device=dev, generator=make_generator(0), **MODEL)
     ref_model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), device=dev, **MODEL)
@@ -1119,7 +1133,7 @@ def phase_train(dev, compute_dtype="bfloat16") -> dict:
         raise AssertionError(f"one {path} step launched {launches}, "
                              f"expected {TRAIN_LAUNCHES}")
     variants = expect_variants(f"one {path} step", **{
-        k: {"registers" if k == "t_stage" else tc if k in ("k2", "k12b") else mm: n}
+        k: {"registers" if k == "t_stage" else mm if k in ("k3f", "k3b") else tc: n}
         for k, n in TRAIN_LAUNCHES.items() if n})
     VARIANTS_BY_PATH[path] = variants
     grads = _grads(model)
@@ -1810,8 +1824,9 @@ def phase_geometries(dev) -> None:
     """Every FNO kernel against its twin at the other shipped geometries
     (GEOMETRIES: combustion's width 64 and fsi's 128, modes 4/16/16), at
     batch GEO_BATCH, in both dtypes, each in the variant its dtype chooses
-    (mma in bfloat16, fma in float32; K2 and K12B mma in bfloat16, tf32 in
-    float32: every shipped geometry's block fits; asserted per call):
+    (K1, K2, K2A-lite and K12B mma in bfloat16, tf32 in float32: every
+    shipped geometry's block fits; K3F and K3B mma in bfloat16, fma in
+    float32; asserted per call):
     K1, the four T-stage maps, K2, K2A and (where the geometry has lite
     statics) K2A-lite, K12B, K3F and K3B. Records which of K2A-lite and K2A
     the geometry's backward takes."""
@@ -1827,12 +1842,12 @@ def phase_geometries(dev) -> None:
             g = torch.Generator(device=dev).manual_seed(5)
             rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
             tol = KERNEL_TOL[dtype]
-            mm = "mma" if dtype == torch.bfloat16 else "fma"
-            k2v = k12v = "mma" if dtype == torch.bfloat16 else "tf32"   # asserted per call
+            mm = "mma" if dtype == torch.bfloat16 else "fma"   # K3F's and K3B's
+            tc = "mma" if dtype == torch.bfloat16 else "tf32"  # the others'; asserted per call
             x = rn(BT, HP * WP // 2, 2 * Cg).to(dtype)
             a, b = 1 + 0.1 * rn(Cg), 0.1 * rn(Cg)
             wp, bp = rn(Cg, Cg) / Cg ** 0.5, 0.1 * rn(Cg)
-            y = run_as("k1", mm, lambda: fl.k1(x, a, b, **geo, act="exact"))
+            y = run_as("k1", tc, lambda: fl.k1(x, a, b, **geo, act="exact"))
             rows = [compare("k1", y, fl.k1_plain(x, a, b, cst, Hp=HP, Wp=WP, act="exact"), tol)]
             short = y[: B * 2 * m1].contiguous()
             for kind, inp in (("et", y), ("it", short), ("it_adj", y), ("et_adj", short)):
@@ -1840,7 +1855,7 @@ def phase_geometries(dev) -> None:
                 rows.append(compare(f"t_stage/{kind}", got,
                                     fl.t_stage_plain(inp, *fl._tmats_on(dev, kind, TP, m1)), tol))
             gsp = rn(*y.shape).to(dtype)
-            s, st = run_as("k2", k2v, lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact"))
+            s, st = run_as("k2", tc, lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact"))
             s_ref, st_ref = fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP, act="exact")
             sr = s_ref.float().view(-1, Cg)
             rows += [compare("k2/s", s, s_ref, tol),
@@ -1854,13 +1869,13 @@ def phase_geometries(dev) -> None:
             rows.append(compare("k2a/dg", full, fl.k2a_plain(s, ds, ds1, ds2, cst, Hp=HP, Wp=WP),
                                 tol))
             if lite is not None:
-                lg = run_as("k2a_lite", mm, lambda: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp,
+                lg = run_as("k2a_lite", tc, lambda: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp,
                                                                 **geo))
                 rows += [compare("k2a_lite/dg", lg, fl.k2a_lite_plain(
                              ds, gsp, y, ds1, ds2, wp, bp, lite, cst, Hp=HP, Wp=WP), tol),
                          compare("k2a_lite/vs_k2a", lg, full, tol)]
-            got = run_as("k12b", k12v, lambda: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo,
-                                                       act="exact"))
+            got = run_as("k12b", tc, lambda: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo,
+                                                     act="exact"))
             ref = fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=HP, Wp=WP, act="exact")
             rows.append(compare("k12b/dx", got[0], ref[0], tol))
             terms = k12b_terms(x, a, b, s, ds, ds1, ds2, ref[0])
@@ -1882,7 +1897,7 @@ def phase_geometries(dev) -> None:
             torch.cuda.synchronize()
             emit(dict(phase="geometry", name=name, dtype=str(dtype).replace("torch.", ""),
                       shapes=dict(BT=BT, Hp=HP, Wp=WP, C=Cg, modes=[m1, m2, m3]),
-                      variant=mm, k2_variant=k2v, k12b_variant=k12v,
+                      variants=dict(k1=tc, k2=tc, k2a_lite=tc, k12b=tc, k3f=mm, k3b=mm),
                       k2a_route="k2a_lite" if lite is not None else "k2a",
                       worst_rel=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in rows),
@@ -1906,7 +1921,7 @@ def phase_fsi_train(dev, norm) -> dict:
     total_variants = {k: dict.fromkeys(v, 0) for k, v in kernels.VARIANTS.items()}
     for cdt in (None, "bfloat16"):
         dtype = torch.bfloat16 if cdt else torch.float32
-        mm = "mma" if cdt else "fma"
+        mm = "mma" if cdt else "fma"   # K3F's and K3B's
         model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=cdt, device=dev,
                             generator=make_generator(1), **FSI_MODEL)
         opt = build_optimizer(FSI_TRAIN_CFG, model.parameters())
@@ -1923,10 +1938,10 @@ def phase_fsi_train(dev, norm) -> dict:
         if launches != TRAIN_LAUNCHES:
             raise AssertionError(f"one fsi step ({dtype}) launched {launches}, "
                                  f"expected {TRAIN_LAUNCHES}")
-        # K2 and K12B: tf32 in f32 at C 128 too (their blocks fit, one an SM)
+        # K1, K2, K2A-lite and K12B: tf32 in f32 at C 128 too (their blocks fit)
         tc = "mma" if cdt else "tf32"
-        variants = expect_variants(f"one fsi step ({dtype})", k1={mm: 4},
-                                   t_stage={"registers": 16}, k2={tc: 4}, k2a_lite={mm: 4},
+        variants = expect_variants(f"one fsi step ({dtype})", k1={tc: 4},
+                                   t_stage={"registers": 16}, k2={tc: 4}, k2a_lite={tc: 4},
                                    k12b={tc: 4}, k3f={mm: 1}, k3b={mm: 1})
         first_peak = torch.cuda.max_memory_allocated() / 1e9
         if not bool(torch.isfinite(loss)):

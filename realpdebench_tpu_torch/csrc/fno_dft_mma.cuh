@@ -216,17 +216,26 @@ __device__ __forceinline__ void wh_mma_body(const bf16* __restrict__ x,
   epi(acc, bt, c0, warp, lane);
 }
 
-// The plain epilogue (K1): y[bt][(j, m)][part*C + c0 + c] from the
-// accumulator rows (part, j), columns (m, c), rounded to bf16.
-template <int M3, int MTH>
+// Two neighbouring outputs: rounded to bf16 (the mma bodies), or in f32
+// (the tf32 ones).
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// The plain epilogue (K1) of both bodies: y[bt][(j, m)][part*C + c0 + c]
+// from the accumulator rows (part, j), columns (m, c), in T.
+template <int M3, int MTH, typename T>
 struct StoreY {
-  bf16* __restrict__ y;
+  T* __restrict__ y;
   int C, m2x2;
   __device__ __forceinline__ void stage(unsigned char*, int) const {}
   __device__ __forceinline__ void operator()(const float (&acc)[MTH][2 * M3 / 8][4], int bt,
                                              int c0, int warp, int lane) const {
     const int gq = lane >> 2, q = lane & 3;
-    bf16* yb = y + (size_t)bt * m2x2 * M3 * 2 * C + c0;
+    T* yb = y + (size_t)bt * m2x2 * M3 * 2 * C + c0;
 #pragma unroll
     for (int mt = 0; mt < MTH; ++mt)
 #pragma unroll
@@ -237,8 +246,8 @@ struct StoreY {
           if (R >= 2 * m2x2) continue;
           const int part = R / m2x2, j = R - part * m2x2;
           const int n = warp * 2 * M3 + t * 8 + 2 * q, m = n / kSlice, c = n - m * kSlice;
-          *reinterpret_cast<uint32_t*>(yb + (size_t)(j * M3 + m) * 2 * C + part * C + c) =
-              mma::pack_bf16(acc[mt][t][2 * hf], acc[mt][t][2 * hf + 1]);
+          store_pair(yb + (size_t)(j * M3 + m) * 2 * C + part * C + c, acc[mt][t][2 * hf],
+                     acc[mt][t][2 * hf + 1]);
         }
   }
 };

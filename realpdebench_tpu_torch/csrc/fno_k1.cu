@@ -16,7 +16,7 @@
 // and the first version, on FP32 FMAs with both operands of every FMA from
 // shared memory, ran at 3% of the bound.
 //
-// Two variants, chosen from dtype, shape and alignment before the launch
+// Three variants, chosen from dtype, shape and alignment before the launch
 // (ops/kernels.py::k1_variant):
 //
 //  * mma (bf16; C a multiple of 16, m3 in {8, 16}, 2*m2 <= 32, Wp <= 256,
@@ -33,7 +33,22 @@
 //    holds to 1e-4 (its output is rounded to bf16), so no operand needs
 //    the hi + lo pair that K2 and K12B take.
 //    Shared memory at m3 16, Wp 134: 100 KB, two blocks (16 warps) an SM.
-//  * fma (f32 tensors, other shapes): one block per (bt, 16-channel slice);
+//  * tf32 (f32 tensors at the mma variant's shapes and alignment): the same
+//    body in f32 on the tensor cores as 3xTF32 (fno_dft_tf32.cuh: every
+//    product hi.hi + hi.lo + lo.hi on mma.sync m16n8k8, each f32 operand
+//    split into its tf32 pair in registers), on the f32 tables of
+//    ops/fno_layer.py::_k1_tables_on. Rounding points: z = act(a*x + b) in
+//    f32 (the exact GELU through fno::erf_fast, A&S 7.1.26, |error| <= 3e-7,
+//    about 3xTF32's own error), EW split once as the block stages it, X
+//    kept in f32 in shared memory between the W product and the H fold, y
+//    written in f32; each operand carries 22 bits, the sums are f32. The
+//    ring holds pieces of 32 rows of W, not whole rows: 102528 bytes a block
+//    at m3 16, Wp 134, two blocks (16 warps) an SM (whole f32 rows would take
+//    147 KB for the rings alone, one block an SM). ptxas (-Xptxas -v,
+//    sm_90a): 121 registers, no spills at <16, 3>; 128 and 132 bytes of
+//    spill stores at fsi's <16, 4>.
+//  * fma (f32 tensors at other shapes, misaligned views, and bf16 when
+//    named): one block per (bt, 16-channel slice);
 //    thread (c, m) owns one W mode of one channel. For each row h the block
 //    stages z[h, :, slice] in shared memory, each thread contracts it against
 //    its W-mode column and folds the result into its 2*m2 complex H-mode
@@ -43,6 +58,7 @@
 
 #include "fno_common.cuh"
 #include "fno_dft_mma.cuh"
+#include "fno_dft_tf32.cuh"
 
 namespace {
 
@@ -163,8 +179,8 @@ __global__ void __launch_bounds__(dftmma::kWarps * 32, 2)
                   const float* __restrict__ b, const bf16* __restrict__ ew,
                   const bf16* __restrict__ eh, bf16* __restrict__ y, int Hp, int Wp, int C,
                   int m2x2, int act) {
-  dftmma::wh_mma_body<M3, MTH, true>(x, a, b, ew, eh, dftmma::StoreY<M3, MTH>{y, C, m2x2}, Hp,
-                                     Wp, C, m2x2, act);
+  dftmma::wh_mma_body<M3, MTH, true>(x, a, b, ew, eh, dftmma::StoreY<M3, MTH, bf16>{y, C, m2x2},
+                                     Hp, Wp, C, m2x2, act);
 }
 
 template <int M3, int MTH>
@@ -209,6 +225,65 @@ cudaError_t launch_k1_mma(const void* x, const void* a, const void* b, const voi
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The tf32 variant: fno_dft_tf32.cuh's body, the affine and activation on its
+// input and the plain store of y
+// ---------------------------------------------------------------------------
+
+inline int k1_tf32_smem(int Wp, int m3) { return dfttf32::body_smem(Wp, m3); }
+
+template <int M3, int MTH>
+__global__ void __launch_bounds__(dfttf32::kWarps * 32, 2)
+    k1_tf32_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                   const float* __restrict__ b, const float* __restrict__ ew,
+                   const float* __restrict__ eh, float* __restrict__ y, int Hp, int Wp, int C,
+                   int m2x2, int act) {
+  dfttf32::wh_tf32_body<M3, MTH, true>(x, a, b, ew, eh, dftmma::StoreY<M3, MTH, float>{y, C, m2x2},
+                                       Hp, Wp, C, act);
+}
+
+template <int M3, int MTH>
+cudaError_t launch_k1_tf32_as(const void* x, const void* a, const void* b, const void* ew,
+                              const void* eh, void* y, int BT, int Hp, int Wp, int C, int m2x2,
+                              int act, cudaStream_t stream) {
+  auto kernel = k1_tf32_kernel<M3, MTH>;
+  const int smem = k1_tf32_smem(Wp, M3);
+  cudaError_t err = fno::allow_smem(kernel, (size_t)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(C / dfttf32::kSlice, BT), dfttf32::kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(ew), static_cast<const float*>(eh), static_cast<float*>(y), Hp,
+      Wp, C, m2x2, act);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_k1_tf32(const void* x, const void* a, const void* b, const void* ew,
+                           const void* eh, void* y, int BT, int Hp, int Wp, int C, int m2x2,
+                           int m3, int act, cudaStream_t stream) {
+  if (C % dfttf32::kSlice || m2x2 < 1 || m2x2 > 32 || Wp > 256 || BT > 65535 ||
+      ew == nullptr || eh == nullptr || k1_tf32_smem(Wp, m3) > 232448)
+    return cudaErrorInvalidValue;
+  for (const void* p : {x, ew, eh, (const void*)y})
+    if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
+  const int mth = (2 * m2x2 + 15) / 16;
+#define K1_TF32(MM, MT)                                                                       \
+  if (m3 == MM && mth == MT)                                                                  \
+  return launch_k1_tf32_as<MM, MT>(x, a, b, ew, eh, y, BT, Hp, Wp, C, m2x2, act, stream)
+  K1_TF32(16, 3);   // the cylinder: 2*m2 = 24
+  K1_TF32(16, 4);   // fsi, combustion: 2*m2 = 32
+  K1_TF32(16, 1);
+  K1_TF32(16, 2);
+  K1_TF32(8, 1);
+  K1_TF32(8, 2);
+  K1_TF32(8, 3);
+  K1_TF32(8, 4);
+#undef K1_TF32
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Text of a cudaError_t code returned by any entry point of the library.
@@ -219,8 +294,12 @@ extern "C" const char* fno_error_string(int err) {
 // Bytes of shared memory a block of the mma variant takes.
 extern "C" int fno_k1_mma_smem_bytes(int Wp, int m3) { return k1_mma_smem(Wp, m3); }
 
-// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["k1"]); ew, eh: the packed
-// bf16 DFT tables of the mma variant (null for fma).
+// Bytes of shared memory a block of the tf32 variant takes.
+extern "C" int fno_k1_tf32_smem_bytes(int Wp, int m3) { return k1_tf32_smem(Wp, m3); }
+
+// variant: 0 fma, 1 mma, 2 tf32 (ops/kernels.py: VARIANTS["k1"]); ew, eh: the
+// DFT tables of the mma variant (bf16) or of the tf32 variant (f32), null for
+// fma. A variant that does not take the dtype or shape returns an error.
 extern "C" int fno_k1(const void* x, const void* a, const void* b, const void* ewr,
                       const void* ewi, const void* ehr, const void* ehi, const void* ew,
                       const void* eh, void* y, int BT, int Hp, int Wp, int C, int m2x2, int m3,
@@ -230,6 +309,10 @@ extern "C" int fno_k1(const void* x, const void* a, const void* b, const void* e
   if (variant == 1) {
     if (dtype != fno::kBF16) return cudaErrorInvalidValue;
     return launch_k1_mma(x, a, b, ew, eh, y, BT, Hp, Wp, C, m2x2, m3, act, s);
+  }
+  if (variant == 2) {
+    if (dtype != fno::kF32) return cudaErrorInvalidValue;
+    return launch_k1_tf32(x, a, b, ew, eh, y, BT, Hp, Wp, C, m2x2, m3, act, s);
   }
   if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32)

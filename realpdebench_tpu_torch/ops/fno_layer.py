@@ -6,7 +6,8 @@ is ``s = SpectralConv3d(z) + Conv1x1(z)`` with ``z = act(a*x + b)``, where
 tensor between layers is always the pre-BN ``s``. Forward:
 
   K1       z, then the truncated forward DFT over W and H   (csrc/fno_k1.cu;
-           bf16: on the tensor cores, csrc/mma.cuh)
+           bf16: on the tensor cores, csrc/fno_dft_mma.cuh; f32: as
+           3xTF32, csrc/fno_dft_tf32.cuh)
   T-stage  forward DFT over T (Tp → 2·m1 modes)             (csrc/fno_tstage.cu)
   corner   4-corner complex channel mixing                  (torch.einsum)
   T-stage  inverse DFT over T (2·m1 → Tp)                   (csrc/fno_tstage.cu)
@@ -17,7 +18,8 @@ tensor between layers is always the pre-BN ``s``. Forward:
 Backward (``fused_fno_layer`` is one autograd function):
 
   K2A-lite dg = A(ds) + ds1·A1 + 2·ds2·A(s), A(s) from g, y (csrc/fno_k2a.cu;
-           bf16: K1's tensor-core body, csrc/fno_dft_mma.cuh)
+           bf16 and f32: K1's tensor-core bodies, csrc/fno_dft_mma.cuh
+           and csrc/fno_dft_tf32.cuh)
            (K2A, the full-read form, for a geometry the lite fit rejects)
   T-stage  adjoint of the inverse T (it_adj)                (csrc/fno_tstage.cu)
   corner   dx2, dwr, dwi                                    (torch.einsum)
@@ -256,19 +258,21 @@ def _wh_mma_tables(wr, wi, hr, hi, dtype):
 
 
 def _k1_mma_tables(Hp: int, Wp: int, m2: int, m3: int, dtype=torch.bfloat16):
-    """The DFT constants of K1's tensor-core variant in the layout of its
+    """The DFT constants of K1's tensor-core variants in the layout of their
     MMA A operands (``_wh_mma_tables`` of the forward factors ewr, ewi, ehr,
-    ehi), bfloat16 (one rounding, as JAX's ``_dot`` rounds its operands;
-    ``dtype`` float32 keeps them unrounded)."""
+    ehi), bfloat16 for the mma variant (one rounding, as JAX's ``_dot``
+    rounds its operands); float32, unrounded, for the tf32 variant, which
+    splits them into tf32 pairs itself."""
     c = {k: torch.from_numpy(v) for k, v in _ct_consts(Hp, Wp, m2, m3).items()}
     return _wh_mma_tables(c["ewr"], c["ewi"], c["ehr"], c["ehi"], dtype)
 
 
 def _k2a_mma_tables(Hp: int, Wp: int, m2: int, m3: int, dtype=torch.bfloat16):
-    """The DFT constants of K2A-lite's tensor-core variant: the adjoint A of
-    K2's inverse DFT in K1's layout (``_wh_mma_tables``), bfloat16 (or
-    ``dtype``). Its W product reads the inverse factors (row m of iw is
-    iwr[m], row m3 + m is iwi[m]); its H fold carries the adjoint's signs,
+    """The DFT constants of K2A-lite's tensor-core variants: the adjoint A of
+    K2's inverse DFT in K1's layout (``_wh_mma_tables``), bfloat16 for the
+    mma variant, float32 for the tf32 one. Its W product reads the inverse
+    factors (row m of iw is iwr[m], row m3 + m is iwi[m]); its H fold
+    carries the adjoint's signs,
     Re dg_j = Σ_h ihr[j, h]·dR + ihi[j, h]·dI and
     Im dg_j = Σ_h ihr[j, h]·dI − ihi[j, h]·dR, which is K1's fold with
     hr = ihrᵀ and hi = −ihiᵀ."""
@@ -277,13 +281,15 @@ def _k2a_mma_tables(Hp: int, Wp: int, m2: int, m3: int, dtype=torch.bfloat16):
 
 
 @lru_cache(maxsize=64)
-def _k1_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int):
-    return tuple(t.to(device) for t in _k1_mma_tables(Hp, Wp, m2, m3))
+def _k1_tables_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int, variant: str):
+    return tuple(t.to(device) for t in _k1_mma_tables(Hp, Wp, m2, m3,
+                                                           kernels._TC_DTYPES[variant]))
 
 
 @lru_cache(maxsize=64)
-def _k2a_mma_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int):
-    return tuple(t.to(device) for t in _k2a_mma_tables(Hp, Wp, m2, m3))
+def _k2a_tables_on(device: torch.device, Hp: int, Wp: int, m2: int, m3: int, variant: str):
+    return tuple(t.to(device) for t in _k2a_mma_tables(Hp, Wp, m2, m3,
+                                                            kernels._TC_DTYPES[variant]))
 
 
 @lru_cache(maxsize=64)
@@ -435,13 +441,14 @@ def k1_plain(x, a, b, cst, *, Hp: int, Wp: int, act: str):
 def k1(x, a, b, *, Hp: int, Wp: int, m2: int, m3: int, act: str,
        variant=None):
     """On the card, the variant ``kernels.k1_variant`` chooses from dtype,
-    shape and alignment (or the one named): the packed tables go with the
-    mma variant."""
+    shape and alignment (or the one named): the DFT tables go with the mma
+    (bfloat16) and tf32 (float32) variants."""
     cst = _ct_on(x.device, Hp, Wp, m2, m3)
     if _use_kernel(x):
         name = variant or kernels.k1_variant(x.dtype, x.shape[-1] // 2, 2 * m2, m3,
                                              Wp, kernels.aligned(x))
-        tables = _k1_mma_on(x.device, Hp, Wp, m2, m3) if name == "mma" else None
+        tables = (_k1_tables_on(x.device, Hp, Wp, m2, m3, name) if name in kernels._TC_DTYPES
+                  else None)
         return kernels.k1(x, a, b, cst["ewr"], cst["ewi"], cst["ehr"],
                           cst["ehi"], Hp=Hp, Wp=Wp, act=act, tables=tables,
                           variant=variant)
@@ -599,8 +606,8 @@ def k2a_lite(ds, g, y, ds1, ds2, wp, bp, *, Hp: int, Wp: int, m2: int,
              m3: int, variant=None):
     """Raises ValueError for a geometry without lite statics. On the card,
     the variant ``kernels.k2a_lite_variant`` chooses from dtype, shape and
-    alignment (or the one named): the packed tables go with the mma
-    variant."""
+    alignment (or the one named): the DFT tables go with the mma (bfloat16)
+    and tf32 (float32) variants."""
     cst = _ct_on(ds.device, Hp, Wp, m2, m3)
     lite = _lite_on(ds.device, Hp, Wp, m2, m3)
     if lite is None:
@@ -609,7 +616,8 @@ def k2a_lite(ds, g, y, ds1, ds2, wp, bp, *, Hp: int, Wp: int, m2: int,
     if _use_kernel(ds):
         name = variant or kernels.k2a_lite_variant(ds.dtype, ds.shape[-1] // 2, 2 * m2, m3,
                                                    Wp, kernels.aligned(ds, g, y))
-        tables = _k2a_mma_on(ds.device, Hp, Wp, m2, m3) if name == "mma" else None
+        tables = (_k2a_tables_on(ds.device, Hp, Wp, m2, m3, name) if name in kernels._TC_DTYPES
+                  else None)
         return kernels.k2a_lite(ds, g, y, ds1, ds2, wp, bp, lite["alpha"],
                                 lite["beta"], lite["D"], lite["A1"],
                                 cst["ihr"], cst["ihi"], cst["iwr"], cst["iwi"],

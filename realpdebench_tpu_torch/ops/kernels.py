@@ -23,10 +23,10 @@ functions ``k1_variant``, ``t_stage_variant``, ``k2_variant``,
 (``VARIANTS`` counts the launches of each): the T-stage's ``registers`` (a thread
 produces every output of its column) or ``generic``; the others' ``mma``
 (bf16, their products on the tensor cores) or ``fma`` (exact f32
-arithmetic); K2 and K12B also ``tf32`` (f32 tensors, every product on the
-tensor cores as 3xTF32). A caller may name the variant; one that does not
-take the input raises before anything is built. No variant gives way to
-another after a failure.
+arithmetic); K1, K2, K2A-lite and K12B also ``tf32`` (f32 tensors, every
+product on the tensor cores as 3xTF32). A caller may name the variant; one
+that does not take the input raises before anything is built. No variant
+gives way to another after a failure.
 Nothing here runs at import: this module is imported on machines with no
 GPU and no nvcc, where only the plain twins in ``ops/fno_layer.py``,
 ``ops/fno_tail.py``, ``ops/temporal_attention.py`` and ``ops/galerkin.py``
@@ -75,8 +75,8 @@ LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
 
 # Launches per variant of the kernels that have more than one; the keys'
 # order is the variant code of the csrc/ entry point.
-VARIANTS = {"k1": {"fma": 0, "mma": 0}, "t_stage": {"generic": 0, "registers": 0},
-            "k2": {"fma": 0, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 0, "mma": 0},
+VARIANTS = {"k1": {"fma": 0, "mma": 0, "tf32": 0}, "t_stage": {"generic": 0, "registers": 0},
+            "k2": {"fma": 0, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 0, "mma": 0, "tf32": 0},
             "k12b": {"fma": 0, "mma": 0, "tf32": 0}, "k3f": {"fma": 0, "mma": 0},
             "k3b": {"fma": 0, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
             "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
@@ -104,6 +104,11 @@ TF32_PAD, TF32_GC, K2_TF32_XC, K12B_TF32_TILE = 4, 8, 16, 32
 # csrc/fno_k1.cu, the mma variant: W modes, the channels a block takes, the
 # rows of H a chunk takes (one a warp), the widest W
 K1_MMA_M3, K1_MMA_SLICE, K1_MMA_ROWS, K1_MMA_MAX_WP = (8, 16), 16, 8, 256
+# csrc/fno_dft_tf32.cuh, the tf32 variants of K1 and K2A-lite: the rows of W a
+# ring stage holds (kPiece), the f32 padding of EW's rows (kEPad) and of an X
+# tile's (kXPad); csrc/fno_k2a.cu: the f32 row stride of the wps slice
+# (kWpsStrideF)
+DFT_TF32_PIECE, DFT_TF32_EPAD, DFT_TF32_XPAD, K2A_LITE_TF32_WPS_STRIDE = 32, 4, 8, 18
 
 
 def reset_launches() -> None:
@@ -157,6 +162,15 @@ def k2_tf32_smem_bytes(Wp: int, C: int, m2x2: int, m3: int) -> int:
             + 3 * C * 4 + warps * 2 * C * 4)
 
 
+def _tc_choice(dtype, mma_bytes: int, tf32_bytes: int) -> str:
+    """The tensor-core variant of dtype whose block fits, else 'fma'."""
+    if dtype == torch.bfloat16 and mma_bytes <= MAX_SMEM_BYTES:
+        return "mma"
+    if dtype == torch.float32 and tf32_bytes <= MAX_SMEM_BYTES:
+        return "tf32"
+    return "fma"
+
+
 def k2_variant(dtype, C: int, m3: int, Wp: int = 16, m2x2: int = 2,
                aligned: bool = True) -> str:
     """At an instantiated (C, m3) whose block fits (one warp per 16 columns
@@ -164,10 +178,8 @@ def k2_variant(dtype, C: int, m3: int, Wp: int = 16, m2x2: int = 2,
     g, x and wp: 'mma' for bfloat16, 'tf32' for float32; else 'fma'."""
     if (aligned and C in K2_MMA_WIDTHS and m3 in K2_MMA_M3
             and m2x2 <= K2_MMA_MAX_H_MODES and -(-Wp // 16) <= K2_MMA_MAX_WARPS[C]):
-        if dtype == torch.bfloat16 and k2_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES:
-            return "mma"
-        if dtype == torch.float32 and k2_tf32_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES:
-            return "tf32"
+        return _tc_choice(dtype, k2_mma_smem_bytes(Wp, C, m2x2, m3),
+                          k2_tf32_smem_bytes(Wp, C, m2x2, m3))
     return "fma"
 
 
@@ -180,14 +192,24 @@ def k1_mma_smem_bytes(Wp: int, m3: int) -> int:
             + K1_MMA_ROWS * 2 * kw * K1_MMA_SLICE * 2 + 2 * K1_MMA_SLICE * 4)
 
 
+def k1_tf32_smem_bytes(Wp: int, m3: int) -> int:
+    """Shared memory of a block of K1's tf32 variant (csrc/fno_dft_tf32.cuh::
+    body_smem), all f32: EW's tf32 hi and lo (rows padded), two X tiles,
+    the warps' two-stage rings of 32-row pieces of x, a and b."""
+    kw = -(-Wp // 8) * 8
+    return (2 * 2 * m3 * (kw + DFT_TF32_EPAD) * 4
+            + 2 * 16 * (m3 * K1_MMA_SLICE + DFT_TF32_XPAD) * 4
+            + K1_MMA_ROWS * 2 * DFT_TF32_PIECE * K1_MMA_SLICE * 4 + 2 * K1_MMA_SLICE * 4)
+
+
 def k1_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
                aligned: bool = True) -> str:
-    """'mma' for bfloat16 with C a multiple of 16, an instantiated m3, at
-    most 32 H modes, Wp <= 256 and 16-byte aligned x, else 'fma'."""
-    if (dtype == torch.bfloat16 and aligned and C % K1_MMA_SLICE == 0
-            and m3 in K1_MMA_M3 and m2x2 <= 32 and Wp <= K1_MMA_MAX_WP
-            and k1_mma_smem_bytes(Wp, m3) <= MAX_SMEM_BYTES):
-        return "mma"
+    """With C a multiple of 16, an instantiated m3, at most 32 H modes,
+    Wp <= 256 and 16-byte aligned x, a block that fits: 'mma' for bfloat16,
+    'tf32' for float32; else 'fma'."""
+    if (aligned and C % K1_MMA_SLICE == 0 and m3 in K1_MMA_M3 and m2x2 <= 32
+            and Wp <= K1_MMA_MAX_WP):
+        return _tc_choice(dtype, k1_mma_smem_bytes(Wp, m3), k1_tf32_smem_bytes(Wp, m3))
     return "fma"
 
 
@@ -202,16 +224,21 @@ def k2a_lite_mma_smem_bytes(Wp: int, m3: int, C: int) -> int:
     return k1_mma_smem_bytes(Wp, m3) + C * K2A_LITE_WPS_STRIDE * 2
 
 
+def k2a_lite_tf32_smem_bytes(Wp: int, m3: int, C: int) -> int:
+    """Shared memory of a block of K2A-lite's tf32 variant (csrc/fno_k2a.cu::
+    k2a_lite_tf32_smem): K1's tf32 body, then the slice of wps in f32."""
+    return k1_tf32_smem_bytes(Wp, m3) + C * K2A_LITE_TF32_WPS_STRIDE * 4
+
+
 def k2a_lite_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
                      aligned: bool = True) -> str:
-    """'mma' for bfloat16 with C a multiple of 16 up to 128, an instantiated
-    m3, at most 32 H modes, Wp <= 256 and 16-byte aligned ds, g and y, else
-    'fma'."""
-    if (dtype == torch.bfloat16 and aligned and C % K1_MMA_SLICE == 0
-            and C <= K2A_LITE_MMA_MAX_C and m3 in K1_MMA_M3 and m2x2 <= 32
-            and Wp <= K1_MMA_MAX_WP
-            and k2a_lite_mma_smem_bytes(Wp, m3, C) <= MAX_SMEM_BYTES):
-        return "mma"
+    """With C a multiple of 16 up to 128, an instantiated m3, at most 32 H
+    modes, Wp <= 256 and 16-byte aligned ds, g and y, a block that fits:
+    'mma' for bfloat16, 'tf32' for float32; else 'fma'."""
+    if (aligned and C % K1_MMA_SLICE == 0 and C <= K2A_LITE_MMA_MAX_C and m3 in K1_MMA_M3
+            and m2x2 <= 32 and Wp <= K1_MMA_MAX_WP):
+        return _tc_choice(dtype, k2a_lite_mma_smem_bytes(Wp, m3, C),
+                          k2a_lite_tf32_smem_bytes(Wp, m3, C))
     return "fma"
 
 
@@ -298,11 +325,8 @@ def k12b_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
     'mma' for bfloat16, 'tf32' for float32; else 'fma'."""
     if (aligned and C in K12B_MMA_WIDTHS and m3 in K12B_MMA_M3 and m2x2 <= 32
             and -(-Wp // 16) <= K12B_MMA_MAX_WARPS[C]):
-        if dtype == torch.bfloat16 and k12b_mma_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES:
-            return "mma"
-        if (dtype == torch.float32 and k12b_tf32_smem_bytes(Wp, C, m2x2, m3) <= MAX_SMEM_BYTES
-                and k12b_tf32_dwp_smem_bytes(C) <= MAX_SMEM_BYTES):
-            return "tf32"
+        return _tc_choice(dtype, k12b_mma_smem_bytes(Wp, C, m2x2, m3),
+                          max(k12b_tf32_smem_bytes(Wp, C, m2x2, m3), k12b_tf32_dwp_smem_bytes(C)))
     return "fma"
 
 
@@ -405,6 +429,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fno_k1": ([_P] * 10 + [_I] * 9 + [_P], _I),
     "fno_k1_mma_smem_bytes": ([_I] * 2, _I),
+    "fno_k1_tf32_smem_bytes": ([_I] * 2, _I),
     "fno_tstage": ([_P] * 4 + [_I] * 7 + [_P], _I),
     "fno_k2": ([_P] * 15 + [_I] * 9 + [_P], _I),
     "fno_k2_num_partials": ([_I] * 4, _I),
@@ -412,6 +437,7 @@ SIGNATURES = {
     "fno_k2_tf32_smem_bytes": ([_I] * 4, _I),
     "fno_k2a": ([_P] * 18 + [_I] * 9 + [_P], _I),
     "fno_k2a_lite_mma_smem_bytes": ([_I] * 3, _I),
+    "fno_k2a_lite_tf32_smem_bytes": ([_I] * 3, _I),
     "fno_k12b": ([_P] * 18 + [_I] * 9 + [_P], _I),
     "fno_k12b_partial_floats": ([_I] * 5, ctypes.c_longlong),
     "fno_k12b_mma_smem_bytes": ([_I] * 4, _I),
@@ -445,13 +471,13 @@ def library() -> ctypes.CDLL:
 
 
 @lru_cache(maxsize=64)
-def _layouts_agree(kernel: str, variant: str, Wp: int, C: int, m2x2: int, m3: int) -> bool:
-    """The shared-memory size of a block of K2's or K12B's tensor-core
-    variant as its source lays it out (``fno_<kernel>_<variant>_smem_bytes``)
-    against this module's, on which ``k2_variant`` and ``k12b_variant``
-    decide."""
-    mine = globals()[f"{kernel}_{variant}_smem_bytes"](Wp, C, m2x2, m3)
-    return getattr(library(), f"fno_{kernel}_{variant}_smem_bytes")(Wp, C, m2x2, m3) == mine
+def _layouts_agree(kernel: str, variant: str, *shape: int) -> bool:
+    """The shared-memory size of a block of a tensor-core variant (K1,
+    K2A-lite, K2, K12B) as its source lays it out
+    (``fno_<kernel>_<variant>_smem_bytes``) against this module's, on which
+    the variant functions decide; ``shape`` is both functions' arguments."""
+    mine = globals()[f"{kernel}_{variant}_smem_bytes"](*shape)
+    return getattr(library(), f"fno_{kernel}_{variant}_smem_bytes")(*shape) == mine
 
 
 def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
@@ -495,12 +521,64 @@ def _p(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+_TC_DTYPES = {"mma": torch.bfloat16, "tf32": torch.float32}
+
+
+def _tc_variant(kernel: str, chosen: str, variant: str | None, dtype, takes: str,
+                got: str) -> tuple:
+    """(name, code) of the variant of K1, K2, K2A-lite or K12B that runs: the
+    one named, or ``chosen``. A named tensor-core variant (mma, tf32) that
+    the input does not take raises here, before anything is built or
+    launched."""
+    name = chosen if variant is None else variant
+    code = _variant_code(kernel, name)
+    if name in _TC_DTYPES and chosen != name:
+        kind = "bfloat16" if name == "mma" else "float32"
+        raise ValueError(f"{kernel}: the {name} variant takes {kind}, {takes}; got {dtype}, "
+                         f"{got}")
+    return name, code
+
+
+def _check_tables(kernel: str, name: str, tables, dev, shapes: dict) -> tuple:
+    """The DFT tables a tensor-core variant reads: present, on dev, of the
+    variant's dtype, shapes and 16-byte alignment; their pointers."""
+    if tables is None:
+        raise ValueError(f"{kernel}: the {name} variant needs the packed tables")
+    for (n, shape), t in zip(shapes.items(), tables):
+        _check(n, t, dev, _TC_DTYPES[name], shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{n}: not 16-byte aligned")
+    return tuple(_p(t) for t in tables)
+
+
+def _k1_variant(x, C: int, m2x2: int, m3: int, Wp: int, variant: str | None) -> tuple:
+    """(name, code) of the K1 variant that runs on x; see ``_tc_variant``."""
+    ok = aligned(x)
+    return _tc_variant(
+        "k1", k1_variant(x.dtype, C, m2x2, m3, Wp, ok), variant, x.dtype,
+        f"C a multiple of {K1_MMA_SLICE}, m3 in {K1_MMA_M3}, 2*m2 <= 32, Wp <= "
+        f"{K1_MMA_MAX_WP}, a block within {MAX_SMEM_BYTES} bytes of shared memory and "
+        "16-byte aligned x", f"C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={ok}")
+
+
+def _wh_tables(kernel: str, name: str, tables, dev, Hp: int, Wp: int, m2x2: int,
+               m3: int) -> tuple:
+    """The pointers of the (W, H) DFT tables (fno_layer._wh_mma_tables) that
+    K1's and K2A-lite's tensor-core variants read, checked: [2*m3, Wp
+    rounded up to 16] and [ceil(Hp/8), 2*(2*m2) rounded up to 16, 16]."""
+    nch = -(-Hp // K1_MMA_ROWS)
+    return _check_tables(kernel, name, tables, dev, {
+        "ew" if kernel == "k1" else "iw": (2 * m3, -(-Wp // 16) * 16),
+        "eh" if kernel == "k1" else "ih": (nch, -(-2 * m2x2 // 16) * 16, 16)})
+
+
 def k1(x, a, b, ewr, ewi, ehr, ehi, *, Hp: int, Wp: int, act: str,
        tables=None, variant: str | None = None):
     """x [BT, Hp*Wp/2, 2C] → y [BT, 2m2*m3, 2C]; see csrc/fno_k1.cu.
     ``variant`` names one of VARIANTS['k1']; by default ``k1_variant``
-    chooses. The mma variant needs ``tables`` = (ew, eh), the packed bf16
-    DFT tables of ``ops/fno_layer._k1_mma_tables``."""
+    chooses. The mma and tf32 variants need ``tables`` = (ew, eh), the DFT
+    tables of ``ops/fno_layer._k1_mma_tables`` in bfloat16 (mma) or float32
+    (tf32)."""
     dt = _io_dtype(x)
     dev, f32 = x.device, torch.float32
     BT, C = x.shape[0], x.shape[-1] // 2
@@ -510,33 +588,17 @@ def k1(x, a, b, ewr, ewi, ehr, ehi, *, Hp: int, Wp: int, act: str,
                     ("ewi", ewi, (Wp, m3)), ("ehr", ehr, (Hp, m2x2)),
                     ("ehi", ehi, (Hp, m2x2))):
         _check(n, t, dev, f32, s)
-    chosen = k1_variant(x.dtype, C, m2x2, m3, Wp, aligned(x))
-    name = chosen if variant is None else variant
-    code = _variant_code("k1", name)
-    lib = library()
+    name, code = _k1_variant(x, C, m2x2, m3, Wp, variant)
     ew = eh = ctypes.c_void_p(None)
-    if name == "mma":
-        if chosen != "mma":
-            raise ValueError(
-                f"k1: the mma variant takes bfloat16, C a multiple of {K1_MMA_SLICE}, m3 in "
-                f"{K1_MMA_M3}, 2*m2 <= 32, Wp <= {K1_MMA_MAX_WP} and 16-byte aligned x; got "
-                f"{x.dtype}, C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={aligned(x)}")
-        if tables is None:
-            raise ValueError("k1: the mma variant needs the packed tables")
-        kw, nch = -(-Wp // 16) * 16, -(-Hp // K1_MMA_ROWS)
-        _check("ew", tables[0], dev, torch.bfloat16, (2 * m3, kw))
-        _check("eh", tables[1], dev, torch.bfloat16, (nch, -(-2 * m2x2 // 16) * 16, 16))
-        for n, t in (("ew", tables[0]), ("eh", tables[1])):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{n}: not 16-byte aligned")
-        if lib.fno_k1_mma_smem_bytes(Wp, m3) != k1_mma_smem_bytes(Wp, m3):
+    if name in _TC_DTYPES:
+        ew, eh = _wh_tables("k1", name, tables, dev, Hp, Wp, m2x2, m3)
+        if not _layouts_agree("k1", name, Wp, m3):
             raise RuntimeError("k1: the shared-memory layouts of kernels.py and "
                                "fno_k1.cu differ")
-        ew, eh = _p(tables[0]), _p(tables[1])
     else:
         _check_k1_shape("k1", C, m2x2, m3)
     y = torch.empty((BT, m2x2 * m3, 2 * C), dtype=x.dtype, device=dev)
-    _launch("k1", lib.fno_k1, dev, _p(x), _p(a), _p(b), _p(ewr), _p(ewi),
+    _launch("k1", library().fno_k1, dev, _p(x), _p(a), _p(b), _p(ewr), _p(ewi),
             _p(ehr), _p(ehi), ew, eh, _p(y), BT, Hp, Wp, C, m2x2, m3,
             ACT_CODES[act], code, dt)
     VARIANTS["k1"][name] += 1
@@ -573,23 +635,6 @@ def t_stage(y, mr, mi, *, variant: str | None = None):
     return out
 
 
-_TC_DTYPES = {"mma": torch.bfloat16, "tf32": torch.float32}
-
-
-def _tc_variant(kernel: str, chosen: str, variant: str | None, dtype, takes: str,
-                got: str) -> tuple:
-    """(name, code) of the variant of K2 or K12B that runs: the one named, or
-    ``chosen``. A named tensor-core variant (mma, tf32) that the input does
-    not take raises here, before anything is built or launched."""
-    name = chosen if variant is None else variant
-    code = _variant_code(kernel, name)
-    if name in _TC_DTYPES and chosen != name:
-        kind = "bfloat16" if name == "mma" else "float32"
-        raise ValueError(f"{kernel}: the {name} variant takes {kind}, {takes}; got {dtype}, "
-                         f"{got}")
-    return name, code
-
-
 def _k2_variant(g, x, wp, C: int, m3: int, Wp: int, m2x2: int, variant: str | None) -> tuple:
     """(name, code) of the K2 variant that runs on (g, x, wp); see
     ``_tc_variant``."""
@@ -600,18 +645,6 @@ def _k2_variant(g, x, wp, C: int, m3: int, Wp: int, m2x2: int, variant: str | No
         f"{K2_MMA_MAX_WARPS} warps of 16 columns of W, a block within {MAX_SMEM_BYTES} bytes "
         "of shared memory and 16-byte aligned g, x and wp",
         f"C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={ok}")
-
-
-def _check_tables(kernel: str, name: str, tables, dev, shapes: dict) -> tuple:
-    """The DFT tables a tensor-core variant reads: present, on dev, of the
-    variant's dtype, shapes and 16-byte alignment; their pointers."""
-    if tables is None:
-        raise ValueError(f"{kernel}: the {name} variant needs the packed tables")
-    for (n, shape), t in zip(shapes.items(), tables):
-        _check(n, t, dev, _TC_DTYPES[name], shape)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{n}: not 16-byte aligned")
-    return tuple(_p(t) for t in tables)
 
 
 def k2(g, x, a, b, wp, bp, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int, act: str,
@@ -687,14 +720,28 @@ def k2a(s, ds, ds1, ds2, ihr, ihi, iwr, iwi, *, Hp: int, Wp: int):
     return dg
 
 
+def _k2a_lite_variant(ds, g, y, C: int, m2x2: int, m3: int, Wp: int,
+                      variant: str | None) -> tuple:
+    """(name, code) of the K2A-lite variant that runs on (ds, g, y); see
+    ``_tc_variant``."""
+    ok = aligned(ds, g, y)
+    return _tc_variant(
+        "k2a_lite", k2a_lite_variant(ds.dtype, C, m2x2, m3, Wp, ok), variant, ds.dtype,
+        f"C a multiple of {K1_MMA_SLICE} up to {K2A_LITE_MMA_MAX_C}, m3 in {K1_MMA_M3}, "
+        f"2*m2 <= 32, Wp <= {K1_MMA_MAX_WP}, a block within {MAX_SMEM_BYTES} bytes of "
+        "shared memory and 16-byte aligned ds, g and y",
+        f"C={C}, m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={ok}")
+
+
 def k2a_lite(ds, g, y, ds1, ds2, wp, bp, alpha, beta, D, A1, ihr, ihi, iwr,
              iwi, *, Hp: int, Wp: int, tables=None, variant: str | None = None):
     """(ds like x; g, y [BT, 2m2*m3, 2C]; ds1, ds2, bp [C], wp [C, C] f32;
     the [Y, 2] lite statics) → dg; the lite mode of csrc/fno_k2a.cu. The
     [C]- and [C, C]-sized folds of ds1, ds2 and bp are made here.
     ``variant`` names one of VARIANTS['k2a_lite']; by default
-    ``k2a_lite_variant`` chooses. The mma variant needs ``tables`` = (iw,
-    ih), the packed bf16 DFT tables of ``ops/fno_layer._k2a_mma_tables``."""
+    ``k2a_lite_variant`` chooses. The mma and tf32 variants need ``tables`` =
+    (iw, ih), the DFT tables of ``ops/fno_layer._k2a_mma_tables`` in
+    bfloat16 (mma) or float32 (tf32)."""
     dt = _io_dtype(ds)
     dev, f32 = ds.device, torch.float32
     BT, C = ds.shape[0], ds.shape[-1] // 2
@@ -709,38 +756,20 @@ def k2a_lite(ds, g, y, ds1, ds2, wp, bp, alpha, beta, D, A1, ihr, ihi, iwr,
                      ("ihr", ihr, (m2x2, Hp)), ("ihi", ihi, (m2x2, Hp)),
                      ("iwr", iwr, (m3, Wp)), ("iwi", iwi, (m3, Wp))):
         _check(n, t, dev, f32, sh)
-    ok = aligned(ds, g, y)
-    chosen = k2a_lite_variant(ds.dtype, C, m2x2, m3, Wp, ok)
-    name = chosen if variant is None else variant
-    code = _variant_code("k2a_lite", name)
-    lib = library()
+    name, code = _k2a_lite_variant(ds, g, y, C, m2x2, m3, Wp, variant)
     iw = ih = ctypes.c_void_p(None)
-    if name == "mma":
-        if chosen != "mma":
-            raise ValueError(
-                f"k2a_lite: the mma variant takes bfloat16, C a multiple of {K1_MMA_SLICE} up "
-                f"to {K2A_LITE_MMA_MAX_C}, m3 in {K1_MMA_M3}, 2*m2 <= 32, Wp <= "
-                f"{K1_MMA_MAX_WP} and 16-byte aligned ds, g and y; got {ds.dtype}, C={C}, "
-                f"m3={m3}, 2*m2={m2x2}, Wp={Wp}, aligned={ok}")
-        if tables is None:
-            raise ValueError("k2a_lite: the mma variant needs the packed tables")
-        kw, nch = -(-Wp // 16) * 16, -(-Hp // K1_MMA_ROWS)
-        _check("iw", tables[0], dev, torch.bfloat16, (2 * m3, kw))
-        _check("ih", tables[1], dev, torch.bfloat16, (nch, -(-2 * m2x2 // 16) * 16, 16))
-        for n, t in (("iw", tables[0]), ("ih", tables[1])):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{n}: not 16-byte aligned")
-        if lib.fno_k2a_lite_mma_smem_bytes(Wp, m3, C) != k2a_lite_mma_smem_bytes(Wp, m3, C):
+    if name in _TC_DTYPES:
+        iw, ih = _wh_tables("k2a_lite", name, tables, dev, Hp, Wp, m2x2, m3)
+        if not _layouts_agree("k2a_lite", name, Wp, m3, C):
             raise RuntimeError("k2a_lite: the shared-memory layouts of kernels.py and "
                                "fno_k2a.cu differ")
-        iw, ih = _p(tables[0]), _p(tables[1])
     else:
         _check_k1_shape("k2a_lite", C, m2x2, m3)
     two = (2.0 * ds2).contiguous()
     dsc = (ds1 + two * bp).contiguous()
     wps = (wp * two[None, :]).contiguous()
     dg = torch.empty((BT, Y, 2 * C), dtype=ds.dtype, device=dev)
-    _launch("k2a_lite", lib.fno_k2a, dev, _p(ds), ctypes.c_void_p(None),
+    _launch("k2a_lite", library().fno_k2a, dev, _p(ds), ctypes.c_void_p(None),
             _p(g), _p(y), _p(dsc), _p(two), _p(wps), _p(alpha), _p(beta), _p(D),
             _p(A1), _p(ihr), _p(ihi), _p(iwr), _p(iwi), iw, ih, _p(dg), BT, Hp, Wp, C,
             m2x2, m3, 1, code, dt)

@@ -173,20 +173,20 @@ def test_shipped_configs_choose_the_redesigned_variants(scenario):
     """Every shipped FNO config (cylinder 4/12/16 at width 64, combustion
     4/16/16, fsi at width 128, ...) runs K1, K2, K2A-lite, K12B and K3B on the
     tensor cores and the T-stage from registers under bf16 compute; under f32
-    K2 and K12B on the tensor cores as 3xTF32 (their tf32 blocks fit at every
-    shipped width, fsi's 128 included) and the other kernels in exact f32, at
-    a 20-frame window padded to 26 and a grid up to 134 wide; K12B's fma
-    variant takes every width, fsi's 128 included."""
+    K1, K2, K2A-lite and K12B on the tensor cores as 3xTF32 (their tf32 blocks
+    fit at every shipped width, fsi's 128 included) and K3F and K3B in exact
+    f32, at a 20-frame window padded to 26 and a grid up to 134 wide; K12B's
+    fma variant takes every width, fsi's 128 included."""
     C, m1, m2, m3 = _fno_config(scenario)
     for Wp in (70, 134):
         assert kernels.k2_variant(torch.bfloat16, C, m3, Wp, 2 * m2) == "mma"
         assert kernels.k2_variant(torch.float32, C, m3, Wp, 2 * m2) == "tf32"
         assert kernels.k1_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
-        assert kernels.k1_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
+        assert kernels.k1_variant(torch.float32, C, 2 * m2, m3, Wp) == "tf32"
         assert kernels.k12b_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
         assert kernels.k12b_variant(torch.float32, C, 2 * m2, m3, Wp) == "tf32"
         assert kernels.k2a_lite_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
-        assert kernels.k2a_lite_variant(torch.float32, C, 2 * m2, m3, Wp) == "fma"
+        assert kernels.k2a_lite_variant(torch.float32, C, 2 * m2, m3, Wp) == "tf32"
         assert C <= 128 and 256 % C == 0      # K12B fma and the tail kernels
     F_ = 3 * 2   # the widest fc2 of the shipped windows (3 channels, 2 steps)
     assert kernels.k3b_variant(torch.bfloat16, C, F_) == "mma"
@@ -226,12 +226,14 @@ def test_a_view_at_an_odd_offset_chooses_the_unaligned_variants():
     ((torch.bfloat16, 64, 24, 12, 134), "fma"),    # m3 not instantiated
     ((torch.bfloat16, 64, 34, 16, 134), "fma"),    # more than 32 H modes
     ((torch.bfloat16, 64, 24, 16, 258), "fma"),    # Wp past 256
-    ((torch.float32, 64, 24, 16, 134), "fma"),     # exact f32 arithmetic
+    ((torch.float32, 64, 24, 16, 134), "tf32"),    # f32 on the tensor cores as 3xTF32
 ])
 def test_k1_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert kernels.k1_variant(*args) == want
     if want == "mma":
         assert kernels.k1_mma_smem_bytes(args[4], args[3]) <= kernels.MAX_SMEM_BYTES
+    if want == "tf32":
+        assert kernels.k1_tf32_smem_bytes(args[4], args[3]) <= kernels.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("args, want", [
@@ -294,10 +296,10 @@ def test_variant_counters_start_at_zero_and_reset():
     kernels.VARIANTS["k2"]["mma"] += 3
     kernels.LAUNCHES["k2"] += 3
     kernels.reset_launches()
-    assert kernels.VARIANTS == {"k1": {"fma": 0, "mma": 0},
+    assert kernels.VARIANTS == {"k1": {"fma": 0, "mma": 0, "tf32": 0},
                                 "t_stage": {"generic": 0, "registers": 0},
                                 "k2": {"fma": 0, "mma": 0, "tf32": 0},
-                                "k2a_lite": {"fma": 0, "mma": 0},
+                                "k2a_lite": {"fma": 0, "mma": 0, "tf32": 0},
                                 "k12b": {"fma": 0, "mma": 0, "tf32": 0},
                                 "k3f": {"fma": 0, "mma": 0},
                                 "k3b": {"fma": 0, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
@@ -570,14 +572,16 @@ def test_k12b_mma_replay_matches_pallas_k12b(act):
     ((torch.bfloat16, 64, 24, 12, 134), "fma"),    # m3 not instantiated
     ((torch.bfloat16, 64, 34, 16, 134), "fma"),    # more than 32 H modes
     ((torch.bfloat16, 64, 24, 16, 258), "fma"),    # Wp past 256
-    ((torch.float32, 64, 24, 16, 134), "fma"),     # exact f32 arithmetic
+    ((torch.float32, 64, 24, 16, 134), "tf32"),    # f32 on the tensor cores as 3xTF32
 ])
 def test_k2a_lite_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert kernels.k2a_lite_variant(*args) == want
     assert kernels.k2a_lite_variant(*args) == want   # no state
+    dtype, C, m2x2, m3, Wp = args
     if want == "mma":
-        dtype, C, m2x2, m3, Wp = args
         assert kernels.k2a_lite_mma_smem_bytes(Wp, m3, C) <= kernels.MAX_SMEM_BYTES
+    if want == "tf32":
+        assert kernels.k2a_lite_tf32_smem_bytes(Wp, m3, C) <= kernels.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("args, want", [
@@ -810,12 +814,17 @@ def _constexprs(name):
     ("fno_tf32.cuh", {"kTPad": "TF32_PAD", "kGC": "TF32_GC"}),
     ("fno_k2.cu", {"kXC": "K2_TF32_XC", "kPad": "K2_MMA_PAD"}),
     ("fno_k12b.cu", {"kTilePosT": "K12B_TF32_TILE"}),
+    ("fno_dft_mma.cuh", {"kWarps": "K1_MMA_ROWS", "kSlice": "K1_MMA_SLICE"}),
+    ("fno_dft_tf32.cuh", {"kPiece": "DFT_TF32_PIECE", "kEPad": "DFT_TF32_EPAD",
+                          "kXPad": "DFT_TF32_XPAD"}),
+    ("fno_k2a.cu", {"kWpsStride": "K2A_LITE_WPS_STRIDE",
+                    "kWpsStrideF": "K2A_LITE_TF32_WPS_STRIDE"}),
 ])
 def test_shared_memory_layout_constants_match_the_sources(source, pairs):
     """The constants kernels.py's ta_fwd_mma_smem_bytes,
     ta_bwd_mma_smem_bytes, gk_scores_mma_smem_bytes, k2_tf32_smem_bytes,
-    k12b_tf32_smem_bytes and k12b_tf32_dwp_smem_bytes lay their blocks out
-    with, against the sources' (the wrappers also hold the sizes against the
+    k12b_tf32_smem_bytes, k12b_tf32_dwp_smem_bytes, k1_tf32_smem_bytes and
+    the K2A-lite sizes lay their blocks out with, against the sources' (the wrappers also hold the sizes against the
     library's own ``*_smem_bytes`` before a launch)."""
     got = _constexprs(source)
     for c, py in pairs.items():

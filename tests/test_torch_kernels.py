@@ -439,9 +439,10 @@ def test_galerkin_scores_kernel_refuses_bad_input(cuda):
 
 
 K1_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
-    (3, 13, 22, 32, 5, 8),     # mma in bf16: two chunks of rows, the second short
-    (2, 17, 38, 64, 4, 16),    # mma at m3 16: Wp no multiple of 16
-    (2, 33, 20, 128, 16, 16),  # mma at C 128 and 2*m2 32 (fsi's widths)
+    (3, 13, 22, 32, 5, 8),     # mma in bf16, tf32 in f32: two chunks of rows, the second short
+    (2, 17, 38, 64, 4, 16),    # mma, tf32 at m3 16: Wp no multiple of 16, two ring pieces
+    (2, 33, 20, 128, 16, 16),  # mma, tf32 at C 128 and 2*m2 32 (fsi's widths)
+    (2, 9, 70, 16, 3, 16),     # one 16-channel slice; three ring pieces, the last of 6 rows
     (2, 10, 12, 8, 3, 4),      # fma in both dtypes: C below a 16-channel slice
     (2, 9, 20, 64, 3, 12),     # fma: m3 not instantiated
 ]
@@ -456,9 +457,9 @@ def _sums_close(got, ref, terms, tol=1e-4):
 @pytest.mark.parametrize("shape", K1_SHAPES)
 @pytest.mark.parametrize("act", ["none", "exact"])
 def test_k1_variants_match_twin(cuda, shape, dtype, act):
-    """K1 in the variant its dtype and shape choose, and in bf16 the fma
-    variant named on the same inputs, against the twin; two calls bit-equal;
-    the per-variant counters."""
+    """K1 in the variant its dtype and shape choose, and where that is mma or
+    tf32 the fma variant named on the same inputs, against the twin; two
+    calls bit-equal; the per-variant counters."""
     BT, Hp, Wp, C, m2, m3 = shape
     g = torch.Generator(device=cuda).manual_seed(8)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -466,16 +467,16 @@ def test_k1_variants_match_twin(cuda, shape, dtype, act):
     a, b = 1 + 0.1 * rn(C), 0.1 * rn(C)
     kw = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
     chosen = kernels.k1_variant(dtype, C, 2 * m2, m3, Wp)
-    assert chosen == ("mma" if dtype == torch.bfloat16 and C % 16 == 0 and m3 in (8, 16)
-                      else "fma")
+    tc = "mma" if dtype == torch.bfloat16 else "tf32"
+    assert chosen == (tc if C % 16 == 0 and m3 in (8, 16) else "fma")
     kernels.reset_launches()
     y = tfl.k1(x, a, b, **kw)
     ref = tfl.k1_plain(x, a, b, tfl._ct_on(cuda, Hp, Wp, m2, m3), Hp=Hp, Wp=Wp, act=act)
     torch.cuda.synchronize()
     _close(y, ref, dtype)
     assert torch.equal(y, tfl.k1(x, a, b, **kw))
-    want = {"fma": 0, "mma": 0, chosen: 2}
-    if chosen == "mma":
+    want = {"fma": 0, "mma": 0, "tf32": 0, chosen: 2}
+    if chosen == tc:
         _close(tfl.k1(x, a, b, **kw, variant="fma"), ref, dtype)
         want["fma"] = 1
     assert kernels.VARIANTS["k1"] == want and kernels.LAUNCHES["k1"] == sum(want.values())
@@ -596,8 +597,8 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
            torch.bfloat16)
     _close(tft.k3f(ds, *tail, **kw), tft.k3f_plain(ds, *tail, **kw), torch.float32)
     assert {k: dict(v) for k, v in kernels.VARIANTS.items()} == {
-        "k1": {"fma": 1, "mma": 0}, "t_stage": {"generic": 1, "registers": 0},
-        "k2": {"fma": 1, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 1, "mma": 0},
+        "k1": {"fma": 1, "mma": 0, "tf32": 0}, "t_stage": {"generic": 1, "registers": 0},
+        "k2": {"fma": 1, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 1, "mma": 0, "tf32": 0},
         "k12b": {"fma": 1, "mma": 0, "tf32": 0}, "k3f": {"fma": 1, "mma": 0},
         "k3b": {"fma": 1, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
         "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
@@ -650,9 +651,9 @@ def test_k1_and_k12b_variants_refuse_what_they_do_not_take(cuda):
 
 
 K2A_LITE_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
-    (3, 13, 22, 32, 5, 8),     # mma in bf16: two chunks of rows, the second short
-    (2, 17, 38, 64, 4, 16),    # mma at m3 16: Wp no multiple of 16
-    (2, 33, 38, 128, 16, 16),  # mma at C 128 and 2*m2 32 (fsi's widths)
+    (3, 13, 22, 32, 5, 8),     # mma in bf16, tf32 in f32: two chunks of rows, the second short
+    (2, 17, 38, 64, 4, 16),    # mma, tf32 at m3 16: Wp no multiple of 16
+    (2, 33, 38, 128, 16, 16),  # mma, tf32 at C 128 and 2*m2 32 (fsi's widths)
     (2, 10, 12, 8, 3, 4),      # fma in both dtypes: C below a 16-channel slice
     (2, 9, 26, 64, 3, 12),     # fma: m3 not instantiated
 ]   # each geometry passes the lite fit (fno_layer._lite_consts)
@@ -661,10 +662,10 @@ K2A_LITE_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", K2A_LITE_SHAPES)
 def test_k2a_lite_variants_match_twin(cuda, shape, dtype):
-    """K2A-lite in the variant its dtype and shape choose, and in bf16 the
-    fma variant named on the same inputs, against the twin and against K2A
-    on s = K2(g, x) (the identity the lite statics rest on); two calls
-    bit-equal; the per-variant counters."""
+    """K2A-lite in the variant its dtype and shape choose, and where that is
+    mma or tf32 the fma variant named on the same inputs, against the twin
+    and against K2A on s = K2(g, x) (the identity the lite statics rest on);
+    two calls bit-equal; the per-variant counters."""
     BT, Hp, Wp, C, m2, m3 = shape
     g = torch.Generator(device=cuda).manual_seed(12)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -677,8 +678,8 @@ def test_k2a_lite_variants_match_twin(cuda, shape, dtype):
     ds = rn(*s.shape).to(dtype)
     ds1, ds2 = rn(C), 0.1 * rn(C)
     chosen = kernels.k2a_lite_variant(dtype, C, 2 * m2, m3, Wp)
-    assert chosen == ("mma" if dtype == torch.bfloat16 and C % 16 == 0 and m3 in (8, 16)
-                      else "fma")
+    tc = "mma" if dtype == torch.bfloat16 else "tf32"
+    assert chosen == (tc if C % 16 == 0 and m3 in (8, 16) else "fma")
     cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
     kernels.reset_launches()
     got = tfl.k2a_lite(ds, gs, y, ds1, ds2, wp, bp, **geo)
@@ -688,8 +689,8 @@ def test_k2a_lite_variants_match_twin(cuda, shape, dtype):
     _close(got, ref, dtype)
     _close(got, tfl.k2a_plain(s, ds, ds1, ds2, cst, Hp=Hp, Wp=Wp), dtype)
     assert torch.equal(got, tfl.k2a_lite(ds, gs, y, ds1, ds2, wp, bp, **geo))
-    want = {"fma": 0, "mma": 0, chosen: 2}
-    if chosen == "mma":
+    want = {"fma": 0, "mma": 0, "tf32": 0, chosen: 2}
+    if chosen == tc:
         _close(tfl.k2a_lite(ds, gs, y, ds1, ds2, wp, bp, **geo, variant="fma"), ref, dtype)
         want["fma"] = 1
     assert kernels.VARIANTS["k2a_lite"] == want
@@ -1058,11 +1059,18 @@ def test_ta_fwd_and_gk_scores_variants_refuse_what_they_do_not_take(cuda):
 
 
 def test_mma_shared_memory_layouts_agree_with_the_library(cuda):
-    """kernels.py's block sizes of the TA, scores, K2 and K12B tensor-core
-    variants (K2's and K12B's mma and tf32), on which the variant functions
+    """kernels.py's block sizes of the TA, scores, K1, K2A-lite, K2 and K12B
+    tensor-core variants (mma and tf32), on which the variant functions
     decide, against the sources' own."""
     lib = kernels.library()
     for Wp in (22, 70, 134, 256):
+        for m3 in (8, 16):
+            for v in ("mma", "tf32"):
+                assert getattr(lib, f"fno_k1_{v}_smem_bytes")(Wp, m3) == \
+                    getattr(kernels, f"k1_{v}_smem_bytes")(Wp, m3), v
+                for C in (16, 64, 128):
+                    assert getattr(lib, f"fno_k2a_lite_{v}_smem_bytes")(Wp, m3, C) == \
+                        getattr(kernels, f"k2a_lite_{v}_smem_bytes")(Wp, m3, C), v
         for C in (32, 64, 128):
             for m2x2 in (6, 24, 32):
                 for m3 in (8, 16):
@@ -1098,4 +1106,31 @@ def test_k2_and_k12b_tf32_variants_refuse_what_they_do_not_take(cuda):
             tfl.k12b(x, v, v, wp, x, x, v, v, dy, **geo, act="none", variant="tf32")
         with pytest.raises(ValueError, match="tf32 variant"):
             tfl.k2(dy, x, v, v, wp, v, **geo, act="none", variant="tf32")
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_k1_and_k2a_lite_tf32_variants_refuse_what_they_do_not_take(cuda):
+    """A named tf32 variant on bfloat16, on a width or W mode count it is not
+    instantiated for, or on a misaligned view raises before any launch; so
+    does one without its tables."""
+    BT, Hp, Wp, C, m2, m3 = K2A_LITE_SHAPES[1]
+    kernels.reset_launches()
+    for dtype, Cx, m3x, offset in ((torch.bfloat16, C, m3, 0), (torch.float32, 8, m3, 0),
+                                   (torch.float32, C, 12, 0), (torch.float32, C, m3, 1)):
+        n = BT * Hp * Wp * Cx
+        x = torch.zeros(n + 8, device=cuda, dtype=dtype)[offset:offset + n].view(
+            BT, Hp * Wp // 2, 2 * Cx)
+        gy = torch.zeros(BT, 2 * m2 * m3x, 2 * Cx, device=cuda, dtype=dtype)
+        v, wp = torch.zeros(Cx, device=cuda), torch.zeros(Cx, Cx, device=cuda)
+        geo = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3x)
+        with pytest.raises(ValueError, match="tf32 variant"):
+            tfl.k1(x, v, v, **geo, act="none", variant="tf32")
+        with pytest.raises(ValueError, match="tf32 variant"):   # lite statics exist at m3 12
+            tfl.k2a_lite(x, gy, gy, v, v, wp, v, **geo, variant="tf32")
+    x = torch.zeros(BT, Hp * Wp // 2, 2 * C, device=cuda)
+    v = torch.zeros(C, device=cuda)
+    cst = tfl._ct_on(cuda, Hp, Wp, m2, m3)
+    with pytest.raises(ValueError, match="packed tables"):
+        kernels.k1(x, v, v, cst["ewr"], cst["ewi"], cst["ehr"], cst["ehi"], Hp=Hp, Wp=Wp,
+                   act="none", variant="tf32")
     assert not any(kernels.LAUNCHES.values())

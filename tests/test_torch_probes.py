@@ -33,8 +33,9 @@ def test_source_patches_find_their_anchors(tools, probe, source):
 
 
 def test_tf32_probe_patches_find_their_anchors(tools):
-    header = (kernels.CSRC / "fno_tf32.cuh").read_text()
-    for name, (source, hpatch, spatch, _) in tools("torch_tf32_probe").VARIANTS.items():
+    probe = tools("torch_tf32_probe")
+    for name, (source, hpatch, spatch, _) in probe.VARIANTS.items():
+        header = (kernels.CSRC / probe.HEADER[source]).read_text()
         text = (kernels.CSRC / source).read_text()
         changed = spatch(text) != text or (hpatch is not None and hpatch(header) != header)
         assert changed or "as_is" in name, name

@@ -1,4 +1,5 @@
-"""The tf32 variants of the port's K2 and K12B, as far as the CPU shows.
+"""The tf32 variants of the port's K1, K2, K2A-lite and K12B, as far as the
+CPU shows.
 
 The kernels run only on the card (tests/test_torch_kernels.py, marker
 ``gpu``). Here: the host side of the variants that carry f32 tensors
@@ -6,11 +7,13 @@ through the tensor cores as 3xTF32 (each f32 operand a tf32 hi + lo pair,
 hi·hi + hi·lo + lo·hi, the lo·lo term dropped): the tf32 split, the f32
 DFT tables, each kernel's arithmetic replayed in plain PyTorch with its
 splits, its rounding points (the f32 values it keeps in shared memory) and
-its erf (Abramowitz & Stegun 7.1.26, |error| <= 3e-7), summed in f64, against the twin's arithmetic in f64 (1e-5·max|ref| for s
-and dx, 1e-6 of the sum of |terms| for the statistics and for dWp, da, db
-and dbp) and against the Pallas kernels in interpret mode (rtol 2e-4, atol
-2e-4·max|ref|); the choice of variant at the shipped geometries and at the
-shapes it refuses; a named tf32 variant refused before anything is built.
+its erf (Abramowitz & Stegun 7.1.26, |error| <= 3e-7), summed in f64, against
+the twin's arithmetic in f64 (1e-5·max|ref| for s, dx, y and dg, 1e-6 of the
+sum of |terms| for the statistics and for dWp, da, db and dbp) and against
+the Pallas kernels in interpret mode (rtol 2e-4, atol 2e-4·max|ref|); the
+choice of variant at the shipped geometries and at the shapes it refuses;
+the blocks' shared memory; a named tf32 variant refused before anything is
+built.
 """
 
 import math
@@ -19,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from realpdebench_tpu.ops.pallas import fno_layer as jfl
 from realpdebench_tpu_torch.ops import fno_layer as tfl
@@ -120,7 +124,10 @@ def _erf_fast(v):
 
 
 def _act_fast(u, act):
-    """fno::affine_act_fast on u = a·x + b (f32)."""
+    """fno::affine_act_fast on u = a·x + b (f32): the exact GELU through the
+    kernels' erf; the tanh form as fno::affine_act computes it."""
+    if act == "tanh":
+        return gelu(u, "tanh")
     return u if act == "none" else 0.5 * u * (1.0 + _erf_fast(u * math.sqrt(0.5)))
 
 
@@ -364,6 +371,209 @@ def test_k12b_tf32_replay_matches_pallas_k12b(act):
 
 
 # --------------------------------------------------------------------------
+# K1 and K2A-lite: the (W, H) DFT body of csrc/fno_dft_tf32.cuh
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2a_lite"])
+@pytest.mark.parametrize("geo", GEOMETRIES)
+def test_k1_and_k2a_lite_tf32_tables_hold_the_dft_tables(kernel, geo):
+    """The f32 tables the tf32 variants are handed (``_k1_tables_on``,
+    ``_k2a_tables_on``): the W table's rows are K1's forward factors (ewr,
+    ewi as columns of w) or K2's inverse ones (iwr, iwi); the H table's row j
+    gives Re Y_j from k = (re | im, r) as [hr | −hi], row 2m2 + j gives Im Y_j
+    as [hi | hr], with (hr, hi) = (ehr, ehi) for K1 and (ihrᵀ, −ihiᵀ), the
+    adjoint's signs, for K2A-lite; zeros in the padding; every entry as the
+    f32 factor, unrounded."""
+    Hp, Wp, m2, m3, _ = geo
+    c = tfl._ct_consts(Hp, Wp, m2, m3)
+    build = tfl._k1_tables_on if kernel == "k1" else tfl._k2a_tables_on
+    w, h = (t.numpy() for t in build(torch.device("cpu"), Hp, Wp, m2, m3, "tf32"))
+    nch, R, kw = -(-Hp // 8), -(-4 * m2 // 16) * 16, -(-Wp // 16) * 16
+    assert w.dtype == h.dtype == np.float32
+    assert w.shape == (2 * m3, kw) and h.shape == (nch, R, 16)
+    if kernel == "k1":
+        wr, wi, hr, hi = c["ewr"].T, c["ewi"].T, c["ehr"], c["ehi"]
+    else:
+        wr, wi, hr, hi = c["iwr"], c["iwi"], c["ihr"].T, -c["ihi"].T
+    np.testing.assert_array_equal(w[:m3, :Wp], wr)
+    np.testing.assert_array_equal(w[m3:, :Wp], wi)
+    assert not w[:, Wp:].any()
+    for hh in range(nch * 8):
+        e, r = h[hh // 8], hh % 8
+        want = (hr[hh], hi[hh]) if hh < Hp else (np.zeros(2 * m2),) * 2
+        np.testing.assert_array_equal(e[:2 * m2, r], want[0])
+        np.testing.assert_array_equal(e[:2 * m2, 8 + r], -want[1])
+        np.testing.assert_array_equal(e[2 * m2:4 * m2, r], want[1])
+        np.testing.assert_array_equal(e[2 * m2:4 * m2, 8 + r], want[0])
+    assert not h[:, 4 * m2:].any()
+
+
+def _wh_replay(v, tables, *, Hp, Wp, m2, m3):
+    """The tf32 (W, H) DFT body in plain PyTorch from its f32 tables: v
+    [BT, Hp, Wp, C] (f32, as the kernel holds it before the split) through
+    the W product with EW on tf32 pairs, X rounded to f32 (the kernel keeps
+    it in shared memory) into [16, m3·16] tiles of 8 rows, the H fold with
+    EH chunk by chunk on pairs, summed in f64; Y [BT, 2m2·m3, 2C] in f64."""
+    BT, C = v.shape[0], v.shape[-1]
+    ew, eh = tables
+    X = _x3("rw,bhwc->bhrc", _pair(ew[:, :Wp]), _pair(v)).float()   # rows r = (re | im, m)
+    nch = eh.shape[0]
+    X = F.pad(X, (0, 0, 0, 0, 0, nch * 8 - Hp))                    # [BT, nch*8, 2*m3, C]
+    X = X.view(BT, nch, 8, 2, m3, C).transpose(2, 3).reshape(BT, nch, 16, m3, C)
+    Y = _x3("nRk,bnkmc->bRmc", _pair(eh), _pair(X))[:, :4 * m2]      # rows (re | im, j)
+    return Y.view(BT, 2, 2 * m2, m3, C).permute(0, 2, 3, 1, 4).reshape(BT, -1, 2 * C)
+
+
+def _replay_k1_tf32(x, a, b, *, Hp, Wp, m2, m3, act):
+    """K1's tf32 variant: z = act(a·x + b) in f32 (the kernel's erf), then
+    the body on K1's f32 tables; y in f64."""
+    BT, C = x.shape[0], x.shape[-1] // 2
+    z = _act_fast(x.float().view(BT, Hp, Wp, C) * a + b, act)
+    tables = tfl._k1_tables_on(torch.device("cpu"), Hp, Wp, m2, m3, "tf32")
+    return _wh_replay(z, tables, Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+
+
+def _k1_twin64(x, a, b, geo, act):
+    """k1_plain's arithmetic in f64."""
+    Hp, Wp, m2, m3 = geo
+    c = {k: torch.from_numpy(v).double() for k, v in tfl._ct_consts(*geo).items()}
+    BT, C = x.shape[0], x.shape[-1] // 2
+    return tfl.k1_plain(x.double(), a.double(), b.double(), c, Hp=Hp, Wp=Wp, act=act)
+
+
+def _k1_inputs(Hp, Wp, BT, C, seed):
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0, loc=0.0: torch.from_numpy(
+        (loc + scale * r.normal(size=s)).astype(np.float32))
+    return f(BT, Hp * Wp // 2, 2 * C), f(C, scale=0.1, loc=1.0), f(C, scale=0.1)
+
+
+@pytest.mark.parametrize("act", ["none", "exact", "tanh"])
+@pytest.mark.parametrize("geo", GEOMETRIES)
+def test_k1_tf32_replay_matches_twin(geo, act):
+    """The replay against the twin's arithmetic in f64: y within 1e-5 of
+    max|ref|, ten times inside KERNEL_TOL: z, the tables and X each carry
+    22 bits, X's f32 rounding 24."""
+    Hp, Wp, m2, m3, C = geo
+    x, a, b = _k1_inputs(Hp, Wp, 2 if Hp > 20 else 3, C, seed=31)
+    got = _replay_k1_tf32(x, a, b, Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    ref = _k1_twin64(x, a, b, (Hp, Wp, m2, m3), act)
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("act", ["none", "exact"])
+def test_k1_tf32_replay_matches_pallas_k1(act):
+    """The replay against the Pallas ``_k1_kernel`` in interpret mode (f32,
+    the dims of tests/test_pallas_fno_layer.py), rtol 2e-4."""
+    B, Tp, Hp, Wp, C, m2, m3 = 2, 6, 10, 12, 8, 3, 4
+    x, a, b = _k1_inputs(Hp, Wp, B * Tp, C, seed=32)
+    n = lambda t: jnp.asarray(t.numpy())
+    cst = jfl._ct_consts(Hp, Wp, m2, m3)
+    a2, b2 = jfl._pack_affine(n(a)[None], n(b)[None], C)
+    k1, *_ = jfl._layer_calls(B * Tp, Hp, Wp // 2, 2 * C, m2, m3, act, True, "float32")
+    ref = np.asarray(k1(n(x), a2, b2, cst["E67X"], cst["EhP"],
+                        np.ones((Hp * Wp // 2, 1), np.float32)))
+    got = _replay_k1_tf32(x, a, b, Hp=Hp, Wp=Wp, m2=m2, m3=m3, act=act)
+    _assert_close_to_pallas("_k1_kernel / y", got.float().numpy(), ref)
+
+
+def _k2a_lite_inputs(Hp, Wp, m2, m3, BT, C, seed):
+    r = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0, loc=0.0: torch.from_numpy(
+        (loc + scale * r.normal(size=s)).astype(np.float32))
+    Y = 2 * m2 * m3
+    return dict(ds=f(BT, Hp * Wp // 2, 2 * C), g=f(BT, Y, 2 * C), y=f(BT, Y, 2 * C, scale=3.0),
+                ds1=f(C), ds2=f(C, scale=0.1), wp=f(C, C, scale=0.3), bp=f(C, scale=0.1))
+
+
+_K2A_ARGS = ("ds", "g", "y", "ds1", "ds2", "wp", "bp")
+
+
+def _replay_k2a_lite_tf32(ds, g, y, ds1, ds2, wp, bp, *, Hp, Wp, m2, m3):
+    """K2A-lite's tf32 variant: A(ds) through the body on the adjoint's f32
+    tables, then the epilogue with the wrapper's f32 folds (two = 2·ds2,
+    dsc = ds1 + two·bp, wps = wp·two): y @ wps on tf32 pairs, the
+    elementwise terms; dg in f64."""
+    BT, C = ds.shape[0], ds.shape[-1] // 2
+    geo = (Hp, Wp, m2, m3)
+    tables = tfl._k2a_tables_on(torch.device("cpu"), *geo, "tf32")
+    A = _wh_replay(ds.float().view(BT, Hp, Wp, C), tables, Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    Y = A.shape[1]
+    lite = {k: torch.from_numpy(v).double()[..., None] for k, v in tfl._lite_consts(*geo).items()}
+    two = 2.0 * ds2
+    dsc, wps = ds1 + two * bp, wp * two[None, :]
+    g4 = g.double().view(BT, Y, 2, C)
+    mir = torch.from_numpy(tfl._kh_mirror(m2, m3))
+    yw = _x3("byrk,kc->byrc", _pair(y.view(BT, Y, 2, C)), _pair(wps))
+    dg = (A.view(BT, Y, 2, C) + two.double() * (lite["alpha"] * g4 + lite["beta"] * g4[:, mir])
+          + lite["D"] * yw + dsc.double() * lite["A1"])
+    return dg.reshape(BT, Y, 2 * C)
+
+
+def _k2a_lite_twin64(d, geo):
+    """k2a_lite_plain's arithmetic in f64 (the lite statics as the f32
+    arrays both sides read)."""
+    Hp, Wp, m2, m3 = geo
+    d = {k: t.double() for k, t in d.items()}
+    cst = {k: torch.from_numpy(v).double() for k, v in tfl._ct_consts(*geo).items()}
+    col = {k: torch.from_numpy(v).double()[..., None] for k, v in tfl._lite_consts(*geo).items()}
+    BT, C = d["ds"].shape[0], d["ds"].shape[-1] // 2
+    Y = 2 * m2 * m3
+    dg = tfl._adjoint_inverse(d["ds"].view(BT, Hp, Wp, C), cst).view(BT, Y, 2, C)
+    g4 = d["g"].view(BT, Y, 2, C)
+    mir = torch.from_numpy(tfl._kh_mirror(m2, m3))
+    As = (col["alpha"] * g4 + col["beta"] * g4[:, mir]
+          + (col["D"] * d["y"].view(BT, Y, 2, C)) @ d["wp"] + d["bp"] * col["A1"])
+    return (dg + d["ds1"] * col["A1"] + 2.0 * d["ds2"] * As).reshape(BT, Y, 2 * C)
+
+
+# GEOMETRIES with, at C 128, one that has lite statics (at Hp 9, Wp 20 the
+# structure fit rejects m3 16, and the layer runs K2A)
+K2A_LITE_GEOMETRIES = GEOMETRIES[:3] + [(33, 38, 16, 16, 128)]
+
+
+@pytest.mark.parametrize("geo", K2A_LITE_GEOMETRIES)
+def test_k2a_lite_tf32_replay_matches_twin(geo):
+    """The replay against the twin's arithmetic in f64: dg within 1e-5 of
+    max|ref|, ten times inside KERNEL_TOL."""
+    Hp, Wp, m2, m3, C = geo
+    d = _k2a_lite_inputs(Hp, Wp, m2, m3, 2 if Hp > 20 else 3, C, seed=33)
+    got = _replay_k2a_lite_tf32(*(d[k] for k in _K2A_ARGS), Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    ref = _k2a_lite_twin64(d, (Hp, Wp, m2, m3))
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_k2a_lite_tf32_replay_matches_pallas_k2a_lite():
+    """The replay against the Pallas ``_k2a_lite_kernel`` in interpret mode
+    (f32, the dims of tests/test_pallas_fno_layer.py), rtol 2e-4."""
+    B, Tp, Hp, Wp, C, m2, m3 = 2, 6, 10, 12, 8, 3, 4
+    J, Y = Wp // 2, 2 * m2 * m3
+    d = _k2a_lite_inputs(Hp, Wp, m2, m3, B * Tp, C, seed=34)
+    n = lambda k: d[k].numpy()
+    lanes = lambda v: jnp.asarray(np.concatenate([v, v])[None])
+    cst = jfl._ct_consts(Hp, Wp, m2, m3)
+    eyeC, zC = np.eye(C, dtype=np.float32), np.zeros((C, C), np.float32)
+    sel = (np.concatenate([eyeC, zC], axis=0), np.concatenate([zC, eyeC], axis=0))
+    _, _, k2a_lite, _ = jfl._layer_calls(B * Tp, Hp, J, 2 * C, m2, m3, "none", True,
+                                         "float32", False, (1, 1, 1, 1), None, True, True)
+    alpha, beta, Dv, A1v = jfl._lite_consts(Hp, Wp, m2, m3)
+    lane = lambda v: np.ascontiguousarray(np.concatenate(
+        [np.broadcast_to(v[:, 0:1], (Y, C)), np.broadcast_to(v[:, 1:2], (Y, C))], axis=1),
+        np.float32)
+    two = 2.0 * lanes(n("ds2"))
+    dsc = jnp.concatenate([lanes(n("ds1")) + two * lanes(n("bp")), two], axis=0)
+    wp2s = jfl._block_diag2(jnp.asarray(n("wp"))) * two[0][None, :]
+    ref = np.asarray(k2a_lite(jnp.asarray(n("ds")), jnp.asarray(n("g")), jnp.asarray(n("y")),
+                              dsc, wp2s, cst["IhPT"], cst["IwET"], cst["IwOT"], *sel,
+                              lane(alpha), lane(beta), lane(A1v), lane(Dv)))
+    got = _replay_k2a_lite_tf32(*(d[k] for k in _K2A_ARGS), Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+    _assert_close_to_pallas("_k2a_lite_kernel / dg", got.float().numpy(), ref)
+
+
+# --------------------------------------------------------------------------
 # the choice
 # --------------------------------------------------------------------------
 
@@ -411,6 +621,54 @@ def test_k12b_tf32_variant_is_a_pure_function_of_dtype_and_shape(args, want):
         assert kernels.k12b_tf32_dwp_smem_bytes(C) <= kernels.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("kernel", ["k1", "k2a_lite"])
+@pytest.mark.parametrize("args, want", [
+    ((torch.float32, 64, 24, 16, 134), "tf32"),    # the cylinder
+    ((torch.float32, 64, 32, 16, 134), "tf32"),    # combustion's modes 4/16/16
+    ((torch.float32, 128, 32, 16, 134), "tf32"),   # fsi's width 128
+    ((torch.float32, 32, 10, 8, 22), "tf32"),      # the gpu tests' small shapes
+    ((torch.float32, 16, 6, 8, 12), "tf32"),       # one 16-channel slice
+    ((torch.float32, 64, 24, 16, 256), "tf32"),    # the widest W
+    ((torch.float32, 64, 24, 16, 258), "fma"),     # Wp past 256
+    ((torch.float32, 8, 6, 4, 12), "fma"),         # C below a slice
+    ((torch.float32, 40, 6, 8, 12), "fma"),        # C no multiple of 16
+    ((torch.float32, 64, 24, 12, 134), "fma"),     # m3 not instantiated
+    ((torch.float32, 64, 34, 16, 134), "fma"),     # more than 32 H modes
+    ((torch.bfloat16, 64, 24, 16, 134), "mma"),    # bf16 keeps its variant
+])
+def test_k1_and_k2a_lite_tf32_variant_is_a_pure_function_of_dtype_and_shape(kernel, args, want):
+    choose = kernels.k1_variant if kernel == "k1" else kernels.k2a_lite_variant
+    assert choose(*args) == want
+    assert choose(*args) == want                   # no state
+    assert choose(*args, aligned=False) == "fma"
+    dtype, C, m2x2, m3, Wp = args
+    if want == "tf32":
+        size = (kernels.k1_tf32_smem_bytes(Wp, m3) if kernel == "k1"
+                else kernels.k2a_lite_tf32_smem_bytes(Wp, m3, C))
+        assert size <= kernels.MAX_SMEM_BYTES
+
+
+def test_k2a_lite_tf32_variant_takes_widths_up_to_128():
+    """K2A-lite's slice of wps grows with C: the tf32 variant stops at 128,
+    as the mma one does; K1's takes wider."""
+    assert kernels.k2a_lite_variant(torch.float32, 256, 24, 16, 134) == "fma"
+    assert kernels.k1_variant(torch.float32, 256, 24, 16, 134) == "tf32"
+
+
+def test_k1_and_k2a_lite_tf32_blocks_fit_twice_an_sm():
+    """At m3 16, Wp 134: K1's tf32 block takes 102528 bytes (EW's tf32 pair
+    35840, two X tiles 33792, the rings of 32-row pieces 32768; rings of
+    whole f32 rows would take 147456 alone), K2A-lite's 107136 at C 64 and
+    111744 at fsi's C 128 (the wps slice in f32): two blocks (16 warps) an
+    SM at both widths (228 KB, 1 KB reserved a block)."""
+    assert kernels.k1_tf32_smem_bytes(134, 16) == 102528
+    assert kernels.k2a_lite_tf32_smem_bytes(134, 16, 64) == 107136
+    assert kernels.k2a_lite_tf32_smem_bytes(134, 16, 128) == 111744
+    assert 8 * 2 * 144 * 16 * 4 == 147456
+    for size in (102528, 107136, 111744):
+        assert 2 * (size + 1024) <= 228 * 1024
+
+
 def test_tf32_blocks_fit_twice_an_sm_at_the_cylinder_width():
     """At C 64, m3 16, 2·m2 24, Wp 134: K2's tf32 block takes 109312 bytes
     (ih; then Wpᵀ's tf32 pair and the x ring of 16-channel stages where the
@@ -429,6 +687,14 @@ def test_tf32_blocks_fit_twice_an_sm_at_the_cylinder_width():
 
 
 @pytest.mark.parametrize("kernel, dtype, C, m3, offset", [
+    ("k1", torch.bfloat16, 64, 16, 0),     # bf16
+    ("k1", torch.float32, 8, 16, 0),       # C below a 16-channel slice
+    ("k1", torch.float32, 64, 12, 0),      # m3 not instantiated
+    ("k1", torch.float32, 64, 16, 1),      # x 4 bytes past a 16-byte boundary
+    ("k2a_lite", torch.bfloat16, 64, 16, 0),
+    ("k2a_lite", torch.float32, 256, 16, 0),   # C past 128
+    ("k2a_lite", torch.float32, 64, 12, 0),
+    ("k2a_lite", torch.float32, 64, 16, 1),    # ds misaligned
     ("k2", torch.bfloat16, 64, 16, 0),     # bf16
     ("k2", torch.float32, 16, 16, 0),      # C not instantiated
     ("k2", torch.float32, 64, 12, 0),      # m3 not instantiated
@@ -447,10 +713,10 @@ def test_a_named_tf32_variant_refuses_what_it_does_not_take(kernel, dtype, C, m3
     x = torch.zeros(n + 8, dtype=dtype)[offset:offset + n].view(BT, Hp * Wp // 2, 2 * C)
     dy = torch.zeros(BT, 2 * m2 * m3, 2 * C, dtype=dtype)
     wp = torch.zeros(C, C)
-    if kernel == "k2":
-        pick = lambda v: kernels._k2_variant(dy, x, wp, C, m3, Wp, 2 * m2, v)
-    else:
-        pick = lambda v: kernels._k12b_variant(x, x, x, dy, C, 2 * m2, m3, Wp, v)
+    pick = {"k1": lambda v: kernels._k1_variant(x, C, 2 * m2, m3, Wp, v),
+            "k2a_lite": lambda v: kernels._k2a_lite_variant(x, dy, dy, C, 2 * m2, m3, Wp, v),
+            "k2": lambda v: kernels._k2_variant(dy, x, wp, C, m3, Wp, 2 * m2, v),
+            "k12b": lambda v: kernels._k12b_variant(x, x, x, dy, C, 2 * m2, m3, Wp, v)}[kernel]
     with pytest.raises(ValueError, match="tf32 variant takes float32"):
         pick("tf32")
     with pytest.raises(ValueError, match="no variant"):
