@@ -27,23 +27,23 @@ JSON line each; any failure raises (non-zero exit, no result line):
                queued launches (see queued_ms).
   4. backward  the backward and tail kernels, K2A-lite, K2A, K12B, K3F and
                K3B (K2A-lite's, K12B's, K3F's and K3B's mma variants in
-               bfloat16 and, named, their fma ones, each also against the
-               other; K2A-lite's and K12B's tf32 variants in float32 and,
-               named, their fma ones, each also against the other; K1's and
-               K2's tf32 and fma ones in float32 at this width too), and the
+               bfloat16 and tf32 variants in float32 and, named, their fma
+               ones, each also against the other; K1's and K2's tf32 and
+               fma ones in float32 at this width too), and the
                T-stage adjoints (et_adj, it_adj), against
                their twins at the training width (B·Tp=832: the f32 twins
                fit the card's memory), in float32 and bfloat16; K2A-lite
                against K2A; two K1 (f32), K2A-lite, K12B, K3F and K3B calls
                bit-equal; K1's, K2's, K2A-lite's, K12B's, K3F's and K3B's
-               times at this width as device times of queued launches (K1's,
-               K2's, K2A-lite's and K12B's fma variants beside their chosen
-               ones in both dtypes), the others CUDA-event medians.
+               times at this width as device times of queued launches (the
+               fma variants of these six beside their chosen ones in both
+               dtypes), the others CUDA-event medians.
   4b. geometry every FNO kernel against its twin at the other shipped
                geometries (combustion: width 64, fsi: width 128, modes
                4/16/16) at the cylinder's windows and padding, batch 2, in
-               both dtypes (K1, K2, K2A-lite and K12B mma in bfloat16, tf32
-               in float32, asserted: every shipped geometry takes it), and
+               both dtypes (K1, K2, K2A-lite, K12B, K3F and K3B mma in
+               bfloat16, tf32 in float32, asserted: every shipped geometry
+               takes it), and
                which of K2A-lite and K2A each takes.
   5. slice     the cylinder FNO3d at the benchmark configuration (width 64,
                4 layers, bf16 compute, seeded random weights) rolled out 10
@@ -69,16 +69,16 @@ JSON line each; any failure raises (non-zero exit, no result line):
   7. profile   torch.profiler over three more training steps: device time
                by kernel, the host's wall time, the device's idle share.
   7a. train_f32 phases 6-7 for the same step as the shipped config runs
-               it, in float32 (compute_dtype null): K1, K2, K2A-lite and
-               K12B in their tf32 variants, K3F and K3B in their fma ones
-               (the T-stage registers), the loss, every gradient
+               it, in float32 (compute_dtype null): K1, K2, K2A-lite,
+               K12B, K3F and K3B in their tf32 variants (the T-stage
+               registers), the loss, every gradient
                and the running statistics against the plain f32 step within
                F32_LIMITS (1e-5 relative; 1e-4 relative L2); then its
                profile (train_f32_profile).
   7b. fsi_train the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16,
                batch 32, Gaussian normalizer) trained in float32 (the
-               config's dtype; K1, K2, K2A-lite and K12B tf32 at width 128
-               too) and
+               config's dtype; every FNO kernel but the T-stage tf32 at
+               width 128 too) and
                bfloat16: one counted step each (exact
                launch and variant counts), the loss and every gradient
                against the plain f32 step at batch 2, two passes bit-equal,
@@ -199,7 +199,7 @@ its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
 495 TFLOP/s TF32 tensor cores for the tf32 variants, 67 TFLOP/s FP32), from
 the published H100 SXM figures at 700 W. Then the per-kernel summary line
 (launches by path, and by variant for the kernels that have variants; the
-f32 route of K1, K2, K2A-lite and K12B under "tf32", K1's and K2's also under
+f32 route of K1, K2, K2A-lite, K12B, K3F and K3B under "tf32", K1's and K2's also under
 "train_width_tf32"), and the last line {"ok": true, "device": {...}}.
 
 The port imports neither JAX nor the JAX package; neither does this script.
@@ -749,7 +749,7 @@ def phase_backward(dev) -> dict:
         x = rn(BT, HP * WP // 2, 2 * C).to(dtype)
         a, b = 1 + 0.1 * rn(C), 0.1 * rn(C)
         wp, bp = rn(C, C) / C ** 0.5, 0.1 * rn(C)
-        tc = "mma" if dtype == torch.bfloat16 else "tf32"   # K1's, K2's, K2A-lite's, K12B's
+        tc = "mma" if dtype == torch.bfloat16 else "tf32"   # K1, K2, K2A-lite, K12B, K3F, K3B
         k1 = lambda **kw: fl.k1(x, a, b, **geo, act="exact", **kw)
         y = run_as("k1", tc, k1)
         rows, times, work, library, single = [], {}, {}, {}, {}
@@ -825,7 +825,6 @@ def phase_backward(dev) -> dict:
         k2l = lambda **kw: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo, **kw)
         k2l_p = lambda: fl.k2a_lite_plain(ds, gsp, y, ds1, ds2, wp, bp, lite, cst,
                                           Hp=HP, Wp=WP)
-        chosen = "mma" if dtype == torch.bfloat16 else "fma"   # K3F's and K3B's
         full, lite_dg = k2a(), run_as("k2a_lite", tc, k2l)
         lite_ref = k2l_p()
         rows.append(compare("k2a/dg", full, k2a_p(), tol))
@@ -888,42 +887,43 @@ def phase_backward(dev) -> dict:
         k3f_p = lambda: ft.k3f_plain(s, *tail, **kw)
         k3b = lambda **kv: ft.k3b(s, *tail, gl, **kw, **kv)
         k3b_p = lambda: ft.k3b_plain(s, *tail, gl, **kw)
-        sse, sse_ref = run_as("k3f", chosen, k3f), k3f_p()
+        # K3F and K3B in the variant chosen (mma in bf16, tf32 in f32) and,
+        # named, the fma one on the same inputs: against the twin and against
+        # each other; two calls of the chosen one bit-equal
+        sse, sse_ref = run_as("k3f", tc, k3f), k3f_p()
         rows.append(compare_sums("k3f/sse", sse, sse_ref, sse_ref))
         if not torch.equal(sse, k3f()):
             raise AssertionError(f"two identical k3f calls differ ({dtype})")
-        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
-            sse_fma = run_as("k3f", "fma", lambda: k3f(variant="fma"))
-            rows += [compare_sums("k3f_fma/sse", sse_fma, sse_ref, sse_ref),
-                     compare_sums("k3f/vs_fma", sse, sse_fma, sse_ref)]
-        got, ref = run_as("k3b", chosen, k3b), k3b_p()
+        sse_fma = run_as("k3f", "fma", lambda: k3f(variant="fma"))
+        rows += [compare_sums("k3f_fma/sse", sse_fma, sse_ref, sse_ref),
+                 compare_sums("k3f/vs_fma", sse, sse_fma, sse_ref)]
+        got, ref = run_as("k3b", tc, k3b), k3b_p()
         if not all(torch.equal(u, w) for u, w in zip(got, k3b())):
             raise AssertionError(f"two identical k3b calls differ ({dtype})")
-        held = [("k3b", got)]
-        if dtype == torch.bfloat16:   # the fma variant, named, on the same inputs
-            held.append(("k3b_fma", run_as("k3b", "fma", lambda: k3b(variant="fma"))))
+        held = [("k3b", got), ("k3b_fma", run_as("k3b", "fma", lambda: k3b(variant="fma")))]
         # the tail reads only the crop of s; fc1 and fc2 per position, three
         # of each in the backward (recompute, data and weight gradients)
         npos, crop = B * T * H * W, B * T * H * W * C * s.element_size()
         fc = npos * (2 * C * tail[1].shape[1] + 2 * tail[3].shape[0] * F)
-        work["k3f"] = bound(crop + nbytes(*tail, sse), fc, dtype)
-        work["k3b"] = bound(crop + nbytes(*tail, gl, *got), 3 * fc, dtype)
-        work["k3f_fma"], work["k3b_fma"] = work["k3f"], work["k3b"]
+        k3f_work = (crop + nbytes(*tail, sse), fc, dtype)
+        k3b_work = (crop + nbytes(*tail, gl, *got), 3 * fc, dtype)
+        work["k3f"], work["k3f_fma"] = bound(*k3f_work, tc), bound(*k3f_work)
+        work["k3b"], work["k3b_fma"] = bound(*k3b_work, tc), bound(*k3b_work)
         terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
         for kname, gk in held:
             rows.append(compare(f"{kname}/ds", gk[0], ref[0], tol))
             for name, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), gk[1:], ref[1:], terms):
                 rows.append(compare_sums(f"{kname}/{name}", gv, rv, tv))
+        rows.append(compare(f"k3b_fma/vs_{tc}/ds", held[1][1][0], got[0], tol))
+        for name, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), held[1][1][1:], got[1:], terms):
+            rows.append(compare_sums(f"k3b_fma/vs_{tc}/{name}", gv, rv, tv))
         del got, ref, terms, held
         times["k3f"] = (queued_ms([k3f], n=8, reps=5), cuda_ms(k3f_p, reps=5))
         single["k3f"] = cuda_ms(k3f, reps=10)
         times["k3b"] = (queued_ms([k3b], n=8, reps=5), cuda_ms(k3b_p, reps=5))
         single["k3b"] = cuda_ms(k3b, reps=10)
-        if dtype == torch.bfloat16:
-            times["k3f_fma"] = (queued_ms([lambda: k3f(variant="fma")], n=4, reps=3),
-                                times["k3f"][1])
-            times["k3b_fma"] = (queued_ms([lambda: k3b(variant="fma")], n=4, reps=3),
-                                times["k3b"][1])
+        times["k3f_fma"] = (queued_ms([lambda: k3f(variant="fma")], n=4, reps=3), times["k3f"][1])
+        times["k3b_fma"] = (queued_ms([lambda: k3b(variant="fma")], n=4, reps=3), times["k3b"][1])
         torch.cuda.synchronize()
         emit(dict(phase="backward", dtype=str(dtype).replace("torch.", ""),
                   shapes=dict(BT=BT, Hp=HP, Wp=WP, C=C, modes=[M1, M2, M3],
@@ -934,7 +934,8 @@ def phase_backward(dev) -> dict:
                                    for k, v in times.items()}))
         if dtype == torch.float32:   # the f32 route of the tf32 kernels, for the summary line
             tf32 = {k: tf32_entry(k, [r for r in rows if r["name"].startswith(k + "/")], times,
-                                  work, single) for k in ("k1", "k2", "k2a_lite", "k12b")}
+                                  work, single)
+                    for k in ("k1", "k2", "k2a_lite", "k12b", "k3f", "k3b")}
         if dtype == torch.bfloat16:
             summary["k2_train_width"] = dict(ms=times["k2"][0], single_launch_ms=single["k2"],
                                              bound_ms=work["k2"]["bound_ms"],
@@ -953,8 +954,8 @@ def phase_backward(dev) -> dict:
             for k in ("k2a_lite", "k12b", "k3f", "k3b"):
                 summary[k].update(fma_variant_ms=times[f"{k}_fma"][0],
                                   single_launch_ms=single[k])
-            summary["k12b"]["tf32"] = tf32["k12b"]
-            summary["k2a_lite"]["tf32"] = tf32["k2a_lite"]
+            for k in ("k2a_lite", "k12b", "k3f", "k3b"):
+                summary[k]["tf32"] = tf32[k]
             adj = [r for r in rows if r["name"].startswith("t_stage/")]
             pair = ("t_stage_et_adj", "t_stage_it_adj")
             summary["t_stage_adjoint"] = dict(
@@ -1106,11 +1107,10 @@ def phase_train(dev, compute_dtype="bfloat16") -> dict:
     """bench.py's training step through make_train_step, in bf16 (phase
     train, the kernels' mma variants) or, with ``compute_dtype`` None, in
     float32 as the shipped config runs it (phase train_f32: K1, K2,
-    K2A-lite and K12B tf32, K3F and K3B fma, within F32_LIMITS of the plain
-    step); returns the launch counts of the counted step."""
+    K2A-lite, K12B, K3F and K3B tf32, within F32_LIMITS of the plain step);
+    returns the launch counts of the counted step."""
     path = "train" if compute_dtype else "train_f32"
-    mm = "mma" if compute_dtype else "fma"    # K3F's and K3B's
-    tc = "mma" if compute_dtype else "tf32"   # K1's, K2's, K2A-lite's and K12B's
+    tc = "mma" if compute_dtype else "tf32"   # every FNO kernel's but the T-stage's
     model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=compute_dtype,
                         device=dev, generator=make_generator(0), **MODEL)
     ref_model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), device=dev, **MODEL)
@@ -1133,7 +1133,7 @@ def phase_train(dev, compute_dtype="bfloat16") -> dict:
         raise AssertionError(f"one {path} step launched {launches}, "
                              f"expected {TRAIN_LAUNCHES}")
     variants = expect_variants(f"one {path} step", **{
-        k: {"registers" if k == "t_stage" else mm if k in ("k3f", "k3b") else tc: n}
+        k: {"registers" if k == "t_stage" else tc: n}
         for k, n in TRAIN_LAUNCHES.items() if n})
     VARIANTS_BY_PATH[path] = variants
     grads = _grads(model)
@@ -1824,9 +1824,8 @@ def phase_geometries(dev) -> None:
     """Every FNO kernel against its twin at the other shipped geometries
     (GEOMETRIES: combustion's width 64 and fsi's 128, modes 4/16/16), at
     batch GEO_BATCH, in both dtypes, each in the variant its dtype chooses
-    (K1, K2, K2A-lite and K12B mma in bfloat16, tf32 in float32: every
-    shipped geometry's block fits; K3F and K3B mma in bfloat16, fma in
-    float32; asserted per call):
+    (K1, K2, K2A-lite, K12B, K3F and K3B mma in bfloat16, tf32 in float32:
+    every shipped geometry's block fits; asserted per call):
     K1, the four T-stage maps, K2, K2A and (where the geometry has lite
     statics) K2A-lite, K12B, K3F and K3B. Records which of K2A-lite and K2A
     the geometry's backward takes."""
@@ -1842,8 +1841,7 @@ def phase_geometries(dev) -> None:
             g = torch.Generator(device=dev).manual_seed(5)
             rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
             tol = KERNEL_TOL[dtype]
-            mm = "mma" if dtype == torch.bfloat16 else "fma"   # K3F's and K3B's
-            tc = "mma" if dtype == torch.bfloat16 else "tf32"  # the others'; asserted per call
+            tc = "mma" if dtype == torch.bfloat16 else "tf32"  # asserted per call
             x = rn(BT, HP * WP // 2, 2 * Cg).to(dtype)
             a, b = 1 + 0.1 * rn(Cg), 0.1 * rn(Cg)
             wp, bp = rn(Cg, Cg) / Cg ** 0.5, 0.1 * rn(Cg)
@@ -1886,9 +1884,9 @@ def phase_geometries(dev) -> None:
                     rn(128, F) / 128 ** 0.5, 0.1 * rn(F))
             gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
             sse_ref = ft.k3f_plain(s, *tail, **kw)
-            rows.append(compare_sums("k3f/sse", run_as("k3f", mm, lambda: ft.k3f(s, *tail, **kw)),
+            rows.append(compare_sums("k3f/sse", run_as("k3f", tc, lambda: ft.k3f(s, *tail, **kw)),
                                      sse_ref, sse_ref))
-            got = run_as("k3b", mm, lambda: ft.k3b(s, *tail, gl, **kw))
+            got = run_as("k3b", tc, lambda: ft.k3b(s, *tail, gl, **kw))
             ref = ft.k3b_plain(s, *tail, gl, **kw)
             rows.append(compare("k3b/ds", got[0], ref[0], tol))
             terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
@@ -1897,7 +1895,7 @@ def phase_geometries(dev) -> None:
             torch.cuda.synchronize()
             emit(dict(phase="geometry", name=name, dtype=str(dtype).replace("torch.", ""),
                       shapes=dict(BT=BT, Hp=HP, Wp=WP, C=Cg, modes=[m1, m2, m3]),
-                      variants=dict(k1=tc, k2=tc, k2a_lite=tc, k12b=tc, k3f=mm, k3b=mm),
+                      variants=dict(k1=tc, k2=tc, k2a_lite=tc, k12b=tc, k3f=tc, k3b=tc),
                       k2a_route="k2a_lite" if lite is not None else "k2a",
                       worst_rel=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in rows),
@@ -1921,7 +1919,6 @@ def phase_fsi_train(dev, norm) -> dict:
     total_variants = {k: dict.fromkeys(v, 0) for k, v in kernels.VARIANTS.items()}
     for cdt in (None, "bfloat16"):
         dtype = torch.bfloat16 if cdt else torch.float32
-        mm = "mma" if cdt else "fma"   # K3F's and K3B's
         model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=cdt, device=dev,
                             generator=make_generator(1), **FSI_MODEL)
         opt = build_optimizer(FSI_TRAIN_CFG, model.parameters())
@@ -1938,11 +1935,11 @@ def phase_fsi_train(dev, norm) -> dict:
         if launches != TRAIN_LAUNCHES:
             raise AssertionError(f"one fsi step ({dtype}) launched {launches}, "
                                  f"expected {TRAIN_LAUNCHES}")
-        # K1, K2, K2A-lite and K12B: tf32 in f32 at C 128 too (their blocks fit)
+        # every FNO kernel but the T-stage: tf32 in f32 at C 128 too (the blocks fit)
         tc = "mma" if cdt else "tf32"
         variants = expect_variants(f"one fsi step ({dtype})", k1={tc: 4},
                                    t_stage={"registers": 16}, k2={tc: 4}, k2a_lite={tc: 4},
-                                   k12b={tc: 4}, k3f={mm: 1}, k3b={mm: 1})
+                                   k12b={tc: 4}, k3f={tc: 1}, k3b={tc: 1})
         first_peak = torch.cuda.max_memory_allocated() / 1e9
         if not bool(torch.isfinite(loss)):
             raise AssertionError(f"fsi training loss {loss.item()} is not finite")

@@ -18,13 +18,13 @@
 //        partial [fno_k3b_num_partials, C*H1 + H1 + H1*F + F] (f32) scratch,
 //        out [C*H1 + H1 + H1*F + F] (f32): dk1, db1, dk2, db2
 //
-// Each kernel has two variants, chosen before the launch by
+// Each kernel has three variants, chosen before the launch by
 // ops/kernels.py::k3f_variant and ::k3b_variant. The fc1 activation and the
-// prediction never reach device memory in either. No atomics: each block
+// prediction never reach device memory in any. No atomics: each block
 // writes its partial sums, and fno::reduce_partials adds them in a fixed
 // order, so two identical calls are bit-equal.
 //
-// `fma` (f32 tensors, widths other than 32, 64, 128, misaligned s): one
+// `fma` (widths other than 32, 64, 128, F > 8, misaligned s): one
 // block per (b, t) image walks its H*W cropped positions in tiles of kP. Per
 // tile it stages z (and the target) in shared memory; each thread holds a
 // 4 x 8 (hidden unit x position) register tile of u1, so a k1 value and a z
@@ -52,6 +52,26 @@
 // and 90 GFLOP of products (0.09 ms at the bf16 peak; fc1's hi + lo make
 // ~0.17 TFLOP of MMAs issued); K3B 1.73 GB (0.52 ms) and 270 GFLOP (~700
 // issued).
+//
+// `tf32` (f32 s; the mma variant's widths, F and alignment): the mma
+// variant's plan (persistent grids over the same tiles, the two-stage
+// cp.async ring over z, one shared forward with the activation a template
+// argument, K3B's sums flushed every few tiles) with every product 3xTF32
+// on mma.sync m16n8k8 (each f32 operand split in registers into a tf32
+// hi + lo pair by mma.cuh's split_tf32, hi.hi + hi.lo + lo.hi, f32
+// accumulators). What f32 changes: z is f32 and split too;
+// ds is a 3xTF32 product as well (one rounding of du and k1 would leave
+// 5e-4 of max|ds|); there is no
+// ldmatrix.trans for tf32, so each operand is stored once, in f32, in a
+// layout whose 32- or 64-bit fragment loads fall on 32 banks (z by ldmatrix
+// as fc1's A; k1 [C][kTfKS] read both ways, as fc1's B and as ds's), and
+// the k order of a k-step is permuted alike in A and B wherever an operand
+// comes from accumulators (slot q holds index 2q, slot q + 4 index 2q + 1).
+// Shared memory doubles: at C 64 a K3F block takes 107 KB (two an SM) and a
+// K3B block 181 KB (one); at C 128 K3B keeps one z stage (213 KB), its next
+// tile's copy issued after the tile's last read of z. Bound at training
+// width in f32: K3F 1.40 GB (0.42 ms), K3B 3.40 GB (1.02 ms), the products
+// at the TF32 peak below that.
 #include <algorithm>
 #include <cstdint>
 #include <initializer_list>
@@ -375,6 +395,17 @@ constexpr int kDoS = 24;           // row stride of the do tile [kTP][16]
 // kFlush of its tiles, so no f32 accumulator (an MMA's, which truncates)
 // takes more than kFlush * 8 products of 16 positions
 constexpr int kFlush = 32;
+// the same for K3B's tf32 variant, whose accumulators take 16 k-steps of
+// three MMAs a tile. At 32 tiles their drift toward zero reached dk1 and db1
+// (1.2e-5 of the sum of |terms|) and, through the last BatchNorm's
+// statistics folded into k1 and b1, the f32 step's gradient of the last
+// layer's low-mode spectral weights: 9.1e-5 from the plain step's (relative
+// L2; with K3B's fma variant 9.2e-6); at 8 tiles 1.1e-5, at 4 below 5.7e-6
+// with twice the rows of partial sums (tools/torch_tail_grad_ab.py, H100)
+constexpr int kFlushTf32 = 8;
+__host__ __device__ constexpr int flush_tiles(int variant) {
+  return variant == 2 ? kFlushTf32 : kFlush;
+}
 
 // Shared memory of a K3B block, in bytes (ops/kernels.py::k3b_mma_smem_bytes):
 // k1 hi, lo [C][kKS]; two z stages [kTP][C + 8]; h1 (then du) hi, lo
@@ -430,22 +461,21 @@ struct CropTiles {
     w0 = wt * kTP;
     bt = (bT / d.T) * d.Tp + bT % d.T;
   }
-  // z of `tile` into dst [kTP][C + 8] by 16-byte cp.async, one committed
-  // group; rows past the tile's positions zero
-  template <int C>
-  __device__ void fetch(const bf16* __restrict__ s, const TailDims& d, int tile,
-                        bf16* dst) const {
-    constexpr int ZS = C + 8;
+  // z of `tile` into dst [kTP][ZS] (bf16: C + 8; f32: C + 4) by 16-byte
+  // cp.async, one committed group; rows past the tile's positions zero
+  template <int C, typename T = bf16, int ZS = C + 8>
+  __device__ void fetch(const T* __restrict__ s, const TailDims& d, int tile, T* dst) const {
+    constexpr int V = 16 / sizeof(T);   // elements a copy moves
     int bT, h, w0, bt;
     decode(d, tile, bT, h, w0, bt);
     const int P = min(kTP, d.W - w0);
-    const bf16* src = s + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
-    for (int i = threadIdx.x; i < kTP * (C / 8); i += kMmaThreads) {
-      const int p = i / (C / 8), cc = i - p * (C / 8);
+    const T* src = s + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
+    for (int i = threadIdx.x; i < kTP * (C / V); i += kMmaThreads) {
+      const int p = i / (C / V), cc = i - p * (C / V);
       if (p < P)
-        mma::cp_async_16(dst + p * ZS + cc * 8, src + (size_t)p * C + cc * 8);
+        mma::cp_async_16(dst + p * ZS + cc * V, src + (size_t)p * C + cc * V);
       else
-        *reinterpret_cast<uint4*>(dst + p * ZS + cc * 8) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(dst + p * ZS + cc * V) = make_uint4(0, 0, 0, 0);
     }
     mma::cp_async_commit();
   }
@@ -520,6 +550,21 @@ __device__ __forceinline__ void forward_warp(const bf16* zt, const bf16* sk1, co
   }
 }
 
+// A K3F tensor-core block's partial: its threads' f64 sums added in a
+// fixed order (shuffles, then the warps in turn through sred [8]).
+__device__ __forceinline__ void write_block_sse(double sse, double* sred, float* partial) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) sse += __shfl_xor_sync(0xffffffffu, sse, m);
+  if (lane == 0) sred[warp] = sse;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double tot = 0.0;
+    for (int w = 0; w < kMmaThreads / 32; ++w) tot += sred[w];
+    partial[blockIdx.x] = (float)tot;
+  }
+}
+
 // K3F's tensor-core variant. A persistent grid (as many blocks as fit the
 // SMs, never more than tiles) walks the crop's tiles t = blockIdx.x + i *
 // gridDim.x; z comes by 16-byte cp.async into a two-stage ring (the next
@@ -573,14 +618,111 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       }
     }
   }
+  write_block_sse(sse, sred, partial);
+}
+
+// du = (do k2^T) act'(u1) in place of act'(u1) in u (forward_warp's
+// layout); dv: this lane's do in o's layout, sk2f: k2 [kH1][8] in f32
+// (columns >= F zero). Exact f32 FMAs, F a unit.
+__device__ __forceinline__ void tail_du(const float (&dv)[4], const float* sk2f, int F, int gq,
+                                        int q, float (&u)[16][4]) {
+  float dor[2][8];   // do of this lane's rows gq, gq + 8
 #pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) sse += __shfl_xor_sync(0xffffffffu, sse, m);
-  if (lane == 0) sred[warp] = sse;
+  for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dor[e >> 1][2 * qq + (e & 1)] = __shfl_sync(0xffffffffu, dv[e], gq * 4 + qq);
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const float* kr = sk2f + (nt * 8 + 2 * q + jj) * 8;
+      const float4 ka = *reinterpret_cast<const float4*>(kr);
+      const float4 kb = *reinterpret_cast<const float4*>(kr + 4);
+      const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float dh = 0.f;
+#pragma unroll
+        for (int f = 0; f < kMaxF; ++f)
+          if (f < F) dh = fmaf(dor[rr][f], kv[f], dh);
+        u[nt][2 * rr + jj] *= dh;
+      }
+    }
+}
+
+// Row pb of a K3B tensor-core block's partial sums, in the layout of
+// k3b_kernel's (dk1, db1, dk2, db2), from its warps' accumulators: dk1
+// [C/16 + 1][2][4] (channels 16 mi + gq (+8), hidden units 16 warp + 8 nt +
+// 2q (+1); db1 in mi = C/16, row gq 0), dk2 [4] (units 16 warp + gq (+8),
+// columns 2q (+1)), db2 [2] (columns 2q (+1) over this lane's positions:
+// added over the warp, then over the warps in order through sred [8][8]).
+// The sums restart from zero.
+template <int C>
+__device__ __forceinline__ void flush_k3b_sums(float* pb, int F, float (&dk1)[C / 16 + 1][2][4],
+                                               float (&dk2)[4], float (&db2)[2], float* sred,
+                                               int warp, int lane) {
+  constexpr int MC = C / 16;
+  const int tid = threadIdx.x, gq = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MC; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = mi * 16 + gq + hf * 8, j = 16 * warp + nt * 8 + 2 * q;
+        pb[c * kH1 + j] = dk1[mi][nt][2 * hf];
+        pb[c * kH1 + j + 1] = dk1[mi][nt][2 * hf + 1];
+      }
+  if (gq == 0)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int j = 16 * warp + nt * 8 + 2 * q;
+      pb[C * kH1 + j] = dk1[MC][nt][0];
+      pb[C * kH1 + j + 1] = dk1[MC][nt][1];
+    }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int j = 16 * warp + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
+    if (f < F) pb[C * kH1 + kH1 + j * F + f] = dk2[e];
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float v = db2[e];
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (gq == 0) sred[warp * 8 + 2 * q + e] = v;
+  }
   __syncthreads();
-  if (tid == 0) {
-    double tot = 0.0;
-    for (int w = 0; w < kMmaThreads / 32; ++w) tot += sred[w];
-    partial[blockIdx.x] = (float)tot;
+  if (tid < F) {
+    float v = 0.f;
+    for (int w = 0; w < kMmaThreads / 32; ++w) v += sred[w * 8 + tid];
+    pb[C * kH1 + kH1 + kH1 * F + tid] = v;
+  }
+  __syncthreads();   // sred is read before the next flush writes it
+#pragma unroll
+  for (int mi = 0; mi <= MC; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      dk1[mi][nt][0] = dk1[mi][nt][1] = dk1[mi][nt][2] = dk1[mi][nt][3] = 0.f;
+  dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
+  db2[0] = db2[1] = 0.f;
+}
+
+// Zeros of ds outside the crop, a share of the rows a block (16-byte
+// stores): rows of images t >= T and rows h >= H whole, positions w >= W of
+// the cropped rows.
+template <int C, typename T>
+__device__ void zero_outside_crop(T* __restrict__ ds, const TailDims& d) {
+  constexpr int V = 16 / sizeof(T);   // elements a store writes
+  const int rows = d.B * d.Tp * d.Hp;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    const int bt = r / d.Hp, h = r - bt * d.Hp;
+    const int w_from = (bt % d.Tp < d.T && h < d.H) ? d.W : 0;
+    uint4* dst = reinterpret_cast<uint4*>(ds + ((size_t)r * d.Wp + w_from) * C);
+    for (int i = threadIdx.x; i < (d.Wp - w_from) * (C / V); i += kMmaThreads)
+      dst[i] = make_uint4(0, 0, 0, 0);
   }
 }
 
@@ -625,7 +767,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, q = lane & 3;
-  const int F = d.F, W = d.W, H = d.H, T = d.T;
+  const int F = d.F, W = d.W, H = d.H;
   load_mma_weights<C>(k1, b1, k2, b2, F, sk1, sk2t, sk2f, sb1, sb2);
   for (int i = tid; i < 2 * kTP * (kDoS - 8) / 8; i += kMmaThreads) {
     const int r = i / ((kDoS - 8) / 8), cc = i - r * ((kDoS - 8) / 8);
@@ -647,54 +789,10 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     for (int nt = 0; nt < 2; ++nt) dk1[mi][nt][0] = dk1[mi][nt][1] = dk1[mi][nt][2] = dk1[mi][nt][3] = 0.f;
   dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
 
-  // row r of this block's partial sums, in the layout of k3b_kernel's (dk1,
-  // db1, dk2, db2); the sums restart from zero
+  // row r of this block's partial sums; the sums restart from zero
   auto flush = [&](int r) {
-    float* pb = partial + ((size_t)blockIdx.x * nrows + r) * n;
-#pragma unroll
-    for (int mi = 0; mi < MC; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int c = mi * 16 + gq + hf * 8, j = 16 * warp + nt * 8 + 2 * q;
-          pb[c * kH1 + j] = dk1[mi][nt][2 * hf];
-          pb[c * kH1 + j + 1] = dk1[mi][nt][2 * hf + 1];
-        }
-    if (gq == 0)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int j = 16 * warp + nt * 8 + 2 * q;
-        pb[C * kH1 + j] = dk1[MC][nt][0];
-        pb[C * kH1 + j + 1] = dk1[MC][nt][1];
-      }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 16 * warp + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
-      if (f < F) pb[C * kH1 + kH1 + j * F + f] = dk2[e];
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = db2[e];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (gq == 0) sred[warp * 8 + 2 * q + e] = v;
-    }
-    __syncthreads();
-    if (tid < F) {
-      float v = 0.f;
-      for (int w = 0; w < kMmaThreads / 32; ++w) v += sred[w * 8 + tid];
-      pb[C * kH1 + kH1 + kH1 * F + tid] = v;
-    }
-    __syncthreads();   // sred is read before the next flush writes it
-#pragma unroll
-    for (int mi = 0; mi <= MC; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        dk1[mi][nt][0] = dk1[mi][nt][1] = dk1[mi][nt][2] = dk1[mi][nt][3] = 0.f;
-    dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
-    db2[0] = db2[1] = 0.f;
+    flush_k3b_sums<C>(partial + ((size_t)blockIdx.x * nrows + r) * n, F, dk1, dk2, db2, sred,
+                      warp, lane);
   };
 
   int tile = blockIdx.x, it = 0;
@@ -736,29 +834,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     }
 
     // du = (do k2^T) act'(u1), in place of act'(u1)
-    float dor[2][8];   // do of this lane's rows gq, gq + 8
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dor[e >> 1][2 * qq + (e & 1)] = __shfl_sync(0xffffffffu, dv[e], gq * 4 + qq);
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const float* kr = sk2f + (nt * 8 + 2 * q + jj) * 8;
-        const float4 ka = *reinterpret_cast<const float4*>(kr);
-        const float4 kb = *reinterpret_cast<const float4*>(kr + 4);
-        const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          float dh = 0.f;
-#pragma unroll
-          for (int f = 0; f < kMaxF; ++f)
-            if (f < F) dh = fmaf(dor[rr][f], kv[f], dh);
-          u[nt][2 * rr + jj] *= dh;
-        }
-      }
+    tail_du(dv, sk2f, F, gq, q, u);
 
     // ds = du k1^T, this warp's positions, NG channels a pass
     bf16* dsb = ds + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
@@ -859,17 +935,404 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
   // the last rows: the sums of a group under kFlush tiles, then zeros
   for (int r = it / kFlush; r < nrows; ++r) flush(r);
+  zero_outside_crop<C>(ds, d);
+}
 
-  // zeros outside the crop: rows of images t >= T and rows h >= H whole,
-  // positions w >= W of the cropped rows
-  const int rows = d.B * d.Tp * d.Hp;
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const int bt = r / d.Hp, h = r - bt * d.Hp;
-    const int w_from = (bt % d.Tp < T && h < H) ? W : 0;
-    uint4* dst = reinterpret_cast<uint4*>(ds + ((size_t)r * d.Wp + w_from) * C);
-    for (int i = tid; i < (d.Wp - w_from) * (C / 8); i += kMmaThreads)
-      dst[i] = make_uint4(0, 0, 0, 0);
+// ---------------------------------------------------------------------------
+// The tf32 variants of K3F and K3B (f32; C in {32, 64, 128}, fc1 width 128,
+// F <= 8): the tensor-core variants' plan, every product 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int kTfKS = kH1 + 8;   // row stride of k1 [C][.] and k2^T [8][.] (f32: 8 mod 32)
+constexpr int kTfHS = kH1 + 4;   // row stride of the h1 / du tile [kTP][.] (f32: 4 mod 32)
+constexpr int kTfDS = kTP + 8;   // row stride of do^T [8][.] (f32: 8 mod 32)
+
+// z stages of a K3B tf32 block: two up to C 64, one at C 128, where two
+// would not fit beside k1 and the h1 / du tile.
+__host__ __device__ constexpr int k3b_tf32_stages(int C) { return C <= 64 ? 2 : 1; }
+
+// Shared memory of a K3F tf32 block, in bytes (ops/kernels.py::
+// k3f_tf32_smem_bytes), all f32: two z stages [kTP][C + 4]; k1 [C][kTfKS];
+// k2^T [8][kTfKS]; b1, b2; the warps' sums [8] (f64). 107 KB at C 64: two
+// blocks an SM.
+inline int k3f_tf32_smem(int C) {
+  return 4 * (2 * kTP * (C + 4) + C * kTfKS + 8 * kTfKS + kH1 + 8) + 8 * 8;
+}
+
+// Shared memory of a K3B tf32 block, in bytes (ops/kernels.py::
+// k3b_tf32_smem_bytes), all f32: k3b_tf32_stages(C) z stages [kTP][C + 4];
+// k1 [C][kTfKS]; h1, then du [kTP][kTfHS]; do^T [8][kTfDS]; k2^T [8][kTfKS];
+// k2 [kH1][8]; b1, b2, the warps' db2 [8][8]. 181 KB at C 64, 213 KB at C
+// 128: one block an SM.
+inline int k3b_tf32_smem(int C) {
+  return 4 * (k3b_tf32_stages(C) * kTP * (C + 4) + C * kTfKS + kTP * kTfHS + 8 * kTfDS +
+              8 * kTfKS + kH1 * 8 + kH1 + 8 + 64);
+}
+
+// The weights in f32 in a tf32 block's shared memory: k1 [C][kTfKS]; k2^T
+// [8][kTfKS] (rows >= F zero); b1 [kH1], b2 [8] (zero past F); and, where
+// sk2f is given (K3B), k2 [kH1][8].
+template <int C>
+__device__ void load_tf32_weights(const float* __restrict__ k1, const float* __restrict__ b1,
+                                  const float* __restrict__ k2, const float* __restrict__ b2,
+                                  int F, float* sk1, float* sk2t, float* sk2f, float* sb1,
+                                  float* sb2) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < C * kH1; i += kMmaThreads) {
+    const int c = i / kH1;
+    sk1[c * kTfKS + i - c * kH1] = k1[i];
   }
+  for (int i = tid; i < 8 * kH1; i += kMmaThreads) {
+    const int f = i / kH1, j = i - f * kH1;
+    const float v = f < F ? k2[j * F + f] : 0.f;
+    sk2t[f * kTfKS + j] = v;
+    if (sk2f) sk2f[j * 8 + f] = v;
+  }
+  for (int i = tid; i < kH1; i += kMmaThreads) sb1[i] = b1[i];
+  if (tid < 8) sb2[tid] = tid < F ? b2[tid] : 0.f;
+}
+
+// 3xTF32 with the small terms apart: big += ah.bh, small += al.bh + ah.bl.
+// An MMA's accumulation truncates toward zero, so a long chain of them on
+// one accumulator drifts toward zero; here the chain of the large terms
+// truncates a third as often, and the small ones' errors are 2^-11 of
+// theirs (on an H100, tools/torch_k3b_probe.py: K3B's ds within 1.2e-6 of
+// max|ref|, 2.0e-6 on one accumulator).
+__device__ __forceinline__ void mma_tf32x3_apart(float (&big)[4], float (&small)[4],
+                                                 const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                                 uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                                 uint32_t bl1) {
+  mma::mma_tf32(small, al, bh0, bh1);
+  mma::mma_tf32(small, ah, bl0, bl1);
+  mma::mma_tf32(big, ah, bh0, bh1);
+}
+
+// (big, small) += (the f32 values a) . (b0, b1) as mma_tf32x3_apart, each
+// value split into its tf32 pair here.
+__device__ __forceinline__ void mma_f32x3(float (&big)[4], float (&small)[4],
+                                          const float (&a)[4], float b0, float b1) {
+  uint32_t av[4], ah[4], al[4], bh0, bl0, bh1, bl1;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) av[r] = __float_as_uint(a[r]);
+  mma::split_frag(av, ah, al);
+  mma::split_tf32(b0, bh0, bl0);
+  mma::split_tf32(b1, bh1, bl1);
+  mma_tf32x3_apart(big, small, ah, al, bh0, bh1, bl0, bl1);
+}
+
+// The forward of one warp on its 16 positions p0.. of the f32 tile zt
+// [kTP][C + 4], forward_warp's in 3xTF32:
+//   u1 = z k1 + b1   A: z by ldmatrix (tf32_a_offset; rows 16 bytes apart
+//                    mod 128), split once a k-step; B: k1 [C][kTfKS] by
+//                    32-bit loads (lanes (q, g) on banks 8q + g), split
+//   h1 = act(u1)     fno::affine_act_fast (K3F) or fno::act_and_grad_fast
+//   o = h1 k2        A from u1's fragments, a k-step's slot q holding unit
+//                    2q and slot q + 4 unit 2q + 1; B alike from k2^T by
+//                    64-bit loads; the small terms apart (mma_tf32x3_apart)
+// o[e] as forward_warp's. With GRAD (K3B), h1 goes to sh [kTP][kTfHS] in f32
+// and u keeps act'(u1); without (K3F), h1 stays in registers.
+template <int C, int ACT, bool GRAD>
+__device__ __forceinline__ void forward_warp_tf32(const float* zt, const float* sk1,
+                                                  const float* sk2t, const float* sb1, int p0,
+                                                  int lane, float (&u)[16][4], float (&o)[4],
+                                                  float* sh) {
+  constexpr int ZS = C + 4;
+  const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const float2 bv = *reinterpret_cast<const float2*>(sb1 + nt * 8 + 2 * q);
+    u[nt][0] = u[nt][2] = bv.x;
+    u[nt][1] = u[nt][3] = bv.y;
+  }
+#pragma unroll
+  for (int ks = 0; ks < C / 8; ++ks) {
+    uint32_t fa[4], ah[4], al[4];
+    mma::ldmatrix_x4(fa, mma::smem_addr(zt + p0 * ZS + mma::tf32_a_offset(lane, ks * 8, ZS)));
+    mma::split_frag(fa, ah, al);
+    // b0 = k1[8 ks + q][8 nt + gq], b1 four rows on
+    const float* kr = sk1 + (ks * 8 + q) * kTfKS + gq;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      uint32_t bh0, bl0, bh1, bl1;
+      mma::split_tf32(kr[nt * 8], bh0, bl0);
+      mma::split_tf32(kr[4 * kTfKS + nt * 8], bh1, bl1);
+      mma::mma_tf32x3(u[nt], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+  float os[4] = {0.f, 0.f, 0.f, 0.f};   // o's small terms
+  o[0] = o[1] = o[2] = o[3] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    float hv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (GRAD)
+        fno::act_and_grad_fast(u[nt][e], ACT, hv[e], u[nt][e]);
+      else
+        hv[e] = fno::affine_act_fast(u[nt][e], 1.f, 0.f, ACT);
+    }
+    if constexpr (GRAD) {
+      *reinterpret_cast<float2*>(sh + (p0 + gq) * kTfHS + nt * 8 + 2 * q) =
+          make_float2(hv[0], hv[1]);
+      *reinterpret_cast<float2*>(sh + (p0 + gq + 8) * kTfHS + nt * 8 + 2 * q) =
+          make_float2(hv[2], hv[3]);
+    }
+    // slots (gq, q), (gq + 8, q), (gq, q + 4), (gq + 8, q + 4)
+    const float a[4] = {hv[0], hv[2], hv[1], hv[3]};
+    const float2 kb = *reinterpret_cast<const float2*>(sk2t + gq * kTfKS + nt * 8 + 2 * q);
+    mma_f32x3(o, os, a, kb.x, kb.y);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] += os[e];
+}
+
+// K3F's tf32 variant: k3f_mma_kernel's persistent grid, ring and f64 sums
+// on forward_warp_tf32. ~107 KB of shared memory and no more than 128
+// registers: two blocks an SM at C <= 64.
+template <int C, int ACT>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    k3f_tf32_kernel(const float* __restrict__ s, const float* __restrict__ target,
+                    const float* __restrict__ k1, const float* __restrict__ b1,
+                    const float* __restrict__ k2, const float* __restrict__ b2,
+                    float* __restrict__ partial, TailDims d) {
+  constexpr int ZS = C + 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sz = reinterpret_cast<float*>(smem_raw);   // [2 stages][kTP][ZS]
+  float* sk1 = sz + 2 * kTP * ZS;                   // [C][kTfKS]
+  float* sk2t = sk1 + C * kTfKS;                    // [8][kTfKS]: k2^T (rows >= F zero)
+  float* sb1 = sk2t + 8 * kTfKS;
+  float* sb2 = sb1 + kH1;                           // [8]
+  double* sred = reinterpret_cast<double*>(sb2 + 8);   // [8 warps]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  load_tf32_weights<C>(k1, b1, k2, b2, d.F, sk1, sk2t, nullptr, sb1, sb2);
+  const CropTiles ct(d);
+  const int p0 = warp * 16;
+  double sse = 0.0;
+  int tile = blockIdx.x, it = 0;
+  if (tile < ct.ntiles) ct.fetch<C, float, ZS>(s, d, tile, sz);
+  for (; tile < ct.ntiles; ++it, tile += gridDim.x) {
+    const int stage = it & 1;
+    mma::cp_async_wait<0>();
+    __syncthreads();   // z of this tile has landed; the previous tile's readers are done
+    if (tile + gridDim.x < ct.ntiles)
+      ct.fetch<C, float, ZS>(s, d, tile + gridDim.x, sz + (stage ^ 1) * kTP * ZS);
+    int bT, h, w0, bt;
+    ct.decode(d, tile, bT, h, w0, bt);
+    const int P = min(kTP, d.W - w0);
+    float u[16][4], o[4];
+    forward_warp_tf32<C, ACT, false>(sz + stage * kTP * ZS, sk1, sk2t, sb1, p0, lane, u, o,
+                                     nullptr);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
+      if (p < P && f < d.F) {
+        const float diff =
+            o[e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * d.F + f];
+        sse += (double)(diff * diff);
+      }
+    }
+  }
+  write_block_sse(sse, sred, partial);
+}
+
+// K3B's tf32 variant: k3b_mma_kernel's plan in 3xTF32. Per tile, each warp
+// on its 16 positions runs forward_warp_tf32 (h1 into shared memory, u
+// keeping act'(u1)), then
+//   do = 2 g (o + b2 - target) f32, into do^T [8][kTfDS]; db2 in registers
+//   du = (do k2^T) act'(u1)   tail_du, exact f32
+//   ds = du k1^T              A from du's fragments (slots permuted as in
+//                             fc2), B from k1 [C][kTfKS] by 64-bit loads,
+//                             the small terms apart; written once, f32
+// and, once the tile's h1 and do^T are in shared memory, the block's sums
+// on hidden units 16 warp .. + 15, a k-step's slot q holding position
+// 2q and slot q + 4 position 2q + 1 in A and B alike (32- and 64-bit loads
+// on 32 banks): dk2 += h1^T do, then, with du in h1's place, dk1 += z^T du
+// and db1 += 1^T du (a row of ones, exact in tf32: its lo part is zero, two
+// MMAs). The sums go out every kFlushTf32 tiles (flush_k3b_sums); at C 128 the
+// next tile's z is copied after this tile's last read of it (one stage).
+template <int C, int ACT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    k3b_tf32_kernel(const float* __restrict__ s, const float* __restrict__ target,
+                    const float* __restrict__ k1, const float* __restrict__ b1,
+                    const float* __restrict__ k2, const float* __restrict__ b2,
+                    const float* __restrict__ gsc, float* __restrict__ ds,
+                    float* __restrict__ partial, TailDims d) {
+  constexpr int ZS = C + 4;                        // z row stride (4 mod 32)
+  constexpr int STAGES = k3b_tf32_stages(C);
+  constexpr int MC = C / 16;   // 16-row tiles of z^T; tile MC is the row of ones
+  constexpr int NP = 32;                           // channels of ds a pass takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sz = reinterpret_cast<float*>(smem_raw);   // [STAGES][kTP][ZS]
+  float* sk1 = sz + STAGES * kTP * ZS;              // [C][kTfKS]
+  float* sh = sk1 + C * kTfKS;                      // [kTP][kTfHS]: h1, then du
+  float* sdot = sh + kTP * kTfHS;                   // [8][kTfDS]: do^T (rows >= F zero)
+  float* sk2t = sdot + 8 * kTfDS;                   // [8][kTfKS]: k2^T (rows >= F zero)
+  float* sk2f = sk2t + 8 * kTfKS;                   // [kH1][8]: k2 (columns >= F zero)
+  float* sb1 = sk2f + kH1 * 8;
+  float* sb2 = sb1 + kH1;                           // [8]
+  float* sred = sb2 + 8;                            // [8 warps][8]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  const int F = d.F;
+  load_tf32_weights<C>(k1, b1, k2, b2, F, sk1, sk2t, sk2f, sb1, sb2);
+  const float g2 = 2.f * gsc[0];
+  const CropTiles ct(d);
+  const int ntiles = ct.ntiles;
+  const int nrows =
+      ((ntiles + gridDim.x - 1) / gridDim.x + kFlushTf32 - 1) / kFlushTf32;
+  const int n = C * kH1 + kH1 + kH1 * F + F;
+
+  float dk1[MC + 1][2][4];   // as k3b_mma_kernel's
+  float dk2[4], dk2s[4] = {0.f, 0.f, 0.f, 0.f};   // dk2s: dk2's small terms
+  float db2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int mi = 0; mi <= MC; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk1[mi][nt][e] = 0.f;
+  dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
+  auto flush = [&](int r) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk2[e] += dk2s[e];
+      dk2s[e] = 0.f;
+    }
+    flush_k3b_sums<C>(partial + ((size_t)blockIdx.x * nrows + r) * n, F, dk1, dk2, db2, sred,
+                      warp, lane);
+  };
+
+  int tile = blockIdx.x, it = 0;
+  if (tile < ntiles) ct.fetch<C, float, ZS>(s, d, tile, sz);
+  const int p0 = warp * 16;
+  for (; tile < ntiles; ++it, tile += gridDim.x) {
+    const int stage = STAGES == 2 ? it & 1 : 0;
+    mma::cp_async_wait<0>();
+    __syncthreads();   // z of this tile has landed; the previous tile's readers are done
+    if (STAGES == 2 && tile + gridDim.x < ntiles)
+      ct.fetch<C, float, ZS>(s, d, tile + gridDim.x, sz + (stage ^ 1) * kTP * ZS);
+    int bT, h, w0, bt;
+    ct.decode(d, tile, bT, h, w0, bt);
+    const int P = min(kTP, d.W - w0);
+    const float* zt = sz + stage * kTP * ZS;
+
+    float u[16][4], o[4];
+    forward_warp_tf32<C, ACT, true>(zt, sk1, sk2t, sb1, p0, lane, u, o, sh);
+
+    // do = 2 g (o + b2 - target), zero past the tile's positions and F
+    float dv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
+      dv[e] = 0.f;
+      if (p < P && f < F)
+        dv[e] = g2 * (o[e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * F + f]);
+      sdot[f * kTfDS + p] = dv[e];
+    }
+    db2[0] += dv[0] + dv[2];
+    db2[1] += dv[1] + dv[3];
+    tail_du(dv, sk2f, F, gq, q, u);
+
+    // ds = du k1^T, this warp's positions, NP channels a pass
+    float* dsb = ds + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
+#pragma unroll
+    for (int cp = 0; cp < C / NP; ++cp) {
+      float acc[NP / 8][4], accs[NP / 8][4];   // accs: the small terms
+#pragma unroll
+      for (int ct8 = 0; ct8 < NP / 8; ++ct8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ct8][e] = accs[ct8][e] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {   // a k-step: hidden units 8 nt ..
+        uint32_t av[4], ah[4], al[4];
+        // slots (gq, q), (gq + 8, q), (gq, q + 4), (gq + 8, q + 4)
+        av[0] = __float_as_uint(u[nt][0]);
+        av[1] = __float_as_uint(u[nt][2]);
+        av[2] = __float_as_uint(u[nt][1]);
+        av[3] = __float_as_uint(u[nt][3]);
+        mma::split_frag(av, ah, al);
+#pragma unroll
+        for (int ct8 = 0; ct8 < NP / 8; ++ct8) {
+          const float2 kb = *reinterpret_cast<const float2*>(
+              sk1 + (cp * NP + ct8 * 8 + gq) * kTfKS + nt * 8 + 2 * q);
+          uint32_t bh0, bl0, bh1, bl1;
+          mma::split_tf32(kb.x, bh0, bl0);
+          mma::split_tf32(kb.y, bh1, bl1);
+          mma_tf32x3_apart(acc[ct8], accs[ct8], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int ct8 = 0; ct8 < NP / 8; ++ct8)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = p0 + gq + hf * 8;
+          if (p < P)
+            *reinterpret_cast<float2*>(dsb + (size_t)p * C + cp * NP + ct8 * 8 + 2 * q) =
+                make_float2(acc[ct8][2 * hf] + accs[ct8][2 * hf],
+                            acc[ct8][2 * hf + 1] + accs[ct8][2 * hf + 1]);
+        }
+    }
+    __syncthreads();   // every warp's h1 and do^T are in shared memory
+
+    // dk2 += h1^T do on hidden units 16 warp .. + 15
+#pragma unroll 4
+    for (int kp = 2 * q; kp < kTP; kp += 8) {
+      const float* hr = sh + kp * kTfHS + 16 * warp + gq;
+      const float a[4] = {hr[0], hr[8], hr[kTfHS], hr[kTfHS + 8]};
+      const float2 db = *reinterpret_cast<const float2*>(sdot + gq * kTfDS + kp);
+      mma_f32x3(dk2, dk2s, a, db.x, db.y);
+    }
+    __syncthreads();   // h1 is read: du takes its place
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      *reinterpret_cast<float2*>(sh + (p0 + gq) * kTfHS + nt * 8 + 2 * q) =
+          make_float2(u[nt][0], u[nt][1]);
+      *reinterpret_cast<float2*>(sh + (p0 + gq + 8) * kTfHS + nt * 8 + 2 * q) =
+          make_float2(u[nt][2], u[nt][3]);
+    }
+    __syncthreads();   // every warp's du is in shared memory
+
+    // dk1 += z^T du and db1 += 1^T du on hidden units 16 warp .. + 15
+    const uint32_t one = gq == 0 ? 0x3F800000u : 0u;   // row 0 of the ones tile: 1.0
+    const uint32_t ones[4] = {one, 0u, one, 0u};
+#pragma unroll 2
+    for (int kp = 2 * q; kp < kTP; kp += 8) {
+      uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* dr = sh + kp * kTfHS + 16 * warp + nt * 8 + gq;
+        mma::split_tf32(dr[0], bh[nt][0], bl[nt][0]);
+        mma::split_tf32(dr[kTfHS], bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MC; ++mi) {
+        const float* zr = zt + kp * ZS + mi * 16 + gq;
+        uint32_t av[4] = {__float_as_uint(zr[0]), __float_as_uint(zr[8]), __float_as_uint(zr[ZS]),
+                          __float_as_uint(zr[ZS + 8])};
+        uint32_t ah[4], al[4];
+        mma::split_frag(av, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          mma::mma_tf32x3(dk1[mi][nt], ah, al, bh[nt][0], bh[nt][1], bl[nt][0], bl[nt][1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        mma::mma_tf32(dk1[MC][nt], ones, bl[nt][0], bl[nt][1]);
+        mma::mma_tf32(dk1[MC][nt], ones, bh[nt][0], bh[nt][1]);
+      }
+    }
+    if ((it + 1) % kFlushTf32 == 0) flush(it / kFlushTf32);
+    if (STAGES == 1 && tile + gridDim.x < ntiles) {
+      __syncthreads();   // every warp's reads of z are done
+      ct.fetch<C, float, ZS>(s, d, tile + gridDim.x, sz);
+    }
+  }
+  // the last rows: the sums of a group under kFlushTf32 tiles, then zeros
+  for (int r = it / kFlushTf32; r < nrows; ++r) flush(r);
+  zero_outside_crop<C>(ds, d);
 }
 
 cudaError_t check_dims(const TailDims& d, int B, int H1) {
@@ -926,8 +1389,9 @@ cudaError_t launch_k3b(const void* s, const void* target, const void* k1, const 
 }
 
 // Calls fn(C, ACT) (as std::integral_constant arguments) for an
-// instantiated (width, activation) of the tensor-core variants;
-// cudaErrorInvalidValue for any other.
+// instantiated (width, activation) of the tensor-core variants: the two
+// GELUs the tail takes (ops/activations.py::gelu_variant), four kernels at
+// each; cudaErrorInvalidValue for any other.
 template <typename Fn>
 cudaError_t with_mma_instance(int C, int act, Fn&& fn) {
   using std::integral_constant;
@@ -939,9 +1403,6 @@ cudaError_t with_mma_instance(int C, int act, Fn&& fn) {
   MMA_INSTANCE(32, fno::kActTanh);
   MMA_INSTANCE(64, fno::kActTanh);
   MMA_INSTANCE(128, fno::kActTanh);
-  MMA_INSTANCE(32, fno::kActNone);
-  MMA_INSTANCE(64, fno::kActNone);
-  MMA_INSTANCE(128, fno::kActNone);
 #undef MMA_INSTANCE
   return cudaErrorInvalidValue;
 }
@@ -964,101 +1425,128 @@ int persistent_blocks(K kernel, int smem, const TailDims& d) {
   return n < 1 ? 0 : (int)n;
 }
 
-// Rows of partial sums of K3B's mma variant: kFlush tiles a row, as many
-// rows a block as the most tiles a block takes need (k3b_mma_kernel's nrows).
-int k3b_mma_rows(const TailDims& d, int nblocks) {
+// Rows of partial sums of K3B's tensor-core variant (1 mma, 2 tf32):
+// flush_tiles(variant) tiles a row, as many rows a block as the most tiles a
+// block takes need (nrows of k3b_mma_kernel and k3b_tf32_kernel).
+int k3b_tc_rows(const TailDims& d, int nblocks, int variant) {
   const long long per_block = (crop_tiles(d) + nblocks - 1) / nblocks;
-  return nblocks * (int)((per_block + kFlush - 1) / kFlush);
+  const int tiles = flush_tiles(variant);
+  return nblocks * (int)((per_block + tiles - 1) / tiles);
 }
 
-// Blocks of each tensor-core variant's grid at (C, act): K3B's shared
-// memory allows one an SM, K3F's two at C <= 64; 0 on error.
-int k3b_mma_blocks(const TailDims& d) {
+// Blocks of a tensor-core variant's grid (variant 1 mma, 2 tf32) at (C,
+// act), as many as the shared memory lets the SMs hold: K3B's mma one an SM,
+// K3F's two at C <= 64; 0 on error.
+int k3b_tc_blocks(const TailDims& d, int variant) {
   int nblocks = 0;
   with_mma_instance(d.C, d.act, [&](auto c, auto a) {
     constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
-    nblocks = persistent_blocks(k3b_mma_kernel<CC, AA>, k3b_mma_smem(CC), d);
+    nblocks = variant == 1 ? persistent_blocks(k3b_mma_kernel<CC, AA>, k3b_mma_smem(CC), d)
+            : variant == 2 ? persistent_blocks(k3b_tf32_kernel<CC, AA>, k3b_tf32_smem(CC), d)
+                           : 0;
     return cudaSuccess;
   });
   return nblocks;
 }
-int k3f_mma_blocks(const TailDims& d) {
+int k3f_tc_blocks(const TailDims& d, int variant) {
   int nblocks = 0;
   with_mma_instance(d.C, d.act, [&](auto c, auto a) {
     constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
-    nblocks = persistent_blocks(k3f_mma_kernel<CC, AA>, k3f_mma_smem(CC), d);
+    nblocks = variant == 1 ? persistent_blocks(k3f_mma_kernel<CC, AA>, k3f_mma_smem(CC), d)
+            : variant == 2 ? persistent_blocks(k3f_tf32_kernel<CC, AA>, k3f_tf32_smem(CC), d)
+                           : 0;
     return cudaSuccess;
   });
   return nblocks;
 }
 
-cudaError_t launch_k3b_mma(const void* s, const void* target, const void* k1, const void* b1,
-                           const void* k2, const void* b2, const void* g, void* ds,
-                           void* partial, void* out, const TailDims& d, cudaStream_t stream) {
+// variant 1: bf16 s and ds (mma), 2: f32 (tf32).
+cudaError_t launch_k3b_tc(int variant, const void* s, const void* target, const void* k1,
+                          const void* b1, const void* k2, const void* b2, const void* g,
+                          void* ds, void* partial, void* out, const TailDims& d,
+                          cudaStream_t stream) {
   for (const void* p : {s, (const void*)ds})
     if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
-  const int nblocks = k3b_mma_blocks(d);
+  const int nblocks = k3b_tc_blocks(d, variant);
   if (nblocks < 1) return cudaErrorInvalidValue;
+  const float *tg = static_cast<const float*>(target), *w1 = static_cast<const float*>(k1),
+              *v1 = static_cast<const float*>(b1), *w2 = static_cast<const float*>(k2),
+              *v2 = static_cast<const float*>(b2), *gs = static_cast<const float*>(g);
+  float* part = static_cast<float*>(partial);
   cudaError_t err = with_mma_instance(d.C, d.act, [&](auto c, auto a) {
     constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
-    k3b_mma_kernel<CC, AA><<<nblocks, kMmaThreads, k3b_mma_smem(CC), stream>>>(
-        static_cast<const bf16*>(s), static_cast<const float*>(target),
-        static_cast<const float*>(k1), static_cast<const float*>(b1),
-        static_cast<const float*>(k2), static_cast<const float*>(b2),
-        static_cast<const float*>(g), static_cast<bf16*>(ds), static_cast<float*>(partial), d);
+    if (variant == 1)
+      k3b_mma_kernel<CC, AA><<<nblocks, kMmaThreads, k3b_mma_smem(CC), stream>>>(
+          static_cast<const bf16*>(s), tg, w1, v1, w2, v2, gs, static_cast<bf16*>(ds), part, d);
+    else
+      k3b_tf32_kernel<CC, AA><<<nblocks, kMmaThreads, k3b_tf32_smem(CC), stream>>>(
+          static_cast<const float*>(s), tg, w1, v1, w2, v2, gs, static_cast<float*>(ds), part,
+          d);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return err;
-  return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(out),
-                              k3b_mma_rows(d, nblocks), d.C * kH1 + kH1 + kH1 * d.F + d.F, stream);
+  return fno::reduce_partials(part, static_cast<float*>(out),
+                              k3b_tc_rows(d, nblocks, variant),
+                              d.C * kH1 + kH1 + kH1 * d.F + d.F, stream);
 }
 
-cudaError_t launch_k3f_mma(const void* s, const void* target, const void* k1, const void* b1,
-                           const void* k2, const void* b2, void* partial, void* sse,
-                           const TailDims& d, cudaStream_t stream) {
+cudaError_t launch_k3f_tc(int variant, const void* s, const void* target, const void* k1,
+                          const void* b1, const void* k2, const void* b2, void* partial,
+                          void* sse, const TailDims& d, cudaStream_t stream) {
   if ((uintptr_t)s % 16) return cudaErrorMisalignedAddress;
-  const int nblocks = k3f_mma_blocks(d);
+  const int nblocks = k3f_tc_blocks(d, variant);
   if (nblocks < 1) return cudaErrorInvalidValue;
+  const float *tg = static_cast<const float*>(target), *w1 = static_cast<const float*>(k1),
+              *v1 = static_cast<const float*>(b1), *w2 = static_cast<const float*>(k2),
+              *v2 = static_cast<const float*>(b2);
+  float* part = static_cast<float*>(partial);
   cudaError_t err = with_mma_instance(d.C, d.act, [&](auto c, auto a) {
     constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
-    k3f_mma_kernel<CC, AA><<<nblocks, kMmaThreads, k3f_mma_smem(CC), stream>>>(
-        static_cast<const bf16*>(s), static_cast<const float*>(target),
-        static_cast<const float*>(k1), static_cast<const float*>(b1),
-        static_cast<const float*>(k2), static_cast<const float*>(b2),
-        static_cast<float*>(partial), d);
+    if (variant == 1)
+      k3f_mma_kernel<CC, AA><<<nblocks, kMmaThreads, k3f_mma_smem(CC), stream>>>(
+          static_cast<const bf16*>(s), tg, w1, v1, w2, v2, part, d);
+    else
+      k3f_tf32_kernel<CC, AA><<<nblocks, kMmaThreads, k3f_tf32_smem(CC), stream>>>(
+          static_cast<const float*>(s), tg, w1, v1, w2, v2, part, d);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return err;
-  return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(sse),
-                              nblocks, 1, stream);
+  return fno::reduce_partials(part, static_cast<float*>(sse), nblocks, 1, stream);
 }
+
+// The dtype a tensor-core variant takes (1 mma: bf16, 2 tf32: f32); -1 for
+// any other variant.
+int tc_dtype(int variant) { return variant == 1 ? fno::kBF16 : variant == 2 ? fno::kF32 : -1; }
 
 }  // namespace
 
-// Bytes of shared memory a block of K3B's (K3F's) mma variant takes at width C.
+// Bytes of shared memory a block of K3B's (K3F's) mma or tf32 variant takes
+// at width C.
 extern "C" int fno_k3b_mma_smem_bytes(int C) { return k3b_mma_smem(C); }
 extern "C" int fno_k3f_mma_smem_bytes(int C) { return k3f_mma_smem(C); }
+extern "C" int fno_k3b_tf32_smem_bytes(int C) { return k3b_tf32_smem(C); }
+extern "C" int fno_k3f_tf32_smem_bytes(int C) { return k3f_tf32_smem(C); }
 
-// Rows of K3B's partial sums for variant 0 (fma: one an image) or 1 (mma:
-// k3b_mma_rows over its persistent grid); 0 on error.
+// Rows of K3B's partial sums for variant 0 (fma: one an image), 1 (mma) or
+// 2 (tf32: k3b_tc_rows over its persistent grid); 0 on error.
 extern "C" int fno_k3b_num_partials(int B, int T, int H, int W, int Tp, int C, int act,
                                     int variant) {
   if (variant == 0) return B * Tp;
   const TailDims d{T, H, W, Tp, 0, 0, C, 0, act, B};
-  const int nblocks = variant == 1 ? k3b_mma_blocks(d) : 0;
-  return nblocks < 1 ? 0 : k3b_mma_rows(d, nblocks);
+  const int nblocks = k3b_tc_blocks(d, variant);
+  return nblocks < 1 ? 0 : k3b_tc_rows(d, nblocks, variant);
 }
 
-// Partial sums of K3F for variant 0 (fma: one an image) or 1 (mma: one a
-// block of its persistent grid); 0 on error.
+// Partial sums of K3F for variant 0 (fma: one an image), 1 (mma) or 2
+// (tf32: one a block of its persistent grid); 0 on error.
 extern "C" int fno_k3f_num_partials(int B, int T, int H, int W, int C, int act, int variant) {
   if (variant == 0) return B * T;
   const TailDims d{T, H, W, T, 0, 0, C, 0, act, B};
-  return variant == 1 ? k3f_mma_blocks(d) : 0;
+  return k3f_tc_blocks(d, variant);
 }
 
-// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["k3f"]); partial holds
-// fno_k3f_num_partials(...) floats.
+// variant: 0 fma, 1 mma (bf16), 2 tf32 (f32) (ops/kernels.py:
+// VARIANTS["k3f"]); partial holds fno_k3f_num_partials(...) floats.
 extern "C" int fno_k3f(const void* s, const void* target, const void* k1, const void* b1,
                        const void* k2, const void* b2, void* partial, void* sse, int B, int T,
                        int H, int W, int Tp, int Hp, int Wp, int C, int H1, int F, int act,
@@ -1067,9 +1555,9 @@ extern "C" int fno_k3f(const void* s, const void* target, const void* k1, const 
   cudaError_t err = check_dims(d, B, H1);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
-    return launch_k3f_mma(s, target, k1, b1, k2, b2, partial, sse, d, st);
+  if (variant == 1 || variant == 2) {
+    if (dtype != tc_dtype(variant)) return cudaErrorInvalidValue;
+    return launch_k3f_tc(variant, s, target, k1, b1, k2, b2, partial, sse, d, st);
   }
   if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32) return launch_k3f<float>(s, target, k1, b1, k2, b2, partial, sse, B, d, st);
@@ -1086,9 +1574,9 @@ extern "C" int fno_k3b(const void* s, const void* target, const void* k1, const 
   cudaError_t err = check_dims(d, B, H1);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
-    return launch_k3b_mma(s, target, k1, b1, k2, b2, g, ds, partial, out, d, st);
+  if (variant == 1 || variant == 2) {
+    if (dtype != tc_dtype(variant)) return cudaErrorInvalidValue;
+    return launch_k3b_tc(variant, s, target, k1, b1, k2, b2, g, ds, partial, out, d, st);
   }
   if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == fno::kF32)

@@ -154,8 +154,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // v rounded to tf32 (10 mantissa bits; to nearest, ties away from zero), as
-// the bits of an f32 whose low 13 mantissa bits are zero.
+// the bits of an f32 whose low 13 mantissa bits are zero: the half unit of
+// the last kept bit added to the bits, the rest cut. For finite v these are
+// cvt_tf32's bits, at two integer operations where the cvt issues at a
+// quarter of their rate. A NaN whose top mantissa bits are all set (the
+// canonical 0x7fffffff) carries into the sign and comes out as +-0.
 __device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// The same rounding by cvt.rna.tf32.f32, which keeps Inf and NaN.
+__device__ __forceinline__ uint32_t cvt_tf32(float v) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
   return r;
@@ -164,10 +173,15 @@ __device__ __forceinline__ uint32_t to_tf32(float v) {
 // v = hi + lo with both parts tf32: hi = rna(v), lo = rna(v - hi). The sum
 // carries 22 mantissa bits (relative error <= 2^-22), so hi.hi + hi.lo +
 // lo.hi, three tf32 MMAs, is an f32 product to ~2^-21 of the sum of
-// |terms|. The host-side twin is ops/kernels.py::split_tf32.
+// |terms|. hi by to_tf32, lo by cvt_tf32: where v is Inf or NaN, v - hi is
+// NaN, so lo is NaN and so is every 3xTF32 product it enters. On an H100
+// (tools/torch_k3b_probe.py) K3B's tf32 variant takes 10.9 ms so; 7.6 with
+// lo by to_tf32 as well (a NaN lost), 14.0 with both by cvt_tf32, 17.7 with
+// to_tf32 testing for Inf and NaN, 12.8 with lo's NaN kept by an FMA. The
+// host-side twin is ops/kernels.py::split_tf32.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
+  lo = cvt_tf32(v - __uint_as_float(hi));
 }
 
 // The split of each register of a fragment (f32 bits in, tf32 pairs out).

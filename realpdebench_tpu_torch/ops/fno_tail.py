@@ -5,9 +5,9 @@ FNO3d's tail and loss, ``SSE = Σ (fc2(gelu(fc1(crop(s)))) − target)²``, run
 as one autograd function:
 
   K3F  crop, fc1 (the last BatchNorm folded in), GELU, fc2, SSE
-       (csrc/fno_tail.cu; bf16: on the tensor cores)
+       (csrc/fno_tail.cu; on the tensor cores: bf16 as mma, f32 as tf32)
   K3B  the same forward recomputed, then ds, dk1, db1, dk2, db2
-       (csrc/fno_tail.cu; bf16: on the tensor cores)
+       (csrc/fno_tail.cu; on the tensor cores: bf16 as mma, f32 as tf32)
 
 so the fc1 activation [positions, 128] and the prediction never exist in
 device memory. ``s`` is the last layer's pre-BN output in the layers' layout

@@ -23,10 +23,10 @@ functions ``k1_variant``, ``t_stage_variant``, ``k2_variant``,
 (``VARIANTS`` counts the launches of each): the T-stage's ``registers`` (a thread
 produces every output of its column) or ``generic``; the others' ``mma``
 (bf16, their products on the tensor cores) or ``fma`` (exact f32
-arithmetic); K1, K2, K2A-lite and K12B also ``tf32`` (f32 tensors, every
-product on the tensor cores as 3xTF32). A caller may name the variant; one
-that does not take the input raises before anything is built. No variant
-gives way to another after a failure.
+arithmetic); K1, K2, K2A-lite, K12B, K3F and K3B also ``tf32`` (f32
+tensors, every product on the tensor cores as 3xTF32). A caller may name
+the variant; one that does not take the input raises before anything is
+built. No variant gives way to another after a failure.
 Nothing here runs at import: this module is imported on machines with no
 GPU and no nvcc, where only the plain twins in ``ops/fno_layer.py``,
 ``ops/fno_tail.py``, ``ops/temporal_attention.py`` and ``ops/galerkin.py``
@@ -77,8 +77,8 @@ LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
 # order is the variant code of the csrc/ entry point.
 VARIANTS = {"k1": {"fma": 0, "mma": 0, "tf32": 0}, "t_stage": {"generic": 0, "registers": 0},
             "k2": {"fma": 0, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 0, "mma": 0, "tf32": 0},
-            "k12b": {"fma": 0, "mma": 0, "tf32": 0}, "k3f": {"fma": 0, "mma": 0},
-            "k3b": {"fma": 0, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
+            "k12b": {"fma": 0, "mma": 0, "tf32": 0}, "k3f": {"fma": 0, "mma": 0, "tf32": 0},
+            "k3b": {"fma": 0, "mma": 0, "tf32": 0}, "ta_fwd": {"fma": 0, "mma": 0},
             "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
@@ -243,8 +243,11 @@ def k2a_lite_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
 
 
 # csrc/fno_tail.cu, K3B's mma variant: widths, positions a tile takes, the
-# padded row strides of its [.][128] tiles and of its do tile
+# padded row strides of its [.][128] tiles and of its do tile; the tf32
+# variants' f32 row strides of k1 and k2ᵀ (kTfKS), of the h1 / du tile
+# (kTfHS) and of doᵀ (kTfDS)
 K3B_MMA_WIDTHS, K3B_MMA_TILE, K3B_MMA_KS, K3B_MMA_DOS = (32, 64, 128), 128, 136, 24
+K3_TF32_KS, K3_TF32_HS, K3_TF32_DS = 136, 132, 136
 
 
 def k3f_mma_smem_bytes(C: int) -> int:
@@ -255,13 +258,19 @@ def k3f_mma_smem_bytes(C: int) -> int:
     return 2 * (2 * C * KS + 2 * P * (C + 8) + 2 * 8 * KS) + 4 * (128 + 8) + 8 * 8
 
 
+def k3f_tf32_smem_bytes(C: int) -> int:
+    """Shared memory of a block of K3F's tf32 variant (csrc/fno_tail.cu::
+    k3f_tf32_smem), all f32: two z stages [128][C + 4], k1 [C][136], k2ᵀ
+    [8][136], b1, b2; the warps' sums (f64)."""
+    return 4 * (2 * K3B_MMA_TILE * (C + 4) + (C + 8) * K3_TF32_KS + 128 + 8) + 8 * 8
+
+
 def k3f_variant(dtype, C: int, F: int = 3, aligned: bool = True) -> str:
-    """'mma' for bfloat16 at an instantiated width (32, 64, 128), F <= 8
-    and 16-byte aligned s (K3B's conditions: the two share one forward),
-    else 'fma'."""
-    if (dtype == torch.bfloat16 and aligned and C in K3B_MMA_WIDTHS and F <= 8
-            and k3f_mma_smem_bytes(C) <= MAX_SMEM_BYTES):
-        return "mma"
+    """At an instantiated width (32, 64, 128), F <= 8 and 16-byte aligned s
+    (K3B's conditions: the two share one forward): 'mma' for bfloat16,
+    'tf32' for float32; else 'fma'."""
+    if aligned and C in K3B_MMA_WIDTHS and F <= 8:
+        return _tc_choice(dtype, k3f_mma_smem_bytes(C), k3f_tf32_smem_bytes(C))
     return "fma"
 
 
@@ -274,12 +283,27 @@ def k3b_mma_smem_bytes(C: int) -> int:
             + 4 * (128 * 8 + 128 + 8 + 64))
 
 
+def k3b_tf32_stages(C: int) -> int:
+    """z stages of a block of K3B's tf32 variant (csrc/fno_tail.cu::
+    k3b_tf32_stages): two up to C 64, one at C 128."""
+    return 2 if C <= 64 else 1
+
+
+def k3b_tf32_smem_bytes(C: int) -> int:
+    """Shared memory of a block of K3B's tf32 variant (csrc/fno_tail.cu::
+    k3b_tf32_smem), all f32: its z stages [128][C + 4], k1 [C][136], the h1
+    / du tile [128][132], doᵀ [8][136], k2ᵀ [8][136], k2 [128][8], b1, b2,
+    the warps' db2 [8][8]."""
+    P = K3B_MMA_TILE
+    return 4 * (k3b_tf32_stages(C) * P * (C + 4) + (C + 8) * K3_TF32_KS + P * K3_TF32_HS
+                + 8 * K3_TF32_DS + 128 * 8 + 128 + 8 + 64)
+
+
 def k3b_variant(dtype, C: int, F: int = 3, aligned: bool = True) -> str:
-    """'mma' for bfloat16 at an instantiated width (32, 64, 128), F <= 8
-    and 16-byte aligned s, else 'fma'."""
-    if (dtype == torch.bfloat16 and aligned and C in K3B_MMA_WIDTHS and F <= 8
-            and k3b_mma_smem_bytes(C) <= MAX_SMEM_BYTES):
-        return "mma"
+    """At an instantiated width (32, 64, 128), F <= 8 and 16-byte aligned s:
+    'mma' for bfloat16, 'tf32' for float32; else 'fma'."""
+    if aligned and C in K3B_MMA_WIDTHS and F <= 8:
+        return _tc_choice(dtype, k3b_mma_smem_bytes(C), k3b_tf32_smem_bytes(C))
     return "fma"
 
 
@@ -340,19 +364,24 @@ def split_bf16(t: torch.Tensor):
 
 def to_tf32(t: torch.Tensor) -> torch.Tensor:
     """t (float32) rounded to tf32, to nearest with ties away from zero, as
-    float32 whose low 13 mantissa bits are zero: cvt.rna.tf32.f32 (the half
-    unit of the last kept bit added to the magnitude's bits, the rest cut)."""
+    float32 whose low 13 mantissa bits are zero: the half unit of the last
+    kept bit added to the bits, the rest cut (cvt.rna.tf32.f32 on finite
+    values; a NaN whose top mantissa bits are set comes out as ±0). Host
+    twin of csrc/mma.cuh::to_tf32."""
     bits = t.float().contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def split_tf32(t: torch.Tensor):
     """(hi, lo) float32 tensors of tf32 values with hi + lo = t to 2^-22
-    relative: hi = rna(t), lo = rna(t - hi). Host twin of
+    relative: hi = rna(t) by ``to_tf32``, lo = rna(t - hi) as
+    cvt.rna.tf32.f32 rounds (``to_tf32`` on finite values, Inf and NaN
+    kept), so lo is NaN where t is Inf or NaN. Host twin of
     csrc/mma.cuh::split_tf32."""
     t = t.float()
     hi = to_tf32(t)
-    return hi, to_tf32(t - hi)
+    d = t - hi
+    return hi, torch.where(torch.isfinite(d), to_tf32(d), d)
 
 
 def _variant_code(kernel: str, name: str) -> int:
@@ -445,9 +474,11 @@ SIGNATURES = {
     "fno_k3f": ([_P] * 8 + [_I] * 13 + [_P], _I),
     "fno_k3f_num_partials": ([_I] * 7, _I),
     "fno_k3f_mma_smem_bytes": ([_I], _I),
+    "fno_k3f_tf32_smem_bytes": ([_I], _I),
     "fno_k3b": ([_P] * 10 + [_I] * 13 + [_P], _I),
     "fno_k3b_num_partials": ([_I] * 8, _I),
     "fno_k3b_mma_smem_bytes": ([_I], _I),
+    "fno_k3b_tf32_smem_bytes": ([_I], _I),
     "ta_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "ta_fwd_mma_smem_bytes": ([_I] * 3, _I),
     "ta_bwd_num_partials": ([_I] * 6, _I),
@@ -473,7 +504,7 @@ def library() -> ctypes.CDLL:
 @lru_cache(maxsize=64)
 def _layouts_agree(kernel: str, variant: str, *shape: int) -> bool:
     """The shared-memory size of a block of a tensor-core variant (K1,
-    K2A-lite, K2, K12B) as its source lays it out
+    K2A-lite, K2, K12B, K3F, K3B) as its source lays it out
     (``fno_<kernel>_<variant>_smem_bytes``) against this module's, on which
     the variant functions decide; ``shape`` is both functions' arguments."""
     mine = globals()[f"{kernel}_{variant}_smem_bytes"](*shape)
@@ -526,10 +557,10 @@ _TC_DTYPES = {"mma": torch.bfloat16, "tf32": torch.float32}
 
 def _tc_variant(kernel: str, chosen: str, variant: str | None, dtype, takes: str,
                 got: str) -> tuple:
-    """(name, code) of the variant of K1, K2, K2A-lite or K12B that runs: the
-    one named, or ``chosen``. A named tensor-core variant (mma, tf32) that
-    the input does not take raises here, before anything is built or
-    launched."""
+    """(name, code) of the variant of K1, K2, K2A-lite, K12B, K3F or K3B that
+    runs: the one named, or ``chosen``. A named tensor-core variant (mma,
+    tf32) that the input does not take raises here, before anything is
+    built or launched."""
     name = chosen if variant is None else variant
     code = _variant_code(kernel, name)
     if name in _TC_DTYPES and chosen != name:
@@ -842,7 +873,9 @@ def k12b(x, a, b, wp, s, ds, ds1, ds2, dy, ehr, ehi, ewr, ewi, *, Hp: int,
     return dx, dwp, da, db, dbp
 
 
-def _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims):
+def _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims, act):
+    if act not in ("exact", "tanh"):
+        raise ValueError(f"the tail kernels take act 'exact' or 'tanh'; got {act!r}")
     dev, f32 = s.device, torch.float32
     B, Tp, Hp, Wp, C = dims
     T, H, W = tail_dims
@@ -859,23 +892,21 @@ def _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims):
 
 def _tail_variant(kernel: str, s, C: int, F: int, variant: str | None):
     """(name, code) of the variant of K3F or K3B that runs on s: the one
-    named, or the one ``k3f_variant`` / ``k3b_variant`` chooses; a named mma
-    variant that cannot take s raises, as do shared-memory layouts of this
-    module and fno_tail.cu that differ."""
-    choose, smem = ((k3f_variant, k3f_mma_smem_bytes) if kernel == "k3f"
-                    else (k3b_variant, k3b_mma_smem_bytes))
-    chosen = choose(s.dtype, C, F, aligned(s))
-    name = chosen if variant is None else variant
-    code = _variant_code(kernel, name)
-    if name == "mma":
-        if chosen != "mma":
-            raise ValueError(f"{kernel}: the mma variant takes bfloat16, C in {K3B_MMA_WIDTHS}, "
-                             f"F <= 8 and 16-byte aligned s; got {s.dtype}, C={C}, F={F}, "
-                             f"aligned={aligned(s)}")
-        if getattr(library(), f"fno_{kernel}_mma_smem_bytes")(C) != smem(C):
-            raise RuntimeError(f"{kernel}: the shared-memory layouts of kernels.py and "
-                               "fno_tail.cu differ")
-    return name, code
+    named, or the one ``k3f_variant`` / ``k3b_variant`` chooses; see
+    ``_tc_variant``."""
+    ok = aligned(s)
+    choose = k3f_variant if kernel == "k3f" else k3b_variant
+    return _tc_variant(kernel, choose(s.dtype, C, F, ok), variant, s.dtype,
+                       f"C in {K3B_MMA_WIDTHS}, F <= 8 and 16-byte aligned s",
+                       f"C={C}, F={F}, aligned={ok}")
+
+
+def _tail_layouts(kernel: str, name: str, C: int) -> None:
+    """A tensor-core variant's shared memory as fno_tail.cu lays it out
+    against this module's, on which the variant functions decide."""
+    if name in _TC_DTYPES and not _layouts_agree(kernel, name, C):
+        raise RuntimeError(f"{kernel}: the shared-memory layouts of kernels.py and "
+                           "fno_tail.cu differ")
 
 
 def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str,
@@ -883,10 +914,11 @@ def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str,
     """SSE of the fused tail (0-d f32 tensor); see csrc/fno_tail.cu.
     ``variant`` names one of VARIANTS['k3f']; by default ``k3f_variant``
     chooses."""
+    ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims, act)
     dt = _io_dtype(s)
-    ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims)
     B, T, H, W, C, F = (ints[i] for i in (0, 1, 2, 3, 7, 9))
     name, code = _tail_variant("k3f", s, C, F, variant)
+    _tail_layouts("k3f", name, C)
     lib = library()
     with torch.cuda.device(s.device):   # the mma grid fills this card's SMs
         nparts = lib.fno_k3f_num_partials(B, T, H, W, C, ACT_CODES[act], code)
@@ -906,11 +938,12 @@ def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str,
     """With g = dL/dSSE (0-d f32 on the card): (ds like s, zero outside the
     crop; dk1 [C, H1], db1 [H1], dk2 [H1, F], db2 [F] f32). ``variant`` names
     one of VARIANTS['k3b']; by default ``k3b_variant`` chooses."""
+    ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims, act)
     dt = _io_dtype(s)
-    ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims)
     _check("g", g, s.device, torch.float32, ())
     B, T, H, W, Tp, C, H1, F = (ints[i] for i in (0, 1, 2, 3, 4, 7, 8, 9))
     name, code = _tail_variant("k3b", s, C, F, variant)
+    _tail_layouts("k3b", name, C)
     lib = library()
     n = C * H1 + H1 + H1 * F + F
     ds = torch.empty_like(s)

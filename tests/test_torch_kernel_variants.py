@@ -171,12 +171,12 @@ def _fno_config(scenario):
 @pytest.mark.parametrize("scenario", sorted(p.parent.name for p in CONFIGS.glob("*/fno.yaml")))
 def test_shipped_configs_choose_the_redesigned_variants(scenario):
     """Every shipped FNO config (cylinder 4/12/16 at width 64, combustion
-    4/16/16, fsi at width 128, ...) runs K1, K2, K2A-lite, K12B and K3B on the
-    tensor cores and the T-stage from registers under bf16 compute; under f32
-    K1, K2, K2A-lite and K12B on the tensor cores as 3xTF32 (their tf32 blocks
-    fit at every shipped width, fsi's 128 included) and K3F and K3B in exact
-    f32, at a 20-frame window padded to 26 and a grid up to 134 wide; K12B's
-    fma variant takes every width, fsi's 128 included."""
+    4/16/16, fsi at width 128, ...) runs K1, K2, K2A-lite, K12B, K3F and K3B
+    on the tensor cores and the T-stage from registers under bf16 compute;
+    under f32 all six on the tensor cores as 3xTF32 (their tf32 blocks fit at
+    every shipped width, fsi's 128 included), at a 20-frame window padded to
+    26 and a grid up to 134 wide; K12B's fma variant takes every width, fsi's
+    128 included."""
     C, m1, m2, m3 = _fno_config(scenario)
     for Wp in (70, 134):
         assert kernels.k2_variant(torch.bfloat16, C, m3, Wp, 2 * m2) == "mma"
@@ -190,9 +190,9 @@ def test_shipped_configs_choose_the_redesigned_variants(scenario):
         assert C <= 128 and 256 % C == 0      # K12B fma and the tail kernels
     F_ = 3 * 2   # the widest fc2 of the shipped windows (3 channels, 2 steps)
     assert kernels.k3b_variant(torch.bfloat16, C, F_) == "mma"
-    assert kernels.k3b_variant(torch.float32, C, F_) == "fma"
+    assert kernels.k3b_variant(torch.float32, C, F_) == "tf32"
     assert kernels.k3f_variant(torch.bfloat16, C, F_) == "mma"
-    assert kernels.k3f_variant(torch.float32, C, F_) == "fma"
+    assert kernels.k3f_variant(torch.float32, C, F_) == "tf32"
     for dtype in (torch.bfloat16, torch.float32):
         for tin, tout in ((26, 2 * m1), (2 * m1, 26)):
             assert kernels.t_stage_variant(dtype, C, tin, tout) == "registers"
@@ -301,8 +301,9 @@ def test_variant_counters_start_at_zero_and_reset():
                                 "k2": {"fma": 0, "mma": 0, "tf32": 0},
                                 "k2a_lite": {"fma": 0, "mma": 0, "tf32": 0},
                                 "k12b": {"fma": 0, "mma": 0, "tf32": 0},
-                                "k3f": {"fma": 0, "mma": 0},
-                                "k3b": {"fma": 0, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
+                                "k3f": {"fma": 0, "mma": 0, "tf32": 0},
+                                "k3b": {"fma": 0, "mma": 0, "tf32": 0},
+                                "ta_fwd": {"fma": 0, "mma": 0},
                                 "ta_bwd": {"fma": 0, "mma": 0},
                                 "gk_scores": {"fma": 0, "mma": 0}}
     assert not any(kernels.LAUNCHES.values())
@@ -592,13 +593,15 @@ def test_k2a_lite_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     ((torch.bfloat16, 96, 3), "fma"),
     ((torch.bfloat16, 8, 6), "fma"),
     ((torch.bfloat16, 64, 9), "fma"),      # F past 8
-    ((torch.float32, 64, 3), "fma"),       # exact f32 arithmetic
+    ((torch.float32, 64, 3), "tf32"),      # f32 on the tensor cores as 3xTF32
 ])
 def test_k3b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert kernels.k3b_variant(*args) == want
     assert kernels.k3b_variant(*args) == want        # no state
     if want == "mma":
         assert kernels.k3b_mma_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
+    if want == "tf32":
+        assert kernels.k3b_tf32_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("args, want", [
@@ -609,8 +612,8 @@ def test_k3b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     ((torch.bfloat16, 96, 3), "fma"),
     ((torch.bfloat16, 256, 3), "fma"),     # C past 128
     ((torch.bfloat16, 64, 9), "fma"),      # F past 8
-    ((torch.float32, 64, 3), "fma"),       # exact f32 arithmetic
-    ((torch.float32, 128, 6), "fma"),
+    ((torch.float32, 64, 3), "tf32"),      # f32 on the tensor cores as 3xTF32
+    ((torch.float32, 128, 6), "tf32"),
 ])
 def test_k3f_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     """K3F takes K3B's conditions (the two share one forward) and K3F's
@@ -621,6 +624,8 @@ def test_k3f_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert kernels.k3f_variant(*args, aligned=False) == "fma"
     if want == "mma":
         assert kernels.k3f_mma_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
+    if want == "tf32":
+        assert kernels.k3f_tf32_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
     assert 2 * (kernels.k3f_mma_smem_bytes(64) + 1024) <= 228 * 1024
 
 
@@ -665,16 +670,41 @@ def test_ta_bwd_mma_block_fits_three_times_an_sm_at_the_unet_shape():
 ])
 def test_a_named_tail_mma_variant_refuses_what_it_does_not_take(kernel, dtype, C, F_, offset):
     """The choice before the launch: a named mma variant that cannot take s
-    raises before anything is built or launched; the unnamed choice and a
-    named fma take it."""
+    raises before anything is built or launched; the unnamed choice (tf32
+    for aligned f32 at C 64, else fma) and a named fma take it."""
     base = torch.zeros(4 * C + 8, dtype=dtype)
     s = base[offset:offset + 4 * C].view(4, C)
     with pytest.raises(ValueError, match="mma variant"):
         kernels._tail_variant(kernel, s, C, F_, "mma")
     with pytest.raises(ValueError, match="no variant"):
         kernels._tail_variant(kernel, s, C, F_, "wgmma")
-    assert kernels._tail_variant(kernel, s, C, F_, None) == ("fma", 0)
+    chosen = "tf32" if (dtype, C, F_, offset) == (torch.float32, 64, 3, 0) else "fma"
+    assert kernels._tail_variant(kernel, s, C, F_, None) == (
+        chosen, list(kernels.VARIANTS[kernel]).index(chosen))
     assert kernels._tail_variant(kernel, s, C, F_, "fma") == ("fma", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["k3f", "k3b"])
+def test_tail_kernels_refuse_act_none(kernel, dtype):
+    """The tail kernels take the two GELUs that their twin and the JAX fused
+    tail take: act 'none' raises before a variant is chosen or anything is
+    built, as the twin raises on it; nothing is counted."""
+    shape = K3B_SHAPES[2]
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=45)
+    s = s.to(dtype)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="none")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="take act 'exact' or 'tanh'"):
+        if kernel == "k3f":
+            kernels.k3f(s, *tail, **kw)
+        else:
+            kernels.k3b(s, *tail, gl, **kw)
+    with pytest.raises(ValueError, match="GELU variant"):
+        (ft.k3f_plain if kernel == "k3f" else ft.k3b_plain)(
+            s.float(), *tail, *(() if kernel == "k3f" else (gl,)), **kw)
+    assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("dtype, T, heads, d, offset", [

@@ -11,8 +11,8 @@ fill no whole tile (S 300, 37); for the Galerkin scores, N that fills no
 whole tile (300, 37), head widths 16, 32 and 64, odd B·h and a last group
 of heads narrower than the block (h 5); for the variants of the T-stage and
 K2, K1, K2A-lite, K12B, K3F, K3B, the TA forward and backward and the
-Galerkin scores (K2's and K12B's f32 tf32 variants beside their bf16 mma
-ones), shapes on both sides of each choice
+Galerkin scores (the f32 tf32 variants of K1, K2, K2A-lite, K12B, K3F and
+K3B beside their bf16 mma ones), shapes on both sides of each choice
 (``kernels.t_stage_variant``, ``kernels.k2_variant`` and the others),
 widths 32, 64 and 128 for the tensor-core variants of the FNO kernels, head
 widths 16, 32 and 64, T from 5 to 32 and the UNet step's four site counts
@@ -599,8 +599,8 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
     assert {k: dict(v) for k, v in kernels.VARIANTS.items()} == {
         "k1": {"fma": 1, "mma": 0, "tf32": 0}, "t_stage": {"generic": 1, "registers": 0},
         "k2": {"fma": 1, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 1, "mma": 0, "tf32": 0},
-        "k12b": {"fma": 1, "mma": 0, "tf32": 0}, "k3f": {"fma": 1, "mma": 0},
-        "k3b": {"fma": 1, "mma": 0}, "ta_fwd": {"fma": 0, "mma": 0},
+        "k12b": {"fma": 1, "mma": 0, "tf32": 0}, "k3f": {"fma": 1, "mma": 0, "tf32": 0},
+        "k3b": {"fma": 1, "mma": 0, "tf32": 0}, "ta_fwd": {"fma": 0, "mma": 0},
         "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
     with pytest.raises(ValueError, match="mma variant"):
         tfl.k1(x, a, b, **geo, act="exact", variant="mma")
@@ -708,10 +708,11 @@ K3B_SHAPES = [  # (B, Tp, Hp, Wp, C, T, H, W, F)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", K3B_SHAPES)
 def test_k3b_variants_match_twin(cuda, shape, dtype):
-    """K3B in the variant its dtype and width choose, and in bf16 the fma
-    variant named on the same inputs, against the twin: ds to TOL and zero
-    outside the crop, dk1, db1, dk2 and db2 to 1e-4 of the sum of |terms|;
-    two calls bit-equal; the per-variant counters."""
+    """K3B in the variant its dtype and width choose (mma in bf16, tf32 in
+    f32 at C 32, 64, 128) and, beside a tensor-core one, the fma variant
+    named on the same inputs, against the twin: ds to TOL and zero outside
+    the crop, dk1, db1, dk2 and db2 to 1e-4 of the sum of |terms|; two calls
+    bit-equal; the per-variant counters."""
     B, Tp, Hp, Wp, C, T, H, W, F = shape
     g = torch.Generator(device=cuda).manual_seed(13)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -721,7 +722,8 @@ def test_k3b_variants_match_twin(cuda, shape, dtype):
             0.1 * rn(F))
     gl = torch.tensor(1.0 / (B * T * H * W * F), device=cuda)
     chosen = kernels.k3b_variant(dtype, C, F)
-    assert chosen == ("mma" if dtype == torch.bfloat16 and C in (32, 64, 128) else "fma")
+    tc = "mma" if dtype == torch.bfloat16 else "tf32"
+    assert chosen == (tc if C in (32, 64, 128) else "fma")
     kernels.reset_launches()
     got = tft.k3b(s, *tail, gl, **kw)
     ref = tft.k3b_plain(s, *tail, gl, **kw)
@@ -733,7 +735,7 @@ def test_k3b_variants_match_twin(cuda, shape, dtype):
     du = (do @ tail[3].t()) * tfl._act_grad(u1, "exact")
     terms = (z.abs().t() @ du.abs(), du.abs().sum(0), h1.abs().t() @ do.abs(), do.abs().sum(0))
     runs = [got]
-    if chosen == "mma":
+    if chosen != "fma":
         runs.append(tft.k3b(s, *tail, gl, **kw, variant="fma"))
     for run in runs:
         _close(run[0], ref[0], dtype)
@@ -742,7 +744,7 @@ def test_k3b_variants_match_twin(cuda, shape, dtype):
         for u, w, t in zip(run[1:], ref[1:], terms):
             _sums_close(u, w, t)
     assert all(torch.equal(u, w) for u, w in zip(got, tft.k3b(s, *tail, gl, **kw)))
-    want = {"fma": 0, "mma": 0, chosen: 2}
+    want = {"fma": 0, "mma": 0, "tf32": 0, chosen: 2}
     want["fma"] += len(runs) - 1
     assert kernels.VARIANTS["k3b"] == want and kernels.LAUNCHES["k3b"] == sum(want.values())
 
@@ -787,6 +789,57 @@ def test_k2a_lite_and_k3b_variants_refuse_what_they_do_not_take(cuda):
     assert not any(kernels.LAUNCHES.values())
 
 
+def test_tail_tf32_variants_refuse_what_they_do_not_take(cuda):
+    """A named tf32 variant of K3F or K3B on bfloat16, at a width it is not
+    built for or on a misaligned f32 view raises before anything is
+    launched; nothing is counted."""
+    kernels.reset_launches()
+    for dtype, C, F, offset in ((torch.bfloat16, 64, 3, 0), (torch.float32, 16, 3, 0),
+                                (torch.float32, 96, 3, 0), (torch.float32, 64, 3, 1)):
+        B, Tp, Hp, Wp, T, H, W = 1, 3, 9, 12, 2, 7, 10
+        n = B * Tp * Hp * Wp * C
+        s = torch.zeros(n + 8, device=cuda, dtype=dtype)[offset:offset + n].view(
+            B * Tp, Hp * Wp // 2, 2 * C)
+        tail = (torch.zeros(B, T, H, W, F, device=cuda), torch.zeros(C, 128, device=cuda),
+                torch.zeros(128, device=cuda), torch.zeros(128, F, device=cuda),
+                torch.zeros(F, device=cuda))
+        kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+        with pytest.raises(ValueError, match="tf32 variant takes float32"):
+            tft.k3f(s, *tail, **kw, variant="tf32")
+        with pytest.raises(ValueError, match="tf32 variant takes float32"):
+            tft.k3b(s, *tail, torch.tensor(1.0, device=cuda), **kw, variant="tf32")
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("where, value", [("s", "nan"), ("s", "inf"), ("k1", "nan"),
+                                          ("k1", "-inf")])
+@pytest.mark.parametrize("C", [64, 128])
+def test_tail_tf32_variants_keep_non_finite_inputs(cuda, C, where, value):
+    """A NaN or an Inf in s (inside the crop) or in k1: K3F's SSE and K3B's
+    ds, dk1, db1, dk2 and db2 from the tf32 variants are non-finite wherever
+    the twin's or the fma variant's are (the tf32 split keeps Inf and NaN
+    non-finite in lo, csrc/mma.cuh::split_tf32), and the fault shows in each."""
+    B, Tp, Hp, Wp, T, H, W, F = 1, 3, 9, 20, 2, 7, 16, 3
+    g = torch.Generator(device=cuda).manual_seed(15)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    s = rn(B * Tp, Hp * Wp // 2, 2 * C)
+    tail = [rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128), rn(128, F) / 128 ** 0.5,
+            0.1 * rn(F)]
+    if where == "s":
+        s.view(B, Tp, Hp, Wp, C)[0, 1, 2, 3, 5] = float(value)
+    else:
+        tail[1][5, 7] = float(value)
+    gl = torch.tensor(1.0 / (B * T * H * W * F), device=cuda)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    assert kernels.k3b_variant(torch.float32, C, F) == "tf32"
+    out = lambda v: (tft.k3f(s, *tail, **kw, variant=v), *tft.k3b(s, *tail, gl, **kw, variant=v))
+    got, fma = out("tf32"), out("fma")
+    ref = (tft.k3f_plain(s, *tail, **kw), *tft.k3b_plain(s, *tail, gl, **kw))
+    for name, gv, fv, rv in zip(("sse", "ds", "dk1", "db1", "dk2", "db2"), got, fma, ref):
+        bad = ~torch.isfinite(rv) | ~torch.isfinite(fv)
+        assert bad.any() and not torch.isfinite(gv[bad]).any(), name
+
+
 K3F_SHAPES = [  # (B, Tp, Hp, Wp, C, T, H, W, F)
     (2, 7, 15, 22, 128, 5, 13, 18, 6),    # fsi's width, an uneven crop
     (1, 6, 13, 16, 32, 4, 10, 12, 6),
@@ -799,10 +852,11 @@ K3F_SHAPES = [  # (B, Tp, Hp, Wp, C, T, H, W, F)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", K3F_SHAPES)
 def test_k3f_variants_match_twin(cuda, shape, dtype, act):
-    """K3F in the variant its dtype and width choose, and in bf16 the fma
-    variant named on the same inputs, against the twin and against each
-    other: the SSE (an f32 sum in both dtypes) to 1e-4 of max|ref|; two
-    calls bit-equal; the per-variant counters."""
+    """K3F in the variant its dtype and width choose (mma in bf16, tf32 in
+    f32 at C 32, 64, 128) and, beside a tensor-core one, the fma variant
+    named on the same inputs, against the twin and against each other: the
+    SSE (an f32 sum in both dtypes) to 1e-4 of max|ref|; two calls
+    bit-equal; the per-variant counters."""
     B, Tp, Hp, Wp, C, T, H, W, F = shape
     g = torch.Generator(device=cuda).manual_seed(14)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -811,14 +865,15 @@ def test_k3f_variants_match_twin(cuda, shape, dtype, act):
     tail = (rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128), rn(128, F) / 128 ** 0.5,
             0.1 * rn(F))
     chosen = kernels.k3f_variant(dtype, C, F)
-    assert chosen == ("mma" if dtype == torch.bfloat16 and C in (32, 64, 128) else "fma")
+    tc = "mma" if dtype == torch.bfloat16 else "tf32"
+    assert chosen == (tc if C in (32, 64, 128) else "fma")
     kernels.reset_launches()
     got = tft.k3f(s, *tail, **kw)
     ref = tft.k3f_plain(s, *tail, **kw)
     _close(got, ref, torch.float32)
     assert torch.equal(got, tft.k3f(s, *tail, **kw))
-    want = {"fma": 0, "mma": 0, chosen: 2}
-    if chosen == "mma":
+    want = {"fma": 0, "mma": 0, "tf32": 0, chosen: 2}
+    if chosen != "fma":
         fma = tft.k3f(s, *tail, **kw, variant="fma")
         _close(fma, ref, torch.float32)
         _close(got, fma, torch.float32)

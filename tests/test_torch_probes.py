@@ -27,9 +27,13 @@ def tools():
                                            ("torch_ta_probe", "temporal_attention.cu")])
 def test_source_patches_find_their_anchors(tools, probe, source):
     text = (kernels.CSRC / source).read_text()
+    mma = (kernels.CSRC / "mma.cuh").read_text()
+    mma_patches = getattr(tools(probe), "MMA_PATCHES", {})
     for name, (patch, *_) in tools(probe).VARIANTS.items():
         if patch is not None:   # None: the parent's source, as it is
-            assert patch(text) != text or "as_is" in name, name
+            changed = patch(text) != text or (name in mma_patches
+                                              and mma_patches[name](mma) != mma)
+            assert changed or "as_is" in name, name
 
 
 def test_tf32_probe_patches_find_their_anchors(tools):
@@ -38,6 +42,8 @@ def test_tf32_probe_patches_find_their_anchors(tools):
         header = (kernels.CSRC / probe.HEADER[source]).read_text()
         text = (kernels.CSRC / source).read_text()
         changed = spatch(text) != text or (hpatch is not None and hpatch(header) != header)
+        mma = (kernels.CSRC / "mma.cuh").read_text()
+        changed = changed or (name in probe.MMA_PATCHES and probe.MMA_PATCHES[name](mma) != mma)
         assert changed or "as_is" in name, name
 
 

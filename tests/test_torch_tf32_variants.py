@@ -1,5 +1,5 @@
-"""The tf32 variants of the port's K1, K2, K2A-lite and K12B, as far as the
-CPU shows.
+"""The tf32 variants of the port's K1, K2, K2A-lite, K12B, K3F and K3B, as
+far as the CPU shows.
 
 The kernels run only on the card (tests/test_torch_kernels.py, marker
 ``gpu``). Here: the host side of the variants that carry f32 tensors
@@ -8,8 +8,9 @@ hi·hi + hi·lo + lo·hi, the lo·lo term dropped): the tf32 split, the f32
 DFT tables, each kernel's arithmetic replayed in plain PyTorch with its
 splits, its rounding points (the f32 values it keeps in shared memory) and
 its erf (Abramowitz & Stegun 7.1.26, |error| <= 3e-7), summed in f64, against
-the twin's arithmetic in f64 (1e-5·max|ref| for s, dx, y and dg, 1e-6 of the
-sum of |terms| for the statistics and for dWp, da, db and dbp) and against
+the twin's arithmetic in f64 (1e-5·max|ref| for s, dx, y, dg and ds, 1e-6
+of the sum of |terms| for the statistics and for dWp, da, db and dbp, 1e-5
+for the tail's SSE, dk1, db1, dk2 and db2) and against
 the Pallas kernels in interpret mode (rtol 2e-4, atol 2e-4·max|ref|); the
 choice of variant at the shipped geometries and at the shapes it refuses;
 the blocks' shared memory; a named tf32 variant refused before anything is
@@ -18,6 +19,7 @@ built.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +28,10 @@ import torch.nn.functional as F
 
 from realpdebench_tpu.ops.pallas import fno_layer as jfl
 from realpdebench_tpu_torch.ops import fno_layer as tfl
+from realpdebench_tpu_torch.ops import fno_tail as ft
 from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
+from tests.test_torch_kernel_variants import K3B_SHAPES, _jax_fused_tail, _k3b_inputs
 
 GEOMETRIES = [  # (Hp, Wp, m2, m3, C): the cylinder's, and the gpu tests' at C 32, 64, 128
     (70, 134, 12, 16, 64),
@@ -72,6 +76,28 @@ def test_to_tf32_rounds_to_nearest_ties_away():
     for sign in (1.0, -1.0):
         got = kernels.to_tf32(bits.view(torch.float32) * sign)
         assert torch.equal(got, want.view(torch.float32) * sign)
+
+
+def test_split_tf32_keeps_inf_and_nan_non_finite():
+    """Inf and NaN (the canonical NaN, its negative, a NaN whose payload
+    lies only in the 13 dropped bits, the quiet NaN): lo is NaN, so a
+    3xTF32 product that takes the pair is NaN, though hi's rounding alone
+    takes the canonical NaN to ±0; Inf keeps hi = Inf. On finite values lo
+    is ``to_tf32`` of t - hi, bit for bit."""
+    bits = torch.tensor([0x7FFFFFFF, -1, 0x7F800001, 0x7FC00000, 0x7F800000, -0x800000],
+                        dtype=torch.int32)
+    t = bits.view(torch.float32)
+    hi, lo = kernels.split_tf32(t)
+    assert torch.isnan(lo).all()
+    assert torch.equal(hi[4:], t[4:])                     # +Inf, -Inf
+    assert not bool(kernels.to_tf32(t[:2]).isnan().any())  # the carry into the sign
+    b = _pair(torch.full((6,), 0.75))
+    assert torch.isnan(hi.double() * b[0] + hi.double() * b[1] + lo.double() * b[0]).all()
+    finite = _table("random").flatten()
+    hi, lo = kernels.split_tf32(finite)
+    fb = finite.view(torch.int32)
+    assert torch.equal(hi.view(torch.int32), (fb + 0x1000) & -0x2000)
+    assert torch.equal(lo.view(torch.int32), kernels.to_tf32(finite - hi).view(torch.int32))
 
 
 @pytest.mark.parametrize("kernel", ["k2", "k12b"])
@@ -132,7 +158,9 @@ def _act_fast(u, act):
 
 
 def _act_grad_fast(u, act):
-    """fno::act_grad_fast (f32)."""
+    """fno::act_grad_fast (f32); the tanh form as fno::act_grad computes it."""
+    if act == "tanh":
+        return gelu_grad(u, "tanh")
     if act == "none":
         return torch.ones_like(u)
     phi = torch.exp(-0.5 * u * u) / math.sqrt(2.0 * math.pi)
@@ -686,6 +714,44 @@ def test_tf32_blocks_fit_twice_an_sm_at_the_cylinder_width():
         assert size <= kernels.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("kernel", ["k3f", "k3b"])
+@pytest.mark.parametrize("args, want", [
+    ((torch.float32, 64, 3), "tf32"),      # the cylinder
+    ((torch.float32, 64, 6), "tf32"),      # a two-step window of 3 channels
+    ((torch.float32, 128, 6), "tf32"),     # fsi's width
+    ((torch.float32, 32, 8), "tf32"),      # F at its bound
+    ((torch.float32, 64, 9), "fma"),       # F past 8
+    ((torch.float32, 16, 3), "fma"),       # C not instantiated
+    ((torch.float32, 96, 3), "fma"),
+    ((torch.float32, 256, 3), "fma"),      # C past 128
+    ((torch.bfloat16, 64, 3), "mma"),      # bf16 keeps its variant
+])
+def test_tail_tf32_variant_is_a_pure_function_of_dtype_and_shape(kernel, args, want):
+    """K3F and K3B choose alike (they share one forward): a pure function of
+    (dtype, C, F, aligned), the tf32 block within the shared memory."""
+    choose = kernels.k3f_variant if kernel == "k3f" else kernels.k3b_variant
+    assert choose(*args) == want
+    assert choose(*args) == want                   # no state
+    assert choose(*args, aligned=False) == "fma"
+    if want == "tf32":
+        size = (kernels.k3f_tf32_smem_bytes if kernel == "k3f"
+                else kernels.k3b_tf32_smem_bytes)(args[1])
+        assert size <= kernels.MAX_SMEM_BYTES
+
+
+def test_tail_tf32_blocks_fit_the_shared_memory():
+    """K3F's tf32 block takes 109408 bytes at C 64: two an SM (228 KB, 1 KB
+    reserved a block). K3B's takes 185632 at C 64 and, with one z stage,
+    218400 at fsi's C 128, where a second stage (67584 more) would not fit:
+    one an SM."""
+    assert kernels.k3f_tf32_smem_bytes(64) == 109408
+    assert 2 * (109408 + 1024) <= 228 * 1024
+    assert kernels.k3b_tf32_smem_bytes(64) == 185632
+    assert kernels.k3b_tf32_smem_bytes(128) == 218400 <= kernels.MAX_SMEM_BYTES
+    assert [kernels.k3b_tf32_stages(C) for C in (32, 64, 128)] == [2, 2, 1]
+    assert kernels.k3b_tf32_smem_bytes(128) + 4 * 128 * (128 + 4) > kernels.MAX_SMEM_BYTES
+
+
 @pytest.mark.parametrize("kernel, dtype, C, m3, offset", [
     ("k1", torch.bfloat16, 64, 16, 0),     # bf16
     ("k1", torch.float32, 8, 16, 0),       # C below a 16-channel slice
@@ -703,6 +769,12 @@ def test_tf32_blocks_fit_twice_an_sm_at_the_cylinder_width():
     ("k12b", torch.float32, 8, 8, 0),
     ("k12b", torch.float32, 64, 4, 0),
     ("k12b", torch.float32, 64, 16, 1),
+    ("k3f", torch.bfloat16, 64, 16, 0),    # bf16
+    ("k3f", torch.float32, 16, 16, 0),     # C not instantiated
+    ("k3f", torch.float32, 64, 16, 1),     # s 4 bytes past a 16-byte boundary
+    ("k3b", torch.bfloat16, 64, 16, 0),
+    ("k3b", torch.float32, 96, 16, 0),
+    ("k3b", torch.float32, 64, 16, 1),
 ])
 def test_a_named_tf32_variant_refuses_what_it_does_not_take(kernel, dtype, C, m3, offset):
     """The choice before the launch: a named tf32 variant that cannot take
@@ -716,7 +788,9 @@ def test_a_named_tf32_variant_refuses_what_it_does_not_take(kernel, dtype, C, m3
     pick = {"k1": lambda v: kernels._k1_variant(x, C, 2 * m2, m3, Wp, v),
             "k2a_lite": lambda v: kernels._k2a_lite_variant(x, dy, dy, C, 2 * m2, m3, Wp, v),
             "k2": lambda v: kernels._k2_variant(dy, x, wp, C, m3, Wp, 2 * m2, v),
-            "k12b": lambda v: kernels._k12b_variant(x, x, x, dy, C, 2 * m2, m3, Wp, v)}[kernel]
+            "k12b": lambda v: kernels._k12b_variant(x, x, x, dy, C, 2 * m2, m3, Wp, v),
+            "k3f": lambda v: kernels._tail_variant("k3f", x, C, 3, v),
+            "k3b": lambda v: kernels._tail_variant("k3b", x, C, 3, v)}[kernel]
     with pytest.raises(ValueError, match="tf32 variant takes float32"):
         pick("tf32")
     with pytest.raises(ValueError, match="no variant"):
@@ -724,3 +798,154 @@ def test_a_named_tf32_variant_refuses_what_it_does_not_take(kernel, dtype, C, m3
     chosen = "mma" if dtype == torch.bfloat16 else "fma"
     assert pick(None) == (chosen, list(kernels.VARIANTS[kernel]).index(chosen))
     assert pick("fma") == ("fma", 0)
+
+
+# --------------------------------------------------------------------------
+# K3F and K3B: the fused tail (csrc/fno_tail.cu, forward_warp_tf32)
+# --------------------------------------------------------------------------
+
+
+def _tail_forward_tf32(s, k1, b1, k2, b2, *, dims, tail_dims, act):
+    """The forward the tf32 variants of K3F and K3B share: u1 = z·k1 + b1 on
+    the tf32 pairs of z and k1, kept in f32; h1 = act(u1) in f32 (the
+    kernels' erf); o = h1·k2 + b2 on the pairs of h1 and k2, in f64. Returns
+    (z, u1, h1, o), positions as rows."""
+    B, Tp, Hp, Wp, C = dims
+    T, H, W = tail_dims
+    z = s.float().view(B, Tp, Hp, Wp, C)[:, :T, :H, :W].reshape(-1, C)
+    u1 = (_x3("nc,cj->nj", _pair(z), _pair(k1)) + b1.double()).float()
+    h1 = _act_fast(u1, act)
+    return z, u1, h1, _x3("nj,jf->nf", _pair(h1), _pair(k2)) + b2.double()
+
+
+def _replay_k3f_tf32(s, target, k1, b1, k2, b2, *, dims, tail_dims, act):
+    """K3F's tf32 variant in plain PyTorch: the shared forward, then
+    Σ (o − target)² in f64 (the kernel's per-thread sums are f64)."""
+    o = _tail_forward_tf32(s, k1, b1, k2, b2, dims=dims, tail_dims=tail_dims, act=act)[3]
+    return ((o - target.double().reshape(o.shape)) ** 2).sum()
+
+
+def _replay_k3b_tf32(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act):
+    """K3B's tf32 variant in plain PyTorch: the shared forward; do = 2g(o −
+    target) and du = (do·k2ᵀ)·act′(u1) in f32 (exact FMAs in the kernel);
+    ds = du·k1ᵀ, dk1 = zᵀ·du and dk2 = h1ᵀ·do on tf32 pairs; db1 = Σ du
+    through a row of ones (exact in tf32: the sum of du's pair); db2 = Σ do;
+    in f64. Returns (ds in f32 like s, zero outside the crop; dk1, db1, dk2,
+    db2)."""
+    B, Tp, Hp, Wp, C = dims
+    T, H, W = tail_dims
+    z, u1, h1, o = _tail_forward_tf32(s, k1, b1, k2, b2, dims=dims, tail_dims=tail_dims,
+                                      act=act)
+    do = (2.0 * g.double() * (o - target.double().reshape(o.shape))).float()
+    du = ((do.double() @ k2.double().t()) * _act_grad_fast(u1, act).double()).float()
+    ds = torch.zeros(B, Tp, Hp, Wp, C)
+    ds[:, :T, :H, :W] = _x3("nj,cj->nc", _pair(du), _pair(k1)).float().view(B, T, H, W, C)
+    dup = _pair(du)
+    return (ds.view(s.shape), _x3("nc,nj->cj", _pair(z), dup), (dup[0] + dup[1]).sum(0),
+            _x3("nj,nf->jf", _pair(h1), _pair(do)), do.double().sum(0))
+
+
+def _tail_twin64(s, tail, g, shape, act):
+    """k3f_plain's and k3b_plain's arithmetic in f64: (SSE, ds over the crop
+    as rows, dk1, db1, dk2, db2) and the sums of |terms| of the four
+    accumulators."""
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    target, k1, b1, k2, b2 = (t.double() for t in tail)
+    z = s.double().view(B, Tp, Hp, Wp, C)[:, :T, :H, :W].reshape(-1, C)
+    u1 = z @ k1 + b1
+    h1 = gelu(u1, act)
+    err = h1 @ k2 + b2 - target.reshape(-1, F_)
+    do = 2.0 * g.double() * err
+    du = (do @ k2.t()) * gelu_grad(u1, act)
+    terms = (z.abs().t() @ du.abs(), du.abs().sum(0), h1.abs().t() @ do.abs(), do.abs().sum(0))
+    return ((err ** 2).sum(), du @ k1.t(), z.t() @ du, du.sum(0), h1.t() @ do,
+            do.sum(0)), terms
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+@pytest.mark.parametrize("shape", K3B_SHAPES)
+def test_k3f_tf32_replay_matches_twin(shape, act):
+    """The replay of K3F's tf32 variant against the twin's arithmetic in
+    f64: the SSE within 1e-5 of it (its own sum of |terms|), ten times
+    inside STATS_TOL; and against the f32 twin within STATS_TOL."""
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=41)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
+    got = _replay_k3f_tf32(s, *tail, **kw)
+    ref = _tail_twin64(s, tail, gl, shape, act)[0][0]
+    assert abs(got - ref) <= 1e-5 * ref
+    assert abs(got - ft.k3f_plain(s, *tail, **kw).double()) <= 1e-4 * ref
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+@pytest.mark.parametrize("shape", K3B_SHAPES)
+def test_k3b_tf32_replay_matches_twin(shape, act):
+    """The replay of K3B's tf32 variant against the twin's arithmetic in
+    f64: ds within 1e-5 of max|ref| and exactly zero outside the crop; dk1,
+    db1, dk2 and db2 within 1e-5 of the sum of |terms| (ten times inside
+    KERNEL_TOL and STATS_TOL); and against the f32 twin within those."""
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=42)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
+    got = _replay_k3b_tf32(s, *tail, gl, **kw)
+    want, terms = _tail_twin64(s, tail, gl, shape, act)
+    ds = got[0].view(B, Tp, Hp, Wp, C)
+    assert got[0].dtype == torch.float32 and got[0].shape == s.shape
+    assert not ds[:, T:].any() and not ds[:, :, H:].any() and not ds[:, :, :, W:].any()
+    crop = ds[:, :T, :H, :W].reshape(-1, C).double()
+    assert (crop - want[1]).abs().max() <= 1e-5 * want[1].abs().max()
+    for name, gv, wv, tv in zip(("dk1", "db1", "dk2", "db2"), got[1:], want[2:], terms):
+        assert ((gv - wv).abs() / tv.clamp_min(1e-30)).max() <= 1e-5, name
+    twin = ft.k3b_plain(s, *tail, gl, **kw)
+    assert (got[0] - twin[0]).abs().max() <= 1e-4 * twin[0].abs().max()
+    for name, gv, tw, tv in zip(("dk1", "db1", "dk2", "db2"), got[1:], twin[1:], terms):
+        assert ((gv - tw.double()).abs() / tv.clamp_min(1e-30)).max() <= 1e-4, name
+
+
+@pytest.mark.parametrize("where, value", [("s", "nan"), ("s", "inf"), ("k1", "nan"),
+                                          ("k1", "-inf")])
+def test_tail_tf32_replays_keep_non_finite_inputs(where, value):
+    """A NaN or an Inf in s (inside the crop) or in k1: the replays' SSE,
+    ds, dk1, db1, dk2 and db2 are non-finite wherever the f32 twin's are,
+    and the fault shows in each of the twin's outputs."""
+    shape = K3B_SHAPES[1]
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=46)
+    if where == "s":
+        s.view(B, Tp, Hp, Wp, C)[0, 1, 2, 3, 5] = float(value)
+    else:
+        tail[1][5, 7] = float(value)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    got = (_replay_k3f_tf32(s, *tail, **kw), *_replay_k3b_tf32(s, *tail, gl, **kw))
+    ref = (ft.k3f_plain(s, *tail, **kw), *ft.k3b_plain(s, *tail, gl, **kw))
+    for name, gv, rv in zip(("sse", "ds", "dk1", "db1", "dk2", "db2"), got, ref):
+        bad = ~torch.isfinite(rv)
+        assert bad.any() and not torch.isfinite(gv[bad]).any(), name
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+def test_k3f_tf32_replay_matches_pallas_k3f(act):
+    """The replay against the Pallas ``_k3f_kernel`` in interpret mode (f32):
+    the JAX fused tail's loss, rtol 2e-4."""
+    shape = (2, 5, 8, 12, 8, 3, 6, 10, 6)
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, _ = _k3b_inputs(shape, seed=43)
+    loss, prim, _ = _jax_fused_tail(s, tail, shape, act)
+    got = _replay_k3f_tf32(s, *tail, dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
+    np.testing.assert_allclose(got.item(), float(loss(*prim)), rtol=2e-4)
+
+
+@pytest.mark.parametrize("act", ["exact", "tanh"])
+def test_k3b_tf32_replay_matches_pallas_k3b(act):
+    """The replay against the Pallas ``_k3b_kernel`` in interpret mode (f32),
+    reached through the JAX fused tail's vjp: ds, dk1, db1, dk2 and db2,
+    rtol 2e-4, atol 2e-4·max|ref|."""
+    shape = (2, 5, 8, 12, 8, 3, 6, 10, 6)
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=44)
+    loss, prim, unpack = _jax_fused_tail(s, tail, shape, act)
+    _, vjp = jax.vjp(loss, *prim)
+    ref = unpack(*(np.asarray(t) for t in vjp(jnp.float32(gl.item()))))
+    got = _replay_k3b_tf32(s, *tail, gl, dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
+    for name, g, r in zip(("ds", "dk1", "db1", "dk2", "db2"), got, ref):
+        _assert_close_to_pallas(f"_k3b_kernel / {name}", g.float().numpy().reshape(r.shape), r)

@@ -14,6 +14,23 @@ from realpdebench_tpu_torch.ops import kernels
 
 PROBE = Path(sys.argv[0]).stem
 
+# csrc/mma.cuh: to_tf32's body and split_tf32's, and what the probes put in
+# their place: to_tf32 testing for Inf and NaN; the split with both roundings
+# by to_tf32 or by cvt_tf32, or lo's NaN kept by an FMA instead of cvt_tf32
+TF32_RNA = "  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
+TESTED_RNA = ("  const uint32_t bits = __float_as_uint(v);\n"
+              "  const uint32_t half = (bits & 0x7f800000u) == 0x7f800000u ? 0u : 0x1000u;\n"
+              "  return (bits + half) & 0xffffe000u;\n")
+SPLIT = "  hi = to_tf32(v);\n  lo = cvt_tf32(v - __uint_as_float(hi));\n"
+PLAIN_SPLIT = "  hi = to_tf32(v);\n  lo = to_tf32(v - __uint_as_float(hi));\n"
+SPLITS = {
+    "bare": PLAIN_SPLIT,
+    "cvt": "  hi = cvt_tf32(v);\n  lo = cvt_tf32(v - __uint_as_float(hi));\n",
+    "tested": PLAIN_SPLIT,
+    "fma": ("  hi = to_tf32(v);\n  const float d = v - __uint_as_float(hi);\n"
+            "  lo = __float_as_uint(__fmaf_rn(d, 0.f, __uint_as_float(to_tf32(d))));\n"),
+}
+
 
 def sub(s: str, old: str, new: str, count: int = 1) -> str:
     """``s`` with the ``count`` copies of the anchor ``old`` replaced; stops
@@ -21,6 +38,17 @@ def sub(s: str, old: str, new: str, count: int = 1) -> str:
     if s.count(old) != count:
         raise SystemExit(f"{PROBE}: the source has {s.count(old)} of the anchor {old!r}")
     return s.replace(old, new)
+
+
+def split_form(form: str):
+    """A patch of csrc/mma.cuh: its tf32 split in another form. 'bare': lo
+    by to_tf32 too (a NaN lost); 'cvt': both by cvt_tf32 (the split before
+    the integer rounding); 'tested': both by a to_tf32 that tests for Inf
+    and NaN; 'fma': lo by to_tf32 with d·0 added by an FMA (d = v - hi)."""
+    def patch(s: str) -> str:
+        s = sub(s, SPLIT, SPLITS[form])
+        return sub(s, TF32_RNA, TESTED_RNA) if form == "tested" else s
+    return patch
 
 
 def build(out: Path, files: dict, includes: dict | None = None) -> dict:

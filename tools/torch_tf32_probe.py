@@ -43,6 +43,11 @@ From the repository root on a host with a Hopper card and nvcc. Variants
   k2a_lite_cut_epi   the epilogue's y @ wps product cut
   k2a_lite_epi_cut_y, k2a_lite_epi_cut_mma   the epilogue alone with its
                    loads of y, or its MMAs, cut
+  k1_cvt_split, k2_cvt_split, k2a_lite_cvt_split, k12b_cvt_split   the
+                   kernel with both of mma.cuh's tf32 roundings by
+                   cvt.rna.tf32.f32, as before hi's integer rounding (the
+                   same bits on finite values; every header copied beside
+                   the source, mma.cuh patched)
 
 One JSON line a variant: ptxas's registers and spill bytes of the tf32
 kernel at <64, 2, 9, 2> (the dWp pass at <64>; K1's and K2A-lite's at
@@ -211,6 +216,12 @@ VARIANTS = {
                          lambda s: sub(s, K2AL_YW, K2AL_YW.replace("kp < C / 16", "kp < 0")),
                          False),
 }
+for _k, _src in (("k1", "fno_k1.cu"), ("k2", "fno_k2.cu"), ("k2a_lite", "fno_k2a.cu"),
+                 ("k12b", "fno_k12b.cu")):
+    VARIANTS[f"{_k}_cvt_split"] = (_src, None, lambda s: s, True)
+# variants that patch csrc/mma.cuh (every header is then copied beside the
+# source, so each include finds the patched copy)
+MMA_PATCHES = {name: common.split_form("cvt") for name in VARIANTS if name.endswith("_cvt_split")}
 # the tf32 kernel whose ptxas report each source's row shows
 KERNEL_TAG = {"fno_k2.cu": "k2_tf32_kernelILi64ELi2ELi9ELi",
               "fno_k12b.cu": "k12b_dz_tf32_kernelILi64ELi2ELi9ELi",
@@ -226,6 +237,10 @@ def build(names):
         header = (kernels.CSRC / HEADER[source]).read_text()
         files[name] = {source: spatch((kernels.CSRC / source).read_text()),
                        HEADER[source]: hpatch(header) if hpatch else header}
+        if name in MMA_PATCHES:
+            for h in kernels.CSRC.glob("*.cuh"):
+                files[name].setdefault(h.name, h.read_text())
+            files[name]["mma.cuh"] = MMA_PATCHES[name](files[name]["mma.cuh"])
     return common.build(OUT, files)
 
 
