@@ -86,29 +86,43 @@ JSON line each; any failure raises (non-zero exit, no result line):
   8. ta        the temporal-attention kernels TA forward and backward
                against their twin at the UNet's level-0 width of the
                training step (B 12, S 64·128, T 20, h 4, d 32), in float32
-               and bfloat16 (each kernel's mma variant in bfloat16 and,
-               named, its fma one, each also against the other); two calls
-               of each bit-equal; device times of queued launches, and
-               scaled_dot_product_attention with the bias as a float mask
-               as the library yardstick; then (ta_level) the forward's and
-               the backward's mma variants at the site counts of every
-               level the UNet step launches them at (B 12 × 8192, 2048, 512
-               and the mid block's 512): against the twin, bit-equal,
-               queued time and bound.
+               and bfloat16 (each kernel's tf32 variant in float32 and mma
+               variant in bfloat16 and, named, its fma one, each also
+               against the other); two calls of each bit-equal; device
+               times of queued launches, and scaled_dot_product_attention
+               with the bias as a float mask as the library yardstick; then
+               (ta_level) the forward's and the backward's tf32 and mma
+               variants at the site counts of every level the UNet step
+               launches them at (B 12 × 8192, 2048, 512 and the mid block's
+               512): against the twin, bit-equal, queued time and bound.
   9. unet_rollout  the cylinder UNet3d (configs/cylinder/unet.yaml: dim_mults
                1/2/4, bf16 compute, seeded random weights) rolled out 5
                steps at eval batch 12 through make_rollout_fn with a
                Gaussian normalizer; exact launch counts (every TA forward
                the mma variant); compared with the plain f32 rollout;
                frames/s and peak memory.
+  9a. unet_rollout_f32 the same rollout in float32 as the shipped config
+               runs it (compute_dtype null): every TA forward the tf32
+               variant, within UNET_F32_ROLLOUT (1e-4 relative L2 and
+               max|Δ|/max|ref|) of the plain f32 rollout, two rollouts
+               bit-equal under cudnn.deterministic; frames/s, peak memory.
  10. unet_train    its training step at batch 12 (Adam at lr 1e-4, cosine
-               over 10000 updates, no clipping): one counted step (exact
+               over 10000 updates, no clipping; the ResnetBlocks
+               rematerialised, remat's default): one counted step (exact
                launch counts; every TA forward and backward the mma
                variant), the loss
                and every gradient against the plain f32 step (at batch 6:
-               the f32 step at 12 does not fit the card), two passes
-               bit-equal under cudnn.deterministic; 2 warm-up steps and 5
-               windows of 5 steps; then a profile of 3 steps.
+               the plain f32 step keeps every activation, which at 12 does
+               not fit the card), two passes bit-equal under
+               cudnn.deterministic and equal bit for bit to a pass without
+               remat, whose steps/s and peak memory one window records; 2
+               warm-up steps and 5 windows of 5 steps; then a profile of 3
+               steps.
+ 10a. unet_train_f32 the same step in float32 as shipped, remat on: every TA
+               forward and backward the tf32 variant, the loss within 1e-5
+               relative and every gradient within 1e-4 relative L2 of the
+               plain f32 step at batch 6, two passes bit-equal; 3 windows
+               of 3 steps, peak memory; then its profile (unet_f32_profile).
  11. gk_scores the Galerkin scores kernel against its twin at the cylinder
                width (B 16, N 20·64·128 = 163840 tokens, h 4, d 64, in the
                q/k/v Dense's [B, N, h·d] layout), in float32 and bfloat16,
@@ -199,8 +213,9 @@ its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
 495 TFLOP/s TF32 tensor cores for the tf32 variants, 67 TFLOP/s FP32), from
 the published H100 SXM figures at 700 W. Then the per-kernel summary line
 (launches by path, and by variant for the kernels that have variants; the
-f32 route of K1, K2, K2A-lite, K12B, K3F and K3B under "tf32", K1's and K2's also under
-"train_width_tf32"), and the last line {"ok": true, "device": {...}}.
+f32 route of K1, K2, K2A-lite, K12B, K3F, K3B and the TA forward and backward under
+"tf32", K1's and K2's also under "train_width_tf32"), and the last line
+{"ok": true, "device": {...}}.
 
 The port imports neither JAX nor the JAX package; neither does this script.
 """
@@ -322,6 +337,15 @@ UNET_TA_PER_FORWARD = 8
 # FNO's 5e-2 because some 30 convolutions each round to bf16 on the way
 UNET_ROLLOUT_REL_L2, UNET_ROLLOUT_MAX = 5e-2, 1e-1
 UNET_LOSS_REL, UNET_GRAD_REL_L2 = 1e-2, 1e-1
+# the shipped f32 UNet (compute_dtype null) on the TA kernels' tf32 variants
+# vs the plain f32 path (TF32 off), fixed before the first run: the rollout
+# within 1e-4 relative L2 and 1e-4 max|Δ|/max|ref|; one training step's loss
+# within 1e-5 relative and every gradient within 1e-4 relative L2 (at
+# UNET_CMP_BATCH). Its step is timed over 3 windows of 3 steps.
+UNET_F32_ROLLOUT = (1e-4, 1e-4)
+UNET_F32_LOSS_REL, UNET_F32_GRAD_REL_L2 = 1e-5, 1e-4
+UNET_F32_BATCH = UNET_BATCH
+UNET_F32_WINDOWS = (3, 3)
 
 # the cylinder Galerkin Transformer (configs/cylinder/galerkin_transformer.yaml
 # with the JAX registry's key mapping): windows of 20x64x128x3 in and out,
@@ -1282,15 +1306,17 @@ def check_ta_bwd(name, q, k, v, pb, do, h, tol, variant=None) -> tuple:
 
 def phase_ta(dev) -> dict:
     """TA forward and backward against the twin at the UNet's level-0
-    width, each in both variants (bf16); both at every level of the UNet
-    step; returns per-kernel summaries (bf16 errors and times)."""
+    width, each in the variant its dtype chooses (tf32 in f32, mma in bf16)
+    and, named, its fma one on the same inputs; both at every level of the
+    UNet step in both dtypes; returns per-kernel summaries (bf16 errors and
+    times; the f32 route's under "tf32")."""
     B, S, T, h, d = TA_SHAPE
     plain = tta.temporal_attention_tokens_plain
     nsites, summary = B * S, {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, pb, do = _ta_inputs(dev, B, S, T, h, d, dtype, seed=5)
         tol = KERNEL_TOL[dtype]
-        chosen = "mma" if dtype == torch.bfloat16 else "fma"
+        chosen = "mma" if dtype == torch.bfloat16 else "tf32"
         fwd = lambda **kv: kernels.ta_fwd(q, k, v, pb, h, **kv)
         bwd = lambda **kv: kernels.ta_bwd(q, k, v, pb, do, h, **kv)
         o = run_as("ta_fwd", chosen, fwd)
@@ -1303,22 +1329,21 @@ def phase_ta(dev) -> dict:
             torch.equal(a, b) for a, b in zip(got, bwd()))
         if not same:
             raise AssertionError(f"two identical TA calls differ ({dtype})")
-        if dtype == torch.bfloat16:   # the fma variants, named, on the same inputs
-            o_fma = run_as("ta_fwd", "fma", lambda: fwd(variant="fma"))
-            rows += [compare("ta_fwd_fma/o", o_fma, o_ref, tol),
-                     compare("ta_fwd/vs_fma/o", o, o_fma, tol)]
-            if not torch.equal(o_fma, fwd(variant="fma")):
-                raise AssertionError("two identical TA forward calls (fma) differ")
-            del o_fma
-            fma_rows, fma, _ = run_as("ta_bwd", "fma", lambda: check_ta_bwd(
-                "ta_bwd_fma", q, k, v, pb, do, h, tol, variant="fma"))
-            rows += fma_rows
-            rows += [compare(f"ta_bwd/vs_fma/{n}", u, w, tol)
-                     for n, u, w in zip(("dq", "dk", "dv"), got, fma)]
-            rows.append(compare_sums("ta_bwd/vs_fma/dpb", got[3], fma[3],
-                                     _dpb_terms(q, k, v, pb, do, h), TA_DPB_TOL))
-            del fma
-        del ref
+        # the fma variants, named, on the same inputs
+        o_fma = run_as("ta_fwd", "fma", lambda: fwd(variant="fma"))
+        rows += [compare("ta_fwd_fma/o", o_fma, o_ref, tol),
+                 compare("ta_fwd/vs_fma/o", o, o_fma, tol)]
+        if not torch.equal(o_fma, fwd(variant="fma")):
+            raise AssertionError(f"two identical TA forward calls (fma) differ ({dtype})")
+        del o_fma
+        fma_rows, fma, _ = run_as("ta_bwd", "fma", lambda: check_ta_bwd(
+            "ta_bwd_fma", q, k, v, pb, do, h, tol, variant="fma"))
+        rows += fma_rows
+        rows += [compare(f"ta_bwd/vs_fma/{n}", u, w, tol)
+                 for n, u, w in zip(("dq", "dk", "dv"), got, fma)]
+        rows.append(compare_sums("ta_bwd/vs_fma/dpb", got[3], fma[3],
+                                 _dpb_terms(q, k, v, pb, do, h), TA_DPB_TOL))
+        del fma, ref
 
         def bwd_plain():
             ls = [t.detach().requires_grad_() for t in (q, k, v, pb)]
@@ -1327,80 +1352,90 @@ def phase_ta(dev) -> dict:
         del o_ref
         times = dict(ta_fwd=(queued_ms([fwd], n=8, reps=5), cuda_ms(lambda: plain(q, k, v, pb, h))),
                      ta_bwd=(queued_ms([bwd], n=8, reps=5), cuda_ms(bwd_plain, reps=10)))
-        single = cuda_ms(bwd)
-        fwd_single = cuda_ms(fwd)
+        times["ta_fwd_fma"] = (queued_ms([lambda: fwd(variant="fma")], n=8, reps=5),
+                               times["ta_fwd"][1])
+        times["ta_bwd_fma"] = (queued_ms([lambda: bwd(variant="fma")], n=4, reps=3),
+                               times["ta_bwd"][1])
+        single = dict(ta_fwd=cuda_ms(fwd), ta_bwd=cuda_ms(bwd))
         # scores and the value mix, 2·T·T·d each per (site, head); the
         # backward recomputes the scores and adds dP, dq, dk and dv
-        work = dict(ta_fwd=bound(nbytes(q, k, v, pb, o), nsites * h * T * T * d * 4, dtype),
-                    ta_bwd=bound(nbytes(q, k, v, pb, do, *got),
-                                 nsites * h * T * T * d * 10, dtype))
-        if dtype == torch.bfloat16:
-            times["ta_fwd_fma"] = (queued_ms([lambda: fwd(variant="fma")], n=8, reps=5),
-                                   times["ta_fwd"][1])
-            times["ta_bwd_fma"] = (queued_ms([lambda: bwd(variant="fma")], n=4, reps=3),
-                                   times["ta_bwd"][1])
-            work["ta_fwd_fma"], work["ta_bwd_fma"] = work["ta_fwd"], work["ta_bwd"]
+        fwd_work = (nbytes(q, k, v, pb, o), nsites * h * T * T * d * 4, dtype)
+        bwd_work = (nbytes(q, k, v, pb, do, *got), nsites * h * T * T * d * 10, dtype)
+        work = dict(ta_fwd=bound(*fwd_work, chosen), ta_bwd=bound(*bwd_work, chosen),
+                    ta_fwd_fma=bound(*fwd_work), ta_bwd_fma=bound(*bwd_work))
         lib = sdpa_yardstick(q, k, v, do, pb, h, o)
         torch.cuda.synchronize()
         emit(dict(phase="ta", dtype=str(dtype).replace("torch.", ""),
                   shapes=dict(B=B, S=S, T=T, h=h, d=d), checks=rows,
                   bitwise_repeatable=same, library=lib,
                   ms={n: dict(kernel=t[0], plain=t[1], **work[n]) for n, t in times.items()},
-                  ta_fwd_single_launch_ms=fwd_single, ta_bwd_single_launch_ms=single))
-        if dtype == torch.bfloat16:
-            for n in ("ta_fwd", "ta_bwd"):
-                mine = [r for r in rows if r["name"].startswith(n + "/")]
-                summary[n] = dict(
-                    max_abs_err=max(r["max_abs_err"] for r in mine),
-                    max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
-                                    for r in mine),
-                    ms=times[n][0], plain_ms=times[n][1], **work[n])
-                summary[n]["fma_variant_ms"] = times[f"{n}_fma"][0]
-            # SDPA has no backward alone: the backward row's yardstick is its
-            # forward and backward together
-            summary["ta_fwd"].update(library_ms=lib["library_ms"], single_launch_ms=fwd_single)
-            summary["ta_bwd"].update(library_ms=lib["library_fwd_bwd_ms"],
-                                     single_launch_ms=single)
+                  ta_fwd_single_launch_ms=single["ta_fwd"],
+                  ta_bwd_single_launch_ms=single["ta_bwd"]))
+        # SDPA has no backward alone: the backward row's yardstick is its
+        # forward and backward together
+        library = dict(ta_fwd=lib["library_ms"], ta_bwd=lib["library_fwd_bwd_ms"])
+        for n in ("ta_fwd", "ta_bwd"):
+            mine = [r for r in rows if r["name"].startswith(n + "/")]
+            if dtype == torch.float32:   # the f32 route, for the summary line
+                summary.setdefault(n, {})["tf32"] = dict(
+                    tf32_entry(n, mine, times, work, single), library_ms=library[n])
+                continue
+            summary.setdefault(n, {}).update(
+                max_abs_err=max(r["max_abs_err"] for r in mine),
+                max_rel_err=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
+                                for r in mine),
+                ms=times[n][0], plain_ms=times[n][1], **work[n],
+                fma_variant_ms=times[f"{n}_fma"][0], library_ms=library[n],
+                single_launch_ms=single[n])
         del q, k, v, do, o, got
         torch.cuda.empty_cache()
-    summary["ta_fwd"]["levels"], summary["ta_bwd"]["levels"] = phase_ta_levels(dev)
+    for n, levels in zip(("ta_fwd", "ta_bwd"), phase_ta_levels(dev)):
+        summary[n]["levels"] = levels["bfloat16"]
+        summary[n]["tf32"]["levels"] = levels["float32"]
     return summary
 
 
 def phase_ta_levels(dev) -> tuple:
-    """TA forward's and backward's mma variants (bf16) at the site counts
-    of every level the UNet step launches them at (TA_LEVELS, batch 12):
-    against the twin, two calls bit-equal, the device time of queued
-    launches beside the bound; returns ({level: (ms, bound_ms)} of the
-    forward, the same of the backward)."""
+    """TA forward's and backward's tensor-core variants (mma in bf16, tf32
+    in f32) at the site counts of every level the UNet step launches them
+    at (TA_LEVELS, batch 12): against the twin, two calls bit-equal, the
+    device time of queued launches beside the bound; returns ({dtype:
+    {level: (ms, bound_ms)}} of the forward, the same of the backward)."""
     B, _, T, h, d = TA_SHAPE
     fwd_out, out = {}, {}
-    for i, (level, S) in enumerate(TA_LEVELS):
-        q, k, v, pb, do = _ta_inputs(dev, B, S, T, h, d, torch.bfloat16, seed=20 + i)
-        tol = KERNEL_TOL[torch.bfloat16]
-        fwd = lambda: kernels.ta_fwd(q, k, v, pb, h)
-        o = run_as("ta_fwd", "mma", fwd)
-        rows = [compare(f"ta_fwd/{level}/o", o, tta.temporal_attention_tokens_plain(
-            q, k, v, pb, h), tol)]
-        if not torch.equal(o, fwd()):
-            raise AssertionError(f"two identical TA forward calls differ at {level}")
-        bwd_rows, got, _ = run_as("ta_bwd", "mma", lambda: check_ta_bwd(
-            f"ta_bwd/{level}", q, k, v, pb, do, h, tol))
-        rows += bwd_rows
-        if not all(torch.equal(a, b) for a, b in zip(got, kernels.ta_bwd(q, k, v, pb, do, h))):
-            raise AssertionError(f"two identical TA backward calls differ at {level}")
-        # the smallest level's inputs (126 MB) are larger than L2 already
-        fwd_ms = queued_ms([fwd], n=8, reps=5)
-        ms = queued_ms([lambda: kernels.ta_bwd(q, k, v, pb, do, h)], n=8, reps=5)
-        fwd_work = bound(nbytes(q, k, v, pb, o), B * S * h * T * T * d * 4, torch.bfloat16)
-        work = bound(nbytes(q, k, v, pb, do, *got), B * S * h * T * T * d * 10, torch.bfloat16)
-        emit(dict(phase="ta_level", level=level, shapes=dict(B=B, S=S, T=T, h=h, d=d),
-                  checks=rows, fwd_ms=fwd_ms, fwd_bound_ms=fwd_work["bound_ms"], ms=ms,
-                  bound_ms=work["bound_ms"]))
-        fwd_out[level] = dict(sites=B * S, ms=fwd_ms, bound_ms=fwd_work["bound_ms"])
-        out[level] = dict(sites=B * S, ms=ms, bound_ms=work["bound_ms"])
-        del q, k, v, pb, do, o, got
-        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        tc = "mma" if dtype == torch.bfloat16 else "tf32"
+        name = str(dtype).replace("torch.", "")
+        fwd_out[name], out[name] = {}, {}
+        for i, (level, S) in enumerate(TA_LEVELS):
+            q, k, v, pb, do = _ta_inputs(dev, B, S, T, h, d, dtype, seed=20 + i)
+            tol = KERNEL_TOL[dtype]
+            fwd = lambda: kernels.ta_fwd(q, k, v, pb, h)
+            o = run_as("ta_fwd", tc, fwd)
+            rows = [compare(f"ta_fwd/{level}/o", o, tta.temporal_attention_tokens_plain(
+                q, k, v, pb, h), tol)]
+            if not torch.equal(o, fwd()):
+                raise AssertionError(f"two identical TA forward calls differ at {level} "
+                                     f"({name})")
+            bwd_rows, got, _ = run_as("ta_bwd", tc, lambda: check_ta_bwd(
+                f"ta_bwd/{level}", q, k, v, pb, do, h, tol))
+            rows += bwd_rows
+            if not all(torch.equal(a, b)
+                       for a, b in zip(got, kernels.ta_bwd(q, k, v, pb, do, h))):
+                raise AssertionError(f"two identical TA backward calls differ at {level} "
+                                     f"({name})")
+            # the smallest level's inputs (126 MB in bf16) are larger than L2 already
+            fwd_ms = queued_ms([fwd], n=8, reps=5)
+            ms = queued_ms([lambda: kernels.ta_bwd(q, k, v, pb, do, h)], n=8, reps=5)
+            fwd_work = bound(nbytes(q, k, v, pb, o), B * S * h * T * T * d * 4, dtype, tc)
+            work = bound(nbytes(q, k, v, pb, do, *got), B * S * h * T * T * d * 10, dtype, tc)
+            emit(dict(phase="ta_level", dtype=name, variant=tc, level=level,
+                      shapes=dict(B=B, S=S, T=T, h=h, d=d), checks=rows, fwd_ms=fwd_ms,
+                      fwd_bound_ms=fwd_work["bound_ms"], ms=ms, bound_ms=work["bound_ms"]))
+            fwd_out[name][level] = dict(sites=B * S, ms=fwd_ms, bound_ms=fwd_work["bound_ms"])
+            out[name][level] = dict(sites=B * S, ms=ms, bound_ms=work["bound_ms"])
+            del q, k, v, pb, do, o, got
+            torch.cuda.empty_cache()
     return fwd_out, out
 
 
@@ -1413,9 +1448,9 @@ def gaussian_normalizer():
         mean_inputs=mean, mean_targets=mean, std_inputs=std, std_targets=std))
 
 
-def _unet(dev, compute_dtype=None):
+def _unet(dev, compute_dtype=None, **kw):
     return build_model(shapes=(UNET_SHAPE, UNET_SHAPE), compute_dtype=compute_dtype,
-                       device=dev, generator=make_generator(0), **UNET_MODEL)
+                       device=dev, generator=make_generator(0), **UNET_MODEL, **kw)
 
 
 def _expect(launches: dict, path: str, variants=None, **want) -> dict:
@@ -1428,8 +1463,22 @@ def _expect(launches: dict, path: str, variants=None, **want) -> dict:
     return expect_variants(path, **(variants or {}))
 
 
-def phase_unet_rollout(dev, norm) -> dict:
-    model = _unet(dev, "bfloat16").eval()
+def _unet_path(compute_dtype, base: str) -> tuple:
+    """(path name, TA variant, reduced) of a UNet phase in bf16 or, with
+    ``compute_dtype`` None, in f32 as the shipped config runs it."""
+    if compute_dtype:
+        return base, "mma", dict(compute_dtype=dict(here=compute_dtype, shipped=None))
+    return f"{base}_f32", "tf32", {}
+
+
+def phase_unet_rollout(dev, norm, compute_dtype="bfloat16") -> dict:
+    """The UNet's 5-step rollout in bf16 (phase unet_rollout) or, with
+    ``compute_dtype`` None, in f32 as shipped (unet_rollout_f32: the TA
+    forward's tf32 variant, within UNET_F32_ROLLOUT of the plain f32
+    rollout, two rollouts bit-equal under cudnn.deterministic); returns the
+    launch counts of the counted rollout."""
+    path, tc, reduced = _unet_path(compute_dtype, "unet_rollout")
+    model = _unet(dev, compute_dtype).eval()
     g = torch.Generator(device=dev).manual_seed(6)
     x_raw = torch.randn(UNET_BATCH, *UNET_SHAPE, generator=g, device=dev)
     y_raw = torch.randn(UNET_BATCH, UNET_SHAPE[0] * UNET_STEPS, *UNET_SHAPE[1:],
@@ -1444,9 +1493,9 @@ def phase_unet_rollout(dev, norm) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    VARIANTS_BY_PATH["unet_rollout"] = _expect(
-        launches, f"a {UNET_STEPS}-step UNet rollout",
-        variants=dict(ta_fwd={"mma": UNET_TA_PER_FORWARD * UNET_STEPS}),
+    VARIANTS_BY_PATH[path] = _expect(
+        launches, f"a {UNET_STEPS}-step UNet rollout ({path})",
+        variants=dict(ta_fwd={tc: UNET_TA_PER_FORWARD * UNET_STEPS}),
         ta_fwd=UNET_TA_PER_FORWARD * UNET_STEPS)
     want = (UNET_BATCH, UNET_STEPS * UNET_SHAPE[0], *UNET_SHAPE[1:])
     if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
@@ -1458,15 +1507,27 @@ def phase_unet_rollout(dev, norm) -> dict:
     ref, _, _ = make_rollout_fn(_PlainPath(ref_model), norm, UNET_STEPS)(x_raw, y_raw)
     rel_l2 = ((pred - ref).norm() / ref.norm()).item()
     max_rel = ((pred - ref).abs().max() / ref.abs().max()).item()
-    row = dict(rel_l2=rel_l2, limit_rel_l2=UNET_ROLLOUT_REL_L2,
-               max_abs_over_max_ref=max_rel, limit_max=UNET_ROLLOUT_MAX,
-               ref_abs_max=ref.abs().max().item(),
+    lim_l2, lim_max = (UNET_ROLLOUT_REL_L2, UNET_ROLLOUT_MAX) if compute_dtype \
+        else UNET_F32_ROLLOUT
+    row = dict(rel_l2=rel_l2, limit_rel_l2=lim_l2, max_abs_over_max_ref=max_rel,
+               limit_max=lim_max, ref_abs_max=ref.abs().max().item(),
                rel_l2_by_step=[((pred[:, i:i + UNET_SHAPE[0]] - ref[:, i:i + UNET_SHAPE[0]])
                                 .norm() / ref[:, i:i + UNET_SHAPE[0]].norm()).item()
                                for i in range(0, want[1], UNET_SHAPE[0])])
-    if not (rel_l2 <= UNET_ROLLOUT_REL_L2 and max_rel <= UNET_ROLLOUT_MAX):
-        raise AssertionError(f"bf16 kernel UNet rollout vs f32 plain rollout: {row}")
-    del ref_model, ref, pred
+    if not (rel_l2 <= lim_l2 and max_rel <= lim_max):
+        raise AssertionError(f"{path}: kernel UNet rollout vs f32 plain rollout: {row}")
+    del ref_model, ref
+    torch.cuda.empty_cache()
+    same = None
+    if not compute_dtype:
+        # determinism: the same rollout twice, bit for bit, with cuDNN held to
+        # deterministic algorithms
+        torch.backends.cudnn.deterministic = True
+        same = torch.equal(rollout(x_raw, y_raw)[0], rollout(x_raw, y_raw)[0])
+        torch.backends.cudnn.deterministic = False
+        if not same:
+            raise AssertionError(f"{path}: two identical rollouts differ")
+    del pred
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1478,10 +1539,11 @@ def phase_unet_rollout(dev, norm) -> dict:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
-    emit(dict(phase="unet_rollout", batch=UNET_BATCH, steps=UNET_STEPS, shape=list(want),
-              launches=launches, vs_plain_f32=row, first_rollout_s=first_s,
-              rollout_s=secs, frames_per_s=UNET_BATCH * want[1] / med,
-              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    emit(dict(phase=path, batch=UNET_BATCH, steps=UNET_STEPS, shape=list(want),
+              launches=launches, variants=VARIANTS_BY_PATH[path], vs_plain_f32=row,
+              bitwise_repeatable=same, first_rollout_s=first_s, rollout_s=secs,
+              frames_per_s=UNET_BATCH * want[1] / med,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, reduced=reduced))
     return launches
 
 
@@ -1502,15 +1564,33 @@ def _plain_grads(model, xn, yn) -> tuple:
     return loss.item(), _grads(model)
 
 
-def phase_unet_train(dev, norm) -> dict:
-    """The UNet's training step through make_train_step; returns the launch
-    counts of the counted step."""
-    model = _unet(dev, "bfloat16")
+def _unet_pass(model, xn, yn) -> tuple:
+    """One forward-backward of ``model`` from zeroed gradients: (loss,
+    gradients)."""
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(xn, yn)
+    loss.backward()
+    return loss.detach(), _grads(model)
+
+
+def phase_unet_train(dev, norm, compute_dtype="bfloat16") -> dict:
+    """The UNet's training step through make_train_step, remat at its
+    default (on), in bf16 (phase unet_train; one window also timed with
+    remat off, and the two held bit for bit) or, with ``compute_dtype``
+    None, in f32 as shipped (unet_train_f32: the TA kernels' tf32 variants,
+    the loss and gradients within UNET_F32_LOSS_REL and UNET_F32_GRAD_REL_L2
+    of the plain f32 step, then its profile unet_f32_profile); returns the
+    launch counts of the counted step."""
+    path, tc, reduced = _unet_path(compute_dtype, "unet_train")
+    batch = UNET_BATCH if compute_dtype else UNET_F32_BATCH
+    if batch != UNET_BATCH:
+        reduced["batch"] = dict(here=batch, shipped=UNET_BATCH)
+    model = _unet(dev, compute_dtype)
     ref_model = _unet(dev)
     ref_model.load_state_dict(model.state_dict(), strict=True)
     g = torch.Generator(device=dev).manual_seed(7)
-    x = torch.randn(UNET_BATCH, *UNET_SHAPE, generator=g, device=dev)
-    y = torch.randn(UNET_BATCH, *UNET_SHAPE, generator=g, device=dev)
+    x = torch.randn(batch, *UNET_SHAPE, generator=g, device=dev)
+    y = torch.randn(batch, *UNET_SHAPE, generator=g, device=dev)
     opt = build_optimizer(UNET_TRAIN_CFG, model.parameters())
     step = make_train_step(model, norm, opt, grad_accum=1)
 
@@ -1522,21 +1602,21 @@ def phase_unet_train(dev, norm) -> dict:
     loss = step(x, y).item()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    VARIANTS_BY_PATH["unet_train"] = _expect(
-        launches, "one UNet training step",
-        variants=dict(ta_fwd={"mma": UNET_TA_PER_FORWARD}, ta_bwd={"mma": UNET_TA_PER_FORWARD}),
+    VARIANTS_BY_PATH[path] = _expect(
+        launches, f"one UNet training step ({path})",
+        variants=dict(ta_fwd={tc: UNET_TA_PER_FORWARD}, ta_bwd={tc: UNET_TA_PER_FORWARD}),
         ta_fwd=UNET_TA_PER_FORWARD, ta_bwd=UNET_TA_PER_FORWARD)
     first_peak = torch.cuda.max_memory_allocated() / 1e9
     if not loss == loss or abs(loss) == float("inf"):
         raise AssertionError(f"UNet training loss {loss} is not finite")
 
     # the kernel path's loss and gradients against the plain f32 path's from
-    # the weights before the step, both at half the batch: the f32 plain
-    # step at batch 12 does not fit an 80 GB card
+    # the weights before the step, both at UNET_CMP_BATCH: the f32 plain
+    # step (every activation kept) at batch 12 does not fit an 80 GB card
     xn, yn = norm.preprocess(x, y)
     n = UNET_CMP_BATCH
     ref_loss, ref_grads = _plain_grads(ref_model, xn[:n], yn[:n])
-    half = _unet(dev, "bfloat16")
+    half = _unet(dev, compute_dtype)
     half.load_state_dict(ref_model.state_dict(), strict=True)
     half_loss = half(xn[:n], y=yn[:n])
     half_loss.backward()
@@ -1544,54 +1624,76 @@ def phase_unet_train(dev, norm) -> dict:
     del half, half_loss
     ref_peak = torch.cuda.max_memory_allocated() / 1e9
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    lim_loss, lim_grad = (UNET_LOSS_REL, UNET_GRAD_REL_L2) if compute_dtype \
+        else (UNET_F32_LOSS_REL, UNET_F32_GRAD_REL_L2)
     cmp = dict(batch=n, loss=loss, ref_loss=ref_loss, loss_rel=loss_rel,
-               limit_loss_rel=UNET_LOSS_REL, limit_grad_rel_l2=UNET_GRAD_REL_L2,
+               limit_loss_rel=lim_loss, limit_grad_rel_l2=lim_grad,
                grad_rel_l2={n: _rel_l2(grads[n], gr) for n, gr in ref_grads.items()})
     cmp["worst_grad_rel_l2"] = max(cmp["grad_rel_l2"].values())
-    bad = [] if loss_rel <= UNET_LOSS_REL else ["loss"]
-    bad += [n for n, r in cmp["grad_rel_l2"].items() if not r <= UNET_GRAD_REL_L2]
+    bad = [] if loss_rel <= lim_loss else ["loss"]
+    bad += [n for n, r in cmp["grad_rel_l2"].items() if not r <= lim_grad]
     if bad:
-        raise AssertionError(f"bf16 kernel UNet step vs f32 plain step: {bad}: {cmp}")
+        raise AssertionError(f"{path}: kernel UNet step vs f32 plain step: {bad}: {cmp}")
     del ref_model, ref_grads, grads
     torch.cuda.empty_cache()
 
     # determinism: the same forward-backward twice, bit for bit, with
     # cuDNN held to deterministic algorithms (its default ones may use atomics)
     torch.backends.cudnn.deterministic = True
-    rep = []
-    for _ in range(2):
-        opt.zero_grad()
-        rep_loss = model.loss(xn, yn)
-        rep_loss.backward()
-        rep.append((rep_loss.detach(), _grads(model)))
+    rep = [_unet_pass(model, xn, yn) for _ in range(2)]
     same = torch.equal(rep[0][0], rep[1][0]) and all(
         torch.equal(rep[0][1][n], rep[1][1][n]) for n in rep[0][1])
     if not same:
-        raise AssertionError("two identical UNet forward-backward passes differ")
-    del rep, rep_loss
+        raise AssertionError(f"{path}: two identical UNet forward-backward passes differ")
+    remat_off = None
+    if compute_dtype:
+        # the cost of rematerialisation: the same weights without it, the
+        # same numbers bit for bit, and one window's steps/s and peak
+        bare = _unet(dev, compute_dtype, remat=False)
+        bare.load_state_dict(model.state_dict(), strict=True)
+        off = _unet_pass(bare, xn, yn)
+        remat_off = dict(bitwise_equal=torch.equal(off[0], rep[0][0]) and all(
+            torch.equal(off[1][n], rep[0][1][n]) for n in off[1]))
+        if not remat_off["bitwise_equal"]:
+            raise AssertionError(f"{path}: the step without remat differs from the step with it")
+        del off
+        bare_step = make_train_step(bare, norm, build_optimizer(UNET_TRAIN_CFG, bare.parameters()),
+                                    grad_accum=1)
+        torch.backends.cudnn.deterministic = False
+        bare_step(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        remat_off["steps_per_s"], _ = _steps_per_s(bare_step, x, y, UNET_WINDOW_STEPS)
+        remat_off["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del bare, bare_step
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = True
+    del rep
+    windows, window_steps = (WINDOWS, UNET_WINDOW_STEPS) if compute_dtype \
+        else UNET_F32_WINDOWS
     step(x, y)
-    det_rate, _ = _steps_per_s(step, x, y, UNET_WINDOW_STEPS)
+    det_rate, _ = _steps_per_s(step, x, y, window_steps)
     torch.backends.cudnn.deterministic = False
 
     for _ in range(WARMUP):
         step(x, y)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rates, losses = zip(*(_steps_per_s(step, x, y, UNET_WINDOW_STEPS)
-                          for _ in range(WINDOWS)))
+    rates, losses = zip(*(_steps_per_s(step, x, y, window_steps) for _ in range(windows)))
     if not all(v == v and abs(v) < float("inf") for v in losses):
         raise AssertionError(f"UNet training losses {losses} are not finite")
     med = statistics.median(rates)
-    BARE_STEPS_PER_S["unet_train"] = med
-    emit(dict(phase="unet_train", batch=UNET_BATCH, cfg=UNET_TRAIN_CFG,
-              launches=launches, vs_plain_f32=cmp, bitwise_repeatable=same,
+    BARE_STEPS_PER_S[path] = med
+    emit(dict(phase=path, batch=batch, cfg=UNET_TRAIN_CFG, launches=launches,
+              variants=VARIANTS_BY_PATH[path], vs_plain_f32=cmp, bitwise_repeatable=same,
               first_step_s=first_s, window_steps_per_s=list(rates), steps_per_s=med,
-              frames_per_s=med * UNET_BATCH * UNET_SHAPE[0], losses=list(losses),
-              deterministic_cudnn_steps_per_s=det_rate,
+              frames_per_s=med * batch * UNET_SHAPE[0], losses=list(losses),
+              deterministic_cudnn_steps_per_s=det_rate, remat=model.remat,
+              without_remat=remat_off,
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
               peak_mem_first_step_gb=first_peak,
-              peak_mem_with_plain_step_gb=ref_peak))
-    phase_profile(step, x, y, "unet_profile")
+              peak_mem_with_plain_step_gb=ref_peak, reduced=reduced))
+    phase_profile(step, x, y, "unet_profile" if compute_dtype else "unet_f32_profile")
     return launches
 
 
@@ -2679,9 +2781,13 @@ def main() -> None:
     by_path["fsi_train"] = phase_fsi_train(dev, norm)
     torch.cuda.empty_cache()
     by_path["unet_rollout"] = phase_unet_rollout(dev, norm)
-    torch.cuda.empty_cache()
+    _free()
+    by_path["unet_rollout_f32"] = phase_unet_rollout(dev, norm, compute_dtype=None)
+    _free()
     by_path["unet_train"] = phase_unet_train(dev, norm)
-    torch.cuda.empty_cache()
+    _free()
+    by_path["unet_train_f32"] = phase_unet_train(dev, norm, compute_dtype=None)
+    _free()
     summary.update(phase_gk_scores(dev))
     by_path["gk_rollout"] = phase_gk_rollout(dev, norm)
     torch.cuda.empty_cache()

@@ -13,8 +13,8 @@
 // in-kernel transpose and run the T x T products on the VPU; that is a TPU
 // layout trick and is not carried over.
 //
-// The `fma` variants of the forward and the backward (f32 tensors, bf16 at
-// head widths or T the other variant does not take): a block takes a tile of
+// The `fma` variants of the forward and the backward (f32 and bf16 tensors
+// at head widths or T the other variants do not take): a block takes a tile of
 // `ns` consecutive sites, whose q/k/v slabs (T*h*D contiguous elements a
 // site) it stages in shared memory with 16-byte loads. A thread takes one
 // (site, head, row i): q_i in registers, the row's T scores in a padded
@@ -35,12 +35,23 @@
 // and ::ta_bwd_variant; ta_bwd_mma_kernel and ta_fwd_mma_kernel below have
 // the designs): one warp a (site, head) runs the T x T x d products on
 // mma.sync (two in the forward, five in the backward) with the softmax in
-// the accumulator fragments (one device function, ta_warp_softmax, for
+// the accumulator fragments (one device function, ta_frag_softmax, for
 // both), a persistent grid walking the sites through a cp.async ring.
+//
+// The `tf32` variants (f32 tensors at the mma variants' shapes, the block
+// within the shared memory; ta_bwd_tf32_kernel and ta_fwd_tf32_kernel
+// below): the mma variants' plan on f32 rows, every product 3xTF32 on
+// mma.sync m16n8k8 (mma.cuh's split_tf32 and mma_tf32x3). S and dP read
+// their operands by ldmatrix; the products after the softmax are taken
+// transposed (M over the channels) with their k order permuted, so that P
+// and dS serve as B fragments straight from the accumulators (o, dq) or by
+// two warp shuffles (dk, dv): f32 has no ldmatrix.trans, and no P / dS
+// tile is kept.
 //
 // Bound at the UNet's level 0 (B 12, S 8192, T 20, h 4, D 32, bf16): the
 // forward moves 2.0 GB (q, k, v read, o written: 0.60 ms at 3.35 TB/s) for
-// 20 GFLOP, the backward 3.5 GB (1.05 ms) for 50 GFLOP: HBM bounds both.
+// 20 GFLOP, the backward 3.5 GB (1.05 ms) for 50 GFLOP: HBM bounds both;
+// in f32 twice the bytes (1.20 and 2.10 ms).
 #include "fno_common.cuh"
 #include "mma.cuh"
 
@@ -396,60 +407,21 @@ __device__ __forceinline__ const bf16* ta_row(const bf16* base, int r, int T, in
   return r < T ? base + r * rs : zero;
 }
 
-// One warp's (site, head) of the tensor-core variants: S = q k^T over rows
-// i padded to 16 MT and columns j to 8 NT (MT = ceil(NT / 2)), every operand
-// row past T read from the zero row, bf16 operands as they are, f32 sums;
-// then, in the accumulator fragments, S + pb (bh: this head's [T][8 NT]
-// bias, -inf past column T) and P = softmax(S + pb) over j in place (row max
-// subtracted, row max and sum by quad shuffles, rows i >= T zero). With DP
-// (the backward), also dP = do v^T, its products interleaved with those of
-// S, and in the same pass over the rows dS = P (dP - sum_j P dP) in dp,
-// added into run (dp and run are not touched without DP). The forward and
-// the backward both call it.
-template <int D, int NT, bool DP>
-__device__ __forceinline__ void ta_warp_softmax(const bf16* Qs, const bf16* Ks, const bf16* Os,
-                                                const bf16* Vs, const bf16* zero,
-                                                const float* bh, int T, int rs, int lane,
-                                                float (&sp)[(NT + 1) / 2][NT][4],
+// The softmax of one warp's (site, head) in the accumulator fragments of S
+// (and of dP with DP), as both tensor-core products leave them: rows i =
+// 16 mi + (lane >> 2) + 8 hf, columns j = 8 nj + 2 (lane & 3) + e. S + pb
+// (bh: this head's [T][8 NT] bias, -inf past column T) and P = softmax(S +
+// pb) over j in place (row max subtracted, row max and sum by quad
+// shuffles, rows i >= T zero). With DP (the backward), in the same pass
+// over the rows dS = P (dP - sum_j P dP) in dp, added into run (dp and run
+// are not touched without DP).
+template <int NT, bool DP>
+__device__ __forceinline__ void ta_frag_softmax(float (&sp)[(NT + 1) / 2][NT][4],
                                                 float (&dp)[(NT + 1) / 2][NT][4],
-                                                float (&run)[(NT + 1) / 2][NT][4]) {
+                                                float (&run)[(NT + 1) / 2][NT][4],
+                                                const float* bh, int T, int lane) {
   constexpr int MT = (NT + 1) / 2;
   const int gq = lane >> 2, q4 = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NT; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sp[mi][nj][e] = 0.f;
-        if (DP) dp[mi][nj][e] = 0.f;
-      }
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t bk[(NT + 1) / 2][4], bv[(NT + 1) / 2][4];
-#pragma unroll
-    for (int np = 0; np < (NT + 1) / 2; ++np) {
-      int n, kk;
-      mma::bt_frag_row(lane, 16 * ks, 16 * np, n, kk);
-      mma::ldmatrix_x4(bk[np], mma::smem_addr(ta_row(Ks, n, T, rs, zero) + kk));
-      if (DP) mma::ldmatrix_x4(bv[np], mma::smem_addr(ta_row(Vs, n, T, rs, zero) + kk));
-    }
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      const int r = 16 * mi + (lane & 7) + ((lane >> 3) & 1) * 8, c = 16 * ks + (lane >> 4) * 8;
-      uint32_t fq[4], fo[4];
-      mma::ldmatrix_x4(fq, mma::smem_addr(ta_row(Qs, r, T, rs, zero) + c));
-      if (DP) mma::ldmatrix_x4(fo, mma::smem_addr(ta_row(Os, r, T, rs, zero) + c));
-#pragma unroll
-      for (int nj = 0; nj < NT; ++nj) {
-        const int np = nj >> 1, hb = 2 * (nj & 1);
-        mma::mma_bf16(sp[mi][nj], fq, bk[np][hb], bk[np][hb + 1]);
-        if (DP) mma::mma_bf16(dp[mi][nj], fo, bv[np][hb], bv[np][hb + 1]);
-      }
-    }
-  }
-
-  // P in the fragments, row by row (i = 16 mi + gq + 8 hf)
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -500,6 +472,56 @@ __device__ __forceinline__ void ta_warp_softmax(const bf16* Qs, const bf16* Ks, 
           }
       }
     }
+}
+
+// One warp's (site, head) of the bf16 tensor-core variants: S = q k^T over
+// rows i padded to 16 MT and columns j to 8 NT (MT = ceil(NT / 2)), every
+// operand row past T read from the zero row, bf16 operands as they are, f32
+// sums; with DP (the backward) also dP = do v^T, its products interleaved
+// with those of S; then ta_frag_softmax. The forward and the backward both
+// call it.
+template <int D, int NT, bool DP>
+__device__ __forceinline__ void ta_warp_softmax(const bf16* Qs, const bf16* Ks, const bf16* Os,
+                                                const bf16* Vs, const bf16* zero,
+                                                const float* bh, int T, int rs, int lane,
+                                                float (&sp)[(NT + 1) / 2][NT][4],
+                                                float (&dp)[(NT + 1) / 2][NT][4],
+                                                float (&run)[(NT + 1) / 2][NT][4]) {
+  constexpr int MT = (NT + 1) / 2;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sp[mi][nj][e] = 0.f;
+        if (DP) dp[mi][nj][e] = 0.f;
+      }
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t bk[(NT + 1) / 2][4], bv[(NT + 1) / 2][4];
+#pragma unroll
+    for (int np = 0; np < (NT + 1) / 2; ++np) {
+      int n, kk;
+      mma::bt_frag_row(lane, 16 * ks, 16 * np, n, kk);
+      mma::ldmatrix_x4(bk[np], mma::smem_addr(ta_row(Ks, n, T, rs, zero) + kk));
+      if (DP) mma::ldmatrix_x4(bv[np], mma::smem_addr(ta_row(Vs, n, T, rs, zero) + kk));
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int r = 16 * mi + (lane & 7) + ((lane >> 3) & 1) * 8, c = 16 * ks + (lane >> 4) * 8;
+      uint32_t fq[4], fo[4];
+      mma::ldmatrix_x4(fq, mma::smem_addr(ta_row(Qs, r, T, rs, zero) + c));
+      if (DP) mma::ldmatrix_x4(fo, mma::smem_addr(ta_row(Os, r, T, rs, zero) + c));
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const int np = nj >> 1, hb = 2 * (nj & 1);
+        mma::mma_bf16(sp[mi][nj], fq, bk[np][hb], bk[np][hb + 1]);
+        if (DP) mma::mma_bf16(dp[mi][nj], fo, bv[np][hb], bv[np][hb + 1]);
+      }
+    }
+  }
+  ta_frag_softmax<NT, DP>(sp, dp, run, bh, T, lane);
 }
 
 // Rows < T of [16 MT][8 CW] accumulators, rounded to bf16, into the columns
@@ -858,9 +880,407 @@ __global__ void __launch_bounds__(32 * kTaMaxHeads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tf32 variants of TA forward and backward (f32; the mma variants'
+// shapes): the mma variants' plan, every product 3xTF32 on mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+
+constexpr int kTaTf32Stages = 2;   // sites in flight a block of a tf32 variant
+constexpr int kTaPadF = 4;         // f32 padding of a ring row: rows 16 bytes apart mod 128
+
+// Shared memory of a block of the backward's tf32 variant, in bytes from
+// the base (host and device agree; ops/kernels.py::ta_bwd_tf32_smem_bytes).
+// No P / dS tile: dk and dv take dS and P from the accumulators by warp
+// shuffles. 103 KB at the UNet's shape (T 20, 4 heads of 32): two blocks an
+// SM.
+struct TaTf32Layout {
+  size_t ring, zero, acc, bias, total;
+  __host__ __device__ TaTf32Layout(int T, int h, int D) {
+    const size_t rs = (size_t)h * D + kTaPadF;             // a ring row's stride
+    const size_t tj = 8 * (size_t)((T + 7) / 8);           // columns padded to 8 NT
+    ring = 0;                                              // [stages][q, k, v, do][T][rs] f32
+    zero = ring + (size_t)kTaTf32Stages * 4 * T * rs * 4;  // [64] f32 zeros: every row past T
+    acc = zero + 256;                                      // [h][T][T] f64: dpb of the block
+    bias = acc + (size_t)h * T * T * 8;                    // [h][T][8 NT] f32: pb, -inf past T
+    total = bias + (size_t)h * T * tj * 4;
+  }
+};
+
+// The forward's (ops/kernels.py::ta_fwd_tf32_smem_bytes): 70 KB at the
+// UNet's shape, three blocks an SM.
+struct TaFwdTf32Layout {
+  size_t ring, zero, bias, total;
+  __host__ __device__ TaFwdTf32Layout(int T, int h, int D) {
+    const size_t rs = (size_t)h * D + kTaPadF;
+    const size_t tj = 8 * (size_t)((T + 7) / 8);
+    ring = 0;                                              // [stages][q, k, v][T][rs] f32
+    zero = ring + (size_t)kTaTf32Stages * 3 * T * rs * 4;  // [64] f32 zeros
+    bias = zero + 256;                                     // [h][T][8 NT] f32
+    total = bias + (size_t)h * T * tj * 4;
+  }
+};
+
+__device__ __forceinline__ const float* ta_row_f(const float* base, int r, int T, int rs,
+                                                 const float* zero) {
+  return r < T ? base + r * rs : zero;
+}
+
+// S = q k^T (and, with DP, dP = do v^T) of one warp's (site, head) in
+// 3xTF32, then ta_frag_softmax: ta_warp_softmax's plan on f32 rows. A k-step
+// takes 8 of d: q's (do's) A fragments by ldmatrix (mma::tf32_a_offset's
+// rows, 16 bytes apart mod 128 on the rows padded by kTaPadF), k's (v's) B
+// fragments of two column tiles by ldmatrix (mma::tf32_bt_row); each
+// fragment split once into its tf32 pair.
+template <int D, int NT, bool DP>
+__device__ __forceinline__ void ta_warp_softmax_tf32(const float* Qs, const float* Ks,
+                                                     const float* Os, const float* Vs,
+                                                     const float* zero, const float* bh, int T,
+                                                     int rs, int lane,
+                                                     float (&sp)[(NT + 1) / 2][NT][4],
+                                                     float (&dp)[(NT + 1) / 2][NT][4],
+                                                     float (&run)[(NT + 1) / 2][NT][4]) {
+  constexpr int MT = (NT + 1) / 2;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sp[mi][nj][e] = 0.f;
+        if (DP) dp[mi][nj][e] = 0.f;
+      }
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    uint32_t kh[MT][4], kl[MT][4], vh[MT][4], vl[MT][4];
+#pragma unroll
+    for (int np = 0; np < MT; ++np) {
+      int n, kk;
+      mma::tf32_bt_row(lane, 8 * ks, 16 * np, n, kk);
+      uint32_t f[4];
+      mma::ldmatrix_x4(f, mma::smem_addr(ta_row_f(Ks, n, T, rs, zero) + kk));
+      mma::split_frag(f, kh[np], kl[np]);
+      if (DP) {
+        mma::ldmatrix_x4(f, mma::smem_addr(ta_row_f(Vs, n, T, rs, zero) + kk));
+        mma::split_frag(f, vh[np], vl[np]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const int r = 16 * mi + (lane & 7) + ((lane >> 3) & 1) * 8, c = 8 * ks + (lane >> 4) * 4;
+      uint32_t f[4], qh[4], ql[4], oh[4], ol[4];
+      mma::ldmatrix_x4(f, mma::smem_addr(ta_row_f(Qs, r, T, rs, zero) + c));
+      mma::split_frag(f, qh, ql);
+      if (DP) {
+        mma::ldmatrix_x4(f, mma::smem_addr(ta_row_f(Os, r, T, rs, zero) + c));
+        mma::split_frag(f, oh, ol);
+      }
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const int np = nj >> 1, hb = 2 * (nj & 1);
+        mma::mma_tf32x3(sp[mi][nj], qh, ql, kh[np][hb], kh[np][hb + 1], kl[np][hb],
+                        kl[np][hb + 1]);
+        if (DP)
+          mma::mma_tf32x3(dp[mi][nj], oh, ol, vh[np][hb], vh[np][hb + 1], vl[np][hb],
+                          vl[np][hb + 1]);
+      }
+    }
+  }
+  ta_frag_softmax<NT, DP>(sp, dp, run, bh, T, lane);
+}
+
+// The A fragments of a transposed product, out^T = A^T X over the rows r of
+// A (the k dimension): A^T's rows are the channels 16 mc + g (+ 8) of the
+// warp's [T][rs] operand A, its k slots q and q + 4 the rows r0 + 2q and r0
+// + 2q + 1 (permuted alike in B), read by 32-bit loads (banks 8q + g), rows
+// past T from the zero row; split into tf32 pairs.
+template <int CP>
+__device__ __forceinline__ void ta_tf32_at_frags(const float* A, int r0, int c0,
+                                                 const float* zero, int T, int rs, int lane,
+                                                 uint32_t (&ah)[CP][4], uint32_t (&al)[CP][4]) {
+  const int gq = lane >> 2, q4 = lane & 3;
+  const float* ra = ta_row_f(A, r0 + 2 * q4, T, rs, zero);
+  const float* rb = ta_row_f(A, r0 + 2 * q4 + 1, T, rs, zero);
+#pragma unroll
+  for (int mc = 0; mc < CP; ++mc) {
+    const int c = 16 * (c0 + mc) + gq;
+    const uint32_t v[4] = {__float_as_uint(ra[c]), __float_as_uint(ra[c + 8]),
+                           __float_as_uint(rb[c]), __float_as_uint(rb[c + 8])};
+    mma::split_frag(v, ah[mc], al[mc]);
+  }
+}
+
+// out^T [c][n] accumulators (c = 16 (c0 + mc) + g (+ 8), n = 8 nt + 2q (+ 1))
+// into the rows n < T of the warp's [T][rs] slot: 32-bit stores, banks 8q + g.
+template <int CP, int NT>
+__device__ __forceinline__ void ta_tf32_store_t(float* slot, int c0, const float (&o)[CP][NT][4],
+                                                int T, int rs, int lane) {
+  const int gq = lane >> 2, q4 = lane & 3;
+  __syncwarp();   // the warp's reads of the columns it overwrites are done
+#pragma unroll
+  for (int mc = 0; mc < CP; ++mc)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 8 * nt + 2 * q4 + (e & 1), c = 16 * (c0 + mc) + gq + 8 * (e >> 1);
+        if (n < T) slot[n * rs + c] = o[mc][nt][e];
+      }
+}
+
+// out = X A, out[i][c] = sum_j X[i][j] A[j][c]: X (P or dS) in the
+// accumulator fragments, A (v or k) the warp's [T][rs] rows. Computed as
+// out^T = A^T X^T (M over the channels, N over i padded to 8 NT only, K over
+// j), so X^T's B fragments are the lane's own accumulators: with A's k slots
+// permuted (ta_tf32_at_frags), b0 = X[8 ni + g][8 kj + 2q] and b1 = X[8 ni +
+// g][8 kj + 2q + 1]. 32 channels a pass; out into the warp's columns of slot.
+template <int D, int NT>
+__device__ __forceinline__ void ta_tf32_xa(float* slot, const float* A, const float* zero,
+                                           const float (&x)[(NT + 1) / 2][NT][4], int T, int rs,
+                                           int lane) {
+  constexpr int MC = D / 16, CP = MC < 2 ? MC : 2;
+#pragma unroll
+  for (int c0 = 0; c0 < MC; c0 += CP) {
+    float o[CP][NT][4] = {};
+#pragma unroll
+    for (int kj = 0; kj < NT; ++kj) {
+      uint32_t ah[CP][4], al[CP][4];
+      ta_tf32_at_frags<CP>(A, 8 * kj, c0, zero, T, rs, lane, ah, al);
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        const float* xb = x[ni >> 1][kj] + 2 * (ni & 1);
+        uint32_t bh0, bl0, bh1, bl1;
+        mma::split_tf32(xb[0], bh0, bl0);
+        mma::split_tf32(xb[1], bh1, bl1);
+#pragma unroll
+        for (int mc = 0; mc < CP; ++mc)
+          mma::mma_tf32x3(o[mc][ni], ah[mc], al[mc], bh0, bh1, bl0, bl1);
+      }
+    }
+    ta_tf32_store_t<CP, NT>(slot, c0, o, T, rs, lane);
+  }
+}
+
+// out = X^T A, out[j][c] = sum_i X[i][j] A[i][c]: X (dS or P) in the
+// accumulator fragments, A (q or do) the warp's [T][rs] rows. Computed as
+// out^T = A^T X (M over the channels, N over j, K over i padded to 8 NT),
+// A's k slots permuted (ta_tf32_at_frags). X's B fragments, b0 = X[8 ki +
+// 2q][8 nj + g] and b1 = X[8 ki + 2q + 1][8 nj + g], lie in the lanes (2q +
+// e, g >> 1) as register e = g & 1: two shuffles, each source lane sending
+// the register that its readers in that round want (lane (g', q') the one of
+// parity g' & 1 in the first, the other in the second).
+template <int D, int NT>
+__device__ __forceinline__ void ta_tf32_xta(float* slot, const float* A, const float* zero,
+                                            const float (&x)[(NT + 1) / 2][NT][4], int T, int rs,
+                                            int lane) {
+  constexpr int MC = D / 16, CP = MC < 2 ? MC : 2;
+  const int gq = lane >> 2, q4 = lane & 3, odd = gq & 1;
+  const int src1 = 4 * (2 * q4 + odd) + (gq >> 1), src2 = 4 * (2 * q4 + 1 - odd) + (gq >> 1);
+#pragma unroll
+  for (int c0 = 0; c0 < MC; c0 += CP) {
+    float o[CP][NT][4] = {};
+#pragma unroll
+    for (int ki = 0; ki < NT; ++ki) {
+      uint32_t ah[CP][4], al[CP][4];
+      ta_tf32_at_frags<CP>(A, 8 * ki, c0, zero, T, rs, lane, ah, al);
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const float* xr = x[ki >> 1][nj] + 2 * (ki & 1);   // rows 8 ki + g, columns 8 nj + 2q (+1)
+        const float r1 = __shfl_sync(0xffffffffu, odd ? xr[1] : xr[0], src1);
+        const float r2 = __shfl_sync(0xffffffffu, odd ? xr[0] : xr[1], src2);
+        uint32_t bh0, bl0, bh1, bl1;
+        mma::split_tf32(odd ? r2 : r1, bh0, bl0);
+        mma::split_tf32(odd ? r1 : r2, bh1, bl1);
+#pragma unroll
+        for (int mc = 0; mc < CP; ++mc)
+          mma::mma_tf32x3(o[mc][nj], ah[mc], al[mc], bh0, bh1, bl0, bl1);
+      }
+    }
+    ta_tf32_store_t<CP, NT>(slot, c0, o, T, rs, lane);
+  }
+}
+
+// TA backward's tf32 variant (f32; d in {16, 32, 64}, T <= 32, heads <= 8,
+// the block within the shared memory): ta_bwd_mma_kernel's persistent grid,
+// cp.async ring (of f32 rows), softmax and dpb sums, every product 3xTF32.
+//   S = q k^T, dP = do v^T     ta_warp_softmax_tf32
+//   P, dS                      ta_frag_softmax, dS into the lane's dpb sums
+//   dq = dS k                  ta_tf32_xa: dS's B fragments its accumulators
+//   dk = dS^T q, dv = P^T do   ta_tf32_xta: dS's and P's B fragments by
+//                              shuffles
+// f32 has no ldmatrix.trans, so the transposed products take their
+// operands from the ring rows by 32-bit loads and from the accumulators as
+// they lie, and no P / dS tile is kept: 103 KB of shared memory a block at
+// the UNet's shape, two blocks (8 warps) an SM. dq, dk and dv go into the
+// warp's columns of the slots of k, q and v (each slot's last reader is the
+// product that writes it; v's is dP), and the block writes the site's
+// three [T, h d] slabs out with 16-byte stores.
+template <int D, int NT>
+__global__ void __launch_bounds__(32 * kTaMaxHeads, 1)
+    ta_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ pb,
+                       const float* __restrict__ dout, float* __restrict__ dq,
+                       float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ partial,
+                       int nsites, int T, int h) {
+  constexpr int MT = (NT + 1) / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TaTf32Layout L(T, h, D);
+  const int F = h * D, rs = F + kTaPadF, slab = T * rs;
+  const int nthreads = blockDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, q4 = lane & 3;
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  const float* zero = reinterpret_cast<const float*>(smem + L.zero);
+  double* acc = reinterpret_cast<double*>(smem + L.acc);
+  float* sbias = reinterpret_cast<float*>(smem + L.bias);   // [h][T][8 NT]
+  for (int i = threadIdx.x; i < (int)((L.acc - L.zero) / 16); i += nthreads)
+    reinterpret_cast<uint4*>(smem + L.zero)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < h * T * T; i += nthreads) acc[i] = 0.0;
+  for (int i = threadIdx.x; i < h * T * 8 * NT; i += nthreads) {
+    const int j = i % (8 * NT), hi = i / (8 * NT);
+    sbias[i] = j < T ? pb[hi * T + j] : -INFINITY;
+  }
+
+  auto fetch = [&](int site, int stage) {
+    float* dst = ring + stage * 4 * slab;
+    const int per_row = F / 4;
+    for (int i = threadIdx.x; i < 4 * T * per_row; i += nthreads) {
+      const int t = i / (T * per_row), rem = i - t * T * per_row;
+      const int r = rem / per_row, cc = rem - r * per_row;
+      const float* src = t == 0 ? q : t == 1 ? k : t == 2 ? v : dout;
+      mma::cp_async_16(dst + t * slab + r * rs + cc * 4, src + ((size_t)site * T + r) * F + cc * 4);
+    }
+    mma::cp_async_commit();
+  };
+
+  float run[MT][NT][4] = {};   // dS of this warp's (i, j) entries since the last flush
+  auto flush = [&]() {
+    double* a = acc + warp * T * T;
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 16 * mi + gq + 8 * (e >> 1), j = 8 * nj + 2 * q4 + (e & 1);
+          if (i < T && j < T) a[i * T + j] += (double)run[mi][nj][e];
+          run[mi][nj][e] = 0.f;
+        }
+  };
+
+  // the ring: site blockIdx.x + i gridDim.x in stage i % kTaTf32Stages, the
+  // next kTaTf32Stages - 1 sites in flight (a group each, empty past the end)
+  int site = blockIdx.x, it = 0;
+  for (int i = 0; i < kTaTf32Stages - 1; ++i) {
+    if (site + i * (int)gridDim.x < nsites) fetch(site + i * gridDim.x, i);
+    else mma::cp_async_commit();
+  }
+  for (; site < nsites; ++it, site += gridDim.x) {
+    const int stage = it % kTaTf32Stages;
+    mma::cp_async_wait<kTaTf32Stages - 2>();
+    __syncthreads();   // this site has landed; the readers of the stage refilled next are done
+    const int ahead = site + (kTaTf32Stages - 1) * gridDim.x;
+    if (ahead < nsites) fetch(ahead, (it + kTaTf32Stages - 1) % kTaTf32Stages);
+    else mma::cp_async_commit();
+    float* const Qs = ring + stage * 4 * slab + warp * D;
+    float *const Ks = Qs + slab, *const Vs = Qs + 2 * slab, *const Os = Qs + 3 * slab;
+
+    float sp[MT][NT][4], dp[MT][NT][4];
+    ta_warp_softmax_tf32<D, NT, true>(Qs, Ks, Os, Vs, zero, sbias + warp * T * 8 * NT, T, rs,
+                                      lane, sp, dp, run);
+    ta_tf32_xa<D, NT>(Ks, Ks, zero, dp, T, rs, lane);    // dq = dS k, into k's slot
+    ta_tf32_xta<D, NT>(Qs, Qs, zero, dp, T, rs, lane);   // dk = dS^T q, into q's slot
+    ta_tf32_xta<D, NT>(Vs, Os, zero, sp, T, rs, lane);   // dv = P^T do, into v's slot
+    if ((it + 1) % kTaFlush == 0) flush();
+    __syncthreads();   // every warp's dq, dk and dv are in the slots
+    const float* st = ring + stage * 4 * slab;
+    for (int i = threadIdx.x; i < 3 * T * (F / 4); i += nthreads) {
+      const int t = i / (T * (F / 4)), rem = i - t * T * (F / 4);
+      const int r = rem / (F / 4), cc = rem - r * (F / 4);
+      float* out = t == 0 ? dq : t == 1 ? dk : dv;
+      const float* src = st + (t == 0 ? slab : t == 1 ? 0 : 2 * slab) + r * rs + cc * 4;
+      *reinterpret_cast<float4*>(out + ((size_t)site * T + r) * F + cc * 4) =
+          *reinterpret_cast<const float4*>(src);
+    }
+  }
+  flush();
+  __syncthreads();
+  for (int e = threadIdx.x; e < h * T * T; e += nthreads)
+    partial[(size_t)blockIdx.x * h * T * T + e] = (float)acc[e];
+}
+
+// TA forward's tf32 variant (f32; the backward's shapes): ta_fwd_mma_kernel's
+// plan on f32 rows, every product 3xTF32.
+//   S = q k^T, P = softmax(S + pb)   ta_warp_softmax_tf32
+//   o = P v                          ta_tf32_xa: P's B fragments its
+//                                    accumulators, v by 32-bit loads
+// o goes into the warp's columns of q's ring slot (q's last reader is S),
+// and the block writes the site's [T, h d] slab with 16-byte stores. 70 KB
+// of shared memory a block at the UNet's shape: three blocks (12 warps) an
+// SM.
+template <int D, int NT>
+__global__ void __launch_bounds__(32 * kTaMaxHeads, 2)
+    ta_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ pb,
+                       float* __restrict__ o, int nsites, int T, int h) {
+  constexpr int MT = (NT + 1) / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TaFwdTf32Layout L(T, h, D);
+  const int F = h * D, rs = F + kTaPadF, slab = T * rs;
+  const int nthreads = blockDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  const float* zero = reinterpret_cast<const float*>(smem + L.zero);
+  float* sbias = reinterpret_cast<float*>(smem + L.bias);   // [h][T][8 NT]
+  for (int i = threadIdx.x; i < (int)((L.bias - L.zero) / 16); i += nthreads)
+    reinterpret_cast<uint4*>(smem + L.zero)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < h * T * 8 * NT; i += nthreads) {
+    const int j = i % (8 * NT), hi = i / (8 * NT);
+    sbias[i] = j < T ? pb[hi * T + j] : -INFINITY;
+  }
+
+  auto fetch = [&](int site, int stage) {
+    float* dst = ring + stage * 3 * slab;
+    const int per_row = F / 4;
+    for (int i = threadIdx.x; i < 3 * T * per_row; i += nthreads) {
+      const int t = i / (T * per_row), rem = i - t * T * per_row;
+      const int r = rem / per_row, cc = rem - r * per_row;
+      const float* src = t == 0 ? q : t == 1 ? k : v;
+      mma::cp_async_16(dst + t * slab + r * rs + cc * 4, src + ((size_t)site * T + r) * F + cc * 4);
+    }
+    mma::cp_async_commit();
+  };
+
+  int site = blockIdx.x, it = 0;
+  for (int i = 0; i < kTaTf32Stages - 1; ++i) {
+    if (site + i * (int)gridDim.x < nsites) fetch(site + i * gridDim.x, i);
+    else mma::cp_async_commit();
+  }
+  for (; site < nsites; ++it, site += gridDim.x) {
+    const int stage = it % kTaTf32Stages;
+    mma::cp_async_wait<kTaTf32Stages - 2>();
+    __syncthreads();   // this site has landed; the readers of the stage refilled next are done
+    const int ahead = site + (kTaTf32Stages - 1) * gridDim.x;
+    if (ahead < nsites) fetch(ahead, (it + kTaTf32Stages - 1) % kTaTf32Stages);
+    else mma::cp_async_commit();
+    float* const Qs = ring + stage * 3 * slab + warp * D;
+    const float *const Ks = Qs + slab, *const Vs = Qs + 2 * slab;
+
+    float sp[MT][NT][4];
+    ta_warp_softmax_tf32<D, NT, false>(Qs, Ks, nullptr, nullptr, zero,
+                                       sbias + warp * T * 8 * NT, T, rs, lane, sp, sp, sp);
+    ta_tf32_xa<D, NT>(Qs, Vs, zero, sp, T, rs, lane);   // o = P v, into q's slot
+    __syncthreads();   // every warp's o is in the slot
+    const float* st = ring + stage * 3 * slab;
+    for (int i = threadIdx.x; i < T * (F / 4); i += nthreads) {
+      const int r = i / (F / 4), cc = i - r * (F / 4);
+      *reinterpret_cast<float4*>(o + ((size_t)site * T + r) * F + cc * 4) =
+          *reinterpret_cast<const float4*>(st + r * rs + cc * 4);
+    }
+  }
+}
+
 // Calls fn(D, NT) (as std::integral_constant arguments) for the
 // instantiated head width D and 8-column tiles NT = ceil(T / 8) of the
-// tensor-core variant; cudaErrorInvalidValue for any other.
+// tensor-core variants; cudaErrorInvalidValue for any other.
 template <typename Fn>
 cudaError_t with_ta_mma_instance(int d, int T, Fn&& fn) {
   using std::integral_constant;
@@ -883,58 +1303,80 @@ cudaError_t with_ta_mma_instance(int d, int T, Fn&& fn) {
   return cudaErrorInvalidValue;
 }
 
+// The tensor-core variants' codes, as the C entry points take them
+// (ops/kernels.py: VARIANTS["ta_fwd"], VARIANTS["ta_bwd"]).
+constexpr int kMma = 1, kTf32 = 2;
+
 // Shared memory of a block of the forward's (FWD) or the backward's
-// tensor-core variant.
+// tensor-core variant V (kMma or kTf32).
 template <bool FWD>
-size_t ta_mma_smem(int T, int h, int d) {
+size_t ta_tc_smem(int V, int T, int h, int d) {
+  if (V == kTf32) return FWD ? TaFwdTf32Layout(T, h, d).total : TaTf32Layout(T, h, d).total;
   return FWD ? TaFwdMmaLayout(T, h, d).total : TaMmaLayout(T, h, d).total;
 }
 
 template <bool FWD>
-bool ta_mma_shape(int nsites, int T, int h, int d) {
-  return nsites > 0 && T >= 1 && T <= 32 && h >= 1 && h <= kTaMaxHeads &&
-         (d == 16 || d == 32 || d == 64) && ta_mma_smem<FWD>(T, h, d) <= kMaxSmem;
+bool ta_tc_shape(int V, int nsites, int T, int h, int d) {
+  return (V == kMma || V == kTf32) && nsites > 0 && T >= 1 && T <= 32 && h >= 1 &&
+         h <= kTaMaxHeads && (d == 16 || d == 32 || d == 64) &&
+         ta_tc_smem<FWD>(V, T, h, d) <= kMaxSmem;
+}
+
+// Calls fn(kernel) with the kernel of the forward's (FWD) or the backward's
+// tensor-core variant V at head width D and NT column tiles.
+template <bool FWD, int DD, int NN, typename Fn>
+cudaError_t with_ta_tc_kernel(int V, Fn&& fn) {
+  if constexpr (FWD)
+    return V == kTf32 ? fn(ta_fwd_tf32_kernel<DD, NN>) : fn(ta_fwd_mma_kernel<DD, NN>);
+  else
+    return V == kTf32 ? fn(ta_bwd_tf32_kernel<DD, NN>) : fn(ta_bwd_mma_kernel<DD, NN>);
 }
 
 // The persistent grid of the forward's (FWD) or the backward's tensor-core
-// variant: as many blocks as the card's SMs hold at once, never more than
+// variant V: as many blocks as the card's SMs hold at once, never more than
 // sites; 0 on error.
 template <bool FWD>
-int ta_mma_blocks(int nsites, int T, int h, int d) {
-  if (!ta_mma_shape<FWD>(nsites, T, h, d)) return 0;
-  const size_t smem = ta_mma_smem<FWD>(T, h, d);
+int ta_tc_blocks(int V, int nsites, int T, int h, int d) {
+  if (!ta_tc_shape<FWD>(V, nsites, T, h, d)) return 0;
+  const size_t smem = ta_tc_smem<FWD>(V, T, h, d);
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
   cudaError_t err = with_ta_mma_instance(d, T, [&](auto dd, auto nn) {
-    constexpr int DD = decltype(dd)::value, NN = decltype(nn)::value;
-    auto occupancy = [&](auto kern) {
+    return with_ta_tc_kernel<FWD, decltype(dd)::value, decltype(nn)::value>(V, [&](auto kern) {
       cudaError_t e = fno::allow_smem(kern, smem);
       if (e != cudaSuccess) return e;
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * h, smem);
-    };
-    if constexpr (FWD) return occupancy(ta_fwd_mma_kernel<DD, NN>);
-    else return occupancy(ta_bwd_mma_kernel<DD, NN>);
+    });
   });
   if (err != cudaSuccess || sms * per_sm < 1) return 0;
   return nsites < sms * per_sm ? nsites : sms * per_sm;
 }
 
-cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* pb,
-                           const void* dout, void* dq, void* dk, void* dv, void* partial,
-                           void* dpb, int nsites, int T, int h, int d, cudaStream_t stream) {
+// The backward's tensor-core variant V: bf16 tensors (kMma) or f32 (kTf32).
+cudaError_t launch_bwd_tc(int V, const void* q, const void* k, const void* v, const void* pb,
+                          const void* dout, void* dq, void* dk, void* dv, void* partial,
+                          void* dpb, int nsites, int T, int h, int d, cudaStream_t stream) {
   for (const void* p : {q, k, v, dout, (const void*)dq, (const void*)dk, (const void*)dv})
     if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
-  const int grid = ta_mma_blocks<false>(nsites, T, h, d);
+  const int grid = ta_tc_blocks<false>(V, nsites, T, h, d);
   if (grid < 1) return cudaErrorInvalidValue;
-  const size_t smem = TaMmaLayout(T, h, d).total;
+  const size_t smem = ta_tc_smem<false>(V, T, h, d);
   cudaError_t err = with_ta_mma_instance(d, T, [&](auto dd, auto nn) {
-    ta_bwd_mma_kernel<decltype(dd)::value, decltype(nn)::value><<<grid, 32 * h, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(pb), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(partial), nsites, T,
-        h);
+    constexpr int DD = decltype(dd)::value, NN = decltype(nn)::value;
+    if (V == kTf32)
+      ta_bwd_tf32_kernel<DD, NN><<<grid, 32 * h, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(pb),
+          static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
+          static_cast<float*>(dv), static_cast<float*>(partial), nsites, T, h);
+    else
+      ta_bwd_mma_kernel<DD, NN><<<grid, 32 * h, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const float*>(pb), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(partial), nsites,
+          T, h);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return err;
@@ -942,17 +1384,25 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const vo
                               h * T * T, stream);
 }
 
-cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const void* pb, void* o,
-                           int nsites, int T, int h, int d, cudaStream_t stream) {
+// The forward's tensor-core variant V: bf16 tensors (kMma) or f32 (kTf32).
+cudaError_t launch_fwd_tc(int V, const void* q, const void* k, const void* v, const void* pb,
+                          void* o, int nsites, int T, int h, int d, cudaStream_t stream) {
   for (const void* p : {q, k, v, (const void*)o})
     if ((uintptr_t)p % 16) return cudaErrorMisalignedAddress;
-  const int grid = ta_mma_blocks<true>(nsites, T, h, d);
+  const int grid = ta_tc_blocks<true>(V, nsites, T, h, d);
   if (grid < 1) return cudaErrorInvalidValue;
-  const size_t smem = TaFwdMmaLayout(T, h, d).total;
+  const size_t smem = ta_tc_smem<true>(V, T, h, d);
   return with_ta_mma_instance(d, T, [&](auto dd, auto nn) {
-    ta_fwd_mma_kernel<decltype(dd)::value, decltype(nn)::value><<<grid, 32 * h, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(pb), static_cast<bf16*>(o), nsites, T, h);
+    constexpr int DD = decltype(dd)::value, NN = decltype(nn)::value;
+    if (V == kTf32)
+      ta_fwd_tf32_kernel<DD, NN><<<grid, 32 * h, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(pb), static_cast<float*>(o),
+          nsites, T, h);
+    else
+      ta_fwd_mma_kernel<DD, NN><<<grid, 32 * h, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const float*>(pb), static_cast<bf16*>(o), nsites, T, h);
     return cudaGetLastError();
   });
 }
@@ -1037,18 +1487,22 @@ bool bwd_shape(int nsites, int T, int h, int d, int dtype, TaShape* s) {
       return cudaErrorInvalidValue; \
   }
 
-// Bytes of shared memory a block of ta_fwd's mma variant takes.
+// Bytes of shared memory a block of ta_fwd's mma (tf32) variant takes.
 extern "C" int ta_fwd_mma_smem_bytes(int T, int h, int d) {
   return (int)TaFwdMmaLayout(T, h, d).total;
 }
+extern "C" int ta_fwd_tf32_smem_bytes(int T, int h, int d) {
+  return (int)TaFwdTf32Layout(T, h, d).total;
+}
 
-// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["ta_fwd"]).
+// variant: 0 fma, 1 mma (bf16), 2 tf32 (f32) (ops/kernels.py:
+// VARIANTS["ta_fwd"]).
 extern "C" int ta_fwd(const void* q, const void* k, const void* v, const void* pb, void* o,
                       int nsites, int T, int h, int d, int variant, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
-    return launch_fwd_mma(q, k, v, pb, o, nsites, T, h, d, st);
+  if (variant == kMma || variant == kTf32) {
+    if (dtype != (variant == kMma ? fno::kBF16 : fno::kF32)) return cudaErrorInvalidValue;
+    return launch_fwd_tc(variant, q, k, v, pb, o, nsites, T, h, d, st);
   }
   TaShape s;
   if (variant != 0 || !fwd_shape(nsites, T, h, d, dtype, &s)) return cudaErrorInvalidValue;
@@ -1060,28 +1514,37 @@ extern "C" int ta_fwd(const void* q, const void* k, const void* v, const void* p
 #undef TA_FWD
 }
 
-// Bytes of shared memory a block of ta_bwd's mma variant takes.
+// Bytes of shared memory a block of ta_bwd's mma (tf32) variant takes.
 extern "C" int ta_bwd_mma_smem_bytes(int T, int h, int d) {
   return (int)TaMmaLayout(T, h, d).total;
 }
+extern "C" int ta_bwd_tf32_smem_bytes(int T, int h, int d) {
+  return (int)TaTf32Layout(T, h, d).total;
+}
 
-// Number of [h, T, T] partials ta_bwd writes for variant 0 (fma) or 1
-// (mma: one a block of its persistent grid); 0 for a shape it refuses.
+// Number of [h, T, T] partials ta_bwd writes for variant 0 (fma), 1 (mma)
+// or 2 (tf32; the tensor-core variants: one a block of the persistent
+// grid); 0 for a shape or dtype it refuses.
 extern "C" int ta_bwd_num_partials(int nsites, int T, int h, int d, int variant, int dtype) {
-  if (variant == 1) return dtype == fno::kBF16 ? ta_mma_blocks<false>(nsites, T, h, d) : 0;
+  if (variant == kMma || variant == kTf32)
+    return dtype == (variant == kMma ? fno::kBF16 : fno::kF32)
+               ? ta_tc_blocks<false>(variant, nsites, T, h, d)
+               : 0;
   TaShape s;
   return variant == 0 && bwd_shape(nsites, T, h, d, dtype, &s) ? bwd_grid(s) : 0;
 }
 
-// variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["ta_bwd"]); partial holds
-// ta_bwd_num_partials(...) [h, T, T] floats.
+// variant: 0 fma, 1 mma (bf16), 2 tf32 (f32) (ops/kernels.py:
+// VARIANTS["ta_bwd"]); partial holds ta_bwd_num_partials(...) [h, T, T]
+// floats.
 extern "C" int ta_bwd(const void* q, const void* k, const void* v, const void* pb,
                       const void* dout, void* dq, void* dk, void* dv, void* partial, void* dpb,
                       int nsites, int T, int h, int d, int variant, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    if (dtype != fno::kBF16) return cudaErrorInvalidValue;
-    return launch_bwd_mma(q, k, v, pb, dout, dq, dk, dv, partial, dpb, nsites, T, h, d, st);
+  if (variant == kMma || variant == kTf32) {
+    if (dtype != (variant == kMma ? fno::kBF16 : fno::kF32)) return cudaErrorInvalidValue;
+    return launch_bwd_tc(variant, q, k, v, pb, dout, dq, dk, dv, partial, dpb, nsites, T, h, d,
+                         st);
   }
   TaShape s;
   if (variant != 0 || !bwd_shape(nsites, T, h, d, dtype, &s)) return cudaErrorInvalidValue;

@@ -37,9 +37,13 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
 
     Pass ``train_dataset`` (shapes probed from item 0) or explicit
     ``shapes=(shape_in, shape_out)``. The remaining kwargs are the config
-    namespace of the JAX registry; its TPU-only switches (``remat``,
-    ``use_pallas``, ``pallas_interpret``, ``seq_mesh``) are accepted and
-    have no effect: on a CUDA device the model always runs the kernels.
+    namespace of the JAX registry. ``remat`` is honoured for ``unet``
+    (default true, as in the JAX registry: its ResnetBlocks are
+    rematerialised in the backward); ``fno`` and ``galerkin_transformer``
+    accept it and ignore it: their f32 steps fit an 80 GB card at the
+    shipped batches. The TPU-only switches (``use_pallas``,
+    ``pallas_interpret``, ``seq_mesh``) are accepted and have no effect: on
+    a CUDA device the model always runs the kernels.
     """
     model_name = kwargs["model_name"]
     if shapes is None:
@@ -66,8 +70,8 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             dim=shape_in[1], out_channels=shape_out[-1],
             dim_mults=tuple(kwargs["dim_mults"]), channels=shape_in[-1],
             in_time=shape_in[0], out_time=shape_out[0],
-            compute_dtype=compute_dtype, device=resolve_device(device),
-            generator=generator)
+            compute_dtype=compute_dtype, remat=bool(kwargs.get("remat", True)),
+            device=resolve_device(device), generator=generator)
     if model_name == "galerkin_transformer":
         from realpdebench_tpu_torch.models.galerkin_transformer import (
             GalerkinTransformer3d,

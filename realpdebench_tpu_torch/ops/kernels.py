@@ -23,8 +23,9 @@ functions ``k1_variant``, ``t_stage_variant``, ``k2_variant``,
 (``VARIANTS`` counts the launches of each): the T-stage's ``registers`` (a thread
 produces every output of its column) or ``generic``; the others' ``mma``
 (bf16, their products on the tensor cores) or ``fma`` (exact f32
-arithmetic); K1, K2, K2A-lite, K12B, K3F and K3B also ``tf32`` (f32
-tensors, every product on the tensor cores as 3xTF32). A caller may name
+arithmetic); K1, K2, K2A-lite, K12B, K3F, K3B and the TA forward and
+backward also ``tf32`` (f32 tensors, every product on the tensor cores as
+3xTF32). A caller may name
 the variant; one that does not take the input raises before anything is
 built. No variant gives way to another after a failure.
 Nothing here runs at import: this module is imported on machines with no
@@ -78,8 +79,8 @@ LAUNCHES = {"k1": 0, "t_stage": 0, "k2": 0, "k2a": 0, "k2a_lite": 0, "k12b": 0,
 VARIANTS = {"k1": {"fma": 0, "mma": 0, "tf32": 0}, "t_stage": {"generic": 0, "registers": 0},
             "k2": {"fma": 0, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 0, "mma": 0, "tf32": 0},
             "k12b": {"fma": 0, "mma": 0, "tf32": 0}, "k3f": {"fma": 0, "mma": 0, "tf32": 0},
-            "k3b": {"fma": 0, "mma": 0, "tf32": 0}, "ta_fwd": {"fma": 0, "mma": 0},
-            "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
+            "k3b": {"fma": 0, "mma": 0, "tf32": 0}, "ta_fwd": {"fma": 0, "mma": 0, "tf32": 0},
+            "ta_bwd": {"fma": 0, "mma": 0, "tf32": 0}, "gk_scores": {"fma": 0, "mma": 0}}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc: fno::DType
 ACT_CODES = {"none": 0, "exact": 1, "tanh": 2}         # csrc: fno::Act
@@ -481,8 +482,10 @@ SIGNATURES = {
     "fno_k3b_tf32_smem_bytes": ([_I], _I),
     "ta_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "ta_fwd_mma_smem_bytes": ([_I] * 3, _I),
+    "ta_fwd_tf32_smem_bytes": ([_I] * 3, _I),
     "ta_bwd_num_partials": ([_I] * 6, _I),
     "ta_bwd_mma_smem_bytes": ([_I] * 3, _I),
+    "ta_bwd_tf32_smem_bytes": ([_I] * 3, _I),
     "ta_bwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
     "gk_scores_num_partials": ([_I] * 6, _I),
     "gk_scores_mma_smem_bytes": ([_I] * 2, _I),
@@ -969,6 +972,9 @@ TA_MAX_TASKS = 256   # heads * T: one thread per (head, row) of a site
 # row stride of a warp's P / dS tile
 TA_MMA_HEAD_DIMS, TA_MMA_MAX_T, TA_MMA_MAX_HEADS = (16, 32, 64), 32, 8
 TA_MMA_STAGES, TA_MMA_TILE_STRIDE = 2, 40
+# the tf32 variants (the mma variants' shapes): the ring's stages, the f32
+# padding of a ring row (kTaTf32Stages, kTaPadF)
+TA_TF32_STAGES, TA_TF32_PAD = 2, 4
 
 
 def ta_fwd_mma_smem_bytes(T: int, heads: int, d: int) -> int:
@@ -980,15 +986,32 @@ def ta_fwd_mma_smem_bytes(T: int, heads: int, d: int) -> int:
     return TA_MMA_STAGES * 3 * T * rs * 2 + 128 + heads * T * 8 * -(-T // 8) * 4
 
 
+def ta_fwd_tf32_smem_bytes(T: int, heads: int, d: int) -> int:
+    """Shared memory of a block of TA forward's tf32 variant
+    (csrc/temporal_attention.cu::TaFwdTf32Layout): the ring of q, k and v
+    rows (f32, rows padded by 4), a zero row of 64 floats, the bias with
+    its columns padded to 8·ceil(T/8)."""
+    rs = heads * d + TA_TF32_PAD
+    return TA_TF32_STAGES * 3 * T * rs * 4 + 256 + heads * T * 8 * -(-T // 8) * 4
+
+
+def _ta_tc_shape(T: int, heads: int, d: int, aligned: bool) -> bool:
+    """The shapes both tensor-core variants of the TA kernels take: d in
+    (16, 32, 64), T <= 32, at most 8 heads, heads * T <= 256, 16-byte
+    aligned tensors."""
+    return (aligned and d in TA_MMA_HEAD_DIMS and T <= TA_MMA_MAX_T
+            and heads * T <= TA_MAX_TASKS and heads <= TA_MMA_MAX_HEADS)
+
+
 def ta_fwd_variant(dtype, T: int, heads: int, d: int, aligned: bool = True) -> str:
-    """'mma' for bfloat16 with d in (16, 32, 64), T <= 32, heads * T <= 256,
-    at most 8 heads, a block within the shared memory and 16-byte aligned q,
-    k and v, else 'fma'."""
-    if (dtype == torch.bfloat16 and aligned and d in TA_MMA_HEAD_DIMS and T <= TA_MMA_MAX_T
-            and heads * T <= TA_MAX_TASKS and heads <= TA_MMA_MAX_HEADS
-            and ta_fwd_mma_smem_bytes(T, heads, d) <= MAX_SMEM_BYTES):
-        return "mma"
-    return "fma"
+    """At the tensor-core shapes (d in (16, 32, 64), T <= 32, heads * T <=
+    256, at most 8 heads, 16-byte aligned q, k and v) with the block within
+    the shared memory: 'mma' for bfloat16, 'tf32' for float32; else
+    'fma'."""
+    if not _ta_tc_shape(T, heads, d, aligned):
+        return "fma"
+    return _tc_choice(dtype, ta_fwd_mma_smem_bytes(T, heads, d),
+                      ta_fwd_tf32_smem_bytes(T, heads, d))
 
 
 def ta_bwd_mma_smem_bytes(T: int, heads: int, d: int) -> int:
@@ -1002,15 +1025,26 @@ def ta_bwd_mma_smem_bytes(T: int, heads: int, d: int) -> int:
             + heads * T * T * 8 + heads * T * 8 * -(-T // 8) * 4)
 
 
+def ta_bwd_tf32_smem_bytes(T: int, heads: int, d: int) -> int:
+    """Shared memory of a block of TA backward's tf32 variant
+    (csrc/temporal_attention.cu::TaTf32Layout): the ring of q, k, v and do
+    rows (f32, rows padded by 4), a zero row of 64 floats, the block's dpb
+    accumulator (f64), the bias with its columns padded to 8·ceil(T/8) (f32);
+    no P / dS tile."""
+    rs = heads * d + TA_TF32_PAD
+    return (TA_TF32_STAGES * 4 * T * rs * 4 + 256 + heads * T * T * 8
+            + heads * T * 8 * -(-T // 8) * 4)
+
+
 def ta_bwd_variant(dtype, T: int, heads: int, d: int, aligned: bool = True) -> str:
-    """'mma' for bfloat16 with d in (16, 32, 64), T <= 32, heads * T <= 256,
-    at most 8 heads, a block within the shared memory and 16-byte aligned q,
-    k, v and do, else 'fma'."""
-    if (dtype == torch.bfloat16 and aligned and d in TA_MMA_HEAD_DIMS and T <= TA_MMA_MAX_T
-            and heads * T <= TA_MAX_TASKS and heads <= TA_MMA_MAX_HEADS
-            and ta_bwd_mma_smem_bytes(T, heads, d) <= MAX_SMEM_BYTES):
-        return "mma"
-    return "fma"
+    """At the tensor-core shapes (d in (16, 32, 64), T <= 32, heads * T <=
+    256, at most 8 heads, 16-byte aligned q, k, v and do) with the block
+    within the shared memory: 'mma' for bfloat16, 'tf32' for float32; else
+    'fma'."""
+    if not _ta_tc_shape(T, heads, d, aligned):
+        return "fma"
+    return _tc_choice(dtype, ta_bwd_mma_smem_bytes(T, heads, d),
+                      ta_bwd_tf32_smem_bytes(T, heads, d))
 
 
 def _ta_checks(q, pos_bias, heads, **same):
@@ -1038,28 +1072,33 @@ def _ta_variant(kernel: str, tensors, T: int, heads: int, d: int, variant: str |
     """(name, code) of the variant of the TA forward or backward
     (``kernel``) that runs on ``tensors`` (q, k, v and, for the backward,
     do): the one named, or the one ``ta_fwd_variant`` / ``ta_bwd_variant``
-    chooses; a named mma variant that cannot take the input raises, as do
-    shared-memory layouts of this module and temporal_attention.cu that
-    differ."""
-    choose, smem = ((ta_fwd_variant, ta_fwd_mma_smem_bytes) if kernel == "ta_fwd"
-                    else (ta_bwd_variant, ta_bwd_mma_smem_bytes))
+    chooses; a named tensor-core variant (mma, tf32) that cannot take the
+    input raises, before anything is built."""
+    choose = ta_fwd_variant if kernel == "ta_fwd" else ta_bwd_variant
     q = tensors[0]
     ok = aligned(*tensors)
     chosen = choose(q.dtype, T, heads, d, ok)
     name = chosen if variant is None else variant
     code = _variant_code(kernel, name)
-    if name == "mma":
-        if chosen != "mma":
+    if name in _TC_DTYPES:
+        if chosen != name:
             what = "q, k and v" if kernel == "ta_fwd" else "q, k, v and do"
+            kind = "bfloat16" if name == "mma" else "float32"
             raise ValueError(
-                f"{kernel}: the mma variant takes bfloat16, d in {TA_MMA_HEAD_DIMS}, T <= "
+                f"{kernel}: the {name} variant takes {kind}, d in {TA_MMA_HEAD_DIMS}, T <= "
                 f"{TA_MMA_MAX_T}, heads*T <= {TA_MAX_TASKS}, at most {TA_MMA_MAX_HEADS} heads, "
                 f"a block within {MAX_SMEM_BYTES} bytes of shared memory and 16-byte aligned "
                 f"{what}; got {q.dtype}, d={d}, T={T}, heads={heads}, aligned={ok}")
-        if getattr(library(), f"{kernel}_mma_smem_bytes")(T, heads, d) != smem(T, heads, d):
-            raise RuntimeError(f"{kernel}: the shared-memory layouts of kernels.py and "
-                               "temporal_attention.cu differ")
     return name, code
+
+
+def _check_ta_layout(kernel: str, name: str, T: int, heads: int, d: int) -> None:
+    """A tensor-core variant's block as temporal_attention.cu lays it out
+    against this module's size, on which the variant functions decide."""
+    if name in _TC_DTYPES and (getattr(library(), f"{kernel}_{name}_smem_bytes")(T, heads, d)
+                               != globals()[f"{kernel}_{name}_smem_bytes"](T, heads, d)):
+        raise RuntimeError(f"{kernel}: the shared-memory layouts of kernels.py and "
+                           "temporal_attention.cu differ")
 
 
 def _ta_fwd_variant(q, k, v, T: int, heads: int, d: int, variant: str | None):
@@ -1077,6 +1116,7 @@ def ta_fwd(q, k, v, pos_bias, heads: int, variant: str | None = None):
     ``ta_fwd_variant`` chooses."""
     dt, nsites, T, d = _ta_checks(q, pos_bias, heads, k=k, v=v)
     name, code = _ta_fwd_variant(q, k, v, T, heads, d, variant)
+    _check_ta_layout("ta_fwd", name, T, heads, d)
     o = torch.empty_like(q)
     _launch("ta_fwd", library().ta_fwd, q.device, _p(q), _p(k), _p(v), _p(pos_bias), _p(o),
             nsites, T, heads, d, code, dt)
@@ -1091,8 +1131,9 @@ def ta_bwd(q, k, v, pos_bias, do, heads: int, variant: str | None = None):
     chooses."""
     dt, nsites, T, d = _ta_checks(q, pos_bias, heads, k=k, v=v, do=do)
     name, code = _ta_bwd_variant(q, k, v, do, T, heads, d, variant)
+    _check_ta_layout("ta_bwd", name, T, heads, d)
     lib = library()
-    with torch.cuda.device(q.device):   # the mma grid fills this card's SMs
+    with torch.cuda.device(q.device):   # a tensor-core grid fills this card's SMs
         n = lib.ta_bwd_num_partials(nsites, T, heads, d, code, dt)
     if n <= 0:
         raise ValueError(f"ta_bwd ({name}) refuses T={T}, heads={heads}, d={d}: its tile "

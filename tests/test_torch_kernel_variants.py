@@ -303,8 +303,8 @@ def test_variant_counters_start_at_zero_and_reset():
                                 "k12b": {"fma": 0, "mma": 0, "tf32": 0},
                                 "k3f": {"fma": 0, "mma": 0, "tf32": 0},
                                 "k3b": {"fma": 0, "mma": 0, "tf32": 0},
-                                "ta_fwd": {"fma": 0, "mma": 0},
-                                "ta_bwd": {"fma": 0, "mma": 0},
+                                "ta_fwd": {"fma": 0, "mma": 0, "tf32": 0},
+                                "ta_bwd": {"fma": 0, "mma": 0, "tf32": 0},
                                 "gk_scores": {"fma": 0, "mma": 0}}
     assert not any(kernels.LAUNCHES.values())
 
@@ -642,8 +642,8 @@ def test_k3f_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     ((torch.bfloat16, 32, 8, 64), "fma"),
     ((torch.bfloat16, 16, 16, 16), "fma"),     # more than 8 heads
     ((torch.bfloat16, 9, 30, 16), "fma"),      # heads*T past 256
-    ((torch.float32, 20, 4, 32), "fma"),       # exact f32 arithmetic
-    ((torch.float32, 5, 3, 16), "fma"),
+    ((torch.float32, 20, 4, 32), "tf32"),      # f32 on the tensor cores (3xTF32)
+    ((torch.float32, 5, 3, 16), "tf32"),
 ])
 def test_ta_bwd_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert kernels.ta_bwd_variant(*args) == want
@@ -654,6 +654,8 @@ def test_ta_bwd_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert fits or want == "fma"
     if want == "mma":
         assert heads * T <= kernels.TA_MAX_TASKS and fits
+    if want == "tf32":
+        assert kernels.ta_bwd_tf32_smem_bytes(T, heads, d) <= kernels.MAX_SMEM_BYTES
 
 
 def test_ta_bwd_mma_block_fits_three_times_an_sm_at_the_unet_shape():
@@ -722,7 +724,9 @@ def test_a_named_ta_bwd_mma_variant_refuses_what_it_does_not_take(dtype, T, head
         kernels._ta_bwd_variant(q, q, q, do, T, heads, d, "mma")
     with pytest.raises(ValueError, match="no variant"):
         kernels._ta_bwd_variant(q, q, q, do, T, heads, d, "wgmma")
-    assert kernels._ta_bwd_variant(q, q, q, do, T, heads, d, None) == ("fma", 0)
+    chosen = "tf32" if (dtype, offset) == (torch.float32, 0) else "fma"   # f32: 3xTF32
+    assert kernels._ta_bwd_variant(q, q, q, do, T, heads, d, None) == (
+        chosen, list(kernels.VARIANTS["ta_bwd"]).index(chosen))
 
 
 @pytest.mark.parametrize("args, want", [
@@ -737,8 +741,8 @@ def test_a_named_ta_bwd_mma_variant_refuses_what_it_does_not_take(dtype, T, head
     ((torch.bfloat16, 32, 8, 64), "fma"),      # past the shared memory
     ((torch.bfloat16, 16, 16, 16), "fma"),     # more than 8 heads
     ((torch.bfloat16, 9, 30, 16), "fma"),      # heads*T past 256
-    ((torch.float32, 20, 4, 32), "fma"),       # exact f32 arithmetic
-    ((torch.float32, 5, 3, 16), "fma"),
+    ((torch.float32, 20, 4, 32), "tf32"),      # f32 on the tensor cores (3xTF32)
+    ((torch.float32, 5, 3, 16), "tf32"),
 ])
 def test_ta_fwd_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     """The backward's conditions, with the forward's smaller block (no
@@ -751,8 +755,8 @@ def test_ta_fwd_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     fits = kernels.ta_fwd_mma_smem_bytes(T, heads, d) <= kernels.MAX_SMEM_BYTES
     assert fits or want == "fma"
     assert kernels.ta_fwd_mma_smem_bytes(T, heads, d) < kernels.ta_bwd_mma_smem_bytes(T, heads, d)
-    if kernels.ta_bwd_variant(*args) == "mma":
-        assert want == "mma"
+    if kernels.ta_bwd_variant(*args) in ("mma", "tf32"):
+        assert want == kernels.ta_bwd_variant(*args)
 
 
 def test_ta_fwd_mma_block_fits_four_times_an_sm_at_the_unet_shape():
@@ -806,7 +810,9 @@ def test_a_named_ta_fwd_mma_variant_refuses_what_it_does_not_take(dtype, T, head
         kernels._ta_fwd_variant(q, q, v, T, heads, d, "mma")
     with pytest.raises(ValueError, match="no variant"):
         kernels._ta_fwd_variant(q, q, v, T, heads, d, "wgmma")
-    assert kernels._ta_fwd_variant(q, q, v, T, heads, d, None) == ("fma", 0)
+    chosen = "tf32" if (dtype, offset) == (torch.float32, 0) else "fma"   # f32: 3xTF32
+    assert kernels._ta_fwd_variant(q, q, v, T, heads, d, None) == (
+        chosen, list(kernels.VARIANTS["ta_fwd"]).index(chosen))
     assert kernels._ta_fwd_variant(q, q, v, T, heads, d, "fma") == ("fma", 0)
 
 
@@ -838,7 +844,8 @@ def _constexprs(name):
 
 @pytest.mark.parametrize("source, pairs", [
     ("temporal_attention.cu", {"kTaStages": "TA_MMA_STAGES", "kTaMaxHeads": "TA_MMA_MAX_HEADS",
-                               "kTaTS": "TA_MMA_TILE_STRIDE"}),
+                               "kTaTS": "TA_MMA_TILE_STRIDE", "kTaTf32Stages": "TA_TF32_STAGES",
+                               "kTaPadF": "TA_TF32_PAD"}),
     ("galerkin_scores.cu", {"kGkTile": "GK_MMA_TILE", "kGkStages": "GK_MMA_STAGES",
                             "kGkRowPad": "GK_MMA_ROW_PAD"}),
     ("fno_tf32.cuh", {"kTPad": "TF32_PAD", "kGC": "TF32_GC"}),

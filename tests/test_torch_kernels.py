@@ -12,7 +12,8 @@ whole tile (300, 37), head widths 16, 32 and 64, odd B·h and a last group
 of heads narrower than the block (h 5); for the variants of the T-stage and
 K2, K1, K2A-lite, K12B, K3F, K3B, the TA forward and backward and the
 Galerkin scores (the f32 tf32 variants of K1, K2, K2A-lite, K12B, K3F and
-K3B beside their bf16 mma ones), shapes on both sides of each choice
+K3B and the TA forward and backward beside their bf16 mma ones), shapes
+on both sides of each choice
 (``kernels.t_stage_variant``, ``kernels.k2_variant`` and the others),
 widths 32, 64 and 128 for the tensor-core variants of the FNO kernels, head
 widths 16, 32 and 64, T from 5 to 32 and the UNet step's four site counts
@@ -600,8 +601,8 @@ def test_default_calls_on_a_misaligned_view_take_the_unaligned_variants(cuda):
         "k1": {"fma": 1, "mma": 0, "tf32": 0}, "t_stage": {"generic": 1, "registers": 0},
         "k2": {"fma": 1, "mma": 0, "tf32": 0}, "k2a_lite": {"fma": 1, "mma": 0, "tf32": 0},
         "k12b": {"fma": 1, "mma": 0, "tf32": 0}, "k3f": {"fma": 1, "mma": 0, "tf32": 0},
-        "k3b": {"fma": 1, "mma": 0, "tf32": 0}, "ta_fwd": {"fma": 0, "mma": 0},
-        "ta_bwd": {"fma": 0, "mma": 0}, "gk_scores": {"fma": 0, "mma": 0}}
+        "k3b": {"fma": 1, "mma": 0, "tf32": 0}, "ta_fwd": {"fma": 0, "mma": 0, "tf32": 0},
+        "ta_bwd": {"fma": 0, "mma": 0, "tf32": 0}, "gk_scores": {"fma": 0, "mma": 0}}
     with pytest.raises(ValueError, match="mma variant"):
         tfl.k1(x, a, b, **geo, act="exact", variant="mma")
     with pytest.raises(ValueError, match="mma variant"):
@@ -916,9 +917,10 @@ def _ta_bwd_check(q, k, v, pb, do, h, dtype, variant=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", TA_BWD_SHAPES)
 def test_ta_bwd_variants_match_twin(cuda, shape, dtype):
-    """The TA backward in the variant its dtype and shape choose, and in
-    bf16 the fma variant named on the same inputs, against the twin and
-    against each other; two calls bit-equal; the per-variant counters."""
+    """The TA backward in the variant its dtype and shape choose (mma in
+    bf16, tf32 in f32 at the tensor-core shapes), and there the fma variant
+    named on the same inputs, against the twin and against each other; two
+    calls bit-equal; the per-variant counters."""
     B, S, T, h, d = shape
     g = torch.Generator(device=cuda).manual_seed(6)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -926,13 +928,14 @@ def test_ta_bwd_variants_match_twin(cuda, shape, dtype):
     k, v, do = (rn(B, S, T, h * d).to(dtype) for _ in range(3))
     pb = rn(h, T, T)
     chosen = kernels.ta_bwd_variant(dtype, T, h, d)
-    assert chosen == ("mma" if dtype == torch.bfloat16 and d in (16, 32, 64) and T <= 32
-                      else "fma")
+    tc = "mma" if dtype == torch.bfloat16 else "tf32"
+    fits = getattr(kernels, f"ta_bwd_{tc}_smem_bytes")(T, h, d) <= kernels.MAX_SMEM_BYTES
+    assert chosen == (tc if d in (16, 32, 64) and T <= 32 and fits else "fma")
     kernels.reset_launches()
     got = _ta_bwd_check(q, k, v, pb, do, h, dtype)
     assert all(torch.equal(u, w) for u, w in zip(got, kernels.ta_bwd(q, k, v, pb, do, h)))
-    want = {"fma": 0, "mma": 0, chosen: 2}
-    if chosen == "mma":
+    want = {"fma": 0, "mma": 0, "tf32": 0, chosen: 2}
+    if chosen == tc:
         fma = _ta_bwd_check(q, k, v, pb, do, h, dtype, variant="fma")
         for u, w in zip(got[:3], fma[:3]):
             _close(u, w, dtype)
@@ -955,7 +958,7 @@ def test_ta_bwd_mma_at_the_unet_step_site_counts(cuda, level, S):
     kernels.reset_launches()
     got = _ta_bwd_check(q, k, v, pb, do, h, torch.bfloat16)
     assert all(torch.equal(u, w) for u, w in zip(got, kernels.ta_bwd(q, k, v, pb, do, h)))
-    assert kernels.VARIANTS["ta_bwd"] == {"fma": 0, "mma": 2}
+    assert kernels.VARIANTS["ta_bwd"] == {"fma": 0, "mma": 2, "tf32": 0}
 
 
 def test_k3f_and_ta_bwd_variants_refuse_what_they_do_not_take(cuda):
@@ -1000,7 +1003,7 @@ TA_FWD_SHAPES = [  # (B, S, T, h, d)
     (1, 40, 9, 8, 16),       # 8 heads
     (1, 33, 16, 2, 64),      # two whole column tiles
     (1, 30, 7, 4, 64),
-    (1, 20, 32, 8, 32),      # 8 heads at T 32: the forward's block fits, the backward's not
+    (1, 20, 32, 8, 32),      # 8 heads at T 32: the forward's bf16 block fits, no other
     (2, 30, 20, 4, 8),       # fma in both dtypes: d 8 not instantiated
     (1, 20, 40, 2, 16),      # fma in both dtypes: T past 32
 ]
@@ -1009,9 +1012,10 @@ TA_FWD_SHAPES = [  # (B, S, T, h, d)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", TA_FWD_SHAPES)
 def test_ta_fwd_variants_match_twin(cuda, shape, dtype):
-    """The TA forward in the variant its dtype and shape choose, and in bf16
-    the fma variant named on the same inputs, against the twin and against
-    each other; two calls of each bit-equal; the per-variant counters."""
+    """The TA forward in the variant its dtype and shape choose (mma in
+    bf16, tf32 in f32 at the tensor-core shapes), and there the fma variant
+    named on the same inputs, against the twin and against each other; two
+    calls of each bit-equal; the per-variant counters."""
     B, S, T, h, d = shape
     g = torch.Generator(device=cuda).manual_seed(8)
     rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
@@ -1019,15 +1023,16 @@ def test_ta_fwd_variants_match_twin(cuda, shape, dtype):
     k, v = (rn(B, S, T, h * d).to(dtype) for _ in range(2))
     pb = rn(h, T, T)
     chosen = kernels.ta_fwd_variant(dtype, T, h, d)
-    assert chosen == ("mma" if dtype == torch.bfloat16 and d in (16, 32, 64) and T <= 32
-                      else "fma")
+    tc = "mma" if dtype == torch.bfloat16 else "tf32"
+    fits = getattr(kernels, f"ta_fwd_{tc}_smem_bytes")(T, h, d) <= kernels.MAX_SMEM_BYTES
+    assert chosen == (tc if d in (16, 32, 64) and T <= 32 and fits else "fma")
     kernels.reset_launches()
     ref = tta.temporal_attention_tokens_plain(q, k, v, pb, h)
     got = kernels.ta_fwd(q, k, v, pb, h)
     _close(got, ref, dtype)
     assert torch.equal(got, kernels.ta_fwd(q, k, v, pb, h))
-    want = {"fma": 0, "mma": 0, chosen: 2}
-    if chosen == "mma":
+    want = {"fma": 0, "mma": 0, "tf32": 0, chosen: 2}
+    if chosen == tc:
         fma = kernels.ta_fwd(q, k, v, pb, h, variant="fma")
         _close(fma, ref, dtype)
         _close(got, fma, dtype)
@@ -1052,7 +1057,56 @@ def test_ta_fwd_mma_at_the_unet_step_site_counts(cuda, level, S):
     got = kernels.ta_fwd(q, k, v, pb, h)
     _close(got, tta.temporal_attention_tokens_plain(q, k, v, pb, h), torch.bfloat16)
     assert torch.equal(got, kernels.ta_fwd(q, k, v, pb, h))
-    assert kernels.VARIANTS["ta_fwd"] == {"fma": 0, "mma": 2}
+    assert kernels.VARIANTS["ta_fwd"] == {"fma": 0, "mma": 2, "tf32": 0}
+
+
+@pytest.mark.parametrize("level, S", [("level0", 64 * 128), ("level1", 32 * 64),
+                                      ("level2", 16 * 32), ("mid", 16 * 32)])
+def test_ta_tf32_at_the_unet_step_site_counts(cuda, level, S):
+    """The TA forward's and backward's tf32 variants at the site counts the
+    f32 UNet step launches them at (batch 12; T 20, 4 heads of 32): against
+    the twin within 1e-4·max|ref| (dpb within 1e-6 of its sum of |terms|),
+    two calls of each bit-equal."""
+    B, T, h, d = 12, 20, 4, 32
+    g = torch.Generator(device=cuda).manual_seed(11 + S + len(level))
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    q = rn(B, S, T, h * d) * d ** -0.5
+    k, v, do = (rn(B, S, T, h * d) for _ in range(3))
+    pb = rn(h, T, T)
+    kernels.reset_launches()
+    o = kernels.ta_fwd(q, k, v, pb, h)
+    _close(o, tta.temporal_attention_tokens_plain(q, k, v, pb, h), torch.float32)
+    assert torch.equal(o, kernels.ta_fwd(q, k, v, pb, h))
+    got = _ta_bwd_check(q, k, v, pb, do, h, torch.float32)
+    assert all(torch.equal(u, w) for u, w in zip(got, kernels.ta_bwd(q, k, v, pb, do, h)))
+    assert kernels.VARIANTS["ta_fwd"] == {"fma": 0, "mma": 0, "tf32": 2}
+    assert kernels.VARIANTS["ta_bwd"] == {"fma": 0, "mma": 0, "tf32": 2}
+
+
+@pytest.mark.parametrize("where", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+def test_ta_tf32_keeps_non_finite_inputs(cuda, where, value):
+    """Inf or NaN in one entry of q, k, v or do: each output of the tf32
+    variants is non-finite where the twin's is (o does not read do, dv does
+    not read v), and finite where the twin's is."""
+    B, S, T, h, d = 1, 37, 20, 4, 32
+    g = torch.Generator(device=cuda).manual_seed(12)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    ins = dict(q=rn(B, S, T, h * d) * d ** -0.5, k=rn(B, S, T, h * d), v=rn(B, S, T, h * d),
+               do=rn(B, S, T, h * d))
+    pb = rn(h, T, T)
+    ins[where][0, 5, 3, 40] = value
+    q, k, v, do = ins["q"], ins["k"], ins["v"], ins["do"]
+    kernels.reset_launches()
+    got = (kernels.ta_fwd(q, k, v, pb, h), *kernels.ta_bwd(q, k, v, pb, do, h))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, pb)]
+    o = tta.temporal_attention_tokens_plain(*leaves, h)
+    ref = (o.detach(), *torch.autograd.grad(o, leaves, do))
+    torch.cuda.synchronize()
+    for name, u, r in zip(("o", "dq", "dk", "dv", "dpb"), got, ref):
+        assert bool(torch.isfinite(u).all()) == bool(torch.isfinite(r).all()), name
+    assert not all(bool(torch.isfinite(u).all()) for u in got)
+    assert kernels.VARIANTS["ta_fwd"]["tf32"] == 1 and kernels.VARIANTS["ta_bwd"]["tf32"] == 1
 
 
 GK_MMA_SHAPES = GK_SHAPES + [

@@ -14,7 +14,13 @@ PyTorch (the padded and masked T, the bf16 rounding points: the forward's
 P as a bf16 hi + lo pair and o rounded once; the backward's dpb flush)
 against the twin (the backward: autograd through it) at the UNet's
 level-0 statistics, within the bounds the kernels are held to on the card,
-and, unrounded, against the Pallas kernels in interpret mode.
+and, unrounded, against the Pallas kernels in interpret mode. The tf32
+variants' arithmetic (each f32 operand a tf32 hi + lo pair, hi·hi + hi·lo +
+lo·hi; the k order of the products after the softmax permuted alike in both
+operands; S, P, dP, dS and the outputs rounded to f32; dpb's flush) is
+replayed the same way, summed in f64, against the twin's f64 arithmetic
+(1e-5·max|ref| for o, dq, dk and dv, 1e-6 of the sum of |terms| for dpb)
+and against the Pallas kernels in interpret mode (rtol 2e-4).
 """
 
 import jax
@@ -28,6 +34,7 @@ from realpdebench_tpu.ops.pallas.temporal_attention import (
     reference_temporal_attention_tokens,
     temporal_attention_tokens as jax_ta,
 )
+from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops.temporal_attention import (
     temporal_attention_tokens,
     temporal_attention_tokens_plain,
@@ -280,5 +287,177 @@ def test_ta_bwd_mma_replay_matches_pallas_backward():
     got = _replay_ta_bwd_mma(*(torch.from_numpy(a) for a in (q, k, v, pb, do)), shape[3],
                              rounding=False)
     for name, g, r in zip(("dq", "dk", "dv", "dpb"), got, ref):
+        assert g.shape == r.shape, name
+        _close(g.numpy(), r)
+
+
+# --------------------------------------------------------------------------
+# the tf32 variants (f32 tensors, every product 3xTF32 on the tensor cores)
+# --------------------------------------------------------------------------
+
+
+def _pair(t):
+    """t (f32) → its tf32 (hi, lo) pair in f64, as csrc/mma.cuh::split_tf32."""
+    return tuple(u.double() for u in kernels.split_tf32(t))
+
+
+def _x3(eq, a, b):
+    """The 3xTF32 product of two f32 tensors by ``eq``, summed in f64:
+    hi·hi + hi·lo + lo·hi of their tf32 pairs."""
+    pa, pb = _pair(a), _pair(b)
+    return (torch.einsum(eq, pa[0], pb[0]) + torch.einsum(eq, pa[0], pb[1])
+            + torch.einsum(eq, pa[1], pb[0]))
+
+
+def _k_order(n):
+    """The tf32 variants' k order over n (a multiple of 8) indices: within
+    a k-step of 8, slot q holds index 2q and slot q + 4 index 2q + 1, in the
+    A and the B fragments alike (the transposed products after the
+    softmax)."""
+    step = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    return torch.cat([step + 8 * s for s in range(n // 8)])
+
+
+def _permuted_x3(eq, a, b, dim_a, dim_b, T):
+    """``_x3`` over a k dimension of length T padded with zeros to 8·ceil(T/8)
+    and taken in ``_k_order`` (dimension dim_a of a, dim_b of b)."""
+    n = 8 * -(-T // 8)
+    order = _k_order(n)
+
+    def pad(t, dim):
+        shape = list(t.shape)
+        shape[dim] = n - T
+        return torch.cat([t, t.new_zeros(shape)], dim).index_select(dim, order)
+    return _x3(eq, pad(a, dim_a), pad(b, dim_b))
+
+
+def _tf32_heads(z, heads):
+    B, S, T, Fd = z.shape
+    return z.float().reshape(B * S, T, heads, Fd // heads).permute(0, 2, 1, 3)
+
+
+def _tf32_softmax(q, k, pb, heads):
+    """S = q·kᵀ (3xTF32, an f32 accumulator) + the f32 bias, and P =
+    softmax(S) kept in f32, as ta_warp_softmax_tf32 leaves them."""
+    s = _x3("nhid,nhjd->nhij", _tf32_heads(q, heads), _tf32_heads(k, heads)).float()
+    return torch.softmax((s + pb.float()).double(), -1).float()
+
+
+def _replay_ta_fwd_tf32(q, k, v, pb, heads):
+    """TA forward's tf32 variant in plain PyTorch: P from
+    ``_tf32_softmax``; o = P·v on the tf32 pairs of P and v, j in the
+    permuted k order, summed in f64 and rounded once to f32."""
+    B, S, T, Fd = q.shape
+    p = _tf32_softmax(q, k, pb, heads)
+    o = _permuted_x3("nhij,nhjd->nhid", p, _tf32_heads(v, heads), 3, 2, T).float()
+    return o.permute(0, 2, 1, 3).reshape(B, S, T, Fd)
+
+
+def _replay_ta_bwd_tf32(q, k, v, pb, do, heads, nblocks=7):
+    """TA backward's tf32 variant in plain PyTorch: P as the forward's;
+    dP = do·vᵀ (3xTF32, f32); dS = P∘(dP − Σⱼ P·dP) in f32; dq = dS·k
+    (over j), dk = dSᵀ·q and dv = Pᵀ·do (over i), each on the tf32 pairs of
+    its f32 operands in the permuted k order, summed in f64 and rounded once
+    to f32; dpb over a persistent grid of ``nblocks`` blocks (site s in
+    block s mod nblocks), a block's f32 sums of dS over TA_MMA_FLUSH sites
+    at a time added into its f64 accumulator, the partials rounded to f32
+    and added in f64. Returns (dq, dk, dv, dpb)."""
+    B, S, T, Fd = q.shape
+    Q, K, V, O = (_tf32_heads(t, heads) for t in (q, k, v, do))
+    p = _tf32_softmax(q, k, pb, heads)
+    dp = _x3("nhid,nhjd->nhij", O, V).float().double()
+    ds = (p.double() * (dp - (p.double() * dp).sum(-1, keepdim=True))).float()
+    dq = _permuted_x3("nhij,nhjd->nhid", ds, K, 3, 2, T)
+    dk = _permuted_x3("nhij,nhid->nhjd", ds, Q, 2, 2, T)
+    dv = _permuted_x3("nhij,nhid->nhjd", p, O, 2, 2, T)
+    back = lambda z: z.float().permute(0, 2, 1, 3).reshape(B, S, T, Fd)
+    total = torch.zeros(heads, T, T, dtype=torch.float64)
+    for b in range(nblocks):
+        mine = ds[b::nblocks]
+        acc = torch.zeros(heads, T, T, dtype=torch.float64)
+        for g0 in range(0, mine.shape[0], TA_MMA_FLUSH):
+            run = torch.zeros(heads, T, T)
+            for site in mine[g0:g0 + TA_MMA_FLUSH]:
+                run = run + site
+            acc += run.double()
+        total += acc.float().double()
+    return back(dq), back(dk), back(dv), total.float()
+
+
+def _f32_inputs(B_, S, T_, h, d, seed):
+    """f32 inputs at the UNet's level-0 statistics (chip_smoke.py's ta
+    phase): q ~ N(0, 1)·d^-0.5, k, v, do and the bias N(0, 1); not rounded,
+    so that every tf32 split carries a lo part."""
+    r = np.random.default_rng(seed)
+    n = lambda *sh: torch.from_numpy(r.normal(size=sh).astype(np.float32))
+    return (n(B_, S, T_, h * d) * d ** -0.5, n(B_, S, T_, h * d), n(B_, S, T_, h * d),
+            n(h, T_, T_), n(B_, S, T_, h * d))
+
+
+def _twin64_grads(q, k, v, pb, do, heads):
+    """The twin's output and autograd gradients in f64 from the same inputs."""
+    leaves = [t.double().requires_grad_() for t in (q, k, v, pb)]
+    out = temporal_attention_tokens_plain(*leaves, heads)
+    return out.detach(), torch.autograd.grad(out, leaves, do.double())
+
+
+def _dpb_terms64(q, k, v, pb, do, heads):
+    """Σ over sites of P·(|dP| + |Σⱼ P·dP|) in f64: the scale of dpb."""
+    B_, S, T_, Fd = q.shape
+    spl = lambda z: z.double().view(B_, S, T_, heads, Fd // heads)
+    p = torch.softmax(torch.einsum("bsihd,bsjhd->bshij", spl(q), spl(k)) + pb.double(), -1)
+    dp = torch.einsum("bsihd,bsjhd->bshij", spl(do), spl(v))
+    return (p * (dp.abs() + (p * dp).sum(-1, keepdim=True).abs())).sum((0, 1))
+
+
+def _within(got, ref, tol):
+    return (got.double() - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.parametrize("T_", [7, 20, 32])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_ta_fwd_tf32_replay_matches_twin(T_, d):
+    """The replay against the twin's f64 arithmetic from the same f32
+    inputs at the UNet's level-0 statistics: o within 1e-5·max|ref|, ten
+    times inside the f32 bound the kernel is held to on the card (1e-4);
+    the permuted k order gives the product of the unpermuted one."""
+    h = 4 if d < 64 else 2
+    q, k, v, pb, _ = _f32_inputs(2, 40, T_, h, d, seed=T_ + d)
+    ref, _ = _twin64_grads(q, k, v, pb, q, h)
+    got = _replay_ta_fwd_tf32(q, k, v, pb, h)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert _within(got, ref, 1e-5)
+    p = _tf32_softmax(q, k, pb, h)
+    vh = _tf32_heads(v, h)
+    assert torch.allclose(_permuted_x3("nhij,nhjd->nhid", p, vh, 3, 2, T_),
+                          _x3("nhij,nhjd->nhid", p, vh), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("T_", [7, 20, 32])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_ta_bwd_tf32_replay_matches_twin(T_, d):
+    """The replay against autograd through the twin in f64 from the same f32
+    inputs: dq, dk and dv within 1e-5·max|ref|; dpb within 1e-6 of the sum
+    over sites of P·(|dP| + |Σ P·dP|) (TA_DPB_TOL, the card's bound)."""
+    h = 4 if d < 64 else 2
+    q, k, v, pb, do = _f32_inputs(2, 40, T_, h, d, seed=2 * T_ + d)
+    _, ref = _twin64_grads(q, k, v, pb, do, h)
+    got = _replay_ta_bwd_tf32(q, k, v, pb, do, h)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape, name
+        assert _within(g, r, 1e-5), name
+    terms = _dpb_terms64(q, k, v, pb, do, h)
+    assert ((got[3].double() - ref[3]).abs() / terms).max() <= 1e-6
+
+
+def test_ta_tf32_replays_match_pallas_kernels():
+    """The replays against the JAX Pallas forward and backward in interpret
+    mode (f32) at a head width and T the variant takes (d 16, T 20)."""
+    shape = (1, 128, 20, 4, 16)
+    q, k, v, pb, do = (t.numpy() for t in _f32_inputs(*shape, seed=19))
+    out, ref = _jax_vjp(lambda *a: jax_ta(*a, shape[3], interpret=True), q, k, v, pb, do)
+    args = [torch.from_numpy(a) for a in (q, k, v, pb, do)]
+    _close(_replay_ta_fwd_tf32(*args[:4], shape[3]).numpy(), out)
+    for name, g, r in zip(("dq", "dk", "dv", "dpb"), _replay_ta_bwd_tf32(*args, shape[3]), ref):
         assert g.shape == r.shape, name
         _close(g.numpy(), r)

@@ -1,5 +1,6 @@
-"""The tf32 variants of the port's K1, K2, K2A-lite, K12B, K3F and K3B, as
-far as the CPU shows.
+"""The tf32 variants of the port's K1, K2, K2A-lite, K12B, K3F, K3B and the
+TA forward and backward, as far as the CPU shows (the TA kernels'
+arithmetic is replayed in tests/test_torch_temporal_attention.py).
 
 The kernels run only on the card (tests/test_torch_kernels.py, marker
 ``gpu``). Here: the host side of the variants that carry f32 tensors
@@ -949,3 +950,78 @@ def test_k3b_tf32_replay_matches_pallas_k3b(act):
     got = _replay_k3b_tf32(s, *tail, gl, dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
     for name, g, r in zip(("ds", "dk1", "db1", "dk2", "db2"), got, ref):
         _assert_close_to_pallas(f"_k3b_kernel / {name}", g.float().numpy().reshape(r.shape), r)
+
+
+# --------------------------------------------------------------------------
+# TA forward and backward (csrc/temporal_attention.cu, ta_*_tf32_kernel)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel", ["ta_fwd", "ta_bwd"])
+@pytest.mark.parametrize("args, want", [
+    ((torch.float32, 20, 4, 32), "tf32"),      # the UNet: T 20, 4 heads of 32
+    ((torch.float32, 32, 4, 32), "tf32"),      # T at its bound
+    ((torch.float32, 7, 4, 16), "tf32"),
+    ((torch.float32, 20, 2, 64), "tf32"),
+    ((torch.float32, 9, 8, 16), "tf32"),       # 8 heads
+    ((torch.float32, 33, 4, 32), "fma"),       # T past 32
+    ((torch.float32, 20, 4, 8), "fma"),        # d not instantiated
+    ((torch.float32, 16, 16, 16), "fma"),      # more than 8 heads
+    ((torch.float32, 32, 8, 64), "fma"),       # past the shared memory
+    ((torch.float32, 32, 8, 32), "fma"),       # 8 heads at T 32: the forward's block 256 B over
+    ((torch.bfloat16, 20, 4, 32), "mma"),      # bf16 keeps its variant
+])
+def test_ta_tf32_variant_is_a_pure_function_of_dtype_and_shape(kernel, args, want):
+    """float32 at the mma variant's shapes (d 16/32/64, T <= 32, at most 8
+    heads, heads·T <= 256, 16-byte aligned) chooses tf32 where its block
+    fits the shared memory; misaligned tensors and other shapes fma."""
+    choose = kernels.ta_fwd_variant if kernel == "ta_fwd" else kernels.ta_bwd_variant
+    smem = getattr(kernels, f"{kernel}_tf32_smem_bytes")
+    assert choose(*args) == want
+    assert choose(*args) == want          # no state
+    assert choose(*args, aligned=False) == "fma"
+    dtype, T, heads, d = args
+    if want == "tf32":
+        assert smem(T, heads, d) <= kernels.MAX_SMEM_BYTES
+    if dtype == torch.float32 and d in kernels.TA_MMA_HEAD_DIMS and T <= 32 and heads <= 8 \
+            and want == "fma":
+        assert smem(T, heads, d) > kernels.MAX_SMEM_BYTES
+
+
+def test_ta_tf32_blocks_fit_at_the_unet_shape():
+    """At T 20, 4 heads of 32 (rows of 128 + 4 floats): the backward's block
+    takes 105216 bytes (two ring stages of q, k, v and do, a zero row, the
+    f64 dpb accumulator, the bias; no P / dS tile): two blocks an SM (228 KB,
+    1 KB reserved a block). The forward's takes 71296: three."""
+    rs, tj = 4 * 32 + 4, 24
+    assert kernels.ta_bwd_tf32_smem_bytes(20, 4, 32) == (
+        2 * 4 * 20 * rs * 4 + 256 + 4 * 20 * 20 * 8 + 4 * 20 * tj * 4) == 105216
+    assert kernels.ta_fwd_tf32_smem_bytes(20, 4, 32) == (
+        2 * 3 * 20 * rs * 4 + 256 + 4 * 20 * tj * 4) == 71296
+    assert 2 * (105216 + 1024) <= 228 * 1024 < 3 * (105216 + 1024)
+    assert 3 * (71296 + 1024) <= 228 * 1024 < 4 * (71296 + 1024)
+
+
+@pytest.mark.parametrize("kernel", ["ta_fwd", "ta_bwd"])
+@pytest.mark.parametrize("dtype, T, heads, d, offset", [
+    (torch.bfloat16, 20, 4, 32, 0),        # bf16
+    (torch.float32, 20, 4, 8, 0),          # d not instantiated
+    (torch.float32, 33, 4, 32, 0),         # T past 32
+    (torch.float32, 16, 16, 16, 0),        # more than 8 heads
+    (torch.float32, 20, 4, 32, 1),         # v (do) 4 bytes past a 16-byte boundary
+])
+def test_a_named_ta_tf32_variant_refuses_what_it_does_not_take(kernel, dtype, T, heads, d,
+                                                               offset):
+    """A named tf32 variant that cannot take the input raises before
+    anything is built or launched (the tensors lie on the CPU here); the
+    unnamed choice and a named fma take it."""
+    n = T * heads * d
+    q = torch.zeros(n, dtype=dtype)
+    last = torch.zeros(n + 8, dtype=dtype)[offset:offset + n]
+    pick = ((lambda v: kernels._ta_fwd_variant(q, q, last, T, heads, d, v)) if kernel == "ta_fwd"
+            else (lambda v: kernels._ta_bwd_variant(q, q, q, last, T, heads, d, v)))
+    with pytest.raises(ValueError, match="tf32 variant takes float32"):
+        pick("tf32")
+    chosen = "mma" if dtype == torch.bfloat16 else "fma"
+    assert pick(None) == (chosen, list(kernels.VARIANTS[kernel]).index(chosen))
+    assert pick("fma") == ("fma", 0)

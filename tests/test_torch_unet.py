@@ -14,6 +14,11 @@
 3. A 3-step training trajectory of the port's ``make_train_step`` against
    the JAX ``make_train_step`` (Adam, cosine schedule, Gaussian
    normalizer inside the step): each loss and the parameters after.
+4. ``remat`` (the ResnetBlocks rematerialised in the backward): on by
+   default as in the JAX registry, off by ``remat=False``; the loss and
+   every gradient with it on equal those with it off (rtol 1e-6); on, the
+   model and a 3-step trajectory against the JAX package's with
+   ``remat=True`` (rtol 2e-4).
 
 The JAX weights come from the port's seeded weights, perturbed by seeded
 numpy noise so that no bias is zero and no norm scale one, converted with
@@ -48,6 +53,7 @@ from realpdebench_tpu_torch.utils.misc import make_generator
 
 SI = SO = (4, 16, 16, 3)
 KW = dict(model_name="unet", dim_mults=[1, 2], remat=False)
+KW_REMAT = dict(KW, remat=True)
 STEPS, LR = 3, 1e-3
 
 
@@ -81,9 +87,9 @@ def _ncdhw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 4, 1, 2, 3)))
 
 
-def _port_model(seed=0):
+def _port_model(seed=0, kw=KW):
     return _perturb(build_model(shapes=(SI, SO), device="cpu",
-                                generator=make_generator(seed), **KW), seed + 100)
+                                generator=make_generator(seed), **kw), seed + 100)
 
 
 def _jax_params(model):
@@ -238,7 +244,12 @@ def test_export_loads_strict_and_equals_from_jax(pair):
 
 
 def test_unet_forward_and_loss_gradients_match_jax(pair):
-    m, jb, params = pair
+    _forward_and_gradients_vs_jax(*pair)
+
+
+def _forward_and_gradients_vs_jax(m, jb, params):
+    """The port's prediction, loss and every parameter gradient against the
+    JAX bundle's from the same weights and inputs."""
     r = np.random.default_rng(12)
     x = r.normal(size=(2, *SI)).astype(np.float32)
     y = r.normal(size=(2, *SO)).astype(np.float32)
@@ -308,7 +319,13 @@ def test_build_model_unet_takes_jax_registry_kwargs():
 
 
 def test_train_step_trajectory_matches_jax(pair):
-    m0, jb, params = pair
+    _trajectory_vs_jax(*pair, KW)
+
+
+def _trajectory_vs_jax(m0, jb, params, kw):
+    """STEPS training steps of the port (a model built with ``kw`` from
+    m0's weights) against the JAX step from the same weights and batches:
+    each loss and every parameter after."""
     cfg = dict(lr=LR, scheduler="cosine", num_update=4, clip_grad_norm=0.0)
     r = np.random.default_rng(20)
     xs = r.normal(size=(STEPS, 2, *SI)).astype(np.float32)
@@ -325,7 +342,7 @@ def test_train_step_trajectory_matches_jax(pair):
                           jax.random.PRNGKey(i))
         jlosses.append(float(jl))
 
-    model = build_model(shapes=(SI, SO), device="cpu", **KW)
+    model = build_model(shapes=(SI, SO), device="cpu", **kw)
     init = {k: v.clone() for k, v in m0.state_dict().items()}
     model.load_state_dict(init, strict=True)
     opt = build_optimizer(cfg, model.parameters())
@@ -347,3 +364,78 @@ def test_train_step_trajectory_matches_jax(pair):
         for moved in (got - p0, ref - p0):
             assert np.abs(moved[mask]).max(initial=0) <= 1.01 * STEPS * LR, name
         _close(np.where(mask, ref, got), ref, msg=name)
+
+
+# --------------------------------------------------------------------------
+# 4. remat
+# --------------------------------------------------------------------------
+
+
+def _resnet_forwards(model, fn):
+    """fn(), with the ResnetBlocks' forward calls counted (at their start: a
+    checkpoint's recompute may stop before a block's end)."""
+    calls = [0]
+    hooks = [m.register_forward_pre_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+             for m in model.modules() if isinstance(m, tu.ResnetBlock)]
+    try:
+        fn()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return calls[0]
+
+
+def test_build_model_unet_defaults_to_remat():
+    """``remat`` defaults to true for unet, as in the JAX registry, and
+    ``remat=False`` turns it off; the FNO's and the GK's registries accept
+    the key."""
+    kw = {k: v for k, v in KW.items() if k != "remat"}
+    assert build_model(shapes=(SI, SO), device="cpu", **kw).remat is True
+    assert build_model(shapes=(SI, SO), device="cpu", **KW_REMAT).remat is True
+    assert build_model(shapes=(SI, SO), device="cpu", **KW).remat is False
+
+
+def test_remat_changes_no_number():
+    """The same weights and batch with remat on and off: the loss and every
+    gradient equal within rtol 1e-6 (the blocks draw no random numbers). With
+    it on the backward recomputes each ResnetBlock's forward (2 calls a block
+    instead of 1); without autograd, or on the plain path, nothing is
+    recomputed."""
+    r = np.random.default_rng(30)
+    x = torch.from_numpy(r.normal(size=(2, *SI)).astype(np.float32))
+    y = torch.from_numpy(r.normal(size=(2, *SO)).astype(np.float32))
+    losses, grads, calls = {}, {}, {}
+    for remat in (False, True):
+        m = _port_model(4, dict(KW, remat=remat))
+        n_blocks = sum(isinstance(b, tu.ResnetBlock) for b in m.modules())
+
+        def loss_and_backward():
+            loss = m(x, y=y)
+            loss.backward()
+            losses[remat] = loss.item()
+        calls[remat] = _resnet_forwards(m, loss_and_backward)
+        grads[remat] = {n: p.grad.clone() for n, p in m.named_parameters()}
+        with torch.no_grad():
+            assert _resnet_forwards(m, lambda: m.predict(x)) == n_blocks
+        assert _resnet_forwards(m, lambda: m(x, y=y, reference=True).backward()) == n_blocks
+    assert calls == {False: n_blocks, True: 2 * n_blocks}
+    _close(losses[True], losses[False], rtol=1e-6)
+    for name, g in grads[False].items():
+        _close(_np(grads[True][name]), _np(g), rtol=1e-6, msg=name)
+
+
+@pytest.fixture(scope="module")
+def pair_remat():
+    """(port model with remat, JAX bundle with remat=True, JAX params) with
+    the same weights."""
+    m = _port_model(kw=KW_REMAT)
+    return m, jbuild(shapes=(SI, SO), **KW_REMAT), _jax_params(m)
+
+
+def test_unet_with_remat_matches_jax_with_remat(pair_remat):
+    assert pair_remat[0].remat and pair_remat[1].module.remat
+    _forward_and_gradients_vs_jax(*pair_remat)
+
+
+def test_train_step_trajectory_with_remat_matches_jax(pair_remat):
+    _trajectory_vs_jax(*pair_remat, KW_REMAT)
