@@ -8,7 +8,10 @@ From the repository root on a host with a Hopper card and nvcc. Phases, one
 JSON line each; any failure raises (non-zero exit, no result line):
 
   1. env       torch/CUDA versions and the card (plus nvidia-smi's name and
-               power limit on a line of its own).
+               power limit on a line of its own); the library calls' f32
+               precision pinned to full f32 by the port's own
+               utils.misc.set_f32_precision, which build_model applies to
+               every model: every f32 limit below holds that setting.
   2. build     nvcc builds the kernels of realpdebench_tpu_torch/csrc (or
                finds them built).
   3. kernel    the forward kernels K1, the T-stage (et, it) and K2 against
@@ -123,6 +126,9 @@ JSON line each; any failure raises (non-zero exit, no result line):
                relative and every gradient within 1e-4 relative L2 of the
                plain f32 step at batch 6, two passes bit-equal; 3 windows
                of 3 steps, peak memory; then its profile (unet_f32_profile).
+               Measurement only (cudnn_tf32_on): the same step with
+               cuDNN's TF32 switched on around it, one window's steps/s and
+               its loss and gradients' distance from the plain f32 step.
  11. gk_scores the Galerkin scores kernel against its twin at the cylinder
                width (B 16, N 20·64·128 = 163840 tokens, h 4, d 64, in the
                q/k/v Dense's [B, N, h·d] layout), in float32 and bfloat16,
@@ -146,6 +152,30 @@ JSON line each; any failure raises (non-zero exit, no result line):
                dropout masks (both at batch 16: the f32 step fits the card),
                two passes bit-equal; 2 warm-up steps and 5 windows of 3
                steps; then a profile of 3 steps.
+ 13a. gk_rollout_f32, gk_train_f32  phases 12-13 as the shipped config runs
+               them, in float32 (compute_dtype null): the scores in f32 (mma
+               variant), exact counts, within 1e-4 (rollout) and F32_LIMITS
+               (step, at the largest of batches 16, 12, 8 that fits; a line
+               says so where 16 does not) of the plain f32 path; steps/s,
+               peak memory, then a profile (gk_f32_profile).
+ 13b. deeponet_train_f32, deeponet_rollout_f32, deeponet_train,
+      deeponet_rollout  configs/cylinder/deeponet.yaml (p 128, dropout 0.1)
+               at full width: the training step at batch 32 and the rollout
+               at eval batch 64 × 10 steps, in f32 as shipped and in bf16.
+               No kernel of the port's runs (every count 0): f32 is held
+               against a float64 copy of the same weights (the step's loss,
+               every gradient and the BatchNorms' running statistics at
+               batch 2 within F32_LIMITS; the rollout in chunks of 8 within
+               1e-4 relative L2 and max|Δ|/max|ref|), two f32 passes
+               bit-equal under cudnn.deterministic, then a profile
+               (deeponet_f32_profile); bf16 against f32 at the bf16 limits
+               (the branch's gradients at FAMILY_BF16_PREFIX_LIMITS);
+               steps/s, frames/s, peak memory.
+ 13c. transolver_*  the same for configs/cylinder/transolver.yaml (width
+               256, 8 heads, 16 slices, mlp_ratio 4, 1 block): batch 16,
+               eval 16 × 3; where batch 16 does not fit in f32 a line says
+               so and the step runs with grad_accum 2 (exact: no
+               BatchNorm, no dropout), listed under "reduced".
  14. loop      python -m realpdebench_tpu_torch train, in this process
                (train.__main__.main, which the CLI's train subcommand
                runs), on a synthetic cylinder tree (data/synthetic: 16 real
@@ -192,6 +222,14 @@ JSON line each; any failure raises (non-zero exit, no result line):
                (width 256, 4 heads, batch 16, N_autoregressive 1, dropout
                from the run's seeded generator): exact scores counts, mma;
                eval over 28 unseen windows (2 batches).
+ 17a. deeponet_loop, deeponet_eval, transolver_loop, transolver_eval  the
+               same for configs/cylinder/{deeponet,transolver}.yaml in
+               their shipped f32 (no --compute_dtype), at the shipped
+               batches (32 and 16; test batches 64 and 16, N_autoregressive
+               10 and 3): every kernel count 0; eval against the same
+               checkpoint's f32 rollout.
+Every train and eval run of phases 14-18 starts from PyTorch's default TF32
+switches (cudnn's on) and must leave them full f32 (C1).
  18. arrow     whether this host imports datasets and pyarrow; where it
                does, the tree written as an Arrow V2 tree through the
                converter's writer (tools/convert_hdf5_to_hf.write_dataset_v2
@@ -203,7 +241,8 @@ JSON line each; any failure raises (non-zero exit, no result line):
                Where it does not, one line says so.
 Each loop phase lists its cuts under "reduced" beside the shipped values:
 the tree, n_sim_frame, the split sizes, generated id files, num_update,
-max_to_keep, compute_dtype, the eval's test_mode, and N_plot and
+max_to_keep, compute_dtype (the dtype the path ran: bfloat16, or null for
+f32 as shipped), the eval's test_mode, and N_plot and
 N_plot_probe, which are 0 where matplotlib is missing.
 `python3 chip_smoke.py --only-loop` runs env, build and phases 14-18 alone
 and prints neither the summary nor the result line.
@@ -240,7 +279,7 @@ from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops import temporal_attention as tta
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
 from realpdebench_tpu_torch.train import build_optimizer, make_train_step
-from realpdebench_tpu_torch.utils.misc import make_generator
+from realpdebench_tpu_torch.utils.misc import make_generator, set_f32_precision
 
 # the benchmark's rollout (bench.py): eval batch 8, 10 steps, 20x64x128x3
 BATCH, STEPS = 8, 10
@@ -361,6 +400,9 @@ GK_BATCH, GK_STEPS, GK_ROLLOUTS = 16, 1, 10
 GK_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
 GK_WINDOW_STEPS = 3
 GK_DROPOUT_SEED = 11
+# the shipped f32 step (compute_dtype null) at the shipped batch 16, or, if
+# that does not fit the card, at the next of these that does
+GK_F32_BATCHES = (GK_BATCH, 12, 8)
 # the scores kernel at the encoder's width: (B, N, h, d)
 GK_SCORES_SHAPE = (GK_BATCH, GK_SHAPE[0] * GK_SHAPE[1] * GK_SHAPE[2], GK_MODEL["n_head"],
                    GK_MODEL["n_hidden"] // GK_MODEL["n_head"])
@@ -378,6 +420,36 @@ GK_SCORES_TOL = 1e-4
 # of the conv weight, and of the spectral weight.
 GK_ROLLOUT_REL_L2, GK_ROLLOUT_MAX = 5e-2, 1e-1
 GK_LOSS_REL, GK_GRAD_REL_L2 = 1e-2, 5e-2
+
+# DeepONet and Transolver (configs/cylinder/{deeponet,transolver}.yaml as
+# shipped: full width, the shipped train and eval batches and
+# N_autoregressive, compute_dtype null) on 20x64x128x3 windows, with no
+# kernel of the port's: their products are cuBLAS and cuDNN calls, as in
+# the JAX package they are XLA's. f32 is held against a float64 copy of
+# the same weights (the step at FAMILY_CMP_BATCH, the rollout in chunks of
+# FAMILY_CHUNK windows) within F32_LIMITS and FAMILY_F32_ROLLOUT, fixed
+# before the first run from PERF.md's f32 limits; bf16 against f32 within
+# the bf16 limits of the FNO's step and rollout. Steps timed in windows.
+FAMILIES = ("deeponet", "transolver")
+# a step whose peak passes this share of the card's memory fits only until
+# the allocator's free blocks fragment (Transolver's f32 step at batch 16
+# peaked at 78.2 GB and failed its next pass)
+FIT_SHARE = 0.9
+FAMILY_SHAPE = (20, 64, 128, 3)
+FAMILY_CMP_BATCH, FAMILY_CHUNK = 2, 8
+FAMILY_DROPOUT_SEED = 12
+FAMILY_WINDOWS = (3, 3)          # (windows, steps a window)
+FAMILY_ROLLOUTS = 5
+FAMILY_F32_ROLLOUT = (1e-4, 1e-4)
+FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2 = TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2
+# DeepONet's branch in bf16 (fixed before the first chip run): a bf16
+# conv's rounding flips the sign of pre-activations near 0 at its ReLUs and
+# moves the BatchNorms' statistics, so the branch's gradients are far from
+# the f32 step's: the JAX package's own bf16 step is 0.19-0.30 relative L2
+# off its f32 step there (CPU, 8x32x32 windows, p 8 and 128), the port's
+# 0.10-0.26 at the same size; held to 5e-1. The layers after the branch
+# keep FAMILY_BF16_GRAD_REL_L2.
+FAMILY_BF16_PREFIX_LIMITS = {"deeponet": {"branch.": 5e-1}}
 
 # published H100 SXM peaks (dense, 700 W): HBM, and the operations of a
 # bf16 row on the tensor cores, of an f32 row on the FP32 pipes, and of the
@@ -580,9 +652,9 @@ def phase_env() -> str:
               capability=list(torch.cuda.get_device_capability(0)),
               nvidia_smi=smi))
     print(smi, flush=True)
-    # the plain twins are the reference: full f32 matmuls, no TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the plain twins are the reference: full f32 library calls, no TF32, as
+    # the port sets them for every model it builds
+    set_f32_precision()
     return name
 
 
@@ -1634,6 +1706,24 @@ def phase_unet_train(dev, norm, compute_dtype="bfloat16") -> dict:
     bad += [n for n, r in cmp["grad_rel_l2"].items() if not r <= lim_grad]
     if bad:
         raise AssertionError(f"{path}: kernel UNet step vs f32 plain step: {bad}: {cmp}")
+    tf32_on = None
+    if not compute_dtype:
+        # measurement only: the same step with cuDNN's convolutions in TF32
+        # (PyTorch's default, which build_model turns off), its loss and
+        # gradients against the plain f32 step; its speed below
+        fast = _unet(dev)
+        fast.load_state_dict(ref_model.state_dict(), strict=True)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            fast_loss = fast(xn[:n], y=yn[:n])
+            fast_loss.backward()
+        finally:
+            set_f32_precision()
+        fast_rel = {k: _rel_l2(p.grad, ref_grads[k]) for k, p in fast.named_parameters()}
+        tf32_on = dict(batch=n, loss_rel=abs(fast_loss.item() - ref_loss) / abs(ref_loss),
+                       worst_grad_rel_l2=max(fast_rel.values()),
+                       median_grad_rel_l2=statistics.median(fast_rel.values()))
+        del fast, fast_loss
     del ref_model, ref_grads, grads
     torch.cuda.empty_cache()
 
@@ -1684,6 +1774,13 @@ def phase_unet_train(dev, norm, compute_dtype="bfloat16") -> dict:
         raise AssertionError(f"UNet training losses {losses} are not finite")
     med = statistics.median(rates)
     BARE_STEPS_PER_S[path] = med
+    if tf32_on is not None:
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            step(x, y)      # cuDNN picks its TF32 algorithms
+            tf32_on["steps_per_s"], _ = _steps_per_s(step, x, y, window_steps)
+        finally:
+            set_f32_precision()
     emit(dict(phase=path, batch=batch, cfg=UNET_TRAIN_CFG, launches=launches,
               variants=VARIANTS_BY_PATH[path], vs_plain_f32=cmp, bitwise_repeatable=same,
               first_step_s=first_s, window_steps_per_s=list(rates), steps_per_s=med,
@@ -1692,7 +1789,7 @@ def phase_unet_train(dev, norm, compute_dtype="bfloat16") -> dict:
               without_remat=remat_off,
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
               peak_mem_first_step_gb=first_peak,
-              peak_mem_with_plain_step_gb=ref_peak, reduced=reduced))
+              peak_mem_with_plain_step_gb=ref_peak, cudnn_tf32_on=tf32_on, reduced=reduced))
     phase_profile(step, x, y, "unet_profile" if compute_dtype else "unet_f32_profile")
     return launches
 
@@ -1758,8 +1855,17 @@ def _gk(dev, compute_dtype=None):
                        device=dev, generator=make_generator(0), **GK_MODEL)
 
 
-def phase_gk_rollout(dev, norm) -> dict:
-    model = _gk(dev, "bfloat16").eval()
+def _gk_path(compute_dtype, base: str) -> str:
+    return base if compute_dtype else f"{base}_f32"
+
+
+def phase_gk_rollout(dev, norm, compute_dtype="bfloat16") -> dict:
+    """The GK's 1-step rollout in bf16 (phase gk_rollout) or, with
+    ``compute_dtype`` None, in f32 as shipped (gk_rollout_f32: the scores in
+    f32, within KERNEL_TOL's f32 bound of the plain f32 rollout); returns
+    the launch counts of the counted rollout."""
+    path = _gk_path(compute_dtype, "gk_rollout")
+    model = _gk(dev, compute_dtype).eval()
     g = torch.Generator(device=dev).manual_seed(9)
     x_raw = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
     y_raw = torch.randn(GK_BATCH, GK_SHAPE[0] * GK_STEPS, *GK_SHAPE[1:], generator=g,
@@ -1775,9 +1881,9 @@ def phase_gk_rollout(dev, norm) -> dict:
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     n_scores = GK_MODEL["num_encoder_layers"] * GK_STEPS
-    VARIANTS_BY_PATH["gk_rollout"] = _expect(
-        launches, f"a {GK_STEPS}-step GK rollout", variants=dict(gk_scores={"mma": n_scores}),
-        gk_scores=n_scores)
+    VARIANTS_BY_PATH[path] = _expect(
+        launches, f"a {GK_STEPS}-step GK rollout ({path})",
+        variants=dict(gk_scores={"mma": n_scores}), gk_scores=n_scores)
     want = (GK_BATCH, GK_STEPS * GK_SHAPE[0], *GK_SHAPE[1:])
     if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
         raise AssertionError(f"GK rollout output {tuple(pred.shape)} (want {want}) "
@@ -1788,10 +1894,12 @@ def phase_gk_rollout(dev, norm) -> dict:
     ref, _, _ = make_rollout_fn(_PlainPath(ref_model), norm, GK_STEPS)(x_raw, y_raw)
     rel_l2 = ((pred - ref).norm() / ref.norm()).item()
     max_rel = ((pred - ref).abs().max() / ref.abs().max()).item()
-    row = dict(rel_l2=rel_l2, limit_rel_l2=GK_ROLLOUT_REL_L2, max_abs_over_max_ref=max_rel,
-               limit_max=GK_ROLLOUT_MAX, ref_abs_max=ref.abs().max().item())
-    if not (rel_l2 <= GK_ROLLOUT_REL_L2 and max_rel <= GK_ROLLOUT_MAX):
-        raise AssertionError(f"bf16 kernel GK rollout vs f32 plain rollout: {row}")
+    lim_l2, lim_max = (GK_ROLLOUT_REL_L2, GK_ROLLOUT_MAX) if compute_dtype \
+        else (KERNEL_TOL[torch.float32],) * 2
+    row = dict(rel_l2=rel_l2, limit_rel_l2=lim_l2, max_abs_over_max_ref=max_rel,
+               limit_max=lim_max, ref_abs_max=ref.abs().max().item())
+    if not (rel_l2 <= lim_l2 and max_rel <= lim_max):
+        raise AssertionError(f"{path}: kernel GK rollout vs f32 plain rollout: {row}")
     del ref_model, ref, pred
     torch.cuda.empty_cache()
 
@@ -1804,9 +1912,9 @@ def phase_gk_rollout(dev, norm) -> dict:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     med = statistics.median(secs)
-    emit(dict(phase="gk_rollout", batch=GK_BATCH, steps=GK_STEPS, shape=list(want),
-              launches=launches, vs_plain_f32=row, first_rollout_s=first_s,
-              rollout_s=secs, frames_per_s=GK_BATCH * want[1] / med,
+    emit(dict(phase=path, batch=GK_BATCH, steps=GK_STEPS, shape=list(want),
+              launches=launches, variants=VARIANTS_BY_PATH[path], vs_plain_f32=row,
+              first_rollout_s=first_s, rollout_s=secs, frames_per_s=GK_BATCH * want[1] / med,
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
     return launches
 
@@ -1833,30 +1941,56 @@ def _gk_grad_checks(grads, ref_grads) -> tuple:
     return rel, zero
 
 
-def phase_gk_train(dev, norm) -> dict:
-    """The Galerkin Transformer's training step through make_train_step;
-    returns the launch counts of the counted step."""
-    model = _gk(dev, "bfloat16")
-    init = {k: t.clone() for k, t in model.state_dict().items()}
-    g = torch.Generator(device=dev).manual_seed(10)
-    x = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
-    y = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
-    opt = build_optimizer(GK_TRAIN_CFG, model.parameters())
-    step = make_train_step(model, norm, opt, grad_accum=1)
+def _out_of_memory(path: str, batch: int, then: str) -> None:
+    """Say on a line of its own that ``path`` did not fit at ``batch`` (or
+    only without headroom), and release what the attempt held."""
+    emit(dict(phase=path, out_of_memory=True, batch=batch, then=then,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              card_gb=torch.cuda.get_device_properties(0).total_memory / 1e9))
+    _free()
 
-    # the main path, counted: nothing but this step between reset and read
-    model.reseed_dropout(GK_DROPOUT_SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    loss = step(x, y).item()
+
+def phase_gk_train(dev, norm, compute_dtype="bfloat16") -> dict:
+    """The Galerkin Transformer's training step through make_train_step, in
+    bf16 (phase gk_train) or, with ``compute_dtype`` None, in f32 as shipped
+    (gk_train_f32: the scores in f32, the loss and gradients within
+    F32_LIMITS of the plain f32 step; at the largest of GK_F32_BATCHES that
+    fits, the shipped 16 first); returns the launch counts of the counted
+    step."""
+    path = _gk_path(compute_dtype, "gk_train")
+    batches = (GK_BATCH,) if compute_dtype else GK_F32_BATCHES
+    g = torch.Generator(device=dev).manual_seed(10)
+    x_all = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
+    y_all = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
+    for batch in batches:
+        model = _gk(dev, compute_dtype)
+        init = {k: t.clone() for k, t in model.state_dict().items()}
+        x, y = x_all[:batch], y_all[:batch]
+        opt = build_optimizer(GK_TRAIN_CFG, model.parameters())
+        step = make_train_step(model, norm, opt, grad_accum=1)
+
+        # the main path, counted: nothing but this step between reset and read
+        model.reseed_dropout(GK_DROPOUT_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            loss = step(x, y).item()
+        except torch.cuda.OutOfMemoryError:
+            if batch == batches[-1]:
+                raise
+            loss = None
+        if loss is not None:
+            break
+        del model, init, opt, step      # outside the handler: its frames are gone
+        _out_of_memory(path, batch, "the next smaller batch")
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     n_scores = GK_MODEL["num_encoder_layers"]
-    VARIANTS_BY_PATH["gk_train"] = _expect(
-        launches, "one GK training step", variants=dict(gk_scores={"mma": n_scores}),
-        gk_scores=n_scores)
+    VARIANTS_BY_PATH[path] = _expect(
+        launches, f"one GK training step ({path})",
+        variants=dict(gk_scores={"mma": n_scores}), gk_scores=n_scores)
     first_peak = torch.cuda.max_memory_allocated() / 1e9
     if not loss == loss or abs(loss) == float("inf"):
         raise AssertionError(f"GK training loss {loss} is not finite")
@@ -1873,15 +2007,16 @@ def phase_gk_train(dev, norm) -> dict:
     ref_peak = torch.cuda.max_memory_allocated() / 1e9
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
     rel, zero = _gk_grad_checks(grads, ref_grads)
-    cmp = dict(batch=GK_BATCH, loss=loss, ref_loss=ref_loss, loss_rel=loss_rel,
-               limit_loss_rel=GK_LOSS_REL, grad_rel_l2=rel,
-               limit_grad_rel_l2=GK_GRAD_REL_L2, zero_grads=zero,
+    lim_loss, lim_grad = (GK_LOSS_REL, GK_GRAD_REL_L2) if compute_dtype else F32_LIMITS[:2]
+    cmp = dict(batch=batch, loss=loss, ref_loss=ref_loss, loss_rel=loss_rel,
+               limit_loss_rel=lim_loss, grad_rel_l2=rel,
+               limit_grad_rel_l2=lim_grad, zero_grads=zero,
                limit_zero_grad=TRAIN_ZERO_GRAD, worst_grad_rel_l2=max(rel.values()))
-    bad = [] if loss_rel <= GK_LOSS_REL else ["loss"]
-    bad += [k for k, r in rel.items() if not r <= GK_GRAD_REL_L2]
+    bad = [] if loss_rel <= lim_loss else ["loss"]
+    bad += [k for k, r in rel.items() if not r <= lim_grad]
     bad += [k for k, r in zero.items() if not r <= TRAIN_ZERO_GRAD]
     if bad:
-        raise AssertionError(f"bf16 kernel GK step vs f32 plain step: {bad}: {cmp}")
+        raise AssertionError(f"{path}: kernel GK step vs f32 plain step: {bad}: {cmp}")
     del ref_grads, grads
     torch.cuda.empty_cache()
 
@@ -1910,15 +2045,280 @@ def phase_gk_train(dev, norm) -> dict:
     if not all(v == v and abs(v) < float("inf") for v in losses):
         raise AssertionError(f"GK training losses {losses} are not finite")
     med = statistics.median(rates)
-    BARE_STEPS_PER_S["gk_train"] = med
-    emit(dict(phase="gk_train", batch=GK_BATCH, cfg=GK_TRAIN_CFG, launches=launches,
-              vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
-              window_steps_per_s=list(rates), steps_per_s=med,
-              frames_per_s=med * GK_BATCH * GK_SHAPE[0], losses=list(losses),
+    BARE_STEPS_PER_S[path] = med
+    reduced = {} if batch == GK_BATCH else dict(batch=dict(here=batch, shipped=GK_BATCH))
+    if compute_dtype:
+        reduced["compute_dtype"] = dict(here=compute_dtype, shipped=None)
+    emit(dict(phase=path, batch=batch, cfg=GK_TRAIN_CFG, launches=launches,
+              variants=VARIANTS_BY_PATH[path], vs_plain_f32=cmp, bitwise_repeatable=same,
+              first_step_s=first_s, window_steps_per_s=list(rates), steps_per_s=med,
+              frames_per_s=med * batch * GK_SHAPE[0], losses=list(losses),
               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
               peak_mem_first_step_gb=first_peak,
-              peak_mem_with_plain_step_gb=ref_peak))
-    phase_profile(step, x, y, "gk_profile")
+              peak_mem_with_plain_step_gb=ref_peak, reduced=reduced))
+    phase_profile(step, x, y, "gk_profile" if compute_dtype else "gk_f32_profile")
+    return launches
+
+
+def _family_cfg(family: str) -> dict:
+    """The family's shipped cylinder config (the port's copy)."""
+    from realpdebench_tpu_torch.config import load_config
+
+    return load_config(f"cylinder/{family}.yaml").to_dict()
+
+
+def _family(dev, family: str, compute_dtype=None, state=None):
+    """The family at its shipped cylinder config and full width, weights from
+    make_generator(0) (or ``state``); compute_dtype "float64" gives the f64
+    reference copy (``.double()``, everything computed in f64)."""
+    kw = _family_cfg(family)
+    kw.pop("compute_dtype")
+    f64 = compute_dtype == "float64"
+    model = build_model(shapes=(FAMILY_SHAPE, FAMILY_SHAPE), device=dev,
+                        compute_dtype=None if f64 else compute_dtype,
+                        generator=make_generator(0), **kw)
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    if f64:
+        model.double()
+        model.compute_dtype = torch.float64
+    return model
+
+
+def _family_pass(model, xn, yn) -> tuple:
+    """One forward-backward in train mode from zeroed gradients, the dropout
+    stream restarted: (loss, gradients, running statistics)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    model.reseed_dropout(FAMILY_DROPOUT_SEED)
+    if model.compute_dtype == torch.float64:
+        xn, yn = xn.double(), yn.double()
+    loss = model.loss(xn, yn)
+    loss.backward()
+    stats = {n: b.detach().clone() for n, b in model.named_buffers() if "running" in n}
+    return loss.detach(), _grads(model), stats
+
+
+def _family_vs(path, got, ref, limits, prefix_limits=None) -> dict:
+    """A family step's (loss, gradients, statistics) against the reference's
+    within ``limits`` (loss relative, gradients and statistics relative L2;
+    ``prefix_limits``: parameter-name prefix → its gradients' own limit);
+    the branch's conv biases (DeepONet: the BatchNorm after each cancels
+    them, true gradient 0) held to TRAIN_ZERO_GRAD of their conv weight's
+    largest gradient."""
+    (loss, grads, stats), (ref_loss, ref_grads, ref_stats) = got, ref
+    lim_loss, lim_grad, lim_stats = limits
+    prefix_limits = prefix_limits or {}
+    grad_limit = lambda name: next((v for k, v in prefix_limits.items()
+                                    if name.startswith(k)), lim_grad)
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    rel, zero = {}, {}
+    for name, gr in ref_grads.items():
+        if name.startswith("branch.conv") and name.endswith(".0.bias"):
+            scale = ref_grads[name[:-4] + "weight"].abs().max().item()
+            zero[name] = max(grads[name].abs().max().item(), gr.abs().max().item()) / scale
+            continue
+        rel[name] = _rel_l2(grads[name], gr)
+    srel = {n: _rel_l2(stats[n], r) for n, r in ref_stats.items()}
+    cmp = dict(loss=loss.item(), ref_loss=ref_loss.item(), loss_rel=loss_rel,
+               limit_loss_rel=lim_loss, worst_grad_rel_l2=max(rel.values()),
+               limit_grad_rel_l2=lim_grad, limit_grad_rel_l2_by_prefix=prefix_limits,
+               grad_rel_l2=rel, zero_grads=zero, limit_zero_grad=TRAIN_ZERO_GRAD,
+               stats_rel_l2=srel, limit_stats_rel_l2=lim_stats)
+    bad = [] if loss_rel <= lim_loss else ["loss"]
+    bad += [k for k, r in rel.items() if not r <= grad_limit(k)]
+    bad += [k for k, r in zero.items() if not r <= TRAIN_ZERO_GRAD]
+    bad += [k for k, r in srel.items() if not r <= lim_stats]
+    if bad:
+        raise AssertionError(f"{path}: step vs its reference: {bad}: {cmp}")
+    return cmp
+
+
+def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
+    """The training step of ``family`` (deeponet, transolver) at its shipped
+    cylinder config and batch, through make_train_step: in f32 as shipped
+    ({family}_train_f32: the loss, every gradient and the running
+    statistics within F32_LIMITS of a float64 copy of the same weights and
+    batch at FAMILY_CMP_BATCH; two passes bit-equal under
+    cudnn.deterministic; then a profile) or in bf16 ({family}_train: within
+    the bf16 limits of the f32 step at FAMILY_CMP_BATCH). No kernel of the
+    port's runs: every count stays 0. Where the shipped batch does not fit
+    (Transolver in f32, which has neither BatchNorm nor dropout), one line
+    says so and the step runs with grad_accum 2, which is exact there.
+    Returns the launch counts of the counted step."""
+    path = f"{family}_train" if compute_dtype else f"{family}_train_f32"
+    cfg = _family_cfg(family)
+    batch = int(cfg["train_batch_size"])
+    train_cfg = {k: cfg[k] for k in ("lr", "scheduler", "num_update", "step_size",
+                                     "clip_grad_norm")}
+    reduced = {} if compute_dtype is None else dict(
+        compute_dtype=dict(here=compute_dtype, shipped=None))
+    model = _family(dev, family, compute_dtype)
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(batch, *FAMILY_SHAPE, generator=g, device=dev)
+    y = torch.randn(batch, *FAMILY_SHAPE, generator=g, device=dev)
+    for accum in (1, 2):
+        opt = build_optimizer(train_cfg, model.parameters())
+        step = make_train_step(model, norm, opt, grad_accum=accum)
+        # the main path, counted: nothing but this step between reset and read
+        model.reseed_dropout(FAMILY_DROPOUT_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            loss = step(x, y).item()
+        except torch.cuda.OutOfMemoryError:
+            if accum == 2 or family != "transolver":
+                raise
+            loss = None
+        # a step that fits without headroom fails later, as the allocator's
+        # free blocks fragment: it counts as not fitting
+        card = torch.cuda.get_device_properties(dev).total_memory
+        tight = torch.cuda.max_memory_allocated() > FIT_SHARE * card
+        if loss is not None and (accum == 2 or family != "transolver" or not tight):
+            break
+        del opt, step                   # outside the handler: its frames are gone
+        model.zero_grad(set_to_none=True)
+        model.load_state_dict(init, strict=True)
+        _out_of_memory(path, batch, "grad_accum 2, exact for this model")
+        reduced["grad_accum"] = dict(here=2, shipped=1)
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH[path] = _expect(launches, f"one {family} training step ({path})")
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not loss == loss or abs(loss) == float("inf"):
+        raise AssertionError(f"{path}: training loss {loss} is not finite")
+
+    # the step's arithmetic against its reference from the weights before
+    # the step, at FAMILY_CMP_BATCH, with the same dropout masks: f32 against
+    # a float64 copy, bf16 against f32
+    n = FAMILY_CMP_BATCH
+    xn, yn = norm.preprocess(x[:n], y[:n])
+    got = _family_pass(_family(dev, family, compute_dtype, init), xn, yn)
+    ref = _family_pass(_family(dev, family, "float64" if compute_dtype is None else None,
+                               init), xn, yn)
+    if compute_dtype is None:
+        cmp = _family_vs(path, got, ref, F32_LIMITS)
+    else:
+        cmp = _family_vs(path, got, ref, (FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2,
+                                          TRAIN_STATS_REL_L2),
+                         FAMILY_BF16_PREFIX_LIMITS.get(family))
+    cmp.update(batch=n, reference="float64" if compute_dtype is None else "float32")
+    del got, ref, init
+    _free()
+
+    same = None
+    xn, yn = norm.preprocess(x, y)
+    if compute_dtype is None:
+        # determinism: the same forward-backward twice (a microbatch of the
+        # step's size), bit for bit, with cuDNN held to deterministic
+        # algorithms
+        m = batch // accum
+        torch.backends.cudnn.deterministic = True
+        rep = [_family_pass(model, xn[:m], yn[:m]) for _ in range(2)]
+        torch.backends.cudnn.deterministic = False
+        same = torch.equal(rep[0][0], rep[1][0]) and all(
+            torch.equal(rep[0][1][k], rep[1][1][k]) for k in rep[0][1])
+        if not same:
+            raise AssertionError(f"{path}: two identical forward-backward passes differ")
+        del rep
+        _free()
+
+    windows, window_steps = FAMILY_WINDOWS
+    for _ in range(WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates, losses = zip(*(_steps_per_s(step, x, y, window_steps) for _ in range(windows)))
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"{path}: training losses {losses} are not finite")
+    med = statistics.median(rates)
+    BARE_STEPS_PER_S[path] = med
+    emit(dict(phase=path, config=f"cylinder/{family}.yaml", batch=batch, grad_accum=accum,
+              cfg=train_cfg, launches=launches, vs_reference=cmp, bitwise_repeatable=same,
+              first_step_s=first_s, window_steps_per_s=list(rates), steps_per_s=med,
+              frames_per_s=med * batch * FAMILY_SHAPE[0], losses=list(losses),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              peak_mem_first_step_gb=first_peak, reduced=reduced))
+    if compute_dtype is None:
+        phase_profile(step, x, y, f"{family}_f32_profile")
+    del model, step, opt
+    _free()
+    return launches
+
+
+def _chunked_rollout(model, norm, n_steps, x_raw, y_raw, chunk: int):
+    rollout = make_rollout_fn(model, norm, n_steps)
+    return torch.cat([rollout(x_raw[i:i + chunk], y_raw[i:i + chunk])[0]
+                      for i in range(0, x_raw.shape[0], chunk)])
+
+
+def phase_family_rollout(dev, norm, family: str, compute_dtype=None) -> dict:
+    """The rollout of ``family`` at its shipped eval batch and
+    N_autoregressive through make_rollout_fn: in f32 as shipped
+    ({family}_rollout_f32: within FAMILY_F32_ROLLOUT of a float64 copy's
+    rollout of the same inputs) or in bf16 ({family}_rollout: within the
+    bf16 rollout limits of the f32 rollout); every kernel count 0;
+    frames/s, peak memory. Returns the launch counts of the counted
+    rollout."""
+    path = f"{family}_rollout" if compute_dtype else f"{family}_rollout_f32"
+    cfg = _family_cfg(family)
+    batch, n_steps = int(cfg["test_batch_size"]), int(cfg["N_autoregressive"])
+    model = _family(dev, family, compute_dtype).eval()
+    g = torch.Generator(device=dev).manual_seed(14)
+    x_raw = torch.randn(batch, *FAMILY_SHAPE, generator=g, device=dev)
+    y_raw = torch.randn(batch, FAMILY_SHAPE[0] * n_steps, *FAMILY_SHAPE[1:], generator=g,
+                        device=dev)
+    rollout = make_rollout_fn(model, norm, n_steps)
+
+    # the main path, counted: nothing but this run between reset and read
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pred, _, _ = rollout(x_raw, y_raw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH[path] = _expect(launches, f"a {n_steps}-step {family} rollout ({path})")
+    want = (batch, n_steps * FAMILY_SHAPE[0], *FAMILY_SHAPE[1:])
+    if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"{path}: output {tuple(pred.shape)} (want {want}) or not finite")
+
+    ref_model = _family(dev, family, "float64" if compute_dtype is None else None,
+                        model.state_dict()).eval()
+    ref = _chunked_rollout(ref_model, norm, n_steps, x_raw, y_raw, FAMILY_CHUNK)
+    rel_l2 = ((pred - ref).norm() / ref.norm()).item()
+    max_rel = ((pred - ref).abs().max() / ref.abs().max()).item()
+    lim_l2, lim_max = FAMILY_F32_ROLLOUT if compute_dtype is None \
+        else (ROLLOUT_REL_L2, ROLLOUT_MAX)
+    row = dict(reference="float64" if compute_dtype is None else "float32",
+               rel_l2=rel_l2, limit_rel_l2=lim_l2, max_abs_over_max_ref=max_rel,
+               limit_max=lim_max, ref_abs_max=ref.abs().max().item())
+    if not (rel_l2 <= lim_l2 and max_rel <= lim_max):
+        raise AssertionError(f"{path}: rollout vs its reference: {row}")
+    del ref_model, ref, pred
+    _free()
+
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(FAMILY_ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(x_raw, y_raw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    reduced = {} if compute_dtype is None else dict(
+        compute_dtype=dict(here=compute_dtype, shipped=None))
+    emit(dict(phase=path, config=f"cylinder/{family}.yaml", batch=batch, steps=n_steps,
+              shape=list(want), launches=launches, vs_reference=row,
+              first_rollout_s=first_s, rollout_s=secs, frames_per_s=batch * want[1] / med,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, reduced=reduced))
+    del model, rollout
+    _free()
     return launches
 
 
@@ -2166,24 +2566,70 @@ PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
 # where it is missing, N_plot and N_plot_probe are 0.
 MODEL_LOOP_STEPS = 12
 MODEL_TEST_MODE = "unseen"
+FAMILY_LOOP_STEPS = 12
 # the bf16 FNO loop again, on the Arrow tree the converter writes from the
 # same arrays (--use_hf_dataset true): a few steps, exact counts
 ARROW_STEPS = 4
 ARROW_WINDOWS = 8       # windows of each split and type held bit for bit, and timed
-# each loop path: its config, its steps, the kernel launches of one training
-# step and of one forward, its eval phase and its bare step's phase
+# each loop path: its config, the compute dtype it runs (None: f32, as the
+# configs ship), its steps, the kernel launches of one training step and of
+# one forward, its eval phase, its bare step's phase and its other cuts
+# (key: (value here, shipped value)). DeepONet and Transolver run in their
+# shipped f32 and launch no kernel; Transolver's f32 step at the shipped
+# batch 16 does not fit the card (transolver_train_f32 says so on a line of
+# its own), so its loop accumulates 2 microbatches, which is exact for a
+# model without BatchNorm or dropout.
 LOOPS = {
-    "loop": dict(config="cylinder/fno.yaml", steps=LOOP_STEPS, step=TRAIN_LAUNCHES,
-                 predict=PREDICT_LAUNCHES, eval="eval", bare="train"),
-    "unet_loop": dict(config="cylinder/unet.yaml", steps=MODEL_LOOP_STEPS,
+    "loop": dict(config="cylinder/fno.yaml", dtype="bfloat16", steps=LOOP_STEPS,
+                 step=TRAIN_LAUNCHES, predict=PREDICT_LAUNCHES, eval="eval", bare="train"),
+    "unet_loop": dict(config="cylinder/unet.yaml", dtype="bfloat16", steps=MODEL_LOOP_STEPS,
                       step=dict(ta_fwd=UNET_TA_PER_FORWARD, ta_bwd=UNET_TA_PER_FORWARD),
                       predict=dict(ta_fwd=UNET_TA_PER_FORWARD), eval="unet_eval",
                       bare="unet_train"),
-    "gk_loop": dict(config="cylinder/galerkin_transformer.yaml", steps=MODEL_LOOP_STEPS,
+    "gk_loop": dict(config="cylinder/galerkin_transformer.yaml", dtype="bfloat16",
+                    steps=MODEL_LOOP_STEPS,
                     step=dict(gk_scores=GK_MODEL["num_encoder_layers"]),
                     predict=dict(gk_scores=GK_MODEL["num_encoder_layers"]),
                     eval="gk_eval", bare="gk_train"),
+    "deeponet_loop": dict(config="cylinder/deeponet.yaml", dtype=None,
+                          steps=FAMILY_LOOP_STEPS, step={}, predict={},
+                          eval="deeponet_eval", bare="deeponet_train_f32"),
+    "transolver_loop": dict(config="cylinder/transolver.yaml", dtype=None,
+                            steps=FAMILY_LOOP_STEPS, step={}, predict={},
+                            eval="transolver_eval", bare="transolver_train_f32",
+                            cuts=dict(grad_accum=(2, 1))),
 }
+# PyTorch's own defaults of the TF32 switches, which each CLI run starts
+# from, and the full-f32 state the port must leave after it
+TF32_DEFAULTS = (False, True, "highest")
+F32_EXACT = (False, False, "highest")
+
+
+def tf32_state() -> tuple:
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def tf32_defaults() -> None:
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = TF32_DEFAULTS[:2]
+    torch.set_float32_matmul_precision(TF32_DEFAULTS[2])
+
+
+def cli_run(main, what: str, *args, **kwargs):
+    """An entry point's ``main(*args, **kwargs)``, started from PyTorch's
+    default TF32 switches; the port must leave them full f32."""
+    tf32_defaults()
+    out = main(*args, **kwargs)
+    check_f32_exact(what)
+    return out
+
+
+def check_f32_exact(what: str) -> tuple:
+    """The TF32 switches as ``what`` left them: full f32, or raise."""
+    if tf32_state() != F32_EXACT:
+        raise AssertionError(f"{what} left the TF32 switches at {tf32_state()}, "
+                             f"not {F32_EXACT}")
+    return tf32_state()
 
 
 class LoopRun:
@@ -2223,7 +2669,8 @@ class LoopRun:
         out = {k: LOOP_OVERRIDES[k] for k in (
             "n_sim_frame", "n_sim_in_distribution", "n_sim_out_distribution",
             "generate_ids_if_missing", "max_to_keep")}
-        out["num_update"] = (MODEL_LOOP_STEPS, shipped.num_update)
+        out["num_update"] = (LOOPS[path]["steps"], shipped.num_update)
+        out.update(LOOPS[path].get("cuts", {}))
         for k in ("N_plot", "N_plot_probe"):
             if shipped.get(k) and not self.plots:
                 out[k] = (0, shipped.get(k))
@@ -2233,7 +2680,9 @@ class LoopRun:
 
     def argv(self, path: str, evaluating: bool = False) -> list:
         argv = ["--config", LOOPS[path]["config"], "--dataset_root", self.root,
-                "--results_path", f"{self.work}/results", "--compute_dtype", "bfloat16"]
+                "--results_path", f"{self.work}/results"]
+        if LOOPS[path]["dtype"]:
+            argv += ["--compute_dtype", LOOPS[path]["dtype"]]
         for k, (v, _) in self.overrides(path, evaluating).items():
             argv += [f"--{k}", v if isinstance(v, str) else json.dumps(v)]
         return argv
@@ -2241,7 +2690,8 @@ class LoopRun:
     def reduced(self, path: str, evaluating: bool = False) -> dict:
         r = {k: dict(here=v, shipped=s)
              for k, (v, s) in self.overrides(path, evaluating).items()}
-        r["compute_dtype"] = dict(here="bfloat16", shipped=None)
+        # the dtype each path ran: None is f32, as shipped
+        r["compute_dtype"] = dict(here=LOOPS[path]["dtype"], shipped=None)
         n_real, h, w = LOOP_TREE["sizes"]["real"]
         n_num, hn, wn = LOOP_TREE["sizes"]["numerical"]
         r["tree"] = dict(here=f"{n_real} real trajectories at {h}x{w} and {n_num} "
@@ -2413,7 +2863,8 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    exp1, model, opt, hist = train_main(
+    exp1, model, opt, hist = cli_run(
+        train_main, f"the {path}",
         [*base, "--train_data_type", "numerical", "--profile_dir", prof_dir],
         dataset_class=run.dataset_class)
     wall = time.perf_counter() - t0
@@ -2473,7 +2924,8 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
 
     # resume 2 steps further from the run's checkpoint directory
     kernels.reset_launches()
-    _, _, opt2, hist2 = train_main(
+    _, _, opt2, hist2 = cli_run(
+        train_main, f"the resumed {path}",
         [*base, "--train_data_type", "numerical", "--num_update", str(steps + 2),
          "--resume", ckpt_dir], dataset_class=run.dataset_class)
     n_val2 = sum(1 for i in (steps + 1, steps + 2) if i % max(1, (steps + 2) // 50) == 0)
@@ -2493,7 +2945,8 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
         # finetune on real data from the first run's checkpoint, 2 steps
         _free()
         kernels.reset_launches()
-        _, _, opt3, hist3 = train_main(
+        _, _, opt3, hist3 = cli_run(
+            train_main, "the finetune",
             [*base, "--train_data_type", "real", "--is_finetune", "--checkpoint_path",
              ckpt_dir, "--num_update", "2"], dataset_class=run.dataset_class)
         ft_launches, _ = _check_launches("the finetune", loop, 2, 2 * val_batches)
@@ -2519,6 +2972,7 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
               trace=trace, launches=launches, variants=variants, peak_mem_gb=peak,
               first_losses=losses[:10], last_losses=losses[-10:],
               metrics_card_vs_cpu=metric_cmp, limit_metrics_rel=LOOP_METRICS_REL,
+              tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT),
               reload_bit_equal=True, resume=resume, finetune=finetune))
     VARIANTS_BY_PATH[path] = variants
     run.ckpt_dirs[path] = ckpt_dir
@@ -2572,7 +3026,7 @@ def phase_eval(dev, run: LoopRun, path: str = "loop") -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    _, results = eval_main(argv, dataset_class=run.dataset_class)
+    _, results = cli_run(eval_main, f"the {name}", argv, dataset_class=run.dataset_class)
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
 
@@ -2613,17 +3067,18 @@ def phase_eval(dev, run: LoopRun, path: str = "loop") -> dict:
         got, want = _compared(m, results[m]), _compared(m, ref_metrics[m])
         small = abs(want) < EVAL_SMALL
         err = abs(got - want) if small else abs(got - want) / abs(want)
-        cmp[m] = dict(bf16=results[m], f32_plain=ref_metrics[m], err=err,
+        cmp[m] = dict(eval=results[m], f32_plain=ref_metrics[m], err=err,
                       limit=EVAL_METRIC_ABS if small else EVAL_METRIC_REL,
                       kind="abs" if small else "rel")
         bad += [] if err <= cmp[m]["limit"] else [m]
     if bad:
-        raise AssertionError(f"bf16 eval vs plain f32 eval: {bad}: rel_l2 {rel_l2}, {cmp}")
+        raise AssertionError(f"{name} vs plain f32 eval: {bad}: rel_l2 {rel_l2}, {cmp}")
     del pred, ref, targets
     emit(dict(phase=name, config=loop["config"], data=run.data_source(),
               reduced=run.reduced(path, evaluating=True), batch=batch,
               n_autoregressive=n_steps, test_windows=len(test_ds), results=results,
               eval_s=secs, frames_per_s=frames / secs, launches=launches,
+              tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT),
               variants=variants, peak_mem_gb=peak,
               vs_plain_f32=dict(pred_rel_l2=rel_l2, limit_rel_l2=ROLLOUT_REL_L2,
                                 metrics=cmp)))
@@ -2711,7 +3166,7 @@ def phase_arrow(dev, run: LoopRun):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    _, _, _, hist = train_main(base)
+    _, _, _, hist = cli_run(train_main, "the Arrow loop", base)
     wall = time.perf_counter() - t0
     n_val = ARROW_STEPS // max(1, ARROW_STEPS // 50)
     launches, variants = _check_launches("the Arrow-backed loop", loop, ARROW_STEPS,
@@ -2792,7 +3247,16 @@ def main() -> None:
     by_path["gk_rollout"] = phase_gk_rollout(dev, norm)
     torch.cuda.empty_cache()
     by_path["gk_train"] = phase_gk_train(dev, norm)
-    torch.cuda.empty_cache()
+    _free()
+    by_path["gk_rollout_f32"] = phase_gk_rollout(dev, norm, compute_dtype=None)
+    _free()
+    by_path["gk_train_f32"] = phase_gk_train(dev, norm, compute_dtype=None)
+    _free()
+    for family in FAMILIES:
+        for dtype, suffix in ((None, "_f32"), ("bfloat16", "")):
+            by_path[f"{family}_train{suffix}"] = phase_family_train(dev, norm, family, dtype)
+            by_path[f"{family}_rollout{suffix}"] = phase_family_rollout(dev, norm, family,
+                                                                        dtype)
     by_path.update(loop_and_eval(dev))
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],

@@ -1,7 +1,8 @@
 """JAX parameters → the port's ``state_dict``.
 
 Counterpart of ``realpdebench_tpu/interop/torch_export.py`` (its
-``export_fno``, ``export_unet`` and ``export_galerkin``): the same key names
+``export_fno``, ``export_unet``, ``export_galerkin``, ``export_deeponet``
+and ``export_transolver``): the same key names
 and conventions,
 producing torch tensors that the port's ``load_state_dict(...,
 strict=True)`` takes. Inputs are the JAX ``params`` (and ``batch_stats``)
@@ -99,6 +100,61 @@ def galerkin_state_dict(params: dict, batch_stats: dict) -> dict:
         i += 1
     _dense(sd, "regressor.regressor1", reg["regressor1"])
     _dense(sd, "regressor.regressor2", reg["regressor2"])
+    return sd
+
+
+def deeponet_state_dict(params: dict, batch_stats: dict) -> dict:
+    """JAX DeepONet ``params`` and ``batch_stats`` → DeepONet ``state_dict``.
+    The branch's first Dense reads the pooled [1, 4, 4, 256] features
+    flattened channels-last in JAX and channels-first in the port: its
+    columns are permuted from (spatial, C) to (C, spatial) order."""
+    sd, br, bs = {}, params["branch"], batch_stats["branch"]
+    for i in range(4):
+        key = f"branch.conv{i + 1}"
+        _conv(sd, f"{key}.0", br[f"Conv_{i}"])
+        sd[f"{key}.1.weight"] = _t(br[f"BatchNorm_{i}"]["scale"])
+        sd[f"{key}.1.bias"] = _t(br[f"BatchNorm_{i}"]["bias"])
+        sd[f"{key}.1.running_mean"] = _t(bs[f"BatchNorm_{i}"]["mean"])
+        sd[f"{key}.1.running_var"] = _t(bs[f"BatchNorm_{i}"]["var"])
+        sd[f"{key}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    k0 = np.asarray(br["Dense_0"]["kernel"])             # [spatial·C, 512]
+    c = np.asarray(br["Conv_3"]["kernel"]).shape[-1]
+    w0 = k0.T.reshape(k0.shape[1], -1, c).transpose(0, 2, 1)
+    sd["branch.fc.0.weight"] = _t(w0.reshape(k0.shape[1], -1))
+    sd["branch.fc.0.bias"] = _t(br["Dense_0"]["bias"])
+    _dense(sd, "branch.fc.3", br["Dense_1"])
+    for i, dst in enumerate(("trunk.fc.0", "trunk.fc.2", "trunk.fc.4")):
+        _dense(sd, dst, params["trunk"][f"Dense_{i}"])
+    for src, dst in (("out_fc1", "output_net.0"), ("out_fc2", "output_net.3"),
+                     ("out_fc3", "output_net.6")):
+        _dense(sd, dst, params[src])
+    return sd
+
+
+def transolver_state_dict(params: dict) -> dict:
+    """JAX Transolver3d ``params`` → Transolver3d ``state_dict``."""
+    sd = {"placeholder": _t(params["placeholder"])}
+    _dense(sd, "preprocess.linear_pre.0", params["preprocess"]["Dense_0"])
+    _dense(sd, "preprocess.linear_post", params["preprocess"]["Dense_1"])
+    i = 0
+    while f"block_{i}" in params:
+        blk, pre = params[f"block_{i}"], f"blocks.{i}"
+        for ln in ("ln_1", "ln_2", "ln_3"):
+            if ln in blk:
+                sd[f"{pre}.{ln}.weight"] = _t(blk[ln]["scale"])
+                sd[f"{pre}.{ln}.bias"] = _t(blk[ln]["bias"])
+        attn = blk["attn"]
+        sd[f"{pre}.Attn.temperature"] = _t(attn["temperature"])
+        for conv in ("in_project_fx", "in_project_x"):
+            _conv(sd, f"{pre}.Attn.{conv}", attn[conv])
+        for dense in ("in_project_slice", "to_q", "to_k", "to_v"):
+            _dense(sd, f"{pre}.Attn.{dense}", attn[dense])
+        _dense(sd, f"{pre}.Attn.to_out.0", attn["to_out"])
+        _dense(sd, f"{pre}.mlp.linear_pre.0", blk["mlp"]["Dense_0"])
+        _dense(sd, f"{pre}.mlp.linear_post", blk["mlp"]["Dense_1"])
+        if "mlp2" in blk:
+            _dense(sd, f"{pre}.mlp2", blk["mlp2"])
+        i += 1
     return sd
 
 

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from realpdebench_tpu_torch.models.base import Model, lecun_normal_, mse
+from realpdebench_tpu_torch.models.base import BN_MOMENTUM, Model, lecun_normal_, mse
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_variant
 from realpdebench_tpu_torch.ops.fno_layer import (
     fused_fno_layer,
@@ -40,9 +40,6 @@ from realpdebench_tpu_torch.ops.fno_layer import (
 )
 from realpdebench_tpu_torch.ops.fno_tail import fused_tail_loss
 from realpdebench_tpu_torch.ops.spectral import grid_features
-
-# flax BatchNorm's momentum 0.9: running ← 0.9·running + 0.1·batch
-_BN_MOMENTUM = 0.9
 
 
 class SpectralConv3d(nn.Module):
@@ -161,7 +158,7 @@ class FNO3d(Model):
                 var = stats[1] / n_pos - mean * mean       # biased, as flax
                 with torch.no_grad():
                     for run, new in ((bn.running_mean, mean), (bn.running_var, var)):
-                        run.mul_(_BN_MOMENTUM).add_(new, alpha=1 - _BN_MOMENTUM)
+                        run.mul_(BN_MOMENTUM).add_(new, alpha=1 - BN_MOMENTUM)
             else:
                 mean, var = bn.running_mean, bn.running_var
             a = bn.weight / torch.sqrt(var + bn.eps)

@@ -20,11 +20,11 @@ with the block-diagonal [B, h·d, h·d] of the per-head scores, so q and the
 output keep the Dense's layout with no transpose copy.
 
 Dropout follows flax's ``nn.Dropout``: keep with probability 1 − p, scale
-the kept values by 1/(1 − p). Every mask comes from ``dropout_mask``,
-drawn from the model's own ``torch.Generator`` on the activations' device,
-seeded by ``dropout_seed`` (``build_model`` passes the run's ``seed``;
-``reseed_dropout`` restarts the stream); the
-global RNG is never used. In train mode the score dropout (p 0.5), the
+the kept values by 1/(1 − p). Every mask comes from ``models/base.py``'s
+``dropout_mask``, drawn from the model's own ``torch.Generator`` on the
+activations' device, seeded by ``dropout_seed`` (``build_model`` passes the
+run's ``seed``; ``reseed_dropout`` restarts the stream); the global RNG is
+never used. In train mode the score dropout (p 0.5), the
 residual dropouts and the feed-forward dropout (p ``dropout``) run; in eval
 mode none does, unless ``reference_eval_dropout`` keeps the score dropout
 on, as the reference does (JAX ``galerkin_transformer.py:108-110``).
@@ -57,8 +57,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from realpdebench_tpu_torch.models.base import Model, lecun_normal_, mse
-from realpdebench_tpu_torch.models.fno import _BN_MOMENTUM, SpectralConv3d
+from realpdebench_tpu_torch.models.base import (
+    Model,
+    batch_norm,
+    dropout,
+    layer_norm,
+    lecun_normal_,
+    linear,
+    mse,
+)
+from realpdebench_tpu_torch.models.fno import SpectralConv3d
 from realpdebench_tpu_torch.ops.activations import gelu
 from realpdebench_tpu_torch.ops.galerkin import (
     galerkin_scores,
@@ -70,36 +78,6 @@ from realpdebench_tpu_torch.ops.spectral import (
 )
 
 SCORE_DROPOUT = 0.5   # the reference's F.dropout default on the scores
-
-
-def dropout_mask(shape, p: float, generator: torch.Generator) -> torch.Tensor:
-    """Bool keep mask of ``shape``, True with probability 1 − p, drawn from
-    ``generator`` on its device. Every dropout of the model draws here."""
-    return torch.rand(shape, generator=generator, device=generator.device) >= p
-
-
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
-    """flax ``nn.Dropout`` in training: x / (1 − p) where kept, else 0."""
-    if p == 0.0:
-        return x
-    if p == 1.0:
-        return torch.zeros_like(x)
-    keep = dropout_mask(tuple(x.shape), p, generator)
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-
-
-def _linear(m: nn.Linear, x, dt):
-    return F.linear(x.to(dt), m.weight.to(dt), m.bias.to(dt))
-
-
-def _layer_norm(m: nn.LayerNorm, x, dt):
-    """flax LayerNorm: float32 statistics, variance as E[x²] − E[x]²,
-    output in ``dt``."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    return ((xf - mean) * torch.rsqrt(var + m.eps) * m.weight + m.bias).to(dt)
 
 
 class GalerkinAttention(nn.Module):
@@ -143,7 +121,7 @@ class GalerkinAttention(nn.Module):
     def forward(self, x, generator=None, reference: bool = False):
         B, N, D = x.shape
         h, dt = self.n_head, self.dtype
-        q, k, v = (_linear(lin, x, dt) for lin in self.linears)
+        q, k, v = (linear(lin, x, dt) for lin in self.linears)
         scores_fn = galerkin_scores_plain if reference else galerkin_scores
         scores = scores_fn(k, v, *self._affine(self.norm_K, k.dtype),
                            *self._affine(self.norm_V, k.dtype), h,
@@ -195,27 +173,12 @@ class GKTEncoderLayer(nn.Module):
                 else (lambda z, p: z))
         x = x + drop(self.attn(x, generator, reference), self.dropout)
         if self.layer_norm:
-            x = _layer_norm(self.layer_norm1, x, dt)
-        h = drop(F.relu(_linear(self.ff.lr1, x, dt)), self.ffn_dropout)
-        x = x + drop(_linear(self.ff.lr2, h, dt), self.dropout)
+            x = layer_norm(self.layer_norm1, x, dt)
+        h = drop(F.relu(linear(self.ff.lr1, x, dt)), self.ffn_dropout)
+        x = x + drop(linear(self.ff.lr2, h, dt), self.dropout)
         if self.layer_norm:
-            x = _layer_norm(self.layer_norm2, x, dt)
+            x = layer_norm(self.layer_norm2, x, dt)
         return x
-
-
-def _batch_norm(bn: nn.BatchNorm3d, x, training: bool, dt):
-    """flax BatchNorm over every axis but the last (channels) of x."""
-    xf = x.float()
-    if training:
-        dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            for run, new in ((bn.running_mean, mean), (bn.running_var, var)):
-                run.mul_(_BN_MOMENTUM).add_(new, alpha=1 - _BN_MOMENTUM)
-    else:
-        mean, var = bn.running_mean, bn.running_var
-    return ((xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias).to(dt)
 
 
 class SpectralRegressor(nn.Module):
@@ -244,18 +207,18 @@ class SpectralRegressor(nn.Module):
         in the compute dtype."""
         dt, p = self.dtype, self.padding
         grid = grid.to(x.dtype).expand(x.shape[0], *grid.shape)
-        x = _linear(self.fc, torch.cat([x, grid], dim=-1), dt)
+        x = linear(self.fc, torch.cat([x, grid], dim=-1), dt)
         x = F.pad(x, (0, 0, 0, p, 0, p, 0, p))           # end-pad W, H, T
         for i in range(self.num_layers):
             w_real, w_imag = self.spectral_conv[i].corner_weights()
             x1 = truncated_spectral_conv3d_dft_lowp(x, w_real, w_imag, compute_dtype=dt)
             conv = self.convs[i]
             x2 = F.linear(x.to(dt), conv.weight[:, :, 0, 0, 0].to(dt), conv.bias.to(dt))
-            x = _batch_norm(self.bns[i], x1.to(dt) + x2, self.training, dt)
+            x = batch_norm(self.bns[i], x1.to(dt) + x2, self.training, dt)
             if i < self.num_layers - 1:
                 x = gelu(x)
         x = x[:, :-p, :-p, :-p]
-        return _linear(self.regressor2, F.silu(_linear(self.regressor1, x, dt)), dt)
+        return linear(self.regressor2, F.silu(linear(self.regressor1, x, dt)), dt)
 
 
 class GalerkinTransformer3d(Model):
@@ -329,22 +292,6 @@ class GalerkinTransformer3d(Model):
                 lecun_normal_(m.weight.data, m.weight[0].numel(), generator)
                 nn.init.zeros_(m.bias)
 
-    def reseed_dropout(self, seed: int) -> None:
-        """Restart the dropout stream: the next forward draws the masks a
-        fresh model built with ``dropout_seed=seed`` would."""
-        self.dropout_seed, self._dropout_generator = int(seed), None
-
-    def _generator(self, device: torch.device) -> torch.Generator:
-        g = self._dropout_generator
-        if g is None:
-            g = torch.Generator(device=device)
-            g.manual_seed(self.dropout_seed)
-            self._dropout_generator = g
-        elif g.device != device:
-            raise ValueError(f"the dropout stream lives on {g.device}, the input on "
-                             f"{device}; call reseed_dropout after moving the model")
-        return g
-
     def forward(self, x: torch.Tensor, y: torch.Tensor | None = None,
                 reference: bool = False) -> torch.Tensor:
         """x [B, T_in, H, W, C_in] → [B, T_out, H, W, C_out] float32, or,
@@ -353,8 +300,8 @@ class GalerkinTransformer3d(Model):
         against."""
         B, T, H, W, _ = x.shape
         stochastic = self.training or self.reference_eval_dropout
-        gen = self._generator(x.device) if stochastic else None
-        h = _linear(self.downscaler.id, x, self.compute_dtype).reshape(B, T * H * W, -1)
+        gen = self.dropout_generator(x.device) if stochastic else None
+        h = linear(self.downscaler.id, x, self.compute_dtype).reshape(B, T * H * W, -1)
         for layer in self.encoder_layers:
             h = layer(h, gen, reference)
         grid = torch.cat(grid_features((T, H, W), device=x.device), dim=-1)

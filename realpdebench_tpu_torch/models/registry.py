@@ -11,9 +11,10 @@ from __future__ import annotations
 import torch
 
 from realpdebench_tpu_torch.models.base import Model
+from realpdebench_tpu_torch.utils.misc import set_f32_precision
 
 # families the JAX registry builds that the port has not reached yet
-_NOT_PORTED = ("deeponet", "transolver", "mwt", "cno", "dpot", "wdno", "dmd")
+_NOT_PORTED = ("mwt", "cno", "dpot", "wdno", "dmd")
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
@@ -44,7 +45,12 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
     shipped batches. The TPU-only switches (``use_pallas``,
     ``pallas_interpret``, ``seq_mesh``) are accepted and have no effect: on
     a CUDA device the model always runs the kernels.
+
+    Every call pins the library calls' float32 precision to full float32
+    (``utils.misc.set_f32_precision``), as the JAX package computes them:
+    the train and eval entry points, and any other caller, build here.
     """
+    set_f32_precision()
     model_name = kwargs["model_name"]
     if shapes is None:
         x0, y0 = train_dataset[0]
@@ -101,6 +107,32 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             compute_dtype=compute_dtype, device=resolve_device(device),
             generator=generator,
             dropout_seed=int(kwargs.get("seed", 0)))
+    if model_name == "deeponet":
+        from realpdebench_tpu_torch.models.deeponet import DeepONet
+
+        # the JAX registry's keys and defaults; the run's seed seeds the
+        # dropout stream
+        return DeepONet(
+            shape_in=shape_in, shape_out=shape_out, p=kwargs["p"],
+            dropout_rate=kwargs.get("dropout_rate", 0.0),
+            compute_dtype=compute_dtype, device=resolve_device(device),
+            generator=generator, dropout_seed=int(kwargs.get("seed", 0)))
+    if model_name == "transolver":
+        from realpdebench_tpu_torch.models.transolver import Transolver3d
+
+        # the JAX registry's keys and defaults. As there, no ``dropout`` is
+        # passed: the shipped configs' ``dropout: 0.1`` is ignored and the
+        # model runs without dropout (a finding of the reference side, kept)
+        return Transolver3d(
+            space_dim=kwargs["space_dim"], n_layers=kwargs["n_layers"],
+            n_hidden=kwargs["n_hidden"], n_head=kwargs["n_head"],
+            H=kwargs["H"], W=kwargs["W"], D=kwargs["D"],
+            fun_dim=kwargs["fun_dim"], out_dim=kwargs["out_dim"],
+            ref=kwargs.get("ref", 8), mlp_ratio=kwargs.get("mlp_ratio", 1),
+            slice_num=kwargs.get("slice_num", 32),
+            unified_pos=bool(kwargs.get("unified_pos", False)),
+            shape_in=shape_in, shape_out=shape_out, compute_dtype=compute_dtype,
+            device=resolve_device(device), generator=generator)
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {model_name!r} is not ported to PyTorch yet; ROADMAP.md "

@@ -56,6 +56,18 @@ def make_generator(seed: int) -> torch.Generator:
     return g
 
 
+def set_f32_precision() -> None:
+    """Full float32 in the library calls: no TF32 in cuBLAS's matmuls or in
+    cuDNN's convolutions, and "highest" float32 matmul precision. The JAX
+    package computes its float32 products in full float32; PyTorch's default
+    puts cuDNN's convolutions on single-pass TF32 (about 10 mantissa bits).
+    ``models.registry.build_model`` calls this for every model it builds;
+    the bfloat16 paths are unaffected."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
 def set_seed(seed: int) -> None:
     """Pin Python's, numpy's and torch's global generators."""
     np.random.seed(seed)

@@ -1,7 +1,8 @@
 """PyTorch port vs JAX package: the config system, on the CPU.
 
-The port's 15 configs (fno, unet, galerkin_transformer × five scenarios)
-are the JAX package's files byte for byte; ``merge_config`` gives the JAX
+The port's 30 configs (fno, unet, galerkin_transformer, deeponet,
+transolver, trainsolver × five scenarios) are the JAX package's files byte
+for byte; ``merge_config`` gives the JAX
 package's dict for the same argv (the port adds ``device``); config names
 resolve inside the port's own tree; ``--key value`` overrides are read as
 YAML and win over the file.
@@ -15,12 +16,12 @@ from realpdebench_tpu import config as jc
 from realpdebench_tpu_torch import config as tc
 
 SCENARIOS = ("combustion", "controlled_cylinder", "cylinder", "foil", "fsi")
-MODELS = ("fno", "unet", "galerkin_transformer")
+MODELS = ("fno", "unet", "galerkin_transformer", "deeponet", "transolver", "trainsolver")
 JAX_CONFIGS = os.path.join(os.path.dirname(jc.__file__), "configs")
 PORT_CONFIGS = os.path.join(os.path.dirname(tc.__file__), "configs")
 
 
-def test_the_port_ships_the_fifteen_configs_of_its_families():
+def test_the_port_ships_the_configs_of_its_families():
     got = sorted(os.path.relpath(os.path.join(d, f), PORT_CONFIGS)
                  for d, _, fs in os.walk(PORT_CONFIGS) for f in fs)
     assert got == sorted(f"{s}/{m}.yaml" for s in SCENARIOS for m in MODELS)

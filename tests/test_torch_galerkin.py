@@ -27,7 +27,7 @@
 Dropout: the two frameworks' random streams cannot match, so both take
 the same seeded numpy masks in call order: the JAX side through
 ``flax.linen.intercept_methods`` on ``nn.Dropout.__call__``, the port
-through its one mask function ``dropout_mask``. The JAX weights come from
+through its one mask function ``models/base.dropout_mask``. The JAX weights come from
 the port's seeded weights, perturbed by seeded numpy noise, converted with
 the JAX package's ``convert_galerkin``. Tolerance: rtol 2e-4 with atol
 2e-4·max|ref|. Where the true gradient is 0 (the pointwise conv biases,
@@ -59,6 +59,7 @@ from realpdebench_tpu.ops.pallas import galerkin as jpg
 from realpdebench_tpu.train import train_step as jts
 from realpdebench_tpu_torch.data import normalizer as tnorm
 from realpdebench_tpu_torch.interop.from_jax import galerkin_state_dict
+from realpdebench_tpu_torch.models import base as tbase
 from realpdebench_tpu_torch.models import galerkin_transformer as tg
 from realpdebench_tpu_torch.models.registry import build_model
 from realpdebench_tpu_torch.ops import galerkin as tga
@@ -408,7 +409,7 @@ def _vjp_unit(jfn, jparams, tmodule, tfn, x, seed, masks_seed):
     gp, gx = vjp(jnp.asarray(ct))
     xt = torch.from_numpy(x).requires_grad_()
     tmodule.zero_grad()
-    with mock.patch.object(tg, "dropout_mask", masks.torch_mask):
+    with mock.patch.object(tbase, "dropout_mask", masks.torch_mask):
         o = tfn(xt)
     o.backward(torch.from_numpy(ct))
     assert masks.n_torch == masks.n_jax
@@ -561,7 +562,7 @@ def test_forward_and_train_loss_gradients_match_jax(pair):
     m.train()
     m.zero_grad()
     init = {k: t.clone() for k, t in m.state_dict().items()}
-    with mock.patch.object(tg, "dropout_mask", masks.torch_mask):
+    with mock.patch.object(tbase, "dropout_mask", masks.torch_mask):
         tl = m(torch.from_numpy(x), y=torch.from_numpy(y))
     tl.backward()
     assert masks.n_torch == masks.n_jax == 8
@@ -659,7 +660,7 @@ def test_train_step_trajectory_matches_jax(pair):
     opt = build_optimizer(cfg, model.parameters())
     step = make_train_step(model, tnorm.build_normalizer("gaussian", stats=stats), opt)
     losses, tiny = [], {}
-    with mock.patch.object(tg, "dropout_mask", masks.torch_mask):
+    with mock.patch.object(tbase, "dropout_mask", masks.torch_mask):
         for i in range(STEPS):
             losses.append(step(torch.from_numpy(xs[i]), torch.from_numpy(ys[i])).item())
             if i == 0:

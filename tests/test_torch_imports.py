@@ -2,9 +2,9 @@
 (the Arrow data layer, the converter and the plots among them) loads
 neither JAX nor the JAX package, nor the data layer's optional packages
 (datasets, pyarrow, huggingface_hub, h5py, matplotlib), and running it on
-the CPU (the FNO, the UNet and the Galerkin Transformer) never builds or
-loads the CUDA kernels. Checked in a fresh interpreter, since this test
-process has both packages loaded."""
+the CPU (the FNO, the UNet, the Galerkin Transformer, DeepONet and
+Transolver) never builds or loads the CUDA kernels. Checked in a fresh
+interpreter, since this test process has both packages loaded."""
 
 import os
 import subprocess
@@ -64,6 +64,20 @@ _SCRIPT = textwrap.dedent("""
         torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3))
     assert pred.shape == (1, 2, 8, 8, 3) and bool(torch.isfinite(pred).all())
     gk.loss(torch.ones(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3)).backward()
+    don = build_model(shapes=((2, 8, 8, 3), (2, 8, 8, 3)), model_name="deeponet", p=8,
+                      dropout_rate=0.1, device="cpu", generator=make_generator(0))
+    pred, _, _ = make_rollout_fn(don, IdentityNormalizer(), 2)(
+        torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 4, 8, 8, 3))
+    assert pred.shape == (1, 4, 8, 8, 3) and bool(torch.isfinite(pred).all())
+    don.loss(torch.ones(2, 2, 8, 8, 3), torch.zeros(2, 2, 8, 8, 3)).backward()
+    tr = build_model(shapes=((2, 8, 8, 3), (2, 8, 8, 3)), model_name="transolver",
+                     space_dim=3, n_layers=1, n_hidden=8, n_head=2, H=8, W=8, D=2,
+                     fun_dim=0, out_dim=3, slice_num=4, device="cpu",
+                     generator=make_generator(0))
+    pred, _, _ = make_rollout_fn(tr, IdentityNormalizer(), 1)(
+        torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3))
+    assert pred.shape == (1, 2, 8, 8, 3) and bool(torch.isfinite(pred).all())
+    tr.loss(torch.ones(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3)).backward()
     assert kernels.library.cache_info().currsize == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     assert len(names) >= 21, names
