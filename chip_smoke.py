@@ -47,7 +47,10 @@ JSON line each; any failure raises (non-zero exit, no result line):
                both dtypes (K1, K2, K2A-lite, K12B, K3F and K3B mma in
                bfloat16, tf32 in float32, asserted: every shipped geometry
                takes it), and
-               which of K2A-lite and K2A each takes.
+               which of K2A-lite and K2A each takes; and the combustion
+               surrogate's (width 64, modes 4/16/16) at its own 20x128x128
+               windows (Hp = Wp = 134), F = 1, batch 16, in float32 (its
+               shipped dtype), each kernel also timed beside its bound.
   5. slice     the cylinder FNO3d at the benchmark configuration (width 64,
                4 layers, bf16 compute, seeded random weights) rolled out 10
                steps at batch 8 through make_rollout_fn; the launch counters
@@ -78,6 +81,16 @@ JSON line each; any failure raises (non-zero exit, no result line):
                and the running statistics against the plain f32 step within
                F32_LIMITS (1e-5 relative; 1e-4 relative L2); then its
                profile (train_f32_profile).
+  7c. surrogate_fno_train_f32, surrogate_fno_rollout_f32  the combustion
+               surrogate FNO (configs/combustion/surrogate_model/fno.yaml:
+               modes 4/16/16, width 64, 4 layers, 17 → 1 channels) on
+               20x128x128 windows in f32 as shipped: its training step at
+               batch 16 (Gaussian normalizer; every FNO kernel tf32 but the
+               T-stage, the fused tail at F = 1) within F32_LIMITS of the
+               plain f32 step, two passes bit-equal, steps/s, then its
+               profile; and the generator's prediction over one 40-frame
+               trajectory (tools/generate_surrogate_data, windows of 20)
+               within 1e-4 of the plain f32 path; exact launch counts.
   7b. fsi_train the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16,
                batch 32, Gaussian normalizer) trained in float32 (the
                config's dtype; every FNO kernel but the T-stage tf32 at
@@ -97,7 +110,9 @@ JSON line each; any failure raises (non-zero exit, no result line):
                (ta_level) the forward's and the backward's tf32 and mma
                variants at the site counts of every level the UNet step
                launches them at (B 12 × 8192, 2048, 512 and the mid block's
-               512): against the twin, bit-equal, queued time and bound.
+               512): against the twin, bit-equal, queued time and bound;
+               and the tf32 variants at the surrogate UNet's levels (B 2 ×
+               16384, 4096 and the mid block's 4096 sites).
   9. unet_rollout  the cylinder UNet3d (configs/cylinder/unet.yaml: dim_mults
                1/2/4, bf16 compute, seeded random weights) rolled out 5
                steps at eval batch 12 through make_rollout_fn with a
@@ -124,11 +139,18 @@ JSON line each; any failure raises (non-zero exit, no result line):
  10a. unet_train_f32 the same step in float32 as shipped, remat on: every TA
                forward and backward the tf32 variant, the loss within 1e-5
                relative and every gradient within 1e-4 relative L2 of the
-               plain f32 step at batch 6, two passes bit-equal; 3 windows
+               plain f32 step at batch 6, two passes bit-equal; 2 windows
                of 3 steps, peak memory; then its profile (unet_f32_profile).
                Measurement only (cudnn_tf32_on): the same step with
                cuDNN's TF32 switched on around it, one window's steps/s and
                its loss and gradients' distance from the plain f32 step.
+ 10b. surrogate_unet_train_f32  the combustion surrogate UNet
+               (configs/combustion/surrogate_model/unet.yaml: dim_mults
+               1/2, dim = H = 128, 17 → 1 channels) trained at batch 2 on
+               20x128x128 windows in f32 as shipped, remat on: exact TA
+               counts (tf32), the loss and every gradient within 1e-5 /
+               1e-4 of the plain f32 step at batch 1, two passes bit-equal,
+               steps/s, peak memory.
  11. gk_scores the Galerkin scores kernel against its twin at the cylinder
                width (B 16, N 20·64·128 = 163840 tokens, h 4, d 64, in the
                q/k/v Dense's [B, N, h·d] layout), in float32 and bfloat16,
@@ -173,33 +195,43 @@ JSON line each; any failure raises (non-zero exit, no result line):
                steps/s, frames/s, peak memory.
  13c. transolver_*  the same for configs/cylinder/transolver.yaml (width
                256, 8 heads, 16 slices, mlp_ratio 4, 1 block): batch 16,
-               eval 16 × 3; where batch 16 does not fit in f32 a line says
-               so and the step runs with grad_accum 2 (exact: no
-               BatchNorm, no dropout), listed under "reduced".
+               eval 16 × 3; the f32 step at the shipped batch 16 with
+               grad_accum 1 (the one-node LayerNorm of models/base keeps
+               x, mean and rstd alone): an out-of-memory error fails the
+               run, as it does in every phase.
+ 13d. dpot_s_train_f32, dpot_s_rollout_f32, dpot_l_train_f32,
+      dpot_l_rollout_f32  configs/cylinder/dpot_{s,l}.yaml (embed 1024 /
+               1536, depth 6 / 24, 673M parameters for DPOT-L) at full
+               width in their shipped f32, the windows resized to 128x128
+               and back: the step at batch 16 and the rollout at eval batch
+               64 × 1, as 13b holds DeepONet (float64 copy, every kernel
+               count 0, profiles dpot_s_f32_profile, dpot_l_f32_profile);
+               each step's weights kept as a bare backbone.
  14. loop      python -m realpdebench_tpu_torch train, in this process
                (train.__main__.main, which the CLI's train subcommand
                runs), on a synthetic cylinder tree (data/synthetic: 16 real
-               trajectories at 64x128, 4 numerical at 128x256, 600 frames;
+               trajectories at 64x128, 4 numerical at 128x256, 300 frames;
                an HDF5 tree where h5py imports, else the same arrays in
                memory through data.fluid.with_arrays): configs/cylinder/
-               fno.yaml in bf16 on numerical data, 100 steps at batch 32
-               with validation every 2 steps (125 real windows at test
-               batch 64) and a checkpoint at each, the split keys and the
+               fno.yaml in bf16 on numerical data, 12 steps at batch 32
+               with validation every step (num_update // 50 is 0 below 100
+               steps; 54 real windows at test batch 64) and a checkpoint
+               at each, the split keys and the
                other cuts as overrides listed under "reduced" beside the
-               shipped values. Exact launch counts (100 steps and 100
+               shipped values. Exact launch counts (12 steps and 12
                validation forwards, every kernel in its mma variant, the
                T-stage registers); loop and StepTimer steps/s beside the
                bare step's; the device's idle share over the traced
-               iterations 10-19 and where the host's gaps fall (waiting
+               iterations 10-12 and where the host's gaps fall (waiting
                for a batch, validation, checkpoint); the checkpoint
                reloaded in a fresh model predicts bit for bit; the 13
                metrics on the card within 1e-4 of the CPU's on the same
-               arrays; then a resume to 102 steps (starts at 100, the
-               optimizer's count goes on to 102) and a 2-step finetune on
+               arrays; then a resume to 14 steps (starts at 12, the
+               optimizer's count goes on to 14) and a 2-step finetune on
                real data from the checkpoint, each with exact counts.
  15. eval      python -m realpdebench_tpu_torch eval (eval.__main__.main)
                on that checkpoint, bf16, test batch 64, 10 autoregressive
-               steps over the 90 real test windows, probe diagnostic on:
+               steps over the 14 real test windows, probe diagnostic on:
                the 13 metrics, normalized MSE, probe error, frames/s
                including reading, exact launch counts (K1, T-stage, K2);
                held against the same checkpoint rolled out through the
@@ -216,12 +248,12 @@ JSON line each; any failure raises (non-zero exit, no result line):
                backward counts, all mma; reload bit-equal; the card's
                metrics within 1e-4 of the CPU's; loop steps/s beside the
                bare step's (phase 10), idle share, peak memory. Eval over
-               the test split's unseen trajectories (test_mode unseen: 26
-               windows, 3 batches), against the plain f32 path as in 15.
+               the test split's unseen trajectories (test_mode unseen: 8
+               windows, 1 batch), against the plain f32 path as in 15.
  17. gk_loop, gk_eval  the same for configs/cylinder/galerkin_transformer.yaml
                (width 256, 4 heads, batch 16, N_autoregressive 1, dropout
                from the run's seeded generator): exact scores counts, mma;
-               eval over 28 unseen windows (2 batches).
+               eval over 14 unseen windows (1 batch).
  17a. deeponet_loop, deeponet_eval, transolver_loop, transolver_eval  the
                same for configs/cylinder/{deeponet,transolver}.yaml in
                their shipped f32 (no --compute_dtype), at the shipped
@@ -230,6 +262,18 @@ JSON line each; any failure raises (non-zero exit, no result line):
                checkpoint's f32 rollout.
 Every train and eval run of phases 14-18 starts from PyTorch's default TF32
 switches (cudnn's on) and must leave them full f32 (C1).
+ 17b. dpot_finetune  python -m realpdebench_tpu_torch train --is_finetune
+               on real data (configs/cylinder/dpot_s.yaml, f32, 2 steps)
+               from the bare DPOT-S backbone of phase 13d (the dpot_model.
+               prefix taken off, as a pretrained backbone comes): no
+               launch, and every weight within 3·lr a step of the
+               backbone's, which a backbone not loaded would miss.
+ 17c. surrogate_loop  python -m realpdebench_tpu_torch train-surrogate with
+               the surrogate FNO's shipped config on an Arrow surrogate
+               tree (3 synthetic pairs of 40 frames at 128x128, written by
+               tools/convert_hdf5_to_hf.write_surrogate_train: no h5py
+               here), 50 iterations: one evaluation, one checkpoint, exact
+               counts (tf32), loop steps/s.
  18. arrow     whether this host imports datasets and pyarrow; where it
                does, the tree written as an Arrow V2 tree through the
                converter's writer (tools/convert_hdf5_to_hf.write_dataset_v2
@@ -260,6 +304,7 @@ The port imports neither JAX nor the JAX package; neither does this script.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -279,7 +324,13 @@ from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops import temporal_attention as tta
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
 from realpdebench_tpu_torch.train import build_optimizer, make_train_step
-from realpdebench_tpu_torch.utils.misc import make_generator, set_f32_precision
+from realpdebench_tpu_torch.utils.misc import (
+    make_generator,
+    set_f32_precision,
+    use_expandable_segments,
+)
+
+use_expandable_segments()      # before the first allocation on the card
 
 # the benchmark's rollout (bench.py): eval batch 8, 10 steps, 20x64x128x3
 BATCH, STEPS = 8, 10
@@ -327,11 +378,20 @@ TRAIN_LAUNCHES = {"k1": 4, "t_stage": 16, "k2": 4, "k2a": 0, "k2a_lite": 4,
                   "k12b": 4, "k3f": 1, "k3b": 1, "ta_fwd": 0, "ta_bwd": 0,
                   "gk_scores": 0}
 
-# the other shipped FNO geometries, at the cylinder's 20x64x128 windows and
-# padding 6 (the port has no fsi or combustion reader yet; the kernels'
-# limits depend on C and the modes): (name, width, modes)
-GEOMETRIES = (("combustion", 64, (4, 16, 16)), ("fsi", 128, (4, 16, 16)))
+# the other shipped FNO geometries: (name, width, modes, window (T, H, W),
+# output channels F, batch, dtypes, timed). combustion's and fsi's widths
+# and modes at the cylinder's 20x64x128 windows and padding 6 (the kernels'
+# limits depend on C and the modes), both dtypes, batch 2; and the
+# combustion surrogate's (configs/combustion/surrogate_model/fno.yaml) at
+# its own 20x128x128 windows (Hp = Wp = 134), F = 1, at its training batch
+# 16 in its shipped f32, each kernel timed beside its bound
 GEO_BATCH = 2
+SURROGATE_WINDOW = (20, 128, 128)
+GEOMETRIES = (("combustion", 64, (4, 16, 16), SHAPE_IN[:3], SHAPE_OUT[-1], GEO_BATCH,
+               (torch.float32, torch.bfloat16), False),
+              ("fsi", 128, (4, 16, 16), SHAPE_IN[:3], SHAPE_OUT[-1], GEO_BATCH,
+               (torch.float32, torch.bfloat16), False),
+              ("surrogate", 64, (4, 16, 16), SURROGATE_WINDOW, 1, 16, (torch.float32,), True))
 # the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16, 4 layers,
 # batch 32, lr 0.01 over 5000 updates, Gaussian normalizer; compute_dtype
 # null, which the port takes as float32), trained in float32 and bfloat16;
@@ -340,7 +400,7 @@ GEO_BATCH = 2
 FSI_MODEL = dict(model_name="fno", modes1=4, modes2=16, modes3=16, n_layers=4, width=128)
 FSI_BATCH, FSI_CMP_BATCH = 32, 2
 FSI_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
-FSI_WINDOWS, FSI_WINDOW_STEPS = 3, 2
+FSI_WINDOWS, FSI_WINDOW_STEPS = 2, 2
 # per-variant launches of each path that launches variants, for the
 # summary line (the other paths launch none)
 VARIANTS_BY_PATH = {}
@@ -380,11 +440,11 @@ UNET_LOSS_REL, UNET_GRAD_REL_L2 = 1e-2, 1e-1
 # vs the plain f32 path (TF32 off), fixed before the first run: the rollout
 # within 1e-4 relative L2 and 1e-4 max|Δ|/max|ref|; one training step's loss
 # within 1e-5 relative and every gradient within 1e-4 relative L2 (at
-# UNET_CMP_BATCH). Its step is timed over 3 windows of 3 steps.
+# UNET_CMP_BATCH). Its step is timed over 2 windows of 3 steps.
 UNET_F32_ROLLOUT = (1e-4, 1e-4)
 UNET_F32_LOSS_REL, UNET_F32_GRAD_REL_L2 = 1e-5, 1e-4
 UNET_F32_BATCH = UNET_BATCH
-UNET_F32_WINDOWS = (3, 3)
+UNET_F32_WINDOWS = (2, 3)
 
 # the cylinder Galerkin Transformer (configs/cylinder/galerkin_transformer.yaml
 # with the JAX registry's key mapping): windows of 20x64x128x3 in and out,
@@ -400,9 +460,6 @@ GK_BATCH, GK_STEPS, GK_ROLLOUTS = 16, 1, 10
 GK_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
 GK_WINDOW_STEPS = 3
 GK_DROPOUT_SEED = 11
-# the shipped f32 step (compute_dtype null) at the shipped batch 16, or, if
-# that does not fit the card, at the next of these that does
-GK_F32_BATCHES = (GK_BATCH, 12, 8)
 # the scores kernel at the encoder's width: (B, N, h, d)
 GK_SCORES_SHAPE = (GK_BATCH, GK_SHAPE[0] * GK_SHAPE[1] * GK_SHAPE[2], GK_MODEL["n_head"],
                    GK_MODEL["n_hidden"] // GK_MODEL["n_head"])
@@ -431,14 +488,10 @@ GK_LOSS_REL, GK_GRAD_REL_L2 = 1e-2, 5e-2
 # before the first run from PERF.md's f32 limits; bf16 against f32 within
 # the bf16 limits of the FNO's step and rollout. Steps timed in windows.
 FAMILIES = ("deeponet", "transolver")
-# a step whose peak passes this share of the card's memory fits only until
-# the allocator's free blocks fragment (Transolver's f32 step at batch 16
-# peaked at 78.2 GB and failed its next pass)
-FIT_SHARE = 0.9
 FAMILY_SHAPE = (20, 64, 128, 3)
 FAMILY_CMP_BATCH, FAMILY_CHUNK = 2, 8
 FAMILY_DROPOUT_SEED = 12
-FAMILY_WINDOWS = (3, 3)          # (windows, steps a window)
+FAMILY_WINDOWS = (2, 3)          # (windows, steps a window)
 FAMILY_ROLLOUTS = 5
 FAMILY_F32_ROLLOUT = (1e-4, 1e-4)
 FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2 = TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2
@@ -450,6 +503,35 @@ FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2 = TRAIN_LOSS_REL, TRAIN_GRAD_REL_L
 # 0.10-0.26 at the same size; held to 5e-1. The layers after the branch
 # keep FAMILY_BF16_GRAD_REL_L2.
 FAMILY_BF16_PREFIX_LIMITS = {"deeponet": {"branch.": 5e-1}}
+# DPOT-S and DPOT-L (configs/cylinder/dpot_{s,l}.yaml as shipped: embed 1024
+# and 1536, depth 6 and 24, f32) on the same windows, resized to their
+# 128x128 and back, in f32 only (their shipped dtype), held against a
+# float64 copy as DeepONet and Transolver are: cuBLAS products and cuFFT
+# transforms, no kernel of the port's. Each step's weights are also saved
+# as a bare backbone (the dpot_model. prefix taken off), which the
+# dpot_finetune phase loads as a pretrained backbone comes.
+DPOT_FAMILIES = ("dpot_s", "dpot_l")
+BACKBONES = {}
+DPOT_FINETUNE_STEPS = 2
+
+# the combustion surrogate (configs/combustion/surrogate_model/{fno,unet}.yaml
+# in their shipped f32): 17 channels in (the 15 numerical fields and the two
+# parameter planes), 1 out, on SURROGATE_WINDOW (the combustion frames
+# without subsampling). The FNO step at its batch 16 and the UNet step at
+# its batch 2 (held against the plain f32 step at SURROGATE_UNET_CMP_BATCH);
+# the generator's prediction over one SURROGATE_FRAMES-frame trajectory in
+# windows of 20 frames; the train-surrogate CLI on an Arrow tree of
+# SURROGATE_SIMS synthetic pairs for SURROGATE_LOOP_STEPS iterations (one
+# evaluation, one checkpoint)
+SURROGATE_IN, SURROGATE_OUT = (*SURROGATE_WINDOW, 17), (*SURROGATE_WINDOW, 1)
+SURROGATE_FRAMES = 40
+SURROGATE_UNET_CMP_BATCH = 1
+SURROGATE_FNO_WINDOWS, SURROGATE_UNET_WINDOWS = (3, 5), (2, 2)
+SURROGATE_SIMS, SURROGATE_LOOP_STEPS = 3, 50
+# the TA sites of the surrogate UNet's levels (dim_mults 1/2 on 128x128
+# frames): level 0 (init, down 0, up 1), level 1 (down 1, up 0) and the mid
+# block, at its batch 2
+SURROGATE_TA_LEVELS = (("level0", 128 * 128), ("level1", 64 * 64), ("mid", 64 * 64))
 
 # published H100 SXM peaks (dense, 700 W): HBM, and the operations of a
 # bf16 row on the tensor cores, of an f32 row on the FP32 pipes, and of the
@@ -476,7 +558,14 @@ SOURCES = {k: ("realpdebench_tpu_torch/csrc/" + s, _PALLAS + r)
            for k, (s, r) in SOURCES.items()}
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - START)
     print(json.dumps(obj), flush=True)
 
 
@@ -502,12 +591,13 @@ def add_bounds(*bs: dict) -> dict:
                 else "operations", bytes=n, ops=ops)
 
 
-def dft_ops(BT: int) -> int:
+def dft_ops(BT: int, Cg: int = C, Hp: int = HP, Wp: int = WP, m2: int = M2,
+            m3: int = M3) -> int:
     """The truncated (W, H) DFT of K1, its inverse in K2, and their adjoints
     in K2A and K12B, per call: a real W contraction (Hp·Wp·m3 positions, 2
     real multiply-adds each) and a complex H one (Hp·m3·2m2, 4 each), per
     (image, channel)."""
-    return BT * C * (HP * WP * M3 * 4 + HP * M3 * 2 * M2 * 8)
+    return BT * Cg * (Hp * Wp * m3 * 4 + Hp * m3 * 2 * m2 * 8)
 
 
 def tstage_work(inp, kind: str, dtype) -> tuple:
@@ -1159,7 +1249,10 @@ def _rel_l2(got, ref) -> float:
 
 
 def _grads(model):
-    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    """Every parameter's gradient; those autograd left None (DPOT's
+    classification head, whose output the wrapper discards) are left out."""
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
 
 
 def _fno_vs_plain(what, batch, loss, grads, ref_loss, ref_grads, model, ref_model,
@@ -1464,22 +1557,27 @@ def phase_ta(dev) -> dict:
     for n, levels in zip(("ta_fwd", "ta_bwd"), phase_ta_levels(dev)):
         summary[n]["levels"] = levels["bfloat16"]
         summary[n]["tf32"]["levels"] = levels["float32"]
+    surrogate = phase_ta_levels(dev, 2, SURROGATE_TA_LEVELS, (torch.float32,), "surrogate")
+    for n, levels in zip(("ta_fwd", "ta_bwd"), surrogate):
+        summary[n]["tf32"]["surrogate_levels"] = levels["float32"]
     return summary
 
 
-def phase_ta_levels(dev) -> tuple:
+def phase_ta_levels(dev, B=TA_SHAPE[0], levels=TA_LEVELS,
+                    dtypes=(torch.float32, torch.bfloat16), geometry="cylinder") -> tuple:
     """TA forward's and backward's tensor-core variants (mma in bf16, tf32
     in f32) at the site counts of every level the UNet step launches them
-    at (TA_LEVELS, batch 12): against the twin, two calls bit-equal, the
-    device time of queued launches beside the bound; returns ({dtype:
+    at (the cylinder's TA_LEVELS at batch 12, or the surrogate's
+    SURROGATE_TA_LEVELS at batch 2): against the twin, two calls bit-equal,
+    the device time of queued launches beside the bound; returns ({dtype:
     {level: (ms, bound_ms)}} of the forward, the same of the backward)."""
-    B, _, T, h, d = TA_SHAPE
+    _, _, T, h, d = TA_SHAPE
     fwd_out, out = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         tc = "mma" if dtype == torch.bfloat16 else "tf32"
         name = str(dtype).replace("torch.", "")
         fwd_out[name], out[name] = {}, {}
-        for i, (level, S) in enumerate(TA_LEVELS):
+        for i, (level, S) in enumerate(levels):
             q, k, v, pb, do = _ta_inputs(dev, B, S, T, h, d, dtype, seed=20 + i)
             tol = KERNEL_TOL[dtype]
             fwd = lambda: kernels.ta_fwd(q, k, v, pb, h)
@@ -1501,7 +1599,7 @@ def phase_ta_levels(dev) -> tuple:
             ms = queued_ms([lambda: kernels.ta_bwd(q, k, v, pb, do, h)], n=8, reps=5)
             fwd_work = bound(nbytes(q, k, v, pb, o), B * S * h * T * T * d * 4, dtype, tc)
             work = bound(nbytes(q, k, v, pb, do, *got), B * S * h * T * T * d * 10, dtype, tc)
-            emit(dict(phase="ta_level", dtype=name, variant=tc, level=level,
+            emit(dict(phase="ta_level", geometry=geometry, dtype=name, variant=tc, level=level,
                       shapes=dict(B=B, S=S, T=T, h=h, d=d), checks=rows, fwd_ms=fwd_ms,
                       fwd_bound_ms=fwd_work["bound_ms"], ms=ms, bound_ms=work["bound_ms"]))
             fwd_out[name][level] = dict(sites=B * S, ms=fwd_ms, bound_ms=fwd_work["bound_ms"])
@@ -1941,50 +2039,30 @@ def _gk_grad_checks(grads, ref_grads) -> tuple:
     return rel, zero
 
 
-def _out_of_memory(path: str, batch: int, then: str) -> None:
-    """Say on a line of its own that ``path`` did not fit at ``batch`` (or
-    only without headroom), and release what the attempt held."""
-    emit(dict(phase=path, out_of_memory=True, batch=batch, then=then,
-              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-              card_gb=torch.cuda.get_device_properties(0).total_memory / 1e9))
-    _free()
-
-
 def phase_gk_train(dev, norm, compute_dtype="bfloat16") -> dict:
     """The Galerkin Transformer's training step through make_train_step, in
     bf16 (phase gk_train) or, with ``compute_dtype`` None, in f32 as shipped
     (gk_train_f32: the scores in f32, the loss and gradients within
-    F32_LIMITS of the plain f32 step; at the largest of GK_F32_BATCHES that
-    fits, the shipped 16 first); returns the launch counts of the counted
-    step."""
+    F32_LIMITS of the plain f32 step; at the shipped batch 16, where an
+    out-of-memory error fails the run); returns the launch counts of the
+    counted step."""
     path = _gk_path(compute_dtype, "gk_train")
-    batches = (GK_BATCH,) if compute_dtype else GK_F32_BATCHES
+    batch = GK_BATCH
     g = torch.Generator(device=dev).manual_seed(10)
-    x_all = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
-    y_all = torch.randn(GK_BATCH, *GK_SHAPE, generator=g, device=dev)
-    for batch in batches:
-        model = _gk(dev, compute_dtype)
-        init = {k: t.clone() for k, t in model.state_dict().items()}
-        x, y = x_all[:batch], y_all[:batch]
-        opt = build_optimizer(GK_TRAIN_CFG, model.parameters())
-        step = make_train_step(model, norm, opt, grad_accum=1)
+    x = torch.randn(batch, *GK_SHAPE, generator=g, device=dev)
+    y = torch.randn(batch, *GK_SHAPE, generator=g, device=dev)
+    model = _gk(dev, compute_dtype)
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    opt = build_optimizer(GK_TRAIN_CFG, model.parameters())
+    step = make_train_step(model, norm, opt, grad_accum=1)
 
-        # the main path, counted: nothing but this step between reset and read
-        model.reseed_dropout(GK_DROPOUT_SEED)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        try:
-            loss = step(x, y).item()
-        except torch.cuda.OutOfMemoryError:
-            if batch == batches[-1]:
-                raise
-            loss = None
-        if loss is not None:
-            break
-        del model, init, opt, step      # outside the handler: its frames are gone
-        _out_of_memory(path, batch, "the next smaller batch")
+    # the main path, counted: nothing but this step between reset and read
+    model.reseed_dropout(GK_DROPOUT_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = step(x, y).item()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     n_scores = GK_MODEL["num_encoder_layers"]
@@ -2074,9 +2152,10 @@ def _family(dev, family: str, compute_dtype=None, state=None):
     kw = _family_cfg(family)
     kw.pop("compute_dtype")
     f64 = compute_dtype == "float64"
+    # weights that ``state`` replaces are drawn where the model is built
     model = build_model(shapes=(FAMILY_SHAPE, FAMILY_SHAPE), device=dev,
                         compute_dtype=None if f64 else compute_dtype,
-                        generator=make_generator(0), **kw)
+                        generator=make_generator(0) if state is None else None, **kw)
     if state is not None:
         model.load_state_dict(state, strict=True)
     if f64:
@@ -2142,15 +2221,13 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
     batch at FAMILY_CMP_BATCH; two passes bit-equal under
     cudnn.deterministic; then a profile) or in bf16 ({family}_train: within
     the bf16 limits of the f32 step at FAMILY_CMP_BATCH). No kernel of the
-    port's runs: every count stays 0. Where the shipped batch does not fit
-    (Transolver in f32, which has neither BatchNorm nor dropout), one line
-    says so and the step runs with grad_accum 2, which is exact there.
-    Returns the launch counts of the counted step."""
+    port's runs: every count stays 0. The step runs at the shipped batch
+    with grad_accum 1; an out-of-memory error fails the run. Returns the
+    launch counts of the counted step."""
     path = f"{family}_train" if compute_dtype else f"{family}_train_f32"
     cfg = _family_cfg(family)
     batch = int(cfg["train_batch_size"])
-    train_cfg = {k: cfg[k] for k in ("lr", "scheduler", "num_update", "step_size",
-                                     "clip_grad_norm")}
+    train_cfg = _train_cfg(cfg)
     reduced = {} if compute_dtype is None else dict(
         compute_dtype=dict(here=compute_dtype, shipped=None))
     model = _family(dev, family, compute_dtype)
@@ -2158,32 +2235,15 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
     g = torch.Generator(device=dev).manual_seed(13)
     x = torch.randn(batch, *FAMILY_SHAPE, generator=g, device=dev)
     y = torch.randn(batch, *FAMILY_SHAPE, generator=g, device=dev)
-    for accum in (1, 2):
-        opt = build_optimizer(train_cfg, model.parameters())
-        step = make_train_step(model, norm, opt, grad_accum=accum)
-        # the main path, counted: nothing but this step between reset and read
-        model.reseed_dropout(FAMILY_DROPOUT_SEED)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        try:
-            loss = step(x, y).item()
-        except torch.cuda.OutOfMemoryError:
-            if accum == 2 or family != "transolver":
-                raise
-            loss = None
-        # a step that fits without headroom fails later, as the allocator's
-        # free blocks fragment: it counts as not fitting
-        card = torch.cuda.get_device_properties(dev).total_memory
-        tight = torch.cuda.max_memory_allocated() > FIT_SHARE * card
-        if loss is not None and (accum == 2 or family != "transolver" or not tight):
-            break
-        del opt, step                   # outside the handler: its frames are gone
-        model.zero_grad(set_to_none=True)
-        model.load_state_dict(init, strict=True)
-        _out_of_memory(path, batch, "grad_accum 2, exact for this model")
-        reduced["grad_accum"] = dict(here=2, shipped=1)
+    opt = build_optimizer(train_cfg, model.parameters())
+    step = make_train_step(model, norm, opt, grad_accum=1)
+    # the main path, counted: nothing but this step between reset and read
+    model.reseed_dropout(FAMILY_DROPOUT_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = step(x, y).item()
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     VARIANTS_BY_PATH[path] = _expect(launches, f"one {family} training step ({path})")
@@ -2215,9 +2275,8 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
         # determinism: the same forward-backward twice (a microbatch of the
         # step's size), bit for bit, with cuDNN held to deterministic
         # algorithms
-        m = batch // accum
         torch.backends.cudnn.deterministic = True
-        rep = [_family_pass(model, xn[:m], yn[:m]) for _ in range(2)]
+        rep = [_family_pass(model, xn, yn) for _ in range(2)]
         torch.backends.cudnn.deterministic = False
         same = torch.equal(rep[0][0], rep[1][0]) and all(
             torch.equal(rep[0][1][k], rep[1][1][k]) for k in rep[0][1])
@@ -2236,7 +2295,9 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
         raise AssertionError(f"{path}: training losses {losses} are not finite")
     med = statistics.median(rates)
     BARE_STEPS_PER_S[path] = med
-    emit(dict(phase=path, config=f"cylinder/{family}.yaml", batch=batch, grad_accum=accum,
+    if family in DPOT_FAMILIES:
+        BACKBONES[family] = save_backbone(model)
+    emit(dict(phase=path, config=f"cylinder/{family}.yaml", batch=batch, grad_accum=1,
               cfg=train_cfg, launches=launches, vs_reference=cmp, bitwise_repeatable=same,
               first_step_s=first_s, window_steps_per_s=list(rates), steps_per_s=med,
               frames_per_s=med * batch * FAMILY_SHAPE[0], losses=list(losses),
@@ -2322,88 +2383,126 @@ def phase_family_rollout(dev, norm, family: str, compute_dtype=None) -> dict:
     return launches
 
 
-def phase_geometries(dev) -> None:
+def phase_geometries(dev) -> dict:
     """Every FNO kernel against its twin at the other shipped geometries
-    (GEOMETRIES: combustion's width 64 and fsi's 128, modes 4/16/16), at
-    batch GEO_BATCH, in both dtypes, each in the variant its dtype chooses
-    (K1, K2, K2A-lite, K12B, K3F and K3B mma in bfloat16, tf32 in float32:
-    every shipped geometry's block fits; asserted per call):
-    K1, the four T-stage maps, K2, K2A and (where the geometry has lite
-    statics) K2A-lite, K12B, K3F and K3B. Records which of K2A-lite and K2A
-    the geometry's backward takes."""
-    B = GEO_BATCH
-    BT = B * TP
-    T, H, W = SHAPE_IN[:3]
-    F = SHAPE_OUT[-1] * (SHAPE_OUT[0] // SHAPE_IN[0])
-    for name, Cg, (m1, m2, m3) in GEOMETRIES:
-        geo = dict(Hp=HP, Wp=WP, m2=m2, m3=m3)
-        cst = fl._ct_on(dev, HP, WP, m2, m3)
-        lite = fl._lite_on(dev, HP, WP, m2, m3)
-        for dtype in (torch.float32, torch.bfloat16):
+    (GEOMETRIES), each in the variant its dtype chooses (K1, K2, K2A-lite,
+    K12B, K3F and K3B mma in bfloat16, tf32 in float32: every shipped
+    geometry's block fits; asserted per call): K1, the four T-stage maps,
+    K2, K2A and (where the geometry has lite statics) K2A-lite, K12B, K3F
+    and K3B. Records which of K2A-lite and K2A the geometry's backward
+    takes. A timed geometry's kernels are also timed (device time of queued
+    launches) beside their bounds; returns {kernel: {ms, bound_ms, ...}} of
+    those."""
+    timed = {}
+    for name, Cg, (m1, m2, m3), (T, H, W), F, B, dtypes, timing in GEOMETRIES:
+        Tp, Hp, Wp = T + PAD, H + PAD, W + PAD
+        BT = B * Tp
+        geo = dict(Hp=Hp, Wp=Wp, m2=m2, m3=m3)
+        cst = fl._ct_on(dev, Hp, Wp, m2, m3)
+        lite = fl._lite_on(dev, Hp, Wp, m2, m3)
+        for dtype in dtypes:
             g = torch.Generator(device=dev).manual_seed(5)
             rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
             tol = KERNEL_TOL[dtype]
             tc = "mma" if dtype == torch.bfloat16 else "tf32"  # asserted per call
-            x = rn(BT, HP * WP // 2, 2 * Cg).to(dtype)
+            x = rn(BT, Hp * Wp // 2, 2 * Cg).to(dtype)
             a, b = 1 + 0.1 * rn(Cg), 0.1 * rn(Cg)
             wp, bp = rn(Cg, Cg) / Cg ** 0.5, 0.1 * rn(Cg)
-            y = run_as("k1", tc, lambda: fl.k1(x, a, b, **geo, act="exact"))
-            rows = [compare("k1", y, fl.k1_plain(x, a, b, cst, Hp=HP, Wp=WP, act="exact"), tol)]
+            k1 = lambda: fl.k1(x, a, b, **geo, act="exact")
+            y = run_as("k1", tc, k1)
+            rows = [compare("k1", y, fl.k1_plain(x, a, b, cst, Hp=Hp, Wp=Wp, act="exact"), tol)]
             short = y[: B * 2 * m1].contiguous()
-            for kind, inp in (("et", y), ("it", short), ("it_adj", y), ("et_adj", short)):
-                got = run_as("t_stage", "registers", lambda: fl.t_stage(inp, kind, TP, m1))
+            maps = (("et", y), ("it", short), ("it_adj", y), ("et_adj", short))
+            for kind, inp in maps:
+                got = run_as("t_stage", "registers", lambda: fl.t_stage(inp, kind, Tp, m1))
                 rows.append(compare(f"t_stage/{kind}", got,
-                                    fl.t_stage_plain(inp, *fl._tmats_on(dev, kind, TP, m1)), tol))
+                                    fl.t_stage_plain(inp, *fl._tmats_on(dev, kind, Tp, m1)), tol))
             gsp = rn(*y.shape).to(dtype)
-            s, st = run_as("k2", tc, lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact"))
-            s_ref, st_ref = fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=HP, Wp=WP, act="exact")
+            k2 = lambda: fl.k2(gsp, x, a, b, wp, bp, **geo, act="exact")
+            s, st = run_as("k2", tc, k2)
+            s_ref, st_ref = fl.k2_plain(gsp, x, a, b, wp, bp, cst, Hp=Hp, Wp=Wp, act="exact")
             sr = s_ref.float().view(-1, Cg)
             rows += [compare("k2/s", s, s_ref, tol),
                      compare_sums("k2/stats", st, st_ref,
                                   torch.stack([sr.abs().sum(0), (sr * sr).sum(0)]))]
             del s_ref, sr
-            npos = BT * HP * WP
+            npos = BT * Hp * Wp
             ds, dy = (rn(*s.shape) / npos).to(dtype), (rn(*y.shape) / npos).to(dtype)
             ds1, ds2 = rn(Cg) / npos, rn(Cg) / npos
             full = fl.k2a(s, ds, ds1, ds2, **geo)
-            rows.append(compare("k2a/dg", full, fl.k2a_plain(s, ds, ds1, ds2, cst, Hp=HP, Wp=WP),
+            rows.append(compare("k2a/dg", full, fl.k2a_plain(s, ds, ds1, ds2, cst, Hp=Hp, Wp=Wp),
                                 tol))
+            k2l = lambda: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp, **geo)
             if lite is not None:
-                lg = run_as("k2a_lite", tc, lambda: fl.k2a_lite(ds, gsp, y, ds1, ds2, wp, bp,
-                                                                **geo))
+                lg = run_as("k2a_lite", tc, k2l)
                 rows += [compare("k2a_lite/dg", lg, fl.k2a_lite_plain(
-                             ds, gsp, y, ds1, ds2, wp, bp, lite, cst, Hp=HP, Wp=WP), tol),
+                             ds, gsp, y, ds1, ds2, wp, bp, lite, cst, Hp=Hp, Wp=Wp), tol),
                          compare("k2a_lite/vs_k2a", lg, full, tol)]
-            got = run_as("k12b", tc, lambda: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo,
-                                                     act="exact"))
-            ref = fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=HP, Wp=WP, act="exact")
+                del lg
+            k12 = lambda: fl.k12b(x, a, b, wp, s, ds, ds1, ds2, dy, **geo, act="exact")
+            got = run_as("k12b", tc, k12)
+            ref = fl.k12b_plain(x, a, b, wp, s, ds, ds1, ds2, dy, cst, Hp=Hp, Wp=Wp, act="exact")
             rows.append(compare("k12b/dx", got[0], ref[0], tol))
             terms = k12b_terms(x, a, b, s, ds, ds1, ds2, ref[0])
             for n, gv, rv, tv in zip(("dwp", "da", "db", "dbp"), got[1:], ref[1:], terms):
                 rows.append(compare_sums(f"k12b/{n}", gv, rv, tv))
-            kw = dict(dims=(B, TP, HP, WP, Cg), tail_dims=(T, H, W), act="exact")
+            del ref, terms
+            kw = dict(dims=(B, Tp, Hp, Wp, Cg), tail_dims=(T, H, W), act="exact")
             tail = (rn(B, T, H, W, F), rn(Cg, 128) / Cg ** 0.5, 0.1 * rn(128),
                     rn(128, F) / 128 ** 0.5, 0.1 * rn(F))
             gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
+            k3f = lambda: ft.k3f(s, *tail, **kw)
+            k3b = lambda: ft.k3b(s, *tail, gl, **kw)
             sse_ref = ft.k3f_plain(s, *tail, **kw)
-            rows.append(compare_sums("k3f/sse", run_as("k3f", tc, lambda: ft.k3f(s, *tail, **kw)),
-                                     sse_ref, sse_ref))
-            got = run_as("k3b", tc, lambda: ft.k3b(s, *tail, gl, **kw))
+            sse = run_as("k3f", tc, k3f)
+            rows.append(compare_sums("k3f/sse", sse, sse_ref, sse_ref))
+            tgot = run_as("k3b", tc, k3b)
             ref = ft.k3b_plain(s, *tail, gl, **kw)
-            rows.append(compare("k3b/ds", got[0], ref[0], tol))
+            rows.append(compare("k3b/ds", tgot[0], ref[0], tol))
             terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
-            for n, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), got[1:], ref[1:], terms):
+            for n, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), tgot[1:], ref[1:], terms):
                 rows.append(compare_sums(f"k3b/{n}", gv, rv, tv))
+            del ref, terms
+            times = {}
+            if timing:
+                # each kernel's device time at this geometry beside its
+                # bound, the work counted as at the cylinder's (§3)
+                dft = dft_ops(BT, Cg, Hp, Wp, m2, m3)
+                crop = B * T * H * W * Cg * s.element_size()
+                fc = B * T * H * W * (2 * Cg * 128 + 2 * 128 * F)
+                assert (Tp, m1) == (TP, M1)      # tstage_work's maps
+                work = dict(
+                    k1=(k1, bound(nbytes(x, a, b, y), dft, dtype, tc)),
+                    t_stage=(lambda: [fl.t_stage(i, k, Tp, m1) for k, i in maps[:2]],
+                             add_bounds(*(tstage_work(i, k, dtype)[0] for k, i in maps[:2]))),
+                    k2=(k2, bound(nbytes(gsp, x, a, b, wp, bp, s, st),
+                                  dft + npos * Cg * Cg * 2, dtype, tc)),
+                    k12b=(k12, bound(nbytes(x, a, b, wp, s, ds, ds1, ds2, dy, *got),
+                                     dft + 2 * npos * Cg * Cg * 2, dtype, tc)),
+                    k3f=(k3f, bound(crop + nbytes(*tail, sse), fc, dtype, tc)),
+                    k3b=(k3b, bound(crop + nbytes(*tail, gl, *tgot), 3 * fc, dtype, tc)))
+                if lite is not None:
+                    work["k2a_lite"] = (k2l, bound(
+                        nbytes(ds, gsp, y, ds1, ds2, wp, bp, full),
+                        dft + BT * 2 * (2 * m2 * m3) * Cg * Cg * 2, dtype, tc))
+                for k, (fn, bd) in work.items():
+                    times[k] = dict(ms=queued_ms([fn], n=8, reps=5), bound_ms=bd["bound_ms"],
+                                    bound_by=bd["bound_by"], variant="registers"
+                                    if k == "t_stage" else tc, shape=dict(
+                                        BT=BT, Hp=Hp, Wp=Wp, C=Cg, F=F))
+                timed.update({f"{k}": v for k, v in times.items()})
             torch.cuda.synchronize()
             emit(dict(phase="geometry", name=name, dtype=str(dtype).replace("torch.", ""),
-                      shapes=dict(BT=BT, Hp=HP, Wp=WP, C=Cg, modes=[m1, m2, m3]),
+                      shapes=dict(BT=BT, Hp=Hp, Wp=Wp, C=Cg, F=F, window=[T, H, W],
+                                  modes=[m1, m2, m3]),
                       variants=dict(k1=tc, k2=tc, k2a_lite=tc, k12b=tc, k3f=tc, k3b=tc),
                       k2a_route="k2a_lite" if lite is not None else "k2a",
                       worst_rel=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
                                     for r in rows),
-                      checks=rows))
-            del x, y, s, st, st_ref, gsp, ds, dy, full, got, ref, terms
+                      times=times or None, checks=rows))
+            del x, y, s, st, st_ref, gsp, ds, dy, full, got, tgot, sse, sse_ref
             torch.cuda.empty_cache()
+    return timed
 
 
 def phase_fsi_train(dev, norm) -> dict:
@@ -2500,6 +2599,435 @@ def phase_fsi_train(dev, norm) -> dict:
     return total
 
 
+def _surrogate_cfg(model: str) -> dict:
+    """The surrogate's shipped config (the port's copy)."""
+    from realpdebench_tpu_torch.config import load_config
+
+    return load_config(f"combustion/surrogate_model/{model}.yaml").to_dict()
+
+
+def surrogate_normalizer():
+    """Gaussian normalizer with seeded statistics for the surrogate's 17
+    input channels and 1 target channel."""
+    r = np.random.default_rng(1)
+    return build_normalizer("gaussian", stats=dict(
+        mean_inputs=r.normal(size=17), std_inputs=r.uniform(0.5, 2.0, size=17),
+        mean_targets=r.normal(size=1), std_targets=r.uniform(0.5, 2.0, size=1)))
+
+
+def _surrogate_model(dev, model: str, state=None):
+    cfg = _surrogate_cfg(model)
+    m = build_model(shapes=(SURROGATE_IN, SURROGATE_OUT), device=dev,
+                    generator=None if state is not None else make_generator(0), **cfg)
+    if state is not None:
+        m.load_state_dict(state, strict=True)
+    return m
+
+
+def _train_cfg(cfg: dict) -> dict:
+    return {k: cfg[k] for k in ("lr", "scheduler", "num_update", "step_size",
+                                "clip_grad_norm")}
+
+
+def _f32_fno_variants(counts: dict) -> dict:
+    """Every FNO kernel's launches in its tf32 variant, the T-stage's in
+    its registers one."""
+    return {k: {"registers" if k == "t_stage" else "tf32": n} for k, n in counts.items() if n}
+
+
+def phase_surrogate_fno_train(dev) -> dict:
+    """The surrogate FNO's training step (modes 4/16/16, width 64, 4 layers,
+    17 → 1 channels, batch 16, f32 as shipped) through make_train_step with
+    a Gaussian normalizer: exact launch counts (every FNO kernel tf32 but
+    the T-stage), the loss, every gradient and the running statistics
+    within F32_LIMITS of the plain f32 step from the same weights, two
+    passes bit-equal; steps/s, peak memory, then a profile. Returns the
+    counted step's launches."""
+    path = "surrogate_fno_train_f32"
+    cfg = _surrogate_cfg("fno")
+    batch, norm = int(cfg["train_batch_size"]), surrogate_normalizer()
+    model = _surrogate_model(dev, "fno")
+    ref_model = _surrogate_model(dev, "fno", model.state_dict())
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(batch, *SURROGATE_IN, generator=g, device=dev)
+    y = torch.randn(batch, *SURROGATE_OUT, generator=g, device=dev)
+    opt = build_optimizer(_train_cfg(cfg), model.parameters())
+    step = make_train_step(model, norm, opt, grad_accum=1)
+
+    # the main path, counted: nothing but this step between reset and read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = step(x, y)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {k: n for k, n in TRAIN_LAUNCHES.items() if n}
+    VARIANTS_BY_PATH[path] = _expect(launches, f"one surrogate FNO step ({path})",
+                                     variants=_f32_fno_variants(want), **want)
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    grads = _grads(model)
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{path}: training loss {loss.item()} is not finite")
+
+    xn, yn = norm.preprocess(x, y)
+    ref_model.train()
+    ref_loss = ref_model(xn, y=yn, reference=True)
+    ref_loss.backward()
+    cmp = _fno_vs_plain(f"{path}: kernel step vs f32 plain step", batch, loss, grads,
+                        ref_loss, _grads(ref_model), model, ref_model, F32_LIMITS)
+    del ref_model, ref_loss, grads
+    _free()
+    rep = []
+    for _ in range(2):
+        opt.zero_grad()
+        rep.append(model.loss(xn, yn))
+        rep[-1].backward()
+        rep.append(_grads(model))
+    same = torch.equal(rep[0], rep[2]) and all(torch.equal(rep[1][n], rep[3][n])
+                                               for n in rep[1])
+    if not same:
+        raise AssertionError(f"{path}: two identical forward-backward passes differ")
+    del rep
+    windows, window_steps = SURROGATE_FNO_WINDOWS
+    for _ in range(WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates, losses = zip(*(_steps_per_s(step, x, y, window_steps) for _ in range(windows)))
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"{path}: training losses {losses} are not finite")
+    med = statistics.median(rates)
+    BARE_STEPS_PER_S[path] = med
+    emit(dict(phase=path, config="combustion/surrogate_model/fno.yaml", batch=batch,
+              shape_in=list(SURROGATE_IN), shape_out=list(SURROGATE_OUT),
+              cfg=_train_cfg(cfg), launches=launches, variants=VARIANTS_BY_PATH[path],
+              vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
+              window_steps_per_s=list(rates), steps_per_s=med,
+              frames_per_s=med * batch * SURROGATE_IN[0], losses=list(losses),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              peak_mem_first_step_gb=first_peak))
+    phase_profile(step, x, y, "surrogate_fno_f32_profile")
+    del model, step, opt
+    _free()
+    return launches
+
+
+def phase_surrogate_fno_rollout(dev) -> dict:
+    """The generator's prediction (tools/generate_surrogate_data
+    .surrogate_trajectory) of one SURROGATE_FRAMES-frame trajectory with the
+    surrogate FNO in f32, windows of 20 frames: exact launch counts (K1
+    and K2 tf32, the T-stage registers), within FAMILY_F32_ROLLOUT of the
+    same prediction through the plain f32 path; frames/s."""
+    from realpdebench_tpu_torch.tools.generate_surrogate_data import (
+        surrogate_predictor,
+        surrogate_trajectory,
+    )
+
+    path = "surrogate_fno_rollout_f32"
+    norm = surrogate_normalizer()
+    model = _surrogate_model(dev, "fno")
+    T = SURROGATE_WINDOW[0]
+    inp = np.random.default_rng(16).standard_normal(
+        (SURROGATE_FRAMES, *SURROGATE_IN[1:]), dtype=np.float32)
+    predict = surrogate_predictor(model, norm, dev)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = surrogate_trajectory(predict, inp, T)
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = -(-SURROGATE_FRAMES // T)                   # forwards, a partial tail included
+    want = {k: n * v for k, v in PREDICT_LAUNCHES.items()}
+    VARIANTS_BY_PATH[path] = _expect(launches, f"the surrogate prediction ({path})",
+                                     variants=_f32_fno_variants(want), **want)
+    if out.shape != (SURROGATE_FRAMES, *SURROGATE_WINDOW[1:]) or not np.isfinite(out).all():
+        raise AssertionError(f"{path}: output {out.shape} or not finite")
+
+    def plain(window):
+        xw = torch.from_numpy(window).to(dev)
+        xn, _ = norm.preprocess(xw, xw[..., :1])
+        model.eval()
+        with torch.inference_mode():
+            _, pred = norm.postprocess(xn, model(xn, reference=True))
+        return pred.cpu().numpy()
+
+    ref = surrogate_trajectory(plain, inp, T)
+    rel_l2 = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+    max_rel = float(np.abs(out - ref).max() / np.abs(ref).max())
+    lim_l2, lim_max = FAMILY_F32_ROLLOUT
+    row = dict(reference="plain f32 path", rel_l2=rel_l2, limit_rel_l2=lim_l2,
+               max_abs_over_max_ref=max_rel, limit_max=lim_max)
+    if not (rel_l2 <= lim_l2 and max_rel <= lim_max):
+        raise AssertionError(f"{path}: prediction vs the plain f32 path: {row}")
+    secs = []
+    for _ in range(FAMILY_ROLLOUTS):
+        t0 = time.perf_counter()
+        surrogate_trajectory(predict, inp, T)
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    emit(dict(phase=path, config="combustion/surrogate_model/fno.yaml", frames=SURROGATE_FRAMES,
+              window=T, forwards=n, launches=launches, variants=VARIANTS_BY_PATH[path],
+              vs_plain_f32=row, first_s=first_s, seconds=secs,
+              frames_per_s=SURROGATE_FRAMES / med,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    del model
+    _free()
+    return launches
+
+
+def phase_surrogate_unet_train(dev) -> dict:
+    """The surrogate UNet's training step (dim_mults 1/2, dim = H = 128,
+    17 → 1 channels, batch 2, f32 as shipped, remat on) through
+    make_train_step: exact TA launch counts (tf32), the loss and every
+    gradient within UNET_F32_LOSS_REL and UNET_F32_GRAD_REL_L2 of the plain
+    f32 step at SURROGATE_UNET_CMP_BATCH, two passes bit-equal under
+    cudnn.deterministic; steps/s, peak memory. Returns the counted step's
+    launches."""
+    from realpdebench_tpu_torch.models.unet import TemporalAttention
+
+    path = "surrogate_unet_train_f32"
+    cfg = _surrogate_cfg("unet")
+    batch, norm = int(cfg["train_batch_size"]), surrogate_normalizer()
+    model = _surrogate_model(dev, "unet")
+    n_ta = sum(isinstance(m, TemporalAttention) for m in model.modules())
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(batch, *SURROGATE_IN, generator=g, device=dev)
+    y = torch.randn(batch, *SURROGATE_OUT, generator=g, device=dev)
+    opt = build_optimizer(_train_cfg(cfg), model.parameters())
+    step = make_train_step(model, norm, opt, grad_accum=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = step(x, y).item()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH[path] = _expect(
+        launches, f"one surrogate UNet step ({path})",
+        variants=dict(ta_fwd={"tf32": n_ta}, ta_bwd={"tf32": n_ta}), ta_fwd=n_ta, ta_bwd=n_ta)
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not loss == loss or abs(loss) == float("inf"):
+        raise AssertionError(f"{path}: training loss {loss} is not finite")
+
+    xn, yn = norm.preprocess(x, y)
+    n = SURROGATE_UNET_CMP_BATCH
+    ref_model = _surrogate_model(dev, "unet", init)
+    ref_loss, ref_grads = _plain_grads(ref_model, xn[:n], yn[:n])
+    del ref_model
+    half = _surrogate_model(dev, "unet", init)
+    half_loss = half(xn[:n], y=yn[:n])
+    half_loss.backward()
+    got_loss, grads = half_loss.item(), _grads(half)
+    del half, half_loss, init
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+    cmp = dict(batch=n, loss=got_loss, ref_loss=ref_loss, loss_rel=loss_rel,
+               limit_loss_rel=UNET_F32_LOSS_REL, limit_grad_rel_l2=UNET_F32_GRAD_REL_L2,
+               grad_rel_l2={k: _rel_l2(grads[k], gr) for k, gr in ref_grads.items()})
+    cmp["worst_grad_rel_l2"] = max(cmp["grad_rel_l2"].values())
+    bad = [] if loss_rel <= UNET_F32_LOSS_REL else ["loss"]
+    bad += [k for k, r in cmp["grad_rel_l2"].items() if not r <= UNET_F32_GRAD_REL_L2]
+    if bad:
+        raise AssertionError(f"{path}: kernel UNet step vs f32 plain step: {bad}: {cmp}")
+    del ref_grads, grads
+    _free()
+    torch.backends.cudnn.deterministic = True
+    rep = [_unet_pass(model, xn, yn) for _ in range(2)]
+    torch.backends.cudnn.deterministic = False
+    same = torch.equal(rep[0][0], rep[1][0]) and all(
+        torch.equal(rep[0][1][k], rep[1][1][k]) for k in rep[0][1])
+    if not same:
+        raise AssertionError(f"{path}: two identical forward-backward passes differ")
+    del rep
+    windows, window_steps = SURROGATE_UNET_WINDOWS
+    step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates, losses = zip(*(_steps_per_s(step, x, y, window_steps) for _ in range(windows)))
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"{path}: training losses {losses} are not finite")
+    med = statistics.median(rates)
+    BARE_STEPS_PER_S[path] = med
+    emit(dict(phase=path, config="combustion/surrogate_model/unet.yaml", batch=batch,
+              shape_in=list(SURROGATE_IN), shape_out=list(SURROGATE_OUT),
+              cfg=_train_cfg(cfg), launches=launches, variants=VARIANTS_BY_PATH[path],
+              ta_per_forward=n_ta, vs_plain_f32=cmp, bitwise_repeatable=same,
+              first_step_s=first_s, window_steps_per_s=list(rates), steps_per_s=med,
+              frames_per_s=med * batch * SURROGATE_IN[0], losses=list(losses),
+              remat=model.remat, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              peak_mem_first_step_gb=first_peak, peak_mem_with_plain_step_gb=ref_peak))
+    del model, step, opt
+    _free()
+    return launches
+
+
+def phase_surrogate_loop(dev) -> dict:
+    """python -m realpdebench_tpu_torch train-surrogate (train.surrogate.main,
+    which the CLI runs) with the surrogate FNO's shipped config on an Arrow
+    surrogate tree (tools.convert_hdf5_to_hf.write_surrogate_train from
+    SURROGATE_SIMS synthetic pairs of 40 frames at 128x128: this host has no
+    h5py), --use_hf_dataset, SURROGATE_LOOP_STEPS iterations: one
+    evaluation over the test crops and one checkpoint; exact launch counts
+    (the steps' and the evaluation's forwards, every FNO kernel tf32 but the
+    T-stage); loop steps/s, peak memory. Returns its launches."""
+    import math
+    import shutil
+    import tempfile
+
+    from realpdebench_tpu_torch.tools.convert_hdf5_to_hf import write_surrogate_train
+    from realpdebench_tpu_torch.train.surrogate import EVAL_EVERY
+    from realpdebench_tpu_torch.train.surrogate import main as surrogate_main
+
+    path = "surrogate_loop"
+    cfg = _surrogate_cfg("fno")
+    work = tempfile.mkdtemp(prefix="chip_smoke_surrogate_")
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(18)
+        H, W = SURROGATE_WINDOW[1:]
+        pairs = ((f"{40 + 10 * i}NH3_{0.6 + 0.2 * i:.1f}.h5",
+                  rng.standard_normal((SURROGATE_FRAMES, H, W), dtype=np.float32),
+                  rng.standard_normal((SURROGATE_FRAMES, H, W, 15), dtype=np.float32))
+                 for i in range(SURROGATE_SIMS))
+        write_surrogate_train(f"{work}/data/combustion", pairs, step=SURROGATE_WINDOW[0],
+                              n_sim_frame=SURROGATE_FRAMES)
+        tree_s = time.perf_counter() - t0
+        argv = ["--config", "combustion/surrogate_model/fno.yaml", "--dataset_root",
+                f"{work}/data", "--use_hf_dataset", "--results_path", f"{work}/results",
+                "--num_update", str(SURROGATE_LOOP_STEPS),
+                # the surrogate datasets' defaults, which the tree was written with
+                "--step", str(SURROGATE_WINDOW[0]), "--n_sim_frame", str(SURROGATE_FRAMES)]
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        exp, model, opt, hist = cli_run(surrogate_main, f"the {path}", argv)
+        wall = time.perf_counter() - t0
+        n_test = int(SURROGATE_SIMS * SURROGATE_FRAMES / 0.8 * 0.2)
+        test_batches = math.ceil(n_test / int(cfg["test_batch_size"]))
+        n_eval = SURROGATE_LOOP_STEPS // EVAL_EVERY
+        want = {k: SURROGATE_LOOP_STEPS * TRAIN_LAUNCHES.get(k, 0)
+                + n_eval * test_batches * PREDICT_LAUNCHES.get(k, 0) for k in TRAIN_LAUNCHES}
+        want = {k: n for k, n in want.items() if n}
+        launches = dict(kernels.LAUNCHES)
+        VARIANTS_BY_PATH[path] = _expect(launches, f"the {path}",
+                                         variants=_f32_fno_variants(want), **want)
+        losses = hist["train_loss"]
+        if len(losses) != SURROGATE_LOOP_STEPS or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"the {path}'s {len(losses)} train losses: {losses}")
+        if len(hist["test"]["rmse"]) != n_eval or opt.count != SURROGATE_LOOP_STEPS:
+            raise AssertionError(f"the {path}: {hist['test']}, {opt.count} updates")
+        kept = sorted(os.listdir(f"{exp}/ckpt"))
+        if kept != [f"checkpoint_{SURROGATE_LOOP_STEPS}.pth"]:
+            raise AssertionError(f"the {path}'s checkpoints: {kept}")
+        emit(dict(phase=path, config="combustion/surrogate_model/fno.yaml",
+                  data="Arrow surrogate tree written from arrays (write_surrogate_train)",
+                  tree_s=tree_s, batch=int(cfg["train_batch_size"]), test_windows=n_test,
+                  test_batches=test_batches, evaluations=n_eval, wall_s=wall,
+                  loop_steps_per_s=hist["perf"]["loop_steps_per_sec"],
+                  bare_step_steps_per_s=BARE_STEPS_PER_S.get("surrogate_fno_train_f32"),
+                  launches=launches, variants=VARIANTS_BY_PATH[path],
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  first_losses=losses[:5], last_losses=losses[-5:], test=hist["test"],
+                  tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT),
+                  reduced=dict(num_update=dict(here=SURROGATE_LOOP_STEPS,
+                                               shipped=cfg["num_update"]),
+                               tree=dict(here=f"{SURROGATE_SIMS} synthetic pairs of "
+                                              f"{SURROGATE_FRAMES} frames at {H}x{W}",
+                                         shipped="the published surrogate-train pairs"))))
+        del model, opt
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _free()
+    return launches
+
+
+def save_backbone(model) -> str:
+    """``model``'s weights as a bare pretrained backbone comes: a state dict
+    without the wrapper's ``dpot_model.`` prefix, in a temporary file."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_backbone_", suffix=".pth")
+    os.close(fd)
+    torch.save({k[len("dpot_model."):]: v.detach().cpu()
+                for k, v in model.state_dict().items()}, path)
+    return path
+
+
+def phase_dpot_finetune(dev, run) -> dict:
+    """python -m realpdebench_tpu_torch train --is_finetune on real data from
+    a bare DPOT-S backbone (the dpot_s_train_f32 step's weights, the
+    dpot_model. prefix taken off; a one-step DPOT-S run writes one where
+    that phase did not run), configs/cylinder/dpot_s.yaml in its shipped
+    f32, DPOT_FINETUNE_STEPS steps on the loops' tree: no kernel launch,
+    finite losses, and every weight within 3·lr a step of the backbone's
+    (Adam moves each by about lr a step: a backbone that was not loaded
+    would be a fresh initialisation, far from it). Returns its launches."""
+    import math
+
+    from realpdebench_tpu_torch.config import load_config
+    from realpdebench_tpu_torch.train.__main__ import main as train_main
+
+    path, config = "dpot_finetune", "cylinder/dpot_s.yaml"
+    if "dpot_s" not in BACKBONES:
+        model = _family(dev, "dpot_s")
+        cfg = _family_cfg("dpot_s")
+        g = torch.Generator(device=dev).manual_seed(19)
+        x = torch.randn(2, *FAMILY_SHAPE, generator=g, device=dev)
+        make_train_step(model, gaussian_normalizer(), build_optimizer(
+            _train_cfg(cfg), model.parameters()))(x, x)
+        BACKBONES["dpot_s"] = save_backbone(model)
+        del model
+    backbone = BACKBONES.pop("dpot_s")
+    shipped = load_config(config)
+    cuts = {k: LOOP_OVERRIDES[k] for k in ("n_sim_frame", "n_sim_in_distribution",
+                                           "n_sim_out_distribution", "generate_ids_if_missing",
+                                           "max_to_keep")}
+    cuts["num_update"] = (DPOT_FINETUNE_STEPS, shipped.num_update)
+    argv = ["--config", config, "--dataset_root", run.root, "--results_path",
+            f"{run.work}/results_{path}", "--train_data_type", "real", "--is_finetune",
+            "--checkpoint_path", backbone]
+    for k, (v, _) in cuts.items():
+        argv += [f"--{k}", v if isinstance(v, str) else json.dumps(v)]
+    try:
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        _, model, opt, hist = cli_run(train_main, f"the {path}", argv,
+                                      dataset_class=run.dataset_class)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        VARIANTS_BY_PATH[path] = _expect(launches, f"the {path}")
+        losses = hist["train_loss"]
+        if opt.count != DPOT_FINETUNE_STEPS or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{path}: {opt.count} updates, losses {losses}")
+        start = torch.load(backbone, map_location=dev, weights_only=True)
+        moved = max((p.detach() - start[k[len("dpot_model."):]]).abs().max().item()
+                    for k, p in model.named_parameters())
+        limit = 3 * float(shipped.lr) * DPOT_FINETUNE_STEPS
+        if not moved <= limit:
+            raise AssertionError(f"{path}: the weights moved {moved} from the backbone "
+                                 f"(limit {limit}): the backbone was not loaded")
+        emit(dict(phase=path, config=config, backbone="bare (no dpot_model. prefix), "
+                  "written by the DPOT-S step on this card", data=run.data_source(),
+                  wall_s=wall, steps=len(losses), losses=losses, val_rmse=hist["val"]["rmse"],
+                  max_abs_from_backbone=moved, limit_from_backbone=limit,
+                  launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT),
+                  reduced={k: dict(here=v, shipped=sv) for k, (v, sv) in cuts.items()}))
+        del model, opt, start
+    finally:
+        os.remove(backbone)
+    _free()
+    return launches
+
+
+
 def phase_profile(step, x, y, phase: str = "profile") -> None:
     """torch.profiler over 3 calls of ``step(x, y)`` (training steps, or
     rollouts): device time by kernel against the host's wall time."""
@@ -2529,11 +3057,16 @@ def phase_profile(step, x, y, phase: str = "profile") -> None:
 # numerical 128x256 u, v, p, as sub_s_numerical is 2). The tree's size and
 # the keys its splits need are cut from the published dataset's; each
 # override below stands beside the shipped value.
-LOOP_TREE = dict(scenario="cylinder", n_frame=600, seed=0,
+# 300 frames a trajectory (the whole run's time limit: it halves each
+# validation and the tree's making against 600)
+LOOP_TREE = dict(scenario="cylinder", n_frame=300, seed=0,
                  sizes={"real": (16, 64, 128), "numerical": (4, 128, 256)})
-LOOP_STEPS = 100
+# 12 steps (the whole run's time limit): validation and a checkpoint every
+# step, iterations 10-12 traced, StepTimer's one window of 10 after 2
+# warm-up steps
+LOOP_STEPS = 12
 LOOP_OVERRIDES = {  # key: (value here, shipped value)
-    "n_sim_frame": (600, 3990),
+    "n_sim_frame": (300, 3990),
     "n_sim_in_distribution": (1, 10),
     "n_sim_out_distribution": (1, 10),
     "generate_ids_if_missing": (True, None),
@@ -2558,12 +3091,13 @@ EVAL_PLAIN_CHUNK = 16            # the plain f32 rollout, 16 windows at a time
 PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
 # the UNet's and the GK's loops and evaluations: their shipped configs in
 # bf16 on the same tree, at the shipped widths and batches. Validation (the
-# 125 real val windows) and a checkpoint come every num_update // 50 steps,
+# 54 real val windows) and a checkpoint come every num_update // 50 steps,
 # which below 100 steps is every step: 12 steps are what a phase of about a
-# minute buys at the UNet's ~2.5 s a validation, and trace iterations
-# 10-12. Eval reads the test split's unseen trajectories (test_mode): 26
-# windows at the UNet's 5 steps, a few batches. The plots need matplotlib:
-# where it is missing, N_plot and N_plot_probe are 0.
+# minute buys at the UNet's ~2.5 s a validation, and trace iterations 10-12
+# (StepTimer's one window of 10 after 2 warm-up steps needs all 12). Eval
+# reads the test split's unseen trajectories (test_mode): 8 windows at the
+# UNet's 5 steps. The plots need matplotlib: where it is missing, N_plot and
+# N_plot_probe are 0.
 MODEL_LOOP_STEPS = 12
 MODEL_TEST_MODE = "unseen"
 FAMILY_LOOP_STEPS = 12
@@ -2575,10 +3109,7 @@ ARROW_WINDOWS = 8       # windows of each split and type held bit for bit, and t
 # configs ship), its steps, the kernel launches of one training step and of
 # one forward, its eval phase, its bare step's phase and its other cuts
 # (key: (value here, shipped value)). DeepONet and Transolver run in their
-# shipped f32 and launch no kernel; Transolver's f32 step at the shipped
-# batch 16 does not fit the card (transolver_train_f32 says so on a line of
-# its own), so its loop accumulates 2 microbatches, which is exact for a
-# model without BatchNorm or dropout.
+# shipped f32, at the shipped batches, and launch no kernel.
 LOOPS = {
     "loop": dict(config="cylinder/fno.yaml", dtype="bfloat16", steps=LOOP_STEPS,
                  step=TRAIN_LAUNCHES, predict=PREDICT_LAUNCHES, eval="eval", bare="train"),
@@ -2596,8 +3127,7 @@ LOOPS = {
                           eval="deeponet_eval", bare="deeponet_train_f32"),
     "transolver_loop": dict(config="cylinder/transolver.yaml", dtype=None,
                             steps=FAMILY_LOOP_STEPS, step={}, predict={},
-                            eval="transolver_eval", bare="transolver_train_f32",
-                            cuts=dict(grad_accum=(2, 1))),
+                            eval="transolver_eval", bare="transolver_train_f32"),
 }
 # PyTorch's own defaults of the TF32 switches, which each CLI run starts
 # from, and the full-f32 state the port must leave after it
@@ -2890,7 +3420,7 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     fresh = build_model(train_dataset=train_ds, device=dev, generator=make_generator(1),
                         **model_kwargs(cfg))
     load_reference_or_orbax_checkpoint(ckpt_dir, fresh)
-    items = [val_ds[i] for i in range(test_batch)]
+    items = [val_ds[i] for i in range(min(test_batch, len(val_ds)))]
     xb = torch.from_numpy(np.stack([it[0] for it in items])).to(dev)
     yb = torch.from_numpy(np.stack([it[1] for it in items])).to(dev)
     xn, _ = normalizer.preprocess(xb, yb)
@@ -3186,8 +3716,9 @@ def phase_arrow(dev, run: LoopRun):
 
 
 def loop_and_eval(dev) -> dict:
-    """The loop and eval phases of each loop path, then the Arrow backend,
-    on one synthetic tree; their launch counts by path."""
+    """The loop and eval phases of each loop path, then the Arrow backend
+    and the DPOT finetune, on one synthetic tree; then the train-surrogate
+    loop on its own Arrow tree; their launch counts by path."""
     run = LoopRun()
     out = {}
     try:
@@ -3197,8 +3728,10 @@ def loop_and_eval(dev) -> dict:
         arrow = phase_arrow(dev, run)
         if arrow is not None:
             out["arrow"] = arrow
+        out["dpot_finetune"] = phase_dpot_finetune(dev, run)
     finally:
         run.close()
+    out["surrogate_loop"] = phase_surrogate_loop(dev)
     _free()
     return out
 
@@ -3222,7 +3755,8 @@ def main() -> None:
         summary[k].update({f"train_width_{n}": v for n, v in train_width.items()})
     for key in ("max_abs_err", "max_rel_err"):
         summary["t_stage"][key] = max(summary["t_stage"][key], adjoint[key])
-    phase_geometries(dev)
+    for k, t in phase_geometries(dev).items():
+        summary[k]["surrogate"] = t
     summary.update(phase_ta(dev))
     by_path = {"rollout": phase_slice(dev)}
     torch.cuda.empty_cache()
@@ -3232,6 +3766,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     by_path["train_f32"] = phase_train(dev, compute_dtype=None)
     torch.cuda.empty_cache()
+    by_path["surrogate_fno_train_f32"] = phase_surrogate_fno_train(dev)
+    by_path["surrogate_fno_rollout_f32"] = phase_surrogate_fno_rollout(dev)
     norm = gaussian_normalizer()
     by_path["fsi_train"] = phase_fsi_train(dev, norm)
     torch.cuda.empty_cache()
@@ -3243,6 +3779,7 @@ def main() -> None:
     _free()
     by_path["unet_train_f32"] = phase_unet_train(dev, norm, compute_dtype=None)
     _free()
+    by_path["surrogate_unet_train_f32"] = phase_surrogate_unet_train(dev)
     summary.update(phase_gk_scores(dev))
     by_path["gk_rollout"] = phase_gk_rollout(dev, norm)
     torch.cuda.empty_cache()
@@ -3257,6 +3794,9 @@ def main() -> None:
             by_path[f"{family}_train{suffix}"] = phase_family_train(dev, norm, family, dtype)
             by_path[f"{family}_rollout{suffix}"] = phase_family_rollout(dev, norm, family,
                                                                         dtype)
+    for family in DPOT_FAMILIES:
+        by_path[f"{family}_train_f32"] = phase_family_train(dev, norm, family)
+        by_path[f"{family}_rollout_f32"] = phase_family_rollout(dev, norm, family)
     by_path.update(loop_and_eval(dev))
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],

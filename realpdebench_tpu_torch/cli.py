@@ -4,9 +4,10 @@ Counterpart of ``realpdebench_tpu/cli.py`` (reference
 `realpdebench/cli.py:12-138`): a ``download`` subcommand with
 pattern-based Hugging Face snapshotting, a safe ``--what metadata``
 default and ``--dry-run`` returning the resolved patterns without
-network; ``train``, ``eval`` and ``convert`` take the flags of
-``python -m realpdebench_tpu_torch.train``, ``.eval`` and
-``.tools.convert_hdf5_to_hf`` (dispatched before argparse, as there). The
+network; ``train``, ``eval``, ``train-surrogate`` and ``convert`` take
+the flags of ``python -m realpdebench_tpu_torch.train``, ``.eval``,
+``.train.surrogate`` and ``.tools.convert_hdf5_to_hf`` (dispatched before
+argparse, as there). The
 JAX CLI's other subcommands are listed by ``--help`` and exit non-zero
 naming the ROADMAP.md item they wait for.
 """
@@ -24,13 +25,12 @@ from realpdebench_tpu_torch.data.hf_download import (
     ALL_SCENARIOS,
     download_realpdebench,
 )
+from realpdebench_tpu_torch.utils.misc import use_expandable_segments
 
 # subcommand → (help, what it waits for)
 _NOT_PORTED = {
     "parity": ("Side-by-side reference-torch vs port eval of a .pth",
                "ROADMAP.md queue A, item 10 (the port-vs-JAX parity CLI)"),
-    "train-surrogate": ("Train the combustion surrogate",
-                        "ROADMAP.md queue A, item 7 (the combustion surrogate pipeline)"),
     "export-torch": ("Export an orbax checkpoint to a reference .pth",
                      "ROADMAP.md queue A, item 5 (orbax checkpoints: the port's "
                      "own checkpoints are reference .pth files already)"),
@@ -38,6 +38,8 @@ _NOT_PORTED = {
 _PASSTHROUGH = {
     "train": "Train a model (flags of python -m realpdebench_tpu_torch.train)",
     "eval": "Evaluate a checkpoint",
+    "train-surrogate": "Train the combustion surrogate (flags of "
+                       "python -m realpdebench_tpu_torch.train.surrogate)",
     "convert": "Convert HDF5 trees to the Arrow V2 layout",
 }
 
@@ -47,6 +49,8 @@ def _entry(name):
         from realpdebench_tpu_torch.train.__main__ import main
     elif name == "eval":
         from realpdebench_tpu_torch.eval.__main__ import main
+    elif name == "train-surrogate":
+        from realpdebench_tpu_torch.train.surrogate import main
     else:
         from realpdebench_tpu_torch.tools.convert_hdf5_to_hf import main
     return main
@@ -118,6 +122,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None) -> None:
+    use_expandable_segments()
     if argv is None:
         argv = sys.argv[1:]
     # argparse's REMAINDER does not take leading optionals after the

@@ -1,8 +1,8 @@
 """JAX parameters → the port's ``state_dict``.
 
 Counterpart of ``realpdebench_tpu/interop/torch_export.py`` (its
-``export_fno``, ``export_unet``, ``export_galerkin``, ``export_deeponet``
-and ``export_transolver``): the same key names
+``export_fno``, ``export_unet``, ``export_galerkin``, ``export_deeponet``,
+``export_transolver`` and ``export_dpot``): the same key names
 and conventions,
 producing torch tensors that the port's ``load_state_dict(...,
 strict=True)`` takes. Inputs are the JAX ``params`` (and ``batch_stats``)
@@ -156,6 +156,41 @@ def transolver_state_dict(params: dict) -> dict:
             _dense(sd, f"{pre}.mlp2", blk["mlp2"])
         i += 1
     return sd
+
+
+def dpot_state_dict(params: dict) -> dict:
+    """JAX DPOT ``params`` (``model_type`` dpot or dpot3d) → DPOT
+    ``state_dict``: the exporter's ``dpot_model.``-prefixed layout. The
+    exporter refuses dpot3d; its keys here follow the 2-D model's, with
+    the position embedding [1, hx, wy, lz, E] → [1, E, hx, wy, lz]."""
+    net, sd = params["dpot_model"], {}
+    pos = np.asarray(net["pos_embed"])
+    sd["pos_embed"] = _t(np.moveaxis(pos, -1, 1))
+    _conv(sd, "patch_embed.proj.0", net["patch_proj1"])
+    _conv(sd, "patch_embed.proj.2", net["patch_proj2"])
+    sd["time_agg_layer.w"] = _t(net["time_agg_w"])
+    if "time_agg_gamma" in net:
+        sd["time_agg_layer.gamma"] = _t(net["time_agg_gamma"])
+    for f in ("scale_feats_mu", "scale_feats_sigma"):
+        if f in net:
+            _dense(sd, f, net[f])
+    i = 0
+    while f"block_{i}" in net:
+        blk, pre = net[f"block_{i}"], f"blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}.{norm}.weight"] = _t(blk[norm]["scale"])
+            sd[f"{pre}.{norm}.bias"] = _t(blk[norm]["bias"])
+        for w in ("w1", "b1", "w2", "b2"):
+            sd[f"{pre}.filter.{w}"] = _t(blk["filter"][w])
+        _conv(sd, f"{pre}.mlp.0", blk["mlp1"])
+        _conv(sd, f"{pre}.mlp.2", blk["mlp2"])
+        i += 1
+    for src, dst in (("cls1", "cls_head.0"), ("cls2", "cls_head.2"), ("cls3", "cls_head.4")):
+        _dense(sd, dst, net[src])
+    _conv(sd, "out_layer.0", net["out_deconv"])
+    _conv(sd, "out_layer.2", net["out_conv1"])
+    _conv(sd, "out_layer.4", net["out_conv2"])
+    return {f"dpot_model.{k}": v for k, v in sd.items()}
 
 
 def _dense(sd, key, p) -> None:

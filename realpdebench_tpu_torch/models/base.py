@@ -56,13 +56,45 @@ def linear(m: nn.Linear, x, dt):
                     None if m.bias is None else m.bias.to(dt))
 
 
+class _LayerNorm(torch.autograd.Function):
+    """flax's LayerNorm over the last axis as one autograd node: the
+    forward is the elementwise chain below, the backward the analytic
+    gradient, and only x, mean and rstd are kept between them (the chain
+    under autograd keeps four tensors of x's size: xf·xf, xf − mean, the
+    rstd product and the affine's input)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, dt):
+        xf = x.to(stats_dtype(dt))
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+        rstd = torch.rsqrt(var.clamp_min(0.0) + eps)
+        ctx.save_for_backward(x, mean, rstd, weight, var >= 0)
+        return ((xf - mean) * rstd * weight + bias).to(dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, weight, var_kept = ctx.saved_tensors
+        g = g.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean) * rstd
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dxhat = g * weight
+            # the variance's path is cut where the clamp took a negative one
+            proj = (dxhat * xhat).mean(dim=-1, keepdim=True) * var_kept
+            dx = (rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True) - xhat * proj)).to(x.dtype)
+        lead = tuple(range(g.dim() - 1))
+        if ctx.needs_input_grad[1]:
+            dw = (g * xhat).sum(dim=lead).to(weight.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=lead).to(weight.dtype)
+        return dx, dw, db, None, None
+
+
 def layer_norm(m: nn.LayerNorm, x, dt):
     """flax LayerNorm: float32 statistics, variance as E[x²] − E[x]²,
-    output in ``dt``."""
-    xf = x.to(stats_dtype(dt))
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    return ((xf - mean) * torch.rsqrt(var + m.eps) * m.weight + m.bias).to(dt)
+    output in ``dt``; one autograd node that keeps x, mean and rstd."""
+    return _LayerNorm.apply(x, m.weight, m.bias, m.eps, dt)
 
 
 def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x, training: bool, dt,

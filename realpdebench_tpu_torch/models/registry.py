@@ -14,7 +14,7 @@ from realpdebench_tpu_torch.models.base import Model
 from realpdebench_tpu_torch.utils.misc import set_f32_precision
 
 # families the JAX registry builds that the port has not reached yet
-_NOT_PORTED = ("mwt", "cno", "dpot", "wdno", "dmd")
+_NOT_PORTED = ("mwt", "cno", "wdno", "dmd")
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
@@ -40,7 +40,8 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
     ``shapes=(shape_in, shape_out)``. The remaining kwargs are the config
     namespace of the JAX registry. ``remat`` is honoured for ``unet``
     (default true, as in the JAX registry: its ResnetBlocks are
-    rematerialised in the backward); ``fno`` and ``galerkin_transformer``
+    rematerialised in the backward) and ``dpot`` (default false, as
+    there); ``fno`` and ``galerkin_transformer``
     accept it and ignore it: their f32 steps fit an 80 GB card at the
     shipped batches. The TPU-only switches (``use_pallas``,
     ``pallas_interpret``, ``seq_mesh``) are accepted and have no effect: on
@@ -132,6 +133,23 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             slice_num=kwargs.get("slice_num", 32),
             unified_pos=bool(kwargs.get("unified_pos", False)),
             shape_in=shape_in, shape_out=shape_out, compute_dtype=compute_dtype,
+            device=resolve_device(device), generator=generator)
+    if model_name == "dpot":
+        from realpdebench_tpu_torch.models.dpot import DPOT
+
+        # the JAX registry's keys and defaults; ``remat`` defaults to false
+        # there and here. On the meta device the model has shapes only.
+        return DPOT(
+            shape_in=shape_in, shape_out=shape_out,
+            model_type=kwargs.get("model_type", "dpot"), img_size=kwargs["img_size"],
+            in_channels=kwargs["in_channels"], out_channels=kwargs["out_channels"],
+            in_timesteps=kwargs["in_timesteps"], out_timesteps=kwargs["out_timesteps"],
+            patch_size=kwargs["patch_size"], embed_dim=kwargs["embed_dim"],
+            depth=kwargs["depth"], n_blocks=kwargs["n_blocks"], modes=kwargs["modes"],
+            mlp_ratio=kwargs["mlp_ratio"], out_layer_dim=kwargs["out_layer_dim"],
+            normalize=bool(kwargs.get("normalize", False)), act=kwargs.get("act", "gelu"),
+            time_agg=kwargs.get("time_agg", "exp_mlp"), n_cls=int(kwargs.get("n_cls", 1)),
+            compute_dtype=compute_dtype, remat=bool(kwargs.get("remat", False)),
             device=resolve_device(device), generator=generator)
     if model_name in _NOT_PORTED:
         raise NotImplementedError(

@@ -15,8 +15,9 @@ Row schemas:
                 real, numerical, numerical_channels}
 
 Reading the HDF5 rows (h5py) is kept apart from writing a type's Arrow
-dataset (``write_dataset_v2``, which needs ``datasets`` alone), so a tree
-held in memory (``fluid_row`` over arrays) is written the same way.
+dataset (``write_dataset_v2`` and ``write_surrogate_train``, which need
+``datasets`` alone), so a tree held in memory (``fluid_row`` over arrays,
+(sim_id, real, numerical) surrogate pairs) is written the same way.
 
 Usage:
     python -m realpdebench_tpu_torch convert \
@@ -153,41 +154,40 @@ def convert_dataset_v2(dataset_root, scenario, dataset_types=("real",
     return os.path.join(scenario_dir, "hf_dataset")
 
 
-def convert_surrogate_train(dataset_root, step=20, n_sim_frame=40):
-    """Combustion surrogate-train pairs → Arrow, per-(sim, time)-window rows,
-    sim_ids OUTER loop × time_ids inner (the ordering the reference HF
-    wrapper asserts — combustion_surrogate_hf_dataset.py:193-199)."""
-    import h5py
+def surrogate_rows(sim_id, real, numerical, step=20, n_sim_frame=40):
+    """One surrogate-train pair's rows, one per time window: ``real`` the
+    [T, H, W] observation, ``numerical`` the [T, H, W, 15] fields."""
+    real_full = np.asarray(real, np.float32)
+    num_full = np.asarray(numerical, np.float32)
+    for time_id in range(n_sim_frame - step):
+        real = real_full[time_id : time_id + step]
+        num = num_full[time_id : time_id + step]
+        yield dict(
+            sim_id=sim_id, time_id=time_id,
+            real_shape_t=real.shape[0], real_shape_h=real.shape[1],
+            real_shape_w=real.shape[2],
+            numerical_shape_t=num.shape[0], numerical_shape_h=num.shape[1],
+            numerical_shape_w=num.shape[2],
+            numerical_channels=num.shape[-1],
+            real=real.tobytes(), numerical=num.tobytes(),
+        )
+
+
+def write_surrogate_train(scenario_dir, pairs, step=20, n_sim_frame=40):
+    """Write the surrogate-train Arrow dataset from ``pairs`` of (sim_id,
+    real, numerical) arrays, in the order given (sorted by sim_id as the
+    HDF5 reader gives them): rows with sim_ids OUTER × time_ids inner, the
+    ordering the reference HF wrapper asserts
+    (combustion_surrogate_hf_dataset.py:193-199). Needs ``datasets``
+    alone."""
     from datasets import Dataset
 
-    scenario_dir = os.path.join(dataset_root, "combustion")
-    real_dir = os.path.join(scenario_dir, "real_surrogate_train")
-    num_dir = os.path.join(scenario_dir, "numerical_surrogate_train")
     hf_dir = os.path.join(scenario_dir, "hf_dataset")
     os.makedirs(hf_dir, exist_ok=True)
-
-    rows = []
-    sim_ids = []
-    for fn in sorted(os.listdir(num_dir)):
-        if not fn.endswith(".h5"):
-            continue
-        sim_ids.append(fn)
-        with h5py.File(os.path.join(real_dir, fn), "r") as f:
-            real_full = np.asarray(f["trajectory"], np.float32)
-        with h5py.File(os.path.join(num_dir, fn), "r") as f:
-            num_full = np.asarray(f["measured_data"], np.float32)
-        for time_id in range(n_sim_frame - step):
-            real = real_full[time_id : time_id + step]
-            num = num_full[time_id : time_id + step]
-            rows.append(dict(
-                sim_id=fn, time_id=time_id,
-                real_shape_t=real.shape[0], real_shape_h=real.shape[1],
-                real_shape_w=real.shape[2],
-                numerical_shape_t=num.shape[0], numerical_shape_h=num.shape[1],
-                numerical_shape_w=num.shape[2],
-                numerical_channels=num.shape[-1],
-                real=real.tobytes(), numerical=num.tobytes(),
-            ))
+    rows, sim_ids = [], []
+    for sim_id, real, numerical in pairs:
+        sim_ids.append(sim_id)
+        rows.extend(surrogate_rows(sim_id, real, numerical, step, n_sim_frame))
     Dataset.from_list(rows).save_to_disk(
         os.path.join(hf_dir, "surrogate_train")
     )
@@ -198,6 +198,29 @@ def convert_surrogate_train(dataset_root, step=20, n_sim_frame=40):
                    "n_sim_frame": n_sim_frame}, f)
     print(f"combustion/surrogate_train: {len(rows)} windows, "
           f"{len(sim_ids)} sims")
+
+
+def _surrogate_pairs(scenario_dir):
+    import h5py
+
+    real_dir = os.path.join(scenario_dir, "real_surrogate_train")
+    num_dir = os.path.join(scenario_dir, "numerical_surrogate_train")
+    for fn in sorted(os.listdir(num_dir)):
+        if not fn.endswith(".h5"):
+            continue
+        with h5py.File(os.path.join(real_dir, fn), "r") as f:
+            real = np.asarray(f["trajectory"], np.float32)
+        with h5py.File(os.path.join(num_dir, fn), "r") as f:
+            num = np.asarray(f["measured_data"], np.float32)
+        yield fn, real, num
+
+
+def convert_surrogate_train(dataset_root, step=20, n_sim_frame=40):
+    """Combustion surrogate-train pairs (HDF5) → Arrow: the HDF5 files read
+    by h5py, written by ``write_surrogate_train``."""
+    scenario_dir = os.path.join(dataset_root, "combustion")
+    write_surrogate_train(scenario_dir, _surrogate_pairs(scenario_dir), step,
+                          n_sim_frame)
 
 
 def main(argv=None):

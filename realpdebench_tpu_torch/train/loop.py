@@ -332,8 +332,9 @@ def run_validation(model, eval_fn, val_loader, c, device=None):
 def load_reference_or_orbax_checkpoint(path: str, model):
     """Load a checkpoint's weights (and BatchNorm statistics) into ``model``,
     strictly: a directory of this package's checkpoints (the latest), or a
-    reference ``.pth`` (the reference's own, or one the JAX package's
-    ``save_torch_checkpoint`` wrote). The optimizer is not touched: a
+    reference ``.pth`` (the reference's own, one the JAX package's
+    ``save_torch_checkpoint`` wrote, or a bare state dict; DPOT's keys
+    mapped by ``reference_state_dict``). The optimizer is not touched: a
     finetune starts a fresh Adam, as the reference does. An orbax directory
     of the JAX package cannot be read without orbax and tensorstore."""
     if os.path.isdir(path):
@@ -347,5 +348,19 @@ def load_reference_or_orbax_checkpoint(path: str, model):
         mgr.restore(model, load_opt_state=False)
         return model
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    model.load_state_dict(ckpt["model_state_dict"], strict=True)
+    sd = ckpt.get("model_state_dict", ckpt)
+    model.load_state_dict(reference_state_dict(sd, model), strict=True)
     return model
+
+
+def reference_state_dict(sd: dict, model) -> dict:
+    """A reference state dict's keys as ``model`` names them. DPOT takes
+    what the JAX package's ``convert_dpot`` takes: the wrapper's
+    ``dpot_model.``-prefixed keys, a ``module.``-prefixed (data-parallel)
+    pretrained backbone, or a bare one; every other family's keys are its
+    own."""
+    if not hasattr(model, "dpot_model"):
+        return sd
+    strip = lambda k: (k[len("dpot_model."):] if k.startswith("dpot_model.") else
+                       k[len("module."):] if k.startswith("module.") else k)
+    return {f"dpot_model.{strip(k)}": v for k, v in sd.items()}

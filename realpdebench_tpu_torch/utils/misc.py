@@ -56,6 +56,17 @@ def make_generator(seed: int) -> torch.Generator:
     return g
 
 
+def use_expandable_segments() -> None:
+    """Let PyTorch's CUDA allocator grow its segments in place
+    (``expandable_segments``) unless the caller set the allocator up
+    otherwise: freed blocks then do not fragment the card. The f32
+    Transolver step at its shipped batch 16 needs about 63 of an 80 GB
+    card's 79 GiB and fails by fragmentation without it. Takes effect only
+    before the process's first allocation on the card; the command line
+    and ``chip_smoke.py`` call it first."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+
 def set_f32_precision() -> None:
     """Full float32 in the library calls: no TF32 in cuBLAS's matmuls or in
     cuDNN's convolutions, and "highest" float32 matmul precision. The JAX

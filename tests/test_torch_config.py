@@ -1,8 +1,9 @@
 """PyTorch port vs JAX package: the config system, on the CPU.
 
-The port's 30 configs (fno, unet, galerkin_transformer, deeponet,
-transolver, trainsolver × five scenarios) are the JAX package's files byte
-for byte; ``merge_config`` gives the JAX
+The port's 42 configs (fno, unet, galerkin_transformer, deeponet,
+transolver, trainsolver, dpot_s, dpot_l × five scenarios, and the
+combustion surrogate's fno and unet) are the JAX package's files byte for
+byte; ``merge_config`` gives the JAX
 package's dict for the same argv (the port adds ``device``); config names
 resolve inside the port's own tree; ``--key value`` overrides are read as
 YAML and win over the file.
@@ -16,7 +17,10 @@ from realpdebench_tpu import config as jc
 from realpdebench_tpu_torch import config as tc
 
 SCENARIOS = ("combustion", "controlled_cylinder", "cylinder", "foil", "fsi")
-MODELS = ("fno", "unet", "galerkin_transformer", "deeponet", "transolver", "trainsolver")
+MODELS = ("fno", "unet", "galerkin_transformer", "deeponet", "transolver", "trainsolver",
+          "dpot_s", "dpot_l")
+NAMES = [f"{s}/{m}.yaml" for s in SCENARIOS for m in MODELS] + [
+    f"combustion/surrogate_model/{m}.yaml" for m in ("fno", "unet")]
 JAX_CONFIGS = os.path.join(os.path.dirname(jc.__file__), "configs")
 PORT_CONFIGS = os.path.join(os.path.dirname(tc.__file__), "configs")
 
@@ -24,15 +28,24 @@ PORT_CONFIGS = os.path.join(os.path.dirname(tc.__file__), "configs")
 def test_the_port_ships_the_configs_of_its_families():
     got = sorted(os.path.relpath(os.path.join(d, f), PORT_CONFIGS)
                  for d, _, fs in os.walk(PORT_CONFIGS) for f in fs)
-    assert got == sorted(f"{s}/{m}.yaml" for s in SCENARIOS for m in MODELS)
+    assert got == sorted(NAMES)
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS)
 @pytest.mark.parametrize("model", MODELS)
 def test_config_files_equal_jax_byte_for_byte(scenario, model):
-    with open(os.path.join(JAX_CONFIGS, scenario, f"{model}.yaml"), "rb") as f:
+    _byte_equal(f"{scenario}/{model}.yaml")
+
+
+@pytest.mark.parametrize("model", ["fno", "unet"])
+def test_surrogate_config_files_equal_jax_byte_for_byte(model):
+    _byte_equal(f"combustion/surrogate_model/{model}.yaml")
+
+
+def _byte_equal(name):
+    with open(os.path.join(JAX_CONFIGS, name), "rb") as f:
         ref = f.read()
-    with open(os.path.join(PORT_CONFIGS, scenario, f"{model}.yaml"), "rb") as f:
+    with open(os.path.join(PORT_CONFIGS, name), "rb") as f:
         assert f.read() == ref
 
 
@@ -44,7 +57,7 @@ ARGVS = [
 ]
 
 
-@pytest.mark.parametrize("name", [f"{s}/{m}.yaml" for s in SCENARIOS for m in MODELS])
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("argv", ARGVS, ids=["defaults", "finetune", "dtype", "hf"])
 def test_merge_config_equals_jax(name, argv):
     argv = ["--config", name, *argv]

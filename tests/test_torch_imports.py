@@ -1,9 +1,10 @@
 """The port stands alone: importing every module of realpdebench_tpu_torch
-(the Arrow data layer, the converter and the plots among them) loads
-neither JAX nor the JAX package, nor the data layer's optional packages
-(datasets, pyarrow, huggingface_hub, h5py, matplotlib), and running it on
-the CPU (the FNO, the UNet, the Galerkin Transformer, DeepONet and
-Transolver) never builds or loads the CUDA kernels. Checked in a fresh
+(the Arrow data layer, the converter, the plots, the surrogate pipeline
+and DPOT among them) loads neither JAX nor the JAX package, nor the data
+layer's optional packages (datasets, pyarrow, huggingface_hub, h5py,
+matplotlib), and running it on the CPU (the FNO, the UNet, the Galerkin
+Transformer, DeepONet, Transolver and DPOT) never builds or loads the CUDA
+kernels. Checked in a fresh
 interpreter, since this test process has both packages loaded."""
 
 import os
@@ -30,7 +31,9 @@ _SCRIPT = textwrap.dedent("""
                               "matplotlib") if m in sys.modules)
     assert not lazy, lazy
     for n in ("data.hf_datasets", "data.hf_download", "tools.convert_hdf5_to_hf",
-              "eval.plots", "eval.probes"):
+              "eval.plots", "eval.probes", "data.surrogate", "train.surrogate",
+              "tools.generate_surrogate_data", "tools.numerical_real_compare",
+              "models.dpot", "models.dpot3d"):
         assert pkg.__name__ + "." + n in names, n
 
     def refuse_build():
@@ -78,6 +81,15 @@ _SCRIPT = textwrap.dedent("""
         torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3))
     assert pred.shape == (1, 2, 8, 8, 3) and bool(torch.isfinite(pred).all())
     tr.loss(torch.ones(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3)).backward()
+    dp = build_model(shapes=((2, 8, 8, 3), (2, 8, 8, 3)), model_name="dpot", img_size=8,
+                     in_channels=4, out_channels=4, in_timesteps=2, out_timesteps=2,
+                     patch_size=4, embed_dim=16, depth=1, n_blocks=4, modes=2,
+                     mlp_ratio=1, out_layer_dim=8, device="cpu",
+                     generator=make_generator(0))
+    pred, _, _ = make_rollout_fn(dp, IdentityNormalizer(), 1)(
+        torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3))
+    assert pred.shape == (1, 2, 8, 8, 3) and bool(torch.isfinite(pred).all())
+    dp.loss(torch.ones(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3)).backward()
     assert kernels.library.cache_info().currsize == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     assert len(names) >= 21, names
