@@ -13,7 +13,13 @@ JSON line each; any failure raises (non-zero exit, no result line):
                utils.misc.set_f32_precision, which build_model applies to
                every model: every f32 limit below holds that setting.
   2. build     nvcc builds the kernels of realpdebench_tpu_torch/csrc (or
-               finds them built).
+               finds them built): one nvcc per source, all at once, at
+               niceness 10 in a thread (BackgroundBuild), while the card
+               runs phases 13e's CNO steps and rollouts and 13d (which
+               launch no kernel of the port's; their lines say
+               nvcc_running where they ended during the build); then the
+               library is loaded, and the build phase says how long it was
+               waited for.
   3. kernel    the forward kernels K1, the T-stage (et, it) and K2 against
                their plain twins on the card at the full rollout width
                (B·Tp=208, Hp=70, Wp=134, C=64, modes 4/12/16), in float32
@@ -57,8 +63,8 @@ JSON line each; any failure raises (non-zero exit, no result line):
                prove the kernels ran, every K1 and K2 launch the mma variant
                and every T-stage launch the registers one; compared with the
                same rollout through the plain f32 path on the card; rollout
-               frames/s; then torch.profiler over three more rollouts
-               (slice_profile).
+               frames/s; then torch.profiler over PROFILE_STEPS more
+               rollouts (slice_profile).
   5a. slice_f32 the same rollout in float32 as the shipped config runs it
                (compute_dtype null): exact launch and variant counts (K1
                and K2 tf32, the T-stage registers), within KERNEL_TOL's
@@ -72,8 +78,9 @@ JSON line each; any failure raises (non-zero exit, no result line):
                running statistics); two more forward-backward passes equal
                bit for bit; 2 warm-up steps and 5 windows of 10 steps:
                median steps/s, loss, peak memory.
-  7. profile   torch.profiler over three more training steps: device time
-               by kernel, the host's wall time, the device's idle share.
+  7. profile   torch.profiler over PROFILE_STEPS more training steps (as
+               every profile phase): device time by kernel, the host's
+               wall time, the device's idle share.
   7a. train_f32 phases 6-7 for the same step as the shipped config runs
                it, in float32 (compute_dtype null): K1, K2, K2A-lite,
                K12B, K3F and K3B in their tf32 variants (the T-stage
@@ -207,6 +214,20 @@ JSON line each; any failure raises (non-zero exit, no result line):
                64 × 1, as 13b holds DeepONet (float64 copy, every kernel
                count 0, profiles dpot_s_f32_profile, dpot_l_f32_profile);
                each step's weights kept as a bare backbone.
+ 13e. cno_train_f32, cno_rollout_f32, cno_train, cno_rollout, mwt_*
+               configs/cylinder/{cno,mwt}.yaml at full width (CNO: 7.93M
+               parameters, LeakyReLU, remat on, batch 16; MWT: 5.50M, alpha
+               5, 4 CZ cells, batch 32; eval 64 × 3 both), as 13b holds
+               DeepONet, with two differences: the f32 step is held to its
+               float64 copy on the same activation sides (Kinks: a
+               pre-activation within rounding of 0 takes the other slope in
+               f32; the copy with its own sides within 2e-2), and CNO's
+               repetitions and rollout references are cut (FAMILY_CUTS,
+               listed under "reduced"); profiles cno_f32_profile,
+               mwt_f32_profile.
+ 13f. cno_lrelu CNO's filtered activation (activation lrelu, a narrow CNO
+               on the cylinder window, batch 2): one forward-backward in
+               f32 against float64 on the same sides, every count 0.
  14. loop      python -m realpdebench_tpu_torch train, in this process
                (train.__main__.main, which the CLI's train subcommand
                runs), on a synthetic cylinder tree (data/synthetic: 16 real
@@ -226,8 +247,8 @@ JSON line each; any failure raises (non-zero exit, no result line):
                for a batch, validation, checkpoint); the checkpoint
                reloaded in a fresh model predicts bit for bit; the 13
                metrics on the card within 1e-4 of the CPU's on the same
-               arrays; then a resume to 14 steps (starts at 12, the
-               optimizer's count goes on to 14) and a 2-step finetune on
+               arrays; then a resume to 13 steps (RESUME_STEPS; starts at
+               12, the optimizer's count goes on to 13) and a 2-step finetune on
                real data from the checkpoint, each with exact counts.
  15. eval      python -m realpdebench_tpu_torch eval (eval.__main__.main)
                on that checkpoint, bf16, test batch 64, 10 autoregressive
@@ -244,7 +265,7 @@ JSON line each; any failure raises (non-zero exit, no result line):
                shipped, N_autoregressive 5) in bf16 on the same tree: 12
                steps (validation and a checkpoint every step, as
                num_update // 50 is 0 below 100 steps; iterations 10-12
-               traced), a resume to 14, no finetune; exact TA forward and
+               traced), a resume to 13, no finetune; exact TA forward and
                backward counts, all mma; reload bit-equal; the card's
                metrics within 1e-4 of the CPU's; loop steps/s beside the
                bare step's (phase 10), idle share, peak memory. Eval over
@@ -254,12 +275,16 @@ JSON line each; any failure raises (non-zero exit, no result line):
                (width 256, 4 heads, batch 16, N_autoregressive 1, dropout
                from the run's seeded generator): exact scores counts, mma;
                eval over 14 unseen windows (1 batch).
- 17a. deeponet_loop, deeponet_eval, transolver_loop, transolver_eval  the
-               same for configs/cylinder/{deeponet,transolver}.yaml in
-               their shipped f32 (no --compute_dtype), at the shipped
-               batches (32 and 16; test batches 64 and 16, N_autoregressive
-               10 and 3): every kernel count 0; eval against the same
-               checkpoint's f32 rollout.
+ 17a. deeponet_loop, deeponet_eval, transolver_loop, transolver_eval,
+      cno_loop, cno_eval, mwt_loop, mwt_eval  the
+               same for configs/cylinder/{deeponet,transolver,cno,mwt}.yaml
+               in their shipped f32 (no --compute_dtype), at the shipped
+               batches (32, 16, 16 and 32; test batch 64 but Transolver's
+               16, N_autoregressive 10, 3, 3 and 3): every kernel count 0;
+               eval against the same checkpoint's f32 rollout. CNO's
+               loop runs 2 steps (CNO_LOOP_STEPS: a CNO validation of the
+               54 windows is ≈ 140 TFLOP in full f32) and a resume to 3:
+               no traced iteration, no StepTimer window.
 Every train and eval run of phases 14-18 starts from PyTorch's default TF32
 switches (cudnn's on) and must leave them full f32 (C1).
  17b. dpot_finetune  python -m realpdebench_tpu_torch train --is_finetune
@@ -290,6 +315,11 @@ f32 as shipped), the eval's test_mode, and N_plot and
 N_plot_probe, which are 0 where matplotlib is missing.
 `python3 chip_smoke.py --only-loop` runs env, build and phases 14-18 alone
 and prints neither the summary nor the result line.
+`python3 chip_smoke.py --limit-controls` runs env and limit_controls alone
+(no build, no summary, no result line): the readings of FAMILY_FREE_KINKS
+and FAMILY_BF16_ZERO_GRAD from CNO's and MWT's sound steps beside those of
+controls, the f32 steps with TF32 on and CNO's steps with one BatchNorm's
+statistics left out; it fails where the planted fault passes.
 Every kernel's time stands beside its bound: the larger of the bytes it
 must move (inputs read once, outputs written once) over HBM's 3.35 TB/s and
 its operations over the peak of its type (989 TFLOP/s bf16 tensor cores,
@@ -303,12 +333,16 @@ f32 route of K1, K2, K2A-lite, K12B, K3F, K3B and the TA forward and backward un
 The port imports neither JAX nor the JAX package; neither does this script.
 """
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+
+from unittest import mock
 
 import numpy as np
 import torch
@@ -344,6 +378,7 @@ C, M1, M2, M3 = MODEL["width"], MODEL["modes1"], MODEL["modes2"], MODEL["modes3"
 TRAIN_BATCH = 32
 TRAIN_CFG = dict(lr=1e-4, scheduler="cosine", num_update=4000, clip_grad_norm=0.0)
 WARMUP, WINDOWS, WINDOW_STEPS = 2, 5, 10
+PROFILE_STEPS = 1    # steps (or rollouts) a profile phase traces (the run's time limit)
 
 # kernel vs twin, as max|Δ| / max|ref|. f32: both sides accumulate in f32 in
 # another order. bf16: both compute in f32 from the same bf16 inputs and
@@ -428,6 +463,9 @@ UNET_CMP_BATCH = 6      # the training step's comparison with the f32 plain step
 UNET_TRAIN_CFG = dict(lr=1e-4, scheduler="cosine", num_update=10000,
                       clip_grad_norm=0.0)
 UNET_WINDOW_STEPS = 5
+# the bf16 step's timing windows and the rollout's timed repeats, cut to
+# the whole run's time limit
+UNET_WINDOWS, UNET_ROLLOUTS = 2, 2
 # temporal attentions per forward at dim_mults (1, 2, 4): init, 3 down, mid, 3 up
 UNET_TA_PER_FORWARD = 8
 # bf16 kernels vs the f32 plain path (TF32 off), fixed before the first
@@ -444,7 +482,7 @@ UNET_LOSS_REL, UNET_GRAD_REL_L2 = 1e-2, 1e-1
 UNET_F32_ROLLOUT = (1e-4, 1e-4)
 UNET_F32_LOSS_REL, UNET_F32_GRAD_REL_L2 = 1e-5, 1e-4
 UNET_F32_BATCH = UNET_BATCH
-UNET_F32_WINDOWS = (2, 3)
+UNET_F32_WINDOWS = (1, 3)       # one window: the whole run's time limit
 
 # the cylinder Galerkin Transformer (configs/cylinder/galerkin_transformer.yaml
 # with the JAX registry's key mapping): windows of 20x64x128x3 in and out,
@@ -456,9 +494,10 @@ GK_MODEL = dict(model_name="galerkin_transformer", n_hidden=256, num_encoder_lay
                 fourier_modes_y=20, fourier_modes_t=4, num_regressor_layers=1,
                 freq_dim=128, encoder_dropout=0.05, xavier_init=0.01,
                 diagonal_weight=0.01, seed=0)
-GK_BATCH, GK_STEPS, GK_ROLLOUTS = 16, 1, 10
+GK_BATCH, GK_STEPS, GK_ROLLOUTS = 16, 1, 4      # rollouts timed: the run's time limit
 GK_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
 GK_WINDOW_STEPS = 3
+GK_WINDOWS = 2       # timing windows: the whole run's time limit
 GK_DROPOUT_SEED = 11
 # the scores kernel at the encoder's width: (B, N, h, d)
 GK_SCORES_SHAPE = (GK_BATCH, GK_SHAPE[0] * GK_SHAPE[1] * GK_SHAPE[2], GK_MODEL["n_head"],
@@ -487,12 +526,12 @@ GK_LOSS_REL, GK_GRAD_REL_L2 = 1e-2, 5e-2
 # FAMILY_CHUNK windows) within F32_LIMITS and FAMILY_F32_ROLLOUT, fixed
 # before the first run from PERF.md's f32 limits; bf16 against f32 within
 # the bf16 limits of the FNO's step and rollout. Steps timed in windows.
-FAMILIES = ("deeponet", "transolver")
+FAMILIES = ("deeponet", "transolver", "cno", "mwt")
 FAMILY_SHAPE = (20, 64, 128, 3)
 FAMILY_CMP_BATCH, FAMILY_CHUNK = 2, 8
 FAMILY_DROPOUT_SEED = 12
-FAMILY_WINDOWS = (2, 3)          # (windows, steps a window)
-FAMILY_ROLLOUTS = 5
+FAMILY_WINDOWS = (1, 3)          # (windows, steps a window)
+FAMILY_ROLLOUTS = 2  # rollouts timed (the whole run's time limit)
 FAMILY_F32_ROLLOUT = (1e-4, 1e-4)
 FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2 = TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2
 # DeepONet's branch in bf16 (fixed before the first chip run): a bf16
@@ -502,7 +541,62 @@ FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2 = TRAIN_LOSS_REL, TRAIN_GRAD_REL_L
 # off its f32 step there (CPU, 8x32x32 windows, p 8 and 128), the port's
 # 0.10-0.26 at the same size; held to 5e-1. The layers after the branch
 # keep FAMILY_BF16_GRAD_REL_L2.
-FAMILY_BF16_PREFIX_LIMITS = {"deeponet": {"branch.": 5e-1}}
+# CNO in bf16 (fixed before its first chip run), for the same reason: its
+# 22 BatchNormed k3 convolutions and LeakyReLUs take bf16 roundings that move
+# the statistics and the kinks; the JAX package's own bf16 step is a median
+# 0.06-0.08 and at worst 0.2-0.9 relative L2 off its f32 step (CPU, 4x32x32
+# windows, 3 levels, channel_multiplier 8 and 16), the port's a median 0.05
+# and at worst 0.19: every CNO gradient held to 5e-1. MWT in bf16 (fixed
+# before its first chip run): its wavelet matmuls round the coefficients to
+# bf16 at every level of every cell (the details are differences of
+# neighbours), and the Fourier kernel's products run in bf16; the port's
+# bf16 step is a median 0.007-0.011 and at worst 0.10-0.20 relative L2 off
+# its f32 step (CPU, 4x16x32 to 4x64x128 windows, c 2 and 4, alpha 3 and 5;
+# the JAX package's bf16 MWT does not run on the CPU): the cells' gradients
+# held to 3e-1, Lk's and Lc's to the common limit.
+FAMILY_BF16_PREFIX_LIMITS = {"deeponet": {"branch.": 5e-1}, "cno": {"": 5e-1},
+                             "mwt": {"MWT_CZ.": 3e-1}}
+# CNO's conv biases before a BatchNorm in bf16 (set after the first card
+# run showed 2.9e-2 of their conv weight's largest gradient, over
+# TRAIN_ZERO_GRAD): bf16 rounds each conv's output, bias included, before
+# the statistics, so their gradient is bf16 noise, not 0; the JAX package's
+# own bf16 CNO puts them at up to 0.51 (median 0.05) of that scale (CPU,
+# 4x32x32 windows, channel_multiplier 16), the port at 7e-3 there: 1e-1.
+# On an H100 a CNO bf16 step with one BatchNorm left out reads 0.475
+# (--limit-controls)
+FAMILY_BF16_ZERO_GRAD = {"cno": 1e-1}
+# CNO and MWT (configs/cylinder/{cno,mwt}.yaml as shipped: CNO 7.93M
+# parameters, channel_multiplier 32, 3 levels, a ResidualBlock a level and 6
+# at the neck (the YAML's "N_res_neck: 8," falls back to 6), LeakyReLU,
+# `remat` on, batch 16, eval 64 × 3; MWT 5.50M parameters, c 4, k 3, alpha
+# 5, 4 CZ cells, batch 32, eval 64 × 3) go through the phases of DeepONet
+# and Transolver at the same limits. Their products are cuDNN's and
+# cuBLAS's, their FFTs cuFFT's: no kernel of the port's. A CNO forward is
+# ≈ 2.6 TFLOP a 20x64x128 window in full f32 (C1): its float64 references
+# and its repetitions are cut to the run's time limit (FAMILY_CUTS, each
+# cut listed in the phase's reduced; shapes and batches as shipped): one
+# timed step and no further warm-up (the counted step and the comparisons
+# warm it), the bit-equal repeat at the comparison batch (the pass that
+# records the activation sides against the plain one, under
+# cudnn.deterministic) instead of the step's, the rollout timed by its
+# counted run alone, the rollout's references (float64 for f32, f32 for
+# bf16) on its first ref_windows windows.
+FAMILY_CUTS = {"cno": dict(windows=(1, 1), warmup=0, repeat_batch=False, rollouts=0,
+                           ref_windows=4)}
+# CNO's filtered activation on the card (the lrelu mode; no shipped config
+# runs it): a narrow CNO (3 levels, channel_multiplier 8, 2 neck blocks,
+# latent 16) on the cylinder window at batch 2, one forward-backward in f32
+# against a float64 copy within F32_LIMITS
+CNO_LRELU_MODEL = dict(model_name="cno", N_layers=3, N_res=1, N_res_neck=2,
+                       channel_multiplier=8, latent_lift_proj_dim=16, activation="lrelu")
+CNO_LRELU_BATCH = 2
+# CNO's and MWT's f32 steps against a float64 copy that takes its own
+# activation sides (see Kinks): the gradients within 2e-2 relative L2, four
+# times CNO's 4.8e-3 of the first card run (set after it); F32_LIMITS
+# hold on the same sides. On an H100 the f32 steps with TF32 on read
+# 8.2e-2 (CNO) and 4.8e-2 (MWT), CNO's with one BatchNorm left out 1.27
+# (--limit-controls)
+FAMILY_FREE_KINKS = 2e-2
 # DPOT-S and DPOT-L (configs/cylinder/dpot_{s,l}.yaml as shipped: embed 1024
 # and 1536, depth 6 and 24, f32) on the same windows, resized to their
 # 128x128 and back, in f32 only (their shipped dtype), held against a
@@ -511,6 +605,11 @@ FAMILY_BF16_PREFIX_LIMITS = {"deeponet": {"branch.": 5e-1}}
 # as a bare backbone (the dpot_model. prefix taken off), which the
 # dpot_finetune phase loads as a pretrained backbone comes.
 DPOT_FAMILIES = ("dpot_s", "dpot_l")
+# the kernel-free phases that run while nvcc builds the kernels (phase 2,
+# BackgroundBuild): the families whose steps the card's arithmetic bounds
+# (CNO's cuDNN convolutions, DPOT's cuBLAS products), so that sharing the
+# host's cores with the compiler moves them least; nvcc at niceness 10
+BUILD_OVERLAP, BUILD_NICE = ("cno", *DPOT_FAMILIES), 10
 BACKBONES = {}
 DPOT_FINETUNE_STEPS = 2
 
@@ -526,7 +625,7 @@ DPOT_FINETUNE_STEPS = 2
 SURROGATE_IN, SURROGATE_OUT = (*SURROGATE_WINDOW, 17), (*SURROGATE_WINDOW, 1)
 SURROGATE_FRAMES = 40
 SURROGATE_UNET_CMP_BATCH = 1
-SURROGATE_FNO_WINDOWS, SURROGATE_UNET_WINDOWS = (3, 5), (2, 2)
+SURROGATE_FNO_WINDOWS, SURROGATE_UNET_WINDOWS = (3, 5), (1, 2)
 SURROGATE_SIMS, SURROGATE_LOOP_STEPS = 3, 50
 # the TA sites of the surrogate UNet's levels (dim_mults 1/2 on 128x128
 # frames): level 0 (init, down 0, up 1), level 1 (down 1, up 0) and the mid
@@ -563,9 +662,12 @@ START = time.perf_counter()
 
 def emit(obj) -> None:
     """One JSON line; a phase's line also carries the seconds since the
-    script started."""
+    script started, and whether nvcc was still building the kernels when it
+    ended (BackgroundBuild)."""
     if "phase" in obj:
         obj = dict(obj, elapsed_s=time.perf_counter() - START)
+        if BackgroundBuild.running():
+            obj["nvcc_running"] = True
     print(json.dumps(obj), flush=True)
 
 
@@ -754,6 +856,45 @@ def phase_build() -> None:
     kernels.library()
     emit(dict(phase="build", library=path.name, compile_s=compile_s,
               total_s=time.perf_counter() - t0))
+
+
+class BackgroundBuild:
+    """The build phase with its nvcc runs (kernels.build) in a thread, at
+    niceness BUILD_NICE, while the main thread drives phases that launch no
+    kernel of the port's (BUILD_OVERLAP); ``finish()`` waits for it, loads
+    the library and emits the build phase, with the seconds it was waited
+    for. A failed build raises there. The phases that end while nvcc runs
+    say so (nvcc_running): their host shares its cores with the compiler."""
+
+    _thread = None
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.result, self.error = None, None
+        BackgroundBuild._thread = threading.Thread(target=self._run, name="nvcc")
+        BackgroundBuild._thread.start()
+
+    def _run(self):
+        try:
+            self.result = kernels.build(nice=BUILD_NICE)
+        except BaseException as e:          # raised again in finish()
+            self.error = e
+
+    @staticmethod
+    def running() -> bool:
+        return BackgroundBuild._thread is not None and BackgroundBuild._thread.is_alive()
+
+    def finish(self, overlapped: list) -> None:
+        t0 = time.perf_counter()
+        BackgroundBuild._thread.join()
+        waited = time.perf_counter() - t0
+        if self.error is not None:
+            raise self.error
+        path, compile_s = self.result
+        kernels.library()
+        emit(dict(phase="build", library=path.name, compile_s=compile_s,
+                  total_s=time.perf_counter() - self.t0, waited_s=waited, nice=BUILD_NICE,
+                  overlapped_with=overlapped))
 
 
 def check_tstage_generic(dev, gen, dtype, y, tol) -> list:
@@ -1702,7 +1843,7 @@ def phase_unet_rollout(dev, norm, compute_dtype="bfloat16") -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     secs = []
-    for _ in range(5):
+    for _ in range(UNET_ROLLOUTS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rollout(x_raw, y_raw)
@@ -1857,7 +1998,7 @@ def phase_unet_train(dev, norm, compute_dtype="bfloat16") -> dict:
         torch.cuda.empty_cache()
         torch.backends.cudnn.deterministic = True
     del rep
-    windows, window_steps = (WINDOWS, UNET_WINDOW_STEPS) if compute_dtype \
+    windows, window_steps = (UNET_WINDOWS, UNET_WINDOW_STEPS) if compute_dtype \
         else UNET_F32_WINDOWS
     step(x, y)
     det_rate, _ = _steps_per_s(step, x, y, window_steps)
@@ -2119,7 +2260,7 @@ def phase_gk_train(dev, norm, compute_dtype="bfloat16") -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rates, losses = zip(*(_steps_per_s(step, x, y, GK_WINDOW_STEPS)
-                          for _ in range(WINDOWS)))
+                          for _ in range(GK_WINDOWS)))
     if not all(v == v and abs(v) < float("inf") for v in losses):
         raise AssertionError(f"GK training losses {losses} are not finite")
     med = statistics.median(rates)
@@ -2178,13 +2319,120 @@ def _family_pass(model, xn, yn) -> tuple:
     return loss.detach(), _grads(model), stats
 
 
-def _family_vs(path, got, ref, limits, prefix_limits=None) -> dict:
+class Kinks:
+    """The kinks of a model's piecewise-linear activations held fixed
+    between two passes: CNO's LeakyReLUs, MWT's ReLUs, the filtered leaky
+    ReLU of CNO's lrelu mode. A pre-activation within rounding of 0 takes
+    the other slope in float32 than in float64, and the gradient flowing
+    back through it moves by the slopes' difference: over a full-width step
+    that puts the float32 gradients 1e-3 to 5e-3 relative L2 from float64's
+    (the first card runs: CNO 4.8e-3, MWT 1.0e-3, cno_lrelu 2.5e-4; on
+    the CPU CNO's is 4.5e-3 at 4x16x32 windows, and 1e-5 with SiLU in place
+    of LeakyReLU). Inside ``record()`` each activation's choice of side runs
+    through torch.where (where(x > 0, x, slope·x) for the (Leaky)ReLUs,
+    which is them bit for bit, forward and backward) and keeps the
+    condition, in call order (the forward's, then the checkpoints'
+    recomputes); inside ``replay()`` a later pass (the float64 copy's)
+    takes the same sides, so that both compute the same piecewise-linear
+    function. ``PATCHES``: the module, its attribute that the activation is
+    looked up on, and the activation's name there."""
+
+    PATCHES = {"cno": ("models.cno", "F", "leaky_relu"), "mwt": ("models.mwt", "F", "relu"),
+               "cno_lrelu": ("ops.filtered_lrelu", "torch", "where")}
+
+    def __init__(self, key: str):
+        import importlib
+
+        module, self.attr, self.name = self.PATCHES[key]
+        self.module = importlib.import_module(f"realpdebench_tpu_torch.{module}")
+        self.sides, self.used = [], 0
+
+    @contextlib.contextmanager
+    def _patched(self, side):
+        owner, name = getattr(self.module, self.attr), self.name
+        if name == "where":
+            act = lambda cond, x, other: torch.where(side(cond), x, other)
+        else:
+            act = lambda x, negative_slope=0.0: torch.where(side(x > 0), x,
+                                                           x * negative_slope)
+
+        class Shim:
+            def __getattr__(self, key):
+                return act if key == name else getattr(owner, key)
+
+        with mock.patch.object(self.module, self.attr, Shim()):
+            yield
+
+    def record(self):
+        def side(cond):
+            self.sides.append(cond)
+            return cond
+        return self._patched(side)
+
+    @contextlib.contextmanager
+    def replay(self):
+        def side(cond):
+            self.used += 1
+            return self.sides[self.used - 1]
+        with self._patched(side):
+            yield
+        if self.used != len(self.sides):
+            raise AssertionError(f"replayed {self.used} of {len(self.sides)} {self.name}s")
+
+
+def _f32_vs_f64(path: str, family: str, kinks_key: str, model, ref_model, xn, yn) -> dict:
+    """One f32 forward-backward of ``model`` against its float64 copy
+    ``ref_model`` (same weights) within F32_LIMITS, on the same activation
+    sides (``Kinks``): the pass that records them is the plain f32 pass bit
+    for bit (cuDNN held to deterministic algorithms for the two); beside it
+    the float64 copy with its own sides within FAMILY_FREE_KINKS."""
+    kinks = Kinks(kinks_key)
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+
+    def run(m):                 # every pass from the same weights and statistics
+        m.load_state_dict(state, strict=True)
+        return _family_pass(m, xn, yn)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = run(model)
+        with kinks.record():
+            got = run(model)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not (torch.equal(plain[0], got[0])
+            and all(torch.equal(plain[1][k], got[1][k]) for k in got[1])):
+        raise AssertionError(f"{path}: the recording pass is not the f32 pass")
+    del plain
+    free = run(ref_model)
+    with kinks.replay():
+        ref = run(ref_model)
+    cmp = _family_vs(path, family, got, ref, F32_LIMITS)
+    cmp["free_kinks"] = _family_vs(path, family, got, free,
+                                   (F32_LIMITS[0], FAMILY_FREE_KINKS, F32_LIMITS[2]))
+    cmp["kinks_replayed"] = len(kinks.sides)
+    cmp["recording_pass_bit_equal"] = True      # (raised above otherwise)
+    return cmp
+
+
+def _zero_grad(family: str, name: str) -> bool:
+    """The conv biases a BatchNorm follows, which it cancels (true gradient
+    0): DeepONet's branch, every CNO block's but lift's and project's."""
+    if family == "deeponet":
+        return name.startswith("branch.conv") and name.endswith(".0.bias")
+    if family == "cno":
+        return not name.startswith(("lift.", "project.")) and name.endswith(
+            ("convolution.bias", "convolution1.bias", "convolution2.bias"))
+    return False
+
+
+def _family_vs(path, family, got, ref, limits, prefix_limits=None,
+               zero_limit=TRAIN_ZERO_GRAD) -> dict:
     """A family step's (loss, gradients, statistics) against the reference's
     within ``limits`` (loss relative, gradients and statistics relative L2;
     ``prefix_limits``: parameter-name prefix → its gradients' own limit);
-    the branch's conv biases (DeepONet: the BatchNorm after each cancels
-    them, true gradient 0) held to TRAIN_ZERO_GRAD of their conv weight's
-    largest gradient."""
+    the conv biases a BatchNorm cancels (``_zero_grad``) held to
+    ``zero_limit`` of their conv weight's largest gradient."""
     (loss, grads, stats), (ref_loss, ref_grads, ref_stats) = got, ref
     lim_loss, lim_grad, lim_stats = limits
     prefix_limits = prefix_limits or {}
@@ -2193,7 +2441,7 @@ def _family_vs(path, got, ref, limits, prefix_limits=None) -> dict:
     loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
     rel, zero = {}, {}
     for name, gr in ref_grads.items():
-        if name.startswith("branch.conv") and name.endswith(".0.bias"):
+        if _zero_grad(family, name):
             scale = ref_grads[name[:-4] + "weight"].abs().max().item()
             zero[name] = max(grads[name].abs().max().item(), gr.abs().max().item()) / scale
             continue
@@ -2202,11 +2450,11 @@ def _family_vs(path, got, ref, limits, prefix_limits=None) -> dict:
     cmp = dict(loss=loss.item(), ref_loss=ref_loss.item(), loss_rel=loss_rel,
                limit_loss_rel=lim_loss, worst_grad_rel_l2=max(rel.values()),
                limit_grad_rel_l2=lim_grad, limit_grad_rel_l2_by_prefix=prefix_limits,
-               grad_rel_l2=rel, zero_grads=zero, limit_zero_grad=TRAIN_ZERO_GRAD,
+               grad_rel_l2=rel, zero_grads=zero, limit_zero_grad=zero_limit,
                stats_rel_l2=srel, limit_stats_rel_l2=lim_stats)
     bad = [] if loss_rel <= lim_loss else ["loss"]
     bad += [k for k, r in rel.items() if not r <= grad_limit(k)]
-    bad += [k for k, r in zero.items() if not r <= TRAIN_ZERO_GRAD]
+    bad += [k for k, r in zero.items() if not r <= zero_limit]
     bad += [k for k, r in srel.items() if not r <= lim_stats]
     if bad:
         raise AssertionError(f"{path}: step vs its reference: {bad}: {cmp}")
@@ -2230,6 +2478,12 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
     train_cfg = _train_cfg(cfg)
     reduced = {} if compute_dtype is None else dict(
         compute_dtype=dict(here=compute_dtype, shipped=None))
+    cuts = FAMILY_CUTS.get(family, {})
+    windows, window_steps = cuts.get("windows", FAMILY_WINDOWS)
+    if "windows" in cuts:
+        reduced["timing"] = dict(here=f"{windows} window of {window_steps} steps",
+                                 other_families=f"{FAMILY_WINDOWS[0]} windows of "
+                                                f"{FAMILY_WINDOWS[1]} steps")
     model = _family(dev, family, compute_dtype)
     init = {k: t.clone() for k, t in model.state_dict().items()}
     g = torch.Generator(device=dev).manual_seed(13)
@@ -2256,22 +2510,37 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
     # a float64 copy, bf16 against f32
     n = FAMILY_CMP_BATCH
     xn, yn = norm.preprocess(x[:n], y[:n])
-    got = _family_pass(_family(dev, family, compute_dtype, init), xn, yn)
-    ref = _family_pass(_family(dev, family, "float64" if compute_dtype is None else None,
-                               init), xn, yn)
-    if compute_dtype is None:
-        cmp = _family_vs(path, got, ref, F32_LIMITS)
+    if compute_dtype is None and family in Kinks.PATCHES:
+        cmp = _f32_vs_f64(path, family, family, _family(dev, family, None, init),
+                          _family(dev, family, "float64", init), xn, yn)
+    elif compute_dtype is None:
+        got = _family_pass(_family(dev, family, compute_dtype, init), xn, yn)
+        ref = _family_pass(_family(dev, family, "float64", init), xn, yn)
+        cmp = _family_vs(path, family, got, ref, F32_LIMITS)
+        del got, ref
     else:
-        cmp = _family_vs(path, got, ref, (FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2,
-                                          TRAIN_STATS_REL_L2),
-                         FAMILY_BF16_PREFIX_LIMITS.get(family))
+        got = _family_pass(_family(dev, family, compute_dtype, init), xn, yn)
+        ref = _family_pass(_family(dev, family, None, init), xn, yn)
+        cmp = _family_vs(path, family, got, ref, (FAMILY_BF16_LOSS_REL,
+                                                  FAMILY_BF16_GRAD_REL_L2, TRAIN_STATS_REL_L2),
+                         FAMILY_BF16_PREFIX_LIMITS.get(family),
+                         FAMILY_BF16_ZERO_GRAD.get(family, TRAIN_ZERO_GRAD))
+        del got, ref
     cmp.update(batch=n, reference="float64" if compute_dtype is None else "float32")
-    del got, ref, init
+    del init
     _free()
 
     same = None
     xn, yn = norm.preprocess(x, y)
-    if compute_dtype is None:
+    if compute_dtype is None and not cuts.get("repeat_batch", True):
+        # the recording pass against the plain one, bit for bit (above)
+        same = cmp.get("recording_pass_bit_equal")
+        if same is not True:
+            raise AssertionError(f"{path}: repeat_batch=False, but no recording pass was "
+                                 "held bit for bit (a family without Kinks.PATCHES)")
+        reduced["bitwise_repeat"] = dict(here=f"batch {n} (the recording pass)",
+                                         other_families=f"batch {batch}")
+    elif compute_dtype is None:
         # determinism: the same forward-backward twice (a microbatch of the
         # step's size), bit for bit, with cuDNN held to deterministic
         # algorithms
@@ -2285,9 +2554,10 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
         del rep
         _free()
 
-    windows, window_steps = FAMILY_WINDOWS
-    for _ in range(WARMUP):
+    for _ in range(cuts.get("warmup", WARMUP)):
         step(x, y)
+    if "warmup" in cuts:
+        reduced["warmup_steps"] = dict(here=cuts["warmup"], other_families=WARMUP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rates, losses = zip(*(_steps_per_s(step, x, y, window_steps) for _ in range(windows)))
@@ -2342,21 +2612,26 @@ def phase_family_rollout(dev, norm, family: str, compute_dtype=None) -> dict:
     pred, _, _ = rollout(x_raw, y_raw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
     launches = dict(kernels.LAUNCHES)
     VARIANTS_BY_PATH[path] = _expect(launches, f"a {n_steps}-step {family} rollout ({path})")
     want = (batch, n_steps * FAMILY_SHAPE[0], *FAMILY_SHAPE[1:])
     if tuple(pred.shape) != want or not bool(torch.isfinite(pred).all()):
         raise AssertionError(f"{path}: output {tuple(pred.shape)} (want {want}) or not finite")
 
+    cuts = FAMILY_CUTS.get(family, {})
+    n_ref = cuts.get("ref_windows", batch)
     ref_model = _family(dev, family, "float64" if compute_dtype is None else None,
                         model.state_dict()).eval()
-    ref = _chunked_rollout(ref_model, norm, n_steps, x_raw, y_raw, FAMILY_CHUNK)
+    ref = _chunked_rollout(ref_model, norm, n_steps, x_raw[:n_ref], y_raw[:n_ref],
+                           FAMILY_CHUNK)
+    pred = pred[:n_ref]
     rel_l2 = ((pred - ref).norm() / ref.norm()).item()
     max_rel = ((pred - ref).abs().max() / ref.abs().max()).item()
     lim_l2, lim_max = FAMILY_F32_ROLLOUT if compute_dtype is None \
         else (ROLLOUT_REL_L2, ROLLOUT_MAX)
     row = dict(reference="float64" if compute_dtype is None else "float32",
-               rel_l2=rel_l2, limit_rel_l2=lim_l2, max_abs_over_max_ref=max_rel,
+               windows=n_ref, rel_l2=rel_l2, limit_rel_l2=lim_l2, max_abs_over_max_ref=max_rel,
                limit_max=lim_max, ref_abs_max=ref.abs().max().item())
     if not (rel_l2 <= lim_l2 and max_rel <= lim_max):
         raise AssertionError(f"{path}: rollout vs its reference: {row}")
@@ -2365,20 +2640,163 @@ def phase_family_rollout(dev, norm, family: str, compute_dtype=None) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     secs = []
-    for _ in range(FAMILY_ROLLOUTS):
+    for _ in range(cuts.get("rollouts", FAMILY_ROLLOUTS)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rollout(x_raw, y_raw)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    med = statistics.median(secs)
+    med = statistics.median(secs or [first_s])      # no timed rollout: the counted one
     reduced = {} if compute_dtype is None else dict(
         compute_dtype=dict(here=compute_dtype, shipped=None))
+    if n_ref < batch:
+        reduced["reference_windows"] = dict(here=n_ref, other_families=batch)
+    if "rollouts" in cuts:
+        reduced["timed_rollouts"] = dict(here=cuts["rollouts"], other_families=FAMILY_ROLLOUTS)
     emit(dict(phase=path, config=f"cylinder/{family}.yaml", batch=batch, steps=n_steps,
               shape=list(want), launches=launches, vs_reference=row,
               first_rollout_s=first_s, rollout_s=secs, frames_per_s=batch * want[1] / med,
-              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, reduced=reduced))
+              peak_mem_gb=max(first_peak, torch.cuda.max_memory_allocated() / 1e9),
+              reduced=reduced))
     del model, rollout
+    _free()
+    return launches
+
+
+# the controls of FAMILY_FREE_KINKS and FAMILY_BF16_ZERO_GRAD (python3
+# chip_smoke.py --limit-controls): CNO's f32 and bf16 steps at the
+# phases' comparison batch, weights and inputs, sound and with a planted
+# fault, and the f32 steps of CNO and MWT with TF32 on. The fault leaves
+# one BatchNorm's batch statistics out: it normalises by its running
+# statistics, at their initial 0 and 1, so the layer passes its input on
+# and its conv bias takes a true gradient
+CONTROL_BN = "res_nets.0.batch_norm1"
+
+
+@contextlib.contextmanager
+def _bn_left_out(model, name: str):
+    """``model``'s BatchNorm ``name`` (a CNO's) on its running statistics in
+    every pass, the checkpoints' recomputes included."""
+    from realpdebench_tpu_torch.models import cno
+
+    target, bn = model.get_submodule(name), cno._bn
+    faulty = lambda m, x, o: bn(m, x, cno._Opts(o.dt, False, False) if m is target else o)
+    with mock.patch.object(cno, "_bn", faulty):
+        yield
+
+
+def phase_limit_controls(dev, norm) -> None:
+    """Each limit's sound reading beside readings of controls that it must
+    fail (limit_controls): FAMILY_FREE_KINKS (the worst gradient's relative
+    L2 of an f32 step against its float64 copy, each on its own activation
+    sides) of CNO's and MWT's sound f32 steps, of both with cuDNN's and
+    cuBLAS's TF32 on (and, beside it, the TF32 step against the float64
+    copy on its sides, which F32_LIMITS hold), and of CNO's with
+    CONTROL_BN left out;
+    FAMILY_BF16_ZERO_GRAD (the largest gradient of a conv bias a BatchNorm
+    cancels over its conv weight's largest) of CNO's sound bf16 step and of
+    its step with CONTROL_BN left out, against the sound f32 step. Inputs
+    and weights as phase_family_train's comparison. Raises where the
+    planted fault passes its limit."""
+    inf = float("inf")
+    free = lambda got, ref: _family_vs("limit_controls", family, got, ref, (inf, inf, inf),
+                                       zero_limit=inf)
+    out = {}
+    for family in ("cno", "mwt"):
+        batch = int(_family_cfg(family)["train_batch_size"])
+        g = torch.Generator(device=dev).manual_seed(13)
+        x = torch.randn(batch, *FAMILY_SHAPE, generator=g, device=dev)
+        y = torch.randn(batch, *FAMILY_SHAPE, generator=g, device=dev)
+        xn, yn = norm.preprocess(x[:FAMILY_CMP_BATCH], y[:FAMILY_CMP_BATCH])
+        del x, y
+        model = _family(dev, family)
+        init = {k: t.clone() for k, t in model.state_dict().items()}
+
+        def run(m, ctx=contextlib.nullcontext()):
+            m.load_state_dict(init, strict=True)
+            with ctx:
+                return _family_pass(m, xn, yn)
+
+        ref = _family(dev, family, "float64", init)
+        f64 = run(ref)
+        sound = run(model)
+        kinks = Kinks(family)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            with kinks.record():
+                tf32 = run(model)
+        finally:
+            set_f32_precision()
+        with kinks.replay():
+            same = run(ref)
+        reads = dict(sound=free(sound, f64), tf32_on=free(tf32, f64),
+                     tf32_on_same_sides=free(tf32, same))
+        del tf32, same, ref, kinks
+        if family == "cno":
+            reads["bn_left_out"] = free(run(model, _bn_left_out(model, CONTROL_BN)), f64)
+        row = {k: dict(worst_grad_rel_l2=v["worst_grad_rel_l2"], loss_rel=v["loss_rel"])
+               for k, v in reads.items()}
+        out[f"{family}_f32_free_kinks"] = dict(limit=FAMILY_FREE_KINKS, readings=row)
+        if family == "cno":
+            bf16 = _family(dev, family, "bfloat16", init)
+            reads = dict(sound=free(run(bf16), sound), bn_left_out=free(
+                run(bf16, _bn_left_out(bf16, CONTROL_BN)), sound))
+            bias = CONTROL_BN.replace("batch_norm", "convolution") + ".bias"
+            out["cno_bf16_zero_grad"] = dict(
+                limit=FAMILY_BF16_ZERO_GRAD["cno"], planted_bias=bias,
+                readings={k: dict(worst=max(v["zero_grads"].values()),
+                                  planted_bias=v["zero_grads"][bias]) for k, v in reads.items()})
+            del bf16
+        del model, f64, sound, reads
+        _free()
+    emit(dict(phase="limit_controls", batch=FAMILY_CMP_BATCH, control_bn=CONTROL_BN, **out))
+    fault_kinks = out["cno_f32_free_kinks"]["readings"]["bn_left_out"]["worst_grad_rel_l2"]
+    fault_zero = out["cno_bf16_zero_grad"]["readings"]["bn_left_out"]["planted_bias"]
+    if not (fault_kinks > FAMILY_FREE_KINKS and fault_zero > FAMILY_BF16_ZERO_GRAD["cno"]):
+        raise AssertionError("a planted fault passes its limit: "
+                             f"{fault_kinks}, {fault_zero}")
+
+
+def phase_cno_lrelu(dev, norm) -> dict:
+    """CNO's filtered activation on the card (cno_lrelu): CNO_LRELU_MODEL on
+    the cylinder window, one training forward-backward at CNO_LRELU_BATCH
+    in f32 against a float64 copy of the same weights and batch within
+    F32_LIMITS on the same activation sides (``_f32_vs_f64``: loss,
+    gradients, the activations' biases among them, and running
+    statistics); every kernel count 0. Returns the launch counts."""
+    shapes = (FAMILY_SHAPE, FAMILY_SHAPE)
+    model = build_model(shapes=shapes, device=dev, generator=make_generator(0),
+                        **CNO_LRELU_MODEL)
+    ref = build_model(shapes=shapes, device=dev, **CNO_LRELU_MODEL)
+    ref.load_state_dict(model.state_dict(), strict=True)
+    ref.double()
+    ref.compute_dtype = torch.float64
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(CNO_LRELU_BATCH, *FAMILY_SHAPE, generator=g, device=dev)
+    y = torch.randn(CNO_LRELU_BATCH, *FAMILY_SHAPE, generator=g, device=dev)
+    xn, yn = norm.preprocess(x, y)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = _family_pass(model, xn, yn)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH["cno_lrelu"] = _expect(launches, "the lrelu CNO (cno_lrelu)")
+    biases = [n for n in got[1] if n.endswith("activation.bias")]
+    if not biases:
+        raise AssertionError("cno_lrelu: no filtered activation with a bias")
+    cmp = _f32_vs_f64("cno_lrelu", "cno", "cno_lrelu", model, ref, xn, yn)
+    emit(dict(phase="cno_lrelu", model=CNO_LRELU_MODEL, batch=CNO_LRELU_BATCH,
+              shape=list(FAMILY_SHAPE), parameters=sum(p.numel() for p in model.parameters()),
+              activation_biases=len(biases), launches=launches, vs_reference=dict(
+                  cmp, reference="float64"), forward_backward_s=secs,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              reduced=dict(config="a narrow CNO in the lrelu mode; every shipped config "
+                                  "runs LeakyReLU")))
+    del model, ref, got
     _free()
     return launches
 
@@ -3028,16 +3446,17 @@ def phase_dpot_finetune(dev, run) -> dict:
 
 
 
-def phase_profile(step, x, y, phase: str = "profile") -> None:
-    """torch.profiler over 3 calls of ``step(x, y)`` (training steps, or
-    rollouts): device time by kernel against the host's wall time."""
+def phase_profile(step, x, y, phase: str = "profile", steps: int = PROFILE_STEPS) -> None:
+    """torch.profiler over ``steps`` calls of ``step(x, y)`` (training
+    steps, or rollouts): device time by kernel against the host's wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(steps):
             step(x, y)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3047,7 +3466,8 @@ def phase_profile(step, x, y, phase: str = "profile") -> None:
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in ka
                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    emit(dict(phase=phase, steps=3, wall_ms=wall * 1e3, device_ms=total,
+    emit(dict(phase=phase, steps=steps, reduced=dict(steps=dict(here=steps, uncut=3)),
+              wall_ms=wall * 1e3, device_ms=total,
               idle_share=1 - total / (wall * 1e3),
               kernels=[dict(name=k[:160], ms=ms, count=n) for k, ms, n in rows[:40]]))
 
@@ -3075,6 +3495,7 @@ LOOP_OVERRIDES = {  # key: (value here, shipped value)
     "N_plot_probe": (0, 12),
 }
 LOOP_PROFILE = (10, 19)          # the loop's own iterations traced (utils/profiling)
+RESUME_STEPS = 1                 # each loop resumed this far (the run's time limit)
 LOOP_METRICS_REL = 1e-4          # the sweep on the card vs on the CPU, per metric
 EVAL_METRIC_REL, EVAL_METRIC_ABS, EVAL_SMALL = 5e-2, 1e-3, 1e-2
 
@@ -3101,6 +3522,10 @@ PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
 MODEL_LOOP_STEPS = 12
 MODEL_TEST_MODE = "unseen"
 FAMILY_LOOP_STEPS = 12
+# CNO's loop alone runs 2 steps (the whole run's time limit): a CNO
+# validation of the 54 windows is ≈ 140 TFLOP in full f32; no traced
+# iteration, no StepTimer window
+CNO_LOOP_STEPS = 2
 # the bf16 FNO loop again, on the Arrow tree the converter writes from the
 # same arrays (--use_hf_dataset true): a few steps, exact counts
 ARROW_STEPS = 4
@@ -3128,6 +3553,10 @@ LOOPS = {
     "transolver_loop": dict(config="cylinder/transolver.yaml", dtype=None,
                             steps=FAMILY_LOOP_STEPS, step={}, predict={},
                             eval="transolver_eval", bare="transolver_train_f32"),
+    "cno_loop": dict(config="cylinder/cno.yaml", dtype=None, steps=CNO_LOOP_STEPS,
+                     step={}, predict={}, eval="cno_eval", bare="cno_train_f32"),
+    "mwt_loop": dict(config="cylinder/mwt.yaml", dtype=None, steps=FAMILY_LOOP_STEPS,
+                     step={}, predict={}, eval="mwt_eval", bare="mwt_train_f32"),
 }
 # PyTorch's own defaults of the TF32 switches, which each CLI run starts
 # from, and the full-f32 state the port must leave after it
@@ -3360,8 +3789,8 @@ def loop_trace_summary(path: str) -> dict:
 def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     """python -m realpdebench_tpu_torch train, in this process, for the loop
     ``path``: its steps on numerical data with validation every
-    num_update // 50 steps and a checkpoint at each; then a resume 2 steps
-    further and, for the FNO, a 2-step finetune on real data from its
+    num_update // 50 steps and a checkpoint at each; then a resume
+    RESUME_STEPS further and, for the FNO, a 2-step finetune on real data from its
     checkpoint. Returns the launch counts of these runs."""
     import math
 
@@ -3410,8 +3839,9 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     steps_kept = CheckpointManager(ckpt_dir).all_steps()
     if steps_kept != [steps - val_every, steps]:
         raise AssertionError(f"checkpoints kept: {steps_kept}")
-    trace = loop_trace_summary(f"{prof_dir}/trace.json")
-    if trace["steps"] != min(LOOP_PROFILE[1], steps) - LOOP_PROFILE[0] + 1:
+    traced = min(LOOP_PROFILE[1], steps) - LOOP_PROFILE[0] + 1
+    trace = loop_trace_summary(f"{prof_dir}/trace.json") if traced > 0 else None
+    if trace is not None and trace["steps"] != traced:
         raise AssertionError(f"the trace holds {trace['steps']} steps")
 
     # reload: the checkpoint in a fresh model predicts bit for bit as the
@@ -3452,20 +3882,21 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     del preds, targets, model
     _free()
 
-    # resume 2 steps further from the run's checkpoint directory
+    # resume RESUME_STEPS further from the run's checkpoint directory
     kernels.reset_launches()
     _, _, opt2, hist2 = cli_run(
         train_main, f"the resumed {path}",
-        [*base, "--train_data_type", "numerical", "--num_update", str(steps + 2),
+        [*base, "--train_data_type", "numerical", "--num_update", str(steps + RESUME_STEPS),
          "--resume", ckpt_dir], dataset_class=run.dataset_class)
-    n_val2 = sum(1 for i in (steps + 1, steps + 2) if i % max(1, (steps + 2) // 50) == 0)
-    resume_launches, _ = _check_launches(f"the resumed {path}", loop, 2,
+    end = steps + RESUME_STEPS
+    n_val2 = sum(1 for i in range(steps + 1, end + 1) if i % max(1, end // 50) == 0)
+    resume_launches, _ = _check_launches(f"the resumed {path}", loop, RESUME_STEPS,
                                          n_val2 * val_batches)
     resume = dict(start_iteration=hist2["perf"]["start_iteration"],
                   steps=len(hist2["train_loss"]), optimizer_count=opt2.count,
                   optimizer_count_saved=opt.count, losses=hist2["train_loss"])
     if (resume["start_iteration"], resume["steps"], opt.count, opt2.count) != (
-            steps, 2, steps, steps + 2):
+            steps, RESUME_STEPS, steps, end):
         raise AssertionError(f"resume: {resume}")
     del opt2
     total = {k: launches[k] + resume_launches[k] for k in launches}
@@ -3488,14 +3919,19 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
         total = {k: total[k] + ft_launches[k] for k in total}
 
     perf = hist["perf"]
+    reduced = run.reduced(path)
+    if trace is None:
+        reduced["trace"] = (f"{steps} steps: no iteration traced ({LOOP_PROFILE[0]}-"
+                            f"{LOOP_PROFILE[1]}), no StepTimer window")
     emit(dict(phase=path, config=loop["config"], data=run.data_source(),
-              tree_s=run.tree_s, reduced=run.reduced(path), batch=batch,
+              tree_s=run.tree_s, reduced=reduced, batch=batch,
               test_batch=test_batch, val_windows=len(val_ds),
               train_windows=len(train_ds), val_batches=val_batches,
               validations=n_val, wall_s=wall,
               loop_steps_per_s=perf["loop_steps_per_sec"],
-              step_timer_steps_per_s=perf["steps_per_sec"],
-              step_timer_ms_p50=perf["step_ms_p50"], step_timer_ms_p95=perf["step_ms_p95"],
+              step_timer_steps_per_s=perf.get("steps_per_sec"),
+              step_timer_ms_p50=perf.get("step_ms_p50"),
+              step_timer_ms_p95=perf.get("step_ms_p95"),
               bare_step_steps_per_s=BARE_STEPS_PER_S.get(loop["bare"]),
               validation_s=perf["validation_s"], checkpoint_s=perf["checkpoint_s"],
               batch_assembly_s=perf["batch_assembly_s"],
@@ -3736,15 +4172,38 @@ def loop_and_eval(dev) -> dict:
     return out
 
 
+def family_phases(dev, norm, family: str) -> dict:
+    """A family's step and rollout phases (phases 13b-13e): f32, then bf16
+    but for DPOT's (f32 only). Returns their launch counts by path."""
+    out = {}
+    dtypes = (None,) if family in DPOT_FAMILIES else (None, "bfloat16")
+    for dtype in dtypes:
+        suffix = "" if dtype else "_f32"
+        out[f"{family}_train{suffix}"] = phase_family_train(dev, norm, family, dtype)
+        out[f"{family}_rollout{suffix}"] = phase_family_rollout(dev, norm, family, dtype)
+    return out
+
+
 def main() -> None:
     name = phase_env()
     dev = torch.device("cuda", 0)
-    phase_build()
     if sys.argv[1:] == ["--only-loop"]:
         # iterating on the entry points: the loop, eval and Arrow phases
         # alone, without the summary and result lines
+        phase_build()
         loop_and_eval(dev)
         return
+    norm = gaussian_normalizer()
+    if sys.argv[1:] == ["--limit-controls"]:
+        # two limits' readings against their controls, without the build,
+        # the summary and the result lines
+        phase_limit_controls(dev, norm)
+        return
+    build = BackgroundBuild()
+    by_path = {}
+    for family in BUILD_OVERLAP:
+        by_path.update(family_phases(dev, norm, family))
+    build.finish(list(by_path))
     summary = phase_kernels(dev)
     summary.update(phase_backward(dev))
     adjoint = summary.pop("t_stage_adjoint")
@@ -3758,7 +4217,7 @@ def main() -> None:
     for k, t in phase_geometries(dev).items():
         summary[k]["surrogate"] = t
     summary.update(phase_ta(dev))
-    by_path = {"rollout": phase_slice(dev)}
+    by_path["rollout"] = phase_slice(dev)
     torch.cuda.empty_cache()
     by_path["rollout_f32"] = phase_slice(dev, compute_dtype=None)
     torch.cuda.empty_cache()
@@ -3768,7 +4227,6 @@ def main() -> None:
     torch.cuda.empty_cache()
     by_path["surrogate_fno_train_f32"] = phase_surrogate_fno_train(dev)
     by_path["surrogate_fno_rollout_f32"] = phase_surrogate_fno_rollout(dev)
-    norm = gaussian_normalizer()
     by_path["fsi_train"] = phase_fsi_train(dev, norm)
     torch.cuda.empty_cache()
     by_path["unet_rollout"] = phase_unet_rollout(dev, norm)
@@ -3790,13 +4248,9 @@ def main() -> None:
     by_path["gk_train_f32"] = phase_gk_train(dev, norm, compute_dtype=None)
     _free()
     for family in FAMILIES:
-        for dtype, suffix in ((None, "_f32"), ("bfloat16", "")):
-            by_path[f"{family}_train{suffix}"] = phase_family_train(dev, norm, family, dtype)
-            by_path[f"{family}_rollout{suffix}"] = phase_family_rollout(dev, norm, family,
-                                                                        dtype)
-    for family in DPOT_FAMILIES:
-        by_path[f"{family}_train_f32"] = phase_family_train(dev, norm, family)
-        by_path[f"{family}_rollout_f32"] = phase_family_rollout(dev, norm, family)
+        if family not in BUILD_OVERLAP:
+            by_path.update(family_phases(dev, norm, family))
+    by_path["cno_lrelu"] = phase_cno_lrelu(dev, norm)
     by_path.update(loop_and_eval(dev))
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],

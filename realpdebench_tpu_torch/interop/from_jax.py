@@ -2,7 +2,8 @@
 
 Counterpart of ``realpdebench_tpu/interop/torch_export.py`` (its
 ``export_fno``, ``export_unet``, ``export_galerkin``, ``export_deeponet``,
-``export_transolver`` and ``export_dpot``): the same key names
+``export_transolver``, ``export_dpot``, ``export_cno`` and ``export_mwt``):
+the same key names
 and conventions,
 producing torch tensors that the port's ``load_state_dict(...,
 strict=True)`` takes. Inputs are the JAX ``params`` (and ``batch_stats``)
@@ -42,11 +43,7 @@ def _spectral_layer(sd, spectral, pointwise, bn, stats, *, spec_key, conv_key,
     kern = np.asarray(pointwise["kernel"])
     sd[f"{conv_key}.weight"] = _t(kern.T[:, :, None, None, None])
     sd[f"{conv_key}.bias"] = _t(pointwise["bias"])
-    sd[f"{bn_key}.weight"] = _t(bn["scale"])
-    sd[f"{bn_key}.bias"] = _t(bn["bias"])
-    sd[f"{bn_key}.running_mean"] = _t(stats["mean"])
-    sd[f"{bn_key}.running_var"] = _t(stats["var"])
-    sd[f"{bn_key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    _bn(sd, bn_key, bn, stats)
 
 
 def fno_state_dict(params: dict, batch_stats: dict) -> dict:
@@ -112,11 +109,7 @@ def deeponet_state_dict(params: dict, batch_stats: dict) -> dict:
     for i in range(4):
         key = f"branch.conv{i + 1}"
         _conv(sd, f"{key}.0", br[f"Conv_{i}"])
-        sd[f"{key}.1.weight"] = _t(br[f"BatchNorm_{i}"]["scale"])
-        sd[f"{key}.1.bias"] = _t(br[f"BatchNorm_{i}"]["bias"])
-        sd[f"{key}.1.running_mean"] = _t(bs[f"BatchNorm_{i}"]["mean"])
-        sd[f"{key}.1.running_var"] = _t(bs[f"BatchNorm_{i}"]["var"])
-        sd[f"{key}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        _bn(sd, f"{key}.1", br[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"])
     k0 = np.asarray(br["Dense_0"]["kernel"])             # [spatial·C, 512]
     c = np.asarray(br["Conv_3"]["kernel"]).shape[-1]
     w0 = k0.T.reshape(k0.shape[1], -1, c).transpose(0, 2, 1)
@@ -191,6 +184,100 @@ def dpot_state_dict(params: dict) -> dict:
     _conv(sd, "out_layer.2", net["out_conv1"])
     _conv(sd, "out_layer.4", net["out_conv2"])
     return {f"dpot_model.{k}": v for k, v in sd.items()}
+
+
+def _bn(sd, key, p, stats) -> None:
+    """A BatchNorm's scale, bias and running statistics, and the counter
+    every torch BatchNorm carries."""
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+    sd[f"{key}.running_mean"] = _t(stats["mean"])
+    sd[f"{key}.running_var"] = _t(stats["var"])
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _cno_act(sd, key, p) -> None:
+    """The lrelu mode's bias a channel, which the exporter does not write,
+    under the port's name ``<block>.activation.bias``."""
+    if "act" in p and "bias" in p["act"]:
+        sd[f"{key}.activation.bias"] = _t(p["act"]["bias"])
+
+
+def cno_state_dict(params: dict, batch_stats: dict) -> dict:
+    """JAX CNO3d ``params`` and ``batch_stats`` → CNO3d ``state_dict``: the
+    exporter's keys (its level resnets ``res_{l}_{j}`` at
+    ``res_nets.{l·N_res + j}``, which is the exporter's order at its
+    N_res 1, then ``res_neck_{j}`` by name), plus the lrelu mode's
+    ``<block>.activation.bias``."""
+    sd = {}
+    for name in ("lift", "project"):
+        p = params[name]
+        _conv(sd, f"{name}.inter_CNOBlock.convolution", p["inter"]["convolution"])
+        _cno_act(sd, f"{name}.inter_CNOBlock", p["inter"])
+        _conv(sd, f"{name}.convolution", p["convolution"])
+
+    def block(name, key):
+        p = params[name]
+        _conv(sd, f"{key}.convolution", p["convolution"])
+        if "bn" in p:
+            _bn(sd, f"{key}.batch_norm", p["bn"], batch_stats[name]["bn"])
+        _cno_act(sd, key, p)
+
+    n_layers = 0
+    while f"encoder_{n_layers}" in params:
+        n_layers += 1
+    for i in range(n_layers):
+        block(f"encoder_{i}", f"encoder.{i}")
+        block(f"decoder_{i}", f"decoder.{i}")
+        if f"decoder_inv_{i}" in params:
+            block(f"decoder_inv_{i}", f"decoder_inv.{i}")
+    for i in range(n_layers + 1):
+        block(f"ed_expansion_{i}", f"ED_expansion.{i}")
+
+    def res(name, key):
+        p = params[name]
+        for k in ("1", "2"):
+            _conv(sd, f"{key}.convolution{k}", p[f"convolution{k}"])
+            if f"bn{k}" in p:
+                _bn(sd, f"{key}.batch_norm{k}", p[f"bn{k}"], batch_stats[name][f"bn{k}"])
+        _cno_act(sd, key, p)
+
+    n_res = 0
+    while f"res_0_{n_res}" in params:
+        n_res += 1
+    for l in range(n_layers):
+        for j in range(n_res):
+            res(f"res_{l}_{j}", f"res_nets.{l * n_res + j}")
+    j = 0
+    while f"res_neck_{j}" in params:
+        res(f"res_neck_{j}", f"res_nets.{n_layers * n_res + j}")
+        j += 1
+    return sd
+
+
+def mwt_state_dict(params: dict) -> dict:
+    """JAX MWT3d ``params`` → MWT3d ``state_dict`` (``MWT_CZ.i`` with its
+    Fourier kernel ``A`` (complex ``weights1..4``, ``Lo``), conv kernels
+    ``B`` and ``C`` (``conv.0``, ``Lo``) and ``T0``; ``Lk``, ``Lc0``,
+    ``Lc1``)."""
+    sd = {}
+    for k in ("Lk", "Lc0", "Lc1"):
+        _dense(sd, k, params[k])
+    i = 0
+    while f"cz_{i}" in params:
+        cz, pre = params[f"cz_{i}"], f"MWT_CZ.{i}"
+        w = (np.asarray(cz["A"]["w_real"]).astype(np.complex64)
+             + 1j * np.asarray(cz["A"]["w_imag"]).astype(np.complex64))
+        w = w.transpose(0, 4, 5, 1, 2, 3)
+        for k in range(4):
+            sd[f"{pre}.A.weights{k + 1}"] = _t(w[k])
+        _dense(sd, f"{pre}.A.Lo", cz["A"]["Lo"])
+        for mod in ("B", "C"):
+            _conv(sd, f"{pre}.{mod}.conv.0", cz[mod]["conv"])
+            _dense(sd, f"{pre}.{mod}.Lo", cz[mod]["Lo"])
+        _dense(sd, f"{pre}.T0", cz["T0"])
+        i += 1
+    return sd
 
 
 def _dense(sd, key, p) -> None:

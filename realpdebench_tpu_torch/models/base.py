@@ -98,10 +98,11 @@ def layer_norm(m: nn.LayerNorm, x, dt):
 
 
 def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x, training: bool, dt,
-               channel_dim: int = -1):
+               channel_dim: int = -1, update_stats: bool = True):
     """flax BatchNorm over every axis of x but ``channel_dim``: float32
     statistics (the biased variance, as E[x²] − E[x]²); in training the
-    running statistics move by 0.1·(batch − running)."""
+    running statistics move by 0.1·(batch − running), unless
+    ``update_stats`` is false (a rematerialised block's recompute)."""
     xf = x.to(stats_dtype(dt))
     cd = channel_dim % x.dim()
     shape = [1] * x.dim()
@@ -110,9 +111,10 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x, training: bool, dt,
         dims = tuple(d for d in range(x.dim()) if d != cd)
         mean = xf.mean(dim=dims)
         var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            for run, new in ((bn.running_mean, mean), (bn.running_var, var)):
-                run.mul_(BN_MOMENTUM).add_(new, alpha=1 - BN_MOMENTUM)
+        if update_stats:
+            with torch.no_grad():
+                for run, new in ((bn.running_mean, mean), (bn.running_var, var)):
+                    run.mul_(BN_MOMENTUM).add_(new, alpha=1 - BN_MOMENTUM)
     else:
         mean, var = bn.running_mean, bn.running_var
     scale = torch.rsqrt(var + bn.eps) * bn.weight

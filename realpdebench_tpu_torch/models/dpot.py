@@ -25,7 +25,7 @@ convolutions and the stride-p transposed convolution as matrix products
 (cuBLAS); the patch embedding is a stride-p Conv2d (cuDNN). The FFTs are
 ``torch.fft`` (cuFFT on the card). JAX's default route computes them as
 dense DFT products, a TPU sharding concern; the functions are the same,
-the inverse ones taken as that route defines them (``irfftn``).
+the inverse ones taken as that route defines them (``ops/spectral.irfftn``).
 
 Precision: ``compute_dtype`` is the dtype of AFNO's mode products and of
 the blocks' MLPs, as in JAX; the embedding, the time aggregation, the
@@ -58,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from realpdebench_tpu_torch.models.base import Model, lecun_normal_, linear, mse, stats_dtype
 from realpdebench_tpu_torch.ops.activations import gelu
+from realpdebench_tpu_torch.ops.spectral import irfftn
 
 ACT = {
     "gelu": gelu,
@@ -67,27 +68,6 @@ ACT = {
     "sigmoid": torch.sigmoid,
     "leaky_relu": lambda x: F.leaky_relu(x, 0.1),
 }
-
-
-def irfftn(z: torch.Tensor, s, dim, norm=None) -> torch.Tensor:
-    """``torch.fft.irfftn(z, s, dim, norm)`` as the JAX package defines it
-    for any half spectrum (its dense-DFT route, ``ops/spectral.py``): a
-    complex inverse transform over every axis but the last, then the real
-    one over the last, where the imaginary parts of the zero and (even
-    length) Nyquist frequencies drop out. cuFFT's multi-axis inverse leaves
-    a spectrum that is not Hermitian on those frequencies undefined (its
-    f32 and f64 plans disagree by 1e-2 relative on DPOT's resize), and the
-    spectra here are not: the resize copies and zero-pads them, and the
-    mixer's MLP writes them."""
-    dim = [d % z.dim() for d in dim]
-    y = torch.fft.ifftn(z, s=s[:-1], dim=dim[:-1], norm=norm)
-    d, n = dim[-1], s[-1]
-    keep = torch.ones(y.shape[d], dtype=y.real.dtype, device=y.device)
-    keep[0] = 0
-    if n % 2 == 0 and n // 2 < y.shape[d]:
-        keep[n // 2] = 0
-    keep = keep.view(-1, *([1] * (y.dim() - d - 1)))
-    return torch.fft.irfft(torch.complex(y.real, y.imag * keep), n=n, dim=d, norm=norm)
 
 
 def fft_resize_2d(x: torch.Tensor, out_size) -> torch.Tensor:

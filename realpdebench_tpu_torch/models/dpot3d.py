@@ -29,9 +29,9 @@ from realpdebench_tpu_torch.models.dpot import (
     _linspace,
     _mix,
     group_norm,
-    irfftn,
     pointwise,
 )
+from realpdebench_tpu_torch.ops.spectral import irfftn
 
 
 class AFNO3D(AFNO2D):

@@ -14,7 +14,7 @@ from realpdebench_tpu_torch.models.base import Model
 from realpdebench_tpu_torch.utils.misc import set_f32_precision
 
 # families the JAX registry builds that the port has not reached yet
-_NOT_PORTED = ("mwt", "cno", "wdno", "dmd")
+_NOT_PORTED = ("wdno", "dmd")
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
@@ -39,11 +39,12 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
     Pass ``train_dataset`` (shapes probed from item 0) or explicit
     ``shapes=(shape_in, shape_out)``. The remaining kwargs are the config
     namespace of the JAX registry. ``remat`` is honoured for ``unet``
-    (default true, as in the JAX registry: its ResnetBlocks are
+    and ``cno`` (default true, as in the JAX registry: their blocks are
     rematerialised in the backward) and ``dpot`` (default false, as
     there); ``fno`` and ``galerkin_transformer``
     accept it and ignore it: their f32 steps fit an 80 GB card at the
-    shipped batches. The TPU-only switches (``use_pallas``,
+    shipped batches; ``mwt`` ignores it, as the JAX registry does. The
+    TPU-only switches (``use_pallas``,
     ``pallas_interpret``, ``seq_mesh``) are accepted and have no effect: on
     a CUDA device the model always runs the kernels.
 
@@ -151,6 +152,47 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             time_agg=kwargs.get("time_agg", "exp_mlp"), n_cls=int(kwargs.get("n_cls", 1)),
             compute_dtype=compute_dtype, remat=bool(kwargs.get("remat", False)),
             device=resolve_device(device), generator=generator)
+    if model_name == "mwt":
+        from realpdebench_tpu_torch.models.mwt import MWT3d
+
+        # the JAX registry's keys and defaults; ``remat`` is ignored there
+        # and here
+        return MWT3d(
+            ich=kwargs.get("ich", shape_in[-1]), shape_in=shape_in, shape_out=shape_out, k=kwargs.get("k", 3),
+            alpha=kwargs.get("alpha", 8), c=kwargs.get("c", 3), nCZ=kwargs.get("nCZ", 4),
+            L=kwargs.get("L", 0), base=kwargs.get("base", "legendre"),
+            compute_dtype=compute_dtype, device=resolve_device(device), generator=generator)
+    if model_name == "cno":
+        from realpdebench_tpu_torch.models.cno import CNO3d
+
+        t_in, t_out = shape_in[0], shape_out[0]
+        if t_out > t_in and t_out % t_in == 0:
+            out_dim_mult = t_out // t_in
+        elif t_out == t_in:
+            out_dim_mult = 1
+        else:
+            raise ValueError(f"T_out {t_out} incompatible with T_in {t_in}")
+
+        def _int(key, default):
+            # the shipped YAMLs carry trailing commas ("N_res: 1," reads as a
+            # string): those keys take the model's default, as in the JAX
+            # registry (so N_res_neck is 6 where the YAML shows 8)
+            try:
+                return int(kwargs.get(key, default))
+            except (TypeError, ValueError):
+                return default
+
+        # the JAX registry's keys and defaults; in_size is W (shape_in[2]),
+        # which only the lrelu mode's geometry reads; remat on by default
+        return CNO3d(
+            in_dim=shape_in[-1], out_dim=shape_out[-1], out_dim_mult=out_dim_mult,
+            in_size=shape_in[2], N_layers=kwargs["N_layers"], N_res=_int("N_res", 1),
+            N_res_neck=_int("N_res_neck", 6),
+            channel_multiplier=_int("channel_multiplier", 32),
+            latent_lift_proj_dim=_int("latent_lift_proj_dim", 64),
+            activation=kwargs.get("activation", "LeakyReLU"), shape_in=shape_in,
+            shape_out=shape_out, remat=bool(kwargs.get("remat", True)),
+            compute_dtype=compute_dtype, device=resolve_device(device), generator=generator)
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {model_name!r} is not ported to PyTorch yet; ROADMAP.md "

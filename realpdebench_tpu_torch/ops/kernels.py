@@ -415,9 +415,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfno_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float]:
+def build(nice: int = 0) -> tuple[Path, float]:
     """Compile csrc/*.cu into the library unless it is built already: one
-    nvcc per source, all at once, then one link. Returns (path, seconds
+    nvcc per source, all at once, then one link; ``nice`` > 0 runs them at
+    that niceness (through ``nice``, where the host has it), so that work
+    meanwhile in the calling process keeps its core. Returns (path, seconds
     spent; 0.0 when it was there). The compiler's per-kernel register and
     shared-memory report goes to stderr."""
     out = library_path()
@@ -425,12 +427,14 @@ def build() -> tuple[Path, float]:
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    niced = shutil.which("nice") if nice > 0 else None
+    prefix = [niced, "-n", str(nice)] if niced else []
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         jobs = []
         for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmpdir) / f"{src.stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            cmd = [*prefix, nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         failed = []

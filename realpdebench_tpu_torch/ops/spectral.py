@@ -2,10 +2,13 @@
 
 Counterpart of ``realpdebench_tpu/ops/spectral.py``: the truncated DFT
 factors that the fused kernels contract against, the grid-coordinate
-features, and the truncated spectral convolution in its three forms: the
+features, the truncated spectral convolution in its three forms: the
 complex DFT matmuls (``dft_c64``, the reference of the fused FNO layer), the
 low-precision DFT with the complex arithmetic unrolled into real matmuls
-(``dft``, the Galerkin decoder's), and rfftn/irfftn (``fft``). Activations
+(``dft``, the Galerkin decoder's and MWT's), and rfftn/irfftn (``fft``); and
+``rfftn``/``irfftn``, the real transforms as the JAX package defines them
+(DPOT's and MWT's, the counterpart of its ``rfftn_planes`` /
+``irfftn_planes``). Activations
 are channels-last ``[B, T, H, W, C]``; corner weights are channels-minor
 ``[4, m1, m2, m3, C_in, C_out]`` in the reference corner order
 (+T+H, -T+H, +T-H, -T-H).
@@ -17,6 +20,37 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+
+def rfftn(x: torch.Tensor, dim, norm=None) -> torch.Tensor:
+    """The real forward transform over ``dim`` (the last the half-spectrum
+    axis), complex in the precision of ``x`` (at least float32): the JAX
+    package's ``rfftn_planes`` as one complex tensor."""
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.float()
+    return torch.fft.rfftn(x, dim=dim, norm=norm)
+
+
+def irfftn(z: torch.Tensor, s, dim, norm=None) -> torch.Tensor:
+    """``torch.fft.irfftn(z, s, dim, norm)`` as the JAX package defines it
+    for any half spectrum (``irfftn_planes``, its dense-DFT route): a
+    complex inverse transform over every axis but the last, then the real
+    one over the last, where the imaginary parts of the zero and (even
+    length) Nyquist frequencies drop out. cuFFT's multi-axis inverse leaves
+    a spectrum that is not Hermitian on those frequencies undefined (its
+    f32 and f64 plans disagree by 1e-2 relative on DPOT's resize), and the
+    spectra here are not: DPOT's resize copies and zero-pads them, its
+    mixer's MLP writes them, and MWT's deep levels write overlapping
+    corners."""
+    dim = [d % z.dim() for d in dim]
+    y = torch.fft.ifftn(z, s=s[:-1], dim=dim[:-1], norm=norm)
+    d, n = dim[-1], s[-1]
+    keep = torch.ones(y.shape[d], dtype=y.real.dtype, device=y.device)
+    keep[0] = 0
+    if n % 2 == 0 and n // 2 < y.shape[d]:
+        keep[n // 2] = 0
+    keep = keep.view(-1, *([1] * (y.dim() - d - 1)))
+    return torch.fft.irfft(torch.complex(y.real, y.imag * keep), n=n, dim=d, norm=norm)
 
 
 @lru_cache(maxsize=64)
@@ -159,8 +193,9 @@ def truncated_spectral_conv3d_dft_lowp(x, w_real, w_imag,
     B, T, H, W, Cin = x.shape
     _, m1, m2, m3, _, Cout = w_real.shape
     dt = compute_dtype
+    acc = torch.promote_types(dt, torch.float32)   # float64 in a float64 copy
     f = _lowp_factors(T, H, W, m1, m2, m3, dt, x.device)
-    mm = lambda a, b: torch.matmul(a, b.to(dt)).float()
+    mm = lambda a, b: torch.matmul(a, b.to(dt)).to(acc)
 
     # W stage (real input): one product against [cos | -sin]
     x2 = mm(f["w"], x)                                   # [B,T,H,2m3,Ci]
@@ -179,7 +214,7 @@ def truncated_spectral_conv3d_dft_lowp(x, w_real, w_imag,
 
     cr, ci = corners(zr), corners(zi)
     wr, wi = w_real.to(dt), w_imag.to(dt)
-    wmm = lambda a, w: torch.matmul(a, w).float()
+    wmm = lambda a, w: torch.matmul(a, w).to(acc)
     outr = wmm(cr, wr) - wmm(ci, wi)                     # [4,m1,m2,m3,B,Co]
     outi = wmm(cr, wi) + wmm(ci, wr)
 

@@ -1,8 +1,8 @@
 """PyTorch port vs JAX package: the config system, on the CPU.
 
-The port's 42 configs (fno, unet, galerkin_transformer, deeponet,
-transolver, trainsolver, dpot_s, dpot_l × five scenarios, and the
-combustion surrogate's fno and unet) are the JAX package's files byte for
+The port's 52 configs (fno, unet, galerkin_transformer, deeponet,
+transolver, trainsolver, dpot_s, dpot_l, cno, mwt × five scenarios, and
+the combustion surrogate's fno and unet) are the JAX package's files byte for
 byte; ``merge_config`` gives the JAX
 package's dict for the same argv (the port adds ``device``); config names
 resolve inside the port's own tree; ``--key value`` overrides are read as
@@ -18,7 +18,7 @@ from realpdebench_tpu_torch import config as tc
 
 SCENARIOS = ("combustion", "controlled_cylinder", "cylinder", "foil", "fsi")
 MODELS = ("fno", "unet", "galerkin_transformer", "deeponet", "transolver", "trainsolver",
-          "dpot_s", "dpot_l")
+          "dpot_s", "dpot_l", "cno", "mwt")
 NAMES = [f"{s}/{m}.yaml" for s in SCENARIOS for m in MODELS] + [
     f"combustion/surrogate_model/{m}.yaml" for m in ("fno", "unet")]
 JAX_CONFIGS = os.path.join(os.path.dirname(jc.__file__), "configs")

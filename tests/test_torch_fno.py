@@ -137,7 +137,7 @@ def test_build_model_takes_jax_registry_kwargs():
     assert {k: tuple(t.shape) for k, t in sd.items()} == {
         k: np.shape(a) for k, a in ref.items()}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(shapes=(SI, SO), model_name="mwt", device="cpu")
+        build_model(shapes=(SI, SO), model_name="wdno", device="cpu")
     with pytest.raises(ValueError, match="not supported"):
         build_model(shapes=(SI, SO), model_name="nope", device="cpu")
 

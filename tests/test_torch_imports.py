@@ -3,8 +3,8 @@
 and DPOT among them) loads neither JAX nor the JAX package, nor the data
 layer's optional packages (datasets, pyarrow, huggingface_hub, h5py,
 matplotlib), and running it on the CPU (the FNO, the UNet, the Galerkin
-Transformer, DeepONet, Transolver and DPOT) never builds or loads the CUDA
-kernels. Checked in a fresh
+Transformer, DeepONet, Transolver, DPOT, CNO in both activation modes and
+MWT) never builds or loads the CUDA kernels. Checked in a fresh
 interpreter, since this test process has both packages loaded."""
 
 import os
@@ -33,7 +33,8 @@ _SCRIPT = textwrap.dedent("""
     for n in ("data.hf_datasets", "data.hf_download", "tools.convert_hdf5_to_hf",
               "eval.plots", "eval.probes", "data.surrogate", "train.surrogate",
               "tools.generate_surrogate_data", "tools.numerical_real_compare",
-              "models.dpot", "models.dpot3d"):
+              "models.dpot", "models.dpot3d", "models.cno", "models.mwt",
+              "ops.filtered_lrelu", "ops.multiwavelet"):
         assert pkg.__name__ + "." + n in names, n
 
     def refuse_build():
@@ -90,6 +91,21 @@ _SCRIPT = textwrap.dedent("""
         torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3))
     assert pred.shape == (1, 2, 8, 8, 3) and bool(torch.isfinite(pred).all())
     dp.loss(torch.ones(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3)).backward()
+    for act in ("LeakyReLU", "lrelu"):
+        cno = build_model(shapes=((2, 8, 8, 3), (2, 8, 8, 3)), model_name="cno",
+                          N_layers=1, N_res_neck=1, channel_multiplier=4,
+                          latent_lift_proj_dim=4, activation=act, device="cpu",
+                          generator=make_generator(0))
+        pred, _, _ = make_rollout_fn(cno, IdentityNormalizer(), 1)(
+            torch.zeros(1, 2, 8, 8, 3), torch.zeros(1, 2, 8, 8, 3))
+        assert pred.shape == (1, 2, 8, 8, 3) and bool(torch.isfinite(pred).all())
+        cno.loss(torch.ones(2, 2, 8, 8, 3), torch.zeros(2, 2, 8, 8, 3)).backward()
+    mwt = build_model(shapes=((2, 8, 16, 3), (2, 8, 16, 3)), model_name="mwt", k=2,
+                      alpha=2, c=1, nCZ=1, device="cpu", generator=make_generator(0))
+    pred, _, _ = make_rollout_fn(mwt, IdentityNormalizer(), 1)(
+        torch.zeros(1, 2, 8, 16, 3), torch.zeros(1, 2, 8, 16, 3))
+    assert pred.shape == (1, 2, 8, 16, 3) and bool(torch.isfinite(pred).all())
+    mwt.loss(torch.ones(1, 2, 8, 16, 3), torch.zeros(1, 2, 8, 16, 3)).backward()
     assert kernels.library.cache_info().currsize == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     assert len(names) >= 21, names

@@ -1,5 +1,5 @@
 """DPOT's spectral resize on the card: cuFFT's multi-axis inverse
-(``torch.fft.irfft2``) against ``models.dpot.irfftn`` (the inverse as the
+(``torch.fft.irfft2``) against ``ops.spectral.irfftn`` (the inverse as the
 JAX package's dense-DFT route defines it), each in float32 against the
 same computation in float64, on cylinder-sized frames (2 windows of 20
 frames × 3 channels at 64x128, resized to DPOT's 128x128 and back).
@@ -15,11 +15,11 @@ import json
 
 import torch
 
-from realpdebench_tpu_torch.models import dpot
+from realpdebench_tpu_torch.ops import spectral
 
 
 def resize(x, out_size, inverse):
-    """``dpot.fft_resize_2d`` with the inverse transform ``inverse(z, s)``."""
+    """``models.dpot.fft_resize_2d`` with the inverse transform ``inverse(z, s)``."""
     H, W = x.shape[1], x.shape[2]
     Ho, Wo = out_size
     f = torch.fft.rfft2(x.movedim(-1, 1))
@@ -34,7 +34,7 @@ def resize(x, out_size, inverse):
 
 INVERSES = {
     "torch.fft.irfft2": lambda z, s: torch.fft.irfft2(z, s=s),
-    "dpot.irfftn": lambda z, s: dpot.irfftn(z, s, (-2, -1)),
+    "spectral.irfftn": lambda z, s: spectral.irfftn(z, s, (-2, -1)),
 }
 
 
