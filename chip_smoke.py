@@ -119,7 +119,10 @@ JSON line each; any failure raises (non-zero exit, no result line):
                launches them at (B 12 × 8192, 2048, 512 and the mid block's
                512): against the twin, bit-equal, queued time and bound;
                and the tf32 variants at the surrogate UNet's levels (B 2 ×
-               16384, 4096 and the mid block's 4096 sites).
+               16384, 4096 and the mid block's 4096 sites); and both
+               variants at WDNO's padded coefficient T (geometry wdno_t12:
+               B 16 × 2048 and 512 sites at T 12, the cylinder's; wdno_t8:
+               B 16 × 2048 at T 8, controlled_cylinder's).
   9. unet_rollout  the cylinder UNet3d (configs/cylinder/unet.yaml: dim_mults
                1/2/4, bf16 compute, seeded random weights) rolled out 5
                steps at eval batch 12 through make_rollout_fn with a
@@ -158,6 +161,23 @@ JSON line each; any failure raises (non-zero exit, no result line):
                counts (tf32), the loss and every gradient within 1e-5 /
                1e-4 of the plain f32 step at batch 1, two passes bit-equal,
                steps/s, peak memory.
+ 10c. wdno_train_f32, wdno_sample_f32, wdno_train, wdno_sample  WDNO as
+               configs/cylinder/wdno.yaml ships it (dim 256, dim_mults 1/2,
+               bior1.1, sigmoid schedule over 1000 steps, DDIM 10 at eta
+               1, clip 1.0, remat on) on the 20x64x128x3 windows (48
+               channels on the 12x32x64 coefficient grid), its denoiser in
+               f32 as shipped and in bf16: the loss and every gradient
+               against the plain f32 step from the same weights and the same
+               injected t and noise at batch 4 (f32 1e-5 / 1e-4, bf16 1e-2
+               / 1e-1), then one counted step at batch 16 (6 TA forwards
+               and 6 backwards, tf32 or mma) and, in f32, a timed window of
+               2 steps and peak memory; one counted DDIM sample at batch 16
+               (60 TA forwards), timed in frames/s (f32), and a sample at
+               batch 2 against the plain f32 sample on the same injected
+               draws, both under cudnn.deterministic (WDNO_F32_SAMPLE,
+               WDNO_BF16_SAMPLE: the first step multiplies the denoiser's
+               rounding by 1825) with its first forward alone at the UNet
+               rollout's limits.
  11. gk_scores the Galerkin scores kernel against its twin at the cylinder
                width (B 16, N 20·64·128 = 163840 tokens, h 4, d 64, in the
                q/k/v Dense's [B, N, h·d] layout), in float32 and bfloat16,
@@ -285,6 +305,22 @@ JSON line each; any failure raises (non-zero exit, no result line):
                loop runs 2 steps (CNO_LOOP_STEPS: a CNO validation of the
                54 windows is ≈ 140 TFLOP in full f32) and a resume to 3:
                no traced iteration, no StepTimer window.
+ 17b'. wdno_loop, wdno_eval, dmd_eval  configs/cylinder/wdno.yaml in its
+               shipped f32 through train on the same tree: 1 step with its
+               one validation sweep (54 windows, each a 10-step DDIM
+               sample) at test batch 14, the rescaler computed on the card
+               from the numerical train split and its cache read back, the
+               checkpoint reloaded sampling bit for bit from reseeded
+               generators under cudnn.deterministic, the 13 metrics of those samples within 1e-4 of
+               the CPU's; eval over the 14 unseen windows at
+               N_autoregressive 1: exact counts (60 tf32 TA forwards a
+               batch); 4 windows through the kernels and the plain f32
+               path from reseeded generators (the loops' eval checks on
+               the metrics, the predictions within 1e-4 relative L2, the
+               kernels' metrics within 1e-4 of the CPU's); then eval with configs/cylinder/dmd.yaml
+               (the host DMD, no checkpoint, the host rollout): every
+               kernel count 0, the 13 metrics and the normalized MSE within
+               1e-4 of the same eval on the CPU.
 Every train and eval run of phases 14-18 starts from PyTorch's default TF32
 switches (cudnn's on) and must leave them full f32 (C1).
  17b. dpot_finetune  python -m realpdebench_tpu_torch train --is_finetune
@@ -435,7 +471,7 @@ GEOMETRIES = (("combustion", 64, (4, 16, 16), SHAPE_IN[:3], SHAPE_OUT[-1], GEO_B
 FSI_MODEL = dict(model_name="fno", modes1=4, modes2=16, modes3=16, n_layers=4, width=128)
 FSI_BATCH, FSI_CMP_BATCH = 32, 2
 FSI_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
-FSI_WINDOWS, FSI_WINDOW_STEPS = 2, 2
+FSI_WINDOWS, FSI_WINDOW_STEPS = 1, 2   # one window: the whole run's time limit
 # per-variant launches of each path that launches variants, for the
 # summary line (the other paths launch none)
 VARIANTS_BY_PATH = {}
@@ -465,7 +501,7 @@ UNET_TRAIN_CFG = dict(lr=1e-4, scheduler="cosine", num_update=10000,
 UNET_WINDOW_STEPS = 5
 # the bf16 step's timing windows and the rollout's timed repeats, cut to
 # the whole run's time limit
-UNET_WINDOWS, UNET_ROLLOUTS = 2, 2
+UNET_WINDOWS, UNET_ROLLOUTS = 1, 1
 # temporal attentions per forward at dim_mults (1, 2, 4): init, 3 down, mid, 3 up
 UNET_TA_PER_FORWARD = 8
 # bf16 kernels vs the f32 plain path (TF32 off), fixed before the first
@@ -497,7 +533,7 @@ GK_MODEL = dict(model_name="galerkin_transformer", n_hidden=256, num_encoder_lay
 GK_BATCH, GK_STEPS, GK_ROLLOUTS = 16, 1, 4      # rollouts timed: the run's time limit
 GK_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
 GK_WINDOW_STEPS = 3
-GK_WINDOWS = 2       # timing windows: the whole run's time limit
+GK_WINDOWS = 1       # timing windows: the whole run's time limit
 GK_DROPOUT_SEED = 11
 # the scores kernel at the encoder's width: (B, N, h, d)
 GK_SCORES_SHAPE = (GK_BATCH, GK_SHAPE[0] * GK_SHAPE[1] * GK_SHAPE[2], GK_MODEL["n_head"],
@@ -531,7 +567,7 @@ FAMILY_SHAPE = (20, 64, 128, 3)
 FAMILY_CMP_BATCH, FAMILY_CHUNK = 2, 8
 FAMILY_DROPOUT_SEED = 12
 FAMILY_WINDOWS = (1, 3)          # (windows, steps a window)
-FAMILY_ROLLOUTS = 2  # rollouts timed (the whole run's time limit)
+FAMILY_ROLLOUTS = 1  # rollouts timed (the whole run's time limit)
 FAMILY_F32_ROLLOUT = (1e-4, 1e-4)
 FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2 = TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2
 # DeepONet's branch in bf16 (fixed before the first chip run): a bf16
@@ -631,6 +667,38 @@ SURROGATE_SIMS, SURROGATE_LOOP_STEPS = 3, 50
 # frames): level 0 (init, down 0, up 1), level 1 (down 1, up 0) and the mid
 # block, at its batch 2
 SURROGATE_TA_LEVELS = (("level0", 128 * 128), ("level1", 64 * 64), ("mid", 64 * 64))
+
+# WDNO as shipped (configs/cylinder/wdno.yaml: dim 256, dim_mults 1/2,
+# bior1.1, the sigmoid schedule over 1000 steps, DDIM 10 steps at eta 1,
+# batch 16, lr 5e-5, clip 1.0, f32, remat on) on the 20x64x128x3 windows:
+# the window pair becomes 48 channels (8 subbands x 6) on the padded
+# coefficient grid 12x32x64, where the denoiser's temporal attention runs at
+# T 12 over 2048 sites (level 0) and 512 (level 1 and mid); 6 TA calls a
+# forward (init, 2 down, mid, 2 up), 10 forwards a sample
+WDNO_CONFIG = "cylinder/wdno.yaml"
+WDNO_SHAPE = (20, 64, 128, 3)
+WDNO_BATCH = 16
+WDNO_TA_PER_FORWARD, WDNO_SAMPLE_STEPS = 6, 10
+WDNO_CMP_BATCH = 4          # the step's comparison: the plain f32 step keeps every activation
+WDNO_SAMPLE_CMP_BATCH = 2   # the samples' comparison
+WDNO_WINDOW_STEPS = 2       # one timed window (the whole run's time limit)
+# limits fixed before the first run. A step: the UNet's (f32 1e-5 / 1e-4;
+# bf16 1e-2 / 1e-1). A sample against the plain f32 sample on the same
+# draws: the first DDIM step multiplies the denoiser's rounding by
+# sqrt(1/abar - 1) = 1825 (t 999) before the clip to +-1; on the CPU
+# (tools/torch_wdno_precision.py, dims 64 and 256) an f32 sample sits
+# 6.0e-6-1.6e-5 (relative L2) and 1.9e-5-1.30e-4 (max|d|/max|ref|) from its
+# float64 replay, the first forward alone 1.7-2.5e-6; two f32 paths may sit
+# twice that apart: relative L2 1e-4, max|d|/max|ref| 5e-4, the first
+# forward at UNET_F32_ROLLOUT. bf16 against f32 there: 2.35-2.55e-2
+# relative L2, 0.085-0.140 max: 5e-2, 3e-1
+WDNO_F32_SAMPLE = (1e-4, 5e-4)
+WDNO_BF16_SAMPLE = (5e-2, 3e-1)
+# the TA kernels at WDNO's T (ta_level, geometry wdno): cylinder's T 12 at
+# both site counts, and controlled_cylinder's 5 coefficient frames padded to
+# T 8 (dim_mults 1/2/4) at its level 0, batch 16
+WDNO_TA_LEVELS = (("level0", 32 * 64), ("level1", 16 * 32))
+WDNO_T8_LEVELS = (("level0", 32 * 64),)
 
 # published H100 SXM peaks (dense, 700 W): HBM, and the operations of a
 # bf16 row on the tensor cores, of an f32 row on the FP32 pipes, and of the
@@ -1701,18 +1769,26 @@ def phase_ta(dev) -> dict:
     surrogate = phase_ta_levels(dev, 2, SURROGATE_TA_LEVELS, (torch.float32,), "surrogate")
     for n, levels in zip(("ta_fwd", "ta_bwd"), surrogate):
         summary[n]["tf32"]["surrogate_levels"] = levels["float32"]
+    for key, levels, T in (("wdno_levels", WDNO_TA_LEVELS, 12),
+                           ("wdno_t8_levels", WDNO_T8_LEVELS, 8)):
+        wdno = phase_ta_levels(dev, WDNO_BATCH, levels, geometry=f"wdno_t{T}", T=T)
+        for n, by_dtype in zip(("ta_fwd", "ta_bwd"), wdno):
+            summary[n][key] = by_dtype["bfloat16"]
+            summary[n]["tf32"][key] = by_dtype["float32"]
     return summary
 
 
 def phase_ta_levels(dev, B=TA_SHAPE[0], levels=TA_LEVELS,
-                    dtypes=(torch.float32, torch.bfloat16), geometry="cylinder") -> tuple:
+                    dtypes=(torch.float32, torch.bfloat16), geometry="cylinder",
+                    T=TA_SHAPE[2]) -> tuple:
     """TA forward's and backward's tensor-core variants (mma in bf16, tf32
     in f32) at the site counts of every level the UNet step launches them
-    at (the cylinder's TA_LEVELS at batch 12, or the surrogate's
-    SURROGATE_TA_LEVELS at batch 2): against the twin, two calls bit-equal,
-    the device time of queued launches beside the bound; returns ({dtype:
-    {level: (ms, bound_ms)}} of the forward, the same of the backward)."""
-    _, _, T, h, d = TA_SHAPE
+    at (the cylinder's TA_LEVELS at batch 12, the surrogate's
+    SURROGATE_TA_LEVELS at batch 2, or WDNO's at T 12 and 8, batch 16):
+    against the twin, two calls bit-equal, the device time of queued
+    launches beside the bound; returns ({dtype: {level: (ms, bound_ms)}} of
+    the forward, the same of the backward)."""
+    _, _, _, h, d = TA_SHAPE
     fwd_out, out = {}, {}
     for dtype in dtypes:
         tc = "mma" if dtype == torch.bfloat16 else "tf32"
@@ -2000,8 +2076,10 @@ def phase_unet_train(dev, norm, compute_dtype="bfloat16") -> dict:
     del rep
     windows, window_steps = (UNET_WINDOWS, UNET_WINDOW_STEPS) if compute_dtype \
         else UNET_F32_WINDOWS
-    step(x, y)
-    det_rate, _ = _steps_per_s(step, x, y, window_steps)
+    det_rate = None
+    if compute_dtype:   # the f32 step's is not timed: the whole run's time limit
+        step(x, y)
+        det_rate, _ = _steps_per_s(step, x, y, window_steps)
     torch.backends.cudnn.deterministic = False
 
     for _ in range(WARMUP):
@@ -2030,6 +2108,173 @@ def phase_unet_train(dev, norm, compute_dtype="bfloat16") -> dict:
               peak_mem_first_step_gb=first_peak,
               peak_mem_with_plain_step_gb=ref_peak, cudnn_tf32_on=tf32_on, reduced=reduced))
     phase_profile(step, x, y, "unet_profile" if compute_dtype else "unet_f32_profile")
+    return launches
+
+
+def _wdno(dev, compute_dtype=None, **kw):
+    """The shipped cylinder WDNO (rescaler ones: no dataset), its denoiser
+    in ``compute_dtype`` (None: f32, as shipped)."""
+    from realpdebench_tpu_torch.config import load_config
+
+    cfg = {**load_config(WDNO_CONFIG).to_dict(), "compute_dtype": compute_dtype, **kw}
+    return build_model(shapes=(WDNO_SHAPE, WDNO_SHAPE), device=dev,
+                       generator=make_generator(0), **cfg)
+
+
+def _wdno_inputs(dev, batch: int, seed: int) -> tuple:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, *WDNO_SHAPE, generator=g, device=dev)
+    return g, x, torch.randn(batch, *WDNO_SHAPE, generator=g, device=dev)
+
+
+def phase_wdno_train(dev, compute_dtype=None) -> dict:
+    """WDNO's training step as shipped (phase wdno_train_f32: the TA
+    kernels' tf32 variants) or with its denoiser in bf16 (wdno_train:
+    mma): the loss and every gradient against the plain f32 step from the
+    same weights, both at WDNO_CMP_BATCH with the same injected t and
+    noise; then one counted step at batch 16 through make_train_step (its
+    own draws, exact TA counts) and, in f32, one timed window; returns the
+    counted step's launch counts."""
+    from realpdebench_tpu_torch.config import load_config
+
+    path, tc, reduced = _unet_path(compute_dtype, "wdno_train")
+    model = _wdno(dev, compute_dtype)
+    ref_model = _wdno(dev)
+    ref_model.load_state_dict(model.state_dict(), strict=True)
+    g, x, y = _wdno_inputs(dev, WDNO_BATCH, 10)
+    n = WDNO_CMP_BATCH
+    t = torch.randint(0, model.num_timesteps, (n,), generator=g, device=dev)
+    noise = torch.randn(n, *model.model_shape, model.channels, generator=g, device=dev)
+
+    def loss_and_grads(m, reference):
+        m.zero_grad(set_to_none=True)
+        loss = m.loss(x[:n], y[:n], t=t, noise=noise, reference=reference)
+        loss.backward()
+        out = loss.item(), _grads(m)
+        m.zero_grad(set_to_none=True)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    ref_loss, ref_grads = loss_and_grads(ref_model, True)
+    del ref_model
+    loss, grads = loss_and_grads(model, False)
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    lim_loss, lim_grad = (UNET_LOSS_REL, UNET_GRAD_REL_L2) if compute_dtype \
+        else (UNET_F32_LOSS_REL, UNET_F32_GRAD_REL_L2)
+    cmp = dict(batch=n, loss=loss, ref_loss=ref_loss,
+               loss_rel=abs(loss - ref_loss) / abs(ref_loss), limit_loss_rel=lim_loss,
+               limit_grad_rel_l2=lim_grad,
+               grad_rel_l2={k: _rel_l2(grads[k], r) for k, r in ref_grads.items()})
+    cmp["worst_grad_rel_l2"] = max(cmp["grad_rel_l2"].values())
+    bad = [] if cmp["loss_rel"] <= lim_loss else ["loss"]
+    bad += [k for k, r in cmp["grad_rel_l2"].items() if not r <= lim_grad]
+    if bad:
+        raise AssertionError(f"{path}: kernel WDNO step vs f32 plain step: {bad}: {cmp}")
+    del grads, ref_grads
+    _free()
+
+    opt = build_optimizer(_train_cfg(load_config(WDNO_CONFIG).to_dict()), model.parameters())
+    step = make_train_step(model, IdentityNormalizer(), opt)
+    # the main path, counted: nothing but this step between reset and read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    first = step(x, y).item()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH[path] = _expect(
+        launches, f"one WDNO training step ({path})",
+        variants=dict(ta_fwd={tc: WDNO_TA_PER_FORWARD}, ta_bwd={tc: WDNO_TA_PER_FORWARD}),
+        ta_fwd=WDNO_TA_PER_FORWARD, ta_bwd=WDNO_TA_PER_FORWARD)
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    rate = last = None
+    if not compute_dtype:
+        torch.cuda.reset_peak_memory_stats()
+        rate, last = _steps_per_s(step, x, y, WDNO_WINDOW_STEPS)
+        BARE_STEPS_PER_S[path] = rate
+    if not all(v == v and abs(v) < float("inf") for v in (first, last or 0.0)):
+        raise AssertionError(f"{path}: losses {first}, {last} are not finite")
+    emit(dict(phase=path, batch=WDNO_BATCH, launches=launches,
+              variants=VARIANTS_BY_PATH[path], vs_plain_f32=cmp, first_step_s=first_s,
+              window_steps=WDNO_WINDOW_STEPS if rate else 0, steps_per_s=rate,
+              frames_per_s=rate * WDNO_BATCH * WDNO_SHAPE[0] if rate else None,
+              losses=[first, last], remat=model.remat, peak_mem_first_step_gb=first_peak,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if rate else first_peak,
+              peak_mem_with_plain_step_gb=ref_peak, reduced=reduced))
+    return launches
+
+
+def phase_wdno_sample(dev, compute_dtype=None) -> dict:
+    """WDNO's DDIM sample (10 steps, eta 1) as shipped (wdno_sample_f32: a
+    counted, timed sample at batch 16 from the model's own draws) or in
+    bf16 (wdno_sample), each against the plain f32 sample on the same
+    injected draws at WDNO_SAMPLE_CMP_BATCH (WDNO_F32_SAMPLE,
+    WDNO_BF16_SAMPLE) and its first forward alone against the plain one
+    (UNET_F32_ROLLOUT; bf16 the UNet rollout's limits); returns the counted
+    sample's launch counts (bf16: the compared one's)."""
+    path, tc, reduced = _unet_path(compute_dtype, "wdno_sample")
+    model = _wdno(dev, compute_dtype)
+    g, x, _ = _wdno_inputs(dev, WDNO_BATCH, 11)
+    per_sample = WDNO_TA_PER_FORWARD * WDNO_SAMPLE_STEPS
+    secs = None
+
+    def counted(fn, what):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        VARIANTS_BY_PATH[path] = _expect(launches, what, variants=dict(ta_fwd={tc: per_sample}),
+                                         ta_fwd=per_sample)
+        return out, launches, time.perf_counter() - t0
+
+    if not compute_dtype:
+        # the main path, counted and timed: one sample at batch 16
+        torch.cuda.reset_peak_memory_stats()
+        pred, launches, secs = counted(lambda: model.predict(x),
+                                       f"one WDNO sample at batch {WDNO_BATCH} ({path})")
+        if tuple(pred.shape) != (WDNO_BATCH, *WDNO_SHAPE) or not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"{path}: sample {tuple(pred.shape)} or not finite")
+        del pred
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = WDNO_SAMPLE_CMP_BATCH
+    draws = [torch.randn(n, *model.model_shape, model.channels, generator=g, device=dev)
+             for _ in range(model.n_draws())]
+    ref_model = _wdno(dev).eval()
+    ref_model.load_state_dict(model.state_dict(), strict=True)
+    # both sides with cuDNN's deterministic algorithms: its default f32 ones
+    # differ from call to call, which the first DDIM step amplifies, so the
+    # comparison would read otherwise on every run
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.inference_mode():
+            got, small, _ = counted(lambda: model.sample(x[:n], draws=draws),
+                                    f"one WDNO sample at batch {n} ({path})")
+            if compute_dtype:
+                launches = small
+            ref = ref_model.sample(x[:n], draws=draws, reference=True)
+            cond = model.to_coef_tensor(x[:n])[..., : 8 * model.c_in]
+            state = model.set_conditions(draws[0], cond)
+            eps, eps_ref = model.model(state), ref_model.model(state, reference=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    dist = lambda a, b: dict(rel_l2=_rel_l2(a, b),
+                             max_abs_over_max_ref=((a - b).abs().max() / b.abs().max()).item())
+    lim = WDNO_BF16_SAMPLE if compute_dtype else WDNO_F32_SAMPLE
+    lim_eps = (UNET_ROLLOUT_REL_L2, UNET_ROLLOUT_MAX) if compute_dtype else UNET_F32_ROLLOUT
+    row = dict(batch=n, sample=dist(got, ref), limit_sample=lim, first_forward=dist(eps, eps_ref),
+               limit_first_forward=lim_eps, ref_abs_max=ref.abs().max().item())
+    bad = [k for k, (a, b) in (("sample", lim), ("first_forward", lim_eps))
+           if not (row[k]["rel_l2"] <= a and row[k]["max_abs_over_max_ref"] <= b)]
+    if bad:
+        raise AssertionError(f"{path}: kernel WDNO sample vs f32 plain sample: {bad}: {row}")
+    emit(dict(phase=path, batch=WDNO_BATCH if secs else n, ddim_steps=WDNO_SAMPLE_STEPS,
+              eta=model.ddim_eta, launches=launches, variants=VARIANTS_BY_PATH[path],
+              vs_plain_f32=row, sample_s=secs,
+              frames_per_s=WDNO_BATCH * WDNO_SHAPE[0] / secs if secs else None,
+              peak_mem_gb=peak, reduced=reduced))
     return launches
 
 
@@ -3522,18 +3767,35 @@ PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
 MODEL_LOOP_STEPS = 12
 MODEL_TEST_MODE = "unseen"
 FAMILY_LOOP_STEPS = 12
-# CNO's loop alone runs 2 steps (the whole run's time limit): a CNO
-# validation of the 54 windows is ≈ 140 TFLOP in full f32; no traced
-# iteration, no StepTimer window
-CNO_LOOP_STEPS = 2
+# CNO's and Transolver's loops run 2 steps (the whole run's time limit): a
+# CNO validation of the 54 windows is ≈ 140 TFLOP in full f32, Transolver's
+# sweeps took 54 of its 12-step loop's 64 s; no traced iteration, no
+# StepTimer window
+CNO_LOOP_STEPS = TRANSOLVER_LOOP_STEPS = 2
 # the bf16 FNO loop again, on the Arrow tree the converter writes from the
 # same arrays (--use_hf_dataset true): a few steps, exact counts
-ARROW_STEPS = 4
+ARROW_STEPS = 2          # the whole run's time limit
 ARROW_WINDOWS = 8       # windows of each split and type held bit for bit, and timed
+# WDNO's loop and eval in its shipped f32 (the TA kernels' tf32 variants):
+# 1 step with its one validation sweep (each of the 54 val windows a DDIM
+# sample of 10 denoiser forwards), no trace, no StepTimer window, no
+# resume; the eval over the 14 unseen test windows at N_autoregressive 1
+# [5]; test batch 14 [64]: the eval's windows in one batch, the sweep's in
+# 4 (at 64 the sweep would sample 64 padded windows). The reload samples 2
+# val windows; 4 test windows go through the plain f32 path too.
+WDNO_LOOP_STEPS = 1
+WDNO_TEST_BATCH = 14
+WDNO_RELOAD_WINDOWS, WDNO_PLAIN_WINDOWS = 2, 4
+# DMD (configs/cylinder/dmd.yaml: test batch 12, n_predict 20, input_feature
+# 2, N_autoregressive 1): eval only, on the same tree (all 56 test windows)
+DMD_CONFIG = "cylinder/dmd.yaml"
 # each loop path: its config, the compute dtype it runs (None: f32, as the
 # configs ship), its steps, the kernel launches of one training step and of
 # one forward, its eval phase, its bare step's phase and its other cuts
-# (key: (value here, shipped value)). DeepONet and Transolver run in their
+# (key: (value here, shipped value)). Transolver's and CNO's loops are not
+# resumed (resume False): a resume re-runs their slowest part, a
+# validation sweep, and the whole run's time limit took it; the FNO's,
+# UNet's, GK's, DeepONet's and MWT's loops hold the resume. DeepONet and Transolver run in their
 # shipped f32, at the shipped batches, and launch no kernel.
 LOOPS = {
     "loop": dict(config="cylinder/fno.yaml", dtype="bfloat16", steps=LOOP_STEPS,
@@ -3551,13 +3813,23 @@ LOOPS = {
                           steps=FAMILY_LOOP_STEPS, step={}, predict={},
                           eval="deeponet_eval", bare="deeponet_train_f32"),
     "transolver_loop": dict(config="cylinder/transolver.yaml", dtype=None,
-                            steps=FAMILY_LOOP_STEPS, step={}, predict={},
-                            eval="transolver_eval", bare="transolver_train_f32"),
+                            steps=TRANSOLVER_LOOP_STEPS, step={}, predict={},
+                            eval="transolver_eval", bare="transolver_train_f32",
+                            resume=False),
     "cno_loop": dict(config="cylinder/cno.yaml", dtype=None, steps=CNO_LOOP_STEPS,
-                     step={}, predict={}, eval="cno_eval", bare="cno_train_f32"),
+                     step={}, predict={}, eval="cno_eval", bare="cno_train_f32",
+                     resume=False),
     "mwt_loop": dict(config="cylinder/mwt.yaml", dtype=None, steps=FAMILY_LOOP_STEPS,
                      step={}, predict={}, eval="mwt_eval", bare="mwt_train_f32"),
+    "wdno_loop": dict(config=WDNO_CONFIG, dtype=None, steps=WDNO_LOOP_STEPS,
+                      step=dict(ta_fwd=WDNO_TA_PER_FORWARD, ta_bwd=WDNO_TA_PER_FORWARD),
+                      predict=dict(ta_fwd=WDNO_TA_PER_FORWARD * WDNO_SAMPLE_STEPS),
+                      eval="wdno_eval", bare="wdno_train_f32", variant="tf32",
+                      cuts={"test_batch_size": (WDNO_TEST_BATCH, 64)},
+                      eval_cuts={"N_autoregressive": (1, 5)}),
 }
+# the loops whose model samples (WDNO): their own loop and eval phases
+SAMPLED_LOOPS = ("wdno_loop",)
 # PyTorch's own defaults of the TF32 switches, which each CLI run starts
 # from, and the full-f32 state the port must leave after it
 TF32_DEFAULTS = (False, True, "highest")
@@ -3630,6 +3902,8 @@ class LoopRun:
             "generate_ids_if_missing", "max_to_keep")}
         out["num_update"] = (LOOPS[path]["steps"], shipped.num_update)
         out.update(LOOPS[path].get("cuts", {}))
+        if evaluating:
+            out.update(LOOPS[path].get("eval_cuts", {}))
         for k in ("N_plot", "N_plot_probe"):
             if shipped.get(k) and not self.plots:
                 out[k] = (0, shipped.get(k))
@@ -3701,14 +3975,14 @@ def _expected(loop: dict, n_steps: int, n_predicts: int) -> dict:
 def _check_launches(what: str, loop: dict, n_steps: int, n_predicts: int) -> tuple:
     """The counts since the last reset against n_steps training steps and
     n_predicts forwards of ``loop``'s model, every kernel in its mma
-    (T-stage: registers) variant."""
+    variant (the loop's ``variant`` where it names one; T-stage: registers)."""
     launches = dict(kernels.LAUNCHES)
     want = _expected(loop, n_steps, n_predicts)
     if launches != want:
         raise AssertionError(f"{what} launched {launches}, expected {want} "
                              f"({n_steps} steps, {n_predicts} forwards)")
     variants = expect_variants(what, **{
-        k: {"registers" if k == "t_stage" else "mma": n}
+        k: {"registers" if k == "t_stage" else loop.get("variant", "mma"): n}
         for k, n in want.items() if n})
     return launches, variants
 def _interval_union(iv):
@@ -3796,7 +4070,7 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
 
     from realpdebench_tpu_torch.data.loader import DataLoader
     from realpdebench_tpu_torch.data.normalizer import build_normalizer
-    from realpdebench_tpu_torch.eval.metrics import METRIC_NAMES, eval_metrics
+    from realpdebench_tpu_torch.eval.metrics import METRIC_NAMES
     from realpdebench_tpu_torch.train import make_eval_step
     from realpdebench_tpu_torch.train.__main__ import main as train_main
     from realpdebench_tpu_torch.train.checkpoint import CheckpointManager
@@ -3867,39 +4141,31 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
         make_eval_step(model, normalizer, c),
         DataLoader(val_ds, batch_size=test_batch, num_workers=12, pad_last=True,
                    pin_memory=dev.type == "cuda"), dev)
-    card = eval_metrics(preds, targets, c)
-    host = eval_metrics(preds.cpu(), targets.cpu(), c)
-    metric_cmp, bad = {}, []
-    for name, a, b in zip(METRIC_NAMES, card, host):
-        ca, cb = _compared(name, float(a)), _compared(name, float(b))
-        diff = abs(ca - cb)
-        rel = 0.0 if math.isnan(ca) and math.isnan(cb) else diff / abs(cb) if cb else diff
-        metric_cmp[name] = dict(card=float(a), cpu=float(b), rel=rel,
-                                loop_last_validation=hist["val"][name][-1])
-        bad += [] if rel <= LOOP_METRICS_REL else [name]
-    if bad:
-        raise AssertionError(f"metrics on the card vs the CPU: {bad}: {metric_cmp}")
+    metric_cmp = _metrics_card_vs_cpu(preds, targets, c, loop_last_validation={
+        name: hist["val"][name][-1] for name in METRIC_NAMES})
     del preds, targets, model
     _free()
 
     # resume RESUME_STEPS further from the run's checkpoint directory
-    kernels.reset_launches()
-    _, _, opt2, hist2 = cli_run(
-        train_main, f"the resumed {path}",
-        [*base, "--train_data_type", "numerical", "--num_update", str(steps + RESUME_STEPS),
-         "--resume", ckpt_dir], dataset_class=run.dataset_class)
-    end = steps + RESUME_STEPS
-    n_val2 = sum(1 for i in range(steps + 1, end + 1) if i % max(1, end // 50) == 0)
-    resume_launches, _ = _check_launches(f"the resumed {path}", loop, RESUME_STEPS,
-                                         n_val2 * val_batches)
-    resume = dict(start_iteration=hist2["perf"]["start_iteration"],
-                  steps=len(hist2["train_loss"]), optimizer_count=opt2.count,
-                  optimizer_count_saved=opt.count, losses=hist2["train_loss"])
-    if (resume["start_iteration"], resume["steps"], opt.count, opt2.count) != (
-            steps, RESUME_STEPS, steps, end):
-        raise AssertionError(f"resume: {resume}")
-    del opt2
-    total = {k: launches[k] + resume_launches[k] for k in launches}
+    resume, total = None, dict(launches)
+    if loop.get("resume", True):
+        kernels.reset_launches()
+        _, _, opt2, hist2 = cli_run(
+            train_main, f"the resumed {path}",
+            [*base, "--train_data_type", "numerical", "--num_update",
+             str(steps + RESUME_STEPS), "--resume", ckpt_dir], dataset_class=run.dataset_class)
+        end = steps + RESUME_STEPS
+        n_val2 = sum(1 for i in range(steps + 1, end + 1) if i % max(1, end // 50) == 0)
+        resume_launches, _ = _check_launches(f"the resumed {path}", loop, RESUME_STEPS,
+                                             n_val2 * val_batches)
+        resume = dict(start_iteration=hist2["perf"]["start_iteration"],
+                      steps=len(hist2["train_loss"]), optimizer_count=opt2.count,
+                      optimizer_count_saved=opt.count, losses=hist2["train_loss"])
+        if (resume["start_iteration"], resume["steps"], opt.count, opt2.count) != (
+                steps, RESUME_STEPS, steps, end):
+            raise AssertionError(f"resume: {resume}")
+        del opt2
+        total = {k: launches[k] + resume_launches[k] for k in launches}
 
     finetune = None
     if path == "loop":
@@ -3923,6 +4189,8 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     if trace is None:
         reduced["trace"] = (f"{steps} steps: no iteration traced ({LOOP_PROFILE[0]}-"
                             f"{LOOP_PROFILE[1]}), no StepTimer window")
+    if resume is None:
+        reduced["resume"] = dict(here=None, other_loops=f"{RESUME_STEPS} step")
     emit(dict(phase=path, config=loop["config"], data=run.data_source(),
               tree_s=run.tree_s, reduced=reduced, batch=batch,
               test_batch=test_batch, val_windows=len(val_ds),
@@ -4052,6 +4320,288 @@ def phase_eval(dev, run: LoopRun, path: str = "loop") -> dict:
     return launches
 
 
+def _metric_rel(name: str, got: float, want: float) -> float:
+    """A metric's distance as the loops compare it (``_compared``):
+    relative, absolute where ``want`` is 0, 0 where both are NaN."""
+    import math
+
+    a, b = _compared(name, got), _compared(name, want)
+    if math.isnan(a) and math.isnan(b):
+        return 0.0
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+def _metrics_card_vs_cpu(preds, targets, c: int, **beside) -> dict:
+    """The 13 metrics of the card's own predictions on the card and on the
+    CPU, within LOOP_METRICS_REL of each other (or raise); each ``beside``
+    (label → {metric: value}) stands beside them."""
+    from realpdebench_tpu_torch.eval.metrics import METRIC_NAMES, eval_metrics
+
+    card = eval_metrics(preds, targets, c)
+    host = eval_metrics(preds.cpu(), targets.cpu(), c)
+    out = {name: dict(card=float(a), cpu=float(b), rel=_metric_rel(name, float(a), float(b)),
+                      **{k: v[name] for k, v in beside.items()})
+           for name, a, b in zip(METRIC_NAMES, card, host)}
+    bad = [name for name, row in out.items() if not row["rel"] <= LOOP_METRICS_REL]
+    if bad:
+        raise AssertionError(f"metrics on the card vs the CPU: {bad}: {out}")
+    return out
+
+
+def phase_wdno_loop(dev, run: LoopRun, path: str = "wdno_loop") -> dict:
+    """python -m realpdebench_tpu_torch train for WDNO in its shipped f32,
+    in this process: WDNO_LOOP_STEPS step on numerical data with its one
+    validation sweep (each val window a DDIM sample) and a checkpoint; the
+    rescaler computed on the card from the tree, its cache read back; the
+    checkpoint in a fresh model samples bit for bit as the trained model,
+    both generators reseeded; the 13 metrics of those samples on the card
+    within LOOP_METRICS_REL of the CPU's. Returns the loop's launch counts."""
+    import math
+
+    from realpdebench_tpu_torch.data.normalizer import build_normalizer
+    from realpdebench_tpu_torch.models.wdno import compute_wdno_rescaler, rescaler_cache
+    from realpdebench_tpu_torch.train import make_eval_step
+    from realpdebench_tpu_torch.train.__main__ import main as train_main
+    from realpdebench_tpu_torch.train.checkpoint import CheckpointManager
+    from realpdebench_tpu_torch.train.loop import (
+        build_datasets,
+        load_reference_or_orbax_checkpoint,
+        model_kwargs,
+    )
+
+    loop, base = LOOPS[path], run.argv(path)
+    steps = loop["steps"]
+    cfg = _parse(base)
+    train_ds, val_ds, norm_ds = build_datasets(cfg, "numerical", dataset_class=run.dataset_class)
+    test_batch = int(cfg.test_batch_size)
+    val_batches = math.ceil(len(val_ds) / test_batch)
+    cache = rescaler_cache(run.root, cfg.dataset_name, cfg.wave_type, cfg.pad_mode)
+    if os.path.exists(cache):
+        raise AssertionError(f"{cache} exists before the first WDNO run")
+
+    # the main path, counted: nothing but the training run between reset and read
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    exp1, model, _, hist = cli_run(train_main, f"the {path}",
+                                   [*base, "--train_data_type", "numerical"],
+                                   dataset_class=run.dataset_class)
+    wall = time.perf_counter() - t0
+    launches, variants = _check_launches(f"the {path}", loop, steps, steps * val_batches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = hist["train_loss"]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"the {path}'s {len(losses)} train losses: {losses}")
+    if len(hist["val"]["rmse"]) != steps:
+        raise AssertionError(f"{len(hist['val']['rmse'])} validations, expected {steps}")
+    ckpt_dir = f"{exp1}/ckpt"
+    if CheckpointManager(ckpt_dir).all_steps() != list(range(1, steps + 1))[-2:]:
+        raise AssertionError(f"checkpoints kept: {CheckpointManager(ckpt_dir).all_steps()}")
+    cached = compute_wdno_rescaler(None, cfg.wave_type, cfg.pad_mode, run.root, cfg.dataset_name)
+    if not np.array_equal(model.rescaler.cpu().numpy(), cached[: model.channels]):
+        raise AssertionError("the rescaler's cache does not read back as the run's rescaler")
+
+    # reload: the checkpoint in a fresh model samples bit for bit as the
+    # trained model on a few validation windows, both generators reseeded,
+    # with cuDNN held to deterministic algorithms (its default f32 ones
+    # differ from call to call, and the first DDIM step amplifies any
+    # difference); beside it, whether the default ones gave the same bits
+    normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds)
+    fresh = build_model(train_dataset=train_ds, device=dev, generator=make_generator(1),
+                        **model_kwargs(cfg))
+    load_reference_or_orbax_checkpoint(ckpt_dir, fresh)
+    items = [val_ds[i] for i in range(WDNO_RELOAD_WINDOWS)]
+    xb, yb = (torch.from_numpy(np.stack([it[j] for it in items])).to(dev) for j in (0, 1))
+    c = 2
+
+    def samples(deterministic: bool) -> list:
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            outs = []
+            for m in (model, fresh):
+                m.reseed_dropout(int(cfg.seed))
+                outs.append(make_eval_step(m, normalizer, c)(xb, yb))
+            return outs
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+    default = samples(False)
+    default_equal = torch.equal(default[0][1], default[1][1])
+    outs = samples(True)
+    if not torch.equal(outs[0][1], outs[1][1]):
+        raise AssertionError("the reloaded checkpoint samples otherwise than the trained model")
+    metric_cmp = _metrics_card_vs_cpu(outs[0][1], outs[0][2], c)
+    del default
+    del fresh, model, outs, xb, yb
+    _free()
+
+    perf = hist["perf"]
+    emit(dict(phase=path, config=loop["config"], data=run.data_source(), tree_s=run.tree_s,
+              reduced=dict(run.reduced(path), trace=f"{steps} step: no iteration traced, no "
+                           "StepTimer window, no resume"),
+              batch=int(cfg.train_batch_size), test_batch=test_batch,
+              val_windows=len(val_ds), train_windows=len(train_ds), val_batches=val_batches,
+              validations=steps, wall_s=wall, loop_steps_per_s=perf["loop_steps_per_sec"],
+              bare_step_steps_per_s=BARE_STEPS_PER_S.get(loop["bare"]),
+              validation_s=perf["validation_s"], checkpoint_s=perf["checkpoint_s"],
+              batch_assembly_s=perf["batch_assembly_s"], launches=launches,
+              variants=variants, peak_mem_gb=peak, losses=losses,
+              validation=hist["val"], rescaler=dict(cache=os.path.basename(cache),
+                                                    channels=int(cached.size)),
+              reload_windows=WDNO_RELOAD_WINDOWS, reload_bit_equal=True,
+              reload_bit_equal_default_cudnn=default_equal,
+              metrics_card_vs_cpu=metric_cmp, limit_metrics_rel=LOOP_METRICS_REL,
+              tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT)))
+    VARIANTS_BY_PATH[path] = variants
+    run.ckpt_dirs[path] = ckpt_dir
+    return launches
+
+
+def phase_wdno_eval(dev, run: LoopRun, path: str = "wdno_loop") -> dict:
+    """python -m realpdebench_tpu_torch eval on WDNO's checkpoint in its
+    shipped f32 over the unseen test windows; exact counts; then
+    WDNO_PLAIN_WINDOWS windows sampled from the checkpoint through the
+    kernels and through the plain f32 path from reseeded generators: the
+    loops' eval checks on their metrics, the predictions within
+    WDNO_F32_SAMPLE's relative L2, and the kernels' 13 metrics on the card
+    within LOOP_METRICS_REL of the CPU's on the same arrays."""
+    import math
+
+    from realpdebench_tpu_torch.data.normalizer import build_normalizer
+    from realpdebench_tpu_torch.eval.__main__ import build_eval_datasets
+    from realpdebench_tpu_torch.eval.__main__ import main as eval_main
+    from realpdebench_tpu_torch.eval.metrics import METRIC_NAMES, eval_metrics
+    from realpdebench_tpu_torch.eval.rollout import finalize_rollout
+    from realpdebench_tpu_torch.train.loop import (
+        load_reference_or_orbax_checkpoint,
+        model_kwargs,
+    )
+
+    loop, name = LOOPS[path], LOOPS[path]["eval"]
+    ckpt_dir = run.ckpt_dirs[path]
+    argv = [*run.argv(path, evaluating=True), "--checkpoint_path", ckpt_dir]
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, results = cli_run(eval_main, f"the {name}", argv, dataset_class=run.dataset_class)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg = _parse(argv, evaluating=True)
+    test_ds, train_ds, norm_ds = build_eval_datasets(cfg, run.dataset_class)
+    batch, n_steps = int(cfg.test_batch_size), int(cfg.N_autoregressive)
+    launches, variants = _check_launches(f"the {name}", loop, 0,
+                                         math.ceil(len(test_ds) / batch) * n_steps)
+    keys = [*METRIC_NAMES, "normalized_mse"]
+    keys += ["probe_error"] if cfg.get("probe_diagnostic") else []
+    if set(results) != set(keys) or not all(math.isfinite(results[k]) for k in keys
+                                            if k not in ("mid_f_error", "rel_mid_f_error")):
+        raise AssertionError(f"eval results not finite, or not {keys}: {results}")
+
+    c = 2
+    normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds)
+    build = lambda: load_reference_or_orbax_checkpoint(ckpt_dir, build_model(
+        train_dataset=train_ds, device=dev, generator=make_generator(int(cfg.seed)),
+        **model_kwargs(cfg)))
+
+    # kernels against the plain f32 path on a few windows, the same draws:
+    # the loops' eval checks (each metric within EVAL_METRIC_REL, or
+    # EVAL_METRIC_ABS below EVAL_SMALL), the predictions within the sample
+    # phase's relative L2 (WDNO_F32_SAMPLE[0], tighter than the loops' 5e-2)
+    items = [test_ds[i] for i in range(WDNO_PLAIN_WINDOWS)]
+    xb, yb = (torch.from_numpy(np.stack([it[j] for it in items])).to(dev) for j in (0, 1))
+    kernel, plain = build(), build().eval()
+    outs = []
+    torch.backends.cudnn.deterministic = True       # as in phase_wdno_sample
+    try:
+        for m, predictor in ((kernel, kernel), (plain, _PlainPath(plain))):
+            m.reseed_dropout(int(cfg.seed))
+            pn, xn, yn = make_rollout_fn(predictor, normalizer, n_steps)(xb, yb)
+            outs.append(finalize_rollout(normalizer, pn, xn, yn, c)[1:])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del kernel, plain
+    (got, target), (ref, _) = outs
+    metric_cmp = _metrics_card_vs_cpu(got, target, c)
+    ref_metrics = [float(v) for v in eval_metrics(ref, target, c)]
+    row = dict(windows=WDNO_PLAIN_WINDOWS, rel_l2=_rel_l2(got[..., :c], ref[..., :c]),
+               limit_rel_l2=WDNO_F32_SAMPLE[0],
+               max_abs_over_max_ref=((got - ref).abs().max() / ref.abs().max()).item(),
+               metrics={})
+    bad = [] if row["rel_l2"] <= WDNO_F32_SAMPLE[0] else ["predictions"]
+    for m, a, b in zip(METRIC_NAMES, (float(v) for v in eval_metrics(got, target, c)),
+                       ref_metrics):
+        small = abs(_compared(m, b)) < EVAL_SMALL
+        err = abs(_compared(m, a) - _compared(m, b)) if small else _metric_rel(m, a, b)
+        limit = EVAL_METRIC_ABS if small else EVAL_METRIC_REL
+        row["metrics"][m] = dict(kernels=a, f32_plain=b, err=err, limit=limit)
+        bad += [] if err <= limit else [m]
+    if bad:
+        raise AssertionError(f"{name}: kernel samples vs plain f32 samples: {bad}: {row}")
+    del outs, got, ref, target
+    _free()
+    emit(dict(phase=name, config=loop["config"], data=run.data_source(),
+              reduced=run.reduced(path, evaluating=True), batch=batch,
+              n_autoregressive=n_steps, test_windows=len(test_ds), results=results,
+              eval_s=secs, frames_per_s=len(test_ds) * n_steps * SHAPE_OUT[0] / secs,
+              launches=launches, variants=variants, peak_mem_gb=peak,
+              tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT),
+              metrics_card_vs_cpu=metric_cmp,
+              limit_metrics_rel=LOOP_METRICS_REL, vs_plain_f32=row))
+    VARIANTS_BY_PATH[name] = variants
+    return launches
+
+
+def phase_dmd_eval(dev, run: LoopRun) -> dict:
+    """python -m realpdebench_tpu_torch eval with configs/cylinder/dmd.yaml
+    on the loops' tree, no checkpoint: the forecast on the host, the
+    normalizer and the metric sweep on the card, every kernel count 0; the
+    13 metrics and the normalized MSE within LOOP_METRICS_REL of the same
+    eval on the CPU."""
+    from realpdebench_tpu_torch.config import load_config
+    from realpdebench_tpu_torch.eval.__main__ import build_eval_datasets
+    from realpdebench_tpu_torch.eval.__main__ import main as eval_main
+
+    shipped = load_config(DMD_CONFIG)
+    over = {k: LOOP_OVERRIDES[k] for k in ("n_sim_frame", "n_sim_in_distribution",
+                                            "n_sim_out_distribution", "generate_ids_if_missing")}
+    for k in ("N_plot", "N_plot_probe"):
+        if shipped.get(k) and not run.plots:
+            over[k] = (0, shipped.get(k))
+    argv = ["--config", DMD_CONFIG, "--dataset_root", run.root,
+            "--results_path", f"{run.work}/results"]
+    for k, (v, _) in over.items():
+        argv += [f"--{k}", v if isinstance(v, str) else json.dumps(v)]
+    _free()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, card = cli_run(eval_main, "the dmd_eval", argv, dataset_class=run.dataset_class)
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"the dmd_eval launched {launches}")
+    t0 = time.perf_counter()
+    _, host = cli_run(eval_main, "the dmd_eval on the CPU", [*argv, "--device", "cpu"],
+                      dataset_class=run.dataset_class)
+    cpu_s = time.perf_counter() - t0
+    cmp = {k: dict(card=card[k], cpu=b, rel=_metric_rel(k, card[k], b)) for k, b in host.items()}
+    bad = [k for k, row in cmp.items() if not row["rel"] <= LOOP_METRICS_REL]
+    if bad or set(card) != set(host):
+        raise AssertionError(f"dmd_eval on the card vs the CPU: {bad}: {cmp}")
+    cfg = _parse(argv, evaluating=True)
+    test_ds = build_eval_datasets(cfg, run.dataset_class)[0]
+    emit(dict(phase="dmd_eval", config=DMD_CONFIG, data=run.data_source(),
+              reduced={k: dict(here=v, shipped=s) for k, (v, s) in over.items()},
+              batch=int(cfg.test_batch_size), n_predict=int(cfg.n_predict),
+              n_autoregressive=int(cfg.N_autoregressive), test_windows=len(test_ds),
+              eval_s=secs, cpu_eval_s=cpu_s,
+              frames_per_s=len(test_ds) * int(cfg.n_predict) / secs, launches=launches,
+              card_vs_cpu=cmp, limit_rel=LOOP_METRICS_REL,
+              tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT)))
+    return launches
+
+
 def phase_arrow(dev, run: LoopRun):
     """The Arrow (Hugging Face V2) backend, where this host imports datasets
     and pyarrow: the loop's tree written through the converter's writer,
@@ -4159,8 +4709,10 @@ def loop_and_eval(dev) -> dict:
     out = {}
     try:
         for path, loop in LOOPS.items():
-            out[path] = phase_loop(dev, run, path)
-            out[loop["eval"]] = phase_eval(dev, run, path)
+            sampled = path in SAMPLED_LOOPS
+            out[path] = (phase_wdno_loop if sampled else phase_loop)(dev, run, path)
+            out[loop["eval"]] = (phase_wdno_eval if sampled else phase_eval)(dev, run, path)
+        out["dmd_eval"] = phase_dmd_eval(dev, run)
         arrow = phase_arrow(dev, run)
         if arrow is not None:
             out["arrow"] = arrow
@@ -4238,6 +4790,13 @@ def main() -> None:
     by_path["unet_train_f32"] = phase_unet_train(dev, norm, compute_dtype=None)
     _free()
     by_path["surrogate_unet_train_f32"] = phase_surrogate_unet_train(dev)
+    _free()
+    for dtype in (None, "bfloat16"):
+        suffix = "" if dtype else "_f32"
+        by_path[f"wdno_train{suffix}"] = phase_wdno_train(dev, dtype)
+        _free()
+        by_path[f"wdno_sample{suffix}"] = phase_wdno_sample(dev, dtype)
+        _free()
     summary.update(phase_gk_scores(dev))
     by_path["gk_rollout"] = phase_gk_rollout(dev, norm)
     torch.cuda.empty_cache()

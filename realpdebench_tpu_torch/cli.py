@@ -4,10 +4,10 @@ Counterpart of ``realpdebench_tpu/cli.py`` (reference
 `realpdebench/cli.py:12-138`): a ``download`` subcommand with
 pattern-based Hugging Face snapshotting, a safe ``--what metadata``
 default and ``--dry-run`` returning the resolved patterns without
-network; ``train``, ``eval``, ``train-surrogate`` and ``convert`` take
-the flags of ``python -m realpdebench_tpu_torch.train``, ``.eval``,
-``.train.surrogate`` and ``.tools.convert_hdf5_to_hf`` (dispatched before
-argparse, as there). The
+network; ``train``, ``eval``, ``train-surrogate``, ``convert`` and
+``parity`` take the flags of ``python -m realpdebench_tpu_torch.train``,
+``.eval``, ``.train.surrogate``, ``.tools.convert_hdf5_to_hf`` and
+``.eval.parity`` (dispatched before argparse, as there). The
 JAX CLI's other subcommands are listed by ``--help`` and exit non-zero
 naming the ROADMAP.md item they wait for.
 """
@@ -29,8 +29,6 @@ from realpdebench_tpu_torch.utils.misc import use_expandable_segments
 
 # subcommand → (help, what it waits for)
 _NOT_PORTED = {
-    "parity": ("Side-by-side reference-torch vs port eval of a .pth",
-               "ROADMAP.md queue A, item 10 (the port-vs-JAX parity CLI)"),
     "export-torch": ("Export an orbax checkpoint to a reference .pth",
                      "ROADMAP.md queue A, item 5 (orbax checkpoints: the port's "
                      "own checkpoints are reference .pth files already)"),
@@ -41,6 +39,8 @@ _PASSTHROUGH = {
     "train-surrogate": "Train the combustion surrogate (flags of "
                        "python -m realpdebench_tpu_torch.train.surrogate)",
     "convert": "Convert HDF5 trees to the Arrow V2 layout",
+    "parity": "Evaluate a reference .pth through the port and through the "
+              "reference PyTorch package, side by side",
 }
 
 
@@ -51,6 +51,8 @@ def _entry(name):
         from realpdebench_tpu_torch.eval.__main__ import main
     elif name == "train-surrogate":
         from realpdebench_tpu_torch.train.surrogate import main
+    elif name == "parity":
+        from realpdebench_tpu_torch.eval.parity import main
     else:
         from realpdebench_tpu_torch.tools.convert_hdf5_to_hf import main
     return main

@@ -4,7 +4,8 @@ Counterpart of ``realpdebench_tpu/eval/__main__.py`` (reference
 `realpdebench/eval.py:57-367`): load a checkpoint, roll it out
 autoregressively over the real test split, and run the 13-metric sweep
 (chunked per eval batch when N_autoregressive > 4) on the device, plus the
-probe diagnostic; the first batch's result plots (``N_plot``) and probe
+probe diagnostic. A training-free model (DMD) loads no checkpoint and
+rolls out through ``make_host_rollout_fn``; the first batch's result plots (``N_plot``) and probe
 plots (``N_plot_probe``) need matplotlib, imported where they are drawn.
 """
 
@@ -25,7 +26,11 @@ from realpdebench_tpu_torch.eval.metrics import (
 )
 from realpdebench_tpu_torch.eval.plots import plot_result
 from realpdebench_tpu_torch.eval.probes import probe_diagnostic
-from realpdebench_tpu_torch.eval.rollout import finalize_rollout, make_rollout_fn
+from realpdebench_tpu_torch.eval.rollout import (
+    finalize_rollout,
+    make_host_rollout_fn,
+    make_rollout_fn,
+)
 from realpdebench_tpu_torch.models.registry import build_model, resolve_device
 from realpdebench_tpu_torch.train.loop import (
     _dataset_class,
@@ -79,8 +84,11 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
                         generator=make_generator(int(cfg.get("seed", 0))),
                         **model_kwargs(cfg))
     logging.info(f"Number of parameters: {param_count(model)}")
-    load_reference_or_orbax_checkpoint(cfg.checkpoint_path, model)
-    logging.info(f"Checkpoint {cfg.checkpoint_path} loaded.")
+    if model.trainable:
+        load_reference_or_orbax_checkpoint(cfg.checkpoint_path, model)
+        logging.info(f"Checkpoint {cfg.checkpoint_path} loaded.")
+    else:
+        logging.info("Training-free model; no checkpoint loaded.")
 
     x_probe, y_probe = test_ds[0]
     unmeasured_c = infer_unmeasured_channels(y_probe[None])
@@ -88,7 +96,8 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
     para_c = max(0, x_probe.shape[-1] - y_probe.shape[-1])
 
     n_steps = int(cfg.N_autoregressive)
-    rollout = make_rollout_fn(model, normalizer, n_steps, para_c)
+    rollout = (make_rollout_fn if model.trainable else make_host_rollout_fn)(
+        model, normalizer, n_steps, para_c)
 
     pred_list, target_list, probe_errors, nmses = [], [], [], []
     batches = to_device(loader, device)

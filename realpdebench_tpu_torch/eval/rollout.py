@@ -34,7 +34,9 @@ def make_rollout_fn(model, normalizer, n_steps: int, para_c: int = 0):
         preds = []
         for _ in range(n_steps):
             p = model.predict(window)
-            _, p_phys = normalizer.postprocess(window, p)
+            # a host model may emit fewer channels (DMD: input_feature only);
+            # the normalizer slices its statistics to match
+            _, p_phys = normalizer.postprocess(window[..., : p.shape[-1]], p)
             if para_c:
                 p_phys = torch.cat([p_phys, para_input], dim=-1)
             window, _ = normalizer.preprocess(p_phys, yn)
@@ -45,6 +47,14 @@ def make_rollout_fn(model, normalizer, n_steps: int, para_c: int = 0):
         return pred, xn, yn
 
     return rollout
+
+
+def make_host_rollout_fn(model, normalizer, n_steps: int, para_c: int = 0):
+    """The rollout of a host-side model (DMD), JAX ``make_host_rollout_fn``.
+    There the compiled scan cannot call numpy; here the rollout is a Python
+    loop already, so this is ``make_rollout_fn``: the normalizer runs on
+    the window's device, with statistics sliced to the model's channels."""
+    return make_rollout_fn(model, normalizer, n_steps, para_c)
 
 
 def finalize_rollout(normalizer, pred_norm, xn, yn, c: int):

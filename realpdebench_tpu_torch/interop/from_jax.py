@@ -2,7 +2,8 @@
 
 Counterpart of ``realpdebench_tpu/interop/torch_export.py`` (its
 ``export_fno``, ``export_unet``, ``export_galerkin``, ``export_deeponet``,
-``export_transolver``, ``export_dpot``, ``export_cno`` and ``export_mwt``):
+``export_transolver``, ``export_dpot``, ``export_cno``, ``export_mwt`` and
+``export_wdno``):
 the same key names
 and conventions,
 producing torch tensors that the port's ``load_state_dict(...,
@@ -352,4 +353,19 @@ def unet_state_dict(params: dict) -> dict:
     _resnet(sd, "mid_block2", p["mid_block2"])
     _resnet(sd, "final_conv.0", p["final_block"])
     _conv(sd, "final_conv.1", p["final_conv"])
+    return sd
+
+
+def wdno_state_dict(params: dict, beta_schedule: str = "sigmoid",
+                    timesteps: int = 1000) -> dict:
+    """JAX WDNO ``params`` (its Unet3d's) → WDNO ``state_dict``: the
+    backbone's keys under the reference's ``model.`` prefix, plus the DDPM
+    schedule's buffers recomputed from its name and length, as
+    ``export_wdno`` writes them (the rescaler is no entry: it has its own
+    cache file)."""
+    from realpdebench_tpu_torch.models.wdno import DiffusionSchedule
+
+    sd = {f"model.{k}": v for k, v in unet_state_dict(params).items()}
+    for k, v in DiffusionSchedule.create(beta_schedule, timesteps).buffers().items():
+        sd[k] = _t(v)
     return sd

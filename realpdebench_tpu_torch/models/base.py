@@ -142,7 +142,11 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tens
 class Model(nn.Module):
     """Base of every ported model: ``forward(x)`` is the prediction and
     ``forward(x, y)`` the scalar MSE training loss against the target ``y``
-    (so a model can fuse its tail with the loss, as FNO3d does)."""
+    (so a model can fuse its tail with the loss, as FNO3d does).
+    ``trainable`` is false for a training-free model (DMD), which the
+    training loop refuses and eval runs without a checkpoint."""
+
+    trainable = True
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Deterministic forward in eval mode, without autograd; the

@@ -13,9 +13,6 @@ import torch
 from realpdebench_tpu_torch.models.base import Model
 from realpdebench_tpu_torch.utils.misc import set_f32_precision
 
-# families the JAX registry builds that the port has not reached yet
-_NOT_PORTED = ("wdno", "dmd")
-
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16}
 
@@ -46,7 +43,10 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
     shipped batches; ``mwt`` ignores it, as the JAX registry does. The
     TPU-only switches (``use_pallas``,
     ``pallas_interpret``, ``seq_mesh``) are accepted and have no effect: on
-    a CUDA device the model always runs the kernels.
+    a CUDA device the model always runs the kernels. ``wdno`` computes its
+    wavelet rescaler from ``train_dataset`` (cached beside the data, as the
+    JAX package caches it), or takes ones without it; ``dmd`` has no
+    parameters and computes on the host.
 
     Every call pins the library calls' float32 precision to full float32
     (``utils.misc.set_f32_precision``), as the JAX package computes them:
@@ -193,8 +193,33 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             activation=kwargs.get("activation", "LeakyReLU"), shape_in=shape_in,
             shape_out=shape_out, remat=bool(kwargs.get("remat", True)),
             compute_dtype=compute_dtype, device=resolve_device(device), generator=generator)
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported to PyTorch yet; ROADMAP.md "
-            "(queue A) lists the order in which the families follow")
+    if model_name == "wdno":
+        from realpdebench_tpu_torch.models.wdno import WDNO, compute_wdno_rescaler
+
+        # the JAX registry's keys and defaults; remat on by default
+        dev = resolve_device(device)
+        wave_type = kwargs.get("wave_type", "bior1.3")
+        rescaler = None
+        if train_dataset is not None:
+            rescaler = compute_wdno_rescaler(
+                train_dataset, wave_type, kwargs.get("pad_mode", "zero"),
+                kwargs["dataset_root"], kwargs["dataset_name"], device=dev)
+        return WDNO(
+            shape_in=shape_in, shape_out=shape_out, dim=int(kwargs["dim"]),
+            dim_mults=tuple(kwargs.get("dim_mults", (1, 2))), wave_type=wave_type,
+            beta_schedule=kwargs.get("beta_schedule", "sigmoid"),
+            timesteps=int(kwargs.get("timesteps", 1000)),
+            sampling_timesteps=int(kwargs.get("sampling_timesteps") or 1000),
+            ddim_eta=float(kwargs.get("ddim_sampling_eta", 0.0) or 0.0),
+            rescaler=rescaler, compute_dtype=compute_dtype,
+            remat=bool(kwargs.get("remat", True)), seed=int(kwargs.get("seed", 0)),
+            device=dev, generator=generator)
+    if model_name == "dmd":
+        from realpdebench_tpu_torch.models.dmd import DMD
+
+        # no parameters: the device only says where its forecasts go
+        return DMD(n_modes=kwargs["n_modes"], n_predict=kwargs["n_predict"],
+                   input_feature=kwargs["input_feature"],
+                   n_autoregressive=kwargs["N_autoregressive"],
+                   shape_out=shape_out).to(resolve_device(device))
     raise ValueError(f"Model {model_name} not supported")

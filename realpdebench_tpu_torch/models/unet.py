@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from realpdebench_tpu_torch.models.base import Model, lecun_normal_, mse
+from realpdebench_tpu_torch.models.base import Model, lecun_normal_, mse, stats_dtype
 from realpdebench_tpu_torch.ops.activations import gelu
 from realpdebench_tpu_torch.ops.temporal_attention import (
     temporal_attention_tokens,
@@ -109,7 +109,7 @@ class RelativePositionBias(nn.Module):
     def forward(self, n: int) -> torch.Tensor:
         table = self.relative_attention_bias.weight
         onehot = _bucket_onehot(n, self.num_buckets, self.max_distance, table.device)
-        return (onehot @ table).t().reshape(-1, n, n)
+        return (onehot.to(table.dtype) @ table).t().reshape(-1, n, n)
 
 
 @lru_cache(maxsize=16)
@@ -135,8 +135,8 @@ def apply_rotary(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
 
 class ChannelLayerNorm(nn.Module):
     """Gamma-only LayerNorm over the channels of [B, C, ...] (reference
-    unet.py:169-178): biased variance, eps 1e-5, statistics in f32, output
-    in the input dtype."""
+    unet.py:169-178): biased variance, eps 1e-5, statistics in at least
+    f32, output in the input dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -144,7 +144,7 @@ class ChannelLayerNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(1, dim, 1, 1, 1))
 
     def forward(self, x):
-        xf = x.float()
+        xf = x.to(stats_dtype(x.dtype))
         var = xf.var(dim=1, unbiased=False, keepdim=True)
         mean = xf.mean(dim=1, keepdim=True)
         g = self.gamma.view(1, -1, *([1] * (x.dim() - 2)))
@@ -471,7 +471,8 @@ class Unet3d(Model):
         h = _conv(self.init_conv, x.permute(0, 4, 1, 2, 3), dt)   # NCDHW
         h = self.init_temporal_attn(h, pos_bias, reference=reference)
         r = h
-        t = self.time_mlp(torch.zeros(x.shape[0], device=x.device))
+        t = self.time_mlp(torch.zeros(x.shape[0], device=x.device,
+                                      dtype=self.time_mlp[1].weight.dtype))
 
         skips = []
         for block1, block2, spatial, temporal, down in self.downs:
@@ -496,5 +497,5 @@ class Unet3d(Model):
                 h = _conv(up, h, dt)
 
         h = rb(self.final_conv[0], torch.cat([h, r], dim=1))
-        pred = _conv(self.final_conv[1], h, dt).float().permute(0, 2, 3, 4, 1)
+        pred = _conv(self.final_conv[1], h, dt).to(stats_dtype(dt)).permute(0, 2, 3, 4, 1)
         return pred if y is None else mse(pred, y.float())

@@ -36,8 +36,10 @@ def temporal_attention_tokens_plain(q, k, v, pos_bias, heads: int):
     ``reference_temporal_attention_tokens`` (``temporal_attention.py:217``)."""
     B, S, T, F = q.shape
     h, d = heads, F // heads
-    spl = lambda z: z.reshape(B, S, T, h, d).float()
-    sim = torch.einsum("bsihd,bsjhd->bshij", spl(q), spl(k)) + pos_bias.float()
+    # f32 (float64 for a float64 reference copy)
+    st = torch.promote_types(q.dtype, torch.float32)
+    spl = lambda z: z.reshape(B, S, T, h, d).to(st)
+    sim = torch.einsum("bsihd,bsjhd->bshij", spl(q), spl(k)) + pos_bias.to(st)
     sim = sim - sim.amax(dim=-1, keepdim=True).detach()
     attn = torch.softmax(sim, dim=-1)
     out = torch.einsum("bshij,bsjhd->bsihd", attn, spl(v))

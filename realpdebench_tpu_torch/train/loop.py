@@ -160,6 +160,10 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
     model = build_model(train_dataset=train_ds, device=device,
                         generator=make_generator(int(cfg.get("seed", 0))),
                         **model_kwargs(cfg))
+    if not model.trainable:
+        raise ValueError(f"model {cfg.model_name!r} is training-free and has nothing to "
+                         "train: evaluate it with `python -m realpdebench_tpu_torch eval "
+                         "--config ...` (no checkpoint)")
     # the JAX loop reads item 0 again for its init; the read keeps the
     # dataset's noise and mask draws in step with it
     train_ds[0]

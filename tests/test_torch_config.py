@@ -1,7 +1,8 @@
 """PyTorch port vs JAX package: the config system, on the CPU.
 
-The port's 52 configs (fno, unet, galerkin_transformer, deeponet,
-transolver, trainsolver, dpot_s, dpot_l, cno, mwt × five scenarios, and
+The port's 62 configs (fno, unet, galerkin_transformer, deeponet,
+transolver, trainsolver, dpot_s, dpot_l, cno, mwt, wdno, dmd × five
+scenarios, and
 the combustion surrogate's fno and unet) are the JAX package's files byte for
 byte; ``merge_config`` gives the JAX
 package's dict for the same argv (the port adds ``device``); config names
@@ -18,7 +19,7 @@ from realpdebench_tpu_torch import config as tc
 
 SCENARIOS = ("combustion", "controlled_cylinder", "cylinder", "foil", "fsi")
 MODELS = ("fno", "unet", "galerkin_transformer", "deeponet", "transolver", "trainsolver",
-          "dpot_s", "dpot_l", "cno", "mwt")
+          "dpot_s", "dpot_l", "cno", "mwt", "wdno", "dmd")
 NAMES = [f"{s}/{m}.yaml" for s in SCENARIOS for m in MODELS] + [
     f"combustion/surrogate_model/{m}.yaml" for m in ("fno", "unet")]
 JAX_CONFIGS = os.path.join(os.path.dirname(jc.__file__), "configs")
@@ -77,8 +78,8 @@ def test_merge_config_equals_jax(name, argv):
 def test_config_names_resolve_in_the_port():
     for name in ("cylinder/fno.yaml", "configs/cylinder/fno.yaml"):
         assert tc.resolve_config_path(name) == os.path.join(PORT_CONFIGS, "cylinder", "fno.yaml")
-    # a family the port has not reached has no config here
-    assert tc.resolve_config_path("cylinder/dmd.yaml") == "cylinder/dmd.yaml"
+    # a name the port ships no config for stays as it is
+    assert tc.resolve_config_path("cylinder/nope.yaml") == "cylinder/nope.yaml"
 
 
 def test_overrides_are_yaml_and_win_over_the_file():

@@ -136,8 +136,9 @@ def test_build_model_takes_jax_registry_kwargs():
     sd = m.state_dict()
     assert {k: tuple(t.shape) for k, t in sd.items()} == {
         k: np.shape(a) for k, a in ref.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(shapes=(SI, SO), model_name="wdno", device="cpu")
+    # every family of the JAX registry builds, WDNO among them
+    wdno = build_model(shapes=(SI, SO), model_name="wdno", dim=8, device="cpu")
+    assert type(wdno).__name__ == "WDNO" and wdno.model.compute_dtype == torch.float32
     with pytest.raises(ValueError, match="not supported"):
         build_model(shapes=(SI, SO), model_name="nope", device="cpu")
 

@@ -1,10 +1,11 @@
 """The port stands alone: importing every module of realpdebench_tpu_torch
-(the Arrow data layer, the converter, the plots, the surrogate pipeline
-and DPOT among them) loads neither JAX nor the JAX package, nor the data
-layer's optional packages (datasets, pyarrow, huggingface_hub, h5py,
-matplotlib), and running it on the CPU (the FNO, the UNet, the Galerkin
-Transformer, DeepONet, Transolver, DPOT, CNO in both activation modes and
-MWT) never builds or loads the CUDA kernels. Checked in a fresh
+(the Arrow data layer, the converter, the plots, the surrogate pipeline,
+DPOT, WDNO with its wavelet transform, DMD and the parity CLI among them)
+loads neither JAX nor the JAX package, nor the data layer's optional
+packages (datasets, pyarrow, huggingface_hub, h5py, matplotlib), and
+running it on the CPU (the FNO, the UNet, the Galerkin Transformer,
+DeepONet, Transolver, DPOT, CNO in both activation modes, MWT, WDNO and
+DMD) never builds or loads the CUDA kernels. Checked in a fresh
 interpreter, since this test process has both packages loaded."""
 
 import os
@@ -34,7 +35,8 @@ _SCRIPT = textwrap.dedent("""
               "eval.plots", "eval.probes", "data.surrogate", "train.surrogate",
               "tools.generate_surrogate_data", "tools.numerical_real_compare",
               "models.dpot", "models.dpot3d", "models.cno", "models.mwt",
-              "ops.filtered_lrelu", "ops.multiwavelet"):
+              "ops.filtered_lrelu", "ops.multiwavelet", "models.wdno", "ops.wavelet",
+              "models.dmd", "eval.parity"):
         assert pkg.__name__ + "." + n in names, n
 
     def refuse_build():
@@ -106,6 +108,18 @@ _SCRIPT = textwrap.dedent("""
         torch.zeros(1, 2, 8, 16, 3), torch.zeros(1, 2, 8, 16, 3))
     assert pred.shape == (1, 2, 8, 16, 3) and bool(torch.isfinite(pred).all())
     mwt.loss(torch.ones(1, 2, 8, 16, 3), torch.zeros(1, 2, 8, 16, 3)).backward()
+    wd = build_model(shapes=((4, 8, 8, 2), (4, 8, 8, 2)), model_name="wdno", dim=8,
+                     wave_type="bior1.1", timesteps=20, sampling_timesteps=2,
+                     device="cpu", generator=make_generator(0))
+    pred, _, _ = make_rollout_fn(wd, IdentityNormalizer(), 1)(
+        torch.zeros(1, 4, 8, 8, 2), torch.zeros(1, 4, 8, 8, 2))
+    assert pred.shape == (1, 4, 8, 8, 2) and bool(torch.isfinite(pred).all())
+    wd.loss(torch.ones(1, 4, 8, 8, 2), torch.zeros(1, 4, 8, 8, 2)).backward()
+    dmd = build_model(shapes=((4, 8, 8, 3), (4, 8, 8, 3)), model_name="dmd", n_modes=2,
+                      n_predict=4, input_feature=2, N_autoregressive=1, device="cpu")
+    pred, _, _ = make_rollout_fn(dmd, IdentityNormalizer(), 1)(
+        torch.rand(1, 4, 8, 8, 3), torch.zeros(1, 4, 8, 8, 3))
+    assert pred.shape == (1, 4, 8, 8, 2) and bool(torch.isfinite(pred).all())
     assert kernels.library.cache_info().currsize == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     assert len(names) >= 21, names

@@ -961,6 +961,32 @@ def test_ta_bwd_mma_at_the_unet_step_site_counts(cuda, level, S):
     assert kernels.VARIANTS["ta_bwd"] == {"fma": 0, "mma": 2, "tf32": 0}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T, S", [(12, 2048), (12, 512), (8, 512)],
+                         ids=["T12_level0", "T12_level1", "T8"])
+def test_ta_kernels_at_the_wdno_padded_t(cuda, T, S, dtype):
+    """Both TA kernels at the T of WDNO's padded coefficient grid (12 for
+    the cylinder's 10 coefficient frames, 8 for controlled_cylinder's 5), at
+    its per-level site counts (4 heads of 32, batch 2), in the tensor-core
+    variant each dtype chooses (tf32, mma; T not a multiple of the tiles'
+    padding): against the twin, each repeat bit-equal."""
+    B, h, d = 2, 4, 32
+    tc = "mma" if dtype == torch.bfloat16 else "tf32"
+    assert kernels.ta_fwd_variant(dtype, T, h, d) == kernels.ta_bwd_variant(dtype, T, h, d) == tc
+    g = torch.Generator(device=cuda).manual_seed(8 + T + S)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    q = (rn(B, S, T, h * d) * d ** -0.5).to(dtype)
+    k, v, do = (rn(B, S, T, h * d).to(dtype) for _ in range(3))
+    pb = rn(h, T, T)
+    kernels.reset_launches()
+    o = kernels.ta_fwd(q, k, v, pb, h)
+    _close(o, tta.temporal_attention_tokens_plain(q, k, v, pb, h), dtype)
+    assert torch.equal(o, kernels.ta_fwd(q, k, v, pb, h))
+    got = _ta_bwd_check(q, k, v, pb, do, h, dtype)
+    assert all(torch.equal(u, w) for u, w in zip(got, kernels.ta_bwd(q, k, v, pb, do, h)))
+    assert kernels.VARIANTS["ta_fwd"][tc] == 2 and kernels.VARIANTS["ta_bwd"][tc] == 2
+
+
 def test_k3f_and_ta_bwd_variants_refuse_what_they_do_not_take(cuda):
     """A named mma variant on f32, at a width, head width or T it is not
     built for raises; an unknown name raises; TA's kernels both refuse a

@@ -313,9 +313,12 @@ def test_build_model_defaults_to_the_card_and_the_rest_still_raise():
     out = m.predict(torch.zeros(1, *SI))
     assert m.compute_dtype == torch.bfloat16 and out.dtype == torch.float32
     assert out.shape == (1, *SO)
-    for name in ("wdno", "dmd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(shapes=(SI, SO), model_name=name, device="cpu")
+    # every family of the JAX registry builds now, the last two among them
+    assert type(build_model(shapes=(SI, SO), model_name="wdno", dim=8,
+                            device="cpu")).__name__ == "WDNO"
+    dmd = build_model(shapes=(SI, SO), model_name="dmd", n_modes=2, n_predict=SO[0],
+                      input_feature=2, N_autoregressive=1, device="cpu")
+    assert not dmd.trainable
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_model(shapes=(SI, SO), **KW)
