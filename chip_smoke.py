@@ -344,6 +344,35 @@ switches (cudnn's on) and must leave them full f32 (C1).
                seconds a window in both backends, and the bf16 FNO
                loop for 4 steps with --use_hf_dataset true (exact counts).
                Where it does not, one line says so.
+ 19. sim_step  the simulation generators (realpdebench_tpu_torch/sim:
+               plain PyTorch on cuFFT, every inverse FFT through
+               ops/spectral.irfftn, no kernel of the port's, every count
+               0) at their default geometries from one seeded f32 initial
+               state: 20 substeps of the cylinder stepper (256x128, Re
+               100) and of the FSI stepper (u, v, xc, vc) and 5 of the
+               wing stepper (96x64x32), static and pitching, against the
+               port's float64 copy on the card; one substep of each
+               against the CPU's f32 port (SIM_VS_F64, SIM_VS_CPU,
+               SIM_COEF_ABS, fixed before the first card run).
+ 20. sim_anchor  the JAX package's Strouhal/CD anchor (tests/test_sim.py)
+               on the port at the default SolverConfig, never cut: Re 100
+               and 200, 1500 frames of 4 substeps each; CL rms above 0.08,
+               mean CD and St inside its bands; frames/s, substeps/s, and
+               the device's idle share over 40 substeps (device time
+               traced, wall time untraced).
+ 21. sim_generate  the four sweeps through their array route (the
+               *_sweep functions: no h5py here) at their default geometry
+               (cylinder, controlled cylinder, FSI: 256x128, 64 frames of
+               warm-up, 4 substeps; the foil: 96x64x32, 32 of warm-up,
+               static and pitching at 5°), 2 simulations of 128 frames
+               each (4 of 256 shipped: SIM_SWEEP_CUT, under
+               "reduced"), each tree read back by the port's Cylinder,
+               ControlledCylinder, FSI and Foil through
+               data.fluid.with_arrays (file names parse, windows finite,
+               shapes printed); frames/s a sweep.
+ 22. sim_env   FlowEnv.reset() and three step(a) calls at the default
+               geometry: the observation's shape, finite cd and cl, the
+               JAX env's info keys; ms a step.
 Each loop phase lists its cuts under "reduced" beside the shipped values:
 the tree, n_sim_frame, the split sizes, generated id files, num_update,
 max_to_keep, compute_dtype (the dtype the path ran: bfloat16, or null for
@@ -351,6 +380,8 @@ f32 as shipped), the eval's test_mode, and N_plot and
 N_plot_probe, which are 0 where matplotlib is missing.
 `python3 chip_smoke.py --only-loop` runs env, build and phases 14-18 alone
 and prints neither the summary nor the result line.
+`python3 chip_smoke.py --only-sim` runs env and phases 19-22 alone (no
+build, no summary, no result line).
 `python3 chip_smoke.py --limit-controls` runs env and limit_controls alone
 (no build, no summary, no result line): the readings of FAMILY_FREE_KINKS
 and FAMILY_BF16_ZERO_GRAD from CNO's and MWT's sound steps beside those of
@@ -393,6 +424,8 @@ from realpdebench_tpu_torch.ops import galerkin as tga
 from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops import temporal_attention as tta
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
+from realpdebench_tpu_torch.sim import env as flow_env
+from realpdebench_tpu_torch.sim import generate, ns2d, ns3d
 from realpdebench_tpu_torch.train import build_optimizer, make_train_step
 from realpdebench_tpu_torch.utils.misc import (
     make_generator,
@@ -4701,6 +4734,325 @@ def phase_arrow(dev, run: LoopRun):
     return launches
 
 
+# the simulation generators (realpdebench_tpu_torch/sim, phases 19-22): the
+# 2-D cylinder / FSI solver and the 3-D wing solver at their default
+# geometries, plain PyTorch on cuFFT (every inverse through
+# ops/spectral.irfftn), no kernel of the port's. Limits fixed in PERF.md §6
+# (the sim's entry) before the first card run, from float64 CPU replays
+# (tools/torch_sim_precision.py: the cylinder u 1.8e-6, p 8.1e-6, cd 2.3e-5
+# after 20 substeps; FSI u 1.1e-5, v 1.5e-5, p 1.6e-5, the moving body's
+# fraction evaluated in each precision; the wing 1e-6, p 3.4e-6 after 5).
+SIM_VS_F64 = {  # max|Δ| / max|ref| after SIM_STEPS_2D (SIM_STEPS_3D) substeps
+    "cylinder": dict(u=1e-5, v=1e-5, p=5e-5),
+    "fsi": dict(u=1e-4, v=1e-4, p=1e-4, xc=1e-5, vc=5e-5),
+    "wing": dict(u=1e-5, v=1e-5, w=1e-5, p=5e-5)}
+SIM_VS_CPU = dict(u=5e-6, v=5e-6, w=5e-6, p=5e-6, xc=1e-5, vc=1e-5)  # one substep
+SIM_COEF_ABS = 1e-4              # cd, cl absolute (cl is ~1e-4 before shedding)
+SIM_STEPS_2D, SIM_STEPS_3D = 20, 5
+SIM_ANCHOR = ((100.0, (1.10, 1.55), (0.150, 0.205)),   # Re, mean CD band, St band
+              (200.0, (1.20, 1.60), (0.165, 0.215)))   # (the JAX package's tests/test_sim.py)
+SIM_ANCHOR_FRAMES, SIM_ANCHOR_SUBSTEPS, SIM_ANCHOR_CL_RMS = 1500, 4, 0.08
+SIM_PROFILE_SUBSTEPS = 40        # substeps traced for the idle share
+# the sweeps cut to 2 simulations of 128 frames (after the shipped warm-up)
+# for the whole run's time limit: 76 s at the defaults on an H100 80GB HBM3
+# at 700 W (PERF.md §6)
+SIM_SWEEP_CUT = dict(n_sim=(2, 4), n_frames=(128, 256))  # {argument: (here, shipped)}
+SIM_ENV_ACTIONS = (0.0, 0.5, -0.5)
+SIM_ENV_INFO = {"cd", "cl", "body_boundary", "pressure"}  # the JAX env's info keys
+
+
+def _sim_rel(got, ref) -> float:
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def _sim_check(what: str, got: dict, ref: dict, limits: dict) -> dict:
+    """Fields by max|Δ|/max|ref| within ``limits``, cd and cl absolute
+    within SIM_COEF_ABS; the row of readings beside their limits."""
+    row = {}
+    for k, ref_v in ref.items():
+        if k in ("cd", "cl"):
+            row[k] = dict(abs=abs(float(got[k]) - float(ref_v)), limit_abs=SIM_COEF_ABS)
+            ok = row[k]["abs"] <= SIM_COEF_ABS
+        else:
+            row[k] = dict(rel=_sim_rel(got[k], ref_v), limit_rel=limits[k])
+            ok = row[k]["rel"] <= limits[k]
+        if not ok:
+            raise AssertionError(f"{what}: {k} off its reference: {row}")
+    return row
+
+
+def _sim_run(step, state, n: int, body=None) -> dict:
+    """``n`` substeps of the 2-D stepper (``body`` given) or the FSI one
+    from ``state``; the last state and aux by name."""
+    for _ in range(n):
+        if body is None:
+            state, (p, cd, cl, _) = step(state)
+        else:
+            state, (p, cd, cl) = step(state, body)
+    names = ("u", "v", "xc", "vc") if body is None else "uv"
+    return dict(zip(names, state), p=p, cd=cd, cl=cl)
+
+
+def phase_sim_step(dev) -> dict:
+    """sim_step: at the default geometries, from one f32 initial state, the
+    card's f32 steppers against the port's float64 copy on the card
+    (SIM_STEPS_2D substeps of the cylinder and FSI steppers, SIM_STEPS_3D of
+    the wing, static and pitching) and one substep against the CPU's f32
+    port (the pressure first shows a wrong inverse FFT route)."""
+    kernels.reset_launches()
+    cpu = torch.device("cpu")
+    rows = {}
+    gen = lambda: make_generator(0)
+
+    cfg = ns2d.SolverConfig()
+    fsi = ns2d.FSIConfig()
+    u, v = ns2d.initial_state(cfg, gen(), device=dev)
+    state_fsi = lambda d, dt: (u.to(d, dt), v.to(d, dt),
+                               torch.tensor(cfg.center, device=d).to(dt),
+                               torch.zeros(2, device=d, dtype=dt))
+    f64 = torch.float64
+    for name, make, body_of, state_of in (
+            ("cylinder", lambda d: ns2d.make_stepper(cfg, device=d),
+             lambda d: ns2d.cylinder_fraction(cfg, device=d),
+             lambda d, dt: (u.to(d, dt), v.to(d, dt))),
+            ("fsi", lambda d: ns2d.make_fsi_stepper(cfg, fsi, device=d), lambda d: None,
+             state_fsi)):
+        step, body = make(dev), body_of(dev)
+        got = _sim_run(step, state_of(dev, torch.float32), SIM_STEPS_2D, body)
+        ref = _sim_run(step, state_of(dev, f64), SIM_STEPS_2D, body)
+        rows[f"{name}_vs_f64_{SIM_STEPS_2D}"] = _sim_check(name, got, ref, SIM_VS_F64[name])
+        one = _sim_run(step, state_of(dev, torch.float32), 1, body)
+        ref1 = _sim_run(make(cpu), state_of(cpu, torch.float32), 1, body_of(cpu))
+        rows[f"{name}_vs_cpu_1"] = _sim_check(name, one, ref1, SIM_VS_CPU)
+
+    cfg3 = ns3d.Solver3DConfig()
+    s3 = ns3d._initial_state(cfg3, gen(), None, dev)
+
+    def wing(name, d):
+        """The wing's substep j on device ``d``, static or pitching."""
+        if name == "wing_static":
+            step = ns3d.make_stepper_3d(cfg3, device=d)
+            body = ns3d.wing_fraction(cfg3, device=d)
+            return lambda state, j: step(state, body)
+        pitching = ns3d.make_pitching_stepper(cfg3, 5.0, 0.5, device=d)
+        ts = torch.arange(SIM_STEPS_3D, dtype=torch.float32, device=d) * cfg3.dt
+        return lambda state, j: pitching(state, ts[j])
+
+    def run(fn, state, n):
+        for j in range(n):
+            state, p = fn(state, j)
+        p = p[0] if isinstance(p, tuple) else p    # the pitching stepper's (p, aoa)
+        return dict(zip("uvw", state), p=p)
+
+    for name in ("wing_static", "wing_pitching"):
+        on_dev = wing(name, dev)
+        got = run(on_dev, s3, SIM_STEPS_3D)
+        ref = run(on_dev, tuple(x.double() for x in s3), SIM_STEPS_3D)
+        rows[f"{name}_vs_f64_{SIM_STEPS_3D}"] = _sim_check(name, got, ref, SIM_VS_F64["wing"])
+        ref1 = run(wing(name, cpu), tuple(x.cpu() for x in s3), 1)
+        rows[f"{name}_vs_cpu_1"] = _sim_check(name, run(on_dev, s3, 1), ref1, SIM_VS_CPU)
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH["sim_step"] = _expect(launches, "the sim's steppers (sim_step)")
+    emit(dict(phase="sim_step", geometry=dict(cylinder=[cfg.nx, cfg.ny],
+                                             wing=[cfg3.nx, cfg3.ny, cfg3.nz]),
+              launches=launches, limits=dict(vs_f64=SIM_VS_F64, vs_cpu=SIM_VS_CPU,
+                                             coef_abs=SIM_COEF_ABS), checks=rows))
+    return launches
+
+
+def _sim_idle(fn, what: str) -> dict:
+    """torch.profiler over ``fn()``: the kernels' device time, the launches,
+    and the device's idle share against the wall time of an untraced
+    ``fn()`` (the profiler's own overhead stretches the traced wall time,
+    printed beside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_wall = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
+    return dict(traced=what, wall_ms=wall, traced_wall_ms=traced_wall, device_ms=device,
+                idle_share=1 - device / wall,
+                kernel_launches=sum(e.count for e in rows),
+                kernels=[dict(name=e.key[:120], ms=e.self_device_time_total / 1e3,
+                              count=e.count) for e in top])
+
+
+def phase_sim_anchor(dev) -> dict:
+    """sim_anchor: the JAX package's Strouhal/CD anchor on the port, on the
+    card, at the default SolverConfig (256x128, never cut): Re 100 and 200,
+    SIM_ANCHOR_FRAMES frames of SIM_ANCHOR_SUBSTEPS substeps from a seeded
+    perturbation; over the second half, CL's rms above SIM_ANCHOR_CL_RMS,
+    mean CD and the Strouhal number (the CL spectrum's peak times D_eff /
+    u∞) inside the bands. Frames/s, substeps/s, and the idle share of
+    SIM_PROFILE_SUBSTEPS traced substeps."""
+    kernels.reset_launches()
+    runs = []
+    for re_, cd_band, st_band in SIM_ANCHOR:
+        cfg = ns2d.SolverConfig(reynolds=re_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames, cd, cl = ns2d.simulate(cfg, make_generator(0), SIM_ANCHOR_FRAMES,
+                                       SIM_ANCHOR_SUBSTEPS, device=dev)
+        cd, cl = cd.cpu().numpy().astype(np.float64), cl.cpu().numpy().astype(np.float64)
+        seconds = time.perf_counter() - t0
+        finite = bool(torch.isfinite(frames).all())
+        del frames
+        tail = slice(SIM_ANCHOR_FRAMES // 2, None)
+        mean_cd = float(cd[tail].mean())
+        cl_t = cl[tail] - cl[tail].mean()
+        spec = np.abs(np.fft.rfft(cl_t))
+        freqs = np.fft.rfftfreq(len(cl_t), d=cfg.dt * SIM_ANCHOR_SUBSTEPS)
+        f0 = float(freqs[1:][spec[1:].argmax()])
+        st = f0 * (2.0 * ns2d.force_reference(cfg) / cfg.u_inf**2) / cfg.u_inf
+        row = dict(reynolds=re_, mean_cd=mean_cd, cd_band=cd_band, strouhal=st,
+                   st_band=st_band, cl_rms=float(cl_t.std()), cl_rms_min=SIM_ANCHOR_CL_RMS,
+                   seconds=seconds, frames_per_s=SIM_ANCHOR_FRAMES / seconds,
+                   substeps_per_s=SIM_ANCHOR_FRAMES * SIM_ANCHOR_SUBSTEPS / seconds)
+        runs.append(row)
+        if not (finite and cl_t.std() > SIM_ANCHOR_CL_RMS and cd_band[0] < mean_cd < cd_band[1]
+                and st_band[0] < st < st_band[1]):
+            raise AssertionError(f"sim_anchor: Re {re_} outside the anchor: {row} "
+                                 f"(fields finite: {finite})")
+    cfg = ns2d.SolverConfig()
+    step = ns2d.make_stepper(cfg, device=dev)
+    body = ns2d.cylinder_fraction(cfg, device=dev)
+    state = ns2d.initial_state(cfg, make_generator(0), device=dev)
+    state = _sim_run(step, state, 8, body)
+    state = (state["u"], state["v"])
+
+    def substeps():
+        s = state
+        for _ in range(SIM_PROFILE_SUBSTEPS):
+            s, _ = step(s, body)
+
+    profile = _sim_idle(substeps, f"{SIM_PROFILE_SUBSTEPS} substeps at Re 100")
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH["sim_anchor"] = _expect(launches, "the anchor (sim_anchor)")
+    emit(dict(phase="sim_anchor", geometry=[cfg.nx, cfg.ny], frames=SIM_ANCHOR_FRAMES,
+              substeps=SIM_ANCHOR_SUBSTEPS, launches=launches, runs=runs, profile=profile))
+    return launches
+
+
+def _sim_sweeps():
+    """(name, sweep function, keywords, dataset class) of the four sweeps at
+    their defaults, the foil's static and pitching, with SIM_SWEEP_CUT."""
+    from realpdebench_tpu_torch.data import fluid
+
+    table = (("cylinder", generate.cylinder_sweep, {}, fluid.Cylinder),
+             ("controlled_cylinder", generate.controlled_sweep, {}, fluid.ControlledCylinder),
+             ("fsi", generate.fsi_sweep, {}, fluid.FSI),
+             ("foil", generate.foil_sweep, {}, fluid.Foil),
+             ("foil_pitching", generate.foil_sweep, dict(pitch_amp_deg=5.0), fluid.Foil))
+    cuts = {k: here for k, (here, _) in SIM_SWEEP_CUT.items()}
+    for name, fn, kw, cls in table:
+        yield name, fn, dict(kw, **cuts), cls
+
+
+def phase_sim_generate(dev) -> dict:
+    """sim_generate: the four sweeps through the array route (the *_sweep
+    functions: no h5py on this host) at their default geometries (256x128;
+    the foil 96x64x32, static and pitching at 5°), warm-up and substeps,
+    with SIM_SWEEP_CUT's simulations and frames, each tree read back by
+    the port's dataset class through data.fluid.with_arrays: the file
+    names parse, the windows are finite, their shapes printed. Frames/s of
+    each sweep (warm-up included)."""
+    import inspect
+    import re
+    import tempfile
+
+    from realpdebench_tpu_torch.data import fluid
+
+    kernels.reset_launches()
+    rows = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_sim_")
+    for name, fn, kw, cls in _sim_sweeps():
+        defaults = {k: p.default for k, p in inspect.signature(fn).parameters.items()}
+        args = dict(defaults, **kw)
+        n_frames, n_sim = args["n_frames"], args["n_sim"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep = fn(device=dev, **kw)
+        seconds = time.perf_counter() - t0
+        total = n_sim * (n_frames + args["warmup_frames"])
+        for fname in sweep.arrays:
+            if not re.match(cls.file_name_pattern, fname):
+                raise AssertionError(f"sim_generate: {fname} does not parse as {cls.__name__}")
+        scenario = sweep.scenario
+        ds = fluid.with_arrays(cls, {"numerical": sweep.arrays})(
+            scenario, os.path.join(root, name), "numerical", "train",
+            n_sim_frame=n_frames, n_sim_in_distribution=1, n_sim_out_distribution=1,
+            generate_ids_if_missing=True, mask_prob=0.0)
+        items = [ds[i] for i in (0, len(ds) - 1)]
+        if not all(np.isfinite(a).all() for item in items for a in item):
+            raise AssertionError(f"sim_generate: {name}'s windows are not finite")
+        first = next(iter(sweep.arrays.values()))
+        rows[name] = dict(
+            files=sorted(sweep.arrays), n_sim=n_sim, frames=n_frames,
+            warmup_frames=args["warmup_frames"], substeps=args["substeps"],
+            field_shape=list(first["u"].shape),
+            datasets=sorted(k for k in first if k not in generate.MEASURED),
+            attrs=sweep.attrs[next(iter(sweep.arrays))], seconds=seconds,
+            frames_per_s=total / seconds, windows=len(ds),
+            window_shapes=[list(a.shape) for a in items[0]], dataset=cls.__name__,
+            reduced=SIM_SWEEP_CUT)
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH["sim_generate"] = _expect(launches, "the sweeps (sim_generate)")
+    emit(dict(phase="sim_generate", launches=launches, sweeps=rows))
+    return launches
+
+
+def phase_sim_env(dev) -> dict:
+    """sim_env: FlowEnv at the default geometry on the card: reset(), then
+    one step(a) for each of SIM_ENV_ACTIONS: the observation's shape, finite
+    cd and cl, the info keys the JAX env returns; ms a step."""
+    kernels.reset_launches()
+    env = flow_env.FlowEnv(device=dev)
+    cfg = env.cfg
+    obs = env.reset()
+    shape = (cfg.nx * cfg.ny * 2,)
+    steps, times = [], []
+    for a in SIM_ENV_ACTIONS:
+        t0 = time.perf_counter()
+        obs, reward, done, info = env.step(a)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if obs.shape != shape or set(info) != SIM_ENV_INFO or done:
+            raise AssertionError(f"sim_env: obs {obs.shape}, info {sorted(info)}, done {done}")
+        if not (np.isfinite(info["cd"]) and np.isfinite(info["cl"]) and np.isfinite(obs).all()):
+            raise AssertionError(f"sim_env: not finite after action {a}: {info['cd']}, "
+                                 f"{info['cl']}")
+        steps.append(dict(action=a, cd=info["cd"], cl=info["cl"], reward=reward))
+    launches = dict(kernels.LAUNCHES)
+    VARIANTS_BY_PATH["sim_env"] = _expect(launches, "the env (sim_env)")
+    emit(dict(phase="sim_env", obs_shape=list(shape), info_keys=sorted(SIM_ENV_INFO),
+              steps=steps, ms_per_step=times, substeps=env.substeps, launches=launches))
+    return launches
+
+
+def sim_phases(dev) -> dict:
+    """Phases 19-22, their launch counts by path (all 0)."""
+    out = {"sim_step": phase_sim_step(dev)}
+    _free()
+    out["sim_anchor"] = phase_sim_anchor(dev)
+    _free()
+    out["sim_generate"] = phase_sim_generate(dev)
+    _free()
+    out["sim_env"] = phase_sim_env(dev)
+    _free()
+    return out
+
+
 def loop_and_eval(dev) -> dict:
     """The loop and eval phases of each loop path, then the Arrow backend
     and the DPOT finetune, on one synthetic tree; then the train-surrogate
@@ -4744,6 +5096,11 @@ def main() -> None:
         # alone, without the summary and result lines
         phase_build()
         loop_and_eval(dev)
+        return
+    if sys.argv[1:] == ["--only-sim"]:
+        # the simulation generators' phases alone, without the build, the
+        # summary and the result lines
+        sim_phases(dev)
         return
     norm = gaussian_normalizer()
     if sys.argv[1:] == ["--limit-controls"]:
@@ -4811,6 +5168,7 @@ def main() -> None:
             by_path.update(family_phases(dev, norm, family))
     by_path["cno_lrelu"] = phase_cno_lrelu(dev, norm)
     by_path.update(loop_and_eval(dev))
+    by_path.update(sim_phases(dev))
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
              launches=sum(p[k] for p in by_path.values()),

@@ -1,12 +1,14 @@
 """The port stands alone: importing every module of realpdebench_tpu_torch
 (the Arrow data layer, the converter, the plots, the surrogate pipeline,
-DPOT, WDNO with its wavelet transform, DMD and the parity CLI among them)
+DPOT, WDNO with its wavelet transform, DMD, the parity CLI and the
+simulation generators among them)
 loads neither JAX nor the JAX package, nor the data layer's optional
 packages (datasets, pyarrow, huggingface_hub, h5py, matplotlib), and
 running it on the CPU (the FNO, the UNet, the Galerkin Transformer,
-DeepONet, Transolver, DPOT, CNO in both activation modes, MWT, WDNO and
-DMD) never builds or loads the CUDA kernels. Checked in a fresh
-interpreter, since this test process has both packages loaded."""
+DeepONet, Transolver, DPOT, CNO in both activation modes, MWT, WDNO, DMD
+and the 2-D and 3-D solvers) never builds or loads the CUDA kernels.
+Checked in a fresh interpreter, since this test process has both packages
+loaded."""
 
 import os
 import subprocess
@@ -36,7 +38,8 @@ _SCRIPT = textwrap.dedent("""
               "tools.generate_surrogate_data", "tools.numerical_real_compare",
               "models.dpot", "models.dpot3d", "models.cno", "models.mwt",
               "ops.filtered_lrelu", "ops.multiwavelet", "models.wdno", "ops.wavelet",
-              "models.dmd", "eval.parity"):
+              "models.dmd", "eval.parity", "sim.ns2d", "sim.ns3d", "sim.env",
+              "sim.generate"):
         assert pkg.__name__ + "." + n in names, n
 
     def refuse_build():
@@ -120,6 +123,13 @@ _SCRIPT = textwrap.dedent("""
     pred, _, _ = make_rollout_fn(dmd, IdentityNormalizer(), 1)(
         torch.rand(1, 4, 8, 8, 3), torch.zeros(1, 4, 8, 8, 3))
     assert pred.shape == (1, 4, 8, 8, 2) and bool(torch.isfinite(pred).all())
+    from realpdebench_tpu_torch.sim import ns2d, ns3d
+    frames, cd, _ = ns2d.simulate(ns2d.SolverConfig(nx=16, ny=16), None, 2, 1,
+                                  noise=torch.zeros(16, 16), device="cpu")
+    assert frames.shape == (2, 16, 16, 3) and bool(torch.isfinite(cd).all())
+    foil = ns3d.simulate_foil(ns3d.Solver3DConfig(nx=8, ny=8, nz=4), torch.Generator(), 1, 1,
+                              device="cpu")
+    assert foil.shape == (1, 8, 8, 3) and bool(torch.isfinite(foil).all())
     assert kernels.library.cache_info().currsize == 0
     assert all(v == 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
     assert len(names) >= 21, names
