@@ -57,6 +57,12 @@ JSON line each; any failure raises (non-zero exit, no result line):
                surrogate's (width 64, modes 4/16/16) at its own 20x128x128
                windows (Hp = Wp = 134), F = 1, batch 16, in float32 (its
                shipped dtype), each kernel also timed beside its bound.
+               combustion_tail: K3F and K3B at the combustion scenario's
+               own window (20x64x64, Hp = Wp = 70, C 64, batch 2) at its F
+               16 (fc2 over two n-tiles) and at F 9 (the second tile part
+               filled): mma in bfloat16, tf32 in float32 and, named, fma in
+               both, against the twins and each other, two calls bit-equal;
+               at F 16 each timed (queued) beside its bound.
   5. slice     the cylinder FNO3d at the benchmark configuration (width 64,
                4 layers, bf16 compute, seeded random weights) rolled out 10
                steps at batch 8 through make_rollout_fn; the launch counters
@@ -88,6 +94,22 @@ JSON line each; any failure raises (non-zero exit, no result line):
                and the running statistics against the plain f32 step within
                F32_LIMITS (1e-5 relative; 1e-4 relative L2); then its
                profile (train_f32_profile).
+  7d. mesh_dp1  the loops' data-parallel step (core/mesh) on one card:
+               the cylinder FNO's f32 step at batch 32 with grad_accum 2
+               (strided microbatches) under mesh_shape dp=1, 3 steps without
+               a process group and the same 3 in an nccl group of world size
+               1 (a file store): parameters, statistics and losses bit for
+               bit equal, the all-reduces counted. Multi-card speed is not
+               measured on a one-card host.
+  7e. combustion_fno_train_f32, combustion_fno_rollout_f32  the combustion
+               scenario's FNO (configs/combustion/fno.yaml: width 64, 16
+               channels in and out, so the fused tail at F 16) on
+               synthetic 20x64x64x16 windows in f32 as shipped: its step at
+               batch 64 (exact launch and variant counts: K3F and K3B tf32
+               once each), a step at batch 32 within F32_LIMITS of the
+               plain f32 step, two passes bit-equal, steps/s and peak
+               memory; its rollout at test batch 64 within 1e-4 of the
+               plain f32 path, frames/s.
   7c. surrogate_fno_train_f32, surrogate_fno_rollout_f32  the combustion
                surrogate FNO (configs/combustion/surrogate_model/fno.yaml:
                modes 4/16/16, width 64, 4 layers, 17 → 1 channels) on
@@ -282,13 +304,14 @@ JSON line each; any failure raises (non-zero exit, no result line):
                as its residual share 1 - r2, here and against the CPU).
  16. unet_loop, unet_eval  phases 14 and 15 for configs/cylinder/unet.yaml
                (dim 64, dim_mults 1/2/4, batch 12 and test batch 12 as
-               shipped, N_autoregressive 5) in bf16 on the same tree: 12
+               shipped, N_autoregressive 5) in bf16 on the same tree: 3
                steps (validation and a checkpoint every step, as
-               num_update // 50 is 0 below 100 steps; iterations 10-12
-               traced), a resume to 13, no finetune; exact TA forward and
-               backward counts, all mma; reload bit-equal; the card's
+               num_update // 50 is 0 below 100 steps; no traced
+               iteration, for the run's time limit), a resume to 4, no
+               finetune; exact TA forward and backward counts,
+               all mma; reload bit-equal; the card's
                metrics within 1e-4 of the CPU's; loop steps/s beside the
-               bare step's (phase 10), idle share, peak memory. Eval over
+               bare step's (phase 10), peak memory. Eval over
                the test split's unseen trajectories (test_mode unseen: 8
                windows, 1 batch), against the plain f32 path as in 15.
  17. gk_loop, gk_eval  the same for configs/cylinder/galerkin_transformer.yaml
@@ -302,9 +325,10 @@ JSON line each; any failure raises (non-zero exit, no result line):
                batches (32, 16, 16 and 32; test batch 64 but Transolver's
                16, N_autoregressive 10, 3, 3 and 3): every kernel count 0;
                eval against the same checkpoint's f32 rollout. CNO's
-               loop runs 2 steps (CNO_LOOP_STEPS: a CNO validation of the
-               54 windows is ≈ 140 TFLOP in full f32) and a resume to 3:
-               no traced iteration, no StepTimer window.
+               and Transolver's loops run 2 steps (CNO_LOOP_STEPS: a CNO
+               validation of the 54 windows is ≈ 140 TFLOP in full f32)
+               and are not resumed, DeepONet's and MWT's 3 and a resume to
+               4: no traced iteration, no StepTimer window.
  17b'. wdno_loop, wdno_eval, dmd_eval  configs/cylinder/wdno.yaml in its
                shipped f32 through train on the same tree: 1 step with its
                one validation sweep (54 windows, each a 10-step DDIM
@@ -364,7 +388,7 @@ switches (cudnn's on) and must leave them full f32 (C1).
                *_sweep functions: no h5py here) at their default geometry
                (cylinder, controlled cylinder, FSI: 256x128, 64 frames of
                warm-up, 4 substeps; the foil: 96x64x32, 32 of warm-up,
-               static and pitching at 5°), 2 simulations of 128 frames
+               static and pitching at 5°), 2 simulations of 64 frames
                each (4 of 256 shipped: SIM_SWEEP_CUT, under
                "reduced"), each tree read back by the port's Cylinder,
                ControlledCylinder, FSI and Foil through
@@ -408,6 +432,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from unittest import mock
 
@@ -496,6 +521,25 @@ GEOMETRIES = (("combustion", 64, (4, 16, 16), SHAPE_IN[:3], SHAPE_OUT[-1], GEO_B
               ("fsi", 128, (4, 16, 16), SHAPE_IN[:3], SHAPE_OUT[-1], GEO_BATCH,
                (torch.float32, torch.bfloat16), False),
               ("surrogate", 64, (4, 16, 16), SURROGATE_WINDOW, 1, 16, (torch.float32,), True))
+# the combustion scenario's FNO as shipped (configs/combustion/fno.yaml:
+# modes 4/16/16, width 64, 4 layers, batch 64 and test batch 64, lr 0.01,
+# f32) on synthetic 20x64x64x16 windows: the step compared with the plain
+# f32 step at COMBUSTION_CMP_BATCH (the plain step keeps every activation),
+# one timed window, one timed rollout
+COMBUSTION_CONFIG = "combustion/fno.yaml"
+COMBUSTION_SHAPE = (20, 64, 64, 16)
+COMBUSTION_STEP_BATCH = 64           # its train_batch_size
+COMBUSTION_CMP_BATCH = 32
+COMBUSTION_WINDOWS = (1, 3)          # (windows, steps a window)
+COMBUSTION_ROLLOUTS = 1
+# the loops' data-parallel step at dp=1 (phase_mesh_dp1): steps a run
+MESH_STEPS = 3
+# the combustion scenario's own window (configs/combustion/fno.yaml:
+# 20x64x64 windows of 16 channels in and out, width 64, padding 6): the
+# fused tail at its F 16 (fc2 over two n-tiles) and at F 9 (the second
+# n-tile part filled)
+TAIL_WINDOW = (20, 64, 64)
+TAIL_F = (16, 9)
 # the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16, 4 layers,
 # batch 32, lr 0.01 over 5000 updates, Gaussian normalizer; compute_dtype
 # null, which the port takes as float32), trained in float32 and bfloat16;
@@ -3201,6 +3245,367 @@ def phase_geometries(dev) -> dict:
     return timed
 
 
+def _tail_inputs(dev, B: int, window, Cg: int, F: int, dtype, seed: int) -> tuple:
+    """s, the tail's (target, k1, b1, k2, b2), gl and the kernels' keywords
+    at a window (T, H, W) padded by PAD, width Cg and fc2 width F."""
+    T, H, W = window
+    Tp, Hp, Wp = T + PAD, H + PAD, W + PAD
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
+    s = rn(B * Tp, Hp * Wp // 2, 2 * Cg).to(dtype)
+    tail = (rn(B, T, H, W, F), rn(Cg, 128) / Cg ** 0.5, 0.1 * rn(128),
+            rn(128, F) / 128 ** 0.5, 0.1 * rn(F))
+    gl = torch.tensor(1.0 / (B * T * H * W * F), device=dev)
+    return s, tail, gl, dict(dims=(B, Tp, Hp, Wp, Cg), tail_dims=(T, H, W), act="exact")
+
+
+def phase_tail_combustion(dev) -> dict:
+    """K3F and K3B at the combustion scenario's own window (TAIL_WINDOW,
+    width 64, batch GEO_BATCH) at its F 16 (fc2 over two n-tiles) and at F 9
+    (the second n-tile part filled): the variant each dtype chooses (mma in
+    bfloat16, tf32 in float32; asserted) and, named, the fma variant, each
+    against the twin (KERNEL_TOL on ds, STATS_TOL of the sums of |terms| on
+    the SSE and the four sums), the fma variant also against the chosen
+    one, and each call twice, bit for bit. At F 16 each variant's device
+    time of queued launches beside its bound. Returns {kernel: {...}} of
+    the chosen variants' times at F 16 in float32 (the shipped dtype), with
+    the bfloat16 ones beside them."""
+    T, H, W = TAIL_WINDOW
+    B, Cg = GEO_BATCH, 64
+    timed = {"k3f": {}, "k3b": {}}
+    for F in TAIL_F:
+        for dtype in (torch.bfloat16, torch.float32):
+            s, tail, gl, kw = _tail_inputs(dev, B, TAIL_WINDOW, Cg, F, dtype, seed=40 + F)
+            tol = KERNEL_TOL[dtype]
+            tc = "mma" if dtype == torch.bfloat16 else "tf32"
+            assert kernels.k3f_variant(dtype, Cg, F) == kernels.k3b_variant(dtype, Cg, F) == tc
+            sse_ref = ft.k3f_plain(s, *tail, **kw)
+            ref = ft.k3b_plain(s, *tail, gl, **kw)
+            terms = k3b_terms(s, tail, gl, kw["dims"], kw["tail_dims"])
+            rows, times, got = [], {}, {}
+            for variant in (tc, "fma"):
+                k3f = lambda v=variant: ft.k3f(s, *tail, **kw, variant=v)
+                k3b = lambda v=variant: ft.k3b(s, *tail, gl, **kw, variant=v)
+                sse = run_as("k3f", variant, k3f)
+                out = run_as("k3b", variant, k3b)
+                rows.append(compare_sums(f"{variant}/k3f/sse", sse, sse_ref, sse_ref.abs()))
+                rows.append(compare(f"{variant}/k3b/ds", out[0], ref[0], tol))
+                for n, gv, rv, tv in zip(("dk1", "db1", "dk2", "db2"), out[1:], ref[1:], terms):
+                    rows.append(compare_sums(f"{variant}/k3b/{n}", gv, rv, tv))
+                again_f, again_b = k3f(), k3b()
+                if not (torch.equal(sse, again_f)
+                        and all(torch.equal(a, b) for a, b in zip(out, again_b))):
+                    raise AssertionError(f"tail at F {F}, {variant}: two calls differ")
+                got[variant] = (sse, out)
+                if F == max(TAIL_F):
+                    crop = B * T * H * W * Cg * s.element_size()
+                    fc = B * T * H * W * (2 * Cg * 128 + 2 * 128 * F)
+                    bf = bound(crop + nbytes(*tail, sse), fc, dtype, variant)
+                    bb = bound(crop + nbytes(*tail, gl, *out), 3 * fc, dtype, variant)
+                    times[variant] = dict(
+                        k3f=dict(ms=queued_ms([k3f], n=8, reps=5), bound_ms=bf["bound_ms"],
+                                 bound_by=bf["bound_by"]),
+                        k3b=dict(ms=queued_ms([k3b], n=8, reps=5), bound_ms=bb["bound_ms"],
+                                 bound_by=bb["bound_by"]))
+                del out, again_b
+            rows.append(compare_sums("fma_vs_chosen/k3f/sse", got["fma"][0], got[tc][0],
+                                     sse_ref.abs()))
+            rows.append(compare("fma_vs_chosen/k3b/ds", got["fma"][1][0], got[tc][1][0], tol))
+            if times:
+                plain = dict(k3f=queued_ms([lambda: ft.k3f_plain(s, *tail, **kw)], n=2, reps=3),
+                             k3b=queued_ms([lambda: ft.k3b_plain(s, *tail, gl, **kw)], n=2,
+                                           reps=3))
+                for k in ("k3f", "k3b"):
+                    entry = dict(times[tc][k], variant=tc, plain_ms=plain[k],
+                                 fma_variant_ms=times["fma"][k]["ms"],
+                                 shape=dict(B=B, window=list(TAIL_WINDOW), C=Cg, F=F))
+                    key = "f32" if dtype == torch.float32 else "bf16"
+                    timed[k][key] = entry
+            torch.cuda.synchronize()
+            lib, v = kernels.library(), 1 if tc == "mma" else 2
+            per_sm = {k: lib.fno_tail_blocks_per_sm(i, Cg, kernels.ACT_CODES["exact"], F, v)
+                      for i, k in enumerate(("k3f", "k3b"))}
+            emit(dict(phase="geometry", name="combustion_tail",
+                      dtype=str(dtype).replace("torch.", ""), blocks_per_sm=per_sm,
+                      shapes=dict(B=B, window=[T, H, W], Hp=H + PAD, Wp=W + PAD, C=Cg, F=F),
+                      variants=dict(k3f=[tc, "fma"], k3b=[tc, "fma"]),
+                      worst_rel=max(r.get("max_rel_err", r.get("max_rel_to_terms"))
+                                    for r in rows),
+                      times=times or None, checks=rows))
+            del s, tail, ref, terms, got
+            torch.cuda.empty_cache()
+            if F == max(TAIL_F):
+                # the chosen variant at the step's own batch (the twin held
+                # it at GEO_BATCH above): device time beside the bound
+                key = "f32" if dtype == torch.float32 else "bf16"
+                Bs = COMBUSTION_STEP_BATCH
+                s, tail, gl, kw = _tail_inputs(dev, Bs, TAIL_WINDOW, Cg, F, dtype, seed=60)
+                sse, out = ft.k3f(s, *tail, **kw), ft.k3b(s, *tail, gl, **kw)
+                crop = Bs * T * H * W * Cg * s.element_size()
+                fc = Bs * T * H * W * (2 * Cg * 128 + 2 * 128 * F)
+                for k, fn, bd in (
+                        ("k3f", lambda: ft.k3f(s, *tail, **kw),
+                         bound(crop + nbytes(*tail, sse), fc, dtype, tc)),
+                        ("k3b", lambda: ft.k3b(s, *tail, gl, **kw),
+                         bound(crop + nbytes(*tail, gl, *out), 3 * fc, dtype, tc))):
+                    timed[k][f"{key}_batch{Bs}"] = dict(
+                        ms=queued_ms([fn], n=4, reps=3), bound_ms=bd["bound_ms"],
+                        bound_by=bd["bound_by"], variant=tc, launches_a_step=1,
+                        shape=dict(B=Bs, window=list(TAIL_WINDOW), C=Cg, F=F))
+                emit(dict(phase="geometry", name="combustion_tail_step_batch",
+                          dtype=str(dtype).replace("torch.", ""), batch=Bs,
+                          times={k: timed[k][f"{key}_batch{Bs}"] for k in timed}))
+                del s, tail, out, sse
+                torch.cuda.empty_cache()
+    return timed
+
+
+def _combustion(dev, state=None):
+    """The combustion scenario's FNO as shipped (its config, f32), at its
+    20x64x64x16 windows."""
+    from realpdebench_tpu_torch.config import load_config
+
+    cfg = load_config(COMBUSTION_CONFIG).to_dict()
+    m = build_model(shapes=(COMBUSTION_SHAPE,) * 2, device=dev,
+                    generator=None if state is not None else make_generator(0), **cfg)
+    if state is not None:
+        m.load_state_dict(state, strict=True)
+    return m, cfg
+
+
+def combustion_normalizer():
+    """Gaussian normalizer with seeded statistics for the 16 channels."""
+    r = np.random.default_rng(21)
+    c = COMBUSTION_SHAPE[-1]
+    return build_normalizer("gaussian", stats=dict(
+        mean_inputs=r.normal(size=c), std_inputs=r.uniform(0.5, 2.0, size=c),
+        mean_targets=r.normal(size=c), std_targets=r.uniform(0.5, 2.0, size=c)))
+
+
+def phase_combustion_fno_train(dev) -> dict:
+    """configs/combustion/fno.yaml's training step at its shipped batch 64
+    in f32, on synthetic 20x64x64x16 windows, through make_train_step with
+    a Gaussian normalizer: exact launch and variant counts (every FNO
+    kernel tf32 but the T-stage, K3F and K3B tf32 at F 16 once each); at
+    COMBUSTION_CMP_BATCH the loss, every gradient and the running
+    statistics of a step from the same weights within F32_LIMITS of the
+    plain f32 step, two passes bit-equal; steps/s and peak memory. Returns
+    the counted step's launches."""
+    path = "combustion_fno_train_f32"
+    norm = combustion_normalizer()
+    model, cfg = _combustion(dev)
+    batch = int(cfg["train_batch_size"])
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(batch, *COMBUSTION_SHAPE, generator=g, device=dev)
+    y = torch.randn(batch, *COMBUSTION_SHAPE, generator=g, device=dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = build_optimizer(_train_cfg(cfg), model.parameters())
+    step = make_train_step(model, norm, opt, grad_accum=1)
+
+    # the main path, counted: nothing but this step between reset and read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = step(x, y)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {k: n for k, n in TRAIN_LAUNCHES.items() if n}
+    VARIANTS_BY_PATH[path] = _expect(launches, f"one combustion FNO step ({path})",
+                                     variants=_f32_fno_variants(want), **want)
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{path}: training loss {loss.item()} is not finite")
+
+    # the comparison at a batch the plain f32 step fits beside the kernels'
+    cb = COMBUSTION_CMP_BATCH
+    cmp_model, _ = _combustion(dev, init)
+    ref_model, _ = _combustion(dev, init)
+    cmp_step = make_train_step(cmp_model, norm, build_optimizer(_train_cfg(cfg),
+                                                                cmp_model.parameters()))
+    cmp_loss = cmp_step(x[:cb], y[:cb])
+    xn, yn = norm.preprocess(x[:cb], y[:cb])
+    ref_model.train()
+    ref_loss = ref_model(xn, y=yn, reference=True)
+    ref_loss.backward()
+    cmp = _fno_vs_plain(f"{path}: kernel step vs f32 plain step", cb, cmp_loss,
+                        _grads(cmp_model), ref_loss, _grads(ref_model), cmp_model, ref_model,
+                        F32_LIMITS)
+    del ref_model, ref_loss
+    _free()
+    rep = []
+    for _ in range(2):
+        cmp_model.zero_grad(set_to_none=True)
+        rep.append(cmp_model.loss(xn, yn))
+        rep[-1].backward()
+        rep.append(_grads(cmp_model))
+    same = torch.equal(rep[0], rep[2]) and all(torch.equal(rep[1][n], rep[3][n])
+                                               for n in rep[1])
+    if not same:
+        raise AssertionError(f"{path}: two identical forward-backward passes differ")
+    del rep, cmp_model, cmp_step
+    _free()
+    windows, window_steps = COMBUSTION_WINDOWS
+    for _ in range(WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates, losses = zip(*(_steps_per_s(step, x, y, window_steps) for _ in range(windows)))
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"{path}: training losses {losses} are not finite")
+    med = statistics.median(rates)
+    BARE_STEPS_PER_S[path] = med
+    emit(dict(phase=path, config=COMBUSTION_CONFIG, batch=batch,
+              shape=list(COMBUSTION_SHAPE), fc2_width=COMBUSTION_SHAPE[-1],
+              cfg=_train_cfg(cfg), launches=launches, variants=VARIANTS_BY_PATH[path],
+              vs_plain_f32=cmp, bitwise_repeatable=same, first_step_s=first_s,
+              window_steps_per_s=list(rates), steps_per_s=med,
+              frames_per_s=med * batch * COMBUSTION_SHAPE[0], losses=list(losses),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+              peak_mem_first_step_gb=first_peak))
+    phase_profile(step, x, y, "combustion_fno_f32_profile")
+    del model, step, opt
+    _free()
+    return launches
+
+
+def phase_combustion_fno_rollout(dev) -> dict:
+    """The combustion FNO's rollout (make_rollout_fn at the config's
+    N_autoregressive, f32 as shipped) at its test batch 64: exact launch
+    counts (K1 and K2 tf32, the T-stage registers), within
+    FAMILY_F32_ROLLOUT of the same rollout through the plain f32 path;
+    frames/s."""
+    path = "combustion_fno_rollout_f32"
+    norm = combustion_normalizer()
+    model, cfg = _combustion(dev)
+    model.eval()
+    batch, steps = int(cfg["test_batch_size"]), int(cfg["N_autoregressive"])
+    g = torch.Generator(device=dev).manual_seed(23)
+    x_raw = torch.randn(batch, *COMBUSTION_SHAPE, generator=g, device=dev)
+    y_raw = torch.randn(batch, COMBUSTION_SHAPE[0] * steps, *COMBUSTION_SHAPE[1:],
+                        generator=g, device=dev)
+    rollout = make_rollout_fn(model, norm, steps)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pred, _, _ = rollout(x_raw, y_raw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {k: steps * v for k, v in PREDICT_LAUNCHES.items()}
+    VARIANTS_BY_PATH[path] = _expect(launches, f"the combustion rollout ({path})",
+                                     variants=_f32_fno_variants(want), **want)
+    shape = (batch, steps * COMBUSTION_SHAPE[0], *COMBUSTION_SHAPE[1:])
+    if tuple(pred.shape) != shape or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"{path}: output {tuple(pred.shape)} (want {shape}) "
+                             "or not finite")
+    ref_model, _ = _combustion(dev, model.state_dict())
+    ref, _, _ = make_rollout_fn(_PlainPath(ref_model.eval()), norm, steps)(x_raw, y_raw)
+    rel_l2 = ((pred - ref).norm() / ref.norm()).item()
+    max_rel = ((pred - ref).abs().max() / ref.abs().max()).item()
+    lim_l2, lim_max = FAMILY_F32_ROLLOUT
+    row = dict(reference="plain f32 path", rel_l2=rel_l2, limit_rel_l2=lim_l2,
+               max_abs_over_max_ref=max_rel, limit_max=lim_max)
+    if not (rel_l2 <= lim_l2 and max_rel <= lim_max):
+        raise AssertionError(f"{path}: rollout vs the plain f32 path: {row}")
+    del ref_model, ref
+    secs = []
+    for _ in range(COMBUSTION_ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(x_raw, y_raw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    emit(dict(phase=path, config=COMBUSTION_CONFIG, batch=batch, steps=steps,
+              shape=list(shape), launches=launches, variants=VARIANTS_BY_PATH[path],
+              vs_plain_f32=row, first_rollout_s=first_s, rollout_s=secs,
+              frames_per_s=batch * steps * COMBUSTION_SHAPE[0] / med,
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+    del model
+    _free()
+    return launches
+
+
+def phase_mesh_dp1(dev) -> dict:
+    """The loops' data-parallel step on one card: the cylinder FNO's f32
+    step (MODEL, batch TRAIN_BATCH, grad_accum 2: strided microbatches)
+    under mesh_shape dp=1, MESH_STEPS steps without a process group, then
+    the same steps from the same weights in an nccl group of world size 1
+    (a file store, no network), its parameters and buffers broadcast from
+    rank 0, each microbatch's BatchNorm sums and the gradients and the loss
+    all-reduced: every parameter and running statistic bit for bit equal,
+    the all-reduces counted. Multi-card speed is not measured (one card).
+    Returns the launches of the group's steps."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from realpdebench_tpu_torch.core import mesh
+
+    path = "mesh_dp1"
+    g = torch.Generator(device=dev).manual_seed(24)
+    xs = [torch.randn(TRAIN_BATCH, *SHAPE_IN, generator=g, device=dev) for _ in range(MESH_STEPS)]
+    ys = [torch.randn(TRAIN_BATCH, *SHAPE_OUT, generator=g, device=dev) for _ in range(MESH_STEPS)]
+    init = None
+
+    def run():
+        nonlocal init
+        model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), device=dev,
+                            generator=None if init is not None else make_generator(0), **MODEL)
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init, strict=True)
+        opt = build_optimizer(TRAIN_CFG, model.parameters())
+        step = make_train_step(model, IdentityNormalizer(), opt, grad_accum=2,
+                               mesh=mesh.make_mesh_context("dp=1"))
+        losses = [step(x, y) for x, y in zip(xs, ys)]
+        torch.cuda.synchronize()
+        return model, torch.stack(losses)
+
+    alone, alone_losses = run()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1, device_id=dev)
+        try:
+            mesh.reset_collectives()
+            kernels.reset_launches()
+            grouped, grouped_losses = run()
+            launches = dict(kernels.LAUNCHES)
+            collectives = dict(mesh.COLLECTIVES)
+            ctx = mesh.make_mesh_context("dp=1")
+        finally:
+            dist.destroy_process_group()
+    want = {k: 2 * MESH_STEPS * n for k, n in TRAIN_LAUNCHES.items() if n}
+    VARIANTS_BY_PATH[path] = _expect(launches, f"{MESH_STEPS} dp=1 steps ({path})",
+                                     variants=_f32_fno_variants(want), **want)
+    ref = alone.state_dict()
+    differ = [k for k, v in grouped.state_dict().items() if not torch.equal(v, ref[k])]
+    if differ or not torch.equal(alone_losses, grouped_losses):
+        raise AssertionError(f"{path}: the nccl dp=1 steps differ from the steps without a "
+                             f"group: {differ or 'the losses'}")
+    n_bn = MODEL["n_layers"]
+    # a step: the loss and one a dtype of the gradients, the BatchNorm sums
+    # of every layer of every microbatch
+    min_reduces = MESH_STEPS * (2 + 2 * n_bn)
+    if not (ctx.distributed and collectives["all_reduce"] >= min_reduces
+            and collectives["broadcast"] > 0):
+        raise AssertionError(f"{path}: collectives {collectives}, distributed "
+                             f"{ctx.distributed}; expected at least {min_reduces} "
+                             "all-reduces and the broadcast")
+    emit(dict(phase=path, config="cylinder/fno.yaml (MODEL) in f32", batch=TRAIN_BATCH,
+              grad_accum=2, steps=MESH_STEPS, backend="nccl", world_size=1,
+              launches=launches, variants=VARIANTS_BY_PATH[path], collectives=collectives,
+              bit_equal_to_no_group=True, losses=alone_losses.tolist(),
+              multi_card_speed="not measured: a one-card host"))
+    del alone, grouped
+    _free()
+    return launches
+
+
 def phase_fsi_train(dev, norm) -> dict:
     """The fsi FNO's training step (FSI_MODEL at batch FSI_BATCH, Gaussian
     normalizer) in float32, the config's dtype, and in bfloat16: one counted
@@ -3561,7 +3966,28 @@ def phase_surrogate_unet_train(dev) -> dict:
     return launches
 
 
-def phase_surrogate_loop(dev) -> dict:
+def surrogate_tree() -> tuple:
+    """The surrogate loop's Arrow tree (write_surrogate_train from
+    SURROGATE_SIMS synthetic pairs, numpy on the host) in a new temporary
+    directory: (that directory, the seconds it took)."""
+    import tempfile
+
+    from realpdebench_tpu_torch.tools.convert_hdf5_to_hf import write_surrogate_train
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_surrogate_")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(18)
+    H, W = SURROGATE_WINDOW[1:]
+    pairs = ((f"{40 + 10 * i}NH3_{0.6 + 0.2 * i:.1f}.h5",
+              rng.standard_normal((SURROGATE_FRAMES, H, W), dtype=np.float32),
+              rng.standard_normal((SURROGATE_FRAMES, H, W, 15), dtype=np.float32))
+             for i in range(SURROGATE_SIMS))
+    write_surrogate_train(f"{work}/data/combustion", pairs, step=SURROGATE_WINDOW[0],
+                          n_sim_frame=SURROGATE_FRAMES)
+    return work, time.perf_counter() - t0
+
+
+def phase_surrogate_loop(dev, tree=None) -> dict:
     """python -m realpdebench_tpu_torch train-surrogate (train.surrogate.main,
     which the CLI runs) with the surrogate FNO's shipped config on an Arrow
     surrogate tree (tools.convert_hdf5_to_hf.write_surrogate_train from
@@ -3572,26 +3998,15 @@ def phase_surrogate_loop(dev) -> dict:
     T-stage); loop steps/s, peak memory. Returns its launches."""
     import math
     import shutil
-    import tempfile
 
-    from realpdebench_tpu_torch.tools.convert_hdf5_to_hf import write_surrogate_train
     from realpdebench_tpu_torch.train.surrogate import EVAL_EVERY
     from realpdebench_tpu_torch.train.surrogate import main as surrogate_main
 
     path = "surrogate_loop"
     cfg = _surrogate_cfg("fno")
-    work = tempfile.mkdtemp(prefix="chip_smoke_surrogate_")
+    H, W = SURROGATE_WINDOW[1:]
+    work, tree_s = tree or surrogate_tree()
     try:
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(18)
-        H, W = SURROGATE_WINDOW[1:]
-        pairs = ((f"{40 + 10 * i}NH3_{0.6 + 0.2 * i:.1f}.h5",
-                  rng.standard_normal((SURROGATE_FRAMES, H, W), dtype=np.float32),
-                  rng.standard_normal((SURROGATE_FRAMES, H, W, 15), dtype=np.float32))
-                 for i in range(SURROGATE_SIMS))
-        write_surrogate_train(f"{work}/data/combustion", pairs, step=SURROGATE_WINDOW[0],
-                              n_sim_frame=SURROGATE_FRAMES)
-        tree_s = time.perf_counter() - t0
         argv = ["--config", "combustion/surrogate_model/fno.yaml", "--dataset_root",
                 f"{work}/data", "--use_hf_dataset", "--results_path", f"{work}/results",
                 "--num_update", str(SURROGATE_LOOP_STEPS),
@@ -3791,15 +4206,16 @@ PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
 # the UNet's and the GK's loops and evaluations: their shipped configs in
 # bf16 on the same tree, at the shipped widths and batches. Validation (the
 # 54 real val windows) and a checkpoint come every num_update // 50 steps,
-# which below 100 steps is every step: 12 steps are what a phase of about a
-# minute buys at the UNet's ~2.5 s a validation, and trace iterations 10-12
-# (StepTimer's one window of 10 after 2 warm-up steps needs all 12). Eval
+# which below 100 steps is every step. Eval
 # reads the test split's unseen trajectories (test_mode): 8 windows at the
 # UNet's 5 steps. The plots need matplotlib: where it is missing, N_plot and
 # N_plot_probe are 0.
-MODEL_LOOP_STEPS = 12
+# the UNet's, GK's, DeepONet's and MWT's loops run 3 steps and their resume
+# a 4th (the whole run's time limit): no traced iteration, no StepTimer
+# window (the FNO's loop keeps its 12, its trace and its window)
+MODEL_LOOP_STEPS = 3
 MODEL_TEST_MODE = "unseen"
-FAMILY_LOOP_STEPS = 12
+FAMILY_LOOP_STEPS = 3
 # CNO's and Transolver's loops run 2 steps (the whole run's time limit): a
 # CNO validation of the 54 windows is ≈ 140 TFLOP in full f32, Transolver's
 # sweeps took 54 of its 12-step loop's 64 s; no traced iteration, no
@@ -3815,7 +4231,9 @@ ARROW_WINDOWS = 8       # windows of each split and type held bit for bit, and t
 # resume; the eval over the 14 unseen test windows at N_autoregressive 1
 # [5]; test batch 14 [64]: the eval's windows in one batch, the sweep's in
 # 4 (at 64 the sweep would sample 64 padded windows). The reload samples 2
-# val windows; 4 test windows go through the plain f32 path too.
+# val windows (its metrics are held card against CPU: one window's r2 is
+# too ill-conditioned for that); 4 test windows go through the plain f32
+# path too.
 WDNO_LOOP_STEPS = 1
 WDNO_TEST_BATCH = 14
 WDNO_RELOAD_WINDOWS, WDNO_PLAIN_WINDOWS = 2, 4
@@ -3828,8 +4246,9 @@ DMD_CONFIG = "cylinder/dmd.yaml"
 # (key: (value here, shipped value)). Transolver's and CNO's loops are not
 # resumed (resume False): a resume re-runs their slowest part, a
 # validation sweep, and the whole run's time limit took it; the FNO's,
-# UNet's, GK's, DeepONet's and MWT's loops hold the resume. DeepONet and Transolver run in their
-# shipped f32, at the shipped batches, and launch no kernel.
+# UNet's, GK's, DeepONet's and MWT's loops hold the resume. DeepONet and
+# Transolver run in their shipped f32, at the shipped batches, and launch no
+# kernel.
 LOOPS = {
     "loop": dict(config="cylinder/fno.yaml", dtype="bfloat16", steps=LOOP_STEPS,
                  step=TRAIN_LAUNCHES, predict=PREDICT_LAUNCHES, eval="eval", bare="train"),
@@ -4753,10 +5172,10 @@ SIM_ANCHOR = ((100.0, (1.10, 1.55), (0.150, 0.205)),   # Re, mean CD band, St ba
               (200.0, (1.20, 1.60), (0.165, 0.215)))   # (the JAX package's tests/test_sim.py)
 SIM_ANCHOR_FRAMES, SIM_ANCHOR_SUBSTEPS, SIM_ANCHOR_CL_RMS = 1500, 4, 0.08
 SIM_PROFILE_SUBSTEPS = 40        # substeps traced for the idle share
-# the sweeps cut to 2 simulations of 128 frames (after the shipped warm-up)
+# the sweeps cut to 2 simulations of 64 frames (after the shipped warm-up)
 # for the whole run's time limit: 76 s at the defaults on an H100 80GB HBM3
 # at 700 W (PERF.md §6)
-SIM_SWEEP_CUT = dict(n_sim=(2, 4), n_frames=(128, 256))  # {argument: (here, shipped)}
+SIM_SWEEP_CUT = dict(n_sim=(2, 4), n_frames=(64, 256))  # {argument: (here, shipped)}
 SIM_ENV_ACTIONS = (0.0, 0.5, -0.5)
 SIM_ENV_INFO = {"cd", "cl", "body_boundary", "pressure"}  # the JAX env's info keys
 
@@ -5053,11 +5472,13 @@ def sim_phases(dev) -> dict:
     return out
 
 
-def loop_and_eval(dev) -> dict:
+def loop_and_eval(dev, run=None, surrogate=None) -> dict:
     """The loop and eval phases of each loop path, then the Arrow backend
-    and the DPOT finetune, on one synthetic tree; then the train-surrogate
-    loop on its own Arrow tree; their launch counts by path."""
-    run = LoopRun()
+    and the DPOT finetune, on one synthetic tree (``run``, a LoopRun, or
+    one made here); then the train-surrogate loop on its own Arrow tree
+    (``surrogate``, surrogate_tree()'s, or one made there); their launch
+    counts by path."""
+    run = run or LoopRun()
     out = {}
     try:
         for path, loop in LOOPS.items():
@@ -5071,7 +5492,7 @@ def loop_and_eval(dev) -> dict:
         out["dpot_finetune"] = phase_dpot_finetune(dev, run)
     finally:
         run.close()
-    out["surrogate_loop"] = phase_surrogate_loop(dev)
+    out["surrogate_loop"] = phase_surrogate_loop(dev, surrogate)
     _free()
     return out
 
@@ -5125,7 +5546,15 @@ def main() -> None:
         summary["t_stage"][key] = max(summary["t_stage"][key], adjoint[key])
     for k, t in phase_geometries(dev).items():
         summary[k]["surrogate"] = t
+    for k, t in phase_tail_combustion(dev).items():
+        summary[k]["combustion_f16"] = t
     summary.update(phase_ta(dev))
+    # the loops' synthetic trees (numpy on the host, ≈ 20 and 8 s) are made
+    # in a thread while the card runs the steps and rollouts before the
+    # loops; not during the kernel phases above, whose queued timings need
+    # the host to queue launches faster than the card runs them
+    trees = ThreadPoolExecutor(max_workers=1)
+    tree, stree = trees.submit(LoopRun), trees.submit(surrogate_tree)
     by_path["rollout"] = phase_slice(dev)
     torch.cuda.empty_cache()
     by_path["rollout_f32"] = phase_slice(dev, compute_dtype=None)
@@ -5134,8 +5563,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     by_path["train_f32"] = phase_train(dev, compute_dtype=None)
     torch.cuda.empty_cache()
+    by_path["mesh_dp1"] = phase_mesh_dp1(dev)
     by_path["surrogate_fno_train_f32"] = phase_surrogate_fno_train(dev)
     by_path["surrogate_fno_rollout_f32"] = phase_surrogate_fno_rollout(dev)
+    by_path["combustion_fno_train_f32"] = phase_combustion_fno_train(dev)
+    by_path["combustion_fno_rollout_f32"] = phase_combustion_fno_rollout(dev)
     by_path["fsi_train"] = phase_fsi_train(dev, norm)
     torch.cuda.empty_cache()
     by_path["unet_rollout"] = phase_unet_rollout(dev, norm)
@@ -5167,7 +5599,7 @@ def main() -> None:
         if family not in BUILD_OVERLAP:
             by_path.update(family_phases(dev, norm, family))
     by_path["cno_lrelu"] = phase_cno_lrelu(dev, norm)
-    by_path.update(loop_and_eval(dev))
+    by_path.update(loop_and_eval(dev, tree.result(), stree.result()))
     by_path.update(sim_phases(dev))
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],

@@ -112,7 +112,8 @@ def make_arg_parser(description="RealPDEBench (PyTorch)") -> argparse.ArgumentPa
     parser.add_argument("--hf_endpoint", type=str, default=None)
     parser.add_argument("--hf_revision", type=str, default=None)
     parser.add_argument("--mesh_shape", type=str, default=None,
-                        help="only null (one device) is supported")
+                        help="e.g. 'dp=4' (one torchrun process a card); "
+                             "null: dp = the number of processes")
     parser.add_argument("--compute_dtype", type=str, default=None,
                         help="bfloat16 | float32 (default per-model policy)")
     parser.add_argument("--device", type=str, default="cuda",

@@ -12,7 +12,7 @@
 // ::_k3b_kernel.
 //
 //   s [B*Tp, Hp, Wp, C] (T)        target [B, T, H, W, F] (f32)
-//   k1 [C, H1], b1 [H1], k2 [H1, F], b2 [F] (f32), H1 = 128, F <= kMaxF
+//   k1 [C, H1], b1 [H1], k2 [H1, F], b2 [F] (f32), H1 = 128, F <= kMaxF (16)
 //   K3F: partial [fno_k3f_num_partials] (f32) scratch, sse [1] (f32)
 //   K3B: g [1] (f32, device), ds like s (T),
 //        partial [fno_k3b_num_partials, C*H1 + H1 + H1*F + F] (f32) scratch,
@@ -24,19 +24,19 @@
 // writes its partial sums, and fno::reduce_partials adds them in a fixed
 // order, so two identical calls are bit-equal.
 //
-// `fma` (widths other than 32, 64, 128, F > 8, misaligned s): one
+// `fma` (widths other than 32, 64, 128, misaligned s): one
 // block per (b, t) image walks its H*W cropped positions in tiles of kP. Per
 // tile it stages z (and the target) in shared memory; each thread holds a
 // 4 x 8 (hidden unit x position) register tile of u1, so a k1 value and a z
 // value read from shared memory feed 8 and 4 FMAs; h1 and then du share one
-// [kP, H1] buffer. fc2 (F <= 8 outputs) is a short loop. K3B keeps u1 in
+// [kP, H1] buffer. fc2 (F <= 16 outputs) is a short loop. K3B keeps u1 in
 // registers from the forward to du, and holds its dk1 share (32 entries a
 // thread up to C 64, 64 up to C 128) in registers across the tiles. Exact
 // f32 FMAs on the CUDA cores from shared memory: FP32 issue bounds it (fc1
 // and its two backward products are 16 kFLOP a position each at C 64), not
 // HBM.
 //
-// `mma` (bf16 s; C in {32, 64, 128}, F <= 8, 16-byte aligned s): a
+// `mma` (bf16 s; C in {32, 64, 128}, F <= 16, 16-byte aligned s): a
 // persistent grid walks 128-position tiles of the crop (40960 at training
 // width), z filled by 16-byte cp.async into a two-stage ring. Both kernels
 // run one forward (forward_warp below): fc1 on mma.sync with k1 as a bf16
@@ -72,6 +72,15 @@
 // tile's copy issued after the tile's last read of z. Bound at training
 // width in f32: K3F 1.40 GB (0.42 ms), K3B 3.40 GB (1.02 ms), the products
 // at the TF32 peak below that.
+//
+// fc2's width F: the tensor-core variants pad it to NF = 8 (F <= 8: one
+// n-tile of eight columns, the layout and arithmetic of the first
+// versions) or NF = 16 (9 <= F <= 16, the combustion scenario's 16
+// channels: two n-tiles, so each fc2 product, do, dk2 and db2 twice). The
+// columns past F are zero in k2^T, b2 and do, and stay out of the SSE and
+// the sums. NF is a template argument: the F <= 8 kernels are the ones they
+// were. NF 16 is built for the combustion scenario's (C 64, exact) alone
+// (with_mma_instance).
 #include <algorithm>
 #include <cstdint>
 #include <initializer_list>
@@ -86,7 +95,7 @@ constexpr int kThreads = 256;
 constexpr int kP = 64;       // positions per tile
 constexpr int kH1 = 128;     // fc1 width
 constexpr int kH1P = 132;    // padded row stride of the [kP, H1] buffer (bank spread)
-constexpr int kMaxF = 8;     // fc2 width bound
+constexpr int kMaxF = 16;    // fc2 width bound
 constexpr int kMaxC = 128;   // channel bound (C % 8 == 0)
 
 struct TailDims {
@@ -382,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, CK <= 8 ? 2 : 1)
 
 // ---------------------------------------------------------------------------
 // The tensor-core variants of K3F and K3B (bf16; C in {32, 64, 128}, fc1
-// width 128, F <= 8): one forward, shared
+// width 128, F <= 16 padded to NF): one forward, shared
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -407,27 +416,31 @@ __host__ __device__ constexpr int flush_tiles(int variant) {
   return variant == 2 ? kFlushTf32 : kFlush;
 }
 
+// fc2's width padded to whole n-tiles of 8 columns: 8 for F <= 8, else 16.
+__host__ __device__ constexpr int fc2_width(int F) { return F <= 8 ? 8 : 16; }
+
 // Shared memory of a K3B block, in bytes (ops/kernels.py::k3b_mma_smem_bytes):
 // k1 hi, lo [C][kKS]; two z stages [kTP][C + 8]; h1 (then du) hi, lo
-// [kTP][kKS]; do hi, lo [kTP][kDoS] (bf16); k2^T hi, lo [8][kKS] (bf16);
-// k2 [kH1][8], b1, b2, the warps' db2 [8][8] (f32).
-inline int k3b_mma_smem(int C) {
-  return 2 * (2 * C * kKS + 2 * kTP * (C + 8) + 2 * kTP * kKS + 2 * kTP * kDoS + 2 * 8 * kKS) +
-         4 * (kH1 * 8 + kH1 + 8 + 64);
+// [kTP][kKS]; do hi, lo [kTP][kDoS] (bf16); k2^T hi, lo [NF][kKS] (bf16);
+// k2 [kH1][NF], b1, b2, the warps' db2 [8][NF] (f32).
+inline int k3b_mma_smem(int C, int NF) {
+  return 2 * (2 * C * kKS + 2 * kTP * (C + 8) + 2 * kTP * kKS +
+              2 * kTP * kDoS + 2 * NF * kKS) +
+         4 * (kH1 * NF + kH1 + NF + 8 * NF);
 }
 
 // Shared memory of a K3F block, in bytes (ops/kernels.py::k3f_mma_smem_bytes):
-// k1 hi, lo [C][kKS]; two z stages [kTP][C + 8]; k2^T hi, lo [8][kKS]
+// k1 hi, lo [C][kKS]; two z stages [kTP][C + 8]; k2^T hi, lo [NF][kKS]
 // (bf16); b1, b2 (f32); the warps' sums [8] (f64). None of K3B's h1, du
-// and do tiles: about 75 KB at C 64.
-inline int k3f_mma_smem(int C) {
-  return 2 * (2 * C * kKS + 2 * kTP * (C + 8) + 2 * 8 * kKS) + 4 * (kH1 + 8) + 8 * 8;
+// and do tiles: about 75 KB at C 64 (79 KB at NF 16).
+inline int k3f_mma_smem(int C, int NF) {
+  return 2 * (2 * C * kKS + 2 * kTP * (C + 8) + 2 * NF * kKS) + 4 * (kH1 + NF) + 8 * 8;
 }
 
 // The weights in a block's shared memory: k1 [C][kH1] as hi, lo [2][C][kKS];
-// k2^T as hi, lo [2][8][kKS] (rows >= F zero); b1 [kH1], b2 [8] (zero past
-// F); and, where sk2f is given (K3B), k2 [kH1][8] in f32.
-template <int C>
+// k2^T as hi, lo [2][NF][kKS] (rows >= F zero); b1 [kH1], b2 [NF] (zero past
+// F); and, where sk2f is given (K3B), k2 [kH1][NF] in f32.
+template <int C, int NF>
 __device__ void load_mma_weights(const float* __restrict__ k1, const float* __restrict__ b1,
                                  const float* __restrict__ k2, const float* __restrict__ b2,
                                  int F, bf16* sk1, bf16* sk2t, float* sk2f, float* sb1,
@@ -437,14 +450,14 @@ __device__ void load_mma_weights(const float* __restrict__ k1, const float* __re
     const int c = i / kH1, j = i - c * kH1;
     mma::split_bf16(k1[i], sk1[c * kKS + j], sk1[C * kKS + c * kKS + j]);
   }
-  for (int i = tid; i < 8 * kH1; i += kMmaThreads) {
+  for (int i = tid; i < NF * kH1; i += kMmaThreads) {
     const int f = i / kH1, j = i - f * kH1;
     const float v = f < F ? k2[j * F + f] : 0.f;
-    mma::split_bf16(v, sk2t[f * kKS + j], sk2t[8 * kKS + f * kKS + j]);
-    if (sk2f) sk2f[j * 8 + f] = v;
+    mma::split_bf16(v, sk2t[f * kKS + j], sk2t[NF * kKS + f * kKS + j]);
+    if (sk2f) sk2f[j * NF + f] = v;
   }
   for (int i = tid; i < kH1; i += kMmaThreads) sb1[i] = b1[i];
-  if (tid < 8) sb2[tid] = tid < F ? b2[tid] : 0.f;
+  if (tid < NF) sb2[tid] = tid < F ? b2[tid] : 0.f;
 }
 
 // The crop as tiles of up to kTP positions of one cropped row, in the order
@@ -484,14 +497,17 @@ struct CropTiles {
 // The forward of one warp on its 16 positions p0.. of the tile zt:
 //   u1 = z k1 + b1            mma, k1 hi + lo (z is bf16)
 //   h1 = act(u1)              one erf (and, for K3B, one exp) a position and unit
-//   o = h1 k2                 mma, h1 and k2 hi + lo, from the u1 fragments
-// o[e] is (o without b2)[p0 + gq + 8 (e >> 1)][2q + (e & 1)], lane = 4 gq + q.
-// With GRAD (K3B), h1's hi and lo go to sh [2][kTP][kKS] and u keeps
-// act'(u1) in u1's fragment layout; without (K3F), h1 stays in registers.
-template <int C, int ACT, bool GRAD>
+//   o = h1 k2                 mma, h1 and k2 hi + lo, from the u1 fragments,
+//                             NF / 8 n-tiles of k2^T [NF][kKS]
+// o[n][e] is (o without b2)[p0 + gq + 8 (e >> 1)][8 n + 2q + (e & 1)], lane =
+// 4 gq + q. With GRAD (K3B), h1's hi and lo go to sh [2][kTP][kKS] and u
+// keeps act'(u1) in u1's fragment layout; without (K3F), h1 stays in
+// registers.
+template <int C, int ACT, bool GRAD, int NF>
 __device__ __forceinline__ void forward_warp(const bf16* zt, const bf16* sk1, const bf16* sk2t,
                                              const float* sb1, int p0, int lane,
-                                             float (&u)[16][4], float (&o)[4], bf16* sh) {
+                                             float (&u)[16][4], float (&o)[NF / 8][4],
+                                             bf16* sh) {
   constexpr int ZS = C + 8;
   const int gq = lane >> 2, q = lane & 3;
 #pragma unroll
@@ -517,7 +533,8 @@ __device__ __forceinline__ void forward_warp(const bf16* zt, const bf16* sk1, co
       }
     }
   }
-  o[0] = o[1] = o[2] = o[3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NF / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
     uint32_t ahi[4], alo[4];
@@ -539,14 +556,17 @@ __device__ __forceinline__ void forward_warp(const bf16* zt, const bf16* sk1, co
         *reinterpret_cast<uint32_t*>(sh + kTP * kKS + at) = alo[r];
       }
     }
-    const int kb = gq * kKS + ks * 16 + 2 * q;
-    const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(sk2t + kb);
-    const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(sk2t + kb + 8);
-    const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(sk2t + 8 * kKS + kb);
-    const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(sk2t + 8 * kKS + kb + 8);
-    mma::mma_bf16(o, ahi, bh0, bh1);
-    mma::mma_bf16(o, alo, bh0, bh1);
-    mma::mma_bf16(o, ahi, bl0, bl1);
+#pragma unroll
+    for (int n = 0; n < NF / 8; ++n) {
+      const int kb = (8 * n + gq) * kKS + ks * 16 + 2 * q;
+      const uint32_t bh0 = *reinterpret_cast<const uint32_t*>(sk2t + kb);
+      const uint32_t bh1 = *reinterpret_cast<const uint32_t*>(sk2t + kb + 8);
+      const uint32_t bl0 = *reinterpret_cast<const uint32_t*>(sk2t + NF * kKS + kb);
+      const uint32_t bl1 = *reinterpret_cast<const uint32_t*>(sk2t + NF * kKS + kb + 8);
+      mma::mma_bf16(o[n], ahi, bh0, bh1);
+      mma::mma_bf16(o[n], alo, bh0, bh1);
+      mma::mma_bf16(o[n], ahi, bl0, bl1);
+    }
   }
 }
 
@@ -575,7 +595,7 @@ __device__ __forceinline__ void write_block_sse(double sse, double* sred, float*
 // adds the partials in a fixed order: no atomics. It holds none of K3B's
 // sums and tiles: ~75 KB of shared memory and no more than 128 registers,
 // two blocks an SM at C <= 64.
-template <int C, int ACT>
+template <int C, int ACT, int NF>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     k3f_mma_kernel(const bf16* __restrict__ s, const float* __restrict__ target,
                    const float* __restrict__ k1, const float* __restrict__ b1,
@@ -585,14 +605,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk1 = reinterpret_cast<bf16*>(smem_raw);   // [2][C][kKS]: k1 hi, lo
   bf16* sz = sk1 + 2 * C * kKS;                    // [2 stages][kTP][ZS]
-  bf16* sk2t = sz + 2 * kTP * ZS;                  // [2][8][kKS]: k2^T hi, lo
-  float* sb1 = reinterpret_cast<float*>(sk2t + 2 * 8 * kKS);
-  float* sb2 = sb1 + kH1;                          // [8]
-  double* sred = reinterpret_cast<double*>(sb2 + 8);   // [8 warps]
+  bf16* sk2t = sz + 2 * kTP * ZS;                  // [2][NF][kKS]: k2^T hi, lo
+  float* sb1 = reinterpret_cast<float*>(sk2t + 2 * NF * kKS);
+  float* sb2 = sb1 + kH1;                          // [NF]
+  double* sred = reinterpret_cast<double*>(sb2 + NF);   // [8 warps]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, q = lane & 3;
-  load_mma_weights<C>(k1, b1, k2, b2, d.F, sk1, sk2t, nullptr, sb1, sb2);
+  load_mma_weights<C, NF>(k1, b1, k2, b2, d.F, sk1, sk2t, nullptr, sb1, sb2);
   const CropTiles ct(d);
   const int p0 = warp * 16;
   double sse = 0.0;
@@ -606,45 +626,57 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     int bT, h, w0, bt;
     ct.decode(d, tile, bT, h, w0, bt);
     const int P = min(kTP, d.W - w0);
-    float u[16][4], o[4];
-    forward_warp<C, ACT, false>(sz + stage * kTP * ZS, sk1, sk2t, sb1, p0, lane, u, o, nullptr);
+    float u[16][4], o[NF / 8][4];
+    forward_warp<C, ACT, false, NF>(sz + stage * kTP * ZS, sk1, sk2t, sb1, p0, lane, u, o,
+                                    nullptr);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = p0 + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
-      if (p < P && f < d.F) {
-        const float diff =
-            o[e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * d.F + f];
-        sse += (double)(diff * diff);
+    for (int n = 0; n < NF / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + gq + (e >> 1) * 8, f = 8 * n + 2 * q + (e & 1);
+        if (p < P && f < d.F) {
+          const float diff =
+              o[n][e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * d.F + f];
+          sse += (double)(diff * diff);
+        }
       }
-    }
   }
   write_block_sse(sse, sred, partial);
 }
 
 // du = (do k2^T) act'(u1) in place of act'(u1) in u (forward_warp's
-// layout); dv: this lane's do in o's layout, sk2f: k2 [kH1][8] in f32
+// layout); dv: this lane's do in o's layout, sk2f: k2 [kH1][NF] in f32
 // (columns >= F zero). Exact f32 FMAs, F a unit.
-__device__ __forceinline__ void tail_du(const float (&dv)[4], const float* sk2f, int F, int gq,
-                                        int q, float (&u)[16][4]) {
-  float dor[2][8];   // do of this lane's rows gq, gq + 8
+template <int NF>
+__device__ __forceinline__ void tail_du(const float (&dv)[NF / 8][4], const float* sk2f, int F,
+                                        int gq, int q, float (&u)[16][4]) {
+  float dor[2][NF];   // do of this lane's rows gq, gq + 8
 #pragma unroll
-  for (int qq = 0; qq < 4; ++qq)
+  for (int n = 0; n < NF / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      dor[e >> 1][2 * qq + (e & 1)] = __shfl_sync(0xffffffffu, dv[e], gq * 4 + qq);
+    for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dor[e >> 1][8 * n + 2 * qq + (e & 1)] = __shfl_sync(0xffffffffu, dv[n][e], gq * 4 + qq);
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
-      const float* kr = sk2f + (nt * 8 + 2 * q + jj) * 8;
-      const float4 ka = *reinterpret_cast<const float4*>(kr);
-      const float4 kb = *reinterpret_cast<const float4*>(kr + 4);
-      const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+      const float* kr = sk2f + (nt * 8 + 2 * q + jj) * NF;
+      float kv[NF];
+#pragma unroll
+      for (int v4 = 0; v4 < NF / 4; ++v4) {
+        const float4 ka = *reinterpret_cast<const float4*>(kr + 4 * v4);
+        kv[4 * v4] = ka.x;
+        kv[4 * v4 + 1] = ka.y;
+        kv[4 * v4 + 2] = ka.z;
+        kv[4 * v4 + 3] = ka.w;
+      }
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         float dh = 0.f;
 #pragma unroll
-        for (int f = 0; f < kMaxF; ++f)
+        for (int f = 0; f < NF; ++f)
           if (f < F) dh = fmaf(dor[rr][f], kv[f], dh);
         u[nt][2 * rr + jj] *= dh;
       }
@@ -654,14 +686,14 @@ __device__ __forceinline__ void tail_du(const float (&dv)[4], const float* sk2f,
 // Row pb of a K3B tensor-core block's partial sums, in the layout of
 // k3b_kernel's (dk1, db1, dk2, db2), from its warps' accumulators: dk1
 // [C/16 + 1][2][4] (channels 16 mi + gq (+8), hidden units 16 warp + 8 nt +
-// 2q (+1); db1 in mi = C/16, row gq 0), dk2 [4] (units 16 warp + gq (+8),
-// columns 2q (+1)), db2 [2] (columns 2q (+1) over this lane's positions:
-// added over the warp, then over the warps in order through sred [8][8]).
-// The sums restart from zero.
-template <int C>
+// 2q (+1); db1 in mi = C/16, row gq 0), dk2 [NF/8][4] (units 16 warp + gq
+// (+8), columns 8n + 2q (+1)), db2 [NF/8][2] (columns 8n + 2q (+1) over this
+// lane's positions: added over the warp, then over the warps in order
+// through sred [8][NF]). The sums restart from zero.
+template <int C, int NF>
 __device__ __forceinline__ void flush_k3b_sums(float* pb, int F, float (&dk1)[C / 16 + 1][2][4],
-                                               float (&dk2)[4], float (&db2)[2], float* sred,
-                                               int warp, int lane) {
+                                               float (&dk2)[NF / 8][4], float (&db2)[NF / 8][2],
+                                               float* sred, int warp, int lane) {
   constexpr int MC = C / 16;
   const int tid = threadIdx.x, gq = lane >> 2, q = lane & 3;
 #pragma unroll
@@ -682,22 +714,26 @@ __device__ __forceinline__ void flush_k3b_sums(float* pb, int F, float (&dk1)[C 
       pb[C * kH1 + j + 1] = dk1[MC][nt][1];
     }
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int j = 16 * warp + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
-    if (f < F) pb[C * kH1 + kH1 + j * F + f] = dk2[e];
-  }
+  for (int n = 0; n < NF / 8; ++n)
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    float v = db2[e];
-    v += __shfl_xor_sync(0xffffffffu, v, 4);
-    v += __shfl_xor_sync(0xffffffffu, v, 8);
-    v += __shfl_xor_sync(0xffffffffu, v, 16);
-    if (gq == 0) sred[warp * 8 + 2 * q + e] = v;
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int j = 16 * warp + gq + (e >> 1) * 8, f = 8 * n + 2 * q + (e & 1);
+      if (f < F) pb[C * kH1 + kH1 + j * F + f] = dk2[n][e];
+    }
+#pragma unroll
+  for (int n = 0; n < NF / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = db2[n][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (gq == 0) sred[warp * NF + 8 * n + 2 * q + e] = v;
+    }
   __syncthreads();
   if (tid < F) {
     float v = 0.f;
-    for (int w = 0; w < kMmaThreads / 32; ++w) v += sred[w * 8 + tid];
+    for (int w = 0; w < kMmaThreads / 32; ++w) v += sred[w * NF + tid];
     pb[C * kH1 + kH1 + kH1 * F + tid] = v;
   }
   __syncthreads();   // sred is read before the next flush writes it
@@ -706,8 +742,11 @@ __device__ __forceinline__ void flush_k3b_sums(float* pb, int F, float (&dk1)[C 
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
       dk1[mi][nt][0] = dk1[mi][nt][1] = dk1[mi][nt][2] = dk1[mi][nt][3] = 0.f;
-  dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
-  db2[0] = db2[1] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NF / 8; ++n) {
+    dk2[n][0] = dk2[n][1] = dk2[n][2] = dk2[n][3] = 0.f;
+    db2[n][0] = db2[n][1] = 0.f;
+  }
 }
 
 // Zeros of ds outside the crop, a share of the rows a block (16-byte
@@ -744,7 +783,7 @@ __device__ void zero_outside_crop(T* __restrict__ ds, const TailDims& d) {
 // every unit and cost 3.8 ms in spills and issue (tools/torch_k3b_probe.py).
 // Zeros outside the crop are written after the tiles, a share of the rows a
 // block.
-template <int C, int ACT>
+template <int C, int ACT, int NF>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     k3b_mma_kernel(const bf16* __restrict__ s, const float* __restrict__ target,
                    const float* __restrict__ k1, const float* __restrict__ b1,
@@ -754,24 +793,25 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   constexpr int ZS = C + 8;            // z row stride
   constexpr int MC = C / 16;           // 16-row tiles of z^T; tile MC is the row of ones
   constexpr int NG = 32;               // channels of ds a pass takes
+  constexpr int NT = NF / 8;           // fc2's n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk1 = reinterpret_cast<bf16*>(smem_raw);   // [2][C][kKS]: k1 hi, lo
   bf16* sz = sk1 + 2 * C * kKS;                    // [2 stages][kTP][ZS]
   bf16* sh = sz + 2 * kTP * ZS;                    // [2][kTP][kKS]: h1, then du, hi and lo
-  bf16* sdo = sh + 2 * kTP * kKS;                  // [2][kTP][kDoS]: do hi, lo (columns >= 8 zero)
-  bf16* sk2t = sdo + 2 * kTP * kDoS;               // [2][8][kKS]: k2^T hi, lo (rows >= F zero)
-  float* sk2f = reinterpret_cast<float*>(sk2t + 2 * 8 * kKS);   // [kH1][8]: k2 (columns >= F zero)
-  float* sb1 = sk2f + kH1 * 8;
-  float* sb2 = sb1 + kH1;                          // [8]
-  float* sred = sb2 + 8;                           // [8 warps][8]
+  bf16* sdo = sh + 2 * kTP * kKS;                  // [2][kTP][kDoS]: do hi, lo (columns >= NF zero)
+  bf16* sk2t = sdo + 2 * kTP * kDoS;               // [2][NF][kKS]: k2^T hi, lo (rows >= F zero)
+  float* sk2f = reinterpret_cast<float*>(sk2t + 2 * NF * kKS);   // [kH1][NF]: k2 (columns >= F zero)
+  float* sb1 = sk2f + kH1 * NF;
+  float* sb2 = sb1 + kH1;                          // [NF]
+  float* sred = sb2 + NF;                          // [8 warps][NF]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, q = lane & 3;
   const int F = d.F, W = d.W, H = d.H;
-  load_mma_weights<C>(k1, b1, k2, b2, F, sk1, sk2t, sk2f, sb1, sb2);
-  for (int i = tid; i < 2 * kTP * (kDoS - 8) / 8; i += kMmaThreads) {
-    const int r = i / ((kDoS - 8) / 8), cc = i - r * ((kDoS - 8) / 8);
-    *reinterpret_cast<uint4*>(sdo + r * kDoS + 8 + cc * 8) = make_uint4(0, 0, 0, 0);
+  load_mma_weights<C, NF>(k1, b1, k2, b2, F, sk1, sk2t, sk2f, sb1, sb2);
+  for (int i = tid; i < 2 * kTP * (kDoS - NF) / 8; i += kMmaThreads) {
+    const int r = i / ((kDoS - NF) / 8), cc = i - r * ((kDoS - NF) / 8);
+    *reinterpret_cast<uint4*>(sdo + r * kDoS + NF + cc * 8) = make_uint4(0, 0, 0, 0);
   }
   const float g2 = 2.f * gsc[0];
   const CropTiles ct(d);
@@ -781,18 +821,22 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int n = C * kH1 + kH1 + kH1 * F + F;
 
   float dk1[MC + 1][2][4];   // dk1[c][16 warp + 8 nt + 2q (+1)] for c = 16 mi + gq (+8); db1 in mi = MC
-  float dk2[4];              // dk2[16 warp + gq (+8)][2q (+1)]
-  float db2[2] = {0.f, 0.f};   // db2[2q (+1)], this lane's positions
+  float dk2[NT][4];          // dk2[16 warp + gq (+8)][8n + 2q (+1)]
+  float db2[NT][2];          // db2[8n + 2q (+1)], this lane's positions
 #pragma unroll
   for (int mi = 0; mi <= MC; ++mi)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) dk1[mi][nt][0] = dk1[mi][nt][1] = dk1[mi][nt][2] = dk1[mi][nt][3] = 0.f;
-  dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
+#pragma unroll
+  for (int nf = 0; nf < NT; ++nf) {
+    dk2[nf][0] = dk2[nf][1] = dk2[nf][2] = dk2[nf][3] = 0.f;
+    db2[nf][0] = db2[nf][1] = 0.f;
+  }
 
   // row r of this block's partial sums; the sums restart from zero
   auto flush = [&](int r) {
-    flush_k3b_sums<C>(partial + ((size_t)blockIdx.x * nrows + r) * n, F, dk1, dk2, db2, sred,
-                      warp, lane);
+    flush_k3b_sums<C, NF>(partial + ((size_t)blockIdx.x * nrows + r) * n, F, dk1, dk2, db2,
+                          sred, warp, lane);
   };
 
   int tile = blockIdx.x, it = 0;
@@ -810,31 +854,35 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
     // u1, h1 (into shared memory, hi and lo) and o on this warp's 16
     // positions; u keeps act'(u1)
-    float u[16][4], o[4];
-    forward_warp<C, ACT, true>(zt, sk1, sk2t, sb1, p0, lane, u, o, sh);
+    float u[16][4], o[NT][4];
+    forward_warp<C, ACT, true, NF>(zt, sk1, sk2t, sb1, p0, lane, u, o, sh);
 
     // do = 2 g (o + b2 - target), zero past the tile's positions and F
-    float dv[4];
+    float dv[NT][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = p0 + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
-      dv[e] = 0.f;
-      if (p < P && f < F)
-        dv[e] = g2 * (o[e] + sb2[f] - target[(((size_t)bT * H + h) * W + w0 + p) * F + f]);
-    }
-    db2[0] += dv[0] + dv[2];
-    db2[1] += dv[1] + dv[3];
+    for (int nf = 0; nf < NT; ++nf) {
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      uint32_t hi, lo;
-      mma::split_pack(dv[2 * hf], dv[2 * hf + 1], hi, lo);
-      const int at = (p0 + gq + hf * 8) * kDoS + 2 * q;
-      *reinterpret_cast<uint32_t*>(sdo + at) = hi;
-      *reinterpret_cast<uint32_t*>(sdo + kTP * kDoS + at) = lo;
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + gq + (e >> 1) * 8, f = 8 * nf + 2 * q + (e & 1);
+        dv[nf][e] = 0.f;
+        if (p < P && f < F)
+          dv[nf][e] =
+              g2 * (o[nf][e] + sb2[f] - target[(((size_t)bT * H + h) * W + w0 + p) * F + f]);
+      }
+      db2[nf][0] += dv[nf][0] + dv[nf][2];
+      db2[nf][1] += dv[nf][1] + dv[nf][3];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        uint32_t hi, lo;
+        mma::split_pack(dv[nf][2 * hf], dv[nf][2 * hf + 1], hi, lo);
+        const int at = (p0 + gq + hf * 8) * kDoS + 8 * nf + 2 * q;
+        *reinterpret_cast<uint32_t*>(sdo + at) = hi;
+        *reinterpret_cast<uint32_t*>(sdo + kTP * kDoS + at) = lo;
+      }
     }
 
     // du = (do k2^T) act'(u1), in place of act'(u1)
-    tail_du(dv, sk2f, F, gq, q, u);
+    tail_du<NF>(dv, sk2f, F, gq, q, u);
 
     // ds = du k1^T, this warp's positions, NG channels a pass
     bf16* dsb = ds + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
@@ -885,9 +933,14 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
       mma::b_frag_row(lane, ks * 16, 0, kk, n);
       mma::ldmatrix_x4_trans(bh, mma::smem_addr(sdo + kk * kDoS + n));
       mma::ldmatrix_x4_trans(bl, mma::smem_addr(sdo + kTP * kDoS + kk * kDoS + n));
-      mma::mma_bf16(dk2, ah, bh[0], bh[1]);
-      mma::mma_bf16(dk2, al, bh[0], bh[1]);
-      mma::mma_bf16(dk2, ah, bl[0], bl[1]);
+      mma::mma_bf16(dk2[0], ah, bh[0], bh[1]);
+      mma::mma_bf16(dk2[0], al, bh[0], bh[1]);
+      mma::mma_bf16(dk2[0], ah, bl[0], bl[1]);
+      if constexpr (NT == 2) {   // columns 8..15: the x4 load's second pair
+        mma::mma_bf16(dk2[1], ah, bh[2], bh[3]);
+        mma::mma_bf16(dk2[1], al, bh[2], bh[3]);
+        mma::mma_bf16(dk2[1], ah, bl[2], bl[3]);
+      }
     }
     __syncthreads();   // h1 is read: du takes its place
 #pragma unroll
@@ -940,12 +993,12 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
 // ---------------------------------------------------------------------------
 // The tf32 variants of K3F and K3B (f32; C in {32, 64, 128}, fc1 width 128,
-// F <= 8): the tensor-core variants' plan, every product 3xTF32
+// F <= 16 padded to NF): the tensor-core variants' plan, every product 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int kTfKS = kH1 + 8;   // row stride of k1 [C][.] and k2^T [8][.] (f32: 8 mod 32)
+constexpr int kTfKS = kH1 + 8;   // row stride of k1 [C][.] and k2^T [NF][.] (f32: 8 mod 32)
 constexpr int kTfHS = kH1 + 4;   // row stride of the h1 / du tile [kTP][.] (f32: 4 mod 32)
-constexpr int kTfDS = kTP + 8;   // row stride of do^T [8][.] (f32: 8 mod 32)
+constexpr int kTfDS = kTP + 8;   // row stride of do^T [NF][.] (f32: 8 mod 32)
 
 // z stages of a K3B tf32 block: two up to C 64, one at C 128, where two
 // would not fit beside k1 and the h1 / du tile.
@@ -953,26 +1006,26 @@ __host__ __device__ constexpr int k3b_tf32_stages(int C) { return C <= 64 ? 2 : 
 
 // Shared memory of a K3F tf32 block, in bytes (ops/kernels.py::
 // k3f_tf32_smem_bytes), all f32: two z stages [kTP][C + 4]; k1 [C][kTfKS];
-// k2^T [8][kTfKS]; b1, b2; the warps' sums [8] (f64). 107 KB at C 64: two
-// blocks an SM.
-inline int k3f_tf32_smem(int C) {
-  return 4 * (2 * kTP * (C + 4) + C * kTfKS + 8 * kTfKS + kH1 + 8) + 8 * 8;
+// k2^T [NF][kTfKS]; b1, b2; the warps' sums [8] (f64). 107 KB at C 64 (111
+// KB at NF 16): two blocks an SM.
+inline int k3f_tf32_smem(int C, int NF) {
+  return 4 * (2 * kTP * (C + 4) + C * kTfKS + NF * kTfKS + kH1 + NF) + 8 * 8;
 }
 
 // Shared memory of a K3B tf32 block, in bytes (ops/kernels.py::
 // k3b_tf32_smem_bytes), all f32: k3b_tf32_stages(C) z stages [kTP][C + 4];
-// k1 [C][kTfKS]; h1, then du [kTP][kTfHS]; do^T [8][kTfDS]; k2^T [8][kTfKS];
-// k2 [kH1][8]; b1, b2, the warps' db2 [8][8]. 181 KB at C 64, 213 KB at C
-// 128: one block an SM.
-inline int k3b_tf32_smem(int C) {
-  return 4 * (k3b_tf32_stages(C) * kTP * (C + 4) + C * kTfKS + kTP * kTfHS + 8 * kTfDS +
-              8 * kTfKS + kH1 * 8 + kH1 + 8 + 64);
+// k1 [C][kTfKS]; h1, then du [kTP][kTfHS]; do^T [NF][kTfDS]; k2^T
+// [NF][kTfKS]; k2 [kH1][NF]; b1, b2, the warps' db2 [8][NF]. 181 KB at C 64,
+// 213 KB at C 128 (194 and 226 KB at NF 16): one block an SM.
+inline int k3b_tf32_smem(int C, int NF) {
+  return 4 * (k3b_tf32_stages(C) * kTP * (C + 4) + C * kTfKS + kTP * kTfHS + NF * kTfDS +
+              NF * kTfKS + kH1 * NF + kH1 + NF + 8 * NF);
 }
 
 // The weights in f32 in a tf32 block's shared memory: k1 [C][kTfKS]; k2^T
-// [8][kTfKS] (rows >= F zero); b1 [kH1], b2 [8] (zero past F); and, where
-// sk2f is given (K3B), k2 [kH1][8].
-template <int C>
+// [NF][kTfKS] (rows >= F zero); b1 [kH1], b2 [NF] (zero past F); and, where
+// sk2f is given (K3B), k2 [kH1][NF].
+template <int C, int NF>
 __device__ void load_tf32_weights(const float* __restrict__ k1, const float* __restrict__ b1,
                                   const float* __restrict__ k2, const float* __restrict__ b2,
                                   int F, float* sk1, float* sk2t, float* sk2f, float* sb1,
@@ -982,14 +1035,14 @@ __device__ void load_tf32_weights(const float* __restrict__ k1, const float* __r
     const int c = i / kH1;
     sk1[c * kTfKS + i - c * kH1] = k1[i];
   }
-  for (int i = tid; i < 8 * kH1; i += kMmaThreads) {
+  for (int i = tid; i < NF * kH1; i += kMmaThreads) {
     const int f = i / kH1, j = i - f * kH1;
     const float v = f < F ? k2[j * F + f] : 0.f;
     sk2t[f * kTfKS + j] = v;
-    if (sk2f) sk2f[j * 8 + f] = v;
+    if (sk2f) sk2f[j * NF + f] = v;
   }
   for (int i = tid; i < kH1; i += kMmaThreads) sb1[i] = b1[i];
-  if (tid < 8) sb2[tid] = tid < F ? b2[tid] : 0.f;
+  if (tid < NF) sb2[tid] = tid < F ? b2[tid] : 0.f;
 }
 
 // 3xTF32 with the small terms apart: big += ah.bh, small += al.bh + ah.bl.
@@ -1028,14 +1081,15 @@ __device__ __forceinline__ void mma_f32x3(float (&big)[4], float (&small)[4],
 //   h1 = act(u1)     fno::affine_act_fast (K3F) or fno::act_and_grad_fast
 //   o = h1 k2        A from u1's fragments, a k-step's slot q holding unit
 //                    2q and slot q + 4 unit 2q + 1; B alike from k2^T by
-//                    64-bit loads; the small terms apart (mma_tf32x3_apart)
-// o[e] as forward_warp's. With GRAD (K3B), h1 goes to sh [kTP][kTfHS] in f32
-// and u keeps act'(u1); without (K3F), h1 stays in registers.
-template <int C, int ACT, bool GRAD>
+//                    64-bit loads, NF / 8 n-tiles; the small terms apart
+//                    (mma_tf32x3_apart)
+// o[n][e] as forward_warp's. With GRAD (K3B), h1 goes to sh [kTP][kTfHS] in
+// f32 and u keeps act'(u1); without (K3F), h1 stays in registers.
+template <int C, int ACT, bool GRAD, int NF>
 __device__ __forceinline__ void forward_warp_tf32(const float* zt, const float* sk1,
                                                   const float* sk2t, const float* sb1, int p0,
-                                                  int lane, float (&u)[16][4], float (&o)[4],
-                                                  float* sh) {
+                                                  int lane, float (&u)[16][4],
+                                                  float (&o)[NF / 8][4], float* sh) {
   constexpr int ZS = C + 4;
   const int gq = lane >> 2, q = lane & 3;
 #pragma unroll
@@ -1059,8 +1113,10 @@ __device__ __forceinline__ void forward_warp_tf32(const float* zt, const float* 
       mma::mma_tf32x3(u[nt], ah, al, bh0, bh1, bl0, bl1);
     }
   }
-  float os[4] = {0.f, 0.f, 0.f, 0.f};   // o's small terms
-  o[0] = o[1] = o[2] = o[3] = 0.f;
+  float os[NF / 8][4];   // o's small terms
+#pragma unroll
+  for (int n = 0; n < NF / 8; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = os[n][0] = os[n][1] = os[n][2] = os[n][3] = 0.f;
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt) {
     float hv[4];
@@ -1079,17 +1135,23 @@ __device__ __forceinline__ void forward_warp_tf32(const float* zt, const float* 
     }
     // slots (gq, q), (gq + 8, q), (gq, q + 4), (gq + 8, q + 4)
     const float a[4] = {hv[0], hv[2], hv[1], hv[3]};
-    const float2 kb = *reinterpret_cast<const float2*>(sk2t + gq * kTfKS + nt * 8 + 2 * q);
-    mma_f32x3(o, os, a, kb.x, kb.y);
+#pragma unroll
+    for (int n = 0; n < NF / 8; ++n) {
+      const float2 kb =
+          *reinterpret_cast<const float2*>(sk2t + (8 * n + gq) * kTfKS + nt * 8 + 2 * q);
+      mma_f32x3(o[n], os[n], a, kb.x, kb.y);
+    }
   }
 #pragma unroll
-  for (int e = 0; e < 4; ++e) o[e] += os[e];
+  for (int n = 0; n < NF / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] += os[n][e];
 }
 
 // K3F's tf32 variant: k3f_mma_kernel's persistent grid, ring and f64 sums
 // on forward_warp_tf32. ~107 KB of shared memory and no more than 128
 // registers: two blocks an SM at C <= 64.
-template <int C, int ACT>
+template <int C, int ACT, int NF>
 __global__ void __launch_bounds__(kMmaThreads, 2)
     k3f_tf32_kernel(const float* __restrict__ s, const float* __restrict__ target,
                     const float* __restrict__ k1, const float* __restrict__ b1,
@@ -1099,14 +1161,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sz = reinterpret_cast<float*>(smem_raw);   // [2 stages][kTP][ZS]
   float* sk1 = sz + 2 * kTP * ZS;                   // [C][kTfKS]
-  float* sk2t = sk1 + C * kTfKS;                    // [8][kTfKS]: k2^T (rows >= F zero)
-  float* sb1 = sk2t + 8 * kTfKS;
-  float* sb2 = sb1 + kH1;                           // [8]
-  double* sred = reinterpret_cast<double*>(sb2 + 8);   // [8 warps]
+  float* sk2t = sk1 + C * kTfKS;                    // [NF][kTfKS]: k2^T (rows >= F zero)
+  float* sb1 = sk2t + NF * kTfKS;
+  float* sb2 = sb1 + kH1;                           // [NF]
+  double* sred = reinterpret_cast<double*>(sb2 + NF);   // [8 warps]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, q = lane & 3;
-  load_tf32_weights<C>(k1, b1, k2, b2, d.F, sk1, sk2t, nullptr, sb1, sb2);
+  load_tf32_weights<C, NF>(k1, b1, k2, b2, d.F, sk1, sk2t, nullptr, sb1, sb2);
   const CropTiles ct(d);
   const int p0 = warp * 16;
   double sse = 0.0;
@@ -1121,18 +1183,20 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     int bT, h, w0, bt;
     ct.decode(d, tile, bT, h, w0, bt);
     const int P = min(kTP, d.W - w0);
-    float u[16][4], o[4];
-    forward_warp_tf32<C, ACT, false>(sz + stage * kTP * ZS, sk1, sk2t, sb1, p0, lane, u, o,
-                                     nullptr);
+    float u[16][4], o[NF / 8][4];
+    forward_warp_tf32<C, ACT, false, NF>(sz + stage * kTP * ZS, sk1, sk2t, sb1, p0, lane, u,
+                                         o, nullptr);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = p0 + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
-      if (p < P && f < d.F) {
-        const float diff =
-            o[e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * d.F + f];
-        sse += (double)(diff * diff);
+    for (int n = 0; n < NF / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + gq + (e >> 1) * 8, f = 8 * n + 2 * q + (e & 1);
+        if (p < P && f < d.F) {
+          const float diff =
+              o[n][e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * d.F + f];
+          sse += (double)(diff * diff);
+        }
       }
-    }
   }
   write_block_sse(sse, sred, partial);
 }
@@ -1152,7 +1216,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 // and db1 += 1^T du (a row of ones, exact in tf32: its lo part is zero, two
 // MMAs). The sums go out every kFlushTf32 tiles (flush_k3b_sums); at C 128 the
 // next tile's z is copied after this tile's last read of it (one stage).
-template <int C, int ACT>
+template <int C, int ACT, int NF>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     k3b_tf32_kernel(const float* __restrict__ s, const float* __restrict__ target,
                     const float* __restrict__ k1, const float* __restrict__ b1,
@@ -1163,21 +1227,22 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   constexpr int STAGES = k3b_tf32_stages(C);
   constexpr int MC = C / 16;   // 16-row tiles of z^T; tile MC is the row of ones
   constexpr int NP = 32;                           // channels of ds a pass takes
+  constexpr int NT = NF / 8;                       // fc2's n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sz = reinterpret_cast<float*>(smem_raw);   // [STAGES][kTP][ZS]
   float* sk1 = sz + STAGES * kTP * ZS;              // [C][kTfKS]
   float* sh = sk1 + C * kTfKS;                      // [kTP][kTfHS]: h1, then du
-  float* sdot = sh + kTP * kTfHS;                   // [8][kTfDS]: do^T (rows >= F zero)
-  float* sk2t = sdot + 8 * kTfDS;                   // [8][kTfKS]: k2^T (rows >= F zero)
-  float* sk2f = sk2t + 8 * kTfKS;                   // [kH1][8]: k2 (columns >= F zero)
-  float* sb1 = sk2f + kH1 * 8;
-  float* sb2 = sb1 + kH1;                           // [8]
-  float* sred = sb2 + 8;                            // [8 warps][8]
+  float* sdot = sh + kTP * kTfHS;                   // [NF][kTfDS]: do^T (rows >= F zero)
+  float* sk2t = sdot + NF * kTfDS;                  // [NF][kTfKS]: k2^T (rows >= F zero)
+  float* sk2f = sk2t + NF * kTfKS;                  // [kH1][NF]: k2 (columns >= F zero)
+  float* sb1 = sk2f + kH1 * NF;
+  float* sb2 = sb1 + kH1;                           // [NF]
+  float* sred = sb2 + NF;                           // [8 warps][NF]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, q = lane & 3;
   const int F = d.F;
-  load_tf32_weights<C>(k1, b1, k2, b2, F, sk1, sk2t, sk2f, sb1, sb2);
+  load_tf32_weights<C, NF>(k1, b1, k2, b2, F, sk1, sk2t, sk2f, sb1, sb2);
   const float g2 = 2.f * gsc[0];
   const CropTiles ct(d);
   const int ntiles = ct.ntiles;
@@ -1186,23 +1251,30 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int n = C * kH1 + kH1 + kH1 * F + F;
 
   float dk1[MC + 1][2][4];   // as k3b_mma_kernel's
-  float dk2[4], dk2s[4] = {0.f, 0.f, 0.f, 0.f};   // dk2s: dk2's small terms
-  float db2[2] = {0.f, 0.f};
+  float dk2[NT][4], dk2s[NT][4];   // dk2s: dk2's small terms
+  float db2[NT][2];
 #pragma unroll
   for (int mi = 0; mi <= MC; ++mi)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk1[mi][nt][e] = 0.f;
-  dk2[0] = dk2[1] = dk2[2] = dk2[3] = 0.f;
+#pragma unroll
+  for (int nf = 0; nf < NT; ++nf) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk2[nf][e] = dk2s[nf][e] = 0.f;
+    db2[nf][0] = db2[nf][1] = 0.f;
+  }
   auto flush = [&](int r) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk2[e] += dk2s[e];
-      dk2s[e] = 0.f;
-    }
-    flush_k3b_sums<C>(partial + ((size_t)blockIdx.x * nrows + r) * n, F, dk1, dk2, db2, sred,
-                      warp, lane);
+    for (int nf = 0; nf < NT; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk2[nf][e] += dk2s[nf][e];
+        dk2s[nf][e] = 0.f;
+      }
+    flush_k3b_sums<C, NF>(partial + ((size_t)blockIdx.x * nrows + r) * n, F, dk1, dk2, db2,
+                          sred, warp, lane);
   };
 
   int tile = blockIdx.x, it = 0;
@@ -1219,22 +1291,26 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     const int P = min(kTP, d.W - w0);
     const float* zt = sz + stage * kTP * ZS;
 
-    float u[16][4], o[4];
-    forward_warp_tf32<C, ACT, true>(zt, sk1, sk2t, sb1, p0, lane, u, o, sh);
+    float u[16][4], o[NT][4];
+    forward_warp_tf32<C, ACT, true, NF>(zt, sk1, sk2t, sb1, p0, lane, u, o, sh);
 
     // do = 2 g (o + b2 - target), zero past the tile's positions and F
-    float dv[4];
+    float dv[NT][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = p0 + gq + (e >> 1) * 8, f = 2 * q + (e & 1);
-      dv[e] = 0.f;
-      if (p < P && f < F)
-        dv[e] = g2 * (o[e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * F + f]);
-      sdot[f * kTfDS + p] = dv[e];
+    for (int nf = 0; nf < NT; ++nf) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = p0 + gq + (e >> 1) * 8, f = 8 * nf + 2 * q + (e & 1);
+        dv[nf][e] = 0.f;
+        if (p < P && f < F)
+          dv[nf][e] =
+              g2 * (o[nf][e] + sb2[f] - target[(((size_t)bT * d.H + h) * d.W + w0 + p) * F + f]);
+        sdot[f * kTfDS + p] = dv[nf][e];
+      }
+      db2[nf][0] += dv[nf][0] + dv[nf][2];
+      db2[nf][1] += dv[nf][1] + dv[nf][3];
     }
-    db2[0] += dv[0] + dv[2];
-    db2[1] += dv[1] + dv[3];
-    tail_du(dv, sk2f, F, gq, q, u);
+    tail_du<NF>(dv, sk2f, F, gq, q, u);
 
     // ds = du k1^T, this warp's positions, NP channels a pass
     float* dsb = ds + (((size_t)bt * d.Hp + h) * d.Wp + w0) * C;
@@ -1282,8 +1358,11 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     for (int kp = 2 * q; kp < kTP; kp += 8) {
       const float* hr = sh + kp * kTfHS + 16 * warp + gq;
       const float a[4] = {hr[0], hr[8], hr[kTfHS], hr[kTfHS + 8]};
-      const float2 db = *reinterpret_cast<const float2*>(sdot + gq * kTfDS + kp);
-      mma_f32x3(dk2, dk2s, a, db.x, db.y);
+#pragma unroll
+      for (int nf = 0; nf < NT; ++nf) {
+        const float2 db = *reinterpret_cast<const float2*>(sdot + (8 * nf + gq) * kTfDS + kp);
+        mma_f32x3(dk2[nf], dk2s[nf], a, db.x, db.y);
+      }
     }
     __syncthreads();   // h1 is read: du takes its place
 #pragma unroll
@@ -1388,21 +1467,27 @@ cudaError_t launch_k3b(const void* s, const void* target, const void* k1, const 
                               B * d.Tp, d.C * kH1 + kH1 + kH1 * d.F + d.F, stream);
 }
 
-// Calls fn(C, ACT) (as std::integral_constant arguments) for an
-// instantiated (width, activation) of the tensor-core variants: the two
-// GELUs the tail takes (ops/activations.py::gelu_variant), four kernels at
-// each; cudaErrorInvalidValue for any other.
+// Calls fn(C, ACT, NF) (as std::integral_constant arguments) for an
+// instantiated (width, activation, NF = fc2_width(F)) of the tensor-core
+// variants, four kernels each: every width with the two GELUs the tail
+// takes (ops/activations.py::gelu_variant) at NF 8, and at NF 16 the
+// combustion scenario's (C 64, exact) alone (ops/kernels.py::
+// K3_WIDE_F_INSTANCES); cudaErrorInvalidValue for any other.
 template <typename Fn>
-cudaError_t with_mma_instance(int C, int act, Fn&& fn) {
+cudaError_t with_mma_instance(int C, int act, int F, Fn&& fn) {
   using std::integral_constant;
-#define MMA_INSTANCE(CC, AA) \
-  if (C == CC && act == AA) return fn(integral_constant<int, CC>(), integral_constant<int, AA>())
-  MMA_INSTANCE(64, fno::kActExact);   // the cylinder and combustion
-  MMA_INSTANCE(128, fno::kActExact);  // fsi
-  MMA_INSTANCE(32, fno::kActExact);
-  MMA_INSTANCE(32, fno::kActTanh);
-  MMA_INSTANCE(64, fno::kActTanh);
-  MMA_INSTANCE(128, fno::kActTanh);
+  const int NF = fc2_width(F);
+#define MMA_INSTANCE(CC, AA, NN)                                                            \
+  if (C == CC && act == AA && NF == NN)                                                     \
+  return fn(integral_constant<int, CC>(), integral_constant<int, AA>(),                     \
+            integral_constant<int, NN>())
+  MMA_INSTANCE(64, fno::kActExact, 8);    // the cylinder
+  MMA_INSTANCE(64, fno::kActExact, 16);   // the combustion scenario (F 16)
+  MMA_INSTANCE(128, fno::kActExact, 8);   // fsi
+  MMA_INSTANCE(32, fno::kActExact, 8);
+  MMA_INSTANCE(32, fno::kActTanh, 8);
+  MMA_INSTANCE(64, fno::kActTanh, 8);
+  MMA_INSTANCE(128, fno::kActTanh, 8);
 #undef MMA_INSTANCE
   return cudaErrorInvalidValue;
 }
@@ -1435,26 +1520,30 @@ int k3b_tc_rows(const TailDims& d, int nblocks, int variant) {
 }
 
 // Blocks of a tensor-core variant's grid (variant 1 mma, 2 tf32) at (C,
-// act), as many as the shared memory lets the SMs hold: K3B's mma one an SM,
-// K3F's two at C <= 64; 0 on error.
+// act, F), as many as the shared memory lets the SMs hold: K3B's one an
+// SM, K3F's two at C <= 64; 0 on error.
 int k3b_tc_blocks(const TailDims& d, int variant) {
   int nblocks = 0;
-  with_mma_instance(d.C, d.act, [&](auto c, auto a) {
-    constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
-    nblocks = variant == 1 ? persistent_blocks(k3b_mma_kernel<CC, AA>, k3b_mma_smem(CC), d)
-            : variant == 2 ? persistent_blocks(k3b_tf32_kernel<CC, AA>, k3b_tf32_smem(CC), d)
-                           : 0;
+  with_mma_instance(d.C, d.act, d.F, [&](auto c, auto a, auto nf) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value, NN = decltype(nf)::value;
+    nblocks = variant == 1
+                  ? persistent_blocks(k3b_mma_kernel<CC, AA, NN>, k3b_mma_smem(CC, NN), d)
+              : variant == 2
+                  ? persistent_blocks(k3b_tf32_kernel<CC, AA, NN>, k3b_tf32_smem(CC, NN), d)
+                  : 0;
     return cudaSuccess;
   });
   return nblocks;
 }
 int k3f_tc_blocks(const TailDims& d, int variant) {
   int nblocks = 0;
-  with_mma_instance(d.C, d.act, [&](auto c, auto a) {
-    constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
-    nblocks = variant == 1 ? persistent_blocks(k3f_mma_kernel<CC, AA>, k3f_mma_smem(CC), d)
-            : variant == 2 ? persistent_blocks(k3f_tf32_kernel<CC, AA>, k3f_tf32_smem(CC), d)
-                           : 0;
+  with_mma_instance(d.C, d.act, d.F, [&](auto c, auto a, auto nf) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value, NN = decltype(nf)::value;
+    nblocks = variant == 1
+                  ? persistent_blocks(k3f_mma_kernel<CC, AA, NN>, k3f_mma_smem(CC, NN), d)
+              : variant == 2
+                  ? persistent_blocks(k3f_tf32_kernel<CC, AA, NN>, k3f_tf32_smem(CC, NN), d)
+                  : 0;
     return cudaSuccess;
   });
   return nblocks;
@@ -1473,13 +1562,13 @@ cudaError_t launch_k3b_tc(int variant, const void* s, const void* target, const 
               *v1 = static_cast<const float*>(b1), *w2 = static_cast<const float*>(k2),
               *v2 = static_cast<const float*>(b2), *gs = static_cast<const float*>(g);
   float* part = static_cast<float*>(partial);
-  cudaError_t err = with_mma_instance(d.C, d.act, [&](auto c, auto a) {
-    constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
+  cudaError_t err = with_mma_instance(d.C, d.act, d.F, [&](auto c, auto a, auto nf) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value, NN = decltype(nf)::value;
     if (variant == 1)
-      k3b_mma_kernel<CC, AA><<<nblocks, kMmaThreads, k3b_mma_smem(CC), stream>>>(
+      k3b_mma_kernel<CC, AA, NN><<<nblocks, kMmaThreads, k3b_mma_smem(CC, NN), stream>>>(
           static_cast<const bf16*>(s), tg, w1, v1, w2, v2, gs, static_cast<bf16*>(ds), part, d);
     else
-      k3b_tf32_kernel<CC, AA><<<nblocks, kMmaThreads, k3b_tf32_smem(CC), stream>>>(
+      k3b_tf32_kernel<CC, AA, NN><<<nblocks, kMmaThreads, k3b_tf32_smem(CC, NN), stream>>>(
           static_cast<const float*>(s), tg, w1, v1, w2, v2, gs, static_cast<float*>(ds), part,
           d);
     return cudaGetLastError();
@@ -1500,13 +1589,13 @@ cudaError_t launch_k3f_tc(int variant, const void* s, const void* target, const 
               *v1 = static_cast<const float*>(b1), *w2 = static_cast<const float*>(k2),
               *v2 = static_cast<const float*>(b2);
   float* part = static_cast<float*>(partial);
-  cudaError_t err = with_mma_instance(d.C, d.act, [&](auto c, auto a) {
-    constexpr int CC = decltype(c)::value, AA = decltype(a)::value;
+  cudaError_t err = with_mma_instance(d.C, d.act, d.F, [&](auto c, auto a, auto nf) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value, NN = decltype(nf)::value;
     if (variant == 1)
-      k3f_mma_kernel<CC, AA><<<nblocks, kMmaThreads, k3f_mma_smem(CC), stream>>>(
+      k3f_mma_kernel<CC, AA, NN><<<nblocks, kMmaThreads, k3f_mma_smem(CC, NN), stream>>>(
           static_cast<const bf16*>(s), tg, w1, v1, w2, v2, part, d);
     else
-      k3f_tf32_kernel<CC, AA><<<nblocks, kMmaThreads, k3f_tf32_smem(CC), stream>>>(
+      k3f_tf32_kernel<CC, AA, NN><<<nblocks, kMmaThreads, k3f_tf32_smem(CC, NN), stream>>>(
           static_cast<const float*>(s), tg, w1, v1, w2, v2, part, d);
     return cudaGetLastError();
   });
@@ -1521,27 +1610,48 @@ int tc_dtype(int variant) { return variant == 1 ? fno::kBF16 : variant == 2 ? fn
 }  // namespace
 
 // Bytes of shared memory a block of K3B's (K3F's) mma or tf32 variant takes
-// at width C.
-extern "C" int fno_k3b_mma_smem_bytes(int C) { return k3b_mma_smem(C); }
-extern "C" int fno_k3f_mma_smem_bytes(int C) { return k3f_mma_smem(C); }
-extern "C" int fno_k3b_tf32_smem_bytes(int C) { return k3b_tf32_smem(C); }
-extern "C" int fno_k3f_tf32_smem_bytes(int C) { return k3f_tf32_smem(C); }
+// at width C and fc2 width F.
+extern "C" int fno_k3b_mma_smem_bytes(int C, int F) { return k3b_mma_smem(C, fc2_width(F)); }
+extern "C" int fno_k3f_mma_smem_bytes(int C, int F) { return k3f_mma_smem(C, fc2_width(F)); }
+extern "C" int fno_k3b_tf32_smem_bytes(int C, int F) { return k3b_tf32_smem(C, fc2_width(F)); }
+extern "C" int fno_k3f_tf32_smem_bytes(int C, int F) { return k3f_tf32_smem(C, fc2_width(F)); }
+
+// Blocks an SM of the persistent grid of K3F's (kernel 0) or K3B's (1) mma
+// (variant 1) or tf32 (2) variant at (C, act, F), from the occupancy query;
+// 0 on error.
+extern "C" int fno_tail_blocks_per_sm(int kernel, int C, int act, int F, int variant) {
+  int per_sm = 0;
+  with_mma_instance(C, act, F, [&](auto c, auto a, auto nf) {
+    constexpr int CC = decltype(c)::value, AA = decltype(a)::value, NN = decltype(nf)::value;
+    auto query = [&](auto k, int smem) {
+      if (fno::allow_smem(k, (size_t)smem) == cudaSuccess)
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kMmaThreads, smem);
+    };
+    if (kernel == 0 && variant == 1) query(k3f_mma_kernel<CC, AA, NN>, k3f_mma_smem(CC, NN));
+    if (kernel == 0 && variant == 2) query(k3f_tf32_kernel<CC, AA, NN>, k3f_tf32_smem(CC, NN));
+    if (kernel == 1 && variant == 1) query(k3b_mma_kernel<CC, AA, NN>, k3b_mma_smem(CC, NN));
+    if (kernel == 1 && variant == 2) query(k3b_tf32_kernel<CC, AA, NN>, k3b_tf32_smem(CC, NN));
+    return cudaSuccess;
+  });
+  return per_sm;
+}
 
 // Rows of K3B's partial sums for variant 0 (fma: one an image), 1 (mma) or
 // 2 (tf32: k3b_tc_rows over its persistent grid); 0 on error.
-extern "C" int fno_k3b_num_partials(int B, int T, int H, int W, int Tp, int C, int act,
+extern "C" int fno_k3b_num_partials(int B, int T, int H, int W, int Tp, int C, int F, int act,
                                     int variant) {
   if (variant == 0) return B * Tp;
-  const TailDims d{T, H, W, Tp, 0, 0, C, 0, act, B};
+  const TailDims d{T, H, W, Tp, 0, 0, C, F, act, B};
   const int nblocks = k3b_tc_blocks(d, variant);
   return nblocks < 1 ? 0 : k3b_tc_rows(d, nblocks, variant);
 }
 
 // Partial sums of K3F for variant 0 (fma: one an image), 1 (mma) or 2
 // (tf32: one a block of its persistent grid); 0 on error.
-extern "C" int fno_k3f_num_partials(int B, int T, int H, int W, int C, int act, int variant) {
+extern "C" int fno_k3f_num_partials(int B, int T, int H, int W, int C, int F, int act,
+                                    int variant) {
   if (variant == 0) return B * T;
-  const TailDims d{T, H, W, T, 0, 0, C, 0, act, B};
+  const TailDims d{T, H, W, T, 0, 0, C, F, act, B};
   return k3f_tc_blocks(d, variant);
 }
 

@@ -14,10 +14,10 @@ Counterpart of ``realpdebench_tpu/data/loader.py`` and of
     overlaps step N; batches come out in the loader's order.
 
 The final partial batch is dropped (``drop_last``) or padded to full size
-with a mask as the third element (``pad_last``), as in the JAX loader. The
-loader is single-process: the JAX loader's ``process_shard`` (one slice of
-each global batch per host) waits for the port's multi-process data
-parallelism (ROADMAP.md queue A).
+with a mask as the third element (``pad_last``), as in the JAX loader.
+With ``process_shard`` (data parallelism, ``core/mesh.py``) each process
+loads only its slice of every global batch, every process drawing the same
+permutation, as the JAX loader does per host.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from realpdebench_tpu_torch.core import mesh
 
 
 class DataLoader:
@@ -48,7 +50,15 @@ class DataLoader:
         drop_last: bool = False,
         pad_last: bool = False,
         pin_memory: bool = False,
+        process_shard: bool = False,
+        process_count: int | None = None,
+        process_index: int | None = None,
     ):
+        """``batch_size`` is the GLOBAL batch. With ``process_shard`` each
+        process loads only its ``process_index`` slice of every batch (the
+        same permutation everywhere: the seed is shared); the pad mask stays
+        global-sized. ``process_count``/``process_index`` default to the
+        process group's world size and rank (``core.mesh``)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -58,6 +68,17 @@ class DataLoader:
         self.pin_memory = pin_memory
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
+        if process_shard:
+            self._n_proc = (process_count if process_count is not None
+                            else mesh.world_size())
+            self._proc = process_index if process_index is not None else mesh.rank()
+        else:
+            self._n_proc, self._proc = 1, 0
+        if process_shard and batch_size % self._n_proc:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by "
+                f"{self._n_proc} processes"
+            )
 
     def __len__(self):
         n = len(self.dataset)
@@ -96,12 +117,23 @@ class DataLoader:
         bs = self.batch_size
         n = len(idx)
         stop = (n // bs) * bs if self.drop_last else n
+        per = bs // self._n_proc
         for s in range(0, stop, bs):
             batch_idx = idx[s : s + bs]
             n_valid = len(batch_idx)
             if self.pad_last and n_valid < bs:
+                # padded at the index level, so each process's slice is
+                # exactly `per`; the mask is global-sized
                 batch_idx = np.concatenate(
                     [batch_idx, np.repeat(batch_idx[-1:], bs - n_valid)])
+            elif not self.pad_last and self._n_proc > 1 and n_valid < bs:
+                raise ValueError(
+                    "process_shard with drop_last=False needs pad_last=True "
+                    "to keep the final partial batch evenly divisible across "
+                    f"processes (got {n_valid} rows for {self._n_proc} "
+                    "processes)")
+            if self._n_proc > 1:
+                batch_idx = batch_idx[self._proc * per : (self._proc + 1) * per]
             xs, ys = self._fetch(batch_idx)
             if self.pad_last:
                 mask = np.zeros(bs, np.float32)

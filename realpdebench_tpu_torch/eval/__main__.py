@@ -7,9 +7,11 @@ autoregressively over the real test split, and run the 13-metric sweep
 probe diagnostic. A training-free model (DMD) loads no checkpoint and
 rolls out through ``make_host_rollout_fn``; the first batch's result plots (``N_plot``) and probe
 plots (``N_plot_probe``) need matplotlib, imported where they are drawn.
+Under data parallelism (``torchrun``, ``core/mesh.py``) each rank rolls
+out its slice of every batch and the predictions are gathered before the
+sweep; rank 0 alone writes the log and the plots.
 """
 
-import datetime
 import logging
 import os
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from realpdebench_tpu_torch.config import make_arg_parser, parse_config
+from realpdebench_tpu_torch.core import mesh as mesh_lib
 from realpdebench_tpu_torch.data.loader import DataLoader, to_device
 from realpdebench_tpu_torch.data.normalizer import build_normalizer
 from realpdebench_tpu_torch.eval.metrics import (
@@ -34,13 +37,17 @@ from realpdebench_tpu_torch.eval.rollout import (
 from realpdebench_tpu_torch.models.registry import build_model, resolve_device
 from realpdebench_tpu_torch.train.loop import (
     _dataset_class,
-    check_single_device,
     hf_kwargs,
     load_reference_or_orbax_checkpoint,
     model_kwargs,
     param_count,
 )
-from realpdebench_tpu_torch.utils.misc import make_generator, set_seed, setup_logging
+from realpdebench_tpu_torch.utils.misc import (
+    experiment_time,
+    make_generator,
+    set_seed,
+    setup_logging,
+)
 
 
 def build_eval_datasets(cfg, dataset_class=None):
@@ -73,12 +80,14 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
     """Evaluate ``cfg.checkpoint_path`` on ``device`` (None: the CUDA
     device, and an error where there is none); returns the metrics."""
     device = resolve_device(device, "run_eval evaluates")
-    check_single_device(cfg)
+    mesh = mesh_lib.make_mesh_context(cfg.get("mesh_shape"))
+    main = mesh_lib.is_main_process()
+    gather = mesh_lib.allgather_to_host
 
     test_ds, train_ds, norm_ds = build_eval_datasets(cfg, dataset_class)
-    loader = DataLoader(test_ds, batch_size=int(cfg.test_batch_size),
+    loader = DataLoader(test_ds, batch_size=mesh.pad_batch(int(cfg.test_batch_size)),
                         num_workers=int(cfg.get("num_workers", 4)),
-                        pad_last=True, pin_memory=device.type == "cuda")
+                        pad_last=True, pin_memory=device.type == "cuda", process_shard=True)
     normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds)
     model = build_model(train_dataset=train_ds, device=device,
                         generator=make_generator(int(cfg.get("seed", 0))),
@@ -110,12 +119,12 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
                 normalizer, pred_norm, xn, yn, c
             )
             nmses.append(nmse)
-            pred, target = pred_phys[:n_real], target_phys[:n_real]
-            if batch_idx == 0 and int(cfg.get("N_plot", 0)) > 0:
+            pred, target = gather(pred_phys)[:n_real], gather(target_phys)[:n_real]
+            if batch_idx == 0 and int(cfg.get("N_plot", 0)) > 0 and main:
                 plot_result(pred, target, exp_path, int(cfg.N_plot), unmeasured_c)
             if cfg.get("probe_diagnostic"):
                 kwargs = {}
-                if batch_idx == 0:
+                if batch_idx == 0 and main:
                     kwargs = dict(N_plot=int(cfg.get("N_plot_probe", 0)),
                                   exp_path=exp_path)
                 probe_errors.extend(
@@ -132,7 +141,10 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
     eval_bs = int(cfg.test_batch_size) if n_steps > 4 else pred_all.shape[0]
     vals = eval_metrics(pred_all, target_all, c, eval_bs)
     results = dict(zip(METRIC_NAMES, (float(v) for v in vals)))
-    nmse_vals = torch.stack(nmses).tolist()
+    nmse_t = torch.stack(nmses)
+    if mesh_lib.world_size() > 1:   # the ranks' equal slices of each batch
+        nmse_t = mesh_lib.all_reduce_(nmse_t) / mesh_lib.world_size()
+    nmse_vals = nmse_t.tolist()
     results["normalized_mse"] = sum(nmse_vals) / max(len(nmse_vals), 1)
 
     logging.info(
@@ -153,16 +165,15 @@ def main(argv=None, dataset_class=None):
     parser.add_argument("--test_mode", type=str, default="all",
                         help="all | in_dist | out_dist | seen | unseen")
     cfg = parse_config(parser, argv)
+    device = mesh_lib.maybe_initialize_distributed(cfg.device)
     set_seed(int(cfg.get("seed", 0)))
 
-    current_time = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     exp_path = os.path.join(cfg.get("results_path", "./results/"),
-                            cfg.model_name, f"{cfg.exp_name}_eval", current_time)
-    os.makedirs(exp_path, exist_ok=True)
+                            cfg.model_name, f"{cfg.exp_name}_eval", experiment_time())
     setup_logging(exp_path, is_train=False)
     logging.info(f"args: {cfg.to_dict()}")
 
-    results = run_eval(cfg, exp_path, device=cfg.device, dataset_class=dataset_class)
+    results = run_eval(cfg, exp_path, device=device, dataset_class=dataset_class)
     logging.info(f"Results saved at {exp_path}")
     return exp_path, results
 

@@ -16,6 +16,12 @@ running); a BatchNorm module's own forward is never called), and
 ``Model.dropout_generator``), in the JAX call order; the global RNG is
 never used. Where the compute dtype is float64 (a reference copy of an f32
 model on the card), "at least float32" is float64.
+
+Under data parallelism (``core/mesh.py``: a row share, set by the training
+step around each microbatch) ``batch_norm``'s statistics are sums
+all-reduced over the global batch, and ``dropout_mask`` draws the global
+batch's mask and keeps this rank's rows, so every rank computes what one
+process on the whole batch would.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from realpdebench_tpu_torch.core import mesh
 
 # flax lecun_normal: a normal truncated at 2 std, rescaled to keep variance
 _TRUNC_STD = 0.87962566103423978
@@ -109,8 +117,14 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x, training: bool, dt,
     shape[cd] = -1
     if training:
         dims = tuple(d for d in range(x.dim()) if d != cd)
-        mean = xf.mean(dim=dims)
-        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+        if mesh.current_share() is None:
+            mean = xf.mean(dim=dims)
+            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+        else:   # the global batch's: sums all-reduced over the ranks
+            n = xf.numel() // xf.shape[cd] // xf.shape[0] * mesh.global_rows(xf.shape[0])
+            sums = mesh.global_sum(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+            mean = sums[0] / n
+            var = (sums[1] / n - mean * mean).clamp_min(0.0)
         if update_stats:
             with torch.no_grad():
                 for run, new in ((bn.running_mean, mean), (bn.running_var, var)):
@@ -122,9 +136,12 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x, training: bool, dt,
 
 
 def dropout_mask(shape, p: float, generator: torch.Generator) -> torch.Tensor:
-    """Bool keep mask of ``shape``, True with probability 1 − p, drawn from
-    ``generator`` on its device. Every dropout of every model draws here."""
-    return torch.rand(shape, generator=generator, device=generator.device) >= p
+    """Bool keep mask of ``shape`` (dim 0 the batch), True with probability
+    1 − p, drawn from ``generator`` on its device (under a row share, the
+    global batch's mask, this rank's rows). Every dropout of every model
+    draws here."""
+    return mesh.draw_rows(
+        lambda sh: torch.rand(sh, generator=generator, device=generator.device) >= p, shape)
 
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:

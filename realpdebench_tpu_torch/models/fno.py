@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from realpdebench_tpu_torch.core.mesh import global_rows, global_sum
 from realpdebench_tpu_torch.models.base import BN_MOMENTUM, Model, lecun_normal_, mse
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_variant
 from realpdebench_tpu_torch.ops.fno_layer import (
@@ -135,7 +136,7 @@ class FNO3d(Model):
                              f"W={W}, padding={p}")
         Tp, Hp, Wp = T + p, H + p, W + p
         dims = (B, Tp, Hp, Wp, C)
-        n_pos = B * Tp * Hp * Wp
+        n_pos = global_rows(B) * Tp * Hp * Wp    # the BatchNorm statistics' count
 
         grid = torch.cat(grid_features((T, H, W), device=x.device), dim=-1)
         xg = torch.cat([x.float(), grid.expand(B, T, H, W, 3)], dim=-1)
@@ -154,6 +155,8 @@ class FNO3d(Model):
             xf, stats = layer(xf, a, b, w_real, w_imag, wp, conv.bias,
                               dims=dims, act=act)
             if self.training:
+                # under data parallelism the global batch's sums (core/mesh)
+                stats = global_sum(stats)
                 mean = stats[0] / n_pos
                 var = stats[1] / n_pos - mean * mean       # biased, as flax
                 with torch.no_grad():

@@ -47,6 +47,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from realpdebench_tpu_torch.core.mesh import draw_rows
 from realpdebench_tpu_torch.models.base import Model, mse
 from realpdebench_tpu_torch.models.unet import Unet3d
 from realpdebench_tpu_torch.ops.wavelet import coef_len, wavedec3_level1, waverec3_level1
@@ -302,13 +303,14 @@ class WDNO(Model):
         ``t`` [b] and ``noise`` [b, T', H', W', C·8] are drawn from the
         model's generator unless given."""
         b = x.shape[0]
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,),
-                              generator=self.dropout_generator(x.device), device=x.device)
+        if t is None:   # under data parallelism: the global batch's, this rank's rows
+            g = self.dropout_generator(x.device)
+            t = draw_rows(lambda sh: torch.randint(0, self.num_timesteps, sh, generator=g,
+                                                   device=x.device), (b,))
         state_start = self.to_coef_tensor(pack_input_target(x, y))
         cond = state_start[..., : 8 * self.c_in]
-        noise = (self._normal(state_start.shape, x.device) if noise is None
-                 else noise.to(state_start))
+        noise = (draw_rows(lambda sh: self._normal(sh, x.device), state_start.shape)
+                 if noise is None else noise.to(state_start))
         t = t.to(x.device)
         nd = state_start.dim()
         state = (self._extract(self.sqrt_alphas_cumprod, t, nd) * state_start

@@ -246,42 +246,65 @@ def k2a_lite_variant(dtype, C: int, m2x2: int, m3: int, Wp: int = 16,
 # csrc/fno_tail.cu, K3B's mma variant: widths, positions a tile takes, the
 # padded row strides of its [.][128] tiles and of its do tile; the tf32
 # variants' f32 row strides of k1 and k2ᵀ (kTfKS), of the h1 / du tile
-# (kTfHS) and of doᵀ (kTfDS)
+# (kTfHS) and of doᵀ (kTfDS); the widest fc2 (kMaxF)
 K3B_MMA_WIDTHS, K3B_MMA_TILE, K3B_MMA_KS, K3B_MMA_DOS = (32, 64, 128), 128, 136, 24
 K3_TF32_KS, K3_TF32_HS, K3_TF32_DS = 136, 132, 136
+TAIL_MAX_F = 16
+# the (width, activation) pairs whose tensor-core variants are also built at
+# fc2 width 16 (csrc/fno_tail.cu::with_mma_instance): the combustion
+# scenario's; every pair of K3B_MMA_WIDTHS and the two GELUs is built at 8
+K3_WIDE_F_INSTANCES = ((64, "exact"),)
 
 
-def k3f_mma_smem_bytes(C: int) -> int:
+def fc2_width(F: int) -> int:
+    """fc2's width as the tail's tensor-core variants pad it
+    (csrc/fno_tail.cu::fc2_width): one n-tile of 8 columns for F <= 8, two
+    for 9 <= F <= 16."""
+    return 8 if F <= 8 else 16
+
+
+def k3f_mma_smem_bytes(C: int, F: int = 3) -> int:
     """Shared memory of a block of K3F's mma variant (csrc/fno_tail.cu::
-    k3f_mma_smem): k1 hi and lo, two z stages, k2ᵀ hi and lo (bf16); b1, b2
-    (f32); the warps' sums (f64)."""
-    P, KS = K3B_MMA_TILE, K3B_MMA_KS
-    return 2 * (2 * C * KS + 2 * P * (C + 8) + 2 * 8 * KS) + 4 * (128 + 8) + 8 * 8
+    k3f_mma_smem): k1 hi and lo, two z stages, k2ᵀ hi and lo [NF][136]
+    (bf16); b1, b2 (f32); the warps' sums (f64)."""
+    P, KS, NF = K3B_MMA_TILE, K3B_MMA_KS, fc2_width(F)
+    return 2 * (2 * C * KS + 2 * P * (C + 8) + 2 * NF * KS) + 4 * (128 + NF) + 8 * 8
 
 
-def k3f_tf32_smem_bytes(C: int) -> int:
+def k3f_tf32_smem_bytes(C: int, F: int = 3) -> int:
     """Shared memory of a block of K3F's tf32 variant (csrc/fno_tail.cu::
     k3f_tf32_smem), all f32: two z stages [128][C + 4], k1 [C][136], k2ᵀ
-    [8][136], b1, b2; the warps' sums (f64)."""
-    return 4 * (2 * K3B_MMA_TILE * (C + 4) + (C + 8) * K3_TF32_KS + 128 + 8) + 8 * 8
+    [NF][136], b1, b2; the warps' sums (f64)."""
+    NF = fc2_width(F)
+    return 4 * (2 * K3B_MMA_TILE * (C + 4) + (C + NF) * K3_TF32_KS + 128 + NF) + 8 * 8
 
 
-def k3f_variant(dtype, C: int, F: int = 3, aligned: bool = True) -> str:
-    """At an instantiated width (32, 64, 128), F <= 8 and 16-byte aligned s
-    (K3B's conditions: the two share one forward): 'mma' for bfloat16,
-    'tf32' for float32; else 'fma'."""
-    if aligned and C in K3B_MMA_WIDTHS and F <= 8:
-        return _tc_choice(dtype, k3f_mma_smem_bytes(C), k3f_tf32_smem_bytes(C))
+def tail_tc_instance(C: int, F: int, act: str = "exact") -> bool:
+    """Whether the tail's tensor-core variants are built at (C, F, act):
+    every width of K3B_MMA_WIDTHS at F <= 8, K3_WIDE_F_INSTANCES up to
+    TAIL_MAX_F."""
+    return C in K3B_MMA_WIDTHS and (F <= 8 or (F <= TAIL_MAX_F
+                                               and (C, act) in K3_WIDE_F_INSTANCES))
+
+
+def k3f_variant(dtype, C: int, F: int = 3, aligned: bool = True, act: str = "exact") -> str:
+    """At an instantiated (C, F, act) (``tail_tc_instance``) and 16-byte
+    aligned s (K3B's conditions: the two share one forward): 'mma' for
+    bfloat16, 'tf32' for float32; else 'fma'."""
+    if aligned and tail_tc_instance(C, F, act):
+        return _tc_choice(dtype, k3f_mma_smem_bytes(C, F), k3f_tf32_smem_bytes(C, F))
     return "fma"
 
 
-def k3b_mma_smem_bytes(C: int) -> int:
+def k3b_mma_smem_bytes(C: int, F: int = 3) -> int:
     """Shared memory of a block of K3B's mma variant (csrc/fno_tail.cu::
     k3b_mma_smem): k1 hi and lo, two z stages, h1/du hi and lo, do hi and
-    lo, k2ᵀ hi and lo (bf16); k2, b1, b2 and the warps' db2 (f32)."""
-    P, KS, DOS = K3B_MMA_TILE, K3B_MMA_KS, K3B_MMA_DOS
-    return (2 * (2 * C * KS + 2 * P * (C + 8) + 2 * P * KS + 2 * P * DOS + 2 * 8 * KS)
-            + 4 * (128 * 8 + 128 + 8 + 64))
+    lo, k2ᵀ hi and lo [NF][136] (bf16); k2 [128][NF], b1, b2 and the warps'
+    db2 [8][NF] (f32)."""
+    P, KS, DOS, NF = K3B_MMA_TILE, K3B_MMA_KS, K3B_MMA_DOS, fc2_width(F)
+    return (2 * (2 * C * KS + 2 * P * (C + 8) + 2 * P * KS + 2 * P * DOS
+                 + 2 * NF * KS)
+            + 4 * (128 * NF + 128 + NF + 8 * NF))
 
 
 def k3b_tf32_stages(C: int) -> int:
@@ -290,21 +313,21 @@ def k3b_tf32_stages(C: int) -> int:
     return 2 if C <= 64 else 1
 
 
-def k3b_tf32_smem_bytes(C: int) -> int:
+def k3b_tf32_smem_bytes(C: int, F: int = 3) -> int:
     """Shared memory of a block of K3B's tf32 variant (csrc/fno_tail.cu::
     k3b_tf32_smem), all f32: its z stages [128][C + 4], k1 [C][136], the h1
-    / du tile [128][132], doᵀ [8][136], k2ᵀ [8][136], k2 [128][8], b1, b2,
-    the warps' db2 [8][8]."""
-    P = K3B_MMA_TILE
-    return 4 * (k3b_tf32_stages(C) * P * (C + 4) + (C + 8) * K3_TF32_KS + P * K3_TF32_HS
-                + 8 * K3_TF32_DS + 128 * 8 + 128 + 8 + 64)
+    / du tile [128][132], doᵀ [NF][136], k2ᵀ [NF][136], k2 [128][NF], b1,
+    b2, the warps' db2 [8][NF]."""
+    P, NF = K3B_MMA_TILE, fc2_width(F)
+    return 4 * (k3b_tf32_stages(C) * P * (C + 4) + (C + NF) * K3_TF32_KS + P * K3_TF32_HS
+                + NF * K3_TF32_DS + 128 * NF + 128 + NF + 8 * NF)
 
 
-def k3b_variant(dtype, C: int, F: int = 3, aligned: bool = True) -> str:
-    """At an instantiated width (32, 64, 128), F <= 8 and 16-byte aligned s:
-    'mma' for bfloat16, 'tf32' for float32; else 'fma'."""
-    if aligned and C in K3B_MMA_WIDTHS and F <= 8:
-        return _tc_choice(dtype, k3b_mma_smem_bytes(C), k3b_tf32_smem_bytes(C))
+def k3b_variant(dtype, C: int, F: int = 3, aligned: bool = True, act: str = "exact") -> str:
+    """At an instantiated (C, F, act) (``tail_tc_instance``) and 16-byte
+    aligned s: 'mma' for bfloat16, 'tf32' for float32; else 'fma'."""
+    if aligned and tail_tc_instance(C, F, act):
+        return _tc_choice(dtype, k3b_mma_smem_bytes(C, F), k3b_tf32_smem_bytes(C, F))
     return "fma"
 
 
@@ -477,13 +500,14 @@ SIGNATURES = {
     "fno_k12b_mma_smem_bytes": ([_I] * 4, _I),
     "fno_k12b_tf32_smem_bytes": ([_I] * 4, _I),
     "fno_k3f": ([_P] * 8 + [_I] * 13 + [_P], _I),
-    "fno_k3f_num_partials": ([_I] * 7, _I),
-    "fno_k3f_mma_smem_bytes": ([_I], _I),
-    "fno_k3f_tf32_smem_bytes": ([_I], _I),
+    "fno_k3f_num_partials": ([_I] * 8, _I),
+    "fno_k3f_mma_smem_bytes": ([_I] * 2, _I),
+    "fno_k3f_tf32_smem_bytes": ([_I] * 2, _I),
     "fno_k3b": ([_P] * 10 + [_I] * 13 + [_P], _I),
-    "fno_k3b_num_partials": ([_I] * 8, _I),
-    "fno_k3b_mma_smem_bytes": ([_I], _I),
-    "fno_k3b_tf32_smem_bytes": ([_I], _I),
+    "fno_k3b_num_partials": ([_I] * 9, _I),
+    "fno_k3b_mma_smem_bytes": ([_I] * 2, _I),
+    "fno_k3b_tf32_smem_bytes": ([_I] * 2, _I),
+    "fno_tail_blocks_per_sm": ([_I] * 5, _I),
     "ta_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "ta_fwd_mma_smem_bytes": ([_I] * 3, _I),
     "ta_fwd_tf32_smem_bytes": ([_I] * 3, _I),
@@ -891,27 +915,29 @@ def _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims, act):
     for n, t, sh in (("target", target, (B, T, H, W, F)), ("k1", k1, (C, H1)),
                      ("b1", b1, (H1,)), ("k2", k2, (H1, F)), ("b2", b2, (F,))):
         _check(n, t, dev, f32, sh)
-    if H1 != 128 or F > 8 or C % 8 or C > 128:
-        raise ValueError(f"the tail kernels take fc1 width 128, F <= 8 and C "
+    if H1 != 128 or F > TAIL_MAX_F or C % 8 or C > 128:
+        raise ValueError(f"the tail kernels take fc1 width 128, F <= {TAIL_MAX_F} and C "
                          f"a multiple of 8 up to 128; got {H1}, {F}, {C}")
     return (B, T, H, W, Tp, Hp, Wp, C, H1, F)
 
 
-def _tail_variant(kernel: str, s, C: int, F: int, variant: str | None):
+def _tail_variant(kernel: str, s, C: int, F: int, variant: str | None,
+                  act: str = "exact"):
     """(name, code) of the variant of K3F or K3B that runs on s: the one
     named, or the one ``k3f_variant`` / ``k3b_variant`` chooses; see
     ``_tc_variant``."""
     ok = aligned(s)
     choose = k3f_variant if kernel == "k3f" else k3b_variant
-    return _tc_variant(kernel, choose(s.dtype, C, F, ok), variant, s.dtype,
-                       f"C in {K3B_MMA_WIDTHS}, F <= 8 and 16-byte aligned s",
-                       f"C={C}, F={F}, aligned={ok}")
+    return _tc_variant(kernel, choose(s.dtype, C, F, ok, act), variant, s.dtype,
+                       f"C in {K3B_MMA_WIDTHS} at F <= 8, (C, act) in "
+                       f"{K3_WIDE_F_INSTANCES} at F <= {TAIL_MAX_F}, and 16-byte aligned s",
+                       f"C={C}, F={F}, act={act!r}, aligned={ok}")
 
 
-def _tail_layouts(kernel: str, name: str, C: int) -> None:
+def _tail_layouts(kernel: str, name: str, C: int, F: int) -> None:
     """A tensor-core variant's shared memory as fno_tail.cu lays it out
     against this module's, on which the variant functions decide."""
-    if name in _TC_DTYPES and not _layouts_agree(kernel, name, C):
+    if name in _TC_DTYPES and not _layouts_agree(kernel, name, C, F):
         raise RuntimeError(f"{kernel}: the shared-memory layouts of kernels.py and "
                            "fno_tail.cu differ")
 
@@ -924,11 +950,11 @@ def k3f(s, target, k1, b1, k2, b2, *, dims, tail_dims, act: str,
     ints = _tail_checks(s, target, k1, b1, k2, b2, dims, tail_dims, act)
     dt = _io_dtype(s)
     B, T, H, W, C, F = (ints[i] for i in (0, 1, 2, 3, 7, 9))
-    name, code = _tail_variant("k3f", s, C, F, variant)
-    _tail_layouts("k3f", name, C)
+    name, code = _tail_variant("k3f", s, C, F, variant, act)
+    _tail_layouts("k3f", name, C, F)
     lib = library()
     with torch.cuda.device(s.device):   # the mma grid fills this card's SMs
-        nparts = lib.fno_k3f_num_partials(B, T, H, W, C, ACT_CODES[act], code)
+        nparts = lib.fno_k3f_num_partials(B, T, H, W, C, F, ACT_CODES[act], code)
     if nparts < 1:
         raise RuntimeError(f"k3f: no partial count for the {name} variant")
     partial = torch.empty(nparts, dtype=torch.float32, device=s.device)
@@ -949,13 +975,13 @@ def k3b(s, target, k1, b1, k2, b2, g, *, dims, tail_dims, act: str,
     dt = _io_dtype(s)
     _check("g", g, s.device, torch.float32, ())
     B, T, H, W, Tp, C, H1, F = (ints[i] for i in (0, 1, 2, 3, 4, 7, 8, 9))
-    name, code = _tail_variant("k3b", s, C, F, variant)
-    _tail_layouts("k3b", name, C)
+    name, code = _tail_variant("k3b", s, C, F, variant, act)
+    _tail_layouts("k3b", name, C, F)
     lib = library()
     n = C * H1 + H1 + H1 * F + F
     ds = torch.empty_like(s)
     with torch.cuda.device(s.device):   # the mma grid is one block an SM of this card
-        nparts = lib.fno_k3b_num_partials(B, T, H, W, Tp, C, ACT_CODES[act], code)
+        nparts = lib.fno_k3b_num_partials(B, T, H, W, Tp, C, F, ACT_CODES[act], code)
     if nparts < 1:
         raise RuntimeError(f"k3b: no partial count for the {name} variant")
     partial = torch.empty((nparts, n), dtype=torch.float32, device=s.device)

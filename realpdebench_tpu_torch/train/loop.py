@@ -13,9 +13,14 @@ validation. ``resume`` continues this experiment's own checkpoint
 
 Batches reach the device from one background thread (``data/loader``);
 the losses stay on the device between validations and are fetched in one
-transfer there, so no step waits for the host. The run is on one device:
-``mesh_shape`` must be null (data, tensor and sequence parallelism wait
-for ROADMAP.md queue A, item 9).
+transfer there, so no step waits for the host. The run always builds a
+mesh (``core/mesh.py``), as the JAX loop does: ``mesh_shape`` null is dp =
+the process group's world size (1 without a group). Under data
+parallelism (``torchrun``, one process a card) each process loads its
+slice of every global batch, validation gathers the predictions before the
+metric sweep, and rank 0 alone writes checkpoints, logs and TensorBoard; a
+resume loads on every rank. The model axis (mp > 1, ``seq_shard``) is
+ROADMAP.md item 9b and raises.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import time
 
 import torch
 
+from realpdebench_tpu_torch.core import mesh as mesh_lib
 from realpdebench_tpu_torch.data.loader import DataLoader, cycle_loader, to_device
 from realpdebench_tpu_torch.data.normalizer import build_normalizer
 from realpdebench_tpu_torch.eval.metrics import (
@@ -110,14 +116,6 @@ def _dataset_class(name: str, use_hf: bool):
     raise ValueError(f"Dataset {name} not supported")
 
 
-def check_single_device(cfg) -> None:
-    if cfg.get("mesh_shape") is not None:
-        raise NotImplementedError(
-            f"mesh_shape {cfg.get('mesh_shape')!r}: the port runs on one "
-            "device; meshes wait for ROADMAP.md queue A, item 9 (pass "
-            "mesh_shape null)")
-
-
 def model_kwargs(cfg) -> dict:
     return {k: v for k, v in cfg.to_dict().items() if k not in _NOT_MODEL_KEYS}
 
@@ -131,7 +129,8 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
     """Run the full training loop on ``device`` (None: the CUDA device, and
     an error where there is none); returns (model, optimizer, history)."""
     device = resolve_device(device, "run_training trains")
-    check_single_device(cfg)
+    mesh = mesh_lib.make_mesh_context(cfg.get("mesh_shape"))
+    main = mesh_lib.is_main_process()
     cuda = device.type == "cuda"
 
     train_data_type = cfg.get("train_data_type", "numerical")
@@ -144,16 +143,18 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
     )
 
     num_workers = int(cfg.get("num_workers", 4))
+    # each process loads its slice of every global batch (the same
+    # permutation everywhere)
     train_loader = DataLoader(
-        train_ds, batch_size=int(cfg.train_batch_size), shuffle=True,
+        train_ds, batch_size=mesh.pad_batch(int(cfg.train_batch_size)), shuffle=True,
         drop_last=True, num_workers=num_workers, seed=int(cfg.get("seed", 0)),
-        pin_memory=cuda,
+        pin_memory=cuda, process_shard=True,
     )
     # pad_last keeps every val batch the same shape; padded rows are dropped
-    # before the metric sweep
+    # (after the gather) before the metric sweep
     val_loader = DataLoader(
-        val_ds, batch_size=int(cfg.test_batch_size), shuffle=False,
-        num_workers=num_workers, pad_last=True, pin_memory=cuda,
+        val_ds, batch_size=mesh.pad_batch(int(cfg.test_batch_size)), shuffle=False,
+        num_workers=num_workers, pad_last=True, pin_memory=cuda, process_shard=True,
     )
 
     normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds)
@@ -171,7 +172,7 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
 
     optimizer = build_optimizer(cfg, model.parameters())
     ckpt = CheckpointManager(os.path.join(exp_path, "ckpt"),
-                             max_to_keep=cfg.get("max_to_keep"))
+                             max_to_keep=cfg.get("max_to_keep")) if main else None
     start_iteration = 0
     if cfg.get("resume"):
         # full resume (parameters, optimizer, step) from this experiment's
@@ -188,7 +189,7 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
         logging.info(f"Checkpoint {cfg.checkpoint_path} loaded (finetune)")
 
     step_fn = make_train_step(model, normalizer, optimizer,
-                              grad_accum=int(cfg.get("grad_accum", 1) or 1))
+                              grad_accum=int(cfg.get("grad_accum", 1) or 1), mesh=mesh)
     eval_fn = None  # built once c is known
 
     num_update = int(cfg.num_update)
@@ -263,15 +264,16 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
                         writer.add_scalar(f"val_{kk}", val[kk], iteration)
                 t_ckpt = time.perf_counter()
                 with record("checkpoint"):
-                    ckpt.save(
-                        iteration, model, optimizer,
-                        metadata={
-                            "iteration": iteration,
-                            "best_iteration": best_iter,
-                            "best_val_loss": best_val,
-                            "val_losses": {k: list(v) for k, v in history["val"].items()},
-                        },
-                    )
+                    if ckpt is not None:
+                        ckpt.save(
+                            iteration, model, optimizer,
+                            metadata={
+                                "iteration": iteration,
+                                "best_iteration": best_iter,
+                                "best_val_loss": best_val,
+                                "val_losses": {k: list(v) for k, v in history["val"].items()},
+                            },
+                        )
                 ckpt_s += time.perf_counter() - t_ckpt
             if iteration == profile_window[1] and profile_dir:
                 if cuda:
@@ -282,7 +284,8 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
         batches.close()
 
     _drain_losses()
-    ckpt.wait()
+    if ckpt is not None:
+        ckpt.wait()
     if cuda:
         torch.cuda.synchronize()
     elapsed = time.time() - t_start
@@ -299,27 +302,35 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
         f"perf: {perf})"
     )
     history["perf"] = perf
-    ckpt.close()
+    if ckpt is not None:
+        ckpt.close()
     return model, optimizer, history
 
 
 def validation_arrays(eval_fn, val_loader, device=None):
     """The val split through ``eval_fn``: (the batches' normalized MSEs,
     the physical predictions, the targets), padding dropped, on the
-    device."""
+    device. Under data parallelism each rank runs its slice of every
+    batch; the predictions and targets are gathered (rank order is the
+    batch's order) and each batch's MSE averaged over the ranks' equal
+    slices, so every rank returns the global batch's."""
     nmses, preds, targets = [], [], []
     batches = to_device(val_loader, device)
+    gather = mesh_lib.allgather_to_host
     try:
         for batch in batches:
-            x, y = batch[0], batch[1]
+            x, y = mesh_lib.assemble_from_process_local(batch[0]), batch[1]
             n_real = int(batch[2].sum()) if len(batch) > 2 else x.shape[0]
             nmse, pred_phys, target_phys = eval_fn(x, y)
             nmses.append(nmse)
-            preds.append(pred_phys[:n_real])
-            targets.append(target_phys[:n_real])
+            preds.append(gather(pred_phys)[:n_real])
+            targets.append(gather(target_phys)[:n_real])
     finally:
         batches.close()
-    return torch.stack(nmses).tolist(), torch.cat(preds), torch.cat(targets)
+    nmse = torch.stack(nmses)
+    if mesh_lib.world_size() > 1:
+        nmse = mesh_lib.all_reduce_(nmse) / mesh_lib.world_size()
+    return nmse.tolist(), torch.cat(preds), torch.cat(targets)
 
 
 def run_validation(model, eval_fn, val_loader, c, device=None):

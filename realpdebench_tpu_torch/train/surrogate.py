@@ -7,14 +7,13 @@ observation) with the main loop's training step, evaluates every 50
 iterations with the short metric set (normalized MSE, RMSE, MAE, Rel-L2)
 and checkpoints at each evaluation, the best iteration chosen by RMSE.
 The Gaussian normalizer's statistics are never cached (reference
-``train_surrogate.py:113-116``). The JAX CLI's ``--mesh_shape`` is not
-taken: mesh handling waits for ROADMAP item 9, as in ``train/loop.py``.
+``train_surrogate.py:113-116``). It builds a mesh (``--mesh_shape``) and
+runs data-parallel under ``torchrun`` as ``train/loop.py`` does.
 """
 
 from __future__ import annotations
 
 import argparse
-import datetime
 import logging
 import os
 import time
@@ -22,6 +21,7 @@ import time
 import torch
 
 from realpdebench_tpu_torch.config import _flag, parse_config
+from realpdebench_tpu_torch.core import mesh as mesh_lib
 from realpdebench_tpu_torch.data.loader import DataLoader, cycle_loader
 from realpdebench_tpu_torch.data.normalizer import build_normalizer
 from realpdebench_tpu_torch.data.surrogate import CombustionSurrogateHFDataset, SurrogateDataset
@@ -33,7 +33,12 @@ from realpdebench_tpu_torch.train.train_step import (
     make_eval_step,
     make_train_step,
 )
-from realpdebench_tpu_torch.utils.misc import make_generator, set_seed, setup_logging
+from realpdebench_tpu_torch.utils.misc import (
+    experiment_time,
+    make_generator,
+    set_seed,
+    setup_logging,
+)
 
 EVAL_EVERY = 50
 TEST_KEYS = ("normalized_mse", "rmse", "mae", "rel_l2_error")
@@ -69,16 +74,18 @@ def run_surrogate_training(cfg, exp_path: str, device=None):
     """Train as ``cfg`` says on ``device`` (None: the CUDA device, and an
     error where there is none); returns (model, optimizer, history)."""
     device = resolve_device(device, "run_surrogate_training trains")
+    mesh = mesh_lib.make_mesh_context(cfg.get("mesh_shape"))
     cuda = device.type == "cuda"
     train_ds, test_ds, norm_ds = surrogate_datasets(cfg)
     logging.info(f"Data loaded from {train_ds.numerical_dataset_path}")
 
     num_workers = int(cfg.get("num_workers", 4))
-    train_loader = DataLoader(train_ds, batch_size=int(cfg.train_batch_size), shuffle=True,
-                              drop_last=True, seed=int(cfg.get("seed", 0)),
-                              num_workers=num_workers, pin_memory=cuda)
-    test_loader = DataLoader(test_ds, batch_size=int(cfg.test_batch_size), pad_last=True,
-                             num_workers=num_workers, pin_memory=cuda)
+    train_loader = DataLoader(train_ds, batch_size=mesh.pad_batch(int(cfg.train_batch_size)),
+                              shuffle=True, drop_last=True, seed=int(cfg.get("seed", 0)),
+                              num_workers=num_workers, pin_memory=cuda, process_shard=True)
+    test_loader = DataLoader(test_ds, batch_size=mesh.pad_batch(int(cfg.test_batch_size)),
+                             pad_last=True, num_workers=num_workers, pin_memory=cuda,
+                             process_shard=True)
     normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds, is_save=False)
     model = build_model(train_dataset=train_ds, device=device,
                         generator=make_generator(int(cfg.get("seed", 0))),
@@ -90,9 +97,10 @@ def run_surrogate_training(cfg, exp_path: str, device=None):
 
     optimizer = build_optimizer(cfg, model.parameters())
     step_fn = make_train_step(model, normalizer, optimizer,
-                              grad_accum=int(cfg.get("grad_accum", 1) or 1))
+                              grad_accum=int(cfg.get("grad_accum", 1) or 1), mesh=mesh)
     eval_fn = make_eval_step(model, normalizer, c=None)
-    ckpt = CheckpointManager(os.path.join(exp_path, "ckpt"), max_to_keep=cfg.get("max_to_keep"))
+    ckpt = (CheckpointManager(os.path.join(exp_path, "ckpt"), max_to_keep=cfg.get("max_to_keep"))
+            if mesh_lib.is_main_process() else None)
     batches = cycle_loader(train_loader, device=device)
 
     num_update = int(cfg.num_update)
@@ -118,19 +126,22 @@ def run_surrogate_training(cfg, exp_path: str, device=None):
                          f"{sum(losses) / max(len(losses), 1):.5f}")
             logging.info("Validation results: "
                          + ", ".join(f"{k}: {v:.5f}" for k, v in vals.items()))
-            ckpt.save(iteration, model, optimizer, metadata={
-                "iteration": iteration, "best_iteration": best_iter,
-                "best_test_loss": best_loss})
+            if ckpt is not None:
+                ckpt.save(iteration, model, optimizer, metadata={
+                    "iteration": iteration, "best_iteration": best_iter,
+                    "best_test_loss": best_loss})
     finally:
         batches.close()
     history["train_loss"].extend(torch.stack(pending).tolist() if pending else [])
-    ckpt.wait()
+    if ckpt is not None:
+        ckpt.wait()
     elapsed = time.time() - t0
     history["perf"] = dict(elapsed_s=elapsed, steps=num_update,
                            loop_steps_per_sec=num_update / max(elapsed, 1e-9))
     logging.info(f"Training complete, best iteration {best_iter}, "
                  f"time {elapsed / 60:.2f} min")
-    ckpt.close()
+    if ckpt is not None:
+        ckpt.close()
     return model, optimizer, history
 
 
@@ -148,22 +159,23 @@ def make_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--hf_revision", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) | cuda:N | cpu")
+    parser.add_argument("--mesh_shape", type=str, default=None,
+                        help="e.g. 'dp=4' under torchrun; default: dp = the world size")
     return parser
 
 
 def main(argv=None):
     """Train the surrogate as the command line ``argv`` says (the JAX
-    CLI's flags but ``--mesh_shape``, plus ``--device`` and ``--key value``
-    config overrides); returns (exp_path, model, optimizer, history)."""
+    CLI's flags, plus ``--device`` and ``--key value`` config overrides);
+    returns (exp_path, model, optimizer, history)."""
     cfg = parse_config(make_arg_parser(), argv)
+    device = mesh_lib.maybe_initialize_distributed(cfg.device)
     set_seed(int(cfg.get("seed", 0)))
-    current_time = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     exp_path = os.path.join(cfg.get("results_path", "./results/"), cfg.model_name,
-                            cfg.exp_name, current_time)
-    os.makedirs(exp_path, exist_ok=True)
+                            cfg.exp_name, experiment_time())
     writer = setup_logging(exp_path, bool(cfg.get("is_use_tb")))
     logging.info(f"args: {cfg.to_dict()}")
-    model, optimizer, history = run_surrogate_training(cfg, exp_path, device=cfg.device)
+    model, optimizer, history = run_surrogate_training(cfg, exp_path, device=device)
     if writer is not None:
         writer.close()
     return exp_path, model, optimizer, history

@@ -15,10 +15,14 @@ of the last step stay in ``p.grad`` until the next step.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+
+from realpdebench_tpu_torch.core import mesh as mesh_lib
 
 
 def build_schedule(cfg) -> Callable[[int], float]:
@@ -82,37 +86,114 @@ def build_optimizer(cfg, params) -> Optimizer:
                      cfg.get("clip_grad_norm", 0.0))
 
 
+def _microbatches(b: int, k: int, mesh):
+    """(rows of the local batch, row share) of each of the ``k``
+    microbatches of a local batch of ``b`` rows. Without a mesh, ``k``
+    consecutive chunks. With one, microbatch i is the global batch's rows
+    {r·k + i}, as the JAX step composes them under a mesh
+    (``train_step.py:129-157``): this rank's rows whose global index is ≡ i
+    (mod k), which are consecutive rows of the global microbatch. A row
+    share (None without a process group) tells the forward where they lie
+    in it."""
+    if mesh is None:
+        n = b // k
+        return [(slice(i * n, (i + 1) * n), None) for i in range(k)]
+    world = mesh.dp_size if mesh.distributed else 1
+    total, offset = b * world, b * (mesh_lib.rank() if mesh.distributed else 0)
+    if total % k:
+        raise ValueError(f"global batch {total} not divisible by grad_accum {k}")
+    out = []
+    for i in range(k):
+        first = (i - offset) % k
+        count = len(range(first, b, k))
+        if count == 0:
+            raise ValueError(f"a rank's {b} rows hold no row of microbatch {i} of {k}: "
+                             "raise the batch or lower grad_accum")
+        share = (mesh_lib.RowShare(total // k, (offset + first) // k, count)
+                 if mesh.distributed else None)
+        out.append((slice(first, b, k), share))
+    return out
+
+
+def _all_reduce_grads(params) -> None:
+    """Every gradient summed over the ranks, in one all-reduce a dtype
+    (complex gradients as their real and imaginary parts)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    by_dtype: dict = {}
+    for g in grads:
+        r = torch.view_as_real(g) if g.is_complex() else g
+        by_dtype.setdefault(r.dtype, []).append((g, r))
+    for pairs in by_dtype.values():
+        flat = torch.cat([r.reshape(-1) for _, r in pairs])
+        mesh_lib.all_reduce_(flat)
+        at = 0
+        for _, r in pairs:
+            r.copy_(flat[at:at + r.numel()].view_as(r))
+            at += r.numel()
+
+
+def broadcast_state(model) -> None:
+    """The parameters and buffers of rank 0 on every rank (complex
+    parameters as their real and imaginary parts)."""
+    with torch.no_grad():
+        for t in (*model.parameters(), *model.buffers()):
+            dist.broadcast(torch.view_as_real(t.data) if t.is_complex() else t.data, src=0)
+            mesh_lib.COLLECTIVES["broadcast"] += 1
+
+
 def make_train_step(model, normalizer, optimizer: Optimizer,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, mesh=None):
     """Build ``step(x, y) -> loss``: normalize, forward and backward in
     train mode through ``model.loss``, one optimizer update.
 
-    ``grad_accum`` > 1 splits the batch into that many consecutive
-    microbatches, averages their gradients and losses, and makes one
-    update. The BatchNorm statistics are then those of each microbatch,
-    and the running statistics move once per microbatch, as in the JAX
-    step (``train_step.py:92-100``: ghost-batch normalization).
+    ``grad_accum`` > 1 splits the batch into that many microbatches,
+    averages their gradients and losses, and makes one update. The
+    BatchNorm statistics are then those of each microbatch, and the running
+    statistics move once per microbatch, as in the JAX step
+    (``train_step.py:92-100``: ghost-batch normalization). Without
+    ``mesh`` the microbatches are consecutive chunks (the JAX step without a
+    mesh context); with a ``core.mesh.MeshContext`` they are strided, as the
+    JAX loops' step composes them (``_microbatches``). The loops always pass
+    their mesh. Each microbatch draws its dropout masks (and WDNO its t and
+    noise) in turn, from the model's generator.
+
+    With a process group (``mesh.distributed``) ``x`` and ``y`` are this
+    rank's slice of the global batch: the parameters and buffers are
+    broadcast from rank 0 once, here; each microbatch runs under a row share
+    (BatchNorm statistics all-reduced over the global microbatch, draws made
+    for it), its loss weighted by this rank's share of its rows; the
+    gradients are all-reduced into the global batch's before the clip and
+    Adam, and the returned loss is the global batch's.
     """
 
     k = max(int(grad_accum), 1)
+    distributed = mesh is not None and mesh.distributed
+    if distributed:
+        broadcast_state(model)
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        if x.shape[0] % k:
+        if mesh is None and x.shape[0] % k:
             raise ValueError(f"batch {x.shape[0]} not divisible by grad_accum {k}")
         model.train()
         xn, yn = normalizer.preprocess(x, y)
         optimizer.zero_grad()
         losses = []
-        for xm, ym in zip(xn.chunk(k), yn.chunk(k)):
-            loss = model.loss(xm, ym)
-            loss.backward()
+        for rows, share in _microbatches(xn.shape[0], k, mesh):
+            with mesh_lib.row_share(share) if share else contextlib.nullcontext():
+                loss = model.loss(xn[rows].contiguous(), yn[rows].contiguous())
+                if share and share.count != share.total:
+                    loss = loss * (share.count / share.total)
+                loss.backward()
             losses.append(loss.detach())
+        if distributed:
+            _all_reduce_grads(optimizer.params)
         if k > 1:
             for p in optimizer.params:
                 if p.grad is not None:
                     p.grad.div_(k)
         optimizer.step()
-        return sum(losses) / k
+        loss = sum(losses) / k
+        return mesh_lib.all_reduce_(loss) if distributed else loss
 
     return step
 

@@ -93,9 +93,29 @@ def derive_seed(seed: int, *parts) -> int:
     return (seed + zlib.crc32(tag)) % 2**31
 
 
+def experiment_time() -> str:
+    """The run's timestamp for its experiment directory; under data
+    parallelism rank 0's, so every rank names the same directory."""
+    import datetime
+
+    from realpdebench_tpu_torch.core import mesh
+
+    return mesh.broadcast_object(datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
+
+
 def setup_logging(exp_path: str, is_use_tb: bool = False, is_train: bool = True):
-    """File and console logging, and a TensorBoard writer when asked for and
-    ``torch.utils.tensorboard`` imports (otherwise a warning, no writer)."""
+    """File and console logging into ``exp_path`` (made here), and a
+    TensorBoard writer when asked for and ``torch.utils.tensorboard``
+    imports (otherwise a warning, no writer). Under data parallelism only
+    rank 0 does so; the other ranks log warnings to the console, and get no
+    writer."""
+    from realpdebench_tpu_torch.core import mesh
+
+    if not mesh.is_main_process():
+        logging.basicConfig(level=logging.WARNING, force=True,
+                            format=f"[rank {mesh.rank()}] %(levelname)s - %(message)s")
+        return None
+    os.makedirs(exp_path, exist_ok=True)
     log_filename = os.path.join(
         exp_path, "training.log" if is_train else "eval.log"
     )

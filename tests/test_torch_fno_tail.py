@@ -168,3 +168,31 @@ def test_module_loss_and_grads_match_jax_k3_at_width_128(monkeypatch):
     want = fno_state_dict(np_tree(jg), np_tree(v["batch_stats"]))
     for name, p in m.named_parameters():
         _close(p.grad.numpy(), want[name].numpy())
+
+
+@pytest.mark.parametrize("c_in, c_out, mult", [(16, 16, 1), (3, 3, 3)], ids=["F16", "F9"])
+def test_module_loss_and_grads_match_jax_k3_past_one_n_tile(monkeypatch, c_in, c_out, mult):
+    """The same where fc2 is wider than one n-tile of 8 (F = c_out·mult): the
+    combustion scenario's 16 channels in and out (F 16), and 3 channels at a
+    tripled horizon (F 9)."""
+    monkeypatch.setenv("REALPDEBENCH_GELU", "exact")
+    si, so = (T, H, W, c_in), (T * mult, H, W, c_out)
+    r = np.random.default_rng(8)
+    x = r.normal(size=(B, *si)).astype(np.float32)
+    y = r.normal(size=(B, *so)).astype(np.float32)
+    jm = JFNO3d(**KW, shape_in=si, shape_out=so, use_pallas=True, pallas_interpret=True)
+    v = randomized_variables(jm, jnp.asarray(x), 9)
+
+    def jloss(p):
+        return jm.apply({"params": p, "batch_stats": v["batch_stats"]},
+                        jnp.asarray(x), y=jnp.asarray(y), train=False)
+
+    jl, jg = jax.value_and_grad(jloss)(v["params"])
+    m = port_model(v, si=si, so=so).eval()
+    assert m.fc2.weight.shape[0] == c_out * mult > 8
+    loss = m(torch.from_numpy(x), y=torch.from_numpy(y))
+    loss.backward()
+    _close(loss.item(), float(jl))
+    want = fno_state_dict(np_tree(jg), np_tree(v["batch_stats"]))
+    for name, p in m.named_parameters():
+        _close(p.grad.numpy(), want[name].numpy())

@@ -188,7 +188,9 @@ def test_shipped_configs_choose_the_redesigned_variants(scenario):
         assert kernels.k2a_lite_variant(torch.bfloat16, C, 2 * m2, m3, Wp) == "mma"
         assert kernels.k2a_lite_variant(torch.float32, C, 2 * m2, m3, Wp) == "tf32"
         assert C <= 128 and 256 % C == 0      # K12B fma and the tail kernels
-    F_ = 3 * 2   # the widest fc2 of the shipped windows (3 channels, 2 steps)
+    # fc2's widest F = c_out·mult: the combustion scenario's 16 channels; 3
+    # channels over at most 2 steps in the others
+    F_ = 16 if scenario == "combustion" else 3 * 2
     assert kernels.k3b_variant(torch.bfloat16, C, F_) == "mma"
     assert kernels.k3b_variant(torch.float32, C, F_) == "tf32"
     assert kernels.k3f_variant(torch.bfloat16, C, F_) == "mma"
@@ -592,16 +594,35 @@ def test_k2a_lite_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     ((torch.bfloat16, 16, 3), "fma"),      # C not instantiated
     ((torch.bfloat16, 96, 3), "fma"),
     ((torch.bfloat16, 8, 6), "fma"),
-    ((torch.bfloat16, 64, 9), "fma"),      # F past 8
+    ((torch.bfloat16, 64, 9), "mma"),      # F past 8: fc2 over two n-tiles
+    ((torch.bfloat16, 64, 16), "mma"),     # the combustion scenario's F
+    ((torch.bfloat16, 128, 16), "fma"),    # two n-tiles built at C 64 alone
+    ((torch.bfloat16, 64, 17), "fma"),     # F past 16
     ((torch.float32, 64, 3), "tf32"),      # f32 on the tensor cores as 3xTF32
+    ((torch.float32, 64, 16), "tf32"),
+    ((torch.float32, 128, 16), "fma"),
 ])
 def test_k3b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert kernels.k3b_variant(*args) == want
     assert kernels.k3b_variant(*args) == want        # no state
     if want == "mma":
-        assert kernels.k3b_mma_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
+        assert kernels.k3b_mma_smem_bytes(*args[1:]) <= kernels.MAX_SMEM_BYTES
     if want == "tf32":
-        assert kernels.k3b_tf32_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
+        assert kernels.k3b_tf32_smem_bytes(*args[1:]) <= kernels.MAX_SMEM_BYTES
+
+
+def test_tail_tensor_cores_take_f_past_8_only_where_built():
+    """fc2 over two n-tiles is built for the combustion scenario's (C 64,
+    exact GELU) alone (csrc/fno_tail.cu::with_mma_instance): every other
+    (C, act) past F 8 takes fma, in both kernels and both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for choose in (kernels.k3f_variant, kernels.k3b_variant):
+            assert choose(dtype, 64, 16, act="exact") != "fma"
+            assert choose(dtype, 64, 8, act="tanh") != "fma"
+            for C, act in ((64, "tanh"), (32, "exact"), (128, "exact"), (128, "tanh")):
+                assert choose(dtype, C, 9, act=act) == "fma", (C, act)
+    assert kernels.tail_tc_instance(64, 16) and not kernels.tail_tc_instance(64, 17)
+    assert not kernels.tail_tc_instance(64, 9, "tanh")
 
 
 @pytest.mark.parametrize("args, want", [
@@ -611,9 +632,12 @@ def test_k3b_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     ((torch.bfloat16, 16, 3), "fma"),      # C not instantiated
     ((torch.bfloat16, 96, 3), "fma"),
     ((torch.bfloat16, 256, 3), "fma"),     # C past 128
-    ((torch.bfloat16, 64, 9), "fma"),      # F past 8
+    ((torch.bfloat16, 64, 9), "mma"),      # F past 8: fc2 over two n-tiles
+    ((torch.bfloat16, 64, 16), "mma"),     # the combustion scenario's F
+    ((torch.bfloat16, 64, 17), "fma"),     # F past 16
     ((torch.float32, 64, 3), "tf32"),      # f32 on the tensor cores as 3xTF32
     ((torch.float32, 128, 6), "tf32"),
+    ((torch.float32, 64, 16), "tf32"),
 ])
 def test_k3f_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     """K3F takes K3B's conditions (the two share one forward) and K3F's
@@ -623,10 +647,12 @@ def test_k3f_variant_is_a_pure_function_of_dtype_and_shape(args, want):
     assert kernels.k3f_variant(*args) == kernels.k3b_variant(*args)
     assert kernels.k3f_variant(*args, aligned=False) == "fma"
     if want == "mma":
-        assert kernels.k3f_mma_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
+        assert kernels.k3f_mma_smem_bytes(*args[1:]) <= kernels.MAX_SMEM_BYTES
     if want == "tf32":
-        assert kernels.k3f_tf32_smem_bytes(args[1]) <= kernels.MAX_SMEM_BYTES
+        assert kernels.k3f_tf32_smem_bytes(*args[1:]) <= kernels.MAX_SMEM_BYTES
     assert 2 * (kernels.k3f_mma_smem_bytes(64) + 1024) <= 228 * 1024
+    assert 2 * (kernels.k3f_mma_smem_bytes(64, 16) + 1024) <= 228 * 1024
+    assert 2 * (kernels.k3f_tf32_smem_bytes(64, 16) + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("args, want", [
@@ -666,7 +692,7 @@ def test_ta_bwd_mma_block_fits_three_times_an_sm_at_the_unet_shape():
 @pytest.mark.parametrize("kernel, dtype, C, F_, offset", [
     ("k3f", torch.float32, 64, 3, 0),       # f32
     ("k3f", torch.bfloat16, 16, 3, 0),      # C not instantiated
-    ("k3f", torch.bfloat16, 64, 9, 0),      # F past 8
+    ("k3f", torch.bfloat16, 64, 17, 0),     # F past 16
     ("k3f", torch.bfloat16, 64, 3, 1),      # s 2 bytes past a 16-byte boundary
     ("k3b", torch.bfloat16, 64, 3, 1),
 ])
@@ -1158,6 +1184,87 @@ def test_k3b_mma_replay_matches_pallas_k3b(act):
     got = _replay_k3b_mma(s, *tail, gl, dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act,
                           rounding=False)
     for name, g, r in zip(("ds", "dk1", "db1", "dk2", "db2"), got, ref):
+        g = g.float().numpy().reshape(r.shape)
+        np.testing.assert_allclose(g, r, rtol=2e-4, atol=2e-4 * float(np.abs(r).max()),
+                                   err_msg=name)
+
+
+def _replay_tail_n_tiles(replay_f, replay_b, s, tail, g, *, dims, tail_dims, act, **kw):
+    """A tail replay with fc2 laid out as the tensor-core variants lay it
+    out for F past 8: k2 and b2 padded with zero columns to NF =
+    kernels.fc2_width(F) (16: two n-tiles of 8), the target with zeros; o,
+    do, dk2 and db2 are computed an n-tile at a time (``replay_f`` and
+    ``replay_b`` on one tile's columns each, the forward shared), and the
+    padded columns, which must come out exactly 0 (do is 0 there, so dk2 and
+    db2 are), are dropped. Returns (SSE, ds, dk1, db1, dk2, db2)."""
+    target, k1, b1, k2, b2 = tail
+    F_ = k2.shape[1]
+    NF = kernels.fc2_width(F_)
+    pad = lambda t: torch.nn.functional.pad(t, (0, NF - F_))
+    k2p, b2p, tp = pad(k2), pad(b2), pad(target)
+    sse, outs = 0.0, []
+    for n in range(NF // 8):
+        cols = slice(8 * n, 8 * n + 8)
+        args = (tp[..., cols].contiguous(), k1, b1, k2p[:, cols].contiguous(), b2p[cols])
+        sse = sse + replay_f(s, *args, dims=dims, tail_dims=tail_dims, act=act, **kw)
+        outs.append(replay_b(s, *args, g, dims=dims, tail_dims=tail_dims, act=act, **kw))
+    # du = do k2ᵀ sums over every column of fc2: the tiles' ds, dk1, db1 add
+    ds = sum(o[0].double() for o in outs)
+    dk2 = torch.cat([o[3] for o in outs], 1)
+    db2 = torch.cat([o[4] for o in outs], 0)
+    assert not dk2[:, F_:].any() and not db2[F_:].any()
+    return (sse, ds, sum(o[1] for o in outs), sum(o[2] for o in outs), dk2[:, :F_],
+            db2[:F_])
+
+
+TAIL_F_SHAPES = [  # (B, Tp, Hp, Wp, C, T, H, W, F): fc2 past one n-tile
+    (1, 3, 9, 140, 64, 2, 7, 136, 9),      # the second tile holds one column
+    (2, 7, 15, 22, 64, 5, 13, 18, 16),     # two full tiles: the combustion scenario's F
+]
+
+
+@pytest.mark.parametrize("shape", TAIL_F_SHAPES)
+def test_tail_mma_replay_over_two_n_tiles_matches_twin(shape):
+    """Unrounded (ds is linear in du, so the tiles' ds add up), the mma
+    variants' replay with fc2 over two n-tiles against the twin's
+    arithmetic: the SSE, dk1, db1, dk2 and db2 within 1e-10 of max|ref| of
+    the one-tile replay on the same inputs (f64 sums), ds within 1e-6 (each
+    tile's ds is stored in f32, as the kernel stores ds), and the twin
+    within STATS_TOL and KERNEL_TOL."""
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=18)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    got = _replay_tail_n_tiles(_replay_k3f_mma, _replay_k3b_mma, s, tail, gl, **kw,
+                               rounding=False)
+    dense = (_replay_k3f_mma(s, *tail, **kw, rounding=False),
+             *_replay_k3b_mma(s, *tail, gl, **kw, rounding=False))
+    for name, gv, dv in zip(("sse", "ds", "dk1", "db1", "dk2", "db2"), got, dense):
+        dv = dv.double().reshape(gv.shape)
+        tol = 1e-6 if name == "ds" else 1e-10
+        assert (gv - dv).abs().max() <= tol * dv.abs().max(), name
+    assert abs(got[0] - ft.k3f_plain(s, *tail, **kw).double()) <= 1e-4 * got[0]
+    twin = ft.k3b_plain(s, *tail, gl, **kw)
+    assert (got[1].float().view(s.shape) - twin[0]).abs().max() <= 1e-4 * twin[0].abs().max()
+    for name, gv, tw in zip(("dk1", "db1", "dk2", "db2"), got[2:], twin[1:]):
+        assert (gv - tw.double()).abs().max() <= 1e-4 * tw.abs().max(), name
+
+
+@pytest.mark.parametrize("F_", [9, 16])
+def test_tail_mma_replay_over_two_n_tiles_matches_pallas(F_):
+    """The replay over two n-tiles, unrounded, against the Pallas
+    ``_k3f_kernel`` and ``_k3b_kernel`` in interpret mode through the JAX
+    fused tail (which pads fc2 to F2p = 8·ceil(2F/8)), rtol 2e-4."""
+    shape = (2, 5, 8, 12, 8, 3, 6, 10, F_)
+    B, Tp, Hp, Wp, C, T, H, W, _ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=19)
+    loss, prim, unpack = _jax_fused_tail(s, tail, shape, "exact")
+    _, vjp = jax.vjp(loss, *prim)
+    ref = unpack(*(np.asarray(t) for t in vjp(jnp.float32(gl.item()))))
+    got = _replay_tail_n_tiles(_replay_k3f_mma, _replay_k3b_mma, s, tail, gl,
+                               dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact",
+                               rounding=False)
+    np.testing.assert_allclose(float(got[0]), float(loss(*prim)), rtol=2e-4)
+    for name, g, r in zip(("ds", "dk1", "db1", "dk2", "db2"), got[1:], ref):
         g = g.float().numpy().reshape(r.shape)
         np.testing.assert_allclose(g, r, rtol=2e-4, atol=2e-4 * float(np.abs(r).max()),
                                    err_msg=name)

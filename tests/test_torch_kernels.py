@@ -882,6 +882,74 @@ def test_k3f_variants_match_twin(cuda, shape, dtype, act):
     assert kernels.VARIANTS["k3f"] == want and kernels.LAUNCHES["k3f"] == sum(want.values())
 
 
+TAIL_F_SHAPES = [  # (B, Tp, Hp, Wp, C, T, H, W): F comes from the parameter
+    (1, 3, 9, 140, 64, 2, 7, 136),     # two tiles a row, the second of 8 positions
+    (2, 7, 15, 22, 64, 5, 13, 18),     # an uneven crop (F > 8 is built at C 64 alone)
+]
+
+
+@pytest.mark.parametrize("F", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("variant", ["tensor_cores", "fma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TAIL_F_SHAPES)
+def test_tail_variants_at_every_fc2_width(cuda, shape, dtype, variant, F):
+    """K3F and K3B, each variant named (mma in bf16, tf32 in f32, fma in
+    both), at fc2 widths on both sides of one n-tile of 8 (F 9: the second
+    tile part filled; F 16: the combustion scenario's), against the twins:
+    the SSE to 1e-4 of max|ref|, ds to TOL and zero outside the crop, dk1,
+    db1, dk2 and db2 to 1e-4 of the sum of |terms|; two calls bit-equal;
+    the per-variant counters."""
+    B, Tp, Hp, Wp, C, T, H, W = shape
+    name = variant if variant == "fma" else ("mma" if dtype == torch.bfloat16 else "tf32")
+    g = torch.Generator(device=cuda).manual_seed(15 + F)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    s = rn(B * Tp, Hp * Wp // 2, 2 * C).to(dtype)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact", variant=name)
+    tail = (rn(B, T, H, W, F), rn(C, 128) / C ** 0.5, 0.1 * rn(128), rn(128, F) / 128 ** 0.5,
+            0.1 * rn(F))
+    gl = torch.tensor(1.0 / (B * T * H * W * F), device=cuda)
+    plain = dict(kw)
+    del plain["variant"]
+    kernels.reset_launches()
+    sse, got = tft.k3f(s, *tail, **kw), tft.k3b(s, *tail, gl, **kw)
+    _close(sse, tft.k3f_plain(s, *tail, **plain), torch.float32)
+    ref = tft.k3b_plain(s, *tail, gl, **plain)
+    _close(got[0], ref[0], dtype)
+    ds = got[0].view(B, Tp, Hp, Wp, C)
+    assert not ds[:, T:].any() and not ds[:, :, H:].any() and not ds[:, :, :, W:].any()
+    z = s.float().view(B, Tp, Hp, Wp, C)[:, :T, :H, :W].reshape(-1, C)
+    u1 = z @ tail[1] + tail[2]
+    h1 = tfl._act(u1, "exact")
+    do = 2 * gl * (h1 @ tail[3] + tail[4] - tail[0].reshape(-1, F))
+    du = (do @ tail[3].t()) * tfl._act_grad(u1, "exact")
+    terms = (z.abs().t() @ du.abs(), du.abs().sum(0), h1.abs().t() @ do.abs(), do.abs().sum(0))
+    for u, w, t in zip(got[1:], ref[1:], terms):
+        _sums_close(u, w, t)
+    assert torch.equal(sse, tft.k3f(s, *tail, **kw))
+    assert all(torch.equal(u, w) for u, w in zip(got, tft.k3b(s, *tail, gl, **kw)))
+    want = {"fma": 0, "mma": 0, "tf32": 0, name: 2}
+    assert kernels.VARIANTS["k3f"] == want and kernels.VARIANTS["k3b"] == want
+
+
+def test_tail_kernels_refuse_f_past_16(cuda):
+    """fc2 past 16 columns: every variant of K3F and K3B raises before a
+    launch; nothing is counted."""
+    B, Tp, Hp, Wp, C, T, H, W = TAIL_F_SHAPES[0]
+    F = 17
+    s = torch.zeros(B * Tp, Hp * Wp // 2, 2 * C, device=cuda)
+    tail = (torch.zeros(B, T, H, W, F, device=cuda), torch.zeros(C, 128, device=cuda),
+            torch.zeros(128, device=cuda), torch.zeros(128, F, device=cuda),
+            torch.zeros(F, device=cuda))
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    kernels.reset_launches()
+    for variant in (None, "fma", "tf32"):
+        with pytest.raises(ValueError, match="F <= 16"):
+            tft.k3f(s, *tail, **kw, variant=variant)
+        with pytest.raises(ValueError, match="F <= 16"):
+            tft.k3b(s, *tail, torch.tensor(1.0, device=cuda), **kw, variant=variant)
+    assert not any(kernels.LAUNCHES.values())
+
+
 TA_BWD_SHAPES = [  # (B, S, T, h, d)
     (2, 300, 20, 4, 16),     # T 20 at each head width
     (1, 37, 20, 4, 32),

@@ -320,7 +320,9 @@ def test_entry_points_default_to_the_card_and_never_fall_back(root, tmp_path, mo
         run_training(_pcfg(root), str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_eval(_pcfg(root, checkpoint_path=str(tmp_path)), str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue A, item 9"):
+    # a mesh wider than the processes (one process here) raises, as JAX's
+    # parse_mesh_shape does for more devices than there are
+    with pytest.raises(ValueError, match="uses 2 devices but 1 available"):
         run_training(_pcfg(root, mesh_shape="dp=2"), str(tmp_path), device="cpu")
     # the CLI's --device defaults to cuda: without a card it raises too
     from realpdebench_tpu_torch.cli import main

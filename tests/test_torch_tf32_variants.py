@@ -32,7 +32,13 @@ from realpdebench_tpu_torch.ops import fno_layer as tfl
 from realpdebench_tpu_torch.ops import fno_tail as ft
 from realpdebench_tpu_torch.ops import kernels
 from realpdebench_tpu_torch.ops.activations import gelu, gelu_grad
-from tests.test_torch_kernel_variants import K3B_SHAPES, _jax_fused_tail, _k3b_inputs
+from tests.test_torch_kernel_variants import (
+    K3B_SHAPES,
+    TAIL_F_SHAPES,
+    _jax_fused_tail,
+    _k3b_inputs,
+    _replay_tail_n_tiles,
+)
 
 GEOMETRIES = [  # (Hp, Wp, m2, m3, C): the cylinder's, and the gpu tests' at C 32, 64, 128
     (70, 134, 12, 16, 64),
@@ -721,7 +727,10 @@ def test_tf32_blocks_fit_twice_an_sm_at_the_cylinder_width():
     ((torch.float32, 64, 6), "tf32"),      # a two-step window of 3 channels
     ((torch.float32, 128, 6), "tf32"),     # fsi's width
     ((torch.float32, 32, 8), "tf32"),      # F at its bound
-    ((torch.float32, 64, 9), "fma"),       # F past 8
+    ((torch.float32, 64, 9), "tf32"),      # F past 8: fc2 over two n-tiles
+    ((torch.float32, 64, 16), "tf32"),     # the combustion scenario's F
+    ((torch.float32, 128, 16), "fma"),     # two n-tiles built at C 64 alone
+    ((torch.float32, 64, 17), "fma"),      # F past 16
     ((torch.float32, 16, 3), "fma"),       # C not instantiated
     ((torch.float32, 96, 3), "fma"),
     ((torch.float32, 256, 3), "fma"),      # C past 128
@@ -736,7 +745,7 @@ def test_tail_tf32_variant_is_a_pure_function_of_dtype_and_shape(kernel, args, w
     assert choose(*args, aligned=False) == "fma"
     if want == "tf32":
         size = (kernels.k3f_tf32_smem_bytes if kernel == "k3f"
-                else kernels.k3b_tf32_smem_bytes)(args[1])
+                else kernels.k3b_tf32_smem_bytes)(*args[1:])
         assert size <= kernels.MAX_SMEM_BYTES
 
 
@@ -751,6 +760,20 @@ def test_tail_tf32_blocks_fit_the_shared_memory():
     assert kernels.k3b_tf32_smem_bytes(128) == 218400 <= kernels.MAX_SMEM_BYTES
     assert [kernels.k3b_tf32_stages(C) for C in (32, 64, 128)] == [2, 2, 1]
     assert kernels.k3b_tf32_smem_bytes(128) + 4 * 128 * (128 + 4) > kernels.MAX_SMEM_BYTES
+
+
+def test_tail_tensor_core_blocks_fit_the_shared_memory_at_f16():
+    """At F 16 (two n-tiles of fc2, built at C 64) K3F's tf32 block takes
+    113792 bytes, still two an SM; K3B's tf32 198720 and its mma 171584,
+    one an SM, each with two z stages."""
+    assert kernels.k3f_tf32_smem_bytes(64, 16) == 113792
+    assert 2 * (113792 + 1024) <= 228 * 1024
+    assert kernels.k3b_tf32_smem_bytes(64, 16) == 198720 <= kernels.MAX_SMEM_BYTES
+    assert kernels.k3b_mma_smem_bytes(64, 16) == 171584 <= kernels.MAX_SMEM_BYTES
+    assert 2 * (kernels.k3f_mma_smem_bytes(64, 16) + 1024) <= 228 * 1024
+    for F_ in range(1, 9):   # F <= 8: the layouts of the first versions
+        assert kernels.k3f_tf32_smem_bytes(64, F_) == 109408
+        assert kernels.k3b_tf32_smem_bytes(64, F_) == 185632
 
 
 @pytest.mark.parametrize("kernel, dtype, C, m3, offset", [
@@ -949,6 +972,45 @@ def test_k3b_tf32_replay_matches_pallas_k3b(act):
     ref = unpack(*(np.asarray(t) for t in vjp(jnp.float32(gl.item()))))
     got = _replay_k3b_tf32(s, *tail, gl, dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act=act)
     for name, g, r in zip(("ds", "dk1", "db1", "dk2", "db2"), got, ref):
+        _assert_close_to_pallas(f"_k3b_kernel / {name}", g.float().numpy().reshape(r.shape), r)
+
+
+@pytest.mark.parametrize("shape", TAIL_F_SHAPES)
+def test_tail_tf32_replay_over_two_n_tiles_matches_twin(shape):
+    """The tf32 variants' replay with fc2 over two n-tiles (F 9, 16: k2, b2
+    and the target padded to 16 columns, an n-tile of 8 at a time, the
+    padded columns exactly 0 in dk2 and db2) against the twin's arithmetic
+    in f64: the SSE within 1e-5 of it, ds within 1e-5 of max|ref|, dk1,
+    db1, dk2 and db2 within 1e-5 of the sum of |terms|."""
+    B, Tp, Hp, Wp, C, T, H, W, F_ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=47)
+    kw = dict(dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    got = _replay_tail_n_tiles(_replay_k3f_tf32, _replay_k3b_tf32, s, tail, gl, **kw)
+    want, terms = _tail_twin64(s, tail, gl, shape, "exact")
+    assert abs(got[0] - want[0]) <= 1e-5 * want[0]
+    ds = got[1].view(B, Tp, Hp, Wp, C)
+    assert not ds[:, T:].any() and not ds[:, :, H:].any() and not ds[:, :, :, W:].any()
+    crop = ds[:, :T, :H, :W].reshape(-1, C)
+    assert (crop - want[1]).abs().max() <= 1e-5 * want[1].abs().max()
+    for name, gv, wv, tv in zip(("dk1", "db1", "dk2", "db2"), got[2:], want[2:], terms):
+        assert ((gv - wv).abs() / tv.clamp_min(1e-30)).max() <= 1e-5, name
+
+
+@pytest.mark.parametrize("F_", [9, 16])
+def test_tail_tf32_replay_over_two_n_tiles_matches_pallas(F_):
+    """The tf32 replay over two n-tiles against the Pallas ``_k3f_kernel``
+    and ``_k3b_kernel`` in interpret mode through the JAX fused tail, rtol
+    2e-4, atol 2e-4·max|ref|."""
+    shape = (2, 5, 8, 12, 8, 3, 6, 10, F_)
+    B, Tp, Hp, Wp, C, T, H, W, _ = shape
+    s, tail, gl = _k3b_inputs(shape, seed=48)
+    loss, prim, unpack = _jax_fused_tail(s, tail, shape, "exact")
+    _, vjp = jax.vjp(loss, *prim)
+    ref = unpack(*(np.asarray(t) for t in vjp(jnp.float32(gl.item()))))
+    got = _replay_tail_n_tiles(_replay_k3f_tf32, _replay_k3b_tf32, s, tail, gl,
+                               dims=(B, Tp, Hp, Wp, C), tail_dims=(T, H, W), act="exact")
+    np.testing.assert_allclose(float(got[0]), float(loss(*prim)), rtol=2e-4)
+    for name, g, r in zip(("ds", "dk1", "db1", "dk2", "db2"), got[1:], ref):
         _assert_close_to_pallas(f"_k3b_kernel / {name}", g.float().numpy().reshape(r.shape), r)
 
 

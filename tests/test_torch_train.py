@@ -139,6 +139,15 @@ def test_schedules_match_optax(sched):
 @pytest.mark.parametrize("clip", [0.0, 0.05], ids=["noclip", "clip"])
 @pytest.mark.parametrize("sched", ["cosine", "step"])
 def test_train_step_trajectory_matches_jax(monkeypatch, sched, clip, grad_accum):
+    run_trajectory(monkeypatch, sched, clip, grad_accum)
+
+
+def run_trajectory(monkeypatch, sched, clip, grad_accum, jmesh_ctx=None, tmesh_ctx=None):
+    """3 steps of the port's make_train_step against JAX's from the same
+    weights and batches (the checks the module's docstring lists). Without
+    mesh contexts both compose their microbatches of consecutive rows; with
+    them (``tests/test_torch_mesh.py``) both stride them, as the loops'
+    steps do."""
     monkeypatch.setenv("REALPDEBENCH_GELU", "exact")
     cfg = dict(lr=LR, scheduler=sched, num_update=4, step_size=2,
                clip_grad_norm=clip)
@@ -164,7 +173,7 @@ def test_train_step_trajectory_matches_jax(monkeypatch, sched, clip, grad_accum)
     params, ms = jb.split_variables(v)      # the JAX step donates these
     state = jts.TrainState.create(params, ms, jts.build_optimizer(Config(**cfg)))
     jstep = jts.make_train_step(jb, jnorm.build_normalizer("gaussian", stats=stats),
-                                grad_accum=grad_accum)
+                                jmesh_ctx, grad_accum=grad_accum)
     jlosses = []
     for i in range(STEPS):
         state, jl = jstep(state, jnp.asarray(xs[i]), jnp.asarray(ys[i]),
@@ -177,7 +186,7 @@ def test_train_step_trajectory_matches_jax(monkeypatch, sched, clip, grad_accum)
     model.load_state_dict(init, strict=True)
     opt = build_optimizer(cfg, model.parameters())
     step = make_train_step(model, tnorm.build_normalizer("gaussian", stats=stats),
-                           opt, grad_accum=grad_accum)
+                           opt, grad_accum=grad_accum, mesh=tmesh_ctx)
     real = lambda a: np.stack([a.real, a.imag], -1) if np.iscomplexobj(a) else a
     losses, tiny = [], {}
     for i in range(STEPS):

@@ -86,18 +86,18 @@ K3F_ACT = ("        hv0 = fno::affine_act_fast(u[nt][2 * hf], 1.f, 0.f, ACT);\n"
            "        hv1 = fno::affine_act_fast(u[nt][2 * hf + 1], 1.f, 0.f, ACT);\n")
 FC1_MMA = ("        mma::mma_bf16(u[2 * np], fa, fb[0], fb[1]);\n"
            "        mma::mma_bf16(u[2 * np + 1], fa, fb[2], fb[3]);\n")
-K3F_COMPUTE = "    forward_warp<C, ACT, false>("
+K3F_COMPUTE = "    forward_warp<C, ACT, false, NF>("
 TF32_ACT = "        fno::act_and_grad_fast(u[nt][e], ACT, hv[e], u[nt][e]);\n"
 TF32_K3F_ACT = "        hv[e] = fno::affine_act_fast(u[nt][e], 1.f, 0.f, ACT);\n"
 TF32_FC1 = "      mma::mma_tf32x3(u[nt], ah, al, bh0, bh1, bl0, bl1);\n"
-TF32_K3B = "    forward_warp_tf32<C, ACT, true>("
-TF32_K3F = "    forward_warp_tf32<C, ACT, false>("
+TF32_K3B = "    forward_warp_tf32<C, ACT, true, NF>("
+TF32_K3F = "    forward_warp_tf32<C, ACT, false, NF>("
 CUT_TF32_FC1 = "      u[nt][0] += __uint_as_float(ah[0] ^ al[1] ^ bh0 ^ bl1);\n"
 TF32_ERFF = ("        { const float uu = u[nt][e]; hv[e] = fno::act_fn(uu, ACT); "
              "u[nt][e] = fno::act_grad(uu, ACT); }\n")
-TF32_FC2 = "    mma_f32x3(o, os, a, kb.x, kb.y);\n"
+TF32_FC2 = "      mma_f32x3(o[n], os[n], a, kb.x, kb.y);\n"
 TF32_DS = "    for (int cp = 0; cp < C / NP; ++cp) {"
-TF32_DK2 = "      mma_f32x3(dk2, dk2s, a, db.x, db.y);\n"
+TF32_DK2 = "        mma_f32x3(dk2[nf], dk2s[nf], a, db.x, db.y);\n"
 TF32_DK1 = ("          mma::mma_tf32x3(dk1[mi][nt], ah, al, bh[nt][0], bh[nt][1], bl[nt][0], "
             "bl[nt][1]);\n")
 
@@ -137,10 +137,10 @@ VARIANTS = {
     "k3b_tf32_cheap_act": (lambda s: sub(s, TF32_ACT, "        { hv[e] = u[nt][e] * 0.5f; "
                                                       "u[nt][e] = fmaf(u[nt][e], 0.25f, 1.f); }\n"),
                            False),
-    "k3b_tf32_cut_fc2": (lambda s: sub(s, TF32_FC2, "    o[0] += a[0] * kb.x + a[3] * kb.y;\n"),
+    "k3b_tf32_cut_fc2": (lambda s: sub(s, TF32_FC2, "      o[n][0] += a[0] * kb.x + a[3] * kb.y;\n"),
                          False),
     "k3b_tf32_cut_ds": (lambda s: sub(s, TF32_DS, "    for (int cp = 0; cp < 0; ++cp) {"), False),
-    "k3b_tf32_cut_dk2": (lambda s: sub(s, TF32_DK2, "      dk2[0] += a[0] * db.x;\n"), False),
+    "k3b_tf32_cut_dk2": (lambda s: sub(s, TF32_DK2, "        dk2[nf][0] += a[0] * db.x;\n"), False),
     "k3b_tf32_cut_dk1": (lambda s: sub(s, TF32_DK1, "          dk1[mi][nt][0] += __uint_as_float("
                                                     "ah[0] ^ al[1] ^ bh[nt][0] ^ bl[nt][1]);\n"),
                          False),
@@ -173,8 +173,8 @@ def kind(name: str) -> str:
 
 
 def registers(report: str, kernel: str) -> dict:
-    """Registers and spill bytes ptxas reported for `kernel`<64, exact>."""
-    return common.registers(report, f"{kernel}ILi64ELi1E")
+    """Registers and spill bytes ptxas reported for `kernel`<64, exact, NF>."""
+    return common.registers(report, f"{kernel}ILi64ELi1ELi{kernels.fc2_width(F)}E")
 
 
 def main() -> None:
@@ -208,7 +208,7 @@ def main() -> None:
 
     def runner_k3f(lib, v):
         s, code = inputs[v], list(kernels.VARIANTS["k3f"]).index(v)
-        nparts = lib.fno_k3f_num_partials(B, T, H, W, C, act, code)
+        nparts = lib.fno_k3f_num_partials(B, T, H, W, C, F, act, code)
         partial = torch.empty(nparts, dtype=torch.float32, device=dev)
         sse = torch.empty((), dtype=torch.float32, device=dev)
 
@@ -223,7 +223,7 @@ def main() -> None:
 
     def runner(lib, v):
         s, code = inputs[v], list(kernels.VARIANTS["k3b"]).index(v)
-        nparts = lib.fno_k3b_num_partials(B, T, H, W, TP, C, act, code)
+        nparts = lib.fno_k3b_num_partials(B, T, H, W, TP, C, F, act, code)
         ds = torch.empty_like(s)
         partial = torch.empty((nparts, n), dtype=torch.float32, device=dev)
         out = torch.empty(n, dtype=torch.float32, device=dev)
