@@ -82,7 +82,7 @@ JSON line each; any failure raises (non-zero exit, no result line):
                compared with the same step from the same weights through
                the plain f32 path with autograd (loss, every gradient, the
                running statistics); two more forward-backward passes equal
-               bit for bit; 2 warm-up steps and 5 windows of 10 steps:
+               bit for bit; 2 warm-up steps and 3 windows of 10 steps:
                median steps/s, loss, peak memory.
   7. profile   torch.profiler over PROFILE_STEPS more training steps (as
                every profile phase): device time by kernel, the host's
@@ -101,6 +101,26 @@ JSON line each; any failure raises (non-zero exit, no result line):
                1 (a file store): parameters, statistics and losses bit for
                bit equal, the all-reduces counted. Multi-card speed is not
                measured on a one-card host.
+  7f. mesh_mp2  model parallelism (core/partitioning) on the one card: two
+               ranks of a gloo group of world size 2 (a file store; NCCL
+               refuses two ranks on one device), spawned, at mesh_shape
+               dp=1,mp=2: 3 steps of the shipped-width GK in f32 with
+               seq_shard (its encoder on each rank's half of the tokens,
+               the scores kernel with n_total = N, the partials summed over
+               the mp group; dropout on; batch 4, lr 1e-4) and 3 of the
+               cylinder FNO in f32 with Adam's master slices and moments
+               over the group (batch 8), against the same steps in one
+               process on the card: losses 1e-5, first gradients, the
+               parameters after and the running statistics 1e-4 relative
+               L2 (a zero-initialised parameter to 1e-2 of one Adam step,
+               lr; entries whose first gradient is a true zero or
+               noise-led to Adam's bound); each rank's
+               moments half of each sharded leaf; the collectives counted
+               by group; every kernel's launches exact (the ranks' counts
+               are the path's). gk_scores_shards: the scores kernel on two
+               token halves with n_total = N, summed, against the full-N
+               kernel and the twin at B 16, N 163840, 4 heads of 64, in f32
+               and bf16, within 1e-4 of Σ|terms|; the half's time.
   7e. combustion_fno_train_f32, combustion_fno_rollout_f32  the combustion
                scenario's FNO (configs/combustion/fno.yaml: width 64, 16
                channels in and out, so the fused tail at F 16) on
@@ -166,13 +186,13 @@ JSON line each; any failure raises (non-zero exit, no result line):
                not fit the card), two passes bit-equal under
                cudnn.deterministic and equal bit for bit to a pass without
                remat, whose steps/s and peak memory one window records; 2
-               warm-up steps and 5 windows of 5 steps; then a profile of 3
+               warm-up steps and a window of 3 steps; then a profile of 3
                steps.
  10a. unet_train_f32 the same step in float32 as shipped, remat on: every TA
                forward and backward the tf32 variant, the loss within 1e-5
                relative and every gradient within 1e-4 relative L2 of the
-               plain f32 step at batch 6, two passes bit-equal; 2 windows
-               of 3 steps, peak memory; then its profile (unet_f32_profile).
+               plain f32 step at batch 6, two passes bit-equal; a window
+               of 2 steps, peak memory; then its profile (unet_f32_profile).
                Measurement only (cudnn_tf32_on): the same step with
                cuDNN's TF32 switched on around it, one window's steps/s and
                its loss and gradients' distance from the plain f32 step.
@@ -221,7 +241,7 @@ JSON line each; any failure raises (non-zero exit, no result line):
                generator): one counted step, the loss and every gradient
                against the plain f32 step from the same weights and the same
                dropout masks (both at batch 16: the f32 step fits the card),
-               two passes bit-equal; 2 warm-up steps and 5 windows of 3
+               two passes bit-equal; 2 warm-up steps and a window of 2
                steps; then a profile of 3 steps.
  13a. gk_rollout_f32, gk_train_f32  phases 12-13 as the shipped config runs
                them, in float32 (compute_dtype null): the scores in f32 (mma
@@ -304,10 +324,10 @@ JSON line each; any failure raises (non-zero exit, no result line):
                as its residual share 1 - r2, here and against the CPU).
  16. unet_loop, unet_eval  phases 14 and 15 for configs/cylinder/unet.yaml
                (dim 64, dim_mults 1/2/4, batch 12 and test batch 12 as
-               shipped, N_autoregressive 5) in bf16 on the same tree: 3
-               steps (validation and a checkpoint every step, as
+               shipped, N_autoregressive 5) in bf16 on the same tree: 1
+               step (validation and a checkpoint every step, as
                num_update // 50 is 0 below 100 steps; no traced
-               iteration, for the run's time limit), a resume to 4, no
+               iteration, for the run's time limit), a resume to 2, no
                finetune; exact TA forward and backward counts,
                all mma; reload bit-equal; the card's
                metrics within 1e-4 of the CPU's; loop steps/s beside the
@@ -325,20 +345,20 @@ JSON line each; any failure raises (non-zero exit, no result line):
                batches (32, 16, 16 and 32; test batch 64 but Transolver's
                16, N_autoregressive 10, 3, 3 and 3): every kernel count 0;
                eval against the same checkpoint's f32 rollout. CNO's
-               and Transolver's loops run 2 steps (CNO_LOOP_STEPS: a CNO
+               and Transolver's loops run 1 step (CNO_LOOP_STEPS: a CNO
                validation of the 54 windows is ≈ 140 TFLOP in full f32)
-               and are not resumed, DeepONet's and MWT's 3 and a resume to
-               4: no traced iteration, no StepTimer window.
+               and are not resumed, DeepONet's and MWT's 1 and a resume to
+               2: no traced iteration, no StepTimer window.
  17b'. wdno_loop, wdno_eval, dmd_eval  configs/cylinder/wdno.yaml in its
                shipped f32 through train on the same tree: 1 step with its
-               one validation sweep (54 windows, each a 10-step DDIM
-               sample) at test batch 14, the rescaler computed on the card
+               one validation sweep (54 windows, each a 5-step DDIM
+               sample [10]) at test batch 14, the rescaler computed on the card
                from the numerical train split and its cache read back, the
                checkpoint reloaded sampling bit for bit from reseeded
                generators under cudnn.deterministic, the 13 metrics of those samples within 1e-4 of
                the CPU's; eval over the 14 unseen windows at
-               N_autoregressive 1: exact counts (60 tf32 TA forwards a
-               batch); 4 windows through the kernels and the plain f32
+               N_autoregressive 1, 5 DDIM steps: exact counts (30 tf32 TA
+               forwards a batch); 2 windows through the kernels and the plain f32
                path from reseeded generators (the loops' eval checks on
                the metrics, the predictions within 1e-4 relative L2, the
                kernels' metrics within 1e-4 of the CPU's); then eval with configs/cylinder/dmd.yaml
@@ -471,7 +491,8 @@ C, M1, M2, M3 = MODEL["width"], MODEL["modes1"], MODEL["modes2"], MODEL["modes3"
 # the benchmark's training step (bench.py): batch 32, Adam, cosine schedule
 TRAIN_BATCH = 32
 TRAIN_CFG = dict(lr=1e-4, scheduler="cosine", num_update=4000, clip_grad_norm=0.0)
-WARMUP, WINDOWS, WINDOW_STEPS = 2, 5, 10
+# 3 timing windows (5 before phase mesh_mp2 took their time)
+WARMUP, WINDOWS, WINDOW_STEPS = 2, 3, 10
 PROFILE_STEPS = 1    # steps (or rollouts) a profile phase traces (the run's time limit)
 
 # kernel vs twin, as max|Δ| / max|ref|. f32: both sides accumulate in f32 in
@@ -530,7 +551,7 @@ COMBUSTION_CONFIG = "combustion/fno.yaml"
 COMBUSTION_SHAPE = (20, 64, 64, 16)
 COMBUSTION_STEP_BATCH = 64           # its train_batch_size
 COMBUSTION_CMP_BATCH = 32
-COMBUSTION_WINDOWS = (1, 3)          # (windows, steps a window)
+COMBUSTION_WINDOWS = (1, 2)          # (windows, steps a window)
 COMBUSTION_ROLLOUTS = 1
 # the loops' data-parallel step at dp=1 (phase_mesh_dp1): steps a run
 MESH_STEPS = 3
@@ -575,7 +596,7 @@ UNET_BATCH, UNET_STEPS = 12, 5
 UNET_CMP_BATCH = 6      # the training step's comparison with the f32 plain step
 UNET_TRAIN_CFG = dict(lr=1e-4, scheduler="cosine", num_update=10000,
                       clip_grad_norm=0.0)
-UNET_WINDOW_STEPS = 5
+UNET_WINDOW_STEPS = 3
 # the bf16 step's timing windows and the rollout's timed repeats, cut to
 # the whole run's time limit
 UNET_WINDOWS, UNET_ROLLOUTS = 1, 1
@@ -591,11 +612,11 @@ UNET_LOSS_REL, UNET_GRAD_REL_L2 = 1e-2, 1e-1
 # vs the plain f32 path (TF32 off), fixed before the first run: the rollout
 # within 1e-4 relative L2 and 1e-4 max|Δ|/max|ref|; one training step's loss
 # within 1e-5 relative and every gradient within 1e-4 relative L2 (at
-# UNET_CMP_BATCH). Its step is timed over 2 windows of 3 steps.
+# UNET_CMP_BATCH). Its step is timed over one window of 1 step.
 UNET_F32_ROLLOUT = (1e-4, 1e-4)
 UNET_F32_LOSS_REL, UNET_F32_GRAD_REL_L2 = 1e-5, 1e-4
 UNET_F32_BATCH = UNET_BATCH
-UNET_F32_WINDOWS = (1, 3)       # one window: the whole run's time limit
+UNET_F32_WINDOWS = (1, 1)       # one window of 1 step: the whole run's time limit
 
 # the cylinder Galerkin Transformer (configs/cylinder/galerkin_transformer.yaml
 # with the JAX registry's key mapping): windows of 20x64x128x3 in and out,
@@ -607,9 +628,9 @@ GK_MODEL = dict(model_name="galerkin_transformer", n_hidden=256, num_encoder_lay
                 fourier_modes_y=20, fourier_modes_t=4, num_regressor_layers=1,
                 freq_dim=128, encoder_dropout=0.05, xavier_init=0.01,
                 diagonal_weight=0.01, seed=0)
-GK_BATCH, GK_STEPS, GK_ROLLOUTS = 16, 1, 4      # rollouts timed: the run's time limit
+GK_BATCH, GK_STEPS, GK_ROLLOUTS = 16, 1, 2      # rollouts timed: the run's time limit
 GK_TRAIN_CFG = dict(lr=0.01, scheduler="cosine", num_update=5000, clip_grad_norm=0.0)
-GK_WINDOW_STEPS = 3
+GK_WINDOW_STEPS = 2
 GK_WINDOWS = 1       # timing windows: the whole run's time limit
 GK_DROPOUT_SEED = 11
 # the scores kernel at the encoder's width: (B, N, h, d)
@@ -643,7 +664,7 @@ FAMILIES = ("deeponet", "transolver", "cno", "mwt")
 FAMILY_SHAPE = (20, 64, 128, 3)
 FAMILY_CMP_BATCH, FAMILY_CHUNK = 2, 8
 FAMILY_DROPOUT_SEED = 12
-FAMILY_WINDOWS = (1, 3)          # (windows, steps a window)
+FAMILY_WINDOWS = (1, 1)          # (windows, steps a window)
 FAMILY_ROLLOUTS = 1  # rollouts timed (the whole run's time limit)
 FAMILY_F32_ROLLOUT = (1e-4, 1e-4)
 FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2 = TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2
@@ -738,7 +759,7 @@ DPOT_FINETUNE_STEPS = 2
 SURROGATE_IN, SURROGATE_OUT = (*SURROGATE_WINDOW, 17), (*SURROGATE_WINDOW, 1)
 SURROGATE_FRAMES = 40
 SURROGATE_UNET_CMP_BATCH = 1
-SURROGATE_FNO_WINDOWS, SURROGATE_UNET_WINDOWS = (3, 5), (1, 2)
+SURROGATE_FNO_WINDOWS, SURROGATE_UNET_WINDOWS = (1, 5), (1, 1)
 SURROGATE_SIMS, SURROGATE_LOOP_STEPS = 3, 50
 # the TA sites of the surrogate UNet's levels (dim_mults 1/2 on 128x128
 # frames): level 0 (init, down 0, up 1), level 1 (down 1, up 0) and the mid
@@ -758,7 +779,7 @@ WDNO_BATCH = 16
 WDNO_TA_PER_FORWARD, WDNO_SAMPLE_STEPS = 6, 10
 WDNO_CMP_BATCH = 4          # the step's comparison: the plain f32 step keeps every activation
 WDNO_SAMPLE_CMP_BATCH = 2   # the samples' comparison
-WDNO_WINDOW_STEPS = 2       # one timed window (the whole run's time limit)
+WDNO_WINDOW_STEPS = 1       # one timed window of 1 step (the whole run's time limit)
 # limits fixed before the first run. A step: the UNet's (f32 1e-5 / 1e-4;
 # bf16 1e-2 / 1e-1). A sample against the plain f32 sample on the same
 # draws: the first DDIM step multiplies the denoiser's rounding by
@@ -3575,7 +3596,7 @@ def phase_mesh_dp1(dev) -> dict:
             kernels.reset_launches()
             grouped, grouped_losses = run()
             launches = dict(kernels.LAUNCHES)
-            collectives = dict(mesh.COLLECTIVES)
+            collectives = {k: dict(v) for k, v in mesh.COLLECTIVES.items()}
             ctx = mesh.make_mesh_context("dp=1")
         finally:
             dist.destroy_process_group()
@@ -3591,8 +3612,8 @@ def phase_mesh_dp1(dev) -> dict:
     # a step: the loss and one a dtype of the gradients, the BatchNorm sums
     # of every layer of every microbatch
     min_reduces = MESH_STEPS * (2 + 2 * n_bn)
-    if not (ctx.distributed and collectives["all_reduce"] >= min_reduces
-            and collectives["broadcast"] > 0):
+    if not (ctx.distributed and collectives["dp"]["all_reduce"] >= min_reduces
+            and collectives["world"]["broadcast"] > 0):
         raise AssertionError(f"{path}: collectives {collectives}, distributed "
                              f"{ctx.distributed}; expected at least {min_reduces} "
                              "all-reduces and the broadcast")
@@ -3602,6 +3623,364 @@ def phase_mesh_dp1(dev) -> dict:
               bit_equal_to_no_group=True, losses=alone_losses.tolist(),
               multi_card_speed="not measured: a one-card host"))
     del alone, grouped
+    _free()
+    return launches
+
+
+# model parallelism on the one card (phase mesh_mp2): two ranks of a gloo
+# group at mesh_shape dp=1,mp=2 (NCCL refuses two ranks on one device),
+# each MESH_STEPS steps of the shipped-width GK in f32 with seq_shard (its
+# tokens over the two ranks, dropout on) at batch 4 and of the cylinder FNO
+# (MODEL) in f32 with Adam's state sharded at batch 8, held to the
+# one-process step on the card at F32_LIMITS. A case: its config, window,
+# training config, batch and normalizer (Gaussian or Identity). The GK steps
+# at lr 1e-4, not its shipped 0.01: there its loss climbs 2.22 → 2.94 → 4.51
+# in three steps and the two runs' f32 noise (first gradients 1.2e-5 apart)
+# grows to 1.4e-4 in the third loss (tools/torch_mp2_probe.py)
+MP2_CASES = {
+    "gk": dict(model=GK_MODEL, shape=GK_SHAPE, cfg=dict(GK_TRAIN_CFG, lr=TRAIN_CFG["lr"]),
+               batch=4, gaussian=True, seq_shard=True),
+    "fno": dict(model=MODEL, shape=SHAPE_IN, cfg=TRAIN_CFG, batch=8, gaussian=False,
+                seq_shard=False),
+}
+# a zero-initialised parameter (a bias) after the steps: its value is the
+# sum of three Adam updates that may nearly cancel, so relative L2 measures
+# the runs' f32 noise (first gradients 1.2e-5 apart) against that small sum
+# (the GK's norm_V.1.bias 1.24e-4 at lr 1e-4, 3.5e-5 at lr 1e-7); it is held
+# to 1e-2 of one step's size, lr, instead
+MP2_ZERO_INIT_STEPS = 1e-2
+MP2_WHAT = dict(gk="cylinder/galerkin_transformer.yaml (GK_MODEL) in f32, seq_shard, dropout on",
+                fno="cylinder/fno.yaml (MODEL) in f32, Adam's state sharded")
+
+
+def phase_gk_scores_shards(dev) -> dict:
+    """The scores kernel on two token halves with n_total = N (a seq_shard
+    rank's call), the halves summed as the mp group sums them, against the
+    full-N kernel and the twin at GK_SCORES_SHAPE in f32 and bf16, within
+    STATS_TOL of Σ|terms|; returns the bf16 reading and times for the
+    scores' row (the kernel on one half, the twin on the whole)."""
+    B, N, h, d = GK_SCORES_SHAPE
+    eps, n = GK_MODEL["norm_eps"], GK_SCORES_SHAPE[1] // 2
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(9)
+        rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)
+        k = rn(B, N, h * d)
+        v = (0.5 * k + rn(B, N, h * d)).to(dtype)
+        k = k.to(dtype)
+        aff = [1 + 0.1 * rn(h, d), 0.1 * rn(h, d), 1 + 0.1 * rn(h, d), 0.1 * rn(h, d)]
+        halves = [(k[:, s].contiguous(), v[:, s].contiguous())
+                  for s in (slice(0, n), slice(n, N))]
+        shard = lambda kv: kernels.gk_scores(*kv, *aff, heads=h, eps=eps, n_total=N)
+        summed = shard(halves[0]) + shard(halves[1])
+        whole = kernels.gk_scores(k, v, *aff, heads=h, eps=eps)
+        ref = tga.galerkin_scores_plain(k, v, *aff, h, eps)
+        split = lambda z: z.float().reshape(B, N, h, d)
+        terms = torch.einsum("bnhd,bnhe->bhde",
+                             tga._ln(split(k), aff[0], aff[1], eps).abs(),
+                             tga._ln(split(v), aff[2], aff[3], eps).abs()) / N
+        rows = [compare_sums("gk_scores_shards/vs_whole", summed, whole, terms),
+                compare_sums("gk_scores_shards/vs_twin", summed, ref, terms)]
+        del terms, ref
+        times = dict(shard_ms=queued_ms([lambda: shard(halves[0])], n=8, reps=5),
+                     whole_ms=queued_ms([lambda: kernels.gk_scores(k, v, *aff, heads=h,
+                                                                   eps=eps)], n=8, reps=5))
+        work = bound(nbytes(*halves[0], *aff, summed), 2 * B * n * h * d * d, dtype)
+        dt = str(dtype).replace("torch.", "")
+        emit(dict(phase="gk_scores_shards", dtype=dt, shapes=dict(B=B, N=N, h=h, d=d),
+                  shard_tokens=n, n_total=N, checks=rows, **times, shard_bound=work))
+        out[dt] = dict(max_rel_to_terms=max(r["max_rel_to_terms"] for r in rows), **times,
+                       shard_bound_ms=work["bound_ms"])
+        del k, v, halves, summed, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mp2_case(dev, case: str, spec: dict, mesh_ctx=None) -> dict:
+    """MESH_STEPS steps of a mesh_mp2 case (``spec``, an entry of
+    MP2_CASES; the GK with its tokens over ``mesh_ctx``'s mp group, dropout
+    on; the FNO with Adam's state over the group) from seeded weights and
+    batches, or in one process without ``mesh_ctx``. Returns the losses, the
+    first step's gradients, the state before and after, the pointwise conv
+    biases before each step, the launches, variants and collectives counted,
+    the shapes of Adam's first moments and the learning rate."""
+    from realpdebench_tpu_torch.core import mesh
+    from realpdebench_tpu_torch.core.partitioning import shard_train_state
+
+    seq = {"seq_mesh": mesh_ctx} if spec["seq_shard"] and mesh_ctx is not None else {}
+    shape, cfg, batch = spec["shape"], spec["cfg"], spec["batch"]
+    model = build_model(shapes=(shape, shape), device=dev, generator=make_generator(0),
+                        **spec["model"], **seq)
+    norm = gaussian_normalizer() if spec["gaussian"] else IdentityNormalizer()
+    init = {k: t.detach().clone() for k, t in model.state_dict().items()}
+    opt = build_optimizer(cfg, model.parameters())
+    if mesh_ctx is not None:
+        shard_train_state(model, opt, mesh_ctx)
+    step = make_train_step(model, norm, opt, mesh=mesh_ctx)
+    g = torch.Generator(device=dev).manual_seed(33)
+    xs = [torch.randn(batch, *shape, generator=g, device=dev) for _ in range(MESH_STEPS)]
+    ys = [torch.randn(batch, *shape, generator=g, device=dev) for _ in range(MESH_STEPS)]
+    model.reseed_dropout(GK_DROPOUT_SEED)
+    cuda = dev.type == "cuda"      # a CPU rehearsal of the phase has no card
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    mesh.reset_collectives()
+    t0 = time.perf_counter()
+    losses, biases, grads = [], [], None
+    for i in range(MESH_STEPS):
+        biases.append({n: p.detach().clone() for n, p in model.named_parameters()
+                       if _mp2_bn_bias(n)})
+        losses.append(step(xs[i], ys[i]))
+        if i == 0:
+            grads = _grads(model)
+    if cuda:
+        torch.cuda.synchronize()
+    names = {id(p): n for n, p in model.named_parameters()}
+    leaves = opt.shards.leaves if opt.shards else opt.params
+    return dict(losses=[float(v) for v in losses], grads=grads, init=init,
+                state={k: t.detach().clone() for k, t in model.state_dict().items()},
+                biases=biases, launches=dict(kernels.LAUNCHES),
+                variants={k: dict(v) for k, v in kernels.VARIANTS.items()},
+                collectives={k: dict(v) for k, v in mesh.COLLECTIVES.items()},
+                moments={names[id(p)]: tuple(opt.adam.state[m]["exp_avg"].shape)
+                         for p, m in zip(opt.params, leaves)},
+                lr=float(cfg["lr"]), steps_s=time.perf_counter() - t0,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+
+
+def _mp2_bn_bias(name: str) -> bool:
+    """A pointwise conv's bias that a BatchNorm follows: its true gradient
+    is 0 (the FNO's ``convs.i.bias``, the GK regressor's)."""
+    parts = name.split(".")
+    return len(parts) >= 3 and parts[-3] == "convs" and parts[-1] == "bias"
+
+
+def _mp2_vs_one(got: dict, ref: dict) -> dict:
+    """A rank's run against the one-process run, at F32_LIMITS: the losses;
+    each first gradient (relative L2; the true zeros, the BatchNorm'd conv
+    biases and the DC mode's imaginary spectral weights, as
+    TRAIN_ZERO_GRAD of their scale); each parameter after the steps
+    (relative L2; a zero-initialised one to MP2_ZERO_INIT_STEPS of lr), the
+    entries in which Adam steps by up to lr a step in a direction float
+    noise decides held to 1.01·steps·lr from the start instead (the true
+    zeros and the noise-led first gradients); the running variances, and
+    the running means less the conv biases' share (exact: a running mean
+    from 0 takes in 0.1·0.9^(S-1-k) of the bias before step k)."""
+    real = lambda t: torch.view_as_real(t) if t.is_complex() else t.float()
+    steps, lr = len(ref["losses"]), ref["lr"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+    grad_rel, zero = {}, {}
+    for n, gr in ref["grads"].items():
+        gg = got["grads"][n]
+        if _mp2_bn_bias(n):
+            scale = ref["grads"][n[:-4] + "weight"].abs().max().item()
+            zero[n] = max(gg.abs().max().item(), gr.abs().max().item()) / scale
+            continue
+        if n.endswith(".weights1"):
+            dc = (slice(None), slice(None), 0, 0, 0)
+            scale = real(gr).abs().max().item()
+            zero[n + "[DC].imag"] = max(gg[dc].imag.abs().max().item(),
+                                        gr[dc].imag.abs().max().item()) / scale
+            gg, gr = gg.clone(), gr.clone()
+            gg[dc], gr[dc] = gg[dc].real.to(gg.dtype), gr[dc].real.to(gr.dtype)
+        grad_rel[n] = _rel_l2(gg, gr)
+    param_rel, zero_init, adam_bound, stats_rel, noisy = {}, {}, {}, {}, {}
+    for n, t in ref["state"].items():
+        a = got["state"][n]
+        if n.endswith("num_batches_tracked"):
+            if not torch.equal(a, t):
+                stats_rel[n] = float("inf")
+            continue
+        if n.endswith("running_mean"):
+            conv = n.replace("bns.", "convs.").replace("running_mean", "bias")
+            fix = lambda m, run: m - sum(0.1 * 0.9 ** (steps - 1 - k) * b[conv]
+                                         for k, b in enumerate(run["biases"]))
+            stats_rel[n] = _rel_l2(fix(a, got), fix(t, ref))
+            continue
+        if n.endswith("running_var"):
+            stats_rel[n] = _rel_l2(a, t)
+            continue
+        a, t, p0 = real(a), real(t), real(got["init"][n])   # the same seeded weights
+        g_ref, g_got = real(ref["grads"][n]).abs(), real(got["grads"][n])
+        # Adam divides each update by the gradient's own size: an entry whose
+        # true gradient is 0 or below the float noise (1e-5 of its tensor's
+        # largest; of its mode's, for a spectral weight), or whose first
+        # gradients the runs do not agree on to 1e-3 of its size, steps by up
+        # to lr in a direction the noise decides (tests/test_torch_train.py's
+        # trajectory bars)
+        scale = g_ref.amax(dim=(0, 1), keepdim=True) if g_ref.dim() == 6 else g_ref.max()
+        mask = (g_ref < 1e-5 * scale) | ((g_got - real(ref["grads"][n])).abs() > 1e-3 * g_ref)
+        if _mp2_bn_bias(n):
+            mask[:] = True
+        else:
+            noisy[n] = mask.float().mean().item()    # the share of noise-led entries
+        if n.endswith(".weights1"):
+            mask[:, :, 0, 0, 0, 1] = True
+        if mask.any():
+            adam_bound[n] = max((a - p0)[mask].abs().max().item(),
+                                (t - p0)[mask].abs().max().item())
+        if mask.all():
+            continue
+        a = torch.where(mask, t, a)
+        if bool((p0 == 0).all()):
+            # zero-initialised (a bias): its value is the sum of a few Adam
+            # steps, which may cancel; held against one step's size, lr
+            zero_init[n] = (a - t).abs().max().item() / lr
+        else:
+            param_rel[n] = _rel_l2(a, t)
+    lim_loss, lim_grad, lim_stats = F32_LIMITS
+    bad = {} if loss_rel <= lim_loss else {"loss": loss_rel}
+    for what, vals, lim in (("grad", grad_rel, lim_grad), ("zero_grad", zero, TRAIN_ZERO_GRAD),
+                            ("param", param_rel, lim_grad),
+                            ("zero_init_param", zero_init, MP2_ZERO_INIT_STEPS),
+                            ("adam_bound", adam_bound, 1.01 * steps * lr),
+                            ("stats", stats_rel, lim_stats)):
+        bad.update({f"{what} {k}": r for k, r in vals.items() if not r <= lim})
+    top = max(noisy, key=noisy.get)
+    return dict(loss_rel=loss_rel, worst_grad_rel_l2=max(grad_rel.values()),
+                worst_zero_grad=max(zero.values()), worst_param_rel_l2=max(param_rel.values()),
+                worst_zero_init_param_steps=max(zero_init.values(), default=0.0),
+                worst_adam_bound_step=max(adam_bound.values(), default=0.0),
+                most_noisy_entries=dict(name=top, share=noisy[top],
+                                        mean_share=sum(noisy.values()) / len(noisy)),
+                worst_stats_rel_l2=max(stats_rel.values(), default=0.0), failed=bad)
+
+
+def _mp2_rank(rank: int, world: int, store: str, ref_path: str, out_dir: str, cases: dict,
+              device: str) -> None:
+    """One rank of phase mesh_mp2: joins the gloo group (a file store, no
+    network) on ``device`` (the card), runs each of ``cases`` under
+    mesh_shape dp=1,mp=2 and writes its readings against the one-process
+    runs in ``ref_path``."""
+    import torch.distributed as dist
+
+    from realpdebench_tpu_torch.core import mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        ctx = mesh.make_mesh_context(f"dp=1,mp={world}")
+        refs = torch.load(ref_path, map_location=dev, weights_only=False)
+        out = {}
+        for case, spec in cases.items():
+            got = _mp2_case(dev, case, spec, ctx)
+            out[case] = dict(vs_one_process=_mp2_vs_one(got, refs[case]),
+                             **{k: got[k] for k in ("losses", "launches", "variants",
+                                                    "collectives", "moments", "steps_s",
+                                                    "peak_mem_gb")})
+            del got
+            if dev.type == "cuda":
+                _free()
+        out["ctx"] = (ctx.dp_size, ctx.mp_size, ctx.dp_index, ctx.mp_index, ctx.distributed)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_mp2(dev) -> dict:
+    """Model parallelism on the one card: two ranks of a gloo group of
+    world size 2 (a file store; NCCL refuses two ranks on one device) at
+    mesh_shape dp=1,mp=2, each MESH_STEPS steps of the GK in f32 with
+    seq_shard (the scores kernel on its half of the tokens, n_total = N, the
+    partials summed over the group) and of the FNO in f32 with Adam's state
+    sharded, against the same steps in one process on the card at
+    F32_LIMITS (_mp2_vs_one); each rank's moments half of each sharded
+    leaf; the collectives counted by group; every kernel's launches
+    exact. Multi-card speed is not measured (one card). Returns the two
+    ranks' launches, summed."""
+    import tempfile
+
+    import torch.multiprocessing as tmp_mp
+
+    from realpdebench_tpu_torch.core.partitioning import shard_dims
+
+    path = "mesh_mp2"
+    t0 = time.perf_counter()
+    refs = {case: _mp2_case(dev, case, spec) for case, spec in MP2_CASES.items()}
+    ref_s = {case: r["steps_s"] for case, r in refs.items()}
+    ref_losses = {case: r["losses"] for case, r in refs.items()}
+    ref_peak = {case: r["peak_mem_gb"] for case, r in refs.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "refs.pt")
+        torch.save({c: {k: r[k] for k in ("losses", "grads", "state", "biases", "lr")}
+                    for c, r in refs.items()}, ref_path)
+        del refs
+        _free()
+        tmp_mp.start_processes(_mp2_rank, args=(2, os.path.join(tmp, "store"), ref_path, tmp,
+                                                MP2_CASES, str(dev)),
+                               nprocs=2, join=True, start_method="spawn")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    bad = []
+    if [r["ctx"] for r in ranks] != [(1, 2, 0, r, True) for r in range(2)]:
+        bad.append(f"mesh coordinates {[r['ctx'] for r in ranks]}")
+    models = {c: build_model(shapes=(spec["shape"],) * 2, device="meta", **spec["model"])
+              for c, spec in MP2_CASES.items()}
+    want_launches, want_variants = {}, {}
+    for c, spec in MP2_CASES.items():
+        if spec["model"]["model_name"] == "galerkin_transformer":
+            n = MESH_STEPS * spec["model"]["num_encoder_layers"]
+            want_launches[c], want_variants[c] = dict(gk_scores=n), dict(gk_scores={"mma": n})
+        else:
+            want_launches[c] = {k: MESH_STEPS * n for k, n in TRAIN_LAUNCHES.items() if n}
+            want_variants[c] = _f32_fno_variants(want_launches[c])
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    variants = {k: dict.fromkeys(v, 0) for k, v in kernels.VARIANTS.items()}
+    for r, out in enumerate(ranks):
+        for case, model in models.items():
+            got = out[case]
+            bad += [f"rank {r} {case}: {k} {v:.3g}"
+                    for k, v in got["vs_one_process"]["failed"].items()]
+            full = {**dict.fromkeys(got["launches"], 0), **want_launches[case]}
+            if got["launches"] != full:
+                bad.append(f"rank {r} {case}: launches {got['launches']}, expected {full}")
+            fullv = {k: dict.fromkeys(v, 0) for k, v in got["variants"].items()}
+            for k, v in want_variants[case].items():
+                fullv[k].update(v)
+            if got["variants"] != fullv:
+                bad.append(f"rank {r} {case}: variants {got['variants']}")
+            dims = shard_dims(model, 2)
+            for n, p in model.named_parameters():
+                shape = list(p.shape)
+                if n in dims:
+                    shape[dims[n]] //= 2
+                if got["moments"][n] != tuple(shape):
+                    bad.append(f"rank {r} {case}: {n}'s moments {got['moments'][n]}")
+            c = got["collectives"]
+            # a step: the master slices' all-gather over mp; the loss and the
+            # gradients over dp; the GK's token split, gather and scores sum
+            need = [c["mp"]["all_gather"] >= MESH_STEPS,
+                    c["dp"]["all_reduce"] >= 2 * MESH_STEPS]
+            if MP2_CASES[case]["seq_shard"]:
+                need += [c["mp"]["all_reduce"] >= 2 * MESH_STEPS,
+                         c["mp"]["all_gather"] >= 3 * MESH_STEPS]
+            if not all(need):
+                bad.append(f"rank {r} {case}: collectives {c}")
+            for k, n in got["launches"].items():
+                launches[k] += n
+            for k, v in got["variants"].items():
+                for name, n in v.items():
+                    variants[k][name] += n
+    VARIANTS_BY_PATH[path] = variants
+    emit(dict(phase=path, failed=bad, backend="gloo", world_size=2, mesh_shape="dp=1,mp=2",
+              cases={c: dict(what=MP2_WHAT.get(c), batch=spec["batch"])
+                     for c, spec in MP2_CASES.items()},
+              steps=MESH_STEPS, limits=dict(zip(("loss", "grad", "stats"), F32_LIMITS)),
+              ranks=[{case: {k: out[case][k] for k in ("vs_one_process", "losses",
+                                                          "collectives", "steps_s",
+                                                          "peak_mem_gb")}
+                      for case in MP2_CASES} for out in ranks],
+              one_process_losses=ref_losses, one_process_steps_s=ref_s,
+              one_process_peak_mem_gb=ref_peak,
+              launches=launches, variants=variants, phase_s=time.perf_counter() - t0,
+              multi_card_speed="not measured: a one-card host"))
+    if bad:
+        raise AssertionError(f"{path}: {bad}")
     _free()
     return launches
 
@@ -4210,33 +4589,36 @@ PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
 # reads the test split's unseen trajectories (test_mode): 8 windows at the
 # UNet's 5 steps. The plots need matplotlib: where it is missing, N_plot and
 # N_plot_probe are 0.
-# the UNet's, GK's, DeepONet's and MWT's loops run 3 steps and their resume
-# a 4th (the whole run's time limit): no traced iteration, no StepTimer
-# window (the FNO's loop keeps its 12, its trace and its window)
-MODEL_LOOP_STEPS = 3
+# the UNet's, GK's, DeepONet's and MWT's loops run 1 step and their resume
+# a 2nd (the whole run's time limit): no traced
+# iteration, no StepTimer window (the FNO's loop keeps its 12, its trace and
+# its window)
+MODEL_LOOP_STEPS = 1
 MODEL_TEST_MODE = "unseen"
-FAMILY_LOOP_STEPS = 3
-# CNO's and Transolver's loops run 2 steps (the whole run's time limit): a
+FAMILY_LOOP_STEPS = 1
+# CNO's and Transolver's loops run 1 step (the whole run's time limit): a
 # CNO validation of the 54 windows is ≈ 140 TFLOP in full f32, Transolver's
 # sweeps took 54 of its 12-step loop's 64 s; no traced iteration, no
 # StepTimer window
-CNO_LOOP_STEPS = TRANSOLVER_LOOP_STEPS = 2
+CNO_LOOP_STEPS = TRANSOLVER_LOOP_STEPS = 1
 # the bf16 FNO loop again, on the Arrow tree the converter writes from the
 # same arrays (--use_hf_dataset true): a few steps, exact counts
 ARROW_STEPS = 2          # the whole run's time limit
 ARROW_WINDOWS = 8       # windows of each split and type held bit for bit, and timed
 # WDNO's loop and eval in its shipped f32 (the TA kernels' tf32 variants):
 # 1 step with its one validation sweep (each of the 54 val windows a DDIM
-# sample of 10 denoiser forwards), no trace, no StepTimer window, no
+# sample of WDNO_LOOP_DDIM [10] denoiser forwards: the sample phases keep the
+# shipped 10), no trace, no StepTimer window, no
 # resume; the eval over the 14 unseen test windows at N_autoregressive 1
 # [5]; test batch 14 [64]: the eval's windows in one batch, the sweep's in
 # 4 (at 64 the sweep would sample 64 padded windows). The reload samples 2
 # val windows (its metrics are held card against CPU: one window's r2 is
-# too ill-conditioned for that); 4 test windows go through the plain f32
+# too ill-conditioned for that); 2 test windows go through the plain f32
 # path too.
 WDNO_LOOP_STEPS = 1
+WDNO_LOOP_DDIM = 5
 WDNO_TEST_BATCH = 14
-WDNO_RELOAD_WINDOWS, WDNO_PLAIN_WINDOWS = 2, 4
+WDNO_RELOAD_WINDOWS, WDNO_PLAIN_WINDOWS = 2, 2
 # DMD (configs/cylinder/dmd.yaml: test batch 12, n_predict 20, input_feature
 # 2, N_autoregressive 1): eval only, on the same tree (all 56 test windows)
 DMD_CONFIG = "cylinder/dmd.yaml"
@@ -4275,9 +4657,10 @@ LOOPS = {
                      step={}, predict={}, eval="mwt_eval", bare="mwt_train_f32"),
     "wdno_loop": dict(config=WDNO_CONFIG, dtype=None, steps=WDNO_LOOP_STEPS,
                       step=dict(ta_fwd=WDNO_TA_PER_FORWARD, ta_bwd=WDNO_TA_PER_FORWARD),
-                      predict=dict(ta_fwd=WDNO_TA_PER_FORWARD * WDNO_SAMPLE_STEPS),
+                      predict=dict(ta_fwd=WDNO_TA_PER_FORWARD * WDNO_LOOP_DDIM),
                       eval="wdno_eval", bare="wdno_train_f32", variant="tf32",
-                      cuts={"test_batch_size": (WDNO_TEST_BATCH, 64)},
+                      cuts={"test_batch_size": (WDNO_TEST_BATCH, 64),
+                            "sampling_timesteps": (WDNO_LOOP_DDIM, WDNO_SAMPLE_STEPS)},
                       eval_cuts={"N_autoregressive": (1, 5)}),
 }
 # the loops whose model samples (WDNO): their own loop and eval phases
@@ -4563,7 +4946,7 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
         raise AssertionError(f"{len(hist['val']['rmse'])} validations, expected {n_val}")
     ckpt_dir = f"{exp1}/ckpt"
     steps_kept = CheckpointManager(ckpt_dir).all_steps()
-    if steps_kept != [steps - val_every, steps]:
+    if steps_kept != [s for s in (steps - val_every, steps) if s > 0]:
         raise AssertionError(f"checkpoints kept: {steps_kept}")
     traced = min(LOOP_PROFILE[1], steps) - LOOP_PROFILE[0] + 1
     trace = loop_trace_summary(f"{prof_dir}/trace.json") if traced > 0 else None
@@ -5564,6 +5947,8 @@ def main() -> None:
     by_path["train_f32"] = phase_train(dev, compute_dtype=None)
     torch.cuda.empty_cache()
     by_path["mesh_dp1"] = phase_mesh_dp1(dev)
+    by_path["mesh_mp2"] = phase_mesh_mp2(dev)
+    shards = phase_gk_scores_shards(dev)
     by_path["surrogate_fno_train_f32"] = phase_surrogate_fno_train(dev)
     by_path["surrogate_fno_rollout_f32"] = phase_surrogate_fno_rollout(dev)
     by_path["combustion_fno_train_f32"] = phase_combustion_fno_train(dev)
@@ -5587,6 +5972,7 @@ def main() -> None:
         by_path[f"wdno_sample{suffix}"] = phase_wdno_sample(dev, dtype)
         _free()
     summary.update(phase_gk_scores(dev))
+    summary["gk_scores"]["token_shards"] = shards
     by_path["gk_rollout"] = phase_gk_rollout(dev, norm)
     torch.cuda.empty_cache()
     by_path["gk_train"] = phase_gk_train(dev, norm)

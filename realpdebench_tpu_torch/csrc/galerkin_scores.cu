@@ -1,5 +1,7 @@
 // Galerkin scores: per (batch b, head h), with per-head affine LayerNorms,
-//   S[b, h] = LN_K(k[b, :, h, :])^T . LN_V(v[b, :, h, :]) / N   ([D, D] f32)
+//   S[b, h] = LN_K(k[b, :, h, :])^T . LN_V(v[b, :, h, :]) / n_total   ([D, D] f32)
+//   n_total is N, or on a token shard (sequence parallelism) the global token
+//   count, so that the shards' S summed over the mp group are the whole's.
 //   k, v [B, N, h*D] (T = bf16 or f32: the q/k/v Dense's own token layout),
 //   ks, kb, vs, vb [h, D] f32, S [B, h, D, D] f32.
 //   LN(x) = (x - mean) / sqrt(var + eps) * scale + bias over the D features of
@@ -260,8 +262,8 @@ bool valid_shape(int B, int N, int h, int d) {
 
 template <typename T, int D>
 cudaError_t launch(const void* k, const void* v, const void* ks, const void* kb, const void* vs,
-                   const void* vb, void* partial, void* out, int B, int N, int h, float eps,
-                   cudaStream_t stream) {
+                   const void* vb, void* partial, void* out, int B, int N, int n_total, int h,
+                   float eps, cudaStream_t stream) {
   int chunk;
   const int nparts = plan(B, N, h, &chunk);
   const int hb = h < kHeadsPerBlock ? h : kHeadsPerBlock;
@@ -277,7 +279,7 @@ cudaError_t launch(const void* k, const void* v, const void* ks, const void* kb,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(out),
-                              nparts, B * h * D * D, stream, 1.0 / (double)N);
+                              nparts, B * h * D * D, stream, 1.0 / (double)n_total);
 }
 
 // ---------------------------------------------------------------------------
@@ -534,7 +536,7 @@ int plan_mma(int B, int N, int h, int d, int* chunk) {
 template <typename T>
 cudaError_t launch_mma(const void* k, const void* v, const void* ks, const void* kb,
                        const void* vs, const void* vb, void* partial, void* out, int B, int N,
-                       int h, int d, float eps, cudaStream_t stream) {
+                       int n_total, int h, int d, float eps, cudaStream_t stream) {
   if ((uintptr_t)k % 16 || (uintptr_t)v % 16) return cudaErrorMisalignedAddress;
   int chunk;
   const int nparts = plan_mma<T>(B, N, h, d, &chunk);
@@ -550,7 +552,7 @@ cudaError_t launch_mma(const void* k, const void* v, const void* ks, const void*
   });
   if (err != cudaSuccess) return err;
   return fno::reduce_partials(static_cast<const float*>(partial), static_cast<float*>(out),
-                              nparts, B * h * d * d, stream, 1.0 / (double)N);
+                              nparts, B * h * d * d, stream, 1.0 / (double)n_total);
 }
 
 }  // namespace
@@ -572,18 +574,23 @@ extern "C" int gk_scores_num_partials(int B, int N, int h, int d, int variant, i
 }
 
 // variant: 0 fma, 1 mma (ops/kernels.py: VARIANTS["gk_scores"]); partial
-// holds gk_scores_num_partials(...) [B, h, d, d] floats.
+// holds gk_scores_num_partials(...) [B, h, d, d] floats; n_total >= N is the
+// divisor (N, or the global token count of a token shard).
 extern "C" int gk_scores(const void* k, const void* v, const void* ks, const void* kb,
                          const void* vs, const void* vb, void* partial, void* out, int B, int N,
-                         int h, int d, float eps, int variant, int dtype, void* stream) {
-  if (!valid_shape(B, N, h, d)) return cudaErrorInvalidValue;
+                         int n_total, int h, int d, float eps, int variant, int dtype,
+                         void* stream) {
+  if (!valid_shape(B, N, h, d) || n_total < N) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == 1)
     return dtype == fno::kF32
-               ? launch_mma<float>(k, v, ks, kb, vs, vb, partial, out, B, N, h, d, eps, st)
-               : launch_mma<bf16>(k, v, ks, kb, vs, vb, partial, out, B, N, h, d, eps, st);
+               ? launch_mma<float>(k, v, ks, kb, vs, vb, partial, out, B, N, n_total, h, d, eps,
+                                   st)
+               : launch_mma<bf16>(k, v, ks, kb, vs, vb, partial, out, B, N, n_total, h, d, eps,
+                                  st);
   if (variant != 0) return cudaErrorInvalidValue;
-#define GK_CALL(TT, DD) launch<TT, DD>(k, v, ks, kb, vs, vb, partial, out, B, N, h, eps, st)
+#define GK_CALL(TT, DD) \
+  launch<TT, DD>(k, v, ks, kb, vs, vb, partial, out, B, N, n_total, h, eps, st)
 #define GK_DISPATCH_D(TT)           \
   switch (d) {                      \
     case 16:                        \

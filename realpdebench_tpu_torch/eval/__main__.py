@@ -7,9 +7,12 @@ autoregressively over the real test split, and run the 13-metric sweep
 probe diagnostic. A training-free model (DMD) loads no checkpoint and
 rolls out through ``make_host_rollout_fn``; the first batch's result plots (``N_plot``) and probe
 plots (``N_plot_probe``) need matplotlib, imported where they are drawn.
-Under data parallelism (``torchrun``, ``core/mesh.py``) each rank rolls
-out its slice of every batch and the predictions are gathered before the
-sweep; rank 0 alone writes the log and the plots.
+Under data parallelism (``torchrun``, ``core/mesh.py``) each data rank
+rolls out its slice of every batch and the predictions are gathered over
+the dp group before the sweep; rank 0 alone writes the log and the plots.
+Under model parallelism ``seq_shard: true`` shards the GK's and
+Transolver's tokens over the mp group (JAX ``eval/__main__.py:71-73``);
+the ranks of one mp group roll out the same slice.
 """
 
 import logging
@@ -37,10 +40,12 @@ from realpdebench_tpu_torch.eval.rollout import (
 from realpdebench_tpu_torch.models.registry import build_model, resolve_device
 from realpdebench_tpu_torch.train.loop import (
     _dataset_class,
+    average_over_data_ranks,
     hf_kwargs,
     load_reference_or_orbax_checkpoint,
     model_kwargs,
     param_count,
+    seq_kwargs,
 )
 from realpdebench_tpu_torch.utils.misc import (
     experiment_time,
@@ -82,16 +87,17 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
     device = resolve_device(device, "run_eval evaluates")
     mesh = mesh_lib.make_mesh_context(cfg.get("mesh_shape"))
     main = mesh_lib.is_main_process()
-    gather = mesh_lib.allgather_to_host
+    gather = lambda a: mesh_lib.allgather_to_host(a, mesh)
 
     test_ds, train_ds, norm_ds = build_eval_datasets(cfg, dataset_class)
     loader = DataLoader(test_ds, batch_size=mesh.pad_batch(int(cfg.test_batch_size)),
                         num_workers=int(cfg.get("num_workers", 4)),
-                        pad_last=True, pin_memory=device.type == "cuda", process_shard=True)
+                        pad_last=True, pin_memory=device.type == "cuda", process_shard=True,
+                        process_count=mesh.dp_size, process_index=mesh.dp_index)
     normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds)
     model = build_model(train_dataset=train_ds, device=device,
                         generator=make_generator(int(cfg.get("seed", 0))),
-                        **model_kwargs(cfg))
+                        **model_kwargs(cfg), **seq_kwargs(cfg, mesh))
     logging.info(f"Number of parameters: {param_count(model)}")
     if model.trainable:
         load_reference_or_orbax_checkpoint(cfg.checkpoint_path, model)
@@ -141,10 +147,7 @@ def run_eval(cfg, exp_path: str, device=None, dataset_class=None):
     eval_bs = int(cfg.test_batch_size) if n_steps > 4 else pred_all.shape[0]
     vals = eval_metrics(pred_all, target_all, c, eval_bs)
     results = dict(zip(METRIC_NAMES, (float(v) for v in vals)))
-    nmse_t = torch.stack(nmses)
-    if mesh_lib.world_size() > 1:   # the ranks' equal slices of each batch
-        nmse_t = mesh_lib.all_reduce_(nmse_t) / mesh_lib.world_size()
-    nmse_vals = nmse_t.tolist()
+    nmse_vals = average_over_data_ranks(torch.stack(nmses), mesh).tolist()
     results["normalized_mse"] = sum(nmse_vals) / max(len(nmse_vals), 1)
 
     logging.info(

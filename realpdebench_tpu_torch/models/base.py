@@ -19,9 +19,11 @@ model on the card), "at least float32" is float64.
 
 Under data parallelism (``core/mesh.py``: a row share, set by the training
 step around each microbatch) ``batch_norm``'s statistics are sums
-all-reduced over the global batch, and ``dropout_mask`` draws the global
-batch's mask and keeps this rank's rows, so every rank computes what one
-process on the whole batch would.
+all-reduced over the dp group's global batch, and ``dropout_mask`` draws
+the global batch's mask and keeps this rank's rows; under token sharding
+(a token share) ``dropout`` draws for the global token count and keeps
+this rank's tokens; so every rank computes what one process on the whole
+batch would.
 """
 
 from __future__ import annotations
@@ -144,14 +146,28 @@ def dropout_mask(shape, p: float, generator: torch.Generator) -> torch.Tensor:
         lambda sh: torch.rand(sh, generator=generator, device=generator.device) >= p, shape)
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator,
+            token_axis: int | None = None) -> torch.Tensor:
     """flax ``nn.Dropout`` in training: x / (1 − p) where kept, else 0; no
-    draw at p 0."""
+    draw at p 0. ``token_axis`` names x's token axis: under a token share
+    (``core.mesh.token_share``, model parallelism) the mask is drawn for the
+    global token count and this rank keeps its tokens, so every rank draws
+    what one process would; a tensor without it (replicated over the mp
+    group) draws the same mask on every rank."""
     if p == 0.0:
         return x
     if p == 1.0:
         return torch.zeros_like(x)
-    keep = dropout_mask(tuple(x.shape), p, generator)
+    shape = list(x.shape)
+    tokens = mesh.current_token_share() if token_axis is not None else None
+    if tokens is not None:
+        if shape[token_axis] != tokens.count:
+            raise ValueError(f"a dropout over {shape[token_axis]} tokens under a share "
+                             f"of {tokens.count}")
+        shape[token_axis] = tokens.total
+    keep = dropout_mask(tuple(shape), p, generator)
+    if tokens is not None:
+        keep = keep.narrow(token_axis, tokens.start, tokens.count)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -193,6 +209,12 @@ class Model(nn.Module):
             raise ValueError(f"the dropout stream lives on {g.device}, the input on "
                              f"{device}; call reseed_dropout after moving the model")
         return g
+
+    def seq_parallel_parameters(self) -> list:
+        """The parameters used between a token split and its gather
+        (``core/partitioning.py``), whose gradients are per-shard partials
+        under ``seq_shard``; none for a model that does not shard tokens."""
+        return []
 
     def loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """Elementwise MSE of the prediction against ``y``, computed inside

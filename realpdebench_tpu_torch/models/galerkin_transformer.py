@@ -29,6 +29,15 @@ residual dropouts and the feed-forward dropout (p ``dropout``) run; in eval
 mode none does, unless ``reference_eval_dropout`` keeps the score dropout
 on, as the reference does (JAX ``galerkin_transformer.py:108-110``).
 
+Sequence parallelism (``seq_mesh``, a ``core.mesh.MeshContext`` with mp > 1;
+``seq_shard`` in the loops): the tokens are split over the mp group after
+the downscaler and gathered before the regressor, as JAX's
+``token_constraint`` places them. The scores are the only cross-token
+coupling: each rank's kernel sums its tokens over the global N and the
+partials are summed over the group. q·scores, the feed-forward and the
+per-token dropouts (masks drawn for the global token count) stay local; the
+regressor's DFT and BatchNorm run replicated over mp.
+
 Precision: ``compute_dtype`` (float32 or bfloat16) is the dtype of the
 activations and of the Denses; parameters stay float32 and are cast at
 use, as flax's ``dtype=`` does. The per-head LayerNorm affine is cast to
@@ -57,6 +66,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from realpdebench_tpu_torch.core import mesh as mesh_lib
+from realpdebench_tpu_torch.core import partitioning
 from realpdebench_tpu_torch.models.base import (
     Model,
     batch_norm,
@@ -123,9 +134,17 @@ class GalerkinAttention(nn.Module):
         h, dt = self.n_head, self.dtype
         q, k, v = (linear(lin, x, dt) for lin in self.linears)
         scores_fn = galerkin_scores_plain if reference else galerkin_scores
+        # on a token shard: this shard's partial sum over the global count,
+        # summed over the mp group (the only cross-token coupling)
+        tokens = mesh_lib.current_token_share()
         scores = scores_fn(k, v, *self._affine(self.norm_K, k.dtype),
-                           *self._affine(self.norm_V, k.dtype), h,
-                           self.norm_eps).to(dt)               # [B, h, d, d]
+                           *self._affine(self.norm_V, k.dtype), h, self.norm_eps,
+                           n_total=None if tokens is None else tokens.total)
+        if tokens is not None:
+            scores = partitioning.mp_sum(scores, tokens)
+        scores = scores.to(dt)                                 # [B, h, d, d]
+        # the score dropout's tensor is replicated over the mp group: the
+        # same mask on every rank
         if self.training or self.reference_eval_dropout:
             scores = dropout(scores, SCORE_DROPOUT, generator)
         # per-head q·scores as one product with the block-diagonal scores
@@ -169,7 +188,7 @@ class GKTEncoderLayer(nn.Module):
 
     def forward(self, x, generator=None, reference: bool = False):
         dt = self.dtype
-        drop = ((lambda z, p: dropout(z, p, generator)) if self.training
+        drop = ((lambda z, p: dropout(z, p, generator, token_axis=1)) if self.training
                 else (lambda z, p: z))
         x = x + drop(self.attn(x, generator, reference), self.dropout)
         if self.layer_norm:
@@ -244,7 +263,7 @@ class GalerkinTransformer3d(Model):
                  reference_eval_dropout: bool = False,
                  compute_dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None,
-                 dropout_seed: int = 0):
+                 dropout_seed: int = 0, seq_mesh=None):
         super().__init__()
         if attention_type != "galerkin" or not attn_norm:
             raise ValueError(f"the Galerkin Transformer implements galerkin "
@@ -255,6 +274,7 @@ class GalerkinTransformer3d(Model):
         self.shape_in, self.shape_out = tuple(shape_in), tuple(shape_out)
         self.n_hidden, self.compute_dtype = n_hidden, compute_dtype
         self.reference_eval_dropout = reference_eval_dropout
+        self.seq_mesh = seq_mesh
         self.mult = shape_out[0] // shape_in[0]
         dt = compute_dtype
         self.downscaler = nn.Module()
@@ -292,18 +312,35 @@ class GalerkinTransformer3d(Model):
                 lecun_normal_(m.weight.data, m.weight[0].numel(), generator)
                 nn.init.zeros_(m.bias)
 
+    def _tokens(self, n: int):
+        """This rank's token share of ``n`` tokens under ``seq_mesh``, or
+        None (no mesh, mp 1, or mp does not divide n)."""
+        return partitioning.token_share_for(self.seq_mesh, n)
+
+    def seq_parallel_parameters(self) -> list:
+        n = self.shape_in[0] * self.shape_in[1] * self.shape_in[2]
+        return list(self.encoder_layers.parameters()) if self._tokens(n) else []
+
     def forward(self, x: torch.Tensor, y: torch.Tensor | None = None,
                 reference: bool = False) -> torch.Tensor:
         """x [B, T_in, H, W, C_in] → [B, T_out, H, W, C_out] float32, or,
         given the target y, the scalar MSE. ``reference=True`` runs the
         scores through their plain twin: the check a kernel run is compared
-        against."""
+        against. Under ``seq_mesh`` (``seq_shard``) the encoder runs on this
+        rank's tokens (split after the downscaler, gathered before the
+        regressor, which runs replicated over the mp group)."""
         B, T, H, W, _ = x.shape
         stochastic = self.training or self.reference_eval_dropout
         gen = self.dropout_generator(x.device) if stochastic else None
         h = linear(self.downscaler.id, x, self.compute_dtype).reshape(B, T * H * W, -1)
-        for layer in self.encoder_layers:
-            h = layer(h, gen, reference)
+        tokens = self._tokens(T * H * W)
+        if tokens is not None:
+            h = partitioning.split_tokens(h, tokens)
+        with mesh_lib.token_share(tokens):
+            for layer in self.encoder_layers:
+                h = layer(h, gen, reference)
+        if tokens is not None:
+            h = partitioning.gather_tokens(h, tokens)
         grid = torch.cat(grid_features((T, H, W), device=x.device), dim=-1)
         out = self.regressor(h.reshape(B, T, H, W, self.n_hidden), grid).float()
         t_out, c_out = self.shape_out[0], self.shape_out[-1]

@@ -40,10 +40,13 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
     rematerialised in the backward) and ``dpot`` (default false, as
     there); ``fno`` and ``galerkin_transformer``
     accept it and ignore it: their f32 steps fit an 80 GB card at the
-    shipped batches; ``mwt`` ignores it, as the JAX registry does. The
-    TPU-only switches (``use_pallas``,
-    ``pallas_interpret``, ``seq_mesh``) are accepted and have no effect: on
-    a CUDA device the model always runs the kernels. ``wdno`` computes its
+    shipped batches; ``mwt`` ignores it, as the JAX registry does.
+    ``seq_mesh`` (a ``core.mesh.MeshContext``; the loops pass theirs under
+    ``seq_shard`` with mp > 1) shards the tokens of ``galerkin_transformer``
+    and ``transolver`` over the mp group, as the JAX registry's does; the
+    other families ignore it, as there. The TPU-only switches
+    (``use_pallas``, ``pallas_interpret``) are accepted and have no effect:
+    on a CUDA device the model always runs the kernels. ``wdno`` computes its
     wavelet rescaler from ``train_dataset`` (cached beside the data, as the
     JAX package caches it), or takes ones without it; ``dmd`` has no
     parameters and computes on the host.
@@ -108,7 +111,7 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             reference_eval_dropout=bool(kwargs.get("reference_eval_dropout", False)),
             compute_dtype=compute_dtype, device=resolve_device(device),
             generator=generator,
-            dropout_seed=int(kwargs.get("seed", 0)))
+            dropout_seed=int(kwargs.get("seed", 0)), seq_mesh=kwargs.get("seq_mesh"))
     if model_name == "deeponet":
         from realpdebench_tpu_torch.models.deeponet import DeepONet
 
@@ -134,7 +137,8 @@ def build_model(train_dataset=None, shapes=None, *, device=None,
             slice_num=kwargs.get("slice_num", 32),
             unified_pos=bool(kwargs.get("unified_pos", False)),
             shape_in=shape_in, shape_out=shape_out, compute_dtype=compute_dtype,
-            device=resolve_device(device), generator=generator)
+            device=resolve_device(device), generator=generator,
+            seq_mesh=kwargs.get("seq_mesh"))
     if model_name == "dpot":
         from realpdebench_tpu_torch.models.dpot import DPOT
 

@@ -31,6 +31,16 @@ output is float32. A float64 copy (``.double()`` and ``compute_dtype =
 torch.float64``) computes everything in float64: the reference the card
 holds this kernel-free family against.
 
+Sequence parallelism (``seq_mesh``, a ``core.mesh.MeshContext`` with mp > 1;
+``seq_shard`` in the loops): the tokens are split over the mp group in
+whole H planes of the grid view (mp must divide H) and gathered at the
+output. The k3 projections take one halo plane from each neighbour
+(``core.partitioning.halo``: each output is computed once, by its owner,
+and the halo's gradient goes back to it); ``slice_norm`` and
+``slice_token`` are partial sums over the rank's tokens summed over the
+group; the G-token attention is replicated; ``out_x``, ``to_out``, the
+MLPs and the LayerNorms are per token.
+
 ``dropout`` (on the slice attention and after ``to_out``, in train mode)
 draws through ``models/base.dropout_mask``; ``build_model`` passes none, as
 the JAX registry does, so the shipped models run without it.
@@ -61,6 +71,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from realpdebench_tpu_torch.core import mesh as mesh_lib
+from realpdebench_tpu_torch.core import partitioning
 from realpdebench_tpu_torch.models.base import (
     Model,
     dropout,
@@ -103,7 +115,7 @@ class PhysicsAttention3d(nn.Module):
         super().__init__()
         inner = dim_head * heads
         self.heads, self.dim_head, self.grid = heads, dim_head, (H, W, D)
-        self.dropout = float(dropout)
+        self.dropout, self.kernel = float(dropout), kernel
         self.temperature = nn.Parameter(0.5 * torch.ones(1, heads, 1, 1))
         self.in_project_fx = nn.Conv3d(dim, inner, kernel, padding="same")
         self.in_project_x = nn.Conv3d(dim, inner, kernel, padding="same")
@@ -116,12 +128,21 @@ class PhysicsAttention3d(nn.Module):
     def forward(self, x, dt, drop):
         B, N, C = x.shape
         h, dh = self.heads, self.dim_head
+        H, W, D = self.grid
         # the grid view: a reshape of the token axis (not a transpose), then
-        # channels-first for the convolutions
-        xg = x.to(dt).reshape(B, *self.grid, C).permute(0, 4, 1, 2, 3)
+        # channels-first for the convolutions. On a token shard (whole H
+        # planes) the convolutions take the neighbours' halo planes and no
+        # padding along H, so each output plane is computed once, by its owner
+        tokens = mesh_lib.current_token_share()
+        xg = x.to(dt).reshape(B, N // (W * D), W, D, C)
+        pad = "same"
+        if tokens is not None:
+            xg = partitioning.halo(xg, tokens, dim=1, width=self.kernel // 2)
+            pad = (0, self.kernel // 2, self.kernel // 2)
+        xg = xg.permute(0, 4, 1, 2, 3)
 
         def project(conv):                               # → [B, h, N, dh]
-            y = F.conv3d(xg, conv.weight.to(dt), conv.bias.to(dt), padding="same")
+            y = F.conv3d(xg, conv.weight.to(dt), conv.bias.to(dt), padding=pad)
             return y.permute(0, 2, 3, 4, 1).reshape(B, N, h, dh).transpose(1, 2)
 
         fx_mid, x_mid = project(self.in_project_fx), project(self.in_project_x)
@@ -129,8 +150,13 @@ class PhysicsAttention3d(nn.Module):
         logits = linear(self.in_project_slice, x_mid, dt)          # [B, h, N, G]
         temp = self.temperature.to(st).clamp(0.1, 5.0)
         slice_weights = torch.softmax(logits.to(st) / temp, dim=-1).to(dt)
+        # the N-contractions: the only cross-token sums (summed over the mp
+        # group on a token shard); the G-token attention is replicated
         slice_norm = slice_weights.sum(dim=2, dtype=st)             # [B, h, G]
         slice_token = torch.matmul(slice_weights.transpose(-1, -2), fx_mid)
+        if tokens is not None:
+            slice_norm = partitioning.mp_sum(slice_norm, tokens)
+            slice_token = partitioning.mp_sum(slice_token, tokens)
         slice_token = (slice_token / (slice_norm + 1e-5)[..., None]).to(dt)
 
         q = linear(self.to_q, slice_token, dt)
@@ -142,7 +168,7 @@ class PhysicsAttention3d(nn.Module):
         out_token = torch.matmul(attn, v)                           # [B, h, G, dh]
         out_x = torch.matmul(slice_weights, out_token)              # [B, h, N, dh]
         out_x = out_x.transpose(1, 2).reshape(B, N, h * dh)
-        return drop(linear(self.to_out[0], out_x, dt), self.dropout)
+        return drop(linear(self.to_out[0], out_x, dt), self.dropout, token_axis=1)
 
 
 class TransolverBlock(nn.Module):
@@ -187,7 +213,8 @@ class Transolver3d(Model):
                  mlp_ratio: int = 1, slice_num: int = 32, dropout: float = 0.0,
                  unified_pos: bool = False,
                  compute_dtype: torch.dtype = torch.float32, device=None,
-                 generator: torch.Generator | None = None, dropout_seed: int = 0):
+                 generator: torch.Generator | None = None, dropout_seed: int = 0,
+                 seq_mesh=None):
         super().__init__()
         if H * W * D != int(np.prod(shape_in[:-1])):
             raise ValueError(f"the mesh H·W·D = {H}·{W}·{D} is not the window's "
@@ -196,6 +223,7 @@ class Transolver3d(Model):
         self.H, self.W, self.D, self.ref = H, W, D, ref
         self.n_hidden, self.out_dim = n_hidden, out_dim
         self.unified_pos, self.compute_dtype = bool(unified_pos), compute_dtype
+        self.seq_mesh = seq_mesh
         n_in = ref ** 3 if unified_pos else shape_in[-1]
         self.preprocess = TransolverMLP(n_in, n_hidden * 2, n_hidden)
         self.placeholder = nn.Parameter(torch.empty(n_hidden))
@@ -236,12 +264,25 @@ class Transolver3d(Model):
         pos = pos.reshape(self.H * self.W * self.D, self.ref ** 3)
         return torch.from_numpy(pos.astype(np.float32)).to(device=device, dtype=dtype)
 
+    def _tokens(self):
+        """This rank's share of the H·W·D tokens in whole H planes under
+        ``seq_mesh``, or None (no mesh, mp 1, or mp does not divide H)."""
+        return partitioning.token_share_for(self.seq_mesh, self.H * self.W * self.D,
+                                            unit=self.W * self.D)
+
+    def seq_parallel_parameters(self) -> list:
+        # the split is at the input: every parameter is used on the shards
+        return list(self.parameters()) if self._tokens() else []
+
     def forward(self, x: torch.Tensor, y: torch.Tensor | None = None,
                 reference: bool = False) -> torch.Tensor:
         """x [B, T, H, W, C_in] → [B, T, H, W, out_dim] float32 (float64 for a
         float64 copy), or, given the target y, the scalar MSE. ``reference``
         is accepted for the callers that hold a kernel path against the
-        plain one; this family runs no kernel of its own."""
+        plain one; this family runs no kernel of its own. Under
+        ``seq_mesh`` (``seq_shard``) the tokens are split over the mp group
+        at the input, as JAX's first ``token_constraint``, and gathered
+        before the output reshape."""
         in_shape = x.shape
         B, dt = in_shape[0], self.compute_dtype
         x = x.reshape(B, -1, in_shape[-1])
@@ -249,12 +290,19 @@ class Transolver3d(Model):
             pos = self.unified_positions(x.device, stats_dtype(dt))
             x = pos[None].expand(B, *pos.shape)
         if self.training:
-            drop = lambda z, p: dropout(z, p, self.dropout_generator(z.device)) if p else z
+            drop = lambda z, p, token_axis=None: (
+                dropout(z, p, self.dropout_generator(z.device), token_axis) if p else z)
         else:
-            drop = lambda z, p: z
-        fx = self.preprocess(x, dt)
-        fx = fx + self.placeholder[None, None, :].to(fx.dtype)
-        for block in self.blocks:
-            fx = block(fx, dt, drop)
+            drop = lambda z, p, token_axis=None: z
+        tokens = self._tokens()
+        if tokens is not None:
+            x = partitioning.split_tokens(x, tokens)
+        with mesh_lib.token_share(tokens):
+            fx = self.preprocess(x, dt)
+            fx = fx + self.placeholder[None, None, :].to(fx.dtype)
+            for block in self.blocks:
+                fx = block(fx, dt, drop)
+        if tokens is not None:
+            fx = partitioning.gather_tokens(fx, tokens)
         pred = fx.reshape(*in_shape[:-1], self.out_dim)
         return pred if y is None else mse(pred, y.to(pred.dtype))

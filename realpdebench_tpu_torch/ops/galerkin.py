@@ -12,7 +12,9 @@ head), in the q/k/v Dense's own token layout:
 The LayerNorm runs over the d features of each (token, head) in float32,
 with the population variance and ``eps`` inside the square root; the
 products accumulate in float32 and the sum is scaled by 1/N, as the Pallas
-kernel's ``o_ref = acc / n_total``.
+kernel's ``o_ref = acc / n_total``. ``n_total`` replaces N as the divisor
+on a token shard (sequence parallelism): the shards' scores, summed over
+the mp group, are those of the whole token axis.
 
 ``galerkin_scores`` is one autograd function. Its forward is
 ``kernels.gk_scores`` (csrc/galerkin_scores.cu) on a CUDA tensor and the
@@ -45,15 +47,16 @@ def _ln(x, scale, bias, eps: float):
 
 
 def galerkin_scores_plain(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
-                          eps: float):
+                          eps: float, n_total: int | None = None):
     """Plain twin, the semantics of JAX ``_scores_ref`` and
     ``galerkin_scores(..., force_ref=True)``, computed in float32 from
-    inputs of either dtype."""
+    inputs of either dtype; the sum divided by ``n_total`` (default: the
+    tensor's N)."""
     B, N, F = k.shape
     split = lambda z: z.float().reshape(B, N, heads, F // heads)
     kn = _ln(split(k), k_scale.float(), k_bias.float(), eps)
     vn = _ln(split(v), v_scale.float(), v_bias.float(), eps)
-    return torch.einsum("bnhd,bnhe->bhde", kn, vn) / N
+    return torch.einsum("bnhd,bnhe->bhde", kn, vn) / (N if n_total is None else n_total)
 
 
 def _ln_as_jax(x, scale, bias, eps: float):
@@ -70,16 +73,17 @@ def _ln_as_jax(x, scale, bias, eps: float):
 
 
 def galerkin_scores_as_jax(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
-                           eps: float):
+                           eps: float, n_total: int | None = None):
     """The scores as the JAX backward recomputes them (``_scores_bwd``'s
-    ``fwd``): ``_ln_as_jax`` on k and v in their dtype, the product and 1/N
-    in f32. Autograd through it runs the backward in the same dtypes as
-    JAX's vjp. In f32 it is ``galerkin_scores_plain``."""
+    ``fwd``): ``_ln_as_jax`` on k and v in their dtype, the product and
+    1/``n_total`` (default: the tensor's N) in f32. Autograd through it runs
+    the backward in the same dtypes as JAX's vjp. In f32 it is
+    ``galerkin_scores_plain``."""
     B, N, F = k.shape
     split = lambda z: z.reshape(B, N, heads, F // heads)
     kn = _ln_as_jax(split(k), k_scale.float(), k_bias.float(), eps)
     vn = _ln_as_jax(split(v), v_scale.float(), v_bias.float(), eps)
-    return torch.einsum("bnhd,bnhe->bhde", kn, vn) / N
+    return torch.einsum("bnhd,bnhe->bhde", kn, vn) / (N if n_total is None else n_total)
 
 
 class _GalerkinScores(torch.autograd.Function):
@@ -87,26 +91,26 @@ class _GalerkinScores(torch.autograd.Function):
     through ``galerkin_scores_as_jax``, recomputed."""
 
     @staticmethod
-    def forward(ctx, k, v, k_scale, k_bias, v_scale, v_bias, heads, eps):
-        ctx.heads, ctx.eps = heads, eps
+    def forward(ctx, k, v, k_scale, k_bias, v_scale, v_bias, heads, eps, n_total=None):
+        ctx.heads, ctx.eps, ctx.n_total = heads, eps, n_total
         ctx.save_for_backward(k, v, k_scale, k_bias, v_scale, v_bias)
         if not _use_kernel(k):
             return galerkin_scores_plain(k, v, k_scale, k_bias, v_scale, v_bias,
-                                         heads, eps)
+                                         heads, eps, n_total)
         return kernels.gk_scores(k, v, *(t.float().contiguous() for t in (
-            k_scale, k_bias, v_scale, v_bias)), heads=heads, eps=eps)
+            k_scale, k_bias, v_scale, v_bias)), heads=heads, eps=eps, n_total=n_total)
 
     @staticmethod
     def backward(ctx, g):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = galerkin_scores_as_jax(*leaves, ctx.heads, ctx.eps)
+            out = galerkin_scores_as_jax(*leaves, ctx.heads, ctx.eps, ctx.n_total)
             grads = torch.autograd.grad(out, leaves, g)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def galerkin_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
-                    eps: float = 1e-5):
+                    eps: float = 1e-5, n_total: int | None = None):
     """LN(k)ᵀ·LN(v)/N per (batch, head); differentiable in k, v and the
     affine parameters.
 
@@ -115,10 +119,15 @@ def galerkin_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int,
       k_scale, k_bias, v_scale, v_bias: [h, d] per-head LayerNorm affine.
       heads: the number of heads h.
       eps: the LayerNorm's epsilon.
+      n_total: the divisor, at least N (default N). On a token shard the
+        global token count: the shards' results then sum to the scores of
+        the whole (``core/partitioning.py``).
     Returns: [B, h, d, d] float32.
     """
     if k.dim() != 3 or k.shape != v.shape or k.shape[-1] % heads:
         raise ValueError(f"galerkin scores: k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} with {heads} heads")
+    if n_total is not None and n_total < k.shape[1]:
+        raise ValueError(f"galerkin scores: n_total {n_total} < N {k.shape[1]}")
     return _GalerkinScores.apply(k.contiguous(), v.contiguous(), k_scale,
-                                 k_bias, v_scale, v_bias, heads, eps)
+                                 k_bias, v_scale, v_bias, heads, eps, n_total)

@@ -517,7 +517,7 @@ SIGNATURES = {
     "ta_bwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
     "gk_scores_num_partials": ([_I] * 6, _I),
     "gk_scores_mma_smem_bytes": ([_I] * 2, _I),
-    "gk_scores": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "gk_scores": ([_P] * 8 + [_I] * 5 + [_F, _I, _I, _P], _I),
     "fno_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -1226,12 +1226,13 @@ def _gk_scores_variant(k, v, d: int, variant: str | None):
 
 
 def gk_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int, eps: float,
-              variant: str | None = None):
-    """LN(k)ᵀ·LN(v)/N per (batch, head), with per-head affine LayerNorms:
-    k, v [B, N, h·d] (float32 or bfloat16, the Dense's token layout), the
-    affine [h, d] f32 → [B, h, d, d] f32; see csrc/galerkin_scores.cu.
-    ``variant`` names one of VARIANTS['gk_scores']; by default
-    ``gk_scores_variant`` chooses."""
+              variant: str | None = None, n_total: int | None = None):
+    """LN(k)ᵀ·LN(v)/``n_total`` per (batch, head), with per-head affine
+    LayerNorms: k, v [B, N, h·d] (float32 or bfloat16, the Dense's token
+    layout), the affine [h, d] f32 → [B, h, d, d] f32; see
+    csrc/galerkin_scores.cu. ``n_total`` (at least N; default N) is the
+    global token count on a token shard. ``variant`` names one of
+    VARIANTS['gk_scores']; by default ``gk_scores_variant`` chooses."""
     dt = _io_dtype(k)
     dev = k.device
     if k.dim() != 3:
@@ -1241,6 +1242,9 @@ def gk_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int, eps: float,
     if F % heads or d not in GK_HEAD_DIMS or N < 1:
         raise ValueError(f"gk_scores takes a head width in {GK_HEAD_DIMS} and N >= 1; "
                          f"got F={F}, heads={heads}, N={N}")
+    n_total = N if n_total is None else int(n_total)
+    if n_total < N:
+        raise ValueError(f"gk_scores: n_total {n_total} < N {N}")
     _check("k", k, dev, k.dtype, (B, N, F))
     _check("v", v, dev, k.dtype, (B, N, F))
     for n, t in (("k_scale", k_scale), ("k_bias", k_bias), ("v_scale", v_scale),
@@ -1258,6 +1262,7 @@ def gk_scores(k, v, k_scale, k_bias, v_scale, v_bias, heads: int, eps: float,
     partial = torch.empty((n, B, heads, d, d), dtype=torch.float32, device=dev)
     out = torch.empty((B, heads, d, d), dtype=torch.float32, device=dev)
     _launch("gk_scores", lib.gk_scores, dev, _p(k), _p(v), _p(k_scale), _p(k_bias),
-            _p(v_scale), _p(v_bias), _p(partial), _p(out), B, N, heads, d, float(eps), code, dt)
+            _p(v_scale), _p(v_bias), _p(partial), _p(out), B, N, n_total, heads, d, float(eps),
+            code, dt)
     VARIANTS["gk_scores"][name] += 1
     return out

@@ -13,6 +13,9 @@ loads into the reference's ``Model.load_checkpoint``.
 Files are ``{directory}/checkpoint_{step}.pth``. ``save`` copies the state
 to the host and writes it in a background thread (orbax's async save);
 the next ``save``, ``wait`` and ``close`` wait for the write before.
+Under model parallelism the optimizer's moments are gathered over the mp
+group before the save (``train.Optimizer.state_dict``), so the file is the
+one one process writes, and a restore keeps each rank's slices.
 """
 
 from __future__ import annotations
@@ -57,13 +60,17 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, model, optimizer=None, metadata: Optional[dict] = None):
-        """Snapshot ``model`` (and ``optimizer``, a ``train.Optimizer``) at
-        ``step`` to the host now; write it in the background."""
+        """Snapshot ``model`` (and ``optimizer``: a ``train.Optimizer``, or
+        the ``(state_dict(), count)`` of one taken beforehand, as every rank
+        of a sharded optimizer's mp group must) at ``step`` to the host now;
+        write it in the background."""
         self.wait()
         ckpt = {"model_state_dict": _to_host(model.state_dict())}
         if optimizer is not None:
-            ckpt["optimizer_state_dict"] = _to_host(optimizer.adam.state_dict())
-            ckpt["optimizer_count"] = optimizer.count
+            state, count = (optimizer if isinstance(optimizer, tuple)
+                            else (optimizer.state_dict(), optimizer.count))
+            ckpt["optimizer_state_dict"] = _to_host(state)
+            ckpt["optimizer_count"] = count
         ckpt.update(metadata or {})
         ckpt["iteration"] = step
         self._writer = threading.Thread(target=self._write, args=(step, ckpt))
@@ -100,11 +107,12 @@ class CheckpointManager:
     def restore(self, model, optimizer=None, step: Optional[int] = None,
                 load_opt_state: bool = True):
         """Load ``step`` (default: the latest) into ``model`` (strict) and,
-        with ``load_opt_state``, ``optimizer``; returns (step, metadata)."""
+        with ``load_opt_state``, ``optimizer`` (a sharded one keeps this
+        rank's slices); returns (step, metadata)."""
         ckpt = self.load(step)
         model.load_state_dict(ckpt["model_state_dict"], strict=True)
         if load_opt_state and optimizer is not None:
-            optimizer.adam.load_state_dict(ckpt["optimizer_state_dict"])
+            optimizer.load_state_dict(ckpt["optimizer_state_dict"])
             optimizer.count = int(ckpt["optimizer_count"])
         return int(ckpt["iteration"]), _metadata(ckpt)
 

@@ -16,11 +16,15 @@ the losses stay on the device between validations and are fetched in one
 transfer there, so no step waits for the host. The run always builds a
 mesh (``core/mesh.py``), as the JAX loop does: ``mesh_shape`` null is dp =
 the process group's world size (1 without a group). Under data
-parallelism (``torchrun``, one process a card) each process loads its
-slice of every global batch, validation gathers the predictions before the
-metric sweep, and rank 0 alone writes checkpoints, logs and TensorBoard; a
-resume loads on every rank. The model axis (mp > 1, ``seq_shard``) is
-ROADMAP.md item 9b and raises.
+parallelism (``torchrun``, one process a card) each data rank loads its
+slice of every global batch, validation gathers the predictions over the
+dp group before the metric sweep, and rank 0 alone writes checkpoints, logs
+and TensorBoard; a resume loads on every rank. Under model parallelism
+(mp > 1, ``core/partitioning.py``) the optimizer's master slices and Adam
+moments are sharded over the mp group (the checkpoint holds them gathered:
+one process's file; a resume keeps each rank's slice), and ``seq_shard:
+true`` shards the GK's and Transolver's tokens over it (JAX
+``loop.py:137-140``); at mp 1 ``seq_shard`` does nothing.
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from realpdebench_tpu_torch.core import mesh as mesh_lib
+from realpdebench_tpu_torch.core.partitioning import shard_train_state
 from realpdebench_tpu_torch.data.loader import DataLoader, cycle_loader, to_device
 from realpdebench_tpu_torch.data.normalizer import build_normalizer
 from realpdebench_tpu_torch.eval.metrics import (
@@ -143,24 +149,25 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
     )
 
     num_workers = int(cfg.get("num_workers", 4))
-    # each process loads its slice of every global batch (the same
+    # each data rank loads its slice of every global batch (the same
     # permutation everywhere)
+    shard = dict(process_shard=True, process_count=mesh.dp_size, process_index=mesh.dp_index)
     train_loader = DataLoader(
         train_ds, batch_size=mesh.pad_batch(int(cfg.train_batch_size)), shuffle=True,
         drop_last=True, num_workers=num_workers, seed=int(cfg.get("seed", 0)),
-        pin_memory=cuda, process_shard=True,
+        pin_memory=cuda, **shard,
     )
     # pad_last keeps every val batch the same shape; padded rows are dropped
     # (after the gather) before the metric sweep
     val_loader = DataLoader(
         val_ds, batch_size=mesh.pad_batch(int(cfg.test_batch_size)), shuffle=False,
-        num_workers=num_workers, pad_last=True, pin_memory=cuda, process_shard=True,
+        num_workers=num_workers, pad_last=True, pin_memory=cuda, **shard,
     )
 
     normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds)
     model = build_model(train_dataset=train_ds, device=device,
                         generator=make_generator(int(cfg.get("seed", 0))),
-                        **model_kwargs(cfg))
+                        **model_kwargs(cfg), **seq_kwargs(cfg, mesh))
     if not model.trainable:
         raise ValueError(f"model {cfg.model_name!r} is training-free and has nothing to "
                          "train: evaluate it with `python -m realpdebench_tpu_torch eval "
@@ -187,6 +194,8 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
     if cfg.get("is_finetune"):
         load_reference_or_orbax_checkpoint(cfg.checkpoint_path, model)
         logging.info(f"Checkpoint {cfg.checkpoint_path} loaded (finetune)")
+    # master slices and moments over mp (nothing at mp 1)
+    shard_train_state(model, optimizer, mesh)
 
     step_fn = make_train_step(model, normalizer, optimizer,
                               grad_accum=int(cfg.get("grad_accum", 1) or 1), mesh=mesh)
@@ -246,7 +255,7 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
                         _, y_probe = val_ds[0]
                         c = y_probe.shape[-1] - infer_unmeasured_channels(y_probe[None])
                         eval_fn = make_eval_step(model, normalizer, c)
-                    val = run_validation(model, eval_fn, val_loader, c, device)
+                    val = run_validation(model, eval_fn, val_loader, c, device, mesh)
                 val_s += time.perf_counter() - t_val
                 for kk in VAL_KEYS:
                     history["val"][kk].append(val[kk])
@@ -264,9 +273,11 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
                         writer.add_scalar(f"val_{kk}", val[kk], iteration)
                 t_ckpt = time.perf_counter()
                 with record("checkpoint"):
+                    # every rank: under mp the moments are gathered over the group
+                    opt_state = (optimizer.state_dict(), optimizer.count)
                     if ckpt is not None:
                         ckpt.save(
-                            iteration, model, optimizer,
+                            iteration, model, opt_state,
                             metadata={
                                 "iteration": iteration,
                                 "best_iteration": best_iter,
@@ -286,6 +297,10 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
     _drain_losses()
     if ckpt is not None:
         ckpt.wait()
+    if mesh.distributed:
+        # the ranks return once rank 0's last checkpoint is on disk (a resume
+        # or an eval that follows reads it on every rank)
+        dist.barrier()
     if cuda:
         torch.cuda.synchronize()
     elapsed = time.time() - t_start
@@ -307,16 +322,17 @@ def run_training(cfg, exp_path: str, writer=None, device=None, dataset_class=Non
     return model, optimizer, history
 
 
-def validation_arrays(eval_fn, val_loader, device=None):
+def validation_arrays(eval_fn, val_loader, device=None, mesh=None):
     """The val split through ``eval_fn``: (the batches' normalized MSEs,
     the physical predictions, the targets), padding dropped, on the
-    device. Under data parallelism each rank runs its slice of every
-    batch; the predictions and targets are gathered (rank order is the
-    batch's order) and each batch's MSE averaged over the ranks' equal
-    slices, so every rank returns the global batch's."""
+    device. Under data parallelism (``mesh``) each data rank runs its slice
+    of every batch; the predictions and targets are gathered over the dp
+    group (rank order is the batch's order) and each batch's MSE averaged
+    over the ranks' equal slices, so every rank returns the global
+    batch's."""
     nmses, preds, targets = [], [], []
     batches = to_device(val_loader, device)
-    gather = mesh_lib.allgather_to_host
+    gather = lambda a: mesh_lib.allgather_to_host(a, mesh)
     try:
         for batch in batches:
             x, y = mesh_lib.assemble_from_process_local(batch[0]), batch[1]
@@ -327,17 +343,29 @@ def validation_arrays(eval_fn, val_loader, device=None):
             targets.append(gather(target_phys)[:n_real])
     finally:
         batches.close()
-    nmse = torch.stack(nmses)
-    if mesh_lib.world_size() > 1:
-        nmse = mesh_lib.all_reduce_(nmse) / mesh_lib.world_size()
-    return nmse.tolist(), torch.cat(preds), torch.cat(targets)
+    return average_over_data_ranks(torch.stack(nmses), mesh).tolist(), \
+        torch.cat(preds), torch.cat(targets)
 
 
-def run_validation(model, eval_fn, val_loader, c, device=None):
+def average_over_data_ranks(t: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``t`` averaged over the dp group of ``mesh`` (the ranks' equal slices
+    of each batch); ``t`` itself without a mesh or at dp 1."""
+    if mesh is None or not mesh.distributed or mesh.dp_size == 1:
+        return t
+    return mesh_lib.all_reduce_(t, mesh, mesh_lib.DATA_AXIS) / mesh.dp_size
+
+
+def seq_kwargs(cfg, mesh) -> dict:
+    """``seq_mesh`` for ``build_model`` where ``seq_shard`` is true and the
+    mesh has a model axis (JAX ``loop.py:137-140``); nothing otherwise."""
+    return {"seq_mesh": mesh} if cfg.get("seq_shard") and mesh.mp_size > 1 else {}
+
+
+def run_validation(model, eval_fn, val_loader, c, device=None, mesh=None):
     """Full-val-set metric sweep (reference train.py:344-402): the
     predictions and targets stay on the device and the 13 metrics are
     computed there."""
-    nmse_vals, preds, targets = validation_arrays(eval_fn, val_loader, device)
+    nmse_vals, preds, targets = validation_arrays(eval_fn, val_loader, device, mesh)
     vals = eval_metrics(preds, targets, c)
     out = dict(zip(METRIC_NAMES, (float(v) for v in vals)))
     out["normalized_mse"] = sum(nmse_vals) / max(len(nmse_vals), 1)

@@ -8,7 +8,9 @@ iterations with the short metric set (normalized MSE, RMSE, MAE, Rel-L2)
 and checkpoints at each evaluation, the best iteration chosen by RMSE.
 The Gaussian normalizer's statistics are never cached (reference
 ``train_surrogate.py:113-116``). It builds a mesh (``--mesh_shape``) and
-runs data-parallel under ``torchrun`` as ``train/loop.py`` does.
+runs data-parallel under ``torchrun`` as ``train/loop.py`` does. A model
+axis (mp > 1) is accepted and the state stays replicated over it, as JAX's
+``surrogate.py:94`` keeps it: the ranks of one mp group run the same step.
 """
 
 from __future__ import annotations
@@ -80,12 +82,12 @@ def run_surrogate_training(cfg, exp_path: str, device=None):
     logging.info(f"Data loaded from {train_ds.numerical_dataset_path}")
 
     num_workers = int(cfg.get("num_workers", 4))
+    shard = dict(process_shard=True, process_count=mesh.dp_size, process_index=mesh.dp_index)
     train_loader = DataLoader(train_ds, batch_size=mesh.pad_batch(int(cfg.train_batch_size)),
                               shuffle=True, drop_last=True, seed=int(cfg.get("seed", 0)),
-                              num_workers=num_workers, pin_memory=cuda, process_shard=True)
+                              num_workers=num_workers, pin_memory=cuda, **shard)
     test_loader = DataLoader(test_ds, batch_size=mesh.pad_batch(int(cfg.test_batch_size)),
-                             pad_last=True, num_workers=num_workers, pin_memory=cuda,
-                             process_shard=True)
+                             pad_last=True, num_workers=num_workers, pin_memory=cuda, **shard)
     normalizer = build_normalizer(cfg.get("normalizer", "gaussian"), norm_ds, is_save=False)
     model = build_model(train_dataset=train_ds, device=device,
                         generator=make_generator(int(cfg.get("seed", 0))),
@@ -117,7 +119,7 @@ def run_surrogate_training(cfg, exp_path: str, device=None):
             losses = torch.stack(pending).tolist()
             pending.clear()
             history["train_loss"].extend(losses)
-            vals = surrogate_metrics(*validation_arrays(eval_fn, test_loader, device))
+            vals = surrogate_metrics(*validation_arrays(eval_fn, test_loader, device, mesh))
             for k, v in vals.items():
                 history["test"][k].append(v)
             if vals["rmse"] < best_loss:
@@ -160,7 +162,8 @@ def make_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) | cuda:N | cpu")
     parser.add_argument("--mesh_shape", type=str, default=None,
-                        help="e.g. 'dp=4' under torchrun; default: dp = the world size")
+                        help="e.g. 'dp=4' or 'dp=2,mp=2' under torchrun; default: dp = "
+                             "the world size")
     return parser
 
 

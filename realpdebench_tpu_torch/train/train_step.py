@@ -20,7 +20,6 @@ import math
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from realpdebench_tpu_torch.core import mesh as mesh_lib
 
@@ -49,6 +48,14 @@ class Optimizer:
     optax evaluates its schedule (``CosineAnnealingLR`` would step it after
     the update instead). Complex parameters count as their real and
     imaginary parts, as JAX's separate ``w_real``/``w_imag`` do.
+
+    Under model parallelism (``core.partitioning.shard_train_state``,
+    ``shard``) Adam steps this rank's master slices of the sharded
+    parameters and keeps their moments only; the clip still sees the full
+    gradients, and the slices are all-gathered into the weights after the
+    update. ``state_dict`` is then the one process's (the moments gathered:
+    every rank of the mp group must call it) and ``load_state_dict`` keeps
+    this rank's slices.
     """
 
     def __init__(self, params, schedule: Callable[[int], float],
@@ -57,11 +64,32 @@ class Optimizer:
         self.schedule = schedule
         self.clip = float(clip_grad_norm or 0.0)
         self.count = 0
-        self.adam = torch.optim.Adam(self.params, lr=schedule(0),
-                                     betas=(0.9, 0.999), eps=1e-8)
+        self.shards = None
+        self.adam = self._adam(self.params)
+
+    def _adam(self, leaves):
+        return torch.optim.Adam(leaves, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8)
+
+    def shard(self, shards) -> None:
+        """Step ``shards`` (a ``core.partitioning.ParamShards`` over
+        ``self.params``) from now on, keeping the state held so far."""
+        full = self.state_dict()
+        self.shards = shards
+        self.adam = self._adam(shards.leaves)
+        self.load_state_dict(full)
 
     def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
         self.adam.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """Adam's ``state_dict`` over the full parameters."""
+        sd = self.adam.state_dict()
+        return sd if self.shards is None else self.shards.full_state(sd)
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.adam.load_state_dict(sd if self.shards is None else self.shards.local_state(sd))
 
     def step(self) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
@@ -75,7 +103,11 @@ class Optimizer:
                 g.mul_(scale)
         for group in self.adam.param_groups:
             group["lr"] = self.schedule(self.count)
+        if self.shards is not None:
+            self.shards.load()
         self.adam.step()
+        if self.shards is not None:
+            self.shards.gather()
         self.count += 1
 
 
@@ -91,15 +123,15 @@ def _microbatches(b: int, k: int, mesh):
     microbatches of a local batch of ``b`` rows. Without a mesh, ``k``
     consecutive chunks. With one, microbatch i is the global batch's rows
     {r·k + i}, as the JAX step composes them under a mesh
-    (``train_step.py:129-157``): this rank's rows whose global index is ≡ i
-    (mod k), which are consecutive rows of the global microbatch. A row
-    share (None without a process group) tells the forward where they lie
-    in it."""
+    (``train_step.py:129-157``): this data rank's rows whose global index
+    is ≡ i (mod k), which are consecutive rows of the global microbatch. A
+    row share (None without a process group) tells the forward where they
+    lie in it."""
     if mesh is None:
         n = b // k
         return [(slice(i * n, (i + 1) * n), None) for i in range(k)]
     world = mesh.dp_size if mesh.distributed else 1
-    total, offset = b * world, b * (mesh_lib.rank() if mesh.distributed else 0)
+    total, offset = b * world, b * (mesh.dp_index if mesh.distributed else 0)
     if total % k:
         raise ValueError(f"global batch {total} not divisible by grad_accum {k}")
     out = []
@@ -109,15 +141,16 @@ def _microbatches(b: int, k: int, mesh):
         if count == 0:
             raise ValueError(f"a rank's {b} rows hold no row of microbatch {i} of {k}: "
                              "raise the batch or lower grad_accum")
-        share = (mesh_lib.RowShare(total // k, (offset + first) // k, count)
+        share = (mesh_lib.RowShare(total // k, (offset + first) // k, count, mesh)
                  if mesh.distributed else None)
         out.append((slice(first, b, k), share))
     return out
 
 
-def _all_reduce_grads(params) -> None:
-    """Every gradient summed over the ranks, in one all-reduce a dtype
-    (complex gradients as their real and imaginary parts)."""
+def _all_reduce_grads(params, mesh, axis: str) -> None:
+    """Every gradient summed over the mesh's ``axis`` group, in one
+    all-reduce a dtype (complex gradients as their real and imaginary
+    parts)."""
     grads = [p.grad for p in params if p.grad is not None]
     by_dtype: dict = {}
     for g in grads:
@@ -125,7 +158,7 @@ def _all_reduce_grads(params) -> None:
         by_dtype.setdefault(r.dtype, []).append((g, r))
     for pairs in by_dtype.values():
         flat = torch.cat([r.reshape(-1) for _, r in pairs])
-        mesh_lib.all_reduce_(flat)
+        mesh_lib.all_reduce_(flat, mesh, axis)
         at = 0
         for _, r in pairs:
             r.copy_(flat[at:at + r.numel()].view_as(r))
@@ -137,8 +170,7 @@ def broadcast_state(model) -> None:
     parameters as their real and imaginary parts)."""
     with torch.no_grad():
         for t in (*model.parameters(), *model.buffers()):
-            dist.broadcast(torch.view_as_real(t.data) if t.is_complex() else t.data, src=0)
-            mesh_lib.COLLECTIVES["broadcast"] += 1
+            mesh_lib.broadcast_(torch.view_as_real(t.data) if t.is_complex() else t.data)
 
 
 def make_train_step(model, normalizer, optimizer: Optimizer,
@@ -158,18 +190,25 @@ def make_train_step(model, normalizer, optimizer: Optimizer,
     noise) in turn, from the model's generator.
 
     With a process group (``mesh.distributed``) ``x`` and ``y`` are this
-    rank's slice of the global batch: the parameters and buffers are
+    data rank's slice of the global batch: the parameters and buffers are
     broadcast from rank 0 once, here; each microbatch runs under a row share
-    (BatchNorm statistics all-reduced over the global microbatch, draws made
-    for it), its loss weighted by this rank's share of its rows; the
-    gradients are all-reduced into the global batch's before the clip and
-    Adam, and the returned loss is the global batch's.
+    (BatchNorm statistics all-reduced over the dp group's global
+    microbatch, draws made for it), its loss weighted by this rank's share
+    of its rows; the gradients are all-reduced over the dp group into the
+    global batch's before the clip and Adam, and the returned loss is the
+    global batch's. Under model parallelism (``mesh.mp_size`` > 1) the
+    gradients of ``model.seq_parallel_parameters()`` (used between a token
+    split and its gather: per-shard partials) are first summed over the mp
+    group, and no others; the optimizer, if ``shard_train_state`` sharded
+    it, steps this rank's slices.
     """
 
     k = max(int(grad_accum), 1)
     distributed = mesh is not None and mesh.distributed
     if distributed:
         broadcast_state(model)
+    region = (model.seq_parallel_parameters()
+              if distributed and mesh.mp_size > 1 else [])
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         if mesh is None and x.shape[0] % k:
@@ -185,15 +224,17 @@ def make_train_step(model, normalizer, optimizer: Optimizer,
                     loss = loss * (share.count / share.total)
                 loss.backward()
             losses.append(loss.detach())
+        if region:
+            _all_reduce_grads(region, mesh, mesh_lib.MODEL_AXIS)
         if distributed:
-            _all_reduce_grads(optimizer.params)
+            _all_reduce_grads(optimizer.params, mesh, mesh_lib.DATA_AXIS)
         if k > 1:
             for p in optimizer.params:
                 if p.grad is not None:
                     p.grad.div_(k)
         optimizer.step()
         loss = sum(losses) / k
-        return mesh_lib.all_reduce_(loss) if distributed else loss
+        return mesh_lib.all_reduce_(loss, mesh, mesh_lib.DATA_AXIS) if distributed else loss
 
     return step
 

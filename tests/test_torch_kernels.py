@@ -426,6 +426,35 @@ def test_galerkin_scores_autograd_runs_the_kernel(cuda):
         _close(u, r, torch.float32)
 
 
+def gk_score_terms(k, v, aff, h: int, eps: float, n_total: int) -> torch.Tensor:
+    """Σ|terms| of the scores: |LN(k)|ᵀ·|LN(v)| / n_total, in f32."""
+    B, N, F = k.shape
+    split = lambda z: z.float().reshape(B, N, h, F // h)
+    kn = tga._ln(split(k), aff[0], aff[1], eps).abs()
+    vn = tga._ln(split(v), aff[2], aff[3], eps).abs()
+    return torch.einsum("bnhd,bnhe->bhde", kn, vn) / n_total
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_galerkin_scores_on_token_halves_sum_to_the_whole(cuda, dtype):
+    """At the cylinder GK's shape (B 16, N 163840, 4 heads of 64): the
+    kernel on each half of the tokens with n_total = N, the halves summed
+    (as the mp group sums them under seq_shard), against the full-N kernel
+    and the twin, within 1e-4 of Σ|terms|."""
+    B, N, h, d = 16, 20 * 64 * 128, 4, 64
+    k, v, aff = _gk_inputs((B, N, h, d), dtype, cuda)
+    n = N // 2
+    halves = sum(kernels.gk_scores(k[:, s].contiguous(), v[:, s].contiguous(), *aff,
+                                   heads=h, eps=1e-7, n_total=N)
+                 for s in (slice(0, n), slice(n, N)))
+    whole = kernels.gk_scores(k, v, *aff, heads=h, eps=1e-7)
+    ref = tga.galerkin_scores_plain(k, v, *aff, h, 1e-7)
+    torch.cuda.synchronize()
+    terms = gk_score_terms(k, v, aff, h, 1e-7, N)
+    _sums_close(halves, whole, terms)
+    _sums_close(halves, ref, terms)
+
+
 def test_galerkin_scores_kernel_refuses_bad_input(cuda):
     k = torch.zeros(1, 8, 3 * 8, device=cuda)
     aff = [torch.ones(3, 8, device=cuda)] * 4
@@ -437,6 +466,8 @@ def test_galerkin_scores_kernel_refuses_bad_input(cuda):
         kernels.gk_scores(k, k, *aff[:3], aff[3][:1], heads=2, eps=1e-5)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernels.gk_scores(k.half(), k.half(), *aff, heads=2, eps=1e-5)
+    with pytest.raises(ValueError, match="n_total"):
+        kernels.gk_scores(k, k, *aff, heads=2, eps=1e-5, n_total=7)
 
 
 K1_SHAPES = [  # (BT, Hp, Wp, C, m2, m3)

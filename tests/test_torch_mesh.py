@@ -2,8 +2,9 @@
 
 1. ``parse_mesh_shape``, ``pad_batch`` and ``local_batch_slice`` against
    the JAX package's, for a table of specs and device counts, errors
-   included; ``make_mesh_context`` refuses a model axis (ROADMAP item 9b)
-   and a data axis other than the world size.
+   included; ``make_mesh_context`` takes a model axis with JAX's rank
+   layout (rank r at (r // mp, r % mp)) and refuses a foreign axis or a
+   dp·mp other than the world size.
 2. The process-sharded loader, bit-equal to the JAX ``DataLoader`` with
    ``process_shard=True, process_count=2, process_index=i``.
 3. The loops' step (a mesh, grad_accum 2: strided microbatches) held to
@@ -24,12 +25,17 @@
    one-process run: rank 0's checkpoint (Adam's first moments at the
    gradient bar, the statistics, the parameters) and the validation
    metrics within 1e-5.
+5. Four gloo ranks at ``dp=2,mp=2`` (``tests/torch_mp_worker.py``, one
+   spawn): 3 steps of the GK with ``seq_shard`` (its regressor's BatchNorm
+   summed over the dp group) and of the FNO against one process, at the
+   trajectory bars, with each rank's moments half of each sharded leaf.
 
 torch runs on one intra-op thread here, as the other small CPU runs.
 """
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -40,6 +46,7 @@ from realpdebench_tpu.data.loader import DataLoader as JDataLoader
 from realpdebench_tpu_torch.core import mesh
 from realpdebench_tpu_torch.data.loader import DataLoader
 from tests import torch_dp_worker as worker
+from tests import torch_mp_worker as mp_worker
 
 
 @pytest.fixture(autouse=True)
@@ -89,19 +96,44 @@ def test_pad_batch_and_local_batch_slice_match_jax(monkeypatch, dp):
             assert mesh.local_batch_slice(gb) == jmesh.local_batch_slice(gb)
 
 
-def test_make_mesh_context_refuses_a_model_axis_and_a_foreign_dp(monkeypatch):
+@pytest.mark.parametrize("spec", ["dp=2,mp=2", "dp=1,mp=4", "mp=2,dp=2", "dp=4", "mp=-1,dp=2"])
+def test_make_mesh_context_takes_a_model_axis_in_jax_rank_layout(monkeypatch, spec):
+    """dp·mp = the world size; rank r sits where the JAX mesh puts device r
+    (``make_mesh_context``'s devices[:n] reshaped to the axes in the spec's
+    order: (r // mp, r % mp) for dp=…,mp=…). Without a process group there
+    are no groups."""
     ctx = mesh.make_mesh_context(None)
     assert (ctx.dp_size, ctx.mp_size, ctx.distributed) == (1, 1, False)
     assert mesh.make_mesh_context("dp=1,mp=1").dp_size == 1
     monkeypatch.setattr(mesh, "world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        mesh.make_mesh_context("dp=2,mp=2")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        mesh.make_mesh_context("mp=4")
+    jctx = jmesh.make_mesh_context(spec, devices=jax.devices()[:4])
+    ids = np.vectorize(lambda d: d.id)(jctx.mesh.devices)
+    for r in range(4):
+        monkeypatch.setattr(mesh, "rank", lambda r=r: r)
+        ctx = mesh.make_mesh_context(spec)
+        assert (ctx.dp_size, ctx.mp_size) == (jctx.dp_size, jctx.mp_size)
+        at = {"dp": ctx.dp_index, "mp": ctx.mp_index}
+        assert ids[tuple(at[n] for n in jctx.mesh.axis_names)] == jax.devices()[r].id
+        assert (ctx.dp_group, ctx.mp_group, ctx.distributed) == (None, None, False)
+        assert mesh.local_batch_slice(8, ctx) == slice(ctx.dp_index * 8 // ctx.dp_size,
+                                                       (ctx.dp_index + 1) * 8 // ctx.dp_size)
+
+
+def test_make_mesh_context_refuses_a_model_axis_and_a_foreign_dp(monkeypatch):
+    """A model axis the world does not hold (dp·mp other than the world
+    size), a foreign dp and an unknown axis are refused."""
+    monkeypatch.setattr(mesh, "world_size", lambda: 4)
     with pytest.raises(ValueError, match="world size is 4"):
         mesh.make_mesh_context("dp=2")
+    with pytest.raises(ValueError, match="world size is 4"):
+        mesh.make_mesh_context("dp=1,mp=2")
+    with pytest.raises(ValueError, match="unknown axes"):
+        mesh.make_mesh_context("dp=2,tp=2")
+    with pytest.raises(ValueError, match="uses 8 devices"):
+        mesh.make_mesh_context("dp=4,mp=2")
     assert mesh.make_mesh_context(None).dp_size == 4      # null: dp = world size
     assert mesh.make_mesh_context("dp=-1").dp_size == 4
+    assert mesh.make_mesh_context("mp=-1").mp_size == 4
 
 
 def test_without_torchrun_nothing_is_started(monkeypatch):
@@ -178,14 +210,16 @@ def _rel_l2(got, ref) -> float:
 
 def test_dp2_ranks_see_the_mesh_and_its_collectives(dp_steps):
     assert dp_steps["ctx"] == (2, 1, True)
-    assert "item 9b" in dp_steps["mp_error"]
+    assert dp_steps["mp_ctx"] == (1, 2, 0, 0, True)      # rank 0 of a model axis
     torch.testing.assert_close(dp_steps["gathered"],
                                torch.tensor([[0.0] * 3] * 2 + [[1.0] * 3] * 2))
     c = dp_steps["collectives"]
     n = len(worker.STEP_CASES)
-    # a broadcast a parameter and buffer, one all-reduce of the loss and at
-    # least one of the gradients a step, the BatchNorm sums besides
-    assert c["broadcast"] >= n and c["all_reduce"] >= 2 * n and c["all_gather"] == 0
+    # a broadcast a parameter and buffer (from rank 0, over the world), one
+    # all-reduce of the loss and at least one of the gradients a step over
+    # the dp group, the BatchNorm sums besides; nothing over mp
+    assert c["world"]["broadcast"] >= n and c["dp"]["all_reduce"] >= 2 * n
+    assert c["dp"]["all_gather"] == 0 and not any(c["mp"].values())
 
 
 @pytest.mark.parametrize("case", list(worker.STEP_CASES))
@@ -275,3 +309,39 @@ def test_a_dp2_loop_equals_the_one_process_loop(tmp_path):
         else:
             assert _rel_l2(torch.view_as_real(m_got) if m_got.is_complex() else m_got,
                            torch.view_as_real(m_ref) if m_ref.is_complex() else m_ref) <= 1e-4
+
+
+# ---------------------------------------------------------- dp=2,mp=2
+
+
+@pytest.fixture(scope="module")
+def mp4_steps(tmp_path_factory):
+    from tests.test_torch_partitioning import spawn_steps
+
+    return spawn_steps(tmp_path_factory.mktemp("mp4_steps"), "dp=2,mp=2", mp_worker.MP4_CASES)
+
+
+def test_dp2_mp2_ranks_sit_in_jax_layout_and_reduce_by_group(mp4_steps):
+    """Four gloo ranks at dp=2,mp=2: rank r at (r // 2, r % 2); the
+    gradients and the loss over the dp group, the BatchNorm sums of the
+    GK's regressor (replicated over mp) too; the master slices, the token
+    gathers and the scores over the mp group."""
+    assert [r["ctx"] for r in mp4_steps] == [(2, 2, r // 2, r % 2, True) for r in range(4)]
+    c = mp4_steps[0]["collectives"]
+    n = len(mp_worker.MP4_CASES) * mp_worker.STEPS
+    assert c["dp"]["all_reduce"] >= 2 * n and c["mp"]["all_gather"] >= n
+    assert c["mp"]["all_reduce"] >= mp_worker.STEPS and c["world"]["broadcast"] > 0
+
+
+@pytest.mark.parametrize("case", mp_worker.MP4_CASES)
+def test_a_dp2_mp2_step_equals_the_one_process_step(mp4_steps, case):
+    """3 steps on each data rank's half of the global batch, the GK with
+    seq_shard (dropout on), against one process on all of it, at the
+    trajectory bars; each rank holds half of each sharded leaf's moments."""
+    from tests.test_torch_partitioning import assert_moments_sharded, assert_steps_match
+
+    ref = mp_worker.run_case(case)
+    init = {n: t.clone() for n, t in mp_worker.model_for(case).state_dict().items()}
+    for r in mp4_steps:
+        assert_steps_match(r["results"][case], ref, init, mp_worker.LR, mp_worker.STEPS)
+    assert_moments_sharded(mp4_steps, case, 2)

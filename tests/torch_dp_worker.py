@@ -83,7 +83,7 @@ def run_step_case(name: str, mesh_ctx, dtype=torch.float32) -> dict:
     # a mean of its own for every sample, as tests/test_torch_train.py
     x += torch.from_numpy(r.normal(size=(b, 1, 1, 1, si[-1])).astype(np.float32))
     x, y = x.to(dtype), y.to(dtype)
-    rows = mesh.local_batch_slice(b) if mesh_ctx.distributed else slice(None)
+    rows = mesh.local_batch_slice(b, mesh_ctx) if mesh_ctx.distributed else slice(None)
     loss = step(x[rows], y[rows])
     return dict(loss=float(loss),
                 grads={n: _real(p.grad).clone() for n, p in model.named_parameters()
@@ -99,24 +99,21 @@ def _join(rank: int, world: int, store: str) -> None:
 
 def step_main(rank: int, world: int, store: str, out: str) -> None:
     """Every step case under dp=world; rank 0 saves the results, the
-    collectives counted, an all-gather of the ranks' ids and the error that
-    a model axis raises."""
+    collectives counted by group, an all-gather of the ranks' ids and its
+    place on a model axis of the same ranks."""
     _join(rank, world, store)
     try:
         ctx = mesh.make_mesh_context(f"dp={world}")
         mesh.reset_collectives()
         results = {name: run_step_case(name, ctx) for name in STEP_CASES}
-        collectives = dict(mesh.COLLECTIVES)
-        gathered = mesh.allgather_to_host(torch.full((2, 3), float(rank)))
-        try:
-            mesh.make_mesh_context(f"dp=1,mp={world}")
-            mp_error = None
-        except NotImplementedError as e:
-            mp_error = str(e)
+        collectives = {k: dict(v) for k, v in mesh.COLLECTIVES.items()}
+        gathered = mesh.allgather_to_host(torch.full((2, 3), float(rank)), ctx)
+        mp = mesh.make_mesh_context(f"dp=1,mp={world}")
         if rank == 0:
             torch.save(dict(results=results, collectives=collectives, gathered=gathered,
-                            mp_error=mp_error, ctx=(ctx.dp_size, ctx.mp_size,
-                                                    ctx.distributed)), out)
+                            mp_ctx=(mp.dp_size, mp.mp_size, mp.dp_index, mp.mp_index,
+                                    mp.distributed),
+                            ctx=(ctx.dp_size, ctx.mp_size, ctx.distributed)), out)
     finally:
         dist.destroy_process_group()
 

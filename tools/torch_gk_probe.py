@@ -105,7 +105,7 @@ def main() -> None:
 
         def fn():
             err = lib.gk_scores(ptr(k), ptr(v), *map(ptr, aff), ptr(partial), ptr(out), B, N,
-                                HEADS, D, EPS, 1, code, stream)
+                                N, HEADS, D, EPS, 1, code, stream)
             if err:
                 raise SystemExit(f"torch_gk_probe: launch failed ({err})")
             return out
