@@ -140,6 +140,33 @@ JSON line each; any failure raises (non-zero exit, no result line):
                profile; and the generator's prediction over one 40-frame
                trajectory (tools/generate_surrogate_data, windows of 20)
                within 1e-4 of the plain f32 path; exact launch counts.
+  7g. scenarios every shipped scenario config beyond those the phases here
+               hold (ROADMAP C2): the 62 configs reduce to 47 (window,
+               model) pairs once their training, evaluation and data fields
+               are left out (scenario_covers); the phases here hold 13 at
+               the cylinder's window (and fsi's and combustion's FNO), this
+               phase the other 34 (SCENARIO_PAIRS: controlled_cylinder's
+               FNO, the UNet, GK and WDNO of the other scenarios, the
+               kernel-free families' and DMD's), each at full width at its
+               scenario's window (controlled_cylinder 10x64x128, 5 channels
+               in and 3 out; fsi 20x64x64; combustion 20x64x64x16; foil
+               20x64x128) in its shipped f32, weights from seeded
+               generators, batch 2, on one model a pair: its
+               prediction through make_rollout_fn at the config's
+               N_autoregressive (the parameter planes re-injected, para_c
+               2) and one training step through make_train_step with the
+               config's optimizer, schedule and clipping; the FNO, UNet, GK
+               and WDNO against their plain f32 path (WDNO: one DDIM sample
+               at the config's length against the plain sample on the same
+               draws, SCENARIO_WDNO_SAMPLE), the kernel-free families
+               against a float64 copy (CNO, MWT and DeepONet on the same
+               ReLU sides and max-pool picks, Kinks), DMD's host forecast
+               against the CPU's; exact launch counts, every launch in its
+               f32 variant. Then one untimed step at the shipped batch of
+               each pair that peaked at 60 GB or more there
+               (SCENARIO_SHIPPED_STEP, tools/torch_scenario_sweep.py). One
+               line a pair with the configs it covers; a last line lists
+               the pairs the phases here hold.
   7b. fsi_train the fsi FNO (configs/fsi/fno.yaml: width 128, modes 4/16/16,
                batch 32, Gaussian normalizer) trained in float32 (the
                config's dtype; every FNO kernel but the T-stage tf32 at
@@ -292,28 +319,28 @@ JSON line each; any failure raises (non-zero exit, no result line):
                f32 against float64 on the same sides, every count 0.
  14. loop      python -m realpdebench_tpu_torch train, in this process
                (train.__main__.main, which the CLI's train subcommand
-               runs), on a synthetic cylinder tree (data/synthetic: 16 real
+               runs), on a synthetic cylinder tree (data/synthetic: 10 real
                trajectories at 64x128, 4 numerical at 128x256, 300 frames;
                an HDF5 tree where h5py imports, else the same arrays in
                memory through data.fluid.with_arrays): configs/cylinder/
-               fno.yaml in bf16 on numerical data, 12 steps at batch 32
-               with validation every step (num_update // 50 is 0 below 100
-               steps; 54 real windows at test batch 64) and a checkpoint
-               at each, the split keys and the
+               fno.yaml in its shipped f32 on numerical data, 2 steps at
+               batch 32 (LOOP_STEPS; 12 before the scenarios phase took
+               their time, iterations 10-12 then traced for the device's
+               idle share and StepTimer's window) with validation every step (num_update // 50 is 0
+               below 100 steps; 33 real windows at test batch 64) and a
+               checkpoint at each, the split keys and the
                other cuts as overrides listed under "reduced" beside the
-               shipped values. Exact launch counts (12 steps and 12
-               validation forwards, every kernel in its mma variant, the
-               T-stage registers); loop and StepTimer steps/s beside the
-               bare step's; the device's idle share over the traced
-               iterations 10-12 and where the host's gaps fall (waiting
-               for a batch, validation, checkpoint); the checkpoint
-               reloaded in a fresh model predicts bit for bit; the 13
+               shipped values. Exact launch counts (2 steps and 2
+               validation forwards, every kernel in its tf32 variant, the
+               T-stage registers); loop steps/s beside the bare step's;
+               the checkpoint reloaded in a fresh model predicts bit for
+               bit (cuDNN's deterministic algorithms for both); the 13
                metrics on the card within 1e-4 of the CPU's on the same
-               arrays; then a resume to 13 steps (RESUME_STEPS; starts at
-               12, the optimizer's count goes on to 13) and a 2-step finetune on
+               arrays; then a resume to 3 steps (RESUME_STEPS; starts at
+               2, the optimizer's count goes on to 3) and a 2-step finetune on
                real data from the checkpoint, each with exact counts.
  15. eval      python -m realpdebench_tpu_torch eval (eval.__main__.main)
-               on that checkpoint, bf16, test batch 64, 10 autoregressive
+               on that checkpoint, f32, test batch 64, 10 autoregressive
                steps over the 14 real test windows, probe diagnostic on:
                the 13 metrics, normalized MSE, probe error, frames/s
                including reading, exact launch counts (K1, T-stage, K2);
@@ -324,19 +351,26 @@ JSON line each; any failure raises (non-zero exit, no result line):
                as its residual share 1 - r2, here and against the CPU).
  16. unet_loop, unet_eval  phases 14 and 15 for configs/cylinder/unet.yaml
                (dim 64, dim_mults 1/2/4, batch 12 and test batch 12 as
-               shipped, N_autoregressive 5) in bf16 on the same tree: 1
+               shipped, N_autoregressive 5) in f32 on the same tree: 1
                step (validation and a checkpoint every step, as
                num_update // 50 is 0 below 100 steps; no traced
                iteration, for the run's time limit), a resume to 2, no
                finetune; exact TA forward and backward counts,
-               all mma; reload bit-equal; the card's
+               all tf32; reload bit-equal; the card's
                metrics within 1e-4 of the CPU's; loop steps/s beside the
                bare step's (phase 10), peak memory. Eval over
                the test split's unseen trajectories (test_mode unseen: 8
                windows, 1 batch), against the plain f32 path as in 15.
+               controlled_unet_loop, controlled_unet_eval: the same for
+               configs/controlled_cylinder/unet.yaml on a
+               controlled_cylinder tree of the same sizes (T 10 windows
+               of u, v, p and the two parameter planes: TA at T 10, the
+               eval's rollout re-injecting the planes, para_c 2),
+               N_autoregressive 1 as shipped.
  17. gk_loop, gk_eval  the same for configs/cylinder/galerkin_transformer.yaml
                (width 256, 4 heads, batch 16, N_autoregressive 1, dropout
-               from the run's seeded generator): exact scores counts, mma;
+               from the run's seeded generator) in f32: exact scores
+               counts, mma (the scores' f32 route);
                eval over 14 unseen windows (1 batch).
  17a. deeponet_loop, deeponet_eval, transolver_loop, transolver_eval,
       cno_loop, cno_eval, mwt_loop, mwt_eval  the
@@ -346,12 +380,12 @@ JSON line each; any failure raises (non-zero exit, no result line):
                16, N_autoregressive 10, 3, 3 and 3): every kernel count 0;
                eval against the same checkpoint's f32 rollout. CNO's
                and Transolver's loops run 1 step (CNO_LOOP_STEPS: a CNO
-               validation of the 54 windows is ≈ 140 TFLOP in full f32)
+               validation of the 33 windows is ≈ 86 TFLOP in full f32)
                and are not resumed, DeepONet's and MWT's 1 and a resume to
                2: no traced iteration, no StepTimer window.
  17b'. wdno_loop, wdno_eval, dmd_eval  configs/cylinder/wdno.yaml in its
                shipped f32 through train on the same tree: 1 step with its
-               one validation sweep (54 windows, each a 5-step DDIM
+               one validation sweep (33 windows, each a 5-step DDIM
                sample [10]) at test batch 14, the rescaler computed on the card
                from the numerical train split and its cache read back, the
                checkpoint reloaded sampling bit for bit from reseeded
@@ -377,16 +411,19 @@ switches (cudnn's on) and must leave them full f32 (C1).
                the surrogate FNO's shipped config on an Arrow surrogate
                tree (3 synthetic pairs of 40 frames at 128x128, written by
                tools/convert_hdf5_to_hf.write_surrogate_train: no h5py
-               here), 50 iterations: one evaluation, one checkpoint, exact
-               counts (tf32), loop steps/s.
+               here), 50 iterations at batch 4 [16] (SURROGATE_LOOP_BATCH):
+               one evaluation, one checkpoint, exact counts (tf32), loop
+               steps/s.
  18. arrow     whether this host imports datasets and pyarrow; where it
                does, the tree written as an Arrow V2 tree through the
                converter's writer (tools/convert_hdf5_to_hf.write_dataset_v2
                from the arrays in memory, or convert_dataset_v2 from the
                HDF5 files), 8 windows of each split and type held bit for
                bit against the HDF5 class's (mask_prob 0, noise 0), the
-               seconds a window in both backends, and the bf16 FNO
-               loop for 4 steps with --use_hf_dataset true (exact counts).
+               seconds a window in both backends, and the FNO loop in
+               bf16 (--compute_dtype bfloat16: the CLI's low-precision
+               route) for 2 steps with --use_hf_dataset true (exact
+               counts, mma).
                Where it does not, one line says so.
  19. sim_step  the simulation generators (realpdebench_tpu_torch/sim:
                plain PyTorch on cuFFT, every inverse FFT through
@@ -419,10 +456,12 @@ switches (cudnn's on) and must leave them full f32 (C1).
                JAX env's info keys; ms a step.
 Each loop phase lists its cuts under "reduced" beside the shipped values:
 the tree, n_sim_frame, the split sizes, generated id files, num_update,
-max_to_keep, compute_dtype (the dtype the path ran: bfloat16, or null for
-f32 as shipped), the eval's test_mode, and N_plot and
+max_to_keep, compute_dtype (the dtype the path ran: null, f32 as shipped,
+in every loop but the Arrow one), the eval's test_mode, and N_plot and
 N_plot_probe, which are 0 where matplotlib is missing.
 `python3 chip_smoke.py --only-loop` runs env, build and phases 14-18 alone
+and prints neither the summary nor the result line.
+`python3 chip_smoke.py --only-scenarios` runs env, build and phase 7g alone
 and prints neither the summary nor the result line.
 `python3 chip_smoke.py --only-sim` runs env and phases 19-22 alone (no
 build, no summary, no result line).
@@ -445,6 +484,7 @@ The port imports neither JAX nor the JAX package; neither does this script.
 """
 
 import contextlib
+import copy
 import json
 import os
 import statistics
@@ -665,7 +705,7 @@ FAMILY_SHAPE = (20, 64, 128, 3)
 FAMILY_CMP_BATCH, FAMILY_CHUNK = 2, 8
 FAMILY_DROPOUT_SEED = 12
 FAMILY_WINDOWS = (1, 1)          # (windows, steps a window)
-FAMILY_ROLLOUTS = 1  # rollouts timed (the whole run's time limit)
+
 FAMILY_F32_ROLLOUT = (1e-4, 1e-4)
 FAMILY_BF16_LOSS_REL, FAMILY_BF16_GRAD_REL_L2 = TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2
 # DeepONet's branch in bf16 (fixed before the first chip run): a bf16
@@ -709,14 +749,11 @@ FAMILY_BF16_ZERO_GRAD = {"cno": 1e-1}
 # ≈ 2.6 TFLOP a 20x64x128 window in full f32 (C1): its float64 references
 # and its repetitions are cut to the run's time limit (FAMILY_CUTS, each
 # cut listed in the phase's reduced; shapes and batches as shipped): one
-# timed step and no further warm-up (the counted step and the comparisons
-# warm it), the bit-equal repeat at the comparison batch (the pass that
+# timed step, the bit-equal repeat at the comparison batch (the pass that
 # records the activation sides against the plain one, under
-# cudnn.deterministic) instead of the step's, the rollout timed by its
-# counted run alone, the rollout's references (float64 for f32, f32 for
-# bf16) on its first ref_windows windows.
-FAMILY_CUTS = {"cno": dict(windows=(1, 1), warmup=0, repeat_batch=False, rollouts=0,
-                           ref_windows=4)}
+# cudnn.deterministic) instead of the step's, the rollout's references
+# (float64 for f32, f32 for bf16) on its first ref_windows windows.
+FAMILY_CUTS = {"cno": dict(windows=(1, 1), repeat_batch=False, ref_windows=4)}
 # CNO's filtered activation on the card (the lrelu mode; no shipped config
 # runs it): a narrow CNO (3 levels, channel_multiplier 8, 2 neck blocks,
 # latent 16) on the cylinder window at batch 2, one forward-backward in f32
@@ -731,6 +768,8 @@ CNO_LRELU_BATCH = 2
 # 8.2e-2 (CNO) and 4.8e-2 (MWT), CNO's with one BatchNorm left out 1.27
 # (--limit-controls)
 FAMILY_FREE_KINKS = 2e-2
+# the cylinder phases' families held on the same activation sides (Kinks)
+FAMILY_KINKS = ("cno", "mwt")
 # DPOT-S and DPOT-L (configs/cylinder/dpot_{s,l}.yaml as shipped: embed 1024
 # and 1536, depth 6 and 24, f32) on the same windows, resized to their
 # 128x128 and back, in f32 only (their shipped dtype), held against a
@@ -755,12 +794,15 @@ DPOT_FINETUNE_STEPS = 2
 # the generator's prediction over one SURROGATE_FRAMES-frame trajectory in
 # windows of 20 frames; the train-surrogate CLI on an Arrow tree of
 # SURROGATE_SIMS synthetic pairs for SURROGATE_LOOP_STEPS iterations (one
-# evaluation, one checkpoint)
+# evaluation, one checkpoint) at SURROGATE_LOOP_BATCH [16]: the loop reads
+# its 21 MB windows from the Arrow rows on the host, a batch of 16 a step
+# (the whole run's time limit)
 SURROGATE_IN, SURROGATE_OUT = (*SURROGATE_WINDOW, 17), (*SURROGATE_WINDOW, 1)
 SURROGATE_FRAMES = 40
 SURROGATE_UNET_CMP_BATCH = 1
 SURROGATE_FNO_WINDOWS, SURROGATE_UNET_WINDOWS = (1, 5), (1, 1)
-SURROGATE_SIMS, SURROGATE_LOOP_STEPS = 3, 50
+SURROGATE_SIMS, SURROGATE_LOOP_STEPS, SURROGATE_LOOP_BATCH = 3, 50, 4
+SURROGATE_ROLLOUTS = 1       # the generator's prediction timed
 # the TA sites of the surrogate UNet's levels (dim_mults 1/2 on 128x128
 # frames): level 0 (init, down 0, up 1), level 1 (down 1, up 0) and the mid
 # block, at its batch 2
@@ -2648,15 +2690,20 @@ def _family(dev, family: str, compute_dtype=None, state=None):
     return model
 
 
-def _family_pass(model, xn, yn) -> tuple:
+def _family_pass(model, xn, yn, reference: bool = False, **kw) -> tuple:
     """One forward-backward in train mode from zeroed gradients, the dropout
-    stream restarted: (loss, gradients, running statistics)."""
+    stream restarted: (loss, gradients, running statistics). ``reference``:
+    through the model's plain path (the kernel families'); ``kw``: WDNO's
+    injected ``t`` and ``noise``."""
     model.train()
     model.zero_grad(set_to_none=True)
     model.reseed_dropout(FAMILY_DROPOUT_SEED)
-    if model.compute_dtype == torch.float64:
+    if getattr(model, "compute_dtype", None) == torch.float64:
         xn, yn = xn.double(), yn.double()
-    loss = model.loss(xn, yn)
+    if kw:
+        loss = model.loss(xn, yn, reference=reference, **kw)
+    else:
+        loss = model(xn, y=yn, reference=True) if reference else model.loss(xn, yn)
     loss.backward()
     stats = {n: b.detach().clone() for n, b in model.named_buffers() if "running" in n}
     return loss.detach(), _grads(model), stats
@@ -2677,31 +2724,50 @@ class Kinks:
     condition, in call order (the forward's, then the checkpoints'
     recomputes); inside ``replay()`` a later pass (the float64 copy's)
     takes the same sides, so that both compute the same piecewise-linear
-    function. ``PATCHES``: the module, its attribute that the activation is
-    looked up on, and the activation's name there."""
+    function. DeepONet's max pools (its branch, after its ReLUs) are held
+    alike: a near tie within rounding picks another element in float32
+    than in float64 and routes the gradient there; the recording pass
+    keeps the indices max_pool3d picks (the pool itself runs as it would),
+    the replay pools by gathering the recorded ones. ``PATCHES``:
+    the module, its attribute that the activations are looked up on, and
+    their names there."""
 
-    PATCHES = {"cno": ("models.cno", "F", "leaky_relu"), "mwt": ("models.mwt", "F", "relu"),
-               "cno_lrelu": ("ops.filtered_lrelu", "torch", "where")}
+    PATCHES = {"cno": ("models.cno", "F", ("leaky_relu",)),
+               "mwt": ("models.mwt", "F", ("relu",)),
+               "cno_lrelu": ("ops.filtered_lrelu", "torch", ("where",)),
+               "deeponet": ("models.deeponet", "F", ("relu", "max_pool3d"))}
 
     def __init__(self, key: str):
         import importlib
 
-        module, self.attr, self.name = self.PATCHES[key]
+        module, self.attr, self.names = self.PATCHES[key]
+        self.name = "/".join(self.names)
         self.module = importlib.import_module(f"realpdebench_tpu_torch.{module}")
         self.sides, self.used = [], 0
 
     @contextlib.contextmanager
     def _patched(self, side):
-        owner, name = getattr(self.module, self.attr), self.name
-        if name == "where":
-            act = lambda cond, x, other: torch.where(side(cond), x, other)
-        else:
-            act = lambda x, negative_slope=0.0: torch.where(side(x > 0), x,
-                                                           x * negative_slope)
+        owner = getattr(self.module, self.attr)
+
+        def pool(x, kernel_size, stride=None, *args, **kw):
+            with torch.no_grad():
+                picked = owner.max_pool3d(x, kernel_size, stride, *args,
+                                          return_indices=True, **kw)[1]
+            idx = side(picked)
+            if idx is picked:           # recording: the pool as it runs
+                return owner.max_pool3d(x, kernel_size, stride, *args, **kw)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+        acts = dict(where=lambda cond, x, other: torch.where(side(cond), x, other),
+                    max_pool3d=pool,
+                    relu=lambda x, negative_slope=0.0: torch.where(side(x > 0), x,
+                                                                   x * negative_slope))
+        acts["leaky_relu"] = acts["relu"]
+        acts = {k: acts[k] for k in self.names}
 
         class Shim:
             def __getattr__(self, key):
-                return act if key == name else getattr(owner, key)
+                return acts[key] if key in acts else getattr(owner, key)
 
         with mock.patch.object(self.module, self.attr, Shim()):
             yield
@@ -2723,12 +2789,14 @@ class Kinks:
             raise AssertionError(f"replayed {self.used} of {len(self.sides)} {self.name}s")
 
 
-def _f32_vs_f64(path: str, family: str, kinks_key: str, model, ref_model, xn, yn) -> dict:
+def _f32_vs_f64(path: str, family: str, kinks_key: str, model, ref_model, xn, yn,
+                free: bool = True, **kw) -> dict:
     """One f32 forward-backward of ``model`` against its float64 copy
     ``ref_model`` (same weights) within F32_LIMITS, on the same activation
     sides (``Kinks``): the pass that records them is the plain f32 pass bit
     for bit (cuDNN held to deterministic algorithms for the two); beside it
-    the float64 copy with its own sides within FAMILY_FREE_KINKS."""
+    (``free``) the float64 copy with its own sides within FAMILY_FREE_KINKS.
+    ``kw`` goes to _family_vs."""
     kinks = Kinks(kinks_key)
     state = {k: t.clone() for k, t in model.state_dict().items()}
 
@@ -2747,12 +2815,12 @@ def _f32_vs_f64(path: str, family: str, kinks_key: str, model, ref_model, xn, yn
             and all(torch.equal(plain[1][k], got[1][k]) for k in got[1])):
         raise AssertionError(f"{path}: the recording pass is not the f32 pass")
     del plain
-    free = run(ref_model)
     with kinks.replay():
         ref = run(ref_model)
-    cmp = _family_vs(path, family, got, ref, F32_LIMITS)
-    cmp["free_kinks"] = _family_vs(path, family, got, free,
-                                   (F32_LIMITS[0], FAMILY_FREE_KINKS, F32_LIMITS[2]))
+    cmp = _family_vs(path, family, got, ref, F32_LIMITS, **kw)
+    if free:
+        cmp["free_kinks"] = _family_vs(path, family, got, run(ref_model),
+                                       (F32_LIMITS[0], FAMILY_FREE_KINKS, F32_LIMITS[2]))
     cmp["kinks_replayed"] = len(kinks.sides)
     cmp["recording_pass_bit_equal"] = True      # (raised above otherwise)
     return cmp
@@ -2760,7 +2828,12 @@ def _f32_vs_f64(path: str, family: str, kinks_key: str, model, ref_model, xn, yn
 
 def _zero_grad(family: str, name: str) -> bool:
     """The conv biases a BatchNorm follows, which it cancels (true gradient
-    0): DeepONet's branch, every CNO block's but lift's and project's."""
+    0): DeepONet's branch, every CNO block's but lift's and project's, the
+    FNO's pointwise convs, the GK regressor's convs."""
+    if family == "fno":
+        return name.startswith("convs.") and name.endswith(".bias")
+    if family == "galerkin_transformer":
+        return name.startswith("regressor.convs.") and name.endswith(".bias")
     if family == "deeponet":
         return name.startswith("branch.conv") and name.endswith(".0.bias")
     if family == "cno":
@@ -2770,30 +2843,36 @@ def _zero_grad(family: str, name: str) -> bool:
 
 
 def _family_vs(path, family, got, ref, limits, prefix_limits=None,
-               zero_limit=TRAIN_ZERO_GRAD) -> dict:
+               zero_limit=TRAIN_ZERO_GRAD, grad_floor: float = 0.0) -> dict:
     """A family step's (loss, gradients, statistics) against the reference's
     within ``limits`` (loss relative, gradients and statistics relative L2;
     ``prefix_limits``: parameter-name prefix → its gradients' own limit);
     the conv biases a BatchNorm cancels (``_zero_grad``) held to
-    ``zero_limit`` of their conv weight's largest gradient."""
+    ``zero_limit`` of their conv weight's largest gradient. ``grad_floor``:
+    each gradient's error relative to its norm floored at that share of the
+    model's largest gradient norm (SCENARIO_GRAD_FLOOR)."""
     (loss, grads, stats), (ref_loss, ref_grads, ref_stats) = got, ref
     lim_loss, lim_grad, lim_stats = limits
     prefix_limits = prefix_limits or {}
     grad_limit = lambda name: next((v for k, v in prefix_limits.items()
                                     if name.startswith(k)), lim_grad)
     loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    norm = lambda t: (torch.view_as_real(t) if t.is_complex() else t).double().norm().item()
+    floor = grad_floor * max(norm(g) for n, g in ref_grads.items() if not _zero_grad(family, n))
     rel, zero = {}, {}
     for name, gr in ref_grads.items():
         if _zero_grad(family, name):
             scale = ref_grads[name[:-4] + "weight"].abs().max().item()
             zero[name] = max(grads[name].abs().max().item(), gr.abs().max().item()) / scale
             continue
-        rel[name] = _rel_l2(grads[name], gr)
+        rel[name] = (_rel_l2(grads[name], gr) if not floor else
+                     _rel_l2(grads[name], gr) * norm(gr) / max(norm(gr), floor))
     srel = {n: _rel_l2(stats[n], r) for n, r in ref_stats.items()}
     cmp = dict(loss=loss.item(), ref_loss=ref_loss.item(), loss_rel=loss_rel,
                limit_loss_rel=lim_loss, worst_grad_rel_l2=max(rel.values()),
                limit_grad_rel_l2=lim_grad, limit_grad_rel_l2_by_prefix=prefix_limits,
                grad_rel_l2=rel, zero_grads=zero, limit_zero_grad=zero_limit,
+               grad_floor=grad_floor,
                stats_rel_l2=srel, limit_stats_rel_l2=lim_stats)
     bad = [] if loss_rel <= lim_loss else ["loss"]
     bad += [k for k, r in rel.items() if not r <= grad_limit(k)]
@@ -2853,7 +2932,7 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
     # a float64 copy, bf16 against f32
     n = FAMILY_CMP_BATCH
     xn, yn = norm.preprocess(x[:n], y[:n])
-    if compute_dtype is None and family in Kinks.PATCHES:
+    if compute_dtype is None and family in FAMILY_KINKS:
         cmp = _f32_vs_f64(path, family, family, _family(dev, family, None, init),
                           _family(dev, family, "float64", init), xn, yn)
     elif compute_dtype is None:
@@ -2880,7 +2959,7 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
         same = cmp.get("recording_pass_bit_equal")
         if same is not True:
             raise AssertionError(f"{path}: repeat_batch=False, but no recording pass was "
-                                 "held bit for bit (a family without Kinks.PATCHES)")
+                                 "held bit for bit (a family outside FAMILY_KINKS)")
         reduced["bitwise_repeat"] = dict(here=f"batch {n} (the recording pass)",
                                          other_families=f"batch {batch}")
     elif compute_dtype is None:
@@ -2897,10 +2976,9 @@ def phase_family_train(dev, norm, family: str, compute_dtype=None) -> dict:
         del rep
         _free()
 
-    for _ in range(cuts.get("warmup", WARMUP)):
-        step(x, y)
-    if "warmup" in cuts:
-        reduced["warmup_steps"] = dict(here=cuts["warmup"], other_families=WARMUP)
+    # no warm-up step before the timed window (the whole run's time limit):
+    # the counted step and the comparisons warm the path
+    reduced["warmup_steps"] = dict(here=0, uncut=WARMUP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rates, losses = zip(*(_steps_per_s(step, x, y, window_steps) for _ in range(windows)))
@@ -2981,26 +3059,17 @@ def phase_family_rollout(dev, norm, family: str, compute_dtype=None) -> dict:
     del ref_model, ref, pred
     _free()
 
-    torch.cuda.reset_peak_memory_stats()
-    secs = []
-    for _ in range(cuts.get("rollouts", FAMILY_ROLLOUTS)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rollout(x_raw, y_raw)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    med = statistics.median(secs or [first_s])      # no timed rollout: the counted one
+    # frames/s from the counted rollout, not from a timed one after it (the
+    # whole run's time limit)
     reduced = {} if compute_dtype is None else dict(
         compute_dtype=dict(here=compute_dtype, shipped=None))
     if n_ref < batch:
         reduced["reference_windows"] = dict(here=n_ref, other_families=batch)
-    if "rollouts" in cuts:
-        reduced["timed_rollouts"] = dict(here=cuts["rollouts"], other_families=FAMILY_ROLLOUTS)
+    reduced["timed_rollouts"] = dict(here=0, uncut=1)
     emit(dict(phase=path, config=f"cylinder/{family}.yaml", batch=batch, steps=n_steps,
               shape=list(want), launches=launches, vs_reference=row,
-              first_rollout_s=first_s, rollout_s=secs, frames_per_s=batch * want[1] / med,
-              peak_mem_gb=max(first_peak, torch.cuda.max_memory_allocated() / 1e9),
-              reduced=reduced))
+              first_rollout_s=first_s, frames_per_s=batch * want[1] / first_s,
+              peak_mem_gb=first_peak, reduced=reduced))
     del model, rollout
     _free()
     return launches
@@ -3550,6 +3619,425 @@ def phase_combustion_fno_rollout(dev) -> dict:
     return launches
 
 
+# every shipped scenario config (ROADMAP C2): the 62 configs come to 47
+# (window, model) pairs once the fields of training, evaluation and data
+# are left out (SCENARIO_RUN_KEYS; trainsolver is transolver). The phases
+# above hold 13 of them at the cylinder's window (SCENARIO_HELD); the
+# scenarios phase runs the other 34 (SCENARIO_PAIRS, kernel-carrying pairs
+# first) at full width, at their scenario's window (the windows of
+# tests/test_torch_config_kernels.py) in the shipped f32, weights from the
+# generators seeded with SCENARIO_SEED, at SCENARIO_BATCH: one training step through
+# make_train_step with the config's optimizer, schedule and clipping, and
+# one prediction through make_rollout_fn at the config's N_autoregressive
+# (controlled_cylinder re-injects its two parameter planes, para_c 2).
+# Bars (the cylinder phases'; C6-C8 repaired after the first card runs):
+# the kernel families' step and prediction against their plain f32 path on
+# the same weights (F32_LIMITS, FAMILY_F32_ROLLOUT); the kernel-free
+# families' against a float64 copy (CNO, MWT and DeepONet on the same
+# activation sides, Kinks; SCENARIO_GRAD_FLOOR); WDNO's DDIM sample
+# against the plain sample on the same draws (SCENARIO_WDNO_SAMPLE); DMD's
+# host forecast on the card against the CPU's (SCENARIO_DMD_TOL). Exact
+# launch counts, every kernel launch in its f32 variant (tf32; the scores
+# mma; the T-stage registers). The pairs of SCENARIO_SHIPPED_STEP, whose
+# step at the shipped batch peaked at 60 GB or more in
+# tools/torch_scenario_sweep.py, also take one untimed step at that batch.
+SCENARIO_WINDOWS = {
+    "combustion": ((20, 64, 64, 16), (20, 64, 64, 16)),
+    "controlled_cylinder": ((10, 64, 128, 5), (10, 64, 128, 3)),
+    "cylinder": ((20, 64, 128, 3), (20, 64, 128, 3)),
+    "foil": ((20, 64, 128, 3), (20, 64, 128, 3)),
+    "fsi": ((20, 64, 64, 3), (20, 64, 64, 3)),
+}
+SCENARIO_BATCH = 2
+SCENARIO_SEED = 24
+SCENARIO_RUN_KEYS = frozenset((
+    "exp_name", "seed", "results_path", "dataset_name", "dataset_root", "num_workers",
+    "normalizer", "mask_prob", "noise_scale", "scheduler", "step_size", "num_update",
+    "train_batch_size", "test_batch_size", "lr", "clip_grad_norm", "is_use_tb",
+    "N_autoregressive", "N_plot", "N_plot_probe", "probe_diagnostic", "mesh_shape",
+    "compute_dtype", "checkpoint_path", "test_interval"))
+_SCENARIO_FAMILIES = ("deeponet", "transolver", "dpot_s", "dpot_l", "cno", "mwt")
+SCENARIO_PAIRS = (
+    ("controlled_cylinder", "fno"),
+    *(((s, "unet") for s in ("controlled_cylinder", "fsi", "combustion"))),
+    *(((s, "galerkin_transformer") for s in ("controlled_cylinder", "fsi", "combustion",
+                                               "foil"))),
+    *(((s, "wdno") for s in ("controlled_cylinder", "fsi", "combustion", "foil"))),
+    *((s, f) for s in ("controlled_cylinder", "fsi", "combustion") for f in _SCENARIO_FAMILIES),
+    ("foil", "deeponet"),
+    *(((s, "dmd") for s in ("controlled_cylinder", "fsi", "combustion"))),
+)
+SCENARIO_HELD = {
+    "cylinder/fno.yaml": "slice, slice_f32, train, train_f32, mesh_dp1, loop, eval",
+    "cylinder/unet.yaml": "unet_rollout[_f32], unet_train[_f32], unet_loop, unet_eval",
+    "cylinder/galerkin_transformer.yaml": "gk_rollout[_f32], gk_train[_f32], gk_loop, gk_eval",
+    "cylinder/wdno.yaml": "wdno_train[_f32], wdno_sample[_f32], wdno_loop, wdno_eval",
+    "cylinder/dmd.yaml": "dmd_eval",
+    "fsi/fno.yaml": "fsi_train; geometry (fsi)",
+    "combustion/fno.yaml": "combustion_fno_train_f32, combustion_fno_rollout_f32, "
+                           "combustion_tail",
+    **{f"cylinder/{f}.yaml": f"{f}_train[_f32], {f}_rollout[_f32]"
+       + (f", {f}_loop, {f}_eval" if f in FAMILIES else "")
+       for f in (*FAMILIES, *DPOT_FAMILIES)},
+}
+KERNEL_FAMILIES = ("fno", "unet", "galerkin_transformer", "wdno")
+# the kernel-free families held to their float64 copy on the same
+# activation sides (Kinks): ReLU and LeakyReLU kinks, DeepONet's max pools
+SCENARIO_KINKS = ("cno", "mwt", "deeponet")
+# WDNO's samples at each config's DDIM length against the plain f32
+# sample on the same draws: relative L2 and max|d|/max|ref| (C7). First
+# WDNO_F32_SAMPLE, from float64 replays on the CPU at 16-wide windows
+# (tools/torch_wdno_precision.py --config: an f32 sample 7.6e-6-2.2e-5 and
+# 2.6e-5-1.1e-4 from float64); the first card run read 8.4e-4 (max) at
+# combustion's window. At the full windows on the card (the same tool,
+# --device cuda, two draws each) an f32 sample, the kernels' or the plain
+# path's, sits 7.8e-6-3.5e-5 (relative L2) and 7.7e-5-1.9e-3 (max) from
+# float64, the largest at combustion's 256 channels; the two f32 paths
+# 5.1e-6-1.4e-5 and 4.5e-5-4.3e-4 apart. Two f32 paths may sit twice as far
+# apart as either from float64: 1e-4 and 4e-3
+SCENARIO_WDNO_SAMPLE = (1e-4, 4e-3)
+SCENARIO_DMD_TOL = 1e-4         # the host forecast, card against CPU (relative L2, max)
+# the kernel-free families' gradients against float64: each gradient's error
+# relative to its norm, the norm floored at this share of the model's
+# largest gradient norm (C8, set after the first card runs). Transolver's
+# slice-attention gradients (to_q, to_k, in_project_x, in_project_slice,
+# temperature) are sums that cancel to 1.5e-7-6.9e-4 of the model's largest
+# gradient norm; f32's rounding of their larger terms put them 1.2e-4-9.0e-4
+# relative L2 from float64 at controlled_cylinder's and combustion's windows
+# (5.5e-5 at fsi's), every error at most 8.4e-8 of the largest norm, a
+# twelfth of what this floor lets pass (1e-4 x 1e-2 = 1e-6); a gradient of
+# 1e-4 of the largest norm 2% wrong still misses it.
+SCENARIO_GRAD_FLOOR = 1e-2
+# (scenario, config) pairs whose step at the shipped batch peaked at 60 GB
+# or more (tools/torch_scenario_sweep.py: both Transolvers at batch 32,
+# 72.8 GB, the 2.6M tokens of the cylinder's batch 16): one untimed step at
+# that batch
+SCENARIO_SHIPPED_STEP = (("controlled_cylinder", "transolver"), ("fsi", "transolver"))
+
+
+def _scenario(scenario: str, name: str) -> dict:
+    """The pair's shipped config (the port's copy)."""
+    from realpdebench_tpu_torch.config import load_config
+
+    return load_config(f"{scenario}/{name}.yaml").to_dict()
+
+
+def scenario_covers() -> dict:
+    """Every shipped scenario config by the (window, model) pair it reduces
+    to: the pair's first config ("scenario/name.yaml", the order of
+    SCENARIO_PAIRS and SCENARIO_HELD) → the configs it covers."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "realpdebench_tpu_torch" / "configs"
+    groups = {}
+    for path in sorted(root.glob("*/*.yaml")):
+        scenario, name = path.parent.name, path.stem
+        cfg = _scenario(scenario, name)
+        model = {k: v for k, v in cfg.items() if k not in SCENARIO_RUN_KEYS
+                 and k not in ("config", "device")}
+        model["model_name"] = {"trainsolver": "transolver"}.get(model["model_name"],
+                                                               model["model_name"])
+        key = json.dumps([SCENARIO_WINDOWS[scenario], model], sort_keys=True, default=str)
+        groups.setdefault(key, []).append(f"{scenario}/{name}.yaml")
+    heads = [f"{s}/{n}.yaml" for s, n in SCENARIO_PAIRS] + list(SCENARIO_HELD)
+    out = {next(h for h in heads if h in configs): configs for configs in groups.values()}
+    if sorted(out) != sorted(heads):
+        raise AssertionError(f"pairs {sorted(heads)}, configs grouped as {sorted(out)}")
+    return out
+
+
+def scenario_normalizer(cfg: dict, scenario: str):
+    """The config's normalizer (none: identity; gaussian: seeded statistics
+    for the window's input and target channels)."""
+    if cfg.get("normalizer", "gaussian") == "none":
+        return IdentityNormalizer()
+    r = np.random.default_rng(25)
+    ci, co = (w[-1] for w in SCENARIO_WINDOWS[scenario])
+    return build_normalizer("gaussian", stats=dict(
+        mean_inputs=r.normal(size=ci), std_inputs=r.uniform(0.5, 2.0, size=ci),
+        mean_targets=r.normal(size=co), std_targets=r.uniform(0.5, 2.0, size=co)))
+
+
+def _scenario_model(dev, scenario: str, cfg: dict):
+    """The pair's model at full width on ``dev`` in f32, its weights drawn
+    from the global generators seeded with SCENARIO_SEED: on ``dev`` for
+    DPOT, which builds there without a generator (from make_generator(0) it
+    draws on the host: 9 s for DPOT-L's 673M parameters, the whole run's
+    time limit), on the host for the other families."""
+    torch.manual_seed(SCENARIO_SEED)
+    return build_model(shapes=SCENARIO_WINDOWS[scenario], device=dev, generator=None,
+                       **dict(cfg, compute_dtype=None))
+
+
+def _scenario_want(cfg: dict, step: bool, n: int = 1) -> tuple:
+    """(launches, variants) of one training step (``step``) or of an
+    ``n``-step prediction of the config's model in f32."""
+    family = cfg["model_name"]
+    if family == "fno":
+        L = int(cfg["n_layers"])
+        want = dict(k1=L, t_stage=4 * L, k2=L, k2a_lite=L, k12b=L, k3f=1, k3b=1) if step \
+            else dict(k1=L * n, t_stage=2 * L * n, k2=L * n)
+        return want, _f32_fno_variants(want)
+    if family in ("unet", "wdno"):
+        per = 2 * len(cfg["dim_mults"]) + 2        # init, downs, mid, ups
+        if step:
+            return dict(ta_fwd=per, ta_bwd=per), dict(ta_fwd={"tf32": per},
+                                                      ta_bwd={"tf32": per})
+        per *= n * (int(cfg["sampling_timesteps"]) if family == "wdno" else 1)
+        return dict(ta_fwd=per), dict(ta_fwd={"tf32": per})
+    if family == "galerkin_transformer":
+        per = int(cfg["num_encoder_layers"]) * (1 if step else n)
+        return dict(gk_scores=per), dict(gk_scores={"mma": per})
+    return {}, {}
+
+
+def _scenario_inputs(dev, scenario: str, batch: int, n_out: int = 1) -> tuple:
+    """Seeded inputs [batch, *window_in] and targets of ``n_out`` windows."""
+    si, so = SCENARIO_WINDOWS[scenario]
+    g = torch.Generator(device=dev).manual_seed(SCENARIO_SEED)
+    x = torch.randn(batch, *si, generator=g, device=dev)
+    return x, torch.randn(batch, so[0] * n_out, *so[1:], generator=g, device=dev)
+
+
+def _f64_copy(model):
+    """A float64 copy of ``model`` as it stands (every layer's weights and
+    statistics in float64, everything computed in float64)."""
+    gen = getattr(model, "_dropout_generator", None)
+    model._dropout_generator = None         # a generator does not copy
+    try:
+        ref = copy.deepcopy(model)
+    finally:
+        model._dropout_generator = gen
+    ref.double()
+    ref.compute_dtype = torch.float64
+    return ref
+
+
+def _scenario_step_vs(path: str, cfg: dict, model, ref, xn, yn) -> dict:
+    """The step's loss, gradients and running statistics from the model's
+    weights against its reference at the same weights and draws: the plain
+    f32 path (kernel families) or the float64 copy ``ref`` (CNO, MWT and
+    DeepONet on the same activation sides, Kinks), within F32_LIMITS. The
+    model's state is left as it was."""
+    family = cfg["model_name"]
+    state = {k: t.clone() for k, t in model.state_dict().items()}
+    kw = {}
+    if family == "wdno":
+        g = torch.Generator(device=xn.device).manual_seed(SCENARIO_SEED + 1)
+        b = xn.shape[0]
+        kw = dict(t=torch.randint(0, model.num_timesteps, (b,), generator=g, device=xn.device),
+                  noise=torch.randn(b, *model.model_shape, model.channels, generator=g,
+                                    device=xn.device))
+
+    def run(m, reference=False):
+        m.load_state_dict(state, strict=True)
+        return _family_pass(m, xn, yn, reference, **kw)
+
+    if family in KERNEL_FAMILIES:
+        cmp = _family_vs(path, family, run(model), run(model, True), F32_LIMITS)
+        cmp["reference"] = "plain f32 path"
+    elif family in SCENARIO_KINKS:
+        cmp = _f32_vs_f64(path, family, family, model, ref, xn, yn, free=False,
+                          grad_floor=SCENARIO_GRAD_FLOOR)
+        cmp["reference"] = "float64, the same activation sides"
+    else:
+        cmp = _family_vs(path, family, run(model), run(ref), F32_LIMITS,
+                         grad_floor=SCENARIO_GRAD_FLOOR)
+        cmp["reference"] = "float64"
+    model.load_state_dict(state, strict=True)
+    model.zero_grad(set_to_none=True)
+    cmp.pop("grad_rel_l2")          # the worst of them is kept
+    return cmp
+
+
+def scenario_step(dev, scenario: str, name: str, batch: int = SCENARIO_BATCH,
+                  compare: bool = True, timed_steps: int = 0, tag: str = "step",
+                  model=None, ref=None) -> tuple:
+    """One training step of the pair at ``batch`` through make_train_step
+    (the config's optimizer, schedule and clipping), counted: exact launch
+    and variant counts; with ``compare`` its arithmetic against its
+    reference (_scenario_step_vs) first; with ``timed_steps`` a warm-up
+    step and a window of that many. ``model`` (and, to compare a
+    kernel-free family, its float64 copy ``ref``) as built, else built here;
+    ``tag`` names the path. Returns (launches, row)."""
+    t0 = time.perf_counter()
+    cfg = _scenario(scenario, name)
+    path = f"{scenario}/{name}.yaml:{tag}"
+    norm = scenario_normalizer(cfg, scenario)
+    model = _scenario_model(dev, scenario, cfg) if model is None else model
+    x, y = _scenario_inputs(dev, scenario, batch)
+    row = dict(batch=batch)
+    if compare:
+        row["vs_reference"] = _scenario_step_vs(path, cfg, model, ref, *norm.preprocess(x, y))
+        row["compare_s"] = time.perf_counter() - t0
+        del ref
+        _free()
+    step = make_train_step(model, norm, build_optimizer(_train_cfg(cfg), model.parameters()))
+    model.reseed_dropout(SCENARIO_SEED)
+    # the main path, counted: nothing but this step between reset and read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    loss = step(x, y).item()
+    row["first_step_s"] = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    want, variants = _scenario_want(cfg, True)
+    row["variants"] = VARIANTS_BY_PATH[path] = _expect(launches, f"one step of {path}",
+                                                       variants=variants, **want)
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    losses = [loss]
+    if timed_steps:
+        step(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rate, last = _steps_per_s(step, x, y, timed_steps)
+        losses.append(last)
+        row.update(steps_per_s=rate, frames_per_s=rate * batch * SCENARIO_WINDOWS[scenario][1][0],
+                   timed_steps=timed_steps,
+                   peak_mem_gb=max(row["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9))
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"{path}: losses {losses} are not finite")
+    row.update(losses=losses, seconds=time.perf_counter() - t0)
+    del model, step
+    _free()
+    return launches, row
+
+
+def _dist(a, b) -> dict:
+    return dict(rel_l2=_rel_l2(a, b),
+                max_abs_over_max_ref=((a.float() - b.float()).abs().max()
+                                      / b.float().abs().max()).item())
+
+
+def scenario_prediction(dev, scenario: str, name: str, batch: int = SCENARIO_BATCH,
+                        compare: bool = True, timed: bool = False, model=None,
+                        ref=None) -> tuple:
+    """The pair's prediction through make_rollout_fn (DMD:
+    make_host_rollout_fn) at the config's N_autoregressive and ``batch``,
+    para_c planes re-injected, counted: exact launch and variant counts,
+    the output's shape and finiteness; with ``compare`` against its
+    reference (the plain f32 path; the float64 copy ``ref``; WDNO the plain
+    sample on the same draws, both under cuDNN's deterministic algorithms;
+    DMD the CPU); with ``timed`` a warm-up prediction at SCENARIO_BATCH
+    first, so that the counted one's seconds give frames/s. ``model`` (and
+    ``ref``, as for scenario_step) as built, else built here. Returns
+    (launches, row)."""
+    from realpdebench_tpu_torch.eval.rollout import make_host_rollout_fn
+
+    t0 = time.perf_counter()
+    cfg = _scenario(scenario, name)
+    family = cfg["model_name"]
+    path = f"{scenario}/{name}.yaml:prediction"
+    si, so = SCENARIO_WINDOWS[scenario]
+    n, para_c = int(cfg["N_autoregressive"]), si[-1] - so[-1]
+    norm = scenario_normalizer(cfg, scenario)
+    model = (_scenario_model(dev, scenario, cfg) if model is None else model).eval()
+    x_raw, y_raw = _scenario_inputs(dev, scenario, batch, n)
+    rollout = (make_rollout_fn if model.trainable else make_host_rollout_fn)(
+        model, norm, n, para_c)
+    row = dict(batch=batch, steps=n, para_c=para_c)
+    if timed:
+        rollout(x_raw[:SCENARIO_BATCH], y_raw[:SCENARIO_BATCH])
+    sampled = family == "wdno"
+    model.reseed_dropout(SCENARIO_SEED)
+    torch.backends.cudnn.deterministic = sampled and compare
+    try:
+        # the main path, counted: nothing but this prediction between reset and read
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        pred, xn, _ = rollout(x_raw, y_raw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = dict(kernels.LAUNCHES)
+        want, variants = _scenario_want(cfg, False, n)
+        row["variants"] = VARIANTS_BY_PATH[path] = _expect(launches, f"the {path}",
+                                                           variants=variants, **want)
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        c = int(cfg["input_feature"]) if family == "dmd" else so[-1]
+        shape = (batch, n * so[0], *so[1:3], c)
+        if tuple(pred.shape) != shape or not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"{path}: output {tuple(pred.shape)} (want {shape}) "
+                                 "or not finite")
+        row.update(predict_s=secs, frames_per_s=batch * n * so[0] / secs)
+        if compare:
+            if sampled:
+                # the plain sample from the same draws (the generator restarted)
+                model.reseed_dropout(SCENARIO_SEED)
+                with torch.inference_mode():
+                    ref_pred = model.sample(xn, reference=True)
+                lim, what = SCENARIO_WDNO_SAMPLE, "plain f32 sample, same draws"
+            elif family == "dmd":
+                ref_pred = rollout(x_raw.cpu(), y_raw.cpu())[0]
+                lim, what = (SCENARIO_DMD_TOL,) * 2, "the CPU"
+            elif family in KERNEL_FAMILIES:
+                ref_pred = make_rollout_fn(_PlainPath(model), norm, n, para_c)(x_raw, y_raw)[0]
+                lim, what = FAMILY_F32_ROLLOUT, "plain f32 path"
+            else:
+                ref_pred = make_rollout_fn(ref.eval(), norm, n, para_c)(x_raw, y_raw)[0]
+                lim, what = FAMILY_F32_ROLLOUT, "float64"
+            d = _dist(pred, ref_pred.to(pred.device))
+            row["vs_reference"] = dict(reference=what, **d, limit_rel_l2=lim[0],
+                                       limit_max=lim[1])
+            if not (d["rel_l2"] <= lim[0] and d["max_abs_over_max_ref"] <= lim[1]):
+                raise AssertionError(f"{path} vs its reference: {row['vs_reference']}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    row["seconds"] = time.perf_counter() - t0
+    del rollout, pred
+    return launches, row
+
+
+def scenario_pair(dev, scenario: str, name: str) -> tuple:
+    """The pair's prediction and then its step at SCENARIO_BATCH against
+    their references, on one model (and one float64 copy, made from the
+    weights before either): (launches by path, row)."""
+    t0 = time.perf_counter()
+    key, cfg = f"{scenario}/{name}.yaml", _scenario(scenario, name)
+    model = _scenario_model(dev, scenario, cfg)
+    ref = None if cfg["model_name"] in (*KERNEL_FAMILIES, "dmd") else _f64_copy(model)
+    row = dict(build_s=time.perf_counter() - t0)
+    by_path = {}
+    by_path[f"{key}:prediction"], row["prediction"] = scenario_prediction(
+        dev, scenario, name, model=model, ref=ref)
+    if model.trainable:                 # DMD: training-free
+        by_path[f"{key}:step"], row["step"] = scenario_step(dev, scenario, name, model=model,
+                                                            ref=ref)
+    del model, ref
+    _free()
+    return by_path, row
+
+
+def phase_scenarios(dev) -> dict:
+    """Every pair of SCENARIO_PAIRS: its prediction and its step (one line a
+    pair, with the configs it covers), then the shipped-batch steps of
+    SCENARIO_SHIPPED_STEP; a last line lists the pairs that the phases above
+    hold. Returns the launch counts by path."""
+    t_all = time.perf_counter()
+    covers, by_path = scenario_covers(), {}
+    for scenario, name in SCENARIO_PAIRS:
+        t0 = time.perf_counter()
+        key = f"{scenario}/{name}.yaml"
+        launches, row = scenario_pair(dev, scenario, name)
+        by_path.update(launches)
+        emit(dict(phase="scenario", pair=key, covers=covers[key],
+                  window=SCENARIO_WINDOWS[scenario], **row, seconds=time.perf_counter() - t0))
+    for scenario, name in SCENARIO_SHIPPED_STEP:
+        key = f"{scenario}/{name}.yaml"
+        batch = int(_scenario(scenario, name)["train_batch_size"])
+        by_path[f"{key}:shipped_step"], row = scenario_step(
+            dev, scenario, name, batch, compare=False, tag="shipped_step")
+        emit(dict(phase="scenario_shipped_step", pair=key, **row))
+    emit(dict(phase="scenarios", pairs=len(SCENARIO_PAIRS),
+              configs=sum(len(covers[f"{s}/{n}.yaml"]) for s, n in SCENARIO_PAIRS),
+              held_by_earlier_phases={k: dict(phases=v, covers=covers[k])
+                                      for k, v in SCENARIO_HELD.items()},
+              batch=SCENARIO_BATCH, seconds=time.perf_counter() - t_all))
+    return by_path
+
+
 def phase_mesh_dp1(dev) -> dict:
     """The loops' data-parallel step on one card: the cylinder FNO's f32
     step (MODEL, batch TRAIN_BATCH, grad_accum 2: strided microbatches)
@@ -3998,10 +4486,16 @@ def phase_fsi_train(dev, norm) -> dict:
     y = torch.randn(FSI_BATCH, *SHAPE_OUT, generator=g, device=dev)
     total = dict.fromkeys(kernels.LAUNCHES, 0)
     total_variants = {k: dict.fromkeys(v, 0) for k, v in kernels.VARIANTS.items()}
+    init = None     # the f32 model with make_generator(1)'s weights, never run
     for cdt in (None, "bfloat16"):
         dtype = torch.bfloat16 if cdt else torch.float32
         model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=cdt, device=dev,
                             generator=make_generator(1), **FSI_MODEL)
+        # the comparison's copies of the weights before the step, kept on the
+        # host during it (each build draws 537M floats on the host: the whole
+        # run's time limit)
+        cmp_model = copy.deepcopy(model).cpu()
+        init = copy.deepcopy(model).cpu() if init is None else init
         opt = build_optimizer(FSI_TRAIN_CFG, model.parameters())
         step = make_train_step(model, norm, opt, grad_accum=1)
         # the main path, counted: nothing but this step between reset and read
@@ -4030,11 +4524,8 @@ def phase_fsi_train(dev, norm) -> dict:
             for v, n in counts.items():
                 total_variants[k][v] += n
 
-        # the comparison at FSI_CMP_BATCH, fresh weights from the same seed
-        cmp_model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), compute_dtype=cdt, device=dev,
-                                generator=make_generator(1), **FSI_MODEL)
-        ref_model = build_model(shapes=(SHAPE_IN, SHAPE_OUT), device=dev, **FSI_MODEL)
-        ref_model.load_state_dict(cmp_model.state_dict(), strict=True)
+        # the comparison at FSI_CMP_BATCH from the weights before the step
+        cmp_model, ref_model = cmp_model.to(dev), copy.deepcopy(init).to(dev)
         xn, yn = norm.preprocess(x[:FSI_CMP_BATCH], y[:FSI_CMP_BATCH])
         closs = cmp_model.loss(xn, yn)
         closs.backward()
@@ -4243,7 +4734,7 @@ def phase_surrogate_fno_rollout(dev) -> dict:
     if not (rel_l2 <= lim_l2 and max_rel <= lim_max):
         raise AssertionError(f"{path}: prediction vs the plain f32 path: {row}")
     secs = []
-    for _ in range(FAMILY_ROLLOUTS):
+    for _ in range(SURROGATE_ROLLOUTS):
         t0 = time.perf_counter()
         surrogate_trajectory(predict, inp, T)
         secs.append(time.perf_counter() - t0)
@@ -4389,6 +4880,7 @@ def phase_surrogate_loop(dev, tree=None) -> dict:
         argv = ["--config", "combustion/surrogate_model/fno.yaml", "--dataset_root",
                 f"{work}/data", "--use_hf_dataset", "--results_path", f"{work}/results",
                 "--num_update", str(SURROGATE_LOOP_STEPS),
+                "--train_batch_size", str(SURROGATE_LOOP_BATCH),
                 # the surrogate datasets' defaults, which the tree was written with
                 "--step", str(SURROGATE_WINDOW[0]), "--n_sim_frame", str(SURROGATE_FRAMES)]
         _free()
@@ -4416,7 +4908,7 @@ def phase_surrogate_loop(dev, tree=None) -> dict:
             raise AssertionError(f"the {path}'s checkpoints: {kept}")
         emit(dict(phase=path, config="combustion/surrogate_model/fno.yaml",
                   data="Arrow surrogate tree written from arrays (write_surrogate_train)",
-                  tree_s=tree_s, batch=int(cfg["train_batch_size"]), test_windows=n_test,
+                  tree_s=tree_s, batch=SURROGATE_LOOP_BATCH, test_windows=n_test,
                   test_batches=test_batches, evaluations=n_eval, wall_s=wall,
                   loop_steps_per_s=hist["perf"]["loop_steps_per_sec"],
                   bare_step_steps_per_s=BARE_STEPS_PER_S.get("surrogate_fno_train_f32"),
@@ -4426,6 +4918,8 @@ def phase_surrogate_loop(dev, tree=None) -> dict:
                   tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT),
                   reduced=dict(num_update=dict(here=SURROGATE_LOOP_STEPS,
                                                shipped=cfg["num_update"]),
+                               train_batch_size=dict(here=SURROGATE_LOOP_BATCH,
+                                                     shipped=cfg["train_batch_size"]),
                                tree=dict(here=f"{SURROGATE_SIMS} synthetic pairs of "
                                               f"{SURROGATE_FRAMES} frames at {H}x{W}",
                                          shipped="the published surrogate-train pairs"))))
@@ -4550,13 +5044,16 @@ def phase_profile(step, x, y, phase: str = "profile", steps: int = PROFILE_STEPS
 # the keys its splits need are cut from the published dataset's; each
 # override below stands beside the shipped value.
 # 300 frames a trajectory (the whole run's time limit: it halves each
-# validation and the tree's making against 600)
+# validation and the tree's making against 600); 10 real trajectories (16
+# before the scenarios phase took their time): 33 real val windows [54 at
+# 16], the unseen test windows 14 as at 16
 LOOP_TREE = dict(scenario="cylinder", n_frame=300, seed=0,
-                 sizes={"real": (16, 64, 128), "numerical": (4, 128, 256)})
-# 12 steps (the whole run's time limit): validation and a checkpoint every
-# step, iterations 10-12 traced, StepTimer's one window of 10 after 2
-# warm-up steps
-LOOP_STEPS = 12
+                 sizes={"real": (10, 64, 128), "numerical": (4, 128, 256)})
+# 2 steps (the whole run's time limit; 12 before the scenarios phase took
+# their time, iterations 10-12 traced and StepTimer's window of 10 after 2
+# warm-up steps): validation and a checkpoint every step, both checkpoints
+# kept, no traced iteration
+LOOP_STEPS = 2
 LOOP_OVERRIDES = {  # key: (value here, shipped value)
     "n_sim_frame": (300, 3990),
     "n_sim_in_distribution": (1, 10),
@@ -4566,7 +5063,6 @@ LOOP_OVERRIDES = {  # key: (value here, shipped value)
     "max_to_keep": (2, None),
     "N_plot_probe": (0, 12),
 }
-LOOP_PROFILE = (10, 19)          # the loop's own iterations traced (utils/profiling)
 RESUME_STEPS = 1                 # each loop resumed this far (the run's time limit)
 LOOP_METRICS_REL = 1e-4          # the sweep on the card vs on the CPU, per metric
 EVAL_METRIC_REL, EVAL_METRIC_ABS, EVAL_SMALL = 5e-2, 1e-3, 1e-2
@@ -4582,22 +5078,25 @@ def _compared(name: str, value: float) -> float:
 EVAL_PLAIN_CHUNK = 16            # the plain f32 rollout, 16 windows at a time
 # the forward of one FNO predict (4 layers); a training step's is TRAIN_LAUNCHES
 PREDICT_LAUNCHES = dict(k1=4, t_stage=8, k2=4)
-# the UNet's and the GK's loops and evaluations: their shipped configs in
-# bf16 on the same tree, at the shipped widths and batches. Validation (the
-# 54 real val windows) and a checkpoint come every num_update // 50 steps,
+# the FNO's, UNet's and GK's loops and evaluations: their shipped configs
+# in their shipped f32 (the kernels' tf32 variants; the scores mma) on the
+# same tree, at the shipped widths and batches (the Arrow phase keeps the
+# FNO's loop in bf16, the CLI's --compute_dtype route); the controlled
+# cylinder's UNet (controlled_unet_loop) on a controlled_cylinder tree of
+# the same sizes (LoopRun("controlled_cylinder"): its two parameter planes,
+# para_c 2, TA at T 10). Validation (the
+# 33 real val windows) and a checkpoint come every num_update // 50 steps,
 # which below 100 steps is every step. Eval
 # reads the test split's unseen trajectories (test_mode): 8 windows at the
 # UNet's 5 steps. The plots need matplotlib: where it is missing, N_plot and
 # N_plot_probe are 0.
 # the UNet's, GK's, DeepONet's and MWT's loops run 1 step and their resume
-# a 2nd (the whole run's time limit): no traced
-# iteration, no StepTimer window (the FNO's loop keeps its 12, its trace and
-# its window)
+# a 2nd (the whole run's time limit)
 MODEL_LOOP_STEPS = 1
 MODEL_TEST_MODE = "unseen"
 FAMILY_LOOP_STEPS = 1
 # CNO's and Transolver's loops run 1 step (the whole run's time limit): a
-# CNO validation of the 54 windows is ≈ 140 TFLOP in full f32, Transolver's
+# CNO validation of the 54 windows was ≈ 140 TFLOP in full f32, Transolver's
 # sweeps took 54 of its 12-step loop's 64 s; no traced iteration, no
 # StepTimer window
 CNO_LOOP_STEPS = TRANSOLVER_LOOP_STEPS = 1
@@ -4606,12 +5105,12 @@ CNO_LOOP_STEPS = TRANSOLVER_LOOP_STEPS = 1
 ARROW_STEPS = 2          # the whole run's time limit
 ARROW_WINDOWS = 8       # windows of each split and type held bit for bit, and timed
 # WDNO's loop and eval in its shipped f32 (the TA kernels' tf32 variants):
-# 1 step with its one validation sweep (each of the 54 val windows a DDIM
+# 1 step with its one validation sweep (each of the 33 val windows a DDIM
 # sample of WDNO_LOOP_DDIM [10] denoiser forwards: the sample phases keep the
 # shipped 10), no trace, no StepTimer window, no
 # resume; the eval over the 14 unseen test windows at N_autoregressive 1
 # [5]; test batch 14 [64]: the eval's windows in one batch, the sweep's in
-# 4 (at 64 the sweep would sample 64 padded windows). The reload samples 2
+# 3 (at 64 the sweep would sample 64 padded windows). The reload samples 2
 # val windows (its metrics are held card against CPU: one window's r2 is
 # too ill-conditioned for that); 2 test windows go through the plain f32
 # path too.
@@ -4624,25 +5123,34 @@ WDNO_RELOAD_WINDOWS, WDNO_PLAIN_WINDOWS = 2, 2
 DMD_CONFIG = "cylinder/dmd.yaml"
 # each loop path: its config, the compute dtype it runs (None: f32, as the
 # configs ship), its steps, the kernel launches of one training step and of
-# one forward, its eval phase, its bare step's phase and its other cuts
-# (key: (value here, shipped value)). Transolver's and CNO's loops are not
+# one forward, its eval phase, its bare step's phase, the variant its
+# kernels launch (default mma; the T-stage registers), its scenario's tree
+# (default the cylinder's) and its other cuts (key: (value here, shipped
+# value)). Transolver's and CNO's loops are not
 # resumed (resume False): a resume re-runs their slowest part, a
 # validation sweep, and the whole run's time limit took it; the FNO's,
 # UNet's, GK's, DeepONet's and MWT's loops hold the resume. DeepONet and
 # Transolver run in their shipped f32, at the shipped batches, and launch no
 # kernel.
 LOOPS = {
-    "loop": dict(config="cylinder/fno.yaml", dtype="bfloat16", steps=LOOP_STEPS,
-                 step=TRAIN_LAUNCHES, predict=PREDICT_LAUNCHES, eval="eval", bare="train"),
-    "unet_loop": dict(config="cylinder/unet.yaml", dtype="bfloat16", steps=MODEL_LOOP_STEPS,
+    "loop": dict(config="cylinder/fno.yaml", dtype=None, steps=LOOP_STEPS,
+                 step=TRAIN_LAUNCHES, predict=PREDICT_LAUNCHES, eval="eval", bare="train_f32",
+                 variant="tf32"),
+    "unet_loop": dict(config="cylinder/unet.yaml", dtype=None, steps=MODEL_LOOP_STEPS,
                       step=dict(ta_fwd=UNET_TA_PER_FORWARD, ta_bwd=UNET_TA_PER_FORWARD),
                       predict=dict(ta_fwd=UNET_TA_PER_FORWARD), eval="unet_eval",
-                      bare="unet_train"),
-    "gk_loop": dict(config="cylinder/galerkin_transformer.yaml", dtype="bfloat16",
+                      bare="unet_train_f32", variant="tf32"),
+    "controlled_unet_loop": dict(config="controlled_cylinder/unet.yaml", dtype=None,
+                                 steps=MODEL_LOOP_STEPS, scenario="controlled_cylinder",
+                                 step=dict(ta_fwd=UNET_TA_PER_FORWARD,
+                                           ta_bwd=UNET_TA_PER_FORWARD),
+                                 predict=dict(ta_fwd=UNET_TA_PER_FORWARD),
+                                 eval="controlled_unet_eval", bare=None, variant="tf32"),
+    "gk_loop": dict(config="cylinder/galerkin_transformer.yaml", dtype=None,
                     steps=MODEL_LOOP_STEPS,
                     step=dict(gk_scores=GK_MODEL["num_encoder_layers"]),
                     predict=dict(gk_scores=GK_MODEL["num_encoder_layers"]),
-                    eval="gk_eval", bare="gk_train"),
+                    eval="gk_eval", bare="gk_train_f32"),
     "deeponet_loop": dict(config="cylinder/deeponet.yaml", dtype=None,
                           steps=FAMILY_LOOP_STEPS, step={}, predict={},
                           eval="deeponet_eval", bare="deeponet_train_f32"),
@@ -4699,16 +5207,21 @@ def check_f32_exact(what: str) -> tuple:
 
 
 class LoopRun:
-    """The tree, each loop's argv and the loops' checkpoints, shared by
-    phase_loop, phase_eval and phase_arrow; ``close`` removes the tree."""
+    """The tree of ``scenario`` (LOOP_TREE's sizes), each loop's argv and the
+    loops' checkpoints, shared by phase_loop, phase_eval and phase_arrow;
+    ``close`` removes the tree."""
 
-    def __init__(self):
+    def __init__(self, scenario: str = "cylinder"):
         import importlib.util
         import tempfile
 
-        from realpdebench_tpu_torch.data.fluid import Cylinder, with_arrays
+        from realpdebench_tpu_torch.data import fluid
         from realpdebench_tpu_torch.data.synthetic import fluid_arrays, make_fluid_tree
 
+        self.scenario = scenario
+        tree = dict(LOOP_TREE, scenario=scenario)
+        cls = {"cylinder": fluid.Cylinder,
+               "controlled_cylinder": fluid.ControlledCylinder}[scenario]
         self.work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
         self.root = f"{self.work}/data"
         self.ckpt_dirs = {}
@@ -4716,13 +5229,13 @@ class LoopRun:
         self.h5py = importlib.util.find_spec("h5py") is not None
         self.plots = importlib.util.find_spec("matplotlib") is not None
         if self.h5py:
-            make_fluid_tree(self.root, **LOOP_TREE)
+            make_fluid_tree(self.root, **tree)
             self.arrays = self.dataset_class = None
         else:
             # no h5py on this host: the same arrays in memory, read by the
-            # cylinder dataset with its window reader replaced
-            self.arrays = fluid_arrays(**LOOP_TREE)
-            self.dataset_class = with_arrays(Cylinder, self.arrays)
+            # scenario's dataset with its window reader replaced
+            self.arrays = fluid_arrays(**tree)
+            self.dataset_class = fluid.with_arrays(cls, self.arrays)
         self.tree_s = time.perf_counter() - t0
 
     def overrides(self, path: str, evaluating: bool = False) -> dict:
@@ -4765,7 +5278,7 @@ class LoopRun:
         r["tree"] = dict(here=f"{n_real} real trajectories at {h}x{w} and {n_num} "
                               f"numerical at {hn}x{wn}, {LOOP_TREE['n_frame']} frames "
                               "each, synthetic (data/synthetic)",
-                         shipped="the published cylinder trees")
+                         shipped=f"the published {self.scenario} trees")
         if not self.plots and ("N_plot" in r or "N_plot_probe" in r):
             r["plots"] = "this host has no matplotlib: N_plot and N_plot_probe are 0"
         return r
@@ -4820,79 +5333,6 @@ def _check_launches(what: str, loop: dict, n_steps: int, n_predicts: int) -> tup
         k: {"registers" if k == "t_stage" else loop.get("variant", "mma"): n}
         for k, n in want.items() if n})
     return launches, variants
-def _interval_union(iv):
-    out = []
-    for a, b in sorted(iv):
-        if out and a <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], b)
-        else:
-            out.append([a, b])
-    return out
-
-
-def _overlap(intervals, spans) -> float:
-    """Length of the union of ``intervals`` that lies inside ``spans``."""
-    spans = _interval_union(spans)
-    total, j = 0.0, 0
-    for a, b in intervals:
-        for s, e in spans:
-            lo, hi = max(a, s), min(b, e)
-            if hi > lo:
-                total += hi - lo
-    return total
-
-
-def loop_trace_summary(path: str) -> dict:
-    """The device's idle share over the traced loop iterations, and which
-    of the main thread's spans (waiting for a batch, validation, checkpoint,
-    the step's own host time) the idle time falls in, from the Chrome trace
-    torch.profiler wrote."""
-    with open(path) as f:
-        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    dev = [(e["ts"], e["ts"] + e["dur"]) for e in ev
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    ann = [e for e in ev if e.get("cat") == "user_annotation"]
-    steps = [e for e in ann if e["name"] == "train_step"]
-    if not dev or not steps:
-        raise AssertionError(f"the loop trace holds {len(dev)} device events and "
-                             f"{len(steps)} steps")
-    t0 = min(e["ts"] for e in steps)
-    t1 = max(max(e["ts"] + e["dur"] for e in ann), max(b for _, b in dev))
-    busy = _interval_union([(max(a, t0), min(b, t1)) for a, b in dev if b > t0 and a < t1])
-    idle, cur = [], t0
-    for a, b in busy:
-        if a > cur:
-            idle.append((cur, a))
-        cur = max(cur, b)
-    if t1 > cur:
-        idle.append((cur, t1))
-    window = t1 - t0
-    idle_total = sum(b - a for a, b in idle)
-    main_tid = steps[0]["tid"]
-    spans = {}
-    for e in ann:
-        spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"], e["tid"]))
-    by_span = {name: _overlap(idle, [(a, b) for a, b, t in sp if t == main_tid]) / 1e3
-               for name, sp in spans.items() if any(t == main_tid for *_, t in sp)}
-    host_ms = {name: sum(b - a for a, b, _ in sp) / 1e3 for name, sp in spans.items()}
-    largest = sorted(idle, key=lambda g: g[0] - g[1])[:5]
-
-    def where(g):
-        best = max(((n, _overlap([g], [(a, b) for a, b, t in sp if t == main_tid]))
-                    for n, sp in spans.items()), key=lambda p: p[1], default=(None, 0))
-        return best[0] if best[1] > 0 else "none"
-
-    copies = [e for e in ev if e.get("cat") == "gpu_memcpy"]
-    return dict(
-        steps=len(steps), window_ms=window / 1e3,
-        device_busy_ms=(window - idle_total) / 1e3, idle_share=idle_total / window,
-        idle_ms_in_host_span=by_span,
-        idle_ms_outside_spans=(idle_total / 1e3 - sum(by_span.values())),
-        host_span_ms=host_ms,
-        largest_gaps=[dict(ms=(b - a) / 1e3, during=where((a, b))) for a, b in largest],
-        memcpy_ms=sum(e["dur"] for e in copies) / 1e3,
-        memcpy_by_kind={k: sum(e["dur"] for e in copies if e["name"].startswith(k)) / 1e3
-                        for k in ("Memcpy HtoD", "Memcpy DtoH", "Memcpy DtoD")})
 
 
 def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
@@ -4924,7 +5364,6 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     batch, test_batch = int(cfg.train_batch_size), int(cfg.test_batch_size)
     val_batches = math.ceil(len(val_ds) / test_batch)
     val_every = max(1, steps // 50)
-    prof_dir = f"{run.work}/profile_{path}"
 
     # the main path, counted: nothing but the training run between reset and read
     _free()
@@ -4933,7 +5372,7 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     t0 = time.perf_counter()
     exp1, model, opt, hist = cli_run(
         train_main, f"the {path}",
-        [*base, "--train_data_type", "numerical", "--profile_dir", prof_dir],
+        [*base, "--train_data_type", "numerical"],
         dataset_class=run.dataset_class)
     wall = time.perf_counter() - t0
     n_val = steps // val_every
@@ -4948,10 +5387,6 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     steps_kept = CheckpointManager(ckpt_dir).all_steps()
     if steps_kept != [s for s in (steps - val_every, steps) if s > 0]:
         raise AssertionError(f"checkpoints kept: {steps_kept}")
-    traced = min(LOOP_PROFILE[1], steps) - LOOP_PROFILE[0] + 1
-    trace = loop_trace_summary(f"{prof_dir}/trace.json") if traced > 0 else None
-    if trace is not None and trace["steps"] != traced:
-        raise AssertionError(f"the trace holds {trace['steps']} steps")
 
     # reload: the checkpoint in a fresh model predicts bit for bit as the
     # trained model on one validation batch
@@ -4963,7 +5398,14 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
     xb = torch.from_numpy(np.stack([it[0] for it in items])).to(dev)
     yb = torch.from_numpy(np.stack([it[1] for it in items])).to(dev)
     xn, _ = normalizer.preprocess(xb, yb)
-    if not torch.equal(model.predict(xn), fresh.predict(xn)):
+    # cuDNN held to its deterministic algorithms for the two (its default f32
+    # ones may differ from call to call: the f32 UNet's do)
+    torch.backends.cudnn.deterministic = True
+    try:
+        same = torch.equal(model.predict(xn), fresh.predict(xn))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not same:
         raise AssertionError("the reloaded checkpoint predicts otherwise than the "
                              "trained model")
     del fresh, xb, yb, xn
@@ -5021,9 +5463,6 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
 
     perf = hist["perf"]
     reduced = run.reduced(path)
-    if trace is None:
-        reduced["trace"] = (f"{steps} steps: no iteration traced ({LOOP_PROFILE[0]}-"
-                            f"{LOOP_PROFILE[1]}), no StepTimer window")
     if resume is None:
         reduced["resume"] = dict(here=None, other_loops=f"{RESUME_STEPS} step")
     emit(dict(phase=path, config=loop["config"], data=run.data_source(),
@@ -5032,13 +5471,10 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
               train_windows=len(train_ds), val_batches=val_batches,
               validations=n_val, wall_s=wall,
               loop_steps_per_s=perf["loop_steps_per_sec"],
-              step_timer_steps_per_s=perf.get("steps_per_sec"),
-              step_timer_ms_p50=perf.get("step_ms_p50"),
-              step_timer_ms_p95=perf.get("step_ms_p95"),
               bare_step_steps_per_s=BARE_STEPS_PER_S.get(loop["bare"]),
               validation_s=perf["validation_s"], checkpoint_s=perf["checkpoint_s"],
               batch_assembly_s=perf["batch_assembly_s"],
-              trace=trace, launches=launches, variants=variants, peak_mem_gb=peak,
+              launches=launches, variants=variants, peak_mem_gb=peak,
               first_losses=losses[:10], last_losses=losses[-10:],
               metrics_card_vs_cpu=metric_cmp, limit_metrics_rel=LOOP_METRICS_REL,
               tf32_switches=dict(before=TF32_DEFAULTS, after=F32_EXACT),
@@ -5049,11 +5485,14 @@ def phase_loop(dev, run: LoopRun, path: str = "loop") -> dict:
 
 
 def _rollout_arrays(predictor, normalizer, test_ds, batch, chunk, dev, c, n_steps):
-    """The whole test split rolled out (physical units, on the card)."""
+    """The whole test split rolled out (physical units, on the card), the
+    parameter planes re-injected where the inputs carry them (para_c)."""
     from realpdebench_tpu_torch.data.loader import DataLoader, to_device
     from realpdebench_tpu_torch.eval.rollout import finalize_rollout
 
-    rollout = make_rollout_fn(predictor, normalizer, n_steps)
+    x0, y0 = test_ds[0][:2]
+    rollout = make_rollout_fn(predictor, normalizer, n_steps,
+                              max(0, x0.shape[-1] - y0.shape[-1]))
     preds, targets = [], []
     batches = to_device(DataLoader(test_ds, batch_size=batch, num_workers=12,
                                    pad_last=True, pin_memory=dev.type == "cuda"), dev)
@@ -5073,7 +5512,7 @@ def _rollout_arrays(predictor, normalizer, test_ds, batch, chunk, dev, c, n_step
 
 def phase_eval(dev, run: LoopRun, path: str = "loop") -> dict:
     """python -m realpdebench_tpu_torch eval, in this process, on the loop
-    ``path``'s checkpoint in bf16 at the config's test batch and
+    ``path``'s checkpoint in the loop's dtype at the config's test batch and
     autoregressive steps; the metrics against the same checkpoint through
     the plain f32 path."""
     import math
@@ -5106,7 +5545,7 @@ def phase_eval(dev, run: LoopRun, path: str = "loop") -> dict:
         raise AssertionError(f"N_autoregressive {n_steps} is not the shipped one")
     n_predicts = math.ceil(len(test_ds) / batch) * n_steps
     launches, variants = _check_launches(f"the {name}", loop, 0, n_predicts)
-    frames = len(test_ds) * n_steps * SHAPE_OUT[0]
+    frames = len(test_ds) * n_steps * test_ds[0][1].shape[0]
     keys = [*METRIC_NAMES, "normalized_mse"]
     keys += ["probe_error"] if cfg.get("probe_diagnostic") else []
     if set(results) != set(keys) or not all(math.isfinite(results[k]) for k in keys):
@@ -5507,10 +5946,12 @@ def phase_arrow(dev, run: LoopRun):
                                 hdf5_class_s_per_window=secs[0],
                                 arrow_s_per_window=secs[1]))
 
-    # the bf16 FNO loop on the Arrow tree
-    loop = LOOPS["loop"]
-    base = [*run.argv("loop"), "--use_hf_dataset", "true", "--train_data_type", "numerical",
-            "--num_update", str(ARROW_STEPS), "--results_path", f"{run.work}/arrow"]
+    # the FNO loop on the Arrow tree in bf16 (--compute_dtype: the loop
+    # phase runs the shipped f32), every kernel in its mma variant
+    loop = dict(LOOPS["loop"], variant="mma")
+    base = [*run.argv("loop"), "--compute_dtype", "bfloat16", "--use_hf_dataset", "true",
+            "--train_data_type", "numerical", "--num_update", str(ARROW_STEPS),
+            "--results_path", f"{run.work}/arrow"]
     val_batches = math.ceil(len(CylinderHFDataset("cylinder", run.root, "real", "val",
                                                   **keys)) / int(_parse(base).test_batch_size))
     _free()
@@ -5525,7 +5966,8 @@ def phase_arrow(dev, run: LoopRun):
     if len(hist["train_loss"]) != ARROW_STEPS or not all(
             math.isfinite(v) for v in hist["train_loss"]):
         raise AssertionError(f"the Arrow-backed loop's losses: {hist['train_loss']}")
-    emit(dict(phase="arrow", host_imports=have, datasets=datasets.__version__,
+    emit(dict(phase="arrow", compute_dtype="bfloat16", host_imports=have,
+              datasets=datasets.__version__,
               pyarrow=pyarrow.__version__, data=run.data_source(), write_s=write_s,
               windows=windows, steps=ARROW_STEPS, validations=n_val, wall_s=wall,
               loop_steps_per_s=hist["perf"]["loop_steps_per_sec"],
@@ -5855,26 +6297,30 @@ def sim_phases(dev) -> dict:
     return out
 
 
-def loop_and_eval(dev, run=None, surrogate=None) -> dict:
+def loop_and_eval(dev, run=None, surrogate=None, controlled=None) -> dict:
     """The loop and eval phases of each loop path, then the Arrow backend
-    and the DPOT finetune, on one synthetic tree (``run``, a LoopRun, or
-    one made here); then the train-surrogate loop on its own Arrow tree
-    (``surrogate``, surrogate_tree()'s, or one made there); their launch
-    counts by path."""
-    run = run or LoopRun()
+    and the DPOT finetune, on one synthetic cylinder tree (``run``, a
+    LoopRun, or one made here; the controlled cylinder's loop on
+    ``controlled``, LoopRun("controlled_cylinder")'s, or one made here);
+    then the train-surrogate loop on its own Arrow tree (``surrogate``,
+    surrogate_tree()'s, or one made there); their launch counts by path."""
+    runs = {"cylinder": run or LoopRun(),
+            "controlled_cylinder": controlled or LoopRun("controlled_cylinder")}
     out = {}
     try:
         for path, loop in LOOPS.items():
-            sampled = path in SAMPLED_LOOPS
-            out[path] = (phase_wdno_loop if sampled else phase_loop)(dev, run, path)
-            out[loop["eval"]] = (phase_wdno_eval if sampled else phase_eval)(dev, run, path)
+            sampled, tree = path in SAMPLED_LOOPS, runs[loop.get("scenario", "cylinder")]
+            out[path] = (phase_wdno_loop if sampled else phase_loop)(dev, tree, path)
+            out[loop["eval"]] = (phase_wdno_eval if sampled else phase_eval)(dev, tree, path)
+        run = runs["cylinder"]
         out["dmd_eval"] = phase_dmd_eval(dev, run)
         arrow = phase_arrow(dev, run)
         if arrow is not None:
             out["arrow"] = arrow
         out["dpot_finetune"] = phase_dpot_finetune(dev, run)
     finally:
-        run.close()
+        for r in runs.values():
+            r.close()
     out["surrogate_loop"] = phase_surrogate_loop(dev, surrogate)
     _free()
     return out
@@ -5900,6 +6346,11 @@ def main() -> None:
         # alone, without the summary and result lines
         phase_build()
         loop_and_eval(dev)
+        return
+    if sys.argv[1:] == ["--only-scenarios"]:
+        # the scenario configs' pairs alone, without the summary and result lines
+        phase_build()
+        phase_scenarios(dev)
         return
     if sys.argv[1:] == ["--only-sim"]:
         # the simulation generators' phases alone, without the build, the
@@ -5937,7 +6388,8 @@ def main() -> None:
     # loops; not during the kernel phases above, whose queued timings need
     # the host to queue launches faster than the card runs them
     trees = ThreadPoolExecutor(max_workers=1)
-    tree, stree = trees.submit(LoopRun), trees.submit(surrogate_tree)
+    tree, ctree, stree = (trees.submit(LoopRun), trees.submit(LoopRun, "controlled_cylinder"),
+                          trees.submit(surrogate_tree))
     by_path["rollout"] = phase_slice(dev)
     torch.cuda.empty_cache()
     by_path["rollout_f32"] = phase_slice(dev, compute_dtype=None)
@@ -5953,6 +6405,7 @@ def main() -> None:
     by_path["surrogate_fno_rollout_f32"] = phase_surrogate_fno_rollout(dev)
     by_path["combustion_fno_train_f32"] = phase_combustion_fno_train(dev)
     by_path["combustion_fno_rollout_f32"] = phase_combustion_fno_rollout(dev)
+    by_path.update(phase_scenarios(dev))
     by_path["fsi_train"] = phase_fsi_train(dev, norm)
     torch.cuda.empty_cache()
     by_path["unet_rollout"] = phase_unet_rollout(dev, norm)
@@ -5985,7 +6438,7 @@ def main() -> None:
         if family not in BUILD_OVERLAP:
             by_path.update(family_phases(dev, norm, family))
     by_path["cno_lrelu"] = phase_cno_lrelu(dev, norm)
-    by_path.update(loop_and_eval(dev, tree.result(), stree.result()))
+    by_path.update(loop_and_eval(dev, tree.result(), stree.result(), ctree.result()))
     by_path.update(sim_phases(dev))
     emit({"kernels": [
         dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
